@@ -1,0 +1,143 @@
+"""Build, load and launch the port's hand-written Hopper kernels.
+
+The sources in robot3dlotus_tpu_torch/csrc/*.cu have a plain C interface:
+each entry point takes raw device pointers, sizes and a cudaStream_t and
+returns cudaGetLastError(). At first use every source is compiled by its
+own nvcc process, all started together, for sm_90a; the objects are linked
+into one shared library under build/kernels/ (named by a hash of the
+sources and flags, so an edited source rebuilds) and loaded with ctypes.
+Nothing here runs at import time, and nothing falls back: a failed build
+or launch raises.
+
+LAUNCHES counts, per kernel, the launches made through `launch`; a caller
+that counts one run sets the counts to 0 with reset_launches just before
+it.
+"""
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+
+import torch
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C signatures: every entry point returns cudaGetLastError() as int
+SIGNATURES = {
+    # x, idx, out, B, N, M, D, stream
+    "r3dl_gather_rows": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # q, k, v, key_valid, out, G, H, P, Dh, scale, stream
+    "r3dl_patch_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                             ctypes.c_float, _P],
+    # x, idx, ok, w, bias|NULL, out, B, N, K, Cin, Cout, stream
+    "r3dl_subm_conv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, idx, ok, w, out, B, N, K, Cin, Cout, stream
+    "r3dl_stem_conv": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+}
+
+LAUNCHES = {"patch_attention": 0, "subm_conv": 0, "stem_conv": 0,
+            "gather_rows": 0}
+
+_LIB = None
+
+
+def _sources():
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+
+
+def _tag():
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for f in sorted(glob.glob(os.path.join(CSRC, "*"))):
+        with open(f, "rb") as fh:
+            h.update(os.path.basename(f).encode() + fh.read())
+    return h.hexdigest()[:12]
+
+
+def _nvcc():
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return nvcc
+
+
+def build():
+    """Compile every csrc/*.cu in parallel and link one .so, unless the
+    build of these sources exists; returns its path."""
+    so = os.path.join(BUILD_DIR, f"libr3dl_kernels-{_tag()}.so")
+    if os.path.exists(so):
+        return so
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        procs, objs = [], []
+        for src in _sources():
+            obj = os.path.join(tmp, os.path.basename(src) + ".o")
+            objs.append(obj)
+            procs.append((src, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-I", CSRC, "-c", src, "-o", obj],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        failed = []
+        for src, p in procs:
+            out, _ = p.communicate()
+            if p.returncode != 0:
+                failed.append(f"{src} (rc={p.returncode}):\n{out[-4000:]}")
+        if failed:
+            raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        tmp_so = os.path.join(tmp, "lib.so")
+        link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", *objs,
+                               "-o", tmp_so], capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stderr[-4000:]}")
+        os.replace(tmp_so, so)
+    return so
+
+
+def library():
+    """The loaded kernel library, built on first use."""
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(build())
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _LIB = lib
+    return _LIB
+
+
+def launch(kernel, c_name, *args):
+    """Call one C entry point on the current stream, raise on a launch
+    error, and count the launch under `kernel`."""
+    stream = torch.cuda.current_stream().cuda_stream
+    err = getattr(library(), c_name)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{c_name} launch failed: cudaError {err}")
+    LAUNCHES[kernel] += 1
+
+
+def reset_launches():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def check_cuda_tensor(name, t, dtype, ndim):
+    """Validate what a kernel takes: a contiguous CUDA tensor of dtype and
+    rank; raises instead of letting the kernel read garbage."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name}: expected {ndim} dims, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
