@@ -31,7 +31,7 @@ def params_from_jax(variables):
     state_dict (torch float32 tensors on the CPU)."""
     out = {}
     for path, leaf in _flatten(variables["params"]):
-        arr = np.asarray(leaf, np.float32)
+        arr = np.array(leaf, np.float32)
         if path[-1] == "kernel":
             arr = arr.T
         out[".".join(path[:-1] + (_PARAM_LEAF[path[-1]],))] = \

@@ -28,6 +28,7 @@ from ..models.factory import build_model, resolve_device
 from ..models.simple_policy import decode_actions
 from ..ops.serialization import sfc_encode_np
 from ..ops.voxel import voxelize_pcd_np, workspace_mask_np
+from ..utils.assets import resolve_asset
 from ..utils.robot_box import RobotBox
 
 TXT_BUCKETS = (4, 8, 16, 32, 80)
@@ -38,16 +39,6 @@ def _bucket(n, buckets):
         if n <= b:
             return b
     return buckets[-1]
-
-
-def _resolve_path(path):
-    """A config's data path as given, or relative to the repo root."""
-    if not path or os.path.isabs(path) or os.path.exists(path):
-        return path
-    root = os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
-    cand = os.path.join(root, path)
-    return cand if os.path.exists(cand) else path
 
 
 class Actioner:
@@ -85,13 +76,13 @@ class Actioner:
             self.num_points}))
 
         self.instr_embeds = {}
-        f = _resolve_path(self.data_cfg.get("instr_embed_file"))
+        f = resolve_asset(self.data_cfg.get("instr_embed_file"))
         if f and os.path.exists(f):
             self.instr_embeds = np.load(f, allow_pickle=True).item()
             if self.data_cfg.get("instr_embed_type", "all") == "last":
                 self.instr_embeds = {k: v[-1:] for k, v in
                                      self.instr_embeds.items()}
-        tf = _resolve_path(self.data_cfg.get("taskvar_instr_file"))
+        tf = resolve_asset(self.data_cfg.get("taskvar_instr_file"))
         self.taskvar_instrs = {}
         if tf and os.path.exists(tf):
             with open(tf) as fh:

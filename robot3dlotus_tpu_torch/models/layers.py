@@ -1,11 +1,15 @@
-"""PyTorch building blocks of the PointTransformerV3 stack, eval path (port
-of robot3dlotus_tpu/models/layers.py).
+"""PyTorch building blocks of the PointTransformerV3 stack (port of
+robot3dlotus_tpu/models/layers.py).
 
 Tensors are padded dense (B, N, C) with validity masks, as in the JAX
 package. Submodules carry the flax module names (qkv, cpe_conv, norm1,
 ...) so that convert.params_from_jax maps a JAX variable tree onto the
-state_dict mechanically. The port is inference-only: norms use their
-running statistics and dropout is absent.
+state_dict mechanically.
+
+Train mode (nn.Module.train()) is the JAX package's deterministic=False:
+batch norms use the masked batch statistics and update their running ones,
+and dropout, attention dropout and drop-path draw from an explicit
+`Randomness`. Eval mode uses the running statistics and no dropout.
 """
 from __future__ import annotations
 
@@ -15,7 +19,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.attention import patch_attention
+from ..ops.attention import patch_attention, patch_attention_dropout
 from ..ops.patching import dup_pad_identity, gather_sorted, scatter_back
 from ..ops.sparse_conv import NeighborMap, subm_conv_apply
 
@@ -44,45 +48,119 @@ def gelu(x):
     return F.gelu(x)  # exact erf form, like jax.nn.gelu(approximate=False)
 
 
-class MaskedBatchNorm(nn.Module):
-    """BatchNorm over points with running statistics (eps 1e-3). Eval only:
-    the point mask, which the JAX package's batch statistics read, does not
-    enter."""
+class Randomness:
+    """The random numbers of one train-mode forward: dropout masks from
+    `device` (a generator on the tensors' device), attention-dropout seeds
+    and SFC order permutations from `host` (a CPU generator, no device
+    sync). `perms`, when given, is the list of order permutations to hand
+    out instead, in call order (tests feed both packages the same ones)."""
 
-    def __init__(self, features, eps=1e-3):
+    def __init__(self, seed, device="cpu", perms=None):
+        device = torch.device(device)
+        self.host = torch.Generator().manual_seed(seed)
+        self.device = torch.Generator(device=device).manual_seed(seed + 1)
+        self.perms = None if perms is None else [list(p) for p in perms]
+
+    def keep(self, shape, rate, device):
+        """Bernoulli(1 - rate) keep mask of `shape`."""
+        return torch.rand(shape, generator=self.device, device=device) >= rate
+
+    def seed32(self):
+        return int(torch.randint(0, 1 << 32, (), generator=self.host,
+                                 dtype=torch.int64))
+
+    def permutation(self, n):
+        if self.perms is not None:
+            p = self.perms.pop(0)
+            if sorted(p) != list(range(n)):
+                raise ValueError(f"injected order permutation {p} is not a "
+                                 f"permutation of {n}")
+            return p
+        return torch.randperm(n, generator=self.host).tolist()
+
+
+def _drop(x, rate, training, rng, shape):
+    if not training or rate == 0.0:
+        return x
+    if rng is None:
+        raise ValueError("train-mode dropout needs a Randomness")
+    keep = rng.keep(shape, rate, x.device)
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+def dropout(x, rate, training, rng):
+    """flax nn.Dropout: keep with probability 1 - rate, scale by
+    1 / (1 - rate); the identity in eval mode or at rate 0."""
+    return _drop(x, rate, training, rng, x.shape)
+
+
+def drop_path(x, rate, training, rng):
+    """Per-row stochastic depth over the point axis (JAX drop_path)."""
+    return _drop(x, rate, training, rng, x.shape[:-1] + (1,))
+
+
+class MaskedBatchNorm(nn.Module):
+    """BatchNorm1d over the valid points of the batch (eps 1e-3, momentum
+    0.01 in the torch convention). Train mode normalises with the masked
+    batch mean and biased variance and moves the running statistics
+    towards the mean and the unbiased variance; eval mode uses the running
+    statistics."""
+
+    def __init__(self, features, eps=1e-3, momentum=0.01):
         super().__init__()
-        self.eps = eps
+        self.eps, self.momentum = eps, momentum
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
-    def forward(self, x):
-        y = (x - self.running_mean) * torch.rsqrt(self.running_var + self.eps)
+    def forward(self, x, mask=None):
+        if not self.training:
+            mean, var = self.running_mean, self.running_var
+        else:
+            xf = x.float().reshape(-1, x.shape[-1])
+            if mask is None:
+                m = torch.ones_like(xf[:, :1])
+            else:
+                m = mask.reshape(-1, 1).to(xf.dtype)
+            cnt = m.sum().clamp(min=1.0)
+            mean = (xf * m).sum(0) / cnt
+            var = (((xf - mean) ** 2) * m).sum(0) / cnt
+            with torch.no_grad():
+                unbiased = var * cnt / (cnt - 1.0).clamp(min=1.0)
+                self.running_mean.mul_(1 - self.momentum).add_(
+                    self.momentum * mean)
+                self.running_var.mul_(1 - self.momentum).add_(
+                    self.momentum * unbiased)
+        y = (x - mean) * torch.rsqrt(var + self.eps)
         return y * self.weight + self.bias
 
 
 class AdaptiveNorm(nn.Module):
     """The JAX AdaptiveNorm with adaptive=False: a base norm held as
-    `.norm`, so parameter names match the flax tree."""
+    `.norm`, so parameter names match the flax tree. The point mask feeds
+    only the batch norm's statistics."""
 
     def __init__(self, features, kind):
         super().__init__()
+        self.kind = kind
         self.norm = MaskedBatchNorm(features) if kind == "bn" else \
             nn.LayerNorm(features, eps=1e-5)
 
-    def forward(self, x):
-        return self.norm(x)
+    def forward(self, x, mask=None):
+        return self.norm(x, mask) if self.kind == "bn" else self.norm(x)
 
 
 class MLP(nn.Module):
-    def __init__(self, cin, hidden, cout, generator):
+    def __init__(self, cin, hidden, cout, generator, drop=0.0):
         super().__init__()
+        self.drop = drop
         self.fc1 = dense(cin, hidden, generator)
         self.fc2 = dense(hidden, cout, generator)
 
-    def forward(self, x):
-        return self.fc2(gelu(self.fc1(x)))
+    def forward(self, x, rng=None):
+        x = dropout(gelu(self.fc1(x)), self.drop, self.training, rng)
+        return dropout(self.fc2(x), self.drop, self.training, rng)
 
 
 class SubMConv(nn.Module):
@@ -105,11 +183,14 @@ class SerializedAttention(nn.Module):
     """Patch attention over one serialized order. The input is arranged in
     padded serialized order (a shift+select when the stream already lives
     in that order), projected to q/k/v, qk-normed (eps 1e-6) and attended
-    per patch by K1 with fp32 softmax; masked keys get -1e9."""
+    per patch with fp32 softmax; masked keys get -1e9: K1 in eval mode,
+    K5 (backward K6) with the attention-dropout rate in train mode."""
 
     def __init__(self, channels, num_heads, patch_size, generator,
-                 order_index=0, qkv_bias=True, qk_scale=None, qk_norm=True):
+                 order_index=0, qkv_bias=True, qk_scale=None, qk_norm=True,
+                 attn_drop=0.0, proj_drop=0.0):
         super().__init__()
+        self.attn_drop, self.proj_drop = attn_drop, proj_drop
         self.channels, self.num_heads = channels, num_heads
         self.patch_size, self.order_index = patch_size, order_index
         self.head_dim = channels // num_heads
@@ -121,7 +202,7 @@ class SerializedAttention(nn.Module):
             self.k_norm = nn.LayerNorm(self.head_dim, eps=1e-6)
         self.proj = dense(channels, channels, generator)
 
-    def forward(self, feat, aux):
+    def forward(self, feat, aux, rng=None):
         B, N, C = feat.shape
         H, P, Dh = self.num_heads, self.patch_size, self.head_dim
         order = aux["order"][self.order_index]
@@ -138,21 +219,28 @@ class SerializedAttention(nn.Module):
         # (B, NP, P, H, Dh) -> (B*NP, H, P, Dh): the JAX kernel layout
         qg, kg, vg = (t.permute(0, 1, 3, 2, 4).reshape(B * NP, H, P, Dh)
                       .contiguous() for t in (q, k, v))
-        og = patch_attention(qg, kg, vg, aux["key_valid"].reshape(B * NP, P),
-                             self.scale)
+        kv = aux["key_valid"].reshape(B * NP, P)
+        if self.training:
+            rate = self.attn_drop
+            seed = rng.seed32() if rate > 0.0 else 0
+            og = patch_attention_dropout(qg, kg, vg, kv, self.scale, rate,
+                                         seed)
+        else:
+            og = patch_attention(qg, kg, vg, kv, self.scale)
         out = og.reshape(B, NP, H, P, Dh).permute(0, 1, 3, 2, 4)
         out = out.reshape(B, N, C)
         if inverse is not None:
             out = scatter_back(out.contiguous(), inverse)
-        return self.proj(out)
+        return dropout(self.proj(out), self.proj_drop, self.training, rng)
 
 
 class CrossAttention(nn.Module):
     """Points -> text-token cross attention; masked tokens get -1e4."""
 
     def __init__(self, channels, num_heads, context_channels, generator,
-                 qk_norm=True):
+                 qk_norm=True, attn_drop=0.0, proj_drop=0.0):
         super().__init__()
+        self.attn_drop, self.proj_drop = attn_drop, proj_drop
         self.num_heads = num_heads
         self.head_dim = channels // num_heads
         self.q = dense(channels, channels, generator)
@@ -163,7 +251,7 @@ class CrossAttention(nn.Module):
             self.k_norm = nn.LayerNorm(self.head_dim, eps=1e-6)
         self.proj = dense(channels, channels, generator)
 
-    def forward(self, feat, context, context_mask):
+    def forward(self, feat, context, context_mask, rng=None):
         B, N, C = feat.shape
         T = context.shape[1]
         H, Dh = self.num_heads, self.head_dim
@@ -176,8 +264,10 @@ class CrossAttention(nn.Module):
         logits = torch.where(context_mask[:, None, :, None], logits,
                              torch.full_like(logits, -1e4))
         attn = torch.softmax(logits.float(), dim=2)
+        attn = dropout(attn, self.attn_drop, self.training, rng)
         out = torch.einsum("bnth,bthd->bnhd", attn.to(v.dtype), v)
-        return self.proj(out.reshape(B, N, C))
+        return dropout(self.proj(out.reshape(B, N, C)), self.proj_drop,
+                       self.training, rng)
 
 
 class Block(nn.Module):
@@ -186,8 +276,9 @@ class Block(nn.Module):
 
     def __init__(self, channels, num_heads, patch_size, generator,
                  mlp_ratio=4.0, qkv_bias=True, qk_scale=None, qk_norm=True,
-                 order_index=0):
+                 order_index=0, attn_drop=0.0, proj_drop=0.0, drop_path=0.0):
         super().__init__()
+        self.drop_path = drop_path
         self.cpe_conv = SubMConv(channels, channels, 3, generator)
         self.cpe_fc = dense(channels, channels, generator)
         self.cpe_norm = AdaptiveNorm(channels, "ln")
@@ -195,12 +286,12 @@ class Block(nn.Module):
         self.attn = SerializedAttention(
             channels, num_heads, patch_size, generator,
             order_index=order_index, qkv_bias=qkv_bias, qk_scale=qk_scale,
-            qk_norm=qk_norm)
+            qk_norm=qk_norm, attn_drop=attn_drop, proj_drop=proj_drop)
         self.norm2 = AdaptiveNorm(channels, "ln")
         self.mlp = MLP(channels, int(channels * mlp_ratio), channels,
-                       generator)
+                       generator, drop=proj_drop)
 
-    def forward(self, feat, aux, cpe_feat=None):
+    def forward(self, feat, aux, cpe_feat=None, rng=None):
         """cpe_feat: the stale CPE input of the first decoder block after an
         unpool — the upstream SerializedUnpooling never refreshes the
         sparse-conv feature buffer, so that block's conv reads the bare
@@ -208,8 +299,10 @@ class Block(nn.Module):
         cpe = self.cpe_conv(feat if cpe_feat is None else cpe_feat,
                             aux["cpe_nmap"])
         feat = feat + self.cpe_norm(self.cpe_fc(cpe))
-        feat = feat + self.attn(self.norm1(feat), aux)
-        return feat + self.mlp(self.norm2(feat))
+        x = self.attn(self.norm1(feat), aux, rng)
+        feat = feat + drop_path(x, self.drop_path, self.training, rng)
+        x = self.mlp(self.norm2(feat), rng)
+        return feat + drop_path(x, self.drop_path, self.training, rng)
 
 
 class CABlock(nn.Module):
@@ -217,15 +310,16 @@ class CABlock(nn.Module):
     variant)."""
 
     def __init__(self, channels, num_heads, context_channels, generator,
-                 mlp_ratio=4.0, qk_norm=True):
+                 mlp_ratio=4.0, qk_norm=True, attn_drop=0.0, proj_drop=0.0):
         super().__init__()
         self.norm1 = AdaptiveNorm(channels, "ln")
         self.attn = CrossAttention(channels, num_heads, context_channels,
-                                   generator, qk_norm=qk_norm)
+                                   generator, qk_norm=qk_norm,
+                                   attn_drop=attn_drop, proj_drop=proj_drop)
         self.norm2 = AdaptiveNorm(channels, "ln")
         self.mlp = MLP(channels, int(channels * mlp_ratio), channels,
-                       generator)
+                       generator, drop=proj_drop)
 
-    def forward(self, feat, context, context_mask):
-        feat = feat + self.attn(self.norm1(feat), context, context_mask)
-        return feat + self.mlp(self.norm2(feat))
+    def forward(self, feat, context, context_mask, rng=None):
+        feat = feat + self.attn(self.norm1(feat), context, context_mask, rng)
+        return feat + self.mlp(self.norm2(feat), rng)

@@ -1,4 +1,4 @@
-"""PointTransformerV3 U-Net backbone, CA variant, eval path (port of
+"""PointTransformerV3 U-Net backbone, CA variant (port of
 robot3dlotus_tpu/models/ptv3.py `PointTransformerV3TPU`).
 
 Clouds are fixed-capacity padded (B, N_s, C) tensors with masks; per-stage
@@ -7,7 +7,9 @@ stage lives in the frame of its first SFC order, so depth-1 blocks need no
 permutes (duplicate-padding is a shift+select), the CPE conv reads the
 frame directly and pooling segments are contiguous runs. Per-point outputs
 come back in the stage-0 sorted frame with `sort0` (frame position ->
-input index). Orders are never shuffled here (deterministic eval); the
+input index). With shuffle_orders, train mode permutes the SFC orders at
+stage 0 and after every pooling (Randomness.permutation) and re-sorts the
+stage by its new first order through K4; eval never shuffles here. The
 TPU-only window/far-list inputs of the JAX backbone have no counterpart.
 """
 from __future__ import annotations
@@ -50,7 +52,7 @@ class SerializedPooling(nn.Module):
 
     def forward(self, feat_sorted, maps, child_cap):
         x = segment_reduce(self.proj(feat_sorted), maps, child_cap, "max")
-        return gelu(self.norm(x))
+        return gelu(self.norm(x, maps.child_mask))
 
 
 class SerializedUnpooling(nn.Module):
@@ -64,9 +66,11 @@ class SerializedUnpooling(nn.Module):
         self.proj_skip_fc = dense(cskip, cout, generator)
         self.proj_skip_norm = AdaptiveNorm(cout, "bn")
 
-    def forward(self, child_feat, parent_feat, cluster, child_cap):
-        x = gelu(self.proj_norm(self.proj_fc(child_feat)))
-        skip = gelu(self.proj_skip_norm(self.proj_skip_fc(parent_feat)))
+    def forward(self, child_feat, child_mask, parent_feat, parent_mask,
+                cluster, child_cap):
+        x = gelu(self.proj_norm(self.proj_fc(child_feat), child_mask))
+        skip = gelu(self.proj_skip_norm(self.proj_skip_fc(parent_feat),
+                                        parent_mask))
         return skip + unpool_gather(x, cluster, child_cap), skip
 
 
@@ -80,7 +84,8 @@ class PointTransformerV3(nn.Module):
                  dec_depths=(1, 1, 1, 1), dec_channels=(128, 128, 256, 512),
                  dec_num_head=(4, 4, 8, 16),
                  dec_patch_size=(128, 128, 128, 128), mlp_ratio=4.0,
-                 qkv_bias=True, qk_scale=None, qk_norm=True,
+                 qkv_bias=True, qk_scale=None, qk_norm=True, attn_drop=0.0,
+                 proj_drop=0.0, drop_path=0.0, shuffle_orders=True,
                  grid_size=0.01, serial_depth=10,
                  stem_kernel=5, lookup_extent=128, assume_sorted=False,
                  stage_caps: Optional[Sequence[int]] = None):
@@ -93,12 +98,18 @@ class PointTransformerV3(nn.Module):
         self.grid_size, self.serial_depth = grid_size, serial_depth
         self.stem_kernel, self.lookup_extent = stem_kernel, lookup_extent
         self.assume_sorted = assume_sorted
+        self.shuffle_orders = shuffle_orders
         self.stage_caps = None if stage_caps is None else tuple(stage_caps)
         S = len(enc_depths)
         g = generator
+        drop = dict(attn_drop=attn_drop, proj_drop=proj_drop)
         blk = dict(mlp_ratio=mlp_ratio, qkv_bias=qkv_bias, qk_scale=qk_scale,
-                   qk_norm=qk_norm)
-        cab = dict(mlp_ratio=mlp_ratio, qk_norm=qk_norm)
+                   qk_norm=qk_norm, **drop)
+        cab = dict(mlp_ratio=mlp_ratio, qk_norm=qk_norm, **drop)
+        # drop-path rates rise linearly over the encoder blocks, and over
+        # the decoder blocks, deepest first (JAX ptv3 _linspace)
+        enc_dp = _linspace(0.0, drop_path, sum(enc_depths))
+        dec_dp = _linspace(0.0, drop_path, sum(dec_depths))
 
         self.embedding_stem_conv = SubMConv(in_channels, enc_channels[0],
                                             stem_kernel, g, use_bias=False)
@@ -110,7 +121,8 @@ class PointTransformerV3(nn.Module):
             for i in range(enc_depths[s]):
                 self.add_module(f"enc{s}_block{i}", Block(
                     enc_channels[s], enc_num_head[s], enc_patch_size[s], g,
-                    order_index=i % len(self.orders), **blk))
+                    order_index=i % len(self.orders),
+                    drop_path=enc_dp[sum(enc_depths[:s]) + i], **blk))
                 self.add_module(f"enc{s}_cablock{i}", CABlock(
                     enc_channels[s], enc_num_head[s], context_channels, g,
                     **cab))
@@ -118,10 +130,12 @@ class PointTransformerV3(nn.Module):
         for s in reversed(range(S - 1)):
             self.add_module(f"dec{s}_up", SerializedUnpooling(
                 dec_ch[s + 1], enc_channels[s], dec_ch[s], g))
+            dp = dec_dp[sum(dec_depths[:s]):sum(dec_depths[:s + 1])][::-1]
             for i in range(dec_depths[s]):
                 self.add_module(f"dec{s}_block{i}", Block(
                     dec_ch[s], dec_num_head[s], dec_patch_size[s], g,
-                    order_index=i % len(self.orders), **blk))
+                    order_index=i % len(self.orders), drop_path=dp[i],
+                    **blk))
                 self.add_module(f"dec{s}_cablock{i}", CABlock(
                     dec_ch[s], dec_num_head[s], context_channels, g,
                     **cab))
@@ -181,11 +195,12 @@ class PointTransformerV3(nn.Module):
             cur["counts"][:, None]
         return new, order
 
-    def forward(self, coord, feat, mask, counts, context, context_mask):
+    def forward(self, coord, feat, mask, counts, context, context_mask,
+                rng=None):
         """coord (B, N, 3); feat (B, N, Cin); mask (B, N) bool; counts (B,);
-        context (B, T, C) tokens, context_mask (B, T). Returns the list of
-        decoder layer outputs, outputs[0] carrying sort0 and
-        pool_overflow."""
+        context (B, T, C) tokens, context_mask (B, T); rng: the Randomness
+        of a train-mode forward. Returns the list of decoder layer outputs,
+        outputs[0] carrying sort0 and pool_overflow."""
         S = len(self.enc_depths)
         B, N0, _ = feat.shape
         caps = self._stage_caps(N0)
@@ -193,10 +208,13 @@ class PointTransformerV3(nn.Module):
         counts = counts.long()
         grid_coord = compute_grid_coord(coord, mask, self.grid_size, depth0)
         codes = serialize_codes(grid_coord, mask, depth0, self.orders)
+        shuffle = self.shuffle_orders and self.training
+        if shuffle:
+            codes = self._shuffled(codes, rng)
         cur = {"feat": feat, "coord": coord, "grid_coord": grid_coord,
                "mask": mask, "counts": counts, "codes": codes,
                "depth": depth0, "cap": N0}
-        if self.assume_sorted:
+        if self.assume_sorted and not shuffle:
             sort0 = torch.arange(N0, device=feat.device).expand(B, N0)
         else:
             cur, sort0 = self._entry_sort(cur)
@@ -205,22 +223,23 @@ class PointTransformerV3(nn.Module):
                                       self.stem_kernel, depth0,
                                       extent=self.lookup_extent)
         x = self.embedding_stem_conv(cur["feat"].contiguous(), stem_map)
-        cur["feat"] = gelu(self.embedding_norm(x))
+        cur["feat"] = gelu(self.embedding_norm(x, cur["mask"]))
 
         pool_overflow = torch.zeros((), dtype=torch.long, device=feat.device)
         stage_state, pool_records = [], []
         for s in range(S):
             if s > 0:
-                cur, record, overflow = self._pool(s, cur, caps[s])
+                cur, record, overflow = self._pool(s, cur, caps[s], shuffle,
+                                                   rng)
                 pool_overflow = pool_overflow + overflow
                 pool_records.append(record)
             aux = self._make_aux(cur, s, self.enc_patch_size[s])
             cur["aux"] = aux
             for i in range(self.enc_depths[s]):
                 cur["feat"] = getattr(self, f"enc{s}_block{i}")(
-                    cur["feat"], aux)
+                    cur["feat"], aux, rng=rng)
                 cur["feat"] = getattr(self, f"enc{s}_cablock{i}")(
-                    cur["feat"], context, context_mask)
+                    cur["feat"], context, context_mask, rng)
             stage_state.append(dict(cur))
 
         outputs = [self._pack(cur)]
@@ -230,23 +249,31 @@ class PointTransformerV3(nn.Module):
             parent = stage_state[s]
             cluster, child_cap = pool_records[s]
             feat_s, skip_s = getattr(self, f"dec{s}_up")(
-                cur["feat"], parent["feat"], cluster, child_cap)
+                cur["feat"], cur["mask"], parent["feat"], parent["mask"],
+                cluster, child_cap)
             cur = dict(parent)
             cur["feat"] = feat_s
             aux = parent["aux"]
             for i in range(self.dec_depths[s]):
                 cur["feat"] = getattr(self, f"dec{s}_block{i}")(
-                    cur["feat"], aux, skip_s if i == 0 else None)
+                    cur["feat"], aux, skip_s if i == 0 else None, rng)
                 cur["feat"] = getattr(self, f"dec{s}_cablock{i}")(
-                    cur["feat"], context, context_mask)
+                    cur["feat"], context, context_mask, rng)
                 outputs.append(self._pack(cur))
         return outputs
 
-    def _pool(self, s, cur, child_cap):
+    def _shuffled(self, codes, rng):
+        perm = torch.as_tensor(rng.permutation(codes.shape[0]),
+                               device=codes.device)
+        return codes[perm]
+
+    def _pool(self, s, cur, child_cap, shuffle, rng):
         """Grid pooling in the sorted-resident frame. Children come out in
-        (parent code >> 3) order, which stays ascending, so the child stage
-        needs no entry sort. Segments beyond child_cap drop their geometry
-        and are counted in pool_overflow."""
+        (parent code >> 3) order, which stays ascending, so an unshuffled
+        child stage needs no entry sort; a shuffled one is re-sorted by its
+        new first order and the unpooling clusters are remapped into that
+        frame. Segments beyond child_cap drop their geometry and are
+        counted in pool_overflow."""
         codes = cur["codes"]
         maps = build_pool_maps(codes[0], cur["counts"], child_cap)
         new_feat = getattr(self, f"enc{s}_down")(cur["feat"], maps,
@@ -257,6 +284,8 @@ class PointTransformerV3(nn.Module):
                                  for k in range(codes.shape[0])])
         new_codes = torch.where(maps.child_mask[None], new_codes,
                                 torch.full_like(new_codes, SENTINEL))
+        if shuffle:
+            new_codes = self._shuffled(new_codes, rng)
         overflow = torch.clamp(maps.child_counts - child_cap, min=0).sum()
         new_cur = {
             "feat": new_feat, "coord": new_coord, "grid_coord": new_gc,
@@ -265,9 +294,23 @@ class PointTransformerV3(nn.Module):
             "codes": new_codes, "depth": max(cur["depth"] - 1, 1),
             "cap": child_cap,
         }
-        return new_cur, (maps.seg_sorted, child_cap), overflow
+        cluster = maps.seg_sorted
+        if shuffle:
+            new_cur, o_child = self._entry_sort(new_cur)
+            # segment ids -> child frame positions; the drop slot
+            # (child_cap) keeps pointing at unpool_gather's zero row
+            inv = torch.argsort(o_child, dim=-1)
+            inv = torch.cat([inv, torch.full_like(inv[:, :1], child_cap)], 1)
+            cluster = torch.gather(inv, 1, cluster)
+        return new_cur, (cluster, child_cap), overflow
 
     @staticmethod
     def _pack(cur):
         return {"feat": cur["feat"], "coord": cur["coord"],
                 "mask": cur["mask"], "counts": cur["counts"]}
+
+
+def _linspace(a, b, n):
+    if n <= 1:
+        return [b] * n
+    return [a + (b - a) * i / (n - 1) for i in range(n)]

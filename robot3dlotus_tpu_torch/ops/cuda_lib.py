@@ -31,22 +31,41 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 # C signatures: every entry point returns cudaGetLastError() as int
 SIGNATURES = {
     # x, idx, out, B, N, M, D, stream
     "r3dl_gather_rows": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # g, idx, dx, B, N, M, D, stream
+    "r3dl_scatter_rows_add": [_P, _P, _P, _I, _I, _I, _I, _P],
     # q, k, v, key_valid, out, G, H, P, Dh, scale, stream
-    "r3dl_patch_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
-                             ctypes.c_float, _P],
+    "r3dl_patch_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # q, k, v, key_valid, out, G, H, P, Dh, scale, seed, thresh, inv_keep,
+    # stream
+    "r3dl_attention_dropout_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+                                   _U, _U, _F, _P],
+    # q, k, v, key_valid, g, dq, dk, dv, G, H, P, Dh, scale, seed, thresh,
+    # inv_keep, stream
+    "r3dl_attention_dropout_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                   _I, _I, _F, _U, _U, _F, _P],
+    # keep, G, H, P, seed, thresh, stream
+    "r3dl_attention_dropout_mask": [_P, _I, _I, _I, _U, _U, _P],
     # x, idx, ok, w, bias|NULL, out, B, N, K, Cin, Cout, stream
     "r3dl_subm_conv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, idx, ok, g, work|NULL, dw, B, N, K, Cin, Cout, splits,
+    # rows_per_split, stream
+    "r3dl_conv_weight_grad": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                              _I, ctypes.c_longlong, _P],
     # x, idx, ok, w, out, B, N, K, Cin, Cout, stream
     "r3dl_stem_conv": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
+# K1-K8 by wrapper name; the dropout-mask dump is a test entry point, not a
+# kernel of the training path
 LAUNCHES = {"patch_attention": 0, "subm_conv": 0, "stem_conv": 0,
-            "gather_rows": 0}
+            "gather_rows": 0, "patch_attention_dropout": 0,
+            "patch_attention_dropout_bwd": 0, "conv_weight_grad": 0,
+            "scatter_rows_add": 0, "attention_dropout_mask": 0}
 
 _LIB = None
 

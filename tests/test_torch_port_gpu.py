@@ -1,5 +1,7 @@
-"""The PyTorch port on a CUDA card: each kernel against its plain version,
-and the card's grid coordinates against the host presort's.
+"""The PyTorch port on a CUDA card: each kernel (K1-K8) against its plain
+version, and the card's grid coordinates against the host presort's.
+Tolerance 1e-4 * max(1, max|plain|): fp32 on both sides, other summation
+orders (K8's atomics in a run-dependent one).
 
 Every case carries the `gpu` marker and skips without a card. The file
 imports neither jax nor the JAX package, so it runs on a machine that has
@@ -34,6 +36,7 @@ def _cloud(rng, B=2, N=512, span=24):
 
 
 def _check(got, want):
+    got, want = got.detach(), want.detach()
     torch.cuda.synchronize()
     scale = max(1.0, float(want.abs().max()))
     assert float((got - want).abs().max()) <= TOL * scale
@@ -80,6 +83,110 @@ def test_k4_gather_rows(dev, D):
     idx = torch.from_numpy(rng.randint(0, 257, (2, 1024))).to(dev)
     assert torch.equal(gather.gather_rows(x, idx),
                        gather.gather_rows_plain(x, idx))
+
+
+@pytest.mark.parametrize("G,H,Dh,rate", [(16, 2, 32, 0.1), (4, 32, 24, 0.1),
+                                         (8, 4, 32, 0.0), (6, 2, 8, 0.5)])
+def test_k5_k6_attention_dropout(dev, G, H, Dh, rate):
+    """K5 and K6 against the plain versions fed the kernel's own mask
+    (written out by attention_dropout_mask), which must equal the PyTorch
+    Philox mask bit for bit."""
+    g = torch.Generator().manual_seed(5)
+    q, k, v, gout = (torch.randn(G, H, 128, Dh, generator=g).to(dev)
+                     for _ in range(4))
+    kv = (torch.rand(G, 128, generator=g) > 0.2).to(dev)
+    kv[0] = False
+    seed, scale = 123456789, Dh ** -0.5
+    keep = attention.attention_dropout_mask(seed, G, H, 128, rate, dev)
+    assert torch.equal(keep.cpu(), attention.philox_keep_mask(
+        seed, G, H, 128, rate))
+    qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
+    out = attention.patch_attention_dropout(qr, kr, vr, kv, scale, rate, seed)
+    out.backward(gout)
+    _check(out, attention.patch_attention_dropout_plain(
+        q, k, v, kv, scale, rate, keep))
+    want = attention.patch_attention_dropout_bwd_plain(
+        q, k, v, kv, scale, rate, keep, gout)
+    for got, w in zip((qr.grad, kr.grad, vr.grad), want):
+        _check(got, w)
+
+
+def test_k5_rate0_matches_k1(dev):
+    """K5 at rate 0 against K1, and patch_attention's gradient (K1 has no
+    backward: it routes to K5/K6) against the plain version's."""
+    g = torch.Generator().manual_seed(6)
+    q, k, v, gout = (torch.randn(8, 4, 128, 32, generator=g).to(dev)
+                     for _ in range(4))
+    kv = (torch.rand(8, 128, generator=g) > 0.3).to(dev)
+    _check(attention.patch_attention_dropout(q, k, v, kv, 0.2, 0.0, 7),
+           attention.patch_attention(q, k, v, kv, 0.2))
+    grads = []
+    for d in (dev, torch.device("cpu")):
+        ts = [t.detach().to(d).requires_grad_() for t in (q, k, v)]
+        attention.patch_attention(*ts, kv.to(d), 0.2).backward(gout.to(d))
+        grads.append([t.grad for t in ts])
+    for got, want in zip(*grads):
+        _check(got.cpu(), want)
+
+
+@pytest.mark.parametrize("K,cin,cout", [(27, 64, 64), (27, 256, 128),
+                                        (125, 7, 64)])
+def test_k7_conv_weight_grad(dev, K, cin, cout):
+    """K7 at a CPE shape and at the stem's shape (K = 125, Cin 7)."""
+    rng = np.random.RandomState(7)
+    gc, mask = _cloud(rng)
+    nm = build_neighbor_map(gc.to(dev), mask.to(dev), round(K ** (1 / 3)),
+                            5, extent=128)
+    x = torch.from_numpy(rng.randn(2, 512, cin).astype(np.float32)).to(dev)
+    gout = torch.from_numpy(rng.randn(2, 512, cout).astype(np.float32))
+    args = (x, nm.idx, nm.ok, gout.to(dev))
+    _check(conv.conv_weight_grad(*args), conv.conv_weight_grad_plain(*args))
+
+
+def test_k2_k8_conv_dx_and_stem_dw(dev):
+    """subm_conv / stem_conv autograd on the card (dx: K8 then the
+    mirrored K2; dW: K7) against the plain versions' autograd, on a map
+    with duplicate voxels."""
+    rng = np.random.RandomState(8)
+    gc, mask = _cloud(rng, span=10)
+    for ks, cin, cout, bias in ((3, 64, 128, True), (5, 7, 64, False)):
+        nm = build_neighbor_map(gc.to(dev), mask.to(dev), ks, 5, extent=128)
+        x = torch.from_numpy(rng.randn(2, 512, cin).astype(np.float32))
+        w = torch.from_numpy((rng.randn(ks ** 3, cin, cout) * 0.05)
+                             .astype(np.float32))
+        b = torch.from_numpy(rng.randn(cout).astype(np.float32)) \
+            if bias else None
+        gout = torch.from_numpy(rng.randn(2, 512, cout).astype(np.float32))
+        grads = []
+        for d in (dev, torch.device("cpu")):
+            xs = x.to(d).requires_grad_(bias)
+            ws = w.to(d).requires_grad_()
+            bs = b.to(d).requires_grad_() if bias else None
+            if bias:
+                out = conv.subm_conv(xs, nm.idx.to(d), nm.ok.to(d), ws, bs)
+                out.backward(gout.to(d))
+                grads.append((xs.grad, ws.grad, bs.grad))
+            else:
+                out = stem.stem_conv(xs, nm.idx.to(d), nm.ok.to(d), ws)
+                out.backward(gout.to(d))
+                grads.append((ws.grad,))
+        for got, want in zip(*grads):
+            _check(got.cpu(), want)
+
+
+@pytest.mark.parametrize("D", [7, 64, 768])
+def test_k8_scatter_rows_add_colliding(dev, D):
+    """K8 with many indices colliding on few rows (the duplicate padding of
+    the patch maps); atomics sum in a run-dependent order."""
+    rng = np.random.RandomState(9)
+    g = torch.from_numpy(rng.randn(2, 1024, D).astype(np.float32)).to(dev)
+    idx = torch.from_numpy(rng.randint(0, 40, (2, 1024))).to(dev)
+    _check(gather.scatter_rows_add(g, idx, 257),
+           gather.scatter_rows_add_plain(g, idx, 257))
+    x = torch.from_numpy(rng.randn(2, 257, D).astype(np.float32)).to(dev)
+    x.requires_grad_()
+    gather.gather_rows(x, idx).backward(g)
+    _check(x.grad, gather.scatter_rows_add_plain(g, idx, 257))
 
 
 def test_grid_coord_matches_host_presort(dev):

@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: no file of robot3dlotus_tpu_torch/ and not
 chip_smoke.py imports jax, flax or the JAX package; importing the port
-loads no jax; entry points run on CUDA by default and raise without a card
-unless the caller passes device='cpu'."""
+loads no jax; entry points (the Actioner, build_model, the trainer) run on
+CUDA by default and raise without a card unless the caller passes
+device='cpu'."""
 import ast
 import os
 import subprocess
@@ -44,7 +45,8 @@ def test_no_jax_imports(path):
 
 def test_import_loads_no_jax():
     code = ("import sys, robot3dlotus_tpu_torch.eval.actioner, "
-            "robot3dlotus_tpu_torch.convert; "
+            "robot3dlotus_tpu_torch.convert, "
+            "robot3dlotus_tpu_torch.train.train_simple_policy; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'robot3dlotus_tpu')]; "
             "assert not bad, bad")
@@ -56,6 +58,7 @@ def test_entry_points_need_a_card_unless_cpu():
     import yaml
     from robot3dlotus_tpu_torch.eval.actioner import Actioner
     from robot3dlotus_tpu_torch.models.factory import build_model
+    from robot3dlotus_tpu_torch.train import train_simple_policy
     if torch.cuda.is_available():
         pytest.skip("a card is present: the CUDA default is valid here")
     with open(RELEASE_CFG) as f:
@@ -64,6 +67,10 @@ def test_entry_points_need_a_card_unless_cpu():
         build_model(model_cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Actioner(RELEASE_CFG)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_simple_policy.main(*train_simple_policy.build_args(
+            ["--exp-config", RELEASE_CFG,
+             "TRAIN_DATASET.data_dir", "synthetic_reach"]))
     tiny = dict(model_cfg, ptv3_config=dict(
         model_cfg["ptv3_config"], enc_channels=[16, 16, 16, 16, 16],
         dec_channels=[16, 16, 16, 16], enc_num_head=[2] * 5,
