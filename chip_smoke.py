@@ -52,7 +52,11 @@ Phases, each of which raises on failure (exit code != 0, no result line):
  10. step-check one step at dropout 0 with injected order permutations, B =
              2 of the same batch, the same weights, on the card and on the
              CPU (plain versions): losses, every gradient, every updated
-             parameter and running statistic.
+             parameter and running statistic;
+ 11. entry     train_simple_policy.main on the card for ENTRY_STEPS steps
+             (launch counters to 0 before, read after against the per-step
+             counts; logged losses finite); the end-to-end training rate,
+             host batches included, over the second half.
 It prints the kernels line, the card's name and power limit, and as its
 last line {"ok": true, "device": {...}}. It needs one CUDA card and exits
 non-zero without one.
@@ -60,6 +64,7 @@ non-zero without one.
 from __future__ import annotations
 
 import json
+import logging
 import math
 import os
 import subprocess
@@ -80,6 +85,7 @@ from robot3dlotus_tpu_torch.ops import (attention, conv, cuda_lib, gather,
                                         patching, pooling, sparse_conv, stem)
 from robot3dlotus_tpu_torch.train.driver import build_trainer
 from robot3dlotus_tpu_torch.train.optim import build_optimizer
+from robot3dlotus_tpu_torch.train import train_simple_policy
 from robot3dlotus_tpu_torch.train.train_simple_policy import SPEC
 from robot3dlotus_tpu_torch.train.trainer import Trainer, batch_to_device
 
@@ -123,6 +129,7 @@ TRAIN_OPTS = ["TRAIN_DATASET.data_dir", "synthetic_reach",
               "TRAIN_DATASET.augment_pc", "True"]
 TRAIN_STEPS = 5
 PROFILE_STEPS = 2
+ENTRY_STEPS = 6   # train_simple_policy.main; the rate is read over the last 3
 # launches per training step of the release model: K2 9 forward + 9 dx;
 # K4 the stage-0 entry sort, 4 shuffled child entry sorts, 4 unpools; K7
 # 9 CPE + the stem; K8 the backward of every K4 call whose input needs a
@@ -665,30 +672,11 @@ def check_weight_grad(call):
                 max_abs_err=err, shape=list(x.shape[:2]) + [K, cin, cout])
 
 
-def symmetric_rows(idx, ok):
-    """(B, N) bool: rows whose links in are exactly their links out
-    reversed (m -> n at tap k iff n -> m at tap K-1-k), where the mirrored
-    conv on the raw cotangent would already be the exact adjoint."""
-    B, N, K = idx.shape
-    il = idx.long()
-    back = (il * K + torch.arange(K - 1, -1, -1, device=idx.device)
-            ).reshape(B, N * K)
-    back_idx = torch.gather(il.reshape(B, N * K), 1, back).reshape(B, N, K)
-    back_ok = torch.gather(ok.reshape(B, N * K), 1, back).reshape(B, N, K)
-    rows = torch.arange(N, device=idx.device)[None, :, None]
-    good = (~ok | (back_ok & (back_idx == rows))).all(-1)
-    in_cnt = torch.zeros(B, N, dtype=torch.long, device=idx.device)
-    in_cnt.scatter_add_(1, il.reshape(B, N * K), ok.reshape(B, N * K).long())
-    return good & (in_cnt == ok.sum(-1))
-
-
 def check_conv_dx(call):
     """The conv backward's dx (K8 onto voxel owners, then K2 with the
     mirrored weight) against the exact adjoint (autograd of
-    subm_conv_plain) on every row; the mirrored K2 against its plain
-    version; and, to size what the owner sums repair, the distance of the
-    mirrored conv on the raw cotangent from the exact adjoint. Returns the
-    row and the K8 result of the owner scatter."""
+    subm_conv_plain) on every row, and the mirrored K2 against its plain
+    version. Returns the row and the K8 result of the owner scatter."""
     (x, idx, ok, w, bias), g = call
     wm = conv.mirror_weight(w)
     e_k2 = _err(conv.subm_conv(g, idx, ok, wm),
@@ -698,18 +686,12 @@ def check_conv_dx(call):
                                 g)[0]
     e_dx = _err(conv.conv_input_grad(g, idx, ok, w), exact,
                 "conv dx vs the exact adjoint")
-    raw = conv.subm_conv_plain(g, idx, ok, wm)
-    rel = float((raw - exact).norm() / exact.norm().clamp(min=1e-30))
-    valid = ok.any(-1)
     centre = idx.shape[-1] // 2
     owner = idx[..., centre]
     gv = torch.where(ok[..., centre, None], g, torch.zeros_like(g))
     k8 = check_scatter_add(((gv, owner), gv))
     return {"shape": list(x.shape) + [w.shape[-1]], "max_abs_err": e_dx,
-            "mirrored_k2_err": e_k2,
-            "asymmetric_rows": int((valid & ~symmetric_rows(idx, ok)).sum()),
-            "rows_with_links": int(valid.sum()),
-            "raw_mirrored_rel_l2": rel}, k8
+            "mirrored_k2_err": e_k2}, k8
 
 
 def check_scatter_add(call):
@@ -785,12 +767,7 @@ def train_kernel_phase(captured):
         f"max err {max(r['rate0_vs_k1_err'] for r in k5):.3g}")
     log(f"[train-kernels] conv dx (K8 + mirrored K2) vs the exact adjoint: "
         f"max err {max(m['max_abs_err'] for m in conv_dx):.3g}; mirrored K2 "
-        f"vs plain {max(m['mirrored_k2_err'] for m in conv_dx):.3g}; rows "
-        f"with a link but not its reverse "
-        f"{[m['asymmetric_rows'] for m in conv_dx]} of "
-        f"{[m['rows_with_links'] for m in conv_dx]}; the mirrored conv on "
-        f"the raw cotangent would be off by (relative L2) "
-        f"{[round(m['raw_mirrored_rel_l2'], 4) for m in conv_dx]}")
+        f"vs plain {max(m['mirrored_k2_err'] for m in conv_dx):.3g}")
     return rows, {"calls": res, "conv_dx": conv_dx}
 
 
@@ -849,6 +826,72 @@ def step_check_phase(host_batch):
     return dict(errs, losses_card=lc, losses_cpu=lr)
 
 
+class _Records(logging.Handler):
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.records = []
+
+    def emit(self, record):
+        self.records.append(record)
+
+
+def entry_phase():
+    """train_simple_policy.main on the card as a user starts it:
+    ENTRY_STEPS steps of run_training, each host batch made in series with
+    the steps, a log line after step ENTRY_STEPS / 2 and after the last
+    (each reads the losses, a sync). Launch counters read against PER_STEP;
+    the end-to-end rate is the clouds of the second half over the time
+    between the two lines."""
+    half = ENTRY_STEPS // 2
+    cfg = train_config("TRAIN.num_train_steps", str(ENTRY_STEPS),
+                       "TRAIN.log_steps", str(half))
+    logger = logging.getLogger("robot3dlotus_tpu_torch.train")
+    handler, level = _Records(), logger.level
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+    cuda_lib.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        trainer = train_simple_policy.main(cfg)
+        torch.cuda.synchronize()
+    finally:
+        logger.removeHandler(handler)
+        logger.setLevel(level)
+    total_s = time.perf_counter() - t0
+    launches = dict(cuda_lib.LAUNCHES)
+    if trainer.optimizer.count != ENTRY_STEPS:
+        raise AssertionError(f"entry point ran {trainer.optimizer.count} "
+                             f"steps, expected {ENTRY_STEPS}")
+    del trainer
+    for k, per in PER_STEP.items():
+        if launches[k] != per * ENTRY_STEPS:
+            raise AssertionError(f"{k}: {launches[k]} launches in "
+                                 f"{ENTRY_STEPS} entry-point steps, expected "
+                                 f"{per} per step")
+    lines = [r for r in handler.records if r.getMessage().startswith("step ")]
+    if len(lines) != 2:
+        raise AssertionError(f"entry point logged {len(lines)} step lines")
+    for r in lines:
+        values = [float(kv.split("=")[1]) for kv in
+                  r.getMessage().split(": ", 1)[1].split(", ")]
+        if not all(math.isfinite(v) for v in values):
+            raise AssertionError(f"entry point: {r.getMessage()}")
+    clouds = half * int(cfg.TRAIN.train_batch_size)
+    span_s = lines[1].created - lines[0].created
+    out = {"steps": ENTRY_STEPS, "wall_s": total_s,
+           "second_half_s": span_s,
+           "clouds_per_s": clouds / span_s,
+           "step_ms": span_s * 1e3 / half,
+           "log": [r.getMessage() for r in lines]}
+    log(f"[entry] train_simple_policy.main, {ENTRY_STEPS} steps in "
+        f"{total_s:.2f} s (build included); steps {half + 1}-{ENTRY_STEPS} "
+        f"{out['step_ms']:.1f} ms each with their host batches, "
+        f"{out['clouds_per_s']:.2f} clouds/s end to end")
+    for m in out["log"]:
+        log(f"[entry]   {m}")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -903,13 +946,15 @@ def main():
     train_rows, train_detail = train_kernel_phase(captured)
     del captured
     step_check = step_check_phase(host[0])
+    entry = entry_phase()
 
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"device": smi, "kernels": rows, "calls": detail,
                    "serving": serving, "breakdown": breakdown,
                    "reference_max_diff": ref, "training": training,
                    "train_kernels": train_rows,
-                   "train_calls": train_detail, "step_check": step_check},
+                   "train_calls": train_detail, "step_check": step_check,
+                  "entry": entry},
                   f, indent=1)
     # K1-K4 as the serving run launched them, K5-K8 as the training run
     # did; launches_by_path has both runs' counts for every kernel

@@ -102,20 +102,15 @@ class SimplePolicy(nn.Module):
                 "pool_overflow": outs[0]["pool_overflow"]}
 
 
-def build_disc_pos_targets(batch, gt_pos, pos_bins, act_cfg, preds=None):
-    """(B, 3, N * 2 * pos_bins) position targets. With preds, in the
-    backbone's sorted frame: built from final_coord / final_mask, with the
-    robot mask carried into that frame by sort0; without, in input order
-    from pc_fts / pc_mask."""
+def build_disc_pos_targets(batch, gt_pos, pos_bins, act_cfg, preds):
+    """(B, 3, N * 2 * pos_bins) position targets in the backbone's sorted
+    frame: built from final_coord / final_mask, with the robot mask carried
+    into that frame by sort0."""
     robot = batch.get("pc_robot_mask")
-    if preds is not None:
-        xyz, mask = preds["final_coord"], preds["final_mask"]
-        if robot is not None:
-            robot = torch.gather(robot, 1, preds["sort0"])
-    else:
-        xyz, mask = batch["pc_fts"][..., :3], batch["pc_mask"]
+    if robot is not None:
+        robot = torch.gather(robot, 1, preds["sort0"])
     return disc_pos_gt_prob(
-        xyz, mask, gt_pos, robot_mask=robot,
+        preds["final_coord"], preds["final_mask"], gt_pos, robot_mask=robot,
         pos_bin_size=act_cfg.get("pos_bin_size", 0.01), pos_bins=pos_bins,
         heatmap_type=act_cfg.get("pos_heatmap_type", "dist"))
 
@@ -137,14 +132,7 @@ def compute_loss(preds, batch, act_cfg, loss_cfg):
 
     logits = preds["pos"]                                    # (B, 3, N, nb)
     _, _, N, nb = logits.shape
-    target = batch.get("disc_pos_probs")
-    if target is None:
-        target = build_disc_pos_targets(batch, tgt_pos, nb // 2, act_cfg,
-                                        preds=preds)
-    else:  # host targets are in input order: align to the sorted frame
-        idx = preds["sort0"][:, None, :, None].expand(B, 3, N, nb)
-        target = torch.gather(target.reshape(B, 3, N, nb), 2, idx).reshape(
-            B, 3, N * nb)
+    target = build_disc_pos_targets(batch, tgt_pos, nb // 2, act_cfg, preds)
     logp = F.log_softmax(logits.reshape(B, 3, N * nb), dim=-1)
     pos_loss = -torch.where(target > 0, target * logp,
                             torch.zeros_like(logp)).sum(-1)

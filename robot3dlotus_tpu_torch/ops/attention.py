@@ -137,13 +137,14 @@ def _check_attention(name, q, k, v, key_valid, g=None):
 
 def patch_attention(q, k, v, key_valid, scale):
     """Masked per-patch attention: the CUDA kernel (K1) for CUDA tensors,
-    the plain version for CPU tensors. K1 has no backward, so a call that
-    must carry a gradient runs K5 at rate 0 (backward K6)."""
+    the plain version for CPU tensors. K1 has no backward: a CUDA call that
+    must carry a gradient raises (patch_attention_dropout has one)."""
     if not q.is_cuda:
         return patch_attention_plain(q, k, v, key_valid, scale)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or
                                     v.requires_grad):
-        return patch_attention_dropout(q, k, v, key_valid, scale, 0.0, 0)
+        raise RuntimeError("patch_attention (K1) has no backward; use "
+                           "patch_attention_dropout for a gradient")
     G, H, P, Dh = _check_attention("patch_attention", q, k, v, key_valid)
     out = torch.empty_like(q)
     cuda_lib.launch("patch_attention", "r3dl_patch_attention", q.data_ptr(),

@@ -112,18 +112,21 @@ def test_k5_k6_attention_dropout(dev, G, H, Dh, rate):
 
 
 def test_k5_rate0_matches_k1(dev):
-    """K5 at rate 0 against K1, and patch_attention's gradient (K1 has no
-    backward: it routes to K5/K6) against the plain version's."""
+    """K5 at rate 0 against K1, K6 at rate 0 against the plain version's
+    gradient, and K1 (no backward) refusing a call that needs one."""
     g = torch.Generator().manual_seed(6)
     q, k, v, gout = (torch.randn(8, 4, 128, 32, generator=g).to(dev)
                      for _ in range(4))
     kv = (torch.rand(8, 128, generator=g) > 0.3).to(dev)
     _check(attention.patch_attention_dropout(q, k, v, kv, 0.2, 0.0, 7),
            attention.patch_attention(q, k, v, kv, 0.2))
+    with pytest.raises(RuntimeError, match="no backward"):
+        attention.patch_attention(q.clone().requires_grad_(), k, v, kv, 0.2)
     grads = []
     for d in (dev, torch.device("cpu")):
         ts = [t.detach().to(d).requires_grad_() for t in (q, k, v)]
-        attention.patch_attention(*ts, kv.to(d), 0.2).backward(gout.to(d))
+        attention.patch_attention_dropout(*ts, kv.to(d), 0.2, 0.0, 7
+                                          ).backward(gout.to(d))
         grads.append([t.grad for t in ts])
     for got, want in zip(*grads):
         _check(got.cpu(), want)

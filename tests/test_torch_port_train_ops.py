@@ -313,18 +313,16 @@ def _loss_inputs(seed=6, B=3, N=40, nb=10, bins=72):
 
 
 def test_disc_pos_targets_match_jax():
-    """Device targets in the sorted frame and in input order (fp32, 1e-4
-    scaled), and the host twin of one cloud."""
+    """Device targets in the sorted frame (fp32, 1e-4 scaled), and the host
+    twin of one cloud."""
     preds, batch = _loss_inputs()
     tp = {k: T(v) for k, v in preds.items()}
     tb = {k: T(v) for k, v in batch.items()}
     jp = {k: jnp.asarray(v) for k, v in preds.items()}
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     gt = batch["gt_actions"][:, :3]
-    for p_t, p_j in ((tp, jp), (None, None)):
-        got = build_disc_pos_targets(tb, T(gt), 5, ACT, preds=p_t)
-        want = jtargets(jb, jnp.asarray(gt), 5, ACT, preds=p_j)
-        _close(got, want)
+    _close(build_disc_pos_targets(tb, T(gt), 5, ACT, tp),
+           jtargets(jb, jnp.asarray(gt), 5, ACT, preds=jp))
     xyz = batch["pc_fts"][1, :31, :3]
     robot_idx = np.where(batch["pc_robot_mask"][1, :31])[0]
     for kind in ("plain", "dist"):
