@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Phases, each of which raises on failure (exit code != 0, no result line):
-  1. build   the hand-written kernels K1-K8 from robot3dlotus_tpu_torch/csrc
+  1. build   the hand-written kernels K1-K10 from robot3dlotus_tpu_torch/csrc
              (one nvcc per source, all started together) and load them;
   2. capture one `Actioner.predict` at the release width (4096 points) and
              one `predict_batch` of 4 with recorders on the kernel call
@@ -51,12 +51,41 @@ Phases, each of which raises on failure (exit code != 0, no result line):
              after a warm-up call);
  10. step-check one step at dropout 0 with injected order permutations, B =
              2 of the same batch, the same weights, on the card and on the
-             CPU (plain versions): losses, every gradient, every updated
-             parameter and running statistic;
+             CPU (plain versions): losses, every updated parameter and
+             running statistic, every gradient; a gradient that a max
+             reduction picking different rows on the two devices (a near
+             tie) can reach is not held on that slice, and every gradient
+             must be held on some slice;
  11. entry     train_simple_policy.main on the card for ENTRY_STEPS steps
              (launch counters to 0 before, read after against the per-step
              counts; logged losses finite); the end-to-end training rate,
              host batches included, over the second half.
+Then the 3D-LOTUS++ motion planner (release motion_planner_ptv3.yaml,
+seeded weights) behind the ground-truth pipeline (robot_pipeline_gt.yaml):
+ 12. mp-capture   one GroundtruthRobotPipeline.predict on a synthetic
+             observation with gt_mask images (4096 points), recorders on the
+             K9 call sites (the stage-0 entry sort, the categorical stem);
+ 13. mp-serving   launch counters to 0, 4 pipeline requests of one episode,
+             each running the motion planner, counters read against
+             MP_PER_FORWARD; MotionPlannerEngine.predict p50 with the host
+             prep (GT vision, labels, text) apart from the device forward;
+             a profiler window over 3 forwards (profile_mp_forward.txt
+             beside the other outputs); the card's trajectory logits against
+             the same weights on the CPU (1e-3 * max(1, |ref|)), decoded
+             actions finite;
+ 14. mp-kernels   K9 on every captured call bit-equal to its plain version;
+             K10 on the captured stem index with seeded cotangents at C = 5
+             and C = 20 (<= 1e-4 * max|plain|); times, bounds, library calls
+             (at the forward's B = 1 and, from one captured training step,
+             at B = 32);
+ 15. mp-train     train_motion_planner's trainer on synthetic_motion, B = 32
+             clouds x 4096 points, release dropout: 5 steps with launch
+             counts checked per step (MP_PER_STEP), step p50, clouds/s, peak
+             memory, a profiler window (profile_mp_train.txt);
+ 16. mp-step-check  phase 10 for the motion planner, on MP_CHECK_SLICES
+             slices;
+ 17. mp-entry     train_motion_planner.main on the card for MP_ENTRY_STEPS
+             steps, launch counts checked, logged losses finite.
 It prints the kernels line, the card's name and power limit, and as its
 last line {"ok": true, "device": {...}}. It needs one CUDA card and exits
 non-zero without one.
@@ -74,24 +103,35 @@ import time
 import numpy as np
 import torch
 import torch.nn.functional as F
+import yaml
 
 from robot3dlotus_tpu_torch.configs import get_config
 from robot3dlotus_tpu_torch.eval.actioner import Actioner
-from robot3dlotus_tpu_torch.eval.synthetic_obs import synthetic_observation
-from robot3dlotus_tpu_torch.models import layers, ptv3
+from robot3dlotus_tpu_torch.eval.common import parse_code
+from robot3dlotus_tpu_torch.eval.robot_pipeline import (
+    GroundtruthRobotPipeline, MotionPlannerEngine, _plan_action_name)
+from robot3dlotus_tpu_torch.eval.synthetic_obs import (TASKVAR,
+                                                       synthetic_observation)
+from robot3dlotus_tpu_torch.models import layers
 from robot3dlotus_tpu_torch.models.factory import build_model
 from robot3dlotus_tpu_torch.models.layers import Randomness
+from robot3dlotus_tpu_torch.models.motion_planner import (compute_mp_loss,
+                                                          decode_mp_actions)
+from robot3dlotus_tpu_torch.models.simple_policy import compute_loss
 from robot3dlotus_tpu_torch.ops import (attention, conv, cuda_lib, gather,
                                         patching, pooling, sparse_conv, stem)
 from robot3dlotus_tpu_torch.train.driver import build_trainer
 from robot3dlotus_tpu_torch.train.optim import build_optimizer
-from robot3dlotus_tpu_torch.train import train_simple_policy
+from robot3dlotus_tpu_torch.train import (train_motion_planner,
+                                          train_simple_policy)
 from robot3dlotus_tpu_torch.train.train_simple_policy import SPEC
 from robot3dlotus_tpu_torch.train.trainer import Trainer, batch_to_device
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "robot3dlotus_tpu_torch", "configs", "rlbench",
                       "simple_policy_ptv3.yaml")
+MP_CONFIG = os.path.join(os.path.dirname(CONFIG), "motion_planner_ptv3.yaml")
+GT_CONFIG = os.path.join(os.path.dirname(CONFIG), "robot_pipeline_gt.yaml")
 CLI_OPTS = ["TRAIN_DATASET.instr_embed_file", "None"]
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12    # H100 SXM data sheet, fp32 outside tensor cores
@@ -119,6 +159,11 @@ KERNELS = {
                          "robot3dlotus_tpu/ops/pallas_conv.py:569"),
     "scatter_rows_add": ("robot3dlotus_tpu_torch/csrc/gather.cu",
                          "robot3dlotus_tpu/ops/pallas_gather.py:160"),
+    "gather_rows_smallc": ("robot3dlotus_tpu_torch/csrc/gather_smallc.cu",
+                           "robot3dlotus_tpu/ops/pallas_gather.py:353"),
+    "scatter_rows_smallc_add": (
+        "robot3dlotus_tpu_torch/csrc/gather_smallc.cu",
+        "robot3dlotus_tpu/ops/pallas_gather.py:272"),
 }
 # the trainer of the release YAML on the learnable synthetic store
 # (scripts/e2e_learning_proof.py makes the same overrides)
@@ -131,14 +176,35 @@ TRAIN_STEPS = 5
 PROFILE_STEPS = 2
 ENTRY_STEPS = 6   # train_simple_policy.main; the rate is read over the last 3
 # launches per training step of the release model: K2 9 forward + 9 dx;
-# K4 the stage-0 entry sort, 4 shuffled child entry sorts, 4 unpools; K7
-# 9 CPE + the stem; K8 the backward of every K4 call whose input needs a
-# gradient (not the stage-0 sort of the data) and the owner sum of each
-# of the 9 conv dx
-PER_STEP = {"subm_conv": 18, "stem_conv": 1, "gather_rows": 9,
+# K4 4 shuffled child entry sorts, 4 unpools; K9 the stage-0 entry sort of
+# the 7-channel input (its input is data: no K10); K7 9 CPE + the stem; K8
+# the backward of every K4 call and the owner sum of each of the 9 conv dx
+PER_STEP = {"subm_conv": 18, "stem_conv": 1, "gather_rows": 8,
+            "gather_rows_smallc": 1, "scatter_rows_smallc_add": 0,
             "patch_attention_dropout": 9, "patch_attention_dropout_bwd": 9,
             "conv_weight_grad": 10, "scatter_rows_add": 17,
             "patch_attention": 0, "attention_dropout_mask": 0}
+# the motion planner: its trainer on the synthetic motion store (no action
+# embedding cache: the crc32 embeddings)
+MP_TRAIN_OPTS = ["TRAIN_DATASET.data_dir", "synthetic_motion",
+                 "TRAIN_DATASET.action_embed_file", "None",
+                 "TRAIN_DATASET.taskvar_file", "None"]
+MP_REQUESTS = 4
+MP_ENTRY_STEPS = 4
+MP_CHECK_SLICES = 6   # B = 2 slices of the mp step check, ~3.5 s each
+# launches per motion-planner forward: 9 Blocks; 4 unpools; K9 for the
+# stage-0 entry sort (C = 4) and the categorical stem (C = 5, M = N * 125),
+# whose product is a plain matmul (no K3)
+MP_PER_FORWARD = {"patch_attention": 9, "subm_conv": 9, "stem_conv": 0,
+                  "gather_rows": 4, "gather_rows_smallc": 2,
+                  "scatter_rows_smallc_add": 0, "conv_weight_grad": 0,
+                  "scatter_rows_add": 0, "patch_attention_dropout": 0,
+                  "patch_attention_dropout_bwd": 0}
+# per motion-planner training step: as the policy's, with K9 twice (entry
+# sort and stem), no K3, K7 for the 9 CPE only (the stem's dW is autograd
+# of its product) and no K10 (the stem gathers data)
+MP_PER_STEP = dict(PER_STEP, stem_conv=0, gather_rows_smallc=2,
+                   conv_weight_grad=9)
 TRAIN_KERNELS = ("patch_attention_dropout", "patch_attention_dropout_bwd",
                  "conv_weight_grad", "scatter_rows_add")
 # the step check's order permutations: stage 0 and the four poolings
@@ -147,6 +213,8 @@ CHECK_PERMS = [[2, 0, 3, 1], [1, 3, 0, 2], [3, 2, 1, 0], [0, 2, 1, 3],
 GRAD_TOL = 1e-3   # card vs CPU gradients of the whole step, per tensor
 # device kernels of a training step by name, first match wins
 DEVICE_GROUPS = [
+    ("K9/K10 small-C gather", ("gather_smallc_kernel",
+                               "scatter_smallc_add_kernel")),
     ("K7 conv_weight_grad", ("conv_weight_grad_kernel", "sum_splits")),
     ("K2 subm_conv", ("subm_conv_kernel",)),
     ("K6 attention dropout bwd", ("attn_drop_bwd",)),
@@ -213,13 +281,16 @@ SERVING_SITES = [(layers, "patch_attention", "patch_attention"),
                  (sparse_conv, "subm_conv", "subm_conv"),
                  (sparse_conv, "stem_conv", "stem_conv"),
                  (pooling, "gather_rows", "gather_rows"),
-                 (ptv3, "gather_rows", "gather_rows")]
+                 (gather, "gather_rows", "gather_rows")]
 TRAIN_SITES = [(layers, "patch_attention_dropout", "attention"),
                (sparse_conv, "subm_conv", "subm_conv"),
                (sparse_conv, "stem_conv", "stem_conv"),
                (pooling, "gather_rows", "gather_rows"),
-               (ptv3, "gather_rows", "gather_rows"),
+               (gather, "gather_rows", "gather_rows"),
                (patching, "gather_rows", "gather_rows")]
+# K9: the entry sort (gather.permute_rows_any) and the categorical stem
+SMALLC_SITES = [(gather, "gather_rows_smallc", "gather_rows_smallc"),
+                (sparse_conv, "gather_rows_smallc", "gather_rows_smallc")]
 
 
 def capture(run, sites):
@@ -421,16 +492,7 @@ def breakdown_phase(actioner, observations, out_dir):
             actioner._forward([r], 1)
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or \
-            getattr(e, "self_cuda_time_total", 0)
-    # device-side events only (kernels, memcpy/memset): the CPU-side aten
-    # ops that launched them report the same time again
-    kernels = sorted(((e.key, dev_us(e) / 1e3 / 3, e.count // 3)
-                      for e in events
-                      if str(e.device_type).endswith("CUDA") and dev_us(e)),
-                     key=lambda t: -t[1])
+    kernels = _device_ops(events, 3)
     busy_ms = sum(k[1] for k in kernels)
     with open(os.path.join(out_dir, "profile_forward.txt"), "w") as f:
         f.write(events.table(sort_by="self_cuda_time_total", row_limit=60))
@@ -507,7 +569,9 @@ def _losses(losses):
 
 def _device_ops(events, n):
     """(name, device ms per unit, count per unit) of the device-side
-    events of a profile over n units, largest first."""
+    events (kernels, memcpy/memset) of a profile over n units, largest
+    first; the CPU-side aten ops that launched them report the same time
+    again."""
     def dev_us(e):
         return getattr(e, "self_device_time_total", None) or \
             getattr(e, "self_cuda_time_total", 0)
@@ -516,8 +580,24 @@ def _device_ops(events, n):
                   key=lambda t: -t[1])
 
 
-def training_phase(trainer, batches, out_dir):
-    """5 counted steps, then a profiler window over 2 more."""
+def _group_device_ops(ops):
+    """{DEVICE_GROUPS label or 'other': {'ms', 'count'}} of _device_ops'
+    output, largest first."""
+    groups = {}
+    for name, ms, count in ops:
+        g = next((label for label, keys in DEVICE_GROUPS
+                  if any(k in name for k in keys)), "other")
+        acc = groups.setdefault(g, [0.0, 0])
+        acc[0] += ms
+        acc[1] += count
+    return {g: {"ms": v[0], "count": v[1]}
+            for g, v in sorted(groups.items(), key=lambda t: -t[1][0])}
+
+
+def training_phase(trainer, batches, out_dir, per_step=PER_STEP,
+                   profile_file="profile_train.txt", tag="training"):
+    """5 counted steps (launches against per_step), then a profiler window
+    over 2 more."""
     dev = [batch_to_device(b, "cuda") for b in batches]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -529,9 +609,9 @@ def training_phase(trainer, batches, out_dir):
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(_losses(out))
-        log(f"[training] step {i + 1}: {losses[-1]}")
+        log(f"[{tag}] step {i + 1}: {losses[-1]}")
     launches = dict(cuda_lib.LAUNCHES)
-    for k, per in PER_STEP.items():
+    for k, per in per_step.items():
         if launches[k] != per * TRAIN_STEPS:
             raise AssertionError(f"{k}: {launches[k]} launches in "
                                  f"{TRAIN_STEPS} training steps, expected "
@@ -548,16 +628,9 @@ def training_phase(trainer, batches, out_dir):
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
     ops = _device_ops(events, PROFILE_STEPS)
-    with open(os.path.join(out_dir, "profile_train.txt"), "w") as f:
+    with open(os.path.join(out_dir, profile_file), "w") as f:
         f.write(events.table(sort_by="self_cuda_time_total", row_limit=80))
     busy = sum(o[1] for o in ops)
-    groups = {}
-    for name, ms, count in ops:
-        g = next((label for label, keys in DEVICE_GROUPS
-                  if any(k in name for k in keys)), "other")
-        acc = groups.setdefault(g, [0.0, 0])
-        acc[0] += ms
-        acc[1] += count
     p50 = float(np.median(step_ms))
     out = {"step_ms": step_ms, "step_ms_p50": p50,
            "clouds_per_s": trainer_batch(batches) * 1e3 / p50,
@@ -567,22 +640,20 @@ def training_phase(trainer, batches, out_dir):
            "profiled_step_wall_ms": wall_ms / PROFILE_STEPS,
            "device_busy_ms_per_step": busy,
            "device_idle_share": 1.0 - busy / p50,
-           "device_ms_by_group": {g: {"ms": v[0], "count": v[1]}
-                                  for g, v in sorted(
-                                      groups.items(), key=lambda t: -t[1][0])},
+           "device_ms_by_group": _group_device_ops(ops),
            "top_device_ops": [{"name": o[0][:80], "ms": o[1], "count": o[2]}
                               for o in ops[:20]]}
-    log(f"[training] B={trainer_batch(batches)} x "
+    log(f"[{tag}] B={trainer_batch(batches)} x "
         f"{batches[0]['pc_fts'].shape[1]} points: step p50 {p50:.1f} ms "
         f"(all {[round(t, 1) for t in step_ms]}), "
         f"{out['clouds_per_s']:.1f} clouds/s, peak memory "
         f"{out['peak_mem_gib']:.2f} GiB")
-    log(f"[training] launches per step {out['launches_per_step']}")
-    log(f"[training] device busy {busy:.1f} ms per step (profiled wall "
+    log(f"[{tag}] launches per step {out['launches_per_step']}")
+    log(f"[{tag}] device busy {busy:.1f} ms per step (profiled wall "
         f"{out['profiled_step_wall_ms']:.1f} ms), idle share of the "
         f"unprofiled step {out['device_idle_share']:.3f}")
     for g, v in out["device_ms_by_group"].items():
-        log(f"[training]   {v['ms']:.3f} ms x{v['count']}  {g}")
+        log(f"[{tag}]   {v['ms']:.3f} ms x{v['count']}  {g}")
     return out, launches
 
 
@@ -690,8 +761,16 @@ def check_conv_dx(call):
     owner = idx[..., centre]
     gv = torch.where(ok[..., centre, None], g, torch.zeros_like(g))
     k8 = check_scatter_add(((gv, owner), gv))
-    return {"shape": list(x.shape) + [w.shape[-1]], "max_abs_err": e_dx,
-            "mirrored_k2_err": e_k2}, k8
+    # K2's bound at this training shape: its forward and its mirrored dx
+    # launch, each over this batch's live links
+    B, N, cin = x.shape
+    cout = w.shape[-1]
+    flops = 2 * cin * cout * int(ok.sum())
+    bound = sum(_bound(4 * (B * N * (a + b) + w.numel() + b) +
+                       5 * idx.numel(), flops)[0]
+                for a, b in ((cin, cout), (cout, cin)))
+    return {"shape": list(x.shape) + [cout], "max_abs_err": e_dx,
+            "mirrored_k2_err": e_k2, "k2_fwd_dx_bound_ms": bound}, k8
 
 
 def check_scatter_add(call):
@@ -768,62 +847,175 @@ def train_kernel_phase(captured):
     log(f"[train-kernels] conv dx (K8 + mirrored K2) vs the exact adjoint: "
         f"max err {max(m['max_abs_err'] for m in conv_dx):.3g}; mirrored K2 "
         f"vs plain {max(m['mirrored_k2_err'] for m in conv_dx):.3g}")
-    return rows, {"calls": res, "conv_dx": conv_dx}
+    k2_bound = sum(m["k2_fwd_dx_bound_ms"] for m in conv_dx)
+    log(f"[train-kernels] K2 bound per training step (9 forward + 9 dx "
+        f"over live links): {k2_bound:.4f} ms")
+    return rows, {"calls": res, "conv_dx": conv_dx,
+                  "k2_step_bound_ms": k2_bound}
 
 
-def step_check_phase(host_batch):
-    """One step at dropout 0 with injected order permutations on B = 2 of
-    the batch, the same seeded weights on the card and on the CPU."""
-    cfg = train_config("MODEL.ptv3_config.attn_drop", "0.0",
-                       "MODEL.ptv3_config.proj_drop", "0.0",
-                       "MODEL.action_config.dropout", "0.0")
-    batch = {k: v[:2] for k, v in host_batch.items()}
+def _record_max_decisions(model):
+    """Forward pre-hooks that record each max reduction's decision: the
+    winning row of every (segment, channel) of each grid pooling (lowest row
+    on an exact tie) and the winning point of every (cloud, channel) of the
+    head's pooled max; and hooks that record when each module first starts
+    and first ends. Returns ([(module name, decisions)], {module name:
+    [start, end]}, hook handles)."""
+    rec, spans, clock = [], {}, iter(range(1 << 62))
+
+    def start_hook(name):
+        def hook(mod, args):
+            spans.setdefault(name, [next(clock), None])
+        return hook
+
+    def end_hook(name):
+        def hook(mod, args, out):
+            if spans[name][1] is None:
+                spans[name][1] = next(clock)
+        return hook
+
+    def pool_hook(name):
+        def hook(mod, args):
+            feat, maps, child_cap = args
+            with torch.no_grad():
+                v = mod.proj(feat)
+                B, N, C = v.shape
+                seg = maps.seg_sorted[..., None].expand(B, N, C)
+                best = v.new_full((B, child_cap + 1, C), -math.inf)
+                best.scatter_reduce_(1, seg, v, reduce="amax")
+                rows = torch.arange(N, device=v.device)[None, :, None]
+                rows = torch.where(v == best.gather(1, seg), rows, N)
+                win = torch.full((B, child_cap + 1, C), N, device=v.device)
+                rec.append((name, win.scatter_reduce_(
+                    1, seg, rows, reduce="amin").cpu()))
+        return hook
+
+    def head_hook(mod, args):
+        emb, mask = args[0], args[1]
+        with torch.no_grad():
+            rec.append(("act_proj_head", torch.where(
+                mask[..., None], emb, -math.inf).argmax(1).cpu()))
+    handles = []
+    for n, m in model.named_modules():
+        handles += [m.register_forward_pre_hook(start_hook(n)),
+                    m.register_forward_hook(end_hook(n))]
+    handles += [m.register_forward_pre_hook(pool_hook("ptv3_model." + n))
+                for n, m in model.ptv3_model.named_children()
+                if n.endswith("_down")]
+    handles.append(model.act_proj_head.register_forward_pre_hook(head_hook))
+    return rec, spans, handles
+
+
+def _one_step(cfg, loss_fn, batch, dev):
+    """One dropout-0 step with the injected permutations; the losses, the
+    gradients, the updated state, the max decisions and the module spans,
+    on the host."""
     act_cfg = dict(cfg.MODEL.action_config, pos_heatmap_type=cfg.TRAIN_DATASET
                    .get("pos_heatmap_type", "dist"))
     loss_cfg = dict(cfg.MODEL.loss_config)
-    from robot3dlotus_tpu_torch.models.simple_policy import compute_loss
-    out = {}
-    for dev in ("cuda", "cpu"):
-        model = build_model(cfg.MODEL, device=dev, seed=1)
-        opt, _ = build_optimizer(model, dict(cfg.TRAIN))
-        trainer = Trainer(model, lambda p, b: compute_loss(
-            p, b, act_cfg, loss_cfg), opt, Randomness(0, dev,
-                                                      perms=CHECK_PERMS))
-        t0 = time.perf_counter()
-        losses = trainer.step(batch_to_device(batch, dev))
-        losses = _losses(losses)
-        grads = {n: p.grad.detach().cpu() for n, p in
-                 model.named_parameters()}
-        state = {n: t.detach().cpu() for n, t in model.state_dict().items()}
-        out[dev] = (losses, grads, state, time.perf_counter() - t0)
-        del model, trainer, opt
-    (lc, gc, sc, tc), (lr, gr, sr, tr) = out["cuda"], out["cpu"]
-    errs = {"loss": max(abs(lc[k] - lr[k]) / max(1.0, abs(lr[k]))
-                        for k in lr)}
-    if errs["loss"] > TOL:
-        raise AssertionError(f"card vs CPU losses {lc} vs {lr}")
-    gmax = max(float(g.abs().max()) for g in gr.values())
-    worst = 0.0
-    for n, g in gr.items():
-        scale = max(float(g.abs().max()), 1e-3 * gmax)
-        rel = float((gc[n] - g).abs().max()) / scale
-        worst = max(worst, rel)
-        if rel > GRAD_TOL:
-            raise AssertionError(f"card vs CPU gradient {n}: {rel} of "
-                                 f"max(|grad|, 1e-3 max|grads|)")
-    errs["grad_rel"] = worst
-    errs["state"] = 0.0
-    for n, t in sr.items():
-        if t.is_floating_point():
-            e = float((sc[n] - t).abs().max()) / max(1.0,
-                                                     float(t.abs().max()))
-            errs["state"] = max(errs["state"], e)
-            if e > TOL:
-                raise AssertionError(f"card vs CPU updated {n}: {e}")
-    log(f"[step-check] B=2, dropout 0, injected permutations: losses card "
-        f"{lc} vs CPU {lr}; worst relative errors {errs} (card "
-        f"{tc:.2f} s, CPU {tr:.2f} s per step)")
-    return dict(errs, losses_card=lc, losses_cpu=lr)
+    model = build_model(cfg.MODEL, device=dev, seed=1)
+    opt, _ = build_optimizer(model, dict(cfg.TRAIN))
+    trainer = Trainer(model, lambda p, b: loss_fn(p, b, act_cfg, loss_cfg),
+                      opt, Randomness(0, dev, perms=CHECK_PERMS))
+    decisions, spans, handles = _record_max_decisions(model)
+    t0 = time.perf_counter()
+    losses = _losses(trainer.step(batch_to_device(batch, dev)))
+    seconds = time.perf_counter() - t0
+    for h in handles:
+        h.remove()
+    grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+    state = {n: t.detach().cpu() for n, t in model.state_dict().items()}
+    return losses, grads, state, decisions, spans, seconds
+
+
+def _module_start(spans, leaf):
+    """When the module of parameter `leaf` first started; for a parameter
+    read outside its own module's forward (an embedding table read as
+    .weight), the start of its nearest ancestor that ran, which is no
+    later than the read."""
+    name = leaf.rpartition(".")[0]
+    while name not in spans:
+        name = name.rpartition(".")[0]
+    return spans[name][0]
+
+
+def step_check_phase(host_batch, config=train_config, loss_fn=compute_loss,
+                     tag="step-check", slices=1):
+    """One step at dropout 0 with injected order permutations on each of
+    the first `slices` B = 2 slices of the batch, the same seeded weights on
+    the card and on the CPU: the losses, every updated parameter and
+    running statistic at TOL, and every gradient at GRAD_TOL.
+
+    A gradient below a max reduction (grid pooling, the head's pooled max)
+    moves as a whole to another row when two candidates lie within rounding
+    of each other and the card and the CPU rank them apart, which is no
+    kernel error. So the check counts, per slice and per reduction, the max
+    decisions on which the two differ. On a slice where some differ it
+    still holds the gradient of every module that first starts after the
+    last such reduction has ended (no backward through a differing
+    decision reaches it), and reports the worst of the rest. Every gradient
+    must be held on at least one slice."""
+    cfg = config("MODEL.ptv3_config.attn_drop", "0.0",
+                 "MODEL.ptv3_config.proj_drop", "0.0",
+                 "MODEL.action_config.dropout", "0.0")
+    rows, held_somewhere = [], set()
+    for i in range(slices):
+        batch = {k: v[2 * i:2 * i + 2] for k, v in host_batch.items()}
+        lc, gc, sc, dc, spans, tc = _one_step(cfg, loss_fn, batch, "cuda")
+        lr, gr, sr, dr, _, tr = _one_step(cfg, loss_fn, batch, "cpu")
+        differ = {}
+        for (name, a), (_, b) in zip(dc, dr):
+            if (a != b).any():
+                differ[name] = differ.get(name, 0) + int((a != b).sum())
+        row = {"slice": i, "max_decisions": sum(d.numel() for _, d in dr),
+               "differing": differ, "losses_card": lc, "losses_cpu": lr,
+               "loss": max(abs(lc[k] - lr[k]) / max(1.0, abs(lr[k]))
+                           for k in lr)}
+        if row["loss"] > TOL:
+            raise AssertionError(f"slice {i}: card vs CPU losses {lc} vs {lr}")
+        row["state"] = 0.0
+        for n, t in sr.items():
+            if t.is_floating_point():
+                e = float((sc[n] - t).abs().max()) / max(
+                    1.0, float(t.abs().max()))
+                row["state"] = max(row["state"], e)
+                if e > TOL:
+                    raise AssertionError(f"slice {i}: card vs CPU updated "
+                                         f"{n}: {e}")
+        gmax = max(float(g.abs().max()) for g in gr.values())
+        rel = {n: float((gc[n] - g).abs().max()) /
+               max(float(g.abs().max()), 1e-3 * gmax) for n, g in gr.items()}
+        last_end = max((spans[name][1] for name in differ), default=-1)
+        held = [n for n in gr
+                if not differ or _module_start(spans, n) > last_end]
+        for n in held:
+            if rel[n] > GRAD_TOL:
+                raise AssertionError(f"slice {i}: card vs CPU gradient {n}: "
+                                     f"{rel[n]} of max(|grad|, 1e-3 "
+                                     f"max|grads|)")
+        held_somewhere.update(held)
+        free = set(gr).difference(held)
+        row.update(grads=len(gr), grads_held=len(held),
+                   grad_rel=max((rel[n] for n in held), default=0.0),
+                   grad_rel_not_held=max(((rel[n], n) for n in free),
+                                         default=None))
+        rows.append(row)
+        rest = ("none" if not free else "{:.3g} ({})".format(
+            *row["grad_rel_not_held"]))
+        log(f"[{tag}] B=2 (slice {i}), dropout 0, injected permutations: "
+            f"{row['max_decisions']} max decisions, differing between card "
+            f"and CPU {differ or 'on none'}; losses card {lc} vs CPU {lr}; "
+            f"worst relative errors: loss {row['loss']:.3g}, state "
+            f"{row['state']:.3g}, {len(held)} of {len(gr)} gradients held "
+            f"{row['grad_rel']:.3g}, the rest {rest} (card {tc:.2f} s, "
+            f"CPU {tr:.2f} s per step)")
+    missing = sorted(set(gr) - held_somewhere)
+    if missing:
+        raise AssertionError(f"{len(missing)} gradients held on no slice of "
+                             f"{slices}, e.g. {missing[:5]}")
+    return {"slices": rows, "loss": max(r["loss"] for r in rows),
+            "state": max(r["state"] for r in rows),
+            "grad_rel": max(r["grad_rel"] for r in rows)}
 
 
 class _Records(logging.Handler):
@@ -835,16 +1027,17 @@ class _Records(logging.Handler):
         self.records.append(record)
 
 
-def entry_phase():
-    """train_simple_policy.main on the card as a user starts it:
-    ENTRY_STEPS steps of run_training, each host batch made in series with
-    the steps, a log line after step ENTRY_STEPS / 2 and after the last
-    (each reads the losses, a sync). Launch counters read against PER_STEP;
-    the end-to-end rate is the clouds of the second half over the time
-    between the two lines."""
-    half = ENTRY_STEPS // 2
-    cfg = train_config("TRAIN.num_train_steps", str(ENTRY_STEPS),
-                       "TRAIN.log_steps", str(half))
+def entry_phase(module=train_simple_policy, config=train_config,
+                steps=ENTRY_STEPS, per_step=PER_STEP, tag="entry"):
+    """module.main (train_simple_policy or train_motion_planner) on the
+    card as a user starts it: `steps` steps of run_training, each host
+    batch made in series with the steps, a log line after step steps / 2
+    and after the last (each reads the losses, a sync). Launch counters
+    read against per_step; the end-to-end rate is the clouds of the second
+    half over the time between the two lines."""
+    half = steps // 2
+    cfg = config("TRAIN.num_train_steps", str(steps),
+                 "TRAIN.log_steps", str(half))
     logger = logging.getLogger("robot3dlotus_tpu_torch.train")
     handler, level = _Records(), logger.level
     logger.addHandler(handler)
@@ -852,21 +1045,21 @@ def entry_phase():
     cuda_lib.reset_launches()
     t0 = time.perf_counter()
     try:
-        trainer = train_simple_policy.main(cfg)
+        trainer = module.main(cfg)
         torch.cuda.synchronize()
     finally:
         logger.removeHandler(handler)
         logger.setLevel(level)
     total_s = time.perf_counter() - t0
     launches = dict(cuda_lib.LAUNCHES)
-    if trainer.optimizer.count != ENTRY_STEPS:
+    if trainer.optimizer.count != steps:
         raise AssertionError(f"entry point ran {trainer.optimizer.count} "
-                             f"steps, expected {ENTRY_STEPS}")
+                             f"steps, expected {steps}")
     del trainer
-    for k, per in PER_STEP.items():
-        if launches[k] != per * ENTRY_STEPS:
+    for k, per in per_step.items():
+        if launches[k] != per * steps:
             raise AssertionError(f"{k}: {launches[k]} launches in "
-                                 f"{ENTRY_STEPS} entry-point steps, expected "
+                                 f"{steps} entry-point steps, expected "
                                  f"{per} per step")
     lines = [r for r in handler.records if r.getMessage().startswith("step ")]
     if len(lines) != 2:
@@ -878,18 +1071,278 @@ def entry_phase():
             raise AssertionError(f"entry point: {r.getMessage()}")
     clouds = half * int(cfg.TRAIN.train_batch_size)
     span_s = lines[1].created - lines[0].created
-    out = {"steps": ENTRY_STEPS, "wall_s": total_s,
+    out = {"steps": steps, "wall_s": total_s,
            "second_half_s": span_s,
            "clouds_per_s": clouds / span_s,
            "step_ms": span_s * 1e3 / half,
+           "launches": launches,
            "log": [r.getMessage() for r in lines]}
-    log(f"[entry] train_simple_policy.main, {ENTRY_STEPS} steps in "
-        f"{total_s:.2f} s (build included); steps {half + 1}-{ENTRY_STEPS} "
+    log(f"[{tag}] {module.__name__.rsplit('.', 1)[-1]}.main, {steps} steps "
+        f"in {total_s:.2f} s (build included); steps {half + 1}-{steps} "
         f"{out['step_ms']:.1f} ms each with their host batches, "
         f"{out['clouds_per_s']:.2f} clouds/s end to end")
     for m in out["log"]:
-        log(f"[entry]   {m}")
+        log(f"[{tag}]   {m}")
     return out
+
+
+
+# ------------------------------------------------------- motion planner ---
+
+def mp_config(*opts):
+    return get_config(MP_CONFIG, MP_TRAIN_OPTS + list(opts))
+
+
+def mp_pipeline(engine):
+    """The GT pipeline of robot_pipeline_gt.yaml around `engine`."""
+    with open(GT_CONFIG) as f:
+        return GroundtruthRobotPipeline(yaml.safe_load(f),
+                                        motion_planner=engine)
+
+
+def mp_episode(pipe, observations, seed):
+    """One episode of the GT taskvar over `observations` (the vision's
+    sampling seeded); returns the actions and each request's seconds."""
+    pipe.vision.rng = np.random.RandomState(seed)
+    task, var = TASKVAR.split("+")
+    cache, actions, lat = None, [], []
+    for i, o in enumerate(observations):
+        t0 = time.perf_counter()
+        out = pipe.predict(task_str=task, variation=int(var), step_id=i,
+                           obs_state_dict=o, episode_id=0, cache=cache)
+        lat.append(time.perf_counter() - t0)
+        cache = out["cache"]
+        actions.append(out["action"])
+    return actions, lat
+
+
+def mp_inputs(pipe, obs):
+    """The motion planner's host inputs for one observation: GT vision
+    (labels, normalised cloud) and the plan's action-name embedding."""
+    plan = parse_code(pipe.llm_planner(TASKVAR)[0])
+    inp = pipe.vision(TASKVAR, 0, obs["pc"], obs["gt_mask"], obs["gripper"],
+                      obs["arm_links_info"])
+    return inp, pipe.text_embedder(_plan_action_name(plan))
+
+
+def mp_serving_phase(pipe, observations, out_dir):
+    """4 counted pipeline requests, then host prep vs device forward per
+    request and a profiler window over 3 forwards."""
+    mp_episode(pipe, observations[:1], 7)                 # warm-up
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    actions, lat = mp_episode(pipe, observations, 1)
+    launches = dict(cuda_lib.LAUNCHES)
+    for k, per in MP_PER_FORWARD.items():
+        if launches[k] != per * len(observations):
+            raise AssertionError(f"{k}: {launches[k]} launches in "
+                                 f"{len(observations)} pipeline requests, "
+                                 f"expected {per} per forward")
+    for i, a in enumerate(actions):
+        if a.shape != (8,) or not np.isfinite(a).all():
+            raise AssertionError(f"pipeline request {i}: bad action {a}")
+    engine = pipe.motion_planner
+    pipe.vision.rng = np.random.RandomState(1)
+    prep_ms, fwd_ms, rows = [], [], []
+    for o in observations:
+        t0 = time.perf_counter()
+        inp, txt = mp_inputs(pipe, o)
+        t1 = time.perf_counter()
+        traj = engine.predict(inp["pc_fts"], inp["pc_labels"], txt,
+                              inp["ee_poses"], inp["pc_centroids"],
+                              inp["pc_radius"], pipe.vision.TABLE_HEIGHT)
+        t2 = time.perf_counter()
+        if traj.shape != (5, 9) or not np.isfinite(traj).all():
+            raise AssertionError(f"bad trajectory {traj}")
+        prep_ms.append((t1 - t0) * 1e3)
+        fwd_ms.append((t2 - t1) * 1e3)
+        rows.append((inp, txt))
+    from torch.profiler import ProfilerActivity, profile
+    batches = [engine._batch(i["pc_fts"], i["pc_labels"], t)
+               for i, t in rows[:3]]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches:
+            engine.forward(b)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    with open(os.path.join(out_dir, "profile_mp_forward.txt"), "w") as f:
+        f.write(events.table(sort_by="self_cuda_time_total", row_limit=60))
+    ops = _device_ops(events, len(batches))
+    busy = sum(o[1] for o in ops)
+    fwd_p50 = float(np.median(fwd_ms))
+    out = {"request_ms": [t * 1e3 for t in lat],
+           "request_p50_ms": float(np.median(lat)) * 1e3,
+           "host_prep_ms": prep_ms, "host_prep_ms_p50":
+           float(np.median(prep_ms)), "predict_ms": fwd_ms,
+           "predict_ms_p50": fwd_p50,
+           "points": [len(i["pc_fts"]) for i, _ in rows],
+           "labels": [np.bincount(i["pc_labels"], minlength=4).tolist()
+                      for i, _ in rows],
+           "profiled_forward_wall_ms": wall_ms / len(batches),
+           "device_busy_ms_per_forward": busy,
+           "device_idle_share": 1.0 - busy / fwd_p50,
+           "device_ms_by_group": _group_device_ops(ops),
+           "launches": launches, "actions": [a.tolist() for a in actions]}
+    log(f"[mp-serving] {len(observations)} GT pipeline requests: p50 "
+        f"{out['request_p50_ms']:.2f} ms (all "
+        f"{[round(t, 2) for t in out['request_ms']]}); points "
+        f"{out['points']}, labels per class {out['labels']}; launches "
+        f"{launches}")
+    log(f"[mp-serving] MotionPlannerEngine.predict p50 {fwd_p50:.2f} ms "
+        f"(all {[round(t, 2) for t in fwd_ms]}); host prep (GT vision, "
+        f"labels, text) p50 {out['host_prep_ms_p50']:.2f} ms; device busy "
+        f"{busy:.2f} ms per forward (profiled wall "
+        f"{out['profiled_forward_wall_ms']:.2f} ms), idle share "
+        f"{out['device_idle_share']:.3f}")
+    for g, v in out["device_ms_by_group"].items():
+        log(f"[mp-serving]   {v['ms']:.4f} ms x{v['count']}  {g}")
+    return out, rows[0]
+
+
+def mp_reference_phase(engine, row):
+    """The card's trajectory logits for one observation against the same
+    weights on the CPU; the decoded trajectory finite."""
+    inp, txt = row
+    batch = engine._batch(inp["pc_fts"], inp["pc_labels"], txt)
+    cpu_model = build_model(engine.config.MODEL, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in
+                               engine.model.state_dict().items()})
+    with torch.inference_mode():
+        gpu = engine.model(batch)
+        cpu = cpu_model({k: v.cpu() for k, v in batch.items()})
+        traj = decode_mp_actions(gpu, engine.act_cfg).cpu()
+    errs = {}
+    for k in ("pos", "rot", "open", "stop"):
+        ref = cpu[k]
+        errs[k] = float((gpu[k].cpu() - ref).abs().max())
+        live = ref[ref > -1e8]     # masked candidates hold -1e9 on both
+        lim = 1e-3 * max(1.0, float(live.abs().max()))
+        if errs[k] > lim:
+            raise AssertionError(f"motion planner {k}: card vs CPU max "
+                                 f"|diff| {errs[k]} > {lim}")
+    if traj.shape != (1, 5, 9) or not bool(torch.isfinite(traj).all()):
+        raise AssertionError(f"decoded trajectory {traj}")
+    errs["pool_overflow"] = int(gpu["pool_overflow"])
+    log(f"[mp-serving] card vs CPU trajectory logits, max |diff|: {errs}")
+    return errs
+
+
+def check_smallc(args, timing):
+    """K9 on one captured call: bit-equal to its plain version; times
+    against the plain version and torch.gather on x with a zero row
+    appended, the sentinel rows pointing at it."""
+    x, idx = args
+    B, N, C = x.shape
+    run = lambda: gather.gather_rows_smallc(x, idx)  # noqa: E731
+    plain = lambda: gather.gather_rows_smallc_plain(x, idx)  # noqa: E731
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"K9 {list(x.shape)} M={idx.shape[1]}: not "
+                             "bit-equal to its plain version")
+    x_pad = torch.cat([x, x.new_zeros(B, 1, C)], 1)
+    sel = torch.where((idx >= 0) & (idx < N), idx, N).long()
+    sel = sel[..., None].expand(-1, -1, C)
+    library = lambda: torch.gather(x_pad, 1, sel)  # noqa: E731
+    bound_ms, t_b, t_f = _bound(4 * (x.numel() + idx.numel() + got.numel()),
+                                0)
+    return {"shape": [B, N, C, idx.shape[1]], "max_abs_err": 0.0,
+            "sentinel_rows": int((idx == N).sum()),
+            "ms": cuda_ms(run, **timing), "plain_ms": cuda_ms(plain, **timing),
+            "library_ms": cuda_ms(library, **timing), "bound_ms": bound_ms,
+            "bytes_s": t_b, "flops_s": t_f}
+
+
+def check_smallc_bwd(idx, n, C, seed, timing):
+    """K10 on a captured index with a seeded cotangent of C channels:
+    within 1e-4 * max|plain| (atomics); times against the plain version
+    and one index_add_ whose sentinel rows land in a spare row per
+    cloud."""
+    B, M = idx.shape
+    gen = torch.Generator(device=idx.device).manual_seed(seed)
+    g = torch.randn(B, M, C, generator=gen, device=idx.device)
+    run = lambda: gather.scatter_rows_smallc_add(g, idx, n)  # noqa: E731
+    plain = lambda: gather.scatter_rows_smallc_add_plain(  # noqa: E731
+        g, idx, n)
+    err = _err(run(), plain(), f"K10 {[B, M, C]} -> {n}")
+    spare = torch.where((idx >= 0) & (idx < n), idx, n).long()
+    flat = (spare + torch.arange(B, device=idx.device)[:, None] * (n + 1)
+            ).reshape(-1)
+    library = lambda: torch.zeros(  # noqa: E731
+        B * (n + 1), C, device=g.device).index_add_(0, flat, g.reshape(-1, C))
+    bound_ms, t_b, t_f = _bound(4 * (idx.numel() + g.numel() + B * n * C),
+                                g.numel())
+    return {"shape": [B, M, C, n], "max_abs_err": err,
+            "ms": cuda_ms(run, **timing), "plain_ms": cuda_ms(plain, **timing),
+            "library_ms": cuda_ms(library, **timing), "bound_ms": bound_ms,
+            "bytes_s": t_b, "flops_s": t_f}
+
+
+def _row(results):
+    lib = [r["library_ms"] for r in results]
+    return {"max_abs_err": max(r["max_abs_err"] for r in results),
+            "ms": sum(r["ms"] for r in results),
+            "plain_ms": sum(r["plain_ms"] for r in results),
+            "bound_ms": sum(r["bound_ms"] for r in results),
+            "bound_by": "bytes" if sum(r["bytes_s"] for r in results) >=
+            sum(r["flops_s"] for r in results) else "operations",
+            "library_ms": None if None in lib else sum(lib)}
+
+
+def mp_kernel_phase(captured_fwd, captured_step):
+    """K9 on every captured call of one forward (B = 1) and of one training
+    step (B = 32), K10 on both stem indices at C = 5 and C = 20. Rows:
+    K9 per forward, K10 per training-step shape at C = 5 (it launches 0
+    times per step: the stem gathers data)."""
+    rows, detail = {}, {}
+    for name, cap, timing in (("forward", captured_fwd, {}),
+                              ("step", captured_step, TRAIN_TIMING)):
+        calls = [args for args, _ in cap["gather_rows_smallc"]]
+        if sorted(a[0].shape[-1] for a in calls) != [4, 5]:
+            raise AssertionError(f"K9 calls per {name}: "
+                                 f"{[list(a[0].shape) for a in calls]}")
+        k9 = [check_smallc(a, timing) for a in calls]
+        stem_x, stem_idx = next(a for a in calls if a[0].shape[-1] == 5)
+        k10 = [check_smallc_bwd(stem_idx, stem_x.shape[1], C, 11 + C, timing)
+               for C in (5, 20)]
+        detail[name] = {"gather_rows_smallc": k9,
+                        "scatter_rows_smallc_add": k10}
+        for r in k9 + k10:
+            log(f"[mp-kernels] per {name}: {r['shape']} max_abs_err "
+                f"{r['max_abs_err']:.3g}, {r['ms']:.4f} ms (plain "
+                f"{r['plain_ms']:.4f}, library {r['library_ms']:.4f}, bound "
+                f"{r['bound_ms']:.4f})")
+        if name == "forward":
+            rows["gather_rows_smallc"] = _row(k9)
+        else:
+            rows["scatter_rows_smallc_add"] = _row(k10[:1])
+    return rows, detail
+
+
+def mp_training(out_dir):
+    """The motion planner's trainer on synthetic_motion (B = 32 x 4096,
+    release dropout): one captured step (K9 inputs at B = 32), 5 counted
+    steps and a profiler window; returns the phase, its launches, the
+    capture and a host batch for the step check."""
+    t0 = time.perf_counter()
+    trainer, batches, _ = build_trainer(mp_config(), train_motion_planner.SPEC,
+                                        device="cuda")
+    host, data_ms = host_batches(batches, 1 + TRAIN_STEPS + PROFILE_STEPS)
+    log(f"[mp-train] trainer built and {len(host)} host batches of "
+        f"{trainer_batch(host)} clouds made in "
+        f"{time.perf_counter() - t0:.1f} s (host ms per batch: "
+        f"{[round(t) for t in data_ms]})")
+    captured = capture(lambda: trainer.step(batch_to_device(host[0], "cuda")),
+                       SMALLC_SITES)
+    training, launches = training_phase(trainer, host[1:], out_dir,
+                                        MP_PER_STEP, "profile_mp_train.txt",
+                                        "mp-train")
+    training["host_batch_ms"] = data_ms
+    del trainer
+    return training, launches, captured, host[0]
 
 
 def main():
@@ -947,6 +1400,30 @@ def main():
     del captured
     step_check = step_check_phase(host[0])
     entry = entry_phase()
+    del host, batches
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    engine = MotionPlannerEngine(MP_CONFIG, device="cuda", seed=0)
+    pipe = mp_pipeline(engine)
+    log(f"[mp-capture] release-width motion planner and GT pipeline built "
+        f"in {time.perf_counter() - t0:.2f} s")
+    mp_obs = [synthetic_observation(200 + i) for i in range(MP_REQUESTS)]
+    mp_fwd_captured = capture(lambda: mp_episode(pipe, mp_obs[:1], 0),
+                              SMALLC_SITES)
+    mp_serving, mp_row = mp_serving_phase(pipe, mp_obs, out_dir)
+    mp_serving["reference_max_diff"] = mp_reference_phase(engine, mp_row)
+    del engine, pipe
+    torch.cuda.empty_cache()
+    mp_train, mp_train_launches, mp_step_captured, mp_host = \
+        mp_training(out_dir)
+    mp_rows, mp_detail = mp_kernel_phase(mp_fwd_captured, mp_step_captured)
+    del mp_fwd_captured, mp_step_captured
+    torch.cuda.empty_cache()
+    mp_step_check = step_check_phase(mp_host, mp_config, compute_mp_loss,
+                                     "mp-step-check", MP_CHECK_SLICES)
+    mp_entry = entry_phase(train_motion_planner, mp_config, MP_ENTRY_STEPS,
+                           MP_PER_STEP, "mp-entry")
 
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"device": smi, "kernels": rows, "calls": detail,
@@ -954,17 +1431,28 @@ def main():
                    "reference_max_diff": ref, "training": training,
                    "train_kernels": train_rows,
                    "train_calls": train_detail, "step_check": step_check,
-                  "entry": entry},
+                   "entry": entry, "mp_serving": mp_serving,
+                   "mp_training": mp_train, "mp_kernels": mp_rows,
+                   "mp_calls": mp_detail, "mp_step_check": mp_step_check,
+                   "mp_entry": mp_entry},
                   f, indent=1)
-    # K1-K4 as the serving run launched them, K5-K8 as the training run
-    # did; launches_by_path has both runs' counts for every kernel
+    # each kernel's launches in the run of its own slice's main path: K1-K4
+    # policy serving, K5-K8 policy training, K9 motion-planner serving, K10
+    # motion-planner training (0: the stem gathers data); launches_by_path
+    # has every run's count for every kernel
     rows.update(train_rows)
+    rows.update(mp_rows)
+    paths = {"serving": serving["launches"], "training": train_launches,
+             "mp_serving": mp_serving["launches"],
+             "mp_training": mp_train_launches}
+    main_path = dict.fromkeys(PER_FORWARD, "serving")
+    main_path.update(dict.fromkeys(TRAIN_KERNELS, "training"))
+    main_path.update(gather_rows_smallc="mp_serving",
+                     scatter_rows_smallc_add="mp_training")
     kernels = [dict(name=k, route="cuda", source=KERNELS[k][0],
                     replaces=KERNELS[k][1],
-                    launches=(serving["launches"] if k in PER_FORWARD
-                              else train_launches)[k],
-                    launches_by_path={"serving": serving["launches"][k],
-                                      "training": train_launches[k]},
+                    launches=paths[main_path[k]][k],
+                    launches_by_path={p: c[k] for p, c in paths.items()},
                     **rows[k])
                for k in KERNELS]
     print(json.dumps({"kernels": kernels}), flush=True)

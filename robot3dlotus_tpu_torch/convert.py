@@ -5,6 +5,7 @@ mechanical: the '/'-joined flax path becomes the '.'-joined torch name and
 only the leaf is renamed:
   Dense `kernel` (in, out)     -> `weight`, transposed to (out, in)
   LayerNorm / BN `scale`       -> `weight`
+  Embed `embedding` (num, dim) -> `weight`, as it is
   BN batch_stats `mean`/`var`  -> `running_mean` / `running_var`
   SubMConv `weight` (K, Cin, Cout) and every `bias` keep name and layout.
 """
@@ -14,7 +15,7 @@ import numpy as np
 import torch
 
 _PARAM_LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias",
-               "weight": "weight"}
+               "weight": "weight", "embedding": "weight"}
 _STAT_LEAF = {"mean": "running_mean", "var": "running_var"}
 
 

@@ -1,12 +1,14 @@
 """Model factory (port of robot3dlotus_tpu/models/factory.py
-`build_model`), for the class this port serves."""
+`build_model`), for the classes this port serves."""
 from __future__ import annotations
 
 import torch
 
+from .motion_planner import MotionPlanner
 from .simple_policy import SimplePolicy
 
-_VARIANTS = {"SimplePolicyPTV3CA": SimplePolicy}
+_VARIANTS = {"SimplePolicyPTV3CA": SimplePolicy,
+             "MotionPlannerPTV3CA": MotionPlanner}
 
 
 def resolve_device(device):

@@ -164,19 +164,25 @@ class MLP(nn.Module):
 
 
 class SubMConv(nn.Module):
-    """Submanifold sparse conv; weight (K, Cin, Cout) in stencil_offsets
-    order, spconv-like uniform init over fan_in = K * Cin."""
+    """Submanifold sparse conv; weight (K, Cin + E, Cout) in
+    stencil_offsets order, spconv-like uniform init over fan_in =
+    K * (Cin + E). E = categorical_channels: the width of an embedded
+    categorical input (the motion planner's point labels) that forward
+    takes as `categorical` = (idx (B, N), table (Kcat, E))."""
 
-    def __init__(self, cin, cout, kernel_size, generator, use_bias=True):
+    def __init__(self, cin, cout, kernel_size, generator, use_bias=True,
+                 categorical_channels=0):
         super().__init__()
         K = kernel_size ** 3
+        cin = cin + categorical_channels
         bound = math.sqrt(1.0 / (K * cin))
         self.weight = nn.Parameter(
             (torch.rand(K, cin, cout, generator=generator) * 2 - 1) * bound)
         self.bias = nn.Parameter(torch.zeros(cout)) if use_bias else None
 
-    def forward(self, x, nmap: NeighborMap):
-        return subm_conv_apply(x, nmap, self.weight, self.bias)
+    def forward(self, x, nmap: NeighborMap, categorical=None):
+        return subm_conv_apply(x, nmap, self.weight, self.bias,
+                               categorical=categorical)
 
 
 class SerializedAttention(nn.Module):

@@ -9,8 +9,12 @@ frame directly and pooling segments are contiguous runs. Per-point outputs
 come back in the stage-0 sorted frame with `sort0` (frame position ->
 input index). With shuffle_orders, train mode permutes the SFC orders at
 stage 0 and after every pooling (Randomness.permutation) and re-sorts the
-stage by its new first order through K4; eval never shuffles here. The
-TPU-only window/far-list inputs of the JAX backbone have no counterpart.
+stage by its new first order through K4; eval never shuffles here. Entry
+sorts go through permute_rows_any: K9 for the stage-0 input features (at
+most 32 channels), K4 for the pooled stages. A categorical stem input (the
+motion planner's point labels, `stem_categorical`) is carried into the
+stage-0 frame by sort0 and feeds only the stem conv. The TPU-only
+window/far-list inputs of the JAX backbone have no counterpart.
 """
 from __future__ import annotations
 
@@ -19,7 +23,7 @@ from typing import Optional, Sequence
 import torch
 import torch.nn as nn
 
-from ..ops.gather import gather_rows
+from ..ops.gather import permute_rows_any
 from ..ops.patching import build_pad_maps
 from ..ops.pooling import (build_pool_maps, gather_heads, segment_reduce,
                            take_rows, unpool_gather)
@@ -88,7 +92,8 @@ class PointTransformerV3(nn.Module):
                  proj_drop=0.0, drop_path=0.0, shuffle_orders=True,
                  grid_size=0.01, serial_depth=10,
                  stem_kernel=5, lookup_extent=128, assume_sorted=False,
-                 stage_caps: Optional[Sequence[int]] = None):
+                 stage_caps: Optional[Sequence[int]] = None,
+                 stem_categorical_channels=0):
         super().__init__()
         self.orders = tuple(orders)
         self.enc_depths, self.dec_depths = tuple(enc_depths), tuple(dec_depths)
@@ -111,8 +116,9 @@ class PointTransformerV3(nn.Module):
         enc_dp = _linspace(0.0, drop_path, sum(enc_depths))
         dec_dp = _linspace(0.0, drop_path, sum(dec_depths))
 
-        self.embedding_stem_conv = SubMConv(in_channels, enc_channels[0],
-                                            stem_kernel, g, use_bias=False)
+        self.embedding_stem_conv = SubMConv(
+            in_channels, enc_channels[0], stem_kernel, g, use_bias=False,
+            categorical_channels=stem_categorical_channels)
         self.embedding_norm = AdaptiveNorm(enc_channels[0], "bn")
         for s in range(S):
             if s > 0:
@@ -183,10 +189,10 @@ class PointTransformerV3(nn.Module):
 
     def _entry_sort(self, cur):
         """Sort every per-point array by codes[0] (stable; the sentinel
-        tail last); features go through K4."""
+        tail last); features go through K9 (<= 32 channels) or K4."""
         order = torch.argsort(cur["codes"][0], dim=-1, stable=True)
         new = dict(cur)
-        new["feat"] = gather_rows(cur["feat"].contiguous(), order)
+        new["feat"] = permute_rows_any(cur["feat"].contiguous(), order)
         new["coord"] = take_rows(cur["coord"], order)
         new["grid_coord"] = take_rows(cur["grid_coord"], order)
         new["codes"] = torch.gather(cur["codes"], -1, order[None].expand_as(
@@ -196,11 +202,13 @@ class PointTransformerV3(nn.Module):
         return new, order
 
     def forward(self, coord, feat, mask, counts, context, context_mask,
-                rng=None):
+                rng=None, stem_categorical=None):
         """coord (B, N, 3); feat (B, N, Cin); mask (B, N) bool; counts (B,);
         context (B, T, C) tokens, context_mask (B, T); rng: the Randomness
-        of a train-mode forward. Returns the list of decoder layer outputs,
-        outputs[0] carrying sort0 and pool_overflow."""
+        of a train-mode forward; stem_categorical: None, or (idx (B, N)
+        int, table (Kcat, E)) appended to feat for the stem conv only.
+        Returns the list of decoder layer outputs, outputs[0] carrying
+        sort0 and pool_overflow."""
         S = len(self.enc_depths)
         B, N0, _ = feat.shape
         caps = self._stage_caps(N0)
@@ -218,11 +226,15 @@ class PointTransformerV3(nn.Module):
             sort0 = torch.arange(N0, device=feat.device).expand(B, N0)
         else:
             cur, sort0 = self._entry_sort(cur)
+            if stem_categorical is not None:
+                stem_categorical = (take_rows(stem_categorical[0], sort0),
+                                    stem_categorical[1])
 
         stem_map = build_neighbor_map(cur["grid_coord"], cur["mask"],
                                       self.stem_kernel, depth0,
                                       extent=self.lookup_extent)
-        x = self.embedding_stem_conv(cur["feat"].contiguous(), stem_map)
+        x = self.embedding_stem_conv(cur["feat"].contiguous(), stem_map,
+                                     categorical=stem_categorical)
         cur["feat"] = gelu(self.embedding_norm(x, cur["mask"]))
 
         pool_overflow = torch.zeros((), dtype=torch.long, device=feat.device)

@@ -104,8 +104,9 @@ class SimplePolicy(nn.Module):
 
 def build_disc_pos_targets(batch, gt_pos, pos_bins, act_cfg, preds):
     """(B, 3, N * 2 * pos_bins) position targets in the backbone's sorted
-    frame: built from final_coord / final_mask, with the robot mask carried
-    into that frame by sort0."""
+    frame (or (B, L, 3, N * 2 * pos_bins) for trajectory positions gt_pos
+    (B, L, 3)): built from final_coord / final_mask, with the robot mask
+    carried into that frame by sort0."""
     robot = batch.get("pc_robot_mask")
     if robot is not None:
         robot = torch.gather(robot, 1, preds["sort0"])

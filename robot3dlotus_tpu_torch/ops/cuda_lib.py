@@ -38,6 +38,10 @@ SIGNATURES = {
     "r3dl_gather_rows": [_P, _P, _P, _I, _I, _I, _I, _P],
     # g, idx, dx, B, N, M, D, stream
     "r3dl_scatter_rows_add": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # x, idx, out, B, N, M, C, stream
+    "r3dl_gather_smallc": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # g, idx, dx, B, N, M, C, stream
+    "r3dl_scatter_smallc_add": [_P, _P, _P, _I, _I, _I, _I, _P],
     # q, k, v, key_valid, out, G, H, P, Dh, scale, stream
     "r3dl_patch_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     # q, k, v, key_valid, out, G, H, P, Dh, scale, seed, thresh, inv_keep,
@@ -60,12 +64,13 @@ SIGNATURES = {
     "r3dl_stem_conv": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
-# K1-K8 by wrapper name; the dropout-mask dump is a test entry point, not a
-# kernel of the training path
+# K1-K10 by wrapper name; the dropout-mask dump is a test entry point, not
+# a kernel of the training path
 LAUNCHES = {"patch_attention": 0, "subm_conv": 0, "stem_conv": 0,
             "gather_rows": 0, "patch_attention_dropout": 0,
             "patch_attention_dropout_bwd": 0, "conv_weight_grad": 0,
-            "scatter_rows_add": 0, "attention_dropout_mask": 0}
+            "scatter_rows_add": 0, "gather_rows_smallc": 0,
+            "scatter_rows_smallc_add": 0, "attention_dropout_mask": 0}
 
 _LIB = None
 

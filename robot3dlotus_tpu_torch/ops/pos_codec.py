@@ -48,7 +48,19 @@ def disc_pos_gt_prob(xyz, valid_mask, gt_pos, robot_mask=None,
     gt_pos (B, 3), robot_mask (B, N) (True = zeroed) or None ->
     (B, 3, N * 2 * pos_bins) float32 rows summing to 1 (the JAX package's
     disc_pos_gt_prob_jnp over a batch). Padded points get no probability
-    and are never the nearest-candidate fallback."""
+    and are never the nearest-candidate fallback. gt_pos (B, L, 3), one
+    position per trajectory step of the motion planner, gives
+    (B, L, 3, N * 2 * pos_bins)."""
+    if gt_pos.dim() == 3:
+        B, L, _ = gt_pos.shape
+
+        def rep(t):
+            return None if t is None else t.repeat_interleave(L, dim=0)
+        out = disc_pos_gt_prob(rep(xyz), rep(valid_mask),
+                               gt_pos.reshape(B * L, 3), rep(robot_mask),
+                               pos_bin_size, pos_bins, heatmap_type,
+                               support_radius)
+        return out.reshape(B, L, 3, -1)
     B, N, _ = xyz.shape
     nb = 2 * pos_bins
     shift = (torch.arange(nb, dtype=torch.float32, device=xyz.device)

@@ -8,7 +8,9 @@ neighbours once per stage as a (B, N, K) index map plus an `ok` mask,
 bit-equal to the JAX package's (lowest index wins on duplicate
 coordinates). subm_conv_apply dispatches to the hand-written kernels: the
 k=5 stem (Cin <= 8, no bias) to K3 (ops/stem.py), every other stencil to K2
-(ops/conv.py).
+(ops/conv.py), and a stem with a categorical channel (the motion planner's
+point labels) to K9 followed by the label reconstruct and one matrix
+product (categorical_conv).
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 
 from .conv import subm_conv
+from .gather import SMALLC_MAX, gather_rows_smallc
 from .serialization import SENTINEL, z_order_axis_interleave, z_order_encode
 from .stem import MAX_CIN, stem_conv
 
@@ -117,10 +120,45 @@ def _build_neighbor_map_dense(grid_coord, mask, kernel_size: int,
     return NeighborMap(idx=idx, ok=ok)
 
 
-def subm_conv_apply(feat, nmap: NeighborMap, weight, bias=None):
-    """feat (B, N, Cin); weight (K, Cin, Cout); bias (Cout,) or None.
+def categorical_conv(feat, nmap: NeighborMap, weight, categorical):
+    """The conv of feat with the embedded channels cat_table[cat_idx]
+    appended, without gathering the E embedding channels (sparse_conv.py:
+    209-299 of the JAX package): the raw index rides K9 as one more channel,
+    ONE-BASED, and every missing link points at the sentinel row N, which K9
+    turns into a zero row; a zero index channel matches no table entry, so it
+    reconstructs to a zero embedding. Then the one-hot x table reconstruct,
+    the ok mask and one (B*N, K*(Cin+E)) x (K*(Cin+E), Cout) product. The
+    table's and the weight's gradients come from autograd of the
+    reconstruct and the product."""
+    cat_idx, cat_table = categorical
+    B, N, C = feat.shape
+    K = nmap.idx.shape[-1]
+    rows = torch.cat([feat, (cat_idx + 1).to(feat.dtype)[..., None]], -1)
+    idx = torch.where(nmap.ok, nmap.idx, torch.full_like(nmap.idx, N))
+    g = gather_rows_smallc(rows, idx.reshape(B, N * K)).reshape(
+        B, N, K, C + 1)
+    ids = torch.arange(1, cat_table.shape[0] + 1, device=feat.device)
+    onehot = (g[..., -1:].long() == ids).to(feat.dtype)
+    g = torch.cat([g[..., :-1], onehot @ cat_table.to(feat.dtype)], -1)
+    g = torch.where(nmap.ok[..., None], g, g.new_zeros(()))
+    cw = g.shape[-1]
+    out = g.reshape(B * N, K * cw) @ weight.reshape(K * cw, -1)
+    return out.reshape(B, N, -1)
+
+
+def subm_conv_apply(feat, nmap: NeighborMap, weight, bias=None,
+                    categorical=None):
+    """feat (B, N, Cin); weight (K, Cin + E, Cout); bias (Cout,) or None;
+    categorical: None, or (idx (B, N) int in [0, Kcat), table (Kcat, E)),
+    embedded channels logically appended to feat.
 
     out[b, n] = sum_k ok * W[k]^T feat[b, idx[b, n, k]] (+ bias)"""
+    if categorical is not None:
+        if feat.shape[-1] + 1 > SMALLC_MAX:
+            raise ValueError(f"categorical conv: {feat.shape[-1]} + 1 "
+                             f"channels > {SMALLC_MAX}")
+        out = categorical_conv(feat, nmap, weight, categorical)
+        return out if bias is None else out + bias
     if bias is None and feat.shape[-1] <= MAX_CIN:
         return stem_conv(feat, nmap.idx, nmap.ok, weight)
     return subm_conv(feat, nmap.idx, nmap.ok, weight, bias)

@@ -9,10 +9,10 @@ function in PyTorch (the gather-then-einsum form), the path for CPU tensors
 and the kernel's oracle.
 
 Backward: dW is K7 (ops/conv.py conv_weight_grad) at the stem's shape. The
-stem input of the policy is data and needs no gradient; the JAX package's
-input-gradient kernel (`_windowed_gather_bwd`) serves only the motion
-planner's label embeddings and is not ported, so an input that requires a
-gradient raises.
+stem input of the policy is data and needs no gradient, so an input that
+requires one raises. (The motion planner's stem, whose label channel the
+JAX package gathers with the windowed kernel and its input-gradient VJP,
+goes through K9 and K10 instead: ops/sparse_conv.py categorical_conv.)
 """
 from __future__ import annotations
 

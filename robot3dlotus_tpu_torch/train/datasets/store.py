@@ -6,8 +6,10 @@ records): per keystep t, xyz (n_t, 3) float and rgb (n_t, 3) uint8 of a
 tabletop-ish scene voxel-deduplicated at 1 cm; action (T+1, 8) gripper
 pose + open; bbox_info / pose_info per arm link for RobotBox. Each episode
 is a pure function of (seed, taskvar, episode), bit-equal to the JAX
-package's. The LMDB and msgpack stores of the real GemBench data are not
-ported yet.
+package's. SyntheticMotionStore adds the motion_keysteps_bbox_pcd fields of
+the motion planner's data (per-point semantic ids, future trajectories,
+gripper poses, keystep flags). The LMDB and msgpack stores of the real
+GemBench data are not ported yet.
 """
 from __future__ import annotations
 
@@ -104,12 +106,48 @@ class SyntheticStore:
                 "bbox_info": bbox_info, "pose_info": pose_info}
 
 
+class SyntheticMotionStore(SyntheticStore):
+    """Synthetic episodes with the motion_keysteps_bbox_pcd layout: the
+    base record plus, per step t, `sem` (n_t,) int32 semantic ids, `trajs`
+    a (L_t, 8) future trajectory (1 <= L_t <= 5), `ee_pose` (T, 8) and
+    `is_new_keystep` (T,) bool."""
+
+    def get(self, taskvar, episode):
+        rec = super().get(taskvar, episode)
+        tvi = self._tv.index(taskvar)
+        epi = self._eps.index(episode)
+        rng = np.random.RandomState(self.seed * 7919 + tvi * 131 + epi + 17)
+        T = self.steps
+        rec["sem"] = [rng.randint(0, 100, (len(x),)).astype(np.int32)
+                      for x in rec["xyz"]]
+        rec["ee_pose"] = rec["action"][:T]
+        trajs = []
+        for _ in range(T):
+            L = rng.randint(1, 6)
+            q = rng.randn(L, 4)
+            q /= np.linalg.norm(q, axis=-1, keepdims=True)
+            trajs.append(np.concatenate([
+                rng.uniform([-0.1, -0.3, 0.76], [0.5, 0.3, 1.1], (L, 3)),
+                q, rng.randint(0, 2, (L, 1)).astype(np.float64),
+            ], 1).astype(np.float32))
+        rec["trajs"] = trajs
+        new_ks = np.zeros(T, bool)
+        new_ks[0] = True
+        if T > 2:
+            new_ks[T // 2] = True
+        rec["is_new_keystep"] = new_ks
+        return rec
+
+
 def open_store(path_or_kind):
-    """'synthetic' (random actions) or 'synthetic_reach' / 'synthetic_reachN'
-    (the learnable reach task, 8 or N episodes per taskvar; episode
-    generation is id-deterministic, so the first 8 coincide)."""
+    """'synthetic' (random actions), 'synthetic_motion' (the motion
+    planner's layout) or 'synthetic_reach' / 'synthetic_reachN' (the
+    learnable reach task, 8 or N episodes per taskvar; episode generation
+    is id-deterministic, so the first 8 coincide)."""
     if path_or_kind == "synthetic":
         return SyntheticStore()
+    if path_or_kind == "synthetic_motion":
+        return SyntheticMotionStore()
     if isinstance(path_or_kind, str) and \
             path_or_kind.startswith("synthetic_reach"):
         n = path_or_kind[len("synthetic_reach"):]

@@ -8,6 +8,7 @@ validation and multi-device training are not ported yet.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import logging
 import time
@@ -15,6 +16,7 @@ from typing import Any, Callable, Dict
 
 import numpy as np
 
+from ..configs import get_config
 from ..models.factory import build_model, resolve_device
 from ..models.layers import Randomness
 from .datasets.loader import KeystepBatchLoader
@@ -22,6 +24,18 @@ from .optim import build_optimizer
 from .trainer import RunningMeter, Trainer, batch_to_device
 
 LOGGER = logging.getLogger("robot3dlotus_tpu_torch.train")
+
+
+def build_args(argv=None):
+    """The entry points' command line: --exp-config <yaml> [--device cpu]
+    [KEY VALUE]... -> (config, device)."""
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--exp-config", required=True)
+    parser.add_argument("--device", default="cuda")
+    parser.add_argument("opts", nargs=argparse.REMAINDER,
+                        help="KEY VALUE overrides")
+    args = parser.parse_args(argv)
+    return get_config(args.exp_config, args.opts), args.device
 
 
 @dataclasses.dataclass

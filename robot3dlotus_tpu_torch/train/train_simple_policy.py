@@ -10,26 +10,13 @@ TRAIN_DATASET.data_dir, which the port reads for the synthetic stores only
 """
 from __future__ import annotations
 
-import argparse
 import logging
 
-from ..configs import get_config
 from ..models.simple_policy import compute_loss
 from .datasets.collate import collate_keystep_samples
 from .datasets.keystep_dataset import KeystepDataset
 from .datasets.store import open_store
-from .driver import TaskSpec, run_training
-
-
-def build_args(argv=None):
-    """-> (config, device)."""
-    parser = argparse.ArgumentParser()
-    parser.add_argument("--exp-config", required=True)
-    parser.add_argument("--device", default="cuda")
-    parser.add_argument("opts", nargs=argparse.REMAINDER,
-                        help="KEY VALUE overrides")
-    args = parser.parse_args(argv)
-    return get_config(args.exp_config, args.opts), args.device
+from .driver import TaskSpec, build_args, run_training
 
 
 def _build_dataset(ds_cfg, rng):

@@ -1,7 +1,8 @@
-"""The PyTorch port on a CUDA card: each kernel (K1-K8) against its plain
+"""The PyTorch port on a CUDA card: each kernel (K1-K10) against its plain
 version, and the card's grid coordinates against the host presort's.
 Tolerance 1e-4 * max(1, max|plain|): fp32 on both sides, other summation
-orders (K8's atomics in a run-dependent one).
+orders (K8's and K10's atomics in a run-dependent one); the gathers K4 and
+K9 only copy and must be bit-equal.
 
 Every case carries the `gpu` marker and skips without a card. The file
 imports neither jax nor the JAX package, so it runs on a machine that has
@@ -14,7 +15,7 @@ import pytest
 import torch
 
 from robot3dlotus_tpu_torch.models.ptv3 import compute_grid_coord
-from robot3dlotus_tpu_torch.ops import attention, conv, gather, stem
+from robot3dlotus_tpu_torch.ops import attention, conv, cuda_lib, gather, stem
 from robot3dlotus_tpu_torch.ops.sparse_conv import build_neighbor_map
 
 pytestmark = pytest.mark.gpu
@@ -190,6 +191,45 @@ def test_k8_scatter_rows_add_colliding(dev, D):
     x.requires_grad_()
     gather.gather_rows(x, idx).backward(g)
     _check(x.grad, gather.scatter_rows_add_plain(g, idx, 257))
+
+
+def _smallc(rng, B, N, M, C, dev):
+    """x (B, N, C) and idx (B, M) with a fifth of the rows at the sentinel
+    N and a few negative."""
+    x = torch.from_numpy(rng.randn(B, N, C).astype(np.float32)).to(dev)
+    idx = rng.randint(0, N, (B, M)).astype(np.int32)
+    idx[rng.rand(B, M) < 0.2] = N
+    idx[:, :5] = -1
+    return x, torch.from_numpy(idx).to(dev)
+
+
+@pytest.mark.parametrize("C", [4, 5, 7, 20])
+def test_k9_gather_rows_smallc(dev, C):
+    x, idx = _smallc(np.random.RandomState(10), 2, 1024, 1024 * 125, C, dev)
+    got = gather.gather_rows_smallc(x, idx)
+    assert torch.equal(got, gather.gather_rows_smallc_plain(x, idx))
+    assert not got[(idx < 0) | (idx >= 1024)].any()
+
+
+@pytest.mark.parametrize("C", [5, 20])
+def test_k10_scatter_rows_smallc_add(dev, C):
+    rng = np.random.RandomState(11)
+    _, idx = _smallc(rng, 2, 1024, 1024 * 125, C, dev)
+    g = torch.from_numpy(rng.randn(2, 1024 * 125, C).astype(np.float32))
+    g = g.to(dev)
+    _check(gather.scatter_rows_smallc_add(g, idx, 1024),
+           gather.scatter_rows_smallc_add_plain(g, idx, 1024))
+
+
+def test_k9_backward_launches_k10(dev):
+    rng = np.random.RandomState(12)
+    x, idx = _smallc(rng, 2, 512, 512 * 27, 5, dev)
+    g = torch.from_numpy(rng.randn(2, 512 * 27, 5).astype(np.float32))
+    x.requires_grad_()
+    before = cuda_lib.LAUNCHES["scatter_rows_smallc_add"]
+    gather.gather_rows_smallc(x, idx).backward(g.to(dev))
+    assert cuda_lib.LAUNCHES["scatter_rows_smallc_add"] == before + 1
+    _check(x.grad, gather.scatter_rows_smallc_add_plain(g.to(dev), idx, 512))
 
 
 def test_grid_coord_matches_host_presort(dev):
