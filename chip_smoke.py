@@ -11,19 +11,21 @@ Phases, each of which raises on failure (exit code != 0, no result line):
              sites, keeping every kernel input the main path produces;
   3. kernels hold each captured call against the kernel's plain PyTorch
              version on the card (|kernel - plain| <= 1e-4 * max(1,
-             max|plain|): fp32 on both sides, other summation orders), and
-             time the B=1 calls: kernel, plain version and, where one
-             PyTorch call computes the same function, that call (CUDA
-             events: median of 21 rounds of 10 back-to-back calls, after 3
-             warm-up calls);
+             max|plain|): fp32 on both sides, other summation orders; K4
+             bit-equal, its unpool calls with sentinel rows), and time the
+             B=1 calls: kernel, plain version and, where one PyTorch call
+             computes the same function, that call (CUDA events: median of
+             21 rounds of 10 back-to-back calls, after 3 warm-up calls);
+             K4's calls also read their device time from the profiler;
   4. serving launch counters to 0, then 4 `predict` requests and one
              `predict_batch` of the same 4 observations (4 cameras of
              256 x 256 xyz/rgb, seeded tabletop scenes), counters read: each
              kernel must have launched its per-forward count 5 times; batch
              and sequential actions must agree; p50 request latency printed;
   5. breakdown host preprocessing vs device forward per request, and a
-             torch.profiler window over 3 forwards: device time by kernel
-             and the device's idle share (chiprun_out/profile_forward.txt);
+             torch.profiler window over 3 forwards: device time by kernel,
+             device launches per forward and the device's idle share
+             (profile_forward.txt in the output directory);
   6. reference the card's logits for one observation against the same
              weights on the CPU (the plain path);
   7. train-capture  the trainer of the release YAML on synthetic_reach
@@ -42,13 +44,14 @@ Phases, each of which raises on failure (exit code != 0, no result line):
              versions: K5 and K6 with the kernel's own dumped keep mask (the
              mask also bit-equal to the PyTorch Philox generator, its keep
              fraction within 5 binomial sigmas of 1 - rate), K5 at rate 0
-             against K1, K7 at the CPE and the stem shapes, K8, and the
-             conv's dx (K8 onto voxel owners, then K2 with the mirrored
-             weight) against the exact adjoint (autograd of
-             subm_conv_plain) on every row; |kernel - plain| <= 1e-4 *
-             max|plain| (gradients are far below 1); time K5-K8 per
-             training step (CUDA events, median of 5 rounds of 2 calls
-             after a warm-up call);
+             against K1, K7 at the CPE and the stem shapes, K8 (sentinel
+             rows dropped), and the conv's dx (K8 onto voxel owners, then
+             K2 with the mirrored weight) against the exact adjoint
+             (autograd of subm_conv_plain) on every row; |kernel - plain|
+             <= 1e-4 * max|plain| (gradients are far below 1); K4 on the
+             step's 8 calls at B = 32, bit-equal; time K4-K8 per training
+             step (CUDA events, median of 5 rounds of 2 calls after a
+             warm-up call);
  10. step-check one step at dropout 0 with injected order permutations, B =
              2 of the same batch, the same weights, on the card and on the
              CPU (plain versions): losses, every updated parameter and
@@ -69,11 +72,13 @@ seeded weights) behind the ground-truth pipeline (robot_pipeline_gt.yaml):
              each running the motion planner, counters read against
              MP_PER_FORWARD; MotionPlannerEngine.predict p50 with the host
              prep (GT vision, labels, text) apart from the device forward;
-             a profiler window over 3 forwards (profile_mp_forward.txt
+             a profiler window over 3 forwards, device launches per forward
+             among its numbers (profile_mp_forward.txt
              beside the other outputs); the card's trajectory logits against
              the same weights on the CPU (1e-3 * max(1, |ref|)), decoded
              actions finite;
- 14. mp-kernels   K9 on every captured call bit-equal to its plain version;
+ 14. mp-kernels   K9 on every captured call bit-equal to its plain version
+             (device time from the profiler beside the event time);
              K10 on the captured stem index with seeded cotangents at C = 5
              and C = 20 (<= 1e-4 * max|plain|); times, bounds, library calls
              (at the forward's B = 1 and, from one captured training step,
@@ -89,6 +94,7 @@ seeded weights) behind the ground-truth pipeline (robot_pipeline_gt.yaml):
 It prints the kernels line, the card's name and power limit, and as its
 last line {"ok": true, "device": {...}}. It needs one CUDA card and exits
 non-zero without one.
+
 """
 from __future__ import annotations
 
@@ -331,9 +337,92 @@ def _sdpa(q, k, v, kv, scale):
         q, k, v, attn_mask=mask, scale=scale)
 
 
+def device_ms(fn, name, reps=10, windows=3):
+    """Device time per launch of the kernel whose profiler name contains
+    `name`, over `reps` calls of fn in one torch.profiler window (CUPTI),
+    after a warm-up call: the device's share of a call whose CUDA-event
+    time (cuda_ms) includes its host path. Divides by the launches the
+    profiler recorded: in a process that opens many windows it sometimes
+    records only some of them, or none, and then a new window is opened,
+    up to `windows`; None (not measured) if none recorded one."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in _device_events(prof.key_averages())
+                  if name in e.key]
+        launches = sum(e.count for e in events)
+        if launches:
+            return sum(_dev_us(e) for e in events) / 1e3 / launches
+    return None
+
+
+def _total(values):
+    """The sum, or None (not measured) if any value is None."""
+    values = list(values)
+    return None if None in values else sum(values)
+
+
+# the row gathers: wrapper, plain version, the kernel's profiler name
+GATHERS = {"gather_rows": (gather.gather_rows, gather.gather_rows_plain,
+                           "gather_rows_kernel"),
+           "gather_rows_smallc": (gather.gather_rows_smallc,
+                                  gather.gather_rows_smallc_plain,
+                                  "gather_smallc_kernel")}
+
+
+def _padded_gather(x, idx):
+    """The library yardstick of a row gather with sentinel rows: one
+    torch.gather on x with a zero row appended, every index outside [0, N)
+    sent to it; pad and int64 expanded index built here, outside the timed
+    call."""
+    B, N, D = x.shape
+    x_pad = torch.cat([x, x.new_zeros(B, 1, D)], 1)
+    sel = torch.where((idx >= 0) & (idx < N), idx, N).long()
+    sel = sel[..., None].expand(-1, -1, D)
+    return lambda: torch.gather(x_pad, 1, sel)
+
+
+def check_gather(kernel, args, timing=None):
+    """K4 or K9 on one captured call: bit-equal to its plain version (both
+    only copy) and its sentinel rows (index outside [0, N)) counted; with
+    `timing` (cuda_ms keywords), the kernel's event and profiler device
+    times, the plain version's and the library yardstick's times, and the
+    bound (x and the indices read once, the output written once)."""
+    x, idx = args
+    fn, plain_fn, name = GATHERS[kernel]
+    B, N, D = x.shape
+    run = lambda: fn(x, idx)  # noqa: E731
+    plain = lambda: plain_fn(x, idx)  # noqa: E731
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"{kernel} {[B, N, D]} M={idx.shape[1]}: not "
+                             "bit-equal to its plain version")
+    out = {"shape": [B, N, D, idx.shape[1]], "index": str(idx.dtype),
+           "max_abs_err": 0.0, "max_rel_err": 0.0,
+           "sentinel_rows": int(((idx < 0) | (idx >= N)).sum())}
+    if timing is None:
+        return out
+    bound_ms, t_b, t_f = _bound(4 * (x.numel() + got.numel()) +
+                                idx.numel() * idx.element_size(), 0)
+    return {**out, "ms": cuda_ms(run, **timing),
+            "device_ms": device_ms(run, name),
+            "plain_ms": cuda_ms(plain, **timing),
+            "library_ms": cuda_ms(_padded_gather(x, idx), **timing),
+            "bound_ms": bound_ms, "bytes_s": t_b, "flops_s": t_f}
+
+
 def check_call(kernel, args, timed=True):
     """One captured call: error vs plain and, if `timed`, times and
     bound."""
+    if kernel == "gather_rows":
+        return check_gather(kernel, args, {} if timed else None)
     if kernel == "patch_attention":
         q, k, v, kv, scale = args
         run = lambda: attention.patch_attention(q, k, v, kv, scale)  # noqa
@@ -359,15 +448,6 @@ def check_call(kernel, args, timed=True):
         nbytes = 4 * (x.numel() + w.numel() + B * N * Cout + Cout) + \
             5 * idx.numel()
         flops = 2 * Cin * Cout * int(ok.sum())      # this cloud's live links
-    else:
-        x, idx = args
-        run = lambda: gather.gather_rows(x, idx)  # noqa: E731
-        plain = lambda: gather.gather_rows_plain(x, idx)  # noqa: E731
-        idx_l = idx.long()[..., None].expand(-1, -1, x.shape[-1])
-        library = lambda: torch.gather(x, 1, idx_l)  # noqa: E731
-        shape = list(x.shape) + [idx.shape[1]]
-        nbytes = 4 * (x.numel() + idx.numel() + idx.numel() * x.shape[-1])
-        flops = 0
     got, want = run(), plain()
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
@@ -415,7 +495,74 @@ def kernel_phase(captured, captured_batch):
             f"{rows[kernel]['ms']:.4f} ms (plain "
             f"{rows[kernel]['plain_ms']:.4f}, bound "
             f"{rows[kernel]['bound_ms']:.4f})")
+    rows["gather_rows"]["device_ms"] = _total(
+        r["device_ms"] for r in detail if r["name"] == "gather_rows"
+        and "device_ms" in r)
+    log_gathers("kernels", "K4 per forward", [r for r in detail
+                                              if r["name"] == "gather_rows"])
+    rows["gather_rows"]["host_us"] = host_split(*captured["gather_rows"][0])
+    if not any(r["sentinel_rows"] for r in detail
+               if r["name"] == "gather_rows"):
+        # no captured call had one: hold a seeded call that does
+        gen = torch.Generator(device="cuda").manual_seed(21)
+        x = torch.randn(1, 512, 64, generator=gen, device="cuda")
+        idx = torch.randint(0, 600, (1, 1024), generator=gen, device="cuda")
+        r = dict(check_gather("gather_rows", (x, idx)), name="gather_rows",
+                 seeded=True)
+        detail.append(r)
+        log_gathers("kernels", "K4 seeded call", [r])
     return rows, detail
+
+
+def host_split(x, idx, rounds=5, calls=2000):
+    """Host microseconds per call (host clock, median of `rounds` rounds of
+    `calls` back-to-back calls) of K4's wrapper and of torch.gather on the
+    padded x, and of the two parts of the wrapper that no Python wrapper
+    avoids: the output allocation alone, and the ctypes call of the C entry
+    point (with its launch) alone on a preallocated output."""
+    B, N, D = x.shape
+    M = idx.shape[1]
+    out = x.new_empty(B, M, D)
+    entry = cuda_lib.library().r3dl_gather_rows
+    args = (x.data_ptr(), idx.data_ptr(), out.data_ptr(), B, N, M, D,
+            int(idx.dtype == torch.int64))
+    parts = {"wrapper": lambda: gather.gather_rows(x, idx),
+             "torch.gather": _padded_gather(x, idx),
+             "allocation": lambda: x.new_empty(B, M, D),
+             "ctypes call and launch": lambda: entry(
+                 *args, cuda_lib.current_stream())}
+    times = {k: [] for k in parts}
+    for _ in range(rounds):
+        for k, fn in parts.items():
+            for _ in range(50):
+                fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            times[k].append((time.perf_counter() - t0) / calls * 1e6)
+            torch.cuda.synchronize()
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    log(f"[kernels] K4 host path per call, {[B, N, D, M]} (us, host clock, "
+        f"median of {rounds} rounds of {calls} calls): wrapper "
+        f"{med['wrapper']:.2f}, torch.gather {med['torch.gather']:.2f}; "
+        f"of the wrapper: allocation {med['allocation']:.2f}, ctypes call "
+        f"and launch {med['ctypes call and launch']:.2f}")
+    return med
+
+
+def log_gathers(tag, label, results):
+    """One line per K4 / K9 call: shape, index type, sentinel rows and, if
+    timed, event time beside the profiler's device time."""
+    for r in results:
+        dev = "not measured" if r.get("device_ms") is None else \
+            f"{r['device_ms']:.4f} ms"
+        times = "" if "ms" not in r else (
+            f", {r['ms']:.4f} ms by events, {dev} on the device (plain "
+            f"{r['plain_ms']:.4f}, library {r['library_ms']:.4f}, bound "
+            f"{r['bound_ms']:.4f})")
+        log(f"[{tag}] {label}: [B, N, D, M] {r['shape']} {r['index']}, "
+            f"{r['sentinel_rows']} sentinel rows{times}")
 
 
 # ------------------------------------------------------------- serving -----
@@ -501,14 +648,17 @@ def breakdown_phase(actioner, observations, out_dir):
            "forward_ms_p50": fwd_p50,
            "profiled_forward_wall_ms": wall_ms / 3,
            "device_busy_ms_per_forward": busy_ms,
+           "device_launches_per_forward": _device_launches(events, 3),
            "device_idle_share": 1.0 - busy_ms / fwd_p50,
            "top_device_ops": [{"name": k[0][:80], "ms": k[1], "count": k[2]}
                               for k in kernels[:15]]}
     log(f"[breakdown] host prep p50 {out['host_prep_ms_p50']:.2f} ms, "
         f"device forward p50 {fwd_p50:.2f} ms (profiled: "
         f"{out['profiled_forward_wall_ms']:.2f} ms wall); device busy "
-        f"{busy_ms:.2f} ms per forward, idle share of the unprofiled "
-        f"forward {out['device_idle_share']:.3f}")
+        f"{busy_ms:.2f} ms per forward in "
+        f"{out['device_launches_per_forward']:.2f} device launches (kernels, "
+        f"memcpy, memset), idle share of the unprofiled forward "
+        f"{out['device_idle_share']:.3f}")
     for k in out["top_device_ops"][:8]:
         log(f"[breakdown]   {k['ms']:.4f} ms x{k['count']}  {k['name']}")
     return out
@@ -567,17 +717,29 @@ def _losses(losses):
     return out
 
 
+def _dev_us(e):
+    return getattr(e, "self_device_time_total", None) or \
+        getattr(e, "self_cuda_time_total", 0)
+
+
+def _device_events(events):
+    """The device-side events (kernels, memcpy/memset) of a profile; the
+    CPU-side aten ops that launched them report the same time again."""
+    return [e for e in events
+            if str(e.device_type).endswith("CUDA") and _dev_us(e)]
+
+
 def _device_ops(events, n):
     """(name, device ms per unit, count per unit) of the device-side
-    events (kernels, memcpy/memset) of a profile over n units, largest
-    first; the CPU-side aten ops that launched them report the same time
-    again."""
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or \
-            getattr(e, "self_cuda_time_total", 0)
-    return sorted(((e.key, dev_us(e) / 1e3 / n, e.count // n) for e in events
-                   if str(e.device_type).endswith("CUDA") and dev_us(e)),
-                  key=lambda t: -t[1])
+    events of a profile over n units, largest first."""
+    return sorted(((e.key, _dev_us(e) / 1e3 / n, e.count // n)
+                   for e in _device_events(events)), key=lambda t: -t[1])
+
+
+def _device_launches(events, n):
+    """Device launches (kernels, memcpy, memset) per unit of a profile over
+    n units."""
+    return sum(e.count for e in _device_events(events)) / n
 
 
 def _group_device_ops(ops):
@@ -773,22 +935,31 @@ def check_conv_dx(call):
             "mirrored_k2_err": e_k2, "k2_fwd_dx_bound_ms": bound}, k8
 
 
+def _index_add(g, idx, n):
+    """The library yardstick of a scatter-add that drops sentinel rows:
+    one index_add_ into B * (n + 1) rows, each cloud's rows outside [0, n)
+    sent to its spare row (the flat index built outside the timed call)."""
+    B, _, D = g.shape
+    spare = torch.where((idx >= 0) & (idx < n), idx, n).long()
+    flat = (spare + torch.arange(B, device=idx.device)[:, None] * (n + 1)
+            ).reshape(-1)
+    return lambda: torch.zeros(B * (n + 1), D, device=g.device).index_add_(
+        0, flat, g.reshape(-1, D))
+
+
 def check_scatter_add(call):
     """K8 on one captured K4 call (its input and the cotangent of its
-    output), or on a conv's owner scatter (x stands in for the output
-    shape)."""
+    output; the unpools' sentinel rows dropped), or on a conv's owner
+    scatter (x stands in for the output shape)."""
     (x, idx), g = call
     B, n, D = x.shape
     run = lambda: gather.scatter_rows_add(g, idx, n)  # noqa: E731
     plain = lambda: gather.scatter_rows_add_plain(g, idx, n)  # noqa: E731
-    flat = (idx.long() + torch.arange(B, device=idx.device)[:, None] * n
-            ).reshape(-1)
-    library = lambda: torch.zeros(  # noqa: E731
-        B * n, D, device=g.device).index_add_(0, flat, g.reshape(-1, D))
     err = _err(run(), plain(), f"K8 {list(g.shape)} -> {n}")
-    nbytes = 4 * (g.numel() + idx.numel() + B * n * D)
-    return dict(_timed(run, plain, library, nbytes, g.numel()),
-                max_abs_err=err, shape=list(g.shape) + [n])
+    nbytes = 4 * (g.numel() + B * n * D) + idx.numel() * idx.element_size()
+    return dict(_timed(run, plain, _index_add(g, idx, n), nbytes, g.numel()),
+                max_abs_err=err, shape=list(g.shape) + [n],
+                sentinel_rows=int(((idx < 0) | (idx >= n)).sum()))
 
 
 def train_kernel_phase(captured):
@@ -819,6 +990,19 @@ def train_kernel_phase(captured):
         res["patch_attention_dropout_bwd"].append(r6)
     res["conv_weight_grad"] = [check_weight_grad(c) for c in convs + stems]
     res["scatter_rows_add"] = [check_scatter_add(c) for c in scat]
+    log(f"[train-kernels] K8 sentinel rows dropped per K4 backward: "
+        f"{[r['sentinel_rows'] for r in res['scatter_rows_add']]}")
+    k4 = [dict(check_gather("gather_rows", args, TRAIN_TIMING),
+               name="gather_rows") for args, _ in captured["gather_rows"]]
+    if len(k4) != PER_STEP["gather_rows"]:
+        raise AssertionError(f"captured {len(k4)} K4 calls in a step, "
+                             f"expected {PER_STEP['gather_rows']}")
+    log_gathers("train-kernels", "K4 per training step", k4)
+    k4_row = dict(_row(k4), device_ms=_total(r["device_ms"] for r in k4))
+    log(f"[train-kernels] gather_rows: {len(k4)} calls per step, bit-equal, "
+        f"{k4_row['ms']:.4f} ms ({k4_row['device_ms']} ms on the device; "
+        f"plain {k4_row['plain_ms']:.4f}, bound {k4_row['bound_ms']:.4f}, "
+        f"library {k4_row['library_ms']:.4f})")
     conv_dx = []
     for c in convs:
         row, k8 = check_conv_dx(c)
@@ -850,8 +1034,8 @@ def train_kernel_phase(captured):
     k2_bound = sum(m["k2_fwd_dx_bound_ms"] for m in conv_dx)
     log(f"[train-kernels] K2 bound per training step (9 forward + 9 dx "
         f"over live links): {k2_bound:.4f} ms")
-    return rows, {"calls": res, "conv_dx": conv_dx,
-                  "k2_step_bound_ms": k2_bound}
+    return rows, k4_row, {"calls": dict(res, gather_rows=k4),
+                          "conv_dx": conv_dx, "k2_step_bound_ms": k2_bound}
 
 
 def _record_max_decisions(model):
@@ -1183,6 +1367,8 @@ def mp_serving_phase(pipe, observations, out_dir):
                       for i, _ in rows],
            "profiled_forward_wall_ms": wall_ms / len(batches),
            "device_busy_ms_per_forward": busy,
+           "device_launches_per_forward": _device_launches(events,
+                                                           len(batches)),
            "device_idle_share": 1.0 - busy / fwd_p50,
            "device_ms_by_group": _group_device_ops(ops),
            "launches": launches, "actions": [a.tolist() for a in actions]}
@@ -1194,8 +1380,9 @@ def mp_serving_phase(pipe, observations, out_dir):
     log(f"[mp-serving] MotionPlannerEngine.predict p50 {fwd_p50:.2f} ms "
         f"(all {[round(t, 2) for t in fwd_ms]}); host prep (GT vision, "
         f"labels, text) p50 {out['host_prep_ms_p50']:.2f} ms; device busy "
-        f"{busy:.2f} ms per forward (profiled wall "
-        f"{out['profiled_forward_wall_ms']:.2f} ms), idle share "
+        f"{busy:.2f} ms per forward in "
+        f"{out['device_launches_per_forward']:.2f} device launches (profiled "
+        f"wall {out['profiled_forward_wall_ms']:.2f} ms), idle share "
         f"{out['device_idle_share']:.3f}")
     for g, v in out["device_ms_by_group"].items():
         log(f"[mp-serving]   {v['ms']:.4f} ms x{v['count']}  {g}")
@@ -1230,32 +1417,6 @@ def mp_reference_phase(engine, row):
     return errs
 
 
-def check_smallc(args, timing):
-    """K9 on one captured call: bit-equal to its plain version; times
-    against the plain version and torch.gather on x with a zero row
-    appended, the sentinel rows pointing at it."""
-    x, idx = args
-    B, N, C = x.shape
-    run = lambda: gather.gather_rows_smallc(x, idx)  # noqa: E731
-    plain = lambda: gather.gather_rows_smallc_plain(x, idx)  # noqa: E731
-    got, want = run(), plain()
-    torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        raise AssertionError(f"K9 {list(x.shape)} M={idx.shape[1]}: not "
-                             "bit-equal to its plain version")
-    x_pad = torch.cat([x, x.new_zeros(B, 1, C)], 1)
-    sel = torch.where((idx >= 0) & (idx < N), idx, N).long()
-    sel = sel[..., None].expand(-1, -1, C)
-    library = lambda: torch.gather(x_pad, 1, sel)  # noqa: E731
-    bound_ms, t_b, t_f = _bound(4 * (x.numel() + idx.numel() + got.numel()),
-                                0)
-    return {"shape": [B, N, C, idx.shape[1]], "max_abs_err": 0.0,
-            "sentinel_rows": int((idx == N).sum()),
-            "ms": cuda_ms(run, **timing), "plain_ms": cuda_ms(plain, **timing),
-            "library_ms": cuda_ms(library, **timing), "bound_ms": bound_ms,
-            "bytes_s": t_b, "flops_s": t_f}
-
-
 def check_smallc_bwd(idx, n, C, seed, timing):
     """K10 on a captured index with a seeded cotangent of C channels:
     within 1e-4 * max|plain| (atomics); times against the plain version
@@ -1268,17 +1429,12 @@ def check_smallc_bwd(idx, n, C, seed, timing):
     plain = lambda: gather.scatter_rows_smallc_add_plain(  # noqa: E731
         g, idx, n)
     err = _err(run(), plain(), f"K10 {[B, M, C]} -> {n}")
-    spare = torch.where((idx >= 0) & (idx < n), idx, n).long()
-    flat = (spare + torch.arange(B, device=idx.device)[:, None] * (n + 1)
-            ).reshape(-1)
-    library = lambda: torch.zeros(  # noqa: E731
-        B * (n + 1), C, device=g.device).index_add_(0, flat, g.reshape(-1, C))
-    bound_ms, t_b, t_f = _bound(4 * (idx.numel() + g.numel() + B * n * C),
-                                g.numel())
+    bound_ms, t_b, t_f = _bound(4 * (g.numel() + B * n * C) +
+                                idx.numel() * idx.element_size(), g.numel())
     return {"shape": [B, M, C, n], "max_abs_err": err,
             "ms": cuda_ms(run, **timing), "plain_ms": cuda_ms(plain, **timing),
-            "library_ms": cuda_ms(library, **timing), "bound_ms": bound_ms,
-            "bytes_s": t_b, "flops_s": t_f}
+            "library_ms": cuda_ms(_index_add(g, idx, n), **timing),
+            "bound_ms": bound_ms, "bytes_s": t_b, "flops_s": t_f}
 
 
 def _row(results):
@@ -1295,8 +1451,9 @@ def _row(results):
 def mp_kernel_phase(captured_fwd, captured_step):
     """K9 on every captured call of one forward (B = 1) and of one training
     step (B = 32), K10 on both stem indices at C = 5 and C = 20. Rows:
-    K9 per forward, K10 per training-step shape at C = 5 (it launches 0
-    times per step: the stem gathers data)."""
+    K9 per forward (its per-step sums under "train_step"), K10 per
+    training-step shape at C = 5 (it launches 0 times per step: the stem
+    gathers data)."""
     rows, detail = {}, {}
     for name, cap, timing in (("forward", captured_fwd, {}),
                               ("step", captured_step, TRAIN_TIMING)):
@@ -1304,20 +1461,23 @@ def mp_kernel_phase(captured_fwd, captured_step):
         if sorted(a[0].shape[-1] for a in calls) != [4, 5]:
             raise AssertionError(f"K9 calls per {name}: "
                                  f"{[list(a[0].shape) for a in calls]}")
-        k9 = [check_smallc(a, timing) for a in calls]
+        k9 = [check_gather("gather_rows_smallc", a, timing) for a in calls]
         stem_x, stem_idx = next(a for a in calls if a[0].shape[-1] == 5)
         k10 = [check_smallc_bwd(stem_idx, stem_x.shape[1], C, 11 + C, timing)
                for C in (5, 20)]
         detail[name] = {"gather_rows_smallc": k9,
                         "scatter_rows_smallc_add": k10}
-        for r in k9 + k10:
-            log(f"[mp-kernels] per {name}: {r['shape']} max_abs_err "
+        log_gathers("mp-kernels", f"K9 per {name}", k9)
+        for r in k10:
+            log(f"[mp-kernels] K10 per {name}: {r['shape']} max_abs_err "
                 f"{r['max_abs_err']:.3g}, {r['ms']:.4f} ms (plain "
                 f"{r['plain_ms']:.4f}, library {r['library_ms']:.4f}, bound "
                 f"{r['bound_ms']:.4f})")
+        k9_row = dict(_row(k9), device_ms=_total(r["device_ms"] for r in k9))
         if name == "forward":
-            rows["gather_rows_smallc"] = _row(k9)
+            rows["gather_rows_smallc"] = k9_row
         else:
+            rows["gather_rows_smallc"]["train_step"] = k9_row
             rows["scatter_rows_smallc_add"] = _row(k10[:1])
     return rows, detail
 
@@ -1396,7 +1556,8 @@ def main():
     training, train_launches = training_phase(trainer, host[1:], out_dir)
     training["host_batch_ms"] = data_ms
     del trainer
-    train_rows, train_detail = train_kernel_phase(captured)
+    train_rows, k4_step, train_detail = train_kernel_phase(captured)
+    rows["gather_rows"]["train_step"] = k4_step
     del captured
     step_check = step_check_phase(host[0])
     entry = entry_phase()

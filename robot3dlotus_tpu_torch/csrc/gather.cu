@@ -1,103 +1,158 @@
-// K4: batched row gather        out[b, m, :] = x[b, idx[b, m], :]
-// K8: its backward, scatter-add  dx[b, idx[b, m], :] += g[b, m, :]
+// K4: batched row gather with sentinel rows
+//        out[b, m, :] = x[b, idx[b, m], :] if 0 <= idx[b, m] < N, else 0
+// K8: its backward, a scatter-add that drops sentinel rows
+//        dx[b, idx[b, m], :] += g[b, m, :] for 0 <= idx[b, m] < N
 //
 // K4 replaces robot3dlotus_tpu/ops/pallas_gather.py `permute_rows`
 // (_permute_fwd_call / _fwd_kernel), which gathered rows on the TPU as a
 // one-hot (P, N) x (N, C) matrix product so that HBM saw only contiguous
 // reads. On the H100 a scattered row read is cheap, so the kernel reads
-// each gathered row directly.
+// each gathered row directly. The TPU kernel took only indices in [0, N),
+// so the JAX decoder's unpool appended a zero row to every child feature
+// tensor and pointed dropped parent points at it; K4 takes K9's contract
+// instead (a zero row at any index outside [0, N)), and the port's unpool
+// gathers from the child features directly, with no padded copy.
 //
 // K8 replaces `_permute_bwd_call` / `_bwd_kernel` (the custom VJP of
 // permute_rows), which accumulated dx[b] in VMEM through the transposed
 // one-hot across row tiles. Here each cotangent row is added into its
-// destination row with fp32 atomicAdd: duplicate indices (the duplicate
-// padding of ops/patching.py maps several rows onto one source row) sum
-// correctly, but in an order that changes from run to run, so results
-// agree with a fixed-order sum to rounding, not bit for bit.
+// destination row with fp32 atomicAdd, and a row whose index is outside
+// [0, N) is dropped (the cotangent of K4's zero row): duplicate indices
+// (the duplicate padding of ops/patching.py maps several rows onto one
+// source row) sum correctly, but in an order that changes from run to run,
+// so results agree with a fixed-order sum to rounding, not bit for bit.
 //
 // Bound: bytes for both. Neither does arithmetic beyond the adds; the least
 // time is (rows read + rows written + indices) over the 3.35 TB/s memory
-// rate. Design: one warp per row, 16-byte vector copies in K4 when the row
-// width allows them (D % 4 == 0 and aligned pointers), 4-byte copies
-// otherwise (the stage-0 entry sort gathers 7-channel rows); K8 zeroes dx
-// with cudaMemsetAsync and adds 4-byte values. idx must be in range:
-// unpool_gather pads a zero row at child_cap and points dropped points at
-// it, so neither kernel clamps.
+// rate. A release forward's K4 calls move well under a megabyte each, so
+// at B = 1 a call costs its launch, and the wrapper's host path
+// (ops/gather.py) is kept to one check, one allocation and one ctypes call.
+// Design: a grid of (row tiles, B), so no thread divides to find its cloud;
+// row arithmetic in 32 bits, 64-bit offsets only in the final addresses.
+// A group of L lanes moves one row: with D % 4 == 0 and 16-byte aligned
+// pointers, D/4 float4 per row and L = min(D/4, 32), so at D = 64 two rows
+// share a warp and at D = 768 each lane moves 6 float4; otherwise 4-byte
+// words with L = min(D, 32). x is read through the read-only path. Indices
+// are int32 or int64 (a template), so the wrapper never casts them.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
+constexpr int kThreads = 256;
+constexpr int kRowsPerGroup = 2;   // rows each lane group moves per tile
+constexpr int kWarpsPerBlock = 8;  // K8: one warp per cotangent row
+constexpr int kMaxGridY = 65535;
 
-template <bool kVec4>
-__global__ void gather_rows_kernel(const float* __restrict__ x,
-                                   const int* __restrict__ idx,
-                                   float* __restrict__ out, int N, int M,
-                                   int D, long long rows) {
-  const long long row = (long long)blockIdx.x * kWarpsPerBlock +
-                        threadIdx.x / 32;
-  if (row >= rows) return;
-  const int lane = threadIdx.x % 32;
-  const long long b = row / M;
-  const long long src = b * N + idx[row];
-  if (kVec4) {
-    const float4* xs = reinterpret_cast<const float4*>(x + src * D);
-    float4* o = reinterpret_cast<float4*>(out + row * D);
-    for (int c = lane; c < D / 4; c += 32) o[c] = xs[c];
-  } else {
-    const float* xs = x + src * D;
-    float* o = out + row * D;
-    for (int c = lane; c < D; c += 32) o[c] = xs[c];
+template <typename V>
+__device__ __forceinline__ V zero_of();
+template <>
+__device__ __forceinline__ float zero_of<float>() { return 0.0f; }
+template <>
+__device__ __forceinline__ float4 zero_of<float4>() {
+  return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+}
+
+// x (B, N, W), out (B, M, W) in units of V (float4 or float); block
+// (blockIdx.x, b) moves rows [r0, r0 + groups * kRowsPerGroup) of cloud b
+template <typename V, typename I>
+__global__ void __launch_bounds__(kThreads)
+    gather_rows_kernel(const V* __restrict__ x, const I* __restrict__ idx,
+                       V* __restrict__ out, int N, int M, int W, int L) {
+  const int groups = kThreads / L;
+  const int g = threadIdx.x / L;
+  if (g >= groups) return;
+  const int lane = threadIdx.x - g * L;
+  const int b = blockIdx.y;
+  const int r0 = blockIdx.x * (groups * kRowsPerGroup);
+  const int r_end = min(M, r0 + groups * kRowsPerGroup);
+  const I* ib = idx + (long long)b * M;
+  const V* xb = x + (long long)b * N * W;
+  V* ob = out + (long long)b * M * W;
+  for (int r = r0 + g; r < r_end; r += groups) {
+    const long long i = (long long)__ldg(ib + r);
+    V* dst = ob + (long long)r * W;
+    if (i >= 0 && i < N) {
+      const V* src = xb + i * W;
+#pragma unroll 4
+      for (int c = lane; c < W; c += L) dst[c] = __ldg(src + c);
+    } else {
+      for (int c = lane; c < W; c += L) dst[c] = zero_of<V>();
+    }
   }
 }
 
+template <typename I>
 __global__ void scatter_rows_add_kernel(const float* __restrict__ g,
-                                        const int* __restrict__ idx,
+                                        const I* __restrict__ idx,
                                         float* __restrict__ dx, int N, int M,
-                                        int D, long long rows) {
-  const long long row = (long long)blockIdx.x * kWarpsPerBlock +
-                        threadIdx.x / 32;
-  if (row >= rows) return;
+                                        int D) {
+  const int r = blockIdx.x * kWarpsPerBlock + threadIdx.x / 32;
+  if (r >= M) return;
   const int lane = threadIdx.x % 32;
-  const long long b = row / M;
+  const long long row = (long long)blockIdx.y * M + r;
+  const long long i = (long long)idx[row];
+  if (i < 0 || i >= N) return;
   const float* gs = g + row * D;
-  float* o = dx + (b * N + idx[row]) * D;
+  float* o = dx + ((long long)blockIdx.y * N + i) * D;
   for (int c = lane; c < D; c += 32) atomicAdd(o + c, gs[c]);
 }
 
-unsigned row_blocks(long long rows) {
-  return (unsigned)((rows + kWarpsPerBlock - 1) / kWarpsPerBlock);
+template <typename V, typename I>
+void launch_gather(const float* x, const void* idx, float* out, int B, int N,
+                   int M, int W, cudaStream_t stream) {
+  const int L = W < 32 ? W : 32;
+  const int rows_per_block = (kThreads / L) * kRowsPerGroup;
+  const dim3 grid((M + rows_per_block - 1) / rows_per_block, B);
+  gather_rows_kernel<V, I><<<grid, kThreads, 0, stream>>>(
+      reinterpret_cast<const V*>(x), static_cast<const I*>(idx),
+      reinterpret_cast<V*>(out), N, M, W, L);
+}
+
+template <typename V>
+void launch_gather_idx(const float* x, const void* idx, int idx64, float* out,
+                       int B, int N, int M, int W, cudaStream_t stream) {
+  if (idx64)
+    launch_gather<V, long long>(x, idx, out, B, N, M, W, stream);
+  else
+    launch_gather<V, int>(x, idx, out, B, N, M, W, stream);
 }
 
 }  // namespace
 
-extern "C" int r3dl_gather_rows(const float* x, const int* idx, float* out,
-                                int B, int N, int M, int D,
+// x: (B, N, D); idx: (B, M) int32 (idx64 = 0) or int64 (idx64 = 1), any
+// value; out: (B, M, D)
+extern "C" int r3dl_gather_rows(const float* x, const void* idx, float* out,
+                                int B, int N, int M, int D, int idx64,
                                 cudaStream_t stream) {
-  const long long rows = (long long)B * M;
-  if (rows == 0 || D == 0) return (int)cudaGetLastError();
+  if (B == 0 || M == 0 || D == 0) return (int)cudaGetLastError();
+  if (B > kMaxGridY) return (int)cudaErrorInvalidValue;
   const bool vec4 = D % 4 == 0 && ((uintptr_t)x % 16 == 0) &&
                     ((uintptr_t)out % 16 == 0);
   if (vec4)
-    gather_rows_kernel<true><<<row_blocks(rows), kWarpsPerBlock * 32, 0,
-                               stream>>>(x, idx, out, N, M, D, rows);
+    launch_gather_idx<float4>(x, idx, idx64, out, B, N, M, D / 4, stream);
   else
-    gather_rows_kernel<false><<<row_blocks(rows), kWarpsPerBlock * 32, 0,
-                                stream>>>(x, idx, out, N, M, D, rows);
+    launch_gather_idx<float>(x, idx, idx64, out, B, N, M, D, stream);
   return (int)cudaGetLastError();
 }
 
-// dx: (B, N, D), zeroed here; g: (B, M, D); idx: (B, M) in [0, N)
-extern "C" int r3dl_scatter_rows_add(const float* g, const int* idx,
+// dx: (B, N, D), zeroed here; g: (B, M, D); idx: (B, M) int32 or int64,
+// rows outside [0, N) dropped
+extern "C" int r3dl_scatter_rows_add(const float* g, const void* idx,
                                      float* dx, int B, int N, int M, int D,
-                                     cudaStream_t stream) {
+                                     int idx64, cudaStream_t stream) {
   const cudaError_t err = cudaMemsetAsync(
       dx, 0, (size_t)B * N * D * sizeof(float), stream);
   if (err != cudaSuccess) return (int)err;
-  const long long rows = (long long)B * M;
-  if (rows == 0 || D == 0) return (int)cudaGetLastError();
-  scatter_rows_add_kernel<<<row_blocks(rows), kWarpsPerBlock * 32, 0,
-                            stream>>>(g, idx, dx, N, M, D, rows);
+  if (B == 0 || M == 0 || D == 0) return (int)cudaGetLastError();
+  if (B > kMaxGridY) return (int)cudaErrorInvalidValue;
+  const dim3 grid((M + kWarpsPerBlock - 1) / kWarpsPerBlock, B);
+  if (idx64)
+    scatter_rows_add_kernel<long long><<<grid, kWarpsPerBlock * 32, 0,
+                                         stream>>>(
+        g, static_cast<const long long*>(idx), dx, N, M, D);
+  else
+    scatter_rows_add_kernel<int><<<grid, kWarpsPerBlock * 32, 0, stream>>>(
+        g, static_cast<const int*>(idx), dx, N, M, D);
   return (int)cudaGetLastError();
 }

@@ -310,7 +310,7 @@ class PointTransformerV3(nn.Module):
         if shuffle:
             new_cur, o_child = self._entry_sort(new_cur)
             # segment ids -> child frame positions; the drop slot
-            # (child_cap) keeps pointing at unpool_gather's zero row
+            # (child_cap) stays K4's sentinel
             inv = torch.argsort(o_child, dim=-1)
             inv = torch.cat([inv, torch.full_like(inv[:, :1], child_cap)], 1)
             cluster = torch.gather(inv, 1, cluster)

@@ -5,13 +5,17 @@ each entry point takes raw device pointers, sizes and a cudaStream_t and
 returns cudaGetLastError(). At first use every source is compiled by its
 own nvcc process, all started together, for sm_90a; the objects are linked
 into one shared library under build/kernels/ (named by a hash of the
-sources and flags, so an edited source rebuilds) and loaded with ctypes.
+sources and flags, so an edited source rebuilds) and loaded with ctypes
+as a PyDLL: a call holds the GIL for its few microseconds of launch
+instead of releasing and taking it back.
 Nothing here runs at import time, and nothing falls back: a failed build
 or launch raises.
 
 LAUNCHES counts, per kernel, the launches made through `launch`; a caller
 that counts one run sets the counts to 0 with reset_launches just before
-it.
+it. `launch` is on every kernel's hot path: it calls a C function object
+bound once when the library loads, on the raw handle of the current
+stream, and nothing else.
 """
 from __future__ import annotations
 
@@ -33,15 +37,14 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 # C signatures: every entry point returns cudaGetLastError() as int
+_GATHER = [_P, _P, _P, _I, _I, _I, _I, _I, _P]
 SIGNATURES = {
-    # x, idx, out, B, N, M, D, stream
-    "r3dl_gather_rows": [_P, _P, _P, _I, _I, _I, _I, _P],
-    # g, idx, dx, B, N, M, D, stream
-    "r3dl_scatter_rows_add": [_P, _P, _P, _I, _I, _I, _I, _P],
-    # x, idx, out, B, N, M, C, stream
-    "r3dl_gather_smallc": [_P, _P, _P, _I, _I, _I, _I, _P],
-    # g, idx, dx, B, N, M, C, stream
-    "r3dl_scatter_smallc_add": [_P, _P, _P, _I, _I, _I, _I, _P],
+    # x or g, idx, out, B, N, M, D, idx64 (int64 indices, else int32),
+    # stream
+    "r3dl_gather_rows": _GATHER,
+    "r3dl_scatter_rows_add": _GATHER,
+    "r3dl_gather_smallc": _GATHER,
+    "r3dl_scatter_smallc_add": _GATHER,
     # q, k, v, key_valid, out, G, H, P, Dh, scale, stream
     "r3dl_patch_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     # q, k, v, key_valid, out, G, H, P, Dh, scale, seed, thresh, inv_keep,
@@ -73,6 +76,8 @@ LAUNCHES = {"patch_attention": 0, "subm_conv": 0, "stem_conv": 0,
             "scatter_rows_smallc_add": 0, "attention_dropout_mask": 0}
 
 _LIB = None
+_FNS = {}       # C entry point name -> its ctypes function object, bound once
+_STREAMS = {}   # raw cudaStream_t -> its ctypes.c_void_p argument
 
 
 def _sources():
@@ -130,21 +135,37 @@ def library():
     """The loaded kernel library, built on first use."""
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(build())
+        lib = ctypes.PyDLL(build())
         for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+            _FNS[name] = fn
         _LIB = lib
     return _LIB
+
+
+def current_stream():
+    """The ctypes argument of the current device's current stream: the raw
+    cudaStream_t that torch.cuda.current_stream().cuda_stream gives,
+    without building a Stream object (device index -1: the current
+    device)."""
+    raw = torch._C._cuda_getCurrentRawStream(-1)
+    stream = _STREAMS.get(raw)
+    if stream is None:
+        stream = _STREAMS[raw] = _P(raw)
+    return stream
 
 
 def launch(kernel, c_name, *args):
     """Call one C entry point on the current stream, raise on a launch
     error, and count the launch under `kernel`."""
-    stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(library(), c_name)(*args, stream)
-    if err != 0:
+    fn = _FNS.get(c_name)
+    if fn is None:
+        library()
+        fn = _FNS[c_name]
+    err = fn(*args, current_stream())
+    if err:
         raise RuntimeError(f"{c_name} launch failed: cudaError {err}")
     LAUNCHES[kernel] += 1
 

@@ -88,8 +88,8 @@ def gather_heads(x, maps: PoolMaps):
 
 
 def unpool_gather(child_feat, cluster, child_cap):
-    """child_feat (B, C, D); cluster (B, N) segment per parent point, with
-    child_cap = dropped -> a zero row. Returns (B, N, D) through K4."""
-    B, _, D = child_feat.shape
-    padded = torch.cat([child_feat, child_feat.new_zeros((B, 1, D))], dim=1)
-    return gather_rows(padded, cluster)
+    """child_feat (B, child_cap, D); cluster (B, N) segment per parent
+    point, with child_cap = dropped -> a zero row. Returns (B, N, D)
+    through K4, whose sentinel contract gives the zero row (the JAX package
+    appends a zero row at child_cap and gathers from that copy)."""
+    return gather_rows(child_feat, cluster)

@@ -1,5 +1,6 @@
 """The PyTorch port on a CUDA card: each kernel (K1-K10) against its plain
-version, and the card's grid coordinates against the host presort's.
+version, the gathers' direct and autograd paths, the launch stream, and the
+card's grid coordinates against the host presort's.
 Tolerance 1e-4 * max(1, max|plain|): fp32 on both sides, other summation
 orders (K8's and K10's atomics in a run-dependent one); the gathers K4 and
 K9 only copy and must be bit-equal.
@@ -77,13 +78,83 @@ def test_k3_stem_conv(dev):
     _check(stem.stem_conv(*args), stem.stem_conv_plain(*args))
 
 
-@pytest.mark.parametrize("D", [7, 128, 512])
-def test_k4_gather_rows(dev, D):
+def _sentinel_idx(rng, B, M, N, dtype):
+    """(B, M) indices in [0, N) with a fifth at the sentinel N and a few
+    other values outside [0, N)."""
+    idx = rng.randint(0, N, (B, M))
+    idx[rng.rand(B, M) < 0.2] = N
+    idx[:, :3] = [-1, N + 9, -5]
+    return torch.from_numpy(idx).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("D", [7, 64, 96, 768])
+def test_k4_gather_rows(dev, D, dtype):
+    """Bit-equal to the plain version with sentinel rows, int32 and int64
+    indices, on B * M rows that fill no whole number of row tiles."""
     rng = np.random.RandomState(3)
-    x = torch.from_numpy(rng.randn(2, 257, D).astype(np.float32)).to(dev)
-    idx = torch.from_numpy(rng.randint(0, 257, (2, 1024))).to(dev)
+    x = torch.from_numpy(rng.randn(3, 257, D).astype(np.float32)).to(dev)
+    idx = _sentinel_idx(rng, 3, 1021, 257, dtype).to(dev)
+    got = gather.gather_rows(x, idx)
+    assert torch.equal(got, gather.gather_rows_plain(x, idx))
+    assert not got[(idx < 0) | (idx >= 257)].any()
+
+
+@pytest.mark.parametrize("D", [64, 7])
+def test_k4_gather_rows_unaligned_view(dev, D):
+    """x a contiguous view 4 bytes past a 16-byte boundary: the kernel takes
+    its 4-byte path and stays bit-equal."""
+    rng = np.random.RandomState(13)
+    flat = torch.from_numpy(rng.randn(2 * 100 * D + 1).astype(np.float32))
+    x = flat.to(dev)[1:].view(2, 100, D)
+    assert x.data_ptr() % 16 != 0 and x.is_contiguous()
+    idx = _sentinel_idx(rng, 2, 333, 100, torch.int64).to(dev)
     assert torch.equal(gather.gather_rows(x, idx),
                        gather.gather_rows_plain(x, idx))
+
+
+def test_k4_direct_and_autograd_paths(dev):
+    """A call that carries no gradient launches K4 directly; one that does
+    goes through the autograd Function: the same forward, and its backward
+    launches K8, which drops the sentinel rows' cotangents."""
+    rng = np.random.RandomState(14)
+    x = torch.from_numpy(rng.randn(2, 300, 64).astype(np.float32)).to(dev)
+    idx = _sentinel_idx(rng, 2, 900, 300, torch.int64).to(dev)
+    g = torch.from_numpy(rng.randn(2, 900, 64).astype(np.float32)).to(dev)
+    with torch.no_grad():
+        direct = gather.gather_rows(x.clone().requires_grad_(), idx)
+    assert direct.grad_fn is None
+    plain_direct = gather.gather_rows(x, idx)
+    assert plain_direct.grad_fn is None
+    xr = x.clone().requires_grad_()
+    before = dict(cuda_lib.LAUNCHES)
+    out = gather.gather_rows(xr, idx)
+    assert out.grad_fn is not None
+    assert cuda_lib.LAUNCHES["gather_rows"] == before["gather_rows"] + 1
+    assert torch.equal(out, direct) and torch.equal(out, plain_direct)
+    out.backward(g)
+    assert cuda_lib.LAUNCHES["scatter_rows_add"] == \
+        before["scatter_rows_add"] + 1
+    _check(xr.grad, gather.scatter_rows_add_plain(g, idx, 300))
+
+
+def test_launch_uses_the_current_stream(dev):
+    """cuda_lib.current_stream is torch.cuda.current_stream().cuda_stream on
+    the default stream and inside a side stream's context, where a launch
+    runs in order with that stream's work."""
+    def raw():
+        return cuda_lib.current_stream().value or 0
+    assert raw() == torch.cuda.current_stream().cuda_stream
+    side = torch.cuda.Stream()
+    x = torch.randn(2, 128, 64, device=dev)
+    idx = torch.randint(0, 128, (2, 500), device=dev)
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        assert raw() == side.cuda_stream
+        y = x * 2.0
+        got = gather.gather_rows(y, idx)
+    torch.cuda.current_stream().wait_stream(side)
+    assert torch.equal(got, gather.gather_rows_plain(x * 2.0, idx))
 
 
 @pytest.mark.parametrize("G,H,Dh,rate", [(16, 2, 32, 0.1), (4, 32, 24, 0.1),
@@ -181,10 +252,14 @@ def test_k2_k8_conv_dx_and_stem_dw(dev):
 @pytest.mark.parametrize("D", [7, 64, 768])
 def test_k8_scatter_rows_add_colliding(dev, D):
     """K8 with many indices colliding on few rows (the duplicate padding of
-    the patch maps); atomics sum in a run-dependent order."""
+    the patch maps) and sentinel rows, whose cotangents it drops; atomics
+    sum in a run-dependent order."""
     rng = np.random.RandomState(9)
     g = torch.from_numpy(rng.randn(2, 1024, D).astype(np.float32)).to(dev)
-    idx = torch.from_numpy(rng.randint(0, 40, (2, 1024))).to(dev)
+    idx = rng.randint(0, 40, (2, 1024))
+    idx[rng.rand(2, 1024) < 0.2] = 257
+    idx[:, :2] = -1
+    idx = torch.from_numpy(idx).to(dev)
     _check(gather.scatter_rows_add(g, idx, 257),
            gather.scatter_rows_add_plain(g, idx, 257))
     x = torch.from_numpy(rng.randn(2, 257, D).astype(np.float32)).to(dev)
@@ -203,12 +278,21 @@ def _smallc(rng, B, N, M, C, dev):
     return x, torch.from_numpy(idx).to(dev)
 
 
-@pytest.mark.parametrize("C", [4, 5, 7, 20])
-def test_k9_gather_rows_smallc(dev, C):
-    x, idx = _smallc(np.random.RandomState(10), 2, 1024, 1024 * 125, C, dev)
-    got = gather.gather_rows_smallc(x, idx)
-    assert torch.equal(got, gather.gather_rows_smallc_plain(x, idx))
-    assert not got[(idx < 0) | (idx >= 1024)].any()
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("C", [4, 5, 7, 20, 32])
+def test_k9_gather_rows_smallc(dev, C, dtype):
+    """Bit-equal with int32 and int64 indices on ragged row tiles: M not a
+    multiple of the 1024-row tile, with M * C a multiple of 4 (float4
+    stores) and, for odd C, not (4-byte stores). C = 4, 5 take the
+    compile-time width; C = 7 (the policy's stage-0 entry sort) takes the
+    runtime width with float4 groups that cross a row boundary."""
+    rng = np.random.RandomState(10)
+    for M in (1000 * 125 + 4, 1000 * 125 + 5):
+        x, idx = _smallc(rng, 3, 1024, M, C, dev)
+        idx = idx.to(dtype)
+        got = gather.gather_rows_smallc(x, idx)
+        assert torch.equal(got, gather.gather_rows_smallc_plain(x, idx))
+        assert not got[(idx < 0) | (idx >= 1024)].any()
 
 
 @pytest.mark.parametrize("C", [5, 20])
