@@ -41,24 +41,27 @@ Phases, each of which raises on failure (exit code != 0, no result line):
              group (DEVICE_GROUPS) and the device's idle share
              (chiprun_out/profile_train.txt);
   9. train-kernels hold the captured training calls against the plain
-             versions: K5 and K6 with the kernel's own dumped keep mask (the
-             mask also bit-equal to the PyTorch Philox generator, its keep
-             fraction within 5 binomial sigmas of 1 - rate), K5 at rate 0
-             against K1, K7 at the CPE and the stem shapes, K8 (sentinel
-             rows dropped), and the conv's dx (K8 onto voxel owners, then
-             K2 with the mirrored weight) against the exact adjoint
-             (autograd of subm_conv_plain) on every row; |kernel - plain|
+             versions: K5's out, row logsumexp and packed keep bits (the
+             bits bit-equal to the PyTorch Philox generator, their keep
+             fraction within 5 binomial sigmas of 1 - rate), K6 on K5's
+             outputs and the captured cotangent, K5 at rate 0 against K1,
+             K7 at the CPE and the stem shapes, K8 (sentinel rows
+             dropped), and the conv's dx (K8 onto voxel owners, then K2
+             with the mirrored weight) against the exact adjoint (autograd
+             of subm_conv_plain) on every row; |kernel - plain|
              <= 1e-4 * max|plain| (gradients are far below 1); K4 on the
              step's 8 calls at B = 32, bit-equal; time K4-K8 per training
              step (CUDA events, median of 5 rounds of 2 calls after a
-             warm-up call);
- 10. step-check one step at dropout 0 with injected order permutations, B =
-             2 of the same batch, the same weights, on the card and on the
-             CPU (plain versions): losses, every updated parameter and
-             running statistic, every gradient; a gradient that a max
-             reduction picking different rows on the two devices (a near
-             tie) can reach is not held on that slice, and every gradient
-             must be held on some slice;
+             warm-up call; K5/K6 also their profiler device time) beside
+             the SDPA calls (the profiler names of the SDPA kernels
+             logged);
+ 10. step-check one step at dropout 0 with injected order permutations on
+             each of CHECK_SLICES B = 2 slices of the same batch, the same
+             weights, on the card and on the CPU (plain versions): losses,
+             every updated parameter and running statistic, every
+             gradient; a gradient that a max reduction picking different
+             rows on the two devices (a near tie) can reach is not held on
+             that slice, and every gradient must be held on some slice;
  11. entry     train_simple_policy.main on the card for ENTRY_STEPS steps
              (launch counters to 0 before, read after against the per-step
              counts; logged losses finite); the end-to-end training rate,
@@ -141,6 +144,7 @@ GT_CONFIG = os.path.join(os.path.dirname(CONFIG), "robot_pipeline_gt.yaml")
 CLI_OPTS = ["TRAIN_DATASET.instr_embed_file", "None"]
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12    # H100 SXM data sheet, fp32 outside tensor cores
+TF32_FLOPS_PER_S = 494.7e12  # H100 SXM data sheet, dense TF32 tensor cores
 TOL = 1e-4
 # launches per forward of the release model (5 enc + 4 dec Blocks; one
 # stem; four decoder unpools; inputs presorted, so no entry-sort gather)
@@ -189,7 +193,7 @@ PER_STEP = {"subm_conv": 18, "stem_conv": 1, "gather_rows": 8,
             "gather_rows_smallc": 1, "scatter_rows_smallc_add": 0,
             "patch_attention_dropout": 9, "patch_attention_dropout_bwd": 9,
             "conv_weight_grad": 10, "scatter_rows_add": 17,
-            "patch_attention": 0, "attention_dropout_mask": 0}
+            "patch_attention": 0}
 # the motion planner: its trainer on the synthetic motion store (no action
 # embedding cache: the crc32 embeddings)
 MP_TRAIN_OPTS = ["TRAIN_DATASET.data_dir", "synthetic_motion",
@@ -197,7 +201,6 @@ MP_TRAIN_OPTS = ["TRAIN_DATASET.data_dir", "synthetic_motion",
                  "TRAIN_DATASET.taskvar_file", "None"]
 MP_REQUESTS = 4
 MP_ENTRY_STEPS = 4
-MP_CHECK_SLICES = 6   # B = 2 slices of the mp step check, ~3.5 s each
 # launches per motion-planner forward: 9 Blocks; 4 unpools; K9 for the
 # stage-0 entry sort (C = 4) and the categorical stem (C = 5, M = N * 125),
 # whose product is a plain matmul (no K3)
@@ -217,6 +220,12 @@ TRAIN_KERNELS = ("patch_attention_dropout", "patch_attention_dropout_bwd",
 CHECK_PERMS = [[2, 0, 3, 1], [1, 3, 0, 2], [3, 2, 1, 0], [0, 2, 1, 3],
                [2, 3, 0, 1]]
 GRAD_TOL = 1e-3   # card vs CPU gradients of the whole step, per tensor
+# B = 2 slices per step check, ~3-6 s of CPU each. The policy's first
+# four: on its slices 4 and 5 `act_proj_head.heatmap_mlp_fc1.weight`
+# differs by 0.88e-3 and 1.69e-3 whether K5/K6 or their plain versions
+# run on the card, an open fault outside the attention (ROADMAP.md §3)
+CHECK_SLICES = 4
+MP_CHECK_SLICES = 6
 # device kernels of a training step by name, first match wins
 DEVICE_GROUPS = [
     ("K9/K10 small-C gather", ("gather_smallc_kernel",
@@ -326,8 +335,8 @@ def capture_main_path(run):
 
 # ------------------------------------------------------------- kernels -----
 
-def _bound(nbytes, flops):
-    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+def _bound(nbytes, flops, flops_per_s=FP32_FLOPS_PER_S):
+    t_b, t_f = nbytes / HBM_BYTES_PER_S, flops / flops_per_s
     return max(t_b, t_f) * 1e3, t_b, t_f
 
 
@@ -850,44 +859,90 @@ def _timed(run, plain, library, nbytes, flops):
             "bound_ms": bound_ms, "bytes_s": t_b, "flops_s": t_f}
 
 
-def check_attention_train(call):
-    """K5 and K6 on one captured call: the kernel's dumped mask, K5 at rate
-    0 against K1, keep fraction, kernel vs plain, times."""
+def _timed_tc(run, plain, library, nbytes, flops, name):
+    """_timed for a kernel whose products run on the tensor cores as
+    3xTF32: bound_ms is the bytes against 3 * flops at the TF32 rate;
+    fp32_bound_ms the bytes against flops at the fp32 SIMT rate (the
+    bound of every other row); device_ms from the profiler."""
+    bound_ms, t_b, t_f = _bound(nbytes, 3 * flops, TF32_FLOPS_PER_S)
+    return dict(_timed(run, plain, library, nbytes, flops),
+                bound_ms=bound_ms, bytes_s=t_b, flops_s=t_f,
+                fp32_bound_ms=_bound(nbytes, flops)[0],
+                device_ms=device_ms(run, name, reps=4))
+
+
+def _kernel_names(fn):
+    """The device kernels one call of fn launches (profiler names)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.key for e in _device_events(prof.key_averages())})
+
+
+def check_attention_train(call, log_sdpa=False):
+    """K5 and K6 on one captured call: K5's bits against the PyTorch
+    Philox mask and their keep fraction, K5 at rate 0 against K1, K5's
+    (out, lse, bits) against its plain version, K6 on K5's outputs and the
+    captured cotangent against its plain version; times beside the SDPA
+    forward (dropout_p) and backward on the same inputs."""
     (q, k, v, kv, scale, rate, seed), g = call
     G, H, P, Dh = q.shape
-    keep = attention.attention_dropout_mask(seed, G, H, P, rate, q.device)
+    run5 = lambda: attention.patch_attention_dropout_fwd(  # noqa: E731
+        q, k, v, kv, scale, rate, seed)
+    plain5 = lambda: attention.patch_attention_dropout_fwd_plain(  # noqa
+        q, k, v, kv, scale, rate, seed)
+    out, lse, bits = run5()
+    keep = attention.philox_keep_mask(seed, G, H, P, rate, q.device)
+    if not torch.equal(bits, attention.pack_keep_bits(keep)):
+        raise AssertionError(f"K5's bits {[G, H, P, Dh]} differ from "
+                             "philox_keep_mask")
     n = keep.numel()
     frac = float(keep.float().mean())
+    del keep
     if abs(frac - (1 - rate)) > 5 * math.sqrt(rate * (1 - rate) / n):
         raise AssertionError(f"keep fraction {frac} at rate {rate}")
     e0 = _err(attention.patch_attention_dropout(q, k, v, kv, scale, 0.0, 0),
               attention.patch_attention(q, k, v, kv, scale), "K5 rate 0")
-    run5 = lambda: attention.patch_attention_dropout(  # noqa: E731
-        q, k, v, kv, scale, rate, seed)
-    plain5 = lambda: attention.patch_attention_dropout_plain(  # noqa: E731
-        q, k, v, kv, scale, rate, keep)
-    e5 = _err(run5(), plain5(), f"K5 {[G, H, P, Dh]}")
+    p_out, p_lse, _ = plain5()
+    e5 = _err(out, p_out, f"K5 out {[G, H, P, Dh]}")
+    # a patch with no valid key has lse = -1e9 (+ log P, below fp32's
+    # resolution there): equal; the others within the bar
+    live = kv.any(-1)
+    e_lse = _err(lse[live], p_lse[live], f"K5 lse {[G, H, P, Dh]}")
+    if not torch.equal(lse[~live], p_lse[~live]):
+        raise AssertionError("K5 lse of a patch with no valid key")
+    del p_out, p_lse
     run6 = lambda: attention.patch_attention_dropout_bwd(  # noqa: E731
-        q, k, v, kv, g, scale, rate, seed)
+        q, k, v, kv, out, lse, bits, g, scale, rate)
     plain6 = lambda: attention.patch_attention_dropout_bwd_plain(  # noqa
-        q, k, v, kv, scale, rate, keep, g)
+        q, k, v, kv, out, lse, bits, g, scale, rate)
     e6 = max(_err(a, b, f"K6 d{nm} {[G, H, P, Dh]}")
              for a, b, nm in zip(run6(), plain6(), "qkv"))
     mask = kv[:, None, None, :]
     sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
         q, k, v, attn_mask=mask, dropout_p=rate, scale=scale)
     qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
-    out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
-                                         dropout_p=rate, scale=scale)
+    sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
+                                              dropout_p=rate, scale=scale)
     sdpa_bwd = lambda: torch.autograd.grad(  # noqa: E731
-        out, (qg, kg, vg), g, retain_graph=True)
+        sdpa_out, (qg, kg, vg), g, retain_graph=True)
+    if log_sdpa:
+        log(f"[train-kernels] SDPA forward kernels {_kernel_names(sdpa)}; "
+            f"backward {_kernel_names(sdpa_bwd)}")
     qb = 4 * q.numel()
-    r5 = dict(_timed(run5, plain5, sdpa, 4 * qb + kv.numel(),
-                     4 * G * H * P * P * Dh), max_abs_err=e5,
-              rate0_vs_k1_err=e0, keep_fraction=frac, shape=[G, H, P, Dh])
-    r6 = dict(_timed(run6, plain6, sdpa_bwd, 7 * qb + kv.numel(),
-                     10 * G * H * P * P * Dh), max_abs_err=e6,
-              shape=[G, H, P, Dh])
+    side = 4 * (lse.numel() + bits.numel()) + kv.numel()   # lse, bits, kv
+    flops = 2 * G * H * P * P * Dh                           # one product
+    r5 = dict(_timed_tc(run5, plain5, sdpa, 4 * qb + side, 2 * flops,
+                        "attn_drop_fwd"),
+              max_abs_err=e5, lse_err=e_lse, rate0_vs_k1_err=e0,
+              keep_fraction=frac, shape=[G, H, P, Dh])
+    r6 = dict(_timed_tc(run6, plain6, sdpa_bwd, 8 * qb + side, 5 * flops,
+                        "attn_drop_bwd"),
+              max_abs_err=e6, shape=[G, H, P, Dh])
     return r5, r6
 
 
@@ -976,16 +1031,9 @@ def train_kernel_phase(captured):
         if len(got) != expect[name]:
             raise AssertionError(f"captured {len(got)} {name} calls with a "
                                  f"cotangent, expected {expect[name]}")
-    q, k, v, kv, scale, rate, seed = att[0][0]
-    G, H, P, _ = q.shape
-    keep = attention.attention_dropout_mask(seed, G, H, P, rate, q.device)
-    if not torch.equal(keep, attention.philox_keep_mask(seed, G, H, P, rate,
-                                                        q.device)):
-        raise AssertionError("K5's mask differs from philox_keep_mask")
-    del keep
     res = {name: [] for name in TRAIN_KERNELS}
-    for c in att:
-        r5, r6 = check_attention_train(c)
+    for i, c in enumerate(att):
+        r5, r6 = check_attention_train(c, log_sdpa=i == 0)
         res["patch_attention_dropout"].append(r5)
         res["patch_attention_dropout_bwd"].append(r6)
     res["conv_weight_grad"] = [check_weight_grad(c) for c in convs + stems]
@@ -1010,24 +1058,23 @@ def train_kernel_phase(captured):
         res["scatter_rows_add"].append(k8)
     rows = {}
     for name, rs in res.items():
-        lib = [r["library_ms"] for r in rs]
-        rows[name] = {
-            "max_abs_err": max(r["max_abs_err"] for r in rs),
-            "ms": sum(r["ms"] for r in rs),
-            "plain_ms": sum(r["plain_ms"] for r in rs),
-            "bound_ms": sum(r["bound_ms"] for r in rs),
-            "bound_by": "bytes" if sum(r["bytes_s"] for r in rs) >=
-            sum(r["flops_s"] for r in rs) else "operations",
-            "library_ms": None if None in lib else sum(lib)}
+        rows[name] = _row(rs)
+        for key in ("fp32_bound_ms", "device_ms"):
+            if key in rs[0]:
+                rows[name][key] = _total(r[key] for r in rs)
         log(f"[train-kernels] {name}: {len(rs)} calls per step, max_abs_err "
-            f"{rows[name]['max_abs_err']:.3g}, {rows[name]['ms']:.3f} ms "
-            f"(plain {rows[name]['plain_ms']:.3f}, bound "
-            f"{rows[name]['bound_ms']:.3f}, library "
+            f"{rows[name]['max_abs_err']:.3g}, {rows[name]['ms']:.4f} ms "
+            f"(device {rows[name].get('device_ms')}; plain "
+            f"{rows[name]['plain_ms']:.4f}, bound "
+            f"{rows[name]['bound_ms']:.4f} by {rows[name]['bound_by']}, "
+            f"fp32 SIMT bound {rows[name].get('fp32_bound_ms')}, library "
             f"{rows[name]['library_ms']})")
     k5 = res["patch_attention_dropout"]
     log(f"[train-kernels] K5 keep fractions "
         f"{[round(r['keep_fraction'], 5) for r in k5]}; K5 at rate 0 vs K1 "
-        f"max err {max(r['rate0_vs_k1_err'] for r in k5):.3g}")
+        f"max err {max(r['rate0_vs_k1_err'] for r in k5):.3g}; lse max err "
+        f"{max(r['lse_err'] for r in k5):.3g}; bits bit-equal to "
+        f"philox_keep_mask on all {len(k5)} calls")
     log(f"[train-kernels] conv dx (K8 + mirrored K2) vs the exact adjoint: "
         f"max err {max(m['max_abs_err'] for m in conv_dx):.3g}; mirrored K2 "
         f"vs plain {max(m['mirrored_k2_err'] for m in conv_dx):.3g}")
@@ -1124,7 +1171,7 @@ def _module_start(spans, leaf):
 
 
 def step_check_phase(host_batch, config=train_config, loss_fn=compute_loss,
-                     tag="step-check", slices=1):
+                     tag="step-check", slices=CHECK_SLICES):
     """One step at dropout 0 with injected order permutations on each of
     the first `slices` B = 2 slices of the batch, the same seeded weights on
     the card and on the CPU: the losses, every updated parameter and

@@ -1,42 +1,64 @@
 // K5 / K6: serialized patch attention with attention dropout, training
 //   a   = softmax(where(key_valid[g], (q[g, h] * scale) k[g, h]^T, -1e9))
 //   out = where(keep, a / (1 - rate), 0) v[g, h]
-// q, k, v, out, g, dq, dk, dv: (G, H, P, Dh) fp32; key_valid: (G, P) bool.
+// q, k, v, out, g, dq, dk, dv: (G, H, P, Dh) fp32; key_valid: (G, P) bool;
+// lse: (G, H, P) fp32, the row logsumexp of the masked logits; bits:
+// (G, H, P, ceil(P / 32)) uint32, bit j % 32 of word j / 32 of row i is
+// keep[i, j].
 //
 // Replaces robot3dlotus_tpu/ops/pallas_attention.py
 // `patch_attention_dropout`: `_drop_forward` (_attn_drop_fwd_kernel, K5)
 // and `_drop_backward` (_attn_drop_bwd_kernel, K6). As there, the
-// probabilities are fp32, keep = bits >= rate * 2^32, kept probabilities
-// are scaled by 1 / (1 - rate), and the backward recomputes the
-// probabilities and the keep mask instead of reading a (G, H, P, P) tensor
-// from memory.
+// probabilities are fp32, keep = bits >= rate * 2^32 and kept probabilities
+// are scaled by 1 / (1 - rate). Unlike there, the forward writes what the
+// backward needs instead of the backward recomputing it: K5 writes out, the
+// row logsumexp and the keep mask at 1 bit per (query, key) pair, and K6
+// reads them (FlashAttention-2's split). The JAX dataflow writes nothing
+// of size P x P; this one writes P x P bits (43 MB per release step).
 //
 // Random bits: the TPU seeded its hardware generator per (patch, head).
-// Here a Philox4x32-10 counter-based generator is written into the kernels:
-// key (seed, g * H + h), counter (e / 4, 0, 0, 0) with e = i * P + j the
-// element's index in the (P, P) tile, word e % 4 of the output. Any kernel
-// that evaluates element (g, h, i, j) gets the same bits, so K6 regenerates
-// K5's mask exactly, and r3dl_attention_dropout_mask writes that mask out
-// (ops/attention.py has the same generator in PyTorch for CPU tensors).
+// Here a Philox4x32-10 counter-based generator: key (seed, g * H + h),
+// counter (e / 4, 0, 0, 0) with e = i * P + j the element's index in the
+// (P, P) tile, word e % 4 of the output (ops/attention.py has the same
+// generator in PyTorch). Only K5 runs it: one word of 32 keep bits per
+// thread and pass, before the products; K6 reads the bits.
 //
-// Bound: operations (fp32 outside the tensor cores), as for K1: the
-// forward does 4 P Dh flops per query row, the backward 8 P Dh, against
-// 16 (forward) or 28 (backward) Dh bytes per row of q/k/v/g/out traffic.
-// Design (simple first): one block per (g, h), one thread per row.
-// K5 is K1's two passes over the keys with the keep bits inside the second.
-// K6 holds q * scale, k, v, g of the patch in shared memory (64 KB at
-// P = 128, Dh = 32, so dynamic shared memory above 48 KB). Phase 1, thread
-// i = query row: row max, row sum, D_i = g_i . out_i and the keep bits
-// (P x P bits in shared memory), then dq_i. Phase 2, thread j = key:
-// dk_j and dv_j, recomputing each logit in the same operation order as
-// phase 1 so both phases see bit-identical probabilities. Nothing of
-// size P x P leaves the block and there are no atomics. Dh is a template
-// (8/16/24/32). wgmma tiles are later work.
+// Bound: the products run on the tensor cores as 3xTF32 (below), 3 TF32
+// products for each fp32 one: the forward's 4 P^2 Dh flops per (g, h) and
+// the backward's 10 P^2 Dh at 3 x that over 494.7 TFLOP/s, against the
+// bytes moved (q, k, v, out, lse, bits; the backward also g, dq, dk, dv);
+// at the release shapes the bytes bound both. K5 also does the Philox
+// integer work, P^2 / 4 generator calls of 10 rounds per (g, h).
+//
+// Design: one block of 8 warps owns one whole (g, h) patch (P <= 128), so
+// nothing crosses blocks and there are no atomics. Every product is
+// mma.sync.m16n8k8 TF32 with each fp32 operand split as x = big + small
+// (big = tf32(x), small = tf32(x - big)) and big*big + big*small +
+// small*big summed in fp32 (CUTLASS's OpMultiplyAddFastF32 scheme): errors
+// at the fp32 level, where one TF32 product would miss the 1e-4 bar. A
+// C fragment of one product is the A fragment of the next with no
+// shuffle: the k index of an 8-wide step is permuted so that A column t is
+// element 2t and column t + 4 is element 2t + 1, which is where the
+// accumulator holds them. Shared-memory rows are padded so that every
+// fragment load is free of bank conflicts.
+// K5: warp w owns query rows 16w..16w+15; S = (q scale) k^T for all P keys
+// in registers (64 floats a thread), the row max, exp and sum once (each
+// logit computed once: with P <= 128 one key tile is the whole row), the
+// kept exps times v, scaled by 1 / ((1 - rate) l) at the end.
+// K6: phase 1, warp w owns keys 16w..16w+15 and walks the queries in
+// 8-query steps: S^T = k (q scale)^T and dP^T = v g^T, then
+// p = exp(S - lse), da = keep dP / (1 - rate), ds = p (da - D) with
+// D = g . out, and dv += (keep p / (1 - rate))^T g, dk += ds^T (q scale)
+// in registers; ds goes to shared memory (128 x 132 floats). Phase 2, warp
+// w owns queries 16w..: dq = ds k scale. Five products, each computed
+// once; 105 KB of shared memory, two blocks an SM.
 //
 // A masked key's logit is the constant -1e9, so its ds is 0: the exact
 // gradient. The JAX kernel leaves ds = a (da - D) there, which differs only
 // in a patch with no valid key (uniform a); the model never sends a
-// cotangent into such a patch (its rows are dead slots).
+// cotangent into such a patch (its rows are dead slots). In such a patch
+// lse = -1e9 + log P rounds to -1e9 in fp32, so K6 takes p = 1 / P there
+// instead of exp(S - lse).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -44,7 +66,11 @@
 namespace {
 
 constexpr int kMaxP = 128;
+constexpr int kWarps = 8;                 // 8 warps x 16 rows = kMaxP
+constexpr int kThreads = 32 * kWarps;
+constexpr int kMaxWords = kMaxP / 32;     // bit words per row
 constexpr float kNegInf = -1e9f;
+constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0,
                                                uint32_t k1) {
@@ -61,260 +87,513 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0,
   return c;
 }
 
-// Keep bits of row i, walked j = 0..P-1: one Philox call per 4 elements.
-struct KeepStream {
-  uint32_t seed, stream, thresh;
-  long long cur;
-  uint4 r;
-  __device__ KeepStream(uint32_t seed_, uint32_t stream_, uint32_t thresh_)
-      : seed(seed_), stream(stream_), thresh(thresh_), cur(-1) {}
-  __device__ __forceinline__ bool keep(long long e) {
-    const long long c = e >> 2;
-    if (c != cur) {
-      r = philox4x32_10(make_uint4((uint32_t)c, (uint32_t)(c >> 32), 0u, 0u),
-                        seed, stream);
-      cur = c;
+__device__ __forceinline__ uint4 philox_at(long long c, uint32_t seed,
+                                           uint32_t stream) {
+  return philox4x32_10(make_uint4((uint32_t)c, (uint32_t)(c >> 32), 0u, 0u),
+                       seed, stream);
+}
+
+__device__ __forceinline__ uint32_t word_of(const uint4& r, int w) {
+  return w == 0 ? r.x : w == 1 ? r.y : w == 2 ? r.z : r.w;
+}
+
+// Keep bits of keys j0..j0+n-1 (n <= 32) of query row i: bit j - j0.
+__device__ uint32_t keep_word(int i, int j0, int n, int P, uint32_t seed,
+                              uint32_t stream, uint32_t thresh) {
+  if (thresh == 0u) return n == 32 ? kFull : (1u << n) - 1u;
+  const long long e0 = (long long)i * P + j0;
+  uint32_t word = 0u;
+  if ((e0 & 3) == 0 && (n & 3) == 0) {    // whole generator calls
+    for (int c = 0; c < n / 4; ++c) {
+      const uint4 r = philox_at((e0 >> 2) + c, seed, stream);
+      word |= (uint32_t)(r.x >= thresh) << (4 * c) |
+              (uint32_t)(r.y >= thresh) << (4 * c + 1) |
+              (uint32_t)(r.z >= thresh) << (4 * c + 2) |
+              (uint32_t)(r.w >= thresh) << (4 * c + 3);
     }
-    const int w = (int)(e & 3);
-    const uint32_t bits = w == 0 ? r.x : w == 1 ? r.y : w == 2 ? r.z : r.w;
-    return bits >= thresh;
+    return word;
+  }
+  long long cur = -1;
+  uint4 r = make_uint4(0u, 0u, 0u, 0u);
+  for (int j = 0; j < n; ++j) {
+    const long long e = e0 + j;
+    if ((e >> 2) != cur) {
+      cur = e >> 2;
+      r = philox_at(cur, seed, stream);
+    }
+    word |= (uint32_t)(word_of(r, (int)(e & 3)) >= thresh) << j;
+  }
+  return word;
+}
+
+// ---- 3xTF32 mma.sync.m16n8k8 ----
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ void split(float x, uint32_t& big,
+                                      uint32_t& small) {
+  big = to_tf32(x);
+  small = to_tf32(x - __uint_as_float(big));
+}
+
+// An A fragment (16 x 8) split once, used against several B fragments.
+struct FragA {
+  uint32_t big[4], small[4];
+  __device__ __forceinline__ FragA(float a0, float a1, float a2, float a3) {
+    split(a0, big[0], small[0]);
+    split(a1, big[1], small[1]);
+    split(a2, big[2], small[2]);
+    split(a3, big[3], small[3]);
   }
 };
 
+__device__ __forceinline__ void mma_tf32(float (&d)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b in 3xTF32; b0, b1: this lane's B fragment in fp32.
+// A fragment (row, col): a0 (r, c), a1 (r + 8, c), a2 (r, c + 4),
+// a3 (r + 8, c + 4) with r = lane / 4, c = lane % 4; B: b0 (c, r),
+// b1 (c + 4, r); C: d0 (r, 2c), d1 (r, 2c + 1), d2 (r + 8, 2c),
+// d3 (r + 8, 2c + 1).
+__device__ __forceinline__ void mma3(float (&d)[4], const FragA& a, float b0,
+                                     float b1) {
+  uint32_t bb0, bs0, bb1, bs1;
+  split(b0, bb0, bs0);
+  split(b1, bb1, bs1);
+  mma_tf32(d, a.small, bb0, bb1);
+  mma_tf32(d, a.big, bs0, bs1);
+  mma_tf32(d, a.big, bb0, bb1);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(kFull, x, 1));
+  return fmaxf(x, __shfl_xor_sync(kFull, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(kFull, x, 1);
+  return x + __shfl_xor_sync(kFull, x, 2);
+}
+
+// Row strides in floats. Dh + 4: a load at (row r, col c) or at
+// (row 2c, col r) hits 32 distinct banks. kStrideB: (row c, col r).
 template <int Dh>
-__global__ void __launch_bounds__(kMaxP)
+struct Layout {
+  static constexpr int S = Dh + 4;
+  static constexpr int SB = Dh % 16 == 8 ? Dh : Dh + 8;   // 8 or 24 mod 32
+  static constexpr int DS = kMaxP + 4;
+};
+
+// rows [0, P8) of a (P, Dh) slice into shared memory at stride S; rows
+// P..P8-1 zero (the ragged 8-row tile)
+template <int Dh>
+__device__ __forceinline__ void load_rows(float* dst, int S,
+                                          const float* __restrict__ src,
+                                          int P, int P8, float mul) {
+  for (int i = threadIdx.x; i < P8 * Dh; i += kThreads) {
+    const int r = i / Dh, d = i - r * Dh;
+    dst[r * S + d] = r < P ? src[i] * mul : 0.f;
+  }
+}
+
+template <int Dh>
+size_t fwd_smem() {
+  return (2 * (size_t)kMaxP * Layout<Dh>::S) * sizeof(float) +
+         (size_t)kMaxP * kMaxWords * sizeof(uint32_t);
+}
+
+template <int Dh>
+__global__ void __launch_bounds__(kThreads, 2)
 attn_drop_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v,
                      const unsigned char* __restrict__ kv,
-                     float* __restrict__ out, int H, int P, float scale,
+                     float* __restrict__ out, float* __restrict__ lse,
+                     uint32_t* __restrict__ bits, int H, int P, float scale,
                      uint32_t seed, uint32_t thresh, float inv_keep) {
+  constexpr int S = Layout<Dh>::S;
+  constexpr int KD = Dh / 8;
   extern __shared__ float smem[];
   float* sk = smem;
-  float* sv = smem + P * Dh;
+  float* sv = sk + kMaxP * S;
+  uint32_t* sbits = reinterpret_cast<uint32_t*>(sv + kMaxP * S);
   __shared__ unsigned char smask[kMaxP];
 
+  const int W = (P + 31) >> 5;
+  const int P8 = (P + 7) & ~7;
+  const int nt = P8 >> 3;                  // 8-key tiles
   const long long gh = blockIdx.x;
-  const long long g = gh / H;
   const long long base = gh * P * Dh;
-  for (int i = threadIdx.x; i < P * Dh; i += blockDim.x) {
-    sk[i] = k[base + i];
-    sv[i] = v[base + i];
+  const int tid = threadIdx.x;
+  load_rows<Dh>(sk, S, k + base, P, P8, 1.f);
+  load_rows<Dh>(sv, S, v + base, P, P8, 1.f);
+  if (tid < P) smask[tid] = kv[gh / H * P + tid];
+  for (int w = tid; w < P * W; w += kThreads) {
+    const int i = w / W, j0 = (w - i * W) * 32;
+    const uint32_t word =
+        keep_word(i, j0, min(32, P - j0), P, seed, (uint32_t)gh, thresh);
+    sbits[w] = word;
+    bits[gh * P * W + w] = word;
   }
-  if (threadIdx.x < P) smask[threadIdx.x] = kv[g * P + threadIdx.x];
   __syncthreads();
 
-  const int p = threadIdx.x;
-  float qr[Dh];
-#pragma unroll
-  for (int d = 0; d < Dh; ++d) qr[d] = q[base + (long long)p * Dh + d] * scale;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int gr = lane >> 2, t = lane & 3;
+  if (warp * 16 >= P) return;
+  const int r0 = warp * 16 + gr, r1 = r0 + 8;   // this lane's query rows
+  const float* q0 = q + base + (long long)r0 * Dh;
+  const float* q1 = q + base + (long long)r1 * Dh;
 
-  float mx = -INFINITY;
-  for (int j = 0; j < P; ++j) {
-    float s = 0.f;
+  // S = (q scale) k^T: s[n] is the 16 x 8 tile of keys 8n..8n+7
+  float s[kMaxP / 8][4];
 #pragma unroll
-    for (int d = 0; d < Dh; ++d) s = fmaf(qr[d], sk[j * Dh + d], s);
-    mx = fmaxf(mx, smask[j] ? s : kNegInf);
-  }
-
-  KeepStream bits(seed, (uint32_t)gh, thresh);
-  float acc[Dh];
+  for (int n = 0; n < kMaxP / 8; ++n)
+    s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
-  for (int d = 0; d < Dh; ++d) acc[d] = 0.f;
-  float l = 0.f;
-  for (int j = 0; j < P; ++j) {
-    float s = 0.f;
+  for (int kk = 0; kk < KD; ++kk) {
+    const int d = kk * 8 + t;
+    const FragA a(r0 < P ? q0[d] * scale : 0.f, r1 < P ? q1[d] * scale : 0.f,
+                  r0 < P ? q0[d + 4] * scale : 0.f,
+                  r1 < P ? q1[d + 4] * scale : 0.f);
 #pragma unroll
-    for (int d = 0; d < Dh; ++d) s = fmaf(qr[d], sk[j * Dh + d], s);
-    const float e = expf((smask[j] ? s : kNegInf) - mx);
-    l += e;
-    if (bits.keep((long long)p * P + j)) {
-#pragma unroll
-      for (int d = 0; d < Dh; ++d) acc[d] = fmaf(e, sv[j * Dh + d], acc[d]);
+    for (int n = 0; n < kMaxP / 8; ++n) {
+      if (n < nt) {
+        const float* kr = sk + (n * 8 + gr) * S + kk * 8 + t;
+        mma3(s[n], a, kr[0], kr[4]);
+      }
     }
   }
-  const float f = inv_keep / l;
+
+  // masked logits, row max, exps and row sums (over every key), then the
+  // dropped exps in place
+  float m0 = -INFINITY, m1 = -INFINITY;
 #pragma unroll
-  for (int d = 0; d < Dh; ++d) out[base + (long long)p * Dh + d] = acc[d] * f;
+  for (int n = 0; n < kMaxP / 8; ++n) {
+    if (n < nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = n * 8 + 2 * t + (e & 1);
+        const float x = j >= P ? -INFINITY : smask[j] ? s[n][e] : kNegInf;
+        s[n][e] = x;
+        if (e < 2) m0 = fmaxf(m0, x);
+        else m1 = fmaxf(m1, x);
+      }
+    }
+  }
+  m0 = quad_max(m0);
+  m1 = quad_max(m1);
+  float l0 = 0.f, l1 = 0.f;
+  const uint32_t* b0 = sbits + r0 * W;
+  const uint32_t* b1 = sbits + r1 * W;
+#pragma unroll
+  for (int n = 0; n < kMaxP / 8; ++n) {
+    if (n < nt) {
+      const int sh = (n & 3) * 8 + 2 * t;
+      const uint32_t w0 = b0[n >> 2] >> sh, w1 = b1[n >> 2] >> sh;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = __expf(s[n][e] - (e < 2 ? m0 : m1));
+        if (e < 2) l0 += x;
+        else l1 += x;
+        const uint32_t w = e < 2 ? w0 : w1;
+        s[n][e] = (w >> (e & 1)) & 1u ? x : 0.f;
+      }
+    }
+  }
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+
+  // out = (dropped exps) v: the S tile's C fragment is the A fragment of
+  // its 8 keys, key 2t as column t and key 2t + 1 as column t + 4
+  float o[KD][4];
+#pragma unroll
+  for (int m = 0; m < KD; ++m) o[m][0] = o[m][1] = o[m][2] = o[m][3] = 0.f;
+#pragma unroll
+  for (int n = 0; n < kMaxP / 8; ++n) {
+    if (n < nt) {
+      const FragA a(s[n][0], s[n][2], s[n][1], s[n][3]);
+#pragma unroll
+      for (int m = 0; m < KD; ++m) {
+        const float* vr = sv + (n * 8 + 2 * t) * S + m * 8 + gr;
+        mma3(o[m], a, vr[0], vr[S]);
+      }
+    }
+  }
+  const float f0 = inv_keep / l0, f1 = inv_keep / l1;
+  float* o0 = out + base + (long long)r0 * Dh;
+  float* o1 = out + base + (long long)r1 * Dh;
+#pragma unroll
+  for (int m = 0; m < KD; ++m) {
+    const int c = m * 8 + 2 * t;
+    if (r0 < P) {
+      o0[c] = o[m][0] * f0;
+      o0[c + 1] = o[m][1] * f0;
+    }
+    if (r1 < P) {
+      o1[c] = o[m][2] * f1;
+      o1[c + 1] = o[m][3] * f1;
+    }
+  }
+  if (t == 0) {
+    if (r0 < P) lse[gh * P + r0] = m0 + logf(l0);
+    if (r1 < P) lse[gh * P + r1] = m1 + logf(l1);
+  }
 }
 
 template <int Dh>
-__global__ void __launch_bounds__(kMaxP)
+size_t bwd_smem() {
+  using L = Layout<Dh>;
+  return ((size_t)kMaxP * L::DS + 2 * (size_t)kMaxP * L::S + 2 * kMaxP) *
+             sizeof(float) +
+         (size_t)kMaxP * kMaxWords * sizeof(uint32_t);
+}
+
+// 8-query tiles per phase-1 step of K6: one keeps the Dh = 32 instance
+// within 128 registers; two spill 148 bytes and run 19% slower on an H100
+// SXM (scripts/attention_dropout_variants.py)
+constexpr int kChunk = 1;
+
+template <int Dh>
+__global__ void __launch_bounds__(kThreads, 2)
 attn_drop_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v,
                      const unsigned char* __restrict__ kv,
+                     const float* __restrict__ o,
+                     const float* __restrict__ lse,
+                     const uint32_t* __restrict__ bits,
                      const float* __restrict__ gout, float* __restrict__ dq,
                      float* __restrict__ dk, float* __restrict__ dv, int H,
-                     int P, float scale, uint32_t seed, uint32_t thresh,
-                     float inv_keep) {
+                     int P, float scale, float inv_keep) {
+  using L = Layout<Dh>;
+  constexpr int S = L::S, SB = L::SB, DS = L::DS;
+  constexpr int KD = Dh / 8;
+  static_assert(kMaxP * SB <= 2 * kMaxP * S, "k fits where q and g were");
   extern __shared__ float smem[];
-  const int W = (P + 31) / 32;          // bit words per row
-  float* sq = smem;                      // q * scale
-  float* sk = sq + P * Dh;
-  float* sv = sk + P * Dh;
-  float* sg = sv + P * Dh;
-  float* smx = sg + P * Dh;
-  float* sl = smx + P;
-  float* sD = sl + P;
-  uint32_t* sbits = reinterpret_cast<uint32_t*>(sD + P);
+  float* sds = smem;                  // ds[query][key], stride DS
+  float* sq = sds + kMaxP * DS;       // q * scale (phase 1), k (phase 2)
+  float* sg = sq + kMaxP * S;
+  float* slse = sg + kMaxP * S;
+  float* sD = slse + kMaxP;           // D_i = g_i . out_i
+  uint32_t* sbits = reinterpret_cast<uint32_t*>(sD + kMaxP);
   __shared__ unsigned char smask[kMaxP];
 
+  const int W = (P + 31) >> 5;
+  const int P8 = (P + 7) & ~7;
   const long long gh = blockIdx.x;
-  const long long g = gh / H;
   const long long base = gh * P * Dh;
-  for (int i = threadIdx.x; i < P * Dh; i += blockDim.x) {
-    sq[i] = q[base + i] * scale;
-    sk[i] = k[base + i];
-    sv[i] = v[base + i];
-    sg[i] = gout[base + i];
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int gr = lane >> 2, t = lane & 3;
+  load_rows<Dh>(sq, S, q + base, P, P8, scale);
+  load_rows<Dh>(sg, S, gout + base, P, P8, 1.f);
+  for (int i = tid; i < P * W; i += kThreads) sbits[i] = bits[gh * P * W + i];
+  if (tid < kMaxP) slse[tid] = tid < P ? lse[gh * P + tid] : 0.f;
+  for (int r = warp; r < kMaxP; r += kWarps) {   // D, one row per warp
+    float x = 0.f;
+    if (r < P && lane < Dh)
+      x = gout[base + (long long)r * Dh + lane] *
+          o[base + (long long)r * Dh + lane];
+#pragma unroll
+    for (int sh = 16; sh; sh >>= 1) x += __shfl_xor_sync(kFull, x, sh);
+    if (lane == 0) sD[r] = x;
   }
-  if (threadIdx.x < P) smask[threadIdx.x] = kv[g * P + threadIdx.x];
+  bool valid = false;
+  if (tid < P) valid = smask[tid] = kv[gh / H * P + tid];
+  const bool any_valid = __syncthreads_or(valid);
+
+  // ---- phase 1: warp w owns keys 16w..16w+15 ----
+  const int j0 = warp * 16 + gr, j1 = j0 + 8;   // this lane's keys
+  if (warp * 16 < P) {
+    const float* k0 = k + base + (long long)j0 * Dh;
+    const float* k1 = k + base + (long long)j1 * Dh;
+    const float* v0 = v + base + (long long)j0 * Dh;
+    const float* v1 = v + base + (long long)j1 * Dh;
+    float ka[KD][4], va[KD][4];   // A fragments of this warp's k and v rows
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      const int d = kk * 8 + t;
+      ka[kk][0] = j0 < P ? k0[d] : 0.f;
+      ka[kk][1] = j1 < P ? k1[d] : 0.f;
+      ka[kk][2] = j0 < P ? k0[d + 4] : 0.f;
+      ka[kk][3] = j1 < P ? k1[d + 4] : 0.f;
+      va[kk][0] = j0 < P ? v0[d] : 0.f;
+      va[kk][1] = j1 < P ? v1[d] : 0.f;
+      va[kk][2] = j0 < P ? v0[d + 4] : 0.f;
+      va[kk][3] = j1 < P ? v1[d + 4] : 0.f;
+    }
+    const bool val0 = j0 < P && smask[j0], val1 = j1 < P && smask[j1];
+    const float inv_p = 1.f / (float)P;
+    float dka[KD][4], dva[KD][4];
+#pragma unroll
+    for (int m = 0; m < KD; ++m)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dka[m][e] = dva[m][e] = 0.f;
+
+    for (int c0 = 0; c0 < P8; c0 += 8 * kChunk) {
+      // S^T = k (q scale)^T and dP^T = v g^T on queries c0..c0+15
+      float s[kChunk][4], dp[kChunk][4];
+#pragma unroll
+      for (int n = 0; n < kChunk; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        const FragA ak(ka[kk][0], ka[kk][1], ka[kk][2], ka[kk][3]);
+        const FragA av(va[kk][0], va[kk][1], va[kk][2], va[kk][3]);
+#pragma unroll
+        for (int n = 0; n < kChunk; ++n) {
+          if (c0 + 8 * n < P8) {
+            const int off = (c0 + 8 * n + gr) * S + kk * 8 + t;
+            mma3(s[n], ak, sq[off], sq[off + 4]);
+            mma3(dp[n], av, sg[off], sg[off + 4]);
+          }
+        }
+      }
+      // p, the dropped p, ds; ds to shared memory for phase 2
+#pragma unroll
+      for (int n = 0; n < kChunk; ++n) {
+        if (c0 + 8 * n < P8) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = c0 + 8 * n + 2 * t + (e & 1);    // query
+            const int j = e < 2 ? j0 : j1;                 // key
+            const bool val = e < 2 ? val0 : val1;
+            const bool live = c < P && j < P;
+            const bool kp =
+                live && ((sbits[c * W + (j >> 5)] >> (j & 31)) & 1u);
+            const float p = !any_valid ? inv_p
+                            : val      ? __expf(s[n][e] - slse[c])
+                                       : 0.f;
+            const float da = kp ? dp[n][e] * inv_keep : 0.f;
+            const float ds = live && val ? p * (da - sD[c]) : 0.f;
+            sds[c * DS + j] = ds;
+            s[n][e] = kp ? p * inv_keep : 0.f;
+            dp[n][e] = ds;
+          }
+        }
+      }
+      // dv += (dropped p)^T g, dk += ds^T (q scale): C fragments as A,
+      // query 2t as column t and 2t + 1 as column t + 4
+#pragma unroll
+      for (int n = 0; n < kChunk; ++n) {
+        if (c0 + 8 * n < P8) {
+          const FragA apd(s[n][0], s[n][2], s[n][1], s[n][3]);
+          const FragA ads(dp[n][0], dp[n][2], dp[n][1], dp[n][3]);
+#pragma unroll
+          for (int m = 0; m < KD; ++m) {
+            const int off = (c0 + 8 * n + 2 * t) * S + m * 8 + gr;
+            mma3(dva[m], apd, sg[off], sg[off + S]);
+            mma3(dka[m], ads, sq[off], sq[off + S]);
+          }
+        }
+      }
+    }
+    float* dk0 = dk + base + (long long)j0 * Dh;
+    float* dk1 = dk + base + (long long)j1 * Dh;
+    float* dv0 = dv + base + (long long)j0 * Dh;
+    float* dv1 = dv + base + (long long)j1 * Dh;
+#pragma unroll
+    for (int m = 0; m < KD; ++m) {
+      const int c = m * 8 + 2 * t;
+      if (j0 < P) {
+        dk0[c] = dka[m][0];
+        dk0[c + 1] = dka[m][1];
+        dv0[c] = dva[m][0];
+        dv0[c + 1] = dva[m][1];
+      }
+      if (j1 < P) {
+        dk1[c] = dka[m][2];
+        dk1[c + 1] = dka[m][3];
+        dv1[c] = dva[m][2];
+        dv1[c + 1] = dva[m][3];
+      }
+    }
+  }
   __syncthreads();
 
-  // ---- phase 1: thread i = query row ----
-  const int i = threadIdx.x;
-  {
-    float qr[Dh], gr[Dh], acc[Dh];
-#pragma unroll
-    for (int d = 0; d < Dh; ++d) {
-      qr[d] = sq[i * Dh + d];
-      gr[d] = sg[i * Dh + d];
-    }
-    float mx = -INFINITY;
-    for (int j = 0; j < P; ++j) {
-      float s = 0.f;
-#pragma unroll
-      for (int d = 0; d < Dh; ++d) s = fmaf(qr[d], sk[j * Dh + d], s);
-      mx = fmaxf(mx, smask[j] ? s : kNegInf);
-    }
-    // row sum, the dropped output (unnormalised) and the keep bits
-    KeepStream bits(seed, (uint32_t)gh, thresh);
-#pragma unroll
-    for (int d = 0; d < Dh; ++d) acc[d] = 0.f;
-    float l = 0.f;
-    uint32_t word = 0u;
-    for (int j = 0; j < P; ++j) {
-      float s = 0.f;
-#pragma unroll
-      for (int d = 0; d < Dh; ++d) s = fmaf(qr[d], sk[j * Dh + d], s);
-      const float e = expf((smask[j] ? s : kNegInf) - mx);
-      l += e;
-      const bool kp = bits.keep((long long)i * P + j);
-      if (kp) {
-        word |= 1u << (j & 31);
-#pragma unroll
-        for (int d = 0; d < Dh; ++d) acc[d] = fmaf(e, sv[j * Dh + d], acc[d]);
-      }
-      if ((j & 31) == 31 || j == P - 1) {
-        sbits[i * W + (j >> 5)] = word;
-        word = 0u;
-      }
-    }
-    // D_i = g_i . out_i = sum_j da_ij a_ij (the softmax-vjp row term)
-    float Di = 0.f;
-#pragma unroll
-    for (int d = 0; d < Dh; ++d) Di = fmaf(gr[d], acc[d], Di);
-    Di *= inv_keep / l;
-    smx[i] = mx;
-    sl[i] = l;
-    sD[i] = Di;
-    // dq_i = scale * sum_j ds_ij k_j, ds = a (da - D_i)
-#pragma unroll
-    for (int d = 0; d < Dh; ++d) acc[d] = 0.f;
-    for (int j = 0; j < P; ++j) {
-      float s = 0.f, dad = 0.f;
-#pragma unroll
-      for (int d = 0; d < Dh; ++d) {
-        s = fmaf(qr[d], sk[j * Dh + d], s);
-        dad = fmaf(gr[d], sv[j * Dh + d], dad);
-      }
-      const float a = expf((smask[j] ? s : kNegInf) - mx) / l;
-      const bool kp = (sbits[i * W + (j >> 5)] >> (j & 31)) & 1u;
-      const float ds =
-          smask[j] ? a * ((kp ? dad * inv_keep : 0.f) - Di) : 0.f;
-#pragma unroll
-      for (int d = 0; d < Dh; ++d) acc[d] = fmaf(ds, sk[j * Dh + d], acc[d]);
-    }
-#pragma unroll
-    for (int d = 0; d < Dh; ++d)
-      dq[base + (long long)i * Dh + d] = acc[d] * scale;
-  }
+  // ---- phase 2: warp w owns queries 16w..16w+15; dq = ds k scale ----
+  load_rows<Dh>(sq, SB, k + base, P, P8, 1.f);   // k where q and g were
   __syncthreads();
-
-  // ---- phase 2: thread j = key ----
-  const int j = threadIdx.x;
-  float kr[Dh], vr[Dh], dka[Dh], dva[Dh];
+  if (warp * 16 >= P) return;
+  const int r0 = warp * 16 + gr, r1 = r0 + 8;
+  float acc[KD][4];
 #pragma unroll
-  for (int d = 0; d < Dh; ++d) {
-    kr[d] = sk[j * Dh + d];
-    vr[d] = sv[j * Dh + d];
-    dka[d] = 0.f;
-    dva[d] = 0.f;
-  }
-  const bool valid = smask[j] != 0;
-  for (int r = 0; r < P; ++r) {
-    float s = 0.f, dad = 0.f;
+  for (int m = 0; m < KD; ++m)
+    acc[m][0] = acc[m][1] = acc[m][2] = acc[m][3] = 0.f;
+  for (int kk = 0; kk < P8 / 8; ++kk) {
+    const float* d0 = sds + r0 * DS + kk * 8 + t;
+    const float* d1 = sds + r1 * DS + kk * 8 + t;
+    const FragA a(d0[0], d1[0], d0[4], d1[4]);
 #pragma unroll
-    for (int d = 0; d < Dh; ++d) {
-      s = fmaf(sq[r * Dh + d], kr[d], s);
-      dad = fmaf(sg[r * Dh + d], vr[d], dad);
-    }
-    const float a = expf((valid ? s : kNegInf) - smx[r]) / sl[r];
-    const bool kp = (sbits[r * W + (j >> 5)] >> (j & 31)) & 1u;
-    const float ad = kp ? a * inv_keep : 0.f;
-    const float ds = valid ? a * ((kp ? dad * inv_keep : 0.f) - sD[r]) : 0.f;
-#pragma unroll
-    for (int d = 0; d < Dh; ++d) {
-      dva[d] = fmaf(ad, sg[r * Dh + d], dva[d]);
-      dka[d] = fmaf(ds, sq[r * Dh + d], dka[d]);
+    for (int m = 0; m < KD; ++m) {
+      const float* kr = sq + (kk * 8 + t) * SB + m * 8 + gr;
+      mma3(acc[m], a, kr[0], kr[4 * SB]);
     }
   }
+  float* q0 = dq + base + (long long)r0 * Dh;
+  float* q1 = dq + base + (long long)r1 * Dh;
 #pragma unroll
-  for (int d = 0; d < Dh; ++d) {
-    dk[base + (long long)j * Dh + d] = dka[d];
-    dv[base + (long long)j * Dh + d] = dva[d];
+  for (int m = 0; m < KD; ++m) {
+    const int c = m * 8 + 2 * t;
+    if (r0 < P) {
+      q0[c] = acc[m][0] * scale;
+      q0[c + 1] = acc[m][1] * scale;
+    }
+    if (r1 < P) {
+      q1[c] = acc[m][2] * scale;
+      q1[c + 1] = acc[m][3] * scale;
+    }
   }
 }
 
-__global__ void attn_drop_mask_kernel(unsigned char* __restrict__ keep,
-                                      int P, uint32_t seed, uint32_t thresh) {
-  const long long gh = blockIdx.x;
-  const int i = threadIdx.x;
-  KeepStream bits(seed, (uint32_t)gh, thresh);
-  unsigned char* row = keep + (gh * P + i) * P;
-  for (int j = 0; j < P; ++j) row[j] = bits.keep((long long)i * P + j);
-}
-
-size_t bwd_smem(int P, int Dh) {
-  return (4 * (size_t)P * Dh + 3 * (size_t)P) * sizeof(float) +
-         (size_t)P * ((P + 31) / 32) * sizeof(uint32_t);
+// Dynamic shared memory above 48 KB, and the largest shared-memory
+// carveout, so that two blocks fit on an SM.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+      (int)cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess || smem <= 48 * 1024) return err;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 template <int Dh>
 int launch_fwd(const float* q, const float* k, const float* v,
-               const unsigned char* kv, float* out, int G, int H, int P,
-               float scale, uint32_t seed, uint32_t thresh, float inv_keep,
+               const unsigned char* kv, float* out, float* lse,
+               uint32_t* bits, int G, int H, int P, float scale,
+               uint32_t seed, uint32_t thresh, float inv_keep,
                cudaStream_t stream) {
-  const size_t smem = 2 * (size_t)P * Dh * sizeof(float);
-  attn_drop_fwd_kernel<Dh><<<(unsigned)((long long)G * H), P, smem,
-                             stream>>>(q, k, v, kv, out, H, P, scale, seed,
-                                       thresh, inv_keep);
+  static const cudaError_t attr =
+      allow_smem(attn_drop_fwd_kernel<Dh>, fwd_smem<Dh>());
+  if (attr != cudaSuccess) return (int)attr;
+  attn_drop_fwd_kernel<Dh><<<(unsigned)((long long)G * H), kThreads,
+                             fwd_smem<Dh>(), stream>>>(
+      q, k, v, kv, out, lse, bits, H, P, scale, seed, thresh, inv_keep);
   return (int)cudaGetLastError();
 }
 
 template <int Dh>
 int launch_bwd(const float* q, const float* k, const float* v,
-               const unsigned char* kv, const float* gout, float* dq,
-               float* dk, float* dv, int G, int H, int P, float scale,
-               uint32_t seed, uint32_t thresh, float inv_keep,
+               const unsigned char* kv, const float* out, const float* lse,
+               const uint32_t* bits, const float* gout, float* dq, float* dk,
+               float* dv, int G, int H, int P, float scale, float inv_keep,
                cudaStream_t stream) {
-  const size_t smem = bwd_smem(P, Dh);
-  cudaError_t err = cudaFuncSetAttribute(
-      attn_drop_bwd_kernel<Dh>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  attn_drop_bwd_kernel<Dh><<<(unsigned)((long long)G * H), P, smem,
-                             stream>>>(q, k, v, kv, gout, dq, dk, dv, H, P,
-                                       scale, seed, thresh, inv_keep);
+  static const cudaError_t attr =
+      allow_smem(attn_drop_bwd_kernel<Dh>, bwd_smem<Dh>());
+  if (attr != cudaSuccess) return (int)attr;
+  attn_drop_bwd_kernel<Dh><<<(unsigned)((long long)G * H), kThreads,
+                             bwd_smem<Dh>(), stream>>>(
+      q, k, v, kv, out, lse, bits, gout, dq, dk, dv, H, P, scale, inv_keep);
   return (int)cudaGetLastError();
 }
 
@@ -322,52 +601,40 @@ int launch_bwd(const float* q, const float* k, const float* v,
 
 extern "C" int r3dl_attention_dropout_fwd(
     const float* q, const float* k, const float* v, const unsigned char* kv,
-    float* out, int G, int H, int P, int Dh, float scale, unsigned seed,
-    unsigned thresh, float inv_keep, cudaStream_t stream) {
+    float* out, float* lse, unsigned* bits, int G, int H, int P, int Dh,
+    float scale, unsigned seed, unsigned thresh, float inv_keep,
+    cudaStream_t stream) {
   if (P < 1 || P > kMaxP) return (int)cudaErrorInvalidValue;
   if ((long long)G * H == 0) return (int)cudaGetLastError();
   switch (Dh) {
-    case 8: return launch_fwd<8>(q, k, v, kv, out, G, H, P, scale, seed,
-                                 thresh, inv_keep, stream);
-    case 16: return launch_fwd<16>(q, k, v, kv, out, G, H, P, scale, seed,
-                                   thresh, inv_keep, stream);
-    case 24: return launch_fwd<24>(q, k, v, kv, out, G, H, P, scale, seed,
-                                   thresh, inv_keep, stream);
-    case 32: return launch_fwd<32>(q, k, v, kv, out, G, H, P, scale, seed,
-                                   thresh, inv_keep, stream);
+    case 8: return launch_fwd<8>(q, k, v, kv, out, lse, bits, G, H, P, scale,
+                                 seed, thresh, inv_keep, stream);
+    case 16: return launch_fwd<16>(q, k, v, kv, out, lse, bits, G, H, P,
+                                   scale, seed, thresh, inv_keep, stream);
+    case 24: return launch_fwd<24>(q, k, v, kv, out, lse, bits, G, H, P,
+                                   scale, seed, thresh, inv_keep, stream);
+    case 32: return launch_fwd<32>(q, k, v, kv, out, lse, bits, G, H, P,
+                                   scale, seed, thresh, inv_keep, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 extern "C" int r3dl_attention_dropout_bwd(
     const float* q, const float* k, const float* v, const unsigned char* kv,
+    const float* out, const float* lse, const unsigned* bits,
     const float* gout, float* dq, float* dk, float* dv, int G, int H, int P,
-    int Dh, float scale, unsigned seed, unsigned thresh, float inv_keep,
-    cudaStream_t stream) {
+    int Dh, float scale, float inv_keep, cudaStream_t stream) {
   if (P < 1 || P > kMaxP) return (int)cudaErrorInvalidValue;
   if ((long long)G * H == 0) return (int)cudaGetLastError();
   switch (Dh) {
-    case 8: return launch_bwd<8>(q, k, v, kv, gout, dq, dk, dv, G, H, P,
-                                 scale, seed, thresh, inv_keep, stream);
-    case 16: return launch_bwd<16>(q, k, v, kv, gout, dq, dk, dv, G, H, P,
-                                   scale, seed, thresh, inv_keep, stream);
-    case 24: return launch_bwd<24>(q, k, v, kv, gout, dq, dk, dv, G, H, P,
-                                   scale, seed, thresh, inv_keep, stream);
-    case 32: return launch_bwd<32>(q, k, v, kv, gout, dq, dk, dv, G, H, P,
-                                   scale, seed, thresh, inv_keep, stream);
+    case 8: return launch_bwd<8>(q, k, v, kv, out, lse, bits, gout, dq, dk,
+                                 dv, G, H, P, scale, inv_keep, stream);
+    case 16: return launch_bwd<16>(q, k, v, kv, out, lse, bits, gout, dq, dk,
+                                   dv, G, H, P, scale, inv_keep, stream);
+    case 24: return launch_bwd<24>(q, k, v, kv, out, lse, bits, gout, dq, dk,
+                                   dv, G, H, P, scale, inv_keep, stream);
+    case 32: return launch_bwd<32>(q, k, v, kv, out, lse, bits, gout, dq, dk,
+                                   dv, G, H, P, scale, inv_keep, stream);
     default: return (int)cudaErrorInvalidValue;
   }
-}
-
-// keep: (G, H, P, P) uint8, the mask K5 and K6 regenerate for these
-// arguments (1 = kept)
-extern "C" int r3dl_attention_dropout_mask(unsigned char* keep, int G, int H,
-                                           int P, unsigned seed,
-                                           unsigned thresh,
-                                           cudaStream_t stream) {
-  if (P < 1 || P > kMaxP) return (int)cudaErrorInvalidValue;
-  if ((long long)G * H == 0) return (int)cudaGetLastError();
-  attn_drop_mask_kernel<<<(unsigned)((long long)G * H), P, 0, stream>>>(
-      keep, P, seed, thresh);
-  return (int)cudaGetLastError();
 }

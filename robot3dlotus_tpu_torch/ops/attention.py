@@ -8,13 +8,20 @@ with fp32 logits and softmax, out = a v, in the JAX package's (G, H, P, Dh)
 layout. With dropout, out = where(keep, a / (1 - rate), 0) v and keep =
 bits >= rate * 2^32, the bits drawn by a Philox4x32-10 generator keyed by
 (seed, g * H + h) at counter element_index // 4 (csrc/attention_dropout.cu;
-philox_keep_mask below is the same generator in PyTorch). The backward
-regenerates the probabilities and the mask; no (G, H, P, P) tensor is kept.
+philox_keep_mask below is the same generator in PyTorch).
+
+The forward (K5, patch_attention_dropout_fwd) returns (out, lse, bits):
+the row logsumexp of the masked logits, (G, H, P) fp32, and the keep mask
+packed 32 keys to a word, (G, H, P, ceil(P / 32)) int32 holding the uint32
+pattern (bit j % 32 of word j // 32; pack_keep_bits). The backward (K6,
+patch_attention_dropout_bwd) reads them with out and the cotangent: no
+logit is recomputed for statistics and no random bit is drawn again.
 
 The CUDA kernels are csrc/attention.cu (K1) and csrc/attention_dropout.cu
-(K5, K6, and attention_dropout_mask, which writes K5's mask out). The
-plain versions take the keep mask explicitly; they are the path for CPU
-tensors and the kernels' oracles.
+(K5, K6). The plain versions are the path for CPU tensors and the
+kernels' oracles; patch_attention_dropout_plain and
+patch_attention_dropout_vjp_plain take the keep mask as a (G, H, P, P)
+bool tensor.
 """
 from __future__ import annotations
 
@@ -36,39 +43,36 @@ def patch_attention_plain(q, k, v, key_valid, scale):
     return patch_attention_dropout_plain(q, k, v, key_valid, scale, 0.0, None)
 
 
-def _probs(q, k, key_valid, scale):
+def _logits(q, k, key_valid, scale):
     logits = torch.einsum("ghpd,ghqd->ghpq", (q * scale).float(), k.float())
-    logits = torch.where(key_valid[:, None, None, :], logits,
-                         torch.full_like(logits, NEG_INF))
-    return torch.softmax(logits, dim=-1)
+    return torch.where(key_valid[:, None, None, :], logits,
+                       torch.full_like(logits, NEG_INF))
+
+
+def _drop(t, rate, keep):
+    """where(keep, t / (1 - rate), 0); keep None: keep all."""
+    t = t / (1.0 - rate)
+    return t if keep is None else torch.where(keep, t, torch.zeros_like(t))
 
 
 def patch_attention_dropout_plain(q, k, v, key_valid, scale, rate, keep):
     """keep: (G, H, P, P) bool (None: keep all) -> (G, H, P, Dh)."""
-    a = _probs(q, k, key_valid, scale)
-    if keep is not None:
-        a = torch.where(keep, a / (1.0 - rate), torch.zeros_like(a))
-    return torch.einsum("ghpq,ghqd->ghpd", a.to(v.dtype), v).to(q.dtype)
+    a = torch.softmax(_logits(q, k, key_valid, scale), dim=-1)
+    return torch.einsum("ghpq,ghqd->ghpd", _drop(a, rate, keep).to(v.dtype),
+                        v).to(q.dtype)
 
 
-def patch_attention_dropout_bwd_plain(q, k, v, key_valid, scale, rate, keep,
+def patch_attention_dropout_vjp_plain(q, k, v, key_valid, scale, rate, keep,
                                       g):
     """(dq, dk, dv) of patch_attention_dropout_plain for the cotangent g
-    (keep None: keep all): the math of the JAX package's
-    `_attn_drop_bwd_kernel`, with ds zeroed at masked keys (the exact
-    gradient; the two differ only in a patch with no valid key)."""
-    a = _probs(q, k, key_valid, scale)
-    inv_keep = 1.0 / (1.0 - rate)
-
-    def drop(t):
-        t = t * inv_keep
-        return t if keep is None else torch.where(keep, t,
-                                                  torch.zeros_like(t))
-    ad = drop(a)
+    (keep None: keep all), recomputing the probabilities: the math of the
+    JAX package's `_attn_drop_bwd_kernel`, with ds zeroed at masked keys
+    (the exact gradient; the two differ only in a patch with no valid
+    key)."""
+    a = torch.softmax(_logits(q, k, key_valid, scale), dim=-1)
     g, v, q, k = g.float(), v.float(), q.float(), k.float()
-    dv = torch.einsum("ghpq,ghpd->ghqd", ad, g)
-    dad = torch.einsum("ghpd,ghqd->ghpq", g, v)
-    da = drop(dad)
+    dv = torch.einsum("ghpq,ghpd->ghqd", _drop(a, rate, keep), g)
+    da = _drop(torch.einsum("ghpd,ghqd->ghpq", g, v), rate, keep)
     ds = a * (da - (da * a).sum(-1, keepdim=True))
     # a masked key's logit is a constant: no gradient flows through it
     ds = torch.where(key_valid[:, None, None, :], ds, torch.zeros_like(ds))
@@ -103,7 +107,7 @@ def keep_threshold(rate):
 
 
 def philox_keep_mask(seed, G, H, P, rate, device="cpu"):
-    """(G, H, P, P) bool keep mask of K5/K6 for `seed`, in PyTorch."""
+    """(G, H, P, P) bool keep mask of K5 for `seed`, in PyTorch."""
     e = torch.arange(P * P, dtype=torch.int64, device=device)
     c = (e >> 2)[None]
     stream = torch.arange(G * H, dtype=torch.int64, device=device)[:, None]
@@ -116,17 +120,80 @@ def philox_keep_mask(seed, G, H, P, rate, device="cpu"):
     return (bits >= keep_threshold(rate)).reshape(G, H, P, P)
 
 
-def _check_attention(name, q, k, v, key_valid, g=None):
-    for n, t in (("q", q), ("k", k), ("v", v), ("g", g)):
-        if t is not None:
-            cuda_lib.check_cuda_tensor(f"{name} {n}", t, torch.float32, 4)
+def pack_keep_bits(keep):
+    """(..., P) bool -> (..., ceil(P / 32)) int32 words holding the uint32
+    pattern whose bit j % 32 of word j // 32 is keep[..., j]."""
+    P = keep.shape[-1]
+    W = (P + 31) // 32
+    padded = torch.nn.functional.pad(keep.to(torch.int64), (0, 32 * W - P))
+    shifts = torch.arange(32, dtype=torch.int64, device=keep.device)
+    words = (padded.reshape(*keep.shape[:-1], W, 32) << shifts).sum(-1)
+    return torch.where(words > 0x7FFFFFFF, words - (1 << 32),
+                       words).to(torch.int32)
+
+
+def unpack_keep_bits(bits, P):
+    """pack_keep_bits' inverse: (..., W) int32 words -> (..., P) bool."""
+    shifts = torch.arange(32, dtype=torch.int64, device=bits.device)
+    b = ((bits.to(torch.int64) & _U32)[..., None] >> shifts) & 1
+    return b.reshape(*bits.shape[:-1], -1)[..., :P].bool()
+
+
+def _plain_keep(q, rate, seed):
+    """The kernels' mask for CPU tensors; at rate 0 every bit passes."""
+    G, H, P, _ = q.shape
+    if rate == 0.0:
+        return torch.ones((G, H, P, P), dtype=torch.bool, device=q.device)
+    return philox_keep_mask(seed, G, H, P, rate, q.device)
+
+
+def patch_attention_dropout_fwd_plain(q, k, v, key_valid, scale, rate, seed):
+    """K5's plain version: (out, lse, bits) with the Philox mask of
+    `seed`."""
+    logits = _logits(q, k, key_valid, scale)
+    keep = _plain_keep(q, rate, seed)
+    a = torch.softmax(logits, dim=-1)
+    out = torch.einsum("ghpq,ghqd->ghpd", _drop(a, rate, keep), v.float())
+    return (out.to(q.dtype), torch.logsumexp(logits, dim=-1),
+            pack_keep_bits(keep))
+
+
+def patch_attention_dropout_bwd_plain(q, k, v, key_valid, out, lse, bits, g,
+                                      scale, rate):
+    """K6's plain version: (dq, dk, dv) from the forward's saved
+    (q, k, v, key_valid, out, lse, bits) and the cotangent g, as K6
+    computes them: p = exp(logits - lse), D = g . out, ds zeroed at masked
+    keys; in a patch with no valid key p = 1 / P (lse rounds to -1e9
+    there)."""
+    P = q.shape[2]
+    q, k, v, g, out = (t.float() for t in (q, k, v, g, out))
+    valid = key_valid[:, None, None, :]
+    p = torch.where(valid, torch.exp(_logits(q, k, key_valid, scale) -
+                                     lse[..., None]), 0.0)
+    p = torch.where(key_valid.any(-1)[:, None, None, None], p, 1.0 / P)
+    keep = unpack_keep_bits(bits, P)
+    dv = torch.einsum("ghpq,ghpd->ghqd", _drop(p, rate, keep), g)
+    da = _drop(torch.einsum("ghpd,ghqd->ghpq", g, v), rate, keep)
+    ds = p * (da - (g * out).sum(-1, keepdim=True))
+    ds = torch.where(valid, ds, torch.zeros_like(ds))
+    dq = torch.einsum("ghpq,ghqd->ghpd", ds, k) * scale
+    dk = torch.einsum("ghpq,ghpd->ghqd", ds, q) * scale
+    return dq, dk, dv
+
+
+def _check_attention(name, q, k, v, key_valid, *more):
+    """The kernels' contract: q, k, v and `more` contiguous fp32 CUDA
+    tensors of one (G, H, P, Dh) shape, key_valid (G, P) bool."""
+    for n, t in (("q", q), ("k", k), ("v", v),
+                 *((f"arg {i}", t) for i, t in enumerate(more))):
+        cuda_lib.check_cuda_tensor(f"{name} {n}", t, torch.float32, 4)
     cuda_lib.check_cuda_tensor(f"{name} key_valid", key_valid, torch.bool, 2)
     G, H, P, Dh = q.shape
-    if k.shape != q.shape or v.shape != q.shape or \
-            (g is not None and g.shape != q.shape) or \
+    if any(t.shape != q.shape for t in (k, v, *more)) or \
             tuple(key_valid.shape) != (G, P):
         raise ValueError(f"{name}: shapes q{tuple(q.shape)} "
                          f"k{tuple(k.shape)} v{tuple(v.shape)} "
+                         f"{[tuple(t.shape) for t in more]} "
                          f"key_valid{tuple(key_valid.shape)}")
     if Dh not in KERNEL_HEAD_DIMS or P > KERNEL_MAX_PATCH:
         raise ValueError(f"{name} kernel: head dim {Dh} not in "
@@ -153,21 +220,6 @@ def patch_attention(q, k, v, key_valid, scale):
     return out
 
 
-def attention_dropout_mask(seed, G, H, P, rate, device):
-    """The keep mask K5 and K6 use for these arguments, (G, H, P, P) bool:
-    written by the kernel on a CUDA device, by philox_keep_mask on the
-    CPU."""
-    device = torch.device(device)
-    if device.type != "cuda":
-        return philox_keep_mask(seed, G, H, P, rate, device)
-    if not 0 < P <= KERNEL_MAX_PATCH:
-        raise ValueError(f"attention_dropout_mask: patch {P}")
-    keep = torch.empty((G, H, P, P), dtype=torch.uint8, device=device)
-    cuda_lib.launch("attention_dropout_mask", "r3dl_attention_dropout_mask",
-                    keep.data_ptr(), G, H, P, seed, keep_threshold(rate))
-    return keep.bool()
-
-
 def _dropout_args(rate, seed):
     if not 0.0 <= rate < 1.0:
         raise ValueError(f"attention dropout rate {rate} not in [0, 1)")
@@ -176,63 +228,70 @@ def _dropout_args(rate, seed):
     return seed, keep_threshold(rate), 1.0 / (1.0 - rate)
 
 
-def _plain_keep(q, rate, seed):
-    """The kernels' mask for CPU tensors; at rate 0 every bit passes."""
-    if rate == 0.0:
-        return None
-    G, H, P, _ = q.shape
-    return philox_keep_mask(seed, G, H, P, rate, q.device)
-
-
-def _dropout_forward(q, k, v, key_valid, scale, rate, seed):
+def patch_attention_dropout_fwd(q, k, v, key_valid, scale, rate, seed):
+    """(out, lse, bits) of the training attention: K5 for CUDA tensors, the
+    plain version for CPU tensors."""
+    seed, thresh, inv_keep = _dropout_args(rate, seed)
     if not q.is_cuda:
-        return patch_attention_dropout_plain(q, k, v, key_valid, scale, rate,
-                                             _plain_keep(q, rate, seed))
+        return patch_attention_dropout_fwd_plain(q, k, v, key_valid, scale,
+                                                 rate, seed)
     G, H, P, Dh = _check_attention("patch_attention_dropout", q, k, v,
                                    key_valid)
-    seed, thresh, inv_keep = _dropout_args(rate, seed)
     out = torch.empty_like(q)
+    lse = q.new_empty((G, H, P))
+    bits = torch.empty((G, H, P, (P + 31) // 32), dtype=torch.int32,
+                       device=q.device)
     cuda_lib.launch("patch_attention_dropout", "r3dl_attention_dropout_fwd",
                     q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                    key_valid.data_ptr(), out.data_ptr(), G, H, P, Dh,
-                    float(scale), seed, thresh, inv_keep)
-    return out
+                    key_valid.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                    bits.data_ptr(), G, H, P, Dh, float(scale), seed, thresh,
+                    inv_keep)
+    return out, lse, bits
 
 
-def patch_attention_dropout_bwd(q, k, v, key_valid, g, scale, rate, seed):
-    """(dq, dk, dv) of patch_attention_dropout for the cotangent g: K6 for
-    CUDA tensors (probabilities and mask regenerated from the seed), the
-    plain version with philox_keep_mask for CPU tensors."""
+def patch_attention_dropout_bwd(q, k, v, key_valid, out, lse, bits, g, scale,
+                                rate):
+    """(dq, dk, dv) of patch_attention_dropout for the cotangent g, from
+    what the forward returned: K6 for CUDA tensors, the plain version for
+    CPU tensors."""
     if not q.is_cuda:
         grads = patch_attention_dropout_bwd_plain(
-            q, k, v, key_valid, scale, rate, _plain_keep(q, rate, seed), g)
+            q, k, v, key_valid, out, lse, bits, g, scale, rate)
         return tuple(t.to(q.dtype) for t in grads)
     G, H, P, Dh = _check_attention("patch_attention_dropout_bwd", q, k, v,
-                                   key_valid, g)
-    seed, thresh, inv_keep = _dropout_args(rate, seed)
+                                   key_valid, out, g)
+    cuda_lib.check_cuda_tensor("patch_attention_dropout_bwd lse", lse,
+                               torch.float32, 3)
+    cuda_lib.check_cuda_tensor("patch_attention_dropout_bwd bits", bits,
+                               torch.int32, 4)
+    if tuple(lse.shape) != (G, H, P) or \
+            tuple(bits.shape) != (G, H, P, (P + 31) // 32):
+        raise ValueError(f"patch_attention_dropout_bwd: lse "
+                         f"{tuple(lse.shape)}, bits {tuple(bits.shape)}")
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     cuda_lib.launch("patch_attention_dropout_bwd",
                     "r3dl_attention_dropout_bwd", q.data_ptr(), k.data_ptr(),
-                    v.data_ptr(), key_valid.data_ptr(), g.data_ptr(),
+                    v.data_ptr(), key_valid.data_ptr(), out.data_ptr(),
+                    lse.data_ptr(), bits.data_ptr(), g.data_ptr(),
                     dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), G, H, P, Dh,
-                    float(scale), seed, thresh, inv_keep)
+                    float(scale), 1.0 / (1.0 - rate))
     return dq, dk, dv
 
 
 class _PatchAttentionDropout(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, key_valid, scale, rate, seed):
-        ctx.save_for_backward(q, k, v, key_valid)
-        ctx.args = (scale, rate, seed)
-        return _dropout_forward(q, k, v, key_valid, scale, rate, seed)
+        out, lse, bits = patch_attention_dropout_fwd(q, k, v, key_valid,
+                                                     scale, rate, seed)
+        ctx.save_for_backward(q, k, v, key_valid, out, lse, bits)
+        ctx.args = (scale, rate)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, key_valid = ctx.saved_tensors
-        scale, rate, seed = ctx.args
-        return (*patch_attention_dropout_bwd(q, k, v, key_valid,
-                                             g.contiguous(), scale, rate,
-                                             seed), None, None, None, None)
+        return (*patch_attention_dropout_bwd(*ctx.saved_tensors,
+                                             g.contiguous(), *ctx.args),
+                None, None, None, None)
 
 
 def patch_attention_dropout(q, k, v, key_valid, scale, rate, seed):

@@ -47,16 +47,14 @@ SIGNATURES = {
     "r3dl_scatter_smallc_add": _GATHER,
     # q, k, v, key_valid, out, G, H, P, Dh, scale, stream
     "r3dl_patch_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
-    # q, k, v, key_valid, out, G, H, P, Dh, scale, seed, thresh, inv_keep,
-    # stream
-    "r3dl_attention_dropout_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
-                                   _U, _U, _F, _P],
-    # q, k, v, key_valid, g, dq, dk, dv, G, H, P, Dh, scale, seed, thresh,
+    # q, k, v, key_valid, out, lse, bits, G, H, P, Dh, scale, seed, thresh,
     # inv_keep, stream
-    "r3dl_attention_dropout_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                   _I, _I, _F, _U, _U, _F, _P],
-    # keep, G, H, P, seed, thresh, stream
-    "r3dl_attention_dropout_mask": [_P, _I, _I, _I, _U, _U, _P],
+    "r3dl_attention_dropout_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                   _I, _F, _U, _U, _F, _P],
+    # q, k, v, key_valid, out, lse, bits, g, dq, dk, dv, G, H, P, Dh, scale,
+    # inv_keep, stream
+    "r3dl_attention_dropout_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                   _P, _I, _I, _I, _I, _F, _F, _P],
     # x, idx, ok, w, bias|NULL, out, B, N, K, Cin, Cout, stream
     "r3dl_subm_conv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # x, idx, ok, g, work|NULL, dw, B, N, K, Cin, Cout, splits,
@@ -67,13 +65,12 @@ SIGNATURES = {
     "r3dl_stem_conv": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
-# K1-K10 by wrapper name; the dropout-mask dump is a test entry point, not
-# a kernel of the training path
+# K1-K10 by wrapper name
 LAUNCHES = {"patch_attention": 0, "subm_conv": 0, "stem_conv": 0,
             "gather_rows": 0, "patch_attention_dropout": 0,
             "patch_attention_dropout_bwd": 0, "conv_weight_grad": 0,
             "scatter_rows_add": 0, "gather_rows_smallc": 0,
-            "scatter_rows_smallc_add": 0, "attention_dropout_mask": 0}
+            "scatter_rows_smallc_add": 0}
 
 _LIB = None
 _FNS = {}       # C entry point name -> its ctypes function object, bound once

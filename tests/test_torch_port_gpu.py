@@ -157,30 +157,73 @@ def test_launch_uses_the_current_stream(dev):
     assert torch.equal(got, gather.gather_rows_plain(x * 2.0, idx))
 
 
-@pytest.mark.parametrize("G,H,Dh,rate", [(16, 2, 32, 0.1), (4, 32, 24, 0.1),
-                                         (8, 4, 32, 0.0), (6, 2, 8, 0.5)])
-def test_k5_k6_attention_dropout(dev, G, H, Dh, rate):
-    """K5 and K6 against the plain versions fed the kernel's own mask
-    (written out by attention_dropout_mask), which must equal the PyTorch
-    Philox mask bit for bit."""
-    g = torch.Generator().manual_seed(5)
-    q, k, v, gout = (torch.randn(G, H, 128, Dh, generator=g).to(dev)
+def _check_rel(got, want):
+    """|got - want| <= 1e-4 * max|want|: gradients are held against their
+    own scale, which is far below 1 in training."""
+    got, want = got.detach(), want.detach()
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= TOL * float(want.abs().max())
+
+
+def _attn_dropout_inputs(dev, G, H, P, Dh, seed=5):
+    g = torch.Generator().manual_seed(seed)
+    q, k, v, gout = (torch.randn(G, H, P, Dh, generator=g).to(dev)
                      for _ in range(4))
-    kv = (torch.rand(G, 128, generator=g) > 0.2).to(dev)
-    kv[0] = False
-    seed, scale = 123456789, Dh ** -0.5
-    keep = attention.attention_dropout_mask(seed, G, H, 128, rate, dev)
-    assert torch.equal(keep.cpu(), attention.philox_keep_mask(
-        seed, G, H, 128, rate))
-    qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
-    out = attention.patch_attention_dropout(qr, kr, vr, kv, scale, rate, seed)
-    out.backward(gout)
-    _check(out, attention.patch_attention_dropout_plain(
-        q, k, v, kv, scale, rate, keep))
+    kv = (torch.rand(G, P, generator=g) > 0.2).to(dev)
+    kv[0] = False                      # no valid key: uniform weights
+    return q, k, v, kv, gout
+
+
+@pytest.mark.parametrize("Dh", [8, 16, 24, 32])
+@pytest.mark.parametrize("P", [128, 48, 37])
+@pytest.mark.parametrize("rate", [0.0, 0.1, 0.5])
+def test_k5_k6_attention_dropout(dev, rate, P, Dh):
+    """K5's out, lse and packed bits against its plain version (bits
+    bit-equal, and equal to philox_keep_mask); K6's dq, dk, dv from K5's
+    outputs against its plain version. Patch 0 has no valid key; P = 37
+    leaves ragged 8-row tiles and rows that start inside a generator
+    call."""
+    G, H, seed, scale = 6, 3, 123456789, Dh ** -0.5
+    q, k, v, kv, gout = _attn_dropout_inputs(dev, G, H, P, Dh)
+    out, lse, bits = attention.patch_attention_dropout_fwd(
+        q, k, v, kv, scale, rate, seed)
+    p_out, p_lse, p_bits = attention.patch_attention_dropout_fwd_plain(
+        q, k, v, kv, scale, rate, seed)
+    assert torch.equal(bits, p_bits)
+    assert torch.equal(attention.unpack_keep_bits(bits.cpu(), P),
+                       attention.philox_keep_mask(seed, G, H, P, rate))
+    _check(out, p_out)
+    assert bool((lse[0] == -1e9).all()) and bool((p_lse[0] == -1e9).all())
+    _check(lse[1:], p_lse[1:])
+    got = attention.patch_attention_dropout_bwd(
+        q, k, v, kv, out, lse, bits, gout, scale, rate)
     want = attention.patch_attention_dropout_bwd_plain(
-        q, k, v, kv, scale, rate, keep, gout)
+        q, k, v, kv, out, lse, bits, gout, scale, rate)
+    for a, b in zip(got, want):
+        _check_rel(a, b)
+
+
+def test_k5_k6_autograd_launches(dev):
+    """patch_attention_dropout's autograd path launches K5 once and K6
+    once, and its gradients are the recomputing plain backward's with
+    philox_keep_mask (an oracle that reads nothing K5 wrote)."""
+    G, H, P, Dh, rate, seed = 8, 4, 128, 32, 0.1, 99
+    q, k, v, kv, gout = _attn_dropout_inputs(dev, G, H, P, Dh, seed=8)
+    qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
+    cuda_lib.reset_launches()
+    out = attention.patch_attention_dropout(qr, kr, vr, kv, 0.2, rate, seed)
+    out.backward(gout)
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES["patch_attention_dropout"] == 1
+    assert cuda_lib.LAUNCHES["patch_attention_dropout_bwd"] == 1
+    keep = attention.philox_keep_mask(seed, G, H, P, rate, dev)
+    _check(out, attention.patch_attention_dropout_plain(
+        q, k, v, kv, 0.2, rate, keep))
+    want = attention.patch_attention_dropout_vjp_plain(
+        q, k, v, kv, 0.2, rate, keep, gout)
     for got, w in zip((qr.grad, kr.grad, vr.grad), want):
-        _check(got, w)
+        _check_rel(got, w)
 
 
 def test_k5_rate0_matches_k1(dev):

@@ -245,7 +245,7 @@ def test_attention_dropout_plain_matches_jax_kernel_math():
                                                   rate, keep)
     out.backward(T(g))
     _close(out, want[0], "out")
-    bwd = attention.patch_attention_dropout_bwd_plain(
+    bwd = attention.patch_attention_dropout_vjp_plain(
         T(q), T(k), T(v), T(kv), scale, rate, keep, T(g))
     for got, auto, w, name in zip(bwd, (qt.grad, kt.grad, vt.grad),
                                   want[1:], "qkv"):
