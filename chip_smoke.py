@@ -17,6 +17,12 @@ Phases, each of which raises on failure (exit code != 0, no result line):
              computes the same function, that call (CUDA events: median of
              21 rounds of 10 back-to-back calls, after 3 warm-up calls);
              K4's calls also read their device time from the profiler;
+             K2 (3xTF32 on the tensor cores) is also held bit-equal across
+             two launches, timed on the profiler, beside an im2col gather
+             + matmul (two PyTorch calls, for reference) and its bounds at
+             the TF32 and the fp32 SIMT rates, with each map's shares of
+             live (row, tap) pairs, of (64-row tile, tap) pairs a
+             whole-tap skip keeps and of pairs K2 multiplies;
   4. serving launch counters to 0, then 4 `predict` requests and one
              `predict_batch` of the same 4 observations (4 cameras of
              256 x 256 xyz/rgb, seeded tabletop scenes), counters read: each
@@ -54,14 +60,19 @@ Phases, each of which raises on failure (exit code != 0, no result line):
              step (CUDA events, median of 5 rounds of 2 calls after a
              warm-up call; K5/K6 also their profiler device time) beside
              the SDPA calls (the profiler names of the SDPA kernels
-             logged);
+             logged); K2's 9 forward and 9 mirrored dx launches and K7,
+             each bit-equal across two launches, timed (events and
+             profiler) against their plain versions and their TF32 and
+             fp32 SIMT bounds;
  10. step-check one step at dropout 0 with injected order permutations on
              each of CHECK_SLICES B = 2 slices of the same batch, the same
              weights, on the card and on the CPU (plain versions): losses,
              every updated parameter and running statistic, every
              gradient; a gradient that a max reduction picking different
              rows on the two devices (a near tie) can reach is not held on
-             that slice, and every gradient must be held on some slice;
+             that slice, and every gradient must be held on some slice; at
+             a leaky-ReLU pre-activation within 1e-4 max|z| of the kink
+             (a tie) the CPU follows the card's branch;
  11. entry     train_simple_policy.main on the card for ENTRY_STEPS steps
              (launch counters to 0 before, read after against the per-step
              counts; logged losses finite); the end-to-end training rate,
@@ -70,7 +81,8 @@ Then the 3D-LOTUS++ motion planner (release motion_planner_ptv3.yaml,
 seeded weights) behind the ground-truth pipeline (robot_pipeline_gt.yaml):
  12. mp-capture   one GroundtruthRobotPipeline.predict on a synthetic
              observation with gt_mask images (4096 points), recorders on the
-             K9 call sites (the stage-0 entry sort, the categorical stem);
+             K9 call sites (the stage-0 entry sort, the categorical stem)
+             and the convs (K2, held against its plain version in 14);
  13. mp-serving   launch counters to 0, 4 pipeline requests of one episode,
              each running the motion planner, counters read against
              MP_PER_FORWARD; MotionPlannerEngine.predict p50 with the host
@@ -85,11 +97,14 @@ seeded weights) behind the ground-truth pipeline (robot_pipeline_gt.yaml):
              K10 on the captured stem index with seeded cotangents at C = 5
              and C = 20 (<= 1e-4 * max|plain|); times, bounds, library calls
              (at the forward's B = 1 and, from one captured training step,
-             at B = 32);
+             at B = 32); K2 on the request's 9 captured calls (within
+             1e-4 * max(1, max|plain|), bit-equal across two launches);
  15. mp-train     train_motion_planner's trainer on synthetic_motion, B = 32
              clouds x 4096 points, release dropout: 5 steps with launch
              counts checked per step (MP_PER_STEP), step p50, clouds/s, peak
-             memory, a profiler window (profile_mp_train.txt);
+             memory, a profiler window (profile_mp_train.txt); then one
+             more step captured, whose 9 convs hold and time K2 (forward
+             and mirrored dx) and K7 per motion-planner step as phase 9;
  16. mp-step-check  phase 10 for the motion planner, on MP_CHECK_SLICES
              slices;
  17. mp-entry     train_motion_planner.main on the card for MP_ENTRY_STEPS
@@ -220,18 +235,20 @@ TRAIN_KERNELS = ("patch_attention_dropout", "patch_attention_dropout_bwd",
 CHECK_PERMS = [[2, 0, 3, 1], [1, 3, 0, 2], [3, 2, 1, 0], [0, 2, 1, 3],
                [2, 3, 0, 1]]
 GRAD_TOL = 1e-3   # card vs CPU gradients of the whole step, per tensor
-# B = 2 slices per step check, ~3-6 s of CPU each. The policy's first
-# four: on its slices 4 and 5 `act_proj_head.heatmap_mlp_fc1.weight`
-# differs by 0.88e-3 and 1.69e-3 whether K5/K6 or their plain versions
-# run on the card, an open fault outside the attention (ROADMAP.md §3)
-CHECK_SLICES = 4
+# B = 2 slices per step check, ~3-6 s of CPU each
+CHECK_SLICES = 6
 MP_CHECK_SLICES = 6
+# leaky-ReLU decisions the CPU run may take from the card: each at |z| <=
+# KINK_TOL max|z| (the devices' rows differ by ~1e-6 relative), at most
+# MAX_KINKS per slice
+KINK_TOL = 1e-5
+MAX_KINKS = 4
 # device kernels of a training step by name, first match wins
 DEVICE_GROUPS = [
     ("K9/K10 small-C gather", ("gather_smallc_kernel",
                                "scatter_smallc_add_kernel")),
-    ("K7 conv_weight_grad", ("conv_weight_grad_kernel", "sum_splits")),
-    ("K2 subm_conv", ("subm_conv_kernel",)),
+    ("K7 conv_weight_grad", ("wgrad_", "sum_splits")),
+    ("K2 subm_conv", ("subm_conv",)),
     ("K6 attention dropout bwd", ("attn_drop_bwd",)),
     ("K5 attention dropout fwd", ("attn_drop_fwd",)),
     ("K3 stem_conv", ("stem_conv",)),
@@ -244,6 +261,13 @@ DEVICE_GROUPS = [
     ("PyTorch scatter/gather/sort", ("scatter", "gather", "sort", "Sort",
                                      "index")),
 ]
+
+
+# K2 / K7: the kernel each wrapper call launches once, and the other
+# kernels of the same call (device_ms)
+K2_PROFILE = ("subm_conv_kernel", ("subm_conv_reduce",))
+K7_PROFILE = (("wgrad_tc_kernel", "wgrad_taps_kernel"),
+              ("wgrad_compact", "sum_splits"))
 
 
 def log(msg):
@@ -306,6 +330,8 @@ TRAIN_SITES = [(layers, "patch_attention_dropout", "attention"),
 # K9: the entry sort (gather.permute_rows_any) and the categorical stem
 SMALLC_SITES = [(gather, "gather_rows_smallc", "gather_rows_smallc"),
                 (sparse_conv, "gather_rows_smallc", "gather_rows_smallc")]
+# the motion planner's CPE convs (K2, K7)
+MP_CONV_SITES = [(sparse_conv, "subm_conv", "subm_conv")]
 
 
 def capture(run, sites):
@@ -346,14 +372,22 @@ def _sdpa(q, k, v, kv, scale):
         q, k, v, attn_mask=mask, scale=scale)
 
 
-def device_ms(fn, name, reps=10, windows=3):
-    """Device time per launch of the kernel whose profiler name contains
-    `name`, over `reps` calls of fn in one torch.profiler window (CUPTI),
-    after a warm-up call: the device's share of a call whose CUDA-event
-    time (cuda_ms) includes its host path. Divides by the launches the
-    profiler recorded: in a process that opens many windows it sometimes
-    records only some of them, or none, and then a new window is opened,
-    up to `windows`; None (not measured) if none recorded one."""
+def _named(events, names):
+    names = (names,) if isinstance(names, str) else names
+    return [e for e in events if any(n in e.key for n in names)]
+
+
+def device_ms(fn, name, reps=10, windows=3, also=()):
+    """Device time per call of fn, over `reps` calls in one torch.profiler
+    window (CUPTI), after a warm-up call: the device's share of a call
+    whose CUDA-event time (cuda_ms) includes its host path. `name` (a
+    string or a tuple) matches the profiler name of the kernel that each
+    call launches once; `also` other kernels of the same call (a
+    compaction, a split reduction), whose time is added. Divides by the
+    launches of `name` the profiler recorded: in a process that opens many
+    windows it sometimes records only some of them, or none, and then a new
+    window is opened, up to `windows`; None (not measured) if none recorded
+    one."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -363,11 +397,12 @@ def device_ms(fn, name, reps=10, windows=3):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        events = [e for e in _device_events(prof.key_averages())
-                  if name in e.key]
-        launches = sum(e.count for e in events)
+        events = _device_events(prof.key_averages())
+        launches = sum(e.count for e in _named(events, name))
         if launches:
-            return sum(_dev_us(e) for e in events) / 1e3 / launches
+            timed = _named(events, (name,) + tuple(also)
+                           if isinstance(name, str) else name + tuple(also))
+            return sum(_dev_us(e) for e in timed) / 1e3 / launches
     return None
 
 
@@ -427,11 +462,131 @@ def check_gather(kernel, args, timing=None):
             "bound_ms": bound_ms, "bytes_s": t_b, "flops_s": t_f}
 
 
+def _twice(run, what):
+    """Two launches on the same inputs, bit-equal (no atomics, a fixed
+    summation order); returns the first result."""
+    a, b = run(), run()
+    torch.cuda.synchronize()
+    if not torch.equal(a, b):
+        raise AssertionError(f"{what}: two launches on the same inputs "
+                             "differ")
+    return a
+
+
+def _im2col(x, idx, ok, w):
+    """For reference only, K2's product as two PyTorch calls: a dense
+    gather of all K taps (a zero row appended, dead links sent to it) and
+    one matmul, no bias; the padded x and the index are built here, outside
+    the timed call."""
+    B, N, Cin = x.shape
+    K, _, Cout = w.shape
+    x_pad = torch.cat([x, x.new_zeros(B, 1, Cin)], 1)
+    sel = torch.where(ok, idx.long(), N).reshape(B, N * K, 1).expand(
+        -1, -1, Cin)
+    w2 = w.reshape(K * Cin, Cout)
+    return lambda: torch.matmul(
+        torch.gather(x_pad, 1, sel).reshape(B, N, K * Cin), w2)
+
+
+def _conv_bytes(x, idx, w, cout):
+    """K2's bytes: x, the map (idx and ok), W and bias read once, the
+    output written once."""
+    B, N, _ = x.shape
+    return 4 * (x.numel() + w.numel() + B * N * cout + cout) + \
+        5 * idx.numel()
+
+
+def link_shares(ok, tile_rows=conv.CONV_ROWS, group=16, skip_rows=64):
+    """Work shares of one conv's (B, N, K) map. 'live': the (row, tap)
+    pairs with a link, of all B N K; 'tile_kept': the (skip_rows-row tile,
+    tap) pairs in which some row has a link, of all such pairs (what a
+    whole-tap skip per tile keeps, as the earlier SIMT K2 did);
+    'compacted': the (row, tap) pairs K2 multiplies, of all B N K: per
+    (tile_rows-row tile, tap) its live rows rounded up to `group` (the
+    mma's m)."""
+    B, N, K = ok.shape
+    okc = ok.to(torch.int32)
+
+    def per_tile(rows):
+        t = F.pad(okc, (0, 0, 0, -N % rows))
+        return t.reshape(B, -1, rows, K).sum(2)
+
+    kept = per_tile(skip_rows) > 0
+    comp = -(-per_tile(tile_rows) // group) * group
+    total = max(B * N * K, 1)
+    return {"live": int(okc.sum()) / total,
+            "tile_kept": int(kept.sum()) / max(kept.numel(), 1),
+            "compacted": int(comp.sum()) / total}
+
+
+def _shares(results):
+    """The work shares (link_shares) of several calls, weighted by
+    their (row, tap) pairs."""
+    pairs = sum(r["pairs"] for r in results)
+    return {k: sum(r["shares"][k] * r["pairs"] for r in results) / pairs
+            for k in results[0]["shares"]}
+
+
+def check_conv(args, timed=True):
+    """K2 on one captured forward call: within TOL * max(1, max|plain|)
+    of its plain version, bit-equal across two launches, its map's work
+    shares (link_shares); if `timed`, its event and profiler device
+    times, the plain version's, the im2col gather + matmul reference (two
+    PyTorch calls, no single one computes K2), and its bounds: bytes
+    against 3 x the live-link flops at the TF32 rate (its products run on
+    the tensor cores as 3xTF32), the fp32 SIMT bound beside it."""
+    x, idx, ok, w, bias = args
+    run = lambda: conv.subm_conv(x, idx, ok, w, bias)  # noqa: E731
+    plain = lambda: conv.subm_conv_plain(x, idx, ok, w, bias)  # noqa
+    B, N, Cin = x.shape
+    K, _, Cout = w.shape
+    shape = [B, N, K, Cin, Cout]
+    got = _twice(run, f"K2 {shape}")
+    want = plain()
+    err = float((got - want).abs().max())
+    scale_ref = max(1.0, float(want.abs().max()))
+    if not bool(torch.isfinite(got).all()) or err > TOL * scale_ref:
+        raise AssertionError(f"K2 {shape}: max |kernel - plain| = {err} > "
+                             f"{TOL} * {scale_ref}")
+    out = {"shape": shape, "max_abs_err": err, "max_rel_err": err / scale_ref,
+           "shares": link_shares(ok), "pairs": B * N * K,
+           "tap_splits": conv.conv_tap_splits(B, N, K, Cout)}
+    if not timed:
+        return out
+    nbytes = _conv_bytes(x, idx, w, Cout)
+    flops = 2 * Cin * Cout * int(ok.sum())      # this cloud's live links
+    bound_ms, t_b, t_f = _bound(nbytes, 3 * flops, TF32_FLOPS_PER_S)
+    return {**out, "ms": cuda_ms(run),
+            "device_ms": device_ms(run, K2_PROFILE[0], also=K2_PROFILE[1]),
+            "plain_ms": cuda_ms(plain), "library_ms": None,
+            "im2col_matmul_ms": cuda_ms(_im2col(x, idx, ok, w)),
+            "bound_ms": bound_ms, "bytes_s": t_b, "flops_s": t_f,
+            "fp32_bound_ms": _bound(nbytes, flops)[0]}
+
+
+def log_conv(tag, label, r):
+    """One line per K2 or K7 call: shape, shares and, if timed, times."""
+    sh = r["shares"]
+    times = "" if "ms" not in r else (
+        f"; {r['ms']:.4f} ms (device {r['device_ms']}; plain "
+        f"{r['plain_ms']:.4f}"
+        + (f", im2col gather + matmul {r['im2col_matmul_ms']:.4f}"
+           if "im2col_matmul_ms" in r else "")
+        + f"; bound {r['bound_ms']:.4f} TF32, {r['fp32_bound_ms']:.4f} "
+        f"fp32 SIMT)")
+    log(f"[{tag}] {label} {r['shape']}: live (row, tap) pairs "
+        f"{sh['live']:.4f}, (64-row tile, tap) pairs a whole-tap skip keeps "
+        f"{sh['tile_kept']:.4f}, pairs multiplied {sh['compacted']:.4f}; "
+        f"max_abs_err {r['max_abs_err']:.3g}{times}")
+
+
 def check_call(kernel, args, timed=True):
     """One captured call: error vs plain and, if `timed`, times and
     bound."""
     if kernel == "gather_rows":
         return check_gather(kernel, args, {} if timed else None)
+    if kernel == "subm_conv":
+        return check_conv(args, timed)
     if kernel == "patch_attention":
         q, k, v, kv, scale = args
         run = lambda: attention.patch_attention(q, k, v, kv, scale)  # noqa
@@ -441,15 +596,10 @@ def check_call(kernel, args, timed=True):
         shape = [G, H, P, Dh]
         nbytes = 4 * 4 * q.numel() + kv.numel()
         flops = 4 * G * H * P * P * Dh
-    elif kernel in ("subm_conv", "stem_conv"):
-        x, idx, ok, w = args[:4]
-        if kernel == "subm_conv":
-            bias = args[4]
-            run = lambda: conv.subm_conv(x, idx, ok, w, bias)  # noqa
-            plain = lambda: conv.subm_conv_plain(x, idx, ok, w, bias)  # noqa
-        else:
-            run = lambda: stem.stem_conv(x, idx, ok, w)  # noqa: E731
-            plain = lambda: stem.stem_conv_plain(x, idx, ok, w)  # noqa
+    elif kernel == "stem_conv":
+        x, idx, ok, w = args
+        run = lambda: stem.stem_conv(x, idx, ok, w)  # noqa: E731
+        plain = lambda: stem.stem_conv_plain(x, idx, ok, w)  # noqa
         library = None
         B, N, Cin = x.shape
         K, _, Cout = w.shape
@@ -504,6 +654,23 @@ def kernel_phase(captured, captured_batch):
             f"{rows[kernel]['ms']:.4f} ms (plain "
             f"{rows[kernel]['plain_ms']:.4f}, bound "
             f"{rows[kernel]['bound_ms']:.4f})")
+    k2 = [r for r in detail if r["name"] == "subm_conv"]
+    k2_b1 = [r for r in k2 if "ms" in r]
+    for r in k2_b1:
+        log_conv("kernels", "K2 per forward, call", r)
+    rows["subm_conv"].update(
+        fp32_bound_ms=sum(r["fp32_bound_ms"] for r in k2_b1),
+        device_ms=_total(r["device_ms"] for r in k2_b1),
+        im2col_matmul_ms=sum(r["im2col_matmul_ms"] for r in k2_b1),
+        shares=_shares(k2_b1),
+        batch4_shares=_shares([r for r in k2 if "ms" not in r]))
+    log(f"[kernels] K2 per forward: {rows['subm_conv']['ms']:.4f} ms "
+        f"(device {rows['subm_conv']['device_ms']}; plain "
+        f"{rows['subm_conv']['plain_ms']:.4f}; im2col gather + matmul "
+        f"{rows['subm_conv']['im2col_matmul_ms']:.4f}; bound "
+        f"{rows['subm_conv']['bound_ms']:.4f} TF32, "
+        f"{rows['subm_conv']['fp32_bound_ms']:.4f} fp32 SIMT); shares "
+        f"{rows['subm_conv']['shares']}")
     rows["gather_rows"]["device_ms"] = _total(
         r["device_ms"] for r in detail if r["name"] == "gather_rows"
         and "device_ms" in r)
@@ -859,16 +1026,17 @@ def _timed(run, plain, library, nbytes, flops):
             "bound_ms": bound_ms, "bytes_s": t_b, "flops_s": t_f}
 
 
-def _timed_tc(run, plain, library, nbytes, flops, name):
+def _timed_tc(run, plain, library, nbytes, flops, name, also=()):
     """_timed for a kernel whose products run on the tensor cores as
     3xTF32: bound_ms is the bytes against 3 * flops at the TF32 rate;
     fp32_bound_ms the bytes against flops at the fp32 SIMT rate (the
-    bound of every other row); device_ms from the profiler."""
+    bound of the SIMT kernels' rows); device_ms from the profiler (`name`
+    and `also` as device_ms takes them)."""
     bound_ms, t_b, t_f = _bound(nbytes, 3 * flops, TF32_FLOPS_PER_S)
     return dict(_timed(run, plain, library, nbytes, flops),
                 bound_ms=bound_ms, bytes_s=t_b, flops_s=t_f,
                 fp32_bound_ms=_bound(nbytes, flops)[0],
-                device_ms=device_ms(run, name, reps=4))
+                device_ms=device_ms(run, name, reps=4, also=also))
 
 
 def _kernel_names(fn):
@@ -953,41 +1121,57 @@ def check_weight_grad(call):
     K, cin, cout = w.shape
     run = lambda: conv.conv_weight_grad(x, idx, ok, g)  # noqa: E731
     plain = lambda: conv.conv_weight_grad_plain(x, idx, ok, g)  # noqa
-    err = _err(run(), plain(), f"K7 {[K, cin, cout]}")
+    shape = list(x.shape[:2]) + [K, cin, cout]
+    err = _err(_twice(run, f"K7 {shape}"), plain(), f"K7 {shape}")
     nbytes = 4 * (x.numel() + g.numel() + w.numel()) + 5 * idx.numel()
-    return dict(_timed(run, plain, None, nbytes,
-                       2 * cin * cout * int(ok.sum())),
-                max_abs_err=err, shape=list(x.shape[:2]) + [K, cin, cout])
+    return dict(_timed_tc(run, plain, None, nbytes,
+                          2 * cin * cout * int(ok.sum()), *K7_PROFILE),
+                max_abs_err=err, shape=shape, shares=link_shares(ok),
+                pairs=ok.numel(),
+                splits=conv.weight_grad_plan(*shape)[0])
 
 
 def check_conv_dx(call):
     """The conv backward's dx (K8 onto voxel owners, then K2 with the
     mirrored weight) against the exact adjoint (autograd of
-    subm_conv_plain) on every row, and the mirrored K2 against its plain
-    version. Returns the row and the K8 result of the owner scatter."""
+    subm_conv_plain) on every row; then the conv's two K2 launches of a
+    training step, the forward and the mirrored weight on the owner sums,
+    each against its plain version, bit-equal across two launches, and
+    timed. Returns the dx row, the K8 result of the owner scatter and the
+    two K2 results."""
     (x, idx, ok, w, bias), g = call
-    wm = conv.mirror_weight(w)
-    e_k2 = _err(conv.subm_conv(g, idx, ok, wm),
-                conv.subm_conv_plain(g, idx, ok, wm), "mirrored K2")
+    B, N, cin = x.shape
+    cout = w.shape[-1]
+    shape = [B, N, idx.shape[-1], cin, cout]
     xr = x.clone().requires_grad_()
     exact = torch.autograd.grad(conv.subm_conv_plain(xr, idx, ok, w), xr,
                                 g)[0]
     e_dx = _err(conv.conv_input_grad(g, idx, ok, w), exact,
                 "conv dx vs the exact adjoint")
+    del xr, exact
     centre = idx.shape[-1] // 2
     owner = idx[..., centre]
     gv = torch.where(ok[..., centre, None], g, torch.zeros_like(g))
     k8 = check_scatter_add(((gv, owner), gv))
-    # K2's bound at this training shape: its forward and its mirrored dx
-    # launch, each over this batch's live links
-    B, N, cin = x.shape
-    cout = w.shape[-1]
+    # K2's two launches of this conv in the step, timed on their inputs:
+    # the forward, and the mirrored weight on the owner sums (the dx)
+    gsum = gather.scatter_rows_add(gv, owner, N)
+    wm = conv.mirror_weight(w)
     flops = 2 * cin * cout * int(ok.sum())
-    bound = sum(_bound(4 * (B * N * (a + b) + w.numel() + b) +
-                       5 * idx.numel(), flops)[0]
-                for a, b in ((cin, cout), (cout, cin)))
+    k2 = []
+    for what, args, c_out in (("K2", (x, idx, ok, w, bias), cout),
+                              ("mirrored K2", (gsum, idx, ok, wm), cin)):
+        run = lambda a=args: conv.subm_conv(*a)  # noqa: E731
+        plain = lambda a=args: conv.subm_conv_plain(*a)  # noqa: E731
+        err = _err(_twice(run, f"{what} {shape}"), plain(),
+                   f"{what} {shape}")
+        k2.append(dict(_timed_tc(run, plain, None,
+                                 _conv_bytes(args[0], idx, args[3], c_out),
+                                 flops, *K2_PROFILE),
+                       max_abs_err=err, shape=shape,
+                       shares=link_shares(ok), pairs=ok.numel()))
     return {"shape": list(x.shape) + [cout], "max_abs_err": e_dx,
-            "mirrored_k2_err": e_k2, "k2_fwd_dx_bound_ms": bound}, k8
+            "mirrored_k2_err": k2[1]["max_abs_err"]}, k8, k2
 
 
 def _index_add(g, idx, n):
@@ -1051,11 +1235,15 @@ def train_kernel_phase(captured):
         f"{k4_row['ms']:.4f} ms ({k4_row['device_ms']} ms on the device; "
         f"plain {k4_row['plain_ms']:.4f}, bound {k4_row['bound_ms']:.4f}, "
         f"library {k4_row['library_ms']:.4f})")
-    conv_dx = []
+    conv_dx, k2 = [], []
     for c in convs:
-        row, k8 = check_conv_dx(c)
+        row, k8, k2_calls = check_conv_dx(c)
         conv_dx.append(row)
+        k2 += k2_calls
         res["scatter_rows_add"].append(k8)
+    for r in res["conv_weight_grad"]:
+        log_conv("train-kernels", "K7 per training step, call", r)
+    k2_row = conv_step_row("train-kernels", "K2 per training step", k2)
     rows = {}
     for name, rs in res.items():
         rows[name] = _row(rs)
@@ -1078,11 +1266,90 @@ def train_kernel_phase(captured):
     log(f"[train-kernels] conv dx (K8 + mirrored K2) vs the exact adjoint: "
         f"max err {max(m['max_abs_err'] for m in conv_dx):.3g}; mirrored K2 "
         f"vs plain {max(m['mirrored_k2_err'] for m in conv_dx):.3g}")
-    k2_bound = sum(m["k2_fwd_dx_bound_ms"] for m in conv_dx)
-    log(f"[train-kernels] K2 bound per training step (9 forward + 9 dx "
-        f"over live links): {k2_bound:.4f} ms")
-    return rows, k4_row, {"calls": dict(res, gather_rows=k4),
-                          "conv_dx": conv_dx, "k2_step_bound_ms": k2_bound}
+    rows["conv_weight_grad"]["shares"] = _shares(res["conv_weight_grad"])
+    return rows, k4_row, k2_row, {"calls": dict(res, gather_rows=k4,
+                                                subm_conv=k2),
+                                  "conv_dx": conv_dx}
+
+
+def conv_step_row(tag, label, calls):
+    """The row of K2's 9 forward + 9 mirrored dx launches of one training
+    step (sums over the calls), logged per call and in total."""
+    for i, r in enumerate(calls):
+        log_conv(tag, f"{label}, {'forward' if i % 2 == 0 else 'dx'}", r)
+    row = dict(_row(calls), launches_per_step=len(calls),
+               shares=_shares(calls))
+    for key in ("fp32_bound_ms", "device_ms"):
+        row[key] = _total(r[key] for r in calls)
+    log(f"[{tag}] {label}: {len(calls)} launches, {row['ms']:.4f} ms "
+        f"(device {row['device_ms']}; plain {row['plain_ms']:.4f}; bound "
+        f"{row['bound_ms']:.4f} TF32, {row['fp32_bound_ms']:.4f} fp32 SIMT)"
+        f"; shares {row['shares']}")
+    return row
+
+
+class LeakyReluDecisions:
+    """Leaky-ReLU decisions recorded on one device and followed on another,
+    around one step (patches F.leaky_relu).
+
+    A leaky ReLU is max(z, s z): its gradient is 1 or s (0.02 in the action
+    heads) by the sign of z. Where a pre-activation lies within rounding of
+    0, the card and the CPU, which round the layers before it differently
+    (~1e-6 relative), can take different branches, and that element's
+    gradient then differs by 1 / s: a near tie, like two rows of a max
+    reduction within rounding of each other. One such element moves the
+    weight gradient of the layer before the kink past GRAD_TOL.
+
+    follow=None: record each call's decisions (z > 0), in call order.
+    follow=decisions of another run of the same step: keep this run's
+    forward values but take the gradient of the recorded branch where the
+    two differ, provided the element is a tie (|z| <= tol of the call's
+    max|z|) and at most `limit` elements are followed in all; anything
+    else raises. `forced` counts the followed elements, `worst` is their
+    largest |z| over their call's max|z|."""
+
+    def __init__(self, follow=None, tol=KINK_TOL, limit=MAX_KINKS):
+        self.follow, self.tol, self.limit = follow, tol, limit
+        self.decisions, self.forced, self.worst = [], 0, 0.0
+        self._leaky = None
+
+    def __enter__(self):
+        self._leaky = F.leaky_relu
+        F.leaky_relu = self._call
+        return self
+
+    def __exit__(self, *exc):
+        F.leaky_relu = self._leaky
+
+    def _call(self, z, negative_slope=0.01, inplace=False):
+        if inplace:
+            raise ValueError("LeakyReluDecisions: in-place leaky ReLU")
+        out = self._leaky(z, negative_slope)
+        pos = (z > 0).detach()
+        i = len(self.decisions)
+        self.decisions.append(pos.cpu())
+        if self.follow is None:
+            return out
+        if i >= len(self.follow) or self.follow[i].shape != pos.shape:
+            raise ValueError(f"leaky ReLU call {i}: no recorded decisions "
+                             f"of shape {tuple(pos.shape)} to follow")
+        want = self.follow[i].to(pos.device)
+        differ = want != pos
+        if not bool(differ.any()):
+            return out
+        za = z.detach().abs()
+        rel = float(za[differ].max()) / max(float(za.max()), 1e-30)
+        if rel > self.tol:
+            raise ValueError(f"leaky ReLU call {i}: decisions differ at |z| "
+                             f"= {rel:.3g} of max|z|, not a tie")
+        self.forced += int(differ.sum())
+        if self.forced > self.limit:
+            raise ValueError(f"leaky ReLU call {i}: {self.forced} decisions "
+                             f"followed, more than {self.limit}")
+        self.worst = max(self.worst, rel)
+        branch = torch.where(want, z, negative_slope * z)
+        # the forward value of this run, the gradient of the followed branch
+        return out.detach() + (branch - branch.detach())
 
 
 def _record_max_decisions(model):
@@ -1137,10 +1404,11 @@ def _record_max_decisions(model):
     return rec, spans, handles
 
 
-def _one_step(cfg, loss_fn, batch, dev):
+def _one_step(cfg, loss_fn, batch, dev, follow=None):
     """One dropout-0 step with the injected permutations; the losses, the
-    gradients, the updated state, the max decisions and the module spans,
-    on the host."""
+    gradients, the updated state, the max decisions, the module spans, the
+    seconds and the leaky-ReLU decisions (LeakyReluDecisions: recorded, or
+    with `follow` the recorded ones followed at ties), on the host."""
     act_cfg = dict(cfg.MODEL.action_config, pos_heatmap_type=cfg.TRAIN_DATASET
                    .get("pos_heatmap_type", "dist"))
     loss_cfg = dict(cfg.MODEL.loss_config)
@@ -1150,13 +1418,14 @@ def _one_step(cfg, loss_fn, batch, dev):
                       opt, Randomness(0, dev, perms=CHECK_PERMS))
     decisions, spans, handles = _record_max_decisions(model)
     t0 = time.perf_counter()
-    losses = _losses(trainer.step(batch_to_device(batch, dev)))
+    with LeakyReluDecisions(follow) as kinks:
+        losses = _losses(trainer.step(batch_to_device(batch, dev)))
     seconds = time.perf_counter() - t0
     for h in handles:
         h.remove()
     grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
     state = {n: t.detach().cpu() for n, t in model.state_dict().items()}
-    return losses, grads, state, decisions, spans, seconds
+    return losses, grads, state, decisions, spans, seconds, kinks
 
 
 def _module_start(spans, leaf):
@@ -1185,21 +1454,33 @@ def step_check_phase(host_batch, config=train_config, loss_fn=compute_loss,
     still holds the gradient of every module that first starts after the
     last such reduction has ended (no backward through a differing
     decision reaches it), and reports the worst of the rest. Every gradient
-    must be held on at least one slice."""
+    must be held on at least one slice.
+
+    A leaky ReLU (the action heads) is max(z, 0.02 z): a pre-activation
+    within rounding of 0 takes the other branch on the other device and
+    moves that element's gradient 50-fold, which moved
+    `act_proj_head.heatmap_mlp_fc1.weight` by up to 1.7e-3. The CPU run
+    follows the card's leaky-ReLU decisions where they differ and the
+    element is a tie (|z| <= KINK_TOL max|z|, at most MAX_KINKS elements;
+    LeakyReluDecisions raises otherwise), keeping its own forward
+    values."""
     cfg = config("MODEL.ptv3_config.attn_drop", "0.0",
                  "MODEL.ptv3_config.proj_drop", "0.0",
                  "MODEL.action_config.dropout", "0.0")
     rows, held_somewhere = [], set()
     for i in range(slices):
         batch = {k: v[2 * i:2 * i + 2] for k, v in host_batch.items()}
-        lc, gc, sc, dc, spans, tc = _one_step(cfg, loss_fn, batch, "cuda")
-        lr, gr, sr, dr, _, tr = _one_step(cfg, loss_fn, batch, "cpu")
+        lc, gc, sc, dc, spans, tc, kc = _one_step(cfg, loss_fn, batch,
+                                                  "cuda")
+        lr, gr, sr, dr, _, tr, kr = _one_step(cfg, loss_fn, batch, "cpu",
+                                              kc.decisions)
         differ = {}
         for (name, a), (_, b) in zip(dc, dr):
             if (a != b).any():
                 differ[name] = differ.get(name, 0) + int((a != b).sum())
         row = {"slice": i, "max_decisions": sum(d.numel() for _, d in dr),
-               "differing": differ, "losses_card": lc, "losses_cpu": lr,
+               "differing": differ, "kinks_followed": kr.forced,
+               "kink_worst": kr.worst, "losses_card": lc, "losses_cpu": lr,
                "loss": max(abs(lc[k] - lr[k]) / max(1.0, abs(lr[k]))
                            for k in lr)}
         if row["loss"] > TOL:
@@ -1235,7 +1516,9 @@ def step_check_phase(host_batch, config=train_config, loss_fn=compute_loss,
             *row["grad_rel_not_held"]))
         log(f"[{tag}] B=2 (slice {i}), dropout 0, injected permutations: "
             f"{row['max_decisions']} max decisions, differing between card "
-            f"and CPU {differ or 'on none'}; losses card {lc} vs CPU {lr}; "
+            f"and CPU {differ or 'on none'}; leaky-ReLU ties followed "
+            f"{kr.forced} (|z| <= {kr.worst:.3g} max|z|); losses card {lc} "
+            f"vs CPU {lr}; "
             f"worst relative errors: loss {row['loss']:.3g}, state "
             f"{row['state']:.3g}, {len(held)} of {len(gr)} gradients held "
             f"{row['grad_rel']:.3g}, the rest {rest} (card {tc:.2f} s, "
@@ -1529,11 +1812,56 @@ def mp_kernel_phase(captured_fwd, captured_step):
     return rows, detail
 
 
+def mp_forward_k2(calls):
+    """K2 on the captured calls of one pipeline request (B = 1), each
+    checked as check_conv does; run right after the capture, so that the
+    copies are freed before the training phases measure peak memory."""
+    if len(calls) != MP_PER_FORWARD["subm_conv"]:
+        raise AssertionError(f"captured {len(calls)} K2 calls in a pipeline "
+                             "request")
+    res = [check_conv(args, timed=False) for args, _ in calls]
+    for r in res:
+        log_conv("mp-kernels", "K2 per pipeline request, call", r)
+    return res
+
+
+def mp_conv_phase(captured):
+    """K2 (9 forward + 9 mirrored dx launches) and K7 (the 9 CPE convs) on
+    the calls of one captured motion-planner training step at B = 32,
+    checked and timed as the policy's (check_conv_dx, check_weight_grad);
+    returns the K2 and K7 rows per step and the detail."""
+    convs = [c for c in captured["subm_conv"] if c[1] is not None]
+    if len(convs) != 9:
+        raise AssertionError(f"captured {len(convs)} motion-planner conv "
+                             "calls with a cotangent, expected 9")
+    k2, k7, dx = [], [], []
+    for c in convs:
+        row, _, calls = check_conv_dx(c)
+        dx.append(row)
+        k2 += calls
+        k7.append(check_weight_grad(c))
+    k2_row = conv_step_row("mp-kernels", "K2 per MP training step", k2)
+    for r in k7:
+        log_conv("mp-kernels", "K7 per MP training step, call", r)
+    k7_row = dict(_row(k7), shares=_shares(k7), launches_per_step=len(k7))
+    for key in ("fp32_bound_ms", "device_ms"):
+        k7_row[key] = _total(r[key] for r in k7)
+    log(f"[mp-kernels] K7 per MP training step: {k7_row['ms']:.4f} ms "
+        f"(device {k7_row['device_ms']}; plain {k7_row['plain_ms']:.4f}; "
+        f"bound {k7_row['bound_ms']:.4f} TF32, {k7_row['fp32_bound_ms']:.4f} "
+        f"fp32 SIMT); conv dx vs the exact adjoint: max err "
+        f"{max(m['max_abs_err'] for m in dx):.3g}")
+    return k2_row, k7_row, {"subm_conv": k2, "conv_weight_grad": k7,
+                            "conv_dx": dx}
+
+
 def mp_training(out_dir):
     """The motion planner's trainer on synthetic_motion (B = 32 x 4096,
     release dropout): one captured step (K9 inputs at B = 32), 5 counted
-    steps and a profiler window; returns the phase, its launches, the
-    capture and a host batch for the step check."""
+    steps and a profiler window, then one more captured step (the convs'
+    inputs and cotangents: captured after the counted steps, so that
+    their copies stay out of the peak memory); returns the phase, its
+    launches, the captures and a host batch for the step check."""
     t0 = time.perf_counter()
     trainer, batches, _ = build_trainer(mp_config(), train_motion_planner.SPEC,
                                         device="cuda")
@@ -1548,6 +1876,9 @@ def mp_training(out_dir):
                                         MP_PER_STEP, "profile_mp_train.txt",
                                         "mp-train")
     training["host_batch_ms"] = data_ms
+    captured.update(capture(
+        lambda: trainer.step(batch_to_device(host[0], "cuda")),
+        MP_CONV_SITES))
     del trainer
     return training, launches, captured, host[0]
 
@@ -1603,8 +1934,10 @@ def main():
     training, train_launches = training_phase(trainer, host[1:], out_dir)
     training["host_batch_ms"] = data_ms
     del trainer
-    train_rows, k4_step, train_detail = train_kernel_phase(captured)
+    train_rows, k4_step, k2_step, train_detail = train_kernel_phase(
+        captured)
     rows["gather_rows"]["train_step"] = k4_step
+    rows["subm_conv"]["train_step"] = k2_step
     del captured
     step_check = step_check_phase(host[0])
     entry = entry_phase()
@@ -1618,7 +1951,8 @@ def main():
         f"in {time.perf_counter() - t0:.2f} s")
     mp_obs = [synthetic_observation(200 + i) for i in range(MP_REQUESTS)]
     mp_fwd_captured = capture(lambda: mp_episode(pipe, mp_obs[:1], 0),
-                              SMALLC_SITES)
+                              SMALLC_SITES + MP_CONV_SITES)
+    mp_fwd_k2 = mp_forward_k2(mp_fwd_captured.pop("subm_conv"))
     mp_serving, mp_row = mp_serving_phase(pipe, mp_obs, out_dir)
     mp_serving["reference_max_diff"] = mp_reference_phase(engine, mp_row)
     del engine, pipe
@@ -1626,6 +1960,8 @@ def main():
     mp_train, mp_train_launches, mp_step_captured, mp_host = \
         mp_training(out_dir)
     mp_rows, mp_detail = mp_kernel_phase(mp_fwd_captured, mp_step_captured)
+    mp_k2, mp_k7, mp_detail["conv_step"] = mp_conv_phase(mp_step_captured)
+    mp_detail["conv_forward"] = mp_fwd_k2
     del mp_fwd_captured, mp_step_captured
     torch.cuda.empty_cache()
     mp_step_check = step_check_phase(mp_host, mp_config, compute_mp_loss,
@@ -1650,6 +1986,8 @@ def main():
     # has every run's count for every kernel
     rows.update(train_rows)
     rows.update(mp_rows)
+    rows["subm_conv"]["mp_train_step"] = mp_k2
+    rows["conv_weight_grad"]["mp_train_step"] = mp_k7
     paths = {"serving": serving["launches"], "training": train_launches,
              "mp_serving": mp_serving["launches"],
              "mp_training": mp_train_launches}

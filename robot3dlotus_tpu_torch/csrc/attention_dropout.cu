@@ -33,9 +33,9 @@
 // Design: one block of 8 warps owns one whole (g, h) patch (P <= 128), so
 // nothing crosses blocks and there are no atomics. Every product is
 // mma.sync.m16n8k8 TF32 with each fp32 operand split as x = big + small
-// (big = tf32(x), small = tf32(x - big)) and big*big + big*small +
-// small*big summed in fp32 (CUTLASS's OpMultiplyAddFastF32 scheme): errors
-// at the fp32 level, where one TF32 product would miss the 1e-4 bar. A
+// and big*big + big*small + small*big summed in fp32 (tc_common.cuh, as in
+// the conv kernels): errors at the fp32 level, where one TF32 product
+// would miss the 1e-4 bar. A
 // C fragment of one product is the A fragment of the next with no
 // shuffle: the k index of an 8-wide step is permuted so that A column t is
 // element 2t and column t + 4 is element 2t + 1, which is where the
@@ -63,7 +63,12 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "tc_common.cuh"
+
 namespace {
+
+using r3dl::Split;
+using r3dl::split;
 
 constexpr int kMaxP = 128;
 constexpr int kWarps = 8;                 // 8 warps x 16 rows = kMaxP
@@ -126,53 +131,21 @@ __device__ uint32_t keep_word(int i, int j0, int n, int P, uint32_t seed,
   return word;
 }
 
-// ---- 3xTF32 mma.sync.m16n8k8 ----
-
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-
-__device__ __forceinline__ void split(float x, uint32_t& big,
-                                      uint32_t& small) {
-  big = to_tf32(x);
-  small = to_tf32(x - __uint_as_float(big));
-}
+// ---- 3xTF32 mma.sync.m16n8k8 (tc_common.cuh) ----
 
 // An A fragment (16 x 8) split once, used against several B fragments.
 struct FragA {
-  uint32_t big[4], small[4];
-  __device__ __forceinline__ FragA(float a0, float a1, float a2, float a3) {
-    split(a0, big[0], small[0]);
-    split(a1, big[1], small[1]);
-    split(a2, big[2], small[2]);
-    split(a3, big[3], small[3]);
-  }
+  Split s[4];
+  __device__ __forceinline__ FragA(float a0, float a1, float a2, float a3)
+      : s{split(a0), split(a1), split(a2), split(a3)} {}
 };
 
-__device__ __forceinline__ void mma_tf32(float (&d)[4],
-                                         const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a b in 3xTF32; b0, b1: this lane's B fragment in fp32.
-// A fragment (row, col): a0 (r, c), a1 (r + 8, c), a2 (r, c + 4),
-// a3 (r + 8, c + 4) with r = lane / 4, c = lane % 4; B: b0 (c, r),
-// b1 (c + 4, r); C: d0 (r, 2c), d1 (r, 2c + 1), d2 (r + 8, 2c),
-// d3 (r + 8, 2c + 1).
+// d += a b in 3xTF32; b0, b1: this lane's B fragment in fp32 (the
+// fragment layouts are in tc_common.cuh).
 __device__ __forceinline__ void mma3(float (&d)[4], const FragA& a, float b0,
                                      float b1) {
-  uint32_t bb0, bs0, bb1, bs1;
-  split(b0, bb0, bs0);
-  split(b1, bb1, bs1);
-  mma_tf32(d, a.small, bb0, bb1);
-  mma_tf32(d, a.big, bs0, bs1);
-  mma_tf32(d, a.big, bb0, bb1);
+  const Split b[2] = {split(b0), split(b1)};
+  r3dl::mma3(d, a.s, b);
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -555,18 +528,6 @@ attn_drop_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// Dynamic shared memory above 48 KB, and the largest shared-memory
-// carveout, so that two blocks fit on an SM.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t smem) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-      (int)cudaSharedmemCarveoutMaxShared);
-  if (err != cudaSuccess || smem <= 48 * 1024) return err;
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-}
-
 template <int Dh>
 int launch_fwd(const float* q, const float* k, const float* v,
                const unsigned char* kv, float* out, float* lse,
@@ -574,7 +535,7 @@ int launch_fwd(const float* q, const float* k, const float* v,
                uint32_t seed, uint32_t thresh, float inv_keep,
                cudaStream_t stream) {
   static const cudaError_t attr =
-      allow_smem(attn_drop_fwd_kernel<Dh>, fwd_smem<Dh>());
+      r3dl::allow_smem(attn_drop_fwd_kernel<Dh>, fwd_smem<Dh>());
   if (attr != cudaSuccess) return (int)attr;
   attn_drop_fwd_kernel<Dh><<<(unsigned)((long long)G * H), kThreads,
                              fwd_smem<Dh>(), stream>>>(
@@ -589,7 +550,7 @@ int launch_bwd(const float* q, const float* k, const float* v,
                float* dv, int G, int H, int P, float scale, float inv_keep,
                cudaStream_t stream) {
   static const cudaError_t attr =
-      allow_smem(attn_drop_bwd_kernel<Dh>, bwd_smem<Dh>());
+      r3dl::allow_smem(attn_drop_bwd_kernel<Dh>, bwd_smem<Dh>());
   if (attr != cudaSuccess) return (int)attr;
   attn_drop_bwd_kernel<Dh><<<(unsigned)((long long)G * H), kThreads,
                              bwd_smem<Dh>(), stream>>>(

@@ -12,109 +12,337 @@
 // pass for links outside the window. Here the kernel reads the (B, N, K)
 // map directly: no window, no far list.
 //
-// Bound: operations (2 Cin Cout flops per live link against Cin + Cout
-// floats per row). Design (simple first, no atomics): dW is viewed as a
-// (K * Cin, Cout) matrix, A[r, a] = ok[r, k] x[b, idx[r, k], c] with
-// a = k * Cin + c and r = b * N + n, so dW = A^T g is one product over the
-// B * N rows -- the stem's 125 x 7 taps and channels fill a tile as well as
-// a CPE conv's 64 channels of one tap. One block per (64 a) x (64 outputs)
-// tile and per split of the rows; 256 threads each accumulate a 4 x 4
-// register tile in fp32 over chunks of 16 rows staged in shared memory
-// (gathered x, zeros where !ok; the matching g rows). A chunk in which no
-// row has a live link in the tile is skipped. With more than one split
-// each block writes its partial tile to a workspace and a second kernel
-// sums the splits in a fixed order, so the result is deterministic.
-// wgmma/TF32 tiles are later work.
+// Bound: operations, 2 Cin Cout flops per live link (ok true) against
+// Cin + Cout floats per row. The products run on the tensor cores as
+// 3xTF32 mma.sync.m16n8k8 (tc_common.cuh): 3 TF32 products per fp32 one.
+//
+// Design, the CPE path (Cin and Cout multiples of 4): dW[k] = A_k^T g
+// with A_k the gathered rows of tap k, a reduction over the live links of
+// that tap only. The rows are split into `splits` fixed ranges.
+//   1. wgrad_compact_kernel, one block per (tap, row range): a warp ballot
+//      and a prefix sum over the block write the range's live rows, in
+//      ascending order, as (row, source row) pairs into scratch, and their
+//      count. Dead links cost one byte read here and nothing after.
+//   2. wgrad_tc_kernel, one block of 4 warps per (64 input channels x 64
+//      output channels, tap, row range): walks the range's live list in
+//      stages of 64 rows. Each stage gathers x[source] and g[row] of those
+//      rows with 16-byte cp.async (zero-fill past the list's end) into a
+//      ring of 2 stages, their indices read into shared memory a stage
+//      earlier, so that loads stay in flight while a stage multiplies; each
+//      warp accumulates a 32 x 32 tile of dW, 8 rows per mma step (the
+//      mma's k dimension runs over rows), in registers that start from
+//      zero every stage and are added to the fp32 totals.
+//   3. With more than one range each block writes its partial tile to
+//      scratch and sum_splits_kernel adds the ranges in a fixed order.
+// No float atomics: the sum order is fixed and the result bit-equal from
+// run to run. The split count makes (tiles x taps x ranges) fill the card.
+//
+// The stem path (Cin = 7 is not a 16-byte multiple, and 7 of 64 tile
+// columns would waste the rest): dW is viewed as a (K * Cin, Cout) matrix,
+// A[r, a] = ok[r, k] x[b, idx[r, k], c] with a = k * Cin + c, so the stem's
+// 125 x 7 (tap, channel) columns pack 64 to a tile. wgrad_taps_kernel
+// stages 32 rows at a time with scalar loads (zeros where !ok), skips a
+// stage in which no row has a live link in the tile's columns, and runs the
+// same 3xTF32 warp tiles. Dead links inside a live stage are multiplied.
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "tc_common.cuh"
 
 namespace {
 
-constexpr int kTA = 64;   // rows of dW (k, c pairs) per block
-constexpr int kTC = 64;   // output channels per block
-constexpr int kRK = 16;   // cloud rows per shared-memory stage
-constexpr int kThreads = 256;
+using r3dl::Split;
+using r3dl::split;
+
+constexpr int kT = 64;         // dW tile: 64 input x 64 output channels
+constexpr int kRB = 64;        // live rows per pipeline stage (CPE path)
+constexpr int kStages = 2;     // pipeline stages in flight
+constexpr int kRK = 32;        // cloud rows per stage (stem path)
+constexpr int kS = kT + 8;     // shared row stride, 8 mod 32: the fragment
+                               // loads (row c, col r) hit 32 banks
+constexpr int kThreads = 128;  // 4 warps, a 32 x 32 dW tile each
+constexpr int kCompactThreads = 256;
+// the ring of x and g rows, and of their indices: 74,752 B at 2 stages,
+// three blocks an SM
+constexpr size_t kTcSmem =
+    kStages * kRB * (2 * kS * sizeof(float) + 2 * sizeof(int));
+
+// One 8-row step of a warp's 32 x 32 tile: A = X^T (rows of xr are cloud
+// rows, columns channels), B = G; xr / gr point at row 8 s of the stage.
+__device__ __forceinline__ void step(float (&acc)[2][4][4], const float* xr,
+                                     const float* gr, int cm, int on,
+                                     int gid, int tig) {
+  Split a[2][4], b[4][2];
+  const float* x0 = xr + tig * kS;
+  const float* x4 = x0 + 4 * kS;
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+    const int c = cm + 16 * m + gid;
+    a[m][0] = split(x0[c]);
+    a[m][1] = split(x0[c + 8]);
+    a[m][2] = split(x4[c]);
+    a[m][3] = split(x4[c + 8]);
+  }
+  const float* g0 = gr + tig * kS;
+  const float* g4 = g0 + 4 * kS;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int o = on + 8 * j + gid;
+    b[j][0] = split(g0[o]);
+    b[j][1] = split(g4[o]);
+  }
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) r3dl::mma3(acc[m][j], a[m], b[j]);
+}
+
+__device__ __forceinline__ void zero(float (&t)[2][4][4]) {
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) t[m][j][e] = 0.f;
+}
+
+// acc += part, rounded to nearest: the tensor cores' own fp32 sums are
+// kept to one stage (at most 24 products a chain), since over the
+// thousands of rows of a range their rounding drifts past 1e-4
+__device__ __forceinline__ void add(float (&acc)[2][4][4],
+                                   const float (&part)[2][4][4]) {
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][j][e] += part[m][j][e];
+}
+
+// the warp tile (rows a0 + cm.., columns o0 + on..) into dst (A, Cout)
+__device__ __forceinline__ void store_tile(const float (&acc)[2][4][4],
+                                           float* dst, int a_base, int A,
+                                           int o_base, int Cout, int gid,
+                                           int tig) {
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int o = o_base + 8 * j + 2 * tig;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int a = a_base + 16 * m + gid + 8 * h;
+        if (a >= A) continue;
+        float* p = dst + (long long)a * Cout + o;
+        if (o < Cout) p[0] = acc[m][j][2 * h];
+        if (o + 1 < Cout) p[1] = acc[m][j][2 * h + 1];
+      }
+    }
+}
+
+__global__ void __launch_bounds__(kCompactThreads)
+wgrad_compact_kernel(const int* __restrict__ idx,
+                     const unsigned char* __restrict__ ok,
+                     int* __restrict__ rows, int* __restrict__ srcs,
+                     int* __restrict__ counts, int N, int K, long long R,
+                     long long per, int splits) {
+  constexpr int kWarps = kCompactThreads / 32;
+  __shared__ int wsum[kWarps];
+  const int k = blockIdx.y, s = blockIdx.x;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const long long r0 = (long long)s * per;
+  const long long r1 = r0 + per < R ? r0 + per : R;
+  const long long base = (long long)k * R + r0;
+  int count = 0;
+  for (long long c = r0; c < r1; c += kCompactThreads) {
+    const long long r = c + threadIdx.x;
+    const bool live = r < r1 && ok[r * K + k];
+    const unsigned m = __ballot_sync(0xffffffffu, live);
+    if (lane == 0) wsum[w] = __popc(m);
+    __syncthreads();
+    int off = count, total = 0;
+#pragma unroll
+    for (int i = 0; i < kWarps; ++i) {
+      const int v = wsum[i];
+      off += i < w ? v : 0;
+      total += v;
+    }
+    if (live) {
+      const int j = off + __popc(m & ((1u << lane) - 1u));
+      rows[base + j] = (int)r;
+      srcs[base + j] = (int)r / N * N + idx[r * K + k];
+    }
+    count += total;
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) counts[k * splits + s] = count;
+}
 
 __global__ void __launch_bounds__(kThreads)
-conv_weight_grad_kernel(const float* __restrict__ x,
-                        const int* __restrict__ idx,
-                        const unsigned char* __restrict__ ok,
-                        const float* __restrict__ g, float* __restrict__ part,
-                        int N, int K, int Cin, int Cout, long long R,
-                        long long rows_per_split) {
-  __shared__ float as[kRK][kTA];
-  __shared__ float gs[kRK][kTC];
+wgrad_tc_kernel(const float* __restrict__ x, const float* __restrict__ g,
+                const int* __restrict__ rows, const int* __restrict__ srcs,
+                const int* __restrict__ counts, float* __restrict__ out,
+                int K, int Cin, int Cout, long long R, long long per,
+                int splits, int ctiles) {
+  extern __shared__ float4 smem4[];
+  float* xs = reinterpret_cast<float*>(smem4);   // [kStages][kRB][kS]
+  float* gs = xs + kStages * kRB * kS;           // [kStages][kRB][kS]
+  int* sidx = reinterpret_cast<int*>(gs + kStages * kRB * kS);
+  int* srow = sidx + kStages * kRB;              // [kStages][kRB] each
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int c0 = (blockIdx.x % ctiles) * kT, o0 = (blockIdx.x / ctiles) * kT;
+  const int k = blockIdx.y, s = blockIdx.z;
+  const int cm = 32 * (w & 1), on = 32 * (w >> 1);
+  const long long base = (long long)k * R + (long long)s * per;
+  const int n = counts[k * splits + s];
+  const int stages = (n + kRB - 1) / kRB;
 
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int a0 = blockIdx.x * kTA;
-  const int co0 = blockIdx.y * kTC;
-  const long long KC = (long long)K * Cin;
-  const long long r_begin = blockIdx.z * rows_per_split;
-  const long long r_end =
-      r_begin + rows_per_split < R ? r_begin + rows_per_split : R;
+  float acc[2][4][4];
+  zero(acc);
 
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (long long r0 = r_begin; r0 < r_end; r0 += kRK) {
-    int live = 0;
-#pragma unroll
-    for (int t = 0; t < kRK * kTA / kThreads; ++t) {
-      const int e = tid + t * kThreads;
-      const int rr = e / kTA, aa = e % kTA;
-      const long long r = r0 + rr;
-      const int a = a0 + aa;
-      float val = 0.f;
-      if (r < r_end && a < KC) {
-        const int k = a / Cin, c = a - k * Cin;
-        const long long off = r * K + k;
-        if (ok[off]) {
-          const long long b = r / N;
-          val = x[(b * N + idx[off]) * Cin + c];
-          live = 1;
-        }
-      }
-      as[rr][aa] = val;
+  // the list entries of stage st: thread t < kRB reads entry st kRB + t
+  auto fetch = [&](int st, int& src, int& row) {
+    const int entry = st * kRB + tid;
+    src = -1;
+    row = 0;
+    if (tid < kRB && st < stages && entry < n) {
+      src = srcs[base + entry];
+      row = rows[base + entry];
     }
-#pragma unroll
-    for (int t = 0; t < kRK * kTC / kThreads; ++t) {
-      const int e = tid + t * kThreads;
-      const int rr = e / kTC, cc = e % kTC;
-      const long long r = r0 + rr;
-      const int co = co0 + cc;
-      gs[rr][cc] = (r < r_end && co < Cout) ? g[r * Cout + co] : 0.f;
-    }
-    if (__syncthreads_or(live)) {
-#pragma unroll
-      for (int rr = 0; rr < kRK; ++rr) {
-        float av[4], gv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) av[i] = as[rr][ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) gv[j] = gs[rr][tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], gv[j], acc[i][j]);
+  };
+  // stage st's rows into its ring slot: x[source] (channels c0..c0+63)
+  // and g[row] (outputs o0..o0+63), 16 bytes per cp.async, the indices
+  // from shared memory (fetched a stage ahead)
+  auto load = [&](int st) {
+    const int buf = st % kStages;
+    float* xb = xs + buf * kRB * kS;
+    float* gb = gs + buf * kRB * kS;
+    const int* si = sidx + buf * kRB;
+    const int* sr = srow + buf * kRB;
+#pragma unroll 4
+    for (int e = tid; e < 2 * kRB * (kT / 4); e += kThreads) {
+      const int which = e / (kRB * (kT / 4));
+      const int j = (e / (kT / 4)) % kRB, q = e % (kT / 4);
+      const int src = si[j];
+      if (which == 0) {
+        const int col = c0 + 4 * q;
+        const bool p = src >= 0 && col < Cin;
+        r3dl::cp_async16(xb + j * kS + 4 * q,
+                         p ? x + (long long)src * Cin + col : x, p);
+      } else {
+        const int col = o0 + 4 * q;
+        const bool p = src >= 0 && col < Cout;
+        r3dl::cp_async16(gb + j * kS + 4 * q,
+                         p ? g + (long long)sr[j] * Cout + col : g, p);
       }
+    }
+  };
+
+  // prologue: the indices of the first kStages stages, the data of the
+  // first kStages - 1
+  for (int st = 0; st < kStages; ++st) {
+    int src, row;
+    fetch(st, src, row);
+    if (tid < kRB) {
+      sidx[st * kRB + tid] = src;
+      srow[st * kRB + tid] = row;
+    }
+  }
+  __syncthreads();
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < stages) load(st);
+    r3dl::cp_async_commit();
+  }
+  for (int st = 0; st < stages; ++st) {
+    if (st + kStages - 1 < stages) load(st + kStages - 1);
+    r3dl::cp_async_commit();
+    int src, row;                 // the indices of stage st + kStages,
+    fetch(st + kStages, src, row);   // in flight while this one computes
+    r3dl::cp_async_wait<kStages - 1>();
+    __syncthreads();
+    const int buf = st % kStages;
+    const float* xb = xs + buf * kRB * kS;
+    const float* gb = gs + buf * kRB * kS;
+    const int live = n - st * kRB < kRB ? n - st * kRB : kRB;
+    float part[2][4][4];
+    zero(part);
+    for (int r = 0; r < live; r += 8)
+      step(part, xb + r * kS, gb + r * kS, cm, on, gid, tig);
+    add(acc, part);
+    if (tid < kRB) {              // slot buf: stage st's indices, done
+      sidx[buf * kRB + tid] = src;
+      srow[buf * kRB + tid] = row;
     }
     __syncthreads();
   }
+  store_tile(acc, out + ((long long)s * K + k) * Cin * Cout, c0 + cm, Cin,
+             o0 + on, Cout, gid, tig);
+}
 
-  float* out = part + blockIdx.z * KC * Cout;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int a = a0 + ty + 16 * i;
-    if (a >= KC) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int co = co0 + tx + 16 * j;
-      if (co < Cout) out[(long long)a * Cout + co] = acc[i][j];
-    }
+__global__ void __launch_bounds__(kThreads)
+wgrad_taps_kernel(const float* __restrict__ x, const int* __restrict__ idx,
+                  const unsigned char* __restrict__ ok,
+                  const float* __restrict__ g, float* __restrict__ out,
+                  int N, int K, int Cin, int Cout, long long R,
+                  long long per) {
+  __shared__ float as[kRK * kS];
+  __shared__ float gsm[kRK * kS];
+  __shared__ int colk[kT], colc[kT], rbase[kRK];
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int a0 = blockIdx.x * kT, o0 = blockIdx.y * kT;
+  const int cm = 32 * (w & 1), on = 32 * (w >> 1);
+  const int KC = K * Cin;
+  const long long r_begin = (long long)blockIdx.z * per;
+  const long long r_end = r_begin + per < R ? r_begin + per : R;
+  if (tid < kT) {                  // the tile's (tap, channel) columns
+    const int a = a0 + tid;
+    colk[tid] = a < KC ? a / Cin : -1;
+    colc[tid] = a < KC ? a % Cin : 0;
   }
+
+  float acc[2][4][4];
+  zero(acc);
+
+  for (long long r0 = r_begin; r0 < r_end; r0 += kRK) {
+    if (tid < kRK) {               // each row's first row of its cloud
+      const long long r = r0 + tid;
+      rbase[tid] = r < r_end ? (int)r / N * N : -1;
+    }
+    __syncthreads();
+    int live = 0;
+    for (int e = tid; e < kRK * kT; e += kThreads) {
+      const int rr = e / kT, aa = e % kT;
+      const int k = colk[aa], rb = rbase[rr];
+      float val = 0.f;
+      if (rb >= 0 && k >= 0) {
+        const long long off = (r0 + rr) * K + k;
+        if (ok[off]) {
+          val = x[((long long)rb + idx[off]) * Cin + colc[aa]];
+          live = 1;
+        }
+      }
+      as[rr * kS + aa] = val;
+    }
+    for (int e = tid; e < kRK * kT; e += kThreads) {
+      const int rr = e / kT, cc = e % kT;
+      const long long r = r0 + rr;
+      const int co = o0 + cc;
+      gsm[rr * kS + cc] = (r < r_end && co < Cout) ? g[r * Cout + co] : 0.f;
+    }
+    if (__syncthreads_or(live)) {
+      float part[2][4][4];
+      zero(part);
+#pragma unroll
+      for (int r = 0; r < kRK; r += 8)
+        step(part, as + r * kS, gsm + r * kS, cm, on, gid, tig);
+      add(acc, part);
+    }
+    __syncthreads();
+  }
+  store_tile(acc, out + (long long)blockIdx.z * KC * Cout, a0 + cm, KC,
+             o0 + on, Cout, gid, tig);
 }
 
 __global__ void sum_splits_kernel(const float* __restrict__ part,
@@ -130,32 +358,66 @@ __global__ void sum_splits_kernel(const float* __restrict__ part,
 
 }  // namespace
 
-// work: (splits, K, Cin, Cout) fp32 scratch, unused (may be NULL) when
-// splits == 1; rows_per_split a multiple of 16 with splits * rows_per_split
-// >= B * N.
+// work: scratch of work_bytes bytes. The CPE path (Cin % 4 == 0 and
+// Cout % 4 == 0) puts there the live lists, 2 K B N + K splits int32
+// (rounded up to 16 bytes), then, with splits > 1, the partial dW
+// (splits, K, Cin, Cout) fp32; the stem path only the partial dW.
+// x and g 16-byte aligned on the CPE path. rows_per_split * splits >= B N.
 extern "C" int r3dl_conv_weight_grad(const float* x, const int* idx,
                                      const unsigned char* ok, const float* g,
-                                     float* work, float* dw, int B, int N,
+                                     void* work, float* dw, int B, int N,
                                      int K, int Cin, int Cout, int splits,
                                      long long rows_per_split,
+                                     long long work_bytes,
                                      cudaStream_t stream) {
   const long long R = (long long)B * N;
   const long long n = (long long)K * Cin * Cout;
   if (n == 0) return (int)cudaGetLastError();
-  if (splits < 1 || rows_per_split % kRK ||
-      (long long)splits * rows_per_split < R || (splits > 1 && !work))
+  const bool compacted = Cin % 4 == 0 && Cout % 4 == 0;
+  const long long list_bytes =
+      compacted ? ((4 * (2 * K * R + (long long)K * splits) + 15) / 16) * 16
+                : 0;
+  const long long part_bytes = splits > 1 ? 4 * splits * n : 0;
+  if (R >= (1LL << 31) || splits < 1 || rows_per_split < 1 ||
+      (long long)splits * rows_per_split < R ||
+      list_bytes + part_bytes > work_bytes ||
+      (list_bytes + part_bytes > 0 && !work) ||
+      (compacted && (((uintptr_t)x | (uintptr_t)g) & 15)))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)((K * Cin + kTA - 1) / kTA),
-                  (unsigned)((Cout + kTC - 1) / kTC), (unsigned)splits);
-  conv_weight_grad_kernel<<<grid, kThreads, 0, stream>>>(
-      x, idx, ok, g, splits > 1 ? work : dw, N, K, Cin, Cout, R,
-      rows_per_split);
+  float* part = splits > 1
+                    ? reinterpret_cast<float*>(static_cast<char*>(work) +
+                                               list_bytes)
+                    : dw;
+  if (compacted) {
+    static const cudaError_t attr = r3dl::allow_smem(wgrad_tc_kernel, kTcSmem);
+    if (attr != cudaSuccess) return (int)attr;
+    int* rows = static_cast<int*>(work);
+    int* srcs = rows + K * R;
+    int* counts = srcs + K * R;
+    wgrad_compact_kernel<<<dim3((unsigned)splits, (unsigned)K),
+                           kCompactThreads, 0, stream>>>(
+        idx, ok, rows, srcs, counts, N, K, R, rows_per_split, splits);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    const int ctiles = (Cin + kT - 1) / kT, otiles = (Cout + kT - 1) / kT;
+    wgrad_tc_kernel<<<dim3((unsigned)(ctiles * otiles), (unsigned)K,
+                           (unsigned)splits),
+                      kThreads, kTcSmem, stream>>>(
+        x, g, rows, srcs, counts, part, K, Cin, Cout, R, rows_per_split,
+        splits, ctiles);
+  } else {
+    wgrad_taps_kernel<<<dim3((unsigned)((K * Cin + kT - 1) / kT),
+                             (unsigned)((Cout + kT - 1) / kT),
+                             (unsigned)splits),
+                        kThreads, 0, stream>>>(x, idx, ok, g, part, N, K, Cin,
+                                               Cout, R, rows_per_split);
+  }
   if (splits > 1) {
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     const long long blocks = (n + 255) / 256;
     sum_splits_kernel<<<(unsigned)(blocks < 4096 ? blocks : 4096), 256, 0,
-                        stream>>>(work, dw, n, splits);
+                        stream>>>(part, dw, n, splits);
   }
   return (int)cudaGetLastError();
 }

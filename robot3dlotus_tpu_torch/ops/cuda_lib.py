@@ -36,6 +36,7 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
+_L = ctypes.c_longlong
 # C signatures: every entry point returns cudaGetLastError() as int
 _GATHER = [_P, _P, _P, _I, _I, _I, _I, _I, _P]
 SIGNATURES = {
@@ -55,12 +56,14 @@ SIGNATURES = {
     # inv_keep, stream
     "r3dl_attention_dropout_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                    _P, _I, _I, _I, _I, _F, _F, _P],
-    # x, idx, ok, w, bias|NULL, out, B, N, K, Cin, Cout, stream
-    "r3dl_subm_conv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, idx, ok, w, bias|NULL, out, work|NULL, B, N, K, Cin, Cout,
+    # splits, work_bytes, stream
+    "r3dl_subm_conv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                       _L, _P],
     # x, idx, ok, g, work|NULL, dw, B, N, K, Cin, Cout, splits,
-    # rows_per_split, stream
+    # rows_per_split, work_bytes, stream
     "r3dl_conv_weight_grad": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                              _I, ctypes.c_longlong, _P],
+                              _I, _L, _L, _P],
     # x, idx, ok, w, out, B, N, K, Cin, Cout, stream
     "r3dl_stem_conv": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }

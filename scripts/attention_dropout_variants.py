@@ -67,7 +67,7 @@ def build_all():
         so = os.path.join(OUT, f"{name}.so")
         procs[name] = (so, subprocess.Popen(
             [cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-Xptxas", "-v",
-             "-shared", cu, "-o", so], stdout=subprocess.PIPE,
+             "-I", cuda_lib.CSRC, "-shared", cu, "-o", so], stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True))
     libs, ptxas = {}, {}
     for name, (so, p) in procs.items():

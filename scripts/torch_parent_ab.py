@@ -107,8 +107,9 @@ cfg = cs.train_config("MODEL.ptv3_config.attn_drop", "0.0",
 rows = []
 for i in range(slices):
     batch = {k: v[2 * i:2 * i + 2] for k, v in host.items()}
-    lc, gc, _, dc, _, _ = cs._one_step(cfg, cs.compute_loss, batch, "cuda")
-    lr, gr, _, dr, _, _ = cs._one_step(cfg, cs.compute_loss, batch, "cpu")
+    card = cs._one_step(cfg, cs.compute_loss, batch, "cuda")
+    cpu = cs._one_step(cfg, cs.compute_loss, batch, "cpu")
+    gc, dc, gr, dr = card[1], card[3], cpu[1], cpu[3]
     differ = {n: int((a != b).sum()) for (n, a), (_, b) in zip(dc, dr)
               if (a != b).any()}
     gmax = max(float(g.abs().max()) for g in gr.values())

@@ -292,6 +292,118 @@ def test_k2_k8_conv_dx_and_stem_dw(dev):
             _check(got.cpu(), want)
 
 
+# K2 / K7 on the tensor cores: every release CPE width and two Cin != Cout
+CONV_SHAPES = [(64, 64), (128, 128), (256, 256), (512, 512), (768, 768),
+               (128, 256), (256, 128)]
+
+
+def _conv_map(rng, dev, B, N, span):
+    gc = rng.randint(0, span, (B, N, 3)).astype(np.int32)
+    mask = np.arange(N)[None] < np.array([[N], [N - 77]])[:B]
+    return build_neighbor_map(torch.from_numpy(gc).to(dev),
+                              torch.from_numpy(mask).to(dev), 3, 5,
+                              extent=128)
+
+
+def _randn(rng, dev, *shape, scale=1.0):
+    return torch.from_numpy((rng.randn(*shape) * scale).astype(
+        np.float32)).to(dev)
+
+
+def _twice(fn, kernel):
+    """fn() twice on the same inputs: bit-equal, and one launch counted
+    per wrapper call."""
+    before = cuda_lib.LAUNCHES[kernel]
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES[kernel] == before + 2
+    assert torch.equal(a, b)
+    return a
+
+
+@pytest.mark.parametrize("cin,cout", CONV_SHAPES)
+@pytest.mark.parametrize("B,N", [(1, 256), (2, 300)])
+def test_k2_k7_tensor_core_convs(dev, B, N, cin, cout):
+    """K2 forward, K2 on the mirrored weight (the dx launch) and K7 at
+    B = 1 with N = 256 (stage 4's rows: the tap-split path) and at B = 2
+    with N % 64 != 0: within the bar of the plain versions, bit-equal
+    across two launches, one count per wrapper call."""
+    rng = np.random.RandomState(cin + 3 * cout + N)
+    nm = _conv_map(rng, dev, B, N, 12)
+    x = _randn(rng, dev, B, N, cin)
+    w = _randn(rng, dev, 27, cin, cout, scale=cin ** -0.5)
+    b = _randn(rng, dev, cout)
+    g = _randn(rng, dev, B, N, cout)
+    out = _twice(lambda: conv.subm_conv(x, nm.idx, nm.ok, w, b), "subm_conv")
+    _check(out, conv.subm_conv_plain(x, nm.idx, nm.ok, w, b))
+    wm = conv.mirror_weight(w)
+    dx = _twice(lambda: conv.subm_conv(g, nm.idx, nm.ok, wm), "subm_conv")
+    _check(dx, conv.subm_conv_plain(g, nm.idx, nm.ok, wm))
+    dw = _twice(lambda: conv.conv_weight_grad(x, nm.idx, nm.ok, g),
+                "conv_weight_grad")
+    _check(dw, conv.conv_weight_grad_plain(x, nm.idx, nm.ok, g))
+
+
+@pytest.mark.parametrize("B,N,C", [(32, 2304, 128), (8, 4096, 64)])
+def test_k2_k7_long_sums(dev, B, N, C):
+    """K7's sums over tens of thousands of rows and K2's over 27 taps at a
+    training step's row count, within 1e-4 of the plain version's largest
+    value (the bar chip_smoke.py holds the captured gradients to)."""
+    rng = np.random.RandomState(B + N + C)
+    gc = rng.randint(0, 40, (B, N, 3)).astype(np.int32)
+    nm = build_neighbor_map(torch.from_numpy(gc).to(dev),
+                            torch.ones(B, N, dtype=torch.bool, device=dev),
+                            3, 6, extent=128)
+    x = _randn(rng, dev, B, N, C)
+    w = _randn(rng, dev, 27, C, C, scale=C ** -0.5)
+    g = _randn(rng, dev, B, N, C)
+    for got, want in ((conv.conv_weight_grad(x, nm.idx, nm.ok, g),
+                       conv.conv_weight_grad_plain(x, nm.idx, nm.ok, g)),
+                      (conv.subm_conv(x, nm.idx, nm.ok, w),
+                       conv.subm_conv_plain(x, nm.idx, nm.ok, w))):
+        torch.cuda.synchronize()
+        assert float((got - want).abs().max()) <= \
+            TOL * float(want.abs().max())
+
+
+@pytest.mark.parametrize("kind", ["none", "one", "duplicates"])
+def test_k2_k7_edge_maps(dev, kind):
+    """A map with no live link, one with a single live link (row 200 of
+    cloud 1, the centre tap onto itself) and one with many duplicate
+    voxels: K2, K7 and the autograd dx (K8 onto owners, mirrored K2)
+    against the plain versions' autograd on the card."""
+    B, N, cin, cout = 2, 300, 64, 128
+    rng = np.random.RandomState(13)
+    if kind == "duplicates":
+        nm = _conv_map(rng, dev, B, N, 4)
+        idx, ok = nm.idx, nm.ok
+    else:
+        idx = torch.from_numpy(rng.randint(0, N, (B, N, 27)).astype(
+            np.int32)).to(dev)
+        ok = torch.zeros(B, N, 27, dtype=torch.bool, device=dev)
+        if kind == "one":
+            ok[1, 200, 13] = True
+            idx[1, 200, 13] = 200
+    x = _randn(rng, dev, B, N, cin)
+    w = _randn(rng, dev, 27, cin, cout, scale=cin ** -0.5)
+    b = _randn(rng, dev, cout)
+    g = _randn(rng, dev, B, N, cout)
+    out = _twice(lambda: conv.subm_conv(x, idx, ok, w, b), "subm_conv")
+    _check(out, conv.subm_conv_plain(x, idx, ok, w, b))
+    dw = _twice(lambda: conv.conv_weight_grad(x, idx, ok, g),
+                "conv_weight_grad")
+    _check(dw, conv.conv_weight_grad_plain(x, idx, ok, g))
+    if kind == "none":
+        assert torch.equal(out, b.expand(B, N, cout))
+        assert not dw.any()
+    grads = []
+    for fn in (conv.subm_conv, conv.subm_conv_plain):
+        xr = x.clone().requires_grad_()
+        fn(xr, idx, ok, w, b).backward(g)
+        grads.append(xr.grad)
+    _check(*grads)
+
+
 @pytest.mark.parametrize("D", [7, 64, 768])
 def test_k8_scatter_rows_add_colliding(dev, D):
     """K8 with many indices colliding on few rows (the duplicate padding of
