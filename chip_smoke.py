@@ -6,6 +6,7 @@
 Phases, each of which raises on failure (exit code != 0, no result line):
   1. build   the hand-written kernels K1-K10 from robot3dlotus_tpu_torch/csrc
              (one nvcc per source, all started together) and load them;
+             ptxas's registers and spills of K1, K3, K5 and K6 logged;
   2. capture one `Actioner.predict` at the release width (4096 points) and
              one `predict_batch` of 4 with recorders on the kernel call
              sites, keeping every kernel input the main path produces;
@@ -17,12 +18,14 @@ Phases, each of which raises on failure (exit code != 0, no result line):
              computes the same function, that call (CUDA events: median of
              21 rounds of 10 back-to-back calls, after 3 warm-up calls);
              K4's calls also read their device time from the profiler;
-             K2 (3xTF32 on the tensor cores) is also held bit-equal across
-             two launches, timed on the profiler, beside an im2col gather
-             + matmul (two PyTorch calls, for reference) and its bounds at
-             the TF32 and the fp32 SIMT rates, with each map's shares of
-             live (row, tap) pairs, of (64-row tile, tap) pairs a
-             whole-tap skip keeps and of pairs K2 multiplies;
+             K1, K2 and K3 (3xTF32 on the tensor cores) are also held
+             bit-equal across two launches, timed on the profiler, beside
+             their bounds at the TF32 and the fp32 SIMT rates, K2 and K3
+             beside an im2col gather + matmul (two PyTorch calls, for
+             reference); K2 with each map's shares of live (row, tap)
+             pairs, of (64-row tile, tap) pairs a whole-tap skip keeps and
+             of pairs K2 multiplies, K3 of live pairs and of (tap, 16-row
+             group) pairs it multiplies;
   4. serving launch counters to 0, then 4 `predict` requests and one
              `predict_batch` of the same 4 observations (4 cameras of
              256 x 256 xyz/rgb, seeded tabletop scenes), counters read: each
@@ -63,7 +66,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
              logged); K2's 9 forward and 9 mirrored dx launches and K7,
              each bit-equal across two launches, timed (events and
              profiler) against their plain versions and their TF32 and
-             fp32 SIMT bounds;
+             fp32 SIMT bounds; K3's forward on the step's B = 32 stem call
+             as in phase 3; K8's device time on the profiler;
  10. step-check one step at dropout 0 with injected order permutations on
              each of CHECK_SLICES B = 2 slices of the same batch, the same
              weights, on the card and on the CPU (plain versions): losses,
@@ -95,7 +99,8 @@ seeded weights) behind the ground-truth pipeline (robot_pipeline_gt.yaml):
  14. mp-kernels   K9 on every captured call bit-equal to its plain version
              (device time from the profiler beside the event time);
              K10 on the captured stem index with seeded cotangents at C = 5
-             and C = 20 (<= 1e-4 * max|plain|); times, bounds, library calls
+             and C = 20 (<= 1e-4 * max|plain|); times (K10 also on the
+             profiler), bounds, library calls
              (at the forward's B = 1 and, from one captured training step,
              at B = 32); K2 on the request's 9 captured calls (within
              1e-4 * max(1, max|plain|), bit-equal across two launches);
@@ -120,6 +125,7 @@ import json
 import logging
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -274,6 +280,24 @@ def log(msg):
     print(msg, flush=True)
 
 
+def ptxas_usage():
+    """{kernel (mangled name): 'registers, spill stores, spill loads'} from
+    the `nvcc -Xptxas -v` output the kernel build keeps beside the
+    library."""
+    usage, entry, spills = {}, None, ""
+    with open(cuda_lib.build()[:-3] + ".ptxas.txt") as f:
+        for line in f:
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1]
+            elif entry and "spill stores" in line:
+                spills = line.strip()
+            elif entry and "Used" in line and "registers" in line:
+                usage[entry] = (line.split("Used")[1].split(",")[0].strip() +
+                                ", " + spills)
+                entry, spills = None, ""
+    return usage
+
+
 def cuda_ms(fn, rounds=21, reps=10, warmup=3):
     """Median over `rounds` of the mean time of `reps` back-to-back calls
     between two CUDA events. A call shorter than its host-side launch cost
@@ -377,7 +401,7 @@ def _named(events, names):
     return [e for e in events if any(n in e.key for n in names)]
 
 
-def device_ms(fn, name, reps=10, windows=3, also=()):
+def device_ms(fn, name, reps=10, windows=5, also=()):
     """Device time per call of fn, over `reps` calls in one torch.profiler
     window (CUPTI), after a warm-up call: the device's share of a call
     whose CUDA-event time (cuda_ms) includes its host path. `name` (a
@@ -519,6 +543,19 @@ def link_shares(ok, tile_rows=conv.CONV_ROWS, group=16, skip_rows=64):
             "compacted": int(comp.sum()) / total}
 
 
+def stem_shares(ok, group=16):
+    """Work shares of one stem call's (B, N, K) map. 'live': the (row, tap)
+    pairs with a link, of all B N K; 'group_kept': the (tap, 16-row group)
+    pairs in which some row has a link, of all such pairs: the ones K3
+    multiplies (its ballot skips the others)."""
+    B, N, K = ok.shape
+    okc = ok.to(torch.int32)
+    groups = F.pad(okc, (0, 0, 0, -N % group)).reshape(B, -1, group, K)
+    kept = groups.sum(2) > 0
+    return {"live": int(okc.sum()) / max(B * N * K, 1),
+            "group_kept": int(kept.sum()) / max(kept.numel(), 1)}
+
+
 def _shares(results):
     """The work shares (link_shares) of several calls, weighted by
     their (row, tap) pairs."""
@@ -580,13 +617,24 @@ def log_conv(tag, label, r):
         f"max_abs_err {r['max_abs_err']:.3g}{times}")
 
 
-def check_call(kernel, args, timed=True):
-    """One captured call: error vs plain and, if `timed`, times and
-    bound."""
+# K1 / K3: the kernel each wrapper call launches once, and the other
+# kernels of the same call (device_ms)
+K1_PROFILE = ("patch_attention_kernel", ())
+K3_PROFILE = ("stem_conv_kernel", ("stem_conv_sum",))
+
+
+def check_call(kernel, args, timed=True, timing=None):
+    """One captured call: error vs plain and, if `timed`, times (cuda_ms
+    keywords `timing`) and bounds. K1 and K3 (3xTF32 on the tensor cores)
+    are also held bit-equal across two launches, timed on the profiler,
+    bound by bytes against 3 x their flops at the TF32 rate with the fp32
+    SIMT bound beside it; K3 also logs its map's work shares (stem_shares)
+    and times the im2col gather + matmul (two PyTorch calls) beside it."""
     if kernel == "gather_rows":
         return check_gather(kernel, args, {} if timed else None)
     if kernel == "subm_conv":
         return check_conv(args, timed)
+    im2col, shares = None, {}
     if kernel == "patch_attention":
         q, k, v, kv, scale = args
         run = lambda: attention.patch_attention(q, k, v, kv, scale)  # noqa
@@ -596,6 +644,7 @@ def check_call(kernel, args, timed=True):
         shape = [G, H, P, Dh]
         nbytes = 4 * 4 * q.numel() + kv.numel()
         flops = 4 * G * H * P * P * Dh
+        profile = K1_PROFILE
     elif kernel == "stem_conv":
         x, idx, ok, w = args
         run = lambda: stem.stem_conv(x, idx, ok, w)  # noqa: E731
@@ -604,24 +653,53 @@ def check_call(kernel, args, timed=True):
         B, N, Cin = x.shape
         K, _, Cout = w.shape
         shape = [B, N, K, Cin, Cout]
-        nbytes = 4 * (x.numel() + w.numel() + B * N * Cout + Cout) + \
+        nbytes = 4 * (x.numel() + w.numel() + B * N * Cout) + \
             5 * idx.numel()
         flops = 2 * Cin * Cout * int(ok.sum())      # this cloud's live links
-    got, want = run(), plain()
+        profile = K3_PROFILE
+        im2col = _im2col(x, idx, ok, w)
+        shares = {"shares": stem_shares(ok), "pairs": ok.numel(),
+                  "plan": list(stem.stem_conv_plan(B, N, K, Cin, Cout))}
+    got = _twice(run, f"{kernel} {shape}")
+    want = plain()
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     scale_ref = max(1.0, float(want.abs().max()))
     if not bool(torch.isfinite(got).all()) or err > TOL * scale_ref:
         raise AssertionError(f"{kernel} {shape}: max |kernel - plain| = "
                              f"{err} > {TOL} * {scale_ref}")
-    out = {"shape": shape, "max_abs_err": err, "max_rel_err": err / scale_ref}
+    out = {"shape": shape, "max_abs_err": err, "max_rel_err": err / scale_ref,
+           **shares}
     if not timed:
         return out
-    bound_ms, t_b, t_f = _bound(nbytes, flops)
-    return {**out, "ms": cuda_ms(run),
-            "plain_ms": cuda_ms(plain),
-            "library_ms": cuda_ms(library) if library else None,
-            "bound_ms": bound_ms, "bytes_s": t_b, "flops_s": t_f}
+    timing = timing or {}
+    bound_ms, t_b, t_f = _bound(nbytes, 3 * flops, TF32_FLOPS_PER_S)
+    out.update(ms=cuda_ms(run, **timing),
+               device_ms=device_ms(run, profile[0], also=profile[1]),
+               plain_ms=cuda_ms(plain, **timing),
+               library_ms=cuda_ms(library, **timing) if library else None,
+               bound_ms=bound_ms, bytes_s=t_b, flops_s=t_f,
+               fp32_bound_ms=_bound(nbytes, flops)[0])
+    if im2col:
+        out["im2col_matmul_ms"] = cuda_ms(im2col, **timing)
+    return out
+
+
+def log_call(tag, label, r):
+    """One line per K1 or K3 call (or row): shape, the event and profiler
+    device times beside the plain version's, the library call or the
+    im2col yardstick, the TF32 and fp32 SIMT bounds, K3's shares."""
+    extra = ""
+    if r.get("library_ms") is not None:
+        extra += f", library {r['library_ms']:.4f}"
+    if "im2col_matmul_ms" in r:
+        extra += f", im2col gather + matmul {r['im2col_matmul_ms']:.4f}"
+    shares = f"; shares {r['shares']}" if "shares" in r else ""
+    log(f"[{tag}] {label} {r.get('shape', '')}: max_abs_err "
+        f"{r['max_abs_err']:.3g}; {r['ms']:.4f} ms (device "
+        f"{r['device_ms']}; plain {r['plain_ms']:.4f}{extra}; bound "
+        f"{r['bound_ms']:.4f} TF32, {r['fp32_bound_ms']:.4f} fp32 SIMT)"
+        f"{shares}")
 
 
 def kernel_phase(captured, captured_batch):
@@ -654,6 +732,21 @@ def kernel_phase(captured, captured_batch):
             f"{rows[kernel]['ms']:.4f} ms (plain "
             f"{rows[kernel]['plain_ms']:.4f}, bound "
             f"{rows[kernel]['bound_ms']:.4f})")
+    for kernel, label in (("patch_attention", "K1"), ("stem_conv", "K3")):
+        calls = [r for r in detail if r["name"] == kernel]
+        b1 = [r for r in calls if "ms" in r]
+        for r in b1:
+            log_call("kernels", f"{label} per forward, call", r)
+        rows[kernel].update(
+            fp32_bound_ms=sum(r["fp32_bound_ms"] for r in b1),
+            device_ms=_total(r["device_ms"] for r in b1))
+        if kernel == "stem_conv":
+            rows[kernel].update(
+                im2col_matmul_ms=sum(r["im2col_matmul_ms"] for r in b1),
+                shares=_shares(b1), plan=b1[0]["plan"],
+                batch4_shares=_shares([r for r in calls if "ms" not in r]),
+                batch4_plan=[r for r in calls if "ms" not in r][0]["plan"])
+        log_call("kernels", f"{label} per forward", rows[kernel])
     k2 = [r for r in detail if r["name"] == "subm_conv"]
     k2_b1 = [r for r in k2 if "ms" in r]
     for r in k2_b1:
@@ -1189,7 +1282,8 @@ def _index_add(g, idx, n):
 def check_scatter_add(call):
     """K8 on one captured K4 call (its input and the cotangent of its
     output; the unpools' sentinel rows dropped), or on a conv's owner
-    scatter (x stands in for the output shape)."""
+    scatter (x stands in for the output shape): within the bar, event and
+    profiler device times, the plain version's and index_add_'s."""
     (x, idx), g = call
     B, n, D = x.shape
     run = lambda: gather.scatter_rows_add(g, idx, n)  # noqa: E731
@@ -1197,13 +1291,15 @@ def check_scatter_add(call):
     err = _err(run(), plain(), f"K8 {list(g.shape)} -> {n}")
     nbytes = 4 * (g.numel() + B * n * D) + idx.numel() * idx.element_size()
     return dict(_timed(run, plain, _index_add(g, idx, n), nbytes, g.numel()),
+                device_ms=device_ms(run, "scatter_rows_add_kernel", reps=4),
                 max_abs_err=err, shape=list(g.shape) + [n],
                 sentinel_rows=int(((idx < 0) | (idx >= n)).sum()))
 
 
 def train_kernel_phase(captured):
-    """Every K5-K8 input of one captured training step: checked and timed;
-    returns the kernels-line rows (sums over the step) and the detail."""
+    """Every K5-K8 input of one captured training step, K4's, K2's and
+    K3's forward: checked and timed; returns the kernels-line rows (sums
+    over the step), the K4, K2 and K3 rows per step and the detail."""
     att = [c for c in captured["attention"]]
     convs = [c for c in captured["subm_conv"] if c[1] is not None]
     stems = [c for c in captured["stem_conv"] if c[1] is not None]
@@ -1230,6 +1326,10 @@ def train_kernel_phase(captured):
         raise AssertionError(f"captured {len(k4)} K4 calls in a step, "
                              f"expected {PER_STEP['gather_rows']}")
     log_gathers("train-kernels", "K4 per training step", k4)
+    # K3's forward on the step's B = 32 stem call (its dW is K7's, above)
+    k3_row = dict(check_call("stem_conv", stems[0][0], timing=TRAIN_TIMING),
+                  launches_per_step=len(stems))
+    log_call("train-kernels", "K3 per training step", k3_row)
     k4_row = dict(_row(k4), device_ms=_total(r["device_ms"] for r in k4))
     log(f"[train-kernels] gather_rows: {len(k4)} calls per step, bit-equal, "
         f"{k4_row['ms']:.4f} ms ({k4_row['device_ms']} ms on the device; "
@@ -1267,9 +1367,9 @@ def train_kernel_phase(captured):
         f"max err {max(m['max_abs_err'] for m in conv_dx):.3g}; mirrored K2 "
         f"vs plain {max(m['mirrored_k2_err'] for m in conv_dx):.3g}")
     rows["conv_weight_grad"]["shares"] = _shares(res["conv_weight_grad"])
-    return rows, k4_row, k2_row, {"calls": dict(res, gather_rows=k4,
-                                                subm_conv=k2),
-                                  "conv_dx": conv_dx}
+    return rows, k4_row, k2_row, k3_row, {
+        "calls": dict(res, gather_rows=k4, subm_conv=k2),
+        "conv_dx": conv_dx}
 
 
 def conv_step_row(tag, label, calls):
@@ -1749,9 +1849,9 @@ def mp_reference_phase(engine, row):
 
 def check_smallc_bwd(idx, n, C, seed, timing):
     """K10 on a captured index with a seeded cotangent of C channels:
-    within 1e-4 * max|plain| (atomics); times against the plain version
-    and one index_add_ whose sentinel rows land in a spare row per
-    cloud."""
+    within 1e-4 * max|plain| (atomics); event and profiler device times
+    against the plain version and one index_add_ whose sentinel rows land
+    in a spare row per cloud."""
     B, M = idx.shape
     gen = torch.Generator(device=idx.device).manual_seed(seed)
     g = torch.randn(B, M, C, generator=gen, device=idx.device)
@@ -1762,7 +1862,9 @@ def check_smallc_bwd(idx, n, C, seed, timing):
     bound_ms, t_b, t_f = _bound(4 * (g.numel() + B * n * C) +
                                 idx.numel() * idx.element_size(), g.numel())
     return {"shape": [B, M, C, n], "max_abs_err": err,
-            "ms": cuda_ms(run, **timing), "plain_ms": cuda_ms(plain, **timing),
+            "ms": cuda_ms(run, **timing),
+            "device_ms": device_ms(run, "scatter_smallc_add_kernel"),
+            "plain_ms": cuda_ms(plain, **timing),
             "library_ms": cuda_ms(_index_add(g, idx, n), **timing),
             "bound_ms": bound_ms, "bytes_s": t_b, "flops_s": t_f}
 
@@ -1800,7 +1902,8 @@ def mp_kernel_phase(captured_fwd, captured_step):
         log_gathers("mp-kernels", f"K9 per {name}", k9)
         for r in k10:
             log(f"[mp-kernels] K10 per {name}: {r['shape']} max_abs_err "
-                f"{r['max_abs_err']:.3g}, {r['ms']:.4f} ms (plain "
+                f"{r['max_abs_err']:.3g}, {r['ms']:.4f} ms (device "
+                f"{r['device_ms']}; plain "
                 f"{r['plain_ms']:.4f}, library {r['library_ms']:.4f}, bound "
                 f"{r['bound_ms']:.4f})")
         k9_row = dict(_row(k9), device_ms=_total(r["device_ms"] for r in k9))
@@ -1808,7 +1911,8 @@ def mp_kernel_phase(captured_fwd, captured_step):
             rows["gather_rows_smallc"] = k9_row
         else:
             rows["gather_rows_smallc"]["train_step"] = k9_row
-            rows["scatter_rows_smallc_add"] = _row(k10[:1])
+            rows["scatter_rows_smallc_add"] = dict(
+                _row(k10[:1]), device_ms=k10[0]["device_ms"])
     return rows, detail
 
 
@@ -1902,6 +2006,12 @@ def main():
     cuda_lib.library()
     log(f"[build] kernels built and loaded in "
         f"{time.perf_counter() - t0:.2f} s")
+    for name, use in sorted(ptxas_usage().items()):
+        m = re.search(r"\d((?:patch_attention|stem_conv|attn_drop)\w*?"
+                      r"_kernel)(?:ILi(\d+)E)?", name)
+        if m:
+            log(f"[build] ptxas {m.group(1)}"
+                f"{'<' + m.group(2) + '>' if m.group(2) else ''}: {use}")
 
     t0 = time.perf_counter()
     actioner = Actioner(CONFIG, cli_opts=CLI_OPTS, device="cuda", seed=0)
@@ -1934,10 +2044,11 @@ def main():
     training, train_launches = training_phase(trainer, host[1:], out_dir)
     training["host_batch_ms"] = data_ms
     del trainer
-    train_rows, k4_step, k2_step, train_detail = train_kernel_phase(
-        captured)
+    train_rows, k4_step, k2_step, k3_step, train_detail = \
+        train_kernel_phase(captured)
     rows["gather_rows"]["train_step"] = k4_step
     rows["subm_conv"]["train_step"] = k2_step
+    rows["stem_conv"]["train_step"] = k3_step
     del captured
     step_check = step_check_phase(host[0])
     entry = entry_phase()

@@ -1,108 +1,129 @@
 // K1: serialized patch attention, forward (inference)
 //   out[g, h] = softmax(where(key_valid[g], (q[g, h] * scale) k[g, h]^T,
 //                             -1e9)) v[g, h]
-// q, k, v, out: (G, H, P, Dh) fp32; key_valid: (G, P) bool (1 byte each).
+// q, k, v, out: (G, H, P <= 128, Dh in {8, 16, 24, 32}) fp32, k and v
+// 16-byte aligned; key_valid: (G, P) bool (1 byte each).
 //
 // Replaces robot3dlotus_tpu/ops/pallas_attention.py `patch_attention`
 // (_forward / _attn_kernel), where one grid step held one (patch, head)
 // tile in VMEM and ran both products on the MXU.
 //
-// Bound: at the release shapes (P = 128, Dh = 32 or 24) the kernel does
-// 4 P Dh flops per query row against 16 Dh bytes of q/k/v/out traffic, so
-// on the fp32 (non-tensor-core) rate of 67 TFLOP/s it is bound by
-// operations, not by the 3.35 TB/s memory. Design (simple first): one
-// block per (g, h) with one thread per query row. K and V of the patch
-// (2 x 128 x 32 x 4 B = 32 KB) and the key mask sit in shared memory and
-// every thread walks the keys in lockstep, so each shared read is a
-// broadcast. Two passes over the keys (max, then exp-sum and the P.V
-// accumulation) keep the softmax max-subtracted in fp32 without holding
-// 128 logits in registers. A fully masked patch gives uniform weights, as
-// the plain version does (every logit is -1e9). wgmma tiles and one block
-// per patch for all heads are later work.
+// Bound: 4 P^2 Dh flops per (g, h) against 16 P Dh bytes of q/k/v/out.
+// The products run on the tensor cores as 3xTF32 (3 TF32 products for
+// each fp32 one, 494.7 TFLOP/s), where the bytes bound a release call.
+// At B = 1 a call holds only G H = 64-72 patches: one block per patch, as
+// the first SIMT design had, leaves half the 132 SMs idle and is
+// latency-bound.
+//
+// Design: each (g, h) patch's query rows are split over `splits` blocks
+// of `warps` warps (ops/attention.py attention_query_split picks them so
+// that a B = 1 call launches two blocks or more per SM). Block s stages
+// the patch's K and V rows (32 KB at Dh = 32) in shared memory with
+// 16-byte cp.async (each lane prefetching its two q rows into L1 as they
+// land), and its warp w runs attention_tile.cuh's attend_rows,
+// the tile K5 runs, on query rows 16 (warps s + w) .. + 15: S for all P
+// keys in registers on the tensor cores, one max/exp/sum pass, then the
+// exps times v. Each block writes only its own rows: no reduction, no
+// atomics, the result bit-equal from launch to launch.
 #include <cuda_runtime.h>
-#include <math.h>
+#include <stdint.h>
+
+#include "attention_tile.cuh"
 
 namespace {
 
-constexpr int kMaxP = 128;
-constexpr float kNegInf = -1e9f;
+using r3dl::kMaxP;
+using r3dl::Layout;
+
+constexpr int kMaxWarps = kMaxP / 16;
+constexpr int kMaxThreads = 32 * kMaxWarps;
 
 template <int Dh>
-__global__ void patch_attention_kernel(const float* __restrict__ q,
-                                       const float* __restrict__ k,
-                                       const float* __restrict__ v,
-                                       const unsigned char* __restrict__ kv,
-                                       float* __restrict__ out, int H, int P,
-                                       float scale) {
-  extern __shared__ float smem[];
-  float* sk = smem;
-  float* sv = smem + P * Dh;
+size_t smem_bytes(int P) {
+  return 2 * (size_t)((P + 7) & ~7) * Layout<Dh>::S * sizeof(float);
+}
+
+template <int Dh>
+__global__ void __launch_bounds__(kMaxThreads, 2)
+patch_attention_kernel(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v,
+                       const unsigned char* __restrict__ kv,
+                       float* __restrict__ out, int H, int P, int splits,
+                       float scale) {
+  constexpr int S = Layout<Dh>::S;
+  constexpr int Q = Dh / 4;                // 16-byte pieces of a row
+  extern __shared__ float4 smem4[];
+  float* sk = reinterpret_cast<float*>(smem4);
+  const int P8 = (P + 7) & ~7;
+  float* sv = sk + P8 * S;
   __shared__ unsigned char smask[kMaxP];
 
-  const long long gh = blockIdx.x;
-  const long long g = gh / H;
+  const long long gh = blockIdx.x / splits;
+  const int s = blockIdx.x % splits;
   const long long base = gh * P * Dh;
-  for (int i = threadIdx.x; i < P * Dh; i += blockDim.x) {
-    sk[i] = k[base + i];
-    sv[i] = v[base + i];
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  // the patch's k and v rows; rows P..P8-1 zero-filled
+  for (int i = tid; i < P8 * Q; i += nthreads) {
+    const int r = i / Q, c = (i - r * Q) * 4;
+    const bool in = r < P;
+    const long long off = base + (long long)r * Dh + c;
+    r3dl::cp_async16(sk + r * S + c, in ? k + off : k, in);
+    r3dl::cp_async16(sv + r * S + c, in ? v + off : v, in);
   }
-  if (threadIdx.x < P) smask[threadIdx.x] = kv[g * P + threadIdx.x];
+  r3dl::cp_async_commit();
+  for (int j = tid; j < P; j += nthreads) smask[j] = kv[gh / H * P + j];
+  // this lane's two q rows into L1 while k and v land
+  const int row0 = (s * (nthreads >> 5) + (tid >> 5)) * 16;
+  const int lane = tid & 31;
+  const int qc = min(8 * (lane & 3), Dh - 1);
+  for (int r = row0 + (lane >> 2); r < min(P, row0 + 16); r += 8)
+    asm volatile("prefetch.global.L1 [%0];" ::"l"(q + base + r * Dh + qc));
+  r3dl::cp_async_wait<0>();
   __syncthreads();
 
-  const int p = threadIdx.x;
-  float qr[Dh];
-#pragma unroll
-  for (int d = 0; d < Dh; ++d) qr[d] = q[base + (long long)p * Dh + d] * scale;
-
-  float mx = -INFINITY;
-  for (int j = 0; j < P; ++j) {
-    float s = 0.f;
-#pragma unroll
-    for (int d = 0; d < Dh; ++d) s = fmaf(qr[d], sk[j * Dh + d], s);
-    mx = fmaxf(mx, smask[j] ? s : kNegInf);
-  }
-
-  float acc[Dh];
-#pragma unroll
-  for (int d = 0; d < Dh; ++d) acc[d] = 0.f;
-  float l = 0.f;
-  for (int j = 0; j < P; ++j) {
-    float s = 0.f;
-#pragma unroll
-    for (int d = 0; d < Dh; ++d) s = fmaf(qr[d], sk[j * Dh + d], s);
-    const float e = expf((smask[j] ? s : kNegInf) - mx);
-    l += e;
-#pragma unroll
-    for (int d = 0; d < Dh; ++d) acc[d] = fmaf(e, sv[j * Dh + d], acc[d]);
-  }
-  const float inv = 1.f / l;
-#pragma unroll
-  for (int d = 0; d < Dh; ++d) out[base + (long long)p * Dh + d] = acc[d] * inv;
+  if (row0 >= P) return;
+  r3dl::attend_rows<Dh, false>(q + base, out + base, nullptr, sk, sv, smask,
+                               nullptr, 0, row0, P, scale, 1.f);
 }
 
 template <int Dh>
 int launch(const float* q, const float* k, const float* v,
            const unsigned char* kv, float* out, int G, int H, int P,
-           float scale, cudaStream_t stream) {
-  const size_t smem = 2 * (size_t)P * Dh * sizeof(float);
-  patch_attention_kernel<Dh><<<(unsigned)((long long)G * H), P, smem,
-                               stream>>>(q, k, v, kv, out, H, P, scale);
+           int warps, int splits, float scale, cudaStream_t stream) {
+  static const cudaError_t attr =
+      r3dl::allow_smem(patch_attention_kernel<Dh>, smem_bytes<Dh>(kMaxP));
+  if (attr != cudaSuccess) return (int)attr;
+  patch_attention_kernel<Dh><<<(unsigned)((long long)G * H * splits),
+                               32 * warps, smem_bytes<Dh>(P), stream>>>(
+      q, k, v, kv, out, H, P, splits, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// warps: 1..8 warps of 16 query rows a block; splits: blocks per (g, h),
+// with 16 warps splits >= P (ops/attention.py attention_query_split).
 extern "C" int r3dl_patch_attention(const float* q, const float* k,
                                     const float* v, const unsigned char* kv,
                                     float* out, int G, int H, int P, int Dh,
-                                    float scale, cudaStream_t stream) {
-  if (P < 1 || P > kMaxP) return (int)cudaErrorInvalidValue;
+                                    int warps, int splits, float scale,
+                                    cudaStream_t stream) {
+  if (P < 1 || P > kMaxP || warps < 1 || warps > kMaxWarps || splits < 1 ||
+      16 * warps * splits < P ||
+      (long long)G * H * splits > 0x7fffffffLL ||
+      (((uintptr_t)k | (uintptr_t)v) & 15))
+    return (int)cudaErrorInvalidValue;
   if ((long long)G * H == 0) return (int)cudaGetLastError();
   switch (Dh) {
-    case 8: return launch<8>(q, k, v, kv, out, G, H, P, scale, stream);
-    case 16: return launch<16>(q, k, v, kv, out, G, H, P, scale, stream);
-    case 24: return launch<24>(q, k, v, kv, out, G, H, P, scale, stream);
-    case 32: return launch<32>(q, k, v, kv, out, G, H, P, scale, stream);
+    case 8: return launch<8>(q, k, v, kv, out, G, H, P, warps, splits, scale,
+                             stream);
+    case 16: return launch<16>(q, k, v, kv, out, G, H, P, warps, splits,
+                               scale, stream);
+    case 24: return launch<24>(q, k, v, kv, out, G, H, P, warps, splits,
+                               scale, stream);
+    case 32: return launch<32>(q, k, v, kv, out, G, H, P, warps, splits,
+                               scale, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

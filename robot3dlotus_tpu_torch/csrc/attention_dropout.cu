@@ -35,16 +35,11 @@
 // mma.sync.m16n8k8 TF32 with each fp32 operand split as x = big + small
 // and big*big + big*small + small*big summed in fp32 (tc_common.cuh, as in
 // the conv kernels): errors at the fp32 level, where one TF32 product
-// would miss the 1e-4 bar. A
-// C fragment of one product is the A fragment of the next with no
-// shuffle: the k index of an 8-wide step is permuted so that A column t is
-// element 2t and column t + 4 is element 2t + 1, which is where the
-// accumulator holds them. Shared-memory rows are padded so that every
-// fragment load is free of bank conflicts.
-// K5: warp w owns query rows 16w..16w+15; S = (q scale) k^T for all P keys
-// in registers (64 floats a thread), the row max, exp and sum once (each
-// logit computed once: with P <= 128 one key tile is the whole row), the
-// kept exps times v, scaled by 1 / ((1 - rate) l) at the end.
+// would miss the 1e-4 bar.
+// K5: warp w owns query rows 16w..16w+15 and runs attention_tile.cuh's
+// attend_rows on them, the tile K1 (attention.cu) runs too: S for all P
+// keys in registers, the row max, exp and sum once, the kept exps times v,
+// scaled by 1 / ((1 - rate) l) at the end.
 // K6: phase 1, warp w owns keys 16w..16w+15 and walks the queries in
 // 8-query steps: S^T = k (q scale)^T and dP^T = v g^T, then
 // p = exp(S - lse), da = keep dP / (1 - rate), ds = p (da - D) with
@@ -63,19 +58,19 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "tc_common.cuh"
+#include "attention_tile.cuh"
 
 namespace {
 
-using r3dl::Split;
-using r3dl::split;
+using r3dl::FragA;
+using r3dl::kFull;
+using r3dl::kMaxP;
+using r3dl::Layout;
+using r3dl::mma3;
 
-constexpr int kMaxP = 128;
 constexpr int kWarps = 8;                 // 8 warps x 16 rows = kMaxP
 constexpr int kThreads = 32 * kWarps;
 constexpr int kMaxWords = kMaxP / 32;     // bit words per row
-constexpr float kNegInf = -1e9f;
-constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0,
                                                uint32_t k1) {
@@ -131,42 +126,6 @@ __device__ uint32_t keep_word(int i, int j0, int n, int P, uint32_t seed,
   return word;
 }
 
-// ---- 3xTF32 mma.sync.m16n8k8 (tc_common.cuh) ----
-
-// An A fragment (16 x 8) split once, used against several B fragments.
-struct FragA {
-  Split s[4];
-  __device__ __forceinline__ FragA(float a0, float a1, float a2, float a3)
-      : s{split(a0), split(a1), split(a2), split(a3)} {}
-};
-
-// d += a b in 3xTF32; b0, b1: this lane's B fragment in fp32 (the
-// fragment layouts are in tc_common.cuh).
-__device__ __forceinline__ void mma3(float (&d)[4], const FragA& a, float b0,
-                                     float b1) {
-  const Split b[2] = {split(b0), split(b1)};
-  r3dl::mma3(d, a.s, b);
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(kFull, x, 1));
-  return fmaxf(x, __shfl_xor_sync(kFull, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(kFull, x, 1);
-  return x + __shfl_xor_sync(kFull, x, 2);
-}
-
-// Row strides in floats. Dh + 4: a load at (row r, col c) or at
-// (row 2c, col r) hits 32 distinct banks. kStrideB: (row c, col r).
-template <int Dh>
-struct Layout {
-  static constexpr int S = Dh + 4;
-  static constexpr int SB = Dh % 16 == 8 ? Dh : Dh + 8;   // 8 or 24 mod 32
-  static constexpr int DS = kMaxP + 4;
-};
-
 // rows [0, P8) of a (P, Dh) slice into shared memory at stride S; rows
 // P..P8-1 zero (the ragged 8-row tile)
 template <int Dh>
@@ -194,7 +153,6 @@ attn_drop_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      uint32_t* __restrict__ bits, int H, int P, float scale,
                      uint32_t seed, uint32_t thresh, float inv_keep) {
   constexpr int S = Layout<Dh>::S;
-  constexpr int KD = Dh / 8;
   extern __shared__ float smem[];
   float* sk = smem;
   float* sv = sk + kMaxP * S;
@@ -203,7 +161,6 @@ attn_drop_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const int W = (P + 31) >> 5;
   const int P8 = (P + 7) & ~7;
-  const int nt = P8 >> 3;                  // 8-key tiles
   const long long gh = blockIdx.x;
   const long long base = gh * P * Dh;
   const int tid = threadIdx.x;
@@ -219,107 +176,11 @@ attn_drop_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
   __syncthreads();
 
-  const int warp = tid >> 5, lane = tid & 31;
-  const int gr = lane >> 2, t = lane & 3;
+  const int warp = tid >> 5;
   if (warp * 16 >= P) return;
-  const int r0 = warp * 16 + gr, r1 = r0 + 8;   // this lane's query rows
-  const float* q0 = q + base + (long long)r0 * Dh;
-  const float* q1 = q + base + (long long)r1 * Dh;
-
-  // S = (q scale) k^T: s[n] is the 16 x 8 tile of keys 8n..8n+7
-  float s[kMaxP / 8][4];
-#pragma unroll
-  for (int n = 0; n < kMaxP / 8; ++n)
-    s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < KD; ++kk) {
-    const int d = kk * 8 + t;
-    const FragA a(r0 < P ? q0[d] * scale : 0.f, r1 < P ? q1[d] * scale : 0.f,
-                  r0 < P ? q0[d + 4] * scale : 0.f,
-                  r1 < P ? q1[d + 4] * scale : 0.f);
-#pragma unroll
-    for (int n = 0; n < kMaxP / 8; ++n) {
-      if (n < nt) {
-        const float* kr = sk + (n * 8 + gr) * S + kk * 8 + t;
-        mma3(s[n], a, kr[0], kr[4]);
-      }
-    }
-  }
-
-  // masked logits, row max, exps and row sums (over every key), then the
-  // dropped exps in place
-  float m0 = -INFINITY, m1 = -INFINITY;
-#pragma unroll
-  for (int n = 0; n < kMaxP / 8; ++n) {
-    if (n < nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = n * 8 + 2 * t + (e & 1);
-        const float x = j >= P ? -INFINITY : smask[j] ? s[n][e] : kNegInf;
-        s[n][e] = x;
-        if (e < 2) m0 = fmaxf(m0, x);
-        else m1 = fmaxf(m1, x);
-      }
-    }
-  }
-  m0 = quad_max(m0);
-  m1 = quad_max(m1);
-  float l0 = 0.f, l1 = 0.f;
-  const uint32_t* b0 = sbits + r0 * W;
-  const uint32_t* b1 = sbits + r1 * W;
-#pragma unroll
-  for (int n = 0; n < kMaxP / 8; ++n) {
-    if (n < nt) {
-      const int sh = (n & 3) * 8 + 2 * t;
-      const uint32_t w0 = b0[n >> 2] >> sh, w1 = b1[n >> 2] >> sh;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float x = __expf(s[n][e] - (e < 2 ? m0 : m1));
-        if (e < 2) l0 += x;
-        else l1 += x;
-        const uint32_t w = e < 2 ? w0 : w1;
-        s[n][e] = (w >> (e & 1)) & 1u ? x : 0.f;
-      }
-    }
-  }
-  l0 = quad_sum(l0);
-  l1 = quad_sum(l1);
-
-  // out = (dropped exps) v: the S tile's C fragment is the A fragment of
-  // its 8 keys, key 2t as column t and key 2t + 1 as column t + 4
-  float o[KD][4];
-#pragma unroll
-  for (int m = 0; m < KD; ++m) o[m][0] = o[m][1] = o[m][2] = o[m][3] = 0.f;
-#pragma unroll
-  for (int n = 0; n < kMaxP / 8; ++n) {
-    if (n < nt) {
-      const FragA a(s[n][0], s[n][2], s[n][1], s[n][3]);
-#pragma unroll
-      for (int m = 0; m < KD; ++m) {
-        const float* vr = sv + (n * 8 + 2 * t) * S + m * 8 + gr;
-        mma3(o[m], a, vr[0], vr[S]);
-      }
-    }
-  }
-  const float f0 = inv_keep / l0, f1 = inv_keep / l1;
-  float* o0 = out + base + (long long)r0 * Dh;
-  float* o1 = out + base + (long long)r1 * Dh;
-#pragma unroll
-  for (int m = 0; m < KD; ++m) {
-    const int c = m * 8 + 2 * t;
-    if (r0 < P) {
-      o0[c] = o[m][0] * f0;
-      o0[c + 1] = o[m][1] * f0;
-    }
-    if (r1 < P) {
-      o1[c] = o[m][2] * f1;
-      o1[c + 1] = o[m][3] * f1;
-    }
-  }
-  if (t == 0) {
-    if (r0 < P) lse[gh * P + r0] = m0 + logf(l0);
-    if (r1 < P) lse[gh * P + r1] = m1 + logf(l1);
-  }
+  r3dl::attend_rows<Dh, true>(q + base, out + base, lse + gh * P, sk, sv,
+                              smask, sbits, W, warp * 16, P, scale,
+                              inv_keep);
 }
 
 template <int Dh>

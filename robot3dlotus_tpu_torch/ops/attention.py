@@ -18,20 +18,25 @@ patch_attention_dropout_bwd) reads them with out and the cotangent: no
 logit is recomputed for statistics and no random bit is drawn again.
 
 The CUDA kernels are csrc/attention.cu (K1) and csrc/attention_dropout.cu
-(K5, K6). The plain versions are the path for CPU tensors and the
-kernels' oracles; patch_attention_dropout_plain and
-patch_attention_dropout_vjp_plain take the keep mask as a (G, H, P, P)
-bool tensor.
+(K5, K6); K1 and K5 run one forward tile (csrc/attention_tile.cuh), and
+K1 splits each patch's query rows over blocks by attention_query_split.
+The plain versions are the path for CPU tensors and the kernels' oracles;
+patch_attention_dropout_plain and patch_attention_dropout_vjp_plain take
+the keep mask as a (G, H, P, P) bool tensor.
 """
 from __future__ import annotations
 
 import torch
 
 from . import cuda_lib
+from .conv import _aligned
 
 NEG_INF = -1e9
 KERNEL_HEAD_DIMS = (8, 16, 24, 32)
 KERNEL_MAX_PATCH = 128
+QUERY_ROWS = 16                    # query rows per warp (the mma's m)
+ATTN_MAX_WARPS = KERNEL_MAX_PATCH // QUERY_ROWS
+ATTN_TARGET_BLOCKS = 128           # about one block per SM of the H100
 
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
 _PHILOX_W = (0x9E3779B9, 0xBB67AE85)
@@ -202,6 +207,23 @@ def _check_attention(name, q, k, v, key_valid, *more):
     return G, H, P, Dh
 
 
+def attention_query_split(G, H, P):
+    """K1's (warps, splits): block s of patch (g, h) runs `warps` warps on
+    its query rows [QUERY_ROWS warps s, QUERY_ROWS warps (s + 1)), one
+    16-row group a warp, `splits` blocks a patch. The largest block that
+    still launches about one block per SM (ATTN_TARGET_BLOCKS); one warp a
+    block when none does. Each block loads its patch's K and V (32 KB), so
+    smaller blocks than that cost more than the SMs they fill (a B = 1
+    call of G H = 64: 4 warps, 128 blocks)."""
+    groups = -(-P // QUERY_ROWS)
+    warps = 1
+    for w in (8, 4, 2):
+        if w <= groups and G * H * -(-groups // w) >= ATTN_TARGET_BLOCKS:
+            warps = w
+            break
+    return warps, -(-groups // warps)
+
+
 def patch_attention(q, k, v, key_valid, scale):
     """Masked per-patch attention: the CUDA kernel (K1) for CUDA tensors,
     the plain version for CPU tensors. K1 has no backward: a CUDA call that
@@ -212,11 +234,24 @@ def patch_attention(q, k, v, key_valid, scale):
                                     v.requires_grad):
         raise RuntimeError("patch_attention (K1) has no backward; use "
                            "patch_attention_dropout for a gradient")
+    G, H, P, _ = q.shape
+    return patch_attention_split(q, k, v, key_valid, scale,
+                                 *attention_query_split(G, H, P))
+
+
+def patch_attention_split(q, k, v, key_valid, scale, warps, splits):
+    """K1 on CUDA tensors with a given query split (attention_query_split
+    gives patch_attention's); one launch."""
     G, H, P, Dh = _check_attention("patch_attention", q, k, v, key_valid)
+    if not 1 <= warps <= ATTN_MAX_WARPS or splits < 1 or \
+            QUERY_ROWS * warps * splits < P:
+        raise ValueError(f"patch_attention: split ({warps} warps, {splits} "
+                         f"blocks) does not cover {P} query rows")
     out = torch.empty_like(q)
+    k, v = _aligned(k), _aligned(v)
     cuda_lib.launch("patch_attention", "r3dl_patch_attention", q.data_ptr(),
                     k.data_ptr(), v.data_ptr(), key_valid.data_ptr(),
-                    out.data_ptr(), G, H, P, Dh, float(scale))
+                    out.data_ptr(), G, H, P, Dh, warps, splits, float(scale))
     return out
 
 

@@ -5,7 +5,9 @@ each entry point takes raw device pointers, sizes and a cudaStream_t and
 returns cudaGetLastError(). At first use every source is compiled by its
 own nvcc process, all started together, for sm_90a; the objects are linked
 into one shared library under build/kernels/ (named by a hash of the
-sources and flags, so an edited source rebuilds) and loaded with ctypes
+sources and flags, so an edited source rebuilds; `nvcc -Xptxas -v`'s
+register and spill counts beside it, in a .ptxas.txt) and loaded with
+ctypes
 as a PyDLL: a call holds the GIL for its few microseconds of launch
 instead of releasing and taking it back.
 Nothing here runs at import time, and nothing falls back: a failed build
@@ -46,8 +48,9 @@ SIGNATURES = {
     "r3dl_scatter_rows_add": _GATHER,
     "r3dl_gather_smallc": _GATHER,
     "r3dl_scatter_smallc_add": _GATHER,
-    # q, k, v, key_valid, out, G, H, P, Dh, scale, stream
-    "r3dl_patch_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # q, k, v, key_valid, out, G, H, P, Dh, warps, splits, scale, stream
+    "r3dl_patch_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                             _P],
     # q, k, v, key_valid, out, lse, bits, G, H, P, Dh, scale, seed, thresh,
     # inv_keep, stream
     "r3dl_attention_dropout_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
@@ -64,8 +67,10 @@ SIGNATURES = {
     # rows_per_split, work_bytes, stream
     "r3dl_conv_weight_grad": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                               _I, _L, _L, _P],
-    # x, idx, ok, w, out, B, N, K, Cin, Cout, stream
-    "r3dl_stem_conv": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, idx, ok, w, out, work|NULL, B, N, K, Cin, Cout, cols, warps,
+    # splits, blocks, work_bytes, stream
+    "r3dl_stem_conv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                       _I, _I, _L, _P],
 }
 
 # K1-K10 by wrapper name
@@ -113,15 +118,19 @@ def build():
             obj = os.path.join(tmp, os.path.basename(src) + ".o")
             objs.append(obj)
             procs.append((src, subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-I", CSRC, "-c", src, "-o", obj],
+                [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-I", CSRC, "-c", src,
+                 "-o", obj],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-        failed = []
+        failed, logs = [], []
         for src, p in procs:
             out, _ = p.communicate()
+            logs.append(out)
             if p.returncode != 0:
                 failed.append(f"{src} (rc={p.returncode}):\n{out[-4000:]}")
         if failed:
             raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        with open(so[:-3] + ".ptxas.txt", "w") as f:
+            f.write("".join(logs))
         tmp_so = os.path.join(tmp, "lib.so")
         link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", *objs,
                                "-o", tmp_so], capture_output=True, text=True)

@@ -44,16 +44,30 @@ def _check(got, want):
     assert float((got - want).abs().max()) <= TOL * scale
 
 
-@pytest.mark.parametrize("G,H,Dh", [(32, 2, 32), (2, 32, 24), (4, 16, 32)])
-def test_k1_patch_attention(dev, G, H, Dh):
-    g = torch.Generator().manual_seed(0)
-    q, k, v = (torch.randn(G, H, 128, Dh, generator=g).to(dev)
+@pytest.mark.parametrize("Dh", [8, 16, 24, 32])
+@pytest.mark.parametrize("P", [128, 48, 37])
+@pytest.mark.parametrize("G,H", [(32, 2), (2, 32), (128, 2)])
+def test_k1_patch_attention(dev, G, H, P, Dh):
+    """K1 at B = 1 ((32, 2): stage 0; (2, 32): stage 4) and B = 4 patch
+    counts, ragged P, patch 0 with no valid key: the wrapper's query split
+    and every split forced (1, 2, 4, 8 warps a block) within the bar of the
+    plain version, bit-equal across two launches and across splits (each
+    query row's arithmetic does not depend on its block)."""
+    g = torch.Generator().manual_seed(G + P + Dh)
+    q, k, v = (torch.randn(G, H, P, Dh, generator=g).to(dev)
                for _ in range(3))
-    kv = (torch.rand(G, 128, generator=g) > 0.2).to(dev)
+    kv = (torch.rand(G, P, generator=g) > 0.2).to(dev)
     kv[0] = False                      # fully masked: uniform weights
     args = (q, k, v, kv, Dh ** -0.5)
-    _check(attention.patch_attention(*args),
-           attention.patch_attention_plain(*args))
+    got = _twice(lambda: attention.patch_attention(*args), "patch_attention")
+    want = attention.patch_attention_plain(*args)
+    _check(got, want)
+    _check(got[0], v[0].mean(1, keepdim=True).expand(H, P, Dh))
+    groups = -(-P // 16)
+    for warps in (1, 2, 4, 8):
+        split = attention.patch_attention_split(*args, warps,
+                                                -(-groups // warps))
+        assert torch.equal(split, got)
 
 
 @pytest.mark.parametrize("C", [64, 256, 768])
@@ -68,14 +82,71 @@ def test_k2_subm_conv(dev, C):
     _check(conv.subm_conv(*args), conv.subm_conv_plain(*args))
 
 
-def test_k3_stem_conv(dev):
-    rng = np.random.RandomState(2)
-    gc, mask = _cloud(rng)
-    nm = build_neighbor_map(gc.to(dev), mask.to(dev), 5, 5, extent=128)
-    x = torch.from_numpy(rng.randn(2, 512, 7).astype(np.float32)).to(dev)
-    w = torch.from_numpy((rng.randn(125, 7, 64) * 0.1).astype(np.float32))
-    args = (x, nm.idx, nm.ok, w.to(dev))
-    _check(stem.stem_conv(*args), stem.stem_conv_plain(*args))
+def _stem_map(rng, dev, kind, B, N):
+    """A (B, N, 125) map: 'none' no live link, 'one' a single one (row N - 1
+    of the last cloud, tap 3, onto row 5), 'all' every link live onto random
+    rows, 'release' the k = 5 neighbours of a cloud of voxels on a table
+    and a box, rows sorted by coordinate as a serialized cloud's are."""
+    K = 125
+    if kind == "release":
+        pts = np.concatenate([
+            np.stack([rng.randint(0, 60, N), rng.randint(0, 60, N),
+                      np.zeros(N, int)], -1),
+            np.stack([rng.randint(20, 30, N), rng.randint(20, 30, N),
+                      rng.randint(0, 25, N)], -1)])
+        clouds = [pts[rng.permutation(len(pts))[:N]] for _ in range(B)]
+        gc = np.stack([c[np.lexsort(c.T[::-1])] for c in clouds]).astype(
+            np.int32)             # rows in (x, y, z) order
+        mask = np.ones((B, N), bool)
+        mask[-1, N - 50:] = False
+        nm = build_neighbor_map(torch.from_numpy(gc).to(dev),
+                                torch.from_numpy(mask).to(dev), 5, 7,
+                                extent=128)
+        return nm.idx, nm.ok
+    idx = torch.from_numpy(rng.randint(0, N, (B, N, K)).astype(np.int32))
+    ok = torch.zeros(B, N, K, dtype=torch.bool)
+    if kind == "all":
+        ok[:] = True
+    elif kind == "one":
+        ok[-1, N - 1, 3] = True
+        idx[-1, N - 1, 3] = 5
+    return idx.to(dev), ok.to(dev)
+
+
+@pytest.mark.parametrize("kind", ["none", "one", "all", "release"])
+@pytest.mark.parametrize("cin,cout", [(7, 64), (8, 64), (7, 48), (8, 48)])
+@pytest.mark.parametrize("B", [1, 4, 32])
+def test_k3_stem_conv(dev, B, cin, cout, kind):
+    """K3 at the B = 1 (tap ranges), B = 4 and B = 32 (training: 8-warp
+    blocks, one range) plans of 4096-point clouds, on maps with no live
+    link, one, all and a release-like one: within the bar of the plain
+    version and bit-equal across two launches, one count per call."""
+    rng = np.random.RandomState(B + cin + cout)
+    N = 4096
+    idx, ok = _stem_map(rng, dev, kind, B, N)
+    x = _randn(rng, dev, B, N, cin)
+    w = _randn(rng, dev, 125, cin, cout, scale=0.1)
+    got = _twice(lambda: stem.stem_conv(x, idx, ok, w), "stem_conv")
+    _check(got, stem.stem_conv_plain(x, idx, ok, w))
+    if kind == "none":
+        assert not got.any()
+
+
+@pytest.mark.parametrize("cols,warps,splits,blocks", [
+    (64, 1, 1, 125), (64, 2, 16, 63), (64, 4, 3, 32), (32, 8, 5, 16),
+    (64, 16, 1, 3), (32, 16, 1, 132)])
+def test_k3_stem_conv_plans(dev, cols, warps, splits, blocks):
+    """K3 with each plan forced (ops/stem.py stem_conv_plan's fields): block
+    shapes, tap-range counts, 32 and 64 columns a block, and few blocks
+    whose warps walk many row groups; on a release-like map of 2 clouds x
+    1000 points (a 16-row group that straddles the two clouds) and Cout =
+    68 (a ragged last column tile)."""
+    rng = np.random.RandomState(warps * 17 + splits + cols)
+    idx, ok = _stem_map(rng, dev, "release", 2, 1000)
+    x = _randn(rng, dev, 2, 1000, 7)
+    w = _randn(rng, dev, 125, 7, 68, scale=0.1)
+    _check(stem.stem_conv_split(x, idx, ok, w, cols, warps, splits, blocks),
+           stem.stem_conv_plain(x, idx, ok, w))
 
 
 def _sentinel_idx(rng, B, M, N, dtype):
