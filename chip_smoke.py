@@ -6,7 +6,7 @@
 Phases, each of which raises on failure (exit code != 0, no result line):
   1. build   the hand-written kernels K1-K10 from robot3dlotus_tpu_torch/csrc
              (one nvcc per source, all started together) and load them;
-             ptxas's registers and spills of K1, K3, K5 and K6 logged;
+             ptxas's registers and spills of K1, K3, K5, K6 and K10 logged;
   2. capture one `Actioner.predict` at the release width (4096 points) and
              one `predict_batch` of 4 with recorders on the kernel call
              sites, keeping every kernel input the main path produces;
@@ -66,9 +66,20 @@ Phases, each of which raises on failure (exit code != 0, no result line):
              logged); K2's 9 forward and 9 mirrored dx launches and K7,
              each bit-equal across two launches, timed (events and
              profiler) against their plain versions and their TF32 and
-             fp32 SIMT bounds; K3's forward on the step's B = 32 stem call
-             as in phase 3; K8's device time on the profiler;
- 10. step-check one step at dropout 0 with injected order permutations on
+             fp32 SIMT bounds (K2's 18 launches also by events queued
+             behind a spin kernel; K7 beside an im2col gather + matmul);
+             K3's forward on the step's B = 32 stem call as in phase 3;
+             K8's device time on the profiler;
+ 10. stem-vjp  the stem conv's input gradient on the step's captured stem
+             call (B = 32): launch counters to 0, stem_conv forward and
+             backward with x and W requiring gradients, counters read (one
+             K3, one K7, one K10: G = g W^T by one matmul, then K10 onto x
+             with dead links at the sentinel), peak memory; dx and dW
+             against the CPU run (autograd of stem_conv_plain) within
+             1e-4 * max|ref|; K10 on the call's operands (C = 7) against
+             its plain version, timed (events, profiler) beside its bound,
+             index_add_ and scatter_add_;
+ 11. step-check one step at dropout 0 with injected order permutations on
              each of CHECK_SLICES B = 2 slices of the same batch, the same
              weights, on the card and on the CPU (plain versions): losses,
              every updated parameter and running statistic, every
@@ -77,17 +88,17 @@ Phases, each of which raises on failure (exit code != 0, no result line):
              that slice, and every gradient must be held on some slice; at
              a leaky-ReLU pre-activation within 1e-4 max|z| of the kink
              (a tie) the CPU follows the card's branch;
- 11. entry     train_simple_policy.main on the card for ENTRY_STEPS steps
+ 12. entry     train_simple_policy.main on the card for ENTRY_STEPS steps
              (launch counters to 0 before, read after against the per-step
              counts; logged losses finite); the end-to-end training rate,
              host batches included, over the second half.
 Then the 3D-LOTUS++ motion planner (release motion_planner_ptv3.yaml,
 seeded weights) behind the ground-truth pipeline (robot_pipeline_gt.yaml):
- 12. mp-capture   one GroundtruthRobotPipeline.predict on a synthetic
+ 13. mp-capture   one GroundtruthRobotPipeline.predict on a synthetic
              observation with gt_mask images (4096 points), recorders on the
              K9 call sites (the stage-0 entry sort, the categorical stem)
-             and the convs (K2, held against its plain version in 14);
- 13. mp-serving   launch counters to 0, 4 pipeline requests of one episode,
+             and the convs (K2, held against its plain version in 15);
+ 14. mp-serving   launch counters to 0, 4 pipeline requests of one episode,
              each running the motion planner, counters read against
              MP_PER_FORWARD; MotionPlannerEngine.predict p50 with the host
              prep (GT vision, labels, text) apart from the device forward;
@@ -96,24 +107,31 @@ seeded weights) behind the ground-truth pipeline (robot_pipeline_gt.yaml):
              beside the other outputs); the card's trajectory logits against
              the same weights on the CPU (1e-3 * max(1, |ref|)), decoded
              actions finite;
- 14. mp-kernels   K9 on every captured call bit-equal to its plain version
+ 15. mp-kernels   K9 on every captured call bit-equal to its plain version
              (device time from the profiler beside the event time);
              K10 on the captured stem index with seeded cotangents at C = 5
              and C = 20 (<= 1e-4 * max|plain|); times (K10 also on the
-             profiler), bounds, library calls
+             profiler), bounds, library calls (K10: the faster of
+             index_add_ and scatter_add_)
              (at the forward's B = 1 and, from one captured training step,
              at B = 32); K2 on the request's 9 captured calls (within
              1e-4 * max(1, max|plain|), bit-equal across two launches);
- 15. mp-train     train_motion_planner's trainer on synthetic_motion, B = 32
+ 16. mp-train     train_motion_planner's trainer on synthetic_motion, B = 32
              clouds x 4096 points, release dropout: 5 steps with launch
              counts checked per step (MP_PER_STEP), step p50, clouds/s, peak
              memory, a profiler window (profile_mp_train.txt); then one
              more step captured, whose 9 convs hold and time K2 (forward
              and mirrored dx) and K7 per motion-planner step as phase 9;
- 16. mp-step-check  phase 10 for the motion planner, on MP_CHECK_SLICES
+ 17. mp-stem-vjp  the categorical stem's call of the first captured step
+             (B = 32) with its features, weight and label table requiring
+             gradients: launch counters to 0, forward and backward,
+             counters read (one K9, one K10 at C = 5), peak memory; the
+             three gradients against the CPU run within 1e-4 * max|ref|;
+ 18. mp-step-check  phase 11 for the motion planner, on MP_CHECK_SLICES
              slices;
- 17. mp-entry     train_motion_planner.main on the card for MP_ENTRY_STEPS
+ 19. mp-entry     train_motion_planner.main on the card for MP_ENTRY_STEPS
              steps, launch counts checked, logged losses finite.
+It fails if a kernel's main path (K10's: phase 10) launched it no time.
 It prints the kernels line, the card's name and power limit, and as its
 last line {"ok": true, "device": {...}}. It needs one CUDA card and exits
 non-zero without one.
@@ -208,8 +226,10 @@ PROFILE_STEPS = 2
 ENTRY_STEPS = 6   # train_simple_policy.main; the rate is read over the last 3
 # launches per training step of the release model: K2 9 forward + 9 dx;
 # K4 4 shuffled child entry sorts, 4 unpools; K9 the stage-0 entry sort of
-# the 7-channel input (its input is data: no K10); K7 9 CPE + the stem; K8
-# the backward of every K4 call and the owner sum of each of the 9 conv dx
+# the 7-channel input; K7 9 CPE + the stem; K8 the backward of every K4 call
+# and the owner sum of each of the 9 conv dx; no K10: the stem's input and
+# the entry sort's are data (the stem-vjp phase gives K10 its path: the
+# stem conv's input gradient)
 PER_STEP = {"subm_conv": 18, "stem_conv": 1, "gather_rows": 8,
             "gather_rows_smallc": 1, "scatter_rows_smallc_add": 0,
             "patch_attention_dropout": 9, "patch_attention_dropout_bwd": 9,
@@ -232,7 +252,8 @@ MP_PER_FORWARD = {"patch_attention": 9, "subm_conv": 9, "stem_conv": 0,
                   "patch_attention_dropout_bwd": 0}
 # per motion-planner training step: as the policy's, with K9 twice (entry
 # sort and stem), no K3, K7 for the 9 CPE only (the stem's dW is autograd
-# of its product) and no K10 (the stem gathers data)
+# of its product) and no K10 (the stem gathers data; the mp-stem-vjp phase
+# runs K10 with the stem's features requiring a gradient)
 MP_PER_STEP = dict(PER_STEP, stem_conv=0, gather_rows_smallc=2,
                    conv_weight_grad=9)
 TRAIN_KERNELS = ("patch_attention_dropout", "patch_attention_dropout_bwd",
@@ -252,7 +273,8 @@ MAX_KINKS = 4
 # device kernels of a training step by name, first match wins
 DEVICE_GROUPS = [
     ("K9/K10 small-C gather", ("gather_smallc_kernel",
-                               "scatter_smallc_add_kernel")),
+                               "scatter_smallc_kernel",
+                               "scatter_smallc_sum_kernel")),
     ("K7 conv_weight_grad", ("wgrad_", "sum_splits")),
     ("K2 subm_conv", ("subm_conv",)),
     ("K6 attention dropout bwd", ("attn_drop_bwd",)),
@@ -274,6 +296,8 @@ DEVICE_GROUPS = [
 K2_PROFILE = ("subm_conv_kernel", ("subm_conv_reduce",))
 K7_PROFILE = (("wgrad_tc_kernel", "wgrad_taps_kernel"),
               ("wgrad_compact", "sum_splits"))
+# K10: its main kernel and the ranges' in-order sum
+K10_PROFILE = ("scatter_smallc_kernel", ("scatter_smallc_sum_kernel",))
 
 
 def log(msg):
@@ -354,8 +378,9 @@ TRAIN_SITES = [(layers, "patch_attention_dropout", "attention"),
 # K9: the entry sort (gather.permute_rows_any) and the categorical stem
 SMALLC_SITES = [(gather, "gather_rows_smallc", "gather_rows_smallc"),
                 (sparse_conv, "gather_rows_smallc", "gather_rows_smallc")]
-# the motion planner's CPE convs (K2, K7)
+# the motion planner's CPE convs (K2, K7) and its categorical stem
 MP_CONV_SITES = [(sparse_conv, "subm_conv", "subm_conv")]
+MP_STEM_SITES = [(sparse_conv, "categorical_conv", "categorical_conv")]
 
 
 def capture(run, sites):
@@ -428,6 +453,29 @@ def device_ms(fn, name, reps=10, windows=5, also=()):
                            if isinstance(name, str) else name + tuple(also))
             return sum(_dev_us(e) for e in timed) / 1e3 / launches
     return None
+
+
+def device_ms_queued(fns, reps=2, spin_cycles=50_000_000):
+    """Device time of one pass over fns by CUDA events, every launch
+    queued behind a spin kernel (torch.cuda._sleep, ~25 ms) so that the
+    card runs them back to back whatever the host's pace: the time of a
+    group of calls where a profiler window (device_ms) recorded nothing
+    for one of them. None if the card had finished the spin before the
+    host queued the last call (the events would then hold host gaps)."""
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(spin_cycles)
+    start.record()
+    for _ in range(reps):
+        for fn in fns:
+            fn()
+    end.record()
+    queued = not start.query()
+    end.synchronize()
+    return start.elapsed_time(end) / reps if queued else None
 
 
 def _total(values):
@@ -510,6 +558,21 @@ def _im2col(x, idx, ok, w):
     w2 = w.reshape(K * Cin, Cout)
     return lambda: torch.matmul(
         torch.gather(x_pad, 1, sel).reshape(B, N, K * Cin), w2)
+
+
+def _im2col_wgrad(x, idx, ok, g):
+    """For reference only, K7's weight gradient as two PyTorch calls: the
+    dense gather of all K taps (dead links sent to an appended zero row)
+    and one (K Cin, B N) x (B N, Cout) matmul; the padded x and the index
+    are built here, outside the timed call."""
+    B, N, Cin = x.shape
+    K = idx.shape[-1]
+    x_pad = torch.cat([x, x.new_zeros(B, 1, Cin)], 1)
+    sel = torch.where(ok, idx.long(), N).reshape(B, N * K, 1).expand(
+        -1, -1, Cin)
+    g2 = g.reshape(B * N, -1)
+    return lambda: torch.matmul(
+        torch.gather(x_pad, 1, sel).reshape(B * N, K * Cin).t(), g2)
 
 
 def _conv_bytes(x, idx, w, cout):
@@ -1209,7 +1272,8 @@ def check_attention_train(call, log_sdpa=False):
 
 def check_weight_grad(call):
     """K7 on one captured conv or stem call (its x, map and the cotangent
-    of its output)."""
+    of its output), timed beside the im2col gather + matmul (two PyTorch
+    calls, for reference)."""
     (x, idx, ok, w, *_), g = call
     K, cin, cout = w.shape
     run = lambda: conv.conv_weight_grad(x, idx, ok, g)  # noqa: E731
@@ -1219,6 +1283,8 @@ def check_weight_grad(call):
     nbytes = 4 * (x.numel() + g.numel() + w.numel()) + 5 * idx.numel()
     return dict(_timed_tc(run, plain, None, nbytes,
                           2 * cin * cout * int(ok.sum()), *K7_PROFILE),
+                im2col_matmul_ms=cuda_ms(_im2col_wgrad(x, idx, ok, g),
+                                         **TRAIN_TIMING),
                 max_abs_err=err, shape=shape, shares=link_shares(ok),
                 pairs=ok.numel(),
                 splits=conv.weight_grad_plan(*shape)[0])
@@ -1230,8 +1296,8 @@ def check_conv_dx(call):
     subm_conv_plain) on every row; then the conv's two K2 launches of a
     training step, the forward and the mirrored weight on the owner sums,
     each against its plain version, bit-equal across two launches, and
-    timed. Returns the dx row, the K8 result of the owner scatter and the
-    two K2 results."""
+    timed. Returns the dx row, the K8 result of the owner scatter, the
+    two K2 results and the two K2 calls (for device_ms_queued)."""
     (x, idx, ok, w, bias), g = call
     B, N, cin = x.shape
     cout = w.shape[-1]
@@ -1251,10 +1317,11 @@ def check_conv_dx(call):
     gsum = gather.scatter_rows_add(gv, owner, N)
     wm = conv.mirror_weight(w)
     flops = 2 * cin * cout * int(ok.sum())
-    k2 = []
+    k2, runs = [], []
     for what, args, c_out in (("K2", (x, idx, ok, w, bias), cout),
                               ("mirrored K2", (gsum, idx, ok, wm), cin)):
         run = lambda a=args: conv.subm_conv(*a)  # noqa: E731
+        runs.append(run)
         plain = lambda a=args: conv.subm_conv_plain(*a)  # noqa: E731
         err = _err(_twice(run, f"{what} {shape}"), plain(),
                    f"{what} {shape}")
@@ -1264,7 +1331,7 @@ def check_conv_dx(call):
                        max_abs_err=err, shape=shape,
                        shares=link_shares(ok), pairs=ok.numel()))
     return {"shape": list(x.shape) + [cout], "max_abs_err": e_dx,
-            "mirrored_k2_err": k2[1]["max_abs_err"]}, k8, k2
+            "mirrored_k2_err": k2[1]["max_abs_err"]}, k8, k2, runs
 
 
 def _index_add(g, idx, n):
@@ -1277,6 +1344,17 @@ def _index_add(g, idx, n):
             ).reshape(-1)
     return lambda: torch.zeros(B * (n + 1), D, device=g.device).index_add_(
         0, flat, g.reshape(-1, D))
+
+
+def _scatter_add(g, idx, n):
+    """The other library yardstick of K8 / K10: one scatter_add_ into
+    (B, n + 1, D), each cloud's rows outside [0, n) sent to its spare row
+    (the int64 index, expanded over D, built outside the timed call)."""
+    B, _, D = g.shape
+    spare = torch.where((idx >= 0) & (idx < n), idx, n).long()
+    sel = spare[..., None].expand(-1, -1, D)
+    return lambda: torch.zeros(B, n + 1, D, device=g.device).scatter_add_(
+        1, sel, g)
 
 
 def check_scatter_add(call):
@@ -1335,19 +1413,22 @@ def train_kernel_phase(captured):
         f"{k4_row['ms']:.4f} ms ({k4_row['device_ms']} ms on the device; "
         f"plain {k4_row['plain_ms']:.4f}, bound {k4_row['bound_ms']:.4f}, "
         f"library {k4_row['library_ms']:.4f})")
-    conv_dx, k2 = [], []
+    conv_dx, k2, k2_runs = [], [], []
     for c in convs:
-        row, k8, k2_calls = check_conv_dx(c)
+        row, k8, k2_calls, runs = check_conv_dx(c)
         conv_dx.append(row)
         k2 += k2_calls
+        k2_runs += runs
         res["scatter_rows_add"].append(k8)
     for r in res["conv_weight_grad"]:
         log_conv("train-kernels", "K7 per training step, call", r)
-    k2_row = conv_step_row("train-kernels", "K2 per training step", k2)
+    k2_row = conv_step_row("train-kernels", "K2 per training step", k2,
+                           k2_runs)
+    del k2_runs
     rows = {}
     for name, rs in res.items():
         rows[name] = _row(rs)
-        for key in ("fp32_bound_ms", "device_ms"):
+        for key in ("fp32_bound_ms", "device_ms", "im2col_matmul_ms"):
             if key in rs[0]:
                 rows[name][key] = _total(r[key] for r in rs)
         log(f"[train-kernels] {name}: {len(rs)} calls per step, max_abs_err "
@@ -1372,17 +1453,87 @@ def train_kernel_phase(captured):
         "conv_dx": conv_dx}
 
 
-def conv_step_row(tag, label, calls):
+def _phase_launches(run, expect, what):
+    """Launch counters to 0, run, counters read: exactly the kernels of
+    `expect`, each its count; returns the counts, the run's peak device
+    memory (max_memory_allocated, GiB) and that peak above the memory in
+    use before it."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launches()
+    run()
+    torch.cuda.synchronize()
+    launches = dict(cuda_lib.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    if {k: v for k, v in launches.items() if v} != expect:
+        raise AssertionError(f"{what}: launches {launches}, expected "
+                             f"{expect}")
+    return launches, peak / 2 ** 30, (peak - base) / 2 ** 30
+
+
+def stem_vjp_phase(call):
+    """The stem conv's input gradient on the policy's captured training
+    stem call (B = 32 x 4096, its x, map, weight and output cotangent):
+    one forward and backward of stem_conv with x and W requiring
+    gradients, launch counts (one K3, one K7, one K10) and peak memory;
+    dx and dW against the CPU run of the same call (autograd of
+    stem_conv_plain) within 1e-4 * max|ref|; K10 on the call's own
+    operands (G = g W^T and the map with dead links at the sentinel, C = 7)
+    against its plain version, timed beside its bound and the library
+    calls. Returns the phase and its launches."""
+    (x, idx, ok, w), g = call
+    N = x.shape[1]
+    xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+    launches, peak, own = _phase_launches(
+        lambda: stem.stem_conv(xg, idx, ok, wg).backward(g),
+        {"stem_conv": 1, "conv_weight_grad": 1,
+         "scatter_rows_smallc_add": 1}, "stem input gradient")
+    t0 = time.perf_counter()
+    xc, wc = x.cpu().requires_grad_(), w.cpu().requires_grad_()
+    stem.stem_conv_plain(xc, idx.cpu(), ok.cpu(), wc).backward(g.cpu())
+    cpu_s = time.perf_counter() - t0
+    e_dx = _err(xg.grad.cpu(), xc.grad, "stem dx, card vs CPU")
+    e_dw = _err(wg.grad.cpu(), wc.grad, "stem dW, card vs CPU")
+    scale = {"dx": float(xc.grad.abs().max()),
+             "dW": float(wc.grad.abs().max())}
+    del xc, wc, xg, wg
+    k10 = check_smallc_bwd(*stem.stem_grad_rows(g, idx, ok, w, N), N,
+                           TRAIN_TIMING)
+    out = {"shape": list(x.shape) + list(w.shape), "launches": launches,
+           "peak_memory_gib": peak, "peak_above_start_gib": own,
+           "dx_err": e_dx, "dW_err": e_dw, "ref_max": scale,
+           "cpu_reference_s": cpu_s, "k10": k10}
+    log(f"[stem-vjp] stem_conv forward + backward with the input requiring "
+        f"a gradient, B = {x.shape[0]} x {N}: launches {launches}; peak "
+        f"memory {peak:.3f} GiB ({own:.3f} above the phase's start); card "
+        f"vs CPU max err dx {e_dx:.3g}, dW {e_dw:.3g} (max |ref| {scale}; "
+        f"CPU reference {cpu_s:.1f} s)")
+    log_k10("stem-vjp", "on the call's operands", k10)
+    return out, launches
+
+
+def conv_step_row(tag, label, calls, runs):
     """The row of K2's 9 forward + 9 mirrored dx launches of one training
-    step (sums over the calls), logged per call and in total."""
+    step (sums over the calls), logged per call and in total; the device
+    time of the 18 launches also by events with the launches queued
+    (device_ms_queued over `runs`), which stands in for the per-call
+    profiler sum where a call's window recorded nothing."""
     for i, r in enumerate(calls):
         log_conv(tag, f"{label}, {'forward' if i % 2 == 0 else 'dx'}", r)
     row = dict(_row(calls), launches_per_step=len(calls),
                shares=_shares(calls))
     for key in ("fp32_bound_ms", "device_ms"):
         row[key] = _total(r[key] for r in calls)
+    row["device_ms_queued"] = device_ms_queued(runs)
+    row["device_ms_from"] = "profiler" if row["device_ms"] is not None \
+        else "queued events"
+    if row["device_ms"] is None:
+        row["device_ms"] = row["device_ms_queued"]
     log(f"[{tag}] {label}: {len(calls)} launches, {row['ms']:.4f} ms "
-        f"(device {row['device_ms']}; plain {row['plain_ms']:.4f}; bound "
+        f"(device {row['device_ms']} from the {row['device_ms_from']}, "
+        f"queued events {row['device_ms_queued']}; plain "
+        f"{row['plain_ms']:.4f}; bound "
         f"{row['bound_ms']:.4f} TF32, {row['fp32_bound_ms']:.4f} fp32 SIMT)"
         f"; shares {row['shares']}")
     return row
@@ -1847,26 +1998,46 @@ def mp_reference_phase(engine, row):
     return errs
 
 
-def check_smallc_bwd(idx, n, C, seed, timing):
-    """K10 on a captured index with a seeded cotangent of C channels:
-    within 1e-4 * max|plain| (atomics); event and profiler device times
-    against the plain version and one index_add_ whose sentinel rows land
-    in a spare row per cloud."""
-    B, M = idx.shape
-    gen = torch.Generator(device=idx.device).manual_seed(seed)
-    g = torch.randn(B, M, C, generator=gen, device=idx.device)
+def check_smallc_bwd(g, idx, n, timing):
+    """K10 on one call, g (B, M, C) onto (B, n, C) through idx: within
+    1e-4 * max|plain| (shared-memory atomics: another summation order);
+    event and profiler device times (both of its kernels) against the
+    plain version, its bound (g, the index and dx moved once) and the
+    faster of index_add_ and scatter_add_ (sentinel rows sent to a spare
+    row per cloud)."""
+    B, M, C = g.shape
     run = lambda: gather.scatter_rows_smallc_add(g, idx, n)  # noqa: E731
     plain = lambda: gather.scatter_rows_smallc_add_plain(  # noqa: E731
         g, idx, n)
     err = _err(run(), plain(), f"K10 {[B, M, C]} -> {n}")
     bound_ms, t_b, t_f = _bound(4 * (g.numel() + B * n * C) +
                                 idx.numel() * idx.element_size(), g.numel())
+    library = {"index_add_": cuda_ms(_index_add(g, idx, n), **timing),
+               "scatter_add_": cuda_ms(_scatter_add(g, idx, n), **timing)}
     return {"shape": [B, M, C, n], "max_abs_err": err,
+            "plan": list(gather.scatter_smallc_plan(B, M, n, C)),
+            "sentinel_rows": int(((idx < 0) | (idx >= n)).sum()),
             "ms": cuda_ms(run, **timing),
-            "device_ms": device_ms(run, "scatter_smallc_add_kernel"),
+            "device_ms": device_ms(run, K10_PROFILE[0], also=K10_PROFILE[1]),
             "plain_ms": cuda_ms(plain, **timing),
-            "library_ms": cuda_ms(_index_add(g, idx, n), **timing),
+            "library_ms": min(library.values()), "library": library,
             "bound_ms": bound_ms, "bytes_s": t_b, "flops_s": t_f}
+
+
+def log_k10(tag, label, r):
+    """One line per K10 call: shape, plan, times, bound share, library."""
+    dev = r["device_ms"]
+    share = "not measured" if dev is None else f"{r['bound_ms'] / dev:.3f}"
+    log(f"[{tag}] K10 {label}: [B, M, C, n] {r['shape']}, plan (ranges, "
+        f"window) {r['plan']}, {r['sentinel_rows']} sentinel rows, "
+        f"max_abs_err {r['max_abs_err']:.3g}; {r['ms']:.4f} ms by events, "
+        f"device {dev} (bound {r['bound_ms']:.4f}, bound / device {share}; "
+        f"plain {r['plain_ms']:.4f}; library {r['library']})")
+
+
+def _seeded(shape, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(*shape, generator=gen, device="cuda")
 
 
 def _row(results):
@@ -1882,10 +2053,10 @@ def _row(results):
 
 def mp_kernel_phase(captured_fwd, captured_step):
     """K9 on every captured call of one forward (B = 1) and of one training
-    step (B = 32), K10 on both stem indices at C = 5 and C = 20. Rows:
-    K9 per forward (its per-step sums under "train_step"), K10 per
-    training-step shape at C = 5 (it launches 0 times per step: the stem
-    gathers data)."""
+    step (B = 32), K10 on both stem indices with seeded cotangents at
+    C = 5 and C = 20. Rows: K9 per forward (its per-step sums under
+    "train_step"), K10 at the training step's stem shape, C = 5 (it
+    launches 0 times per step: the stem gathers data)."""
     rows, detail = {}, {}
     for name, cap, timing in (("forward", captured_fwd, {}),
                               ("step", captured_step, TRAIN_TIMING)):
@@ -1895,17 +2066,14 @@ def mp_kernel_phase(captured_fwd, captured_step):
                                  f"{[list(a[0].shape) for a in calls]}")
         k9 = [check_gather("gather_rows_smallc", a, timing) for a in calls]
         stem_x, stem_idx = next(a for a in calls if a[0].shape[-1] == 5)
-        k10 = [check_smallc_bwd(stem_idx, stem_x.shape[1], C, 11 + C, timing)
+        k10 = [check_smallc_bwd(_seeded(stem_idx.shape + (C,), 11 + C),
+                                stem_idx, stem_x.shape[1], timing)
                for C in (5, 20)]
         detail[name] = {"gather_rows_smallc": k9,
                         "scatter_rows_smallc_add": k10}
         log_gathers("mp-kernels", f"K9 per {name}", k9)
         for r in k10:
-            log(f"[mp-kernels] K10 per {name}: {r['shape']} max_abs_err "
-                f"{r['max_abs_err']:.3g}, {r['ms']:.4f} ms (device "
-                f"{r['device_ms']}; plain "
-                f"{r['plain_ms']:.4f}, library {r['library_ms']:.4f}, bound "
-                f"{r['bound_ms']:.4f})")
+            log_k10("mp-kernels", f"per {name}", r)
         k9_row = dict(_row(k9), device_ms=_total(r["device_ms"] for r in k9))
         if name == "forward":
             rows["gather_rows_smallc"] = k9_row
@@ -1914,6 +2082,44 @@ def mp_kernel_phase(captured_fwd, captured_step):
             rows["scatter_rows_smallc_add"] = dict(
                 _row(k10[:1]), device_ms=k10[0]["device_ms"])
     return rows, detail
+
+
+def mp_stem_vjp_phase(call):
+    """The motion planner's categorical stem on its captured training call
+    (B = 32 x 4096: features, map, weight, label table, output cotangent)
+    with the features, weight and table requiring gradients: launch
+    counts (one K9, one K10 at C = 5) and peak memory; the three gradients
+    against the CPU run of the same call within 1e-4 * max|ref|. Returns
+    the phase and its launches."""
+    (feat, nmap, w, (cat_idx, table)), gout = call
+    fg, wg, tg = (t.detach().clone().requires_grad_()
+                  for t in (feat, w, table))
+    launches, peak, own = _phase_launches(
+        lambda: sparse_conv.categorical_conv(fg, nmap, wg, (cat_idx, tg))
+        .backward(gout),
+        {"gather_rows_smallc": 1, "scatter_rows_smallc_add": 1},
+        "categorical stem gradient")
+    t0 = time.perf_counter()
+    fc, wc, tc = (t.detach().cpu().requires_grad_()
+                  for t in (feat, w, table))
+    sparse_conv.categorical_conv(
+        fc, sparse_conv.NeighborMap(nmap.idx.cpu(), nmap.ok.cpu()), wc,
+        (cat_idx.cpu(), tc)).backward(gout.cpu())
+    cpu_s = time.perf_counter() - t0
+    errs = {name: _err(a.grad.cpu(), b.grad, f"categorical stem {name}, "
+                       "card vs CPU")
+            for name, a, b in (("dfeat", fg, fc), ("dW", wg, wc),
+                               ("dtable", tg, tc))}
+    out = {"shape": list(feat.shape) + list(w.shape), "launches": launches,
+           "peak_memory_gib": peak, "peak_above_start_gib": own,
+           "errs": errs, "dfeat_ref_max": float(fc.grad.abs().max()),
+           "cpu_reference_s": cpu_s}
+    log(f"[mp-stem-vjp] categorical stem forward + backward with the "
+        f"features requiring a gradient, {out['shape']}: launches "
+        f"{launches}; peak memory {peak:.3f} GiB ({own:.3f} above the "
+        f"phase's start); card vs CPU max err {errs} (CPU reference "
+        f"{cpu_s:.1f} s)")
+    return out, launches
 
 
 def mp_forward_k2(calls):
@@ -1938,22 +2144,27 @@ def mp_conv_phase(captured):
     if len(convs) != 9:
         raise AssertionError(f"captured {len(convs)} motion-planner conv "
                              "calls with a cotangent, expected 9")
-    k2, k7, dx = [], [], []
+    k2, k7, dx, k2_runs = [], [], [], []
     for c in convs:
-        row, _, calls = check_conv_dx(c)
+        row, _, calls, runs = check_conv_dx(c)
         dx.append(row)
         k2 += calls
+        k2_runs += runs
         k7.append(check_weight_grad(c))
-    k2_row = conv_step_row("mp-kernels", "K2 per MP training step", k2)
+    k2_row = conv_step_row("mp-kernels", "K2 per MP training step", k2,
+                           k2_runs)
+    del k2_runs
     for r in k7:
         log_conv("mp-kernels", "K7 per MP training step, call", r)
     k7_row = dict(_row(k7), shares=_shares(k7), launches_per_step=len(k7))
-    for key in ("fp32_bound_ms", "device_ms"):
+    for key in ("fp32_bound_ms", "device_ms", "im2col_matmul_ms"):
         k7_row[key] = _total(r[key] for r in k7)
     log(f"[mp-kernels] K7 per MP training step: {k7_row['ms']:.4f} ms "
         f"(device {k7_row['device_ms']}; plain {k7_row['plain_ms']:.4f}; "
         f"bound {k7_row['bound_ms']:.4f} TF32, {k7_row['fp32_bound_ms']:.4f} "
-        f"fp32 SIMT); conv dx vs the exact adjoint: max err "
+        f"fp32 SIMT; im2col gather + matmul "
+        f"{k7_row['im2col_matmul_ms']:.4f}); conv dx vs the exact adjoint: "
+        f"max err "
         f"{max(m['max_abs_err'] for m in dx):.3g}")
     return k2_row, k7_row, {"subm_conv": k2, "conv_weight_grad": k7,
                             "conv_dx": dx}
@@ -1961,7 +2172,8 @@ def mp_conv_phase(captured):
 
 def mp_training(out_dir):
     """The motion planner's trainer on synthetic_motion (B = 32 x 4096,
-    release dropout): one captured step (K9 inputs at B = 32), 5 counted
+    release dropout): one captured step (K9 inputs and the categorical
+    stem's call at B = 32), 5 counted
     steps and a profiler window, then one more captured step (the convs'
     inputs and cotangents: captured after the counted steps, so that
     their copies stay out of the peak memory); returns the phase, its
@@ -1975,7 +2187,7 @@ def mp_training(out_dir):
         f"{time.perf_counter() - t0:.1f} s (host ms per batch: "
         f"{[round(t) for t in data_ms]})")
     captured = capture(lambda: trainer.step(batch_to_device(host[0], "cuda")),
-                       SMALLC_SITES)
+                       SMALLC_SITES + MP_STEM_SITES)
     training, launches = training_phase(trainer, host[1:], out_dir,
                                         MP_PER_STEP, "profile_mp_train.txt",
                                         "mp-train")
@@ -2007,11 +2219,13 @@ def main():
     log(f"[build] kernels built and loaded in "
         f"{time.perf_counter() - t0:.2f} s")
     for name, use in sorted(ptxas_usage().items()):
-        m = re.search(r"\d((?:patch_attention|stem_conv|attn_drop)\w*?"
-                      r"_kernel)(?:ILi(\d+)E)?", name)
+        m = re.search(r"\d((?:patch_attention|stem_conv|attn_drop|"
+                      r"scatter_smallc)\w*?_kernel)(?:ILi(\d+)E(x)?)?",
+                      name)
         if m:
             log(f"[build] ptxas {m.group(1)}"
-                f"{'<' + m.group(2) + '>' if m.group(2) else ''}: {use}")
+                f"{'<' + m.group(2) + '>' if m.group(2) else ''}"
+                f"{' int64' if m.group(3) == 'x' else ''}: {use}")
 
     t0 = time.perf_counter()
     actioner = Actioner(CONFIG, cli_opts=CLI_OPTS, device="cuda", seed=0)
@@ -2049,7 +2263,9 @@ def main():
     rows["gather_rows"]["train_step"] = k4_step
     rows["subm_conv"]["train_step"] = k2_step
     rows["stem_conv"]["train_step"] = k3_step
-    del captured
+    stems = [c for c in captured["stem_conv"] if c[1] is not None]
+    stem_vjp, stem_launches = stem_vjp_phase(stems[0])
+    del captured, stems
     step_check = step_check_phase(host[0])
     entry = entry_phase()
     del host, batches
@@ -2071,6 +2287,8 @@ def main():
     mp_train, mp_train_launches, mp_step_captured, mp_host = \
         mp_training(out_dir)
     mp_rows, mp_detail = mp_kernel_phase(mp_fwd_captured, mp_step_captured)
+    mp_stem_vjp, mp_stem_launches = mp_stem_vjp_phase(
+        mp_step_captured.pop("categorical_conv")[0])
     mp_k2, mp_k7, mp_detail["conv_step"] = mp_conv_phase(mp_step_captured)
     mp_detail["conv_forward"] = mp_fwd_k2
     del mp_fwd_captured, mp_step_captured
@@ -2089,23 +2307,33 @@ def main():
                    "entry": entry, "mp_serving": mp_serving,
                    "mp_training": mp_train, "mp_kernels": mp_rows,
                    "mp_calls": mp_detail, "mp_step_check": mp_step_check,
-                   "mp_entry": mp_entry},
+                   "mp_entry": mp_entry, "stem_vjp": stem_vjp,
+                   "mp_stem_vjp": mp_stem_vjp},
                   f, indent=1)
     # each kernel's launches in the run of its own slice's main path: K1-K4
     # policy serving, K5-K8 policy training, K9 motion-planner serving, K10
-    # motion-planner training (0: the stem gathers data); launches_by_path
-    # has every run's count for every kernel
+    # the stem conv's input gradient (stem-vjp); launches_by_path has every
+    # run's count for every kernel
     rows.update(train_rows)
     rows.update(mp_rows)
     rows["subm_conv"]["mp_train_step"] = mp_k2
     rows["conv_weight_grad"]["mp_train_step"] = mp_k7
+    k10 = stem_vjp["k10"]
+    rows["scatter_rows_smallc_add"] = dict(
+        _row([k10]), device_ms=k10["device_ms"], shape=k10["shape"],
+        mp_train_step_stem=rows["scatter_rows_smallc_add"])
     paths = {"serving": serving["launches"], "training": train_launches,
              "mp_serving": mp_serving["launches"],
-             "mp_training": mp_train_launches}
+             "mp_training": mp_train_launches, "stem_vjp": stem_launches,
+             "mp_stem_vjp": mp_stem_launches}
     main_path = dict.fromkeys(PER_FORWARD, "serving")
     main_path.update(dict.fromkeys(TRAIN_KERNELS, "training"))
     main_path.update(gather_rows_smallc="mp_serving",
-                     scatter_rows_smallc_add="mp_training")
+                     scatter_rows_smallc_add="stem_vjp")
+    idle = [k for k in KERNELS if not paths[main_path[k]][k]]
+    if idle:
+        raise AssertionError(f"kernels that their main path never launched: "
+                             f"{idle}")
     kernels = [dict(name=k, route="cuda", source=KERNELS[k][0],
                     replaces=KERNELS[k][1],
                     launches=paths[main_path[k]][k],

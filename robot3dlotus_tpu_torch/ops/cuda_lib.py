@@ -47,7 +47,10 @@ SIGNATURES = {
     "r3dl_gather_rows": _GATHER,
     "r3dl_scatter_rows_add": _GATHER,
     "r3dl_gather_smallc": _GATHER,
-    "r3dl_scatter_smallc_add": _GATHER,
+    # g, idx, dx, work|NULL, B, n, M, C, idx64, ranges, window, work_bytes,
+    # stream
+    "r3dl_scatter_smallc_add": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                _L, _P],
     # q, k, v, key_valid, out, G, H, P, Dh, warps, splits, scale, stream
     "r3dl_patch_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                              _P],

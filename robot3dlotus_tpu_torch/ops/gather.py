@@ -12,10 +12,13 @@ unpool_gather (ops/pooling.py, child_cap = dropped) and the pooled stages'
 entry sorts (models/ptv3.py); gather_rows_smallc serves the motion
 planner's categorical stem (ops/sparse_conv.py, idx == N where a neighbour
 is missing) and, through permute_rows_any, the stage-0 entry sort of the
-input features. The CUDA kernels are in csrc/gather.cu and
+input features; scatter_rows_smallc_add is also the stem conv's input
+gradient (ops/stem.py). The CUDA kernels are in csrc/gather.cu and
 csrc/gather_smallc.cu; the *_plain functions are the same functions in
 PyTorch, the path for CPU tensors and the oracles the kernels are held
-against.
+against. scatter_smallc_plan is K10's block plan (ranges of row tiles per
+cloud, slabs of destination rows), plain Python that the CPU tests
+enumerate.
 
 Indices are int32 or int64 and reach the kernels as they are (no cast).
 A CUDA call that carries no gradient (grad mode off, or x not requiring
@@ -72,12 +75,10 @@ def _check_failed(name, x, idx, max_width):
         f"{idx.device}")
 
 
-def _launch(kernel, c_name, max_width, x, idx, n=None):
-    """One launch of K4 / K9 (n None: out (B, M, D) = x[b, idx]) or of K8 /
-    K10 (x the cotangent (B, M, D): out (B, n, D)), with the one check of
-    what the kernels take: x fp32 (B, N, D <= max_width), idx int32 or
-    int64 (B, M), both CUDA (made contiguous here). It is the whole host
-    path of a call, so it stays flat: one allocation, one ctypes call."""
+def _checked(kernel, max_width, x, idx):
+    """The one check of what the gather kernels take: x fp32 (B, N, D <=
+    max_width), idx int32 or int64 (B, M), both CUDA (made contiguous
+    here); returns x, idx, B, N, D, M and whether idx is int64."""
     if not (x.is_contiguous() and idx.is_contiguous()):
         x, idx = x.contiguous(), idx.contiguous()
     try:
@@ -89,6 +90,15 @@ def _launch(kernel, c_name, max_width, x, idx, n=None):
     if x.dtype is not _F32 or not (idx64 or idx.dtype is _I32) or \
             Bi != B or D > max_width or not idx.is_cuda:
         raise _check_failed(kernel, x, idx, max_width)
+    return x, idx, B, N, D, M, idx64
+
+
+def _launch(kernel, c_name, max_width, x, idx, n=None):
+    """One launch of K4 / K9 (n None: out (B, M, D) = x[b, idx]) or of K8
+    (x the cotangent (B, M, D): out (B, n, D)). It is the whole host path
+    of a call, so it stays flat: one check, one allocation, one ctypes
+    call."""
+    x, idx, B, N, D, M, idx64 = _checked(kernel, max_width, x, idx)
     if n is None:
         out = x.new_empty(B, M, D)
     elif M != N:
@@ -112,13 +122,87 @@ def scatter_rows_add(g: torch.Tensor, idx: torch.Tensor, n: int):
                    g, idx, n)
 
 
+# K10's plan constants (csrc/gather_smallc.cu)
+SMALLC_TILE_ROWS = 1024          # kTileRows: ranges split whole tiles
+SMALLC_SMEM = 227 * 1024         # shared memory an H100 block may hold
+SMALLC_SM_SMEM = 228 * 1024      # shared memory of an SM
+SMALLC_SMS = 132                 # the H100's SMs
+
+
+def scatter_smallc_smem(C: int, window: int) -> int:
+    """Shared memory of a K10 block: its window x C copy of dx."""
+    return -(-4 * window * C // 16) * 16
+
+
+def scatter_smallc_blocks_per_sm(C: int, window: int) -> int:
+    """K10 blocks an SM holds: two (its 32-register bound) where both
+    copies fit beside the 1 KB the card reserves a block, else one."""
+    return 2 if 2 * (scatter_smallc_smem(C, window) + 1024) <= \
+        SMALLC_SM_SMEM else 1
+
+
+def scatter_smallc_plan(B: int, M: int, n: int, C: int):
+    """K10's (ranges, window). A block holds a private copy of `window`
+    destination rows (a slab; all C channels) of one cloud's dx in shared
+    memory: the widest slab that fits, split evenly, so n = 4096 is one
+    slab up to C = 14. Each cloud's 1024-row tiles are split into `ranges`
+    runs (scatter_smallc_ranges) so that the B x slabs x ranges blocks
+    about fill the SMs (two blocks an SM where two fit, so 8 ranges at
+    B = 32 and C <= 7), at most M // (2 n) (the partials' writes under
+    half of g's bytes) and at most the tiles; with ranges > 1 the runs'
+    partials add in order in a second kernel."""
+    cap = SMALLC_SMEM // (4 * max(C, 1))
+    slabs = max(1, -(-n // cap))
+    window = max(1, -(-n // slabs))
+    tiles = -(-M // SMALLC_TILE_ROWS)
+    blocks = SMALLC_SMS * scatter_smallc_blocks_per_sm(C, window)
+    ranges = max(1, min(blocks // max(1, B * slabs),
+                        M // (2 * max(n, 1)), tiles))
+    return ranges, window
+
+
+def scatter_smallc_ranges(M: int, ranges: int):
+    """[(row_begin, row_end)] of each range's run of tiles, as
+    csrc/gather_smallc.cu splits them: range r holds tiles
+    [r nt // ranges, (r + 1) nt // ranges) of nt = ceil(M / 1024)."""
+    T = SMALLC_TILE_ROWS
+    nt = -(-M // T)
+    return [(min(M, r * nt // ranges * T), min(M, (r + 1) * nt // ranges * T))
+            for r in range(ranges)]
+
+
 def scatter_rows_smallc_add(g: torch.Tensor, idx: torch.Tensor, n: int):
-    """K10: the CUDA kernel (fp32 atomicAdd) for CUDA tensors, the plain
-    version for CPU tensors; rows whose index is outside [0, n) drop."""
+    """K10: the CUDA kernel (private shared-memory copies of dx, no global
+    atomics; sums agree with a fixed-order sum to rounding) for CUDA
+    tensors, the plain version for CPU tensors; rows whose index is
+    outside [0, n) drop."""
     if not g.is_cuda:
         return scatter_rows_smallc_add_plain(g, idx, n)
-    return _launch("scatter_rows_smallc_add", "r3dl_scatter_smallc_add",
-                   SMALLC_MAX, g, idx, n)
+    plan = scatter_smallc_plan(g.shape[0], g.shape[1], n, g.shape[-1])
+    return scatter_rows_smallc_add_split(g, idx, n, *plan)
+
+
+def scatter_rows_smallc_add_split(g, idx, n, ranges, window):
+    """K10 on CUDA tensors with a given plan (scatter_smallc_plan gives
+    scatter_rows_smallc_add's); one launch count (two kernels when
+    ranges > 1)."""
+    g, idx, B, M, C, Mi, idx64 = _checked("scatter_rows_smallc_add",
+                                          SMALLC_MAX, g, idx)
+    if Mi != M:
+        raise _check_failed("scatter_rows_smallc_add", g, idx, SMALLC_MAX)
+    if not (ranges >= 1 and window >= 1 and
+            (ranges == 1 or ranges <= -(-M // SMALLC_TILE_ROWS)) and
+            scatter_smallc_smem(C, window) <= SMALLC_SMEM):
+        raise ValueError(f"scatter_rows_smallc_add: plan ({ranges} ranges, "
+                         f"window {window}) for M = {M}, n = {n}, C = {C}")
+    out = g.new_empty(B, n, C)
+    work = g.new_empty(ranges * out.numel()) if ranges > 1 else None
+    cuda_lib.launch("scatter_rows_smallc_add", "r3dl_scatter_smallc_add",
+                    g.data_ptr(), idx.data_ptr(), out.data_ptr(),
+                    None if work is None else work.data_ptr(), B, n, M, C,
+                    idx64, ranges, window,
+                    0 if work is None else 4 * work.numel())
+    return out
 
 
 # (launch counter, C entry point, widest row) of K4 and of K9

@@ -12,11 +12,17 @@ block per SM holding the whole weight; a B = 1 cloud's row groups are too
 few to fill the card, so its tap chunks are split into ranges that a
 second kernel adds in a fixed order (two launches for one count).
 
-Backward: dW is K7 (ops/conv.py conv_weight_grad) at the stem's shape. The
-stem input of the policy is data and needs no gradient, so an input that
-requires one raises. (The motion planner's stem, whose label channel the
-JAX package gathers with the windowed kernel and its input-gradient VJP,
-goes through K9 and K10 instead: ops/sparse_conv.py categorical_conv.)
+Backward: dW is K7 (ops/conv.py conv_weight_grad) at the stem's shape.
+The input gradient (stem_input_grad) takes the JAX package's two steps:
+the stencil product's VJP, G = g W^T for every (row, tap), one matmul
+outside any kernel as the JAX package leaves it to XLA
+(ops/sparse_conv.py:298), then the gather's VJP, K10 (ops/gather.py
+scatter_rows_smallc_add, the port of pallas_stem.py `_windowed_gather_bwd`
+-> `_smallc_bwd_call`), which adds the (B, N K, Cin) G onto (B, N, Cin)
+with every dead link pointed at the sentinel row N, so that it drops. The
+policy's stem input is data, so its training step runs neither; the
+motion planner's stem goes through K9 and K10 instead
+(ops/sparse_conv.py categorical_conv).
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ import torch
 
 from . import cuda_lib
 from .conv import _aligned, conv_weight_grad
+from .gather import scatter_rows_smallc_add
 
 MAX_CIN = 8
 STEM_TAPS_PER_CHUNK = 8          # csrc/stem.cu kKT
@@ -132,27 +139,47 @@ def stem_conv_split(x, idx, ok, weight, cols, warps, splits, blocks):
     return out
 
 
+def stem_grad_rows(g, idx, ok, weight, n):
+    """K10's operands for the stem's input gradient: G = g W^T for every
+    (row, tap) pair, (B, N K, Cin), from one (B N, Cout) x (Cout, K Cin)
+    matmul (459 MB at the policy's training shape), and the flat map with
+    every dead link sent to the sentinel row n."""
+    B, N, Cout = g.shape
+    K, Cin, _ = weight.shape
+    G = torch.matmul(g.reshape(B * N, Cout),
+                     weight.reshape(K * Cin, Cout).t())
+    return G.reshape(B, N * K, Cin), torch.where(ok, idx, n).reshape(
+        B, N * K)
+
+
+def stem_input_grad(g, idx, ok, weight, n):
+    """dx of the stem conv for the output cotangent g (B, N, Cout):
+    dx[b, idx[b, m, k]] += ok[b, m, k] W[k] g[b, m], K10 on
+    stem_grad_rows."""
+    return scatter_rows_smallc_add(*stem_grad_rows(g, idx, ok, weight, n), n)
+
+
 class _StemConv(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, idx, ok, weight):
-        ctx.save_for_backward(x, idx, ok)
+        ctx.save_for_backward(x, idx, ok, weight)
         return _stem_forward(x, idx, ok, weight)
 
     @staticmethod
     def backward(ctx, g):
-        x, idx, ok = ctx.saved_tensors
-        dw = conv_weight_grad(x, idx, ok, g.contiguous()) \
+        x, idx, ok, weight = ctx.saved_tensors
+        g = g.contiguous()
+        dx = stem_input_grad(g, idx, ok, weight, x.shape[1]) \
+            if ctx.needs_input_grad[0] else None
+        dw = conv_weight_grad(x, idx, ok, g) \
             if ctx.needs_input_grad[3] else None
-        return None, None, None, dw
+        return dx, None, None, dw
 
 
 def stem_conv(x, idx, ok, weight):
     """The CUDA kernel for CUDA tensors, the plain version for CPU ones;
-    differentiable in the weight only."""
-    if x.requires_grad and torch.is_grad_enabled():
-        raise NotImplementedError(
-            "stem_conv: the gradient with respect to the stem input is not "
-            "ported (the policy's stem input is data)")
+    differentiable in the input (K10 after one matmul) and the weight
+    (K7)."""
     if x.is_cuda:
         idx = idx.to(torch.int32).contiguous()
     return _StemConv.apply(x, idx, ok, weight)

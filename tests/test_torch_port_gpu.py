@@ -2,8 +2,8 @@
 version, the gathers' direct and autograd paths, the launch stream, and the
 card's grid coordinates against the host presort's.
 Tolerance 1e-4 * max(1, max|plain|): fp32 on both sides, other summation
-orders (K8's and K10's atomics in a run-dependent one); the gathers K4 and
-K9 only copy and must be bit-equal.
+orders (K8's global and K10's shared-memory atomics in a run-dependent
+one); the gathers K4 and K9 only copy and must be bit-equal.
 
 Every case carries the `gpu` marker and skips without a card. The file
 imports neither jax nor the JAX package, so it runs on a machine that has
@@ -521,14 +521,73 @@ def test_k9_gather_rows_smallc(dev, C, dtype):
         assert not got[(idx < 0) | (idx >= 1024)].any()
 
 
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("n", [1, 300, 4096])
+@pytest.mark.parametrize("C", [1, 4, 5, 7, 8, 20, 32])
+def test_k10_scatter_rows_smallc_add(dev, C, n, dtype):
+    """K10 under the wrapper's plan (scatter_smallc_plan: one slab or
+    several, 1-62 ranges) within the bar of the plain version, one launch
+    count per call: indices with a fifth at the sentinel n and a few
+    negative or past n, on a ragged last tile; M = 0 (dx all zero); every
+    row sent to one destination (the most contention)."""
+    rng = np.random.RandomState(C * n)
+    B, M = 2, 9 * gather.SMALLC_TILE_ROWS + 3
+    idx = rng.randint(0, n, (B, M))
+    idx[rng.rand(B, M) < 0.2] = n
+    idx[:, :3] = [-1, n + 9, -5]
+    g = _randn(rng, dev, B, M, C)
+    for i in (idx, np.full((B, M), n - 1), idx[:, :0]):
+        it = torch.from_numpy(i).to(dtype).to(dev)
+        gi = g[:, :i.shape[1]].contiguous()
+        before = cuda_lib.LAUNCHES["scatter_rows_smallc_add"]
+        got = gather.scatter_rows_smallc_add(gi, it, n)
+        assert cuda_lib.LAUNCHES["scatter_rows_smallc_add"] == before + 1
+        _check(got, gather.scatter_rows_smallc_add_plain(gi, it, n))
+    assert not got.any()
+
+
 @pytest.mark.parametrize("C", [5, 20])
-def test_k10_scatter_rows_smallc_add(dev, C):
-    rng = np.random.RandomState(11)
-    _, idx = _smallc(rng, 2, 1024, 1024 * 125, C, dev)
-    g = torch.from_numpy(rng.randn(2, 1024 * 125, C).astype(np.float32))
-    g = g.to(dev)
-    _check(gather.scatter_rows_smallc_add(g, idx, 1024),
-           gather.scatter_rows_smallc_add_plain(g, idx, 1024))
+@pytest.mark.parametrize("ranges,window", [(1, 300), (3, 300), (3, 100),
+                                           (7, 64), (2, 7), (1, 1)])
+def test_k10_forced_plans(dev, ranges, window, C):
+    """K10 with each plan forced (the plans test_torch_port_stem_vjp.py
+    emulates): one slab and many, one range and several, within the bar
+    of the plain version, with a hot destination row."""
+    rng = np.random.RandomState(ranges * 7 + window + C)
+    B, n = 2, 300
+    M = 7 * gather.SMALLC_TILE_ROWS + 5
+    idx = rng.randint(0, n, (B, M))
+    idx[rng.rand(B, M) < 0.2] = n
+    idx[:, :3] = [-1, n + 3, -7]
+    idx[1, 100:400] = 17
+    idx = torch.from_numpy(idx.astype(np.int32)).to(dev)
+    g = _randn(rng, dev, B, M, C)
+    _check(gather.scatter_rows_smallc_add_split(g, idx, n, ranges, window),
+           gather.scatter_rows_smallc_add_plain(g, idx, n))
+
+
+def test_stem_conv_input_grad(dev):
+    """stem_conv with its input requiring a gradient on a release-like map
+    of 2 x 4096 points: dx (one matmul, then K10) and dW (K7) within the
+    bar of the CPU run through autograd of stem_conv_plain; one K3, one K7
+    and one K10 launch."""
+    rng = np.random.RandomState(21)
+    idx, ok = _stem_map(rng, dev, "release", 2, 4096)
+    x = _randn(rng, dev, 2, 4096, 7).requires_grad_()
+    w = _randn(rng, dev, 125, 7, 64, scale=0.1).requires_grad_()
+    g = _randn(rng, dev, 2, 4096, 64)
+    before = dict(cuda_lib.LAUNCHES)
+    stem.stem_conv(x, idx, ok, w).backward(g)
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in cuda_lib.LAUNCHES.items()
+                if v != before[k]}
+    assert launched == {"stem_conv": 1, "conv_weight_grad": 1,
+                        "scatter_rows_smallc_add": 1}
+    xc = x.detach().cpu().requires_grad_()
+    wc = w.detach().cpu().requires_grad_()
+    stem.stem_conv_plain(xc, idx.cpu(), ok.cpu(), wc).backward(g.cpu())
+    _check(x.grad.cpu(), xc.grad)
+    _check(w.grad.cpu(), wc.grad)
 
 
 def test_k9_backward_launches_k10(dev):

@@ -162,8 +162,10 @@ def test_conv_dx_is_exact_on_an_asymmetric_map():
 
 def test_stem_weight_grad_matches_jax():
     """The stem's dW (K7's plain version at K = 125, Cin 7) against
-    jax.grad of the exact XLA stem conv with respect to its weight; an
-    input that requires a gradient is refused."""
+    jax.grad of the exact XLA stem conv with respect to its weight; with
+    the input requiring a gradient too, both gradients (the input's:
+    one matmul, then K10's plain version; test_torch_port_stem_vjp.py
+    holds it at the release shape)."""
     rng = np.random.RandomState(3)
     gc, mask, feat = _unique_cloud(rng, N=96, C=7, span=8)
     nm = build_neighbor_map(jnp.asarray(gc), jnp.asarray(mask), 5, 3,
@@ -175,8 +177,12 @@ def test_stem_weight_grad_matches_jax():
     want = jax.grad(lambda ww: jnp.sum(subm_conv_apply(
         jnp.asarray(feat), nm, ww) * g))(jnp.asarray(w))
     _close(wt.grad, want)
-    with pytest.raises(NotImplementedError):
-        stem.stem_conv(T(feat).requires_grad_(), T(nm.idx), T(nm.ok), wt)
+    ft, wt = T(feat).requires_grad_(), T(w).requires_grad_()
+    stem.stem_conv(ft, T(nm.idx), T(nm.ok), wt).backward(T(g))
+    want_dx = jax.grad(lambda f: jnp.sum(subm_conv_apply(
+        f, nm, jnp.asarray(w)) * g))(jnp.asarray(feat))
+    _close(ft.grad, want_dx)
+    _close(wt.grad, want)
 
 
 # ------------------------------------------------------------- K5 / K6 ----
