@@ -90,15 +90,34 @@ Phases, each of which raises on failure (exit code != 0, no result line):
              (a tie) the CPU follows the card's branch;
  12. entry     train_simple_policy.main on the card for ENTRY_STEPS steps
              (launch counters to 0 before, read after against the per-step
-             counts; logged losses finite); the end-to-end training rate,
-             host batches included, over the second half.
+             counts; logged losses finite; a fresh run directory under
+             build/smoke_runs, removed after); the end-to-end training
+             rate, host batches included, over the second half.
+ 13. ckpt      checkpoints, validation and serving from a checkpoint:
+             train_simple_policy.main for CKPT_STEPS steps under
+             chiprun_out/ckpt with a save and a validation (VAL_DATASET
+             synthetic_reach4, 2 batches of 32) every 2 steps, then a
+             second main to CKPT_RESUME_STEPS that must log the resume and
+             restore parameters, buffers, mu, nu, count and step bit-equal
+             to the state the first ended with; every save (ms, bytes per
+             file), the resume's load, each validation forward (ms, kernel
+             launches: counters to 0 before, read after, against
+             VAL_PER_FORWARD: the `validation` path) timed; K1 on the first
+             validation forward's calls (B = 32) against its plain version
+             as in phase 3; an Actioner from model_step_4.msgpack, its
+             state bit-equal to the saved one, serves phase 4's requests
+             (kernel launch counts per forward unchanged), its host launch
+             calls per forward (kernels, memcpy, memset: 2226) equal to
+             phase 5's, its logits within 1e-3 * max(1, |ref|) of a CPU
+             Actioner loaded from the same file;
+             the checkpoint files are deleted, the logs kept.
 Then the 3D-LOTUS++ motion planner (release motion_planner_ptv3.yaml,
 seeded weights) behind the ground-truth pipeline (robot_pipeline_gt.yaml):
- 13. mp-capture   one GroundtruthRobotPipeline.predict on a synthetic
+ 14. mp-capture   one GroundtruthRobotPipeline.predict on a synthetic
              observation with gt_mask images (4096 points), recorders on the
              K9 call sites (the stage-0 entry sort, the categorical stem)
-             and the convs (K2, held against its plain version in 15);
- 14. mp-serving   launch counters to 0, 4 pipeline requests of one episode,
+             and the convs (K2, held against its plain version in 16);
+ 15. mp-serving   launch counters to 0, 4 pipeline requests of one episode,
              each running the motion planner, counters read against
              MP_PER_FORWARD; MotionPlannerEngine.predict p50 with the host
              prep (GT vision, labels, text) apart from the device forward;
@@ -107,7 +126,7 @@ seeded weights) behind the ground-truth pipeline (robot_pipeline_gt.yaml):
              beside the other outputs); the card's trajectory logits against
              the same weights on the CPU (1e-3 * max(1, |ref|)), decoded
              actions finite;
- 15. mp-kernels   K9 on every captured call bit-equal to its plain version
+ 16. mp-kernels   K9 on every captured call bit-equal to its plain version
              (device time from the profiler beside the event time);
              K10 on the captured stem index with seeded cotangents at C = 5
              and C = 20 (<= 1e-4 * max|plain|); times (K10 also on the
@@ -116,21 +135,27 @@ seeded weights) behind the ground-truth pipeline (robot_pipeline_gt.yaml):
              (at the forward's B = 1 and, from one captured training step,
              at B = 32); K2 on the request's 9 captured calls (within
              1e-4 * max(1, max|plain|), bit-equal across two launches);
- 16. mp-train     train_motion_planner's trainer on synthetic_motion, B = 32
+ 17. mp-train     train_motion_planner's trainer on synthetic_motion, B = 32
              clouds x 4096 points, release dropout: 5 steps with launch
              counts checked per step (MP_PER_STEP), step p50, clouds/s, peak
              memory, a profiler window (profile_mp_train.txt); then one
              more step captured, whose 9 convs hold and time K2 (forward
              and mirrored dx) and K7 per motion-planner step as phase 9;
- 17. mp-stem-vjp  the categorical stem's call of the first captured step
+ 18. mp-stem-vjp  the categorical stem's call of the first captured step
              (B = 32) with its features, weight and label table requiring
              gradients: launch counters to 0, forward and backward,
              counters read (one K9, one K10 at C = 5), peak memory; the
              three gradients against the CPU run within 1e-4 * max|ref|;
- 18. mp-step-check  phase 11 for the motion planner, on MP_CHECK_SLICES
+ 19. mp-step-check  phase 11 for the motion planner, on MP_CHECK_SLICES
              slices;
- 19. mp-entry     train_motion_planner.main on the card for MP_ENTRY_STEPS
-             steps, launch counts checked, logged losses finite.
+ 20. mp-entry     train_motion_planner.main on the card for MP_ENTRY_STEPS
+             steps, launch counts checked, logged losses finite;
+ 21. mp-ckpt      phase 13 for the motion planner (MP_CKPT_STEPS, then a
+             resume to MP_CKPT_RESUME_STEPS; validation on the synthetic
+             motion store, 3 batches of 32: the `mp_validation` path),
+             served by MotionPlannerEngine(checkpoint=...) behind the GT
+             pipeline as in phase 15, against a CPU engine from the same
+             file.
 It fails if a kernel's main path (K10's: phase 10) launched it no time.
 It prints the kernels line, the card's name and power limit, and as its
 last line {"ok": true, "device": {...}}. It needs one CUDA card and exits
@@ -144,6 +169,7 @@ import logging
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -168,6 +194,8 @@ from robot3dlotus_tpu_torch.models.motion_planner import (compute_mp_loss,
 from robot3dlotus_tpu_torch.models.simple_policy import compute_loss
 from robot3dlotus_tpu_torch.ops import (attention, conv, cuda_lib, gather,
                                         patching, pooling, sparse_conv, stem)
+from robot3dlotus_tpu_torch.train import checkpoint as ckpt_mod, driver
+from robot3dlotus_tpu_torch.train.checkpoint import load_any_model_ckpt
 from robot3dlotus_tpu_torch.train.driver import build_trainer
 from robot3dlotus_tpu_torch.train.optim import build_optimizer
 from robot3dlotus_tpu_torch.train import (train_motion_planner,
@@ -256,6 +284,21 @@ MP_PER_FORWARD = {"patch_attention": 9, "subm_conv": 9, "stem_conv": 0,
 # runs K10 with the stem's features requiring a gradient)
 MP_PER_STEP = dict(PER_STEP, stem_conv=0, gather_rows_smallc=2,
                    conv_weight_grad=9)
+# checkpoints: the policy trains CKPT_STEPS steps (saves and validations
+# every 2), then a second main resumes to CKPT_RESUME_STEPS; validation on
+# synthetic_reach4 (48 clouds: 2 batches of 32, the last half valid). The
+# motion planner: MP_CKPT_STEPS, then MP_CKPT_RESUME_STEPS, validation on
+# the synthetic motion store (96 clouds, 3 batches).
+CKPT_STEPS, CKPT_RESUME_STEPS = 4, 6
+MP_CKPT_STEPS, MP_CKPT_RESUME_STEPS = 2, 3
+VAL_OPTS = ["VAL_DATASET.use_val", "True",
+            "VAL_DATASET.data_dir", "synthetic_reach4",
+            "VAL_DATASET.instr_embed_file", "None",
+            "VAL_DATASET.taskvar_instr_file", "None",
+            "VAL_DATASET.taskvar_file", "None"]
+# launches per validation forward (eval mode, B = 32, clouds not presorted:
+# K9 sorts the stage-0 input; no order shuffling, so no child entry sorts)
+VAL_PER_FORWARD = dict(PER_FORWARD, gather_rows_smallc=1)
 TRAIN_KERNELS = ("patch_attention_dropout", "patch_attention_dropout_bwd",
                  "conv_weight_grad", "scatter_rows_add")
 # the step check's order permutations: stage 0 and the four poolings
@@ -947,7 +990,8 @@ def serving_phase(actioner, observations):
             "launches": launches, "actions": [a.tolist() for a in seq]}
 
 
-def breakdown_phase(actioner, observations, out_dir):
+def breakdown_phase(actioner, observations, out_dir,
+                    profile_name="profile_forward.txt", tag="breakdown"):
     """Where a request's time goes: host preprocessing vs the device
     forward (batch upload, model, decode, readback), host clock; then a
     torch.profiler window over 3 forwards for device time by kernel and the
@@ -973,7 +1017,7 @@ def breakdown_phase(actioner, observations, out_dir):
     events = prof.key_averages()
     kernels = _device_ops(events, 3)
     busy_ms = sum(k[1] for k in kernels)
-    with open(os.path.join(out_dir, "profile_forward.txt"), "w") as f:
+    with open(os.path.join(out_dir, profile_name), "w") as f:
         f.write(events.table(sort_by="self_cuda_time_total", row_limit=60))
     fwd_p50 = float(np.median(fwd_ms))
     out = {"host_prep_ms_p50": float(np.median(prep_ms)),
@@ -981,10 +1025,11 @@ def breakdown_phase(actioner, observations, out_dir):
            "profiled_forward_wall_ms": wall_ms / 3,
            "device_busy_ms_per_forward": busy_ms,
            "device_launches_per_forward": _device_launches(events, 3),
+           "host_launches_per_forward": _host_launches(events, 3),
            "device_idle_share": 1.0 - busy_ms / fwd_p50,
            "top_device_ops": [{"name": k[0][:80], "ms": k[1], "count": k[2]}
                               for k in kernels[:15]]}
-    log(f"[breakdown] host prep p50 {out['host_prep_ms_p50']:.2f} ms, "
+    log(f"[{tag}] host prep p50 {out['host_prep_ms_p50']:.2f} ms, "
         f"device forward p50 {fwd_p50:.2f} ms (profiled: "
         f"{out['profiled_forward_wall_ms']:.2f} ms wall); device busy "
         f"{busy_ms:.2f} ms per forward in "
@@ -992,18 +1037,20 @@ def breakdown_phase(actioner, observations, out_dir):
         f"memcpy, memset), idle share of the unprofiled forward "
         f"{out['device_idle_share']:.3f}")
     for k in out["top_device_ops"][:8]:
-        log(f"[breakdown]   {k['ms']:.4f} ms x{k['count']}  {k['name']}")
+        log(f"[{tag}]   {k['ms']:.4f} ms x{k['count']}  {k['name']}")
     return out
 
 
-def reference_phase(actioner, obs):
-    """The card's logits against the same weights run on the CPU."""
+def reference_phase(actioner, obs, cpu_model=None, tag="reference"):
+    """The card's logits against the same weights run on the CPU (those
+    of `cpu_model`, else the card's copied there)."""
     actioner.rng = np.random.default_rng(3)
     emb, pc_ft, _, _ = actioner._host_prep("close_jar", 0, obs, None)
     batch = actioner._batch([(pc_ft, emb)], 1)
-    cpu_model = Actioner(CONFIG, cli_opts=CLI_OPTS, device="cpu").model
-    cpu_model.load_state_dict({k: v.cpu() for k, v in
-                               actioner.model.state_dict().items()})
+    if cpu_model is None:
+        cpu_model = Actioner(CONFIG, cli_opts=CLI_OPTS, device="cpu").model
+        cpu_model.load_state_dict({k: v.cpu() for k, v in
+                                   actioner.model.state_dict().items()})
     with torch.inference_mode():
         gpu = actioner.model(batch)
         cpu = cpu_model({k: v.cpu() for k, v in batch.items()})
@@ -1018,7 +1065,7 @@ def reference_phase(actioner, obs):
             raise AssertionError(f"{k}: card vs CPU max |diff| {errs[k]} > "
                                  f"{lim}")
     errs["pool_overflow"] = int(gpu["pool_overflow"])
-    log(f"[reference] card vs CPU logits, max |diff|: {errs}")
+    log(f"[{tag}] card vs CPU logits, max |diff|: {errs}")
     return errs
 
 
@@ -1029,6 +1076,10 @@ TRAIN_TIMING = dict(rounds=5, reps=2, warmup=1)
 
 def train_config(*opts):
     return get_config(CONFIG, TRAIN_OPTS + list(opts))
+
+
+def train_config_val(*opts):
+    return train_config(*VAL_OPTS, *opts)
 
 
 def host_batches(batches, n):
@@ -1072,6 +1123,20 @@ def _device_launches(events, n):
     """Device launches (kernels, memcpy, memset) per unit of a profile over
     n units."""
     return sum(e.count for e in _device_events(events)) / n
+
+
+# the host's runtime calls that put work on the device
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                     "cuLaunchKernel", "cuLaunchKernelEx", "cudaMemcpyAsync",
+                     "cudaMemsetAsync")
+
+
+def _host_launches(events, n):
+    """The host's launch calls (kernels, memcpy, memset) per unit of a
+    profile over n units: the same work as _device_launches, counted where
+    it is issued, which the profiler records in full (its device-side
+    count of one repeated forward moves between windows)."""
+    return sum(e.count for e in events if e.key in HOST_LAUNCH_CALLS) / n
 
 
 def _group_device_ops(ops):
@@ -1801,7 +1866,9 @@ def entry_phase(module=train_simple_policy, config=train_config,
     read against per_step; the end-to-end rate is the clouds of the second
     half over the time between the two lines."""
     half = steps // 2
-    cfg = config("TRAIN.num_train_steps", str(steps),
+    run = os.path.join(ROOT, "build", "smoke_runs", tag)
+    shutil.rmtree(run, ignore_errors=True)     # a fresh run: no resume
+    cfg = config("output_dir", run, "TRAIN.num_train_steps", str(steps),
                  "TRAIN.log_steps", str(half))
     logger = logging.getLogger("robot3dlotus_tpu_torch.train")
     handler, level = _Records(), logger.level
@@ -1815,6 +1882,7 @@ def entry_phase(module=train_simple_policy, config=train_config,
     finally:
         logger.removeHandler(handler)
         logger.setLevel(level)
+        shutil.rmtree(run, ignore_errors=True)
     total_s = time.perf_counter() - t0
     launches = dict(cuda_lib.LAUNCHES)
     if trainer.optimizer.count != steps:
@@ -1852,10 +1920,262 @@ def entry_phase(module=train_simple_policy, config=train_config,
 
 
 
+# --------------------------------------------------------- checkpoints ---
+
+class _Patch:
+    """Replaces `attr` of `obj` with make(original) inside a with block."""
+
+    def __init__(self, obj, attr, make):
+        self.obj, self.attr, self.make = obj, attr, make
+
+    def __enter__(self):
+        self.orig = getattr(self.obj, self.attr)
+        setattr(self.obj, self.attr, self.make(self.orig))
+
+    def __exit__(self, *exc):
+        setattr(self.obj, self.attr, self.orig)
+
+
+def _snapshot(trainer):
+    """Clones of what a resume restores: state_dict, mu, nu, count, step."""
+    opt = trainer.optimizer
+    return {"state": {k: v.detach().clone() for k, v in
+                      trainer.model.state_dict().items()},
+            "mu": opt.mu.clone(), "nu": opt.nu.clone(), "count": opt.count,
+            "step": trainer.global_step}
+
+
+def _bit_equal_state(got, want, what):
+    if set(got) != set(want):
+        raise AssertionError(f"{what}: keys differ")
+    bad = [k for k in want if got[k].dtype != want[k].dtype
+           or not torch.equal(got[k], want[k])]
+    if bad:
+        raise AssertionError(f"{what}: {len(bad)} tensors differ, e.g. "
+                             f"{bad[:3]}")
+
+
+def ckpt_run(module, config, steps, resume_steps, run, tag, per_forward):
+    """module.main twice under `run` (chiprun_out/<phase>): `steps` steps
+    with saves and validations every 2, then a second main to
+    `resume_steps` that must resume at `steps` with the state the first
+    ended with, bit for bit. Times every save and the resume's load,
+    counts the kernel launches of every validation forward (counters to 0
+    before each, read after: the validation path) against per_forward,
+    and captures the first validation forward's K1 calls."""
+    shutil.rmtree(run, ignore_errors=True)
+    saves, resumes, vals, k1 = [], [], [], []
+
+    def timed_save(save):
+        def wrapped(saver, model, step, optimizer=None):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            path = save(saver, model, step, optimizer)
+            ms = (time.perf_counter() - t0) * 1e3
+            files = {os.path.basename(path): os.path.getsize(path)}
+            if optimizer is not None:
+                latest = os.path.join(saver.ckpt_dir, ckpt_mod.LATEST)
+                files[ckpt_mod.LATEST] = os.path.getsize(latest)
+            saves.append({"step": step, "ms": ms, "bytes": files})
+            return path
+        return wrapped
+
+    def timed_resume(resume):
+        def wrapped(trainer, output_dir):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step = resume(trainer, output_dir)
+            torch.cuda.synchronize()
+            resumes.append({"step": step, "ms": (time.perf_counter() - t0)
+                            * 1e3, "state": _snapshot(trainer)})
+            return step
+        return wrapped
+
+    def counted_val(make):
+        def wrapped(model, loss_fn, decode_fn):
+            fn = make(model, loss_fn, decode_fn)
+
+            def val(batch):
+                torch.cuda.synchronize()
+                cuda_lib.reset_launches()
+                t0 = time.perf_counter()
+                out = fn(batch)
+                torch.cuda.synchronize()
+                vals.append({"ms": (time.perf_counter() - t0) * 1e3,
+                             "launches": dict(cuda_lib.LAUNCHES),
+                             "clouds": int(batch["batch_valid"].sum())})
+                if not k1:
+                    k1.extend(capture_main_path(lambda: fn(batch))
+                              ["patch_attention"])
+                return out
+            return val
+        return wrapped
+
+    logger = logging.getLogger("robot3dlotus_tpu_torch.train")
+    handler, level = _Records(), logger.level
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+    opts = ("output_dir", run, "TRAIN.log_steps", "1", "TRAIN.save_steps",
+            "2", "TRAIN.val_steps", "2")
+    try:
+        with _Patch(ckpt_mod.ModelSaver, "save", timed_save), \
+                _Patch(driver, "resume_or_init", timed_resume), \
+                _Patch(driver, "make_val_step", counted_val):
+            t0 = time.perf_counter()
+            first = module.main(config(*opts, "TRAIN.num_train_steps",
+                                       str(steps)))
+            first_s = time.perf_counter() - t0
+            ended = _snapshot(first)
+            del first
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            second = module.main(config(*opts, "TRAIN.num_train_steps",
+                                        str(resume_steps)))
+            second_s = time.perf_counter() - t0
+            if second.global_step != resume_steps:
+                raise AssertionError(f"resumed run ended at "
+                                     f"{second.global_step}")
+            del second
+            torch.cuda.empty_cache()
+    finally:
+        logger.removeHandler(handler)
+        logger.setLevel(level)
+    messages = [r.getMessage() for r in handler.records]
+    if f"resumed at step {steps}" not in messages:
+        raise AssertionError(f"[{tag}] no resume at step {steps}")
+    restored = [r for r in resumes if r["step"]]
+    if len(restored) != 1 or restored[0]["step"] != steps:
+        raise AssertionError(f"[{tag}] resumes {[r['step'] for r in resumes]}")
+    got = restored[0]["state"]
+    _bit_equal_state(got["state"], ended["state"], f"[{tag}] resumed model")
+    for k in ("mu", "nu"):
+        if not torch.equal(got[k], ended[k]):
+            raise AssertionError(f"[{tag}] resumed {k} differs")
+    if (got["count"], got["step"]) != (ended["count"], ended["step"]) or \
+            ended["step"] != steps:
+        raise AssertionError(f"[{tag}] count / step {got['count']}, "
+                             f"{got['step']} vs {ended['count']}, "
+                             f"{ended['step']}")
+    for i, v in enumerate(vals):
+        for k in KERNELS:
+            if v["launches"][k] != per_forward.get(k, 0):
+                raise AssertionError(f"[{tag}] validation forward {i}: {k} "
+                                     f"launched {v['launches'][k]} times, "
+                                     f"expected {per_forward.get(k, 0)}")
+    with open(os.path.join(run, "logs", "metrics.jsonl")) as f:
+        val_metrics = [json.loads(line) for line in f if '"val_' in line]
+    for m in val_metrics:
+        if not all(math.isfinite(x) for x in m.values()):
+            raise AssertionError(f"[{tag}] validation metrics {m}")
+    return {"first_main_s": first_s, "second_main_s": second_s,
+            "saves": saves, "resume_load_ms": restored[0]["ms"],
+            "val_ms": [v["ms"] for v in vals],
+            "val_clouds": [v["clouds"] for v in vals],
+            "val_launches_per_forward": vals[0]["launches"],
+            "validation_launches": {k: sum(v["launches"][k] for v in vals)
+                                    for k in KERNELS},
+            "val_metrics": val_metrics, "ended": ended}, k1
+
+
+def log_ckpt(tag, out):
+    for s in out["saves"]:
+        log(f"[{tag}] save at step {s['step']}: {s['ms']:.1f} ms, bytes "
+            f"{s['bytes']}")
+    log(f"[{tag}] main to step {out['steps'][0]}: {out['first_main_s']:.1f} "
+        f"s; resumed main to step {out['steps'][1]}: "
+        f"{out['second_main_s']:.1f} s; resume load (model and train state "
+        f"onto the card) {out['resume_load_ms']:.1f} ms; the resumed "
+        f"parameters, buffers, mu, nu, count and step bit-equal to the "
+        f"saved run's")
+    log(f"[{tag}] validation: {len(out['val_ms'])} forwards of clouds "
+        f"{out['val_clouds']}, ms per batch p50 "
+        f"{np.median(out['val_ms']):.2f} (all "
+        f"{[round(t, 2) for t in out['val_ms']]}); kernel launches per "
+        f"validation forward {out['val_launches_per_forward']}")
+    for m in out["val_metrics"]:
+        log(f"[{tag}]   step {m['step']}: " + ", ".join(
+            f"{k}={v:.4f}" for k, v in m.items()
+            if k.startswith("val_")))
+
+
+def _same_launches(got, seeded, what):
+    """The host's launch calls per forward of a model served from a file
+    equal to the seeded model's (both profiled in this run); the
+    profiler's device-side counts logged beside them."""
+    h, d = "host_launches_per_forward", "device_launches_per_forward"
+    log(f"{what} from the file: launch calls per forward {got[h]} (seeded "
+        f"{seeded[h]}); device launches recorded per forward {got[d]} "
+        f"(seeded {seeded[d]})")
+    if got[h] != seeded[h]:
+        raise AssertionError(f"{what}: {got[h]} launch calls per forward, "
+                             f"the seeded model's {seeded[h]}")
+
+
+def ckpt_phase(tag, module, config, steps, per_forward, load, serve,
+               seeded, out_dir):
+    """A family's checkpoint path under out_dir/<tag>: ckpt_run with
+    `steps` (first main, resumed main), K1 of the first validation forward
+    (B = 32) against its plain version, then a server from the first
+    main's last model file (`load(path, device)`): its state bit-equal to
+    the saved run's; `serve(server, cpu_model)` -> (results, profiled
+    forward) serves with the serving launch counts and holds the logits
+    against a server loaded on the CPU from the same file; the profiled
+    forward's launch calls must equal the seeded server's (`seeded`)."""
+    run = os.path.join(out_dir, tag.replace("-", "_"))
+    try:
+        out, k1 = ckpt_run(module, config, *steps, run, tag, per_forward)
+        out["steps"] = list(steps)
+        log_ckpt(tag, out)
+        if len(k1) != per_forward["patch_attention"]:
+            raise AssertionError(f"[{tag}] captured {len(k1)} K1 calls")
+        calls = [check_call("patch_attention", args, timing=TRAIN_TIMING)
+                 for args in k1]
+        for i, r in enumerate(calls):
+            log_call(tag, f"K1 validation call {i}", r)
+        out["k1_b32"] = dict(_row(calls), device_ms=_total(
+            r["device_ms"] for r in calls), fp32_bound_ms=sum(
+            r["fp32_bound_ms"] for r in calls), calls=calls)
+        log_call(tag, "K1 per validation forward (B = 32)", out["k1_b32"])
+        del k1
+        name = f"model_step_{steps[0]}.msgpack"
+        path = os.path.join(run, "ckpts", name)
+        t0 = time.perf_counter()
+        server = load(path, "cuda")
+        out["server_build_s"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        load_any_model_ckpt(path, server.model, server.config.MODEL)
+        torch.cuda.synchronize()
+        out["serve_load_ms"] = (time.perf_counter() - t0) * 1e3
+        what = f"[{tag}] {type(server).__name__}"
+        _bit_equal_state(server.model.state_dict(), out["ended"]["state"],
+                         f"{what}(checkpoint=...)")
+        log(f"{what}(checkpoint={name}) built in "
+            f"{out['server_build_s']:.2f} s, its state bit-equal to the "
+            f"saved run's; load_any_model_ckpt onto the card "
+            f"{out['serve_load_ms']:.1f} ms")
+        del out["ended"]
+        served, profiled = serve(server, load(path, "cpu").model)
+        out.update(served)
+        _same_launches(profiled, seeded, what)
+        return out
+    finally:
+        shutil.rmtree(os.path.join(run, "ckpts"), ignore_errors=True)
+
+
 # ------------------------------------------------------- motion planner ---
 
 def mp_config(*opts):
     return get_config(MP_CONFIG, MP_TRAIN_OPTS + list(opts))
+
+
+def mp_config_val(*opts):
+    """mp_config with a VAL_DATASET (the release YAML has none): the
+    training store's keys, no augmentation."""
+    val = [x for k, v in mp_config().TRAIN_DATASET.items()
+           for x in (f"VAL_DATASET.{k}", str(v))]
+    return mp_config(*val, "VAL_DATASET.use_val", "True",
+                     "VAL_DATASET.augment_pc", "False", *opts)
 
 
 def mp_pipeline(engine):
@@ -1890,7 +2210,8 @@ def mp_inputs(pipe, obs):
     return inp, pipe.text_embedder(_plan_action_name(plan))
 
 
-def mp_serving_phase(pipe, observations, out_dir):
+def mp_serving_phase(pipe, observations, out_dir,
+                     profile_name="profile_mp_forward.txt", tag="mp-serving"):
     """4 counted pipeline requests, then host prep vs device forward per
     request and a profiler window over 3 forwards."""
     mp_episode(pipe, observations[:1], 7)                 # warm-up
@@ -1933,7 +2254,7 @@ def mp_serving_phase(pipe, observations, out_dir):
             engine.forward(b)
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
-    with open(os.path.join(out_dir, "profile_mp_forward.txt"), "w") as f:
+    with open(os.path.join(out_dir, profile_name), "w") as f:
         f.write(events.table(sort_by="self_cuda_time_total", row_limit=60))
     ops = _device_ops(events, len(batches))
     busy = sum(o[1] for o in ops)
@@ -1950,15 +2271,16 @@ def mp_serving_phase(pipe, observations, out_dir):
            "device_busy_ms_per_forward": busy,
            "device_launches_per_forward": _device_launches(events,
                                                            len(batches)),
+           "host_launches_per_forward": _host_launches(events, len(batches)),
            "device_idle_share": 1.0 - busy / fwd_p50,
            "device_ms_by_group": _group_device_ops(ops),
            "launches": launches, "actions": [a.tolist() for a in actions]}
-    log(f"[mp-serving] {len(observations)} GT pipeline requests: p50 "
+    log(f"[{tag}] {len(observations)} GT pipeline requests: p50 "
         f"{out['request_p50_ms']:.2f} ms (all "
         f"{[round(t, 2) for t in out['request_ms']]}); points "
         f"{out['points']}, labels per class {out['labels']}; launches "
         f"{launches}")
-    log(f"[mp-serving] MotionPlannerEngine.predict p50 {fwd_p50:.2f} ms "
+    log(f"[{tag}] MotionPlannerEngine.predict p50 {fwd_p50:.2f} ms "
         f"(all {[round(t, 2) for t in fwd_ms]}); host prep (GT vision, "
         f"labels, text) p50 {out['host_prep_ms_p50']:.2f} ms; device busy "
         f"{busy:.2f} ms per forward in "
@@ -1966,18 +2288,20 @@ def mp_serving_phase(pipe, observations, out_dir):
         f"wall {out['profiled_forward_wall_ms']:.2f} ms), idle share "
         f"{out['device_idle_share']:.3f}")
     for g, v in out["device_ms_by_group"].items():
-        log(f"[mp-serving]   {v['ms']:.4f} ms x{v['count']}  {g}")
+        log(f"[{tag}]   {v['ms']:.4f} ms x{v['count']}  {g}")
     return out, rows[0]
 
 
-def mp_reference_phase(engine, row):
+def mp_reference_phase(engine, row, cpu_model=None, tag="mp-serving"):
     """The card's trajectory logits for one observation against the same
-    weights on the CPU; the decoded trajectory finite."""
+    weights on the CPU (those of `cpu_model`, else the card's copied
+    there); the decoded trajectory finite."""
     inp, txt = row
     batch = engine._batch(inp["pc_fts"], inp["pc_labels"], txt)
-    cpu_model = build_model(engine.config.MODEL, device="cpu")
-    cpu_model.load_state_dict({k: v.cpu() for k, v in
-                               engine.model.state_dict().items()})
+    if cpu_model is None:
+        cpu_model = build_model(engine.config.MODEL, device="cpu")
+        cpu_model.load_state_dict({k: v.cpu() for k, v in
+                                   engine.model.state_dict().items()})
     with torch.inference_mode():
         gpu = engine.model(batch)
         cpu = cpu_model({k: v.cpu() for k, v in batch.items()})
@@ -1994,7 +2318,7 @@ def mp_reference_phase(engine, row):
     if traj.shape != (1, 5, 9) or not bool(torch.isfinite(traj).all()):
         raise AssertionError(f"decoded trajectory {traj}")
     errs["pool_overflow"] = int(gpu["pool_overflow"])
-    log(f"[mp-serving] card vs CPU trajectory logits, max |diff|: {errs}")
+    log(f"[{tag}] card vs CPU trajectory logits, max |diff|: {errs}")
     return errs
 
 
@@ -2271,6 +2595,24 @@ def main():
     del host, batches
     torch.cuda.empty_cache()
 
+    def serve(actioner, cpu):
+        res = {"serving": serving_phase(actioner, observations),
+               "breakdown": breakdown_phase(actioner, observations, out_dir,
+                                            "profile_forward_ckpt.txt",
+                                            "ckpt")}
+        res["reference_max_diff"] = reference_phase(
+            actioner, observations[0], cpu, "ckpt")
+        return res, res["breakdown"]
+
+    ckpt = ckpt_phase(
+        "ckpt", train_simple_policy, train_config_val,
+        (CKPT_STEPS, CKPT_RESUME_STEPS), VAL_PER_FORWARD,
+        lambda path, device: Actioner(CONFIG, checkpoint=path,
+                                      cli_opts=CLI_OPTS, device=device,
+                                      seed=0),
+        serve, breakdown, out_dir)
+    torch.cuda.empty_cache()
+
     t0 = time.perf_counter()
     engine = MotionPlannerEngine(MP_CONFIG, device="cuda", seed=0)
     pipe = mp_pipeline(engine)
@@ -2297,6 +2639,20 @@ def main():
                                      "mp-step-check", MP_CHECK_SLICES)
     mp_entry = entry_phase(train_motion_planner, mp_config, MP_ENTRY_STEPS,
                            MP_PER_STEP, "mp-entry")
+    torch.cuda.empty_cache()
+
+    def mp_serve(engine, cpu):
+        res, row = mp_serving_phase(mp_pipeline(engine), mp_obs, out_dir,
+                                    "profile_mp_forward_ckpt.txt", "mp-ckpt")
+        return {"serving": res, "reference_max_diff": mp_reference_phase(
+            engine, row, cpu, "mp-ckpt")}, res
+
+    mp_ckpt = ckpt_phase(
+        "mp-ckpt", train_motion_planner, mp_config_val,
+        (MP_CKPT_STEPS, MP_CKPT_RESUME_STEPS), MP_PER_FORWARD,
+        lambda path, device: MotionPlannerEngine(
+            MP_CONFIG, checkpoint=path, device=device, seed=0),
+        mp_serve, mp_serving, out_dir)
 
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"device": smi, "kernels": rows, "calls": detail,
@@ -2308,7 +2664,8 @@ def main():
                    "mp_training": mp_train, "mp_kernels": mp_rows,
                    "mp_calls": mp_detail, "mp_step_check": mp_step_check,
                    "mp_entry": mp_entry, "stem_vjp": stem_vjp,
-                   "mp_stem_vjp": mp_stem_vjp},
+                   "mp_stem_vjp": mp_stem_vjp, "ckpt": ckpt,
+                   "mp_ckpt": mp_ckpt},
                   f, indent=1)
     # each kernel's launches in the run of its own slice's main path: K1-K4
     # policy serving, K5-K8 policy training, K9 motion-planner serving, K10
@@ -2316,6 +2673,10 @@ def main():
     # run's count for every kernel
     rows.update(train_rows)
     rows.update(mp_rows)
+    rows["patch_attention"]["validation_b32"] = {
+        k: v for k, v in ckpt["k1_b32"].items() if k != "calls"}
+    rows["patch_attention"]["mp_validation_b32"] = {
+        k: v for k, v in mp_ckpt["k1_b32"].items() if k != "calls"}
     rows["subm_conv"]["mp_train_step"] = mp_k2
     rows["conv_weight_grad"]["mp_train_step"] = mp_k7
     k10 = stem_vjp["k10"]
@@ -2325,7 +2686,9 @@ def main():
     paths = {"serving": serving["launches"], "training": train_launches,
              "mp_serving": mp_serving["launches"],
              "mp_training": mp_train_launches, "stem_vjp": stem_launches,
-             "mp_stem_vjp": mp_stem_launches}
+             "mp_stem_vjp": mp_stem_launches,
+             "validation": ckpt["validation_launches"],
+             "mp_validation": mp_ckpt["validation_launches"]}
     main_path = dict.fromkeys(PER_FORWARD, "serving")
     main_path.update(dict.fromkeys(TRAIN_KERNELS, "training"))
     main_path.update(gather_rows_smallc="mp_serving",

@@ -8,6 +8,10 @@ device -> un-normalize and table clamp on the host. Clouds are padded to
 point-capacity buckets (num_points/4, /2, /1) and batches to batch buckets,
 as in the JAX package; the backbone runs with assume_sorted.
 
+Weights come from `checkpoint` (a .msgpack of either package, or an
+upstream-layout torch .pt converted by train.torch_convert), loaded with
+load_state_dict(strict=True); without one they are a seeded init.
+
 Instruction embeddings come from a precomputed `instr_embed_file`, or, when
 the config names none, from the deterministic per-taskvar pseudo-embedding
 the synthetic training store uses. On-demand CLIP encoding is not ported.
@@ -28,6 +32,7 @@ from ..models.factory import build_model, resolve_device
 from ..models.simple_policy import decode_actions
 from ..ops.serialization import sfc_encode_np
 from ..ops.voxel import voxelize_pcd_np, workspace_mask_np
+from ..train.checkpoint import load_any_model_ckpt
 from ..utils.assets import resolve_asset
 from ..utils.robot_box import RobotBox
 
@@ -44,11 +49,12 @@ def _bucket(n, buckets):
 class Actioner:
     _BATCH_BUCKETS = (1, 2, 4, 8, 16)
 
-    def __init__(self, exp_config, cli_opts=None, real_robot=False,
-                 device="cuda", seed=0):
-        """Weights are a seeded init (`seed`, which also drives the
-        >num_points subsample); load trained ones into `self.model` with
-        load_state_dict (e.g. convert.params_from_jax output)."""
+    def __init__(self, exp_config, checkpoint=None, cli_opts=None,
+                 real_robot=False, device="cuda", seed=0):
+        """checkpoint: a model file (train.checkpoint.load_any_model_ckpt),
+        or None for the seeded init of `seed`, which also drives the
+        >num_points subsample. A file that does not fit the model
+        raises."""
         self.device = resolve_device(device)
         self.config = get_config(exp_config, cli_opts)
         self.data_cfg = dict(self.config.TRAIN_DATASET)
@@ -64,6 +70,9 @@ class Actioner:
                          if k == "ptv3_config" else v)
                      for k, v in dict(self.config.MODEL).items()}
         self.model = build_model(model_cfg, device=self.device, seed=seed)
+        if checkpoint:
+            self.model.load_state_dict(load_any_model_ckpt(
+                checkpoint, self.model, self.config.MODEL), strict=True)
         p3 = self.config.MODEL.ptv3_config
         self._presort_cfg = (
             tuple(p3.get("order") or p3.get("orders")

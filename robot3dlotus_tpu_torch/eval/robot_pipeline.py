@@ -36,6 +36,7 @@ from ..configs.rlbench.constants import get_robot_workspace
 from ..models.factory import build_model, resolve_device
 from ..models.motion_planner import decode_mp_actions
 from ..ops.voxel import voxelize_pcd_np, workspace_mask_np
+from ..train.checkpoint import load_any_model_ckpt
 from ..utils.assets import resolve_asset
 from ..utils.robot_box import RobotBox
 from ..vlm.llm_planner import GroundtruthTaskPlanner
@@ -67,15 +68,12 @@ class ActionTextEmbedder:
 class MotionPlannerEngine:
     """The motion planner of a train config, served one cloud at a time on
     `device`: pad to num_points, forward, decode, then un-normalise on the
-    host. Weights are a seeded init; load trained ones into `self.model`
-    with load_state_dict (e.g. convert.params_from_jax output)."""
+    host. Weights come from `checkpoint` (a .msgpack of either package or
+    an upstream-layout .pt, as the Actioner loads them), or are a seeded
+    init without one."""
 
     def __init__(self, config_file, checkpoint=None, cli_opts=None,
                  device="cuda", seed=0):
-        if checkpoint:
-            raise NotImplementedError(
-                "MotionPlannerEngine(checkpoint=...): loading checkpoints is "
-                "not ported; load a state_dict into .model instead")
         self.device = resolve_device(device)
         self.config = get_config(config_file, cli_opts)
         self.data_cfg = dict(self.config.TRAIN_DATASET)
@@ -83,6 +81,9 @@ class MotionPlannerEngine:
         self.num_points = int(self.data_cfg.get("num_points", 4096))
         self.model = build_model(self.config.MODEL, device=self.device,
                                  seed=seed)
+        if checkpoint:
+            self.model.load_state_dict(load_any_model_ckpt(
+                checkpoint, self.model, self.config.MODEL), strict=True)
 
     def _batch(self, pc_ft, pc_label, txt_embed):
         """Host arrays -> a B = 1 device batch, padded to num_points points

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -53,13 +54,26 @@ class Randomness:
     `device` (a generator on the tensors' device), attention-dropout seeds
     and SFC order permutations from `host` (a CPU generator, no device
     sync). `perms`, when given, is the list of order permutations to hand
-    out instead, in call order (tests feed both packages the same ones)."""
+    out instead, in call order (tests feed both packages the same ones).
+
+    The trainer calls at_step(step) before each step, as the JAX step
+    folds state.step into its key: both generators restart from a seed
+    derived from (seed, step), so a run resumed at a step draws what the
+    uninterrupted run drew there."""
 
     def __init__(self, seed, device="cpu", perms=None):
         device = torch.device(device)
+        self.seed = seed
         self.host = torch.Generator().manual_seed(seed)
         self.device = torch.Generator(device=device).manual_seed(seed + 1)
         self.perms = None if perms is None else [list(p) for p in perms]
+
+    def at_step(self, step):
+        """Reseeds both generators from (seed, step)."""
+        host, dev = np.random.SeedSequence([self.seed, step]).generate_state(
+            2, np.uint64)
+        self.host.manual_seed(int(host))
+        self.device.manual_seed(int(dev))
 
     def keep(self, shape, rate, device):
         """Bernoulli(1 - rate) keep mask of `shape`."""

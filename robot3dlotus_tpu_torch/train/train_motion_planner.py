@@ -4,17 +4,17 @@ robot3dlotus_tpu/train/train_motion_planner.py):
     python -m robot3dlotus_tpu_torch.train.train_motion_planner \\
         --exp-config <yaml> [--device cpu] [KEY VALUE]...
 
-The policy's loop (driver.run_training) with the motion dataset, collate
-and trajectory loss. Runs on the CUDA card unless --device cpu is given.
-The data comes from TRAIN_DATASET.data_dir, which the port reads for the
-synthetic stores only ('synthetic_motion'). Validation waits with the
-policy's.
+The policy's loop (driver.run_training) with the motion dataset, collate,
+trajectory loss, decode and validation metrics (open and stop accuracy
+over valid trajectory steps). Runs on the CUDA card unless --device cpu is
+given. The data comes from TRAIN_DATASET.data_dir, which the port reads
+for the synthetic stores only ('synthetic_motion').
 """
 from __future__ import annotations
 
-import logging
+import numpy as np
 
-from ..models.motion_planner import compute_mp_loss
+from ..models.motion_planner import compute_mp_loss, decode_mp_actions
 from .datasets.motion_dataset import (MotionPlannerDataset,
                                       collate_motion_samples)
 from .datasets.store import open_store
@@ -34,8 +34,25 @@ def _make_collate(ds_cfg, num_clouds):
         samples, num_points, max_traj_len, num_clouds=num_clouds)
 
 
+def _val_accuracy(actions, batch):
+    """Decoded (B, L, 9) trajectories -> open/stop accuracy over valid
+    trajectory steps (JAX train_motion_planner._val_accuracy)."""
+    tmask = batch["traj_masks"].astype(bool) & \
+        batch["batch_valid"].astype(bool)[:, None]
+    gt_open = batch["gt_trajs"][..., -1] > 0.5
+    gt_stop = batch["gt_trajs_stop"] > 0.5
+    open_pred = (1.0 / (1.0 + np.exp(-actions[..., -2]))) > 0.5
+    stop_pred = (1.0 / (1.0 + np.exp(-actions[..., -1]))) > 0.5
+    n = float(tmask.sum())
+    return {
+        "open_acc": (float(np.sum((open_pred == gt_open) & tmask)), n),
+        "stop_acc": (float(np.sum((stop_pred == gt_stop) & tmask)), n),
+    }
+
+
 SPEC = TaskSpec(name="motion_planner", build_dataset=_build_dataset,
-                make_collate=_make_collate, loss_fn=compute_mp_loss)
+                make_collate=_make_collate, loss_fn=compute_mp_loss,
+                decode_fn=decode_mp_actions, val_accuracy=_val_accuracy)
 
 
 def main(config, device="cuda"):
@@ -43,5 +60,4 @@ def main(config, device="cuda"):
 
 
 if __name__ == "__main__":
-    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
     main(*build_args())

@@ -7,13 +7,17 @@
 
 Each root is a checkout of the repo (e.g. `git archive` of a commit
 unpacked into a git-ignored directory). Each turn of --order (p: the
-first root, c: the second) is a fresh Python process with that root first
-on sys.path; it imports that tree's chip_smoke.py and runs its phases:
+first root, c: the second; q: the first with the policy trainer's SEED 7,
+n: the second with per-step reseeding, `Randomness.at_step`, off: turns
+that vary the random draws, on which the step time depends) is a fresh
+Python process with that root first on sys.path; it imports that tree's
+chip_smoke.py and runs its phases:
 policy serving (`serving_phase`, `breakdown_phase`: predict p50, device
 forward p50, device launches per forward), policy training
 (`training_phase`: 5 counted steps and a profiler window over 2 more at
 B = 32 x 4096), motion-planner serving (`mp_serving_phase`) and training
-(`mp_training`). Each tree checks its own launch counts. One JSON line per
+(`mp_training`); where the tree has `Randomness.at_step`, the host µs of
+one call, over 1000. Each tree checks its own launch counts. One JSON line per
 turn is printed and all of them are written to
 chiprun_out/parent_ab.json. Needs one CUDA card.
 
@@ -35,13 +39,15 @@ import subprocess
 import sys
 
 TURN = r"""
-import json, os, sys
+import json, os, sys, time
 import numpy as np
 import torch
-root = sys.argv[1]
+root, variant = sys.argv[1], sys.argv[2]
 sys.path.insert(0, root)
 os.chdir(root)
 import chip_smoke as cs
+if variant == "n":
+    cs.layers.Randomness.at_step = lambda self, step: None
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 out_dir = os.path.join(root, "chiprun_out")
@@ -54,10 +60,17 @@ actioner.rng = np.random.default_rng(0)
 res["serving"] = cs.serving_phase(actioner, obs)
 res["breakdown"] = cs.breakdown_phase(actioner, obs, out_dir)
 del actioner
-trainer, batches, _ = cs.build_trainer(cs.train_config(), cs.SPEC,
+seed = ["SEED", "7"] if variant == "q" else []
+trainer, batches, _ = cs.build_trainer(cs.train_config(*seed), cs.SPEC,
                                        device="cuda")
 host, _ = cs.host_batches(batches, 1 + cs.TRAIN_STEPS + cs.PROFILE_STEPS)
 res["training"] = cs.training_phase(trainer, host[1:], out_dir)[0]
+at_step_us = None
+if variant == "c" and hasattr(trainer.rng, "at_step"):
+    t0 = time.perf_counter()
+    for i in range(1000):
+        trainer.rng.at_step(i)
+    at_step_us = (time.perf_counter() - t0) * 1e3
 del trainer, batches, host
 torch.cuda.empty_cache()
 engine = cs.MotionPlannerEngine(cs.MP_CONFIG, device="cuda", seed=0)
@@ -79,6 +92,7 @@ keep = {"serving": ("predict_p50_ms", "predict_batch4_ms"),
         "mp_training": ("step_ms_p50", "step_ms", "peak_mem_gib",
                         "device_busy_ms_per_step", "device_ms_by_group")}
 summary = {k: {f: v[f] for f in keep[k]} for k, v in res.items()}
+summary["training"]["at_step_us"] = at_step_us
 print("AB " + json.dumps(summary, default=str), flush=True)
 """
 
@@ -130,11 +144,13 @@ def main():
     ap.add_argument("--step-check", type=int, default=0)
     args = ap.parse_args()
     roots = {"p": os.path.abspath(args.parent),
+             "q": os.path.abspath(args.parent),
              "c": os.path.abspath(args.change),
+             "n": os.path.abspath(args.change),
              "a": os.path.abspath(args.change)}
     turns = []
     for i, who in enumerate(args.order):
-        cmd = [sys.executable, "-c", TURN, roots[who]]
+        cmd = [sys.executable, "-c", TURN, roots[who], who]
         if args.step_check:
             cmd = [sys.executable, "-c", STEP_CHECK, roots[who],
                    str(args.step_check), "1" if who == "a" else "0"]
@@ -146,6 +162,8 @@ def main():
                              f"{proc.returncode}")
         turn = dict(json.loads(lines[-1][3:]), turn=i,
                     tree={"p": "parent", "c": "change",
+                          "q": "parent, SEED 7",
+                          "n": "change, no per-step reseeding",
                           "a": "change, plain attention"}[who])
         turns.append(turn)
         print(json.dumps(turn), flush=True)

@@ -1,6 +1,8 @@
 """The PyTorch port stands alone: no file of robot3dlotus_tpu_torch/ and not
-chip_smoke.py imports jax, flax or the JAX package; importing the port
-loads no jax; entry points (the Actioner, build_model, the trainer) run on
+chip_smoke.py imports jax, flax, msgpack or the JAX package (checkpoints go
+through the port's own msgpack codec), and tensorboardX only inside a try
+that lets it be absent; importing the port loads none of them; entry
+points (the Actioner, build_model, the trainer) run on
 CUDA by default and raise without a card unless the caller passes
 device='cpu'."""
 import ast
@@ -14,6 +16,9 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "robot3dlotus_tpu_torch")
 BANNED = ("jax", "flax", "robot3dlotus_tpu")
+# absent on the card's machine: the port's checkpoints need neither
+NO_CODEC = ("msgpack", "flax")
+OPTIONAL = "tensorboardX"
 RELEASE_CFG = os.path.join(PORT, "configs", "rlbench",
                            "simple_policy_ptv3.yaml")
 
@@ -43,12 +48,41 @@ def test_no_jax_imports(path):
     assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
 
 
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_msgpack_and_optional_tensorboardx(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    parents = {c: n for n in ast.walk(tree) for c in ast.iter_child_nodes(n)}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module]
+        else:
+            continue
+        roots = {n.split(".")[0] for n in names}
+        assert not roots & set(NO_CODEC), (path, names)
+        if OPTIONAL in roots:
+            up = node
+            while up in parents and not isinstance(up, ast.Try):
+                up = parents[up]
+            assert isinstance(up, ast.Try) and node in [
+                n for stmt in up.body for n in ast.walk(stmt)], \
+                f"{path}: {OPTIONAL} imported outside a try"
+            caught = [ast.unparse(h.type) for h in up.handlers if h.type]
+            assert set(caught) & {"Exception", "ImportError"}, caught
+
+
 def test_import_loads_no_jax():
     code = ("import sys, robot3dlotus_tpu_torch.eval.actioner, "
+            "robot3dlotus_tpu_torch.eval.robot_pipeline, "
             "robot3dlotus_tpu_torch.convert, "
-            "robot3dlotus_tpu_torch.train.train_simple_policy; "
+            "robot3dlotus_tpu_torch.train.checkpoint, "
+            "robot3dlotus_tpu_torch.train.train_simple_policy, "
+            "robot3dlotus_tpu_torch.train.train_motion_planner; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'flax', 'robot3dlotus_tpu')]; "
+            "('jax', 'flax', 'msgpack', 'robot3dlotus_tpu')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)

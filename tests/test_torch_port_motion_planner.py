@@ -457,6 +457,6 @@ def test_gt_pipeline_matches_jax(mp_config_file):
         assert cache["highlevel_step_id"] == jcache["highlevel_step_id"]
     assert calls == 3
     assert cache["highlevel_plans"] == jcache["highlevel_plans"]
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(FileNotFoundError):     # no file: no seeded init
         pipe.MotionPlannerEngine(mp_config_file, checkpoint="mp.pt",
                                  device="cpu")

@@ -148,12 +148,12 @@ def _tiny_release_argv(*extra):
             "MODEL.ptv3_config.stage_caps", "[256,256,128,64,32]"]
 
 
-def test_motion_planner_entry_point_runs_on_cpu(caplog):
+def test_motion_planner_entry_point_runs_on_cpu(caplog, tmp_path):
     """train_motion_planner.main --device cpu: three steps with the release
     dropout rates, attention dropout and order shuffling; every logged loss
     finite."""
     config, device = train_motion_planner.build_args(
-        _tiny_release_argv("--device", "cpu"))
+        _tiny_release_argv("--device", "cpu") + ["output_dir", str(tmp_path)])
     assert device == "cpu"
     with caplog.at_level("INFO", logger="robot3dlotus_tpu_torch.train"):
         trainer = train_motion_planner.main(config, device=device)

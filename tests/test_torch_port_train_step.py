@@ -265,8 +265,11 @@ def test_three_cpu_steps_on_synthetic_reach_lower_the_loss():
         stats, trainer.model.ptv3_model.embedding_norm.norm.running_mean)
 
 
-def test_training_entry_point_runs_on_cpu(caplog):
+def test_training_entry_point_runs_on_cpu(caplog, tmp_path):
     config = _tiny_release_config(num_train_steps=2, log_steps=1)
+    config.defrost()
+    config.output_dir = str(tmp_path)   # the run's logs and checkpoints
+    config.freeze()
     with caplog.at_level("INFO", logger="robot3dlotus_tpu_torch.train"):
         trainer = train_simple_policy.main(config, device="cpu")
     assert trainer.optimizer.count == 2
