@@ -7,6 +7,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
   1. build   the hand-written kernels K1-K10 from robot3dlotus_tpu_torch/csrc
              (one nvcc per source, all started together) and load them;
              ptxas's registers and spills of K1, K3, K5, K6 and K10 logged;
+             the native voxelizer (robot3dlotus_tpu_torch/native, g++);
   2. capture one `Actioner.predict` at the release width (4096 points) and
              one `predict_batch` of 4 with recorders on the kernel call
              sites, keeping every kernel input the main path produces;
@@ -31,10 +32,24 @@ Phases, each of which raises on failure (exit code != 0, no result line):
              256 x 256 xyz/rgb, seeded tabletop scenes), counters read: each
              kernel must have launched its per-forward count 5 times; batch
              and sequential actions must agree; p50 request latency printed;
-  5. breakdown host preprocessing vs device forward per request, and a
-             torch.profiler window over 3 forwards: device time by kernel,
-             device launches per forward and the device's idle share
-             (profile_forward.txt in the output directory);
+  5. breakdown host preprocessing (its parts: the native crop +
+             voxelize, robot box, subsample, presort) vs device forward per
+             request, and a torch.profiler window over 3 forwards: device
+             time by kernel, device launches per forward and the device's
+             idle share (profile_forward.txt in the output directory);
+ 5a. fused     Actioner(device_preprocess=True) on the same weights
+             (vox_capacity FUSED_VOX_CAPACITY): launch counters to 0, phase
+             4's 4 observations through predict, counters read (each
+             kernel's count per forward as phase 4's); predict p50 and its
+             host part (the raw cloud's staging); on each observation
+             vox_overflow 0 and count equal to the host path's; on a sparse
+             observation (no subsample) the action against the host path's
+             at the same point capacity (position 2e-4, quaternion 1e-4,
+             open logit 1e-3); the packed vector against a CPU run of the
+             same program with the same draws (1e-3 * max(1, |ref|),
+             count and overflow exact); a profiler window over 3 predicts:
+             device busy, host launch calls and synchronizes per predict
+             (profile_fused.txt);
   6. reference the card's logits for one observation against the same
              weights on the CPU (the plain path);
   7. train-capture  the trainer of the release YAML on synthetic_reach
@@ -88,11 +103,21 @@ Phases, each of which raises on failure (exit code != 0, no result line):
              that slice, and every gradient must be held on some slice; at
              a leaky-ReLU pre-activation within 1e-4 max|z| of the kink
              (a tie) the CPU follows the card's branch;
- 12. entry     train_simple_policy.main on the card for ENTRY_STEPS steps
-             (launch counters to 0 before, read after against the per-step
-             counts; logged losses finite; a fresh run directory under
-             build/smoke_runs, removed after); the end-to-end training
-             rate, host batches included, over the second half.
+ 12. entry     train_simple_policy.main on the card for ENTRY_STEPS steps,
+             with the release YAML's 4 loader threads and the prefetch onto
+             the card (launch counters to 0 before, read after against the
+             per-step counts; logged losses finite; a fresh run directory
+             under build/smoke_runs, removed after); the end-to-end
+             training rate, host batches included, over the second half,
+             beside phase 8's device-step rate; host ms per batch (the
+             prefetch thread's wait on the loader) and the training
+             thread's wait for a batch;
+ 12a. lmdb     the synthetic_reach store written by LmdbWriterStore as
+             GemBench LMDB environments under build/smoke_data; the first 4
+             host batches of a 4-thread loader over LmdbStore bit-equal to
+             those over the synthetic store (same data_ids and seeds); then
+             train_simple_policy.main on the LMDB directory for LMDB_STEPS
+             steps, checked as phase 12; the directory removed after.
  13. ckpt      checkpoints, validation and serving from a checkpoint:
              train_simple_policy.main for CKPT_STEPS steps under
              chiprun_out/ckpt with a save and a validation (VAL_DATASET
@@ -149,7 +174,9 @@ seeded weights) behind the ground-truth pipeline (robot_pipeline_gt.yaml):
  19. mp-step-check  phase 11 for the motion planner, on MP_CHECK_SLICES
              slices;
  20. mp-entry     train_motion_planner.main on the card for MP_ENTRY_STEPS
-             steps, launch counts checked, logged losses finite;
+             steps (4 loader threads, prefetch), launch counts checked,
+             logged losses finite, the rates as phase 12's beside phase 17's;
+ 20a. mp-lmdb  phase 12a for the motion planner (synthetic_motion);
  21. mp-ckpt      phase 13 for the motion planner (MP_CKPT_STEPS, then a
              resume to MP_CKPT_RESUME_STEPS; validation on the synthetic
              motion store, 3 batches of 32: the `mp_validation` path),
@@ -192,10 +219,15 @@ from robot3dlotus_tpu_torch.models.layers import Randomness
 from robot3dlotus_tpu_torch.models.motion_planner import (compute_mp_loss,
                                                           decode_mp_actions)
 from robot3dlotus_tpu_torch.models.simple_policy import compute_loss
+from robot3dlotus_tpu_torch import native
 from robot3dlotus_tpu_torch.ops import (attention, conv, cuda_lib, gather,
                                         patching, pooling, sparse_conv, stem)
 from robot3dlotus_tpu_torch.train import checkpoint as ckpt_mod, driver
 from robot3dlotus_tpu_torch.train.checkpoint import load_any_model_ckpt
+from robot3dlotus_tpu_torch.train.datasets.loader import (KeystepBatchLoader,
+                                                          PrefetchToDevice)
+from robot3dlotus_tpu_torch.train.datasets.store import (LmdbWriterStore,
+                                                         open_store)
 from robot3dlotus_tpu_torch.train.driver import build_trainer
 from robot3dlotus_tpu_torch.train.optim import build_optimizer
 from robot3dlotus_tpu_torch.train import (train_motion_planner,
@@ -252,6 +284,11 @@ TRAIN_OPTS = ["TRAIN_DATASET.data_dir", "synthetic_reach",
 TRAIN_STEPS = 5
 PROFILE_STEPS = 2
 ENTRY_STEPS = 6   # train_simple_policy.main; the rate is read over the last 3
+LMDB_STEPS = 2    # main on each family's LMDB copy of its synthetic store
+LMDB_BATCHES = 4  # host batches held bit-equal across the two stores
+# the fused serving path: the smoke's observations crop to up to 8,951
+# occupied 1 cm voxels (counted on the CPU), past the default 8192
+FUSED_VOX_CAPACITY = 16384
 # launches per training step of the release model: K2 9 forward + 9 dx;
 # K4 4 shuffled child entry sorts, 4 unpools; K9 the stage-0 entry sort of
 # the 7-channel input; K7 9 CPE + the stem; K8 the backward of every K4 call
@@ -264,10 +301,12 @@ PER_STEP = {"subm_conv": 18, "stem_conv": 1, "gather_rows": 8,
             "conv_weight_grad": 10, "scatter_rows_add": 17,
             "patch_attention": 0}
 # the motion planner: its trainer on the synthetic motion store (no action
-# embedding cache: the crc32 embeddings)
+# embedding cache: the crc32 embeddings), with the policy's release loader
+# threads (the motion planner's YAML sets none)
 MP_TRAIN_OPTS = ["TRAIN_DATASET.data_dir", "synthetic_motion",
                  "TRAIN_DATASET.action_embed_file", "None",
-                 "TRAIN_DATASET.taskvar_file", "None"]
+                 "TRAIN_DATASET.taskvar_file", "None",
+                 "TRAIN.n_workers", "4"]
 MP_REQUESTS = 4
 MP_ENTRY_STEPS = 4
 # launches per motion-planner forward: 9 Blocks; 4 unpools; K9 for the
@@ -996,12 +1035,13 @@ def breakdown_phase(actioner, observations, out_dir,
     forward (batch upload, model, decode, readback), host clock; then a
     torch.profiler window over 3 forwards for device time by kernel and the
     device's busy share of the window."""
-    prep_ms, fwd_ms = [], []
+    prep_ms, fwd_ms, parts = [], [], []
     rows = []
     for i, o in enumerate(observations):
         t0 = time.perf_counter()
         emb, pc_ft, _, _ = actioner._host_prep("close_jar", i, o, None)
         t1 = time.perf_counter()
+        parts.append(dict(actioner.prep_ms))
         actioner._forward([(pc_ft, emb)], 1)
         t2 = time.perf_counter()
         prep_ms.append((t1 - t0) * 1e3)
@@ -1021,11 +1061,15 @@ def breakdown_phase(actioner, observations, out_dir,
         f.write(events.table(sort_by="self_cuda_time_total", row_limit=60))
     fwd_p50 = float(np.median(fwd_ms))
     out = {"host_prep_ms_p50": float(np.median(prep_ms)),
+           "host_prep_parts_ms_p50": {k: float(np.median([p[k] for p in
+                                                          parts]))
+                                      for k in parts[0]},
            "forward_ms_p50": fwd_p50,
            "profiled_forward_wall_ms": wall_ms / 3,
            "device_busy_ms_per_forward": busy_ms,
            "device_launches_per_forward": _device_launches(events, 3),
            "host_launches_per_forward": _host_launches(events, 3),
+           "host_syncs_per_forward": _host_syncs(events, 3),
            "device_idle_share": 1.0 - busy_ms / fwd_p50,
            "top_device_ops": [{"name": k[0][:80], "ms": k[1], "count": k[2]}
                               for k in kernels[:15]]}
@@ -1034,10 +1078,136 @@ def breakdown_phase(actioner, observations, out_dir,
         f"{out['profiled_forward_wall_ms']:.2f} ms wall); device busy "
         f"{busy_ms:.2f} ms per forward in "
         f"{out['device_launches_per_forward']:.2f} device launches (kernels, "
-        f"memcpy, memset), idle share of the unprofiled forward "
+        f"memcpy, memset), {out['host_syncs_per_forward']:.1f} host "
+        f"synchronizes, idle share of the unprofiled forward "
         f"{out['device_idle_share']:.3f}")
+    log(f"[{tag}] host prep parts p50 (ms): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in out["host_prep_parts_ms_p50"].items()))
     for k in out["top_device_ops"][:8]:
         log(f"[{tag}]   {k['ms']:.4f} ms x{k['count']}  {k['name']}")
+    return out
+
+
+def fused_phase(actioner, observations, out_dir):
+    """The fused serving path (device_preprocess=True) on `actioner`'s
+    weights: launch counts per forward, predict p50 and its host part,
+    count / overflow per observation, the action on a sparse observation
+    against the host path's, the packed vector against the CPU's."""
+    t0 = time.perf_counter()
+    fused = Actioner(CONFIG, cli_opts=CLI_OPTS, device="cuda", seed=0,
+                     device_preprocess=True, vox_capacity=FUSED_VOX_CAPACITY)
+    fused.model.load_state_dict(actioner.model.state_dict())
+    build_s = time.perf_counter() - t0
+    payloads = requests(observations)
+    fused.predict(**payloads[0])                          # warm-up
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    lat = []
+    for p in payloads:
+        t0 = time.perf_counter()
+        action = fused.predict(**p)["action"]
+        lat.append((time.perf_counter() - t0) * 1e3)
+        if action.shape != (8,) or not np.isfinite(action).all():
+            raise AssertionError(f"fused: bad action {action}")
+    launches = dict(cuda_lib.LAUNCHES)
+    for k, per in PER_FORWARD.items():
+        if launches[k] != per * len(payloads):
+            raise AssertionError(f"fused: {k} launched {launches[k]} times "
+                                 f"in {len(payloads)} predicts, expected "
+                                 f"{per} per forward (phase 4's)")
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for p in payloads[:3]:
+            fused.predict(**p)
+    events = prof.key_averages()
+    with open(os.path.join(out_dir, "profile_fused.txt"), "w") as f:
+        f.write(events.table(sort_by="self_cuda_time_total", row_limit=60))
+    busy = sum(k[1] for k in _device_ops(events, 3))
+    syncs = _host_syncs(events, 3)
+    fn = fused._fused_fn()
+    host_ms, counts = [], []
+    for i, o in enumerate(observations):
+        emb = fused._instruction("close_jar", i, None)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        args = fused._fused_inputs(o, emb, 0)
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        packed = fn(*args).cpu().numpy()
+        host_n = len(actioner._host_prep("close_jar", i, o, None)[1])
+        counts.append((int(packed[8]), host_n, int(packed[9])))
+        if int(packed[9]) != 0 or int(packed[8]) != host_n:
+            raise AssertionError(f"fused, observation {i}: count "
+                                 f"{int(packed[8])} (host path {host_n}), "
+                                 f"vox_overflow {int(packed[9])}")
+
+    # a sparse observation: neither path subsamples; the host path at the
+    # fused program's point capacity
+    sparse = synthetic_observation(300, cameras=1, height=64, width=64)
+    emb = actioner._instruction("close_jar", 0, None)
+    pc_ft, centroid, radius, _ = actioner.process_point_clouds(
+        np.stack(sparse["pc"], 0), np.stack(sparse["rgb"], 0),
+        ee_pose=np.asarray(sparse["gripper"]),
+        arm_links_info=sparse["arm_links_info"])
+    if not 10 < len(pc_ft) < actioner.num_points:
+        raise AssertionError(f"sparse observation: {len(pc_ft)} points")
+    buckets = actioner._point_buckets
+    actioner._point_buckets = (actioner.num_points,)
+    try:
+        host = actioner._forward([(pc_ft, emb)], 1)[0]
+    finally:
+        actioner._point_buckets = buckets
+    host[:3] = host[:3] * radius + centroid
+    host[2] = max(host[2], actioner.TABLE_HEIGHT + 0.005)
+    packed = fn(*fused._fused_inputs(sparse, emb, 0)).cpu().numpy()
+    if int(packed[8]) != len(pc_ft) or int(packed[9]) != 0:
+        raise AssertionError(f"sparse: count {packed[8]} vs {len(pc_ft)}, "
+                             f"overflow {packed[9]}")
+    sparse_err = {"pos": float(np.abs(packed[:3] - host[:3]).max()),
+                  "quat": float(np.abs(packed[3:7] - host[3:7]).max()),
+                  "open_logit": float(abs(packed[7] - host[7]))}
+    for k, bar in (("pos", 2e-4), ("quat", 1e-4), ("open_logit", 1e-3)):
+        if sparse_err[k] > bar:
+            raise AssertionError(f"fused vs host path on the sparse "
+                                 f"observation: {k} {sparse_err[k]} > {bar}")
+
+    # the same program on the CPU with the card's draws
+    cpu = Actioner(CONFIG, cli_opts=CLI_OPTS, device="cpu", seed=0,
+                   device_preprocess=True, vox_capacity=FUSED_VOX_CAPACITY)
+    cpu.model.load_state_dict({k: v.cpu() for k, v in
+                               actioner.model.state_dict().items()})
+    args = fused._fused_inputs(observations[0],
+                               fused._instruction("close_jar", 0, None), 0)
+    card = fn(*args).cpu().numpy()
+    ref = cpu._fused_fn()(*[a.cpu() if torch.is_tensor(a) else a
+                            for a in args]).numpy()
+    cpu_err = float(np.abs(card - ref).max())
+    if (np.abs(card - ref) > 1e-3 * np.maximum(1.0, np.abs(ref))).any() \
+            or (card[8:] != ref[8:]).any():
+        raise AssertionError(f"fused card vs CPU: {card} vs {ref}")
+    out = {"build_s": build_s, "predict_p50_ms": float(np.median(lat)),
+           "predict_ms": lat, "host_part_ms_p50": float(np.median(host_ms)),
+           "host_part_ms": host_ms, "launches": launches,
+           "device_busy_ms_per_predict": busy,
+           "device_idle_share": 1.0 - busy / float(np.median(lat)),
+           "host_launches_per_predict": _host_launches(events, 3),
+           "host_syncs_per_predict": syncs,
+           "count_host_overflow": counts, "sparse_points": len(pc_ft),
+           "sparse_vs_host_max_diff": sparse_err,
+           "card_vs_cpu_max_diff": cpu_err}
+    log(f"[fused] predict p50 {out['predict_p50_ms']:.2f} ms (all "
+        f"{[round(t, 2) for t in lat]}), host part (stack, pad, boxes, "
+        f"upload, draws) p50 {out['host_part_ms_p50']:.2f} ms; launches "
+        f"{launches}")
+    log(f"[fused] device busy {busy:.2f} ms per predict (idle share "
+        f"{out['device_idle_share']:.3f}), "
+        f"{out['host_launches_per_predict']:.1f} host launch calls and "
+        f"{syncs:.1f} stream / device synchronizes per predict "
+        f"(profile_fused.txt)")
+    log(f"[fused] (count, host count, vox_overflow) per observation "
+        f"{counts}; sparse ({len(pc_ft)} points) vs host path {sparse_err}; "
+        f"card vs CPU packed max |diff| {cpu_err:.3g}")
     return out
 
 
@@ -1137,6 +1307,13 @@ def _host_launches(events, n):
     it is issued, which the profiler records in full (its device-side
     count of one repeated forward moves between windows)."""
     return sum(e.count for e in events if e.key in HOST_LAUNCH_CALLS) / n
+
+
+def _host_syncs(events, n):
+    """The host's stream and device synchronizes per unit of a profile
+    over n units (each blocks the host until the device drains)."""
+    return sum(e.count for e in events if e.key in (
+        "cudaStreamSynchronize", "cudaDeviceSynchronize")) / n
 
 
 def _group_device_ops(ops):
@@ -1857,14 +2034,49 @@ class _Records(logging.Handler):
         self.records.append(record)
 
 
+class _TimedPrefetch(PrefetchToDevice):
+    """run_training's PrefetchToDevice, recording per batch the prefetch
+    thread's wait on the host loader (host_ms) and the training thread's
+    wait in next() (wait_ms)."""
+    runs = []
+
+    def __init__(self, it, *args, **kwargs):
+        self.host_ms, self.wait_ms = [], []
+        super().__init__(self._timed(iter(it)), *args, **kwargs)
+        _TimedPrefetch.runs.append(self)
+
+    def _timed(self, it):
+        try:
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    return
+                self.host_ms.append((time.perf_counter() - t0) * 1e3)
+                yield batch
+        finally:
+            if hasattr(it, "close"):
+                it.close()
+
+    def __next__(self):
+        t0 = time.perf_counter()
+        batch = super().__next__()
+        self.wait_ms.append((time.perf_counter() - t0) * 1e3)
+        return batch
+
+
 def entry_phase(module=train_simple_policy, config=train_config,
-                steps=ENTRY_STEPS, per_step=PER_STEP, tag="entry"):
+                steps=ENTRY_STEPS, per_step=PER_STEP, tag="entry",
+                device_clouds_per_s=None):
     """module.main (train_simple_policy or train_motion_planner) on the
-    card as a user starts it: `steps` steps of run_training, each host
-    batch made in series with the steps, a log line after step steps / 2
-    and after the last (each reads the losses, a sync). Launch counters
-    read against per_step; the end-to-end rate is the clouds of the second
-    half over the time between the two lines."""
+    card as a user starts it: `steps` steps of run_training, host batches
+    made by the loader's TRAIN.n_workers threads and prefetched onto the
+    card, a log line after step steps / 2 and after the last (each reads
+    the losses, a sync). Launch counters read against per_step; the
+    end-to-end rate is the clouds of the second half over the time
+    between the two lines, printed beside device_clouds_per_s (the
+    training phase's device-step rate)."""
     half = steps // 2
     run = os.path.join(ROOT, "build", "smoke_runs", tag)
     shutil.rmtree(run, ignore_errors=True)     # a fresh run: no resume
@@ -1875,9 +2087,11 @@ def entry_phase(module=train_simple_policy, config=train_config,
     logger.addHandler(handler)
     logger.setLevel(logging.INFO)
     cuda_lib.reset_launches()
+    _TimedPrefetch.runs = []
     t0 = time.perf_counter()
     try:
-        trainer = module.main(cfg)
+        with _Patch(driver, "PrefetchToDevice", lambda _: _TimedPrefetch):
+            trainer = module.main(cfg)
         torch.cuda.synchronize()
     finally:
         logger.removeHandler(handler)
@@ -1904,20 +2118,94 @@ def entry_phase(module=train_simple_policy, config=train_config,
             raise AssertionError(f"entry point: {r.getMessage()}")
     clouds = half * int(cfg.TRAIN.train_batch_size)
     span_s = lines[1].created - lines[0].created
+    (pre,) = _TimedPrefetch.runs
     out = {"steps": steps, "wall_s": total_s,
            "second_half_s": span_s,
            "clouds_per_s": clouds / span_s,
            "step_ms": span_s * 1e3 / half,
+           "n_workers": int(cfg.TRAIN.n_workers),
+           "host_ms_per_batch": pre.host_ms,
+           "batch_wait_ms": pre.wait_ms,
            "launches": launches,
            "log": [r.getMessage() for r in lines]}
+    if device_clouds_per_s:
+        out["device_step_clouds_per_s"] = device_clouds_per_s
+        out["end_to_end_over_device"] = \
+            out["clouds_per_s"] / device_clouds_per_s
     log(f"[{tag}] {module.__name__.rsplit('.', 1)[-1]}.main, {steps} steps "
         f"in {total_s:.2f} s (build included); steps {half + 1}-{steps} "
         f"{out['step_ms']:.1f} ms each with their host batches, "
-        f"{out['clouds_per_s']:.2f} clouds/s end to end")
+        f"{out['clouds_per_s']:.2f} clouds/s end to end"
+        + (f" against {device_clouds_per_s:.2f} device-step clouds/s "
+           f"({out['end_to_end_over_device']:.3f}x)"
+           if device_clouds_per_s else ""))
+    log(f"[{tag}] {out['n_workers']} loader threads; host ms per batch "
+        f"(the prefetch thread's wait on the loader) "
+        f"{[round(t, 1) for t in pre.host_ms]}; the training thread's "
+        f"wait per batch (ms) {[round(t, 1) for t in pre.wait_ms]}")
     for m in out["log"]:
         log(f"[{tag}]   {m}")
     return out
 
+
+
+def lmdb_phase(module, config, synthetic, per_step, tag):
+    """GemBench LMDB data: the store `synthetic` written by LmdbWriterStore
+    under build/smoke_data/<tag>, LMDB_BATCHES host batches of the release
+    loader (TRAIN.n_workers threads) over LmdbStore held bit-equal to those
+    over the synthetic store, then module.main on the LMDB directory for
+    LMDB_STEPS steps (entry_phase's checks). The directory is removed
+    after."""
+    root = os.path.join(ROOT, "build", "smoke_data", tag)
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        src, writer = open_store(synthetic), LmdbWriterStore(root)
+        for tv in src.taskvars():
+            for ep in src.episodes(tv):
+                writer.put(tv, ep, src.get(tv, ep))
+        writer.close()
+        write_s = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(root, tv, "data.mdb"))
+                     for tv in os.listdir(root))
+        cfg = config()
+        tds, seed = dict(cfg.TRAIN_DATASET), int(cfg.SEED)
+        B = int(cfg.TRAIN.train_batch_size)
+
+        def first_batches(data_dir):
+            ds = module.SPEC.build_dataset(dict(tds, data_dir=data_dir),
+                                           np.random.RandomState(seed))
+            it = iter(KeystepBatchLoader(
+                ds, B, int(tds["num_points"]),
+                collate_fn=module.SPEC.make_collate(tds, B), seed=seed,
+                shuffle_seed=seed, num_workers=int(cfg.TRAIN.n_workers)))
+            t0 = time.perf_counter()
+            out = [next(it) for _ in range(LMDB_BATCHES)]
+            ms = (time.perf_counter() - t0) * 1e3 / LMDB_BATCHES
+            it.close()
+            return type(ds.store).__name__, ds.data_ids, out, ms
+
+        kind, ids, got, lmdb_ms = first_batches(root)
+        _, want_ids, want, synth_ms = first_batches(synthetic)
+        if kind != "LmdbStore" or ids != want_ids:
+            raise AssertionError(f"{tag}: {kind}, data_ids differ")
+        for i, (g, w) in enumerate(zip(got, want)):
+            bad = [k for k in w if g[k].dtype != w[k].dtype
+                   or not np.array_equal(g[k], w[k])]
+            if sorted(g) != sorted(w) or bad:
+                raise AssertionError(f"{tag}: batch {i} differs in {bad}")
+        log(f"[{tag}] {len(ids)} episodes of {synthetic} written as "
+            f"{len(os.listdir(root))} LMDB environments ({nbytes} bytes) in "
+            f"{write_s:.2f} s; {LMDB_BATCHES} host batches bit-equal to the "
+            f"synthetic store's; host ms per batch, LmdbStore {lmdb_ms:.1f}, "
+            f"synthetic {synth_ms:.1f} ({cfg.TRAIN.n_workers} threads)")
+        entry = entry_phase(module, lambda *o: config(
+            "TRAIN_DATASET.data_dir", root, *o), LMDB_STEPS, per_step, tag)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"episodes": len(ids), "bytes": nbytes, "write_s": write_s,
+            "host_ms_per_batch_lmdb": lmdb_ms,
+            "host_ms_per_batch_synthetic": synth_ms, "main": entry}
 
 
 # --------------------------------------------------------- checkpoints ---
@@ -2542,6 +2830,10 @@ def main():
     cuda_lib.library()
     log(f"[build] kernels built and loaded in "
         f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    native.get_lib()
+    log(f"[build] native voxelizer {os.path.basename(native.build())} "
+        f"built and loaded in {time.perf_counter() - t0:.2f} s")
     for name, use in sorted(ptxas_usage().items()):
         m = re.search(r"\d((?:patch_attention|stem_conv|attn_drop|"
                       r"scatter_smallc)\w*?_kernel)(?:ILi(\d+)E(x)?)?",
@@ -2567,6 +2859,7 @@ def main():
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     breakdown = breakdown_phase(actioner, observations, out_dir)
+    fused = fused_phase(actioner, observations, out_dir)
     ref = reference_phase(actioner, observations[0])
     del actioner
 
@@ -2591,8 +2884,10 @@ def main():
     stem_vjp, stem_launches = stem_vjp_phase(stems[0])
     del captured, stems
     step_check = step_check_phase(host[0])
-    entry = entry_phase()
     del host, batches
+    entry = entry_phase(device_clouds_per_s=training["clouds_per_s"])
+    lmdb = lmdb_phase(train_simple_policy, train_config, "synthetic_reach",
+                      PER_STEP, "lmdb")
     torch.cuda.empty_cache()
 
     def serve(actioner, cpu):
@@ -2638,7 +2933,10 @@ def main():
     mp_step_check = step_check_phase(mp_host, mp_config, compute_mp_loss,
                                      "mp-step-check", MP_CHECK_SLICES)
     mp_entry = entry_phase(train_motion_planner, mp_config, MP_ENTRY_STEPS,
-                           MP_PER_STEP, "mp-entry")
+                           MP_PER_STEP, "mp-entry",
+                           device_clouds_per_s=mp_train["clouds_per_s"])
+    mp_lmdb = lmdb_phase(train_motion_planner, mp_config, "synthetic_motion",
+                         MP_PER_STEP, "mp-lmdb")
     torch.cuda.empty_cache()
 
     def mp_serve(engine, cpu):
@@ -2657,6 +2955,7 @@ def main():
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"device": smi, "kernels": rows, "calls": detail,
                    "serving": serving, "breakdown": breakdown,
+                   "fused": fused, "lmdb": lmdb, "mp_lmdb": mp_lmdb,
                    "reference_max_diff": ref, "training": training,
                    "train_kernels": train_rows,
                    "train_calls": train_detail, "step_check": step_check,

@@ -1,12 +1,20 @@
-"""Eval-time Actioner: obs dict -> 8-vector action on the card (port of the
-host-preprocess path of robot3dlotus_tpu/eval/actioner.py).
+"""Eval-time Actioner: obs dict -> 8-vector action on the card (port of
+robot3dlotus_tpu/eval/actioner.py, its host-preprocess and fused paths).
 
-Multi-camera obs -> workspace crop -> 1 cm voxel downsample with trace ->
-robot-box removal -> <= num_points sampling -> centre -> presort by the
-stage-0 SFC code (host numpy) -> SimplePolicy forward + decode on the
-device -> un-normalize and table clamp on the host. Clouds are padded to
-point-capacity buckets (num_points/4, /2, /1) and batches to batch buckets,
-as in the JAX package; the backbone runs with assume_sorted.
+Host path (the default): multi-camera obs -> workspace crop fused with the
+1 cm voxel downsample with trace (the C++ of native/) -> robot-box removal
+-> <= num_points sampling -> centre -> presort by the stage-0 SFC code
+(host numpy) -> SimplePolicy forward + decode on the device -> un-normalize
+and table clamp on the host. Clouds are padded to point-capacity buckets
+(num_points/4, /2, /1) and batches to batch buckets, as in the JAX
+package; the backbone runs with assume_sorted.
+
+Fused path (device_preprocess=True, or ROBOT3DLOTUS_DEVICE_PREPROCESS=1):
+the raw cloud goes to the device and ops/eval_preprocess.py
+make_obs_to_action runs the whole chain there at num_points, with a
+fixed-capacity voxelizer (vox_capacity, or ROBOT3DLOTUS_VOX_CAPACITY,
+default 8192; a non-zero overflow is logged); one packed vector comes
+back. predict_batch then runs fused predicts one after another.
 
 Weights come from `checkpoint` (a .msgpack of either package, or an
 upstream-layout torch .pt converted by train.torch_convert), loaded with
@@ -20,7 +28,9 @@ from __future__ import annotations
 
 import copy
 import json
+import logging
 import os
+import time
 import zlib
 
 import numpy as np
@@ -30,13 +40,16 @@ from ..configs import get_config
 from ..configs.rlbench.constants import get_robot_workspace
 from ..models.factory import build_model, resolve_device
 from ..models.simple_policy import decode_actions
+from ..native import crop_voxelize_trace_native
+from ..ops.eval_preprocess import (make_obs_to_action, obb_params_disabled,
+                                   obb_params_np, obb_vector)
 from ..ops.serialization import sfc_encode_np
-from ..ops.voxel import voxelize_pcd_np, workspace_mask_np
 from ..train.checkpoint import load_any_model_ckpt
 from ..utils.assets import resolve_asset
 from ..utils.robot_box import RobotBox
 
 TXT_BUCKETS = (4, 8, 16, 32, 80)
+LOGGER = logging.getLogger("robot3dlotus_tpu_torch.eval")
 
 
 def _bucket(n, buckets):
@@ -48,13 +61,18 @@ def _bucket(n, buckets):
 
 class Actioner:
     _BATCH_BUCKETS = (1, 2, 4, 8, 16)
+    _RAW_BUCKETS = (65536, 131072, 262144, 524288, 1048576)
 
     def __init__(self, exp_config, checkpoint=None, cli_opts=None,
-                 real_robot=False, device="cuda", seed=0):
+                 real_robot=False, device="cuda", seed=0,
+                 device_preprocess=None, vox_capacity=None):
         """checkpoint: a model file (train.checkpoint.load_any_model_ckpt),
-        or None for the seeded init of `seed`, which also drives the
-        >num_points subsample. A file that does not fit the model
-        raises."""
+        or None for the seeded init of `seed`, which also seeds the
+        >num_points subsample (host path: self.rng; fused path: a
+        torch.Generator on the device). A file that does not fit the model
+        raises. device_preprocess / vox_capacity: the fused path and its
+        voxel capacity (None: ROBOT3DLOTUS_DEVICE_PREPROCESS, default off,
+        and ROBOT3DLOTUS_VOX_CAPACITY, default 8192)."""
         self.device = resolve_device(device)
         self.config = get_config(exp_config, cli_opts)
         self.data_cfg = dict(self.config.TRAIN_DATASET)
@@ -64,6 +82,19 @@ class Actioner:
         self.TABLE_HEIGHT = self.WORKSPACE["TABLE_HEIGHT"]
         self.num_points = int(self.data_cfg.get("num_points", 4096))
         self.rng = np.random.default_rng(seed)
+        if device_preprocess is None:
+            device_preprocess = bool(int(os.environ.get(
+                "ROBOT3DLOTUS_DEVICE_PREPROCESS", "0")))
+        self.device_preprocess = bool(device_preprocess)
+        self.vox_capacity = int(vox_capacity if vox_capacity is not None
+                                else os.environ.get(
+                                    "ROBOT3DLOTUS_VOX_CAPACITY", "8192"))
+        self.draws = torch.Generator(device=self.device)
+        self.draws.manual_seed(seed)
+        self._obs_to_action = None
+        self._txt_dev = {}
+        # host-prep parts of the last process_point_clouds call, ms
+        self.prep_ms = {}
 
         # host-presorted inputs: the backbone skips its entry sort
         model_cfg = {k: (dict(v, assume_sorted=True)
@@ -114,18 +145,17 @@ class Actioner:
     def process_point_clouds(self, xyz, rgb, ee_pose=None,
                              arm_links_info=None):
         """Host preprocessing -> (pc_ft (n, 7) presorted, centroid, radius,
-        ee_pose); all None when the crop empties the cloud."""
+        ee_pose); all None when the crop empties the cloud. Its parts' ms
+        land in self.prep_ms."""
+        t0 = time.perf_counter()
         xyz = np.ascontiguousarray(xyz.reshape(-1, 3), np.float32)
-        rgb = rgb.reshape(-1, 3).astype(np.float32)
-        voxel_size = self.act_cfg.get("voxel_size", 0.01)
-        in_mask = workspace_mask_np(xyz, self.WORKSPACE,
-                                    rm_table=self.data_cfg.get("rm_table",
-                                                               True))
-        xyz, rgb = xyz[in_mask], rgb[in_mask]
+        xyz, first, _ = crop_voxelize_trace_native(
+            xyz, self.act_cfg.get("voxel_size", 0.01), self.WORKSPACE,
+            rm_table=self.data_cfg.get("rm_table", True))
         if len(xyz) == 0:
             return None, None, None, None
-        xyz, first = voxelize_pcd_np(xyz, voxel_size)
-        rgb = rgb[first]
+        rgb = rgb.reshape(-1, 3)[first].astype(np.float32)
+        t1 = time.perf_counter()
 
         if self.data_cfg.get("rm_robot", "none").startswith("box"):
             box = RobotBox(
@@ -134,6 +164,7 @@ class Actioner:
                 env_name="real" if self.real_robot else "rlbench")
             keep = ~box.point_mask(xyz)
             xyz, rgb = xyz[keep], rgb[keep]
+        t2 = time.perf_counter()
 
         if len(xyz) > self.num_points:
             idxs = self.rng.choice(len(xyz), self.num_points, replace=False)
@@ -158,8 +189,14 @@ class Actioner:
         pc_ft = np.concatenate([xyz, rgb], 1)
         if self.data_cfg.get("use_height", True):
             pc_ft = np.concatenate([pc_ft, height[:, None]], 1)
-        return self._presort(pc_ft.astype(np.float32)), centroid, radius, \
-            ee_pose
+        t3 = time.perf_counter()
+        pc_ft = self._presort(pc_ft.astype(np.float32))
+        t4 = time.perf_counter()
+        self.prep_ms = {"crop_voxelize": (t1 - t0) * 1e3,
+                        "robot_box": (t2 - t1) * 1e3,
+                        "subsample": (t3 - t2) * 1e3,
+                        "presort": (t4 - t3) * 1e3}
+        return pc_ft, centroid, radius, ee_pose
 
     def _presort(self, pc_ft):
         """Sort the cloud by the backbone's stage-0 SFC code: the same
@@ -172,12 +209,14 @@ class Actioner:
         code = sfc_encode_np(gc, order0, depth)
         return pc_ft[np.argsort(code, kind="stable")]
 
-    def _host_prep(self, task_str, variation, obs, instructions):
+    def _instruction(self, task_str, variation, instructions):
         taskvar = f"{task_str}+{variation}"
         if instructions is None:
             instructions = self.taskvar_instrs.get(taskvar, ["do the task"])
-        instr_embed = self._encode_instruction(instructions[0],
-                                               taskvar=taskvar)
+        return self._encode_instruction(instructions[0], taskvar=taskvar)
+
+    def _host_prep(self, task_str, variation, obs, instructions):
+        instr_embed = self._instruction(task_str, variation, instructions)
         pc_ft, centroid, radius, _ = self.process_point_clouds(
             np.stack(obs["pc"], 0), np.stack(obs["rgb"], 0),
             ee_pose=copy.deepcopy(np.asarray(obs["gripper"])),
@@ -222,8 +261,88 @@ class Actioner:
         preds = self.model(self._batch(rows, B))
         return decode_actions(preds, self.act_cfg).cpu().numpy()
 
+    # -------------------------------------------- the fused path --
+
+    def _fused_fn(self):
+        if self._obs_to_action is None:
+            self._obs_to_action = make_obs_to_action(
+                self.model, self.act_cfg, self.data_cfg, self.WORKSPACE,
+                self.num_points, vox_capacity=self.vox_capacity)
+        return self._obs_to_action
+
+    def _staged_txt(self, instr_embed):
+        """(txt (T, D), mask (T,)) on the device, T at its text bucket;
+        kept per embedding content."""
+        key = instr_embed.tobytes()
+        if key not in self._txt_dev:
+            T = _bucket(instr_embed.shape[0], TXT_BUCKETS)
+            txt = np.zeros((T, instr_embed.shape[-1]), np.float32)
+            t = min(instr_embed.shape[0], T)
+            txt[:t] = instr_embed[:t]
+            tmask = np.arange(T) < t
+            self._txt_dev[key] = (torch.from_numpy(txt).to(self.device),
+                                  torch.from_numpy(tmask).to(self.device))
+        return self._txt_dev[key]
+
+    def _fused_inputs(self, obs, instr_embed, step_id):
+        """The fused program's arguments for one observation: the raw
+        cloud padded to its raw bucket, the link boxes, the staged text,
+        [step_id, ee_pose] and the subsample draws."""
+        xyz = np.stack(obs["pc"], 0).reshape(-1, 3).astype(np.float32)
+        rgb = np.stack(obs["rgb"], 0).reshape(-1, 3).astype(np.float32)
+        cap = _bucket(len(xyz), self._RAW_BUCKETS)
+        if len(xyz) > cap:
+            LOGGER.warning("raw cloud (%d points) exceeds the largest fused "
+                           "bucket (%d): the trailing points are dropped; "
+                           "serve this camera setup on the host path",
+                           len(xyz), cap)
+        n = min(len(xyz), cap)
+        raw_xyz = np.zeros((cap, 3), np.float32)
+        raw_rgb = np.zeros((cap, 3), np.float32)
+        raw_xyz[:n], raw_rgb[:n] = xyz[:n], rgb[:n]
+        if str(self.data_cfg.get("rm_robot", "none")).startswith("box"):
+            obb = obb_params_np(RobotBox(
+                obs.get("arm_links_info"),
+                keep_gripper=self.data_cfg["rm_robot"] == "box_keep_gripper",
+                env_name="real" if self.real_robot else "rlbench"))
+        else:
+            obb = obb_params_disabled()
+        step_ee = np.concatenate([[np.float32(step_id)], np.asarray(
+            obs["gripper"], np.float32)]).astype(np.float32)
+        to = lambda a: torch.from_numpy(a).to(self.device)  # noqa: E731
+        txt, tmask = self._staged_txt(instr_embed)
+        draws = torch.rand(self.vox_capacity, generator=self.draws,
+                           device=self.device)
+        return (to(raw_xyz), to(raw_rgb), n, to(obb_vector(obb)), txt, tmask,
+                to(step_ee), draws)
+
+    def _device_predict(self, obs, instr_embed, step_id):
+        """One fused predict: the packed [action | count | vox_overflow]
+        read back once; an overflow is logged before the tiny-cloud guard
+        (a capacity far too small shows as a tiny cloud)."""
+        packed = self._fused_fn()(
+            *self._fused_inputs(obs, instr_embed, step_id)).cpu().numpy()
+        action, count, vox_overflow = packed[:8].copy(), int(packed[8]), \
+            int(packed[9])
+        if vox_overflow > 0:
+            LOGGER.warning(
+                "fused voxelizer dropped %d occupied voxels / points (the "
+                "capacity %d exceeded: a contiguous workspace corner, and/or "
+                "points past the 2^10-cell grid extent); raise "
+                "ROBOT3DLOTUS_VOX_CAPACITY or check voxel_size",
+                vox_overflow, self.vox_capacity)
+        if count <= 10:
+            return self._zero_action()
+        action[-1] = float(1.0 / (1.0 + np.exp(-action[-1])) > 0.5)
+        return action
+
     def predict(self, task_str=None, variation=None, step_id=0,
                 obs_state_dict=None, episode_id=None, instructions=None):
+        if self.device_preprocess:
+            return {"action": self._device_predict(
+                obs_state_dict, self._instruction(task_str, variation,
+                                                  instructions),
+                step_id or 0)}
         instr_embed, pc_ft, centroid, radius = self._host_prep(
             task_str, variation, obs_state_dict, instructions)
         if pc_ft is None or len(pc_ft) <= 10:
@@ -234,9 +353,10 @@ class Actioner:
     def predict_batch(self, payloads):
         """Serve several queued `predict` queries in batched forwards:
         batch sizes bucketed, padding rows discarded, batches over the top
-        bucket split in chunks. Per-row prep and decode are predict's."""
-        if len(payloads) == 1:
-            return [self.predict(**payloads[0])]
+        bucket split in chunks. Per-row prep and decode are predict's. The
+        fused path serves the queries one after another."""
+        if self.device_preprocess or len(payloads) == 1:
+            return [self.predict(**p) for p in payloads]
         outs = [None] * len(payloads)
         prepped = []
         for i, p in enumerate(payloads):

@@ -38,10 +38,13 @@ def compute_grid_coord(coord, mask, grid_size, depth):
 
     The divisor is a device tensor: PyTorch's CUDA division by a Python
     scalar multiplies by its reciprocal, which moves points across voxel
-    edges relative to the host presort and the JAX package."""
+    edges relative to the host presort and the JAX package. It is filled
+    on the device (new_tensor would copy it from the host and synchronize
+    the stream)."""
     big = torch.full_like(coord, 1e9)
     cmin = torch.where(mask[..., None], coord, big).amin(dim=1, keepdim=True)
-    gc = torch.floor((coord - cmin) / coord.new_tensor(grid_size))
+    gc = torch.floor((coord - cmin) / torch.full(
+        (), grid_size, dtype=coord.dtype, device=coord.device))
     gc = gc.to(torch.int32)
     return gc.clamp(0, (1 << depth) - 1)
 

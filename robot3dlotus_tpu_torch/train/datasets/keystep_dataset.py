@@ -2,7 +2,8 @@
 copy of robot3dlotus_tpu/train/datasets/keystep_dataset.py, numpy and
 scipy only).
 
-Per keystep: table crop -> robot-box removal -> point sampling
+Per keystep: table crop -> robot-box removal -> (optional Local Outlier
+Factor outlier removal, utils/neighbors.py) -> point sampling
 (<= num_points; a 0.95-1.0 subsample when below) -> optional z-rotation +
 jitter augmentation -> centring / normalisation -> the ground-truth
 rotation in the configured form -> the robot-point mask the device turns
@@ -21,6 +22,7 @@ from scipy.special import softmax
 
 from ...configs.rlbench.constants import get_robot_workspace
 from ...utils.assets import resolve_asset
+from ...utils.neighbors import local_outlier_factor_mask
 from ...utils.robot_box import RobotBox
 
 
@@ -67,15 +69,13 @@ class KeystepDataset:
         rm_table=True, rm_robot="box_keep_gripper", include_last_step=False,
         augment_pc=True, aug_max_rot=180, sample_points_by_distance=False,
         same_npoints_per_example=False, rm_pc_outliers=False,
-        euler_resolution=5, pos_type="disc", pos_heatmap_no_robot=True,
-        real_robot=False, txt_embed_dim=512, rng=None, **unused,
+        rm_pc_outliers_neighbors=25, euler_resolution=5, pos_type="disc",
+        pos_heatmap_no_robot=True, real_robot=False, txt_embed_dim=512,
+        rng=None, **unused,
     ):
         """The TRAIN_DATASET config's keys; the ones that shape the device
         targets (pos_bins, pos_bin_size, pos_heatmap_type) and the
         reference's batching flag land in `unused`."""
-        if rm_pc_outliers:
-            raise NotImplementedError("rm_pc_outliers: the local outlier "
-                                      "factor is not ported")
         self.store = store
         if taskvar_file:
             with open(resolve_asset(taskvar_file)) as f:
@@ -95,8 +95,13 @@ class KeystepDataset:
             self.instr_embeds = embeds
         self.txt_embed_dim = txt_embed_dim
 
-        self.data_ids = [(tv, ep) for tv in self.taskvars
-                         for ep in self.store.episodes(tv)]
+        self.data_ids = []
+        for tv in self.taskvars:
+            try:
+                eps = self.store.episodes(tv)
+            except FileNotFoundError:   # a listed taskvar the store lacks
+                continue
+            self.data_ids.extend((tv, ep) for ep in eps)
         self.num_points = num_points
         self.xyz_shift = xyz_shift
         self.xyz_norm = xyz_norm
@@ -109,6 +114,8 @@ class KeystepDataset:
         self.aug_max_rot = np.deg2rad(aug_max_rot)
         self.sample_points_by_distance = sample_points_by_distance
         self.same_npoints_per_example = same_npoints_per_example
+        self.rm_pc_outliers = rm_pc_outliers
+        self.rm_pc_outliers_neighbors = rm_pc_outliers_neighbors
         self.euler_resolution = euler_resolution
         self.pos_type = pos_type
         self.pos_heatmap_no_robot = pos_heatmap_no_robot
@@ -163,9 +170,11 @@ class KeystepDataset:
         return np.random.RandomState(h).randn(
             4, self.txt_embed_dim).astype(np.float32)
 
-    def get_episode_samples(self, taskvar, episode) -> List[Dict]:
+    def get_episode_samples(self, taskvar, episode, rng=None) -> List[Dict]:
+        """The episode's step samples, drawn from `rng` (the loader's
+        workers pass one per episode), else from the dataset's own."""
         data = self.store.get(taskvar, episode)
-        rng = self.rng
+        rng = rng if rng is not None else self.rng
         actions = np.asarray(data["action"], np.float32)
         gt_rots = self._gt_rotations(actions[:, 3:7])
         num_steps = len(data["xyz"])
@@ -196,6 +205,11 @@ class KeystepDataset:
                                keep_gripper=self.rm_robot == "box_keep_gripper",
                                env_name=env)
                 keep = ~box.point_mask(xyz)
+                xyz, rgb = xyz[keep], rgb[keep]
+            if self.rm_pc_outliers and \
+                    len(xyz) > self.rm_pc_outliers_neighbors:
+                keep = local_outlier_factor_mask(
+                    xyz, n_neighbors=self.rm_pc_outliers_neighbors)
                 xyz, rgb = xyz[keep], rgb[keep]
             if len(xyz) == 0:
                 continue

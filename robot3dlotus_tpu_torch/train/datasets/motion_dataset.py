@@ -38,10 +38,10 @@ class MotionPlannerDataset(KeystepDataset):
         rot_type="euler_disc", instr_embed_type="all", rm_table=True,
         rm_robot="box_keep_gripper", include_last_step=False,
         augment_pc=True, aug_max_rot=45, same_npoints_per_example=False,
-        rm_pc_outliers=False, euler_resolution=5, pos_type="disc",
-        pos_heatmap_no_robot=True, use_color=False,
-        instr_include_objects=False, real_robot=False, txt_embed_dim=512,
-        rng=None, **unused,
+        rm_pc_outliers=False, rm_pc_outliers_neighbors=25,
+        euler_resolution=5, pos_type="disc", pos_heatmap_no_robot=True,
+        use_color=False, instr_include_objects=False, real_robot=False,
+        txt_embed_dim=512, rng=None, **unused,
     ):
         """The TRAIN_DATASET config's keys; the instruction files of the
         policy and the keys that shape the device targets land in
@@ -54,7 +54,9 @@ class MotionPlannerDataset(KeystepDataset):
             include_last_step=include_last_step, augment_pc=augment_pc,
             aug_max_rot=aug_max_rot,
             same_npoints_per_example=same_npoints_per_example,
-            rm_pc_outliers=rm_pc_outliers, euler_resolution=euler_resolution,
+            rm_pc_outliers=rm_pc_outliers,
+            rm_pc_outliers_neighbors=rm_pc_outliers_neighbors,
+            euler_resolution=euler_resolution,
             pos_type=pos_type, pos_heatmap_no_robot=pos_heatmap_no_robot,
             real_robot=real_robot, txt_embed_dim=txt_embed_dim, rng=rng)
         self.max_traj_len = max_traj_len

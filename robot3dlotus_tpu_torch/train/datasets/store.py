@@ -1,23 +1,202 @@
-"""Synthetic episode stores (the port's copy of the SyntheticStore and
-open_store of robot3dlotus_tpu/train/datasets/store.py).
+"""Episode stores (the port's copy of
+robot3dlotus_tpu/train/datasets/store.py): where keystep episodes live on
+the host, behind one API (taskvars(), episodes(taskvar), get(taskvar,
+episode) -> record).
 
-Episodes are procedural and GemBench-shaped (keysteps_bbox_pcd voxel1cm
-records): per keystep t, xyz (n_t, 3) float and rgb (n_t, 3) uint8 of a
-tabletop-ish scene voxel-deduplicated at 1 cm; action (T+1, 8) gripper
-pose + open; bbox_info / pose_info per arm link for RobotBox. Each episode
-is a pure function of (seed, taskvar, episode), bit-equal to the JAX
-package's. SyntheticMotionStore adds the motion_keysteps_bbox_pcd fields of
-the motion planner's data (per-point semantic ids, future trajectories,
-gripper poses, keystep flags). The LMDB and msgpack stores of the real
-GemBench data are not ported yet.
+  * LmdbStore       — GemBench's layout: one LMDB environment per taskvar,
+                      episode keys, msgpack_numpy values; read by the pure-
+                      Python reader of pylmdb.py (no `lmdb` binding).
+  * LmdbWriterStore — writes that layout through pylmdb.write_lmdb, one
+                      single-commit environment per taskvar.
+  * MsgpackDirStore — one .msgpack file per episode under
+                      <root>/<taskvar>/<episode>.msgpack.
+  * SyntheticStore  — procedural GemBench-shaped episodes (keysteps_bbox_pcd
+                      voxel1cm records): per keystep t, xyz (n_t, 3) float
+                      and rgb (n_t, 3) uint8 of a tabletop-ish scene
+                      voxel-deduplicated at 1 cm; action (T+1, 8) gripper
+                      pose + open; bbox_info / pose_info per arm link for
+                      RobotBox. Each episode is a pure function of (seed,
+                      taskvar, episode), bit-equal to the JAX package's.
+                      SyntheticMotionStore adds the motion_keysteps_bbox_pcd
+                      fields of the motion planner's data.
+
+Values are msgpack with msgpack_numpy's wire format for arrays, written and
+read by the port's own codec (train/serialization.py packb / unpackb): the
+bytes equal the JAX package's `_pack_np`'s.
 """
 from __future__ import annotations
 
 import copy
+import os
+import threading
+from typing import List
 
 import numpy as np
 
 from ...utils.robot_box import RLBENCH_ARM_LINKS, RLBENCH_GRIPPER_LINKS
+from ..serialization import packb, unpackb
+from .pylmdb import LmdbFileReader, write_lmdb
+
+
+def _np_default(o):
+    """msgpack_numpy's encoding of an ndarray (b'nd', b'type', b'kind',
+    b'shape', b'data'); numpy scalars become Python numbers."""
+    if isinstance(o, np.ndarray):
+        if o.dtype.kind == "V":
+            raise TypeError("structured ndarrays unsupported")
+        return {b"nd": True, b"type": o.dtype.str, b"kind": b"",
+                b"shape": list(o.shape), b"data": o.tobytes()}
+    if isinstance(o, np.bool_):
+        return bool(o)
+    if isinstance(o, np.integer):
+        return int(o)
+    if isinstance(o, np.floating):
+        return float(o)
+    raise TypeError(type(o))
+
+
+def _pack_np(obj):
+    """msgpack bytes of an episode record, arrays in msgpack_numpy's
+    format (what GemBench's LMDB values hold)."""
+    return packb(obj, default=_np_default)
+
+
+def _np_hook(o):
+    nd = o.get(b"nd", o.get("nd"))
+    if nd is True:
+        d = o.get(b"data", o.get("data"))
+        t = o.get(b"type", o.get("type"))
+        s = o.get(b"shape", o.get("shape"))
+        return np.frombuffer(d, dtype=np.dtype(t)).reshape(s)
+    if nd is False:  # msgpack_numpy's numpy scalar
+        d = o.get(b"data", o.get("data"))
+        t = o.get(b"type", o.get("type"))
+        return np.frombuffer(d, dtype=np.dtype(t))[0]
+    if o.get(b"__nd__") or o.get("__nd__"):  # the JAX package's old files
+        d = o.get(b"d", o.get("d"))
+        t = o.get(b"t", o.get("t"))
+        s = o.get(b"s", o.get("s"))
+        return np.frombuffer(d, dtype=np.dtype(t)).reshape(s)
+    return o
+
+
+def _unpack_np(buf):
+    """Decodes a record: msgpack_numpy arrays and scalars, and the legacy
+    '__nd__' arrays of the JAX package's early MsgpackDirStore files.
+    Arrays are read-only views of the decoded bytes."""
+    return unpackb(buf, object_hook=_np_hook)
+
+
+class MsgpackDirStore:
+    """<root>/<taskvar>/<episode>.msgpack"""
+
+    def __init__(self, root: str):
+        self.root = root
+
+    def taskvars(self) -> List[str]:
+        return sorted(d for d in os.listdir(self.root)
+                      if os.path.isdir(os.path.join(self.root, d)))
+
+    def episodes(self, taskvar: str) -> List[str]:
+        d = os.path.join(self.root, taskvar)
+        return sorted(f[:-8] for f in os.listdir(d) if f.endswith(".msgpack"))
+
+    def get(self, taskvar: str, episode: str):
+        with open(os.path.join(self.root, taskvar, episode + ".msgpack"),
+                  "rb") as f:
+            return _unpack_np(f.read())
+
+    def put(self, taskvar: str, episode: str, record) -> None:
+        d = os.path.join(self.root, taskvar)
+        os.makedirs(d, exist_ok=True)
+        with open(os.path.join(d, episode + ".msgpack"), "wb") as f:
+            f.write(_pack_np(record))
+
+
+class LmdbStore:
+    """GemBench's LMDB layout: <root>/<taskvar>/data.mdb, episodes in key
+    order. Each environment is opened once (under a lock) and shared: the
+    reader has no mutable state after open, so the loader's worker threads
+    call get() concurrently."""
+
+    def __init__(self, root: str):
+        self.root = root
+        self._envs = {}
+        self._lock = threading.Lock()
+
+    def taskvars(self) -> List[str]:
+        return sorted(d for d in os.listdir(self.root)
+                      if os.path.isdir(os.path.join(self.root, d)))
+
+    def _env(self, taskvar):
+        env = self._envs.get(taskvar)
+        if env is None:
+            with self._lock:
+                env = self._envs.get(taskvar)
+                if env is None:
+                    env = LmdbFileReader(os.path.join(self.root, taskvar))
+                    self._envs[taskvar] = env
+        return env
+
+    def episodes(self, taskvar) -> List[str]:
+        return [k.decode() for k in self._env(taskvar).keys()]
+
+    def get(self, taskvar, episode):
+        raw = self._env(taskvar).get(episode.encode())
+        if raw is None:
+            raise KeyError(f"{taskvar}/{episode}: no such episode in "
+                           f"{self.root}")
+        return _unpack_np(raw)
+
+    def close(self):
+        with self._lock:
+            for env in self._envs.values():
+                env.close()
+            self._envs = {}
+
+
+class LmdbWriterStore:
+    """Writes GemBench's LMDB layout: records are buffered per taskvar and
+    each taskvar's environment is written in one commit
+    (pylmdb.write_lmdb) when the producer moves to the next taskvar and on
+    close(). Writes must be taskvar-major: revisiting a taskvar already on
+    disk raises (its environment would be replaced)."""
+
+    def __init__(self, root: str):
+        self.root = root
+        self._pending = {}  # taskvar -> {key: bytes}
+        self._flushed = set()
+        os.makedirs(root, exist_ok=True)
+
+    def put(self, taskvar: str, episode: str, record) -> None:
+        if taskvar in self._flushed:
+            raise ValueError(
+                f"LmdbWriterStore: taskvar {taskvar!r} was already written "
+                "to disk; writes must be taskvar-major (all episodes of a "
+                "taskvar together)")
+        for done in [tv for tv in self._pending if tv != taskvar]:
+            self._flush(done)
+        self._pending.setdefault(taskvar, {})[
+            episode.encode("ascii")] = _pack_np(record)
+
+    def _flush(self, taskvar):
+        write_lmdb(os.path.join(self.root, taskvar),
+                   self._pending.pop(taskvar))
+        self._flushed.add(taskvar)
+
+    def close(self):
+        for taskvar in list(self._pending):
+            self._flush(taskvar)
+
+
+def open_output_store(path: str, kind: str = "auto"):
+    """A writable episode store: 'lmdb' or 'auto' (GemBench's layout) or
+    'msgpack' (one file per episode)."""
+    if kind in ("auto", "lmdb"):
+        return LmdbWriterStore(path)
+    if kind == "msgpack":
+        return MsgpackDirStore(path)
+    raise ValueError(f"store kind {kind!r}: 'auto', 'lmdb' or 'msgpack'")
 
 
 class SyntheticStore:
@@ -141,9 +320,11 @@ class SyntheticMotionStore(SyntheticStore):
 
 def open_store(path_or_kind):
     """'synthetic' (random actions), 'synthetic_motion' (the motion
-    planner's layout) or 'synthetic_reach' / 'synthetic_reachN' (the
+    planner's layout), 'synthetic_reach' / 'synthetic_reachN' (the
     learnable reach task, 8 or N episodes per taskvar; episode generation
-    is id-deterministic, so the first 8 coincide)."""
+    is id-deterministic, so the first 8 coincide), a directory of LMDB
+    environments (one holding data.mdb in its first subdirectory) or a
+    MsgpackDirStore root."""
     if path_or_kind == "synthetic":
         return SyntheticStore()
     if path_or_kind == "synthetic_motion":
@@ -153,6 +334,9 @@ def open_store(path_or_kind):
         n = path_or_kind[len("synthetic_reach"):]
         return SyntheticStore(action_mode="reach",
                               episodes_per_taskvar=int(n) if n else 8)
-    raise NotImplementedError(
-        f"data_dir {path_or_kind!r}: the port reads only the synthetic "
-        "stores; the GemBench LMDB store is not ported yet")
+    sub = [d for d in os.listdir(path_or_kind)
+           if os.path.isdir(os.path.join(path_or_kind, d))]
+    if sub and os.path.exists(os.path.join(path_or_kind, sub[0],
+                                           "data.mdb")):
+        return LmdbStore(path_or_kind)
+    return MsgpackDirStore(path_or_kind)

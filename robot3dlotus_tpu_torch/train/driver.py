@@ -15,6 +15,11 @@ TRAIN.log_steps; and the run control around them:
     TRAIN.profile_start_step (output_dir/profile);
   a final save and a final validation.
 
+Host batches are made by the loader's TRAIN.n_workers threads and copied
+onto the device by a PrefetchToDevice thread while the previous step runs;
+validation batches are made in series (one pass, no prefetch), as in the
+JAX driver.
+
 One process on one device; multi-device training is not ported. A
 resumed run restarts the loader from its first batch, as the JAX driver
 does (no batches are skipped); its steps' random draws are those of the
@@ -38,7 +43,7 @@ from ..models.factory import build_model, resolve_device
 from ..models.layers import Randomness
 from .checkpoint import (ModelSaver, resume_or_init, save_training_meta,
                          warm_start_variables)
-from .datasets.loader import KeystepBatchLoader
+from .datasets.loader import KeystepBatchLoader, PrefetchToDevice
 from .logging import MetricWriter, build_logger
 from .optim import build_optimizer
 from .preempt import install_preemption_handler, requeue_self
@@ -88,7 +93,7 @@ def task_configs(config):
 def build_trainer(config, spec: TaskSpec, device="cuda"):
     """(trainer, batches, schedule): the model on `device` with seeded
     weights, the AdamW optimizer and an infinite iterator of host
-    batches."""
+    batches, loaded by TRAIN.n_workers threads (0: in series)."""
     device = resolve_device(device)
     seed = int(config.get("SEED", 2024))
     np.random.seed(seed)
@@ -100,7 +105,8 @@ def build_trainer(config, spec: TaskSpec, device="cuda"):
         dataset, num_clouds=num_clouds,
         num_points=int(tds_cfg.get("num_points", 4096)),
         collate_fn=spec.make_collate(tds_cfg, num_clouds),
-        shuffle_seed=seed)
+        seed=seed, shuffle_seed=seed,
+        num_workers=int(config.TRAIN.get("n_workers", 0) or 0))
 
     model = build_model(config.MODEL, device=device, seed=seed)
     act_cfg, loss_cfg = task_configs(config)
@@ -178,7 +184,7 @@ def run_training(config, spec: TaskSpec, device="cuda"):
     os.makedirs(output_dir, exist_ok=True)
     build_logger(output_dir)
     metric_writer = MetricWriter(output_dir)
-    trainer, batches, schedule = build_trainer(config, spec, device)
+    trainer, host_batches, schedule = build_trainer(config, spec, device)
     model = trainer.model
 
     start_step = 0
@@ -222,6 +228,7 @@ def run_training(config, spec: TaskSpec, device="cuda"):
     samples_seen, t_start = 0, time.time()
     step = start_step
     preempted = install_preemption_handler()
+    batches = PrefetchToDevice(host_batches, device)
     try:
         while step < num_train_steps:
             if preempted:
@@ -237,8 +244,7 @@ def run_training(config, spec: TaskSpec, device="cuda"):
                     [torch.profiler.ProfilerActivity.CUDA]
                     if device.type == "cuda" else []))
                 profiler.start()
-            loss_buf.append(trainer.step(
-                batch_to_device(next(batches), device)))
+            loss_buf.append(trainer.step(next(batches)))
             step += 1
             samples_seen += num_clouds
             if profiler is not None and \
@@ -265,6 +271,7 @@ def run_training(config, spec: TaskSpec, device="cuda"):
                 validate(step)
                 validated = step
     finally:
+        batches.close()
         preempted.restore()
         if profiler is not None:
             _stop_profiler(profiler, output_dir)

@@ -16,6 +16,12 @@ The subset of msgpack a flax state dict uses:
 without an encoded copy; `load` reads the file into one writable buffer
 and returns arrays that are views of it (np.frombuffer), so a chunked array
 is the only one copied (its chunks are joined).
+
+`packb` / `unpackb` are plain msgpack (what msgpack.packb(default=...,
+use_bin_type=True) and msgpack.unpackb(object_hook=..., raw=False,
+strict_map_key=False) write and read: keys of any type, bin apart from
+str, floats as float64, ints in their shortest form, map order kept), the
+codec of the GemBench episode records (train/datasets/store.py).
 """
 from __future__ import annotations
 
@@ -147,6 +153,42 @@ def dump(tree, f, chunk_size=MAX_CHUNK_SIZE):
         raise TypeError(f"cannot serialize {type(tree).__name__}")
 
 
+def packb(obj, default=None):
+    """msgpack bytes of `obj` (None, bool, int, float, str, bytes, lists,
+    tuples and dicts); any other object is replaced by default(obj)."""
+    out = []
+
+    def put(o):
+        if o is None:
+            out.append(b"\xc0")
+        elif isinstance(o, bool):
+            out.append(b"\xc3" if o else b"\xc2")
+        elif isinstance(o, int):
+            out.append(_pack_int(o))
+        elif isinstance(o, float):
+            out.append(b"\xcb" + struct.pack(">d", o))
+        elif isinstance(o, (bytes, bytearray, memoryview)):
+            out.append(_bin_header(len(o)) + bytes(o))
+        elif isinstance(o, str):
+            out.append(_pack_str(o))
+        elif isinstance(o, dict):
+            out.append(_map_header(len(o)))
+            for k, v in o.items():
+                put(k)
+                put(v)
+        elif isinstance(o, (list, tuple)):
+            out.append(_array_header(len(o)))
+            for v in o:
+                put(v)
+        elif default is not None:
+            put(default(o))
+        else:
+            raise TypeError(f"cannot serialize {type(o).__name__}")
+
+    put(obj)
+    return b"".join(out)
+
+
 def dumps(tree, chunk_size=MAX_CHUNK_SIZE):
     buf = io.BytesIO()
     dump(tree, buf, chunk_size)
@@ -177,9 +219,10 @@ _SIZED = {0xC4: ("bin", ">B"), 0xC5: ("bin", ">H"), 0xC6: ("bin", ">I"),
 
 
 class _Reader:
-    def __init__(self, buf):
+    def __init__(self, buf, object_hook=None):
         self.mv = memoryview(buf).cast("B")
         self.pos = 0
+        self.object_hook = object_hook
 
     def take(self, n):
         if self.pos + n > len(self.mv):
@@ -234,7 +277,7 @@ class _Reader:
         for _ in range(n):
             k = self.read()
             out[k] = self.read()
-        return out
+        return out if self.object_hook is None else self.object_hook(out)
 
     def _ext(self, code, n):
         end = self.pos + n
@@ -270,6 +313,16 @@ def loads(buf):
     if reader.pos != len(reader.mv):
         raise ValueError("trailing bytes after the msgpack object")
     return _unchunk(tree)
+
+
+def unpackb(buf, object_hook=None):
+    """Decodes plain msgpack bytes (bin as bytes, str as str); every map
+    is passed through object_hook(map) when one is given."""
+    reader = _Reader(buf, object_hook)
+    obj = reader.read()
+    if reader.pos != len(reader.mv):
+        raise ValueError("trailing bytes after the msgpack object")
+    return obj
 
 
 def load(path):

@@ -7,8 +7,9 @@ robot3dlotus_tpu/train/train_motion_planner.py):
 The policy's loop (driver.run_training) with the motion dataset, collate,
 trajectory loss, decode and validation metrics (open and stop accuracy
 over valid trajectory steps). Runs on the CUDA card unless --device cpu is
-given. The data comes from TRAIN_DATASET.data_dir, which the port reads
-for the synthetic stores only ('synthetic_motion').
+given. The data comes from TRAIN_DATASET.data_dir: a directory of GemBench
+LMDB environments (motion_keysteps_bbox_pcd), a msgpack directory, or
+'synthetic_motion' (train/datasets/store.py open_store).
 """
 from __future__ import annotations
 

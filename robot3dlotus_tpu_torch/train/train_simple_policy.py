@@ -5,8 +5,9 @@ robot3dlotus_tpu/train/train_simple_policy.py):
         --exp-config <yaml> [--device cpu] [KEY VALUE]...
 
 Runs on the CUDA card unless --device cpu is given. The data comes from
-TRAIN_DATASET.data_dir, which the port reads for the synthetic stores only
-('synthetic', 'synthetic_reach[N]'). The loop and its run control
+TRAIN_DATASET.data_dir: a directory of GemBench LMDB environments (the
+release layout), a msgpack directory, or a synthetic store ('synthetic',
+'synthetic_reach[N]'); train/datasets/store.py open_store. The loop and its run control
 (checkpoints in output_dir, resume, validation) are driver.run_training's;
 this module contributes the keystep dataset, collate, loss, decode and the
 validation metrics (pos L1, open accuracy).

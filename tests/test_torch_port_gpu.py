@@ -1,6 +1,9 @@
 """The PyTorch port on a CUDA card: each kernel (K1-K10) against its plain
-version, the gathers' direct and autograd paths, the launch stream, and the
-card's grid coordinates against the host presort's.
+version, the gathers' direct and autograd paths, the launch stream, the
+card's grid coordinates against the host presort's, and the data path's
+device parts: the fixed-capacity voxelizer and the fused preprocess
+against the CPU (and the voxelizer bit-equal across launches), and
+PrefetchToDevice onto the card.
 Tolerance 1e-4 * max(1, max|plain|): fp32 on both sides, other summation
 orders (K8's global and K10's shared-memory atomics in a run-dependent
 one); the gathers K4 and K9 only copy and must be bit-equal.
@@ -15,9 +18,14 @@ import numpy as np
 import pytest
 import torch
 
+from robot3dlotus_tpu_torch.configs.rlbench.constants import \
+    get_robot_workspace
 from robot3dlotus_tpu_torch.models.ptv3 import compute_grid_coord
 from robot3dlotus_tpu_torch.ops import attention, conv, cuda_lib, gather, stem
+from robot3dlotus_tpu_torch.ops.eval_preprocess import device_preprocess
 from robot3dlotus_tpu_torch.ops.sparse_conv import build_neighbor_map
+from robot3dlotus_tpu_torch.ops.voxel import voxelize_fixed
+from robot3dlotus_tpu_torch.train.datasets.loader import PrefetchToDevice
 
 pytestmark = pytest.mark.gpu
 TOL = 1e-4
@@ -612,3 +620,79 @@ def test_grid_coord_matches_host_presort(dev):
     want = np.floor((xyz - xyz.min(1, keepdims=True)) / np.float32(0.01))
     want = np.clip(want.astype(np.int32), 0, 1023)
     np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+def _raw_cloud(rng, n=200_000):
+    """A 20 cm cube of points in the workspace (~8,000 occupied voxels),
+    a quarter of them on voxel edges, a tenth far outside the crop."""
+    xyz = rng.uniform([0.1, -0.1, 0.8], [0.3, 0.1, 1.0], (n, 3))
+    xyz[: n // 4] = np.round(xyz[: n // 4], 2)
+    xyz[-n // 10:] += 5.0
+    return xyz.astype(np.float32), \
+        rng.uniform(0, 255, (n, 3)).astype(np.float32)
+
+
+@pytest.mark.parametrize("capacity", [16384, 2048])
+def test_voxelize_fixed_card_vs_cpu_deterministic(dev, capacity):
+    rng = np.random.RandomState(3)
+    xyz, _ = _raw_cloud(rng)
+    mask = torch.from_numpy(rng.rand(len(xyz)) > 0.2)
+    x = torch.from_numpy(xyz)
+    want = voxelize_fixed(x, mask, 0.01, capacity)
+    got = voxelize_fixed(x.to(dev), mask.to(dev), 0.01, capacity)
+    again = voxelize_fixed(x.to(dev), mask.to(dev), 0.01, capacity)
+    for g, a in zip(got, again):           # sorted segments: no atomics
+        assert torch.equal(g, a)
+    _check(got[0].cpu(), want[0])
+    for g, w in zip(got[1:], want[1:]):
+        assert torch.equal(g.cpu(), w)
+    assert (int(got[3]) > 0) == (capacity == 2048)
+
+
+def test_device_preprocess_card_vs_cpu(dev):
+    rng = np.random.RandomState(5)
+    xyz, rgb = _raw_cloud(rng)
+    valid = np.arange(len(xyz)) < len(xyz) - 1000
+    rot = np.linalg.qr(rng.randn(3, 3))[0].astype(np.float32)
+    obb = (np.concatenate([rot, rot], 1),
+           rng.uniform(-0.2, 0.2, 6).astype(np.float32),
+           np.full(6, 0.1, np.float32))
+    ee = np.asarray([0.3, 0, 1.0, 0, 0, 0, 1, 1], np.float32)
+    draws = torch.rand(16384, generator=torch.Generator().manual_seed(2))
+    kw = dict(workspace=get_robot_workspace(), num_points=4096,
+              vox_capacity=16384, xyz_norm=True)
+    args = [torch.from_numpy(a) for a in (xyz, rgb, valid, *obb, ee)]
+    want = device_preprocess(*args, draws, **kw)
+    got = device_preprocess(*[a.to(dev) for a in args], draws.to(dev), **kw)
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g.dtype in (torch.bool, torch.int64):    # mask, count, overflow
+            assert torch.equal(g.cpu(), w), i
+        else:
+            _check(g.cpu(), w)
+
+
+def test_prefetch_to_device_onto_the_card(dev):
+    """Batches arrive on the card equal to the host's, while the consumer
+    runs work on its stream (the copies on the side stream, the event wait
+    and record_stream keep them apart); close() stops the producer."""
+    rng = np.random.RandomState(6)
+    host = [{"x": rng.randn(32, 4096, 7).astype(np.float32),
+             "m": rng.rand(32, 4096) > 0.5,
+             "n": rng.randint(0, 4096, 32).astype(np.int32)}
+            for _ in range(6)]
+    pre = PrefetchToDevice(iter(host), dev, depth=2)
+    w = torch.randn(2048, 2048, device=dev)
+    for i, batch in enumerate(pre):
+        assert all(v.device.type == "cuda" for v in batch.values())
+        for _ in range(5):                 # keep the stream busy
+            w = torch.tanh(w @ w) * 0.5
+        total = batch["x"].double().sum() + batch["m"].sum() + \
+            batch["n"].sum()
+        want = host[i]["x"].astype(np.float64).sum() + host[i]["m"].sum() \
+            + host[i]["n"].sum()
+        assert abs(float(total) - want) <= 1e-6 * abs(want) + 1e-3
+        for k in host[i]:
+            assert np.array_equal(batch[k].cpu().numpy(), host[i][k])
+    assert i == 5
+    pre.close()
+    assert not pre.thread.is_alive()

@@ -1,10 +1,12 @@
 """The PyTorch port stands alone: no file of robot3dlotus_tpu_torch/ and not
-chip_smoke.py imports jax, flax, msgpack or the JAX package (checkpoints go
-through the port's own msgpack codec), and tensorboardX only inside a try
-that lets it be absent; importing the port loads none of them; entry
-points (the Actioner, build_model, the trainer) run on
-CUDA by default and raise without a card unless the caller passes
-device='cpu'."""
+chip_smoke.py imports jax, flax, msgpack, lmdb, sklearn, open3d or the JAX
+package (checkpoints and episode records go through the port's own msgpack
+codec, LMDB files through its pure-Python reader, the voxelizer is its own
+C++), and tensorboardX only inside a try that lets it be absent; importing
+the port loads none of them; entry points (the Actioner, build_model, the
+trainer) run on CUDA by default and raise without a card unless the caller
+passes device='cpu'; the native library builds under build/native/, and a
+failed build raises (there is no numpy fallback)."""
 import ast
 import os
 import subprocess
@@ -15,7 +17,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "robot3dlotus_tpu_torch")
-BANNED = ("jax", "flax", "robot3dlotus_tpu")
+BANNED = ("jax", "flax", "robot3dlotus_tpu", "lmdb", "sklearn", "open3d")
 # absent on the card's machine: the port's checkpoints need neither
 NO_CODEC = ("msgpack", "flax")
 OPTIONAL = "tensorboardX"
@@ -80,9 +82,13 @@ def test_import_loads_no_jax():
             "robot3dlotus_tpu_torch.convert, "
             "robot3dlotus_tpu_torch.train.checkpoint, "
             "robot3dlotus_tpu_torch.train.train_simple_policy, "
-            "robot3dlotus_tpu_torch.train.train_motion_planner; "
+            "robot3dlotus_tpu_torch.train.train_motion_planner, "
+            "robot3dlotus_tpu_torch.train.datasets.store, "
+            "robot3dlotus_tpu_torch.ops.eval_preprocess, "
+            "robot3dlotus_tpu_torch.native; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'flax', 'msgpack', 'robot3dlotus_tpu')]; "
+            "('jax', 'flax', 'msgpack', 'robot3dlotus_tpu', 'lmdb', "
+            "'sklearn', 'open3d')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)
@@ -111,3 +117,20 @@ def test_entry_points_need_a_card_unless_cpu():
         dec_num_head=[2] * 4))
     assert next(build_model(tiny, device="cpu").parameters()).device.type \
         == "cpu"
+
+
+def test_native_library_builds_under_build_native():
+    from robot3dlotus_tpu_torch import native
+    path = native.build()
+    assert os.path.dirname(path) == os.path.join(ROOT, "build", "native")
+    assert os.path.exists(path) and native.cpu_tag() in path
+    assert native.get_lib() is not None
+
+
+def test_failed_native_build_raises(tmp_path):
+    from robot3dlotus_tpu_torch import native
+    bad = tmp_path / "broken.cpp"
+    bad.write_text("extern \"C\" long voxelize_trace( { return 0; }\n")
+    with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
+        native.build(src=str(bad), build_dir=str(tmp_path / "out"))
+    assert os.listdir(tmp_path / "out") == []    # nothing half-written
