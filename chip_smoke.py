@@ -54,12 +54,16 @@ Phases, each of which raises on failure (exit code != 0, no result line):
              weights on the CPU (the plain path);
   7. train-capture  the trainer of the release YAML on synthetic_reach
              (train_simple_policy's build_trainer, B = 32 clouds x 4096
-             points, release dropout rates, order shuffling), one step with
-             recorders that keep every kernel input and the cotangent of
-             every kernel output;
+             points, release dropout rates, order shuffling under
+             TRAIN.host_structure: one order permutation a batch, the
+             batch presorted by the loader's 4 worker processes and the
+             consuming process), one step with recorders that keep every
+             kernel input and the cotangent of every kernel output;
   8. training launch counters to 0, 5 training steps, counters read: each
              kernel of the training path must have launched its per-step
-             count 5 times; each step's losses finite; step time p50 (host
+             count 5 times (PER_STEP: host structure; PER_STEP_REDRAW, the
+             key False, is phase 11's); each step's losses finite; step
+             time p50 (host
              clock after synchronize), clouds/s, peak memory; then a
              torch.profiler window over 2 steps: device time by kernel
              group (DEVICE_GROUPS) and the device's idle share
@@ -74,7 +78,7 @@ Phases, each of which raises on failure (exit code != 0, no result line):
              with the mirrored weight) against the exact adjoint (autograd
              of subm_conv_plain) on every row; |kernel - plain|
              <= 1e-4 * max|plain| (gradients are far below 1); K4 on the
-             step's 8 calls at B = 32, bit-equal; time K4-K8 per training
+             step's 4 calls at B = 32, bit-equal; time K4-K8 per training
              step (CUDA events, median of 5 rounds of 2 calls after a
              warm-up call; K5/K6 also their profiler device time) beside
              the SDPA calls (the profiler names of the SDPA kernels
@@ -94,8 +98,11 @@ Phases, each of which raises on failure (exit code != 0, no result line):
              1e-4 * max|ref|; K10 on the call's operands (C = 7) against
              its plain version, timed (events, profiler) beside its bound,
              index_add_ and scatter_add_;
- 11. step-check one step at dropout 0 with injected order permutations on
-             each of CHECK_SLICES B = 2 slices of the same batch, the same
+ 11. step-check one step at dropout 0 on each of CHECK_SLICES B = 2
+             slices of the same batch with its order_perm (host
+             structure), then on slice 0 without it and with injected
+             order permutations (the key False; K4 / K9 / K8 launches of
+             each card step against PER_STEP or PER_STEP_REDRAW), the same
              weights, on the card and on the CPU (plain versions): losses,
              every updated parameter and running statistic, every
              gradient; a gradient that a max reduction picking different
@@ -104,8 +111,11 @@ Phases, each of which raises on failure (exit code != 0, no result line):
              a leaky-ReLU pre-activation within 1e-4 max|z| of the kink
              (a tie) the CPU follows the card's branch;
  12. entry     train_simple_policy.main on the card for ENTRY_STEPS steps,
-             with the release YAML's 4 loader threads and the prefetch onto
-             the card (launch counters to 0 before, read after against the
+             with the release YAML's 4 loader worker processes and the
+             prefetch onto the card, then again as the loop in series (no
+             workers, no prefetch), then the loader alone with 4 workers
+             and with none: wall ms and this process's CPU ms per batch
+             (launch counters to 0 before, read after against the
              per-step counts; logged losses finite; a fresh run directory
              under build/smoke_runs, removed after); the end-to-end
              training rate, host batches included, over the second half,
@@ -114,10 +124,10 @@ Phases, each of which raises on failure (exit code != 0, no result line):
              thread's wait for a batch;
  12a. lmdb     the synthetic_reach store written by LmdbWriterStore as
              GemBench LMDB environments under build/smoke_data; the first 4
-             host batches of a 4-thread loader over LmdbStore bit-equal to
+             host batches of a 4-worker loader over LmdbStore bit-equal to
              those over the synthetic store (same data_ids and seeds); then
              train_simple_policy.main on the LMDB directory for LMDB_STEPS
-             steps, checked as phase 12; the directory removed after.
+             steps, checked as phase 12; the directory kept for 13a / 13b;
  13. ckpt      checkpoints, validation and serving from a checkpoint:
              train_simple_policy.main for CKPT_STEPS steps under
              chiprun_out/ckpt with a save and a validation (VAL_DATASET
@@ -135,6 +145,17 @@ Phases, each of which raises on failure (exit code != 0, no result line):
              calls per forward (kernels, memcpy, memset: 2226) equal to
              phase 5's, its logits within 1e-3 * max(1, |ref|) of a CPU
              Actioner loaded from the same file;
+ 13a. eval-server the port's eval_simple_policy_server in a process of
+             its own (python -m, --env replay) on model_step_4.msgpack and
+             the run's training config: the consumer on the card, 4
+             producers on ReplayEnv over phase 12a's store, EVAL_TASKVARS
+             taskvars x EVAL_DEMOS demos x up to 25 steps; requests/s,
+             p50 / p99 per request at the producers, the consumer's
+             batches and kernel launches (PER_FORWARD a forward), no
+             producer with torch imported, the results.jsonl rows;
+ 13b. http     PolicyHTTPServer on port 0 with ThreeDLotusActioner on the
+             same file, run_client over ReplayEnv: round trip p50, bytes
+             per request and reply, the msgpack codec's share, launches;
              the checkpoint files are deleted, the logs kept.
 Then the 3D-LOTUS++ motion planner (release motion_planner_ptv3.yaml,
 seeded weights) behind the ground-truth pipeline (robot_pipeline_gt.yaml):
@@ -174,29 +195,41 @@ seeded weights) behind the ground-truth pipeline (robot_pipeline_gt.yaml):
  19. mp-step-check  phase 11 for the motion planner, on MP_CHECK_SLICES
              slices;
  20. mp-entry     train_motion_planner.main on the card for MP_ENTRY_STEPS
-             steps (4 loader threads, prefetch), launch counts checked,
-             logged losses finite, the rates as phase 12's beside phase 17's;
+             steps (4 loader worker processes, prefetch), launch counts
+             checked,
+             logged losses finite, the rates as phase 12's beside phase 17's,
+             the loop in series and the loader alone as phase 12;
  20a. mp-lmdb  phase 12a for the motion planner (synthetic_motion);
  21. mp-ckpt      phase 13 for the motion planner (MP_CKPT_STEPS, then a
              resume to MP_CKPT_RESUME_STEPS; validation on the synthetic
              motion store, 3 batches of 32: the `mp_validation` path),
              served by MotionPlannerEngine(checkpoint=...) behind the GT
              pipeline as in phase 15, against a CPU engine from the same
-             file.
+             file;
+ 21a. mp-eval-server  the port's eval_robot_pipeline_server (GT pipeline,
+             stateful, 2 producers) on the mp-ckpt model file over a motion
+             store of MP_EVAL_TASKVARS, as phase 13a.
 It fails if a kernel's main path (K10's: phase 10) launched it no time.
-It prints the kernels line, the card's name and power limit, and as its
-last line {"ok": true, "device": {...}}. It needs one CUDA card and exits
+Before it prints its result it stops the loader's forkserver and
+multiprocessing's resource tracker, waits for every process the run
+started (each carries RUN_MARK in its environment) to end, and fails if
+one is still running after 30 s (it is killed). It prints the kernels
+line, the card's name and power limit, and as its last line
+{"ok": true, "device": {...}}. It needs one CUDA card and exits
 non-zero without one.
 
 """
 from __future__ import annotations
 
+import collections
+import gc
 import json
 import logging
 import math
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -209,8 +242,14 @@ import yaml
 from robot3dlotus_tpu_torch.configs import get_config
 from robot3dlotus_tpu_torch.eval.actioner import Actioner
 from robot3dlotus_tpu_torch.eval.common import parse_code
+from robot3dlotus_tpu_torch.eval import serving
 from robot3dlotus_tpu_torch.eval.robot_pipeline import (
     GroundtruthRobotPipeline, MotionPlannerEngine, _plan_action_name)
+from robot3dlotus_tpu_torch.eval.server import ReplayEnv
+from robot3dlotus_tpu_torch.eval.serving import (PolicyHTTPClient,
+                                                 PolicyHTTPServer,
+                                                 ThreeDLotusActioner,
+                                                 run_client)
 from robot3dlotus_tpu_torch.eval.synthetic_obs import (TASKVAR,
                                                        synthetic_observation)
 from robot3dlotus_tpu_torch.models import layers
@@ -241,6 +280,8 @@ CONFIG = os.path.join(ROOT, "robot3dlotus_tpu_torch", "configs", "rlbench",
 MP_CONFIG = os.path.join(os.path.dirname(CONFIG), "motion_planner_ptv3.yaml")
 GT_CONFIG = os.path.join(os.path.dirname(CONFIG), "robot_pipeline_gt.yaml")
 CLI_OPTS = ["TRAIN_DATASET.instr_embed_file", "None"]
+# set in the environment by main, inherited by every process the run starts
+RUN_MARK = "ROBOT3DLOTUS_SMOKE_RUN"
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12    # H100 SXM data sheet, fp32 outside tensor cores
 TF32_FLOPS_PER_S = 494.7e12  # H100 SXM data sheet, dense TF32 tensor cores
@@ -283,32 +324,41 @@ TRAIN_OPTS = ["TRAIN_DATASET.data_dir", "synthetic_reach",
               "TRAIN_DATASET.augment_pc", "True"]
 TRAIN_STEPS = 5
 PROFILE_STEPS = 2
-ENTRY_STEPS = 6   # train_simple_policy.main; the rate is read over the last 3
+ENTRY_STEPS = 16  # train_simple_policy.main; the rate is read over the last 8
+LOADER_BATCHES = 6  # the loader alone: batches timed after the first
 LMDB_STEPS = 2    # main on each family's LMDB copy of its synthetic store
 LMDB_BATCHES = 4  # host batches held bit-equal across the two stores
 # the fused serving path: the smoke's observations crop to up to 8,951
 # occupied 1 cm voxels (counted on the CPU), past the default 8192
 FUSED_VOX_CAPACITY = 16384
-# launches per training step of the release model: K2 9 forward + 9 dx;
-# K4 4 shuffled child entry sorts, 4 unpools; K9 the stage-0 entry sort of
-# the 7-channel input; K7 9 CPE + the stem; K8 the backward of every K4 call
-# and the owner sum of each of the 9 conv dx; no K10: the stem's input and
-# the entry sort's are data (the stem-vjp phase gives K10 its path: the
+# launches per training step of the release model under
+# TRAIN.host_structure (the default: the batch presorted on the host with
+# its order_perm, the orders redrawn at no stage): K2 9 forward + 9 dx; K4
+# the 4 unpools; no K9 (no stage-0 entry sort); K7 9 CPE + the stem; K8 the
+# backward of every K4 call and the owner sum of each of the 9 conv dx; no
+# K10: the stem's input is data (the stem-vjp phase gives K10 its path: the
 # stem conv's input gradient)
-PER_STEP = {"subm_conv": 18, "stem_conv": 1, "gather_rows": 8,
-            "gather_rows_smallc": 1, "scatter_rows_smallc_add": 0,
+PER_STEP = {"subm_conv": 18, "stem_conv": 1, "gather_rows": 4,
+            "gather_rows_smallc": 0, "scatter_rows_smallc_add": 0,
             "patch_attention_dropout": 9, "patch_attention_dropout_bwd": 9,
-            "conv_weight_grad": 10, "scatter_rows_add": 17,
+            "conv_weight_grad": 10, "scatter_rows_add": 13,
             "patch_attention": 0}
+# with TRAIN.host_structure False (orders redrawn at stage 0 and after
+# every pooling): K4 also the 4 shuffled child entry sorts, K9 the stage-0
+# entry sort of the 7-channel input, K8 their backwards
+PER_STEP_REDRAW = dict(PER_STEP, gather_rows=8, gather_rows_smallc=1,
+                       scatter_rows_add=17)
+# the kernels whose counts tell the two apart
+ORDER_KERNELS = ("gather_rows", "gather_rows_smallc", "scatter_rows_add")
 # the motion planner: its trainer on the synthetic motion store (no action
 # embedding cache: the crc32 embeddings), with the policy's release loader
-# threads (the motion planner's YAML sets none)
+# workers (the motion planner's YAML sets none)
 MP_TRAIN_OPTS = ["TRAIN_DATASET.data_dir", "synthetic_motion",
                  "TRAIN_DATASET.action_embed_file", "None",
                  "TRAIN_DATASET.taskvar_file", "None",
                  "TRAIN.n_workers", "4"]
 MP_REQUESTS = 4
-MP_ENTRY_STEPS = 4
+MP_ENTRY_STEPS = 12  # the rate is read over the last 6
 # launches per motion-planner forward: 9 Blocks; 4 unpools; K9 for the
 # stage-0 entry sort (C = 4) and the categorical stem (C = 5, M = N * 125),
 # whose product is a plain matmul (no K3)
@@ -317,12 +367,15 @@ MP_PER_FORWARD = {"patch_attention": 9, "subm_conv": 9, "stem_conv": 0,
                   "scatter_rows_smallc_add": 0, "conv_weight_grad": 0,
                   "scatter_rows_add": 0, "patch_attention_dropout": 0,
                   "patch_attention_dropout_bwd": 0}
-# per motion-planner training step: as the policy's, with K9 twice (entry
-# sort and stem), no K3, K7 for the 9 CPE only (the stem's dW is autograd
-# of its product) and no K10 (the stem gathers data; the mp-stem-vjp phase
-# runs K10 with the stem's features requiring a gradient)
-MP_PER_STEP = dict(PER_STEP, stem_conv=0, gather_rows_smallc=2,
+# per motion-planner training step: as the policy's, with K9 for the stem
+# (and the entry sort without host structure), no K3, K7 for the 9 CPE
+# only (the stem's dW is autograd of its product) and no K10 (the stem
+# gathers data; the mp-stem-vjp phase runs K10 with the stem's features
+# requiring a gradient)
+MP_PER_STEP = dict(PER_STEP, stem_conv=0, gather_rows_smallc=1,
                    conv_weight_grad=9)
+MP_PER_STEP_REDRAW = dict(PER_STEP_REDRAW, stem_conv=0, gather_rows_smallc=2,
+                          conv_weight_grad=9)
 # checkpoints: the policy trains CKPT_STEPS steps (saves and validations
 # every 2), then a second main resumes to CKPT_RESUME_STEPS; validation on
 # synthetic_reach4 (48 clouds: 2 batches of 32, the last half valid). The
@@ -330,6 +383,17 @@ MP_PER_STEP = dict(PER_STEP, stem_conv=0, gather_rows_smallc=2,
 # the synthetic motion store (96 clouds, 3 batches).
 CKPT_STEPS, CKPT_RESUME_STEPS = 4, 6
 MP_CKPT_STEPS, MP_CKPT_RESUME_STEPS = 2, 3
+# closed-loop evaluation on the checkpoint phases' model files: the policy
+# on EVAL_TASKVARS taskvars of the lmdb phase's store (one for each of the
+# 4 producers), the GT pipeline on MP_EVAL_TASKVARS (GemBench taskvars of
+# its plan and label files, 2 producers), EVAL_DEMOS demos each (ReplayEnv
+# cycles a taskvar's episodes); the HTTP client HTTP_EPISODES episodes of
+# one taskvar. About 3 requests an episode: some hundreds of requests over
+# 10-20 s a phase, so that p50 and p99 are read over enough samples
+EVAL_TASKVARS = 4
+EVAL_DEMOS = 50
+MP_EVAL_TASKVARS = ["push_button+0", "close_fridge+0"]
+HTTP_EPISODES = 80
 VAL_OPTS = ["VAL_DATASET.use_val", "True",
             "VAL_DATASET.data_dir", "synthetic_reach4",
             "VAL_DATASET.instr_embed_file", "None",
@@ -344,7 +408,9 @@ TRAIN_KERNELS = ("patch_attention_dropout", "patch_attention_dropout_bwd",
 CHECK_PERMS = [[2, 0, 3, 1], [1, 3, 0, 2], [3, 2, 1, 0], [0, 2, 1, 3],
                [2, 3, 0, 1]]
 GRAD_TOL = 1e-3   # card vs CPU gradients of the whole step, per tensor
-# B = 2 slices per step check, ~3-6 s of CPU each
+# B = 2 slices per step check, ~3-6 s of CPU each, with
+# TRAIN.host_structure (the batch's order_perm); then slice 0 once more
+# without it (CHECK_PERMS drawn at stage 0 and every pooling)
 CHECK_SLICES = 6
 MP_CHECK_SLICES = 6
 # leaky-ReLU decisions the CPU run may take from the card: each at |z| <=
@@ -1624,8 +1690,9 @@ def train_kernel_phase(captured):
     convs = [c for c in captured["subm_conv"] if c[1] is not None]
     stems = [c for c in captured["stem_conv"] if c[1] is not None]
     scat = [c for c in captured["gather_rows"] if c[1] is not None]
-    expect = {"attention": 9, "conv": 9, "stem": 1, "scatter": 8}
-    # K8 per step: these 8 K4 backwards and the 9 conv dx owner sums
+    expect = {"attention": 9, "conv": 9, "stem": 1,
+              "scatter": PER_STEP["gather_rows"]}
+    # K8 per step: these K4 backwards and the 9 conv dx owner sums
     for name, got in (("attention", att), ("conv", convs), ("stem", stems),
                       ("scatter", scat)):
         if len(got) != expect[name]:
@@ -1932,12 +1999,29 @@ def _module_start(spans, leaf):
     return spans[name][0]
 
 
+def _check_slice(host_batch, i, host_structure):
+    """The B = 2 slice i of a host-structured batch: with its order_perm
+    (one for the whole batch), or without it (TRAIN.host_structure False:
+    the model draws the orders; the rows stay presorted, which is one
+    input order among others)."""
+    out = {k: v[2 * i:2 * i + 2] for k, v in host_batch.items()
+           if k != "order_perm"}
+    if host_structure:
+        out["order_perm"] = host_batch["order_perm"]
+    return out
+
+
 def step_check_phase(host_batch, config=train_config, loss_fn=compute_loss,
-                     tag="step-check", slices=CHECK_SLICES):
-    """One step at dropout 0 with injected order permutations on each of
-    the first `slices` B = 2 slices of the batch, the same seeded weights on
-    the card and on the CPU: the losses, every updated parameter and
-    running statistic at TOL, and every gradient at GRAD_TOL.
+                     tag="step-check", slices=CHECK_SLICES,
+                     per_step=PER_STEP, per_step_redraw=PER_STEP_REDRAW):
+    """One step at dropout 0 on each of the first `slices` B = 2 slices of
+    a host-structured batch, with the batch's order_perm
+    (TRAIN.host_structure), then on slice 0 without it and with injected
+    order permutations (the key False), the same seeded weights on the
+    card and on the CPU: the losses, every updated parameter and running
+    statistic at TOL, and every gradient at GRAD_TOL. The card step's K4,
+    K9 and K8 launches must be per_step's (with order_perm) or
+    per_step_redraw's (without).
 
     A gradient below a max reduction (grid pooling, the head's pooled max)
     moves as a whole to another row when two candidates lie within rounding
@@ -1960,18 +2044,30 @@ def step_check_phase(host_batch, config=train_config, loss_fn=compute_loss,
     cfg = config("MODEL.ptv3_config.attn_drop", "0.0",
                  "MODEL.ptv3_config.proj_drop", "0.0",
                  "MODEL.action_config.dropout", "0.0")
+    if "order_perm" not in host_batch:
+        raise AssertionError(f"[{tag}] the host batch has no order_perm: "
+                             "TRAIN.host_structure did not run")
     rows, held_somewhere = [], set()
-    for i in range(slices):
-        batch = {k: v[2 * i:2 * i + 2] for k, v in host_batch.items()}
+    cases = [(i, True) for i in range(slices)] + [(0, False)]
+    for i, structured in cases:
+        batch = _check_slice(host_batch, i, structured)
+        cuda_lib.reset_launches()
         lc, gc, sc, dc, spans, tc, kc = _one_step(cfg, loss_fn, batch,
                                                   "cuda")
+        want = per_step if structured else per_step_redraw
+        got = {k: cuda_lib.LAUNCHES[k] for k in ORDER_KERNELS}
+        if got != {k: want[k] for k in ORDER_KERNELS}:
+            raise AssertionError(f"[{tag}] slice {i}, host structure "
+                                 f"{structured}: launches {got}")
         lr, gr, sr, dr, _, tr, kr = _one_step(cfg, loss_fn, batch, "cpu",
                                               kc.decisions)
         differ = {}
         for (name, a), (_, b) in zip(dc, dr):
             if (a != b).any():
                 differ[name] = differ.get(name, 0) + int((a != b).sum())
-        row = {"slice": i, "max_decisions": sum(d.numel() for _, d in dr),
+        row = {"slice": i, "host_structure": structured,
+               "order_launches": got,
+               "max_decisions": sum(d.numel() for _, d in dr),
                "differing": differ, "kinks_followed": kr.forced,
                "kink_worst": kr.worst, "losses_card": lc, "losses_cpu": lr,
                "loss": max(abs(lc[k] - lr[k]) / max(1.0, abs(lr[k]))
@@ -2007,7 +2103,10 @@ def step_check_phase(host_batch, config=train_config, loss_fn=compute_loss,
         rows.append(row)
         rest = ("none" if not free else "{:.3g} ({})".format(
             *row["grad_rel_not_held"]))
-        log(f"[{tag}] B=2 (slice {i}), dropout 0, injected permutations: "
+        log(f"[{tag}] B=2 (slice {i}), dropout 0, "
+            + (f"order_perm {host_batch['order_perm'].tolist()} "
+               if structured else "injected permutations ")
+            + f"(K4/K9/K8 launches {got}): "
             f"{row['max_decisions']} max decisions, differing between card "
             f"and CPU {differ or 'on none'}; leaky-ReLU ties followed "
             f"{kr.forced} (|z| <= {kr.worst:.3g} max|z|); losses card {lc} "
@@ -2019,7 +2118,7 @@ def step_check_phase(host_batch, config=train_config, loss_fn=compute_loss,
     missing = sorted(set(gr) - held_somewhere)
     if missing:
         raise AssertionError(f"{len(missing)} gradients held on no slice of "
-                             f"{slices}, e.g. {missing[:5]}")
+                             f"{len(cases)}, e.g. {missing[:5]}")
     return {"slices": rows, "loss": max(r["loss"] for r in rows),
             "state": max(r["state"] for r in rows),
             "grad_rel": max(r["grad_rel"] for r in rows)}
@@ -2066,31 +2165,63 @@ class _TimedPrefetch(PrefetchToDevice):
         return batch
 
 
+class _Serial:
+    """The loop in series (the one before the prefetch): each host batch
+    made on the training thread when the step asks for it, then copied to
+    the card; timed as _TimedPrefetch times the prefetch (host_ms: making
+    the batch; wait_ms: making and copying it)."""
+    runs = []
+
+    def __init__(self, it, device="cuda", depth=2):
+        self.it, self.device = iter(it), device
+        self.host_ms, self.wait_ms = [], []
+        _Serial.runs.append(self)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        t0 = time.perf_counter()
+        batch = next(self.it)
+        self.host_ms.append((time.perf_counter() - t0) * 1e3)
+        out = batch_to_device(batch, self.device)
+        self.wait_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def close(self):
+        if hasattr(self.it, "close"):
+            self.it.close()
+
+
 def entry_phase(module=train_simple_policy, config=train_config,
                 steps=ENTRY_STEPS, per_step=PER_STEP, tag="entry",
-                device_clouds_per_s=None):
+                device_clouds_per_s=None, serial=False):
     """module.main (train_simple_policy or train_motion_planner) on the
     card as a user starts it: `steps` steps of run_training, host batches
-    made by the loader's TRAIN.n_workers threads and prefetched onto the
-    card, a log line after step steps / 2 and after the last (each reads
-    the losses, a sync). Launch counters read against per_step; the
-    end-to-end rate is the clouds of the second half over the time
-    between the two lines, printed beside device_clouds_per_s (the
-    training phase's device-step rate)."""
+    made by the loader's TRAIN.n_workers worker processes and prefetched
+    onto the card (serial: TRAIN.n_workers 0 and no prefetch, each batch
+    made on the training thread when the step asks for it), a log line
+    after step steps / 2 and after the last (each reads the losses, a
+    sync). Launch counters read against per_step; the end-to-end rate is
+    the clouds of the second half over the time between the two lines,
+    printed beside device_clouds_per_s (the training phase's device-step
+    rate)."""
     half = steps // 2
     run = os.path.join(ROOT, "build", "smoke_runs", tag)
     shutil.rmtree(run, ignore_errors=True)     # a fresh run: no resume
     cfg = config("output_dir", run, "TRAIN.num_train_steps", str(steps),
-                 "TRAIN.log_steps", str(half))
+                 "TRAIN.log_steps", str(half),
+                 *(("TRAIN.n_workers", "0") if serial else ()))
     logger = logging.getLogger("robot3dlotus_tpu_torch.train")
     handler, level = _Records(), logger.level
     logger.addHandler(handler)
     logger.setLevel(logging.INFO)
     cuda_lib.reset_launches()
-    _TimedPrefetch.runs = []
+    prefetch = _Serial if serial else _TimedPrefetch
+    prefetch.runs = []
     t0 = time.perf_counter()
     try:
-        with _Patch(driver, "PrefetchToDevice", lambda _: _TimedPrefetch):
+        with _Patch(driver, "PrefetchToDevice", lambda _: prefetch):
             trainer = module.main(cfg)
         torch.cuda.synchronize()
     finally:
@@ -2118,8 +2249,8 @@ def entry_phase(module=train_simple_policy, config=train_config,
             raise AssertionError(f"entry point: {r.getMessage()}")
     clouds = half * int(cfg.TRAIN.train_batch_size)
     span_s = lines[1].created - lines[0].created
-    (pre,) = _TimedPrefetch.runs
-    out = {"steps": steps, "wall_s": total_s,
+    (pre,) = prefetch.runs
+    out = {"steps": steps, "serial": serial, "wall_s": total_s,
            "second_half_s": span_s,
            "clouds_per_s": clouds / span_s,
            "step_ms": span_s * 1e3 / half,
@@ -2132,32 +2263,81 @@ def entry_phase(module=train_simple_policy, config=train_config,
         out["device_step_clouds_per_s"] = device_clouds_per_s
         out["end_to_end_over_device"] = \
             out["clouds_per_s"] / device_clouds_per_s
-    log(f"[{tag}] {module.__name__.rsplit('.', 1)[-1]}.main, {steps} steps "
+    log(f"[{tag}] {module.__name__.rsplit('.', 1)[-1]}.main"
+        f"{' in series' if serial else ''}, {steps} steps "
         f"in {total_s:.2f} s (build included); steps {half + 1}-{steps} "
         f"{out['step_ms']:.1f} ms each with their host batches, "
         f"{out['clouds_per_s']:.2f} clouds/s end to end"
         + (f" against {device_clouds_per_s:.2f} device-step clouds/s "
            f"({out['end_to_end_over_device']:.3f}x)"
            if device_clouds_per_s else ""))
-    log(f"[{tag}] {out['n_workers']} loader threads; host ms per batch "
-        f"(the prefetch thread's wait on the loader) "
-        f"{[round(t, 1) for t in pre.host_ms]}; the training thread's "
+    log(f"[{tag}] " + (
+        "the loop in series (no workers, no prefetch); host ms per batch "
+        "(made on the training thread) " if serial else
+        f"{out['n_workers']} loader worker processes; host ms per batch "
+        "(the prefetch thread's wait on the loader) ")
+        + f"{[round(t, 1) for t in pre.host_ms]}; the training thread's "
         f"wait per batch (ms) {[round(t, 1) for t in pre.wait_ms]}")
     for m in out["log"]:
         log(f"[{tag}]   {m}")
     return out
 
 
+def loader_phase(module, config, tag, n=LOADER_BATCHES):
+    """The training loader alone (driver.build_loader, host structure as
+    configured), with the config's worker processes and in series: per
+    batch after the first (the pool's start), the wall ms and the CPU ms
+    of this process, all its threads: what stays with the consumer of
+    the batches (re-chunking, collate, the host-structure presort,
+    receiving and unpickling the workers' samples)."""
+    out = {}
+    for workers in (int(config().TRAIN.n_workers), 0):
+        it = iter(driver.build_loader(
+            config("TRAIN.n_workers", str(workers)), module.SPEC))
+        next(it)
+        t0, c0 = time.perf_counter(), time.process_time()
+        for _ in range(n):
+            next(it)
+        wall = (time.perf_counter() - t0) * 1e3 / n
+        cpu = (time.process_time() - c0) * 1e3 / n
+        it.close()
+        out[f"workers_{workers}"] = {"wall_ms_per_batch": wall,
+                                     "parent_cpu_ms_per_batch": cpu}
+        log(f"[{tag}] the loader alone, {workers} worker processes: "
+            f"{wall:.1f} ms per batch, of which this process's CPU "
+            f"{cpu:.1f} ms ({n} batches after the first)")
+    return out
 
-def lmdb_phase(module, config, synthetic, per_step, tag):
+
+def entry_phases(module, config, steps, per_step, tag, device_clouds_per_s):
+    """entry_phase with the worker processes and with the loop in series,
+    one after the other, then loader_phase; the two end-to-end rates side
+    by side."""
+    runs = {"workers": entry_phase(module, config, steps, per_step, tag,
+                                   device_clouds_per_s),
+            "serial": entry_phase(module, config, steps, per_step,
+                                  f"{tag}-serial", device_clouds_per_s,
+                                  serial=True),
+            "loader": loader_phase(module, config, f"{tag}-loader")}
+    w, s = runs["workers"]["clouds_per_s"], runs["serial"]["clouds_per_s"]
+    log(f"[{tag}] end to end: worker processes {w:.2f} clouds/s, the loop "
+        f"in series {s:.2f} ({w / s:.3f}x), device step "
+        f"{device_clouds_per_s:.2f}")
+    return runs
+
+
+
+def lmdb_phase(module, config, synthetic, per_step, tag, keep=False):
     """GemBench LMDB data: the store `synthetic` written by LmdbWriterStore
     under build/smoke_data/<tag>, LMDB_BATCHES host batches of the release
-    loader (TRAIN.n_workers threads) over LmdbStore held bit-equal to those
-    over the synthetic store, then module.main on the LMDB directory for
-    LMDB_STEPS steps (entry_phase's checks). The directory is removed
-    after."""
+    loader (TRAIN.n_workers worker processes) over LmdbStore held bit-equal
+    to those over the synthetic store, then module.main on the LMDB
+    directory for LMDB_STEPS steps (entry_phase's checks). The directory
+    is removed after, unless `keep` (main removes build/smoke_data at its
+    end)."""
     root = os.path.join(ROOT, "build", "smoke_data", tag)
     shutil.rmtree(root, ignore_errors=True)
+    ok = False
     try:
         t0 = time.perf_counter()
         src, writer = open_store(synthetic), LmdbWriterStore(root)
@@ -2198,14 +2378,237 @@ def lmdb_phase(module, config, synthetic, per_step, tag):
             f"{len(os.listdir(root))} LMDB environments ({nbytes} bytes) in "
             f"{write_s:.2f} s; {LMDB_BATCHES} host batches bit-equal to the "
             f"synthetic store's; host ms per batch, LmdbStore {lmdb_ms:.1f}, "
-            f"synthetic {synth_ms:.1f} ({cfg.TRAIN.n_workers} threads)")
+            f"synthetic {synth_ms:.1f} ({cfg.TRAIN.n_workers} worker "
+            "processes)")
         entry = entry_phase(module, lambda *o: config(
             "TRAIN_DATASET.data_dir", root, *o), LMDB_STEPS, per_step, tag)
+        ok = True
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        if not (ok and keep):
+            shutil.rmtree(root, ignore_errors=True)
     return {"episodes": len(ids), "bytes": nbytes, "write_s": write_s,
             "host_ms_per_batch_lmdb": lmdb_ms,
-            "host_ms_per_batch_synthetic": synth_ms, "main": entry}
+            "host_ms_per_batch_synthetic": synth_ms, "main": entry,
+            "root": root}
+
+
+# ----------------------------------------------- closed-loop evaluation ---
+
+def _eval_cli(module, args, tag):
+    """`python -m module args` (the eval server as a user starts it, in a
+    process of its own, so that its spawned producers import no torch);
+    its `eval server: {...}` summary and wall seconds. Raises on a
+    non-zero exit."""
+    cmd = [sys.executable, "-m", module] + [str(a) for a in args]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=900)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"[{tag}] {module} exited with "
+                             f"{proc.returncode}: {proc.stderr[-4000:]}")
+    lines = [x for x in proc.stdout.splitlines()
+             if x.startswith("eval server: ")]
+    if not lines:
+        raise AssertionError(f"[{tag}] no summary line: {proc.stdout[-2000:]}")
+    return json.loads(lines[-1][len("eval server: "):]), wall
+
+
+def _result_rows(path, taskvars, checkpoint, num_demos, tag):
+    """The results.jsonl rows, one per taskvar in the JAX layout."""
+    with open(path) as f:
+        rows = [json.loads(x) for x in f]
+    got = sorted(f"{r['task']}+{r['variation']}" for r in rows)
+    if got != sorted(taskvars) or any(
+            set(r) != {"checkpoint", "task", "variation", "num_demos", "sr"}
+            or r["checkpoint"] != checkpoint or r["num_demos"] != num_demos
+            or not 0.0 <= r["sr"] <= 1.0 for r in rows):
+        raise AssertionError(f"[{tag}] results rows {rows}")
+    return rows
+
+
+def _off_count(launches, per_forward, forwards):
+    """The kernels whose launches are not per_forward's times `forwards`
+    (a kernel per_forward does not name: 0), with their counts."""
+    return {k: launches.get(k, 0) for k in set(per_forward) | set(launches)
+            if launches.get(k, 0) != per_forward.get(k, 0) * forwards}
+
+
+def _log_eval(tag, stats, wall, rows):
+    log(f"[{tag}] {stats['requests']} requests in {wall:.1f} s (the "
+        f"process, its consumer's build and the producers' start "
+        f"included): {stats['requests_per_s']:.2f} requests/s over the "
+        f"{stats['serving_s']:.2f} s from the consumer's being ready to the "
+        f"last answer; per request at the producers (the "
+        f"{stats['requests'] - stats['requests_before_ready']} sent after "
+        f"it was ready) p50 {stats['request_ms_p50']:.2f} ms, p99 "
+        f"{stats['request_ms_p99']:.2f} ms; the consumer's batches by size "
+        f"{dict(sorted(collections.Counter(stats['batch_sizes']).items()))} "
+        f"(mean {stats['mean_batch']:.2f}), "
+        f"{stats['errors']} failed; kernel launches "
+        f"{ {k: v for k, v in stats['kernel_launches'].items() if v} }; "
+        f"producers with torch imported: "
+        f"{stats['producers_importing_torch']}")
+    for r in rows:
+        log(f"[{tag}]   {json.dumps(r)}")
+
+
+def eval_server_phase(run, store_root, ckpt_step, tag="eval-server"):
+    """The policy's closed-loop evaluation on the card: the port's
+    eval_simple_policy_server on the run's model_step_<ckpt_step>.msgpack
+    and logs/training_config.yaml, --env replay over the LMDB store of the
+    lmdb phase, EVAL_TASKVARS taskvars (one for each of the 4 producers)
+    x EVAL_DEMOS demos x up to 25 steps, the consumer's Actioner on the
+    card. Checks the results rows (the JAX layout, one a taskvar), no
+    producer with torch imported, and the consumer's kernel launches:
+    PER_FORWARD's for every forward it ran (one a batch it formed)."""
+    taskvars = sorted(os.listdir(store_root))[:EVAL_TASKVARS]
+    tv_file = os.path.join(run, "eval_taskvars.json")
+    with open(tv_file, "w") as f:
+        json.dump(taskvars, f)
+    result_file = os.path.join(run, "preds", "seed100", "results.jsonl")
+    if os.path.exists(result_file):
+        os.remove(result_file)
+    stats, wall = _eval_cli(
+        "robot3dlotus_tpu_torch.eval.eval_simple_policy_server",
+        ["--expr_dir", run, "--ckpt_step", ckpt_step, "--taskvar_file",
+         tv_file, "--env", "replay", "--replay_data_dir", store_root,
+         "--num_workers", 4, "--num_demos", EVAL_DEMOS, "--seed", 100], tag)
+    rows = _result_rows(result_file, taskvars, f"model_step_{ckpt_step}",
+                        EVAL_DEMOS, tag)
+    forwards = len(stats["batch_sizes"])
+    bad = _off_count(stats["kernel_launches"], PER_FORWARD, forwards)
+    if bad or stats["producers_importing_torch"] or stats["errors"] or \
+            stats["requests"] != sum(stats["batch_sizes"]):
+        raise AssertionError(f"[{tag}] {forwards} forwards, launches "
+                             f"{bad}; {stats}")
+    _log_eval(tag, stats, wall, rows)
+    return dict(stats, wall_s=wall, rows=rows)
+
+
+def mp_eval_server_phase(run, ckpt_step, tag="mp-eval-server"):
+    """The GT pipeline's closed-loop evaluation on the card: the port's
+    eval_robot_pipeline_server (stateful: the episode cache rides the
+    queues, no batching) with robot_pipeline_gt.yaml and the run's
+    model_step_<ckpt_step>.msgpack, --env replay over a motion store
+    written here under two GemBench taskvars of the GT plan and label
+    files (the synthetic motion episodes, whose `sem` ids the GT vision
+    reads), 2 producers x EVAL_DEMOS demos. Checks the rows in
+    preds-llm_gt-og_gt_coarse/seed100/results.jsonl, no producer with
+    torch imported, and the consumer's kernel launches: MP_PER_FORWARD's
+    for every motion-planner forward it ran (9 K1 a forward), none
+    else."""
+    root = os.path.join(ROOT, "build", "smoke_data", tag)
+    shutil.rmtree(root, ignore_errors=True)
+    src, writer = open_store("synthetic_motion"), LmdbWriterStore(root)
+    for tv, sv in zip(MP_EVAL_TASKVARS, src.taskvars()):
+        for ep in src.episodes(sv)[:EVAL_DEMOS]:
+            writer.put(tv, ep, src.get(sv, ep))
+    writer.close()
+    tv_file = os.path.join(run, "eval_taskvars.json")
+    with open(tv_file, "w") as f:
+        json.dump(MP_EVAL_TASKVARS, f)
+    result_file = os.path.join(run, "preds-llm_gt-og_gt_coarse", "seed100",
+                               "results.jsonl")
+    if os.path.exists(result_file):
+        os.remove(result_file)
+    stats, wall = _eval_cli(
+        "robot3dlotus_tpu_torch.eval.eval_robot_pipeline_server",
+        ["--pipeline_config_file", GT_CONFIG, "--mp_expr_dir", run,
+         "--mp_ckpt_step", ckpt_step, "--taskvar_file", tv_file, "--env",
+         "replay", "--replay_data_dir", root, "--num_workers", 2,
+         "--num_demos", EVAL_DEMOS, "--seed", 100], tag)
+    rows = _result_rows(result_file, MP_EVAL_TASKVARS, ckpt_step,
+                        EVAL_DEMOS, tag)
+    launches = stats["kernel_launches"]
+    forwards = launches.get("patch_attention", 0) // 9
+    bad = _off_count(launches, MP_PER_FORWARD, forwards)
+    if not forwards or bad or stats["errors"] or \
+            set(stats["batch_sizes"]) != {1} or \
+            stats["producers_importing_torch"]:
+        raise AssertionError(f"[{tag}] {forwards} forwards, launches "
+                             f"{bad}; {stats}")
+    _log_eval(tag, stats, wall, rows)
+    log(f"[{tag}] motion-planner forwards: "
+        f"{forwards} of {stats['requests']} "
+        f"requests (the others replay cached steps or release)")
+    return dict(stats, wall_s=wall, rows=rows)
+
+
+def http_phase(run, store_root, ckpt_step, tag="http"):
+    """The challenge HTTP server on the card, in this process:
+    PolicyHTTPServer on port 0 with ThreeDLotusActioner(run, ckpt_step),
+    and run_client over ReplayEnv (the lmdb phase's store, one taskvar,
+    HTTP_EPISODES episodes) through PolicyHTTPClient. Times each round
+    trip at the client, the msgpack packing and unpacking on both sides
+    (serving._pack_np / _unpack_np, their share of the round trips) and
+    counts the bytes; the actions finite, the kernel launches
+    PER_FORWARD's for each request."""
+    lotus = ThreeDLotusActioner(run, ckpt_step=ckpt_step, device="cuda")
+    codec, trips, actions = [], [], []
+
+    def timed(fn):
+        def wrapped(x):
+            t0 = time.perf_counter()
+            out = fn(x)
+            codec.append((fn.__name__, (time.perf_counter() - t0) * 1e3,
+                          len(out) if isinstance(out, bytes) else len(x)))
+            return out
+        return wrapped
+
+    class Client(PolicyHTTPClient):
+        def predict(self, **payload):
+            t0 = time.perf_counter()
+            out = super().predict(**payload)
+            trips.append((time.perf_counter() - t0) * 1e3)
+            actions.append(np.asarray(out["action"]))
+            return out
+
+    taskvar = sorted(os.listdir(store_root))[0]
+    srv = PolicyHTTPServer(lotus, port=0)
+    srv.start_background()
+    try:
+        with _Patch(serving, "_pack_np", timed), \
+                _Patch(serving, "_unpack_np", timed):
+            torch.cuda.synchronize()
+            cuda_lib.reset_launches()
+            rec = run_client(taskvar, Client(f"http://{srv.host}:{srv.port}"),
+                             ReplayEnv(open_store(store_root)),
+                             num_episodes=HTTP_EPISODES)
+            launches = dict(cuda_lib.LAUNCHES)
+    finally:
+        srv.shutdown()
+    n = len(trips)
+    bad = _off_count(launches, PER_FORWARD, n)
+    if not n or bad or not all(a.shape == (8,) and np.isfinite(a).all()
+                               for a in actions):
+        raise AssertionError(f"[{tag}] {n} requests, launches {bad}")
+    by = {}
+    for name, ms, nbytes in codec:
+        by.setdefault(name, []).append((ms, nbytes))
+    # per request: the client packs the request and unpacks the reply, the
+    # server unpacks the request and packs the reply
+    req_bytes = [b for _, b in by["_pack_np"][0::2]]
+    codec_ms = sum(ms for _, ms, _ in codec)
+    out = {"requests": n, "record": rec, "round_trip_ms": trips,
+           "round_trip_p50_ms": float(np.median(trips)),
+           "round_trip_p99_ms": float(np.percentile(trips, 99)),
+           "round_trip_s": sum(trips) / 1e3,
+           "request_bytes": float(np.mean(req_bytes)),
+           "reply_bytes": float(np.mean([b for _, b in
+                                         by["_pack_np"][1::2]])),
+           "codec_ms_per_request": codec_ms / n,
+           "codec_share": codec_ms / sum(trips), "launches": launches}
+    log(f"[{tag}] {n} requests over HTTP ({rec}): round trip p50 "
+        f"{out['round_trip_p50_ms']:.2f} ms, p99 "
+        f"{out['round_trip_p99_ms']:.2f} ms, min {min(trips):.2f}, max "
+        f"{max(trips):.2f} (the first {trips[0]:.2f}), over "
+        f"{out['round_trip_s']:.2f} s of round trips; "
+        f"{out['request_bytes']:.0f} bytes "
+        f"a request, {out['reply_bytes']:.0f} a reply; msgpack packing and "
+        f"unpacking {out['codec_ms_per_request']:.2f} ms a request, "
+        f"{out['codec_share']:.3f} of the round trips")
+    return out
 
 
 # --------------------------------------------------------- checkpoints ---
@@ -2400,7 +2803,7 @@ def _same_launches(got, seeded, what):
 
 
 def ckpt_phase(tag, module, config, steps, per_forward, load, serve,
-               seeded, out_dir):
+               seeded, out_dir, after=None):
     """A family's checkpoint path under out_dir/<tag>: ckpt_run with
     `steps` (first main, resumed main), K1 of the first validation forward
     (B = 32) against its plain version, then a server from the first
@@ -2408,7 +2811,9 @@ def ckpt_phase(tag, module, config, steps, per_forward, load, serve,
     the saved run's; `serve(server, cpu_model)` -> (results, profiled
     forward) serves with the serving launch counts and holds the logits
     against a server loaded on the CPU from the same file; the profiled
-    forward's launch calls must equal the seeded server's (`seeded`)."""
+    forward's launch calls must equal the seeded server's (`seeded`).
+    after(run directory) -> dict: more phases on the run's files, before
+    they are deleted."""
     run = os.path.join(out_dir, tag.replace("-", "_"))
     try:
         out, k1 = ckpt_run(module, config, *steps, run, tag, per_forward)
@@ -2446,6 +2851,10 @@ def ckpt_phase(tag, module, config, steps, per_forward, load, serve,
         served, profiled = serve(server, load(path, "cpu").model)
         out.update(served)
         _same_launches(profiled, seeded, what)
+        del server
+        torch.cuda.empty_cache()
+        if after is not None:
+            out.update(after(run))
         return out
     finally:
         shutil.rmtree(os.path.join(run, "ckpts"), ignore_errors=True)
@@ -2670,10 +3079,13 @@ def mp_kernel_phase(captured_fwd, captured_step):
     "train_step"), K10 at the training step's stem shape, C = 5 (it
     launches 0 times per step: the stem gathers data)."""
     rows, detail = {}, {}
-    for name, cap, timing in (("forward", captured_fwd, {}),
-                              ("step", captured_step, TRAIN_TIMING)):
+    # K9's calls: the stage-0 entry sort (C = 4; none in a host-structured
+    # training step) and the categorical stem (C = 5)
+    for name, cap, timing, widths in (
+            ("forward", captured_fwd, {}, [4, 5]),
+            ("step", captured_step, TRAIN_TIMING, [5])):
         calls = [args for args, _ in cap["gather_rows_smallc"]]
-        if sorted(a[0].shape[-1] for a in calls) != [4, 5]:
+        if sorted(a[0].shape[-1] for a in calls) != widths:
             raise AssertionError(f"K9 calls per {name}: "
                                  f"{[list(a[0].shape) for a in calls]}")
         k9 = [check_gather("gather_rows_smallc", a, timing) for a in calls]
@@ -2811,11 +3223,68 @@ def mp_training(out_dir):
     return training, launches, captured, host[0]
 
 
+def _marked_processes():
+    """(pid, command line) of every live process but this one whose
+    environment holds this run's RUN_MARK: every process the run started,
+    orphans of a dead parent included."""
+    mark = f"{RUN_MARK}={os.environ[RUN_MARK]}".encode()
+    found = []
+    for d in os.listdir("/proc"):
+        if not d.isdigit() or int(d) == os.getpid():
+            continue
+        try:
+            with open(f"/proc/{d}/environ", "rb") as f:
+                if mark not in f.read().split(b"\0"):
+                    continue
+            with open(f"/proc/{d}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:  # gone, or not ours
+            continue
+        found.append((int(d), cmd.strip()[:200]))
+    return found
+
+
+def stop_processes(wait_s=30.0):
+    """Stops what the run left: collects abandoned loader iterators (their
+    worker pools shut down), stops multiprocessing's forkserver and
+    resource tracker and waits for them to exit, then waits up to wait_s
+    for every other marked process to end. Those still alive are killed
+    and returned as (pid, command line)."""
+    from multiprocessing import forkserver, resource_tracker
+    gc.collect()
+    forkserver._forkserver._stop()
+    resource_tracker._resource_tracker._stop()
+    deadline = time.monotonic() + wait_s
+    while (left := _marked_processes()) and time.monotonic() < deadline:
+        time.sleep(0.1)
+    for pid, _ in left:
+        try:
+            os.kill(pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+    return left
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 1
+    os.environ[RUN_MARK] = f"{os.getpid()}.{time.time_ns()}"
+    try:
+        lines = run()
+    finally:
+        left = stop_processes()
+    if left:
+        raise AssertionError(f"processes left running (killed): {left}")
+    for line in lines:
+        print(line, flush=True)
+    return 0
+
+
+def run():
+    """Every phase; the kernels line, the card's line and the last line,
+    to be printed once the run's processes have ended."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(
@@ -2885,9 +3354,10 @@ def main():
     del captured, stems
     step_check = step_check_phase(host[0])
     del host, batches
-    entry = entry_phase(device_clouds_per_s=training["clouds_per_s"])
+    entry = entry_phases(train_simple_policy, train_config, ENTRY_STEPS,
+                         PER_STEP, "entry", training["clouds_per_s"])
     lmdb = lmdb_phase(train_simple_policy, train_config, "synthetic_reach",
-                      PER_STEP, "lmdb")
+                      PER_STEP, "lmdb", keep=True)
     torch.cuda.empty_cache()
 
     def serve(actioner, cpu):
@@ -2905,7 +3375,10 @@ def main():
         lambda path, device: Actioner(CONFIG, checkpoint=path,
                                       cli_opts=CLI_OPTS, device=device,
                                       seed=0),
-        serve, breakdown, out_dir)
+        serve, breakdown, out_dir,
+        after=lambda run: {
+            "eval_server": eval_server_phase(run, lmdb["root"], CKPT_STEPS),
+            "http": http_phase(run, lmdb["root"], CKPT_STEPS)})
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -2931,10 +3404,10 @@ def main():
     del mp_fwd_captured, mp_step_captured
     torch.cuda.empty_cache()
     mp_step_check = step_check_phase(mp_host, mp_config, compute_mp_loss,
-                                     "mp-step-check", MP_CHECK_SLICES)
-    mp_entry = entry_phase(train_motion_planner, mp_config, MP_ENTRY_STEPS,
-                           MP_PER_STEP, "mp-entry",
-                           device_clouds_per_s=mp_train["clouds_per_s"])
+                                     "mp-step-check", MP_CHECK_SLICES,
+                                     MP_PER_STEP, MP_PER_STEP_REDRAW)
+    mp_entry = entry_phases(train_motion_planner, mp_config, MP_ENTRY_STEPS,
+                            MP_PER_STEP, "mp-entry", mp_train["clouds_per_s"])
     mp_lmdb = lmdb_phase(train_motion_planner, mp_config, "synthetic_motion",
                          MP_PER_STEP, "mp-lmdb")
     torch.cuda.empty_cache()
@@ -2950,7 +3423,11 @@ def main():
         (MP_CKPT_STEPS, MP_CKPT_RESUME_STEPS), MP_PER_FORWARD,
         lambda path, device: MotionPlannerEngine(
             MP_CONFIG, checkpoint=path, device=device, seed=0),
-        mp_serve, mp_serving, out_dir)
+        mp_serve, mp_serving, out_dir,
+        after=lambda run: {"eval_server": mp_eval_server_phase(
+            run, MP_CKPT_STEPS)})
+    shutil.rmtree(os.path.join(ROOT, "build", "smoke_data"),
+                  ignore_errors=True)
 
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"device": smi, "kernels": rows, "calls": detail,
@@ -3002,12 +3479,10 @@ def main():
                     launches_by_path={p: c[k] for p, c in paths.items()},
                     **rows[k])
                for k in KERNELS]
-    print(json.dumps({"kernels": kernels}), flush=True)
-    print(smi, flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
-    return 0
+    return [json.dumps({"kernels": kernels}), smi,
+            json.dumps({"ok": True, "device": {
+                "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                "count": torch.cuda.device_count()}})]
 
 
 if __name__ == "__main__":

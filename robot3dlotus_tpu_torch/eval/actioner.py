@@ -43,7 +43,7 @@ from ..models.simple_policy import decode_actions
 from ..native import crop_voxelize_trace_native
 from ..ops.eval_preprocess import (make_obs_to_action, obb_params_disabled,
                                    obb_params_np, obb_vector)
-from ..ops.serialization import sfc_encode_np
+from ..ops.sfc_np import sfc_encode_np
 from ..train.checkpoint import load_any_model_ckpt
 from ..utils.assets import resolve_asset
 from ..utils.robot_box import RobotBox
@@ -64,19 +64,33 @@ class Actioner:
     _RAW_BUCKETS = (65536, 131072, 262144, 524288, 1048576)
 
     def __init__(self, exp_config, checkpoint=None, cli_opts=None,
-                 real_robot=False, device="cuda", seed=0,
+                 best_disc_pos="max", num_ensembles=1, real_robot=False,
+                 save_obs_outs_dir=None, device="cuda", seed=0,
                  device_preprocess=None, vox_capacity=None):
         """checkpoint: a model file (train.checkpoint.load_any_model_ckpt),
         or None for the seeded init of `seed`, which also seeds the
         >num_points subsample (host path: self.rng; fused path: a
         torch.Generator on the device). A file that does not fit the model
-        raises. device_preprocess / vox_capacity: the fused path and its
-        voxel capacity (None: ROBOT3DLOTUS_DEVICE_PREPROCESS, default off,
-        and ROBOT3DLOTUS_VOX_CAPACITY, default 8192)."""
+        raises. best_disc_pos / num_ensembles: the JAX Actioner's
+        keywords; 'max' and 1 are ported. save_obs_outs_dir: each answered
+        request's {"obs", "action"} saved there as
+        {taskvar}-{episode_id}-{step_id}.npy. device_preprocess /
+        vox_capacity: the fused path and its voxel capacity (None:
+        ROBOT3DLOTUS_DEVICE_PREPROCESS, default off, and
+        ROBOT3DLOTUS_VOX_CAPACITY, default 8192)."""
+        if best_disc_pos != "max" or int(num_ensembles) != 1:
+            raise NotImplementedError(
+                f"best_disc_pos={best_disc_pos!r}, num_ensembles="
+                f"{num_ensembles}: only 'max' and 1 are ported ('ens1' and "
+                "shuffled ensembles are ROADMAP.md section 1 item 2)")
         self.device = resolve_device(device)
         self.config = get_config(exp_config, cli_opts)
         self.data_cfg = dict(self.config.TRAIN_DATASET)
         self.act_cfg = dict(self.config.MODEL.action_config)
+        self.act_cfg["best_disc_pos"] = best_disc_pos
+        self.save_obs_outs_dir = save_obs_outs_dir
+        if save_obs_outs_dir:
+            os.makedirs(save_obs_outs_dir, exist_ok=True)
         self.real_robot = real_robot
         self.WORKSPACE = get_robot_workspace(real_robot=real_robot)
         self.TABLE_HEIGHT = self.WORKSPACE["TABLE_HEIGHT"]
@@ -336,19 +350,33 @@ class Actioner:
         action[-1] = float(1.0 / (1.0 + np.exp(-action[-1])) > 0.5)
         return action
 
+    def _save_obs_out(self, task_str, variation, episode_id, step_id, obs,
+                      action):
+        if self.save_obs_outs_dir:
+            np.save(os.path.join(
+                self.save_obs_outs_dir,
+                f"{task_str}+{variation}-{episode_id}-{step_id}.npy"),
+                {"obs": obs, "action": action})
+
     def predict(self, task_str=None, variation=None, step_id=0,
                 obs_state_dict=None, episode_id=None, instructions=None):
         if self.device_preprocess:
-            return {"action": self._device_predict(
+            action = self._device_predict(
                 obs_state_dict, self._instruction(task_str, variation,
                                                   instructions),
-                step_id or 0)}
+                step_id or 0)
+            self._save_obs_out(task_str, variation, episode_id, step_id,
+                               obs_state_dict, action)
+            return {"action": action}
         instr_embed, pc_ft, centroid, radius = self._host_prep(
             task_str, variation, obs_state_dict, instructions)
         if pc_ft is None or len(pc_ft) <= 10:
             return {"action": self._zero_action()}
-        action = self._forward([(pc_ft, instr_embed)], 1)[0]
-        return {"action": self._finish_action(action, centroid, radius)}
+        action = self._finish_action(
+            self._forward([(pc_ft, instr_embed)], 1)[0], centroid, radius)
+        self._save_obs_out(task_str, variation, episode_id, step_id,
+                           obs_state_dict, action)
+        return {"action": action}
 
     def predict_batch(self, payloads):
         """Serve several queued `predict` queries in batched forwards:
@@ -373,6 +401,11 @@ class Actioner:
             actions = self._forward([(pc, emb) for _, pc, emb, _, _ in chunk],
                                     _bucket(len(chunk), self._BATCH_BUCKETS))
             for r, (i, _, _, centroid, radius) in enumerate(chunk):
-                outs[i] = {"action": self._finish_action(
-                    actions[r].copy(), centroid, radius)}
+                action = self._finish_action(actions[r].copy(), centroid,
+                                             radius)
+                outs[i] = {"action": action}
+                p = payloads[i]
+                self._save_obs_out(p.get("task_str"), p.get("variation"),
+                                   p.get("episode_id"), p.get("step_id"),
+                                   p["obs_state_dict"], action)
         return outs

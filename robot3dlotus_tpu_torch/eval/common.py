@@ -1,14 +1,30 @@
-"""Plan-code parsing (the port's copy of `parse_code` in
-robot3dlotus_tpu/eval/common.py): one line of a task plan, such as
-`cube = push_forward(object="red cube", target="green square")`, becomes
-{action, object, target, is_object_variable, is_target_variable,
+"""Shared eval utilities (the port's copy of robot3dlotus_tpu/eval/common.py).
+
+write_to_file appends one JSON line to a results file under an exclusive
+lock on `<file>.lock` (fcntl.flock), so producer processes of the eval
+server can append at once. parse_code parses one line of a task plan,
+such as `cube = push_forward(object="red cube", target="green square")`,
+into {action, object, target, is_object_variable, is_target_variable,
 not_objects, ret_val}, with underscores in the action replaced by spaces
 and the literal targets 'up' / 'out' / 'down' folded into the action.
 """
 from __future__ import annotations
 
+import fcntl
+import json
 import re
 from typing import Dict, Optional
+
+
+def write_to_file(filepath, data: Dict):
+    with open(filepath + ".lock", "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            with open(filepath, "a") as f:
+                f.write(json.dumps(data) + "\n")
+                f.flush()
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
 
 _PATTERN = re.compile(
     r'^((?P<ret_val>\w+) = ){0,1}(?P<action>\w+)\('

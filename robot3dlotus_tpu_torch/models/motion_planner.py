@@ -156,7 +156,8 @@ class MotionPlanner(nn.Module):
                        self.pc_label_embedding.weight)
         outs = self.ptv3_model(pc[..., :3], pc, batch["pc_mask"],
                                batch["pc_counts"], context, batch["txt_mask"],
-                               rng, stem_categorical=categorical)
+                               rng, stem_categorical=categorical,
+                               order_perm=batch.get("order_perm"))
         final = outs[-1]
         xt, xr, xo, xstop = self.act_proj_head(final["feat"], final["mask"],
                                                rng)

@@ -9,12 +9,16 @@ frame directly and pooling segments are contiguous runs. Per-point outputs
 come back in the stage-0 sorted frame with `sort0` (frame position ->
 input index). With shuffle_orders, train mode permutes the SFC orders at
 stage 0 and after every pooling (Randomness.permutation) and re-sorts the
-stage by its new first order through K4; eval never shuffles here. Entry
-sorts go through permute_rows_any: K9 for the stage-0 input features (at
-most 32 channels), K4 for the pooled stages. A categorical stem input (the
-motion planner's point labels, `stem_categorical`) is carried into the
-stage-0 frame by sort0 and feeds only the stem conv. The TPU-only
-window/far-list inputs of the JAX backbone have no counterpart.
+stage by its new first order through K4; eval never shuffles here. A
+batch presorted on the host (TRAIN.host_structure,
+train/datasets/structure.py) brings its `order_perm` instead: the codes
+take that order, there is no stage-0 entry sort and no stage redraws.
+Entry sorts go through permute_rows_any: K9 for the stage-0 input
+features (at most 32 channels), K4 for the pooled stages. A categorical
+stem input (the motion planner's point labels, `stem_categorical`) is
+carried into the stage-0 frame by sort0 and feeds only the stem conv.
+The TPU-only window/far-list inputs of the JAX backbone have no
+counterpart.
 """
 from __future__ import annotations
 
@@ -205,11 +209,13 @@ class PointTransformerV3(nn.Module):
         return new, order
 
     def forward(self, coord, feat, mask, counts, context, context_mask,
-                rng=None, stem_categorical=None):
+                rng=None, stem_categorical=None, order_perm=None):
         """coord (B, N, 3); feat (B, N, Cin); mask (B, N) bool; counts (B,);
         context (B, T, C) tokens, context_mask (B, T); rng: the Randomness
         of a train-mode forward; stem_categorical: None, or (idx (B, N)
-        int, table (Kcat, E)) appended to feat for the stem conv only.
+        int, table (Kcat, E)) appended to feat for the stem conv only;
+        order_perm: None, or the (num_orders,) order permutation the host
+        chose, the inputs already sorted by its first order's code.
         Returns the list of decoder layer outputs, outputs[0] carrying
         sort0 and pool_overflow."""
         S = len(self.enc_depths)
@@ -219,13 +225,16 @@ class PointTransformerV3(nn.Module):
         counts = counts.long()
         grid_coord = compute_grid_coord(coord, mask, self.grid_size, depth0)
         codes = serialize_codes(grid_coord, mask, depth0, self.orders)
-        shuffle = self.shuffle_orders and self.training
+        shuffle = self.shuffle_orders and self.training and order_perm is None
         if shuffle:
             codes = self._shuffled(codes, rng)
+        elif order_perm is not None:
+            codes = codes[torch.as_tensor(order_perm, device=codes.device)
+                          .long()]
         cur = {"feat": feat, "coord": coord, "grid_coord": grid_coord,
                "mask": mask, "counts": counts, "codes": codes,
                "depth": depth0, "cap": N0}
-        if self.assume_sorted and not shuffle:
+        if (self.assume_sorted or order_perm is not None) and not shuffle:
             sort0 = torch.arange(N0, device=feat.device).expand(B, N0)
         else:
             cur, sort0 = self._entry_sort(cur)

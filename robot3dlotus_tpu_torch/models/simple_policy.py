@@ -93,7 +93,7 @@ class SimplePolicy(nn.Module):
         context = self.txt_fc(batch["txt_embeds"])
         outs = self.ptv3_model(pc[..., :3], pc, batch["pc_mask"],
                                batch["pc_counts"], context, batch["txt_mask"],
-                               rng)
+                               rng, order_perm=batch.get("order_perm"))
         final = outs[-1]
         xt, xr, xo = self.act_proj_head(final["feat"], final["mask"], rng)
         return {"pos": xt, "rot": xr, "open": xo,

@@ -3,12 +3,12 @@ robot3dlotus_tpu/train/datasets/loader.py).
 
 KeystepBatchLoader: episodes in a per-epoch shuffled order, sharded by
 process, each contributing all its keysteps, re-chunked into batches of
-exactly num_clouds clouds; with num_workers > 0 a thread pool loads the
-episodes ahead of the consumer, in submission order. MetaLoader: several
-loaders drawn by ratio from a seeded RandomState, a drawn task held for
-accum_steps batches. PrefetchToDevice: a producer thread that copies each
-host batch into pinned memory and onto the card on a side stream while
-the previous step runs.
+exactly num_clouds clouds; with num_workers > 0 a pool of worker
+processes (workers.py) loads the episodes ahead of the consumer, in
+submission order. MetaLoader: several loaders drawn by ratio from a seeded
+RandomState, a drawn task held for accum_steps batches. PrefetchToDevice:
+a producer thread that copies each host batch into pinned memory and onto
+the card on a side stream while the previous step runs.
 """
 from __future__ import annotations
 
@@ -16,13 +16,14 @@ import logging
 import queue
 import threading
 from collections import deque
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures.process import BrokenProcessPool
 from typing import Iterator
 
 import numpy as np
 import torch
 
 from .collate import collate_keystep_samples
+from .workers import EpisodePool
 
 LOGGER = logging.getLogger("robot3dlotus_tpu_torch.loader")
 
@@ -38,23 +39,29 @@ class KeystepBatchLoader:
     once, in order, the last batch collated from the clouds left
     (batch_valid marks them).
 
-    num_workers > 0 loads episodes in a pool of that many threads, at most
+    num_workers > 0 loads episodes in that many worker processes (one pool
+    for the iterator's life, shut down when it is closed), at most
     2 x num_workers ahead, each episode drawing from its own
     RandomState((seed * 1000003 + epoch * 9176 + idx) % 2**31), so the
-    batches do not depend on thread scheduling; with 0 workers episodes
-    draw from the dataset's own RandomState. shuffle_seed must be the same
-    in every process (the shards partition one permutation); seed may
+    batches do not depend on scheduling, and passing its samples through
+    worker_fn there (a picklable function: work moved off the consuming
+    process; not called with 0 workers); with 0 workers episodes draw from
+    the dataset's own RandomState. Re-chunking and collate_fn run in the
+    consuming process, in batch order. shuffle_seed must be the same in
+    every process (the shards partition one permutation); seed may
     differ."""
 
     def __init__(self, dataset, num_clouds, num_points, seed=0,
                  shuffle_seed=None, collate_fn=None, one_pass=False,
-                 num_workers=0, process_index=0, process_count=1):
+                 num_workers=0, process_index=0, process_count=1,
+                 worker_fn=None):
         self.dataset = dataset
         self.num_clouds, self.num_points = num_clouds, num_points
         self.seed = seed
         self.shuffle_seed = seed if shuffle_seed is None else shuffle_seed
         self.one_pass = one_pass
         self.num_workers = int(num_workers)
+        self.worker_fn = worker_fn
         self.process_index, self.process_count = process_index, process_count
         self.collate_fn = collate_fn or (
             lambda chunk: collate_keystep_samples(
@@ -66,34 +73,28 @@ class KeystepBatchLoader:
             np.random.RandomState(self.shuffle_seed + epoch).shuffle(ids)
         return ids[self.process_index::self.process_count]
 
-    def _load(self, idx, epoch=0):
+    def _load(self, idx):
         """The episode's samples, or the exception that loading raised."""
         try:
-            if self.num_workers > 0:
-                rng = np.random.RandomState(
-                    (self.seed * 1000003 + epoch * 9176 + idx) % (2 ** 31))
-                tv, ep = self.dataset.data_ids[idx]
-                return self.dataset.get_episode_samples(tv, ep, rng=rng)
             return self.dataset[idx]
         except Exception as e:  # handed to the consumer
             return e
 
-    def _episodes(self, epoch) -> Iterator:
+    def _episodes(self, epoch, pool) -> Iterator:
         ids = [int(i) for i in self._epoch_ids(epoch)]
-        if self.num_workers <= 0:
+        if pool is None:
             for idx in ids:
                 yield idx, self._load(idx)
             return
-        with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
-            pending = deque()
-            for idx in ids:
-                pending.append((idx, pool.submit(self._load, idx, epoch)))
-                if len(pending) >= 2 * self.num_workers:
-                    i, fut = pending.popleft()
-                    yield i, fut.result()
-            while pending:
+        pending = deque()
+        for idx in ids:
+            pending.append((idx, pool.submit(idx, epoch, self.seed)))
+            if len(pending) >= 2 * self.num_workers:
                 i, fut = pending.popleft()
-                yield i, fut.result()
+                yield i, _result(fut)
+        while pending:
+            i, fut = pending.popleft()
+            yield i, _result(fut)
 
     def __iter__(self):
         if not self.one_pass and len(self._epoch_ids(0)) == 0:
@@ -102,9 +103,18 @@ class KeystepBatchLoader:
                 f"{self.process_count} processes (process "
                 f"{self.process_index}); the endless loader would yield "
                 "nothing forever")
+        pool = (EpisodePool(self.dataset, self.num_workers, self.worker_fn)
+                if self.num_workers > 0 else None)
+        try:
+            yield from self._batches(pool)
+        finally:
+            if pool is not None:
+                pool.close()
+
+    def _batches(self, pool):
         epoch, buf, failures = 0, [], 0
         while True:
-            for idx, samples in self._episodes(epoch):
+            for idx, samples in self._episodes(epoch, pool):
                 if isinstance(samples, Exception):
                     failures += 1
                     LOGGER.warning("episode %d failed to load (%d "
@@ -122,6 +132,18 @@ class KeystepBatchLoader:
                 if buf:
                     yield self.collate_fn(buf)
                 return
+
+
+def _result(fut):
+    """A worker's samples or exception; an exception in carrying the
+    result back (one that does not pickle) counts as the episode's. A
+    broken pool raises."""
+    try:
+        return fut.result()
+    except BrokenProcessPool:
+        raise
+    except Exception as e:
+        return e
 
 
 class MetaLoader:

@@ -116,13 +116,20 @@ class MsgpackDirStore:
 class LmdbStore:
     """GemBench's LMDB layout: <root>/<taskvar>/data.mdb, episodes in key
     order. Each environment is opened once (under a lock) and shared: the
-    reader has no mutable state after open, so the loader's worker threads
-    call get() concurrently."""
+    reader has no mutable state after open, so threads call get()
+    concurrently. A pickled store carries its root only and reopens its
+    files where it is unpickled (the loader's worker processes)."""
 
     def __init__(self, root: str):
         self.root = root
         self._envs = {}
         self._lock = threading.Lock()
+
+    def __getstate__(self):
+        return {"root": self.root}
+
+    def __setstate__(self, state):
+        self.__init__(state["root"])
 
     def taskvars(self) -> List[str]:
         return sorted(d for d in os.listdir(self.root)
@@ -223,6 +230,10 @@ class SyntheticStore:
 
     def episodes(self, taskvar):
         return list(self._eps)
+
+    def __getstate__(self):
+        # episodes are regenerated where the store is unpickled
+        return dict(self.__dict__, _cache={})
 
     def get(self, taskvar, episode):
         key = (taskvar, episode)

@@ -15,10 +15,13 @@ TRAIN.log_steps; and the run control around them:
     TRAIN.profile_start_step (output_dir/profile);
   a final save and a final validation.
 
-Host batches are made by the loader's TRAIN.n_workers threads and copied
-onto the device by a PrefetchToDevice thread while the previous step runs;
-validation batches are made in series (one pass, no prefetch), as in the
-JAX driver.
+Host batches are made by the loader's TRAIN.n_workers worker processes
+and copied onto the device by a PrefetchToDevice thread while the
+previous step runs; validation batches are made in series (one pass, no
+prefetch), as in the JAX driver. TRAIN.host_structure (default True, as
+in the JAX driver) presorts each training batch by one order permutation
+drawn per batch (datasets/structure.py); False lets the model redraw the
+orders at every stage.
 
 One process on one device; multi-device training is not ported. A
 resumed run restarts the loader from its first batch, as the JAX driver
@@ -30,6 +33,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import logging
 import os
 import time
@@ -44,6 +48,8 @@ from ..models.layers import Randomness
 from .checkpoint import (ModelSaver, resume_or_init, save_training_meta,
                          warm_start_variables)
 from .datasets.loader import KeystepBatchLoader, PrefetchToDevice
+from .datasets.structure import (HostStructureCollate, attach_sample_orders,
+                                 structure_cfg_from_model)
 from .logging import MetricWriter, build_logger
 from .optim import build_optimizer
 from .preempt import install_preemption_handler, requeue_self
@@ -90,24 +96,39 @@ def task_configs(config):
     return act_cfg, dict(config.MODEL.loss_config)
 
 
-def build_trainer(config, spec: TaskSpec, device="cuda"):
-    """(trainer, batches, schedule): the model on `device` with seeded
-    weights, the AdamW optimizer and an infinite iterator of host
-    batches, loaded by TRAIN.n_workers threads (0: in series)."""
-    device = resolve_device(device)
+def build_loader(config, spec: TaskSpec):
+    """The training loader: batches of TRAIN.train_batch_size clouds,
+    loaded by TRAIN.n_workers worker processes (0: in series) and, under
+    TRAIN.host_structure, presorted with their order_perm."""
     seed = int(config.get("SEED", 2024))
-    np.random.seed(seed)
     tds_cfg = dict(config.TRAIN_DATASET)
     dataset = spec.build_dataset(tds_cfg, np.random.RandomState(seed))
     LOGGER.info("#train episodes: %d", len(dataset))
     num_clouds = int(config.TRAIN.train_batch_size)
-    loader = KeystepBatchLoader(
+    num_workers = int(config.TRAIN.get("n_workers", 0) or 0)
+    collate_fn, worker_fn = spec.make_collate(tds_cfg, num_clouds), None
+    if bool(config.TRAIN.get("host_structure", True)):
+        # the JAX driver's draws: one RandomState, one permutation a batch
+        scfg = structure_cfg_from_model(config.MODEL)
+        collate_fn = HostStructureCollate(
+            collate_fn, scfg, np.random.RandomState(seed + 131071))
+        if num_workers > 0:     # each cloud's sorts made in the workers
+            worker_fn = functools.partial(attach_sample_orders, scfg)
+    return KeystepBatchLoader(
         dataset, num_clouds=num_clouds,
         num_points=int(tds_cfg.get("num_points", 4096)),
-        collate_fn=spec.make_collate(tds_cfg, num_clouds),
-        seed=seed, shuffle_seed=seed,
-        num_workers=int(config.TRAIN.get("n_workers", 0) or 0))
+        collate_fn=collate_fn, seed=seed, shuffle_seed=seed,
+        num_workers=num_workers, worker_fn=worker_fn)
 
+
+def build_trainer(config, spec: TaskSpec, device="cuda"):
+    """(trainer, batches, schedule): the model on `device` with seeded
+    weights, the AdamW optimizer and an infinite iterator of host batches
+    (build_loader)."""
+    device = resolve_device(device)
+    seed = int(config.get("SEED", 2024))
+    np.random.seed(seed)
+    loader = build_loader(config, spec)
     model = build_model(config.MODEL, device=device, seed=seed)
     act_cfg, loss_cfg = task_configs(config)
     optimizer, schedule = build_optimizer(model, dict(config.TRAIN))

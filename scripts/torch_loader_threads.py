@@ -4,10 +4,11 @@ width (train_simple_policy, B = 32 clouds x 4096 points, synthetic_reach).
 
     python3 scripts/torch_loader_threads.py [--steps 8] [--rounds 2]
 
-1. host: the loader alone (nothing else running), ms per host batch with
-   0 and with 4 threads (the release TRAIN.n_workers);
+1. host: the training loader alone (driver.build_loader, host structure
+   on; nothing else running), ms per host batch with 0 and with 4 worker
+   processes (the release TRAIN.n_workers);
 2. device step: 5 steps on batches already on the card, p50, with the
-   host idle, then with a 4-thread loader making batches beside the steps
+   host idle, then with a 4-worker loader making batches beside the steps
    (a thread that keeps pulling batches), at the interpreter's default
    switch interval and at SWITCH_S;
 3. entry: chip_smoke.entry_phase (train_simple_policy.main, launch counts
@@ -16,9 +17,10 @@ width (train_simple_policy, B = 32 clouds x 4096 points, synthetic_reach).
      serial  host batches made in series on the training thread, copied
              with batch_to_device (the loop before the prefetch);
      w0      the prefetch thread, the loader in series inside it;
-     w4      the prefetch thread, 4 loader threads (the release YAML);
+     w4      the prefetch thread, 4 loader worker processes (the release
+             YAML);
      w4s     as w4 with sys.setswitchinterval(SWITCH_S);
-     w1      the prefetch thread, 1 loader thread.
+     w1      the prefetch thread, 1 loader worker process.
 Prints the card's name and power limit and one JSON line per measurement;
 writes chiprun_out/loader_threads.json. Needs one CUDA card.
 """
@@ -38,45 +40,13 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 import chip_smoke as cs  # noqa: E402
-from robot3dlotus_tpu_torch.train.datasets.loader import \
-    KeystepBatchLoader  # noqa: E402
 
 SWITCH_S = 0.0005
 
 
-class _Serial:
-    """The loop before the prefetch: each host batch made on the training
-    thread when the step asks for it, then copied to the card; timed as
-    chip_smoke._TimedPrefetch times the prefetch."""
-    runs = []
-
-    def __init__(self, it, device="cuda", depth=2):
-        self.it, self.device = iter(it), device
-        self.host_ms, self.wait_ms = [], []
-        _Serial.runs.append(self)
-
-    def __iter__(self):
-        return self
-
-    def __next__(self):
-        t0 = time.perf_counter()
-        batch = next(self.it)
-        self.host_ms.append((time.perf_counter() - t0) * 1e3)
-        out = cs.batch_to_device(batch, self.device)
-        self.wait_ms.append((time.perf_counter() - t0) * 1e3)
-        return out
-
-    def close(self):
-        pass
-
-
 def loader(workers):
-    cfg = cs.train_config()
-    tds, seed = dict(cfg.TRAIN_DATASET), int(cfg.SEED)
-    ds = cs.SPEC.build_dataset(tds, np.random.RandomState(seed))
-    return iter(KeystepBatchLoader(
-        ds, 32, 4096, collate_fn=cs.SPEC.make_collate(tds, 32), seed=seed,
-        shuffle_seed=seed, num_workers=workers))
+    return iter(cs.driver.build_loader(
+        cs.train_config("TRAIN.n_workers", str(workers)), cs.SPEC))
 
 
 def host_rate(workers, n=6):
@@ -127,18 +97,15 @@ def entry(setting, steps):
     workers = {"serial": 0, "w0": 0, "w4": 4, "w4s": 4, "w1": 1}[setting]
     config = lambda *o: cs.train_config("TRAIN.n_workers", str(workers),  # noqa
                                         *o)
-    old, timed = sys.getswitchinterval(), cs._TimedPrefetch
+    old = sys.getswitchinterval()
     if setting == "w4s":
         sys.setswitchinterval(SWITCH_S)
-    if setting == "serial":
-        _Serial.runs = []
-        cs._TimedPrefetch = _Serial
     try:
         out = cs.entry_phase(config=config, steps=steps,
-                             per_step=cs.PER_STEP, tag=setting)
+                             per_step=cs.PER_STEP, tag=setting,
+                             serial=setting == "serial")
     finally:
         sys.setswitchinterval(old)
-        cs._TimedPrefetch = timed
     return {"setting": setting, "n_workers": workers,
             **{k: out[k] for k in ("clouds_per_s", "step_ms",
                                    "host_ms_per_batch", "batch_wait_ms")}}

@@ -5,19 +5,28 @@ decoded; `data.mdb` written by the port's `write_lmdb` byte-identical to the
 JAX writer's (small, overflow pages, a branch root, empty); each package's
 LmdbStore reading the other's LmdbWriterStore; MsgpackDirStore both ways;
 open_store's sniffing; the taskvar-major writer check.
-Loader: batches of KeystepBatchLoader with 0 and 4 workers bit-equal to the
-JAX loader's over the synthetic store and over an LMDB the test wrote (the
-same data_ids and seeds); the empty-shard error and the failure limit;
+Loader: batches of KeystepBatchLoader with 0 and 4 worker processes
+bit-equal to the JAX loader's (0 and 4 threads) over two epochs of the
+synthetic store and of an LMDB the test wrote (the same data_ids and
+seeds), for both families; the empty-shard error and the failure limit (a
+worker's exception reaches the consumer); an LmdbStore pickled into a
+worker reopens its files; a worker that cannot start raises
+BrokenProcessPool (no fallback to threads); the workers stop when the
+iterator is closed;
 MetaLoader's task sequence, an iterator made anew mid-window included;
 PrefetchToDevice on the CPU (the same batches, errors surfaced, exhaustion,
 close()). Host analytics: knn_dists within 1e-6, DBSCAN and LOF bit-equal;
 keystep samples with rm_pc_outliers bit-equal. train/driver.py: TRAIN.n_workers
-read, the loop fed through PrefetchToDevice and the prefetcher closed on
-every exit; the release YAML training from an LMDB directory.
+read, the loop fed through PrefetchToDevice and the prefetcher and the
+loader's worker processes closed on every exit; the release YAML training
+from an LMDB directory.
 """
+import multiprocessing
 import os
+import pickle
 import signal
 import threading
+from concurrent.futures.process import BrokenProcessPool
 
 import numpy as np
 import pytest
@@ -249,16 +258,67 @@ def _take(it, n):
 @pytest.mark.parametrize("workers", [0, 4])
 @pytest.mark.parametrize("source", ["synthetic", "lmdb"])
 def test_loader_batches_bit_equal_jax(tmp_path, source, workers):
-    """5 batches: past the end of the first epoch (3 batches of 4 of the
-    12 keysteps)."""
+    """6 batches: two epochs (3 batches of 4 of the 12 keysteps)."""
     jl, pl = _loaders("reach", workers,
                       tmp_path if source == "lmdb" else None)
-    _equal_batches(_take(pl, 5), _take(jl, 5))
+    _equal_batches(_take(pl, 6), _take(jl, 6))
 
 
 def test_motion_loader_batches_bit_equal_jax_over_lmdb(tmp_path):
+    """5 batches: past the end of the second epoch."""
     jl, pl = _loaders("random", 4, tmp_path, motion=True)
-    _equal_batches(_take(pl, 4), _take(jl, 4))
+    _equal_batches(_take(pl, 5), _take(jl, 5))
+
+
+@pytest.mark.parametrize("workers", [0, 4])
+def test_motion_loader_batches_bit_equal_jax_synthetic(workers):
+    jl, pl = _loaders("random", workers, None, motion=True)
+    _equal_batches(_take(pl, 5), _take(jl, 5))
+
+
+def test_lmdb_store_pickles_by_its_root(tmp_path):
+    _, psrc = _stores("random")
+    root = _lmdb_from(psrc, str(tmp_path / "lmdb"))
+    a = store.LmdbStore(root)
+    want = a.get("synthetic_task1+0", "episode2")
+    b = pickle.loads(pickle.dumps(a))
+    assert b.root == root and b._envs == {}
+    _equal_trees(b.get("synthetic_task1+0", "episode2"), want)
+    assert b._envs["synthetic_task1+0"] is not a._envs["synthetic_task1+0"]
+
+
+class _Unpicklable:
+    """A dataset that a worker cannot unpickle."""
+    data_ids = [("t+0", "episode0")]
+
+    def __len__(self):
+        return 1
+
+    def __reduce__(self):
+        return (_refuse, ())
+
+
+def _refuse():
+    raise RuntimeError("this dataset does not load in a worker")
+
+
+def test_worker_that_cannot_start_raises():
+    it = iter(loader.KeystepBatchLoader(_Unpicklable(), 4, 16,
+                                        num_workers=2))
+    with pytest.raises(BrokenProcessPool):
+        next(it)
+
+
+def test_workers_stop_when_the_iterator_closes():
+    _, psrc = _stores("random")
+    ds = KeystepDataset(psrc, rng=np.random.RandomState(0), **DS_CFG)
+    before = set(multiprocessing.active_children())
+    it = iter(loader.KeystepBatchLoader(ds, 4, 256, num_workers=2))
+    next(it)
+    workers = set(multiprocessing.active_children()) - before
+    assert 1 <= len(workers) <= 2
+    it.close()
+    assert not any(p.is_alive() for p in workers)
 
 
 def test_loader_shards_and_one_pass():
@@ -448,6 +508,7 @@ def test_driver_prefetches_with_workers_and_closes(tmp_path, monkeypatch,
     monkeypatch.setattr(driver, "PrefetchToDevice", _Recorded)
     monkeypatch.setattr(driver.Trainer, "step", step)
     _Recorded.made = []
+    before = set(multiprocessing.active_children())
     if exit_by == "error":
         with pytest.raises(RuntimeError, match="step failed"):
             train_simple_policy.main(config, device="cpu")
@@ -457,6 +518,7 @@ def test_driver_prefetches_with_workers_and_closes(tmp_path, monkeypatch,
     assert made["num_workers"] == 4 and made["seed"] == made["shuffle_seed"]
     (pre,) = _Recorded.made
     assert pre.closes == 1 and not pre.thread.is_alive()
+    assert not set(multiprocessing.active_children()) - before  # workers
 
 
 def test_release_config_trains_from_an_lmdb_directory(tmp_path, caplog):

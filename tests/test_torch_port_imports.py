@@ -1,23 +1,29 @@
 """The PyTorch port stands alone: no file of robot3dlotus_tpu_torch/ and not
-chip_smoke.py imports jax, flax, msgpack, lmdb, sklearn, open3d or the JAX
-package (checkpoints and episode records go through the port's own msgpack
-codec, LMDB files through its pure-Python reader, the voxelizer is its own
-C++), and tensorboardX only inside a try that lets it be absent; importing
-the port loads none of them; entry points (the Actioner, build_model, the
-trainer) run on CUDA by default and raise without a card unless the caller
-passes device='cpu'; the native library builds under build/native/, and a
-failed build raises (there is no numpy fallback)."""
+chip_smoke.py imports jax, flax, msgpack, lmdb, sklearn, open3d, requests,
+filelock, flask or the JAX package (checkpoints and episode records go
+through the port's own msgpack codec, LMDB files through its pure-Python
+reader, the voxelizer is its own C++, HTTP through the standard library,
+result files are locked with fcntl), and tensorboardX only inside a try
+that lets it be absent; importing the port loads none of them; the eval
+server's producer side and the loader's worker module import no torch;
+entry points (the Actioner, build_model, the trainer) run on CUDA by
+default and raise without a card unless the caller passes device='cpu'; the native library builds under build/native/, and a
+failed build raises (there is no numpy fallback); chip_smoke.py ends every
+process it started (the loader's forkserver, the resource tracker, orphans)
+before it prints its result."""
 import ast
 import os
 import subprocess
 import sys
+import time
 
 import pytest
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "robot3dlotus_tpu_torch")
-BANNED = ("jax", "flax", "robot3dlotus_tpu", "lmdb", "sklearn", "open3d")
+BANNED = ("jax", "flax", "robot3dlotus_tpu", "lmdb", "sklearn", "open3d",
+          "requests", "filelock", "flask")
 # absent on the card's machine: the port's checkpoints need neither
 NO_CODEC = ("msgpack", "flax")
 OPTIONAL = "tensorboardX"
@@ -85,11 +91,28 @@ def test_import_loads_no_jax():
             "robot3dlotus_tpu_torch.train.train_motion_planner, "
             "robot3dlotus_tpu_torch.train.datasets.store, "
             "robot3dlotus_tpu_torch.ops.eval_preprocess, "
+            "robot3dlotus_tpu_torch.eval.serving, "
+            "robot3dlotus_tpu_torch.preprocess.evaluate_microsteps, "
+            "robot3dlotus_tpu_torch.scripts.summarize_tst_results, "
             "robot3dlotus_tpu_torch.native; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'msgpack', 'robot3dlotus_tpu', 'lmdb', "
-            "'sklearn', 'open3d')]; "
+            "'sklearn', 'open3d', 'requests', 'filelock', 'flask')]; "
             "assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                   timeout=120)
+
+
+def test_producer_side_and_loader_workers_import_no_torch():
+    """What the eval server's producers import (the server, its CLIs and
+    env builders, the summarizers) and the loader's worker module with the
+    datasets and stores."""
+    code = ("import sys, robot3dlotus_tpu_torch.eval.server, "
+            "robot3dlotus_tpu_torch.eval.eval_simple_policy_server, "
+            "robot3dlotus_tpu_torch.eval.eval_robot_pipeline_server, "
+            "robot3dlotus_tpu_torch.scripts.summarize_val_results, "
+            "robot3dlotus_tpu_torch.train.datasets.workers; "
+            "assert 'torch' not in sys.modules")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)
 
@@ -134,3 +157,51 @@ def test_failed_native_build_raises(tmp_path):
     with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
         native.build(src=str(bad), build_dir=str(tmp_path / "out"))
     assert os.listdir(tmp_path / "out") == []    # nothing half-written
+
+
+def test_smoke_stops_every_process_it_started(monkeypatch):
+    """chip_smoke.stop_processes: a forkserver pool's server and the
+    resource tracker are stopped and reaped; an orphan the run left is
+    killed and named; a process started before the run's mark is left
+    alone."""
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+    from multiprocessing import forkserver
+    import chip_smoke
+
+    def alive(pid):
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+        except OSError:
+            return False
+
+    bystander = subprocess.Popen([sys.executable, "-c",
+                                  "import time; time.sleep(60)"])
+    try:
+        monkeypatch.setenv(chip_smoke.RUN_MARK, f"test.{os.getpid()}")
+        with ProcessPoolExecutor(1, mp_context=mp.get_context(
+                "forkserver")) as pool:
+            worker = pool.submit(os.getpid).result()
+        server = forkserver._forkserver._forkserver_pid
+        orphan = int(subprocess.run(
+            [sys.executable, "-c",
+             "import subprocess as s, sys; print(s.Popen([sys.executable, "
+             "'-c', 'import time; time.sleep(60)'], stdout=s.DEVNULL, "
+             "stderr=s.DEVNULL).pid)"],
+            capture_output=True, text=True, check=True, timeout=60).stdout)
+        assert alive(server) and alive(orphan)
+        left = chip_smoke.stop_processes(wait_s=1.0)
+        assert [pid for pid, _ in left] == [orphan]
+        assert "time.sleep(60)" in left[0][1]
+        assert forkserver._forkserver._forkserver_pid is None
+        assert not alive(server) and not alive(worker)
+        for _ in range(100):
+            if not alive(orphan):
+                break
+            time.sleep(0.05)
+        assert not alive(orphan)
+        assert bystander.poll() is None
+    finally:
+        bystander.kill()
+        bystander.wait()

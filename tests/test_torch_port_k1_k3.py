@@ -30,7 +30,7 @@ from robot3dlotus_tpu.ops import pallas_stem as jstem
 from robot3dlotus_tpu.ops.sparse_conv import (build_neighbor_map,
                                               subm_conv_apply)
 from robot3dlotus_tpu_torch.ops import attention, stem
-from robot3dlotus_tpu_torch.ops.serialization import z_order_encode_np
+from robot3dlotus_tpu_torch.ops.sfc_np import z_order_encode_np
 
 ATOL = 1e-4
 # the release policy's B = 1 attention calls (G, H, P, Dh): encoder
