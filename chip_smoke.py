@@ -209,6 +209,35 @@ seeded weights) behind the ground-truth pipeline (robot_pipeline_gt.yaml):
  21a. mp-eval-server  the port's eval_robot_pipeline_server (GT pipeline,
              stateful, 2 producers) on the mp-ckpt model file over a motion
              store of MP_EVAL_TASKVARS, as phase 13a.
+Then the conditioning variants and the other model options (seeded
+weights, release widths):
+ 22. adanorm   SimplePolicyPTV3AdaNorm with pdnorm_adaptive (ADANORM_OPTS):
+             one predict captured, every kernel call against its plain
+             version; phase 4's requests with launches held at
+             ADANORM_PER_FORWARD; card vs CPU logits (1e-3 * max(1,
+             |ref|)); VARIANT_STEPS training steps at B = 32 (launches at
+             PER_STEP; step p50, peak memory); a step check on
+             VARIANT_CHECK_SLICES slices and the redrawn one;
+ 23. concat    SimplePolicyPTV3Concat (CONCAT_OPTS), as 22 with
+             CONCAT_PER_FORWARD / CONCAT_PER_STEP (K3 0: the 263-channel
+             stem is K2 at 125 taps); the stem's K2 at B = 1 timed; then,
+             concat-stem, the stem call of a training step (B = 32): the
+             conv dx against the exact adjoint, K2 forward, mirrored K2 and
+             K7 against their plain versions at 1e-4 of the plain scale,
+             bit-equal across launches, timed by events and the profiler
+             beside their bounds (no im2col: its gather is 17 GB);
+ 24. mp-adanorm  MotionPlannerPTV3AdaNorm with pdnorm_adaptive (its YAML's
+             txt_reduce 'attn'): phase 15's 4 GT-pipeline requests with
+             launches held at MP_PER_FORWARD, card vs CPU logits,
+             VARIANT_STEPS training steps (MP_PER_STEP), a step check on
+             VARIANT_CHECK_SLICES slices and the redrawn one;
+ 25. variants  an Actioner with ENSEMBLES shuffled members and 'ens1'
+             (launches ENSEMBLE_PER_FORWARD a member; each member's logits
+             card vs CPU with the same permutations; the vote bit-equal
+             across decodes and to the CPU's), a CA policy with the pose and
+             step tokens (TOKEN_OPTS) and one with heatmap_mlp, reduce attn
+             and quat rotations (HEAD_OPTS), each a predict with launches
+             held at PER_FORWARD and logits card vs CPU.
 It fails if a kernel's main path (K10's: phase 10) launched it no time.
 Before it prints its result it stops the loader's forkserver and
 multiprocessing's resource tracker, waits for every process the run
@@ -257,7 +286,8 @@ from robot3dlotus_tpu_torch.models.factory import build_model
 from robot3dlotus_tpu_torch.models.layers import Randomness
 from robot3dlotus_tpu_torch.models.motion_planner import (compute_mp_loss,
                                                           decode_mp_actions)
-from robot3dlotus_tpu_torch.models.simple_policy import compute_loss
+from robot3dlotus_tpu_torch.models.simple_policy import (compute_loss,
+                                                         decode_actions)
 from robot3dlotus_tpu_torch import native
 from robot3dlotus_tpu_torch.ops import (attention, conv, cuda_lib, gather,
                                         patching, pooling, sparse_conv, stem)
@@ -376,6 +406,42 @@ MP_PER_STEP = dict(PER_STEP, stem_conv=0, gather_rows_smallc=1,
                    conv_weight_grad=9)
 MP_PER_STEP_REDRAW = dict(PER_STEP_REDRAW, stem_conv=0, gather_rows_smallc=2,
                           conv_weight_grad=9)
+# the conditioning variants at the release widths, seeded weights: the
+# AdaNorm policy (the YAML's pdnorm_adaptive False leaves it unconditioned,
+# so it is set), the Concat policy (the stem reads 7 + 256 = 263 channels:
+# K2 at 125 taps instead of K3), the AdaNorm motion planner (its YAML's
+# txt_reduce 'attn'); VARIANT_STEPS counted training steps each and a step
+# check on VARIANT_CHECK_SLICES slices (and the redrawn one)
+ADANORM_OPTS = ["MODEL.model_class", "SimplePolicyPTV3AdaNorm",
+                "MODEL.ptv3_config.pdnorm_adaptive", "True"]
+CONCAT_OPTS = ["MODEL.model_class", "SimplePolicyPTV3Concat"]
+MP_ADANORM_OPTS = ["MODEL.model_class", "MotionPlannerPTV3AdaNorm",
+                   "MODEL.ptv3_config.pdnorm_adaptive", "True"]
+VARIANT_STEPS = 3
+VARIANT_CHECK_SLICES = 2
+# launches per forward and per training step: the AdaNorm policy's are the
+# CA policy's (its modulations are PyTorch linears); the Concat policy's
+# stem is one more K2 launch (and, in training, one more mirrored K2 and
+# one more K8 owner sum for its input gradient, which reaches txt_fc),
+# never K3; without host structure its 263-channel stage-0 entry sort is
+# K4 (not K9), whose backward is one more K8
+ADANORM_PER_FORWARD = dict(PER_FORWARD)
+CONCAT_PER_FORWARD = dict(PER_FORWARD, subm_conv=10, stem_conv=0)
+CONCAT_PER_STEP = dict(PER_STEP, subm_conv=20, stem_conv=0,
+                       scatter_rows_add=14)
+CONCAT_PER_STEP_REDRAW = dict(PER_STEP_REDRAW, subm_conv=20, stem_conv=0,
+                              gather_rows=9, gather_rows_smallc=0,
+                              scatter_rows_add=19)
+# the variants phase: an ensemble member is an eval forward with its orders
+# shuffled: the stage-0 entry sort (K9) and the 4 child entry sorts (K4)
+ENSEMBLES = 3
+ENSEMBLE_PER_FORWARD = dict(PER_FORWARD, gather_rows=8, gather_rows_smallc=1)
+TOKEN_OPTS = ["MODEL.action_config.use_ee_pose", "True",
+              "MODEL.action_config.use_step_id", "True"]
+HEAD_OPTS = ["MODEL.action_config.pos_pred_type", "heatmap_mlp",
+             "MODEL.action_config.reduce", "attn",
+             "MODEL.action_config.rot_pred_type", "quat",
+             "MODEL.action_config.dim_actions", "8"]
 # checkpoints: the policy trains CKPT_STEPS steps (saves and validations
 # every 2), then a second main resumes to CKPT_RESUME_STEPS; validation on
 # synthetic_reach4 (48 clouds: 2 batches of 32, the last half valid). The
@@ -418,6 +484,11 @@ MP_CHECK_SLICES = 6
 # MAX_KINKS per slice
 KINK_TOL = 1e-5
 MAX_KINKS = 4
+# the same density of ties for the AdaNorm motion planner's step check:
+# its heatmap head's leaky ReLU runs over max_traj_len = 5 times the
+# policy head's elements (B x N x 5 x 128 against B x N x 128); on the
+# H100 a B = 2 slice of its batch follows 6 ties within 1e-5 max|z|
+MP_ADANORM_MAX_KINKS = 5 * MAX_KINKS
 # device kernels of a training step by name, first match wins
 DEVICE_GROUPS = [
     ("K9/K10 small-C gather", ("gather_smallc_kernel",
@@ -819,7 +890,7 @@ def log_conv(tag, label, r):
         f"; {r['ms']:.4f} ms (device {r['device_ms']}; plain "
         f"{r['plain_ms']:.4f}"
         + (f", im2col gather + matmul {r['im2col_matmul_ms']:.4f}"
-           if "im2col_matmul_ms" in r else "")
+           if r.get("im2col_matmul_ms") is not None else "")
         + f"; bound {r['bound_ms']:.4f} TF32, {r['fp32_bound_ms']:.4f} "
         f"fp32 SIMT)")
     log(f"[{tag}] {label} {r['shape']}: live (row, tap) pairs "
@@ -1052,7 +1123,8 @@ def requests(observations):
              "obs_state_dict": o} for i, o in enumerate(observations)]
 
 
-def serving_phase(actioner, observations):
+def serving_phase(actioner, observations, per_forward=PER_FORWARD,
+                  tag="serving"):
     payloads = requests(observations)
     actioner.rng = np.random.default_rng(7)
     actioner.predict(**payloads[0])                      # warm-up
@@ -1072,7 +1144,7 @@ def serving_phase(actioner, observations):
     launches = dict(cuda_lib.LAUNCHES)
 
     forwards = len(payloads) + 1
-    for k, per in PER_FORWARD.items():
+    for k, per in per_forward.items():
         if launches[k] != per * forwards:
             raise AssertionError(f"{k}: {launches[k]} launches in the main "
                                  f"path, expected {per} x {forwards}")
@@ -1085,7 +1157,7 @@ def serving_phase(actioner, observations):
     actioner.rng = np.random.default_rng(1)
     points = [len(actioner._host_prep("close_jar", i, o, None)[1])
               for i, o in enumerate(observations)]
-    log(f"[serving] points per request {points}; predict p50 "
+    log(f"[{tag}] points per request {points}; predict p50 "
         f"{np.median(lat) * 1e3:.2f} ms (all {[round(t * 1e3, 2) for t in lat]}"
         f"); predict_batch of {len(payloads)} {batch_s * 1e3:.2f} ms; "
         f"launches {launches}")
@@ -1105,14 +1177,14 @@ def breakdown_phase(actioner, observations, out_dir,
     rows = []
     for i, o in enumerate(observations):
         t0 = time.perf_counter()
-        emb, pc_ft, _, _ = actioner._host_prep("close_jar", i, o, None)
+        emb, pc_ft, _, _, ee = actioner._host_prep("close_jar", i, o, None)
         t1 = time.perf_counter()
         parts.append(dict(actioner.prep_ms))
-        actioner._forward([(pc_ft, emb)], 1)
+        actioner._forward([(pc_ft, emb, ee, 0)], 1)
         t2 = time.perf_counter()
         prep_ms.append((t1 - t0) * 1e3)
         fwd_ms.append((t2 - t1) * 1e3)
-        rows.append((pc_ft, emb))
+        rows.append((pc_ft, emb, ee, 0))
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1212,7 +1284,7 @@ def fused_phase(actioner, observations, out_dir):
     # fused program's point capacity
     sparse = synthetic_observation(300, cameras=1, height=64, width=64)
     emb = actioner._instruction("close_jar", 0, None)
-    pc_ft, centroid, radius, _ = actioner.process_point_clouds(
+    pc_ft, centroid, radius, ee = actioner.process_point_clouds(
         np.stack(sparse["pc"], 0), np.stack(sparse["rgb"], 0),
         ee_pose=np.asarray(sparse["gripper"]),
         arm_links_info=sparse["arm_links_info"])
@@ -1221,7 +1293,7 @@ def fused_phase(actioner, observations, out_dir):
     buckets = actioner._point_buckets
     actioner._point_buckets = (actioner.num_points,)
     try:
-        host = actioner._forward([(pc_ft, emb)], 1)[0]
+        host = actioner._forward([(pc_ft, emb, ee, 0)], 1)[0]
     finally:
         actioner._point_buckets = buckets
     host[:3] = host[:3] * radius + centroid
@@ -1277,31 +1349,45 @@ def fused_phase(actioner, observations, out_dir):
     return out
 
 
-def reference_phase(actioner, obs, cpu_model=None, tag="reference"):
+def reference_phase(actioner, obs, cpu_model=None, tag="reference",
+                    cli_opts=CLI_OPTS, step_id=0):
     """The card's logits against the same weights run on the CPU (those
-    of `cpu_model`, else the card's copied there)."""
+    of `cpu_model`, else the card's copied into a CPU model of
+    `cli_opts`)."""
     actioner.rng = np.random.default_rng(3)
-    emb, pc_ft, _, _ = actioner._host_prep("close_jar", 0, obs, None)
-    batch = actioner._batch([(pc_ft, emb)], 1)
+    emb, pc_ft, _, _, ee = actioner._host_prep("close_jar", 0, obs, None)
+    batch = actioner._batch([(pc_ft, emb, ee, step_id)], 1)
     if cpu_model is None:
-        cpu_model = Actioner(CONFIG, cli_opts=CLI_OPTS, device="cpu").model
-        cpu_model.load_state_dict({k: v.cpu() for k, v in
-                                   actioner.model.state_dict().items()})
+        cpu_model = cpu_copy(actioner, cli_opts).model
     with torch.inference_mode():
         gpu = actioner.model(batch)
         cpu = cpu_model({k: v.cpu() for k, v in batch.items()})
-    errs = {}
-    for k in ("pos", "rot", "open"):
-        ref = cpu[k]
-        errs[k] = float((gpu[k].cpu() - ref).abs().max())
-        lim = 1e-3 * max(1.0, float(ref.abs().max()))
-        if k == "pos":   # masked candidates hold -1e9 on both sides
-            lim = 1e-3 * max(1.0, float(ref[ref > -1e8].abs().max()))
-        if errs[k] > lim:
-            raise AssertionError(f"{k}: card vs CPU max |diff| {errs[k]} > "
-                                 f"{lim}")
+    errs = logits_close(gpu, cpu, ("pos", "rot", "open"), "")
     errs["pool_overflow"] = int(gpu["pool_overflow"])
     log(f"[{tag}] card vs CPU logits, max |diff|: {errs}")
+    return errs
+
+
+def cpu_copy(actioner, cli_opts=CLI_OPTS, **kw):
+    """An Actioner on the CPU with the card's weights."""
+    cpu = Actioner(CONFIG, cli_opts=cli_opts, device="cpu", **kw)
+    cpu.model.load_state_dict({k: v.cpu() for k, v in
+                               actioner.model.state_dict().items()})
+    return cpu
+
+
+def logits_close(gpu, cpu, keys, what):
+    """max |card - CPU| of each output within 1e-3 * max(1, |ref|), over
+    the entries the model does not mask (masked position candidates hold
+    -1e9 on both sides)."""
+    errs = {}
+    for k in keys:
+        ref = cpu[k]
+        errs[k] = float((gpu[k].cpu() - ref).abs().max())
+        lim = 1e-3 * max(1.0, float(ref[ref > -1e8].abs().max()))
+        if errs[k] > lim:
+            raise AssertionError(f"{what}{k}: card vs CPU max |diff| "
+                                 f"{errs[k]} > {lim}")
     return errs
 
 
@@ -1398,14 +1484,16 @@ def _group_device_ops(ops):
 
 def training_phase(trainer, batches, out_dir, per_step=PER_STEP,
                    profile_file="profile_train.txt", tag="training"):
-    """5 counted steps (launches against per_step), then a profiler window
-    over 2 more."""
+    """Counted steps (launches against per_step; the conditioning variants
+    count all their batches), then, with a profile_file, a profiler window
+    over PROFILE_STEPS more (TRAIN_STEPS counted)."""
+    steps = TRAIN_STEPS if profile_file else len(batches)
     dev = [batch_to_device(b, "cuda") for b in batches]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     cuda_lib.reset_launches()
     step_ms, losses = [], []
-    for i in range(TRAIN_STEPS):
+    for i in range(steps):
         t0 = time.perf_counter()
         out = trainer.step(dev[i])
         torch.cuda.synchronize()
@@ -1414,11 +1502,24 @@ def training_phase(trainer, batches, out_dir, per_step=PER_STEP,
         log(f"[{tag}] step {i + 1}: {losses[-1]}")
     launches = dict(cuda_lib.LAUNCHES)
     for k, per in per_step.items():
-        if launches[k] != per * TRAIN_STEPS:
-            raise AssertionError(f"{k}: {launches[k]} launches in "
-                                 f"{TRAIN_STEPS} training steps, expected "
-                                 f"{per} per step")
+        if launches[k] != per * steps:
+            raise AssertionError(f"[{tag}] {k}: {launches[k]} launches in "
+                                 f"{steps} training steps, expected {per} "
+                                 "per step")
     peak = torch.cuda.max_memory_allocated()
+    p50 = float(np.median(step_ms))
+    out = {"step_ms": step_ms, "step_ms_p50": p50,
+           "clouds_per_s": trainer_batch(batches) * 1e3 / p50,
+           "peak_mem_gib": peak / 2 ** 30, "losses": losses,
+           "launches_per_step": {k: launches[k] / steps for k in launches}}
+    log(f"[{tag}] B={trainer_batch(batches)} x "
+        f"{batches[0]['pc_fts'].shape[1]} points: step p50 {p50:.1f} ms "
+        f"(all {[round(t, 1) for t in step_ms]}), "
+        f"{out['clouds_per_s']:.1f} clouds/s, peak memory "
+        f"{out['peak_mem_gib']:.2f} GiB")
+    log(f"[{tag}] launches per step {out['launches_per_step']}")
+    if not profile_file:
+        return out, launches
 
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -1433,24 +1534,12 @@ def training_phase(trainer, batches, out_dir, per_step=PER_STEP,
     with open(os.path.join(out_dir, profile_file), "w") as f:
         f.write(events.table(sort_by="self_cuda_time_total", row_limit=80))
     busy = sum(o[1] for o in ops)
-    p50 = float(np.median(step_ms))
-    out = {"step_ms": step_ms, "step_ms_p50": p50,
-           "clouds_per_s": trainer_batch(batches) * 1e3 / p50,
-           "peak_mem_gib": peak / 2 ** 30, "losses": losses,
-           "launches_per_step": {k: launches[k] / TRAIN_STEPS
-                                 for k in launches},
-           "profiled_step_wall_ms": wall_ms / PROFILE_STEPS,
-           "device_busy_ms_per_step": busy,
-           "device_idle_share": 1.0 - busy / p50,
-           "device_ms_by_group": _group_device_ops(ops),
-           "top_device_ops": [{"name": o[0][:80], "ms": o[1], "count": o[2]}
-                              for o in ops[:20]]}
-    log(f"[{tag}] B={trainer_batch(batches)} x "
-        f"{batches[0]['pc_fts'].shape[1]} points: step p50 {p50:.1f} ms "
-        f"(all {[round(t, 1) for t in step_ms]}), "
-        f"{out['clouds_per_s']:.1f} clouds/s, peak memory "
-        f"{out['peak_mem_gib']:.2f} GiB")
-    log(f"[{tag}] launches per step {out['launches_per_step']}")
+    out.update({"profiled_step_wall_ms": wall_ms / PROFILE_STEPS,
+                "device_busy_ms_per_step": busy,
+                "device_idle_share": 1.0 - busy / p50,
+                "device_ms_by_group": _group_device_ops(ops),
+                "top_device_ops": [{"name": o[0][:80], "ms": o[1],
+                                    "count": o[2]} for o in ops[:20]]})
     log(f"[{tag}] device busy {busy:.1f} ms per step (profiled wall "
         f"{out['profiled_step_wall_ms']:.1f} ms), idle share of the "
         f"unprofiled step {out['device_idle_share']:.3f}")
@@ -1578,10 +1667,11 @@ def check_attention_train(call, log_sdpa=False):
     return r5, r6
 
 
-def check_weight_grad(call):
+def check_weight_grad(call, im2col=True):
     """K7 on one captured conv or stem call (its x, map and the cotangent
     of its output), timed beside the im2col gather + matmul (two PyTorch
-    calls, for reference)."""
+    calls, for reference; None with im2col False: at the Concat stem's
+    B = 32 x 4096 x 125 taps x 263 channels its gather alone is 17 GB)."""
     (x, idx, ok, w, *_), g = call
     K, cin, cout = w.shape
     run = lambda: conv.conv_weight_grad(x, idx, ok, g)  # noqa: E731
@@ -1592,7 +1682,7 @@ def check_weight_grad(call):
     return dict(_timed_tc(run, plain, None, nbytes,
                           2 * cin * cout * int(ok.sum()), *K7_PROFILE),
                 im2col_matmul_ms=cuda_ms(_im2col_wgrad(x, idx, ok, g),
-                                         **TRAIN_TIMING),
+                                         **TRAIN_TIMING) if im2col else None,
                 max_abs_err=err, shape=shape, shares=link_shares(ok),
                 pairs=ok.numel(),
                 splits=conv.weight_grad_plan(*shape)[0])
@@ -1934,7 +2024,7 @@ def _record_max_decisions(model):
 
     def pool_hook(name):
         def hook(mod, args):
-            feat, maps, child_cap = args
+            feat, maps, child_cap = args[:3]
             with torch.no_grad():
                 v = mod.proj(feat)
                 B, N, C = v.shape
@@ -1964,7 +2054,7 @@ def _record_max_decisions(model):
     return rec, spans, handles
 
 
-def _one_step(cfg, loss_fn, batch, dev, follow=None):
+def _one_step(cfg, loss_fn, batch, dev, follow=None, kink_limit=MAX_KINKS):
     """One dropout-0 step with the injected permutations; the losses, the
     gradients, the updated state, the max decisions, the module spans, the
     seconds and the leaky-ReLU decisions (LeakyReluDecisions: recorded, or
@@ -1978,7 +2068,7 @@ def _one_step(cfg, loss_fn, batch, dev, follow=None):
                       opt, Randomness(0, dev, perms=CHECK_PERMS))
     decisions, spans, handles = _record_max_decisions(model)
     t0 = time.perf_counter()
-    with LeakyReluDecisions(follow) as kinks:
+    with LeakyReluDecisions(follow, limit=kink_limit) as kinks:
         losses = _losses(trainer.step(batch_to_device(batch, dev)))
     seconds = time.perf_counter() - t0
     for h in handles:
@@ -2013,7 +2103,8 @@ def _check_slice(host_batch, i, host_structure):
 
 def step_check_phase(host_batch, config=train_config, loss_fn=compute_loss,
                      tag="step-check", slices=CHECK_SLICES,
-                     per_step=PER_STEP, per_step_redraw=PER_STEP_REDRAW):
+                     per_step=PER_STEP, per_step_redraw=PER_STEP_REDRAW,
+                     kink_limit=MAX_KINKS):
     """One step at dropout 0 on each of the first `slices` B = 2 slices of
     a host-structured batch, with the batch's order_perm
     (TRAIN.host_structure), then on slice 0 without it and with injected
@@ -2038,7 +2129,8 @@ def step_check_phase(host_batch, config=train_config, loss_fn=compute_loss,
     moves that element's gradient 50-fold, which moved
     `act_proj_head.heatmap_mlp_fc1.weight` by up to 1.7e-3. The CPU run
     follows the card's leaky-ReLU decisions where they differ and the
-    element is a tie (|z| <= KINK_TOL max|z|, at most MAX_KINKS elements;
+    element is a tie (|z| <= KINK_TOL max|z|, at most kink_limit elements,
+    MAX_KINKS unless the phase passes its own;
     LeakyReluDecisions raises otherwise), keeping its own forward
     values."""
     cfg = config("MODEL.ptv3_config.attn_drop", "0.0",
@@ -2060,7 +2152,7 @@ def step_check_phase(host_batch, config=train_config, loss_fn=compute_loss,
             raise AssertionError(f"[{tag}] slice {i}, host structure "
                                  f"{structured}: launches {got}")
         lr, gr, sr, dr, _, tr, kr = _one_step(cfg, loss_fn, batch, "cpu",
-                                              kc.decisions)
+                                              kc.decisions, kink_limit)
         differ = {}
         for (name, a), (_, b) in zip(dc, dr):
             if (a != b).any():
@@ -3003,15 +3095,8 @@ def mp_reference_phase(engine, row, cpu_model=None, tag="mp-serving"):
         gpu = engine.model(batch)
         cpu = cpu_model({k: v.cpu() for k, v in batch.items()})
         traj = decode_mp_actions(gpu, engine.act_cfg).cpu()
-    errs = {}
-    for k in ("pos", "rot", "open", "stop"):
-        ref = cpu[k]
-        errs[k] = float((gpu[k].cpu() - ref).abs().max())
-        live = ref[ref > -1e8]     # masked candidates hold -1e9 on both
-        lim = 1e-3 * max(1.0, float(live.abs().max()))
-        if errs[k] > lim:
-            raise AssertionError(f"motion planner {k}: card vs CPU max "
-                                 f"|diff| {errs[k]} > {lim}")
+    errs = logits_close(gpu, cpu, ("pos", "rot", "open", "stop"),
+                        "motion planner ")
     if traj.shape != (1, 5, 9) or not bool(torch.isfinite(traj).all()):
         raise AssertionError(f"decoded trajectory {traj}")
     errs["pool_overflow"] = int(gpu["pool_overflow"])
@@ -3223,6 +3308,213 @@ def mp_training(out_dir):
     return training, launches, captured, host[0]
 
 
+# -------------------------------------------------- conditioning variants --
+
+def captured_checks(captured, per_forward, tag):
+    """Every kernel call one captured forward made, against its plain
+    version (the per-forward counts of calls included)."""
+    out = {}
+    for kernel, per in per_forward.items():
+        calls = captured.get(kernel, [])
+        if len(calls) != per:
+            raise AssertionError(f"[{tag}] {kernel}: captured {len(calls)} "
+                                 f"calls, expected {per}")
+        res = [check_call(kernel, c, timed=False) for c in calls]
+        out[kernel] = max((r["max_rel_err"] for r in res), default=0.0)
+    log(f"[{tag}] every kernel call of one captured forward against its "
+        f"plain version, worst relative error by kernel: {out}")
+    return out
+
+
+def policy_variant_phase(tag, opts, per_forward, per_step, per_step_redraw,
+                         observations, stem_calls=False):
+    """One conditioning variant of the policy at the release width:
+    Actioner serving (a captured forward's kernel calls against their
+    plain versions; 4 requests and a predict_batch, launches held at
+    per_forward; card vs CPU logits), VARIANT_STEPS training steps at
+    B = 32 (launches held at per_step), a step check on
+    VARIANT_CHECK_SLICES slices. With stem_calls, the training step's stem
+    conv call (the Concat stem, 125 taps) is captured and its K2 forward,
+    mirrored dx and K7 held and timed (concat_stem_phase)."""
+    t0 = time.perf_counter()
+    cli = CLI_OPTS + opts
+    actioner = Actioner(CONFIG, cli_opts=cli, device="cuda", seed=0)
+    log(f"[{tag}] release-width Actioner ({opts}) built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    actioner.rng = np.random.default_rng(0)
+    captured = capture_main_path(
+        lambda: actioner.predict(**requests(observations)[0]))
+    out = {"kernel_rel_err": captured_checks(captured, per_forward, tag)}
+    stem = [c for c in captured["subm_conv"] if c[3].shape[0] == 125]
+    if stem:
+        out["stem_forward_b1"] = check_conv(stem[0])
+        log_conv(tag, "the stem's K2 at B = 1", out["stem_forward_b1"])
+    del captured
+    out["serving"] = serving_phase(actioner, observations, per_forward, tag)
+    out["reference_max_diff"] = reference_phase(actioner, observations[0],
+                                                tag=tag, cli_opts=cli)
+    del actioner
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    config = lambda *o: train_config(*opts, *o)  # noqa: E731
+    trainer, batches, _ = build_trainer(config(), SPEC, device="cuda")
+    host, _ = host_batches(batches, 1 + VARIANT_STEPS)
+    log(f"[{tag}] trainer built and {len(host)} host batches made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    step_calls = None
+    if stem_calls:
+        step_calls = [c for c in capture(
+            lambda: trainer.step(batch_to_device(host[0], "cuda")),
+            [(sparse_conv, "subm_conv", "subm_conv")])["subm_conv"]
+            if c[0][3].shape[0] == 125]
+    out["training"], out["training_launches"] = training_phase(
+        trainer, host[1:], None, per_step, None, tag)
+    del trainer, batches
+    torch.cuda.empty_cache()
+    out["step_check"] = step_check_phase(
+        host[0], config, compute_loss, f"{tag}-step-check",
+        VARIANT_CHECK_SLICES, per_step, per_step_redraw)
+    return out, step_calls
+
+
+def concat_stem_phase(call):
+    """The Concat stem's call of a training step (B = 32 x 4096, 125 taps,
+    263 input channels, its output cotangent): the conv's dx (K8 onto the
+    voxel owners, then K2 with the mirrored weight, 263 outputs) against
+    the exact adjoint, K2's forward and mirrored launches and K7 against
+    their plain versions within 1e-4 of the plain scale, bit-equal across
+    two launches, timed by CUDA events and on the profiler beside their
+    bounds (the live links only)."""
+    dx, k8, (fwd, mirrored), _ = check_conv_dx(call)
+    k7 = check_weight_grad(call, im2col=False)
+    for label, r in (("K2 forward", fwd), ("K2 mirrored (dx)", mirrored),
+                     ("K7", k7)):
+        log_conv("concat-stem", label, r)
+    log(f"[concat-stem] conv dx vs the exact adjoint: max err "
+        f"{dx['max_abs_err']:.3g}; K8 owner sums {k8['ms']:.4f} ms")
+    return {"dx": dx, "k8_owner_sum": k8, "k2_forward": fwd,
+            "k2_mirrored_dx": mirrored, "k7": k7}
+
+
+def mp_adanorm_phase(mp_obs, out_dir):
+    """The AdaNorm motion planner (txt_reduce 'attn') behind the GT
+    pipeline: phase 15 (4 counted requests, launches held at
+    MP_PER_FORWARD; profile_mp_adanorm_forward.txt), card vs CPU
+    trajectory logits, VARIANT_STEPS training steps at B = 32
+    (MP_PER_STEP) and a step check on VARIANT_CHECK_SLICES slices
+    (following at most MP_ADANORM_MAX_KINKS leaky-ReLU ties a slice)."""
+    tag = "mp-adanorm"
+    t0 = time.perf_counter()
+    engine = MotionPlannerEngine(MP_CONFIG, cli_opts=MP_ADANORM_OPTS,
+                                 device="cuda", seed=0)
+    log(f"[{tag}] release-width AdaNorm motion planner built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    out, row = mp_serving_phase(mp_pipeline(engine), mp_obs, out_dir,
+                                "profile_mp_adanorm_forward.txt", tag)
+    out["reference_max_diff"] = mp_reference_phase(engine, row, tag=tag)
+    del engine
+    torch.cuda.empty_cache()
+    config = lambda *o: mp_config(*MP_ADANORM_OPTS, *o)  # noqa: E731
+    trainer, batches, _ = build_trainer(config(), train_motion_planner.SPEC,
+                                        device="cuda")
+    host, _ = host_batches(batches, 1 + VARIANT_STEPS)
+    out["training"], out["training_launches"] = training_phase(
+        trainer, host[1:], None, MP_PER_STEP, None, tag)
+    del trainer, batches
+    torch.cuda.empty_cache()
+    out["step_check"] = step_check_phase(
+        host[0], config, compute_mp_loss, f"{tag}-step-check",
+        VARIANT_CHECK_SLICES, MP_PER_STEP, MP_PER_STEP_REDRAW,
+        MP_ADANORM_MAX_KINKS)
+    return out
+
+
+def variants_phase(observations):
+    """One card forward of each other option against the CPU: an Actioner
+    with ENSEMBLES shuffled members and the 'ens1' decode (the members'
+    launches held at ENSEMBLE_PER_FORWARD; each member's logits card vs
+    CPU with the same order permutations; the ens1 vote of the CPU's
+    logits on the card bit-equal across two decodes and to the CPU's
+    position), a CA policy
+    with the pose and step tokens (TOKEN_OPTS) and one with heatmap_mlp,
+    reduce attn and quat rotations (HEAD_OPTS): launches per forward held
+    at PER_FORWARD, logits card vs CPU."""
+    out = {}
+    kw = dict(num_ensembles=ENSEMBLES, best_disc_pos="ens1")
+    a = Actioner(CONFIG, cli_opts=CLI_OPTS, device="cuda", seed=0, **kw)
+    cpu = cpu_copy(a, **kw)
+    req = requests(observations)[0]
+    a.rng = np.random.default_rng(3)
+    a.predict(**req)                                        # warm-up
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    a.rng = np.random.default_rng(3)
+    t0 = time.perf_counter()
+    action = a.predict(**req)["action"]
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(cuda_lib.LAUNCHES)
+    for k, per in ENSEMBLE_PER_FORWARD.items():
+        if launches[k] != per * ENSEMBLES:
+            raise AssertionError(f"[variants] ensemble {k}: {launches[k]} "
+                                 f"launches, expected {per} x {ENSEMBLES}")
+    if action.shape != (8,) or not np.isfinite(action).all():
+        raise AssertionError(f"[variants] ensemble action {action}")
+    a.rng = np.random.default_rng(3)
+    emb, pc_ft, _, _, ee = a._host_prep("close_jar", 0, observations[0],
+                                        None)
+    batch = a._batch([(pc_ft, emb, ee, 0)], 1, N=a.num_points)
+    errs = []
+    # the same members' seeds on both devices (order permutations come
+    # from the members' host generators)
+    a.ensemble_rng = np.random.default_rng(5)
+    cpu.ensemble_rng = np.random.default_rng(5)
+    with torch.inference_mode():
+        for i, (rg, rc) in enumerate(zip(a._ensemble_rngs(),
+                                         cpu._ensemble_rngs())):
+            gpu = a.model(batch, rg)
+            ref = cpu.model({k: v.cpu() for k, v in batch.items()}, rc)
+            errs.append(logits_close(gpu, ref, ("pos", "rot", "open"),
+                                     f"ensemble member {i} "))
+            on_card = {k: v.cuda() for k, v in ref.items()
+                       if torch.is_tensor(v)}
+            vote = decode_actions(on_card, a.act_cfg)
+            if not torch.equal(vote, decode_actions(on_card, a.act_cfg)):
+                raise AssertionError(f"[variants] ensemble member {i}: two "
+                                     "decodes of the same logits differ")
+            # the vote's position (the quaternion's sines and cosines
+            # round differently on the two devices)
+            want = decode_actions(ref, cpu.act_cfg)[:, :3]
+            if not torch.equal(vote[:, :3].cpu(), want):
+                raise AssertionError(f"[variants] ensemble member {i}: the "
+                                     f"ens1 vote {vote[:, :3].tolist()} on "
+                                     f"the card, {want.tolist()} on the CPU")
+    out["ensemble"] = {"predict_ms": ms, "launches": launches,
+                       "member_logit_diffs": errs,
+                       "action": action.tolist()}
+    log(f"[variants] {ENSEMBLES} shuffled members, ens1: predict "
+        f"{ms:.2f} ms, launches {launches}; card vs CPU logits per member "
+        f"{errs}; the vote bit-equal across launches and devices")
+    del a, cpu
+    for name, opts in (("tokens", TOKEN_OPTS), ("head", HEAD_OPTS)):
+        cli = CLI_OPTS + opts
+        a = Actioner(CONFIG, cli_opts=cli, device="cuda", seed=0)
+        a.rng = np.random.default_rng(3)
+        cuda_lib.reset_launches()
+        action = a.predict(**dict(req, step_id=3))["action"]
+        launches = dict(cuda_lib.LAUNCHES)
+        if {k: launches[k] for k in PER_FORWARD} != PER_FORWARD or \
+                not np.isfinite(action).all():
+            raise AssertionError(f"[variants] {name}: launches {launches}, "
+                                 f"action {action}")
+        out[name] = {"launches": launches, "reference_max_diff":
+                     reference_phase(a, observations[0], tag=f"variants "
+                                     f"{name}", cli_opts=cli, step_id=3)}
+        del a
+    torch.cuda.empty_cache()
+    return out
+
+
 def _marked_processes():
     """(pid, command line) of every live process but this one whose
     environment holds this run's RUN_MARK: every process the run started,
@@ -3428,6 +3720,19 @@ def run():
             run, MP_CKPT_STEPS)})
     shutil.rmtree(os.path.join(ROOT, "build", "smoke_data"),
                   ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    adanorm, _ = policy_variant_phase(
+        "adanorm", ADANORM_OPTS, ADANORM_PER_FORWARD, PER_STEP,
+        PER_STEP_REDRAW, observations)
+    concat, stem_calls = policy_variant_phase(
+        "concat", CONCAT_OPTS, CONCAT_PER_FORWARD, CONCAT_PER_STEP,
+        CONCAT_PER_STEP_REDRAW, observations, stem_calls=True)
+    concat["stem"] = concat_stem_phase(stem_calls[0])
+    del stem_calls
+    torch.cuda.empty_cache()
+    mp_adanorm = mp_adanorm_phase(mp_obs, out_dir)
+    variants = variants_phase(observations)
 
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"device": smi, "kernels": rows, "calls": detail,
@@ -3441,7 +3746,9 @@ def run():
                    "mp_calls": mp_detail, "mp_step_check": mp_step_check,
                    "mp_entry": mp_entry, "stem_vjp": stem_vjp,
                    "mp_stem_vjp": mp_stem_vjp, "ckpt": ckpt,
-                   "mp_ckpt": mp_ckpt},
+                   "mp_ckpt": mp_ckpt, "adanorm": adanorm,
+                   "concat": concat, "mp_adanorm": mp_adanorm,
+                   "variants": variants},
                   f, indent=1)
     # each kernel's launches in the run of its own slice's main path: K1-K4
     # policy serving, K5-K8 policy training, K9 motion-planner serving, K10
@@ -3455,6 +3762,12 @@ def run():
         k: v for k, v in mp_ckpt["k1_b32"].items() if k != "calls"}
     rows["subm_conv"]["mp_train_step"] = mp_k2
     rows["conv_weight_grad"]["mp_train_step"] = mp_k7
+    stem = concat["stem"]
+    rows["subm_conv"]["concat_stem"] = {
+        "forward_b1": concat["stem_forward_b1"],
+        "forward_b32": stem["k2_forward"],
+        "mirrored_dx_b32": stem["k2_mirrored_dx"]}
+    rows["conv_weight_grad"]["concat_stem_b32"] = stem["k7"]
     k10 = stem_vjp["k10"]
     rows["scatter_rows_smallc_add"] = dict(
         _row([k10]), device_ms=k10["device_ms"], shape=k10["shape"],
@@ -3464,7 +3777,14 @@ def run():
              "mp_training": mp_train_launches, "stem_vjp": stem_launches,
              "mp_stem_vjp": mp_stem_launches,
              "validation": ckpt["validation_launches"],
-             "mp_validation": mp_ckpt["validation_launches"]}
+             "mp_validation": mp_ckpt["validation_launches"],
+             "adanorm_serving": adanorm["serving"]["launches"],
+             "adanorm_training": adanorm["training_launches"],
+             "concat_serving": concat["serving"]["launches"],
+             "concat_training": concat["training_launches"],
+             "mp_adanorm_serving": mp_adanorm["launches"],
+             "mp_adanorm_training": mp_adanorm["training_launches"],
+             "ensemble_serving": variants["ensemble"]["launches"]}
     main_path = dict.fromkeys(PER_FORWARD, "serving")
     main_path.update(dict.fromkeys(TRAIN_KERNELS, "training"))
     main_path.update(gather_rows_smallc="mp_serving",

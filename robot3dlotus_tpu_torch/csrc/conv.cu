@@ -1,4 +1,5 @@
-// K2: submanifold sparse conv as a gather-GEMM (the k=3 CPE conv)
+// K2: submanifold sparse conv as a gather-GEMM (the k=3 CPE conv, and the
+// k=5 stem of the Concat variant, 125 taps and 263 channels wide)
 //   out[b, n, :] = sum_k ok[b, n, k] * W[k]^T x[b, idx[b, n, k], :] + bias
 // x: (B, N, Cin) fp32; idx: (B, N, K) int32; ok: (B, N, K) bool;
 // W: (K, Cin, Cout) fp32 in stencil_offsets order; bias: (Cout,) or NULL.
@@ -47,6 +48,11 @@
 //      tile to scratch and subm_conv_reduce_kernel adds the ranges in a
 //      fixed order with the bias. No float atomics anywhere: the result is
 //      bit-equal from run to run.
+// The kernel is instantiated for up to 27 taps (the CPE conv: 109 KB of
+// shared memory, two blocks an SM) and up to 125 (the k=5 stem: the map
+// rows and the per-tap lists of 125 taps take 198 KB, one block an SM).
+// Channel counts that are not multiples of 4 (the stem's 263) are padded
+// with zero channels by the wrapper (ops/conv.py).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -61,13 +67,14 @@ constexpr int kTM = 128;       // output rows per block
 constexpr int kStages = 2;     // pipeline stages in flight
 constexpr int kKC = 32;        // input channels per stage
 constexpr int kTN = 64;        // output channels per block
-constexpr int kMaxK = 27;      // taps (k = 3)
+constexpr int kMaxTaps[] = {27, 125};   // k = 3; k = 5
 constexpr int kThreads = 256;  // 8 warps: 2 row-group parities x 4 x 16 ch
 constexpr int kGroups = kTM / 32;   // 16-row groups per warp, at most
 constexpr int kXS = kKC + 8;   // x rows: 8-byte A loads on 32 banks
 constexpr int kWS = kTN + 4;   // W rows: B loads (rows 2t, 2t + 1) on 32
 constexpr int kAS = kTN + 4;   // accumulator rows
 
+template <int kMaxK>
 struct Smem {
   float acc[kTM * kAS];
   union {
@@ -88,6 +95,7 @@ struct Smem {
   int ntaps;
 };
 
+template <int kMaxK>
 __global__ void __launch_bounds__(kThreads, 2)
 subm_conv_kernel(const float* __restrict__ x, const int* __restrict__ idx,
                  const unsigned char* __restrict__ ok,
@@ -95,7 +103,7 @@ subm_conv_kernel(const float* __restrict__ x, const int* __restrict__ idx,
                  float* __restrict__ out, float* __restrict__ work, int N,
                  int K, int Cin, int Cout, int splits) {
   extern __shared__ float4 smem4[];
-  Smem& sm = *reinterpret_cast<Smem*>(smem4);
+  Smem<kMaxK>& sm = *reinterpret_cast<Smem<kMaxK>*>(smem4);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gid = lane >> 2, tig = lane & 3;
   const int wr = warp & 1, wc = 16 * (warp >> 1);
@@ -291,11 +299,27 @@ __global__ void subm_conv_reduce_kernel(const float4* __restrict__ work,
   }
 }
 
+template <int kMaxK>
+cudaError_t launch_conv(const float* x, const int* idx,
+                        const unsigned char* ok, const float* w,
+                        const float* bias, float* out, float* work, int B,
+                        int N, int K, int Cin, int Cout, int splits,
+                        cudaStream_t stream) {
+  static const cudaError_t attr =
+      r3dl::allow_smem(subm_conv_kernel<kMaxK>, sizeof(Smem<kMaxK>));
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid((N + kTM - 1) / kTM, (Cout + kTN - 1) / kTN, B * splits);
+  subm_conv_kernel<kMaxK><<<grid, kThreads, sizeof(Smem<kMaxK>), stream>>>(
+      x, idx, ok, w, bias, out, work, N, K, Cin, Cout, splits);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // work: (splits, B, N, Cout) fp32 scratch of work_bytes bytes, unused (may
 // be NULL) when splits == 1; tap range s is [s K / splits, (s + 1) K /
-// splits). Cin and Cout multiples of 4; x, w and out 16-byte aligned.
+// splits). K <= 125; Cin and Cout multiples of 4; x, w and out 16-byte
+// aligned.
 extern "C" int r3dl_subm_conv(const float* x, const int* idx,
                               const unsigned char* ok, const float* w,
                               const float* bias, float* out, float* work,
@@ -304,21 +328,20 @@ extern "C" int r3dl_subm_conv(const float* x, const int* idx,
                               cudaStream_t stream) {
   const long long n = (long long)B * N * Cout;
   if (n == 0) return (int)cudaGetLastError();
-  if (K < 1 || K > kMaxK || Cin % 4 || Cout % 4 || splits < 1 ||
+  if (K < 1 || K > kMaxTaps[1] || Cin % 4 || Cout % 4 || splits < 1 ||
       splits > K || (long long)B * splits > 65535 ||
       (((uintptr_t)x | (uintptr_t)w | (uintptr_t)out) & 15) ||
       (splits > 1 && (!work || work_bytes < 4 * splits * n ||
                       ((uintptr_t)work & 15))))
     return (int)cudaErrorInvalidValue;
-  static const cudaError_t attr =
-      r3dl::allow_smem(subm_conv_kernel, sizeof(Smem));
-  if (attr != cudaSuccess) return (int)attr;
-  const dim3 grid((N + kTM - 1) / kTM, (Cout + kTN - 1) / kTN, B * splits);
-  subm_conv_kernel<<<grid, kThreads, sizeof(Smem), stream>>>(
-      x, idx, ok, w, bias, out, work, N, K, Cin, Cout, splits);
+  const cudaError_t err =
+      K <= kMaxTaps[0]
+          ? launch_conv<kMaxTaps[0]>(x, idx, ok, w, bias, out, work, B, N, K,
+                                     Cin, Cout, splits, stream)
+          : launch_conv<kMaxTaps[1]>(x, idx, ok, w, bias, out, work, B, N, K,
+                                     Cin, Cout, splits, stream);
+  if (err != cudaSuccess) return (int)err;
   if (splits > 1) {
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
     const long long n4 = n / 4, blocks = (n4 + 255) / 256;
     subm_conv_reduce_kernel<<<(unsigned)(blocks < 4096 ? blocks : 4096), 256,
                               0, stream>>>(

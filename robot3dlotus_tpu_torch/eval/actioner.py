@@ -7,14 +7,21 @@ Host path (the default): multi-camera obs -> workspace crop fused with the
 (host numpy) -> SimplePolicy forward + decode on the device -> un-normalize
 and table clamp on the host. Clouds are padded to point-capacity buckets
 (num_points/4, /2, /1) and batches to batch buckets, as in the JAX
-package; the backbone runs with assume_sorted.
+package; the backbone runs with assume_sorted. The gripper pose
+(normalised like the cloud) and the step id go with every cloud, for the
+models that read them (use_ee_pose / use_step_id). num_ensembles > 1 runs
+that many forwards of the cloud at num_points with the serialization
+orders shuffled (each from a Randomness of its own) and averages them:
+position and open logit by their mean, the rotation by the mean of its
+euler angles (scipy), as the JAX Actioner does.
 
 Fused path (device_preprocess=True, or ROBOT3DLOTUS_DEVICE_PREPROCESS=1):
 the raw cloud goes to the device and ops/eval_preprocess.py
 make_obs_to_action runs the whole chain there at num_points, with a
 fixed-capacity voxelizer (vox_capacity, or ROBOT3DLOTUS_VOX_CAPACITY,
 default 8192; a non-zero overflow is logged); one packed vector comes
-back. predict_batch then runs fused predicts one after another.
+back. predict_batch then runs fused predicts one after another. Ensembles
+take the host path.
 
 Weights come from `checkpoint` (a .msgpack of either package, or an
 upstream-layout torch .pt converted by train.torch_convert), loaded with
@@ -39,6 +46,7 @@ import torch
 from ..configs import get_config
 from ..configs.rlbench.constants import get_robot_workspace
 from ..models.factory import build_model, resolve_device
+from ..models.layers import Randomness
 from ..models.simple_policy import decode_actions
 from ..native import crop_voxelize_trace_native
 from ..ops.eval_preprocess import (make_obs_to_action, obb_params_disabled,
@@ -71,19 +79,17 @@ class Actioner:
         or None for the seeded init of `seed`, which also seeds the
         >num_points subsample (host path: self.rng; fused path: a
         torch.Generator on the device). A file that does not fit the model
-        raises. best_disc_pos / num_ensembles: the JAX Actioner's
-        keywords; 'max' and 1 are ported. save_obs_outs_dir: each answered
+        raises. best_disc_pos: 'max' or 'ens1' (the decode's 5 mm vote);
+        num_ensembles: the shuffled forwards averaged per request, their
+        orders drawn from `seed`. save_obs_outs_dir: each answered
         request's {"obs", "action"} saved there as
         {taskvar}-{episode_id}-{step_id}.npy. device_preprocess /
         vox_capacity: the fused path and its voxel capacity (None:
         ROBOT3DLOTUS_DEVICE_PREPROCESS, default off, and
         ROBOT3DLOTUS_VOX_CAPACITY, default 8192)."""
-        if best_disc_pos != "max" or int(num_ensembles) != 1:
-            raise NotImplementedError(
-                f"best_disc_pos={best_disc_pos!r}, num_ensembles="
-                f"{num_ensembles}: only 'max' and 1 are ported ('ens1' and "
-                "shuffled ensembles are ROADMAP.md section 1 item 2)")
         self.device = resolve_device(device)
+        self.num_ensembles = int(num_ensembles)
+        self.ensemble_rng = np.random.default_rng([seed, 1])
         self.config = get_config(exp_config, cli_opts)
         self.data_cfg = dict(self.config.TRAIN_DATASET)
         self.act_cfg = dict(self.config.MODEL.action_config)
@@ -99,7 +105,8 @@ class Actioner:
         if device_preprocess is None:
             device_preprocess = bool(int(os.environ.get(
                 "ROBOT3DLOTUS_DEVICE_PREPROCESS", "0")))
-        self.device_preprocess = bool(device_preprocess)
+        self.device_preprocess = bool(device_preprocess) and \
+            self.num_ensembles == 1
         self.vox_capacity = int(vox_capacity if vox_capacity is not None
                                 else os.environ.get(
                                     "ROBOT3DLOTUS_VOX_CAPACITY", "8192"))
@@ -231,11 +238,11 @@ class Actioner:
 
     def _host_prep(self, task_str, variation, obs, instructions):
         instr_embed = self._instruction(task_str, variation, instructions)
-        pc_ft, centroid, radius, _ = self.process_point_clouds(
+        pc_ft, centroid, radius, ee_pose = self.process_point_clouds(
             np.stack(obs["pc"], 0), np.stack(obs["rgb"], 0),
             ee_pose=copy.deepcopy(np.asarray(obs["gripper"])),
             arm_links_info=obs.get("arm_links_info"))
-        return instr_embed, pc_ft, centroid, radius
+        return instr_embed, pc_ft, centroid, radius, ee_pose
 
     def _zero_action(self):
         action = np.zeros(8, np.float32)
@@ -249,10 +256,11 @@ class Actioner:
         action[2] = max(action[2], self.TABLE_HEIGHT + 0.005)
         return action
 
-    def _batch(self, rows, B):
-        """(B, ...) device batch from [(pc_ft, instr_embed)] rows at the
-        rows' point and text buckets; padding rows repeat row 0."""
-        N = _bucket(max(len(r[0]) for r in rows), self._point_buckets)
+    def _batch(self, rows, B, N=None):
+        """(B, ...) device batch from [(pc_ft, instr_embed, ee_pose,
+        step_id)] rows at the rows' point bucket (or N) and text bucket;
+        padding rows repeat row 0."""
+        N = N or _bucket(max(len(r[0]) for r in rows), self._point_buckets)
         T = _bucket(max(r[1].shape[0] for r in rows), TXT_BUCKETS)
         cin = rows[0][0].shape[-1]
         pc = np.zeros((B, N, cin), np.float32)
@@ -260,20 +268,46 @@ class Actioner:
         counts = np.zeros(B, np.int64)
         txt = np.zeros((B, T, rows[0][1].shape[-1]), np.float32)
         tmask = np.zeros((B, T), bool)
+        ee = np.zeros((B, 8), np.float32)
+        steps = np.zeros(B, np.int64)
         for r in range(B):
-            pc_ft, instr_embed = rows[r] if r < len(rows) else rows[0]
+            pc_ft, instr_embed, ee[r], steps[r] = rows[r] if r < len(rows) \
+                else rows[0]
             n = min(len(pc_ft), N)
             pc[r, :n], mask[r, :n], counts[r] = pc_ft[:n], True, n
             t = min(instr_embed.shape[0], T)
             txt[r, :t], tmask[r, :t] = instr_embed[:t], True
         to = lambda a: torch.from_numpy(a).to(self.device)  # noqa: E731
         return {"pc_fts": to(pc), "pc_mask": to(mask), "pc_counts": to(counts),
-                "txt_embeds": to(txt), "txt_mask": to(tmask)}
+                "txt_embeds": to(txt), "txt_mask": to(tmask),
+                "ee_poses": to(ee), "step_ids": to(steps)}
 
     @torch.inference_mode()
     def _forward(self, rows, B):
         preds = self.model(self._batch(rows, B))
         return decode_actions(preds, self.act_cfg).cpu().numpy()
+
+    def _ensemble_rngs(self):
+        """One Randomness per ensemble member: its order shuffles."""
+        base = int(self.ensemble_rng.integers(0, 2 ** 31 - self.num_ensembles))
+        return [Randomness(base + i, self.device)
+                for i in range(self.num_ensembles)]
+
+    @torch.inference_mode()
+    def _ensemble_forward(self, row):
+        """num_ensembles shuffled forwards of one row at num_points: the
+        mean position and open logit, the rotation averaged in euler
+        space."""
+        from scipy.spatial.transform import Rotation as R
+        batch = self._batch([row], 1, N=self.num_points)
+        actions = np.stack([
+            decode_actions(self.model(batch, rng), self.act_cfg)[0]
+            .cpu().numpy() for rng in self._ensemble_rngs()])
+        avg = actions.mean(0)
+        eulers = np.stack([R.from_quat(a[3:7]).as_euler("xyz")
+                           for a in actions], 0)
+        quat = R.from_euler("xyz", eulers.mean(0)).as_quat()
+        return np.concatenate([avg[:3], quat, avg[-1:]], 0)
 
     # -------------------------------------------- the fused path --
 
@@ -368,12 +402,14 @@ class Actioner:
             self._save_obs_out(task_str, variation, episode_id, step_id,
                                obs_state_dict, action)
             return {"action": action}
-        instr_embed, pc_ft, centroid, radius = self._host_prep(
+        instr_embed, pc_ft, centroid, radius, ee_pose = self._host_prep(
             task_str, variation, obs_state_dict, instructions)
         if pc_ft is None or len(pc_ft) <= 10:
             return {"action": self._zero_action()}
-        action = self._finish_action(
-            self._forward([(pc_ft, instr_embed)], 1)[0], centroid, radius)
+        row = (pc_ft, instr_embed, ee_pose, step_id or 0)
+        action = self._ensemble_forward(row) if self.num_ensembles > 1 \
+            else self._forward([row], 1)[0]
+        action = self._finish_action(action, centroid, radius)
         self._save_obs_out(task_str, variation, episode_id, step_id,
                            obs_state_dict, action)
         return {"action": action}
@@ -382,25 +418,27 @@ class Actioner:
         """Serve several queued `predict` queries in batched forwards:
         batch sizes bucketed, padding rows discarded, batches over the top
         bucket split in chunks. Per-row prep and decode are predict's. The
-        fused path serves the queries one after another."""
-        if self.device_preprocess or len(payloads) == 1:
+        fused path and ensembles serve the queries one after another."""
+        if self.device_preprocess or self.num_ensembles > 1 or \
+                len(payloads) == 1:
             return [self.predict(**p) for p in payloads]
         outs = [None] * len(payloads)
         prepped = []
         for i, p in enumerate(payloads):
-            instr_embed, pc_ft, centroid, radius = self._host_prep(
+            instr_embed, pc_ft, centroid, radius, ee_pose = self._host_prep(
                 p.get("task_str"), p.get("variation"), p["obs_state_dict"],
                 p.get("instructions"))
             if pc_ft is None or len(pc_ft) <= 10:
                 outs[i] = {"action": self._zero_action()}
             else:
-                prepped.append((i, pc_ft, instr_embed, centroid, radius))
+                prepped.append((i, (pc_ft, instr_embed, ee_pose,
+                                    p.get("step_id") or 0), centroid, radius))
         cap = self._BATCH_BUCKETS[-1]
         for c0 in range(0, len(prepped), cap):
             chunk = prepped[c0:c0 + cap]
-            actions = self._forward([(pc, emb) for _, pc, emb, _, _ in chunk],
+            actions = self._forward([row for _, row, _, _ in chunk],
                                     _bucket(len(chunk), self._BATCH_BUCKETS))
-            for r, (i, _, _, centroid, radius) in enumerate(chunk):
+            for r, (i, _, centroid, radius) in enumerate(chunk):
                 action = self._finish_action(actions[r].copy(), centroid,
                                              radius)
                 outs[i] = {"action": action}

@@ -66,9 +66,10 @@ class ActionTextEmbedder:
 
 
 class MotionPlannerEngine:
-    """The motion planner of a train config, served one cloud at a time on
-    `device`: pad to num_points, forward, decode, then un-normalise on the
-    host. Weights come from `checkpoint` (a .msgpack of either package or
+    """The motion planner of a train config (either class, CA or AdaNorm,
+    through the factory), served one cloud at a time on `device`: pad to
+    num_points, forward, decode, then un-normalise on the host. Weights
+    come from `checkpoint` (a .msgpack of either package or
     an upstream-layout .pt, as the Actioner loads them), or are a seeded
     init without one."""
 
@@ -85,9 +86,10 @@ class MotionPlannerEngine:
             self.model.load_state_dict(load_any_model_ckpt(
                 checkpoint, self.model, self.config.MODEL), strict=True)
 
-    def _batch(self, pc_ft, pc_label, txt_embed):
+    def _batch(self, pc_ft, pc_label, txt_embed, ee_pose=None):
         """Host arrays -> a B = 1 device batch, padded to num_points points
-        and a text bucket; one transfer per array."""
+        and a text bucket, with the gripper pose (zeros without one) for
+        the pose token; one transfer per array."""
         N = self.num_points
         n = min(len(pc_ft), N)
         pc = np.zeros((1, N, pc_ft.shape[-1]), np.float32)
@@ -102,10 +104,14 @@ class MotionPlannerEngine:
         txt[0, :t] = txt_embed[:t]
         txt_mask = np.zeros((1, T), bool)
         txt_mask[0, :t] = True
+        ee = np.zeros((1, 8), np.float32)
+        if ee_pose is not None:
+            ee[0] = ee_pose
         to = lambda a: torch.from_numpy(a).to(self.device)  # noqa: E731
         return {"pc_fts": to(pc), "pc_labels": to(labels),
                 "pc_mask": to(mask), "pc_counts": to(np.array([n])),
-                "txt_embeds": to(txt), "txt_mask": to(txt_mask)}
+                "txt_embeds": to(txt), "txt_mask": to(txt_mask),
+                "ee_poses": to(ee)}
 
     @torch.inference_mode()
     def forward(self, batch):
@@ -117,10 +123,11 @@ class MotionPlannerEngine:
                 pc_radius, table_height):
         """-> (L, 9) [pos(3) quat(4) open stop]: un-normalised, open and
         stop as probabilities, z clamped above the table. ee_pose feeds
-        only the pose token, which the CA release variant does not use."""
+        only the pose token (use_ee_pose)."""
         batch = self._batch(np.asarray(pc_ft, np.float32),
                             np.asarray(pc_label),
-                            np.asarray(txt_embed, np.float32))
+                            np.asarray(txt_embed, np.float32),
+                            np.asarray(ee_pose, np.float32))
         actions = self.forward(batch)[0]
         actions[:, 7:] = 1.0 / (1.0 + np.exp(-actions[:, 7:]))
         actions[:, :3] = actions[:, :3] * pc_radius + pc_centroid

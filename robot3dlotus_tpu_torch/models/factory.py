@@ -1,5 +1,5 @@
 """Model factory (port of robot3dlotus_tpu/models/factory.py
-`build_model`), for the classes this port serves."""
+`build_model`): the five model classes of the reference's MODEL_FACTORY."""
 from __future__ import annotations
 
 import torch
@@ -7,8 +7,13 @@ import torch
 from .motion_planner import MotionPlanner
 from .simple_policy import SimplePolicy
 
-_VARIANTS = {"SimplePolicyPTV3CA": SimplePolicy,
-             "MotionPlannerPTV3CA": MotionPlanner}
+_VARIANTS = {
+    "SimplePolicyPTV3AdaNorm": (SimplePolicy, "adanorm"),
+    "SimplePolicyPTV3CA": (SimplePolicy, "ca"),
+    "SimplePolicyPTV3Concat": (SimplePolicy, "concat"),
+    "MotionPlannerPTV3AdaNorm": (MotionPlanner, "adanorm"),
+    "MotionPlannerPTV3CA": (MotionPlanner, "ca"),
+}
 
 
 def resolve_device(device):
@@ -27,11 +32,8 @@ def build_model(model_cfg, device="cuda", seed=0):
     package's init distributions) and moved to `device`; the model is in
     eval mode."""
     device = resolve_device(device)
-    cls = model_cfg["model_class"]
-    if cls not in _VARIANTS:
-        raise NotImplementedError(f"{cls}: the port serves "
-                                  f"{sorted(_VARIANTS)}")
+    cls, variant = _VARIANTS[model_cfg["model_class"]]
     gen = torch.Generator().manual_seed(seed)
-    model = _VARIANTS[cls](dict(model_cfg["ptv3_config"]),
-                           dict(model_cfg["action_config"]), gen)
+    model = cls(dict(model_cfg["ptv3_config"]),
+                dict(model_cfg["action_config"]), gen, variant)
     return model.to(device).eval()

@@ -151,18 +151,30 @@ class MaskedBatchNorm(nn.Module):
 
 
 class AdaptiveNorm(nn.Module):
-    """The JAX AdaptiveNorm with adaptive=False: a base norm held as
-    `.norm`, so parameter names match the flax tree. The point mask feeds
-    only the batch norm's statistics."""
+    """The JAX AdaptiveNorm: a base norm held as `.norm`, so parameter
+    names match the flax tree; the point mask feeds only the batch norm's
+    statistics. Adaptive (the AdaNorm variant's PDNorm): `modulation`
+    = Linear(C_ctx, 2 C) on silu(context), split shift first, then scale,
+    and y (1 + scale) + shift broadcast over the points of each cloud."""
 
-    def __init__(self, features, kind):
+    def __init__(self, features, kind, generator=None, adaptive=False,
+                 context_channels=256):
         super().__init__()
         self.kind = kind
         self.norm = MaskedBatchNorm(features) if kind == "bn" else \
             nn.LayerNorm(features, eps=1e-5)
+        if adaptive:
+            self.modulation = dense(context_channels, 2 * features,
+                                    generator)
 
-    def forward(self, x, mask=None):
-        return self.norm(x, mask) if self.kind == "bn" else self.norm(x)
+    def forward(self, x, mask=None, context=None):
+        y = self.norm(x, mask) if self.kind == "bn" else self.norm(x)
+        if hasattr(self, "modulation"):
+            if context is None:
+                raise ValueError("an adaptive norm needs the context vector")
+            shift, scale = self.modulation(F.silu(context)).chunk(2, dim=-1)
+            y = y * (1.0 + scale[:, None, :]) + shift[:, None, :]
+        return y
 
 
 class MLP(nn.Module):
@@ -292,42 +304,46 @@ class CrossAttention(nn.Module):
 
 class Block(nn.Module):
     """PTv3 block: CPE conv residual (K2 conv -> linear -> LN), pre-norm
-    patch attention, pre-norm MLP."""
+    patch attention, pre-norm MLP. Under AdaNorm (norm_adaptive) its three
+    norms are adaptive, modulated by the per-cloud context vector."""
 
     def __init__(self, channels, num_heads, patch_size, generator,
                  mlp_ratio=4.0, qkv_bias=True, qk_scale=None, qk_norm=True,
-                 order_index=0, attn_drop=0.0, proj_drop=0.0, drop_path=0.0):
+                 order_index=0, attn_drop=0.0, proj_drop=0.0, drop_path=0.0,
+                 norm_adaptive=False, context_channels=256):
         super().__init__()
         self.drop_path = drop_path
+        norm = dict(generator=generator, adaptive=norm_adaptive,
+                    context_channels=context_channels)
         self.cpe_conv = SubMConv(channels, channels, 3, generator)
         self.cpe_fc = dense(channels, channels, generator)
-        self.cpe_norm = AdaptiveNorm(channels, "ln")
-        self.norm1 = AdaptiveNorm(channels, "ln")
+        self.cpe_norm = AdaptiveNorm(channels, "ln", **norm)
+        self.norm1 = AdaptiveNorm(channels, "ln", **norm)
         self.attn = SerializedAttention(
             channels, num_heads, patch_size, generator,
             order_index=order_index, qkv_bias=qkv_bias, qk_scale=qk_scale,
             qk_norm=qk_norm, attn_drop=attn_drop, proj_drop=proj_drop)
-        self.norm2 = AdaptiveNorm(channels, "ln")
+        self.norm2 = AdaptiveNorm(channels, "ln", **norm)
         self.mlp = MLP(channels, int(channels * mlp_ratio), channels,
                        generator, drop=proj_drop)
 
-    def forward(self, feat, aux, cpe_feat=None, rng=None):
+    def forward(self, feat, aux, cpe_feat=None, rng=None, context_vec=None):
         """cpe_feat: the stale CPE input of the first decoder block after an
         unpool — the upstream SerializedUnpooling never refreshes the
         sparse-conv feature buffer, so that block's conv reads the bare
         proj_skip output (released checkpoints were trained that way)."""
         cpe = self.cpe_conv(feat if cpe_feat is None else cpe_feat,
                             aux["cpe_nmap"])
-        feat = feat + self.cpe_norm(self.cpe_fc(cpe))
-        x = self.attn(self.norm1(feat), aux, rng)
+        feat = feat + self.cpe_norm(self.cpe_fc(cpe), context=context_vec)
+        x = self.attn(self.norm1(feat, context=context_vec), aux, rng)
         feat = feat + drop_path(x, self.drop_path, self.training, rng)
-        x = self.mlp(self.norm2(feat), rng)
+        x = self.mlp(self.norm2(feat, context=context_vec), rng)
         return feat + drop_path(x, self.drop_path, self.training, rng)
 
 
 class CABlock(nn.Module):
-    """Cross-attention block after each self-attention block (CA
-    variant)."""
+    """Cross-attention block after each self-attention block (CA variant,
+    whose norms are never adaptive)."""
 
     def __init__(self, channels, num_heads, context_channels, generator,
                  mlp_ratio=4.0, qk_norm=True, attn_drop=0.0, proj_drop=0.0):

@@ -1,6 +1,9 @@
-"""3D-LOTUS++ motion planner, CA variant (port of
-robot3dlotus_tpu/models/motion_planner.py `MotionPlannerTPU(variant='ca')`,
-`TrajActionHead`, `compute_mp_loss` and `decode_mp_actions`).
+"""3D-LOTUS++ motion planner (port of robot3dlotus_tpu/models/
+motion_planner.py `MotionPlannerTPU`, `TrajActionHead`, `compute_mp_loss`
+and `decode_mp_actions`), in its CA variant (the action-text tokens, and a
+pose token under use_ee_pose, through cross-attention blocks) and its
+AdaNorm variant (the policy's context vector modulating the norms, JAX's
+default).
 
 Against the keystep policy:
   * every point carries a semantic label (0 obstacle, 1 robot, 2 object,
@@ -13,7 +16,8 @@ Against the keystep policy:
 Batch layout: the policy's (simple_policy.py) plus
   pc_labels      (B, N) int in [0, 4)
 and for the loss:
-  gt_trajs       (B, L, 8)  pos (3) + euler bins (3) + ... + open
+  gt_trajs       (B, L, 3 + R + 1)  pos (3) + the rot_pred_type's target
+                 + open
   gt_trajs_stop  (B, L)
   traj_masks     (B, L) bool
 The position targets are built on the device in the backbone's sorted
@@ -25,11 +29,11 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops import rotation as rotops
 from ..ops.pos_codec import best_pos_from_disc_logits
+from .heads import rotation_output
 from .layers import dense, dropout, trunc_normal_
-from .ptv3 import PointTransformerV3
-from .simple_policy import build_disc_pos_targets, ptv3_kwargs
+from .simple_policy import (Conditioned, backbone, build_disc_pos_targets,
+                            embedding, rotation_to_quat)
 
 
 class _SplitDense(nn.Linear):
@@ -52,35 +56,39 @@ class _SplitDense(nn.Linear):
 
 
 class TrajActionHead(nn.Module):
-    """heatmap_disc position per point and trajectory step, euler_disc
-    rotation, openness and stop logits per step, from a masked max over
-    points (the release configuration; the other types of the JAX head
-    are not ported). fc1 of each MLP is factored over (points, steps): the
-    per-point product is computed once and the per-step product added."""
+    """Per trajectory step: the position (heatmap_disc logits per point, or
+    any other pos_pred_type: heatmap_mlp, a softmax over the points of
+    offset coordinates), the rotation of rot_pred_type (euler_disc bins;
+    quat, rot6d, else 3 angles), openness and stop logits from a masked
+    max or mean over the points (reduce 'attn' raises, as in the JAX head).
+    fc1 of each MLP is factored over (points, steps): the per-point
+    product is computed once and the per-step product added."""
 
     def __init__(self, generator, dim, reduce="max",
                  pos_pred_type="heatmap_disc", rot_pred_type="euler_disc",
-                 hidden_size=128, max_traj_len=5, traj_embed_size=64,
-                 dropout=0.0, euler_resolution=5, pos_bins=50):
+                 hidden_size=128, dim_actions=7, max_traj_len=5,
+                 traj_embed_size=64, dropout=0.0, euler_resolution=5,
+                 pos_bins=50):
         super().__init__()
-        if (reduce, pos_pred_type, rot_pred_type) != \
-                ("max", "heatmap_disc", "euler_disc"):
-            raise NotImplementedError(
-                f"TrajActionHead({reduce}, {pos_pred_type}, {rot_pred_type})"
-                ": the port serves reduce=max, heatmap_disc, euler_disc")
+        if reduce not in ("max", "mean"):
+            raise NotImplementedError(reduce)
         g = generator
+        self.reduce, self.pos_pred_type = reduce, pos_pred_type
+        self.rot_pred_type = rot_pred_type
         self.max_traj_len, self.pos_bins = max_traj_len, pos_bins
         self.dropout = dropout
         self.euler_bins = 360 // euler_resolution
         E = traj_embed_size
         if E > 0:
-            self.traj_embedding = nn.Embedding(max_traj_len, E)
-            with torch.no_grad():
-                trunc_normal_(self.traj_embedding.weight, g)
+            self.traj_embedding = embedding(max_traj_len, E, g)
+        out = self.euler_bins * 3 if rot_pred_type == "euler_disc" \
+            else dim_actions - 3
         self.heatmap_mlp_fc1 = _SplitDense(dim, E, hidden_size, g)
-        self.heatmap_mlp_fc2 = dense(hidden_size, 3 * pos_bins * 2, g)
+        self.heatmap_mlp_fc2 = dense(
+            hidden_size, 3 * pos_bins * 2
+            if pos_pred_type == "heatmap_disc" else 4, g)
         self.action_mlp_fc1 = _SplitDense(dim, E, hidden_size, g)
-        self.action_mlp_fc2 = dense(hidden_size, self.euler_bins * 3 + 2, g)
+        self.action_mlp_fc2 = dense(hidden_size, out + 2, g)
 
     def _fc1(self, fc1, x, te, shape):
         """fc1(concat(x, te)) broadcast to `shape` (..., L, hidden)."""
@@ -89,10 +97,11 @@ class TrajActionHead(nn.Module):
         h = h.expand(shape) if yb is None else h + yb
         return F.leaky_relu(h, negative_slope=0.02)
 
-    def forward(self, point_embeds, mask, rng=None):
-        """point_embeds (B, N, D); mask (B, N). Returns
-        xt (B, L, 3, N, 2*pos_bins) logits, xr (B, L, euler_bins, 3)
-        logits, xo (B, L) openness and xstop (B, L) stop logits."""
+    def forward(self, point_embeds, mask, coords=None, temp=1.0, rng=None):
+        """point_embeds (B, N, D); mask (B, N); coords (B, N, 3), read by
+        heatmap_mlp. Returns xt (B, L, 3, N, 2*pos_bins) logits, or (B, L,
+        3) under heatmap_mlp; xr (B, L, euler_bins, 3) logits, or (B, L,
+        dim); xo (B, L) openness and xstop (B, L) stop logits."""
         B, N, _ = point_embeds.shape
         L, nb = self.max_traj_len, 2 * self.pos_bins
         hidden = self.heatmap_mlp_fc2.in_features
@@ -102,65 +111,76 @@ class TrajActionHead(nn.Module):
                       (B, N, L, hidden))
         ht = self.heatmap_mlp_fc2(dropout(h, self.dropout, self.training,
                                           rng))
-        # 'n t (c b) -> t c n b' per cloud, padded points out of the softmax
-        xt = ht.reshape(B, N, L, 3, nb).permute(0, 2, 3, 1, 4)
-        xt = torch.where(mask[:, None, None, :, None], xt,
-                         torch.full_like(xt, -1e9))
-        pooled = torch.where(mask[..., None], point_embeds,
-                             torch.full_like(point_embeds, -float("inf"))
-                             ).amax(dim=1)
+        if self.pos_pred_type == "heatmap_disc":
+            # 'n t (c b) -> t c n b' per cloud, padded points out of the
+            # softmax
+            xt = ht.reshape(B, N, L, 3, nb).permute(0, 2, 3, 1, 4)
+            xt = torch.where(mask[:, None, None, :, None], xt,
+                             torch.full_like(xt, -1e9))
+        else:                                                # (B, N, L, 4)
+            heat = ht[..., 0] / temp
+            w = torch.softmax(torch.where(mask[:, :, None], heat,
+                                          torch.full_like(heat, -1e9)), dim=1)
+            xt = torch.einsum("bnt,bntc->btc", w,
+                              coords[:, :, None, :] + ht[..., 1:])
+        if self.reduce == "max":
+            pooled = torch.where(
+                mask[..., None], point_embeds,
+                torch.full_like(point_embeds, -float("inf"))).amax(dim=1)
+        else:
+            m = mask[..., None].to(point_embeds.dtype)
+            pooled = (point_embeds * m).sum(1) / m.sum(1).clamp(min=1.0)
         h = self._fc1(self.action_mlp_fc1, pooled, te, (B, L, hidden))
         act = self.action_mlp_fc2(dropout(h, self.dropout, self.training,
                                           rng))
-        xr = act[..., :self.euler_bins * 3].reshape(B, L, self.euler_bins, 3)
+        xr = rotation_output(act, self.rot_pred_type, self.euler_bins)
         return xt, xr, act[..., -2], act[..., -1]
 
 
-class MotionPlanner(nn.Module):
-    """MotionPlannerPTV3CA: the action-text tokens condition the backbone
-    through the cross-attention blocks; the point labels enter at the
-    stem."""
+class MotionPlanner(Conditioned):
+    """MotionPlannerPTV3CA / AdaNorm (`variant` 'ca', 'adanorm'): the
+    action text (and the gripper pose under use_ee_pose; step ids are not
+    read) conditions the backbone; the point labels enter at the stem."""
 
-    def __init__(self, ptv3_cfg, act_cfg, generator):
+    def __init__(self, ptv3_cfg, act_cfg, generator, variant="ca"):
         super().__init__()
         ac = act_cfg
-        if ac.get("use_ee_pose") or ac.get("use_step_id"):
-            raise NotImplementedError("pose/step context tokens are not "
-                                      "ported yet")
-        ctx = ac["context_channels"]
         labels = ac.get("pc_label_channels", 16)
-        self.pc_label_embedding = nn.Embedding(4, labels)
-        with torch.no_grad():
-            trunc_normal_(self.pc_label_embedding.weight, generator)
-        self.txt_fc = dense(ac.get("txt_ft_size", 512), ctx, generator)
-        self.ptv3_model = PointTransformerV3(
-            generator, context_channels=ctx,
-            grid_size=ac.get("voxel_size", 0.01),
-            stem_categorical_channels=labels, **ptv3_kwargs(ptv3_cfg))
+        self.pc_label_embedding = embedding(4, labels, generator)
+        self._init_context(ac, variant, generator, step_ids=False)
+        self.ptv3_model = backbone(ptv3_cfg, ac, variant, generator,
+                                   stem_categorical_channels=labels)
         hidden = list(ptv3_cfg["dec_channels"])[0]
         self.act_proj_head = TrajActionHead(
             generator, hidden, reduce=ac.get("reduce", "max"),
             pos_pred_type=ac.get("pos_pred_type", "heatmap_disc"),
             rot_pred_type=ac.get("rot_pred_type", "euler_disc"),
-            hidden_size=hidden, max_traj_len=ac.get("max_traj_len", 5),
+            hidden_size=hidden, dim_actions=ac.get("dim_actions", 7),
+            max_traj_len=ac.get("max_traj_len", 5),
             traj_embed_size=ac.get("traj_embed_size", 64),
             dropout=ac.get("dropout", 0.0),
             euler_resolution=ac.get("euler_resolution", 5),
             pos_bins=ac.get("pos_bins", 50))
+        self.pos_heatmap_temp = ac.get("pos_heatmap_temp", 1.0)
 
     def forward(self, batch, rng=None):
         """rng: the Randomness of a train-mode forward."""
         pc = batch["pc_fts"]
-        context = self.txt_fc(batch["txt_embeds"])
+        ctx, ctx_mask = self._context(batch)
+        vec = None
+        if self.variant != "ca":
+            vec, ctx = ctx, None
         categorical = (batch["pc_labels"].long(),
                        self.pc_label_embedding.weight)
         outs = self.ptv3_model(pc[..., :3], pc, batch["pc_mask"],
-                               batch["pc_counts"], context, batch["txt_mask"],
-                               rng, stem_categorical=categorical,
-                               order_perm=batch.get("order_perm"))
+                               batch["pc_counts"], ctx, ctx_mask, rng,
+                               stem_categorical=categorical,
+                               order_perm=batch.get("order_perm"),
+                               context_vec=vec)
         final = outs[-1]
-        xt, xr, xo, xstop = self.act_proj_head(final["feat"], final["mask"],
-                                               rng)
+        xt, xr, xo, xstop = self.act_proj_head(
+            final["feat"], final["mask"], final["coord"],
+            self.pos_heatmap_temp, rng)
         return {"pos": xt, "rot": xr, "open": xo, "stop": xstop,
                 "final_coord": final["coord"], "final_mask": final["mask"],
                 "sort0": outs[0]["sort0"],
@@ -174,35 +194,53 @@ def _masked_bce(logits, targets, mask):
 
 
 def compute_mp_loss(preds, batch, act_cfg, loss_cfg):
-    """The JAX compute_mp_loss for heatmap_disc / euler_disc: per-step
-    position cross-entropy against the device-built targets (averaged over
-    each cloud's valid steps, then over the valid clouds), rotation-bin
-    cross-entropy, openness and stop BCE over the valid steps. Pad clouds
-    (batch_valid False) drop out of every term; pool_overflow is reported,
-    never part of total."""
+    """The JAX compute_mp_loss: the position loss (heatmap_disc: per-step
+    cross-entropy against the device-built targets, averaged over each
+    cloud's valid steps, then over the valid clouds; heatmap_mlp: squared
+    error over the valid steps), the rotation loss of the rot_pred_type
+    (euler_disc bin cross-entropy; quat: the squared error of q or -q, the
+    smaller; else squared error), openness and stop BCE over the valid
+    steps. Pad clouds (batch_valid False) drop out of every term;
+    pool_overflow is reported, never part of total."""
     gt = batch["gt_trajs"]                                   # (B, L, 8)
     B = gt.shape[0]
     bv = batch.get("batch_valid")
     bv = gt.new_ones(B) if bv is None else bv.float()
     tmask = batch["traj_masks"].float() * bv[:, None]        # (B, L)
+    steps = tmask.sum().clamp(min=1.0)
     tgt_pos, tgt_rot, tgt_open = gt[..., :3], gt[..., 3:-1], gt[..., -1]
 
-    logits = preds["pos"]                                    # (B, L, 3, N, nb)
-    _, L, _, N, nb = logits.shape
-    flat = logits.reshape(B, L, 3, N * nb)
-    target = build_disc_pos_targets(batch, tgt_pos, nb // 2, act_cfg, preds)
-    logp = F.log_softmax(flat, dim=-1)
-    ce = -torch.where(target > 0, target * logp,
-                      torch.zeros_like(logp)).sum(-1)         # (B, L, 3)
-    w = tmask[:, :, None]
-    per_cloud = (ce * w).sum((1, 2)) / w.sum((1, 2)).clamp(min=1.0)
-    pos_loss = (per_cloud * bv).sum() / bv.sum().clamp(min=1.0)
+    if act_cfg.get("pos_pred_type", "heatmap_disc") == "heatmap_disc":
+        logits = preds["pos"]                                # (B, L, 3, N, nb)
+        _, L, _, N, nb = logits.shape
+        flat = logits.reshape(B, L, 3, N * nb)
+        target = build_disc_pos_targets(batch, tgt_pos, nb // 2, act_cfg,
+                                        preds)
+        logp = F.log_softmax(flat, dim=-1)
+        ce = -torch.where(target > 0, target * logp,
+                          torch.zeros_like(logp)).sum(-1)     # (B, L, 3)
+        w = tmask[:, :, None]
+        per_cloud = (ce * w).sum((1, 2)) / w.sum((1, 2)).clamp(min=1.0)
+        pos_loss = (per_cloud * bv).sum() / bv.sum().clamp(min=1.0)
+    else:
+        se = (preds["pos"] - tgt_pos) ** 2
+        pos_loss = (se * tmask[..., None]).sum() / steps / 3.0
 
-    labels = tgt_rot[..., :3].long()                         # (B, L, 3)
-    logp = F.log_softmax(preds["rot"], dim=2)                # (B, L, bins, 3)
-    ce = -torch.gather(logp, 2, labels[:, :, None, :])[:, :, 0]
-    rot_loss = (ce * tmask[..., None]).sum() / \
-        tmask.sum().clamp(min=1.0) / 3.0
+    rot_type = act_cfg.get("rot_pred_type", "euler_disc")
+    xr = preds["rot"]
+    if rot_type == "euler_disc":
+        labels = tgt_rot[..., :3].long()                     # (B, L, 3)
+        logp = F.log_softmax(xr, dim=2)                      # (B, L, bins, 3)
+        ce = -torch.gather(logp, 2, labels[:, :, None, :])[:, :, 0]
+        rot_loss = (ce * tmask[..., None]).sum() / steps / 3.0
+    elif rot_type == "quat":
+        t = tgt_rot[..., :4]
+        e = torch.minimum(((xr - t) ** 2).mean(-1), ((xr + t) ** 2).mean(-1))
+        rot_loss = (e * tmask).sum() / steps
+    else:
+        se = (xr - tgt_rot[..., :xr.shape[-1]]) ** 2
+        rot_loss = (se * tmask[..., None]).sum() / \
+            (tmask.sum() * se.shape[-1]).clamp(min=1.0)
 
     open_loss = _masked_bce(preds["open"], tgt_open, tmask)
     stop_loss = _masked_bce(preds["stop"], batch["gt_trajs_stop"].float(),
@@ -219,18 +257,19 @@ def compute_mp_loss(preds, batch, act_cfg, loss_cfg):
 def decode_mp_actions(preds, act_cfg):
     """Head outputs -> (B, L, 9) [pos, quat xyzw, open logit, stop logit]
     on the device."""
-    logits = preds["pos"]                                    # (B, L, 3, N, nb)
-    B, L, _, N, nb = logits.shape
-    xyz = preds["final_coord"][:, None].expand(B, L, N, 3)
-    mask = preds["final_mask"][:, None].expand(B, L, N)
-    pos = best_pos_from_disc_logits(
-        logits.reshape(B * L, 3, N, nb), xyz.reshape(B * L, N, 3),
-        mask=mask.reshape(B * L, N),
-        pos_bin_size=act_cfg.get("pos_bin_size", 0.01),
-        pos_bins=act_cfg.get("pos_bins", 50),
-        best=act_cfg.get("best_disc_pos", "max")).reshape(B, L, 3)
-    bins = torch.argmax(preds["rot"], dim=2)                 # (B, L, 3)
-    quat = rotops.discrete_euler_to_quat(
-        bins, act_cfg.get("euler_resolution", 5))
+    if act_cfg.get("pos_pred_type", "heatmap_disc") == "heatmap_disc":
+        logits = preds["pos"]                                # (B, L, 3, N, nb)
+        B, L, _, N, nb = logits.shape
+        xyz = preds["final_coord"][:, None].expand(B, L, N, 3)
+        mask = preds["final_mask"][:, None].expand(B, L, N)
+        pos = best_pos_from_disc_logits(
+            logits.reshape(B * L, 3, N, nb), xyz.reshape(B * L, N, 3),
+            mask=mask.reshape(B * L, N),
+            pos_bin_size=act_cfg.get("pos_bin_size", 0.01),
+            pos_bins=act_cfg.get("pos_bins", 50),
+            best=act_cfg.get("best_disc_pos", "max")).reshape(B, L, 3)
+    else:
+        pos = preds["pos"]
+    quat = rotation_to_quat(preds["rot"], act_cfg, 2)
     return torch.cat([pos, quat, preds["open"][..., None],
                       preds["stop"][..., None]], dim=-1)

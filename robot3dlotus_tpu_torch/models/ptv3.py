@@ -1,5 +1,12 @@
-"""PointTransformerV3 U-Net backbone, CA variant (port of
-robot3dlotus_tpu/models/ptv3.py `PointTransformerV3TPU`).
+"""PointTransformerV3 U-Net backbone (port of
+robot3dlotus_tpu/models/ptv3.py `PointTransformerV3TPU`), with the
+conditioning of each variant: cross-attention blocks on text tokens
+(use_cross_attn, the CA variant), norms modulated by a per-cloud context
+vector (norm_adaptive, AdaNorm), or neither (Concat, whose context enters
+with the stem's input). pdnorm_only_decoder means two things, as in the
+JAX package: under CA the encoder's cross-attention blocks are left out
+except at the last stage; otherwise the stem, the encoder poolings and the
+encoder blocks' norms are plain except the last stage's blocks.
 
 Clouds are fixed-capacity padded (B, N_s, C) tensors with masks; per-stage
 capacities follow `_stage_caps`. The dataflow is sorted-resident: each
@@ -9,7 +16,8 @@ frame directly and pooling segments are contiguous runs. Per-point outputs
 come back in the stage-0 sorted frame with `sort0` (frame position ->
 input index). With shuffle_orders, train mode permutes the SFC orders at
 stage 0 and after every pooling (Randomness.permutation) and re-sorts the
-stage by its new first order through K4; eval never shuffles here. A
+stage by its new first order through K4; an eval-mode forward shuffles
+only when it is given a Randomness (the Actioner's ensembles). A
 batch presorted on the host (TRAIN.host_structure,
 train/datasets/structure.py) brings its `order_perm` instead: the codes
 take that order, there is no stage-0 entry sort and no stage redraws.
@@ -56,32 +64,37 @@ def compute_grid_coord(coord, mask, grid_size, depth):
 class SerializedPooling(nn.Module):
     """Grid pooling: linear proj -> segment max -> BN -> GELU."""
 
-    def __init__(self, cin, cout, generator):
+    def __init__(self, cin, cout, generator, adaptive=False,
+                 context_channels=256):
         super().__init__()
         self.proj = dense(cin, cout, generator)
-        self.norm = AdaptiveNorm(cout, "bn")
+        self.norm = AdaptiveNorm(cout, "bn", generator, adaptive,
+                                 context_channels)
 
-    def forward(self, feat_sorted, maps, child_cap):
+    def forward(self, feat_sorted, maps, child_cap, context_vec=None):
         x = segment_reduce(self.proj(feat_sorted), maps, child_cap, "max")
-        return gelu(self.norm(x, maps.child_mask))
+        return gelu(self.norm(x, maps.child_mask, context_vec))
 
 
 class SerializedUnpooling(nn.Module):
     """proj(child)[cluster] + proj_skip(parent), each proj Linear -> BN ->
     GELU. Also returns the bare skip, which the next block's CPE reads."""
 
-    def __init__(self, cin, cskip, cout, generator):
+    def __init__(self, cin, cskip, cout, generator, adaptive=False,
+                 context_channels=256):
         super().__init__()
+        norm = (generator, adaptive, context_channels)
         self.proj_fc = dense(cin, cout, generator)
-        self.proj_norm = AdaptiveNorm(cout, "bn")
+        self.proj_norm = AdaptiveNorm(cout, "bn", *norm)
         self.proj_skip_fc = dense(cskip, cout, generator)
-        self.proj_skip_norm = AdaptiveNorm(cout, "bn")
+        self.proj_skip_norm = AdaptiveNorm(cout, "bn", *norm)
 
     def forward(self, child_feat, child_mask, parent_feat, parent_mask,
-                cluster, child_cap):
-        x = gelu(self.proj_norm(self.proj_fc(child_feat), child_mask))
+                cluster, child_cap, context_vec=None):
+        x = gelu(self.proj_norm(self.proj_fc(child_feat), child_mask,
+                                context_vec))
         skip = gelu(self.proj_skip_norm(self.proj_skip_fc(parent_feat),
-                                        parent_mask))
+                                        parent_mask, context_vec))
         return skip + unpool_gather(x, cluster, child_cap), skip
 
 
@@ -100,7 +113,10 @@ class PointTransformerV3(nn.Module):
                  grid_size=0.01, serial_depth=10,
                  stem_kernel=5, lookup_extent=128, assume_sorted=False,
                  stage_caps: Optional[Sequence[int]] = None,
-                 stem_categorical_channels=0):
+                 stem_categorical_channels=0, use_cross_attn=True,
+                 norm_adaptive=False, pdnorm_only_decoder=False):
+        """in_channels: the stem's input width (under Concat the point
+        features and the context vector)."""
         super().__init__()
         self.orders = tuple(orders)
         self.enc_depths, self.dec_depths = tuple(enc_depths), tuple(dec_depths)
@@ -112,7 +128,15 @@ class PointTransformerV3(nn.Module):
         self.assume_sorted = assume_sorted
         self.shuffle_orders = shuffle_orders
         self.stage_caps = None if stage_caps is None else tuple(stage_caps)
+        self.use_cross_attn = use_cross_attn
         S = len(enc_depths)
+        # pdnorm_only_decoder: plain encoder norms (not under CA), or no
+        # encoder cross-attention blocks (CA), except at the last stage
+        only_dec_norms = pdnorm_only_decoder and not use_cross_attn
+        enc_adaptive = norm_adaptive and not only_dec_norms
+        self.enc_cablocks = [use_cross_attn and (
+            not pdnorm_only_decoder or s == S - 1) for s in range(S)]
+        ctx = dict(context_channels=context_channels)
         g = generator
         drop = dict(attn_drop=attn_drop, proj_drop=proj_drop)
         blk = dict(mlp_ratio=mlp_ratio, qkv_bias=qkv_bias, qk_scale=qk_scale,
@@ -126,32 +150,39 @@ class PointTransformerV3(nn.Module):
         self.embedding_stem_conv = SubMConv(
             in_channels, enc_channels[0], stem_kernel, g, use_bias=False,
             categorical_channels=stem_categorical_channels)
-        self.embedding_norm = AdaptiveNorm(enc_channels[0], "bn")
+        self.embedding_norm = AdaptiveNorm(enc_channels[0], "bn", g,
+                                           enc_adaptive, context_channels)
         for s in range(S):
             if s > 0:
                 self.add_module(f"enc{s}_down", SerializedPooling(
-                    enc_channels[s - 1], enc_channels[s], g))
+                    enc_channels[s - 1], enc_channels[s], g, enc_adaptive,
+                    context_channels))
             for i in range(enc_depths[s]):
                 self.add_module(f"enc{s}_block{i}", Block(
                     enc_channels[s], enc_num_head[s], enc_patch_size[s], g,
                     order_index=i % len(self.orders),
-                    drop_path=enc_dp[sum(enc_depths[:s]) + i], **blk))
-                self.add_module(f"enc{s}_cablock{i}", CABlock(
-                    enc_channels[s], enc_num_head[s], context_channels, g,
-                    **cab))
+                    drop_path=enc_dp[sum(enc_depths[:s]) + i],
+                    norm_adaptive=norm_adaptive and (
+                        not only_dec_norms or s == S - 1), **blk, **ctx))
+                if self.enc_cablocks[s]:
+                    self.add_module(f"enc{s}_cablock{i}", CABlock(
+                        enc_channels[s], enc_num_head[s], context_channels,
+                        g, **cab))
         dec_ch = list(dec_channels) + [enc_channels[-1]]
         for s in reversed(range(S - 1)):
             self.add_module(f"dec{s}_up", SerializedUnpooling(
-                dec_ch[s + 1], enc_channels[s], dec_ch[s], g))
+                dec_ch[s + 1], enc_channels[s], dec_ch[s], g, norm_adaptive,
+                context_channels))
             dp = dec_dp[sum(dec_depths[:s]):sum(dec_depths[:s + 1])][::-1]
             for i in range(dec_depths[s]):
                 self.add_module(f"dec{s}_block{i}", Block(
                     dec_ch[s], dec_num_head[s], dec_patch_size[s], g,
                     order_index=i % len(self.orders), drop_path=dp[i],
-                    **blk))
-                self.add_module(f"dec{s}_cablock{i}", CABlock(
-                    dec_ch[s], dec_num_head[s], context_channels, g,
-                    **cab))
+                    norm_adaptive=norm_adaptive, **blk, **ctx))
+                if use_cross_attn:
+                    self.add_module(f"dec{s}_cablock{i}", CABlock(
+                        dec_ch[s], dec_num_head[s], context_channels, g,
+                        **cab))
 
     def _stage_caps(self, n0):
         if self.stage_caps is not None:
@@ -208,11 +239,14 @@ class PointTransformerV3(nn.Module):
             cur["counts"][:, None]
         return new, order
 
-    def forward(self, coord, feat, mask, counts, context, context_mask,
-                rng=None, stem_categorical=None, order_perm=None):
+    def forward(self, coord, feat, mask, counts, context=None,
+                context_mask=None, rng=None, stem_categorical=None,
+                order_perm=None, context_vec=None):
         """coord (B, N, 3); feat (B, N, Cin); mask (B, N) bool; counts (B,);
-        context (B, T, C) tokens, context_mask (B, T); rng: the Randomness
-        of a train-mode forward; stem_categorical: None, or (idx (B, N)
+        context (B, T, C) tokens, context_mask (B, T): the CA variant's;
+        context_vec (B, C): the adaptive norms'; rng: the Randomness of a
+        train-mode forward (or of a shuffled eval-mode one);
+        stem_categorical: None, or (idx (B, N)
         int, table (Kcat, E)) appended to feat for the stem conv only;
         order_perm: None, or the (num_orders,) order permutation the host
         chose, the inputs already sorted by its first order's code.
@@ -225,7 +259,8 @@ class PointTransformerV3(nn.Module):
         counts = counts.long()
         grid_coord = compute_grid_coord(coord, mask, self.grid_size, depth0)
         codes = serialize_codes(grid_coord, mask, depth0, self.orders)
-        shuffle = self.shuffle_orders and self.training and order_perm is None
+        shuffle = self.shuffle_orders and order_perm is None and (
+            self.training or rng is not None)
         if shuffle:
             codes = self._shuffled(codes, rng)
         elif order_perm is not None:
@@ -247,23 +282,24 @@ class PointTransformerV3(nn.Module):
                                       extent=self.lookup_extent)
         x = self.embedding_stem_conv(cur["feat"].contiguous(), stem_map,
                                      categorical=stem_categorical)
-        cur["feat"] = gelu(self.embedding_norm(x, cur["mask"]))
+        cur["feat"] = gelu(self.embedding_norm(x, cur["mask"], context_vec))
 
         pool_overflow = torch.zeros((), dtype=torch.long, device=feat.device)
         stage_state, pool_records = [], []
         for s in range(S):
             if s > 0:
                 cur, record, overflow = self._pool(s, cur, caps[s], shuffle,
-                                                   rng)
+                                                   rng, context_vec)
                 pool_overflow = pool_overflow + overflow
                 pool_records.append(record)
             aux = self._make_aux(cur, s, self.enc_patch_size[s])
             cur["aux"] = aux
             for i in range(self.enc_depths[s]):
                 cur["feat"] = getattr(self, f"enc{s}_block{i}")(
-                    cur["feat"], aux, rng=rng)
-                cur["feat"] = getattr(self, f"enc{s}_cablock{i}")(
-                    cur["feat"], context, context_mask, rng)
+                    cur["feat"], aux, rng=rng, context_vec=context_vec)
+                if self.enc_cablocks[s]:
+                    cur["feat"] = getattr(self, f"enc{s}_cablock{i}")(
+                        cur["feat"], context, context_mask, rng)
             stage_state.append(dict(cur))
 
         outputs = [self._pack(cur)]
@@ -274,15 +310,17 @@ class PointTransformerV3(nn.Module):
             cluster, child_cap = pool_records[s]
             feat_s, skip_s = getattr(self, f"dec{s}_up")(
                 cur["feat"], cur["mask"], parent["feat"], parent["mask"],
-                cluster, child_cap)
+                cluster, child_cap, context_vec)
             cur = dict(parent)
             cur["feat"] = feat_s
             aux = parent["aux"]
             for i in range(self.dec_depths[s]):
                 cur["feat"] = getattr(self, f"dec{s}_block{i}")(
-                    cur["feat"], aux, skip_s if i == 0 else None, rng)
-                cur["feat"] = getattr(self, f"dec{s}_cablock{i}")(
-                    cur["feat"], context, context_mask, rng)
+                    cur["feat"], aux, skip_s if i == 0 else None, rng,
+                    context_vec)
+                if self.use_cross_attn:
+                    cur["feat"] = getattr(self, f"dec{s}_cablock{i}")(
+                        cur["feat"], context, context_mask, rng)
                 outputs.append(self._pack(cur))
         return outputs
 
@@ -291,7 +329,7 @@ class PointTransformerV3(nn.Module):
                                device=codes.device)
         return codes[perm]
 
-    def _pool(self, s, cur, child_cap, shuffle, rng):
+    def _pool(self, s, cur, child_cap, shuffle, rng, context_vec=None):
         """Grid pooling in the sorted-resident frame. Children come out in
         (parent code >> 3) order, which stays ascending, so an unshuffled
         child stage needs no entry sort; a shuffled one is re-sorted by its
@@ -301,7 +339,7 @@ class PointTransformerV3(nn.Module):
         codes = cur["codes"]
         maps = build_pool_maps(codes[0], cur["counts"], child_cap)
         new_feat = getattr(self, f"enc{s}_down")(cur["feat"], maps,
-                                                 child_cap)
+                                                 child_cap, context_vec)
         new_coord = segment_reduce(cur["coord"], maps, child_cap, "mean")
         new_gc = gather_heads(cur["grid_coord"], maps) >> 1
         new_codes = torch.stack([gather_heads(codes[k], maps) >> 3

@@ -1,6 +1,8 @@
 """K2, submanifold sparse conv on a (B, N, K) neighbour map, and K7, its
 weight gradient (port of robot3dlotus_tpu/ops/pallas_conv.py
-`subm_conv_windowed` and its custom VJP `_windowed_op`).
+`subm_conv_windowed` and its custom VJP `_windowed_op`, and of the
+streaming XLA stem conv `_subm_conv_streaming` of
+robot3dlotus_tpu/ops/sparse_conv.py at the Concat variant's width).
 
 out[b, n] = sum_k ok[b, n, k] * W[k]^T x[b, idx[b, n, k]] + bias, with W
 (K, Cin, Cout) in stencil_offsets order. The CUDA kernels are csrc/conv.cu
@@ -14,6 +16,16 @@ adds a fixed-order reduction of its tap ranges when B N is too small to
 fill the card (conv_tap_splits), K7 a compaction of each tap's live rows
 and, with more than one row range, a fixed-order sum of the ranges
 (weight_grad_plan).
+
+Shapes: up to CONV_MAX_TAPS taps (the k=3 CPE conv's 27 and the k=5
+stem's 125), any channel counts. The kernels read and write 16 bytes at a
+time, so a channel count that is not a multiple of 4 (the Concat stem's
+7 + 256 = 263 inputs, and its input gradient's 263 outputs) is padded
+with zero channels here, which is exact: zero inputs meet zero weight
+rows, and the padded outputs are dropped. K7 pads x likewise from
+WGRAD_PAD_MIN_CIN input channels, so that the wide stem takes its
+compacted path; narrower inputs (the policy stem's 7) keep the path that
+packs (tap, channel) columns.
 
 Backward: dW is K7, dbias a plain sum, and dx is the conv itself run on
 a cotangent with the mirrored weight W'[k] = W[K-1-k]^T (K2 again), as in
@@ -31,17 +43,19 @@ pallas_conv.py `subm_conv_windowed` docstring.)
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from . import cuda_lib
 from .gather import scatter_rows_add
 
 CONV_ROWS = 128          # csrc/conv.cu kTM: output rows per block
 CONV_COLS = 64           # csrc/conv.cu kTN: output channels per block
-CONV_MAX_TAPS = 27       # csrc/conv.cu kMaxK
+CONV_MAX_TAPS = 125      # csrc/conv.cu kMaxTaps
 CONV_TARGET_BLOCKS = 132 * 2    # two 109 KB blocks on each of 132 SMs
 WGRAD_TILE = 64          # csrc/conv_grad.cu kT: dW tile side
 WGRAD_TARGET_BLOCKS = 132 * 3   # three 73 KB blocks on each of 132 SMs
 WGRAD_MIN_ROWS = 512
+WGRAD_PAD_MIN_CIN = 32
 
 
 def subm_conv_plain(x, idx, ok, weight, bias=None):
@@ -90,6 +104,12 @@ def _aligned(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def _pad_channels(t, last=0, second=0):
+    """t with zeros appended to its last dimension (`last` of them) and to
+    its second-to-last (`second`)."""
+    return F.pad(t, (0, last, 0, second)) if last or second else t
+
+
 def conv_tap_splits(B, N, K, cout):
     """K2's tap ranges per (row tile, channel tile, cloud): one when those
     tiles fill the card, else enough (at most K) that two blocks sit on
@@ -106,17 +126,22 @@ def _conv_forward(x, idx, ok, weight, bias):
     K, wcin, Cout = weight.shape
     _check_map("subm_conv", x, idx, ok, K)
     B, N, Cin = x.shape
-    if wcin != Cin or Cin % 4 or Cout % 4 or K > CONV_MAX_TAPS:
+    if wcin != Cin or K > CONV_MAX_TAPS:
         raise ValueError(f"subm_conv: x{tuple(x.shape)} weight"
-                         f"{tuple(weight.shape)} (the kernel takes channel "
-                         f"counts that are multiples of 4 and at most "
+                         f"{tuple(weight.shape)} (the kernel takes at most "
                          f"{CONV_MAX_TAPS} taps)")
     bias_ptr = None
     if bias is not None:
         cuda_lib.check_cuda_tensor("subm_conv bias", bias, torch.float32, 1)
         if bias.shape[0] != Cout:
             raise ValueError(f"subm_conv: bias {tuple(bias.shape)}")
+    pin, pout = -Cin % 4, -Cout % 4
+    x = _pad_channels(x, pin)
+    weight = _pad_channels(weight, pout, pin)
+    if bias is not None:
+        bias = _pad_channels(bias, pout)
         bias_ptr = bias.data_ptr()
+    Cin, Cout = Cin + pin, Cout + pout
     splits = conv_tap_splits(B, N, K, Cout)
     out = torch.empty((B, N, Cout), dtype=x.dtype, device=x.device)
     # the tap ranges' partial sums, apart from the output so that the
@@ -129,7 +154,7 @@ def _conv_forward(x, idx, ok, weight, bias):
                     bias_ptr, out.data_ptr(),
                     None if work is None else work.data_ptr(), B, N, K,
                     Cin, Cout, splits, 0 if work is None else 4 * work.numel())
-    return out
+    return out[..., :Cout - pout] if pout else out
 
 
 def weight_grad_plan(B, N, K, cin, cout):
@@ -168,6 +193,9 @@ def conv_weight_grad(x, idx, ok, g):
         raise ValueError(f"conv_weight_grad: g{tuple(g.shape)} for "
                          f"x{tuple(x.shape)}")
     Cout = g.shape[-1]
+    pin = -Cin % 4 if Cin >= WGRAD_PAD_MIN_CIN and Cout % 4 == 0 else 0
+    x = _pad_channels(x, pin)
+    Cin += pin
     splits, per, nbytes = weight_grad_plan(B, N, K, Cin, Cout)
     dw = torch.empty((K, Cin, Cout), dtype=torch.float32, device=x.device)
     work = torch.empty(nbytes, dtype=torch.uint8, device=x.device) \
@@ -177,7 +205,7 @@ def conv_weight_grad(x, idx, ok, g):
                     x.data_ptr(), idx.data_ptr(), ok.data_ptr(), g.data_ptr(),
                     None if work is None else work.data_ptr(),
                     dw.data_ptr(), B, N, K, Cin, Cout, splits, per, nbytes)
-    return dw
+    return dw[:, :Cin - pin].contiguous() if pin else dw
 
 
 def conv_input_grad(g, idx, ok, weight):

@@ -7,8 +7,9 @@ The training target spreads probability over the candidates within
 support_radius of the ground truth ('plain' uniformly, 'dist' by inverse
 distance), zeroes robot points and falls back to the nearest candidate
 when an axis has no support. The decode softmaxes over all candidates of
-an axis and picks the best one ('max', the release setting; the 'ens1'
-vote of the JAX package waits for the eval servers).
+an axis and picks the best one: 'max' (the release setting) takes the
+most probable candidate, 'ens1' the centre of the 5 mm voxel whose
+candidates hold the most probability.
 """
 from __future__ import annotations
 
@@ -85,10 +86,11 @@ def disc_pos_gt_prob(xyz, valid_mask, gt_pos, robot_mask=None,
 
 
 def best_pos_from_disc_logits(logits, xyz, mask=None, pos_bin_size=0.01,
-                              pos_bins=50, best="max"):
+                              pos_bins=50, best="max", vote_voxel_size=0.005,
+                              vote_range=512):
     """logits (B, 3, N, 2*pos_bins); xyz (B, N, 3); mask (B, N) or None.
     Returns (B, 3) float32."""
-    if best != "max":
+    if best not in ("max", "ens1"):
         raise NotImplementedError(f"best_disc_pos={best!r}")
     B, _, N, nbins = logits.shape
     shift = (torch.arange(nbins, dtype=torch.float32, device=logits.device)
@@ -99,5 +101,31 @@ def best_pos_from_disc_logits(logits, xyz, mask=None, pos_bin_size=0.01,
         m = mask.repeat_interleave(nbins, dim=1)[:, None, :]
         flat = torch.where(m, flat, torch.full_like(flat, -1e9))
     prob = torch.softmax(flat, dim=-1)
+    cands = cands.reshape(B, 3, N * nbins)
+    if best == "ens1":
+        return _vote(cands, prob, vote_voxel_size, vote_range)
     idx = torch.argmax(prob, dim=-1, keepdim=True)
-    return torch.gather(cands.reshape(B, 3, N * nbins), -1, idx)[..., 0]
+    return torch.gather(cands, -1, idx)[..., 0]
+
+
+def _vote(cands, prob, voxel_size, vote_range):
+    """The 'ens1' decode: each axis' probability summed over the candidates
+    of each of 2 vote_range voxels (rounded, clipped), the best voxel's
+    centre. The sums are segment sums over the candidates sorted by voxel
+    (a stable sort: each voxel sums its candidates in index order), with
+    no float atomics, so a near tie resolves the same way on every run."""
+    B, A, M = cands.shape
+    V = 2 * vote_range
+    # a device divisor: CUDA's division by a Python scalar multiplies by its
+    # reciprocal, which moves candidates across voxel edges
+    vox = torch.round(cands / torch.full((), voxel_size, dtype=cands.dtype,
+                                         device=cands.device))
+    vox = (vox.to(torch.int64) + vote_range).clamp(0, V - 1)
+    key = (vox + V * torch.arange(B * A, device=vox.device).reshape(
+        B, A, 1)).reshape(-1)
+    order = torch.sort(key, stable=True).indices
+    sums = torch.segment_reduce(prob.reshape(-1)[order], "sum",
+                                lengths=torch.bincount(key,
+                                                       minlength=B * A * V))
+    best = sums.reshape(B, A, V).argmax(-1)
+    return (best.to(torch.float32) - vote_range) * voxel_size

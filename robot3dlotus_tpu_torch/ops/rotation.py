@@ -1,8 +1,9 @@
-"""Rotation codecs for the action decode (port of the parts of
-robot3dlotus_tpu/ops/rotation.py that `discrete_euler_to_quat` needs).
+"""Rotation codecs on the device for the pose embedding and the action
+decodes (port of robot3dlotus_tpu/ops/rotation.py).
 
 Conventions match scipy.spatial.transform.Rotation: quaternions are xyzw,
-euler angles are extrinsic 'xyz' (R = Rz @ Ry @ Rx).
+euler angles are extrinsic 'xyz' (R = Rz @ Ry @ Rx), and in gimbal lock
+(|beta| = 90 deg) the third angle is 0.
 """
 from __future__ import annotations
 
@@ -16,6 +17,21 @@ _EPS = 1e-8
 def normalize(v, dim=-1, eps=_EPS):
     mag = torch.sqrt(torch.sum(v * v, dim=dim, keepdim=True))
     return v / torch.clamp(mag, min=eps)
+
+
+def quat_to_matrix(q):
+    """(..., 4) xyzw -> (..., 3, 3); q is normalised first."""
+    q = normalize(q)
+    x, y, z, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    xx, yy, zz = x * x, y * y, z * z
+    xy, xz, yz = x * y, x * z, y * z
+    wx, wy, wz = w * x, w * y, w * z
+    m = torch.stack([
+        1 - 2 * (yy + zz), 2 * (xy - wz), 2 * (xz + wy),
+        2 * (xy + wz), 1 - 2 * (xx + zz), 2 * (yz - wx),
+        2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy),
+    ], dim=-1)
+    return m.reshape(q.shape[:-1] + (3, 3))
 
 
 def euler_to_matrix(euler, degrees=False):
@@ -63,8 +79,37 @@ def matrix_to_quat(m):
     return normalize(q)
 
 
+def matrix_to_euler(m, degrees=False):
+    """Inverse of euler_to_matrix, the third angle 0 in gimbal lock."""
+    sb = -m[..., 2, 0]
+    b = torch.asin(torch.clamp(sb, -1.0, 1.0))
+    locked = sb.abs() > 1.0 - 1e-7
+    a_free = torch.atan2(m[..., 2, 1], m[..., 2, 2])
+    c_free = torch.atan2(m[..., 1, 0], m[..., 0, 0])
+    # beta = +90: R[0,1] = sin(a - c), R[1,1] = cos(a - c); beta = -90:
+    # R[0,1] = -sin(a + c), R[1,1] = cos(a + c); c = 0 in both
+    a_lock = torch.where(sb > 0, torch.atan2(m[..., 0, 1], m[..., 1, 1]),
+                         torch.atan2(-m[..., 0, 1], m[..., 1, 1]))
+    a = torch.where(locked, a_lock, a_free)
+    c = torch.where(locked, torch.zeros_like(c_free), c_free)
+    e = torch.stack([a, b, c], dim=-1)
+    return e * (180.0 / math.pi) if degrees else e
+
+
 def euler_to_quat(euler, degrees=False):
     return matrix_to_quat(euler_to_matrix(euler, degrees))
+
+
+def quat_to_euler(q, degrees=False):
+    return matrix_to_euler(quat_to_matrix(q), degrees)
+
+
+def rot6d_to_matrix(poses):
+    """(..., 6) -> (..., 3, 3) with columns x, y, z (Gram-Schmidt)."""
+    x = normalize(poses[..., 0:3])
+    z = normalize(torch.linalg.cross(x, poses[..., 3:6]))
+    y = torch.linalg.cross(z, x)
+    return torch.stack([x, y, z], dim=-1)
 
 
 def discrete_euler_to_quat(disc, resolution):

@@ -394,15 +394,20 @@ def test_summaries_equal_jax(tmp_path, capsys, monkeypatch):
 def test_actioner_jax_keywords(setup, tmp_path):
     expr, data, _ = setup
     cfg = os.path.join(expr, "logs", "training_config.yaml")
+    obs = server.ReplayEnv(store.open_store(data)).reset("synthetic_task0",
+                                                         0, 0)
+    # the 'ens1' vote and shuffled ensembles (held against the JAX
+    # Actioner in test_torch_port_variants.py) serve the same request
     for kw in ({"best_disc_pos": "ens1"}, {"num_ensembles": 2}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md section 1 "
-                                                      "item 2"):
-            Actioner(cfg, device="cpu", **kw)
+        a = Actioner(cfg, device="cpu", device_preprocess=True, **kw)
+        assert a.act_cfg["best_disc_pos"] == kw.get("best_disc_pos", "max")
+        assert a.num_ensembles == kw.get("num_ensembles", 1)
+        assert a.device_preprocess == (a.num_ensembles == 1)
+        act = a.predict("synthetic_task0", 0, 2, obs, episode_id=1)["action"]
+        assert act.shape == (8,) and np.isfinite(act).all()
     out_dir = str(tmp_path / "obs_outs")
     a = Actioner(cfg, device="cpu", best_disc_pos="max", num_ensembles=1,
                  save_obs_outs_dir=out_dir)
-    obs = server.ReplayEnv(store.open_store(data)).reset("synthetic_task0",
-                                                         0, 0)
     act = a.predict("synthetic_task0", 0, 2, obs, episode_id=1)["action"]
     saved = np.load(os.path.join(out_dir, "synthetic_task0+0-1-2.npy"),
                     allow_pickle=True).item()

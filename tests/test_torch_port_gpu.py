@@ -483,6 +483,76 @@ def test_k2_k7_edge_maps(dev, kind):
     _check(*grads)
 
 
+@pytest.mark.parametrize("cin", [263, 260])
+@pytest.mark.parametrize("kind", ["cloud", "none", "duplicates"])
+def test_k2_k7_wide_stem(dev, cin, kind):
+    """The Concat variant's stem: 125 taps, cin = 7 + 256 input channels
+    (263, which the wrappers pad to 264; 260 needs no pad) and 64 outputs.
+    K2 forward, the mirrored K2 (the dx launch, cin outputs) and K7 on a
+    k = 5 map of a cloud, of no live link and of many duplicate voxels:
+    within the bar of the plain versions, bit-equal across two launches,
+    one count per wrapper call; then the autograd dx (K8 onto owners,
+    mirrored K2) against the plain version's autograd."""
+    B, N, cout = 2, 600, 64
+    rng = np.random.RandomState(cin + len(kind))
+    if kind == "none":
+        idx = torch.from_numpy(rng.randint(0, N, (B, N, 125)).astype(
+            np.int32)).to(dev)
+        ok = torch.zeros(B, N, 125, dtype=torch.bool, device=dev)
+    else:
+        gc = rng.randint(0, 12 if kind == "cloud" else 4, (B, N, 3))
+        mask = np.arange(N)[None] < np.array([[N], [N - 77]])
+        nm = build_neighbor_map(torch.from_numpy(gc.astype(np.int32)).to(dev),
+                                torch.from_numpy(mask).to(dev), 5, 6,
+                                extent=128)
+        idx, ok = nm.idx, nm.ok
+    x = _randn(rng, dev, B, N, cin)
+    w = _randn(rng, dev, 125, cin, cout, scale=(125 * cin) ** -0.5)
+    g = _randn(rng, dev, B, N, cout)
+    out = _twice(lambda: conv.subm_conv(x, idx, ok, w), "subm_conv")
+    _check(out, conv.subm_conv_plain(x, idx, ok, w))
+    wm = conv.mirror_weight(w)
+    dx = _twice(lambda: conv.subm_conv(g, idx, ok, wm), "subm_conv")
+    assert dx.shape == (B, N, cin)
+    _check(dx, conv.subm_conv_plain(g, idx, ok, wm))
+    dw = _twice(lambda: conv.conv_weight_grad(x, idx, ok, g),
+                "conv_weight_grad")
+    assert dw.shape == (125, cin, cout)
+    _check(dw, conv.conv_weight_grad_plain(x, idx, ok, g))
+    if kind == "none":
+        assert not out.any() and not dw.any()
+    grads = []
+    for fn in (conv.subm_conv, conv.subm_conv_plain):
+        xr = x.clone().requires_grad_()
+        wr = w.clone().requires_grad_()
+        fn(xr, idx, ok, wr).backward(g)
+        grads.append((xr.grad, wr.grad))
+    for got, want in zip(*grads):
+        _check(got, want)
+
+
+def test_k2_k7_wide_stem_long_sums(dev):
+    """The wide stem at B = 8 clouds of 4096 points: K7's sums over 32768
+    rows and K2's over 125 taps within 1e-4 of the plain version's largest
+    value."""
+    B, N, C = 8, 4096, 263
+    rng = np.random.RandomState(7)
+    gc = rng.randint(0, 40, (B, N, 3)).astype(np.int32)
+    nm = build_neighbor_map(torch.from_numpy(gc).to(dev),
+                            torch.ones(B, N, dtype=torch.bool, device=dev),
+                            5, 6, extent=128)
+    x = _randn(rng, dev, B, N, C)
+    w = _randn(rng, dev, 125, C, 64, scale=(125 * C) ** -0.5)
+    g = _randn(rng, dev, B, N, 64)
+    for got, want in ((conv.conv_weight_grad(x, nm.idx, nm.ok, g),
+                       conv.conv_weight_grad_plain(x, nm.idx, nm.ok, g)),
+                      (conv.subm_conv(x, nm.idx, nm.ok, w),
+                       conv.subm_conv_plain(x, nm.idx, nm.ok, w))):
+        torch.cuda.synchronize()
+        assert float((got - want).abs().max()) <= \
+            TOL * float(want.abs().max())
+
+
 @pytest.mark.parametrize("D", [7, 64, 768])
 def test_k8_scatter_rows_add_colliding(dev, D):
     """K8 with many indices colliding on few rows (the duplicate padding of

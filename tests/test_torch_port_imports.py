@@ -6,8 +6,10 @@ reader, the voxelizer is its own C++, HTTP through the standard library,
 result files are locked with fcntl), and tensorboardX only inside a try
 that lets it be absent; importing the port loads none of them; the eval
 server's producer side and the loader's worker module import no torch;
-entry points (the Actioner, build_model, the trainer) run on CUDA by
-default and raise without a card unless the caller passes device='cpu'; the native library builds under build/native/, and a
+entry points (the Actioner, build_model for each of the five model
+classes, the trainer) run on CUDA by default and raise without a card
+unless the caller passes device='cpu'; the native library builds under
+build/native/, and a
 failed build raises (there is no numpy fallback); chip_smoke.py ends every
 process it started (the loader's forkserver, the resource tracker, orphans)
 before it prints its result."""
@@ -94,6 +96,10 @@ def test_import_loads_no_jax():
             "robot3dlotus_tpu_torch.eval.serving, "
             "robot3dlotus_tpu_torch.preprocess.evaluate_microsteps, "
             "robot3dlotus_tpu_torch.scripts.summarize_tst_results, "
+            "robot3dlotus_tpu_torch.models.factory, "
+            "robot3dlotus_tpu_torch.models.heads, "
+            "robot3dlotus_tpu_torch.ops.rotation, "
+            "robot3dlotus_tpu_torch.ops.pos_codec, "
             "robot3dlotus_tpu_torch.native; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'msgpack', 'robot3dlotus_tpu', 'lmdb', "
@@ -140,6 +146,38 @@ def test_entry_points_need_a_card_unless_cpu():
         dec_num_head=[2] * 4))
     assert next(build_model(tiny, device="cpu").parameters()).device.type \
         == "cpu"
+
+
+MODEL_CLASSES = ("SimplePolicyPTV3AdaNorm", "SimplePolicyPTV3CA",
+                 "SimplePolicyPTV3Concat", "MotionPlannerPTV3AdaNorm",
+                 "MotionPlannerPTV3CA")
+
+
+@pytest.mark.parametrize("cls", MODEL_CLASSES)
+def test_every_model_class_builds_on_cpu_and_needs_a_card(cls):
+    """build_model maps all five classes of the JAX factory: each builds
+    on the CPU when asked (the AdaNorm ones with adaptive norms, the Concat
+    stem 7 + context channels wide) and raises without a card by
+    default."""
+    import yaml
+    from robot3dlotus_tpu_torch.models.factory import build_model
+    with open(RELEASE_CFG) as f:
+        model_cfg = yaml.safe_load(f)["MODEL"]
+    tiny = dict(model_cfg, model_class=cls, ptv3_config=dict(
+        model_cfg["ptv3_config"], enc_channels=[16, 16, 16, 16, 16],
+        dec_channels=[16, 16, 16, 16], enc_num_head=[2] * 5,
+        dec_num_head=[2] * 4, pdnorm_adaptive=True))
+    model = build_model(tiny, device="cpu")
+    names = [n for n, _ in model.named_parameters()]
+    assert any(".modulation." in n for n in names) == cls.endswith("AdaNorm")
+    assert any("_cablock" in n for n in names) == cls.endswith("CA")
+    ctx = model_cfg["action_config"]["context_channels"]
+    stem = model.ptv3_model.embedding_stem_conv.weight.shape[1]
+    if cls.startswith("SimplePolicy"):
+        assert stem == 7 + (ctx if cls.endswith("Concat") else 0)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build_model(tiny)
 
 
 def test_native_library_builds_under_build_native():
