@@ -52,6 +52,24 @@ Phases, each of which raises on failure (exit code != 0, no result line):
              (profile_fused.txt);
   6. reference the card's logits for one observation against the same
              weights on the CPU (the plain path);
+ 6a. bf16      serving at ptv3_config compute_dtype bfloat16 (BF16_OPTS;
+             the seed-0 weights): one captured predict (every K1-K4 call
+             against its bf16 plain version and timed: K4 bit-equal; K1,
+             K2, K3 bit-equal across two launches and within one bf16 ulp
+             of the plain value plus 1e-4 of its scale, K1 plus one bf16
+             ulp of each probability's share, ops/bf16.py; bounds at
+             989 TFLOP/s bf16; library SDPA in bf16 for K1, the im2col
+             gather + matmul for K2 / K3) and a predict_batch of 4
+             (checked); phase 4 with launches held at BF16_PER_FORWARD (the
+             bf16 counters; the fp32 ones 0); phase 5 (profile_forward_
+             bf16.txt); the heads against the fp32 forward on the card
+             (0.08 x max(1, |fp32|), the JAX package's bar) and the CPU
+             port at bf16 (0.02, the CPU tests'), a hook holding the
+             backbone's activations bf16; predict p50, device busy,
+             launches and host synchronizes per forward beside phases 4-5's;
+             then the AdaNorm and Concat policies at bf16: one predict, its
+             calls checked (the Concat stem's K2 at 125 taps timed), its
+             launches held, its heads against its fp32 forward;
   7. train-capture  the trainer of the release YAML on synthetic_reach
              (train_simple_policy's build_trainer, B = 32 clouds x 4096
              points, release dropout rates, order shuffling under
@@ -172,6 +190,13 @@ seeded weights) behind the ground-truth pipeline (robot_pipeline_gt.yaml):
              beside the other outputs); the card's trajectory logits against
              the same weights on the CPU (1e-3 * max(1, |ref|)), decoded
              actions finite;
+ 15a. bf16-mp  the motion planner at compute_dtype bfloat16 behind the GT
+             pipeline (seed 0): one request captured (its bf16 K9 call, the
+             categorical stem's, timed; every K1, K2, K4 and K9 call
+             against its bf16 plain version), phase 15 with launches held
+             at BF16_MP_PER_FORWARD, the trajectory heads against the fp32
+             engine's and the CPU port's at bf16 as in 6a, request p50 and
+             device busy beside phase 15's;
  16. mp-kernels   K9 on every captured call bit-equal to its plain version
              (device time from the profiler beside the event time);
              K10 on the captured stem index with seeded cotangents at C = 5
@@ -291,6 +316,7 @@ from robot3dlotus_tpu_torch.models.simple_policy import (compute_loss,
 from robot3dlotus_tpu_torch import native
 from robot3dlotus_tpu_torch.ops import (attention, conv, cuda_lib, gather,
                                         patching, pooling, sparse_conv, stem)
+from robot3dlotus_tpu_torch.ops.bf16 import bf16_excess
 from robot3dlotus_tpu_torch.train import checkpoint as ckpt_mod, driver
 from robot3dlotus_tpu_torch.train.checkpoint import load_any_model_ckpt
 from robot3dlotus_tpu_torch.train.datasets.loader import (KeystepBatchLoader,
@@ -344,6 +370,18 @@ KERNELS = {
     "scatter_rows_smallc_add": (
         "robot3dlotus_tpu_torch/csrc/gather_smallc.cu",
         "robot3dlotus_tpu/ops/pallas_gather.py:272"),
+    # the bf16 paths (compute_dtype bfloat16) of K1-K4 and K9
+    "patch_attention_bf16": ("robot3dlotus_tpu_torch/csrc/attention.cu",
+                             "robot3dlotus_tpu/ops/pallas_attention.py:66"),
+    "subm_conv_bf16": ("robot3dlotus_tpu_torch/csrc/conv.cu",
+                       "robot3dlotus_tpu/ops/pallas_conv.py:397"),
+    "stem_conv_bf16": ("robot3dlotus_tpu_torch/csrc/stem.cu",
+                       "robot3dlotus_tpu/ops/pallas_stem.py:138"),
+    "gather_rows_bf16": ("robot3dlotus_tpu_torch/csrc/gather.cu",
+                         "robot3dlotus_tpu/ops/pallas_gather.py:133"),
+    "gather_rows_smallc_bf16": (
+        "robot3dlotus_tpu_torch/csrc/gather_smallc.cu",
+        "robot3dlotus_tpu/ops/pallas_gather.py:353"),
 }
 # the trainer of the release YAML on the learnable synthetic store
 # (scripts/e2e_learning_proof.py makes the same overrides)
@@ -501,6 +539,7 @@ DEVICE_GROUPS = [
     ("K3 stem_conv", ("stem_conv",)),
     ("K4/K8 gather, scatter-add", ("gather_rows_kernel",
                                    "scatter_rows_add_kernel")),
+    ("bf16 GEMM (cuBLAS nvjet)", ("nvjet",)),
     ("fp32 GEMM (cuBLAS/CUTLASS)", ("gemm", "sgemm")),
     ("LayerNorm fwd/bwd", ("layer_norm",)),
     ("reductions", ("reduce_kernel",)),
@@ -744,8 +783,8 @@ def check_gather(kernel, args, timing=None):
            "sentinel_rows": int(((idx < 0) | (idx >= N)).sum())}
     if timing is None:
         return out
-    bound_ms, t_b, t_f = _bound(4 * (x.numel() + got.numel()) +
-                                idx.numel() * idx.element_size(), 0)
+    bound_ms, t_b, t_f = _bound(x.element_size() * (x.numel() + got.numel())
+                                + idx.numel() * idx.element_size(), 0)
     return {**out, "ms": cuda_ms(run, **timing),
             "device_ms": device_ms(run, name),
             "plain_ms": cuda_ms(plain, **timing),
@@ -1208,6 +1247,8 @@ def breakdown_phase(actioner, observations, out_dir,
            "device_launches_per_forward": _device_launches(events, 3),
            "host_launches_per_forward": _host_launches(events, 3),
            "host_syncs_per_forward": _host_syncs(events, 3),
+           "copy_launches_per_forward": _copy_launches(events, 3),
+           "device_ms_by_group": _group_device_ops(kernels),
            "device_idle_share": 1.0 - busy_ms / fwd_p50,
            "top_device_ops": [{"name": k[0][:80], "ms": k[1], "count": k[2]}
                               for k in kernels[:15]]}
@@ -1216,7 +1257,8 @@ def breakdown_phase(actioner, observations, out_dir,
         f"{out['profiled_forward_wall_ms']:.2f} ms wall); device busy "
         f"{busy_ms:.2f} ms per forward in "
         f"{out['device_launches_per_forward']:.2f} device launches (kernels, "
-        f"memcpy, memset), {out['host_syncs_per_forward']:.1f} host "
+        f"memcpy, memset; {out['copy_launches_per_forward']:.1f} of them "
+        f"copy / cast kernels), {out['host_syncs_per_forward']:.1f} host "
         f"synchronizes, idle share of the unprofiled forward "
         f"{out['device_idle_share']:.3f}")
     log(f"[{tag}] host prep parts p50 (ms): " + ", ".join(
@@ -1391,6 +1433,352 @@ def logits_close(gpu, cpu, keys, what):
     return errs
 
 
+# ---------------------------------------------------------------- bf16 -----
+
+# serving at ptv3_config compute_dtype bfloat16: the release YAMLs with this
+# override; the model files and seeded weights are the fp32 ones
+BF16_OPTS = ["MODEL.ptv3_config.compute_dtype", "bfloat16"]
+BF16_FLOPS_PER_S = 989e12   # H100 SXM data sheet, dense bf16 tensor cores
+# bar of a bf16 forward's heads against the same weights' fp32 forward (the
+# JAX package's own, tests/test_policy.py) and against the port's bf16
+# forward on the CPU (tests/test_torch_port_bf16.py HEAD_TOL): each of
+# max(1, max|ref|)
+BF16_VS_FP32_TOL = 0.08
+BF16_CPU_TOL = 0.02
+# launches per bf16 forward: the bf16 paths of K1-K4 take phase 4's counts
+# and their fp32 paths none; the motion planner's stage-0 entry sort stays
+# fp32 K9 (its input features are fp32), its categorical stem is bf16 K9
+BF16_PER_FORWARD = {"patch_attention_bf16": 9, "subm_conv_bf16": 9,
+                    "stem_conv_bf16": 1, "gather_rows_bf16": 4,
+                    "gather_rows_smallc_bf16": 0, "patch_attention": 0,
+                    "subm_conv": 0, "stem_conv": 0, "gather_rows": 0,
+                    "gather_rows_smallc": 0}
+BF16_CONCAT_PER_FORWARD = dict(BF16_PER_FORWARD, subm_conv_bf16=10,
+                               stem_conv_bf16=0)
+BF16_MP_PER_FORWARD = dict(BF16_PER_FORWARD, stem_conv_bf16=0,
+                           gather_rows_smallc=1, gather_rows_smallc_bf16=1,
+                           scatter_rows_smallc_add=0, conv_weight_grad=0,
+                           scatter_rows_add=0, patch_attention_dropout=0,
+                           patch_attention_dropout_bwd=0)
+# the bf16 kernels of the kernels line, by their counter: the kernel each
+# captured call goes to
+BF16_SITES = {"patch_attention": "patch_attention_bf16",
+              "subm_conv": "subm_conv_bf16", "stem_conv": "stem_conv_bf16",
+              "gather_rows": "gather_rows_bf16",
+              "gather_rows_smallc": "gather_rows_smallc_bf16"}
+
+
+def check_bf16_call(kernel, args, timed=True):
+    """One captured bf16 call (compute_dtype bfloat16). K4 and K9 (copies)
+    bit-equal to their plain versions; K1, K2 and K3 bit-equal across two
+    launches and within the bar of ops/bf16.py of theirs: |kernel - plain|
+    <= one bf16 ulp of max(|kernel|, |plain|) + 1e-4 * max(1, max|plain|)
+    (fp32 sums taken in another order before the one rounding), K1 plus
+    2^-7 sum_j p_j |v_j| (one bf16 ulp of each probability it rounds). If
+    `timed`: event and profiler device times, the plain version's, the
+    library call's (SDPA in bf16 for K1, the im2col gather + matmul in bf16
+    for K2 / K3; torch.gather for K4 / K9, check_gather), and the bound:
+    bytes at 3.35 TB/s against the flops (K2, K3: this call's live links)
+    at 989 TFLOP/s bf16."""
+    if kernel in GATHERS:
+        return check_gather(kernel, args, {} if timed else None)
+    extra = None
+    if kernel == "patch_attention":
+        q, k, v, kv, scale = args
+        run = lambda: attention.patch_attention(q, k, v, kv, scale)  # noqa
+        plain = lambda: attention.patch_attention_plain(q, k, v, kv, scale)  # noqa
+        library = lambda: _sdpa(q, k, v, kv, scale)  # noqa: E731
+        G, H, P, Dh = q.shape
+        shape = [G, H, P, Dh]
+        nbytes = 2 * 4 * q.numel() + kv.numel()
+        flops = 4 * G * H * P * P * Dh
+        profile = K1_PROFILE
+        extra = attention.bf16_probability_allowance(q, k, v, kv, scale)
+    elif kernel == "subm_conv":
+        x, idx, ok, w, bias = args
+        run = lambda: conv.subm_conv(x, idx, ok, w, bias)  # noqa: E731
+        plain = lambda: conv.subm_conv_plain(x, idx, ok, w, bias)  # noqa
+        library = _im2col(x, idx, ok, w)
+        B, N, Cin = x.shape
+        K, _, Cout = w.shape
+        shape = [B, N, K, Cin, Cout]
+        nbytes = 2 * (x.numel() + w.numel() + B * N * Cout) + 4 * Cout + \
+            5 * idx.numel()
+        flops = 2 * Cin * Cout * int(ok.sum())
+        profile = K2_PROFILE
+    else:
+        x, idx, ok, w = args
+        run = lambda: stem.stem_conv(x, idx, ok, w)  # noqa: E731
+        plain = lambda: stem.stem_conv_plain(x, idx, ok, w)  # noqa
+        library = _im2col(x, idx, ok, w)
+        B, N, Cin = x.shape
+        K, _, Cout = w.shape
+        shape = [B, N, K, Cin, Cout]
+        nbytes = 2 * (x.numel() + w.numel() + B * N * Cout) + \
+            5 * idx.numel()
+        flops = 2 * Cin * Cout * int(ok.sum())
+        profile = K3_PROFILE
+    got = _twice(run, f"bf16 {kernel} {shape}")
+    want = plain()
+    torch.cuda.synchronize()
+    if got.dtype != torch.bfloat16 or want.dtype != torch.bfloat16:
+        raise AssertionError(f"bf16 {kernel} {shape}: {got.dtype} output")
+    err = float((got.float() - want.float()).abs().max())
+    excess = bf16_excess(got, want, extra=extra)
+    if not bool(torch.isfinite(got).all()) or excess > 0:
+        raise AssertionError(f"bf16 {kernel} {shape}: max |kernel - plain| "
+                             f"= {err}, {excess} past the bf16 bar")
+    scale_ref = max(1.0, float(want.float().abs().max()))
+    out = {"shape": shape, "max_abs_err": err, "max_rel_err": err / scale_ref,
+           "bar_excess": excess}
+    if not timed:
+        return out
+    bound_ms, t_b, t_f = _bound(nbytes, flops, BF16_FLOPS_PER_S)
+    return {**out, "ms": cuda_ms(run),
+            "device_ms": device_ms(run, profile[0], also=profile[1]),
+            "plain_ms": cuda_ms(plain), "library_ms": cuda_ms(library),
+            "bound_ms": bound_ms, "bytes_s": t_b, "flops_s": t_f}
+
+
+def bf16_kernel_rows(calls, timed_calls, tag):
+    """Every captured bf16 call checked (check_bf16_call); the row of each
+    bf16 kernel summed over `timed_calls` (one forward's), as the kernels
+    line wants it."""
+    rows, detail = {}, []
+    for site, kernel in BF16_SITES.items():
+        timed = timed_calls.get(site, [])
+        res = [check_bf16_call(site, c) for c in timed]
+        res += [check_bf16_call(site, c, timed=False)
+                for c in calls.get(site, [])]
+        detail += [dict(r, name=kernel) for r in res]
+        t = [r for r in res if "ms" in r]
+        if not t:
+            continue
+        rows[kernel] = {
+            "max_abs_err": max(r["max_abs_err"] for r in res),
+            "max_rel_err": max(r["max_rel_err"] for r in res),
+            "ms": sum(r["ms"] for r in t),
+            "device_ms": _total(r["device_ms"] for r in t),
+            "plain_ms": sum(r["plain_ms"] for r in t),
+            "bound_ms": sum(r["bound_ms"] for r in t),
+            "bound_by": "bytes" if sum(r["bytes_s"] for r in t) >=
+            sum(r["flops_s"] for r in t) else "operations",
+            "library_ms": sum(r["library_ms"] for r in t),
+            "calls": len(t), "checked_calls": len(res)}
+        r = rows[kernel]
+        log(f"[{tag}] {kernel}: {len(res)} calls within the bf16 bar (max "
+            f"|kernel - plain| {r['max_abs_err']:.3g}); per forward "
+            f"({len(t)} calls) {r['ms']:.4f} ms, device {r['device_ms']} "
+            f"(plain {r['plain_ms']:.4f}, library {r['library_ms']:.4f}, "
+            f"bound {r['bound_ms']:.4f} by {r['bound_by']})")
+    return rows, detail
+
+
+def _heads_vs(got, ref, keys, tol, what):
+    """max |got - ref| of each head over the entries the model does not
+    mask, within tol * max(1, max|ref|); raises otherwise."""
+    errs = {}
+    for k in keys:
+        g, r = got[k].float().cpu(), ref[k].float().cpu()
+        if g.dtype != torch.float32 or got[k].dtype != torch.float32:
+            raise AssertionError(f"{what}{k}: head in {got[k].dtype}")
+        live = r > -1e8
+        errs[k] = float((g - r)[live].abs().max())
+        lim = tol * max(1.0, float(r[live].abs().max()))
+        if not bool(torch.isfinite(g[live]).all()) or errs[k] > lim:
+            raise AssertionError(f"{what}{k}: max |diff| {errs[k]} > {lim}")
+    return errs
+
+
+def bf16_vs_references(model16, model32, batch, keys, cli_model, tag):
+    """One bf16 forward on the card against the same weights' fp32 forward
+    on the card (BF16_VS_FP32_TOL) and the bf16 port on the CPU
+    (BF16_CPU_TOL); the backbone's activations bf16 (a forward hook on
+    every block)."""
+    seen = []
+    hooks = [m.register_forward_hook(
+        lambda mod, a, out: seen.append(
+            (out[0] if isinstance(out, tuple) else out).dtype))
+        for m in model16.ptv3_model.modules()
+        if type(m).__name__ in ("Block", "CABlock")]
+    try:
+        with torch.inference_mode():
+            got = model16(batch)
+    finally:
+        for h in hooks:
+            h.remove()
+    if not seen or any(d != torch.bfloat16 for d in seen):
+        raise AssertionError(f"{tag}: backbone activations {set(seen)}")
+    state32 = model32.state_dict()
+    for k, v in model16.state_dict().items():
+        if not torch.equal(v, state32[k]):
+            raise AssertionError(f"{tag}: the fp32 model's {k} differs")
+    cpu = build_model(cli_model, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in
+                         model16.state_dict().items()})
+    with torch.inference_mode():
+        fp32 = model32(batch)
+        ref = cpu({k: v.cpu() for k, v in batch.items()})
+    out = {"vs_fp32": _heads_vs(got, fp32, keys, BF16_VS_FP32_TOL,
+                                f"{tag} bf16 vs fp32 "),
+           "vs_cpu_bf16": _heads_vs(got, ref, keys, BF16_CPU_TOL,
+                                    f"{tag} card vs CPU at bf16 ")}
+    log(f"[{tag}] heads, max |bf16 - fp32| on the card (bar "
+        f"{BF16_VS_FP32_TOL} x max(1, |fp32|)): {out['vs_fp32']}; card vs "
+        f"the CPU port at bf16 (bar {BF16_CPU_TOL}): {out['vs_cpu_bf16']}")
+    return out
+
+
+def _launches_of(run):
+    cuda_lib.reset_launches()
+    run()
+    torch.cuda.synchronize()
+    return dict(cuda_lib.LAUNCHES)
+
+
+def _held(launches, per_forward, forwards, what):
+    for k, per in per_forward.items():
+        if launches[k] != per * forwards:
+            raise AssertionError(f"{what}: {k} launched {launches[k]} times "
+                                 f"in {forwards} forwards, expected {per} "
+                                 f"each")
+
+
+def bf16_phase(actioner, observations, serving32, breakdown32, out_dir):
+    """compute_dtype bfloat16 serving of the policy at the release width,
+    the seed-0 weights of phase 4 (an fp32 file serves at bf16 as it is):
+    a captured predict (every K1-K4 call against its bf16 plain version,
+    timed) and a predict_batch of 4 (checked); phase 4's requests with
+    launches held at BF16_PER_FORWARD; phase 5's breakdown; the heads
+    against the fp32 forward and the CPU port at bf16; predict p50, device
+    busy, launches and host synchronizes per forward beside phase 4/5's
+    fp32 ones. Then the AdaNorm and Concat policies at bf16: one predict
+    each, its calls checked (the Concat stem's K2 at 125 taps timed), its
+    launches held, its heads against its fp32 forward."""
+    tag = "bf16"
+    t0 = time.perf_counter()
+    cli = CLI_OPTS + BF16_OPTS
+    a16 = Actioner(CONFIG, cli_opts=cli, device="cuda", seed=0)
+    log(f"[{tag}] release-width Actioner at compute_dtype bfloat16 built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    a16.rng = np.random.default_rng(0)
+    one = capture_main_path(
+        lambda: a16.predict(**requests(observations)[0]))
+    four = capture_main_path(
+        lambda: a16.predict_batch(requests(observations)))
+    _held({k: len(one.get(s, [])) for s, k in BF16_SITES.items()},
+          {k: BF16_PER_FORWARD[k] for k in BF16_SITES.values()}, 1,
+          f"{tag} captured forward")
+    rows, detail = bf16_kernel_rows(four, one, tag)
+    del one, four
+    serving16 = serving_phase(a16, observations, BF16_PER_FORWARD,
+                              "bf16-serving")
+    breakdown16 = breakdown_phase(a16, observations, out_dir,
+                                  "profile_forward_bf16.txt",
+                                  "bf16-breakdown")
+    a16.rng = np.random.default_rng(3)
+    emb, pc_ft, _, _, ee = a16._host_prep("close_jar", 0, observations[0],
+                                          None)
+    batch = a16._batch([(pc_ft, emb, ee, 0)], 1)
+    heads = bf16_vs_references(a16.model, actioner.model, batch,
+                               ("pos", "rot", "open"), a16.config.MODEL, tag)
+    side = {}
+    for name, r32, r16 in (
+            ("predict_p50_ms", serving32, serving16),
+            ("device_busy_ms_per_forward", breakdown32, breakdown16),
+            ("host_launches_per_forward", breakdown32, breakdown16),
+            ("device_launches_per_forward", breakdown32, breakdown16),
+            ("host_syncs_per_forward", breakdown32, breakdown16),
+            ("copy_launches_per_forward", breakdown32, breakdown16),
+            ("device_idle_share", breakdown32, breakdown16)):
+        side[name] = {"fp32": r32[name], "bf16": r16[name]}
+    log(f"[{tag}] bf16 beside fp32 (this run, B = 1): " + "; ".join(
+        f"{k} {v['bf16']:.2f} vs {v['fp32']:.2f}" for k, v in side.items()))
+    g32 = breakdown32["device_ms_by_group"]
+    for g, v in breakdown16["device_ms_by_group"].items():
+        f = g32.get(g, {"ms": 0.0, "count": 0})
+        log(f"[{tag}]   {g}: bf16 {v['ms']:.4f} ms x{v['count']}, fp32 "
+            f"{f['ms']:.4f} ms x{f['count']} per forward")
+    del a16
+    torch.cuda.empty_cache()
+
+    variants = {}
+    for vtag, opts, per in (("adanorm", ADANORM_OPTS, BF16_PER_FORWARD),
+                            ("concat", CONCAT_OPTS,
+                             BF16_CONCAT_PER_FORWARD)):
+        vt = f"bf16-{vtag}"
+        v16 = Actioner(CONFIG, cli_opts=cli + opts, device="cuda", seed=0)
+        v32 = Actioner(CONFIG, cli_opts=CLI_OPTS + opts, device="cuda",
+                       seed=0)
+        v16.rng = np.random.default_rng(0)
+        captured = capture_main_path(
+            lambda: v16.predict(**requests(observations)[0]))
+        stem = [c for c in captured["subm_conv"] if c[3].shape[0] == 125]
+        vrows, vdetail = bf16_kernel_rows(
+            captured, {"subm_conv": stem[:1]} if stem else {}, vt)
+        launches = _launches_of(
+            lambda: v16.predict(**requests(observations)[1]))
+        _held(launches, per, 1, vt)
+        v16.rng = np.random.default_rng(3)
+        emb, pc_ft, _, _, ee = v16._host_prep("close_jar", 0,
+                                              observations[0], None)
+        batch = v16._batch([(pc_ft, emb, ee, 0)], 1)
+        variants[vtag] = {
+            "launches": launches, "calls": vdetail,
+            "heads": bf16_vs_references(v16.model, v32.model, batch,
+                                        ("pos", "rot", "open"),
+                                        v16.config.MODEL, vt)}
+        if stem:
+            variants[vtag]["stem_forward_b1"] = vrows["subm_conv_bf16"]
+        del v16, v32, captured, stem
+        torch.cuda.empty_cache()
+    return {"kernels": rows, "calls": detail, "serving": serving16,
+            "breakdown": breakdown16, "heads": heads,
+            "bf16_beside_fp32": side, "variants": variants}
+
+
+def bf16_mp_phase(engine32, mp_obs, mp_serving32, out_dir):
+    """The motion planner at compute_dtype bfloat16 behind the GT pipeline
+    (seed-0 weights, those of phase 15's fp32 engine): one request
+    captured (its bf16 K9 call, the categorical stem's, timed; every
+    K1, K2, K4 and K9 call against its bf16 plain version), phase 15's
+    requests with launches held at BF16_MP_PER_FORWARD, the trajectory
+    heads against the fp32 engine's and the CPU port's at bf16, request
+    p50 and device busy beside phase 15's."""
+    tag = "bf16-mp"
+    e16 = MotionPlannerEngine(MP_CONFIG, cli_opts=BF16_OPTS, device="cuda",
+                              seed=0)
+    p16 = mp_pipeline(e16)
+    captured = capture(lambda: mp_episode(p16, mp_obs[:1], 0),
+                       SERVING_SITES + SMALLC_SITES)
+    calls = {k: [a for a, _ in v] for k, v in captured.items()}
+    # K9's bf16 call is the categorical stem's (the entry sort's is fp32)
+    cat = [c for c in calls.pop("gather_rows_smallc")
+           if c[0].dtype == torch.bfloat16]
+    rows, detail = bf16_kernel_rows(calls, {"gather_rows_smallc": cat}, tag)
+    del captured, calls, cat
+    serving16, row = mp_serving_phase(p16, mp_obs, out_dir,
+                                      "profile_mp_forward_bf16.txt", tag,
+                                      BF16_MP_PER_FORWARD)
+    inp, txt = row
+    batch = e16._batch(inp["pc_fts"], inp["pc_labels"], txt)
+    heads = bf16_vs_references(e16.model, engine32.model, batch,
+                               ("pos", "rot", "open", "stop"),
+                               e16.config.MODEL, tag)
+    side = {k: {"fp32": mp_serving32[k], "bf16": serving16[k]}
+            for k in ("request_p50_ms", "predict_ms_p50",
+                      "device_busy_ms_per_forward",
+                      "host_launches_per_forward",
+                      "device_launches_per_forward",
+                      "copy_launches_per_forward", "device_idle_share")}
+    log(f"[{tag}] bf16 beside fp32 (this run): " + "; ".join(
+        f"{k} {v['bf16']:.2f} vs {v['fp32']:.2f}" for k, v in side.items()))
+    del e16, p16
+    torch.cuda.empty_cache()
+    return {"kernels": rows, "calls": detail, "serving": serving16,
+            "heads": heads, "bf16_beside_fp32": side}
+
+
 # ------------------------------------------------------------ training -----
 
 TRAIN_TIMING = dict(rounds=5, reps=2, warmup=1)
@@ -1459,6 +1847,14 @@ def _host_launches(events, n):
     it is issued, which the profiler records in full (its device-side
     count of one repeated forward moves between windows)."""
     return sum(e.count for e in events if e.key in HOST_LAUNCH_CALLS) / n
+
+
+def _copy_launches(events, n):
+    """Device copy kernels per unit of a profile over n units: dtype casts
+    (a bf16 forward's per-call weight casts among them) and contiguous
+    copies."""
+    return sum(e.count for e in _device_events(events)
+               if "copy_kernel" in e.key) / n
 
 
 def _host_syncs(events, n):
@@ -3000,15 +3396,17 @@ def mp_inputs(pipe, obs):
 
 
 def mp_serving_phase(pipe, observations, out_dir,
-                     profile_name="profile_mp_forward.txt", tag="mp-serving"):
-    """4 counted pipeline requests, then host prep vs device forward per
-    request and a profiler window over 3 forwards."""
+                     profile_name="profile_mp_forward.txt", tag="mp-serving",
+                     per_forward=MP_PER_FORWARD):
+    """4 counted pipeline requests (launches held at per_forward), then
+    host prep vs device forward per request and a profiler window over 3
+    forwards."""
     mp_episode(pipe, observations[:1], 7)                 # warm-up
     torch.cuda.synchronize()
     cuda_lib.reset_launches()
     actions, lat = mp_episode(pipe, observations, 1)
     launches = dict(cuda_lib.LAUNCHES)
-    for k, per in MP_PER_FORWARD.items():
+    for k, per in per_forward.items():
         if launches[k] != per * len(observations):
             raise AssertionError(f"{k}: {launches[k]} launches in "
                                  f"{len(observations)} pipeline requests, "
@@ -3061,6 +3459,8 @@ def mp_serving_phase(pipe, observations, out_dir,
            "device_launches_per_forward": _device_launches(events,
                                                            len(batches)),
            "host_launches_per_forward": _host_launches(events, len(batches)),
+           "copy_launches_per_forward": _copy_launches(events,
+                                                       len(batches)),
            "device_idle_share": 1.0 - busy / fwd_p50,
            "device_ms_by_group": _group_device_ops(ops),
            "launches": launches, "actions": [a.tolist() for a in actions]}
@@ -3602,7 +4002,8 @@ def run():
         if m:
             log(f"[build] ptxas {m.group(1)}"
                 f"{'<' + m.group(2) + '>' if m.group(2) else ''}"
-                f"{' int64' if m.group(3) == 'x' else ''}: {use}")
+                f"{' int64' if m.group(3) == 'x' else ''}"
+                f"{' bf16' if 'bfloat16' in name else ''}: {use}")
 
     t0 = time.perf_counter()
     actioner = Actioner(CONFIG, cli_opts=CLI_OPTS, device="cuda", seed=0)
@@ -3622,6 +4023,7 @@ def run():
     breakdown = breakdown_phase(actioner, observations, out_dir)
     fused = fused_phase(actioner, observations, out_dir)
     ref = reference_phase(actioner, observations[0])
+    bf16 = bf16_phase(actioner, observations, serving, breakdown, out_dir)
     del actioner
 
     t0 = time.perf_counter()
@@ -3684,6 +4086,7 @@ def run():
     mp_fwd_k2 = mp_forward_k2(mp_fwd_captured.pop("subm_conv"))
     mp_serving, mp_row = mp_serving_phase(pipe, mp_obs, out_dir)
     mp_serving["reference_max_diff"] = mp_reference_phase(engine, mp_row)
+    bf16_mp = bf16_mp_phase(engine, mp_obs, mp_serving, out_dir)
     del engine, pipe
     torch.cuda.empty_cache()
     mp_train, mp_train_launches, mp_step_captured, mp_host = \
@@ -3748,7 +4151,7 @@ def run():
                    "mp_stem_vjp": mp_stem_vjp, "ckpt": ckpt,
                    "mp_ckpt": mp_ckpt, "adanorm": adanorm,
                    "concat": concat, "mp_adanorm": mp_adanorm,
-                   "variants": variants},
+                   "variants": variants, "bf16": bf16, "bf16_mp": bf16_mp},
                   f, indent=1)
     # each kernel's launches in the run of its own slice's main path: K1-K4
     # policy serving, K5-K8 policy training, K9 motion-planner serving, K10
@@ -3756,6 +4159,10 @@ def run():
     # run's count for every kernel
     rows.update(train_rows)
     rows.update(mp_rows)
+    rows.update(bf16["kernels"])
+    rows.update(bf16_mp["kernels"])
+    rows["subm_conv_bf16"]["concat_stem_b1"] = \
+        bf16["variants"]["concat"]["stem_forward_b1"]
     rows["patch_attention"]["validation_b32"] = {
         k: v for k, v in ckpt["k1_b32"].items() if k != "calls"}
     rows["patch_attention"]["mp_validation_b32"] = {
@@ -3784,11 +4191,17 @@ def run():
              "concat_training": concat["training_launches"],
              "mp_adanorm_serving": mp_adanorm["launches"],
              "mp_adanorm_training": mp_adanorm["training_launches"],
-             "ensemble_serving": variants["ensemble"]["launches"]}
+             "ensemble_serving": variants["ensemble"]["launches"],
+             "bf16_serving": bf16["serving"]["launches"],
+             "bf16_mp_serving": bf16_mp["serving"]["launches"],
+             "bf16_adanorm_serving": bf16["variants"]["adanorm"]["launches"],
+             "bf16_concat_serving": bf16["variants"]["concat"]["launches"]}
     main_path = dict.fromkeys(PER_FORWARD, "serving")
     main_path.update(dict.fromkeys(TRAIN_KERNELS, "training"))
     main_path.update(gather_rows_smallc="mp_serving",
                      scatter_rows_smallc_add="stem_vjp")
+    main_path.update({k: "bf16_serving" for k in BF16_SITES.values()},
+                     gather_rows_smallc_bf16="bf16_mp_serving")
     idle = [k for k in KERNELS if not paths[main_path[k]][k]]
     if idle:
         raise AssertionError(f"kernels that their main path never launched: "

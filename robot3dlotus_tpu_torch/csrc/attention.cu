@@ -25,8 +25,18 @@
 // keys in registers on the tensor cores, one max/exp/sum pass, then the
 // exps times v. Each block writes only its own rows: no reduction, no
 // atomics, the result bit-equal from launch to launch.
+//
+// bf16 (r3dl_patch_attention_bf16, under compute_dtype bfloat16): q, k,
+// v and out bf16, the JAX package's XLA semantics at that dtype
+// (attention_tile.cuh). The block widens its patch's k and v rows to fp32
+// as it stages them (16-byte loads of 8 values), so the tile and its
+// shared-memory layout are the fp32 path's; each product is one TF32 pass
+// instead of three. Half the bytes of the fp32 call, and a third of its
+// tensor-core work.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "attention_tile.cuh"
 
@@ -43,16 +53,14 @@ size_t smem_bytes(int P) {
   return 2 * (size_t)((P + 7) & ~7) * Layout<Dh>::S * sizeof(float);
 }
 
-template <int Dh>
+template <int Dh, typename T>
 __global__ void __launch_bounds__(kMaxThreads, 2)
-patch_attention_kernel(const float* __restrict__ q,
-                       const float* __restrict__ k,
-                       const float* __restrict__ v,
+patch_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v,
                        const unsigned char* __restrict__ kv,
-                       float* __restrict__ out, int H, int P, int splits,
+                       T* __restrict__ out, int H, int P, int splits,
                        float scale) {
   constexpr int S = Layout<Dh>::S;
-  constexpr int Q = Dh / 4;                // 16-byte pieces of a row
   extern __shared__ float4 smem4[];
   float* sk = reinterpret_cast<float*>(smem4);
   const int P8 = (P + 7) & ~7;
@@ -64,14 +72,42 @@ patch_attention_kernel(const float* __restrict__ q,
   const long long base = gh * P * Dh;
   const int tid = threadIdx.x, nthreads = blockDim.x;
   // the patch's k and v rows; rows P..P8-1 zero-filled
-  for (int i = tid; i < P8 * Q; i += nthreads) {
-    const int r = i / Q, c = (i - r * Q) * 4;
-    const bool in = r < P;
-    const long long off = base + (long long)r * Dh + c;
-    r3dl::cp_async16(sk + r * S + c, in ? k + off : k, in);
-    r3dl::cp_async16(sv + r * S + c, in ? v + off : v, in);
+  if constexpr (std::is_same<T, float>::value) {
+    constexpr int Q = Dh / 4;              // 16-byte pieces of a row
+    for (int i = tid; i < P8 * Q; i += nthreads) {
+      const int r = i / Q, c = (i - r * Q) * 4;
+      const bool in = r < P;
+      const long long off = base + (long long)r * Dh + c;
+      r3dl::cp_async16(sk + r * S + c, in ? k + off : k, in);
+      r3dl::cp_async16(sv + r * S + c, in ? v + off : v, in);
+    }
+    r3dl::cp_async_commit();
+  } else {
+    constexpr int Q = Dh / 8;              // 16-byte pieces of a bf16 row
+    for (int i = tid; i < P8 * Q; i += nthreads) {
+      const int r = i / Q, c = (i - r * Q) * 8;
+      const long long off = base + (long long)r * Dh + c;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const T* src = h ? v : k;
+        float f[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+        if (r < P) {
+          const uint4 u = *reinterpret_cast<const uint4*>(src + off);
+          const __nv_bfloat162* p2 =
+              reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float2 w = __bfloat1622float2(p2[j]);
+            f[2 * j] = w.x;
+            f[2 * j + 1] = w.y;
+          }
+        }
+        float4* d = reinterpret_cast<float4*>((h ? sv : sk) + r * S + c);
+        d[0] = make_float4(f[0], f[1], f[2], f[3]);
+        d[1] = make_float4(f[4], f[5], f[6], f[7]);
+      }
+    }
   }
-  r3dl::cp_async_commit();
   for (int j = tid; j < P; j += nthreads) smask[j] = kv[gh / H * P + j];
   // this lane's two q rows into L1 while k and v land
   const int row0 = (s * (nthreads >> 5) + (tid >> 5)) * 16;
@@ -79,25 +115,48 @@ patch_attention_kernel(const float* __restrict__ q,
   const int qc = min(8 * (lane & 3), Dh - 1);
   for (int r = row0 + (lane >> 2); r < min(P, row0 + 16); r += 8)
     asm volatile("prefetch.global.L1 [%0];" ::"l"(q + base + r * Dh + qc));
-  r3dl::cp_async_wait<0>();
+  if constexpr (std::is_same<T, float>::value) r3dl::cp_async_wait<0>();
   __syncthreads();
 
   if (row0 >= P) return;
-  r3dl::attend_rows<Dh, false>(q + base, out + base, nullptr, sk, sv, smask,
-                               nullptr, 0, row0, P, scale, 1.f);
+  r3dl::attend_rows<Dh, false, T>(q + base, out + base, nullptr, sk, sv,
+                                  smask, nullptr, 0, row0, P, scale, 1.f);
 }
 
-template <int Dh>
-int launch(const float* q, const float* k, const float* v,
-           const unsigned char* kv, float* out, int G, int H, int P,
-           int warps, int splits, float scale, cudaStream_t stream) {
-  static const cudaError_t attr =
-      r3dl::allow_smem(patch_attention_kernel<Dh>, smem_bytes<Dh>(kMaxP));
+template <int Dh, typename T>
+int launch(const T* q, const T* k, const T* v, const unsigned char* kv,
+           T* out, int G, int H, int P, int warps, int splits, float scale,
+           cudaStream_t stream) {
+  static const cudaError_t attr = r3dl::allow_smem(
+      patch_attention_kernel<Dh, T>, smem_bytes<Dh>(kMaxP));
   if (attr != cudaSuccess) return (int)attr;
-  patch_attention_kernel<Dh><<<(unsigned)((long long)G * H * splits),
-                               32 * warps, smem_bytes<Dh>(P), stream>>>(
+  patch_attention_kernel<Dh, T><<<(unsigned)((long long)G * H * splits),
+                                  32 * warps, smem_bytes<Dh>(P), stream>>>(
       q, k, v, kv, out, H, P, splits, scale);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int attention(const T* q, const T* k, const T* v, const unsigned char* kv,
+              T* out, int G, int H, int P, int Dh, int warps, int splits,
+              float scale, cudaStream_t stream) {
+  if (P < 1 || P > kMaxP || warps < 1 || warps > kMaxWarps || splits < 1 ||
+      16 * warps * splits < P ||
+      (long long)G * H * splits > 0x7fffffffLL ||
+      (((uintptr_t)k | (uintptr_t)v) & 15))
+    return (int)cudaErrorInvalidValue;
+  if ((long long)G * H == 0) return (int)cudaGetLastError();
+  switch (Dh) {
+    case 8: return launch<8, T>(q, k, v, kv, out, G, H, P, warps, splits,
+                                scale, stream);
+    case 16: return launch<16, T>(q, k, v, kv, out, G, H, P, warps, splits,
+                                  scale, stream);
+    case 24: return launch<24, T>(q, k, v, kv, out, G, H, P, warps, splits,
+                                  scale, stream);
+    case 32: return launch<32, T>(q, k, v, kv, out, G, H, P, warps, splits,
+                                  scale, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -109,21 +168,19 @@ extern "C" int r3dl_patch_attention(const float* q, const float* k,
                                     float* out, int G, int H, int P, int Dh,
                                     int warps, int splits, float scale,
                                     cudaStream_t stream) {
-  if (P < 1 || P > kMaxP || warps < 1 || warps > kMaxWarps || splits < 1 ||
-      16 * warps * splits < P ||
-      (long long)G * H * splits > 0x7fffffffLL ||
-      (((uintptr_t)k | (uintptr_t)v) & 15))
-    return (int)cudaErrorInvalidValue;
-  if ((long long)G * H == 0) return (int)cudaGetLastError();
-  switch (Dh) {
-    case 8: return launch<8>(q, k, v, kv, out, G, H, P, warps, splits, scale,
-                             stream);
-    case 16: return launch<16>(q, k, v, kv, out, G, H, P, warps, splits,
+  return attention<float>(q, k, v, kv, out, G, H, P, Dh, warps, splits,
+                          scale, stream);
+}
+
+// The same with bf16 q, k, v and out (k and v 16-byte aligned); scale is
+// a bf16 value.
+extern "C" int r3dl_patch_attention_bf16(const r3dl::bf16* q,
+                                         const r3dl::bf16* k,
+                                         const r3dl::bf16* v,
+                                         const unsigned char* kv,
+                                         r3dl::bf16* out, int G, int H,
+                                         int P, int Dh, int warps, int splits,
+                                         float scale, cudaStream_t stream) {
+  return attention<r3dl::bf16>(q, k, v, kv, out, G, H, P, Dh, warps, splits,
                                scale, stream);
-    case 24: return launch<24>(q, k, v, kv, out, G, H, P, warps, splits,
-                               scale, stream);
-    case 32: return launch<32>(q, k, v, kv, out, G, H, P, warps, splits,
-                               scale, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
 }

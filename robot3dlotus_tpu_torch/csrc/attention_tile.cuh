@@ -11,6 +11,17 @@
 // exps whose keep bit is 0 are left out of the product (not of the sum),
 // out is scaled by 1 / (1 - rate) and the row logsumexp is written.
 //
+// With bf16 q and out (T = bf16, K1 under compute_dtype bfloat16; k and v
+// staged widened to fp32 by the caller) the tile computes the JAX
+// package's XLA attention at that dtype (models/layers.py
+// SerializedAttention): q * scale rounded to bf16 (scale, a bf16 value,
+// given by the wrapper), fp32 logits and softmax, the normalised
+// probabilities rounded to bf16 before the product with v, which sums in
+// fp32, and the output rounded to bf16 once. Every operand is then a bf16
+// value, so each product is one TF32 pass (mma1); the exps use expf, and
+// the rows are normalised (an IEEE division by the row sum, as softmax
+// divides) before P v, where the fp32 tile scales after it.
+//
 // A C fragment of one product is the A fragment of the next with no
 // shuffle: the k index of an 8-wide step is permuted so that A column t is
 // element 2t and column t + 4 is element 2t + 1, which is where the
@@ -21,6 +32,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "tc_common.cuh"
 
@@ -66,28 +79,36 @@ struct Layout {
 
 // This warp's query rows row0 + lane / 4 and row0 + lane / 4 + 8 (row0 < P,
 // a multiple of 16) of one patch. q, out: the patch's (P, Dh) rows in
-// global memory; sk, sv: its k and v rows in shared memory at stride
+// global memory; sk, sv: its k and v rows in shared memory (fp32) at stride
 // Layout<Dh>::S, rows P..(P rounded up to 8)-1 zero; smask: its key mask.
 // kDrop: sbits holds W keep-bit words a row (bit j % 32 of word j / 32 is
 // key j), inv_keep = 1 / (1 - rate), lse the patch's (P,) row logsumexp.
 // kAllTiles (P > 120: all 16 key tiles): the key-tile loops have no
 // bounds test, so the tiles' independent product chains are one basic
 // block that the compiler interleaves (with a test per tile, one warp
-// waits out each chain's latency in turn); attend_rows picks it.
-template <int Dh, bool kDrop, bool kAllTiles>
+// waits out each chain's latency in turn); attend_rows picks it. T: the
+// type of q and out (float: 3xTF32; bf16: one pass, see above).
+template <int Dh, bool kDrop, bool kAllTiles, typename T>
 __device__ __forceinline__ void attend_tiles(
-    const float* __restrict__ q, float* __restrict__ out,
-    float* __restrict__ lse, const float* sk, const float* sv,
-    const unsigned char* smask, const uint32_t* sbits, int W, int row0,
-    int P, float scale, float inv_keep) {
+    const T* __restrict__ q, T* __restrict__ out, float* __restrict__ lse,
+    const float* sk, const float* sv, const unsigned char* smask,
+    const uint32_t* sbits, int W, int row0, int P, float scale,
+    float inv_keep) {
+  constexpr bool kOne = !std::is_same<T, float>::value;
+  static_assert(!(kOne && kDrop), "no bf16 path with dropout");
   constexpr int S = Layout<Dh>::S;
   constexpr int KD = Dh / 8;
   const int lane = threadIdx.x & 31;
   const int gr = lane >> 2, t = lane & 3;
   const int nt = kAllTiles ? kMaxP / 8 : ((P + 7) & ~7) >> 3;  // key tiles
   const int r0 = row0 + gr, r1 = r0 + 8;   // this lane's query rows
-  const float* q0 = q + (long long)r0 * Dh;
-  const float* q1 = q + (long long)r1 * Dh;
+  const T* q0 = q + (long long)r0 * Dh;
+  const T* q1 = q + (long long)r1 * Dh;
+  // q * scale; rounded to bf16 on the bf16 path
+  auto qs = [&](T v) {
+    if constexpr (kOne) return round_bf16(widen(v) * scale);
+    else return v * scale;
+  };
 
   // S = (q scale) k^T: s[n] is the 16 x 8 tile of keys 8n..8n+7. The
   // head-dim loop stays a loop: unrolled, the tile's straight-line code is
@@ -101,14 +122,26 @@ __device__ __forceinline__ void attend_tiles(
 #pragma unroll 1
   for (int kk = 0; kk < KD; ++kk) {
     const int d = kk * 8 + t;
-    const FragA a(r0 < P ? q0[d] * scale : 0.f, r1 < P ? q1[d] * scale : 0.f,
-                  r0 < P ? q0[d + 4] * scale : 0.f,
-                  r1 < P ? q1[d + 4] * scale : 0.f);
+    const float a0 = r0 < P ? qs(q0[d]) : 0.f;
+    const float a1 = r1 < P ? qs(q1[d]) : 0.f;
+    const float a2 = r0 < P ? qs(q0[d + 4]) : 0.f;
+    const float a3 = r1 < P ? qs(q1[d + 4]) : 0.f;
+    if constexpr (kOne) {
 #pragma unroll
-    for (int n = 0; n < kMaxP / 8; ++n) {
-      if (kAllTiles || n < nt) {
-        const float* kr = sk + (n * 8 + gr) * S + kk * 8 + t;
-        mma3(s[n], a, kr[0], kr[4]);
+      for (int n = 0; n < kMaxP / 8; ++n) {
+        if (kAllTiles || n < nt) {
+          const float* kr = sk + (n * 8 + gr) * S + kk * 8 + t;
+          mma1(s[n], a0, a1, a2, a3, kr[0], kr[4]);
+        }
+      }
+    } else {
+      const FragA a(a0, a1, a2, a3);
+#pragma unroll
+      for (int n = 0; n < kMaxP / 8; ++n) {
+        if (kAllTiles || n < nt) {
+          const float* kr = sk + (n * 8 + gr) * S + kk * 8 + t;
+          mma3(s[n], a, kr[0], kr[4]);
+        }
       }
     }
   }
@@ -145,7 +178,8 @@ __device__ __forceinline__ void attend_tiles(
       }
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float x = __expf(s[n][e] - (e < 2 ? m0 : m1));
+        const float z = s[n][e] - (e < 2 ? m0 : m1);
+        const float x = kOne ? expf(z) : __expf(z);
         if (e < 2) l0 += x;
         else l1 += x;
         if constexpr (kDrop) {
@@ -159,6 +193,17 @@ __device__ __forceinline__ void attend_tiles(
   }
   l0 = quad_sum(l0);
   l1 = quad_sum(l1);
+  if constexpr (kOne) {
+    // the probabilities, rounded to bf16 as the reference casts them
+#pragma unroll
+    for (int n = 0; n < kMaxP / 8; ++n) {
+      if (kAllTiles || n < nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[n][e] = round_bf16(s[n][e] / (e < 2 ? l0 : l1));
+      }
+    }
+  }
 
   // out = (kept) exps v: the S tile's C fragment is the A fragment of its
   // 8 keys, key 2t as column t and key 2t + 1 as column t + 4
@@ -168,27 +213,36 @@ __device__ __forceinline__ void attend_tiles(
 #pragma unroll
   for (int n = 0; n < kMaxP / 8; ++n) {
     if (kAllTiles || n < nt) {
-      const FragA a(s[n][0], s[n][2], s[n][1], s[n][3]);
+      if constexpr (kOne) {
 #pragma unroll
-      for (int m = 0; m < KD; ++m) {
-        const float* vr = sv + (n * 8 + 2 * t) * S + m * 8 + gr;
-        mma3(o[m], a, vr[0], vr[S]);
+        for (int m = 0; m < KD; ++m) {
+          const float* vr = sv + (n * 8 + 2 * t) * S + m * 8 + gr;
+          mma1(o[m], s[n][0], s[n][2], s[n][1], s[n][3], vr[0], vr[S]);
+        }
+      } else {
+        const FragA a(s[n][0], s[n][2], s[n][1], s[n][3]);
+#pragma unroll
+        for (int m = 0; m < KD; ++m) {
+          const float* vr = sv + (n * 8 + 2 * t) * S + m * 8 + gr;
+          mma3(o[m], a, vr[0], vr[S]);
+        }
       }
     }
   }
-  const float f0 = inv_keep / l0, f1 = inv_keep / l1;
-  float* o0 = out + (long long)r0 * Dh;
-  float* o1 = out + (long long)r1 * Dh;
+  const float f0 = kOne ? 1.f : inv_keep / l0;
+  const float f1 = kOne ? 1.f : inv_keep / l1;
+  T* o0 = out + (long long)r0 * Dh;
+  T* o1 = out + (long long)r1 * Dh;
 #pragma unroll
   for (int m = 0; m < KD; ++m) {
     const int c = m * 8 + 2 * t;
     if (r0 < P) {
-      o0[c] = o[m][0] * f0;
-      o0[c + 1] = o[m][1] * f0;
+      o0[c] = narrow<T>(o[m][0] * f0);
+      o0[c + 1] = narrow<T>(o[m][1] * f0);
     }
     if (r1 < P) {
-      o1[c] = o[m][2] * f1;
-      o1[c + 1] = o[m][3] * f1;
+      o1[c] = narrow<T>(o[m][2] * f1);
+      o1[c + 1] = narrow<T>(o[m][3] * f1);
     }
   }
   if constexpr (kDrop) {
@@ -199,18 +253,18 @@ __device__ __forceinline__ void attend_tiles(
   }
 }
 
-template <int Dh, bool kDrop>
+template <int Dh, bool kDrop, typename T = float>
 __device__ __forceinline__ void attend_rows(
-    const float* __restrict__ q, float* __restrict__ out,
-    float* __restrict__ lse, const float* sk, const float* sv,
-    const unsigned char* smask, const uint32_t* sbits, int W, int row0,
-    int P, float scale, float inv_keep) {
+    const T* __restrict__ q, T* __restrict__ out, float* __restrict__ lse,
+    const float* sk, const float* sv, const unsigned char* smask,
+    const uint32_t* sbits, int W, int row0, int P, float scale,
+    float inv_keep) {
   if (P > kMaxP - 8)
-    attend_tiles<Dh, kDrop, true>(q, out, lse, sk, sv, smask, sbits, W, row0,
-                                  P, scale, inv_keep);
+    attend_tiles<Dh, kDrop, true, T>(q, out, lse, sk, sv, smask, sbits, W,
+                                     row0, P, scale, inv_keep);
   else
-    attend_tiles<Dh, kDrop, false>(q, out, lse, sk, sv, smask, sbits, W,
-                                   row0, P, scale, inv_keep);
+    attend_tiles<Dh, kDrop, false, T>(q, out, lse, sk, sv, smask, sbits, W,
+                                      row0, P, scale, inv_keep);
 }
 
 }  // namespace r3dl

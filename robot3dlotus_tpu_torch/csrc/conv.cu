@@ -53,8 +53,22 @@
 // rows and the per-tap lists of 125 taps take 198 KB, one block an SM).
 // Channel counts that are not multiples of 4 (the stem's 263) are padded
 // with zero channels by the wrapper (ops/conv.py).
+//
+// bf16 (r3dl_subm_conv_bf16, the forward under compute_dtype bfloat16):
+// x, W and out bf16, the bias fp32; the reference (the JAX XLA conv,
+// robot3dlotus_tpu/ops/sparse_conv.py subm_conv_apply) sums every tap in
+// fp32, adds the fp32 bias and rounds once. The stages stage bf16 rows
+// (16-byte cp.async of 8 channels, so channel counts are multiples of 8,
+// padded by the wrapper) and widen each fragment to fp32 as it is read;
+// every product is one TF32 pass (tc_common.cuh mma1); the accumulators,
+// the tile's accumulator and the tap ranges' partials stay fp32, and only
+// the tile's (or the reduction's) final value, bias added, is rounded to
+// bf16. The Pallas kernel's per-tap-block rounding (pallas_conv.py
+// `out_ref[0] += acc.astype(...)`) is not carried over.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "tc_common.cuh"
 
@@ -73,6 +87,18 @@ constexpr int kGroups = kTM / 32;   // 16-row groups per warp, at most
 constexpr int kXS = kKC + 8;   // x rows: 8-byte A loads on 32 banks
 constexpr int kWS = kTN + 4;   // W rows: B loads (rows 2t, 2t + 1) on 32
 constexpr int kAS = kTN + 4;   // accumulator rows
+constexpr int kXSb = kKC + 8;  // bf16 x rows: 4-byte A loads on 32 banks
+constexpr int kWSb = kTN + 8;  // bf16 W rows: B loads on distinct words
+
+// 4 consecutive outputs of one row
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4(r3dl::bf16* p, float4 v) {
+  __nv_bfloat162 h[2] = {__floats2bfloat162_rn(v.x, v.y),
+                         __floats2bfloat162_rn(v.z, v.w)};
+  *reinterpret_cast<uint2*>(p) = *reinterpret_cast<const uint2*>(h);
+}
 
 template <int kMaxK>
 struct Smem {
@@ -95,13 +121,14 @@ struct Smem {
   int ntaps;
 };
 
-template <int kMaxK>
+template <int kMaxK, typename T>
 __global__ void __launch_bounds__(kThreads, 2)
-subm_conv_kernel(const float* __restrict__ x, const int* __restrict__ idx,
+subm_conv_kernel(const T* __restrict__ x, const int* __restrict__ idx,
                  const unsigned char* __restrict__ ok,
-                 const float* __restrict__ w, const float* __restrict__ bias,
-                 float* __restrict__ out, float* __restrict__ work, int N,
+                 const T* __restrict__ w, const float* __restrict__ bias,
+                 T* __restrict__ out, float* __restrict__ work, int N,
                  int K, int Cin, int Cout, int splits) {
+  constexpr bool kOne = !std::is_same<T, float>::value;
   extern __shared__ float4 smem4[];
   Smem<kMaxK>& sm = *reinterpret_cast<Smem<kMaxK>*>(smem4);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -157,24 +184,28 @@ subm_conv_kernel(const float* __restrict__ x, const int* __restrict__ idx,
   //    of kStages
   const int nch = (Cin + kKC - 1) / kKC;
   const int stages = sm.ntaps * nch;
+  // a 16-byte piece is V channels; bf16 rows at strides kWSb / kXSb, in
+  // the fp32 rings' space
+  constexpr int V = 16 / sizeof(T);
+  constexpr int WS = kOne ? kWSb : kWS, XS = kOne ? kXSb : kXS;
   auto load = [&](int i) {
     const int buf = i % kStages;
     const int k = sm.taps[i / nch], c0 = (i % nch) * kKC;
-    float* wb = sm.u.pipe.ws[buf];
-    for (int e = tid; e < kKC * (kTN / 4); e += kThreads) {
-      const int r = e / (kTN / 4), q = e % (kTN / 4);
-      const int c = c0 + r, col = co0 + 4 * q;
+    T* wb = reinterpret_cast<T*>(sm.u.pipe.ws[buf]);
+    for (int e = tid; e < kKC * (kTN / V); e += kThreads) {
+      const int r = e / (kTN / V), q = e % (kTN / V);
+      const int c = c0 + r, col = co0 + V * q;
       const bool p = c < Cin && col < Cout;
-      r3dl::cp_async16(wb + r * kWS + 4 * q,
+      r3dl::cp_async16(wb + r * WS + V * q,
                        p ? w + ((long long)k * Cin + c) * Cout + col : w, p);
     }
     const int cnt = sm.cnt[k], rows = (cnt + 15) & ~15;
-    float* xb = sm.u.pipe.xs[buf];
-    for (int e = tid; e < rows * (kKC / 4); e += kThreads) {
-      const int r = e / (kKC / 4), q = e % (kKC / 4);
-      const int c = c0 + 4 * q;
+    T* xb = reinterpret_cast<T*>(sm.u.pipe.xs[buf]);
+    for (int e = tid; e < rows * (kKC / V); e += kThreads) {
+      const int r = e / (kKC / V), q = e % (kKC / V);
+      const int c = c0 + V * q;
       const bool p = r < cnt && c < Cin;
-      r3dl::cp_async16(xb + r * kXS + 4 * q,
+      r3dl::cp_async16(xb + r * XS + V * q,
                        p ? x + (row0 + sm.src[k][r]) * Cin + c : x, p);
     }
   };
@@ -198,8 +229,8 @@ subm_conv_kernel(const float* __restrict__ x, const int* __restrict__ idx,
     __syncthreads();
     const int k = sm.taps[i / nch];
     const int cnt = sm.cnt[k], groups = (cnt + 15) >> 4;
-    const float* xb = sm.u.pipe.xs[i % kStages];
-    const float* wb = sm.u.pipe.ws[i % kStages];
+    const T* xb = reinterpret_cast<const T*>(sm.u.pipe.xs[i % kStages]);
+    const T* wb = reinterpret_cast<const T*>(sm.u.pipe.ws[i % kStages]);
 #pragma unroll
     for (int gi = 0; gi < kGroups; ++gi) {
       const int g = wr + 2 * gi;
@@ -207,20 +238,34 @@ subm_conv_kernel(const float* __restrict__ x, const int* __restrict__ idx,
       float part[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
 #pragma unroll
       for (int ks = 0; ks < kKC / 8; ++ks) {
-        Split bf[2][2];
+        const T* x0 = xb + (16 * g + gid) * XS + 8 * ks + 2 * tig;
+        if constexpr (kOne) {
+          const float2 v0 = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(x0));
+          const float2 v8 = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(x0 + 8 * XS));
 #pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int col = wc + 8 * j + gid;
-          bf[j][0] = split(wb[(8 * ks + 2 * tig) * kWS + col]);
-          bf[j][1] = split(wb[(8 * ks + 2 * tig + 1) * kWS + col]);
+          for (int j = 0; j < 2; ++j) {
+            const int col = wc + 8 * j + gid;
+            r3dl::mma1(part[j], v0.x, v8.x, v0.y, v8.y,
+                       r3dl::widen(wb[(8 * ks + 2 * tig) * WS + col]),
+                       r3dl::widen(wb[(8 * ks + 2 * tig + 1) * WS + col]));
+          }
+        } else {
+          Split bf[2][2];
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int col = wc + 8 * j + gid;
+            bf[j][0] = split(wb[(8 * ks + 2 * tig) * WS + col]);
+            bf[j][1] = split(wb[(8 * ks + 2 * tig + 1) * WS + col]);
+          }
+          const float2 v0 = *reinterpret_cast<const float2*>(x0);
+          const float2 v8 = *reinterpret_cast<const float2*>(x0 + 8 * XS);
+          const Split af[4] = {split(v0.x), split(v8.x), split(v0.y),
+                               split(v8.y)};
+#pragma unroll
+          for (int j = 0; j < 2; ++j) r3dl::mma3(part[j], af, bf[j]);
         }
-        const float* x0 = xb + (16 * g + gid) * kXS + 8 * ks + 2 * tig;
-        const float2 v0 = *reinterpret_cast<const float2*>(x0);
-        const float2 v8 = *reinterpret_cast<const float2*>(x0 + 8 * kXS);
-        const Split af[4] = {split(v0.x), split(v8.x), split(v0.y),
-                             split(v8.y)};
-#pragma unroll
-        for (int j = 0; j < 2; ++j) r3dl::mma3(part[j], af, bf[j]);
       }
 #pragma unroll
       for (int j = 0; j < 2; ++j)
@@ -254,30 +299,36 @@ subm_conv_kernel(const float* __restrict__ x, const int* __restrict__ idx,
     __syncthreads();
   }
 
-  // 4. the tile out: with bias, or the tap range's partial to scratch
-  float* dst = splits > 1 ? work + (long long)s * (gridDim.z / splits) * N *
-                                       Cout
-                          : out;
+  // 4. the tile out: with bias (rounded to T once), or the tap range's
+  //    fp32 partial to scratch
+  float* part = work + (long long)s * (gridDim.z / splits) * N * Cout;
   for (int e = tid; e < kTM * (kTN / 4); e += kThreads) {
     const int r = e / (kTN / 4), q = e % (kTN / 4);
     const int col = co0 + 4 * q;
     if (n0 + r >= N || col >= Cout) continue;
     float4 v = *reinterpret_cast<const float4*>(sm.acc + r * kAS + 4 * q);
-    if (splits == 1 && bias) {
+    const long long o = (row0 + n0 + r) * Cout + col;
+    if (splits > 1) {
+      store4(part + o, v);
+      continue;
+    }
+    if (bias) {
       v.x += bias[col];
       v.y += bias[col + 1];
       v.z += bias[col + 2];
       v.w += bias[col + 3];
     }
-    *reinterpret_cast<float4*>(dst + (row0 + n0 + r) * Cout + col) = v;
+    store4(out + o, v);
   }
 }
 
-// out = sum over the tap ranges, in order, + bias; float4 lanes
+// out = sum over the tap ranges, in order, + bias, rounded to T once;
+// float4 lanes
+template <typename T>
 __global__ void subm_conv_reduce_kernel(const float4* __restrict__ work,
                                         const float* __restrict__ bias,
-                                        float4* __restrict__ out,
-                                        long long n4, int Cout, int splits) {
+                                        T* __restrict__ out, long long n4,
+                                        int Cout, int splits) {
   for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        e < n4; e += (long long)gridDim.x * blockDim.x) {
     float4 v = work[e];
@@ -295,23 +346,54 @@ __global__ void subm_conv_reduce_kernel(const float4* __restrict__ work,
       v.z += bias[col + 2];
       v.w += bias[col + 3];
     }
-    out[e] = v;
+    store4(out + 4 * e, v);
   }
 }
 
-template <int kMaxK>
-cudaError_t launch_conv(const float* x, const int* idx,
-                        const unsigned char* ok, const float* w,
-                        const float* bias, float* out, float* work, int B,
-                        int N, int K, int Cin, int Cout, int splits,
+template <int kMaxK, typename T>
+cudaError_t launch_conv(const T* x, const int* idx, const unsigned char* ok,
+                        const T* w, const float* bias, T* out, float* work,
+                        int B, int N, int K, int Cin, int Cout, int splits,
                         cudaStream_t stream) {
   static const cudaError_t attr =
-      r3dl::allow_smem(subm_conv_kernel<kMaxK>, sizeof(Smem<kMaxK>));
+      r3dl::allow_smem(subm_conv_kernel<kMaxK, T>, sizeof(Smem<kMaxK>));
   if (attr != cudaSuccess) return attr;
   const dim3 grid((N + kTM - 1) / kTM, (Cout + kTN - 1) / kTN, B * splits);
-  subm_conv_kernel<kMaxK><<<grid, kThreads, sizeof(Smem<kMaxK>), stream>>>(
-      x, idx, ok, w, bias, out, work, N, K, Cin, Cout, splits);
+  subm_conv_kernel<kMaxK, T>
+      <<<grid, kThreads, sizeof(Smem<kMaxK>), stream>>>(
+          x, idx, ok, w, bias, out, work, N, K, Cin, Cout, splits);
   return cudaGetLastError();
+}
+
+template <typename T>
+int conv(const T* x, const int* idx, const unsigned char* ok, const T* w,
+         const float* bias, T* out, float* work, int B, int N, int K,
+         int Cin, int Cout, int splits, long long work_bytes,
+         cudaStream_t stream) {
+  constexpr int V = 16 / sizeof(T);   // channels in 16 bytes
+  const long long n = (long long)B * N * Cout;
+  if (n == 0) return (int)cudaGetLastError();
+  if (K < 1 || K > kMaxTaps[1] || Cin % V || Cout % V || splits < 1 ||
+      splits > K || (long long)B * splits > 65535 ||
+      (((uintptr_t)x | (uintptr_t)w | (uintptr_t)out) & 15) ||
+      (splits > 1 && (!work || work_bytes < 4 * splits * n ||
+                      ((uintptr_t)work & 15))))
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t err =
+      K <= kMaxTaps[0]
+          ? launch_conv<kMaxTaps[0], T>(x, idx, ok, w, bias, out, work, B, N,
+                                        K, Cin, Cout, splits, stream)
+          : launch_conv<kMaxTaps[1], T>(x, idx, ok, w, bias, out, work, B, N,
+                                        K, Cin, Cout, splits, stream);
+  if (err != cudaSuccess) return (int)err;
+  if (splits > 1) {
+    const long long n4 = n / 4, blocks = (n4 + 255) / 256;
+    subm_conv_reduce_kernel<T>
+        <<<(unsigned)(blocks < 4096 ? blocks : 4096), 256, 0, stream>>>(
+            reinterpret_cast<const float4*>(work), bias, out, n4, Cout,
+            splits);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -326,27 +408,19 @@ extern "C" int r3dl_subm_conv(const float* x, const int* idx,
                               int B, int N, int K, int Cin, int Cout,
                               int splits, long long work_bytes,
                               cudaStream_t stream) {
-  const long long n = (long long)B * N * Cout;
-  if (n == 0) return (int)cudaGetLastError();
-  if (K < 1 || K > kMaxTaps[1] || Cin % 4 || Cout % 4 || splits < 1 ||
-      splits > K || (long long)B * splits > 65535 ||
-      (((uintptr_t)x | (uintptr_t)w | (uintptr_t)out) & 15) ||
-      (splits > 1 && (!work || work_bytes < 4 * splits * n ||
-                      ((uintptr_t)work & 15))))
-    return (int)cudaErrorInvalidValue;
-  const cudaError_t err =
-      K <= kMaxTaps[0]
-          ? launch_conv<kMaxTaps[0]>(x, idx, ok, w, bias, out, work, B, N, K,
-                                     Cin, Cout, splits, stream)
-          : launch_conv<kMaxTaps[1]>(x, idx, ok, w, bias, out, work, B, N, K,
-                                     Cin, Cout, splits, stream);
-  if (err != cudaSuccess) return (int)err;
-  if (splits > 1) {
-    const long long n4 = n / 4, blocks = (n4 + 255) / 256;
-    subm_conv_reduce_kernel<<<(unsigned)(blocks < 4096 ? blocks : 4096), 256,
-                              0, stream>>>(
-        reinterpret_cast<const float4*>(work), bias,
-        reinterpret_cast<float4*>(out), n4, Cout, splits);
-  }
-  return (int)cudaGetLastError();
+  return conv<float>(x, idx, ok, w, bias, out, work, B, N, K, Cin, Cout,
+                     splits, work_bytes, stream);
+}
+
+// The same with bf16 x, w and out (bias and work fp32); Cin and Cout
+// multiples of 8.
+extern "C" int r3dl_subm_conv_bf16(const r3dl::bf16* x, const int* idx,
+                                   const unsigned char* ok,
+                                   const r3dl::bf16* w, const float* bias,
+                                   r3dl::bf16* out, float* work, int B, int N,
+                                   int K, int Cin, int Cout, int splits,
+                                   long long work_bytes,
+                                   cudaStream_t stream) {
+  return conv<r3dl::bf16>(x, idx, ok, w, bias, out, work, B, N, K, Cin, Cout,
+                          splits, work_bytes, stream);
 }

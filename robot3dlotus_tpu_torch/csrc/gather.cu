@@ -34,6 +34,12 @@
 // share a warp and at D = 768 each lane moves 6 float4; otherwise 4-byte
 // words with L = min(D, 32). x is read through the read-only path. Indices
 // are int32 or int64 (a template), so the wrapper never casts them.
+//
+// bf16 rows (r3dl_gather_rows16, under compute_dtype bfloat16): the same
+// kernel moves 2-byte elements, each row as 16-byte words when its bytes
+// (2 D) are a multiple of 16 and the pointers are 16-byte aligned (D = 64
+// bf16 is 128 bytes, 8 words a row), else 4-byte words (D even), else
+// 2-byte ones. A copy: bit-equal to its plain version.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -52,8 +58,18 @@ template <>
 __device__ __forceinline__ float4 zero_of<float4>() {
   return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 }
+template <>
+__device__ __forceinline__ uint4 zero_of<uint4>() {
+  return make_uint4(0u, 0u, 0u, 0u);
+}
+template <>
+__device__ __forceinline__ unsigned zero_of<unsigned>() { return 0u; }
+template <>
+__device__ __forceinline__ unsigned short zero_of<unsigned short>() {
+  return 0;
+}
 
-// x (B, N, W), out (B, M, W) in units of V (float4 or float); block
+// x (B, N, W), out (B, M, W) in units of V (16-, 4- or 2-byte words); block
 // (blockIdx.x, b) moves rows [r0, r0 + groups * kRowsPerGroup) of cloud b
 template <typename V, typename I>
 __global__ void __launch_bounds__(kThreads)
@@ -99,7 +115,7 @@ __global__ void scatter_rows_add_kernel(const float* __restrict__ g,
 }
 
 template <typename V, typename I>
-void launch_gather(const float* x, const void* idx, float* out, int B, int N,
+void launch_gather(const void* x, const void* idx, void* out, int B, int N,
                    int M, int W, cudaStream_t stream) {
   const int L = W < 32 ? W : 32;
   const int rows_per_block = (kThreads / L) * kRowsPerGroup;
@@ -110,7 +126,7 @@ void launch_gather(const float* x, const void* idx, float* out, int B, int N,
 }
 
 template <typename V>
-void launch_gather_idx(const float* x, const void* idx, int idx64, float* out,
+void launch_gather_idx(const void* x, const void* idx, int idx64, void* out,
                        int B, int N, int M, int W, cudaStream_t stream) {
   if (idx64)
     launch_gather<V, long long>(x, idx, out, B, N, M, W, stream);
@@ -133,6 +149,23 @@ extern "C" int r3dl_gather_rows(const float* x, const void* idx, float* out,
     launch_gather_idx<float4>(x, idx, idx64, out, B, N, M, D / 4, stream);
   else
     launch_gather_idx<float>(x, idx, idx64, out, B, N, M, D, stream);
+  return (int)cudaGetLastError();
+}
+
+// The same for rows of D 2-byte elements (bf16): x (B, N, D), out (B, M, D).
+extern "C" int r3dl_gather_rows16(const void* x, const void* idx, void* out,
+                                  int B, int N, int M, int D, int idx64,
+                                  cudaStream_t stream) {
+  if (B == 0 || M == 0 || D == 0) return (int)cudaGetLastError();
+  if (B > kMaxGridY) return (int)cudaErrorInvalidValue;
+  const uintptr_t a = (uintptr_t)x | (uintptr_t)out;
+  if (D % 8 == 0 && a % 16 == 0)
+    launch_gather_idx<uint4>(x, idx, idx64, out, B, N, M, D / 8, stream);
+  else if (D % 2 == 0 && a % 4 == 0)
+    launch_gather_idx<unsigned>(x, idx, idx64, out, B, N, M, D / 2, stream);
+  else
+    launch_gather_idx<unsigned short>(x, idx, idx64, out, B, N, M, D,
+                                      stream);
   return (int)cudaGetLastError();
 }
 

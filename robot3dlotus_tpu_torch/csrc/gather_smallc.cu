@@ -29,7 +29,9 @@
 // aligned when M * C % 4 == 0; 4-byte stores otherwise), with 32-bit
 // arithmetic inside the tile and c = e % C by a compile-time C for C = 4
 // and 5 (a runtime C up to 32 otherwise). K9 only copies, so it equals its
-// plain version bit for bit.
+// plain version bit for bit. bf16 rows (r3dl_gather_smallc16, the motion
+// planner's categorical stem under compute_dtype bfloat16) take the same
+// kernel on 2-byte elements, 4 of them an 8-byte store; still a copy.
 //
 // K10 is bound by the same bytes: g (B * M * C floats) and the indices
 // read once, dx written once; at the motion planner's training stem
@@ -86,10 +88,21 @@ constexpr int kThreads = 256;
 constexpr int kTileRows = 1024;   // K9 rows per block; a multiple of 4
 constexpr int kMaxGridY = 65535;
 
-template <int kC, typename I>
+// 4 consecutive elements of one output
+__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store4(unsigned short* p,
+                                       const unsigned short (&v)[4]) {
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(v[0] | (unsigned)v[1] << 16, v[2] | (unsigned)v[3] << 16);
+}
+
+// T: float, or unsigned short holding bf16 bits
+template <int kC, typename I, typename T>
 __global__ void __launch_bounds__(kThreads)
-    gather_smallc_kernel(const float* __restrict__ x,
-                         const I* __restrict__ idx, float* __restrict__ out,
+    gather_smallc_kernel(const T* __restrict__ x,
+                         const I* __restrict__ idx, T* __restrict__ out,
                          int N, int M, int c_rt, bool vec4) {
   __shared__ int s_idx[kTileRows];
   const int C = kC > 0 ? kC : c_rt;
@@ -102,26 +115,25 @@ __global__ void __launch_bounds__(kThreads)
     s_idx[r] = (i >= 0 && i < N) ? (int)i : -1;
   }
   __syncthreads();
-  const float* xb = x + (long long)b * N * C;
-  float* ob = out + ((long long)b * M + r0) * C;
+  const T* xb = x + (long long)b * N * C;
+  T* ob = out + ((long long)b * M + r0) * C;
   const int total = rows * C;
   if (vec4) {
     for (int e = 4 * threadIdx.x; e < total; e += 4 * kThreads) {
       int row = e / C;
       int c = e - row * C;
-      float v[4];
+      T v[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int i = e + j < total ? s_idx[row] : -1;
-        v[j] = i >= 0 ? __ldg(xb + i * C + c) : 0.0f;
+        v[j] = i >= 0 ? __ldg(xb + i * C + c) : T(0);
         if (++c == C) {
           c = 0;
           ++row;
         }
       }
       if (e + 4 <= total) {
-        *reinterpret_cast<float4*>(ob + e) =
-            make_float4(v[0], v[1], v[2], v[3]);
+        store4(ob + e, v);
       } else {
 #pragma unroll
         for (int j = 0; j < 4; ++j)
@@ -132,7 +144,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int e = threadIdx.x; e < total; e += kThreads) {
       const int row = e / C;
       const int i = s_idx[row];
-      ob[e] = i >= 0 ? __ldg(xb + i * C + (e - row * C)) : 0.0f;
+      ob[e] = i >= 0 ? __ldg(xb + i * C + (e - row * C)) : T(0);
     }
   }
 }
@@ -305,20 +317,36 @@ int launch_scatter_c(const float* g, const void* idx, float* dx, float* work,
   }
 }
 
-template <typename I>
-void launch_smallc(const float* x, const void* idx, float* out, int B, int N,
-                   int M, int C, bool vec4, cudaStream_t stream) {
+template <typename I, typename T>
+void launch_smallc(const T* x, const void* idx, T* out, int B, int N, int M,
+                   int C, bool vec4, cudaStream_t stream) {
   const dim3 grid((M + kTileRows - 1) / kTileRows, B);
   const I* ix = static_cast<const I*>(idx);
   if (C == 4)
-    gather_smallc_kernel<4, I><<<grid, kThreads, 0, stream>>>(
+    gather_smallc_kernel<4, I, T><<<grid, kThreads, 0, stream>>>(
         x, ix, out, N, M, C, vec4);
   else if (C == 5)
-    gather_smallc_kernel<5, I><<<grid, kThreads, 0, stream>>>(
+    gather_smallc_kernel<5, I, T><<<grid, kThreads, 0, stream>>>(
         x, ix, out, N, M, C, vec4);
   else
-    gather_smallc_kernel<0, I><<<grid, kThreads, 0, stream>>>(
+    gather_smallc_kernel<0, I, T><<<grid, kThreads, 0, stream>>>(
         x, ix, out, N, M, C, vec4);
+}
+
+template <typename T>
+int gather_smallc(const T* x, const void* idx, T* out, int B, int N, int M,
+                  int C, int idx64, cudaStream_t stream) {
+  if (B == 0 || M == 0 || C == 0) return (int)cudaGetLastError();
+  if (B > kMaxGridY || C > 32 || (long long)N * C >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
+  // 4-element stores: 16 bytes (fp32) or 8 (bf16) from an aligned start
+  const bool vec4 = (long long)M * C % 4 == 0 &&
+                    (uintptr_t)out % (4 * sizeof(T)) == 0;
+  if (idx64)
+    launch_smallc<long long, T>(x, idx, out, B, N, M, C, vec4, stream);
+  else
+    launch_smallc<int, T>(x, idx, out, B, N, M, C, vec4, stream);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -328,15 +356,15 @@ void launch_smallc(const float* x, const void* idx, float* out, int B, int N,
 extern "C" int r3dl_gather_smallc(const float* x, const void* idx, float* out,
                                   int B, int N, int M, int C, int idx64,
                                   cudaStream_t stream) {
-  if (B == 0 || M == 0 || C == 0) return (int)cudaGetLastError();
-  if (B > kMaxGridY || C > 32 || (long long)N * C >= (1LL << 31))
-    return (int)cudaErrorInvalidValue;
-  const bool vec4 = (long long)M * C % 4 == 0 && (uintptr_t)out % 16 == 0;
-  if (idx64)
-    launch_smallc<long long>(x, idx, out, B, N, M, C, vec4, stream);
-  else
-    launch_smallc<int>(x, idx, out, B, N, M, C, vec4, stream);
-  return (int)cudaGetLastError();
+  return gather_smallc<float>(x, idx, out, B, N, M, C, idx64, stream);
+}
+
+// The same for 2-byte (bf16) elements.
+extern "C" int r3dl_gather_smallc16(const unsigned short* x, const void* idx,
+                                    unsigned short* out, int B, int N, int M,
+                                    int C, int idx64, cudaStream_t stream) {
+  return gather_smallc<unsigned short>(x, idx, out, B, N, M, C, idx64,
+                                       stream);
 }
 
 // g: (B, M, C <= 32) fp32; idx: (B, M) int32 (idx64 = 0) or int64

@@ -45,8 +45,19 @@
 //      tile to scratch and stem_conv_sum_kernel adds them in a fixed
 //      order. No float atomics: the result is bit-equal from launch to
 //      launch.
+//
+// bf16 (r3dl_stem_conv_bf16, under compute_dtype bfloat16): x and W bf16,
+// out bf16. The block widens its W slice to fp32 as it stages it (plain
+// loads, the layout of the fp32 path), the A fragments are widened as
+// they are gathered, and every product is one TF32 pass (tc_common.cuh
+// mma1). The sums stay fp32 over every tap, through the tap ranges'
+// partials and their fixed-order sum, and are rounded to bf16 once, as
+// the JAX XLA conv (robot3dlotus_tpu/ops/sparse_conv.py subm_conv_apply)
+// rounds its fp32 accumulator.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "tc_common.cuh"
 
@@ -83,13 +94,22 @@ __device__ __forceinline__ void load_map(
   }
 }
 
-template <int kCols>
+// two consecutive outputs of a row
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(r3dl::bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+template <int kCols, typename T>
 __global__ void __launch_bounds__(32 * kMaxWarps, 1)
-stem_conv_kernel(const float* __restrict__ x, const int* __restrict__ idx,
+stem_conv_kernel(const T* __restrict__ x, const int* __restrict__ idx,
                  const unsigned char* __restrict__ ok,
-                 const float* __restrict__ w, float* __restrict__ out,
+                 const T* __restrict__ w, T* __restrict__ out,
                  float* __restrict__ work, int rows, int N, int K, int Cin,
                  int Cout, int splits) {
+  constexpr bool kOne = !std::is_same<T, float>::value;
   constexpr int J = kCols / 8;               // n-tiles
   extern __shared__ float4 smem4[];
   float* ws = reinterpret_cast<float*>(smem4);   // [R][J][Cin][8]
@@ -104,20 +124,32 @@ stem_conv_kernel(const float* __restrict__ x, const int* __restrict__ idx,
 
   // 1. the range's W slice: W[kb + t][c][co0 + 8 j + g] at
   //    ws[((t J + j) Cin + c) 8 + g]; columns past Cout zero-filled
-  for (int e = tid; e < R * Cin * J * 2; e += blockDim.x) {
-    const int h = e & 1, j = (e >> 1) % J, tc = (e >> 1) / J;
-    const int c = tc % Cin, t = tc / Cin;
-    const int col = co0 + 8 * j + 4 * h;
-    const bool p = col < Cout;
-    r3dl::cp_async16(ws + (((t * J + j) * Cin + c) * 8 + 4 * h),
-                     p ? w + ((long long)(kb + t) * Cin + c) * Cout + col : w,
-                     p);
+  if constexpr (kOne) {
+    for (int e = tid; e < R * Cin * J * 8; e += blockDim.x) {
+      const int g = e & 7, j = (e >> 3) % J, tc = (e >> 3) / J;
+      const int c = tc % Cin, t = tc / Cin;
+      const int col = co0 + 8 * j + g;
+      ws[((t * J + j) * Cin + c) * 8 + g] =
+          col < Cout ? r3dl::widen(w[((long long)(kb + t) * Cin + c) * Cout +
+                                     col])
+                     : 0.f;
+    }
+  } else {
+    for (int e = tid; e < R * Cin * J * 2; e += blockDim.x) {
+      const int h = e & 1, j = (e >> 1) % J, tc = (e >> 1) / J;
+      const int c = tc % Cin, t = tc / Cin;
+      const int col = co0 + 8 * j + 4 * h;
+      const bool p = col < Cout;
+      r3dl::cp_async16(
+          ws + (((t * J + j) * Cin + c) * 8 + 4 * h),
+          p ? w + ((long long)(kb + t) * Cin + c) * Cout + col : w, p);
+    }
+    r3dl::cp_async_commit();
+    r3dl::cp_async_wait<0>();
   }
-  r3dl::cp_async_commit();
-  r3dl::cp_async_wait<0>();
   __syncthreads();
 
-  float* dst = splits > 1 ? work + (long long)s * rows * Cout : out;
+  float* part = work + (long long)s * rows * Cout;
   const int groups = (rows + 15) / 16;
   for (int grp = blockIdx.x * warps + warp; grp < groups;
        grp += gridDim.x * warps) {
@@ -129,8 +161,8 @@ stem_conv_kernel(const float* __restrict__ x, const int* __restrict__ idx,
     const long long my_off = (long long)(my_in ? my_row : 0) * K;
     // this lane's fragment rows and their clouds' x
     const int r0 = n0 + gid, r1 = r0 + 8;
-    const float* xb0 = x + (long long)(r0 / N) * N * Cin;
-    const float* xb1 = x + (long long)(r1 / N) * N * Cin;
+    const T* xb0 = x + (long long)(r0 / N) * N * Cin;
+    const T* xb1 = x + (long long)(r1 / N) * N * Cin;
 
     unsigned char o_next[4];
     int i_next[4];
@@ -158,48 +190,67 @@ stem_conv_kernel(const float* __restrict__ x, const int* __restrict__ idx,
       for (int t = 0; t < kKT; ++t) {
         src0[t] = __shfl_sync(kFull, mine[t & 3], gid + 16 * (t >> 2));
         src1[t] = __shfl_sync(kFull, mine[t & 3], gid + 8 + 16 * (t >> 2));
-        const float* x0 = xb0 + (long long)src0[t] * Cin;
-        const float* x1 = xb1 + (long long)src1[t] * Cin;
-        a[t][0] = src0[t] >= 0 && tig < Cin ? x0[tig] : 0.f;
-        a[t][1] = src1[t] >= 0 && tig < Cin ? x1[tig] : 0.f;
-        a[t][2] = src0[t] >= 0 && tig + 4 < Cin ? x0[tig + 4] : 0.f;
-        a[t][3] = src1[t] >= 0 && tig + 4 < Cin ? x1[tig + 4] : 0.f;
+        const T* x0 = xb0 + (long long)src0[t] * Cin;
+        const T* x1 = xb1 + (long long)src1[t] * Cin;
+        a[t][0] = src0[t] >= 0 && tig < Cin ? r3dl::widen(x0[tig]) : 0.f;
+        a[t][1] = src1[t] >= 0 && tig < Cin ? r3dl::widen(x1[tig]) : 0.f;
+        a[t][2] =
+            src0[t] >= 0 && tig + 4 < Cin ? r3dl::widen(x0[tig + 4]) : 0.f;
+        a[t][3] =
+            src1[t] >= 0 && tig + 4 < Cin ? r3dl::widen(x1[tig + 4]) : 0.f;
       }
       // 3. the live taps' products
 #pragma unroll
       for (int t = 0; t < kKT; ++t) {
         if (!__any_sync(kFull, src0[t] >= 0 || src1[t] >= 0)) continue;
-        const Split af[4] = {split(a[t][0]), split(a[t][1]), split(a[t][2]),
-                             split(a[t][3])};
         const float* wt = ws + (c0 + t) * J * Cin * 8;
+        if constexpr (kOne) {
 #pragma unroll
-        for (int j = 0; j < J; ++j) {
-          const float* wj = wt + j * Cin * 8 + gid;
-          const Split bf[2] = {split(tig < Cin ? wj[tig * 8] : 0.f),
-                               split(tig + 4 < Cin ? wj[(tig + 4) * 8] : 0.f)};
-          r3dl::mma3(acc[j], af, bf);
+          for (int j = 0; j < J; ++j) {
+            const float* wj = wt + j * Cin * 8 + gid;
+            r3dl::mma1(acc[j], a[t][0], a[t][1], a[t][2], a[t][3],
+                       tig < Cin ? wj[tig * 8] : 0.f,
+                       tig + 4 < Cin ? wj[(tig + 4) * 8] : 0.f);
+          }
+        } else {
+          const Split af[4] = {split(a[t][0]), split(a[t][1]),
+                               split(a[t][2]), split(a[t][3])};
+#pragma unroll
+          for (int j = 0; j < J; ++j) {
+            const float* wj = wt + j * Cin * 8 + gid;
+            const Split bf[2] = {
+                split(tig < Cin ? wj[tig * 8] : 0.f),
+                split(tig + 4 < Cin ? wj[(tig + 4) * 8] : 0.f)};
+            r3dl::mma3(acc[j], af, bf);
+          }
         }
       }
     }
 
-    // 4. the group's rows out, or the tap range's partial to scratch
+    // 4. the group's rows out (rounded to T), or the tap range's fp32
+    //    partial to scratch
 #pragma unroll
     for (int j = 0; j < J; ++j) {
       const int col = co0 + 8 * j + 2 * tig;
       if (col >= Cout) break;
-      if (r0 < rows)
-        *reinterpret_cast<float2*>(dst + (long long)r0 * Cout + col) =
-            make_float2(acc[j][0], acc[j][1]);
-      if (r1 < rows)
-        *reinterpret_cast<float2*>(dst + (long long)r1 * Cout + col) =
-            make_float2(acc[j][2], acc[j][3]);
+      const long long o0 = (long long)r0 * Cout + col;
+      const long long o1 = (long long)r1 * Cout + col;
+      if (splits > 1) {
+        if (r0 < rows) store2(part + o0, acc[j][0], acc[j][1]);
+        if (r1 < rows) store2(part + o1, acc[j][2], acc[j][3]);
+      } else {
+        if (r0 < rows) store2(out + o0, acc[j][0], acc[j][1]);
+        if (r1 < rows) store2(out + o1, acc[j][2], acc[j][3]);
+      }
     }
   }
 }
 
-// out = the sum of the tap ranges' partials, in order; float4 lanes
+// out = the sum of the tap ranges' partials, in order, rounded to T once;
+// float4 lanes
+template <typename T>
 __global__ void stem_conv_sum_kernel(const float4* __restrict__ work,
-                                     float4* __restrict__ out, long long n4,
+                                     T* __restrict__ out, long long n4,
                                      int splits) {
   for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        e < n4; e += (long long)gridDim.x * blockDim.x) {
@@ -211,17 +262,17 @@ __global__ void stem_conv_sum_kernel(const float4* __restrict__ work,
       v.z += p.z;
       v.w += p.w;
     }
-    out[e] = v;
+    store2(out + 4 * e, v.x, v.y);
+    store2(out + 4 * e + 2, v.z, v.w);
   }
 }
 
-template <int kCols>
-int launch(const float* x, const int* idx, const unsigned char* ok,
-           const float* w, float* out, float* work, int B, int N, int K,
-           int Cin, int Cout, int warps, int splits, int blocks,
-           cudaStream_t stream) {
+template <int kCols, typename T>
+int launch(const T* x, const int* idx, const unsigned char* ok, const T* w,
+           T* out, float* work, int B, int N, int K, int Cin, int Cout,
+           int warps, int splits, int blocks, cudaStream_t stream) {
   static const cudaError_t attr =
-      r3dl::allow_smem(stem_conv_kernel<kCols>, kMaxSmem);
+      r3dl::allow_smem(stem_conv_kernel<kCols, T>, kMaxSmem);
   if (attr != cudaSuccess) return (int)attr;
   // the longest range's taps
   const int chunks = (K + kKT - 1) / kKT;
@@ -229,9 +280,38 @@ int launch(const float* x, const int* idx, const unsigned char* ok,
   if (smem_bytes<kCols>(range_taps, Cin) > (size_t)kMaxSmem)
     return (int)cudaErrorInvalidValue;
   const dim3 grid(blocks, (Cout + kCols - 1) / kCols, splits);
-  stem_conv_kernel<kCols><<<grid, 32 * warps,
-                            smem_bytes<kCols>(range_taps, Cin), stream>>>(
+  stem_conv_kernel<kCols, T><<<grid, 32 * warps,
+                               smem_bytes<kCols>(range_taps, Cin), stream>>>(
       x, idx, ok, w, out, work, B * N, N, K, Cin, Cout, splits);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int stem(const T* x, const int* idx, const unsigned char* ok, const T* w,
+         T* out, float* work, int B, int N, int K, int Cin, int Cout,
+         int cols, int warps, int splits, int blocks, long long work_bytes,
+         cudaStream_t stream) {
+  const long long n = (long long)B * N * Cout;
+  if (n == 0) return (int)cudaGetLastError();
+  const int chunks = (K + kKT - 1) / kKT;
+  if (K < 1 || K > kMaxK || Cin < 1 || Cin > kCp || Cout % 4 ||
+      (cols != 64 && cols != 32) || warps < 1 || warps > kMaxWarps ||
+      splits < 1 || splits > chunks || splits > 65535 || blocks < 1 ||
+      (long long)B * N > 0x7fffffffLL || ((uintptr_t)w & 15) ||
+      ((uintptr_t)out & 15) ||
+      (splits > 1 && (!work || work_bytes < 4 * splits * n ||
+                      ((uintptr_t)work & 15))))
+    return (int)cudaErrorInvalidValue;
+  const int err = cols == 64
+                      ? launch<64, T>(x, idx, ok, w, out, work, B, N, K, Cin,
+                                      Cout, warps, splits, blocks, stream)
+                      : launch<32, T>(x, idx, ok, w, out, work, B, N, K, Cin,
+                                      Cout, warps, splits, blocks, stream);
+  if (err != cudaSuccess || splits == 1) return err;
+  const long long n4 = n / 4, sum_blocks = (n4 + 255) / 256;
+  stem_conv_sum_kernel<T>
+      <<<(unsigned)(sum_blocks < 4096 ? sum_blocks : 4096), 256, 0,
+         stream>>>(reinterpret_cast<const float4*>(work), out, n4, splits);
   return (int)cudaGetLastError();
 }
 
@@ -250,27 +330,18 @@ extern "C" int r3dl_stem_conv(const float* x, const int* idx,
                               int Cin, int Cout, int cols, int warps,
                               int splits, int blocks, long long work_bytes,
                               cudaStream_t stream) {
-  const long long n = (long long)B * N * Cout;
-  if (n == 0) return (int)cudaGetLastError();
-  const int chunks = (K + kKT - 1) / kKT;
-  if (K < 1 || K > kMaxK || Cin < 1 || Cin > kCp || Cout % 4 ||
-      (cols != 64 && cols != 32) || warps < 1 || warps > kMaxWarps ||
-      splits < 1 || splits > chunks || splits > 65535 || blocks < 1 ||
-      (long long)B * N > 0x7fffffffLL || ((uintptr_t)w & 15) ||
-      ((uintptr_t)out & 15) ||
-      (splits > 1 && (!work || work_bytes < 4 * splits * n ||
-                      ((uintptr_t)work & 15))))
-    return (int)cudaErrorInvalidValue;
-  const int err = cols == 64
-                      ? launch<64>(x, idx, ok, w, out, work, B, N, K, Cin,
-                                   Cout, warps, splits, blocks, stream)
-                      : launch<32>(x, idx, ok, w, out, work, B, N, K, Cin,
-                                   Cout, warps, splits, blocks, stream);
-  if (err != cudaSuccess || splits == 1) return err;
-  const long long n4 = n / 4, sum_blocks = (n4 + 255) / 256;
-  stem_conv_sum_kernel<<<(unsigned)(sum_blocks < 4096 ? sum_blocks : 4096),
-                         256, 0, stream>>>(
-      reinterpret_cast<const float4*>(work), reinterpret_cast<float4*>(out),
-      n4, splits);
-  return (int)cudaGetLastError();
+  return stem<float>(x, idx, ok, w, out, work, B, N, K, Cin, Cout, cols,
+                     warps, splits, blocks, work_bytes, stream);
+}
+
+// The same with bf16 x, w and out (work fp32).
+extern "C" int r3dl_stem_conv_bf16(const r3dl::bf16* x, const int* idx,
+                                   const unsigned char* ok,
+                                   const r3dl::bf16* w, r3dl::bf16* out,
+                                   float* work, int B, int N, int K, int Cin,
+                                   int Cout, int cols, int warps, int splits,
+                                   int blocks, long long work_bytes,
+                                   cudaStream_t stream) {
+  return stem<r3dl::bf16>(x, idx, ok, w, out, work, B, N, K, Cin, Cout, cols,
+                          warps, splits, blocks, work_bytes, stream);
 }

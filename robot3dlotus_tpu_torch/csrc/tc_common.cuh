@@ -1,6 +1,7 @@
 // Building blocks shared by the tensor-core kernels (conv.cu K2,
 // conv_grad.cu K7, attention_dropout.cu K5/K6): 3xTF32 mma.sync.m16n8k8,
-// cp.async with zero-fill, and the dynamic shared-memory attribute.
+// the one-pass product of bf16 operands, cp.async with zero-fill, and the
+// dynamic shared-memory attribute.
 //
 // 3xTF32 (CUTLASS's OpMultiplyAddFastF32 scheme): each fp32 operand is
 // split as x = big + small, both TF32, and big*big + big*small + small*big
@@ -11,7 +12,13 @@
 // a0 (r, c), a1 (r + 8, c), a2 (r, c + 4), a3 (r + 8, c + 4); B (8 x 8)
 // b0 (c, r), b1 (c + 4, r); C (16 x 8) d0 (r, 2c), d1 (r, 2c + 1),
 // d2 (r + 8, 2c), d3 (r + 8, 2c + 1).
+//
+// bf16 operands (ptv3_config compute_dtype bfloat16): a bf16 value widened
+// to fp32 has 8 significant bits and zero low bits, so it is a TF32 value
+// as it is, its split has a zero small part, and one TF32 product of two
+// such values is exact: one mma pass (mma1) computes what the three would.
 #pragma once
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -51,6 +58,35 @@ __device__ __forceinline__ void mma3(float (&d)[4], const Split (&a)[4],
   mma_tf32(d, a[0].big, a[1].big, a[2].big, a[3].big, b[0].small,
            b[1].small);
   mma_tf32(d, a[0].big, a[1].big, a[2].big, a[3].big, b[0].big, b[1].big);
+}
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(bf16 x) { return __bfloat162float(x); }
+
+// fp32 -> T, to nearest even for bf16
+template <typename T>
+__device__ __forceinline__ T narrow(float x);
+template <>
+__device__ __forceinline__ float narrow<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ bf16 narrow<bf16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// x rounded to bf16 (to nearest even) and widened back
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// d += a b in one TF32 pass, on fp32 fragments that hold bf16 values
+__device__ __forceinline__ void mma1(float (&d)[4], float a0, float a1,
+                                     float a2, float a3, float b0, float b1) {
+  mma_tf32(d, __float_as_uint(a0), __float_as_uint(a1), __float_as_uint(a2),
+           __float_as_uint(a3), __float_as_uint(b0), __float_as_uint(b1));
 }
 
 // 16 bytes global -> shared, asynchronous; zero-filled (nothing read) when

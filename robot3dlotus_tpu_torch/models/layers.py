@@ -6,6 +6,16 @@ package. Submodules carry the flax module names (qkv, cpe_conv, norm1,
 ...) so that convert.params_from_jax maps a JAX variable tree onto the
 state_dict mechanically.
 
+Compute dtype (ptv3_config compute_dtype, the flax modules' `dtype`):
+None computes in fp32. torch.bfloat16 computes what the JAX package
+computes under 'bfloat16', with the parameters kept fp32 (so the
+state_dict is the fp32 one) and cast to bf16 at each call: Dense casts
+its input, weight and bias, its product sums in fp32 and is rounded to
+bf16, and the bias is added in bf16 (flax Dense); the norms compute in
+fp32 and return their input's dtype; SubMConv casts x and its weight (not
+the bias); the attentions keep fp32 logits and softmax and cast the
+probabilities to bf16. No autocast: the dtypes are the modules'.
+
 Train mode (nn.Module.train()) is the JAX package's deterministic=False:
 batch norms use the masked batch statistics and update their running ones,
 and dropout, attention dropout and drop-path draw from an explicit
@@ -34,10 +44,38 @@ def trunc_normal_(t, generator, std=0.02):
     return t
 
 
-def dense(cin, cout, generator, bias=True):
-    """nn.Linear with the JAX package's init: truncated normal (std 0.02)
+def resolve_compute_dtype(name):
+    """ptv3_config compute_dtype -> None (fp32) or torch.bfloat16, the one
+    narrower dtype the port's kernels take."""
+    if name in (None, "float32", "fp32"):
+        return None
+    if name == "bfloat16":
+        return torch.bfloat16
+    raise ValueError(f"compute_dtype {name!r}: the PyTorch port computes "
+                     "in float32 (None) or bfloat16")
+
+
+class Dense(nn.Linear):
+    """flax Dense(dtype): with a compute dtype the input, weight and bias
+    are cast to it, the product sums in fp32 and is rounded to it, and the
+    bias is added in it; without one, nn.Linear."""
+
+    def __init__(self, cin, cout, bias=True, dtype=None):
+        super().__init__(cin, cout, bias=bias)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        y = F.linear(x.to(dt), self.weight.to(dt))
+        return y if self.bias is None else y + self.bias.to(dt)
+
+
+def dense(cin, cout, generator, bias=True, dtype=None):
+    """Dense with the JAX package's init: truncated normal (std 0.02)
     weight, zero bias."""
-    lin = nn.Linear(cin, cout, bias=bias)
+    lin = Dense(cin, cout, bias=bias, dtype=dtype)
     with torch.no_grad():
         trunc_normal_(lin.weight, generator)
         if bias:
@@ -45,8 +83,28 @@ def dense(cin, cout, generator, bias=True):
     return lin
 
 
+class LayerNorm(nn.LayerNorm):
+    """The JAX LayerNorm: statistics, normalisation and affine in fp32, the
+    result in the input's dtype (a bf16 input is widened first)."""
+
+    def forward(self, x):
+        if x.dtype == torch.float32:
+            return super().forward(x)
+        return super().forward(x.float()).to(x.dtype)
+
+
+# sqrt(1/2) rounded to bf16: jax.nn.gelu's constant for a bf16 input
+_SQRT_HALF_BF16 = 0.70703125
+
+
 def gelu(x):
-    return F.gelu(x)  # exact erf form, like jax.nn.gelu(approximate=False)
+    """The exact (erf) GELU, like jax.nn.gelu(approximate=False). A bf16 x
+    takes that function's own ops, each rounded to bf16: 0.5 x erfc(-x
+    sqrt(1/2)) with sqrt(1/2) a bf16 constant (four kernels where F.gelu,
+    which rounds once, is one)."""
+    if x.dtype == torch.bfloat16:
+        return 0.5 * x * torch.erfc(x * -_SQRT_HALF_BF16)
+    return F.gelu(x)
 
 
 class Randomness:
@@ -118,7 +176,7 @@ class MaskedBatchNorm(nn.Module):
     0.01 in the torch convention). Train mode normalises with the masked
     batch mean and biased variance and moves the running statistics
     towards the mean and the unbiased variance; eval mode uses the running
-    statistics."""
+    statistics. Computed in fp32, returned in x's dtype."""
 
     def __init__(self, features, eps=1e-3, momentum=0.01):
         super().__init__()
@@ -146,8 +204,8 @@ class MaskedBatchNorm(nn.Module):
                     self.momentum * mean)
                 self.running_var.mul_(1 - self.momentum).add_(
                     self.momentum * unbiased)
-        y = (x - mean) * torch.rsqrt(var + self.eps)
-        return y * self.weight + self.bias
+        y = (x.float() - mean) * torch.rsqrt(var + self.eps)
+        return (y * self.weight + self.bias).to(x.dtype)
 
 
 class AdaptiveNorm(nn.Module):
@@ -155,34 +213,36 @@ class AdaptiveNorm(nn.Module):
     names match the flax tree; the point mask feeds only the batch norm's
     statistics. Adaptive (the AdaNorm variant's PDNorm): `modulation`
     = Linear(C_ctx, 2 C) on silu(context), split shift first, then scale,
-    and y (1 + scale) + shift broadcast over the points of each cloud."""
+    and y (1 + scale) + shift broadcast over the points of each cloud,
+    the modulation cast to y's dtype (its Dense computes in `dtype`)."""
 
     def __init__(self, features, kind, generator=None, adaptive=False,
-                 context_channels=256):
+                 context_channels=256, dtype=None):
         super().__init__()
         self.kind = kind
         self.norm = MaskedBatchNorm(features) if kind == "bn" else \
-            nn.LayerNorm(features, eps=1e-5)
+            LayerNorm(features, eps=1e-5)
         if adaptive:
             self.modulation = dense(context_channels, 2 * features,
-                                    generator)
+                                    generator, dtype=dtype)
 
     def forward(self, x, mask=None, context=None):
         y = self.norm(x, mask) if self.kind == "bn" else self.norm(x)
         if hasattr(self, "modulation"):
             if context is None:
                 raise ValueError("an adaptive norm needs the context vector")
-            shift, scale = self.modulation(F.silu(context)).chunk(2, dim=-1)
+            shift, scale = self.modulation(F.silu(context)).to(
+                y.dtype).chunk(2, dim=-1)
             y = y * (1.0 + scale[:, None, :]) + shift[:, None, :]
         return y
 
 
 class MLP(nn.Module):
-    def __init__(self, cin, hidden, cout, generator, drop=0.0):
+    def __init__(self, cin, hidden, cout, generator, drop=0.0, dtype=None):
         super().__init__()
         self.drop = drop
-        self.fc1 = dense(cin, hidden, generator)
-        self.fc2 = dense(hidden, cout, generator)
+        self.fc1 = dense(cin, hidden, generator, dtype=dtype)
+        self.fc2 = dense(hidden, cout, generator, dtype=dtype)
 
     def forward(self, x, rng=None):
         x = dropout(gelu(self.fc1(x)), self.drop, self.training, rng)
@@ -194,11 +254,14 @@ class SubMConv(nn.Module):
     stencil_offsets order, spconv-like uniform init over fan_in =
     K * (Cin + E). E = categorical_channels: the width of an embedded
     categorical input (the motion planner's point labels) that forward
-    takes as `categorical` = (idx (B, N), table (Kcat, E))."""
+    takes as `categorical` = (idx (B, N), table (Kcat, E)). With a compute
+    dtype x and the weight are cast to it (the bias stays fp32; the conv
+    sums in fp32 and rounds once)."""
 
     def __init__(self, cin, cout, kernel_size, generator, use_bias=True,
-                 categorical_channels=0):
+                 categorical_channels=0, dtype=None):
         super().__init__()
+        self.compute_dtype = dtype
         K = kernel_size ** 3
         cin = cin + categorical_channels
         bound = math.sqrt(1.0 / (K * cin))
@@ -207,7 +270,10 @@ class SubMConv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(cout)) if use_bias else None
 
     def forward(self, x, nmap: NeighborMap, categorical=None):
-        return subm_conv_apply(x, nmap, self.weight, self.bias,
+        weight, dt = self.weight, self.compute_dtype
+        if dt is not None:
+            x, weight = x.to(dt), weight.to(dt)
+        return subm_conv_apply(x, nmap, weight, self.bias,
                                categorical=categorical)
 
 
@@ -220,19 +286,20 @@ class SerializedAttention(nn.Module):
 
     def __init__(self, channels, num_heads, patch_size, generator,
                  order_index=0, qkv_bias=True, qk_scale=None, qk_norm=True,
-                 attn_drop=0.0, proj_drop=0.0):
+                 attn_drop=0.0, proj_drop=0.0, dtype=None):
         super().__init__()
         self.attn_drop, self.proj_drop = attn_drop, proj_drop
         self.channels, self.num_heads = channels, num_heads
         self.patch_size, self.order_index = patch_size, order_index
         self.head_dim = channels // num_heads
         self.scale = qk_scale or self.head_dim ** -0.5
-        self.qkv = dense(channels, 3 * channels, generator, bias=qkv_bias)
+        self.qkv = dense(channels, 3 * channels, generator, bias=qkv_bias,
+                         dtype=dtype)
         self.qk_norm = qk_norm
         if qk_norm:
-            self.q_norm = nn.LayerNorm(self.head_dim, eps=1e-6)
-            self.k_norm = nn.LayerNorm(self.head_dim, eps=1e-6)
-        self.proj = dense(channels, channels, generator)
+            self.q_norm = LayerNorm(self.head_dim, eps=1e-6)
+            self.k_norm = LayerNorm(self.head_dim, eps=1e-6)
+        self.proj = dense(channels, channels, generator, dtype=dtype)
 
     def forward(self, feat, aux, rng=None):
         B, N, C = feat.shape
@@ -267,21 +334,24 @@ class SerializedAttention(nn.Module):
 
 
 class CrossAttention(nn.Module):
-    """Points -> text-token cross attention; masked tokens get -1e4."""
+    """Points -> text-token cross attention; masked tokens get -1e4; fp32
+    logits and softmax, the probabilities cast to v's dtype, the product
+    summed in fp32 and returned in q's dtype."""
 
     def __init__(self, channels, num_heads, context_channels, generator,
-                 qk_norm=True, attn_drop=0.0, proj_drop=0.0):
+                 qk_norm=True, attn_drop=0.0, proj_drop=0.0, dtype=None):
         super().__init__()
         self.attn_drop, self.proj_drop = attn_drop, proj_drop
         self.num_heads = num_heads
         self.head_dim = channels // num_heads
-        self.q = dense(channels, channels, generator)
-        self.kv = dense(context_channels, 2 * channels, generator)
+        self.q = dense(channels, channels, generator, dtype=dtype)
+        self.kv = dense(context_channels, 2 * channels, generator,
+                        dtype=dtype)
         self.qk_norm = qk_norm
         if qk_norm:
-            self.q_norm = nn.LayerNorm(self.head_dim, eps=1e-6)
-            self.k_norm = nn.LayerNorm(self.head_dim, eps=1e-6)
-        self.proj = dense(channels, channels, generator)
+            self.q_norm = LayerNorm(self.head_dim, eps=1e-6)
+            self.k_norm = LayerNorm(self.head_dim, eps=1e-6)
+        self.proj = dense(channels, channels, generator, dtype=dtype)
 
     def forward(self, feat, context, context_mask, rng=None):
         B, N, C = feat.shape
@@ -292,12 +362,14 @@ class CrossAttention(nn.Module):
                 for t in self.kv(context).split(C, dim=-1))
         if self.qk_norm:
             q, k = self.q_norm(q), self.k_norm(k)
-        logits = torch.einsum("bnhd,bthd->bnth", q, k) * Dh ** -0.5
+        logits = torch.einsum("bnhd,bthd->bnth", q.float(),
+                              k.float()) * Dh ** -0.5
         logits = torch.where(context_mask[:, None, :, None], logits,
                              torch.full_like(logits, -1e4))
         attn = torch.softmax(logits.float(), dim=2)
         attn = dropout(attn, self.attn_drop, self.training, rng)
-        out = torch.einsum("bnth,bthd->bnhd", attn.to(v.dtype), v)
+        out = torch.einsum("bnth,bthd->bnhd", attn.to(v.dtype).float(),
+                           v.float()).to(q.dtype)
         return dropout(self.proj(out.reshape(B, N, C)), self.proj_drop,
                        self.training, rng)
 
@@ -310,22 +382,24 @@ class Block(nn.Module):
     def __init__(self, channels, num_heads, patch_size, generator,
                  mlp_ratio=4.0, qkv_bias=True, qk_scale=None, qk_norm=True,
                  order_index=0, attn_drop=0.0, proj_drop=0.0, drop_path=0.0,
-                 norm_adaptive=False, context_channels=256):
+                 norm_adaptive=False, context_channels=256, dtype=None):
         super().__init__()
         self.drop_path = drop_path
         norm = dict(generator=generator, adaptive=norm_adaptive,
-                    context_channels=context_channels)
-        self.cpe_conv = SubMConv(channels, channels, 3, generator)
-        self.cpe_fc = dense(channels, channels, generator)
+                    context_channels=context_channels, dtype=dtype)
+        self.cpe_conv = SubMConv(channels, channels, 3, generator,
+                                 dtype=dtype)
+        self.cpe_fc = dense(channels, channels, generator, dtype=dtype)
         self.cpe_norm = AdaptiveNorm(channels, "ln", **norm)
         self.norm1 = AdaptiveNorm(channels, "ln", **norm)
         self.attn = SerializedAttention(
             channels, num_heads, patch_size, generator,
             order_index=order_index, qkv_bias=qkv_bias, qk_scale=qk_scale,
-            qk_norm=qk_norm, attn_drop=attn_drop, proj_drop=proj_drop)
+            qk_norm=qk_norm, attn_drop=attn_drop, proj_drop=proj_drop,
+            dtype=dtype)
         self.norm2 = AdaptiveNorm(channels, "ln", **norm)
         self.mlp = MLP(channels, int(channels * mlp_ratio), channels,
-                       generator, drop=proj_drop)
+                       generator, drop=proj_drop, dtype=dtype)
 
     def forward(self, feat, aux, cpe_feat=None, rng=None, context_vec=None):
         """cpe_feat: the stale CPE input of the first decoder block after an
@@ -346,15 +420,17 @@ class CABlock(nn.Module):
     whose norms are never adaptive)."""
 
     def __init__(self, channels, num_heads, context_channels, generator,
-                 mlp_ratio=4.0, qk_norm=True, attn_drop=0.0, proj_drop=0.0):
+                 mlp_ratio=4.0, qk_norm=True, attn_drop=0.0, proj_drop=0.0,
+                 dtype=None):
         super().__init__()
         self.norm1 = AdaptiveNorm(channels, "ln")
         self.attn = CrossAttention(channels, num_heads, context_channels,
                                    generator, qk_norm=qk_norm,
-                                   attn_drop=attn_drop, proj_drop=proj_drop)
+                                   attn_drop=attn_drop, proj_drop=proj_drop,
+                                   dtype=dtype)
         self.norm2 = AdaptiveNorm(channels, "ln")
         self.mlp = MLP(channels, int(channels * mlp_ratio), channels,
-                       generator, drop=proj_drop)
+                       generator, drop=proj_drop, dtype=dtype)
 
     def forward(self, feat, context, context_mask, rng=None):
         feat = feat + self.attn(self.norm1(feat), context, context_mask, rng)

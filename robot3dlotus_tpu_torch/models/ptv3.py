@@ -27,6 +27,13 @@ stem input (the motion planner's point labels, `stem_categorical`) is
 carried into the stage-0 frame by sort0 and feeds only the stem conv.
 The TPU-only window/far-list inputs of the JAX backbone have no
 counterpart.
+
+compute_dtype ('bfloat16'; None, 'float32' or 'fp32' for fp32) is the JAX
+backbone's: every Block, CABlock, pooling and unpooling computes in bf16
+(models/layers.py says how), the stem conv casts its input and weight,
+the stem's output (after its norm and GELU) and the context tokens are
+cast to bf16, and the outputs (_pack) are fp32, so the heads, the decode
+and the losses stay fp32. The parameters stay fp32.
 """
 from __future__ import annotations
 
@@ -42,7 +49,8 @@ from ..ops.pooling import (build_pool_maps, gather_heads, segment_reduce,
 from ..ops.serialization import (SENTINEL, SFC_ORDERS, argsort_with_inverse,
                                  serialize_codes)
 from ..ops.sparse_conv import build_neighbor_map
-from .layers import AdaptiveNorm, Block, CABlock, SubMConv, dense, gelu
+from .layers import (AdaptiveNorm, Block, CABlock, SubMConv, dense, gelu,
+                     resolve_compute_dtype)
 
 
 def compute_grid_coord(coord, mask, grid_size, depth):
@@ -65,11 +73,11 @@ class SerializedPooling(nn.Module):
     """Grid pooling: linear proj -> segment max -> BN -> GELU."""
 
     def __init__(self, cin, cout, generator, adaptive=False,
-                 context_channels=256):
+                 context_channels=256, dtype=None):
         super().__init__()
-        self.proj = dense(cin, cout, generator)
+        self.proj = dense(cin, cout, generator, dtype=dtype)
         self.norm = AdaptiveNorm(cout, "bn", generator, adaptive,
-                                 context_channels)
+                                 context_channels, dtype)
 
     def forward(self, feat_sorted, maps, child_cap, context_vec=None):
         x = segment_reduce(self.proj(feat_sorted), maps, child_cap, "max")
@@ -81,12 +89,12 @@ class SerializedUnpooling(nn.Module):
     GELU. Also returns the bare skip, which the next block's CPE reads."""
 
     def __init__(self, cin, cskip, cout, generator, adaptive=False,
-                 context_channels=256):
+                 context_channels=256, dtype=None):
         super().__init__()
-        norm = (generator, adaptive, context_channels)
-        self.proj_fc = dense(cin, cout, generator)
+        norm = (generator, adaptive, context_channels, dtype)
+        self.proj_fc = dense(cin, cout, generator, dtype=dtype)
         self.proj_norm = AdaptiveNorm(cout, "bn", *norm)
-        self.proj_skip_fc = dense(cskip, cout, generator)
+        self.proj_skip_fc = dense(cskip, cout, generator, dtype=dtype)
         self.proj_skip_norm = AdaptiveNorm(cout, "bn", *norm)
 
     def forward(self, child_feat, child_mask, parent_feat, parent_mask,
@@ -114,10 +122,13 @@ class PointTransformerV3(nn.Module):
                  stem_kernel=5, lookup_extent=128, assume_sorted=False,
                  stage_caps: Optional[Sequence[int]] = None,
                  stem_categorical_channels=0, use_cross_attn=True,
-                 norm_adaptive=False, pdnorm_only_decoder=False):
+                 norm_adaptive=False, pdnorm_only_decoder=False,
+                 compute_dtype=None):
         """in_channels: the stem's input width (under Concat the point
-        features and the context vector)."""
+        features and the context vector); compute_dtype: None, 'float32',
+        'fp32' or 'bfloat16'."""
         super().__init__()
+        self.compute_dtype = dt = resolve_compute_dtype(compute_dtype)
         self.orders = tuple(orders)
         self.enc_depths, self.dec_depths = tuple(enc_depths), tuple(dec_depths)
         self.enc_channels = tuple(enc_channels)
@@ -140,8 +151,8 @@ class PointTransformerV3(nn.Module):
         g = generator
         drop = dict(attn_drop=attn_drop, proj_drop=proj_drop)
         blk = dict(mlp_ratio=mlp_ratio, qkv_bias=qkv_bias, qk_scale=qk_scale,
-                   qk_norm=qk_norm, **drop)
-        cab = dict(mlp_ratio=mlp_ratio, qk_norm=qk_norm, **drop)
+                   qk_norm=qk_norm, dtype=dt, **drop)
+        cab = dict(mlp_ratio=mlp_ratio, qk_norm=qk_norm, dtype=dt, **drop)
         # drop-path rates rise linearly over the encoder blocks, and over
         # the decoder blocks, deepest first (JAX ptv3 _linspace)
         enc_dp = _linspace(0.0, drop_path, sum(enc_depths))
@@ -149,14 +160,14 @@ class PointTransformerV3(nn.Module):
 
         self.embedding_stem_conv = SubMConv(
             in_channels, enc_channels[0], stem_kernel, g, use_bias=False,
-            categorical_channels=stem_categorical_channels)
+            categorical_channels=stem_categorical_channels, dtype=dt)
         self.embedding_norm = AdaptiveNorm(enc_channels[0], "bn", g,
-                                           enc_adaptive, context_channels)
+                                           enc_adaptive, context_channels, dt)
         for s in range(S):
             if s > 0:
                 self.add_module(f"enc{s}_down", SerializedPooling(
                     enc_channels[s - 1], enc_channels[s], g, enc_adaptive,
-                    context_channels))
+                    context_channels, dt))
             for i in range(enc_depths[s]):
                 self.add_module(f"enc{s}_block{i}", Block(
                     enc_channels[s], enc_num_head[s], enc_patch_size[s], g,
@@ -172,7 +183,7 @@ class PointTransformerV3(nn.Module):
         for s in reversed(range(S - 1)):
             self.add_module(f"dec{s}_up", SerializedUnpooling(
                 dec_ch[s + 1], enc_channels[s], dec_ch[s], g, norm_adaptive,
-                context_channels))
+                context_channels, dt))
             dp = dec_dp[sum(dec_depths[:s]):sum(dec_depths[:s + 1])][::-1]
             for i in range(dec_depths[s]):
                 self.add_module(f"dec{s}_block{i}", Block(
@@ -283,6 +294,10 @@ class PointTransformerV3(nn.Module):
         x = self.embedding_stem_conv(cur["feat"].contiguous(), stem_map,
                                      categorical=stem_categorical)
         cur["feat"] = gelu(self.embedding_norm(x, cur["mask"], context_vec))
+        if self.compute_dtype is not None:
+            cur["feat"] = cur["feat"].to(self.compute_dtype)
+            if context is not None:
+                context = context.to(self.compute_dtype)
 
         pool_overflow = torch.zeros((), dtype=torch.long, device=feat.device)
         stage_state, pool_records = [], []
@@ -368,7 +383,8 @@ class PointTransformerV3(nn.Module):
 
     @staticmethod
     def _pack(cur):
-        return {"feat": cur["feat"], "coord": cur["coord"],
+        # the heads and losses take fp32 whatever the compute dtype
+        return {"feat": cur["feat"].float(), "coord": cur["coord"],
                 "mask": cur["mask"], "counts": cur["counts"]}
 
 

@@ -17,6 +17,17 @@ pattern (bit j % 32 of word j // 32; pack_keep_bits). The backward (K6,
 patch_attention_dropout_bwd) reads them with out and the cotangent: no
 logit is recomputed for statistics and no random bit is drawn again.
 
+K1 also takes bf16 q, k and v (compute_dtype bfloat16, serving) and
+computes the JAX package's XLA attention at that dtype (models/layers.py
+SerializedAttention): q * scale rounded to bf16 (with scale itself a bf16
+value, as a Python float meets a bf16 array in JAX), fp32 logits and
+softmax, the probabilities rounded to bf16, P v summed in fp32 and the
+output rounded to bf16 (patch_attention_plain does the same in PyTorch;
+the kernel is r3dl_patch_attention_bf16, counted as patch_attention_bf16).
+The Pallas body (pallas_attention.py) scales q after widening it to fp32
+instead, so the two JAX paths differ at bf16; the port follows the XLA
+path. K5 and K6 take fp32 only.
+
 The CUDA kernels are csrc/attention.cu (K1) and csrc/attention_dropout.cu
 (K5, K6); K1 and K5 run one forward tile (csrc/attention_tile.cuh), and
 K1 splits each patch's query rows over blocks by attention_query_split.
@@ -29,6 +40,7 @@ from __future__ import annotations
 import torch
 
 from . import cuda_lib
+from .bf16 import bf16_value
 from .conv import _aligned
 
 NEG_INF = -1e9
@@ -48,10 +60,27 @@ def patch_attention_plain(q, k, v, key_valid, scale):
     return patch_attention_dropout_plain(q, k, v, key_valid, scale, 0.0, None)
 
 
+def _scaled(q, scale):
+    """q * scale; for bf16 q, in bf16 as the JAX reference computes it."""
+    if q.dtype == torch.bfloat16:
+        return (q.float() * bf16_value(scale)).to(q.dtype)
+    return q * scale
+
+
 def _logits(q, k, key_valid, scale):
-    logits = torch.einsum("ghpd,ghqd->ghpq", (q * scale).float(), k.float())
+    logits = torch.einsum("ghpd,ghqd->ghpq", _scaled(q, scale).float(),
+                          k.float())
     return torch.where(key_valid[:, None, None, :], logits,
                        torch.full_like(logits, NEG_INF))
+
+
+def bf16_probability_allowance(q, k, v, key_valid, scale):
+    """2^-7 sum_j p_j |v_j| (G, H, P, Dh) fp32: one bf16 ulp of each
+    probability's share of the output, the part of K1's bf16 bar that a
+    probability rounded to the neighbouring bf16 value can move
+    (ops/bf16.py)."""
+    a = torch.softmax(_logits(q, k, key_valid, scale), dim=-1)
+    return torch.einsum("ghpq,ghqd->ghpd", a, v.float().abs()) * 2.0 ** -7
 
 
 def _drop(t, rate, keep):
@@ -61,10 +90,13 @@ def _drop(t, rate, keep):
 
 
 def patch_attention_dropout_plain(q, k, v, key_valid, scale, rate, keep):
-    """keep: (G, H, P, P) bool (None: keep all) -> (G, H, P, Dh)."""
+    """keep: (G, H, P, P) bool (None: keep all) -> (G, H, P, Dh). The
+    probabilities are cast to v's dtype before the product, which sums in
+    fp32."""
     a = torch.softmax(_logits(q, k, key_valid, scale), dim=-1)
-    return torch.einsum("ghpq,ghqd->ghpd", _drop(a, rate, keep).to(v.dtype),
-                        v).to(q.dtype)
+    return torch.einsum("ghpq,ghqd->ghpd",
+                        _drop(a, rate, keep).to(v.dtype).float(),
+                        v.float()).to(q.dtype)
 
 
 def patch_attention_dropout_vjp_plain(q, k, v, key_valid, scale, rate, keep,
@@ -186,12 +218,15 @@ def patch_attention_dropout_bwd_plain(q, k, v, key_valid, out, lse, bits, g,
     return dq, dk, dv
 
 
-def _check_attention(name, q, k, v, key_valid, *more):
-    """The kernels' contract: q, k, v and `more` contiguous fp32 CUDA
-    tensors of one (G, H, P, Dh) shape, key_valid (G, P) bool."""
+def _check_attention(name, q, k, v, key_valid, *more,
+                     dtypes=(torch.float32,)):
+    """The kernels' contract: q, k, v and `more` contiguous CUDA tensors of
+    one (G, H, P, Dh) shape and one of `dtypes` (K1: fp32 or bf16; K5, K6:
+    fp32), key_valid (G, P) bool."""
     for n, t in (("q", q), ("k", k), ("v", v),
                  *((f"arg {i}", t) for i, t in enumerate(more))):
-        cuda_lib.check_cuda_tensor(f"{name} {n}", t, torch.float32, 4)
+        cuda_lib.check_cuda_tensor(f"{name} {n}", t,
+                                   (q.dtype,) if n != "q" else dtypes, 4)
     cuda_lib.check_cuda_tensor(f"{name} key_valid", key_valid, torch.bool, 2)
     G, H, P, Dh = q.shape
     if any(t.shape != q.shape for t in (k, v, *more)) or \
@@ -225,9 +260,10 @@ def attention_query_split(G, H, P):
 
 
 def patch_attention(q, k, v, key_valid, scale):
-    """Masked per-patch attention: the CUDA kernel (K1) for CUDA tensors,
-    the plain version for CPU tensors. K1 has no backward: a CUDA call that
-    must carry a gradient raises (patch_attention_dropout has one)."""
+    """Masked per-patch attention, q, k, v fp32 or bf16: the CUDA kernel
+    (K1) for CUDA tensors, the plain version for CPU tensors. K1 has no
+    backward: a CUDA call that must carry a gradient raises
+    (patch_attention_dropout has one)."""
     if not q.is_cuda:
         return patch_attention_plain(q, k, v, key_valid, scale)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or
@@ -242,16 +278,23 @@ def patch_attention(q, k, v, key_valid, scale):
 def patch_attention_split(q, k, v, key_valid, scale, warps, splits):
     """K1 on CUDA tensors with a given query split (attention_query_split
     gives patch_attention's); one launch."""
-    G, H, P, Dh = _check_attention("patch_attention", q, k, v, key_valid)
+    G, H, P, Dh = _check_attention("patch_attention", q, k, v, key_valid,
+                                   dtypes=(torch.float32, torch.bfloat16))
     if not 1 <= warps <= ATTN_MAX_WARPS or splits < 1 or \
             QUERY_ROWS * warps * splits < P:
         raise ValueError(f"patch_attention: split ({warps} warps, {splits} "
                          f"blocks) does not cover {P} query rows")
     out = torch.empty_like(q)
     k, v = _aligned(k), _aligned(v)
-    cuda_lib.launch("patch_attention", "r3dl_patch_attention", q.data_ptr(),
-                    k.data_ptr(), v.data_ptr(), key_valid.data_ptr(),
-                    out.data_ptr(), G, H, P, Dh, warps, splits, float(scale))
+    if q.dtype == torch.bfloat16:
+        kernel, entry, scale = ("patch_attention_bf16",
+                                "r3dl_patch_attention_bf16",
+                                bf16_value(scale))
+    else:
+        kernel, entry = "patch_attention", "r3dl_patch_attention"
+    cuda_lib.launch(kernel, entry, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    key_valid.data_ptr(), out.data_ptr(), G, H, P, Dh, warps,
+                    splits, float(scale))
     return out
 
 

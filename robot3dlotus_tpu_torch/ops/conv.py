@@ -27,6 +27,16 @@ WGRAD_PAD_MIN_CIN input channels, so that the wide stem takes its
 compacted path; narrower inputs (the policy stem's 7) keep the path that
 packs (tap, channel) columns.
 
+bf16 (the forward under compute_dtype bfloat16): x and W bf16, the bias
+fp32; every tap sums in fp32, the bias is added in fp32 and the result is
+rounded to bf16 once, as the JAX XLA conv does (ops/sparse_conv.py
+subm_conv_apply): csrc r3dl_subm_conv_bf16, counted as subm_conv_bf16,
+and subm_conv_plain in PyTorch. The tap ranges' partials stay fp32. The
+kernel reads 16 bytes (8 bf16 channels) at a time, so bf16 channel counts
+are padded to multiples of 8 (the CPE's 64..768 are; the Concat stem's 263
+becomes 264). The backward takes fp32 only: a bf16 conv that must carry a
+gradient raises.
+
 Backward: dW is K7, dbias a plain sum, and dx is the conv itself run on
 a cotangent with the mirrored weight W'[k] = W[K-1-k]^T (K2 again), as in
 the JAX package. The mirrored conv alone is the adjoint only of a
@@ -59,17 +69,19 @@ WGRAD_PAD_MIN_CIN = 32
 
 
 def subm_conv_plain(x, idx, ok, weight, bias=None):
-    """x (B, N, Cin); idx/ok (B, N, K); weight (K, Cin, Cout)."""
+    """x (B, N, Cin); idx/ok (B, N, K); weight (K, Cin, Cout); the taps
+    sum in fp32 (bf16 x and weight are widened), the fp32 bias is added
+    and the result is cast to x's dtype once."""
     B, N, _ = x.shape
-    out = x.new_zeros((B, N, weight.shape[-1]))
+    out = x.new_zeros((B, N, weight.shape[-1]), dtype=torch.float32)
     for k in range(weight.shape[0]):
         g = torch.gather(x, 1, idx[..., k].long()[..., None].expand(
             -1, -1, x.shape[-1]))
         g = torch.where(ok[..., k, None], g, torch.zeros_like(g))
-        out = out + g @ weight[k]
+        out = out + g.float() @ weight[k].float()
     if bias is not None:
         out = out + bias
-    return out
+    return out.to(x.dtype)
 
 
 def conv_weight_grad_plain(x, idx, ok, g):
@@ -88,8 +100,8 @@ def mirror_weight(weight):
     return weight.flip(0).transpose(1, 2).contiguous()
 
 
-def _check_map(name, x, idx, ok, K):
-    cuda_lib.check_cuda_tensor(f"{name} x", x, torch.float32, 3)
+def _check_map(name, x, idx, ok, K, dtypes=(torch.float32,)):
+    cuda_lib.check_cuda_tensor(f"{name} x", x, dtypes, 3)
     cuda_lib.check_cuda_tensor(f"{name} idx", idx, torch.int32, 3)
     cuda_lib.check_cuda_tensor(f"{name} ok", ok, torch.bool, 3)
     B, N, _ = x.shape
@@ -122,9 +134,9 @@ def conv_tap_splits(B, N, K, cout):
 def _conv_forward(x, idx, ok, weight, bias):
     if not x.is_cuda:
         return subm_conv_plain(x, idx, ok, weight, bias)
-    cuda_lib.check_cuda_tensor("subm_conv weight", weight, torch.float32, 3)
     K, wcin, Cout = weight.shape
-    _check_map("subm_conv", x, idx, ok, K)
+    _check_map("subm_conv", x, idx, ok, K, (torch.float32, torch.bfloat16))
+    cuda_lib.check_cuda_tensor("subm_conv weight", weight, x.dtype, 3)
     B, N, Cin = x.shape
     if wcin != Cin or K > CONV_MAX_TAPS:
         raise ValueError(f"subm_conv: x{tuple(x.shape)} weight"
@@ -135,7 +147,10 @@ def _conv_forward(x, idx, ok, weight, bias):
         cuda_lib.check_cuda_tensor("subm_conv bias", bias, torch.float32, 1)
         if bias.shape[0] != Cout:
             raise ValueError(f"subm_conv: bias {tuple(bias.shape)}")
-    pin, pout = -Cin % 4, -Cout % 4
+    bf16 = x.dtype == torch.bfloat16
+    # channels in the kernel's 16-byte pieces: 4 fp32, 8 bf16
+    unit = 8 if bf16 else 4
+    pin, pout = -Cin % unit, -Cout % unit
     x = _pad_channels(x, pin)
     weight = _pad_channels(weight, pout, pin)
     if bias is not None:
@@ -144,12 +159,14 @@ def _conv_forward(x, idx, ok, weight, bias):
     Cin, Cout = Cin + pin, Cout + pout
     splits = conv_tap_splits(B, N, K, Cout)
     out = torch.empty((B, N, Cout), dtype=x.dtype, device=x.device)
-    # the tap ranges' partial sums, apart from the output so that the
+    # the tap ranges' fp32 partial sums, apart from the output so that the
     # activation does not keep them alive
-    work = torch.empty(splits * out.numel(), dtype=x.dtype,
+    work = torch.empty(splits * out.numel(), dtype=torch.float32,
                        device=x.device) if splits > 1 else None
     x, weight = _aligned(x), _aligned(weight)
-    cuda_lib.launch("subm_conv", "r3dl_subm_conv", x.data_ptr(),
+    kernel, entry = ("subm_conv_bf16", "r3dl_subm_conv_bf16") if bf16 else \
+        ("subm_conv", "r3dl_subm_conv")
+    cuda_lib.launch(kernel, entry, x.data_ptr(),
                     idx.data_ptr(), ok.data_ptr(), weight.data_ptr(),
                     bias_ptr, out.data_ptr(),
                     None if work is None else work.data_ptr(), B, N, K,
@@ -234,6 +251,10 @@ class _SubmConv(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, idx, ok, weight = ctx.saved_tensors
+        if x.dtype != torch.float32:
+            raise NotImplementedError(
+                f"subm_conv backward: the input gradient (mirrored K2) and "
+                f"the weight gradient (K7) take fp32 only, got {x.dtype}")
         g = g.contiguous()
         dx = dw = db = None
         if ctx.needs_input_grad[0]:

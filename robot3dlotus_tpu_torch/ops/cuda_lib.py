@@ -41,19 +41,27 @@ _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 _L = ctypes.c_longlong
 # C signatures: every entry point returns cudaGetLastError() as int
 _GATHER = [_P, _P, _P, _I, _I, _I, _I, _I, _P]
+_ATTENTION = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P]
+_CONV = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _P]
+_STEM = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _L,
+         _P]
+# Entry points ending in _bf16 / 16 take bf16 (2-byte) activations and
+# weights: the forward kernels' paths under compute_dtype bfloat16.
 SIGNATURES = {
     # x or g, idx, out, B, N, M, D, idx64 (int64 indices, else int32),
     # stream
     "r3dl_gather_rows": _GATHER,
+    "r3dl_gather_rows16": _GATHER,
     "r3dl_scatter_rows_add": _GATHER,
     "r3dl_gather_smallc": _GATHER,
+    "r3dl_gather_smallc16": _GATHER,
     # g, idx, dx, work|NULL, B, n, M, C, idx64, ranges, window, work_bytes,
     # stream
     "r3dl_scatter_smallc_add": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                 _L, _P],
     # q, k, v, key_valid, out, G, H, P, Dh, warps, splits, scale, stream
-    "r3dl_patch_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
-                             _P],
+    "r3dl_patch_attention": _ATTENTION,
+    "r3dl_patch_attention_bf16": _ATTENTION,
     # q, k, v, key_valid, out, lse, bits, G, H, P, Dh, scale, seed, thresh,
     # inv_keep, stream
     "r3dl_attention_dropout_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
@@ -64,24 +72,26 @@ SIGNATURES = {
                                    _P, _I, _I, _I, _I, _F, _F, _P],
     # x, idx, ok, w, bias|NULL, out, work|NULL, B, N, K, Cin, Cout,
     # splits, work_bytes, stream
-    "r3dl_subm_conv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                       _L, _P],
+    "r3dl_subm_conv": _CONV,
+    "r3dl_subm_conv_bf16": _CONV,
     # x, idx, ok, g, work|NULL, dw, B, N, K, Cin, Cout, splits,
     # rows_per_split, work_bytes, stream
     "r3dl_conv_weight_grad": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                               _I, _L, _L, _P],
     # x, idx, ok, w, out, work|NULL, B, N, K, Cin, Cout, cols, warps,
     # splits, blocks, work_bytes, stream
-    "r3dl_stem_conv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                       _I, _I, _L, _P],
+    "r3dl_stem_conv": _STEM,
+    "r3dl_stem_conv_bf16": _STEM,
 }
 
-# K1-K10 by wrapper name
+# K1-K10 by wrapper name; the bf16 paths of K1-K4 and K9 count apart
 LAUNCHES = {"patch_attention": 0, "subm_conv": 0, "stem_conv": 0,
             "gather_rows": 0, "patch_attention_dropout": 0,
             "patch_attention_dropout_bwd": 0, "conv_weight_grad": 0,
             "scatter_rows_add": 0, "gather_rows_smallc": 0,
-            "scatter_rows_smallc_add": 0}
+            "scatter_rows_smallc_add": 0, "patch_attention_bf16": 0,
+            "subm_conv_bf16": 0, "stem_conv_bf16": 0, "gather_rows_bf16": 0,
+            "gather_rows_smallc_bf16": 0}
 
 _LIB = None
 _FNS = {}       # C entry point name -> its ctypes function object, bound once
@@ -188,12 +198,15 @@ def reset_launches():
 
 
 def check_cuda_tensor(name, t, dtype, ndim):
-    """Validate what a kernel takes: a contiguous CUDA tensor of dtype and
-    rank; raises instead of letting the kernel read garbage."""
+    """Validate what a kernel takes: a contiguous CUDA tensor of dtype (one
+    dtype, or a tuple of the dtypes it accepts) and rank; raises instead of
+    letting the kernel read garbage."""
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    dtypes = dtype if isinstance(dtype, tuple) else (dtype,)
+    if t.dtype not in dtypes:
+        raise ValueError(f"{name}: expected {' or '.join(map(str, dtypes))}"
+                         f", got {t.dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{name}: expected {ndim} dims, got {tuple(t.shape)}")
     if not t.is_contiguous():

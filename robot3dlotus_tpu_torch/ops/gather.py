@@ -20,6 +20,12 @@ against. scatter_smallc_plan is K10's block plan (ranges of row tiles per
 cloud, slabs of destination rows), plain Python that the CPU tests
 enumerate.
 
+K4 and K9 also take bf16 rows (the activations under compute_dtype
+bfloat16): a launch of their 2-byte entry points (csrc r3dl_gather_rows16,
+r3dl_gather_smallc16), counted as gather_rows_bf16 /
+gather_rows_smallc_bf16; a copy, so bit-equal to the plain version. K8 and
+K10 take fp32 only (bf16 training raises before it reaches them).
+
 Indices are int32 or int64 and reach the kernels as they are (no cast).
 A CUDA call that carries no gradient (grad mode off, or x not requiring
 one) launches its kernel directly; otherwise an autograd Function carries
@@ -33,7 +39,10 @@ from . import cuda_lib
 
 SMALLC_MAX = 32
 _ANY_WIDTH = 1 << 30
-_F32, _I32, _I64 = torch.float32, torch.int32, torch.int64
+_F32, _BF16 = torch.float32, torch.bfloat16
+_I32, _I64 = torch.int32, torch.int64
+_GATHER_DTYPES = (_F32, _BF16)     # what K4 and K9 take
+_SCATTER_DTYPES = (_F32,)          # what K8 and K10 take
 
 
 def gather_rows_plain(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -66,43 +75,55 @@ gather_rows_smallc_plain = gather_rows_plain
 scatter_rows_smallc_add_plain = scatter_rows_add_plain
 
 
-def _check_failed(name, x, idx, max_width):
+def _check_failed(name, x, idx, max_width, dtypes=_GATHER_DTYPES):
     width = "D" if max_width >= _ANY_WIDTH else f"D <= {max_width}"
+    kinds = " or ".join(str(d).replace("torch.", "") for d in dtypes)
     return ValueError(
-        f"{name}: expected contiguous CUDA tensors x float32 (B, N, {width}) "
-        f"and idx int32 or int64 (B, M); got x {x.dtype} {tuple(x.shape)} "
-        f"on {x.device}, idx {idx.dtype} {tuple(idx.shape)} on "
-        f"{idx.device}")
+        f"{name}: expected contiguous CUDA tensors x {kinds} (B, N, "
+        f"{width}) and idx int32 or int64 (B, M); got x {x.dtype} "
+        f"{tuple(x.shape)} on {x.device}, idx {idx.dtype} "
+        f"{tuple(idx.shape)} on {idx.device}")
 
 
-def _checked(kernel, max_width, x, idx):
-    """The one check of what the gather kernels take: x fp32 (B, N, D <=
-    max_width), idx int32 or int64 (B, M), both CUDA (made contiguous
-    here); returns x, idx, B, N, D, M and whether idx is int64."""
+def _checked(kernel, max_width, x, idx, dtypes=_GATHER_DTYPES):
+    """The one check of what the gather kernels take: x of one of `dtypes`
+    (B, N, D <= max_width), idx int32 or int64 (B, M), both CUDA (made
+    contiguous here); returns x, idx, B, N, D, M and whether idx is
+    int64."""
     if not (x.is_contiguous() and idx.is_contiguous()):
         x, idx = x.contiguous(), idx.contiguous()
     try:
         B, N, D = x.shape
         Bi, M = idx.shape
     except ValueError:
-        raise _check_failed(kernel, x, idx, max_width) from None
+        raise _check_failed(kernel, x, idx, max_width, dtypes) from None
     idx64 = idx.dtype is _I64
-    if x.dtype is not _F32 or not (idx64 or idx.dtype is _I32) or \
+    if x.dtype not in dtypes or not (idx64 or idx.dtype is _I32) or \
             Bi != B or D > max_width or not idx.is_cuda:
-        raise _check_failed(kernel, x, idx, max_width)
+        raise _check_failed(kernel, x, idx, max_width, dtypes)
     return x, idx, B, N, D, M, idx64
 
 
+# the bf16 entry points and counters of K4 and K9
+_BF16_ROUTES = {"r3dl_gather_rows": ("gather_rows_bf16",
+                                     "r3dl_gather_rows16"),
+                "r3dl_gather_smallc": ("gather_rows_smallc_bf16",
+                                       "r3dl_gather_smallc16")}
+
+
 def _launch(kernel, c_name, max_width, x, idx, n=None):
-    """One launch of K4 / K9 (n None: out (B, M, D) = x[b, idx]) or of K8
-    (x the cotangent (B, M, D): out (B, n, D)). It is the whole host path
-    of a call, so it stays flat: one check, one allocation, one ctypes
-    call."""
-    x, idx, B, N, D, M, idx64 = _checked(kernel, max_width, x, idx)
+    """One launch of K4 / K9 (n None: out (B, M, D) = x[b, idx], x fp32 or
+    bf16) or of K8 (x the fp32 cotangent (B, M, D): out (B, n, D)). It is
+    the whole host path of a call, so it stays flat: one check, one
+    allocation, one ctypes call."""
+    dtypes = _GATHER_DTYPES if n is None else _SCATTER_DTYPES
+    x, idx, B, N, D, M, idx64 = _checked(kernel, max_width, x, idx, dtypes)
     if n is None:
         out = x.new_empty(B, M, D)
+        if x.dtype is _BF16:
+            kernel, c_name = _BF16_ROUTES[c_name]
     elif M != N:
-        raise _check_failed(kernel, x, idx, max_width)
+        raise _check_failed(kernel, x, idx, max_width, dtypes)
     else:
         out = x.new_empty(B, n, D)
         N = n
@@ -187,9 +208,11 @@ def scatter_rows_smallc_add_split(g, idx, n, ranges, window):
     scatter_rows_smallc_add's); one launch count (two kernels when
     ranges > 1)."""
     g, idx, B, M, C, Mi, idx64 = _checked("scatter_rows_smallc_add",
-                                          SMALLC_MAX, g, idx)
+                                          SMALLC_MAX, g, idx,
+                                          _SCATTER_DTYPES)
     if Mi != M:
-        raise _check_failed("scatter_rows_smallc_add", g, idx, SMALLC_MAX)
+        raise _check_failed("scatter_rows_smallc_add", g, idx, SMALLC_MAX,
+                            _SCATTER_DTYPES)
     if not (ranges >= 1 and window >= 1 and
             (ranges == 1 or ranges <= -(-M // SMALLC_TILE_ROWS)) and
             scatter_smallc_smem(C, window) <= SMALLC_SMEM):
@@ -230,7 +253,8 @@ class _Gather(torch.autograd.Function):
 
 def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """K4: row gather with sentinel rows (an index outside [0, N), such as
-    N, gathers a zero row); idx int32 or int64. The CUDA kernel for CUDA
+    N, gathers a zero row); x fp32 or bf16, idx int32 or int64. The CUDA
+    kernel for CUDA
     tensors, the plain version for CPU tensors; differentiable in x
     (backward: K8, which drops the sentinel rows' cotangents). A CUDA call
     that carries no gradient launches the kernel directly; every other call

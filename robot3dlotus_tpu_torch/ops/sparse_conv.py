@@ -10,7 +10,10 @@ coordinates). subm_conv_apply dispatches to the hand-written kernels: the
 k=5 stem (Cin <= 8, no bias) to K3 (ops/stem.py), every other stencil to K2
 (ops/conv.py), and a stem with a categorical channel (the motion planner's
 point labels) to K9 followed by the label reconstruct and one matrix
-product (categorical_conv).
+product (categorical_conv). Under compute_dtype bfloat16 feat and the
+weight arrive in bf16 (the SubMConv module casts them; the bias stays
+fp32) and every path sums in fp32 and rounds once, as the JAX XLA conv
+does.
 """
 from __future__ import annotations
 
@@ -129,10 +132,20 @@ def categorical_conv(feat, nmap: NeighborMap, weight, categorical):
     reconstructs to a zero embedding. Then the one-hot x table reconstruct,
     the ok mask and one (B*N, K*(Cin+E)) x (K*(Cin+E), Cout) product. The
     table's and the weight's gradients come from autograd of the
-    reconstruct and the product."""
+    reconstruct and the product.
+
+    With bf16 feat (compute_dtype bfloat16) the rows, the index channel
+    and the table go to bf16 (K9 gathers 2-byte rows; the one-hot picks
+    exact table rows, as the JAX `materialize_categorical` casts
+    cat_table[idx] to feat's dtype), the product sums in fp32 and the
+    caller's bias is added before the one rounding. A bf16 index channel
+    holds integers exactly only up to 256, so a larger table raises."""
     cat_idx, cat_table = categorical
     B, N, C = feat.shape
     K = nmap.idx.shape[-1]
+    if feat.dtype == torch.bfloat16 and cat_table.shape[0] + 1 > 256:
+        raise ValueError(f"categorical conv: {cat_table.shape[0]} labels do "
+                         f"not fit a bf16 index channel (at most 255)")
     rows = torch.cat([feat, (cat_idx + 1).to(feat.dtype)[..., None]], -1)
     idx = torch.where(nmap.ok, nmap.idx, torch.full_like(nmap.idx, N))
     g = gather_rows_smallc(rows, idx.reshape(B, N * K)).reshape(
@@ -142,7 +155,8 @@ def categorical_conv(feat, nmap: NeighborMap, weight, categorical):
     g = torch.cat([g[..., :-1], onehot @ cat_table.to(feat.dtype)], -1)
     g = torch.where(nmap.ok[..., None], g, g.new_zeros(()))
     cw = g.shape[-1]
-    out = g.reshape(B * N, K * cw) @ weight.reshape(K * cw, -1)
+    out = g.reshape(B * N, K * cw).float() @ weight.reshape(K * cw,
+                                                            -1).float()
     return out.reshape(B, N, -1)
 
 
@@ -158,7 +172,7 @@ def subm_conv_apply(feat, nmap: NeighborMap, weight, bias=None,
             raise ValueError(f"categorical conv: {feat.shape[-1]} + 1 "
                              f"channels > {SMALLC_MAX}")
         out = categorical_conv(feat, nmap, weight, categorical)
-        return out if bias is None else out + bias
+        return (out if bias is None else out + bias).to(feat.dtype)
     if bias is None and feat.shape[-1] <= MAX_CIN:
         return stem_conv(feat, nmap.idx, nmap.ok, weight)
     return subm_conv(feat, nmap.idx, nmap.ok, weight, bias)

@@ -12,6 +12,11 @@ block per SM holding the whole weight; a B = 1 cloud's row groups are too
 few to fill the card, so its tap chunks are split into ranges that a
 second kernel adds in a fixed order (two launches for one count).
 
+bf16 (compute_dtype bfloat16, serving): x and W bf16, the taps summed in
+fp32 and the output rounded to bf16 once (csrc r3dl_stem_conv_bf16,
+counted as stem_conv_bf16; the tap ranges' partials stay fp32). The
+backward takes fp32 only.
+
 Backward: dW is K7 (ops/conv.py conv_weight_grad) at the stem's shape.
 The input gradient (stem_input_grad) takes the JAX package's two steps:
 the stencil product's VJP, G = g W^T for every (row, tap), one matmul
@@ -42,13 +47,15 @@ STEM_TARGET_BLOCKS = 128         # about one block per SM
 
 
 def stem_conv_plain(x, idx, ok, weight):
-    """x (B, N, Cin); idx/ok (B, N, K); weight (K, Cin, Cout)."""
+    """x (B, N, Cin); idx/ok (B, N, K); weight (K, Cin, Cout); summed in
+    fp32 (bf16 operands widened), cast to x's dtype once."""
     B, N, C = x.shape
     K = idx.shape[-1]
     g = torch.gather(x, 1, idx.reshape(B, N * K).long()[..., None].expand(
         -1, -1, C)).reshape(B, N, K, C)
     g = torch.where(ok[..., None], g, torch.zeros_like(g))
-    return torch.einsum("bnkc,kcd->bnd", g, weight)
+    return torch.einsum("bnkc,kcd->bnd", g.float(),
+                        weight.float()).to(x.dtype)
 
 
 def stem_conv_plan(B, N, K, cin, cout):
@@ -105,11 +112,13 @@ def _stem_forward(x, idx, ok, weight):
 
 def stem_conv_split(x, idx, ok, weight, cols, warps, splits, blocks):
     """K3 on CUDA tensors with a given plan (stem_conv_plan gives
-    stem_conv's); one launch count."""
-    cuda_lib.check_cuda_tensor("stem_conv x", x, torch.float32, 3)
+    stem_conv's); one launch count. x and weight both fp32 or both
+    bf16."""
+    cuda_lib.check_cuda_tensor("stem_conv x", x,
+                               (torch.float32, torch.bfloat16), 3)
     cuda_lib.check_cuda_tensor("stem_conv idx", idx, torch.int32, 3)
     cuda_lib.check_cuda_tensor("stem_conv ok", ok, torch.bool, 3)
-    cuda_lib.check_cuda_tensor("stem_conv weight", weight, torch.float32, 3)
+    cuda_lib.check_cuda_tensor("stem_conv weight", weight, x.dtype, 3)
     B, N, Cin = x.shape
     K, wcin, Cout = weight.shape
     if tuple(idx.shape) != (B, N, K) or tuple(ok.shape) != (B, N, K) or \
@@ -125,12 +134,14 @@ def stem_conv_split(x, idx, ok, weight, cols, warps, splits, blocks):
                          f"{splits} tap ranges, {blocks} blocks) for K = {K},"
                          f" Cin = {Cin}")
     out = torch.empty((B, N, Cout), dtype=x.dtype, device=x.device)
-    # the tap ranges' partial sums, apart from the output so that the
+    # the tap ranges' fp32 partial sums, apart from the output so that the
     # activation does not keep them alive
-    work = torch.empty(splits * out.numel(), dtype=x.dtype,
+    work = torch.empty(splits * out.numel(), dtype=torch.float32,
                        device=x.device) if splits > 1 else None
     weight = _aligned(weight)
-    cuda_lib.launch("stem_conv", "r3dl_stem_conv", x.data_ptr(),
+    kernel, entry = ("stem_conv_bf16", "r3dl_stem_conv_bf16") \
+        if x.dtype == torch.bfloat16 else ("stem_conv", "r3dl_stem_conv")
+    cuda_lib.launch(kernel, entry, x.data_ptr(),
                     idx.data_ptr(), ok.data_ptr(), weight.data_ptr(),
                     out.data_ptr(),
                     None if work is None else work.data_ptr(), B, N, K, Cin,
@@ -168,6 +179,10 @@ class _StemConv(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, idx, ok, weight = ctx.saved_tensors
+        if x.dtype != torch.float32:
+            raise NotImplementedError(
+                f"stem_conv backward: K7 and K10 take fp32 only, got "
+                f"{x.dtype}")
         g = g.contiguous()
         dx = stem_input_grad(g, idx, ok, weight, x.shape[1]) \
             if ctx.needs_input_grad[0] else None

@@ -22,6 +22,7 @@ from robot3dlotus_tpu_torch.configs.rlbench.constants import \
     get_robot_workspace
 from robot3dlotus_tpu_torch.models.ptv3 import compute_grid_coord
 from robot3dlotus_tpu_torch.ops import attention, conv, cuda_lib, gather, stem
+from robot3dlotus_tpu_torch.ops.bf16 import bf16_excess
 from robot3dlotus_tpu_torch.ops.eval_preprocess import device_preprocess
 from robot3dlotus_tpu_torch.ops.sparse_conv import build_neighbor_map
 from robot3dlotus_tpu_torch.ops.voxel import voxelize_fixed
@@ -766,3 +767,121 @@ def test_prefetch_to_device_onto_the_card(dev):
     assert i == 5
     pre.close()
     assert not pre.thread.is_alive()
+
+
+# ---------------------------------------------------------------- bf16 -----
+# The bf16 paths (compute_dtype bfloat16, serving): K1, K2 and K3 within the
+# bar of ops/bf16.py (one bf16 ulp of the value, plus 1e-4 of the call's
+# scale for fp32 sums in another order; K1 plus one bf16 ulp of each
+# probability's share, 2^-7 sum_j p_j |v_j|) of their plain versions on the
+# same bf16 inputs and bit-equal across two launches; K4 and K9 copy and
+# are bit-equal; a bf16 call that must carry a gradient raises.
+
+BF16 = torch.bfloat16
+
+
+def _bf16_check(got, want, extra=None):
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == BF16
+    assert bf16_excess(got, want, extra=extra) <= 0.0
+
+
+@pytest.mark.parametrize("Dh", [8, 16, 24, 32])
+@pytest.mark.parametrize("P", [128, 37])
+@pytest.mark.parametrize("G,H", [(32, 2), (2, 32)])
+def test_bf16_k1_patch_attention(dev, G, H, P, Dh):
+    g = torch.Generator().manual_seed(G + P + Dh + 1)
+    q, k, v = (torch.randn(G, H, P, Dh, generator=g).to(dev).to(BF16)
+               for _ in range(3))
+    kv = (torch.rand(G, P, generator=g) > 0.2).to(dev)
+    kv[0] = False
+    args = (q, k, v, kv, Dh ** -0.5)
+    got = _twice(lambda: attention.patch_attention(*args),
+                 "patch_attention_bf16")
+    _bf16_check(got, attention.patch_attention_plain(*args),
+                attention.bf16_probability_allowance(*args))
+    groups = -(-P // 16)
+    for warps in (1, 8):
+        assert torch.equal(attention.patch_attention_split(
+            *args, warps, -(-groups // warps)), got)
+
+
+@pytest.mark.parametrize("B,C", [(1, 64), (2, 256), (1, 768), (2, 768)])
+def test_bf16_k2_subm_conv(dev, B, C):
+    """The CPE widths; B = 1 splits the taps into ranges whose fp32
+    partials are summed before the one rounding."""
+    rng = np.random.RandomState(C + B)
+    gc, mask = _cloud(rng, B=B)
+    nm = build_neighbor_map(gc.to(dev), mask[:B].to(dev), 3, 5,
+                            extent=128)
+    x = _randn(rng, dev, B, 512, C).to(BF16)
+    w = _randn(rng, dev, 27, C, C, scale=C ** -0.5).to(BF16)
+    b = _randn(rng, dev, C)
+    args = (x, nm.idx, nm.ok, w, b)
+    got = _twice(lambda: conv.subm_conv(*args), "subm_conv_bf16")
+    _bf16_check(got, conv.subm_conv_plain(*args))
+    xr = x.clone().requires_grad_()
+    with pytest.raises(NotImplementedError):
+        conv.subm_conv(xr, nm.idx, nm.ok, w, b).sum().backward()
+
+
+@pytest.mark.parametrize("B", [1, 8])
+def test_bf16_k2_wide_stem(dev, B):
+    """The Concat stem: 125 taps, 263 bf16 channels padded to 264."""
+    rng = np.random.RandomState(263 + B)
+    N = 1024
+    gc = rng.randint(0, 16, (B, N, 3)).astype(np.int32)
+    mask = np.ones((B, N), bool)
+    nm = build_neighbor_map(torch.from_numpy(gc).to(dev),
+                            torch.from_numpy(mask).to(dev), 5, 6, extent=128)
+    x = _randn(rng, dev, B, N, 263).to(BF16)
+    w = _randn(rng, dev, 125, 263, 64, scale=(125 * 263) ** -0.5).to(BF16)
+    args = (x, nm.idx, nm.ok, w)
+    got = _twice(lambda: conv.subm_conv(*args), "subm_conv_bf16")
+    _bf16_check(got, conv.subm_conv_plain(*args))
+
+
+@pytest.mark.parametrize("kind", ["none", "release", "all"])
+@pytest.mark.parametrize("B,cin", [(1, 7), (4, 7), (32, 7), (1, 8)])
+def test_bf16_k3_stem_conv(dev, B, cin, kind):
+    rng = np.random.RandomState(B + cin + len(kind))
+    N = 4096
+    idx, ok = _stem_map(rng, dev, kind, B, N)
+    x = _randn(rng, dev, B, N, cin).to(BF16)
+    w = _randn(rng, dev, 125, cin, 64, scale=0.1).to(BF16)
+    got = _twice(lambda: stem.stem_conv(x, idx, ok, w), "stem_conv_bf16")
+    _bf16_check(got, stem.stem_conv_plain(x, idx, ok, w))
+    if kind == "none":
+        assert not got.any()
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("D", [7, 64, 96, 768])
+def test_bf16_k4_gather_rows(dev, D, offset):
+    """Bit-equal with sentinel rows; offset 1 puts x 2 bytes past an
+    aligned start (the 4- and 2-byte word paths)."""
+    rng = np.random.RandomState(D + offset)
+    flat = _randn(rng, dev, 3 * 257 * D + offset).to(BF16)
+    x = flat[offset:].view(3, 257, D)
+    for dtype in (torch.int32, torch.int64):
+        idx = _sentinel_idx(rng, 3, 1021, 257, dtype).to(dev)
+        before = cuda_lib.LAUNCHES["gather_rows_bf16"]
+        got = gather.gather_rows(x, idx)
+        assert cuda_lib.LAUNCHES["gather_rows_bf16"] == before + 1
+        assert got.dtype == BF16
+        assert torch.equal(got.view(torch.int16),
+                           gather.gather_rows_plain(x, idx).view(torch.int16))
+
+
+@pytest.mark.parametrize("C", [4, 5, 8, 24])
+def test_bf16_k9_gather_rows_smallc(dev, C):
+    rng = np.random.RandomState(40 + C)
+    for M in (1000 * 125 + 4, 1000 * 125 + 5):
+        x, idx = _smallc(rng, 3, 1024, M, C, dev)
+        x = x.to(BF16)
+        before = cuda_lib.LAUNCHES["gather_rows_smallc_bf16"]
+        got = gather.gather_rows_smallc(x, idx)
+        assert cuda_lib.LAUNCHES["gather_rows_smallc_bf16"] == before + 1
+        assert torch.equal(
+            got.view(torch.int16),
+            gather.gather_rows_smallc_plain(x, idx).view(torch.int16))
