@@ -128,6 +128,30 @@ Phases, each of which raises on failure (exit code != 0, no result line):
              that slice, and every gradient must be held on some slice; at
              a leaky-ReLU pre-activation within 1e-4 max|z| of the kink
              (a tie) the CPU follows the card's branch;
+ 11a. bf16-train  training at compute_dtype bfloat16 (BF16_OPTS) on phase 7's
+             host batches, B = 32 x 4096, release dropout, host structure:
+             one step captured, every bf16 K5 / K6 / K7 / K8 and conv
+             input-gradient call against its plain version (K5's bits
+             bit-equal to philox_keep_mask; K5, K6, K7 and the mirrored K2
+             bit-equal across two launches; out, dq, dk, dv, the mirrored
+             K2 and K8's rounded sums within ops/bf16.py's bar, the
+             gradients' slack of their own scale; K7's fp32 sums and K8's
+             owner sums within 1e-4 of max|plain|; the conv dx within the
+             bar of the exact fp32 adjoint rounded once) and timed beside
+             its bound (bytes at 3.35 TB/s against flops at 989 TFLOP/s
+             bf16, live links for K2 / K7) and the library call (SDPA
+             forward / backward in bf16, index_add_ in bf16, the im2col
+             gather + matmul in bf16); TRAIN_STEPS steps with launches at
+             BF16_PER_STEP (the fp32 counters 0) and a profiler window
+             (profile_train_bf16.txt) beside phase 8's numbers; the step
+             check on BF16_CHECK_SLICES slices and the redrawn one, card vs
+             the CPU port at bf16, the CPU following the card's max
+             decisions (MaxDecisions) and leaky-ReLU ties, at
+             BF16_STEP_TOLS, slice 0 also against the CPU port at fp32 (the
+             card nearer on the gradients); train_simple_policy.main at
+             bf16 for BF16_ENTRY_STEPS steps (4 loader processes, launches
+             held, losses finite), its fp32 model file served by Actioner
+             at fp32 and at bf16 (launches per forward held);
  12. entry     train_simple_policy.main on the card for ENTRY_STEPS steps,
              with the release YAML's 4 loader worker processes and the
              prefetch onto the card, then again as the loop in series (no
@@ -219,6 +243,10 @@ seeded weights) behind the ground-truth pipeline (robot_pipeline_gt.yaml):
              three gradients against the CPU run within 1e-4 * max|ref|;
  19. mp-step-check  phase 11 for the motion planner, on MP_CHECK_SLICES
              slices;
+ 19a. bf16-mp-train  phase 11a for the motion planner on phase 17's host
+             batches (BF16_MP_PER_STEP; its categorical stem's dW is its
+             product's autograd, so no stem K7), served behind the GT
+             pipeline;
  20. mp-entry     train_motion_planner.main on the card for MP_ENTRY_STEPS
              steps (4 loader worker processes, prefetch), launch counts
              checked,
@@ -276,6 +304,7 @@ non-zero without one.
 from __future__ import annotations
 
 import collections
+import contextlib
 import gc
 import json
 import logging
@@ -306,7 +335,9 @@ from robot3dlotus_tpu_torch.eval.serving import (PolicyHTTPClient,
                                                  run_client)
 from robot3dlotus_tpu_torch.eval.synthetic_obs import (TASKVAR,
                                                        synthetic_observation)
+from robot3dlotus_tpu_torch.models import heads as heads_mod
 from robot3dlotus_tpu_torch.models import layers
+from robot3dlotus_tpu_torch.models import ptv3 as ptv3_mod
 from robot3dlotus_tpu_torch.models.factory import build_model
 from robot3dlotus_tpu_torch.models.layers import Randomness
 from robot3dlotus_tpu_torch.models.motion_planner import (compute_mp_loss,
@@ -325,6 +356,7 @@ from robot3dlotus_tpu_torch.train.datasets.store import (LmdbWriterStore,
                                                          open_store)
 from robot3dlotus_tpu_torch.train.driver import build_trainer
 from robot3dlotus_tpu_torch.train.optim import build_optimizer
+from robot3dlotus_tpu_torch.train import serialization as msgpack_io
 from robot3dlotus_tpu_torch.train import (train_motion_planner,
                                           train_simple_policy)
 from robot3dlotus_tpu_torch.train.train_simple_policy import SPEC
@@ -382,6 +414,20 @@ KERNELS = {
     "gather_rows_smallc_bf16": (
         "robot3dlotus_tpu_torch/csrc/gather_smallc.cu",
         "robot3dlotus_tpu/ops/pallas_gather.py:353"),
+    # the bf16 paths (compute_dtype bfloat16, training) of K2's input
+    # gradient (the mirrored conv), K5-K8
+    "subm_conv_dx_bf16": ("robot3dlotus_tpu_torch/csrc/conv.cu",
+                          "robot3dlotus_tpu/ops/pallas_conv.py:397"),
+    "patch_attention_dropout_bf16": (
+        "robot3dlotus_tpu_torch/csrc/attention_dropout.cu",
+        "robot3dlotus_tpu/ops/pallas_attention.py:232"),
+    "patch_attention_dropout_bwd_bf16": (
+        "robot3dlotus_tpu_torch/csrc/attention_dropout.cu",
+        "robot3dlotus_tpu/ops/pallas_attention.py:247"),
+    "conv_weight_grad_bf16": ("robot3dlotus_tpu_torch/csrc/conv_grad.cu",
+                              "robot3dlotus_tpu/ops/pallas_conv.py:569"),
+    "scatter_rows_add_bf16": ("robot3dlotus_tpu_torch/csrc/gather.cu",
+                              "robot3dlotus_tpu/ops/pallas_gather.py:160"),
 }
 # the trainer of the release YAML on the learnable synthetic store
 # (scripts/e2e_learning_proof.py makes the same overrides)
@@ -2130,14 +2176,16 @@ def check_conv_dx(call):
 
 def _index_add(g, idx, n):
     """The library yardstick of a scatter-add that drops sentinel rows:
-    one index_add_ into B * (n + 1) rows, each cloud's rows outside [0, n)
-    sent to its spare row (the flat index built outside the timed call)."""
+    one index_add_ into B * (n + 1) rows of g's dtype, each cloud's rows
+    outside [0, n) sent to its spare row (the flat index built outside the
+    timed call)."""
     B, _, D = g.shape
     spare = torch.where((idx >= 0) & (idx < n), idx, n).long()
     flat = (spare + torch.arange(B, device=idx.device)[:, None] * (n + 1)
             ).reshape(-1)
-    return lambda: torch.zeros(B * (n + 1), D, device=g.device).index_add_(
-        0, flat, g.reshape(-1, D))
+    return lambda: torch.zeros(B * (n + 1), D, device=g.device,
+                               dtype=g.dtype).index_add_(0, flat,
+                                                         g.reshape(-1, D))
 
 
 def _scatter_add(g, idx, n):
@@ -2398,6 +2446,92 @@ class LeakyReluDecisions:
         return out.detach() + (branch - branch.detach())
 
 
+class MaxDecisions:
+    """Max reductions' decisions recorded on one device and followed on
+    another, around one step: the grid poolings' segment maxima
+    (ptv3.segment_reduce 'max') and the heads' pooled max
+    (heads.masked_max), patched for the step.
+
+    follow=None: record, per call, where each output's maxima sit (a bool
+    of the reduced values, ties included). follow=the records of another
+    run of the same step: keep this run's forward values, and route each
+    output's cotangent to the recorded maxima, split evenly among tied
+    ones as the max's own backward splits it. At bf16 the card and the CPU
+    round values apart by an ulp and rank hundreds of near ties apart at
+    every pooling; following the card's decisions leaves their gradients
+    comparable. `differ` counts, per call, the values whose max membership
+    differs between the two runs."""
+
+    def __init__(self, follow=None):
+        self.follow, self.masks, self.differ = follow, [], []
+        self._saved = []
+
+    def __enter__(self):
+        for mod, attr, make in ((ptv3_mod, "segment_reduce", self._segment),
+                                (heads_mod, "masked_max", self._masked)):
+            self._saved.append((mod, attr, getattr(mod, attr)))
+            setattr(mod, attr, make(getattr(mod, attr)))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in self._saved:
+            setattr(mod, attr, fn)
+
+    def _route(self, own, values, group):
+        """Records `own` (this run's maxima); following, returns the
+        surrogate whose cotangent goes to the recorded maxima:
+        group(values * weights), weights = mask / its group's count."""
+        i = len(self.masks)
+        self.masks.append(own.cpu())
+        if self.follow is None:
+            return None
+        want = self.follow[i].to(own.device)
+        if want.shape != own.shape:
+            raise ValueError(f"max call {i}: no recorded decisions of shape "
+                             f"{tuple(own.shape)} to follow")
+        self.differ.append(int((want != own).sum()))
+        w = want.to(torch.float32)
+        w = w / group(w, True).clamp(min=1.0)
+        return group(values * w.to(values.dtype), False)
+
+    def _segment(self, fn):
+        def run(values, maps, child_cap, reduce="max"):
+            out = fn(values, maps, child_cap, reduce)
+            if reduce != "max":
+                return out
+            B, N, C = values.shape
+            seg = maps.seg_sorted[..., None].expand(B, N, C)
+
+            def group(v, gather_back):
+                tot = v.new_zeros((B, child_cap + 1, C)).scatter_add_(1, seg,
+                                                                      v)
+                if gather_back:
+                    return tot.gather(1, seg)
+                return torch.where(maps.child_mask[..., None],
+                                   tot[:, :child_cap], 0.0)
+            with torch.no_grad():
+                raw = values.new_full((B, child_cap + 1, C), -math.inf)
+                raw.scatter_reduce_(1, seg, values, reduce="amax",
+                                    include_self=True)
+                own = values == raw.gather(1, seg)
+            sur = self._route(own, values, group)
+            return out if sur is None else out.detach() + (sur - sur.detach())
+        return run
+
+    def _masked(self, fn):
+        def run(x, mask):
+            out = fn(x, mask)
+
+            def group(v, gather_back):
+                tot = v.sum(1, keepdim=gather_back)
+                return tot.expand_as(v) if gather_back else tot
+            with torch.no_grad():
+                own = (x == out[:, None]) & mask[..., None]
+            sur = self._route(own, x, group)
+            return out if sur is None else out.detach() + (sur - sur.detach())
+        return run
+
+
 def _record_max_decisions(model):
     """Forward pre-hooks that record each max reduction's decision: the
     winning row of every (segment, channel) of each grid pooling (lowest row
@@ -2450,11 +2584,14 @@ def _record_max_decisions(model):
     return rec, spans, handles
 
 
-def _one_step(cfg, loss_fn, batch, dev, follow=None, kink_limit=MAX_KINKS):
+def _one_step(cfg, loss_fn, batch, dev, follow=None, kink_limit=MAX_KINKS,
+              kink_tol=KINK_TOL, maxes=None):
     """One dropout-0 step with the injected permutations; the losses, the
     gradients, the updated state, the max decisions, the module spans, the
     seconds and the leaky-ReLU decisions (LeakyReluDecisions: recorded, or
-    with `follow` the recorded ones followed at ties), on the host."""
+    with `follow` the recorded ones followed at ties), on the host.
+    `maxes`: a MaxDecisions to run the step in (recording or following),
+    or None."""
     act_cfg = dict(cfg.MODEL.action_config, pos_heatmap_type=cfg.TRAIN_DATASET
                    .get("pos_heatmap_type", "dist"))
     loss_cfg = dict(cfg.MODEL.loss_config)
@@ -2464,7 +2601,8 @@ def _one_step(cfg, loss_fn, batch, dev, follow=None, kink_limit=MAX_KINKS):
                       opt, Randomness(0, dev, perms=CHECK_PERMS))
     decisions, spans, handles = _record_max_decisions(model)
     t0 = time.perf_counter()
-    with LeakyReluDecisions(follow, limit=kink_limit) as kinks:
+    with LeakyReluDecisions(follow, kink_tol, kink_limit) as kinks, \
+            (maxes or contextlib.nullcontext()):
         losses = _losses(trainer.step(batch_to_device(batch, dev)))
     seconds = time.perf_counter() - t0
     for h in handles:
@@ -2500,7 +2638,9 @@ def _check_slice(host_batch, i, host_structure):
 def step_check_phase(host_batch, config=train_config, loss_fn=compute_loss,
                      tag="step-check", slices=CHECK_SLICES,
                      per_step=PER_STEP, per_step_redraw=PER_STEP_REDRAW,
-                     kink_limit=MAX_KINKS):
+                     kink_limit=MAX_KINKS, tols=None, kink_tol=KINK_TOL,
+                     order_kernels=ORDER_KERNELS, fp32_config=None,
+                     follow_maxes=False):
     """One step at dropout 0 on each of the first `slices` B = 2 slices of
     a host-structured batch, with the batch's order_perm
     (TRAIN.host_structure), then on slice 0 without it and with injected
@@ -2528,7 +2668,23 @@ def step_check_phase(host_batch, config=train_config, loss_fn=compute_loss,
     element is a tie (|z| <= KINK_TOL max|z|, at most kink_limit elements,
     MAX_KINKS unless the phase passes its own;
     LeakyReluDecisions raises otherwise), keeping its own forward
-    values."""
+    values.
+
+    `tols` ({"loss", "state", "grad"}: TOL, TOL, GRAD_TOL by default) and
+    `kink_tol` set the bars (the bf16 phases' are wider); with a
+    "grad_l2" bar every slice also holds all gradients together to it
+    (their relative L2 distance), in place of each gradient on some slice
+    (at bf16 the max decisions differ on every slice: bf16 values tie and
+    round apart far more often). With `follow_maxes` the CPU run follows
+    the card's max decisions (MaxDecisions) as it follows its leaky-ReLU
+    ties, and every gradient is held on every slice. `order_kernels` the
+    counters
+    held against per_step / per_step_redraw. With `fp32_config` (a bf16
+    step check), slice 0 also runs the step on the CPU at fp32 from the
+    same weights, and the card's bf16 step must be nearer the CPU's bf16
+    step than that fp32 step is, on the losses and on the held gradients
+    as a whole (their relative L2 distance)."""
+    tols = tols or {"loss": TOL, "state": TOL, "grad": GRAD_TOL}
     cfg = config("MODEL.ptv3_config.attn_drop", "0.0",
                  "MODEL.ptv3_config.proj_drop", "0.0",
                  "MODEL.action_config.dropout", "0.0")
@@ -2540,15 +2696,18 @@ def step_check_phase(host_batch, config=train_config, loss_fn=compute_loss,
     for i, structured in cases:
         batch = _check_slice(host_batch, i, structured)
         cuda_lib.reset_launches()
+        mc = MaxDecisions() if follow_maxes else None
         lc, gc, sc, dc, spans, tc, kc = _one_step(cfg, loss_fn, batch,
-                                                  "cuda")
+                                                  "cuda", maxes=mc)
         want = per_step if structured else per_step_redraw
-        got = {k: cuda_lib.LAUNCHES[k] for k in ORDER_KERNELS}
-        if got != {k: want[k] for k in ORDER_KERNELS}:
+        got = {k: cuda_lib.LAUNCHES[k] for k in order_kernels}
+        if got != {k: want[k] for k in order_kernels}:
             raise AssertionError(f"[{tag}] slice {i}, host structure "
                                  f"{structured}: launches {got}")
+        mr = MaxDecisions(mc.masks) if follow_maxes else None
         lr, gr, sr, dr, _, tr, kr = _one_step(cfg, loss_fn, batch, "cpu",
-                                              kc.decisions, kink_limit)
+                                              kc.decisions, kink_limit,
+                                              kink_tol, mr)
         differ = {}
         for (name, a), (_, b) in zip(dc, dr):
             if (a != b).any():
@@ -2560,29 +2719,23 @@ def step_check_phase(host_batch, config=train_config, loss_fn=compute_loss,
                "kink_worst": kr.worst, "losses_card": lc, "losses_cpu": lr,
                "loss": max(abs(lc[k] - lr[k]) / max(1.0, abs(lr[k]))
                            for k in lr)}
-        if row["loss"] > TOL:
-            raise AssertionError(f"slice {i}: card vs CPU losses {lc} vs {lr}")
-        row["state"] = 0.0
+        row["state"], worst_state = 0.0, None
         for n, t in sr.items():
             if t.is_floating_point():
                 e = float((sc[n] - t).abs().max()) / max(
                     1.0, float(t.abs().max()))
-                row["state"] = max(row["state"], e)
-                if e > TOL:
-                    raise AssertionError(f"slice {i}: card vs CPU updated "
-                                         f"{n}: {e}")
+                if e > row["state"]:
+                    row["state"], worst_state = e, n
         gmax = max(float(g.abs().max()) for g in gr.values())
         rel = {n: float((gc[n] - g).abs().max()) /
                max(float(g.abs().max()), 1e-3 * gmax) for n, g in gr.items()}
         last_end = max((spans[name][1] for name in differ), default=-1)
-        held = [n for n in gr
-                if not differ or _module_start(spans, n) > last_end]
-        for n in held:
-            if rel[n] > GRAD_TOL:
-                raise AssertionError(f"slice {i}: card vs CPU gradient {n}: "
-                                     f"{rel[n]} of max(|grad|, 1e-3 "
-                                     f"max|grads|)")
+        held = [n for n in gr if follow_maxes or not differ or
+                _module_start(spans, n) > last_end]
+        if follow_maxes:
+            row["max_values_followed"] = sum(mr.differ)
         held_somewhere.update(held)
+        row["grad_l2"] = _grad_l2(gc, gr, list(gr))
         free = set(gr).difference(held)
         row.update(grads=len(gr), grads_held=len(held),
                    grad_rel=max((rel[n] for n in held), default=0.0),
@@ -2596,20 +2749,83 @@ def step_check_phase(host_batch, config=train_config, loss_fn=compute_loss,
                if structured else "injected permutations ")
             + f"(K4/K9/K8 launches {got}): "
             f"{row['max_decisions']} max decisions, differing between card "
-            f"and CPU {differ or 'on none'}; leaky-ReLU ties followed "
+            f"and CPU {differ or 'on none'}"
+            + (f" (the CPU follows the card's: {row['max_values_followed']} "
+               "values' max membership followed)" if follow_maxes else "")
+            + "; leaky-ReLU ties followed "
             f"{kr.forced} (|z| <= {kr.worst:.3g} max|z|); losses card {lc} "
             f"vs CPU {lr}; "
             f"worst relative errors: loss {row['loss']:.3g}, state "
-            f"{row['state']:.3g}, {len(held)} of {len(gr)} gradients held "
-            f"{row['grad_rel']:.3g}, the rest {rest} (card {tc:.2f} s, "
+            f"{row['state']:.3g} ({worst_state}), {len(held)} of {len(gr)} "
+            f"gradients held {row['grad_rel']:.3g}, the rest {rest}; all "
+            f"gradients' relative L2 {row['grad_l2']:.3g} (card {tc:.2f} s, "
             f"CPU {tr:.2f} s per step)")
+        if row["loss"] > tols["loss"]:
+            raise AssertionError(f"slice {i}: card vs CPU losses {lc} vs {lr}")
+        if row["state"] > tols["state"]:
+            raise AssertionError(f"slice {i}: card vs CPU updated "
+                                 f"{worst_state}: {row['state']}")
+        for n in held:
+            if rel[n] > tols["grad"]:
+                raise AssertionError(f"slice {i}: card vs CPU gradient {n}: "
+                                     f"{rel[n]} of max(|grad|, 1e-3 "
+                                     f"max|grads|)")
+        if row["grad_l2"] > tols.get("grad_l2", math.inf):
+            raise AssertionError(f"slice {i}: card vs CPU gradients, "
+                                 f"relative L2 {row['grad_l2']}")
+        if fp32_config is not None and i == 0 and structured:
+            row["nearer_than_fp32"] = _nearer_than_fp32(
+                fp32_config, loss_fn, batch, lc, gc, lr, gr, tag)
     missing = sorted(set(gr) - held_somewhere)
-    if missing:
+    if missing and "grad_l2" not in tols:
         raise AssertionError(f"{len(missing)} gradients held on no slice of "
                              f"{len(cases)}, e.g. {missing[:5]}")
     return {"slices": rows, "loss": max(r["loss"] for r in rows),
             "state": max(r["state"] for r in rows),
-            "grad_rel": max(r["grad_rel"] for r in rows)}
+            "grad_rel": max(r["grad_rel"] for r in rows),
+            "grad_l2": max(r["grad_l2"] for r in rows)}
+
+
+def _grad_l2(g, ref, names):
+    """||g - ref|| / ||ref|| over the gradients `names` together."""
+    return float(torch.cat([(g[n] - ref[n]).reshape(-1) for n in names])
+                 .norm() / torch.cat([ref[n].reshape(-1) for n in names])
+                 .norm())
+
+
+def _nearer_than_fp32(fp32_config, loss_fn, batch, lc, gc, lr, gr, tag):
+    """The CPU port's fp32 step on the same slice and weights against the
+    CPU port's bf16 step (lr, gr), beside the card's bf16 step (lc, gc):
+    the card must be nearer on the relative L2 distance of all gradients
+    together and on most gradients one by one (their max |difference|);
+    the losses' distances are logged beside."""
+    cfg = fp32_config("MODEL.ptv3_config.attn_drop", "0.0",
+                      "MODEL.ptv3_config.proj_drop", "0.0",
+                      "MODEL.action_config.dropout", "0.0")
+    l32, g32, *_ = _one_step(cfg, loss_fn, batch, "cpu")
+
+    def loss_d(a):
+        return max(abs(a[k] - lr[k]) / max(1.0, abs(lr[k])) for k in lr)
+
+    def leaf_d(g):
+        return {n: float((g[n] - gr[n]).abs().max()) for n in gr}
+    d16, d32 = leaf_d(gc), leaf_d(g32)
+    ratios = sorted(d16[n] / max(d32[n], 1e-30) for n in gr)
+    out = {"loss_card_bf16": loss_d(lc), "loss_cpu_fp32": loss_d(l32),
+           "grads_card_bf16": _grad_l2(gc, gr, list(gr)),
+           "grads_cpu_fp32": _grad_l2(g32, gr, list(gr)),
+           "leaves": len(gr),
+           "leaves_card_nearer": sum(d16[n] < d32[n] for n in gr),
+           "leaf_ratio_median": ratios[len(ratios) // 2],
+           "leaf_ratio_q90": ratios[int(0.9 * (len(ratios) - 1))]}
+    log(f"[{tag}] distance to the CPU port's bf16 step, the card's bf16 "
+        f"step beside the CPU port's fp32 step: {out}")
+    if not (out["grads_card_bf16"] < out["grads_cpu_fp32"] and
+            2 * out["leaves_card_nearer"] > out["leaves"]):
+        raise AssertionError(f"[{tag}] the card's bf16 step is not nearer "
+                             f"the CPU's bf16 step than its fp32 step: "
+                             f"{out}")
+    return out
 
 
 class _Records(logging.Handler):
@@ -3686,7 +3902,8 @@ def mp_training(out_dir):
     steps and a profiler window, then one more captured step (the convs'
     inputs and cotangents: captured after the counted steps, so that
     their copies stay out of the peak memory); returns the phase, its
-    launches, the captures and a host batch for the step check."""
+    launches, the captures and the host batches (the step check takes the
+    first; the bf16 training phase all of them)."""
     t0 = time.perf_counter()
     trainer, batches, _ = build_trainer(mp_config(), train_motion_planner.SPEC,
                                         device="cuda")
@@ -3705,7 +3922,510 @@ def mp_training(out_dir):
         lambda: trainer.step(batch_to_device(host[0], "cuda")),
         MP_CONV_SITES))
     del trainer
-    return training, launches, captured, host[0]
+    return training, launches, captured, host
+
+
+# ---------------------------------------------------- bf16 training -----
+
+# launches per training step at compute_dtype bfloat16 (TRAIN.host_structure):
+# the bf16 paths take PER_STEP's counts (K2's input gradient counted apart
+# as subm_conv_dx_bf16; K8's 13 are the 4 unpools' backwards and the 9
+# owner sums) and no fp32 path launches
+BF16_PER_STEP = {**dict.fromkeys(PER_STEP, 0), "subm_conv_bf16": 9,
+                 "subm_conv_dx_bf16": 9, "stem_conv_bf16": 1,
+                 "gather_rows_bf16": 4, "gather_rows_smallc_bf16": 0,
+                 "patch_attention_dropout_bf16": 9,
+                 "patch_attention_dropout_bwd_bf16": 9,
+                 "conv_weight_grad_bf16": 10, "scatter_rows_add_bf16": 13,
+                 "patch_attention_bf16": 0}
+# without host structure: the stage-0 entry sort of the fp32 input is K9
+# (fp32: no gradient), the 4 pooled stages' entry sorts bf16 K4 and K8
+BF16_PER_STEP_REDRAW = dict(BF16_PER_STEP, gather_rows_bf16=8,
+                            gather_rows_smallc=1, scatter_rows_add_bf16=17)
+BF16_ORDER_KERNELS = ("gather_rows_bf16", "gather_rows_smallc",
+                      "gather_rows_smallc_bf16", "scatter_rows_add_bf16")
+# the motion planner: no K3, the categorical stem's bf16 K9 (its dW and the
+# label table's gradient are autograd of its product), K7 for the 9 CPE
+BF16_MP_PER_STEP = dict(BF16_PER_STEP, stem_conv_bf16=0,
+                        gather_rows_smallc_bf16=1, conv_weight_grad_bf16=9)
+BF16_MP_PER_STEP_REDRAW = dict(BF16_PER_STEP_REDRAW, stem_conv_bf16=0,
+                               gather_rows_smallc_bf16=1,
+                               conv_weight_grad_bf16=9)
+# the bf16 paths of the backward kernels and of K5, by their counter
+BF16_TRAIN_KERNELS = ("subm_conv_dx_bf16", "patch_attention_dropout_bf16",
+                      "patch_attention_dropout_bwd_bf16",
+                      "conv_weight_grad_bf16", "scatter_rows_add_bf16")
+# train_simple_policy.main / train_motion_planner.main at bf16: steps, a
+# save at the last
+BF16_ENTRY_STEPS = 4
+# the bf16 step check, card vs the CPU port at bf16, the CPU following the
+# card's max decisions and leaky-ReLU ties (losses and state relative to
+# max(1, |ref|), each gradient as GRAD_TOL's, all gradients together by
+# their relative L2 distance): a bf16 activation that the card's fp32 sums
+# and the CPU's round to neighbouring values differs by one bf16 ulp (2^-8
+# relative), and such flips reach the losses and the gradients through
+# the rest of the step; a bias's gradient, a sum of many cancelling bf16
+# terms, moves by a large share of its own scale (up to 0.39 measured on
+# an H100), the gradients as a whole by ~0.01-0.02
+BF16_STEP_TOLS = {"loss": 2.0 ** -8, "state": 2.0 ** -8, "grad": 2.0 ** -1,
+                  "grad_l2": 2.0 ** -5}
+# with the max decisions followed every gradient is held on every slice,
+# so three slices (and the redrawn one) a family cover what CHECK_SLICES
+# covers at fp32
+BF16_CHECK_SLICES = 3
+# leaky-ReLU ties at bf16: the heads' pre-activations (fp32, from bf16
+# backbone features) differ between the card and the CPU by bf16 ulps of
+# the features, up to ~2^-7 of max|z| (0.0063 measured on an H100); the
+# CPU follows the card's branch within 2^-5 of max|z|, at most
+# BF16_MAX_KINKS elements a step (measured 2,300 of the policy head's
+# ~1.0M pre-activations a slice, 11,900 of the planner's 5x as many)
+BF16_KINK_TOL = 2.0 ** -5
+BF16_MAX_KINKS = 1 << 15
+
+
+def _bf16_err(got, want, what, extra=None, relative=True):
+    """max |got - want| of a bf16 result; raises past the bar of
+    ops/bf16.py (relative: the slack taken of max |want|, for gradients)."""
+    torch.cuda.synchronize()
+    if got.dtype != torch.bfloat16:
+        raise AssertionError(f"{what}: {got.dtype} output")
+    err = float((got.float() - want.float()).abs().max())
+    excess = bf16_excess(got, want, extra=extra, relative=relative)
+    if not bool(torch.isfinite(got).all()) or excess > 0:
+        raise AssertionError(f"{what}: max |kernel - plain| = {err}, "
+                             f"{excess} past the bf16 bar")
+    return err
+
+
+# the bf16 training phases time each plain version once, after the check
+# has run it (K5's takes ~0.56 s a call at B = 32: TRAIN_TIMING's 11 calls
+# of its 9 would take a minute a family)
+PLAIN_TIMING = dict(rounds=1, reps=1, warmup=0)
+
+
+def _timed_bf16(run, plain, library, nbytes, flops, name, also=()):
+    """Event and profiler device times of a bf16 call, its plain version's
+    (PLAIN_TIMING) and the library call's (None: none); the bound: the
+    bytes at 3.35 TB/s against the flops at 989 TFLOP/s bf16."""
+    bound_ms, t_b, t_f = _bound(nbytes, flops, BF16_FLOPS_PER_S)
+    return {"ms": cuda_ms(run, **TRAIN_TIMING),
+            "device_ms": device_ms(run, name, reps=4, also=also),
+            "plain_ms": cuda_ms(plain, **PLAIN_TIMING),
+            "library_ms": cuda_ms(library, **TRAIN_TIMING)
+            if library else None,
+            "bound_ms": bound_ms, "bytes_s": t_b, "flops_s": t_f}
+
+
+def check_attention_train_bf16(call):
+    """K5 and K6 at bf16 on one captured call: K5 (out, lse, bits)
+    bit-equal across two launches, its bits bit-equal to philox_keep_mask,
+    out within the bf16 bar plus one bf16 ulp of each dropped
+    probability's share, lse within 1e-4; K6 on K5's outputs and the
+    captured cotangent bit-equal across two launches and within the bf16
+    bar (the gradients' own scale) of its plain version; timed beside SDPA
+    forward (dropout_p) and backward in bf16."""
+    (q, k, v, kv, scale, rate, seed), g = call
+    G, H, P, Dh = q.shape
+    shape = [G, H, P, Dh]
+    if q.dtype != torch.bfloat16 or g.dtype != torch.bfloat16:
+        raise AssertionError(f"bf16 attention {shape}: {q.dtype}, g "
+                             f"{g.dtype}")
+    run5 = lambda: attention.patch_attention_dropout_fwd(  # noqa: E731
+        q, k, v, kv, scale, rate, seed)
+    plain5 = lambda: attention.patch_attention_dropout_fwd_plain(  # noqa
+        q, k, v, kv, scale, rate, seed)
+    (out, lse, bits), again = run5(), run5()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip((out, lse, bits), again)):
+        raise AssertionError(f"bf16 K5 {shape}: two launches differ")
+    del again
+    keep = attention.philox_keep_mask(seed, G, H, P, rate, q.device)
+    if not torch.equal(bits, attention.pack_keep_bits(keep)):
+        raise AssertionError(f"bf16 K5's bits {shape} differ from "
+                             "philox_keep_mask")
+    p_out, p_lse, _ = plain5()
+    e5 = _bf16_err(out, p_out, f"bf16 K5 out {shape}",
+                   attention.bf16_probability_allowance(
+                       q, k, v, kv, scale, rate, keep), relative=False)
+    del keep
+    live = kv.any(-1)
+    e_lse = _err(lse[live], p_lse[live], f"bf16 K5 lse {shape}")
+    del p_out, p_lse
+    run6 = lambda: torch.stack(  # noqa: E731
+        attention.patch_attention_dropout_bwd(q, k, v, kv, out, lse, bits,
+                                              g, scale, rate))
+    plain6 = lambda: attention.patch_attention_dropout_bwd_plain(  # noqa
+        q, k, v, kv, out, lse, bits, g, scale, rate)
+    got6 = _twice(run6, f"bf16 K6 {shape}")
+    e6 = max(_bf16_err(a, b.to(torch.bfloat16), f"bf16 K6 d{n} {shape}")
+             for a, b, n in zip(got6, plain6(), "qkv"))
+    del got6
+    mask = kv[:, None, None, :]
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q, k, v, attn_mask=mask, dropout_p=rate, scale=scale)
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
+                                              dropout_p=rate, scale=scale)
+    sdpa_bwd = lambda: torch.autograd.grad(  # noqa: E731
+        sdpa_out, (qg, kg, vg), g, retain_graph=True)
+    qb = 2 * q.numel()
+    side = 4 * (lse.numel() + bits.numel()) + kv.numel()
+    flops = 2 * G * H * P * P * Dh                            # one product
+    r5 = dict(_timed_bf16(lambda: run5()[0], plain5, sdpa, 4 * qb + side,
+                          2 * flops, "attn_drop_fwd"),
+              max_abs_err=e5, lse_err=e_lse, shape=shape)
+    r6 = dict(_timed_bf16(run6, plain6, sdpa_bwd, 8 * qb + side, 5 * flops,
+                          "attn_drop_bwd"), max_abs_err=e6, shape=shape)
+    return r5, r6
+
+
+def check_weight_grad_bf16(call):
+    """K7 at bf16 on one captured conv or stem call: fp32 sums bit-equal
+    across two launches and within 1e-4 of the plain version's largest
+    value; timed beside the im2col gather + matmul in bf16."""
+    (x, idx, ok, w, *_), g = call
+    K, cin, cout = w.shape
+    shape = list(x.shape[:2]) + [K, cin, cout]
+    run = lambda: conv.conv_weight_grad(x, idx, ok, g)  # noqa: E731
+    plain = lambda: conv.conv_weight_grad_plain(x, idx, ok, g)  # noqa
+    err = _err(_twice(run, f"bf16 K7 {shape}"), plain(), f"bf16 K7 {shape}")
+    nbytes = 2 * (x.numel() + g.numel()) + 4 * w.numel() + 5 * idx.numel()
+    return dict(_timed_bf16(run, plain, _im2col_wgrad(x, idx, ok, g), nbytes,
+                            2 * cin * cout * int(ok.sum()), *K7_PROFILE),
+                max_abs_err=err, shape=shape)
+
+
+def check_scatter_add_bf16(g, idx, n, dtype=torch.bfloat16):
+    """K8 at bf16: the rounded sums (dtype bf16, K4's backward) within the
+    bf16 bar of the plain sums rounded once, or the fp32 sums (the conv's
+    owner sum) within 1e-4 of the plain version's largest value; timed
+    beside index_add_ in bf16."""
+    B, _, D = g.shape
+    shape = list(g.shape) + [n]
+    run = lambda: gather.scatter_rows_add(g, idx, n, dtype)  # noqa: E731
+    plain = lambda: gather.scatter_rows_add_plain(  # noqa: E731
+        g, idx, n).to(dtype)
+    if dtype == torch.bfloat16:
+        err = _bf16_err(run(), plain(), f"bf16 K8 {shape}")
+    else:
+        err = _err(run(), plain(), f"bf16 K8 fp32 sums {shape}")
+    out_bytes = (2 if dtype == torch.bfloat16 else 4) * B * n * D
+    return dict(_timed_bf16(run, plain, _index_add(g, idx, n),
+                            2 * g.numel() + out_bytes +
+                            idx.numel() * idx.element_size(), g.numel(),
+                            "scatter_rows_add_kernel", ("round_bf16",)),
+                max_abs_err=err, shape=shape, out=str(dtype),
+                sentinel_rows=int(((idx < 0) | (idx >= n)).sum()))
+
+
+def check_conv_dx_bf16(call):
+    """The conv's input gradient at bf16 on one captured call: K8's fp32
+    owner sums of the bf16 cotangent (checked and timed), the mirrored K2
+    on them with the bf16 weight (r3dl_subm_conv_dx_bf16) bit-equal across
+    two launches and within the bf16 bar of its plain version, timed
+    beside the im2col gather + matmul in bf16; the whole dx
+    (conv_input_grad) within the bf16 bar of the exact adjoint computed in
+    fp32 (autograd of subm_conv_plain on the widened operands) rounded
+    once."""
+    (x, idx, ok, w, bias), g = call
+    B, N, cin = x.shape
+    cout = w.shape[-1]
+    shape = [B, N, idx.shape[-1], cin, cout]
+    centre = idx.shape[-1] // 2
+    owner = idx[..., centre]
+    gv = torch.where(ok[..., centre, None], g, torch.zeros_like(g))
+    k8 = check_scatter_add_bf16(gv, owner, N, torch.float32)
+    gsum = gather.scatter_rows_add(gv, owner, N, torch.float32)
+    wm = conv.mirror_weight(w)
+    run = lambda: conv._conv_forward(gsum, idx, ok, wm, None)  # noqa: E731
+    plain = lambda: conv.subm_conv_plain(  # noqa: E731
+        gsum, idx, ok, wm).to(torch.bfloat16)
+    err = _bf16_err(_twice(run, f"bf16 mirrored K2 {shape}"), plain(),
+                    f"bf16 mirrored K2 {shape}")
+    xr = x.float().requires_grad_()
+    exact = torch.autograd.grad(
+        conv.subm_conv_plain(xr, idx, ok, w.float()), xr, g.float())[0]
+    e_dx = _bf16_err(conv.conv_input_grad(g, idx, ok, w),
+                     exact.to(torch.bfloat16),
+                     f"bf16 conv dx vs the exact adjoint {shape}")
+    del xr, exact
+    nbytes = 4 * gsum.numel() + 2 * (wm.numel() + B * N * cin) + \
+        5 * idx.numel()
+    row = dict(_timed_bf16(run, plain,
+                           _im2col(gsum.to(torch.bfloat16), idx, ok, wm),
+                           nbytes, 2 * cin * cout * int(ok.sum()),
+                           *K2_PROFILE),
+               max_abs_err=err, dx_vs_exact_err=e_dx, shape=shape,
+               shares=link_shares(ok))
+    return row, k8
+
+
+def _bf16_rows(res, tag):
+    rows = {}
+    for name, rs in res.items():
+        rows[name] = dict(_row(rs), calls=len(rs),
+                          device_ms=_total(r["device_ms"] for r in rs))
+        r = rows[name]
+        log(f"[{tag}] {name}: {len(rs)} calls per step within their bars "
+            f"(max |kernel - plain| {r['max_abs_err']:.3g}); "
+            f"{r['ms']:.4f} ms (device {r['device_ms']}; plain "
+            f"{r['plain_ms']:.4f}, library {r['library_ms']}, bound "
+            f"{r['bound_ms']:.4f} by {r['bound_by']})")
+    return rows
+
+
+def bf16_train_kernel_phase(captured, tag, expect):
+    """Every bf16 K5, K6, K7, K8 and conv input-gradient call of one
+    captured training step, checked and timed; returns the kernels-line
+    rows (sums over the step) and the calls. `expect`: the captured calls
+    with a cotangent, by site."""
+    att = captured.get("attention", [])
+    convs = [c for c in captured.get("subm_conv", []) if c[1] is not None]
+    stems = [c for c in captured.get("stem_conv", []) if c[1] is not None]
+    scat = [c for c in captured.get("gather_rows", []) if c[1] is not None]
+    for name, got in (("attention", att), ("conv", convs), ("stem", stems),
+                      ("scatter", scat)):
+        if len(got) != expect[name]:
+            raise AssertionError(f"[{tag}] captured {len(got)} {name} calls "
+                                 f"with a cotangent, expected "
+                                 f"{expect[name]}")
+    res = {k: [] for k in BF16_TRAIN_KERNELS}
+    for c in att:
+        r5, r6 = check_attention_train_bf16(c)
+        res["patch_attention_dropout_bf16"].append(r5)
+        res["patch_attention_dropout_bwd_bf16"].append(r6)
+    res["conv_weight_grad_bf16"] = [check_weight_grad_bf16(c)
+                                    for c in convs + stems]
+    res["scatter_rows_add_bf16"] = [
+        check_scatter_add_bf16(g, idx, x.shape[1])
+        for (x, idx), g in scat]
+    for c in convs:
+        row, k8 = check_conv_dx_bf16(c)
+        res["subm_conv_dx_bf16"].append(row)
+        res["scatter_rows_add_bf16"].append(k8)
+    log(f"[{tag}] K5 bits bit-equal to philox_keep_mask and K5, K6, K7 and "
+        f"the mirrored K2 bit-equal across two launches on all "
+        f"{len(att)} / {len(att)} / {len(convs) + len(stems)} / "
+        f"{len(convs)} calls; conv dx vs the exact fp32 adjoint rounded "
+        f"once: max err "
+        f"{max(r['dx_vs_exact_err'] for r in res['subm_conv_dx_bf16']):.3g}")
+    return _bf16_rows(res, tag), res
+
+
+def _side_by_side(tag, r32, r16, keys):
+    side = {k: {"fp32": r32.get(k), "bf16": r16.get(k)} for k in keys}
+    log(f"[{tag}] bf16 beside fp32 (this run, B = 32 x 4096): " + "; ".join(
+        f"{k} {v['bf16']:.3f} vs {v['fp32']:.3f}" for k, v in side.items()
+        if v["bf16"] is not None and v["fp32"] is not None))
+    g32 = r32.get("device_ms_by_group", {})
+    for g, v in r16.get("device_ms_by_group", {}).items():
+        f = g32.get(g, {"ms": 0.0, "count": 0})
+        log(f"[{tag}]   {g}: bf16 {v['ms']:.3f} ms x{v['count']}, fp32 "
+            f"{f['ms']:.3f} ms x{f['count']} per step")
+    return side
+
+
+TRAIN_SIDE_KEYS = ("step_ms_p50", "clouds_per_s", "peak_mem_gib",
+                   "device_busy_ms_per_step", "device_idle_share")
+
+
+def bf16_entry_phase(module, config, per_step, serve, tag,
+                     steps=BF16_ENTRY_STEPS):
+    """module.main at bf16 (the BF16_OPTS override) on the card for `steps`
+    steps with its loader worker processes and the prefetch, a save at the
+    last step: launches held at per_step, every logged loss finite, the
+    model file fp32 and its state bit-equal to the trainer's; then
+    serve(path) serves it at fp32 and at bf16. The run directory (under
+    build/smoke_runs) is removed after."""
+    run = os.path.join(ROOT, "build", "smoke_runs", tag)
+    shutil.rmtree(run, ignore_errors=True)
+    cfg = config(*BF16_OPTS, "output_dir", run, "TRAIN.num_train_steps",
+                 str(steps), "TRAIN.log_steps", "1", "TRAIN.save_steps",
+                 str(steps))
+    logger = logging.getLogger("robot3dlotus_tpu_torch.train")
+    handler, level = _Records(), logger.level
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+    try:
+        cuda_lib.reset_launches()
+        t0 = time.perf_counter()
+        trainer = module.main(cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(cuda_lib.LAUNCHES)
+        _held(launches, per_step, steps, f"[{tag}] {steps} steps")
+        lines = [r.getMessage() for r in handler.records
+                 if r.getMessage().startswith("step ")]
+        if len(lines) != steps:
+            raise AssertionError(f"[{tag}] {len(lines)} step lines")
+        for m in lines:
+            if not all(math.isfinite(float(kv.split("=")[1]))
+                       for kv in m.split(": ", 1)[1].split(", ")):
+                raise AssertionError(f"[{tag}] {m}")
+        if trainer.model.ptv3_model.compute_dtype != torch.bfloat16:
+            raise AssertionError(f"[{tag}] the model is not at bf16")
+        path = os.path.join(run, "ckpts", f"model_step_{steps}.msgpack")
+        kinds = set()
+        _leaf_dtypes(msgpack_io.load(path), kinds)
+        if "float32" not in kinds or kinds - {"float32", "int32", "int64"}:
+            raise AssertionError(f"[{tag}] model file dtypes {kinds}")
+        saved = load_any_model_ckpt(path, trainer.model)
+        state = trainer.model.state_dict()
+        for k, v in saved.items():
+            if not torch.equal(v, state[k]):
+                raise AssertionError(f"[{tag}] saved {k} differs")
+        del trainer, saved, state
+        torch.cuda.empty_cache()
+        served = serve(path)
+    finally:
+        logger.removeHandler(handler)
+        logger.setLevel(level)
+        shutil.rmtree(run, ignore_errors=True)
+    out = {"steps": steps, "wall_s": wall, "launches": launches,
+           "log": lines, "served": served}
+    log(f"[{tag}] {module.__name__.rsplit('.', 1)[-1]}.main at bf16, "
+        f"{steps} steps in {wall:.2f} s (build and loader start included), "
+        f"launches held at {steps} x the per-step counts; the model file "
+        f"(fp32) served at fp32 and bf16: {served}")
+    for m in lines:
+        log(f"[{tag}]   {m}")
+    return out
+
+
+def _leaf_dtypes(tree, kinds):
+    """The dtype names of a decoded msgpack tree's arrays, into `kinds`."""
+    for v in tree.values():
+        if isinstance(v, dict):
+            _leaf_dtypes(v, kinds)
+        else:
+            kinds.add(str(np.asarray(v).dtype))
+
+
+def _served_actions(make, run, per_forward, what):
+    """Build a server from the saved file, serve one request with launches
+    held at per_forward; returns the action (finite)."""
+    server = make()
+    launches = _launches_of(lambda: run(server))
+    _held(launches, per_forward, 1, what)
+    action = np.asarray(run(server))
+    if not np.isfinite(action).all():
+        raise AssertionError(f"{what}: action {action}")
+    del server
+    torch.cuda.empty_cache()
+    return action
+
+
+def bf16_train_phase(host, training32, observations, out_dir):
+    """Training the policy at compute_dtype bfloat16 (the release YAML with
+    BF16_OPTS, B = 32 x 4096, release dropout, TRAIN.host_structure) on
+    phase 7's host batches: one step captured and every bf16 K5, K6, K7,
+    K8 and conv input-gradient call checked and timed
+    (bf16_train_kernel_phase); TRAIN_STEPS counted steps at BF16_PER_STEP
+    (the fp32 counters 0) and a profiler window, beside phase 8's fp32
+    numbers; the step check at dropout 0 card vs the CPU port at bf16
+    (BF16_STEP_TOLS), slice 0 also against the CPU port at fp32 (the card
+    must be nearer the CPU's bf16 step); then train_simple_policy.main at
+    bf16 and its model file served at fp32 and bf16."""
+    tag = "bf16-train"
+    t0 = time.perf_counter()
+    trainer, batches, _ = build_trainer(train_config(*BF16_OPTS), SPEC,
+                                        device="cuda")
+    if hasattr(batches, "close"):
+        batches.close()
+    log(f"[{tag}] release-width trainer at compute_dtype bfloat16 built in "
+        f"{time.perf_counter() - t0:.2f} s; phase 7's host batches")
+    captured = capture(lambda: trainer.step(batch_to_device(host[0], "cuda")),
+                       TRAIN_SITES)
+    rows, calls = bf16_train_kernel_phase(
+        captured, tag, {"attention": 9, "conv": 9, "stem": 1,
+                        "scatter": BF16_PER_STEP["gather_rows_bf16"]})
+    del captured
+    torch.cuda.empty_cache()
+    training16, launches = training_phase(
+        trainer, host[1:], out_dir, BF16_PER_STEP, "profile_train_bf16.txt",
+        "bf16-training")
+    del trainer
+    torch.cuda.empty_cache()
+    side = _side_by_side(tag, training32, training16, TRAIN_SIDE_KEYS)
+    step_check = step_check_phase(
+        host[0], lambda *o: train_config(*BF16_OPTS, *o), compute_loss,
+        "bf16-step-check", BF16_CHECK_SLICES, BF16_PER_STEP,
+        BF16_PER_STEP_REDRAW,
+        tols=BF16_STEP_TOLS, order_kernels=BF16_ORDER_KERNELS,
+        fp32_config=train_config, kink_tol=BF16_KINK_TOL,
+        kink_limit=BF16_MAX_KINKS, follow_maxes=True)
+
+    def serve(path):
+        acts = {}
+        for name, opts, per in (("fp32", [], PER_FORWARD),
+                                ("bf16", BF16_OPTS, BF16_PER_FORWARD)):
+            def run(a):
+                a.rng = np.random.default_rng(0)
+                return a.predict(**requests(observations)[0])["action"]
+            acts[name] = _served_actions(
+                lambda: Actioner(CONFIG, checkpoint=path,
+                                 cli_opts=CLI_OPTS + opts, device="cuda"),
+                run, per, f"[{tag}] served at {name}")
+        return {k: v.tolist() for k, v in acts.items()}
+
+    entry = bf16_entry_phase(train_simple_policy, train_config,
+                             BF16_PER_STEP, serve, "bf16-entry")
+    return {"kernels": rows, "calls": calls, "training": training16,
+            "launches": launches, "bf16_beside_fp32": side,
+            "step_check": step_check, "entry": entry}
+
+
+def bf16_mp_train_phase(host, training32, mp_obs, out_dir):
+    """bf16_train_phase for the motion planner (MP_TRAIN_OPTS + BF16_OPTS,
+    phase 17's host batches, BF16_MP_PER_STEP): the captured step's calls
+    (no stem K7: the categorical stem's dW is its product's autograd),
+    counted steps beside phase 17's, the step check, train_motion_planner.
+    main at bf16 and its file behind the GT pipeline at fp32 and bf16."""
+    tag = "bf16-mp-train"
+    trainer, batches, _ = build_trainer(mp_config(*BF16_OPTS),
+                                        train_motion_planner.SPEC,
+                                        device="cuda")
+    if hasattr(batches, "close"):
+        batches.close()
+    captured = capture(lambda: trainer.step(batch_to_device(host[0], "cuda")),
+                       TRAIN_SITES)
+    rows, calls = bf16_train_kernel_phase(
+        captured, tag, {"attention": 9, "conv": 9, "stem": 0,
+                        "scatter": BF16_MP_PER_STEP["gather_rows_bf16"]})
+    del captured
+    torch.cuda.empty_cache()
+    training16, launches = training_phase(
+        trainer, host[1:], out_dir, BF16_MP_PER_STEP,
+        "profile_mp_train_bf16.txt", "bf16-mp-training")
+    del trainer
+    torch.cuda.empty_cache()
+    side = _side_by_side(tag, training32, training16, TRAIN_SIDE_KEYS)
+    step_check = step_check_phase(
+        host[0], lambda *o: mp_config(*BF16_OPTS, *o), compute_mp_loss,
+        "bf16-mp-step-check", BF16_CHECK_SLICES, BF16_MP_PER_STEP,
+        BF16_MP_PER_STEP_REDRAW, tols=BF16_STEP_TOLS,
+        order_kernels=BF16_ORDER_KERNELS, fp32_config=mp_config,
+        kink_tol=BF16_KINK_TOL, kink_limit=BF16_MAX_KINKS,
+        follow_maxes=True)
+
+    def serve(path):
+        acts = {}
+        for name, opts, per in (("fp32", [], MP_PER_FORWARD),
+                                ("bf16", BF16_OPTS, BF16_MP_PER_FORWARD)):
+            def run(engine):
+                return np.stack(mp_episode(mp_pipeline(engine), mp_obs[:1],
+                                           0)[0])
+            acts[name] = _served_actions(
+                lambda: MotionPlannerEngine(MP_CONFIG, checkpoint=path,
+                                            cli_opts=opts, device="cuda"),
+                run, per, f"[{tag}] served at {name}")
+        return {k: v.tolist() for k, v in acts.items()}
+
+    entry = bf16_entry_phase(train_motion_planner, mp_config,
+                             BF16_MP_PER_STEP, serve, "bf16-mp-entry")
+    return {"kernels": rows, "calls": calls, "training": training16,
+            "launches": launches, "bf16_beside_fp32": side,
+            "step_check": step_check, "entry": entry}
 
 
 # -------------------------------------------------- conditioning variants --
@@ -4047,7 +4767,9 @@ def run():
     stem_vjp, stem_launches = stem_vjp_phase(stems[0])
     del captured, stems
     step_check = step_check_phase(host[0])
+    bf16_train = bf16_train_phase(host, training, observations, out_dir)
     del host, batches
+    torch.cuda.empty_cache()
     entry = entry_phases(train_simple_policy, train_config, ENTRY_STEPS,
                          PER_STEP, "entry", training["clouds_per_s"])
     lmdb = lmdb_phase(train_simple_policy, train_config, "synthetic_reach",
@@ -4098,9 +4820,12 @@ def run():
     mp_detail["conv_forward"] = mp_fwd_k2
     del mp_fwd_captured, mp_step_captured
     torch.cuda.empty_cache()
-    mp_step_check = step_check_phase(mp_host, mp_config, compute_mp_loss,
+    mp_step_check = step_check_phase(mp_host[0], mp_config, compute_mp_loss,
                                      "mp-step-check", MP_CHECK_SLICES,
                                      MP_PER_STEP, MP_PER_STEP_REDRAW)
+    bf16_mp_train = bf16_mp_train_phase(mp_host, mp_train, mp_obs, out_dir)
+    del mp_host
+    torch.cuda.empty_cache()
     mp_entry = entry_phases(train_motion_planner, mp_config, MP_ENTRY_STEPS,
                             MP_PER_STEP, "mp-entry", mp_train["clouds_per_s"])
     mp_lmdb = lmdb_phase(train_motion_planner, mp_config, "synthetic_motion",
@@ -4151,7 +4876,8 @@ def run():
                    "mp_stem_vjp": mp_stem_vjp, "ckpt": ckpt,
                    "mp_ckpt": mp_ckpt, "adanorm": adanorm,
                    "concat": concat, "mp_adanorm": mp_adanorm,
-                   "variants": variants, "bf16": bf16, "bf16_mp": bf16_mp},
+                   "variants": variants, "bf16": bf16, "bf16_mp": bf16_mp,
+                   "bf16_train": bf16_train, "bf16_mp_train": bf16_mp_train},
                   f, indent=1)
     # each kernel's launches in the run of its own slice's main path: K1-K4
     # policy serving, K5-K8 policy training, K9 motion-planner serving, K10
@@ -4161,6 +4887,9 @@ def run():
     rows.update(mp_rows)
     rows.update(bf16["kernels"])
     rows.update(bf16_mp["kernels"])
+    rows.update(bf16_train["kernels"])
+    for k, r in bf16_mp_train["kernels"].items():
+        rows[k]["mp_train_step"] = r
     rows["subm_conv_bf16"]["concat_stem_b1"] = \
         bf16["variants"]["concat"]["stem_forward_b1"]
     rows["patch_attention"]["validation_b32"] = {
@@ -4195,13 +4924,18 @@ def run():
              "bf16_serving": bf16["serving"]["launches"],
              "bf16_mp_serving": bf16_mp["serving"]["launches"],
              "bf16_adanorm_serving": bf16["variants"]["adanorm"]["launches"],
-             "bf16_concat_serving": bf16["variants"]["concat"]["launches"]}
+             "bf16_concat_serving": bf16["variants"]["concat"]["launches"],
+             "bf16_training": bf16_train["launches"],
+             "bf16_mp_training": bf16_mp_train["launches"],
+             "bf16_entry": bf16_train["entry"]["launches"],
+             "bf16_mp_entry": bf16_mp_train["entry"]["launches"]}
     main_path = dict.fromkeys(PER_FORWARD, "serving")
     main_path.update(dict.fromkeys(TRAIN_KERNELS, "training"))
     main_path.update(gather_rows_smallc="mp_serving",
                      scatter_rows_smallc_add="stem_vjp")
     main_path.update({k: "bf16_serving" for k in BF16_SITES.values()},
                      gather_rows_smallc_bf16="bf16_mp_serving")
+    main_path.update(dict.fromkeys(BF16_TRAIN_KERNELS, "bf16_training"))
     idle = [k for k in KERNELS if not paths[main_path[k]][k]]
     if idle:
         raise AssertionError(f"kernels that their main path never launched: "

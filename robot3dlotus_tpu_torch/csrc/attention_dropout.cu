@@ -54,9 +54,23 @@
 // cotangent into such a patch (its rows are dead slots). In such a patch
 // lse = -1e9 + log P rounds to -1e9 in fp32, so K6 takes p = 1 / P there
 // instead of exp(S - lse).
+//
+// bf16 (r3dl_attention_dropout_fwd_bf16 / _bwd_bf16, training under
+// compute_dtype bfloat16): q, k, v, out, g, dq, dk, dv bf16; lse and the
+// bits as above. The kernels stage the rows widened to fp32 (the same
+// shared-memory layout) and keep the fp32 tiles' 3xTF32 products, exact
+// on the bf16 operands. K5 rounds where K1's bf16 path rounds (q * scale
+// to bf16, scale a bf16 value from the wrapper; the dropped probabilities
+// to bf16 before P v; the output once: attention_tile.cuh). K6 computes as
+// the Pallas body `_attn_drop_bwd_kernel` does, in fp32: p from the saved
+// lse and the bf16 q * scale, the unrounded probabilities in dv and ds,
+// D = g . out from K5's bf16 output, and dq, dk, dv each rounded to bf16
+// once.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "attention_tile.cuh"
 
@@ -126,15 +140,21 @@ __device__ uint32_t keep_word(int i, int j0, int n, int P, uint32_t seed,
   return word;
 }
 
-// rows [0, P8) of a (P, Dh) slice into shared memory at stride S; rows
-// P..P8-1 zero (the ragged 8-row tile)
-template <int Dh>
+// rows [0, P8) of a (P, Dh) slice into shared memory at stride S, times
+// mul (bf16 rows: widened, and the product rounded to bf16, which leaves
+// them as they are at mul = 1); rows P..P8-1 zero (the ragged 8-row tile)
+template <int Dh, typename T>
 __device__ __forceinline__ void load_rows(float* dst, int S,
-                                          const float* __restrict__ src,
-                                          int P, int P8, float mul) {
+                                          const T* __restrict__ src, int P,
+                                          int P8, float mul) {
   for (int i = threadIdx.x; i < P8 * Dh; i += kThreads) {
     const int r = i / Dh, d = i - r * Dh;
-    dst[r * S + d] = r < P ? src[i] * mul : 0.f;
+    float x = 0.f;
+    if (r < P) {
+      x = r3dl::widen(src[i]) * mul;
+      if constexpr (!std::is_same<T, float>::value) x = r3dl::round_bf16(x);
+    }
+    dst[r * S + d] = x;
   }
 }
 
@@ -144,12 +164,12 @@ size_t fwd_smem() {
          (size_t)kMaxP * kMaxWords * sizeof(uint32_t);
 }
 
-template <int Dh>
+template <int Dh, typename T>
 __global__ void __launch_bounds__(kThreads, 2)
-attn_drop_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v,
+attn_drop_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v,
                      const unsigned char* __restrict__ kv,
-                     float* __restrict__ out, float* __restrict__ lse,
+                     T* __restrict__ out, float* __restrict__ lse,
                      uint32_t* __restrict__ bits, int H, int P, float scale,
                      uint32_t seed, uint32_t thresh, float inv_keep) {
   constexpr int S = Layout<Dh>::S;
@@ -164,8 +184,8 @@ attn_drop_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const long long gh = blockIdx.x;
   const long long base = gh * P * Dh;
   const int tid = threadIdx.x;
-  load_rows<Dh>(sk, S, k + base, P, P8, 1.f);
-  load_rows<Dh>(sv, S, v + base, P, P8, 1.f);
+  load_rows<Dh, T>(sk, S, k + base, P, P8, 1.f);
+  load_rows<Dh, T>(sv, S, v + base, P, P8, 1.f);
   if (tid < P) smask[tid] = kv[gh / H * P + tid];
   for (int w = tid; w < P * W; w += kThreads) {
     const int i = w / W, j0 = (w - i * W) * 32;
@@ -178,9 +198,9 @@ attn_drop_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const int warp = tid >> 5;
   if (warp * 16 >= P) return;
-  r3dl::attend_rows<Dh, true>(q + base, out + base, lse + gh * P, sk, sv,
-                              smask, sbits, W, warp * 16, P, scale,
-                              inv_keep);
+  r3dl::attend_rows<Dh, true, T>(q + base, out + base, lse + gh * P, sk, sv,
+                                 smask, sbits, W, warp * 16, P, scale,
+                                 inv_keep);
 }
 
 template <int Dh>
@@ -196,17 +216,19 @@ size_t bwd_smem() {
 // SXM (scripts/attention_dropout_variants.py)
 constexpr int kChunk = 1;
 
-template <int Dh>
+template <int Dh, typename T>
 __global__ void __launch_bounds__(kThreads, 2)
-attn_drop_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v,
+attn_drop_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v,
                      const unsigned char* __restrict__ kv,
-                     const float* __restrict__ o,
+                     const T* __restrict__ o,
                      const float* __restrict__ lse,
                      const uint32_t* __restrict__ bits,
-                     const float* __restrict__ gout, float* __restrict__ dq,
-                     float* __restrict__ dk, float* __restrict__ dv, int H,
+                     const T* __restrict__ gout, T* __restrict__ dq,
+                     T* __restrict__ dk, T* __restrict__ dv, int H,
                      int P, float scale, float inv_keep) {
+  using r3dl::narrow;
+  using r3dl::widen;
   using L = Layout<Dh>;
   constexpr int S = L::S, SB = L::SB, DS = L::DS;
   constexpr int KD = Dh / 8;
@@ -227,15 +249,15 @@ attn_drop_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int gr = lane >> 2, t = lane & 3;
-  load_rows<Dh>(sq, S, q + base, P, P8, scale);
-  load_rows<Dh>(sg, S, gout + base, P, P8, 1.f);
+  load_rows<Dh, T>(sq, S, q + base, P, P8, scale);
+  load_rows<Dh, T>(sg, S, gout + base, P, P8, 1.f);
   for (int i = tid; i < P * W; i += kThreads) sbits[i] = bits[gh * P * W + i];
   if (tid < kMaxP) slse[tid] = tid < P ? lse[gh * P + tid] : 0.f;
   for (int r = warp; r < kMaxP; r += kWarps) {   // D, one row per warp
     float x = 0.f;
     if (r < P && lane < Dh)
-      x = gout[base + (long long)r * Dh + lane] *
-          o[base + (long long)r * Dh + lane];
+      x = widen(gout[base + (long long)r * Dh + lane]) *
+          widen(o[base + (long long)r * Dh + lane]);
 #pragma unroll
     for (int sh = 16; sh; sh >>= 1) x += __shfl_xor_sync(kFull, x, sh);
     if (lane == 0) sD[r] = x;
@@ -247,22 +269,22 @@ attn_drop_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // ---- phase 1: warp w owns keys 16w..16w+15 ----
   const int j0 = warp * 16 + gr, j1 = j0 + 8;   // this lane's keys
   if (warp * 16 < P) {
-    const float* k0 = k + base + (long long)j0 * Dh;
-    const float* k1 = k + base + (long long)j1 * Dh;
-    const float* v0 = v + base + (long long)j0 * Dh;
-    const float* v1 = v + base + (long long)j1 * Dh;
+    const T* k0 = k + base + (long long)j0 * Dh;
+    const T* k1 = k + base + (long long)j1 * Dh;
+    const T* v0 = v + base + (long long)j0 * Dh;
+    const T* v1 = v + base + (long long)j1 * Dh;
     float ka[KD][4], va[KD][4];   // A fragments of this warp's k and v rows
 #pragma unroll
     for (int kk = 0; kk < KD; ++kk) {
       const int d = kk * 8 + t;
-      ka[kk][0] = j0 < P ? k0[d] : 0.f;
-      ka[kk][1] = j1 < P ? k1[d] : 0.f;
-      ka[kk][2] = j0 < P ? k0[d + 4] : 0.f;
-      ka[kk][3] = j1 < P ? k1[d + 4] : 0.f;
-      va[kk][0] = j0 < P ? v0[d] : 0.f;
-      va[kk][1] = j1 < P ? v1[d] : 0.f;
-      va[kk][2] = j0 < P ? v0[d + 4] : 0.f;
-      va[kk][3] = j1 < P ? v1[d + 4] : 0.f;
+      ka[kk][0] = j0 < P ? widen(k0[d]) : 0.f;
+      ka[kk][1] = j1 < P ? widen(k1[d]) : 0.f;
+      ka[kk][2] = j0 < P ? widen(k0[d + 4]) : 0.f;
+      ka[kk][3] = j1 < P ? widen(k1[d + 4]) : 0.f;
+      va[kk][0] = j0 < P ? widen(v0[d]) : 0.f;
+      va[kk][1] = j1 < P ? widen(v1[d]) : 0.f;
+      va[kk][2] = j0 < P ? widen(v0[d + 4]) : 0.f;
+      va[kk][3] = j1 < P ? widen(v1[d + 4]) : 0.f;
     }
     const bool val0 = j0 < P && smask[j0], val1 = j1 < P && smask[j1];
     const float inv_p = 1.f / (float)P;
@@ -331,31 +353,31 @@ attn_drop_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         }
       }
     }
-    float* dk0 = dk + base + (long long)j0 * Dh;
-    float* dk1 = dk + base + (long long)j1 * Dh;
-    float* dv0 = dv + base + (long long)j0 * Dh;
-    float* dv1 = dv + base + (long long)j1 * Dh;
+    T* dk0 = dk + base + (long long)j0 * Dh;
+    T* dk1 = dk + base + (long long)j1 * Dh;
+    T* dv0 = dv + base + (long long)j0 * Dh;
+    T* dv1 = dv + base + (long long)j1 * Dh;
 #pragma unroll
     for (int m = 0; m < KD; ++m) {
       const int c = m * 8 + 2 * t;
       if (j0 < P) {
-        dk0[c] = dka[m][0];
-        dk0[c + 1] = dka[m][1];
-        dv0[c] = dva[m][0];
-        dv0[c + 1] = dva[m][1];
+        dk0[c] = narrow<T>(dka[m][0]);
+        dk0[c + 1] = narrow<T>(dka[m][1]);
+        dv0[c] = narrow<T>(dva[m][0]);
+        dv0[c + 1] = narrow<T>(dva[m][1]);
       }
       if (j1 < P) {
-        dk1[c] = dka[m][2];
-        dk1[c + 1] = dka[m][3];
-        dv1[c] = dva[m][2];
-        dv1[c + 1] = dva[m][3];
+        dk1[c] = narrow<T>(dka[m][2]);
+        dk1[c + 1] = narrow<T>(dka[m][3]);
+        dv1[c] = narrow<T>(dva[m][2]);
+        dv1[c + 1] = narrow<T>(dva[m][3]);
       }
     }
   }
   __syncthreads();
 
   // ---- phase 2: warp w owns queries 16w..16w+15; dq = ds k scale ----
-  load_rows<Dh>(sq, SB, k + base, P, P8, 1.f);   // k where q and g were
+  load_rows<Dh, T>(sq, SB, k + base, P, P8, 1.f);   // k where q and g were
   __syncthreads();
   if (warp * 16 >= P) return;
   const int r0 = warp * 16 + gr, r1 = r0 + 8;
@@ -373,50 +395,90 @@ attn_drop_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       mma3(acc[m], a, kr[0], kr[4 * SB]);
     }
   }
-  float* q0 = dq + base + (long long)r0 * Dh;
-  float* q1 = dq + base + (long long)r1 * Dh;
+  T* q0 = dq + base + (long long)r0 * Dh;
+  T* q1 = dq + base + (long long)r1 * Dh;
 #pragma unroll
   for (int m = 0; m < KD; ++m) {
     const int c = m * 8 + 2 * t;
     if (r0 < P) {
-      q0[c] = acc[m][0] * scale;
-      q0[c + 1] = acc[m][1] * scale;
+      q0[c] = narrow<T>(acc[m][0] * scale);
+      q0[c + 1] = narrow<T>(acc[m][1] * scale);
     }
     if (r1 < P) {
-      q1[c] = acc[m][2] * scale;
-      q1[c + 1] = acc[m][3] * scale;
+      q1[c] = narrow<T>(acc[m][2] * scale);
+      q1[c + 1] = narrow<T>(acc[m][3] * scale);
     }
   }
 }
 
-template <int Dh>
-int launch_fwd(const float* q, const float* k, const float* v,
-               const unsigned char* kv, float* out, float* lse,
-               uint32_t* bits, int G, int H, int P, float scale,
-               uint32_t seed, uint32_t thresh, float inv_keep,
+template <int Dh, typename T>
+int launch_fwd(const T* q, const T* k, const T* v, const unsigned char* kv,
+               T* out, float* lse, uint32_t* bits, int G, int H, int P,
+               float scale, uint32_t seed, uint32_t thresh, float inv_keep,
                cudaStream_t stream) {
   static const cudaError_t attr =
-      r3dl::allow_smem(attn_drop_fwd_kernel<Dh>, fwd_smem<Dh>());
+      r3dl::allow_smem(attn_drop_fwd_kernel<Dh, T>, fwd_smem<Dh>());
   if (attr != cudaSuccess) return (int)attr;
-  attn_drop_fwd_kernel<Dh><<<(unsigned)((long long)G * H), kThreads,
-                             fwd_smem<Dh>(), stream>>>(
+  attn_drop_fwd_kernel<Dh, T><<<(unsigned)((long long)G * H), kThreads,
+                                fwd_smem<Dh>(), stream>>>(
       q, k, v, kv, out, lse, bits, H, P, scale, seed, thresh, inv_keep);
   return (int)cudaGetLastError();
 }
 
-template <int Dh>
-int launch_bwd(const float* q, const float* k, const float* v,
-               const unsigned char* kv, const float* out, const float* lse,
-               const uint32_t* bits, const float* gout, float* dq, float* dk,
-               float* dv, int G, int H, int P, float scale, float inv_keep,
-               cudaStream_t stream) {
+template <int Dh, typename T>
+int launch_bwd(const T* q, const T* k, const T* v, const unsigned char* kv,
+               const T* out, const float* lse, const uint32_t* bits,
+               const T* gout, T* dq, T* dk, T* dv, int G, int H, int P,
+               float scale, float inv_keep, cudaStream_t stream) {
   static const cudaError_t attr =
-      r3dl::allow_smem(attn_drop_bwd_kernel<Dh>, bwd_smem<Dh>());
+      r3dl::allow_smem(attn_drop_bwd_kernel<Dh, T>, bwd_smem<Dh>());
   if (attr != cudaSuccess) return (int)attr;
-  attn_drop_bwd_kernel<Dh><<<(unsigned)((long long)G * H), kThreads,
-                             bwd_smem<Dh>(), stream>>>(
+  attn_drop_bwd_kernel<Dh, T><<<(unsigned)((long long)G * H), kThreads,
+                                bwd_smem<Dh>(), stream>>>(
       q, k, v, kv, out, lse, bits, gout, dq, dk, dv, H, P, scale, inv_keep);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int fwd(const T* q, const T* k, const T* v, const unsigned char* kv, T* out,
+        float* lse, unsigned* bits, int G, int H, int P, int Dh, float scale,
+        unsigned seed, unsigned thresh, float inv_keep, cudaStream_t stream) {
+  if (P < 1 || P > kMaxP) return (int)cudaErrorInvalidValue;
+  if ((long long)G * H == 0) return (int)cudaGetLastError();
+  switch (Dh) {
+    case 8: return launch_fwd<8, T>(q, k, v, kv, out, lse, bits, G, H, P,
+                                    scale, seed, thresh, inv_keep, stream);
+    case 16: return launch_fwd<16, T>(q, k, v, kv, out, lse, bits, G, H, P,
+                                      scale, seed, thresh, inv_keep, stream);
+    case 24: return launch_fwd<24, T>(q, k, v, kv, out, lse, bits, G, H, P,
+                                      scale, seed, thresh, inv_keep, stream);
+    case 32: return launch_fwd<32, T>(q, k, v, kv, out, lse, bits, G, H, P,
+                                      scale, seed, thresh, inv_keep, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+int bwd(const T* q, const T* k, const T* v, const unsigned char* kv,
+        const T* out, const float* lse, const unsigned* bits, const T* gout,
+        T* dq, T* dk, T* dv, int G, int H, int P, int Dh, float scale,
+        float inv_keep, cudaStream_t stream) {
+  if (P < 1 || P > kMaxP) return (int)cudaErrorInvalidValue;
+  if ((long long)G * H == 0) return (int)cudaGetLastError();
+  switch (Dh) {
+    case 8: return launch_bwd<8, T>(q, k, v, kv, out, lse, bits, gout, dq,
+                                    dk, dv, G, H, P, scale, inv_keep, stream);
+    case 16: return launch_bwd<16, T>(q, k, v, kv, out, lse, bits, gout, dq,
+                                      dk, dv, G, H, P, scale, inv_keep,
+                                      stream);
+    case 24: return launch_bwd<24, T>(q, k, v, kv, out, lse, bits, gout, dq,
+                                      dk, dv, G, H, P, scale, inv_keep,
+                                      stream);
+    case 32: return launch_bwd<32, T>(q, k, v, kv, out, lse, bits, gout, dq,
+                                      dk, dv, G, H, P, scale, inv_keep,
+                                      stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -426,19 +488,8 @@ extern "C" int r3dl_attention_dropout_fwd(
     float* out, float* lse, unsigned* bits, int G, int H, int P, int Dh,
     float scale, unsigned seed, unsigned thresh, float inv_keep,
     cudaStream_t stream) {
-  if (P < 1 || P > kMaxP) return (int)cudaErrorInvalidValue;
-  if ((long long)G * H == 0) return (int)cudaGetLastError();
-  switch (Dh) {
-    case 8: return launch_fwd<8>(q, k, v, kv, out, lse, bits, G, H, P, scale,
-                                 seed, thresh, inv_keep, stream);
-    case 16: return launch_fwd<16>(q, k, v, kv, out, lse, bits, G, H, P,
-                                   scale, seed, thresh, inv_keep, stream);
-    case 24: return launch_fwd<24>(q, k, v, kv, out, lse, bits, G, H, P,
-                                   scale, seed, thresh, inv_keep, stream);
-    case 32: return launch_fwd<32>(q, k, v, kv, out, lse, bits, G, H, P,
-                                   scale, seed, thresh, inv_keep, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return fwd<float>(q, k, v, kv, out, lse, bits, G, H, P, Dh, scale, seed,
+                    thresh, inv_keep, stream);
 }
 
 extern "C" int r3dl_attention_dropout_bwd(
@@ -446,17 +497,27 @@ extern "C" int r3dl_attention_dropout_bwd(
     const float* out, const float* lse, const unsigned* bits,
     const float* gout, float* dq, float* dk, float* dv, int G, int H, int P,
     int Dh, float scale, float inv_keep, cudaStream_t stream) {
-  if (P < 1 || P > kMaxP) return (int)cudaErrorInvalidValue;
-  if ((long long)G * H == 0) return (int)cudaGetLastError();
-  switch (Dh) {
-    case 8: return launch_bwd<8>(q, k, v, kv, out, lse, bits, gout, dq, dk,
-                                 dv, G, H, P, scale, inv_keep, stream);
-    case 16: return launch_bwd<16>(q, k, v, kv, out, lse, bits, gout, dq, dk,
-                                   dv, G, H, P, scale, inv_keep, stream);
-    case 24: return launch_bwd<24>(q, k, v, kv, out, lse, bits, gout, dq, dk,
-                                   dv, G, H, P, scale, inv_keep, stream);
-    case 32: return launch_bwd<32>(q, k, v, kv, out, lse, bits, gout, dq, dk,
-                                   dv, G, H, P, scale, inv_keep, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return bwd<float>(q, k, v, kv, out, lse, bits, gout, dq, dk, dv, G, H, P,
+                    Dh, scale, inv_keep, stream);
+}
+
+// The same with bf16 q, k, v, out (and g, dq, dk, dv); lse and bits as
+// above; scale a bf16 value.
+extern "C" int r3dl_attention_dropout_fwd_bf16(
+    const r3dl::bf16* q, const r3dl::bf16* k, const r3dl::bf16* v,
+    const unsigned char* kv, r3dl::bf16* out, float* lse, unsigned* bits,
+    int G, int H, int P, int Dh, float scale, unsigned seed, unsigned thresh,
+    float inv_keep, cudaStream_t stream) {
+  return fwd<r3dl::bf16>(q, k, v, kv, out, lse, bits, G, H, P, Dh, scale,
+                         seed, thresh, inv_keep, stream);
+}
+
+extern "C" int r3dl_attention_dropout_bwd_bf16(
+    const r3dl::bf16* q, const r3dl::bf16* k, const r3dl::bf16* v,
+    const unsigned char* kv, const r3dl::bf16* out, const float* lse,
+    const unsigned* bits, const r3dl::bf16* gout, r3dl::bf16* dq,
+    r3dl::bf16* dk, r3dl::bf16* dv, int G, int H, int P, int Dh, float scale,
+    float inv_keep, cudaStream_t stream) {
+  return bwd<r3dl::bf16>(q, k, v, kv, out, lse, bits, gout, dq, dk, dv, G, H,
+                         P, Dh, scale, inv_keep, stream);
 }

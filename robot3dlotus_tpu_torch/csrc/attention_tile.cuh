@@ -11,16 +11,20 @@
 // exps whose keep bit is 0 are left out of the product (not of the sum),
 // out is scaled by 1 / (1 - rate) and the row logsumexp is written.
 //
-// With bf16 q and out (T = bf16, K1 under compute_dtype bfloat16; k and v
-// staged widened to fp32 by the caller) the tile computes the JAX
-// package's XLA attention at that dtype (models/layers.py
-// SerializedAttention): q * scale rounded to bf16 (scale, a bf16 value,
-// given by the wrapper), fp32 logits and softmax, the normalised
-// probabilities rounded to bf16 before the product with v, which sums in
-// fp32, and the output rounded to bf16 once. Every operand is then a bf16
-// value, so each product is one TF32 pass (mma1); the exps use expf, and
-// the rows are normalised (an IEEE division by the row sum, as softmax
-// divides) before P v, where the fp32 tile scales after it.
+// With bf16 q and out (T = bf16: K1, and K5 in training, under
+// compute_dtype bfloat16; k and v staged widened to fp32 by the caller)
+// the tile computes the JAX package's XLA attention at that dtype
+// (models/layers.py SerializedAttention): q * scale rounded to bf16
+// (scale, a bf16 value, given by the wrapper), fp32 logits and softmax, the
+// normalised probabilities rounded to bf16 before the product with v,
+// which sums in fp32, and the output rounded to bf16 once. Every operand
+// is then a bf16 value, so each product is one TF32 pass (mma1); the exps
+// use expf, and the rows are normalised (an IEEE division by the row sum,
+// as softmax divides) before P v, where the fp32 tile scales after it.
+// With kDrop too (K5 under compute_dtype bfloat16) the normalised
+// probabilities are dropped and scaled by 1 / (1 - rate) before that
+// rounding, as the XLA attention drops them (flax Dropout) before casting
+// them to bf16.
 //
 // A C fragment of one product is the A fragment of the next with no
 // shuffle: the k index of an 8-wide step is permuted so that A column t is
@@ -95,7 +99,6 @@ __device__ __forceinline__ void attend_tiles(
     const uint32_t* sbits, int W, int row0, int P, float scale,
     float inv_keep) {
   constexpr bool kOne = !std::is_same<T, float>::value;
-  static_assert(!(kOne && kDrop), "no bf16 path with dropout");
   constexpr int S = Layout<Dh>::S;
   constexpr int KD = Dh / 8;
   const int lane = threadIdx.x & 31;
@@ -194,13 +197,16 @@ __device__ __forceinline__ void attend_tiles(
   l0 = quad_sum(l0);
   l1 = quad_sum(l1);
   if constexpr (kOne) {
-    // the probabilities, rounded to bf16 as the reference casts them
+    // the (kept, scaled) probabilities, rounded to bf16 as the reference
+    // casts them
 #pragma unroll
     for (int n = 0; n < kMaxP / 8; ++n) {
       if (kAllTiles || n < nt) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          s[n][e] = round_bf16(s[n][e] / (e < 2 ? l0 : l1));
+        for (int e = 0; e < 4; ++e) {
+          const float p = s[n][e] / (e < 2 ? l0 : l1);
+          s[n][e] = round_bf16(kDrop ? p * inv_keep : p);
+        }
       }
     }
   }

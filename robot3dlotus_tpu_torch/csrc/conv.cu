@@ -65,6 +65,15 @@
 // the tile's (or the reduction's) final value, bias added, is rounded to
 // bf16. The Pallas kernel's per-tap-block rounding (pallas_conv.py
 // `out_ref[0] += acc.astype(...)`) is not carried over.
+//
+// The input gradient at bf16 (r3dl_subm_conv_dx_bf16, training under
+// compute_dtype bfloat16): x the fp32 owner sums of the bf16 cotangent
+// (ops/conv.py conv_input_grad; K8 keeps them unrounded), W the mirrored
+// bf16 weight, out bf16. The stages stage x in fp32 and W in bf16; each x
+// fragment is split as in 3xTF32 and the bf16 weight needs no split, so a
+// product is two TF32 passes (tc_common.cuh mma2), exact to the fp32
+// level; the sums stay fp32 and the dx is rounded to bf16 once, as the
+// Pallas VJP (pallas_conv.py `_windowed_op_bwd`) rounds it.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -121,14 +130,17 @@ struct Smem {
   int ntaps;
 };
 
-template <int kMaxK, typename T>
+// TX, TW, TO: the types of x, W and out: all fp32; all bf16 (kOne); or
+// fp32 x, bf16 W and bf16 out (kMix, the input gradient at bf16)
+template <int kMaxK, typename TX, typename TW, typename TO>
 __global__ void __launch_bounds__(kThreads, 2)
-subm_conv_kernel(const T* __restrict__ x, const int* __restrict__ idx,
+subm_conv_kernel(const TX* __restrict__ x, const int* __restrict__ idx,
                  const unsigned char* __restrict__ ok,
-                 const T* __restrict__ w, const float* __restrict__ bias,
-                 T* __restrict__ out, float* __restrict__ work, int N,
+                 const TW* __restrict__ w, const float* __restrict__ bias,
+                 TO* __restrict__ out, float* __restrict__ work, int N,
                  int K, int Cin, int Cout, int splits) {
-  constexpr bool kOne = !std::is_same<T, float>::value;
+  constexpr bool kOne = !std::is_same<TX, float>::value;
+  constexpr bool kMix = !kOne && !std::is_same<TW, float>::value;
   extern __shared__ float4 smem4[];
   Smem<kMaxK>& sm = *reinterpret_cast<Smem<kMaxK>*>(smem4);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -184,28 +196,29 @@ subm_conv_kernel(const T* __restrict__ x, const int* __restrict__ idx,
   //    of kStages
   const int nch = (Cin + kKC - 1) / kKC;
   const int stages = sm.ntaps * nch;
-  // a 16-byte piece is V channels; bf16 rows at strides kWSb / kXSb, in
-  // the fp32 rings' space
-  constexpr int V = 16 / sizeof(T);
-  constexpr int WS = kOne ? kWSb : kWS, XS = kOne ? kXSb : kXS;
+  // a 16-byte piece is VW weight or VX x channels; bf16 rows at strides
+  // kWSb / kXSb, in the fp32 rings' space
+  constexpr int VW = 16 / sizeof(TW), VX = 16 / sizeof(TX);
+  constexpr int WS = sizeof(TW) == 2 ? kWSb : kWS;
+  constexpr int XS = sizeof(TX) == 2 ? kXSb : kXS;
   auto load = [&](int i) {
     const int buf = i % kStages;
     const int k = sm.taps[i / nch], c0 = (i % nch) * kKC;
-    T* wb = reinterpret_cast<T*>(sm.u.pipe.ws[buf]);
-    for (int e = tid; e < kKC * (kTN / V); e += kThreads) {
-      const int r = e / (kTN / V), q = e % (kTN / V);
-      const int c = c0 + r, col = co0 + V * q;
+    TW* wb = reinterpret_cast<TW*>(sm.u.pipe.ws[buf]);
+    for (int e = tid; e < kKC * (kTN / VW); e += kThreads) {
+      const int r = e / (kTN / VW), q = e % (kTN / VW);
+      const int c = c0 + r, col = co0 + VW * q;
       const bool p = c < Cin && col < Cout;
-      r3dl::cp_async16(wb + r * WS + V * q,
+      r3dl::cp_async16(wb + r * WS + VW * q,
                        p ? w + ((long long)k * Cin + c) * Cout + col : w, p);
     }
     const int cnt = sm.cnt[k], rows = (cnt + 15) & ~15;
-    T* xb = reinterpret_cast<T*>(sm.u.pipe.xs[buf]);
-    for (int e = tid; e < rows * (kKC / V); e += kThreads) {
-      const int r = e / (kKC / V), q = e % (kKC / V);
-      const int c = c0 + V * q;
+    TX* xb = reinterpret_cast<TX*>(sm.u.pipe.xs[buf]);
+    for (int e = tid; e < rows * (kKC / VX); e += kThreads) {
+      const int r = e / (kKC / VX), q = e % (kKC / VX);
+      const int c = c0 + VX * q;
       const bool p = r < cnt && c < Cin;
-      r3dl::cp_async16(xb + r * XS + V * q,
+      r3dl::cp_async16(xb + r * XS + VX * q,
                        p ? x + (row0 + sm.src[k][r]) * Cin + c : x, p);
     }
   };
@@ -229,8 +242,8 @@ subm_conv_kernel(const T* __restrict__ x, const int* __restrict__ idx,
     __syncthreads();
     const int k = sm.taps[i / nch];
     const int cnt = sm.cnt[k], groups = (cnt + 15) >> 4;
-    const T* xb = reinterpret_cast<const T*>(sm.u.pipe.xs[i % kStages]);
-    const T* wb = reinterpret_cast<const T*>(sm.u.pipe.ws[i % kStages]);
+    const TX* xb = reinterpret_cast<const TX*>(sm.u.pipe.xs[i % kStages]);
+    const TW* wb = reinterpret_cast<const TW*>(sm.u.pipe.ws[i % kStages]);
 #pragma unroll
     for (int gi = 0; gi < kGroups; ++gi) {
       const int g = wr + 2 * gi;
@@ -238,8 +251,20 @@ subm_conv_kernel(const T* __restrict__ x, const int* __restrict__ idx,
       float part[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
 #pragma unroll
       for (int ks = 0; ks < kKC / 8; ++ks) {
-        const T* x0 = xb + (16 * g + gid) * XS + 8 * ks + 2 * tig;
-        if constexpr (kOne) {
+        const TX* x0 = xb + (16 * g + gid) * XS + 8 * ks + 2 * tig;
+        if constexpr (kMix) {
+          const float2 v0 = *reinterpret_cast<const float2*>(x0);
+          const float2 v8 = *reinterpret_cast<const float2*>(x0 + 8 * XS);
+          const Split af[4] = {split(v0.x), split(v8.x), split(v0.y),
+                               split(v8.y)};
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int col = wc + 8 * j + gid;
+            r3dl::mma2(part[j], af,
+                       r3dl::widen(wb[(8 * ks + 2 * tig) * WS + col]),
+                       r3dl::widen(wb[(8 * ks + 2 * tig + 1) * WS + col]));
+          }
+        } else if constexpr (kOne) {
           const float2 v0 = __bfloat1622float2(
               *reinterpret_cast<const __nv_bfloat162*>(x0));
           const float2 v8 = __bfloat1622float2(
@@ -299,7 +324,7 @@ subm_conv_kernel(const T* __restrict__ x, const int* __restrict__ idx,
     __syncthreads();
   }
 
-  // 4. the tile out: with bias (rounded to T once), or the tap range's
+  // 4. the tile out: with bias (rounded to TO once), or the tap range's
   //    fp32 partial to scratch
   float* part = work + (long long)s * (gridDim.z / splits) * N * Cout;
   for (int e = tid; e < kTM * (kTN / 4); e += kThreads) {
@@ -322,8 +347,8 @@ subm_conv_kernel(const T* __restrict__ x, const int* __restrict__ idx,
   }
 }
 
-// out = sum over the tap ranges, in order, + bias, rounded to T once;
-// float4 lanes
+// out = sum over the tap ranges, in order, + bias, rounded to T (the
+// output's type) once; float4 lanes
 template <typename T>
 __global__ void subm_conv_reduce_kernel(const float4* __restrict__ work,
                                         const float* __restrict__ bias,
@@ -350,30 +375,31 @@ __global__ void subm_conv_reduce_kernel(const float4* __restrict__ work,
   }
 }
 
-template <int kMaxK, typename T>
-cudaError_t launch_conv(const T* x, const int* idx, const unsigned char* ok,
-                        const T* w, const float* bias, T* out, float* work,
+template <int kMaxK, typename TX, typename TW, typename TO>
+cudaError_t launch_conv(const TX* x, const int* idx, const unsigned char* ok,
+                        const TW* w, const float* bias, TO* out, float* work,
                         int B, int N, int K, int Cin, int Cout, int splits,
                         cudaStream_t stream) {
-  static const cudaError_t attr =
-      r3dl::allow_smem(subm_conv_kernel<kMaxK, T>, sizeof(Smem<kMaxK>));
+  static const cudaError_t attr = r3dl::allow_smem(
+      subm_conv_kernel<kMaxK, TX, TW, TO>, sizeof(Smem<kMaxK>));
   if (attr != cudaSuccess) return attr;
   const dim3 grid((N + kTM - 1) / kTM, (Cout + kTN - 1) / kTN, B * splits);
-  subm_conv_kernel<kMaxK, T>
+  subm_conv_kernel<kMaxK, TX, TW, TO>
       <<<grid, kThreads, sizeof(Smem<kMaxK>), stream>>>(
           x, idx, ok, w, bias, out, work, N, K, Cin, Cout, splits);
   return cudaGetLastError();
 }
 
-template <typename T>
-int conv(const T* x, const int* idx, const unsigned char* ok, const T* w,
-         const float* bias, T* out, float* work, int B, int N, int K,
+template <typename TX, typename TW, typename TO>
+int conv(const TX* x, const int* idx, const unsigned char* ok, const TW* w,
+         const float* bias, TO* out, float* work, int B, int N, int K,
          int Cin, int Cout, int splits, long long work_bytes,
          cudaStream_t stream) {
-  constexpr int V = 16 / sizeof(T);   // channels in 16 bytes
+  // channels in 16 bytes: Cin counts x's pieces, Cout the weight's
+  constexpr int VX = 16 / sizeof(TX), VW = 16 / sizeof(TW);
   const long long n = (long long)B * N * Cout;
   if (n == 0) return (int)cudaGetLastError();
-  if (K < 1 || K > kMaxTaps[1] || Cin % V || Cout % V || splits < 1 ||
+  if (K < 1 || K > kMaxTaps[1] || Cin % VX || Cout % VW || splits < 1 ||
       splits > K || (long long)B * splits > 65535 ||
       (((uintptr_t)x | (uintptr_t)w | (uintptr_t)out) & 15) ||
       (splits > 1 && (!work || work_bytes < 4 * splits * n ||
@@ -381,14 +407,16 @@ int conv(const T* x, const int* idx, const unsigned char* ok, const T* w,
     return (int)cudaErrorInvalidValue;
   const cudaError_t err =
       K <= kMaxTaps[0]
-          ? launch_conv<kMaxTaps[0], T>(x, idx, ok, w, bias, out, work, B, N,
-                                        K, Cin, Cout, splits, stream)
-          : launch_conv<kMaxTaps[1], T>(x, idx, ok, w, bias, out, work, B, N,
-                                        K, Cin, Cout, splits, stream);
+          ? launch_conv<kMaxTaps[0], TX, TW, TO>(x, idx, ok, w, bias, out,
+                                                 work, B, N, K, Cin, Cout,
+                                                 splits, stream)
+          : launch_conv<kMaxTaps[1], TX, TW, TO>(x, idx, ok, w, bias, out,
+                                                 work, B, N, K, Cin, Cout,
+                                                 splits, stream);
   if (err != cudaSuccess) return (int)err;
   if (splits > 1) {
     const long long n4 = n / 4, blocks = (n4 + 255) / 256;
-    subm_conv_reduce_kernel<T>
+    subm_conv_reduce_kernel<TO>
         <<<(unsigned)(blocks < 4096 ? blocks : 4096), 256, 0, stream>>>(
             reinterpret_cast<const float4*>(work), bias, out, n4, Cout,
             splits);
@@ -408,8 +436,8 @@ extern "C" int r3dl_subm_conv(const float* x, const int* idx,
                               int B, int N, int K, int Cin, int Cout,
                               int splits, long long work_bytes,
                               cudaStream_t stream) {
-  return conv<float>(x, idx, ok, w, bias, out, work, B, N, K, Cin, Cout,
-                     splits, work_bytes, stream);
+  return conv<float, float, float>(x, idx, ok, w, bias, out, work, B, N, K,
+                                   Cin, Cout, splits, work_bytes, stream);
 }
 
 // The same with bf16 x, w and out (bias and work fp32); Cin and Cout
@@ -421,6 +449,21 @@ extern "C" int r3dl_subm_conv_bf16(const r3dl::bf16* x, const int* idx,
                                    int K, int Cin, int Cout, int splits,
                                    long long work_bytes,
                                    cudaStream_t stream) {
-  return conv<r3dl::bf16>(x, idx, ok, w, bias, out, work, B, N, K, Cin, Cout,
-                          splits, work_bytes, stream);
+  return conv<r3dl::bf16, r3dl::bf16, r3dl::bf16>(
+      x, idx, ok, w, bias, out, work, B, N, K, Cin, Cout, splits, work_bytes,
+      stream);
+}
+
+// The input gradient at bf16: x fp32 (the owner sums), w the mirrored bf16
+// weight, out bf16 (bias and work fp32); Cin a multiple of 4, Cout of 8.
+extern "C" int r3dl_subm_conv_dx_bf16(const float* x, const int* idx,
+                                      const unsigned char* ok,
+                                      const r3dl::bf16* w, const float* bias,
+                                      r3dl::bf16* out, float* work, int B,
+                                      int N, int K, int Cin, int Cout,
+                                      int splits, long long work_bytes,
+                                      cudaStream_t stream) {
+  return conv<float, r3dl::bf16, r3dl::bf16>(x, idx, ok, w, bias, out, work,
+                                              B, N, K, Cin, Cout, splits,
+                                              work_bytes, stream);
 }

@@ -44,8 +44,20 @@
 // stages 32 rows at a time with scalar loads (zeros where !ok), skips a
 // stage in which no row has a live link in the tile's columns, and runs the
 // same 3xTF32 warp tiles. Dead links inside a live stage are multiplied.
+//
+// bf16 (r3dl_conv_weight_grad_bf16, training under compute_dtype
+// bfloat16): x and g bf16, dW fp32. Both paths stage bf16 rows (the CPE
+// path's cp.async pieces are 8 channels, so it takes channel counts that
+// are multiples of 8; ops/conv.py pads the Concat stem's 263 inputs to
+// 264) and widen each fragment as it is read; a product of two bf16
+// values is exact in TF32, so each is one mma pass (tc_common.cuh mma1).
+// The sums are fp32, in the same fixed order as the fp32 path: bit-equal
+// from run to run. The caller rounds each tap's sum to bf16 once, as the
+// Pallas VJP (pallas_conv.py `dW.astype(weight.dtype)`) does.
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "tc_common.cuh"
 
@@ -62,39 +74,67 @@ constexpr int kS = kT + 8;     // shared row stride, 8 mod 32: the fragment
                                // loads (row c, col r) hit 32 banks
 constexpr int kThreads = 128;  // 4 warps, a 32 x 32 dW tile each
 constexpr int kCompactThreads = 256;
-// the ring of x and g rows, and of their indices: 74,752 B at 2 stages,
-// three blocks an SM
-constexpr size_t kTcSmem =
-    kStages * kRB * (2 * kS * sizeof(float) + 2 * sizeof(int));
+// the ring of x and g rows (T: fp32 or bf16, rows of kS elements), and of
+// their indices: 74,752 B at 2 stages for fp32, three blocks an SM
+template <typename T>
+constexpr size_t tc_smem() {
+  return kStages * kRB * (2 * kS * sizeof(T) + 2 * sizeof(int));
+}
 
 // One 8-row step of a warp's 32 x 32 tile: A = X^T (rows of xr are cloud
 // rows, columns channels), B = G; xr / gr point at row 8 s of the stage.
-__device__ __forceinline__ void step(float (&acc)[2][4][4], const float* xr,
-                                     const float* gr, int cm, int on,
-                                     int gid, int tig) {
-  Split a[2][4], b[4][2];
-  const float* x0 = xr + tig * kS;
-  const float* x4 = x0 + 4 * kS;
+// fp32 rows: 3xTF32; bf16 rows: one pass on the widened values.
+template <typename T>
+__device__ __forceinline__ void step(float (&acc)[2][4][4], const T* xr,
+                                     const T* gr, int cm, int on, int gid,
+                                     int tig) {
+  const T* x0 = xr + tig * kS;
+  const T* x4 = x0 + 4 * kS;
+  const T* g0 = gr + tig * kS;
+  const T* g4 = g0 + 4 * kS;
+  if constexpr (std::is_same<T, float>::value) {
+    Split a[2][4], b[4][2];
 #pragma unroll
-  for (int m = 0; m < 2; ++m) {
-    const int c = cm + 16 * m + gid;
-    a[m][0] = split(x0[c]);
-    a[m][1] = split(x0[c + 8]);
-    a[m][2] = split(x4[c]);
-    a[m][3] = split(x4[c + 8]);
+    for (int m = 0; m < 2; ++m) {
+      const int c = cm + 16 * m + gid;
+      a[m][0] = split(x0[c]);
+      a[m][1] = split(x0[c + 8]);
+      a[m][2] = split(x4[c]);
+      a[m][3] = split(x4[c + 8]);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int o = on + 8 * j + gid;
+      b[j][0] = split(g0[o]);
+      b[j][1] = split(g4[o]);
+    }
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) r3dl::mma3(acc[m][j], a[m], b[j]);
+  } else {
+    float a[2][4], b[4][2];
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      const int c = cm + 16 * m + gid;
+      a[m][0] = r3dl::widen(x0[c]);
+      a[m][1] = r3dl::widen(x0[c + 8]);
+      a[m][2] = r3dl::widen(x4[c]);
+      a[m][3] = r3dl::widen(x4[c + 8]);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int o = on + 8 * j + gid;
+      b[j][0] = r3dl::widen(g0[o]);
+      b[j][1] = r3dl::widen(g4[o]);
+    }
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        r3dl::mma1(acc[m][j], a[m][0], a[m][1], a[m][2], a[m][3], b[j][0],
+                   b[j][1]);
   }
-  const float* g0 = gr + tig * kS;
-  const float* g4 = g0 + 4 * kS;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int o = on + 8 * j + gid;
-    b[j][0] = split(g0[o]);
-    b[j][1] = split(g4[o]);
-  }
-#pragma unroll
-  for (int m = 0; m < 2; ++m)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) r3dl::mma3(acc[m][j], a[m], b[j]);
 }
 
 __device__ __forceinline__ void zero(float (&t)[2][4][4]) {
@@ -178,15 +218,17 @@ wgrad_compact_kernel(const int* __restrict__ idx,
   if (threadIdx.x == 0) counts[k * splits + s] = count;
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-wgrad_tc_kernel(const float* __restrict__ x, const float* __restrict__ g,
+wgrad_tc_kernel(const T* __restrict__ x, const T* __restrict__ g,
                 const int* __restrict__ rows, const int* __restrict__ srcs,
                 const int* __restrict__ counts, float* __restrict__ out,
                 int K, int Cin, int Cout, long long R, long long per,
                 int splits, int ctiles) {
+  constexpr int V = 16 / sizeof(T);              // channels in 16 bytes
   extern __shared__ float4 smem4[];
-  float* xs = reinterpret_cast<float*>(smem4);   // [kStages][kRB][kS]
-  float* gs = xs + kStages * kRB * kS;           // [kStages][kRB][kS]
+  T* xs = reinterpret_cast<T*>(smem4);           // [kStages][kRB][kS]
+  T* gs = xs + kStages * kRB * kS;               // [kStages][kRB][kS]
   int* sidx = reinterpret_cast<int*>(gs + kStages * kRB * kS);
   int* srow = sidx + kStages * kRB;              // [kStages][kRB] each
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
@@ -212,28 +254,28 @@ wgrad_tc_kernel(const float* __restrict__ x, const float* __restrict__ g,
     }
   };
   // stage st's rows into its ring slot: x[source] (channels c0..c0+63)
-  // and g[row] (outputs o0..o0+63), 16 bytes per cp.async, the indices
-  // from shared memory (fetched a stage ahead)
+  // and g[row] (outputs o0..o0+63), 16 bytes (V channels) per cp.async,
+  // the indices from shared memory (fetched a stage ahead)
   auto load = [&](int st) {
     const int buf = st % kStages;
-    float* xb = xs + buf * kRB * kS;
-    float* gb = gs + buf * kRB * kS;
+    T* xb = xs + buf * kRB * kS;
+    T* gb = gs + buf * kRB * kS;
     const int* si = sidx + buf * kRB;
     const int* sr = srow + buf * kRB;
 #pragma unroll 4
-    for (int e = tid; e < 2 * kRB * (kT / 4); e += kThreads) {
-      const int which = e / (kRB * (kT / 4));
-      const int j = (e / (kT / 4)) % kRB, q = e % (kT / 4);
+    for (int e = tid; e < 2 * kRB * (kT / V); e += kThreads) {
+      const int which = e / (kRB * (kT / V));
+      const int j = (e / (kT / V)) % kRB, q = e % (kT / V);
       const int src = si[j];
       if (which == 0) {
-        const int col = c0 + 4 * q;
+        const int col = c0 + V * q;
         const bool p = src >= 0 && col < Cin;
-        r3dl::cp_async16(xb + j * kS + 4 * q,
+        r3dl::cp_async16(xb + j * kS + V * q,
                          p ? x + (long long)src * Cin + col : x, p);
       } else {
-        const int col = o0 + 4 * q;
+        const int col = o0 + V * q;
         const bool p = src >= 0 && col < Cout;
-        r3dl::cp_async16(gb + j * kS + 4 * q,
+        r3dl::cp_async16(gb + j * kS + V * q,
                          p ? g + (long long)sr[j] * Cout + col : g, p);
       }
     }
@@ -262,8 +304,8 @@ wgrad_tc_kernel(const float* __restrict__ x, const float* __restrict__ g,
     r3dl::cp_async_wait<kStages - 1>();
     __syncthreads();
     const int buf = st % kStages;
-    const float* xb = xs + buf * kRB * kS;
-    const float* gb = gs + buf * kRB * kS;
+    const T* xb = xs + buf * kRB * kS;
+    const T* gb = gs + buf * kRB * kS;
     const int live = n - st * kRB < kRB ? n - st * kRB : kRB;
     float part[2][4][4];
     zero(part);
@@ -280,14 +322,15 @@ wgrad_tc_kernel(const float* __restrict__ x, const float* __restrict__ g,
              o0 + on, Cout, gid, tig);
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-wgrad_taps_kernel(const float* __restrict__ x, const int* __restrict__ idx,
+wgrad_taps_kernel(const T* __restrict__ x, const int* __restrict__ idx,
                   const unsigned char* __restrict__ ok,
-                  const float* __restrict__ g, float* __restrict__ out,
+                  const T* __restrict__ g, float* __restrict__ out,
                   int N, int K, int Cin, int Cout, long long R,
                   long long per) {
-  __shared__ float as[kRK * kS];
-  __shared__ float gsm[kRK * kS];
+  __shared__ T as[kRK * kS];
+  __shared__ T gsm[kRK * kS];
   __shared__ int colk[kT], colc[kT], rbase[kRK];
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
   const int gid = lane >> 2, tig = lane & 3;
@@ -315,7 +358,7 @@ wgrad_taps_kernel(const float* __restrict__ x, const int* __restrict__ idx,
     for (int e = tid; e < kRK * kT; e += kThreads) {
       const int rr = e / kT, aa = e % kT;
       const int k = colk[aa], rb = rbase[rr];
-      float val = 0.f;
+      T val = r3dl::narrow<T>(0.f);
       if (rb >= 0 && k >= 0) {
         const long long off = (r0 + rr) * K + k;
         if (ok[off]) {
@@ -329,7 +372,8 @@ wgrad_taps_kernel(const float* __restrict__ x, const int* __restrict__ idx,
       const int rr = e / kT, cc = e % kT;
       const long long r = r0 + rr;
       const int co = o0 + cc;
-      gsm[rr * kS + cc] = (r < r_end && co < Cout) ? g[r * Cout + co] : 0.f;
+      gsm[rr * kS + cc] = (r < r_end && co < Cout) ? g[r * Cout + co]
+                                                   : r3dl::narrow<T>(0.f);
     }
     if (__syncthreads_or(live)) {
       float part[2][4][4];
@@ -356,24 +400,16 @@ __global__ void sum_splits_kernel(const float* __restrict__ part,
   }
 }
 
-}  // namespace
-
-// work: scratch of work_bytes bytes. The CPE path (Cin % 4 == 0 and
-// Cout % 4 == 0) puts there the live lists, 2 K B N + K splits int32
-// (rounded up to 16 bytes), then, with splits > 1, the partial dW
-// (splits, K, Cin, Cout) fp32; the stem path only the partial dW.
-// x and g 16-byte aligned on the CPE path. rows_per_split * splits >= B N.
-extern "C" int r3dl_conv_weight_grad(const float* x, const int* idx,
-                                     const unsigned char* ok, const float* g,
-                                     void* work, float* dw, int B, int N,
-                                     int K, int Cin, int Cout, int splits,
-                                     long long rows_per_split,
-                                     long long work_bytes,
-                                     cudaStream_t stream) {
+template <typename T>
+int weight_grad(const T* x, const int* idx, const unsigned char* ok,
+                const T* g, void* work, float* dw, int B, int N, int K,
+                int Cin, int Cout, int splits, long long rows_per_split,
+                long long work_bytes, cudaStream_t stream) {
+  constexpr int V = 16 / sizeof(T);   // channels in 16 bytes
   const long long R = (long long)B * N;
   const long long n = (long long)K * Cin * Cout;
   if (n == 0) return (int)cudaGetLastError();
-  const bool compacted = Cin % 4 == 0 && Cout % 4 == 0;
+  const bool compacted = Cin % V == 0 && Cout % V == 0;
   const long long list_bytes =
       compacted ? ((4 * (2 * K * R + (long long)K * splits) + 15) / 16) * 16
                 : 0;
@@ -389,7 +425,8 @@ extern "C" int r3dl_conv_weight_grad(const float* x, const int* idx,
                                                list_bytes)
                     : dw;
   if (compacted) {
-    static const cudaError_t attr = r3dl::allow_smem(wgrad_tc_kernel, kTcSmem);
+    static const cudaError_t attr =
+        r3dl::allow_smem(wgrad_tc_kernel<T>, tc_smem<T>());
     if (attr != cudaSuccess) return (int)attr;
     int* rows = static_cast<int*>(work);
     int* srcs = rows + K * R;
@@ -400,17 +437,18 @@ extern "C" int r3dl_conv_weight_grad(const float* x, const int* idx,
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     const int ctiles = (Cin + kT - 1) / kT, otiles = (Cout + kT - 1) / kT;
-    wgrad_tc_kernel<<<dim3((unsigned)(ctiles * otiles), (unsigned)K,
-                           (unsigned)splits),
-                      kThreads, kTcSmem, stream>>>(
+    wgrad_tc_kernel<T><<<dim3((unsigned)(ctiles * otiles), (unsigned)K,
+                              (unsigned)splits),
+                         kThreads, tc_smem<T>(), stream>>>(
         x, g, rows, srcs, counts, part, K, Cin, Cout, R, rows_per_split,
         splits, ctiles);
   } else {
-    wgrad_taps_kernel<<<dim3((unsigned)((K * Cin + kT - 1) / kT),
-                             (unsigned)((Cout + kT - 1) / kT),
-                             (unsigned)splits),
-                        kThreads, 0, stream>>>(x, idx, ok, g, part, N, K, Cin,
-                                               Cout, R, rows_per_split);
+    wgrad_taps_kernel<T><<<dim3((unsigned)((K * Cin + kT - 1) / kT),
+                                (unsigned)((Cout + kT - 1) / kT),
+                                (unsigned)splits),
+                           kThreads, 0, stream>>>(x, idx, ok, g, part, N, K,
+                                                  Cin, Cout, R,
+                                                  rows_per_split);
   }
   if (splits > 1) {
     const cudaError_t err = cudaGetLastError();
@@ -420,4 +458,37 @@ extern "C" int r3dl_conv_weight_grad(const float* x, const int* idx,
                         stream>>>(part, dw, n, splits);
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// work: scratch of work_bytes bytes. The CPE path (Cin % 4 == 0 and
+// Cout % 4 == 0) puts there the live lists, 2 K B N + K splits int32
+// (rounded up to 16 bytes), then, with splits > 1, the partial dW
+// (splits, K, Cin, Cout) fp32; the stem path only the partial dW.
+// x and g 16-byte aligned on the CPE path. rows_per_split * splits >= B N.
+extern "C" int r3dl_conv_weight_grad(const float* x, const int* idx,
+                                     const unsigned char* ok, const float* g,
+                                     void* work, float* dw, int B, int N,
+                                     int K, int Cin, int Cout, int splits,
+                                     long long rows_per_split,
+                                     long long work_bytes,
+                                     cudaStream_t stream) {
+  return weight_grad<float>(x, idx, ok, g, work, dw, B, N, K, Cin, Cout,
+                            splits, rows_per_split, work_bytes, stream);
+}
+
+// The same with bf16 x and g (dW fp32); the CPE path where Cin % 8 == 0
+// and Cout % 8 == 0.
+extern "C" int r3dl_conv_weight_grad_bf16(const r3dl::bf16* x,
+                                          const int* idx,
+                                          const unsigned char* ok,
+                                          const r3dl::bf16* g, void* work,
+                                          float* dw, int B, int N, int K,
+                                          int Cin, int Cout, int splits,
+                                          long long rows_per_split,
+                                          long long work_bytes,
+                                          cudaStream_t stream) {
+  return weight_grad<r3dl::bf16>(x, idx, ok, g, work, dw, B, N, K, Cin, Cout,
+                                 splits, rows_per_split, work_bytes, stream);
 }

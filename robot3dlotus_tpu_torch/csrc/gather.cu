@@ -40,6 +40,16 @@
 // (2 D) are a multiple of 16 and the pointers are 16-byte aligned (D = 64
 // bf16 is 128 bytes, 8 words a row), else 4-byte words (D even), else
 // 2-byte ones. A copy: bit-equal to its plain version.
+//
+// K8 at bf16 (r3dl_scatter_rows_add_bf16, training under compute_dtype
+// bfloat16): the bf16 cotangent rows are widened and added into fp32 sums
+// with fp32 atomicAdd, as the fp32 K8 adds them, and a second pass rounds
+// each sum to bf16 once: the rule of pallas_gather.py `_permute_op_bwd`
+// (dx summed in fp32, then cast to the input's dtype once). No atomicAdd
+// on bf16, which would round at every add in arrival order. The caller may
+// take the fp32 sums instead of the rounded copy (the conv's owner sum,
+// ops/conv.py, which sums on in fp32).
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -98,8 +108,14 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename I>
-__global__ void scatter_rows_add_kernel(const float* __restrict__ g,
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// G: the cotangent's type (fp32, or bf16 widened as it is read)
+template <typename G, typename I>
+__global__ void scatter_rows_add_kernel(const G* __restrict__ g,
                                         const I* __restrict__ idx,
                                         float* __restrict__ dx, int N, int M,
                                         int D) {
@@ -109,9 +125,38 @@ __global__ void scatter_rows_add_kernel(const float* __restrict__ g,
   const long long row = (long long)blockIdx.y * M + r;
   const long long i = (long long)idx[row];
   if (i < 0 || i >= N) return;
-  const float* gs = g + row * D;
+  const G* gs = g + row * D;
   float* o = dx + ((long long)blockIdx.y * N + i) * D;
-  for (int c = lane; c < D; c += 32) atomicAdd(o + c, gs[c]);
+  for (int c = lane; c < D; c += 32) atomicAdd(o + c, widen(gs[c]));
+}
+
+// out = sums rounded to bf16 (to nearest even), once per element
+__global__ void round_bf16_kernel(const float* __restrict__ sums,
+                                  __nv_bfloat16* __restrict__ out,
+                                  long long n) {
+  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < n;
+       e += (long long)gridDim.x * blockDim.x)
+    out[e] = __float2bfloat16_rn(sums[e]);
+}
+
+template <typename G>
+int scatter_add(const G* g, const void* idx, float* dx, int B, int N, int M,
+                int D, int idx64, cudaStream_t stream) {
+  const cudaError_t err = cudaMemsetAsync(
+      dx, 0, (size_t)B * N * D * sizeof(float), stream);
+  if (err != cudaSuccess) return (int)err;
+  if (B == 0 || M == 0 || D == 0) return (int)cudaGetLastError();
+  if (B > kMaxGridY) return (int)cudaErrorInvalidValue;
+  const dim3 grid((M + kWarpsPerBlock - 1) / kWarpsPerBlock, B);
+  if (idx64)
+    scatter_rows_add_kernel<G, long long><<<grid, kWarpsPerBlock * 32, 0,
+                                            stream>>>(
+        g, static_cast<const long long*>(idx), dx, N, M, D);
+  else
+    scatter_rows_add_kernel<G, int><<<grid, kWarpsPerBlock * 32, 0,
+                                      stream>>>(
+        g, static_cast<const int*>(idx), dx, N, M, D);
+  return (int)cudaGetLastError();
 }
 
 template <typename V, typename I>
@@ -174,18 +219,23 @@ extern "C" int r3dl_gather_rows16(const void* x, const void* idx, void* out,
 extern "C" int r3dl_scatter_rows_add(const float* g, const void* idx,
                                      float* dx, int B, int N, int M, int D,
                                      int idx64, cudaStream_t stream) {
-  const cudaError_t err = cudaMemsetAsync(
-      dx, 0, (size_t)B * N * D * sizeof(float), stream);
-  if (err != cudaSuccess) return (int)err;
-  if (B == 0 || M == 0 || D == 0) return (int)cudaGetLastError();
-  if (B > kMaxGridY) return (int)cudaErrorInvalidValue;
-  const dim3 grid((M + kWarpsPerBlock - 1) / kWarpsPerBlock, B);
-  if (idx64)
-    scatter_rows_add_kernel<long long><<<grid, kWarpsPerBlock * 32, 0,
-                                         stream>>>(
-        g, static_cast<const long long*>(idx), dx, N, M, D);
-  else
-    scatter_rows_add_kernel<int><<<grid, kWarpsPerBlock * 32, 0, stream>>>(
-        g, static_cast<const int*>(idx), dx, N, M, D);
+  return scatter_add<float>(g, idx, dx, B, N, M, D, idx64, stream);
+}
+
+// The same for a bf16 cotangent g (B, M, D): the fp32 sums into `sums`
+// (B, N, D), zeroed here, then, unless out is NULL, rounded to bf16 into
+// out (B, N, D).
+extern "C" int r3dl_scatter_rows_add_bf16(const __nv_bfloat16* g,
+                                          const void* idx, float* sums,
+                                          __nv_bfloat16* out, int B, int N,
+                                          int M, int D, int idx64,
+                                          cudaStream_t stream) {
+  const int err = scatter_add<__nv_bfloat16>(g, idx, sums, B, N, M, D,
+                                             idx64, stream);
+  const long long n = (long long)B * N * D;
+  if (err || !out || n == 0) return err;
+  const long long blocks = (n + 255) / 256;
+  round_bf16_kernel<<<(unsigned)(blocks < 4096 ? blocks : 4096), 256, 0,
+                      stream>>>(sums, out, n);
   return (int)cudaGetLastError();
 }

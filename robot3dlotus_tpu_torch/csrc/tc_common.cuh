@@ -1,7 +1,8 @@
 // Building blocks shared by the tensor-core kernels (conv.cu K2,
 // conv_grad.cu K7, attention_dropout.cu K5/K6): 3xTF32 mma.sync.m16n8k8,
-// the one-pass product of bf16 operands, cp.async with zero-fill, and the
-// dynamic shared-memory attribute.
+// the one-pass product of bf16 operands (and the two-pass product of an
+// fp32 operand with a bf16 one), cp.async with zero-fill, and the dynamic
+// shared-memory attribute.
 //
 // 3xTF32 (CUTLASS's OpMultiplyAddFastF32 scheme): each fp32 operand is
 // split as x = big + small, both TF32, and big*big + big*small + small*big
@@ -16,7 +17,8 @@
 // bf16 operands (ptv3_config compute_dtype bfloat16): a bf16 value widened
 // to fp32 has 8 significant bits and zero low bits, so it is a TF32 value
 // as it is, its split has a zero small part, and one TF32 product of two
-// such values is exact: one mma pass (mma1) computes what the three would.
+// such values is exact: one mma pass (mma1) computes what the three would;
+// against an fp32 operand, two (mma2: its big and small parts).
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -80,6 +82,16 @@ __device__ __forceinline__ bf16 narrow<bf16>(float x) {
 // x rounded to bf16 (to nearest even) and widened back
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// d += a b in two TF32 passes: a split (an fp32 operand), b fragments
+// that hold TF32-exact values (bf16 widened), whose small parts are zero:
+// the small product first, as mma3 adds them
+__device__ __forceinline__ void mma2(float (&d)[4], const Split (&a)[4],
+                                     float b0, float b1) {
+  const uint32_t u0 = __float_as_uint(b0), u1 = __float_as_uint(b1);
+  mma_tf32(d, a[0].small, a[1].small, a[2].small, a[3].small, u0, u1);
+  mma_tf32(d, a[0].big, a[1].big, a[2].big, a[3].big, u0, u1);
 }
 
 // d += a b in one TF32 pass, on fp32 fragments that hold bf16 values

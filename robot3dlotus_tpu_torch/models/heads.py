@@ -76,9 +76,7 @@ class ActionHead(nn.Module):
             act = torch.einsum("bn,bnd->bd", w, per_point[..., 1:])
         else:
             if self.reduce == "max":
-                pooled = torch.where(
-                    mask[..., None], point_embeds,
-                    torch.full_like(point_embeds, -float("inf"))).amax(dim=1)
+                pooled = masked_max(point_embeds, mask)
             else:
                 m = mask[..., None].to(point_embeds.dtype)
                 pooled = (point_embeds * m).sum(1) / m.sum(1).clamp(min=1.0)
@@ -86,6 +84,12 @@ class ActionHead(nn.Module):
                             rng)
         return xt, rotation_output(act, self.rot_pred_type,
                                    self.euler_bins), act[..., -1]
+
+
+def masked_max(x, mask):
+    """x (B, N, D) -> (B, D): the max over the points where mask (B, N)."""
+    return torch.where(mask[..., None], x,
+                       torch.full_like(x, -float("inf"))).amax(dim=1)
 
 
 def _masked_softmax(x, mask):

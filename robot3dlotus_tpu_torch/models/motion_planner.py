@@ -30,6 +30,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.pos_codec import best_pos_from_disc_logits
+from . import heads
 from .heads import rotation_output
 from .layers import dense, dropout, trunc_normal_
 from .simple_policy import (Conditioned, backbone, build_disc_pos_targets,
@@ -124,9 +125,7 @@ class TrajActionHead(nn.Module):
             xt = torch.einsum("bnt,bntc->btc", w,
                               coords[:, :, None, :] + ht[..., 1:])
         if self.reduce == "max":
-            pooled = torch.where(
-                mask[..., None], point_embeds,
-                torch.full_like(point_embeds, -float("inf"))).amax(dim=1)
+            pooled = heads.masked_max(point_embeds, mask)
         else:
             m = mask[..., None].to(point_embeds.dtype)
             pooled = (point_embeds * m).sum(1) / m.sum(1).clamp(min=1.0)

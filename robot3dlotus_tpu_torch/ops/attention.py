@@ -26,7 +26,17 @@ output rounded to bf16 (patch_attention_plain does the same in PyTorch;
 the kernel is r3dl_patch_attention_bf16, counted as patch_attention_bf16).
 The Pallas body (pallas_attention.py) scales q after widening it to fp32
 instead, so the two JAX paths differ at bf16; the port follows the XLA
-path. K5 and K6 take fp32 only.
+path. K5 and K6 take bf16 too (training under compute_dtype bfloat16;
+csrc r3dl_attention_dropout_fwd_bf16 / _bwd_bf16, counted as
+patch_attention_dropout_bf16 / patch_attention_dropout_bwd_bf16). K5
+rounds where K1 does, so that the training and serving forwards agree:
+q * scale in bf16, fp32 logits, softmax and lse, the dropped probabilities
+(p / (1 - rate) where kept) rounded to bf16 before P v, which sums in
+fp32, and the output rounded once; the keep bits are the fp32 path's. K6
+computes as the Pallas body `_attn_drop_bwd_kernel` does, in fp32 from the
+widened inputs: p = exp(logits - lse) from the bf16 q * scale, unrounded
+probabilities in dv and ds, D = g . out from K5's bf16 output, and dq, dk
+and dv each rounded to bf16 once.
 
 The CUDA kernels are csrc/attention.cu (K1) and csrc/attention_dropout.cu
 (K5, K6); K1 and K5 run one forward tile (csrc/attention_tile.cuh), and
@@ -74,12 +84,15 @@ def _logits(q, k, key_valid, scale):
                        torch.full_like(logits, NEG_INF))
 
 
-def bf16_probability_allowance(q, k, v, key_valid, scale):
+def bf16_probability_allowance(q, k, v, key_valid, scale, rate=0.0,
+                               keep=None):
     """2^-7 sum_j p_j |v_j| (G, H, P, Dh) fp32: one bf16 ulp of each
-    probability's share of the output, the part of K1's bf16 bar that a
+    probability's share of the output, the part of K1's (and, with the
+    dropped probabilities of `rate` and `keep`, K5's) bf16 bar that a
     probability rounded to the neighbouring bf16 value can move
     (ops/bf16.py)."""
-    a = torch.softmax(_logits(q, k, key_valid, scale), dim=-1)
+    a = _drop(torch.softmax(_logits(q, k, key_valid, scale), dim=-1), rate,
+              keep)
     return torch.einsum("ghpq,ghqd->ghpd", a, v.float().abs()) * 2.0 ** -7
 
 
@@ -186,27 +199,33 @@ def _plain_keep(q, rate, seed):
 
 def patch_attention_dropout_fwd_plain(q, k, v, key_valid, scale, rate, seed):
     """K5's plain version: (out, lse, bits) with the Philox mask of
-    `seed`."""
+    `seed`; at bf16 the dropped probabilities are rounded to bf16 before
+    the product (the module docstring)."""
     logits = _logits(q, k, key_valid, scale)
     keep = _plain_keep(q, rate, seed)
     a = torch.softmax(logits, dim=-1)
-    out = torch.einsum("ghpq,ghqd->ghpd", _drop(a, rate, keep), v.float())
+    out = torch.einsum("ghpq,ghqd->ghpd",
+                       _drop(a, rate, keep).to(v.dtype).float(), v.float())
     return (out.to(q.dtype), torch.logsumexp(logits, dim=-1),
             pack_keep_bits(keep))
 
 
 def patch_attention_dropout_bwd_plain(q, k, v, key_valid, out, lse, bits, g,
                                       scale, rate):
-    """K6's plain version: (dq, dk, dv) from the forward's saved
+    """K6's plain version: (dq, dk, dv), fp32, from the forward's saved
     (q, k, v, key_valid, out, lse, bits) and the cotangent g, as K6
     computes them: p = exp(logits - lse), D = g . out, ds zeroed at masked
-    keys; in a patch with no valid key p = 1 / P (lse rounds to -1e9
-    there)."""
+    keys, dk = ds^T (q * scale) and dq = (ds k) * scale, with q * scale
+    and scale as the forward took them (bf16 at bf16); in a patch with no
+    valid key p = 1 / P (lse rounds to -1e9 there)."""
     P = q.shape[2]
-    q, k, v, g, out = (t.float() for t in (q, k, v, g, out))
+    logits = _logits(q, k, key_valid, scale)
+    qs = _scaled(q, scale).float()
+    if q.dtype == torch.bfloat16:
+        scale = bf16_value(scale)
+    k, v, g, out = (t.float() for t in (k, v, g, out))
     valid = key_valid[:, None, None, :]
-    p = torch.where(valid, torch.exp(_logits(q, k, key_valid, scale) -
-                                     lse[..., None]), 0.0)
+    p = torch.where(valid, torch.exp(logits - lse[..., None]), 0.0)
     p = torch.where(key_valid.any(-1)[:, None, None, None], p, 1.0 / P)
     keep = unpack_keep_bits(bits, P)
     dv = torch.einsum("ghpq,ghpd->ghqd", _drop(p, rate, keep), g)
@@ -214,19 +233,19 @@ def patch_attention_dropout_bwd_plain(q, k, v, key_valid, out, lse, bits, g,
     ds = p * (da - (g * out).sum(-1, keepdim=True))
     ds = torch.where(valid, ds, torch.zeros_like(ds))
     dq = torch.einsum("ghpq,ghqd->ghpd", ds, k) * scale
-    dk = torch.einsum("ghpq,ghpd->ghqd", ds, q) * scale
+    dk = torch.einsum("ghpq,ghpd->ghqd", ds, qs)
     return dq, dk, dv
 
 
-def _check_attention(name, q, k, v, key_valid, *more,
-                     dtypes=(torch.float32,)):
+def _check_attention(name, q, k, v, key_valid, *more):
     """The kernels' contract: q, k, v and `more` contiguous CUDA tensors of
-    one (G, H, P, Dh) shape and one of `dtypes` (K1: fp32 or bf16; K5, K6:
-    fp32), key_valid (G, P) bool."""
+    one (G, H, P, Dh) shape and one dtype, fp32 or bf16, key_valid (G, P)
+    bool."""
     for n, t in (("q", q), ("k", k), ("v", v),
                  *((f"arg {i}", t) for i, t in enumerate(more))):
-        cuda_lib.check_cuda_tensor(f"{name} {n}", t,
-                                   (q.dtype,) if n != "q" else dtypes, 4)
+        cuda_lib.check_cuda_tensor(
+            f"{name} {n}", t,
+            (q.dtype,) if n != "q" else (torch.float32, torch.bfloat16), 4)
     cuda_lib.check_cuda_tensor(f"{name} key_valid", key_valid, torch.bool, 2)
     G, H, P, Dh = q.shape
     if any(t.shape != q.shape for t in (k, v, *more)) or \
@@ -278,8 +297,7 @@ def patch_attention(q, k, v, key_valid, scale):
 def patch_attention_split(q, k, v, key_valid, scale, warps, splits):
     """K1 on CUDA tensors with a given query split (attention_query_split
     gives patch_attention's); one launch."""
-    G, H, P, Dh = _check_attention("patch_attention", q, k, v, key_valid,
-                                   dtypes=(torch.float32, torch.bfloat16))
+    G, H, P, Dh = _check_attention("patch_attention", q, k, v, key_valid)
     if not 1 <= warps <= ATTN_MAX_WARPS or splits < 1 or \
             QUERY_ROWS * warps * splits < P:
         raise ValueError(f"patch_attention: split ({warps} warps, {splits} "
@@ -306,9 +324,17 @@ def _dropout_args(rate, seed):
     return seed, keep_threshold(rate), 1.0 / (1.0 - rate)
 
 
+def _dropout_route(q, scale, kernel, entry):
+    """(counter, entry point, scale) of K5 or K6 for q's dtype: at bf16 the
+    _bf16 entry and scale rounded to bf16, as K1's bf16 path takes it."""
+    if q.dtype == torch.bfloat16:
+        return kernel + "_bf16", entry + "_bf16", bf16_value(scale)
+    return kernel, entry, float(scale)
+
+
 def patch_attention_dropout_fwd(q, k, v, key_valid, scale, rate, seed):
-    """(out, lse, bits) of the training attention: K5 for CUDA tensors, the
-    plain version for CPU tensors."""
+    """(out, lse, bits) of the training attention, q, k, v fp32 or bf16
+    (lse fp32): K5 for CUDA tensors, the plain version for CPU tensors."""
     seed, thresh, inv_keep = _dropout_args(rate, seed)
     if not q.is_cuda:
         return patch_attention_dropout_fwd_plain(q, k, v, key_valid, scale,
@@ -316,13 +342,15 @@ def patch_attention_dropout_fwd(q, k, v, key_valid, scale, rate, seed):
     G, H, P, Dh = _check_attention("patch_attention_dropout", q, k, v,
                                    key_valid)
     out = torch.empty_like(q)
-    lse = q.new_empty((G, H, P))
+    lse = q.new_empty((G, H, P), dtype=torch.float32)
     bits = torch.empty((G, H, P, (P + 31) // 32), dtype=torch.int32,
                        device=q.device)
-    cuda_lib.launch("patch_attention_dropout", "r3dl_attention_dropout_fwd",
+    kernel, entry, scale = _dropout_route(q, scale, "patch_attention_dropout",
+                                          "r3dl_attention_dropout_fwd")
+    cuda_lib.launch(kernel, entry,
                     q.data_ptr(), k.data_ptr(), v.data_ptr(),
                     key_valid.data_ptr(), out.data_ptr(), lse.data_ptr(),
-                    bits.data_ptr(), G, H, P, Dh, float(scale), seed, thresh,
+                    bits.data_ptr(), G, H, P, Dh, scale, seed, thresh,
                     inv_keep)
     return out, lse, bits
 
@@ -330,8 +358,8 @@ def patch_attention_dropout_fwd(q, k, v, key_valid, scale, rate, seed):
 def patch_attention_dropout_bwd(q, k, v, key_valid, out, lse, bits, g, scale,
                                 rate):
     """(dq, dk, dv) of patch_attention_dropout for the cotangent g, from
-    what the forward returned: K6 for CUDA tensors, the plain version for
-    CPU tensors."""
+    what the forward returned, in q's dtype: K6 for CUDA tensors, the plain
+    version for CPU tensors."""
     if not q.is_cuda:
         grads = patch_attention_dropout_bwd_plain(
             q, k, v, key_valid, out, lse, bits, g, scale, rate)
@@ -347,12 +375,14 @@ def patch_attention_dropout_bwd(q, k, v, key_valid, out, lse, bits, g, scale,
         raise ValueError(f"patch_attention_dropout_bwd: lse "
                          f"{tuple(lse.shape)}, bits {tuple(bits.shape)}")
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    cuda_lib.launch("patch_attention_dropout_bwd",
-                    "r3dl_attention_dropout_bwd", q.data_ptr(), k.data_ptr(),
+    kernel, entry, scale = _dropout_route(q, scale,
+                                          "patch_attention_dropout_bwd",
+                                          "r3dl_attention_dropout_bwd")
+    cuda_lib.launch(kernel, entry, q.data_ptr(), k.data_ptr(),
                     v.data_ptr(), key_valid.data_ptr(), out.data_ptr(),
                     lse.data_ptr(), bits.data_ptr(), g.data_ptr(),
                     dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), G, H, P, Dh,
-                    float(scale), 1.0 / (1.0 - rate))
+                    scale, 1.0 / (1.0 - rate))
     return dq, dk, dv
 
 

@@ -12,7 +12,9 @@ order before the rounding, which is what a value near zero can show.
 K1 also rounds each probability to bf16 before P v, and a probability
 computed in another order may land on the neighbouring bf16 value: its
 bar adds one bf16 ulp of every probability's share, 2^-7 sum_j p_j |v_j|
-(ops/attention.py bf16_probability_allowance).
+(ops/attention.py bf16_probability_allowance). The backward kernels at
+bf16 (K2's input gradient, K5 / K6, K8's rounded sums) are held to the
+same bar, with the slack taken of the gradient's own scale.
 """
 from __future__ import annotations
 
@@ -37,14 +39,17 @@ def bf16_ulp(t):
     return torch.ldexp(torch.ones_like(a), e - 8)
 
 
-def bf16_excess(got, want, slack=BF16_SLACK, extra=None):
+def bf16_excess(got, want, slack=BF16_SLACK, extra=None, relative=False):
     """max(|got - want| - bar) over the elements, bar = one bf16 ulp of
     max(|got|, |want|) + slack * max(1, max |want|) (+ `extra`, an
-    elementwise allowance); <= 0 where the bar holds everywhere."""
+    elementwise allowance); <= 0 where the bar holds everywhere. With
+    `relative` the slack is taken of max |want| itself: gradients, whose
+    scale is far below 1 in training, are held to their own scale."""
     got, want = got.float(), want.float()
     if want.numel() == 0:
         return 0.0
-    scale = max(1.0, float(want.abs().max()))
+    top = float(want.abs().max())
+    scale = top if relative else max(1.0, top)
     bar = bf16_ulp(torch.maximum(got.abs(), want.abs())) + slack * scale
     if extra is not None:
         bar = bar + extra

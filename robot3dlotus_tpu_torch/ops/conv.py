@@ -27,15 +27,26 @@ WGRAD_PAD_MIN_CIN input channels, so that the wide stem takes its
 compacted path; narrower inputs (the policy stem's 7) keep the path that
 packs (tap, channel) columns.
 
-bf16 (the forward under compute_dtype bfloat16): x and W bf16, the bias
-fp32; every tap sums in fp32, the bias is added in fp32 and the result is
-rounded to bf16 once, as the JAX XLA conv does (ops/sparse_conv.py
-subm_conv_apply): csrc r3dl_subm_conv_bf16, counted as subm_conv_bf16,
-and subm_conv_plain in PyTorch. The tap ranges' partials stay fp32. The
-kernel reads 16 bytes (8 bf16 channels) at a time, so bf16 channel counts
-are padded to multiples of 8 (the CPE's 64..768 are; the Concat stem's 263
-becomes 264). The backward takes fp32 only: a bf16 conv that must carry a
-gradient raises.
+bf16 (compute_dtype bfloat16): x and W bf16, the bias fp32; every tap
+sums in fp32, the bias is added in fp32 and the result is rounded to bf16
+once, as the JAX XLA conv does (ops/sparse_conv.py subm_conv_apply): csrc
+r3dl_subm_conv_bf16, counted as subm_conv_bf16, and subm_conv_plain in
+PyTorch. The tap ranges' partials stay fp32. The kernel reads 16 bytes (8
+bf16 channels) at a time, so bf16 channel counts are padded to multiples
+of 8 (the CPE's 64..768 are; the Concat stem's 263 becomes 264). The
+backward at bf16 follows the Pallas VJP (pallas_conv.py
+`_windowed_op_bwd`): the bf16 cotangent widened, dx the mirrored conv
+summed in fp32 and rounded to bf16 once, dW each tap's fp32 sum rounded
+to bf16 once. The owner sum stays fp32 (K8 at bf16 hands back its fp32
+sums), and the mirrored conv takes it with the bf16 weight: csrc
+r3dl_subm_conv_dx_bf16, counted as subm_conv_dx_bf16, so the duplicate
+voxels add no rounding that neither JAX path has. K7 at bf16 (csrc
+r3dl_conv_weight_grad_bf16, counted as conv_weight_grad_bf16) widens x and
+g and returns fp32 sums; the backward rounds them to bf16, and the cast of
+the fp32 parameter widens them again, as `dW.astype(weight.dtype)` and the
+cast's VJP do in the JAX package. (The JAX XLA conv's VJP rounds each
+tap's dx product and sums the taps in bf16; the port follows the TPU
+kernel.)
 
 Backward: dW is K7, dbias a plain sum, and dx is the conv itself run on
 a cotangent with the mirrored weight W'[k] = W[K-1-k]^T (K2 again), as in
@@ -85,8 +96,10 @@ def subm_conv_plain(x, idx, ok, weight, bias=None):
 
 
 def conv_weight_grad_plain(x, idx, ok, g):
-    """dW (K, Cin, Cout) = sum_{b,n} ok[b,n,k] x[b, idx[b,n,k]]^T g[b,n]."""
+    """dW (K, Cin, Cout) = sum_{b,n} ok[b,n,k] x[b, idx[b,n,k]]^T g[b,n],
+    fp32 (bf16 x and g widened)."""
     out = []
+    x, g = x.float(), g.float()
     for k in range(idx.shape[-1]):
         xs = torch.gather(x, 1, idx[..., k].long()[..., None].expand(
             -1, -1, x.shape[-1]))
@@ -131,26 +144,43 @@ def conv_tap_splits(B, N, K, cout):
     return max(1, min(K, -(-CONV_TARGET_BLOCKS // max(blocks, 1))))
 
 
+_BF16 = torch.bfloat16
+# (x dtype, weight dtype) -> (counter, entry point, out dtype): the forward
+# at fp32 and at bf16, and the input gradient at bf16 (the fp32 owner sums
+# against the bf16 mirrored weight)
+_CONV_ROUTES = {
+    (torch.float32, torch.float32): ("subm_conv", "r3dl_subm_conv",
+                                     torch.float32),
+    (_BF16, _BF16): ("subm_conv_bf16", "r3dl_subm_conv_bf16", _BF16),
+    (torch.float32, _BF16): ("subm_conv_dx_bf16", "r3dl_subm_conv_dx_bf16",
+                             _BF16)}
+
+
 def _conv_forward(x, idx, ok, weight, bias):
+    """K2 (any route of _CONV_ROUTES) for CUDA tensors, the plain version
+    for CPU ones; the output in the route's dtype (the weight's)."""
     if not x.is_cuda:
-        return subm_conv_plain(x, idx, ok, weight, bias)
+        return subm_conv_plain(x, idx, ok, weight, bias).to(weight.dtype)
     K, wcin, Cout = weight.shape
-    _check_map("subm_conv", x, idx, ok, K, (torch.float32, torch.bfloat16))
-    cuda_lib.check_cuda_tensor("subm_conv weight", weight, x.dtype, 3)
+    _check_map("subm_conv", x, idx, ok, K, (torch.float32, _BF16))
+    cuda_lib.check_cuda_tensor("subm_conv weight", weight,
+                               (torch.float32, _BF16), 3)
+    route = _CONV_ROUTES.get((x.dtype, weight.dtype))
     B, N, Cin = x.shape
-    if wcin != Cin or K > CONV_MAX_TAPS:
-        raise ValueError(f"subm_conv: x{tuple(x.shape)} weight"
-                         f"{tuple(weight.shape)} (the kernel takes at most "
-                         f"{CONV_MAX_TAPS} taps)")
+    if route is None or wcin != Cin or K > CONV_MAX_TAPS:
+        raise ValueError(f"subm_conv: x {x.dtype} {tuple(x.shape)} weight "
+                         f"{weight.dtype} {tuple(weight.shape)} (the kernel "
+                         f"takes at most {CONV_MAX_TAPS} taps)")
+    kernel, entry, out_dtype = route
     bias_ptr = None
     if bias is not None:
         cuda_lib.check_cuda_tensor("subm_conv bias", bias, torch.float32, 1)
         if bias.shape[0] != Cout:
             raise ValueError(f"subm_conv: bias {tuple(bias.shape)}")
-    bf16 = x.dtype == torch.bfloat16
-    # channels in the kernel's 16-byte pieces: 4 fp32, 8 bf16
-    unit = 8 if bf16 else 4
-    pin, pout = -Cin % unit, -Cout % unit
+    # channels in the kernel's 16-byte pieces: 4 fp32, 8 bf16 (Cin counts
+    # x's pieces, Cout the weight's)
+    pin = -Cin % (16 // x.element_size())
+    pout = -Cout % (16 // weight.element_size())
     x = _pad_channels(x, pin)
     weight = _pad_channels(weight, pout, pin)
     if bias is not None:
@@ -158,14 +188,12 @@ def _conv_forward(x, idx, ok, weight, bias):
         bias_ptr = bias.data_ptr()
     Cin, Cout = Cin + pin, Cout + pout
     splits = conv_tap_splits(B, N, K, Cout)
-    out = torch.empty((B, N, Cout), dtype=x.dtype, device=x.device)
+    out = torch.empty((B, N, Cout), dtype=out_dtype, device=x.device)
     # the tap ranges' fp32 partial sums, apart from the output so that the
     # activation does not keep them alive
     work = torch.empty(splits * out.numel(), dtype=torch.float32,
                        device=x.device) if splits > 1 else None
     x, weight = _aligned(x), _aligned(weight)
-    kernel, entry = ("subm_conv_bf16", "r3dl_subm_conv_bf16") if bf16 else \
-        ("subm_conv", "r3dl_subm_conv")
     cuda_lib.launch(kernel, entry, x.data_ptr(),
                     idx.data_ptr(), ok.data_ptr(), weight.data_ptr(),
                     bias_ptr, out.data_ptr(),
@@ -174,15 +202,16 @@ def _conv_forward(x, idx, ok, weight, bias):
     return out[..., :Cout - pout] if pout else out
 
 
-def weight_grad_plan(B, N, K, cin, cout):
+def weight_grad_plan(B, N, K, cin, cout, unit=4):
     """(splits, rows_per_split, work_bytes) of K7: the row ranges make
     (tiles x ranges) fill the card, at least WGRAD_MIN_ROWS rows each; the
     scratch holds the live lists of the CPE path (channel counts multiples
-    of 4: 2 K B N + K splits int32, rounded up to 16 bytes) and, with more
-    than one range, the partial dW (splits, K, Cin, Cout) fp32, as
-    csrc/conv_grad.cu lays them out."""
+    of `unit`, the channels of a 16-byte piece: 4 fp32, 8 bf16; 2 K B N +
+    K splits int32, rounded up to 16 bytes) and, with more than one range,
+    the partial dW (splits, K, Cin, Cout) fp32, as csrc/conv_grad.cu lays
+    them out."""
     rows = max(B * N, 1)
-    compacted = cin % 4 == 0 and cout % 4 == 0
+    compacted = cin % unit == 0 and cout % unit == 0
     otiles = -(-cout // WGRAD_TILE)
     tiles = (K * -(-cin // WGRAD_TILE) if compacted
              else -(-K * cin // WGRAD_TILE)) * otiles
@@ -198,27 +227,33 @@ def weight_grad_plan(B, N, K, cin, cout):
 
 def conv_weight_grad(x, idx, ok, g):
     """K7 for CUDA tensors, the plain version for CPU tensors. x (B, N,
-    Cin), idx/ok (B, N, K), g (B, N, Cout) -> dW (K, Cin, Cout) fp32."""
+    Cin), idx/ok (B, N, K), g (B, N, Cout), both fp32 or both bf16 -> dW
+    (K, Cin, Cout) fp32 sums (bf16 operands widened; csrc
+    r3dl_conv_weight_grad_bf16, counted as conv_weight_grad_bf16)."""
     if not x.is_cuda:
         return conv_weight_grad_plain(x, idx, ok, g)
     idx = idx.to(torch.int32).contiguous()
     K = idx.shape[-1]
-    _check_map("conv_weight_grad", x, idx, ok, K)
-    cuda_lib.check_cuda_tensor("conv_weight_grad g", g, torch.float32, 3)
+    _check_map("conv_weight_grad", x, idx, ok, K, (torch.float32, _BF16))
+    cuda_lib.check_cuda_tensor("conv_weight_grad g", g, x.dtype, 3)
     B, N, Cin = x.shape
     if tuple(g.shape[:2]) != (B, N):
         raise ValueError(f"conv_weight_grad: g{tuple(g.shape)} for "
                          f"x{tuple(x.shape)}")
     Cout = g.shape[-1]
-    pin = -Cin % 4 if Cin >= WGRAD_PAD_MIN_CIN and Cout % 4 == 0 else 0
+    unit = 16 // x.element_size()
+    pin = -Cin % unit if Cin >= WGRAD_PAD_MIN_CIN and Cout % unit == 0 \
+        else 0
     x = _pad_channels(x, pin)
     Cin += pin
-    splits, per, nbytes = weight_grad_plan(B, N, K, Cin, Cout)
+    splits, per, nbytes = weight_grad_plan(B, N, K, Cin, Cout, unit)
     dw = torch.empty((K, Cin, Cout), dtype=torch.float32, device=x.device)
     work = torch.empty(nbytes, dtype=torch.uint8, device=x.device) \
         if nbytes else None
     x, g = _aligned(x), _aligned(g)
-    cuda_lib.launch("conv_weight_grad", "r3dl_conv_weight_grad",
+    kernel, entry = ("conv_weight_grad_bf16", "r3dl_conv_weight_grad_bf16") \
+        if x.dtype == _BF16 else ("conv_weight_grad", "r3dl_conv_weight_grad")
+    cuda_lib.launch(kernel, entry,
                     x.data_ptr(), idx.data_ptr(), ok.data_ptr(), g.data_ptr(),
                     None if work is None else work.data_ptr(),
                     dw.data_ptr(), B, N, K, Cin, Cout, splits, per, nbytes)
@@ -228,13 +263,14 @@ def conv_weight_grad(x, idx, ok, g):
 def conv_input_grad(g, idx, ok, weight):
     """Exact dx of subm_conv for the cotangent g (B, N, Cout): K8 gathers
     each voxel's cotangents onto its owner, K2 runs the mirrored weight on
-    them, non-owner rows get 0 (see the module docstring)."""
+    them, non-owner rows get 0 (see the module docstring). A bf16 g: the
+    owner sums stay fp32 and the mirrored conv rounds dx to bf16 once."""
     B, N, _ = g.shape
     centre = idx.shape[-1] // 2
     owner, valid = idx[..., centre], ok[..., centre]
     gsum = scatter_rows_add(
         torch.where(valid[..., None], g, torch.zeros_like(g)).contiguous(),
-        owner, N)
+        owner, N, torch.float32)
     dx = _conv_forward(gsum, idx, ok, mirror_weight(weight), None)
     rows = torch.arange(N, device=g.device)[None]
     own = valid & (owner.long() == rows)
@@ -251,25 +287,25 @@ class _SubmConv(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, idx, ok, weight = ctx.saved_tensors
-        if x.dtype != torch.float32:
-            raise NotImplementedError(
-                f"subm_conv backward: the input gradient (mirrored K2) and "
-                f"the weight gradient (K7) take fp32 only, got {x.dtype}")
         g = g.contiguous()
         dx = dw = db = None
         if ctx.needs_input_grad[0]:
             dx = conv_input_grad(g, idx, ok, weight)
         if ctx.needs_input_grad[3]:
-            dw = conv_weight_grad(x, idx, ok, g)
+            dw = conv_weight_grad(x, idx, ok, g).to(weight.dtype)
         if ctx.has_bias and ctx.needs_input_grad[4]:
-            db = g.sum((0, 1))
+            db = g.float().sum((0, 1))
         return dx, None, None, dw, db
 
 
 def subm_conv(x, idx, ok, weight, bias=None):
     """The CUDA kernel for CUDA tensors, the plain version for CPU ones;
-    differentiable in x, weight and bias (see the module docstring)."""
+    differentiable in x, weight and bias (see the module docstring); x and
+    weight both fp32 or both bf16, the bias fp32."""
     if x.is_cuda:
         idx = idx.to(torch.int32).contiguous()
         x = x.contiguous()
+    if x.dtype != weight.dtype:
+        raise ValueError(f"subm_conv: x {x.dtype} with a {weight.dtype} "
+                         "weight")
     return _SubmConv.apply(x, idx, ok, weight, bias)

@@ -46,13 +46,17 @@ _CONV = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _P]
 _STEM = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _L,
          _P]
 # Entry points ending in _bf16 / 16 take bf16 (2-byte) activations and
-# weights: the forward kernels' paths under compute_dtype bfloat16.
+# weights (and cotangents): the kernels' paths under compute_dtype
+# bfloat16.
 SIGNATURES = {
     # x or g, idx, out, B, N, M, D, idx64 (int64 indices, else int32),
     # stream
     "r3dl_gather_rows": _GATHER,
     "r3dl_gather_rows16": _GATHER,
     "r3dl_scatter_rows_add": _GATHER,
+    # g (bf16), idx, sums (fp32), out (bf16) | NULL, B, N, M, D, idx64,
+    # stream
+    "r3dl_scatter_rows_add_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "r3dl_gather_smallc": _GATHER,
     "r3dl_gather_smallc16": _GATHER,
     # g, idx, dx, work|NULL, B, n, M, C, idx64, ranges, window, work_bytes,
@@ -66,32 +70,45 @@ SIGNATURES = {
     # inv_keep, stream
     "r3dl_attention_dropout_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                    _I, _F, _U, _U, _F, _P],
+    "r3dl_attention_dropout_fwd_bf16": [_P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                        _I, _I, _F, _U, _U, _F, _P],
     # q, k, v, key_valid, out, lse, bits, g, dq, dk, dv, G, H, P, Dh, scale,
     # inv_keep, stream
     "r3dl_attention_dropout_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                    _P, _I, _I, _I, _I, _F, _F, _P],
+    "r3dl_attention_dropout_bwd_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                        _P, _P, _I, _I, _I, _I, _F, _F, _P],
     # x, idx, ok, w, bias|NULL, out, work|NULL, B, N, K, Cin, Cout,
     # splits, work_bytes, stream
     "r3dl_subm_conv": _CONV,
     "r3dl_subm_conv_bf16": _CONV,
+    # the input gradient at bf16: x the fp32 owner sums, w the mirrored bf16
+    # weight, out bf16
+    "r3dl_subm_conv_dx_bf16": _CONV,
     # x, idx, ok, g, work|NULL, dw, B, N, K, Cin, Cout, splits,
     # rows_per_split, work_bytes, stream
     "r3dl_conv_weight_grad": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                               _I, _L, _L, _P],
+    "r3dl_conv_weight_grad_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                   _I, _I, _L, _L, _P],
     # x, idx, ok, w, out, work|NULL, B, N, K, Cin, Cout, cols, warps,
     # splits, blocks, work_bytes, stream
     "r3dl_stem_conv": _STEM,
     "r3dl_stem_conv_bf16": _STEM,
 }
 
-# K1-K10 by wrapper name; the bf16 paths of K1-K4 and K9 count apart
+# K1-K10 by wrapper name; the bf16 paths of K1-K9 count apart (K2's
+# input gradient at bf16 as subm_conv_dx_bf16)
 LAUNCHES = {"patch_attention": 0, "subm_conv": 0, "stem_conv": 0,
             "gather_rows": 0, "patch_attention_dropout": 0,
             "patch_attention_dropout_bwd": 0, "conv_weight_grad": 0,
             "scatter_rows_add": 0, "gather_rows_smallc": 0,
             "scatter_rows_smallc_add": 0, "patch_attention_bf16": 0,
             "subm_conv_bf16": 0, "stem_conv_bf16": 0, "gather_rows_bf16": 0,
-            "gather_rows_smallc_bf16": 0}
+            "gather_rows_smallc_bf16": 0, "subm_conv_dx_bf16": 0,
+            "patch_attention_dropout_bf16": 0,
+            "patch_attention_dropout_bwd_bf16": 0,
+            "conv_weight_grad_bf16": 0, "scatter_rows_add_bf16": 0}
 
 _LIB = None
 _FNS = {}       # C entry point name -> its ctypes function object, bound once

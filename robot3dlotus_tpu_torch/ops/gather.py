@@ -23,8 +23,14 @@ enumerate.
 K4 and K9 also take bf16 rows (the activations under compute_dtype
 bfloat16): a launch of their 2-byte entry points (csrc r3dl_gather_rows16,
 r3dl_gather_smallc16), counted as gather_rows_bf16 /
-gather_rows_smallc_bf16; a copy, so bit-equal to the plain version. K8 and
-K10 take fp32 only (bf16 training raises before it reaches them).
+gather_rows_smallc_bf16; a copy, so bit-equal to the plain version. K8
+takes a bf16 cotangent too (csrc r3dl_scatter_rows_add_bf16, counted as
+scatter_rows_add_bf16): the rows are widened and summed in fp32, and the
+sums are rounded to bf16 once (the rule of pallas_gather.py
+`_permute_op_bwd`: fp32 sum, one rounding to the input's dtype), or handed
+back in fp32 where the caller sums on (the conv's owner sum, ops/conv.py).
+K10 has no bf16 path: a bf16 cotangent that would reach it raises (no
+training step sends one: the stems gather data).
 
 Indices are int32 or int64 and reach the kernels as they are (no cast).
 A CUDA call that carries no gradient (grad mode off, or x not requiring
@@ -42,7 +48,8 @@ _ANY_WIDTH = 1 << 30
 _F32, _BF16 = torch.float32, torch.bfloat16
 _I32, _I64 = torch.int32, torch.int64
 _GATHER_DTYPES = (_F32, _BF16)     # what K4 and K9 take
-_SCATTER_DTYPES = (_F32,)          # what K8 and K10 take
+_SCATTER_DTYPES = (_F32, _BF16)    # what K8 takes
+_SMALLC_SCATTER_DTYPES = (_F32,)   # what K10 takes
 
 
 def gather_rows_plain(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -60,7 +67,7 @@ def scatter_rows_add_plain(g: torch.Tensor, idx: torch.Tensor,
                            n: int) -> torch.Tensor:
     """g (B, M, D), idx (B, M) any int -> (B, n, D) fp32 with
     out[b, idx[b, m]] += g[b, m] for idx in [0, n) (colliding indices
-    sum); other rows dropped."""
+    sum in fp32, a bf16 g widened); other rows dropped."""
     B, M, D = g.shape
     idx = idx.long()
     valid = (idx >= 0) & (idx < n)
@@ -111,19 +118,30 @@ _BF16_ROUTES = {"r3dl_gather_rows": ("gather_rows_bf16",
                                        "r3dl_gather_smallc16")}
 
 
-def _launch(kernel, c_name, max_width, x, idx, n=None):
+def _launch(kernel, c_name, max_width, x, idx, n=None, dtype=None):
     """One launch of K4 / K9 (n None: out (B, M, D) = x[b, idx], x fp32 or
-    bf16) or of K8 (x the fp32 cotangent (B, M, D): out (B, n, D)). It is
-    the whole host path of a call, so it stays flat: one check, one
-    allocation, one ctypes call."""
+    bf16) or of K8 (x the cotangent (B, M, D), fp32 or bf16: out (B, n, D)
+    of `dtype`, x's by default; a bf16 x may ask for the fp32 sums). It is
+    the whole host path of a call, so it stays flat: one check, one or two
+    allocations, one ctypes call."""
     dtypes = _GATHER_DTYPES if n is None else _SCATTER_DTYPES
     x, idx, B, N, D, M, idx64 = _checked(kernel, max_width, x, idx, dtypes)
     if n is None:
         out = x.new_empty(B, M, D)
         if x.dtype is _BF16:
             kernel, c_name = _BF16_ROUTES[c_name]
-    elif M != N:
+    elif M != N or (dtype or x.dtype) not in (x.dtype, _F32):
         raise _check_failed(kernel, x, idx, max_width, dtypes)
+    elif x.dtype is _BF16:
+        # fp32 sums (zeroed and added into by the kernel), rounded to bf16
+        # into `out` unless the caller takes the sums
+        sums = x.new_empty(B, n, D, dtype=_F32)
+        out = None if dtype is _F32 else x.new_empty(B, n, D)
+        cuda_lib.launch("scatter_rows_add_bf16", "r3dl_scatter_rows_add_bf16",
+                        x.data_ptr(), idx.data_ptr(), sums.data_ptr(),
+                        None if out is None else out.data_ptr(), B, n, M, D,
+                        idx64)
+        return sums if out is None else out
     else:
         out = x.new_empty(B, n, D)
         N = n
@@ -132,15 +150,17 @@ def _launch(kernel, c_name, max_width, x, idx, n=None):
     return out
 
 
-def scatter_rows_add(g: torch.Tensor, idx: torch.Tensor, n: int):
-    """K8, row scatter-add that drops rows whose index is outside [0, n):
-    the CUDA kernel (fp32 atomicAdd, so colliding rows sum in a
-    run-dependent order) for CUDA tensors, the plain version for CPU
-    tensors."""
+def scatter_rows_add(g: torch.Tensor, idx: torch.Tensor, n: int,
+                     dtype=None):
+    """K8, row scatter-add that drops rows whose index is outside [0, n),
+    g fp32 or bf16, summed in fp32 and returned in `dtype` (g's by
+    default; float32 for a bf16 g returns the sums unrounded): the CUDA
+    kernel (fp32 atomicAdd, so colliding rows sum in a run-dependent
+    order) for CUDA tensors, the plain version for CPU tensors."""
     if not g.is_cuda:
-        return scatter_rows_add_plain(g, idx, n)
+        return scatter_rows_add_plain(g, idx, n).to(dtype or g.dtype)
     return _launch("scatter_rows_add", "r3dl_scatter_rows_add", _ANY_WIDTH,
-                   g, idx, n)
+                   g, idx, n, dtype)
 
 
 # K10's plan constants (csrc/gather_smallc.cu)
@@ -196,7 +216,12 @@ def scatter_rows_smallc_add(g: torch.Tensor, idx: torch.Tensor, n: int):
     """K10: the CUDA kernel (private shared-memory copies of dx, no global
     atomics; sums agree with a fixed-order sum to rounding) for CUDA
     tensors, the plain version for CPU tensors; rows whose index is
-    outside [0, n) drop."""
+    outside [0, n) drop. g fp32 only: K10 has no bf16 path, and a bf16 g
+    raises on either device."""
+    if g.dtype is not _F32:
+        raise NotImplementedError(
+            f"scatter_rows_smallc_add: K10 (csrc/gather_smallc.cu) has no "
+            f"bf16 path; got a {g.dtype} cotangent")
     if not g.is_cuda:
         return scatter_rows_smallc_add_plain(g, idx, n)
     plan = scatter_smallc_plan(g.shape[0], g.shape[1], n, g.shape[-1])
@@ -209,10 +234,10 @@ def scatter_rows_smallc_add_split(g, idx, n, ranges, window):
     ranges > 1)."""
     g, idx, B, M, C, Mi, idx64 = _checked("scatter_rows_smallc_add",
                                           SMALLC_MAX, g, idx,
-                                          _SCATTER_DTYPES)
+                                          _SMALLC_SCATTER_DTYPES)
     if Mi != M:
         raise _check_failed("scatter_rows_smallc_add", g, idx, SMALLC_MAX,
-                            _SCATTER_DTYPES)
+                            _SMALLC_SCATTER_DTYPES)
     if not (ranges >= 1 and window >= 1 and
             (ranges == 1 or ranges <= -(-M // SMALLC_TILE_ROWS)) and
             scatter_smallc_smem(C, window) <= SMALLC_SMEM):
@@ -275,7 +300,11 @@ def gather_rows_smallc(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def permute_rows_any(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Width-aware row gather (pallas_gather.py `permute_rows_any`): K9 for
-    rows of at most 32 channels, K4 otherwise."""
-    if x.shape[-1] <= SMALLC_MAX:
+    rows of at most 32 channels, K4 otherwise. bf16 rows that carry a
+    gradient take K4 at any width: its backward K8 has a bf16 path, K9's
+    (K10) has none; the gather is a copy either way, and both backwards
+    sum in fp32 and round once."""
+    if x.shape[-1] <= SMALLC_MAX and not (
+            x.dtype is _BF16 and x.requires_grad and torch.is_grad_enabled()):
         return gather_rows_smallc(x, idx)
     return gather_rows(x, idx)

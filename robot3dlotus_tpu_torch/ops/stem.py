@@ -12,10 +12,13 @@ block per SM holding the whole weight; a B = 1 cloud's row groups are too
 few to fill the card, so its tap chunks are split into ranges that a
 second kernel adds in a fixed order (two launches for one count).
 
-bf16 (compute_dtype bfloat16, serving): x and W bf16, the taps summed in
-fp32 and the output rounded to bf16 once (csrc r3dl_stem_conv_bf16,
-counted as stem_conv_bf16; the tap ranges' partials stay fp32). The
-backward takes fp32 only.
+bf16 (compute_dtype bfloat16): x and W bf16, the taps summed in fp32 and
+the output rounded to bf16 once (csrc r3dl_stem_conv_bf16, counted as
+stem_conv_bf16; the tap ranges' partials stay fp32). The weight gradient
+at bf16 is K7's bf16 path (fp32 sums of the widened x and g, rounded to
+bf16 once); the input gradient would need K10 at bf16, which is not
+ported, so a bf16 call whose input requires a gradient raises in the
+backward (no training step has one: the policy's stem input is data).
 
 Backward: dW is K7 (ops/conv.py conv_weight_grad) at the stem's shape.
 The input gradient (stem_input_grad) takes the JAX package's two steps:
@@ -179,22 +182,23 @@ class _StemConv(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, idx, ok, weight = ctx.saved_tensors
-        if x.dtype != torch.float32:
+        if ctx.needs_input_grad[0] and x.dtype != torch.float32:
             raise NotImplementedError(
-                f"stem_conv backward: K7 and K10 take fp32 only, got "
+                f"stem_conv backward: the input gradient is K10 "
+                f"(csrc/gather_smallc.cu), which takes fp32 only; got "
                 f"{x.dtype}")
         g = g.contiguous()
         dx = stem_input_grad(g, idx, ok, weight, x.shape[1]) \
             if ctx.needs_input_grad[0] else None
-        dw = conv_weight_grad(x, idx, ok, g) \
+        dw = conv_weight_grad(x, idx, ok, g).to(weight.dtype) \
             if ctx.needs_input_grad[3] else None
         return dx, None, None, dw
 
 
 def stem_conv(x, idx, ok, weight):
     """The CUDA kernel for CUDA tensors, the plain version for CPU ones;
-    differentiable in the input (K10 after one matmul) and the weight
-    (K7)."""
+    differentiable in the input (K10 after one matmul; fp32 only) and the
+    weight (K7, fp32 or bf16)."""
     if x.is_cuda:
         idx = idx.to(torch.int32).contiguous()
     return _StemConv.apply(x, idx, ok, weight)

@@ -53,8 +53,7 @@ from .datasets.structure import (HostStructureCollate, attach_sample_orders,
 from .logging import MetricWriter, build_logger
 from .optim import build_optimizer
 from .preempt import install_preemption_handler, requeue_self
-from .trainer import (RunningMeter, Trainer, batch_to_device, make_val_step,
-                      refuse_bf16_training)
+from .trainer import RunningMeter, Trainer, batch_to_device, make_val_step
 
 LOGGER = logging.getLogger("robot3dlotus_tpu_torch.train")
 
@@ -125,9 +124,8 @@ def build_loader(config, spec: TaskSpec):
 def build_trainer(config, spec: TaskSpec, device="cuda"):
     """(trainer, batches, schedule): the model on `device` with seeded
     weights, the AdamW optimizer and an infinite iterator of host batches
-    (build_loader). A model config at compute_dtype bfloat16 raises
-    before anything is built."""
-    refuse_bf16_training(config.MODEL.ptv3_config.get("compute_dtype"))
+    (build_loader). At compute_dtype bfloat16 the backbone computes in
+    bf16; parameters, optimizer state and losses stay fp32."""
     device = resolve_device(device)
     seed = int(config.get("SEED", 2024))
     np.random.seed(seed)
@@ -202,8 +200,7 @@ def _validation(config, spec, trainer, device):
 def run_training(config, spec: TaskSpec, device="cuda"):
     """TRAIN.num_train_steps steps under the run control above; returns
     the trainer (its model in train or eval mode, as the last step or
-    validation left it). Raises at compute_dtype bfloat16."""
-    refuse_bf16_training(config.MODEL.ptv3_config.get("compute_dtype"))
+    validation left it)."""
     device = resolve_device(device)
     output_dir = config.get("output_dir") or f"experiments/{spec.name}"
     os.makedirs(output_dir, exist_ok=True)

@@ -7,31 +7,16 @@ shuffling drawn from the trainer's Randomness, reseeded from (seed, step)
 as the JAX step folds in state.step), the loss, the backward (every kernel
 on the path has a hand-written backward) and the AdamW update.
 
-Training runs in fp32 only: under ptv3_config compute_dtype 'bfloat16'
-the trainers refuse (refuse_bf16_training), since the backward kernels
-have no bf16 path yet; a fp32 checkpoint serves at bf16.
+At ptv3_config compute_dtype 'bfloat16' the step is the JAX package's
+bf16 training step: the master parameters, the AdamW moments and the
+losses stay fp32; the backbone casts the parameters to bf16 at each call
+and its activations and cotangents are bf16, with every backward kernel on
+the path (K2's input gradient, K5 / K6, K7, K8) taking its bf16 path; the
+casts' backward widens each parameter's gradient to fp32 before AdamW.
 """
 from __future__ import annotations
 
 import torch
-
-from ..models.layers import resolve_compute_dtype
-
-BF16_TRAINING_ERROR = (
-    "training at ptv3_config compute_dtype 'bfloat16' is not ported: the "
-    "backward kernels K2 dx (the mirrored conv, csrc/conv.cu), K5 / K6 "
-    "(csrc/attention_dropout.cu), K7 (csrc/conv_grad.cu), K8 "
-    "(csrc/gather.cu) and K10 (csrc/gather_smallc.cu) take fp32 only; "
-    "train at float32 (a float32 checkpoint serves at bfloat16)")
-
-
-def refuse_bf16_training(compute_dtype):
-    """Raises ValueError unless compute_dtype (a ptv3_config value or a
-    resolved torch dtype) computes in fp32."""
-    if compute_dtype is not None and (
-            isinstance(compute_dtype, torch.dtype) or
-            resolve_compute_dtype(compute_dtype) is not None):
-        raise ValueError(BF16_TRAINING_ERROR)
 
 
 class Trainer:
@@ -39,10 +24,7 @@ class Trainer:
         """loss_fn(preds, batch) -> dict with 'total'; optimizer: a
         train.optim.FlatAdamW over the model's parameters; rng: the
         models.layers.Randomness every step draws from. global_step counts
-        the steps taken (the JAX TrainState.step); a resume sets it. A
-        model computing in bf16 raises (refuse_bf16_training)."""
-        backbone = getattr(model, "ptv3_model", None)
-        refuse_bf16_training(getattr(backbone, "compute_dtype", None))
+        the steps taken (the JAX TrainState.step); a resume sets it."""
         self.model, self.loss_fn = model, loss_fn
         self.optimizer, self.rng = optimizer, rng
         self.global_step = 0

@@ -34,13 +34,12 @@ At a small size on the CPU, from numpy seeds:
     tolerance;
   * an fp32 model file served at bf16 through Actioner and
     MotionPlannerEngine (the state loaded with strict=True), the YAML key
-    and the CLI override, predict_batch against predict; training at bf16
-    raises in both families' trainers and entry points.
-The bf16 CUDA kernels against these plain versions: test_torch_port_gpu.py
+    and the CLI override, predict_batch against predict.
+Training at bf16: test_torch_port_bf16_train.py (the backward kernels'
+plain versions) and test_torch_port_bf16_train_step.py (whole steps). The
+bf16 CUDA kernels against these plain versions: test_torch_port_gpu.py
 and chip_smoke.py.
 """
-import os
-
 import numpy as np
 import pytest
 import torch
@@ -58,31 +57,23 @@ from robot3dlotus_tpu.ops import pallas_gather as jgather
 from robot3dlotus_tpu.ops.patching import build_pad_maps as jpad_maps
 from robot3dlotus_tpu.ops.sparse_conv import (
     build_neighbor_map as jneighbor_map, subm_conv_apply)
-from robot3dlotus_tpu_torch.configs import get_config
 from robot3dlotus_tpu_torch.convert import params_to_jax
 from robot3dlotus_tpu_torch.eval import robot_pipeline as pipe
 from robot3dlotus_tpu_torch.eval.actioner import Actioner
 from robot3dlotus_tpu_torch.eval.synthetic_obs import synthetic_observation
 from robot3dlotus_tpu_torch.models import layers as tl
 from robot3dlotus_tpu_torch.models.factory import build_model
-from robot3dlotus_tpu_torch.models.layers import Randomness
 from robot3dlotus_tpu_torch.models.motion_planner import decode_mp_actions
-from robot3dlotus_tpu_torch.models.simple_policy import (compute_loss,
-                                                         decode_actions,
+from robot3dlotus_tpu_torch.models.simple_policy import (decode_actions,
                                                          ptv3_kwargs)
 from robot3dlotus_tpu_torch.ops import attention, conv, gather, stem
 from robot3dlotus_tpu_torch.ops.bf16 import bf16_excess
 from robot3dlotus_tpu_torch.ops.patching import build_pad_maps
 from robot3dlotus_tpu_torch.ops.sparse_conv import (build_neighbor_map,
                                                     categorical_conv)
-from robot3dlotus_tpu_torch.train import (checkpoint as ckpt,
-                                          train_motion_planner,
-                                          train_simple_policy)
-from robot3dlotus_tpu_torch.train.optim import build_optimizer
-from robot3dlotus_tpu_torch.train.trainer import Trainer
+from robot3dlotus_tpu_torch.train import checkpoint as ckpt
 import test_torch_port_motion_planner as tmp_mp
-from test_torch_port_run_control import _run_config
-from test_torch_port_train_step import ACT, PTV3, TRAIN
+from test_torch_port_train_step import ACT, PTV3
 from test_torch_port_variants import (JAX_IMPL, carried, perturb_port,
                                       policy_batch)
 
@@ -576,34 +567,6 @@ def test_motion_planner_engine_serves_fp32_file_at_bf16(tmp_path):
                     obs_state_dict=synthetic_observation(
                         20, cameras=2, height=96, width=96), episode_id=0)
     assert out["action"].shape == (8,) and np.isfinite(out["action"]).all()
-
-
-def tmp_mp_config():
-    return os.path.join(os.path.dirname(train_motion_planner.__file__),
-                        os.pardir, "configs", "rlbench",
-                        "motion_planner_ptv3.yaml")
-
-
-def test_training_raises_at_bf16(tmp_path):
-    """The Trainer and both families' entry points refuse compute_dtype
-    bfloat16, naming the backward kernels without a bf16 path."""
-    cfg = {"model_class": "SimplePolicyPTV3CA",
-           "ptv3_config": dict(PTV3, compute_dtype="bfloat16"),
-           "action_config": ACT}
-    model = build_model(cfg, device="cpu")
-    opt, _ = build_optimizer(model, TRAIN)
-    with pytest.raises(ValueError, match="K7"):
-        Trainer(model, lambda p, b: compute_loss(p, b, ACT, {}), opt,
-                Randomness(0))
-    config = _run_config(tmp_path)
-    config.defrost()
-    config.merge_from_list(["MODEL.ptv3_config.compute_dtype", "bfloat16"])
-    with pytest.raises(ValueError, match="K2 dx"):
-        train_simple_policy.main(config, device="cpu")
-    config = get_config(tmp_mp_config(), [
-        "MODEL.ptv3_config.compute_dtype", "bfloat16"])
-    with pytest.raises(ValueError, match="K10"):
-        train_motion_planner.main(config, device="cpu")
 
 
 def test_ptv3_kwargs_accepts_compute_dtype_and_names_missing_options():

@@ -770,20 +770,24 @@ def test_prefetch_to_device_onto_the_card(dev):
 
 
 # ---------------------------------------------------------------- bf16 -----
-# The bf16 paths (compute_dtype bfloat16, serving): K1, K2 and K3 within the
+# The bf16 paths (compute_dtype bfloat16, serving and training): K1, K2
+# (forward and input gradient), K3, K5, K6 and K8's rounded sums within the
 # bar of ops/bf16.py (one bf16 ulp of the value, plus 1e-4 of the call's
-# scale for fp32 sums in another order; K1 plus one bf16 ulp of each
+# scale for fp32 sums in another order; K1 and K5 plus one bf16 ulp of each
 # probability's share, 2^-7 sum_j p_j |v_j|) of their plain versions on the
-# same bf16 inputs and bit-equal across two launches; K4 and K9 copy and
-# are bit-equal; a bf16 call that must carry a gradient raises.
+# same bf16 inputs, and K7's fp32 sums within 1e-4 of the plain version's
+# largest value; all but K8 (atomics) bit-equal across two launches; K4 and
+# K9 copy and are bit-equal; the stem's input gradient (K10) raises.
 
 BF16 = torch.bfloat16
 
 
-def _bf16_check(got, want, extra=None):
+def _bf16_check(got, want, extra=None, relative=False):
+    """Within the bar of ops/bf16.py; `relative` for gradients (the slack
+    of max|want| itself)."""
     torch.cuda.synchronize()
     assert got.dtype == want.dtype == BF16
-    assert bf16_excess(got, want, extra=extra) <= 0.0
+    assert bf16_excess(got, want, extra=extra, relative=relative) <= 0.0
 
 
 @pytest.mark.parametrize("Dh", [8, 16, 24, 32])
@@ -820,9 +824,51 @@ def test_bf16_k2_subm_conv(dev, B, C):
     args = (x, nm.idx, nm.ok, w, b)
     got = _twice(lambda: conv.subm_conv(*args), "subm_conv_bf16")
     _bf16_check(got, conv.subm_conv_plain(*args))
-    xr = x.clone().requires_grad_()
-    with pytest.raises(NotImplementedError):
-        conv.subm_conv(xr, nm.idx, nm.ok, w, b).sum().backward()
+    g = _randn(rng, dev, B, 512, C).to(BF16)
+    _bf16_conv_backward(x, nm.idx, nm.ok, w, b, g)
+
+
+def _bf16_dx_plain(g, idx, ok, w):
+    """The conv's input gradient at bf16 in plain PyTorch: the fp32 owner
+    sums (K8's plain version), the mirrored conv in fp32, one rounding."""
+    N, centre = g.shape[1], idx.shape[-1] // 2
+    owner, valid = idx[..., centre], ok[..., centre]
+    gsum = gather.scatter_rows_add_plain(
+        torch.where(valid[..., None], g, torch.zeros_like(g)), owner, N)
+    dx = conv.subm_conv_plain(gsum, idx, ok, conv.mirror_weight(w)).to(BF16)
+    own = valid & (owner.long() == torch.arange(N, device=g.device)[None])
+    return torch.where(own[..., None], dx, torch.zeros_like(dx)), gsum
+
+
+def _bf16_conv_backward(x, idx, ok, w, b, g):
+    """The bf16 conv's backward on the card: the mirrored K2 on the fp32
+    owner sums (bit-equal across launches) and the autograd dx within the
+    bf16 bar of the plain composition; K7's fp32 sums within 1e-4 of the
+    plain version's largest value, bit-equal across launches, and the
+    autograd dW its bf16 rounding; db the fp32 sum of g."""
+    want_dx, gsum = _bf16_dx_plain(g, idx, ok, w)
+    wm = conv.mirror_weight(w)
+    mirrored = _twice(lambda: conv._conv_forward(gsum, idx, ok, wm, None),
+                      "subm_conv_dx_bf16")
+    _bf16_check(mirrored, conv.subm_conv_plain(gsum, idx, ok, wm).to(BF16),
+                relative=True)
+    dw = _twice(lambda: conv.conv_weight_grad(x, idx, ok, g),
+                "conv_weight_grad_bf16")
+    assert dw.dtype == torch.float32
+    _check_rel(dw, conv.conv_weight_grad_plain(x, idx, ok, g))
+    xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+    br = None if b is None else b.clone().requires_grad_()
+    cuda_lib.reset_launches()
+    conv.subm_conv(xr, idx, ok, wr, br).backward(g)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in cuda_lib.LAUNCHES.items() if v} == {
+        "subm_conv_bf16": 1, "scatter_rows_add_bf16": 1,
+        "subm_conv_dx_bf16": 1, "conv_weight_grad_bf16": 1}
+    _bf16_check(xr.grad, want_dx, relative=True)
+    assert torch.equal(wr.grad, dw.to(BF16))
+    if b is not None:
+        assert br.grad.dtype == torch.float32
+        _check(br.grad, g.float().sum((0, 1)))
 
 
 @pytest.mark.parametrize("B", [1, 8])
@@ -839,6 +885,144 @@ def test_bf16_k2_wide_stem(dev, B):
     args = (x, nm.idx, nm.ok, w)
     got = _twice(lambda: conv.subm_conv(*args), "subm_conv_bf16")
     _bf16_check(got, conv.subm_conv_plain(*args))
+    _bf16_conv_backward(x, nm.idx, nm.ok, w, None,
+                        _randn(rng, dev, B, N, 64).to(BF16))
+
+
+@pytest.mark.parametrize("kind", ["cloud", "duplicates"])
+def test_bf16_k2_k7_edge_maps(dev, kind):
+    """A CPE conv at bf16 on a map with many duplicate voxels (the owner
+    sums add several cotangents) and on a cloud's."""
+    rng = np.random.RandomState(17 + len(kind))
+    nm = _conv_map(rng, dev, 2, 300, 4 if kind == "duplicates" else 12)
+    x = _randn(rng, dev, 2, 300, 128).to(BF16)
+    w = _randn(rng, dev, 27, 128, 128, scale=128 ** -0.5).to(BF16)
+    _bf16_conv_backward(x, nm.idx, nm.ok, w, _randn(rng, dev, 128),
+                        _randn(rng, dev, 2, 300, 128).to(BF16))
+
+
+@pytest.mark.parametrize("Dh", [8, 16, 24, 32])
+@pytest.mark.parametrize("P", [128, 37])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_bf16_k5_k6_attention_dropout(dev, rate, P, Dh):
+    """K5 at bf16: the bits bit-equal to the fp32 path's (philox_keep_mask),
+    out within the bf16 bar plus the dropped probabilities' allowance, lse
+    within 1e-4; K6 on K5's outputs within the bf16 bar of its plain
+    version; both bit-equal across two launches; the autograd path one K5
+    and one K6 launch."""
+    G, H, seed, scale = 6, 3, 987654321, Dh ** -0.5
+    q, k, v, kv, gout = (t.to(BF16) if t.is_floating_point() else t
+                         for t in _attn_dropout_inputs(dev, G, H, P, Dh))
+    run5 = lambda: attention.patch_attention_dropout_fwd(  # noqa: E731
+        q, k, v, kv, scale, rate, seed)
+    before = cuda_lib.LAUNCHES["patch_attention_dropout_bf16"]
+    (out, lse, bits), again = run5(), run5()
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES["patch_attention_dropout_bf16"] == before + 2
+    for a, b in zip((out, lse, bits), again):
+        assert torch.equal(a, b)
+    p_out, p_lse, p_bits = attention.patch_attention_dropout_fwd_plain(
+        q, k, v, kv, scale, rate, seed)
+    assert torch.equal(bits, p_bits)
+    keep = attention.philox_keep_mask(seed, G, H, P, rate, dev)
+    assert torch.equal(bits, attention.pack_keep_bits(keep))
+    assert lse.dtype == torch.float32
+    _check(lse[1:], p_lse[1:])
+    _bf16_check(out, p_out, attention.bf16_probability_allowance(
+        q, k, v, kv, scale, rate, keep))
+    got = _twice(lambda: torch.stack(attention.patch_attention_dropout_bwd(
+        q, k, v, kv, out, lse, bits, gout, scale, rate)),
+        "patch_attention_dropout_bwd_bf16")
+    want = attention.patch_attention_dropout_bwd_plain(
+        q, k, v, kv, out, lse, bits, gout, scale, rate)
+    for a, b in zip(got, want):
+        _bf16_check(a, b.to(BF16), relative=True)
+    qr, kr, vr = (t.clone().requires_grad_() for t in (q, k, v))
+    cuda_lib.reset_launches()
+    attention.patch_attention_dropout(qr, kr, vr, kv, scale, rate,
+                                      seed).backward(gout)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in cuda_lib.LAUNCHES.items() if v} == {
+        "patch_attention_dropout_bf16": 1,
+        "patch_attention_dropout_bwd_bf16": 1}
+    for a, b in zip((qr.grad, kr.grad, vr.grad), got):
+        assert torch.equal(a, b)
+
+
+def test_bf16_k5_rate0_matches_k1(dev):
+    """K5 at bf16 and rate 0 rounds where K1's bf16 path does: equal."""
+    g = torch.Generator().manual_seed(16)
+    q, k, v = (torch.randn(8, 4, 128, 32, generator=g).to(dev).to(BF16)
+               for _ in range(3))
+    kv = (torch.rand(8, 128, generator=g) > 0.3).to(dev)
+    assert torch.equal(
+        attention.patch_attention_dropout_fwd(q, k, v, kv, 0.2, 0.0, 7)[0],
+        attention.patch_attention(q, k, v, kv, 0.2))
+
+
+@pytest.mark.parametrize("K,cin,cout", [(27, 64, 64), (27, 256, 128),
+                                        (27, 768, 768), (125, 7, 64),
+                                        (125, 263, 64)])
+def test_bf16_k7_conv_weight_grad(dev, K, cin, cout):
+    """K7 at bf16 (fp32 sums of the widened x and g): the CPE path, the
+    policy stem's (tap, channel) path and the Concat stem's 263 channels
+    (padded to 264)."""
+    rng = np.random.RandomState(K + cin + cout)
+    B, N = (8, 4096) if cin == 7 else (2, 512)
+    gc = rng.randint(0, 24 if N == 512 else 40, (B, N, 3)).astype(np.int32)
+    nm = build_neighbor_map(torch.from_numpy(gc).to(dev),
+                            torch.ones(B, N, dtype=torch.bool, device=dev),
+                            round(K ** (1 / 3)), 6, extent=128)
+    x = _randn(rng, dev, B, N, cin).to(BF16)
+    g = _randn(rng, dev, B, N, cout).to(BF16)
+    args = (x, nm.idx, nm.ok, g)
+    got = _twice(lambda: conv.conv_weight_grad(*args),
+                 "conv_weight_grad_bf16")
+    assert got.dtype == torch.float32 and got.shape == (K, cin, cout)
+    _check_rel(got, conv.conv_weight_grad_plain(*args))
+
+
+def test_bf16_stem_weight_grad_and_input_grad_raises(dev):
+    """The policy stem at bf16: dW through K7's bf16 path (its rounding of
+    the fp32 sums); an input requiring a gradient raises, naming K10."""
+    rng = np.random.RandomState(21)
+    idx, ok = _stem_map(rng, dev, "release", 4, 4096)
+    x = _randn(rng, dev, 4, 4096, 7).to(BF16)
+    w = _randn(rng, dev, 125, 7, 64, scale=0.1).to(BF16)
+    g = _randn(rng, dev, 4, 4096, 64).to(BF16)
+    wr = w.clone().requires_grad_()
+    stem.stem_conv(x, idx, ok, wr).backward(g)
+    assert torch.equal(wr.grad, conv.conv_weight_grad(x, idx, ok, g).to(BF16))
+    xr = x.clone().requires_grad_()
+    with pytest.raises(NotImplementedError, match="K10"):
+        stem.stem_conv(xr, idx, ok, w).backward(g)
+
+
+@pytest.mark.parametrize("D", [7, 64, 768])
+def test_bf16_k8_scatter_rows_add(dev, D):
+    """K8 at bf16 with colliding indices and sentinel rows: the fp32 sums
+    within 1e-4 of the plain version's, the rounded sums within the bf16
+    bar of the plain sums rounded once; gather_rows' backward at bf16 one
+    K8 launch."""
+    rng = np.random.RandomState(90 + D)
+    g = _randn(rng, dev, 2, 1024, D).to(BF16)
+    idx = rng.randint(0, 40, (2, 1024))
+    idx[rng.rand(2, 1024) < 0.2] = 257
+    idx[:, :2] = -1
+    idx = torch.from_numpy(idx).to(dev)
+    want = gather.scatter_rows_add_plain(g, idx, 257)
+    sums = gather.scatter_rows_add(g, idx, 257, torch.float32)
+    assert sums.dtype == torch.float32
+    _check(sums, want)
+    got = gather.scatter_rows_add(g, idx, 257)
+    _bf16_check(got, want.to(BF16), relative=True)
+    x = _randn(rng, dev, 2, 257, D).to(BF16).requires_grad_()
+    cuda_lib.reset_launches()
+    gather.gather_rows(x, idx).backward(g)
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES["scatter_rows_add_bf16"] == 1
+    assert x.grad.dtype == BF16
+    _bf16_check(x.grad, want.to(BF16), relative=True)
 
 
 @pytest.mark.parametrize("kind", ["none", "release", "all"])
