@@ -6,7 +6,8 @@
 Phases, each of which raises on failure (exit code != 0, no result line):
   1. build   the hand-written kernels K1-K10 from robot3dlotus_tpu_torch/csrc
              (one nvcc per source, all started together) and load them;
-             ptxas's registers and spills of K1, K3, K5, K6 and K10 logged;
+             ptxas's registers and spills of K1, K2, K3, K5, K6 and K10
+             logged;
              the native voxelizer (robot3dlotus_tpu_torch/native, g++);
   2. capture one `Actioner.predict` at the release width (4096 points) and
              one `predict_batch` of 4 with recorders on the kernel call
@@ -141,8 +142,15 @@ Phases, each of which raises on failure (exit code != 0, no result line):
              its bound (bytes at 3.35 TB/s against flops at 989 TFLOP/s
              bf16, live links for K2 / K7) and the library call (SDPA
              forward / backward in bf16, index_add_ in bf16, the im2col
-             gather + matmul in bf16); TRAIN_STEPS steps with launches at
-             BF16_PER_STEP (the fp32 counters 0) and a profiler window
+             gather + matmul in bf16; K5's bound the larger of its bytes
+             and its Philox integer work, _philox_s); K5 / K6 also on a
+             ragged patch (a captured call's first 77 rows and keys at the
+             step's smallest head dim); K2's bf16 forward calls of the step
+             checked and timed as a row of their own (beside phase 9's fp32
+             forward device time), K5's and its device time from queued
+             events where the profiler recorded none; TRAIN_STEPS steps
+             with launches at BF16_PER_STEP (the fp32 counters 0) and a
+             profiler window
              (profile_train_bf16.txt) beside phase 8's numbers; the step
              check on BF16_CHECK_SLICES slices and the redrawn one, card vs
              the CPU port at bf16, the CPU following the card's max
@@ -597,7 +605,8 @@ DEVICE_GROUPS = [
 
 # K2 / K7: the kernel each wrapper call launches once, and the other
 # kernels of the same call (device_ms)
-K2_PROFILE = ("subm_conv_kernel", ("subm_conv_reduce",))
+K2_PROFILE = (("subm_conv_kernel", "subm_conv16_kernel"),
+              ("subm_conv_reduce",))
 K7_PROFILE = (("wgrad_tc_kernel", "wgrad_taps_kernel"),
               ("wgrad_compact", "sum_splits"))
 # K10: its main kernel and the ranges' in-order sum
@@ -4016,14 +4025,31 @@ def _timed_bf16(run, plain, library, nbytes, flops, name, also=()):
             "bound_ms": bound_ms, "bytes_s": t_b, "flops_s": t_f}
 
 
-def check_attention_train_bf16(call):
+# K5's Philox work: P^2 / 4 Philox4x32-10 calls per (g, h) at rate > 0, 10
+# rounds of two 32 x 32 -> 64-bit multiplies (four 32-bit results) and two
+# three-input XORs each, at the H100's 64 integer operations a clock on
+# each of 132 SMs at 1.98 GHz (the clock and SM count behind the data
+# sheet's 67 TFLOP/s fp32)
+PHILOX_OPS_PER_CALL = 60
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
+
+
+def _philox_s(G, H, P, rate):
+    """Seconds of K5's Philox work at the card's integer rate (0 at rate
+    0: the kernel draws no bits then)."""
+    calls = G * H * -(-P * P // 4) if rate > 0 else 0
+    return calls * PHILOX_OPS_PER_CALL / INT32_OPS_PER_S
+
+
+def check_attention_train_bf16(call, timed=True):
     """K5 and K6 at bf16 on one captured call: K5 (out, lse, bits)
     bit-equal across two launches, its bits bit-equal to philox_keep_mask,
     out within the bf16 bar plus one bf16 ulp of each dropped
     probability's share, lse within 1e-4; K6 on K5's outputs and the
     captured cotangent bit-equal across two launches and within the bf16
-    bar (the gradients' own scale) of its plain version; timed beside SDPA
-    forward (dropout_p) and backward in bf16."""
+    bar (the gradients' own scale) of its plain version; if `timed`,
+    timed beside SDPA forward (dropout_p) and backward in bf16, the bound
+    of K5 the larger of its bytes and its Philox work (_philox_s)."""
     (q, k, v, kv, scale, rate, seed), g = call
     G, H, P, Dh = q.shape
     shape = [G, H, P, Dh]
@@ -4060,6 +4086,9 @@ def check_attention_train_bf16(call):
     e6 = max(_bf16_err(a, b.to(torch.bfloat16), f"bf16 K6 d{n} {shape}")
              for a, b, n in zip(got6, plain6(), "qkv"))
     del got6
+    if not timed:
+        return ({"max_abs_err": e5, "lse_err": e_lse, "shape": shape},
+                {"max_abs_err": e6, "shape": shape})
     mask = kv[:, None, None, :]
     sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
         q, k, v, attn_mask=mask, dropout_p=rate, scale=scale)
@@ -4074,6 +4103,10 @@ def check_attention_train_bf16(call):
     r5 = dict(_timed_bf16(lambda: run5()[0], plain5, sdpa, 4 * qb + side,
                           2 * flops, "attn_drop_fwd"),
               max_abs_err=e5, lse_err=e_lse, shape=shape)
+    # the operations' time: the products' or the Philox work's, the larger
+    r5["philox_s"] = _philox_s(G, H, P, rate)
+    r5["flops_s"] = max(r5["flops_s"], r5["philox_s"])
+    r5["bound_ms"] = 1e3 * max(r5["bytes_s"], r5["flops_s"])
     r6 = dict(_timed_bf16(run6, plain6, sdpa_bwd, 8 * qb + side, 5 * flops,
                           "attn_drop_bwd"), max_abs_err=e6, shape=shape)
     return r5, r6
@@ -4160,6 +4193,39 @@ def check_conv_dx_bf16(call):
     return row, k8
 
 
+def check_conv_fwd_bf16(call):
+    """K2's bf16 forward on one captured training call (B = 32): bit-equal
+    across two launches, within the bf16 bar of its plain version, timed
+    (events, profiler) beside its bound and the im2col gather + matmul in
+    bf16. Returns the row and the call (for device_ms_queued)."""
+    (x, idx, ok, w, bias), _ = call
+    B, N, cin = x.shape
+    K, _, cout = w.shape
+    shape = [B, N, K, cin, cout]
+    run = lambda: conv.subm_conv(x, idx, ok, w, bias)  # noqa: E731
+    plain = lambda: conv.subm_conv_plain(x, idx, ok, w, bias)  # noqa
+    err = _bf16_err(_twice(run, f"bf16 K2 {shape}"), plain(),
+                    f"bf16 K2 {shape}", relative=False)
+    nbytes = 2 * (x.numel() + w.numel() + B * N * cout) + 4 * cout + \
+        5 * idx.numel()
+    return dict(_timed_bf16(run, plain, _im2col(x, idx, ok, w), nbytes,
+                            2 * cin * cout * int(ok.sum()), *K2_PROFILE),
+                max_abs_err=err, shape=shape, shares=link_shares(ok),
+                pairs=ok.numel()), run
+
+
+def _queued_fallback(row, runs, tag, name):
+    """A row whose profiler windows recorded nothing for some call takes
+    its device time from events with the launches queued."""
+    if row["device_ms"] is None:
+        row["device_ms"] = device_ms_queued(runs)
+        row["device_ms_from"] = "queued events"
+        log(f"[{tag}] {name}: device time from queued events "
+            f"{row['device_ms']}")
+    else:
+        row["device_ms_from"] = "profiler"
+
+
 def _bf16_rows(res, tag):
     rows = {}
     for name, rs in res.items():
@@ -4190,10 +4256,31 @@ def bf16_train_kernel_phase(captured, tag, expect):
                                  f"with a cotangent, expected "
                                  f"{expect[name]}")
     res = {k: [] for k in BF16_TRAIN_KERNELS}
+    runs5 = []
     for c in att:
         r5, r6 = check_attention_train_bf16(c)
         res["patch_attention_dropout_bf16"].append(r5)
         res["patch_attention_dropout_bwd_bf16"].append(r6)
+        (q, k, v, kv, scale, rate, seed), _ = c
+        runs5.append(lambda a=(q, k, v, kv, scale, rate, seed):
+                     attention.patch_attention_dropout_fwd(*a))
+    # K5 / K6 at a ragged patch (P = 77, a last 16-key block of 13) on the
+    # step's smallest head dim: a captured call's first 77 rows and keys
+    (q, k, v, kv, scale, rate, seed), g = min(att, key=lambda c: c[0][0]
+                                              .shape[-1])
+    ragged = ((*(t[:, :, :77].contiguous() for t in (q, k, v)),
+               kv[:, :77].contiguous(), scale, rate, seed),
+              g[:, :, :77].contiguous())
+    e5, e6 = check_attention_train_bf16(ragged, timed=False)
+    log(f"[{tag}] K5 / K6 at bf16 on a ragged patch {e5['shape']}: within "
+        f"their bars (max |kernel - plain| {e5['max_abs_err']:.3g} / "
+        f"{e6['max_abs_err']:.3g}), bits equal to philox_keep_mask")
+    del ragged
+    k2f, runs2 = [], []
+    for c in convs:
+        row, run = check_conv_fwd_bf16(c)
+        k2f.append(row)
+        runs2.append(run)
     res["conv_weight_grad_bf16"] = [check_weight_grad_bf16(c)
                                     for c in convs + stems]
     res["scatter_rows_add_bf16"] = [
@@ -4209,7 +4296,26 @@ def bf16_train_kernel_phase(captured, tag, expect):
         f"{len(convs)} calls; conv dx vs the exact fp32 adjoint rounded "
         f"once: max err "
         f"{max(r['dx_vs_exact_err'] for r in res['subm_conv_dx_bf16']):.3g}")
-    return _bf16_rows(res, tag), res
+    rows = _bf16_rows(res, tag)
+    _queued_fallback(rows["patch_attention_dropout_bf16"], runs5, tag,
+                     "patch_attention_dropout_bf16")
+    for r in k2f:
+        log(f"[{tag}] K2 bf16 forward per training step, call {r['shape']}: "
+            f"shares {r['shares']}; max_abs_err {r['max_abs_err']:.3g}; "
+            f"{r['ms']:.4f} ms (device {r['device_ms']}; plain "
+            f"{r['plain_ms']:.4f}, im2col {r['library_ms']:.4f}; bound "
+            f"{r['bound_ms']:.4f})")
+    fwd = dict(_row(k2f), calls=len(k2f), shares=_shares(k2f),
+               device_ms=_total(r["device_ms"] for r in k2f))
+    _queued_fallback(fwd, runs2, tag, "K2 bf16 forward")
+    log(f"[{tag}] K2 bf16 forward per training step: {len(k2f)} calls "
+        f"within the bf16 bar, {fwd['ms']:.4f} ms (device "
+        f"{fwd['device_ms']}; plain {fwd['plain_ms']:.4f}, im2col "
+        f"{fwd['library_ms']:.4f}, bound {fwd['bound_ms']:.4f} by "
+        f"{fwd['bound_by']})")
+    del runs5, runs2
+    res["subm_conv_bf16_forward"] = k2f
+    return rows, res, fwd
 
 
 def _side_by_side(tag, r32, r16, keys):
@@ -4336,7 +4442,7 @@ def bf16_train_phase(host, training32, observations, out_dir):
         f"{time.perf_counter() - t0:.2f} s; phase 7's host batches")
     captured = capture(lambda: trainer.step(batch_to_device(host[0], "cuda")),
                        TRAIN_SITES)
-    rows, calls = bf16_train_kernel_phase(
+    rows, calls, k2_forward = bf16_train_kernel_phase(
         captured, tag, {"attention": 9, "conv": 9, "stem": 1,
                         "scatter": BF16_PER_STEP["gather_rows_bf16"]})
     del captured
@@ -4370,9 +4476,10 @@ def bf16_train_phase(host, training32, observations, out_dir):
 
     entry = bf16_entry_phase(train_simple_policy, train_config,
                              BF16_PER_STEP, serve, "bf16-entry")
-    return {"kernels": rows, "calls": calls, "training": training16,
-            "launches": launches, "bf16_beside_fp32": side,
-            "step_check": step_check, "entry": entry}
+    return {"kernels": rows, "calls": calls, "k2_forward_step": k2_forward,
+            "training": training16, "launches": launches,
+            "bf16_beside_fp32": side, "step_check": step_check,
+            "entry": entry}
 
 
 def bf16_mp_train_phase(host, training32, mp_obs, out_dir):
@@ -4389,7 +4496,7 @@ def bf16_mp_train_phase(host, training32, mp_obs, out_dir):
         batches.close()
     captured = capture(lambda: trainer.step(batch_to_device(host[0], "cuda")),
                        TRAIN_SITES)
-    rows, calls = bf16_train_kernel_phase(
+    rows, calls, k2_forward = bf16_train_kernel_phase(
         captured, tag, {"attention": 9, "conv": 9, "stem": 0,
                         "scatter": BF16_MP_PER_STEP["gather_rows_bf16"]})
     del captured
@@ -4423,9 +4530,10 @@ def bf16_mp_train_phase(host, training32, mp_obs, out_dir):
 
     entry = bf16_entry_phase(train_motion_planner, mp_config,
                              BF16_MP_PER_STEP, serve, "bf16-mp-entry")
-    return {"kernels": rows, "calls": calls, "training": training16,
-            "launches": launches, "bf16_beside_fp32": side,
-            "step_check": step_check, "entry": entry}
+    return {"kernels": rows, "calls": calls, "k2_forward_step": k2_forward,
+            "training": training16, "launches": launches,
+            "bf16_beside_fp32": side, "step_check": step_check,
+            "entry": entry}
 
 
 # -------------------------------------------------- conditioning variants --
@@ -4717,13 +4825,16 @@ def run():
         f"built and loaded in {time.perf_counter() - t0:.2f} s")
     for name, use in sorted(ptxas_usage().items()):
         m = re.search(r"\d((?:patch_attention|stem_conv|attn_drop|"
-                      r"scatter_smallc)\w*?_kernel)(?:ILi(\d+)E(x)?)?",
-                      name)
+                      r"scatter_smallc|subm_conv)\w*?_kernel)"
+                      r"(?:ILi(\d+)E(x)?)?", name)
         if m:
+            kind = ' bf16' if 'bfloat16' in name else ''
+            if m.group(1) == "subm_conv16_kernel":   # bf16 W; x bf16 or fp32
+                kind = (" bf16" if re.search(r"ILi\d+E13__nv_bfloat16E",
+                                             name) else " fp32 x (dx)")
             log(f"[build] ptxas {m.group(1)}"
                 f"{'<' + m.group(2) + '>' if m.group(2) else ''}"
-                f"{' int64' if m.group(3) == 'x' else ''}"
-                f"{' bf16' if 'bfloat16' in name else ''}: {use}")
+                f"{' int64' if m.group(3) == 'x' else ''}{kind}: {use}")
 
     t0 = time.perf_counter()
     actioner = Actioner(CONFIG, cli_opts=CLI_OPTS, device="cuda", seed=0)
@@ -4892,6 +5003,19 @@ def run():
         rows[k]["mp_train_step"] = r
     rows["subm_conv_bf16"]["concat_stem_b1"] = \
         bf16["variants"]["concat"]["stem_forward_b1"]
+    for key, phase, fp32_calls in (
+            ("train_step", bf16_train, train_detail["calls"]["subm_conv"]),
+            ("mp_train_step", bf16_mp_train,
+             mp_detail["conv_step"]["subm_conv"])):
+        fwd = phase["k2_forward_step"]
+        fwd32 = _total(r["device_ms"] for r in fp32_calls[0::2])
+        fwd["fp32_forward_device_ms"] = fwd32
+        fwd["vs_fp32_forward_device"] = (
+            fwd["device_ms"] / fwd32 if fwd32 and fwd["device_ms"] else None)
+        log(f"[bf16] K2 bf16 forward per {key}: device {fwd['device_ms']} "
+            f"ms against the fp32 forward's {fwd32} in this run: "
+            f"{fwd['vs_fp32_forward_device']}")
+        rows["subm_conv_bf16"][key] = fwd
     rows["patch_attention"]["validation_b32"] = {
         k: v for k, v in ckpt["k1_b32"].items() if k != "calls"}
     rows["patch_attention"]["mp_validation_b32"] = {

@@ -27,12 +27,13 @@
 // atomics, the result bit-equal from launch to launch.
 //
 // bf16 (r3dl_patch_attention_bf16, under compute_dtype bfloat16): q, k,
-// v and out bf16, the JAX package's XLA semantics at that dtype
-// (attention_tile.cuh). The block widens its patch's k and v rows to fp32
-// as it stages them (16-byte loads of 8 values), so the tile and its
-// shared-memory layout are the fp32 path's; each product is one TF32 pass
-// instead of three. Half the bytes of the fp32 call, and a third of its
-// tensor-core work.
+// v and out bf16, the JAX package's XLA semantics at that dtype. The block
+// stages its patch's k and v rows as they are (bf16, 16-byte cp.async,
+// attention_tile.cuh stage_rows16: 20 KB at Dh = 32, P rounded up to 16
+// rows) and its warps run attend_rows16, the tile K5 runs at bf16: both
+// products on the bf16 tensor cores (mma.sync.m16n8k16 with ldmatrix
+// fragments), a quarter of the mma instructions of the fp32 tile and half
+// the bytes of the fp32 call.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -48,9 +49,14 @@ using r3dl::Layout;
 constexpr int kMaxWarps = kMaxP / 16;
 constexpr int kMaxThreads = 32 * kMaxWarps;
 
-template <int Dh>
+// k and v rows: fp32 at Layout's stride, P rounded up to 8; bf16 at
+// Layout16's, P rounded up to 16
+template <int Dh, typename T>
 size_t smem_bytes(int P) {
-  return 2 * (size_t)((P + 7) & ~7) * Layout<Dh>::S * sizeof(float);
+  if constexpr (std::is_same<T, float>::value)
+    return 2 * (size_t)((P + 7) & ~7) * Layout<Dh>::S * sizeof(float);
+  else
+    return 2 * (size_t)((P + 15) & ~15) * r3dl::Layout16<Dh>::S * sizeof(T);
 }
 
 template <int Dh, typename T>
@@ -60,19 +66,21 @@ patch_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const unsigned char* __restrict__ kv,
                        T* __restrict__ out, int H, int P, int splits,
                        float scale) {
-  constexpr int S = Layout<Dh>::S;
   extern __shared__ float4 smem4[];
-  float* sk = reinterpret_cast<float*>(smem4);
-  const int P8 = (P + 7) & ~7;
-  float* sv = sk + P8 * S;
   __shared__ unsigned char smask[kMaxP];
 
   const long long gh = blockIdx.x / splits;
   const int s = blockIdx.x % splits;
   const long long base = gh * P * Dh;
   const int tid = threadIdx.x, nthreads = blockDim.x;
-  // the patch's k and v rows; rows P..P8-1 zero-filled
+  // the patch's k and v rows; rows P..P8-1 (P16-1 at bf16) zero-filled
+  const int P8 = (P + 7) & ~7, P16 = (P + 15) & ~15;
+  float* sk = reinterpret_cast<float*>(smem4);
+  float* sv = sk + P8 * Layout<Dh>::S;
+  r3dl::bf16* sk16 = reinterpret_cast<r3dl::bf16*>(smem4);
+  r3dl::bf16* sv16 = sk16 + P16 * r3dl::Layout16<Dh>::S;
   if constexpr (std::is_same<T, float>::value) {
+    constexpr int S = Layout<Dh>::S;
     constexpr int Q = Dh / 4;              // 16-byte pieces of a row
     for (int i = tid; i < P8 * Q; i += nthreads) {
       const int r = i / Q, c = (i - r * Q) * 4;
@@ -81,33 +89,11 @@ patch_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       r3dl::cp_async16(sk + r * S + c, in ? k + off : k, in);
       r3dl::cp_async16(sv + r * S + c, in ? v + off : v, in);
     }
-    r3dl::cp_async_commit();
   } else {
-    constexpr int Q = Dh / 8;              // 16-byte pieces of a bf16 row
-    for (int i = tid; i < P8 * Q; i += nthreads) {
-      const int r = i / Q, c = (i - r * Q) * 8;
-      const long long off = base + (long long)r * Dh + c;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const T* src = h ? v : k;
-        float f[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-        if (r < P) {
-          const uint4 u = *reinterpret_cast<const uint4*>(src + off);
-          const __nv_bfloat162* p2 =
-              reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const float2 w = __bfloat1622float2(p2[j]);
-            f[2 * j] = w.x;
-            f[2 * j + 1] = w.y;
-          }
-        }
-        float4* d = reinterpret_cast<float4*>((h ? sv : sk) + r * S + c);
-        d[0] = make_float4(f[0], f[1], f[2], f[3]);
-        d[1] = make_float4(f[4], f[5], f[6], f[7]);
-      }
-    }
+    r3dl::stage_rows16<Dh>(sk16, k + base, P, P16, tid, nthreads);
+    r3dl::stage_rows16<Dh>(sv16, v + base, P, P16, tid, nthreads);
   }
+  r3dl::cp_async_commit();
   for (int j = tid; j < P; j += nthreads) smask[j] = kv[gh / H * P + j];
   // this lane's two q rows into L1 while k and v land
   const int row0 = (s * (nthreads >> 5) + (tid >> 5)) * 16;
@@ -115,12 +101,17 @@ patch_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int qc = min(8 * (lane & 3), Dh - 1);
   for (int r = row0 + (lane >> 2); r < min(P, row0 + 16); r += 8)
     asm volatile("prefetch.global.L1 [%0];" ::"l"(q + base + r * Dh + qc));
-  if constexpr (std::is_same<T, float>::value) r3dl::cp_async_wait<0>();
+  r3dl::cp_async_wait<0>();
   __syncthreads();
 
   if (row0 >= P) return;
-  r3dl::attend_rows<Dh, false, T>(q + base, out + base, nullptr, sk, sv,
-                                  smask, nullptr, 0, row0, P, scale, 1.f);
+  if constexpr (std::is_same<T, float>::value)
+    r3dl::attend_rows<Dh, false>(q + base, out + base, nullptr, sk, sv,
+                                 smask, nullptr, 0, row0, P, scale, 1.f);
+  else
+    r3dl::attend_rows16<Dh, false>(q + base, out + base, nullptr, sk16,
+                                   sv16, smask, nullptr, 0, row0, P, scale,
+                                   1.f);
 }
 
 template <int Dh, typename T>
@@ -128,10 +119,10 @@ int launch(const T* q, const T* k, const T* v, const unsigned char* kv,
            T* out, int G, int H, int P, int warps, int splits, float scale,
            cudaStream_t stream) {
   static const cudaError_t attr = r3dl::allow_smem(
-      patch_attention_kernel<Dh, T>, smem_bytes<Dh>(kMaxP));
+      patch_attention_kernel<Dh, T>, smem_bytes<Dh, T>(kMaxP));
   if (attr != cudaSuccess) return (int)attr;
   patch_attention_kernel<Dh, T><<<(unsigned)((long long)G * H * splits),
-                                  32 * warps, smem_bytes<Dh>(P), stream>>>(
+                                  32 * warps, smem_bytes<Dh, T>(P), stream>>>(
       q, k, v, kv, out, H, P, splits, scale);
   return (int)cudaGetLastError();
 }
@@ -143,7 +134,7 @@ int attention(const T* q, const T* k, const T* v, const unsigned char* kv,
   if (P < 1 || P > kMaxP || warps < 1 || warps > kMaxWarps || splits < 1 ||
       16 * warps * splits < P ||
       (long long)G * H * splits > 0x7fffffffLL ||
-      (((uintptr_t)k | (uintptr_t)v) & 15))
+      (((uintptr_t)k | (uintptr_t)v) & 15) || ((uintptr_t)q & 3))
     return (int)cudaErrorInvalidValue;
   if ((long long)G * H == 0) return (int)cudaGetLastError();
   switch (Dh) {
@@ -172,8 +163,8 @@ extern "C" int r3dl_patch_attention(const float* q, const float* k,
                           scale, stream);
 }
 
-// The same with bf16 q, k, v and out (k and v 16-byte aligned); scale is
-// a bf16 value.
+// The same with bf16 q, k, v and out (k and v 16-byte aligned, q and out
+// 4-byte); scale is a bf16 value.
 extern "C" int r3dl_patch_attention_bf16(const r3dl::bf16* q,
                                          const r3dl::bf16* k,
                                          const r3dl::bf16* v,

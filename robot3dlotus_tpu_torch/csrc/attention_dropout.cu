@@ -28,8 +28,11 @@
 // the backward's 10 P^2 Dh at 3 x that over 494.7 TFLOP/s, against the
 // bytes moved (q, k, v, out, lse, bits; the backward also g, dq, dk, dv);
 // at the release shapes the bytes bound both. K5 also does the Philox
-// integer work, P^2 / 4 generator calls of 10 rounds per (g, h).
-//
+// integer work, P^2 / 4 generator calls of 10 rounds per (g, h), each
+// round two 32 x 32 -> 64-bit multiplies (four 32-bit results) and two
+// three-input XORs: 60 integer operations a call, at 64 a clock on each
+// of the H100's 132 SMs (16.7 T/s at 1.98 GHz) a floor of its own that
+// exceeds K5's bytes at the release shapes (P = 128, rate > 0).
 // Design: one block of 8 warps owns one whole (g, h) patch (P <= 128), so
 // nothing crosses blocks and there are no atomics. Every product is
 // mma.sync.m16n8k8 TF32 with each fp32 operand split as x = big + small
@@ -57,15 +60,28 @@
 //
 // bf16 (r3dl_attention_dropout_fwd_bf16 / _bwd_bf16, training under
 // compute_dtype bfloat16): q, k, v, out, g, dq, dk, dv bf16; lse and the
-// bits as above. The kernels stage the rows widened to fp32 (the same
-// shared-memory layout) and keep the fp32 tiles' 3xTF32 products, exact
-// on the bf16 operands. K5 rounds where K1's bf16 path rounds (q * scale
-// to bf16, scale a bf16 value from the wrapper; the dropped probabilities
-// to bf16 before P v; the output once: attention_tile.cuh). K6 computes as
-// the Pallas body `_attn_drop_bwd_kernel` does, in fp32: p from the saved
-// lse and the bf16 q * scale, the unrounded probabilities in dv and ds,
-// D = g . out from K5's bf16 output, and dq, dk, dv each rounded to bf16
-// once.
+// bits as above.
+// K5 at bf16 (attn_drop_fwd16_kernel) runs on the bf16 tensor cores: the
+// block stages its patch's k and v as they are with 16-byte cp.async
+// (attention_tile.cuh stage_rows16, 22.5 KB of shared memory with the
+// bits at Dh = 32, against 38 KB of widened fp32 rows before), generates
+// the keep bits while they land (a whole word of 8 Philox calls unrolled
+// per thread where the 32 keys start on a generator call, so the calls'
+// chains interleave), and its warps run attend_rows16, the tile K1 runs
+// at bf16: S and P v as bf16 mma.sync.m16n8k16 with ldmatrix fragments,
+// exact bf16 products in fp32 sums, so the results are the widened
+// TF32 design's up to the order of summation. It rounds where
+// K1's bf16 path rounds (q * scale to bf16, scale a bf16 value from the
+// wrapper; the dropped probabilities to bf16 before P v; the output
+// once), so K5 at rate 0 is K1 bit for bit. The Philox work bounds it at
+// the release shapes; the tile's own work (S, softmax, P v) takes about as
+// long, and two blocks an SM, in different phases, overlap the two.
+// K6 at bf16 stages the rows widened to fp32 (the same shared-memory
+// layout) and keeps the fp32 kernel's 3xTF32 products, exact on the bf16
+// operands; it computes as the Pallas body `_attn_drop_bwd_kernel` does,
+// in fp32: p from the saved lse and the bf16 q * scale, the unrounded
+// probabilities in dv and ds, D = g . out from K5's bf16 output, and dq,
+// dk, dv each rounded to bf16 once.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -140,6 +156,29 @@ __device__ uint32_t keep_word(int i, int j0, int n, int P, uint32_t seed,
   return word;
 }
 
+// keep_word for the bf16 kernel: a whole word of 8 generator calls,
+// unrolled so that their chains interleave, where the 32 keys start on a
+// call (P a multiple of 4); else keep_word. (The fp32 kernel keeps
+// keep_word: it sits at the 128-register cap.)
+__device__ __forceinline__ uint32_t keep_word_fast(int i, int j0, int n,
+                                                   int P, uint32_t seed,
+                                                   uint32_t stream,
+                                                   uint32_t thresh) {
+  const long long e0 = (long long)i * P + j0;
+  if (n != 32 || (e0 & 3) || thresh == 0u)
+    return keep_word(i, j0, n, P, seed, stream, thresh);
+  uint32_t word = 0u;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const uint4 r = philox_at((e0 >> 2) + c, seed, stream);
+    word |= (uint32_t)(r.x >= thresh) << (4 * c) |
+            (uint32_t)(r.y >= thresh) << (4 * c + 1) |
+            (uint32_t)(r.z >= thresh) << (4 * c + 2) |
+            (uint32_t)(r.w >= thresh) << (4 * c + 3);
+  }
+  return word;
+}
+
 // rows [0, P8) of a (P, Dh) slice into shared memory at stride S, times
 // mul (bf16 rows: widened, and the product rounded to bf16, which leaves
 // them as they are at mul = 1); rows P..P8-1 zero (the ragged 8-row tile)
@@ -164,12 +203,12 @@ size_t fwd_smem() {
          (size_t)kMaxP * kMaxWords * sizeof(uint32_t);
 }
 
-template <int Dh, typename T>
+template <int Dh>
 __global__ void __launch_bounds__(kThreads, 2)
-attn_drop_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v,
+attn_drop_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
                      const unsigned char* __restrict__ kv,
-                     T* __restrict__ out, float* __restrict__ lse,
+                     float* __restrict__ out, float* __restrict__ lse,
                      uint32_t* __restrict__ bits, int H, int P, float scale,
                      uint32_t seed, uint32_t thresh, float inv_keep) {
   constexpr int S = Layout<Dh>::S;
@@ -184,8 +223,8 @@ attn_drop_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const long long gh = blockIdx.x;
   const long long base = gh * P * Dh;
   const int tid = threadIdx.x;
-  load_rows<Dh, T>(sk, S, k + base, P, P8, 1.f);
-  load_rows<Dh, T>(sv, S, v + base, P, P8, 1.f);
+  load_rows<Dh, float>(sk, S, k + base, P, P8, 1.f);
+  load_rows<Dh, float>(sv, S, v + base, P, P8, 1.f);
   if (tid < P) smask[tid] = kv[gh / H * P + tid];
   for (int w = tid; w < P * W; w += kThreads) {
     const int i = w / W, j0 = (w - i * W) * 32;
@@ -198,9 +237,63 @@ attn_drop_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int warp = tid >> 5;
   if (warp * 16 >= P) return;
-  r3dl::attend_rows<Dh, true, T>(q + base, out + base, lse + gh * P, sk, sv,
-                                 smask, sbits, W, warp * 16, P, scale,
-                                 inv_keep);
+  r3dl::attend_rows<Dh, true>(q + base, out + base, lse + gh * P, sk, sv,
+                              smask, sbits, W, warp * 16, P, scale,
+                              inv_keep);
+}
+
+// K5 at bf16 (the header): k and v rows at Layout16's stride, rows
+// P..P16-1 zero, then the keep bits
+template <int Dh>
+size_t fwd16_smem() {
+  return 2 * (size_t)kMaxP * r3dl::Layout16<Dh>::S * sizeof(r3dl::bf16) +
+         (size_t)kMaxP * kMaxWords * sizeof(uint32_t);
+}
+
+template <int Dh>
+__global__ void __launch_bounds__(kThreads, 2)
+attn_drop_fwd16_kernel(const r3dl::bf16* __restrict__ q,
+                       const r3dl::bf16* __restrict__ k,
+                       const r3dl::bf16* __restrict__ v,
+                       const unsigned char* __restrict__ kv,
+                       r3dl::bf16* __restrict__ out, float* __restrict__ lse,
+                       uint32_t* __restrict__ bits, int H, int P,
+                       float scale, uint32_t seed, uint32_t thresh,
+                       float inv_keep) {
+  constexpr int S = r3dl::Layout16<Dh>::S;
+  extern __shared__ float4 smem4[];
+  r3dl::bf16* sk = reinterpret_cast<r3dl::bf16*>(smem4);
+  r3dl::bf16* sv = sk + kMaxP * S;
+  uint32_t* sbits = reinterpret_cast<uint32_t*>(sv + kMaxP * S);
+  __shared__ unsigned char smask[kMaxP];
+
+  const int W = (P + 31) >> 5;
+  const int P16 = (P + 15) & ~15;
+  const long long gh = blockIdx.x;
+  const long long base = gh * P * Dh;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  r3dl::stage_rows16<Dh>(sk, k + base, P, P16, tid, kThreads);
+  r3dl::stage_rows16<Dh>(sv, v + base, P, P16, tid, kThreads);
+  r3dl::cp_async_commit();
+  if (tid < P) smask[tid] = kv[gh / H * P + tid];
+  // this lane's two q rows into L1, and the keep bits, while k and v land
+  const int qc = min(8 * (lane & 3), Dh - 1);
+  for (int r = warp * 16 + (lane >> 2); r < min(P, warp * 16 + 16); r += 8)
+    asm volatile("prefetch.global.L1 [%0];" ::"l"(q + base + r * Dh + qc));
+  for (int w = tid; w < P * W; w += kThreads) {
+    const int i = w / W, j0 = (w - i * W) * 32;
+    const uint32_t word = keep_word_fast(i, j0, min(32, P - j0), P, seed,
+                                         (uint32_t)gh, thresh);
+    sbits[w] = word;
+    bits[gh * P * W + w] = word;
+  }
+  r3dl::cp_async_wait<0>();
+  __syncthreads();
+
+  if (warp * 16 >= P) return;
+  r3dl::attend_rows16<Dh, true>(q + base, out + base, lse + gh * P, sk, sv,
+                                smask, sbits, W, warp * 16, P, scale,
+                                inv_keep);
 }
 
 template <int Dh>
@@ -416,12 +509,20 @@ int launch_fwd(const T* q, const T* k, const T* v, const unsigned char* kv,
                T* out, float* lse, uint32_t* bits, int G, int H, int P,
                float scale, uint32_t seed, uint32_t thresh, float inv_keep,
                cudaStream_t stream) {
-  static const cudaError_t attr =
-      r3dl::allow_smem(attn_drop_fwd_kernel<Dh, T>, fwd_smem<Dh>());
-  if (attr != cudaSuccess) return (int)attr;
-  attn_drop_fwd_kernel<Dh, T><<<(unsigned)((long long)G * H), kThreads,
-                                fwd_smem<Dh>(), stream>>>(
-      q, k, v, kv, out, lse, bits, H, P, scale, seed, thresh, inv_keep);
+  const unsigned grid = (unsigned)((long long)G * H);
+  if constexpr (std::is_same<T, float>::value) {
+    static const cudaError_t attr =
+        r3dl::allow_smem(attn_drop_fwd_kernel<Dh>, fwd_smem<Dh>());
+    if (attr != cudaSuccess) return (int)attr;
+    attn_drop_fwd_kernel<Dh><<<grid, kThreads, fwd_smem<Dh>(), stream>>>(
+        q, k, v, kv, out, lse, bits, H, P, scale, seed, thresh, inv_keep);
+  } else {
+    static const cudaError_t attr =
+        r3dl::allow_smem(attn_drop_fwd16_kernel<Dh>, fwd16_smem<Dh>());
+    if (attr != cudaSuccess) return (int)attr;
+    attn_drop_fwd16_kernel<Dh><<<grid, kThreads, fwd16_smem<Dh>(), stream>>>(
+        q, k, v, kv, out, lse, bits, H, P, scale, seed, thresh, inv_keep);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -443,7 +544,12 @@ template <typename T>
 int fwd(const T* q, const T* k, const T* v, const unsigned char* kv, T* out,
         float* lse, unsigned* bits, int G, int H, int P, int Dh, float scale,
         unsigned seed, unsigned thresh, float inv_keep, cudaStream_t stream) {
-  if (P < 1 || P > kMaxP) return (int)cudaErrorInvalidValue;
+  // the bf16 kernel: k, v staged 16 bytes at a time, q and out in pairs
+  if (P < 1 || P > kMaxP ||
+      (!std::is_same<T, float>::value &&
+       ((((uintptr_t)k | (uintptr_t)v) & 15) ||
+        (((uintptr_t)q | (uintptr_t)out) & 3))))
+    return (int)cudaErrorInvalidValue;
   if ((long long)G * H == 0) return (int)cudaGetLastError();
   switch (Dh) {
     case 8: return launch_fwd<8, T>(q, k, v, kv, out, lse, bits, G, H, P,
@@ -502,7 +608,8 @@ extern "C" int r3dl_attention_dropout_bwd(
 }
 
 // The same with bf16 q, k, v, out (and g, dq, dk, dv); lse and bits as
-// above; scale a bf16 value.
+// above; scale a bf16 value; the forward takes k and v 16-byte aligned, q
+// and out 4-byte.
 extern "C" int r3dl_attention_dropout_fwd_bf16(
     const r3dl::bf16* q, const r3dl::bf16* k, const r3dl::bf16* v,
     const unsigned char* kv, r3dl::bf16* out, float* lse, unsigned* bits,

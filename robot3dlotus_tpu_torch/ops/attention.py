@@ -39,8 +39,12 @@ probabilities in dv and ds, D = g . out from K5's bf16 output, and dq, dk
 and dv each rounded to bf16 once.
 
 The CUDA kernels are csrc/attention.cu (K1) and csrc/attention_dropout.cu
-(K5, K6); K1 and K5 run one forward tile (csrc/attention_tile.cuh), and
-K1 splits each patch's query rows over blocks by attention_query_split.
+(K5, K6); K1 and K5 run one forward tile per dtype (csrc/
+attention_tile.cuh: 3xTF32 at fp32, bf16 mma.sync at bf16, so K5 at rate
+0 is K1 bit for bit), and K1 splits each patch's query rows over blocks
+by attention_query_split. At bf16 both stage k and v 16 bytes at a time
+and read q in bf16 pairs: the wrappers hand them 16-byte aligned tensors
+(a copy of an unaligned view).
 The plain versions are the path for CPU tensors and the kernels' oracles;
 patch_attention_dropout_plain and patch_attention_dropout_vjp_plain take
 the keep mask as a (G, H, P, P) bool tensor.
@@ -305,6 +309,7 @@ def patch_attention_split(q, k, v, key_valid, scale, warps, splits):
     out = torch.empty_like(q)
     k, v = _aligned(k), _aligned(v)
     if q.dtype == torch.bfloat16:
+        q = _aligned(q)
         kernel, entry, scale = ("patch_attention_bf16",
                                 "r3dl_patch_attention_bf16",
                                 bf16_value(scale))
@@ -341,6 +346,8 @@ def patch_attention_dropout_fwd(q, k, v, key_valid, scale, rate, seed):
                                                  rate, seed)
     G, H, P, Dh = _check_attention("patch_attention_dropout", q, k, v,
                                    key_valid)
+    if q.dtype == torch.bfloat16:
+        q, k, v = (_aligned(t) for t in (q, k, v))
     out = torch.empty_like(q)
     lse = q.new_empty((G, H, P), dtype=torch.float32)
     bits = torch.empty((G, H, P, (P + 31) // 32), dtype=torch.int32,

@@ -8,9 +8,9 @@ out[b, n] = sum_k ok[b, n, k] * W[k]^T x[b, idx[b, n, k]] + bias, with W
 (K, Cin, Cout) in stencil_offsets order. The CUDA kernels are csrc/conv.cu
 (K2) and csrc/conv_grad.cu (K7); both read the map directly: no
 WindowMap, no halo, no far lists, and multiply only the live links, on the
-tensor cores as 3xTF32 (the sources say how). subm_conv_plain and
-conv_weight_grad_plain are the same functions in PyTorch, the path for CPU
-tensors and the kernels' oracles. A CUDA call of either wrapper is one
+tensor cores: 3xTF32 at fp32, bf16 mma.sync at bf16 (the sources say
+how). subm_conv_plain and conv_weight_grad_plain are the same functions
+in PyTorch, the path for CPU tensors and the kernels' oracles. A CUDA call of either wrapper is one
 launch count and one ctypes call, which launches one to three kernels: K2
 adds a fixed-order reduction of its tap ranges when B N is too small to
 fill the card (conv_tap_splits), K7 a compaction of each tap's live rows
@@ -32,8 +32,9 @@ sums in fp32, the bias is added in fp32 and the result is rounded to bf16
 once, as the JAX XLA conv does (ops/sparse_conv.py subm_conv_apply): csrc
 r3dl_subm_conv_bf16, counted as subm_conv_bf16, and subm_conv_plain in
 PyTorch. The tap ranges' partials stay fp32. The kernel reads 16 bytes (8
-bf16 channels) at a time, so bf16 channel counts are padded to multiples
-of 8 (the CPE's 64..768 are; the Concat stem's 263 becomes 264). The
+bf16 channels) at a time and zero-fills a stage's channels past the edge,
+so bf16 channel counts are padded to multiples of 8 (the CPE's 64..768
+are; the Concat stem's 263 becomes 264; conv_channel_padding). The
 backward at bf16 follows the Pallas VJP (pallas_conv.py
 `_windowed_op_bwd`): the bf16 cotangent widened, dx the mirrored conv
 summed in fp32 and rounded to bf16 once, dW each tap's fp32 sum rounded
@@ -135,6 +136,15 @@ def _pad_channels(t, last=0, second=0):
     return F.pad(t, (0, last, 0, second)) if last or second else t
 
 
+def conv_channel_padding(cin, cout, x_bytes, w_bytes):
+    """(pin, pout): the zero channels K2's wrapper appends to x's Cin and
+    the weight's Cout, so that each is a whole number of the kernel's
+    16-byte pieces (x_bytes, w_bytes: the element sizes; Cin counts x's
+    pieces, Cout the weight's). Exact: zero inputs meet zero weight rows,
+    and the padded outputs are dropped."""
+    return -cin % (16 // x_bytes), -cout % (16 // w_bytes)
+
+
 def conv_tap_splits(B, N, K, cout):
     """K2's tap ranges per (row tile, channel tile, cloud): one when those
     tiles fill the card, else enough (at most K) that two blocks sit on
@@ -177,10 +187,8 @@ def _conv_forward(x, idx, ok, weight, bias):
         cuda_lib.check_cuda_tensor("subm_conv bias", bias, torch.float32, 1)
         if bias.shape[0] != Cout:
             raise ValueError(f"subm_conv: bias {tuple(bias.shape)}")
-    # channels in the kernel's 16-byte pieces: 4 fp32, 8 bf16 (Cin counts
-    # x's pieces, Cout the weight's)
-    pin = -Cin % (16 // x.element_size())
-    pout = -Cout % (16 // weight.element_size())
+    pin, pout = conv_channel_padding(Cin, Cout, x.element_size(),
+                                     weight.element_size())
     x = _pad_channels(x, pin)
     weight = _pad_channels(weight, pout, pin)
     if bias is not None:

@@ -889,6 +889,31 @@ def test_bf16_k2_wide_stem(dev, B):
                         _randn(rng, dev, B, N, 64).to(BF16))
 
 
+@pytest.mark.parametrize("K,cin,cout", [(27, 8, 64), (27, 64, 64),
+                                        (27, 263, 128), (125, 8, 64),
+                                        (125, 64, 64), (125, 263, 64)])
+def test_bf16_k2_tensor_core_shapes(dev, K, cin, cout):
+    """K2's bf16 kernel at both tap counts over input widths of one
+    16-channel step, one stage and several (263 padded to 264, its last
+    stage ragged), on a dense map whose centre tap lists every row (two
+    64-row chunks a tap): forward, mirrored dx and the backward within
+    their bars, bit-equal across launches."""
+    rng = np.random.RandomState(K + cin + cout)
+    B, N = 2, 512
+    gc = rng.randint(0, 10, (B, N, 3)).astype(np.int32)
+    nm = build_neighbor_map(torch.from_numpy(gc).to(dev),
+                            torch.ones(B, N, dtype=torch.bool, device=dev),
+                            round(K ** (1 / 3)), 6, extent=128)
+    x = _randn(rng, dev, B, N, cin).to(BF16)
+    w = _randn(rng, dev, K, cin, cout, scale=(K * cin) ** -0.5).to(BF16)
+    b = _randn(rng, dev, cout)
+    args = (x, nm.idx, nm.ok, w, b)
+    got = _twice(lambda: conv.subm_conv(*args), "subm_conv_bf16")
+    _bf16_check(got, conv.subm_conv_plain(*args))
+    _bf16_conv_backward(x, nm.idx, nm.ok, w, b,
+                        _randn(rng, dev, B, N, cout).to(BF16))
+
+
 @pytest.mark.parametrize("kind", ["cloud", "duplicates"])
 def test_bf16_k2_k7_edge_maps(dev, kind):
     """A CPE conv at bf16 on a map with many duplicate voxels (the owner
@@ -902,7 +927,7 @@ def test_bf16_k2_k7_edge_maps(dev, kind):
 
 
 @pytest.mark.parametrize("Dh", [8, 16, 24, 32])
-@pytest.mark.parametrize("P", [128, 37])
+@pytest.mark.parametrize("P", [128, 77, 37])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_bf16_k5_k6_attention_dropout(dev, rate, P, Dh):
     """K5 at bf16: the bits bit-equal to the fp32 path's (philox_keep_mask),
