@@ -6,8 +6,8 @@
 Phases, each of which raises on failure (exit code != 0, no result line):
   1. build   the hand-written kernels K1-K10 from robot3dlotus_tpu_torch/csrc
              (one nvcc per source, all started together) and load them;
-             ptxas's registers and spills of K1, K2, K3, K5, K6 and K10
-             logged;
+             ptxas's registers and spills of K1, K2, K3, K5, K6, K7 and
+             K10 logged;
              the native voxelizer (robot3dlotus_tpu_torch/native, g++);
   2. capture one `Actioner.predict` at the release width (4096 points) and
              one `predict_batch` of 4 with recorders on the kernel call
@@ -116,7 +116,15 @@ Phases, each of which raises on failure (exit code != 0, no result line):
              against the CPU run (autograd of stem_conv_plain) within
              1e-4 * max|ref|; K10 on the call's operands (C = 7) against
              its plain version, timed (events, profiler) beside its bound,
-             index_add_ and scatter_add_;
+             index_add_ and scatter_add_; then the same call at bf16 (x, W
+             and the cotangent rounded to bf16): one K3, one K7 and one
+             K10 bf16 launch, dx and dW against the CPU port at bf16 (the
+             bar of ops/bf16.py at the gradients' scale, dx plus one bf16
+             ulp of the largest G row it adds: the two devices' fp32 sums
+             may round a G element to neighbouring bf16 values), K10 bf16
+             on the call's bf16 operands against its plain version
+             (fp32 sums rounded once), timed beside its bound and
+             index_add_ in bf16;
  11. step-check one step at dropout 0 on each of CHECK_SLICES B = 2
              slices of the same batch with its order_perm (host
              structure), then on slice 0 without it and with injected
@@ -249,6 +257,13 @@ seeded weights) behind the ground-truth pipeline (robot_pipeline_gt.yaml):
              gradients: launch counters to 0, forward and backward,
              counters read (one K9, one K10 at C = 5), peak memory; the
              three gradients against the CPU run within 1e-4 * max|ref|;
+             then at bf16 (bf16-mp-stem-vjp): one K9 and one K10 bf16
+             launch, dfeat and dW against the CPU port at bf16 within the
+             bar of ops/bf16.py (dfeat plus one bf16 ulp of the largest
+             row cotangent it adds), the table's gradient (a bf16 product
+             over 16.4M rows) within 2^-6 of its scale, K10 bf16 on a
+             seeded cotangent at the stem's index against its plain
+             version, timed;
  19. mp-step-check  phase 11 for the motion planner, on MP_CHECK_SLICES
              slices;
  19a. bf16-mp-train  phase 11a for the motion planner on phase 17's host
@@ -355,7 +370,7 @@ from robot3dlotus_tpu_torch.models.simple_policy import (compute_loss,
 from robot3dlotus_tpu_torch import native
 from robot3dlotus_tpu_torch.ops import (attention, conv, cuda_lib, gather,
                                         patching, pooling, sparse_conv, stem)
-from robot3dlotus_tpu_torch.ops.bf16 import bf16_excess
+from robot3dlotus_tpu_torch.ops.bf16 import bf16_excess, bf16_ulp
 from robot3dlotus_tpu_torch.train import checkpoint as ckpt_mod, driver
 from robot3dlotus_tpu_torch.train.checkpoint import load_any_model_ckpt
 from robot3dlotus_tpu_torch.train.datasets.loader import (KeystepBatchLoader,
@@ -436,6 +451,10 @@ KERNELS = {
                               "robot3dlotus_tpu/ops/pallas_conv.py:569"),
     "scatter_rows_add_bf16": ("robot3dlotus_tpu_torch/csrc/gather.cu",
                               "robot3dlotus_tpu/ops/pallas_gather.py:160"),
+    # K10's bf16 path: the stems' input gradients at bf16
+    "scatter_rows_smallc_add_bf16": (
+        "robot3dlotus_tpu_torch/csrc/gather_smallc.cu",
+        "robot3dlotus_tpu/ops/pallas_gather.py:272"),
 }
 # the trainer of the release YAML on the learnable synthetic store
 # (scripts/e2e_learning_proof.py makes the same overrides)
@@ -607,8 +626,10 @@ DEVICE_GROUPS = [
 # kernels of the same call (device_ms)
 K2_PROFILE = (("subm_conv_kernel", "subm_conv16_kernel"),
               ("subm_conv_reduce",))
-K7_PROFILE = (("wgrad_tc_kernel", "wgrad_taps_kernel"),
+K7_PROFILE = (("wgrad_tc_kernel", "wgrad_taps_kernel", "wgrad_taps16_kernel"),
               ("wgrad_compact", "sum_splits"))
+# torch.gather's kernel (the K4 / K9 yardstick's device time)
+TORCH_GATHER_PROFILE = ("scatter_gather", "vectorized_gather")
 # K10: its main kernel and the ranges' in-order sum
 K10_PROFILE = ("scatter_smallc_kernel", ("scatter_smallc_sum_kernel",))
 
@@ -840,11 +861,16 @@ def check_gather(kernel, args, timing=None):
         return out
     bound_ms, t_b, t_f = _bound(x.element_size() * (x.numel() + got.numel())
                                 + idx.numel() * idx.element_size(), 0)
-    return {**out, "ms": cuda_ms(run, **timing),
-            "device_ms": device_ms(run, name),
-            "plain_ms": cuda_ms(plain, **timing),
-            "library_ms": cuda_ms(_padded_gather(x, idx), **timing),
-            "bound_ms": bound_ms, "bytes_s": t_b, "flops_s": t_f}
+    library = _padded_gather(x, idx)
+    out = {**out, "ms": cuda_ms(run, **timing),
+           "device_ms": device_ms(run, name),
+           "plain_ms": cuda_ms(plain, **timing),
+           "library_ms": cuda_ms(library, **timing),
+           "bound_ms": bound_ms, "bytes_s": t_b, "flops_s": t_f}
+    if x.dtype == torch.bfloat16:
+        # the bf16 rows: torch.gather's device time beside the kernel's
+        out["library_device_ms"] = device_ms(library, TORCH_GATHER_PROFILE)
+    return out
 
 
 def _twice(run, what):
@@ -1620,12 +1646,17 @@ def bf16_kernel_rows(calls, timed_calls, tag):
             sum(r["flops_s"] for r in t) else "operations",
             "library_ms": sum(r["library_ms"] for r in t),
             "calls": len(t), "checked_calls": len(res)}
+        if site in GATHERS:
+            rows[kernel]["library_device_ms"] = _total(
+                r["library_device_ms"] for r in t)
         r = rows[kernel]
         log(f"[{tag}] {kernel}: {len(res)} calls within the bf16 bar (max "
             f"|kernel - plain| {r['max_abs_err']:.3g}); per forward "
             f"({len(t)} calls) {r['ms']:.4f} ms, device {r['device_ms']} "
             f"(plain {r['plain_ms']:.4f}, library {r['library_ms']:.4f}, "
-            f"bound {r['bound_ms']:.4f} by {r['bound_by']})")
+            f"bound {r['bound_ms']:.4f} by {r['bound_by']}"
+            + (f"; torch.gather device {r['library_device_ms']}"
+               if "library_device_ms" in r else "") + ")")
     return rows, detail
 
 
@@ -2199,13 +2230,14 @@ def _index_add(g, idx, n):
 
 def _scatter_add(g, idx, n):
     """The other library yardstick of K8 / K10: one scatter_add_ into
-    (B, n + 1, D), each cloud's rows outside [0, n) sent to its spare row
-    (the int64 index, expanded over D, built outside the timed call)."""
+    (B, n + 1, D) of g's dtype, each cloud's rows outside [0, n) sent to
+    its spare row (the int64 index, expanded over D, built outside the
+    timed call)."""
     B, _, D = g.shape
     spare = torch.where((idx >= 0) & (idx < n), idx, n).long()
     sel = spare[..., None].expand(-1, -1, D)
-    return lambda: torch.zeros(B, n + 1, D, device=g.device).scatter_add_(
-        1, sel, g)
+    return lambda: torch.zeros(B, n + 1, D, device=g.device,
+                               dtype=g.dtype).scatter_add_(1, sel, g)
 
 
 def check_scatter_add(call):
@@ -2362,6 +2394,64 @@ def stem_vjp_phase(call):
         f"vs CPU max err dx {e_dx:.3g}, dW {e_dw:.3g} (max |ref| {scale}; "
         f"CPU reference {cpu_s:.1f} s)")
     log_k10("stem-vjp", "on the call's operands", k10)
+    return out, launches
+
+
+def _g_ulp(G, idx, n):
+    """One bf16 ulp of the largest |G| row element that K10 adds into each
+    dx element (B, n, C): what a G element rounded to the neighbouring
+    bf16 value (the card's and the CPU's fp32 sums of G = g W^T breaking a
+    rounding tie apart) can move dx by."""
+    B, M, C = G.shape
+    keep = (idx >= 0) & (idx < n)
+    dest = torch.where(keep, idx, n).long()[..., None].expand(-1, -1, C)
+    top = torch.zeros(B, n + 1, C, device=G.device).scatter_reduce_(
+        1, dest, G.float().abs(), "amax")[:, :n]
+    return bf16_ulp(top)
+
+
+def bf16_stem_vjp_phase(call):
+    """stem_vjp_phase at bf16: the captured B = 32 stem call with x, W and
+    the output cotangent rounded to bf16, x and W requiring gradients:
+    launches (one K3, one K7 and one K10 bf16) and peak memory; dx and dW
+    against the CPU port at bf16 within the bar of ops/bf16.py at the
+    gradients' scale (dx plus _g_ulp); K10 bf16 on the call's bf16
+    operands (G = g W^T rounded per (row, tap), the map with dead links at
+    the sentinel, C = 7) against its plain version, timed. Returns the
+    phase and its launches."""
+    (x, idx, ok, w), g = call
+    x, w, g = (t.to(torch.bfloat16) for t in (x, w, g))
+    N = x.shape[1]
+    xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+    launches, peak, own = _phase_launches(
+        lambda: stem.stem_conv(xg, idx, ok, wg).backward(g),
+        {"stem_conv_bf16": 1, "conv_weight_grad_bf16": 1,
+         "scatter_rows_smallc_add_bf16": 1}, "bf16 stem input gradient")
+    G, flat = stem.stem_grad_rows(g, idx, ok, w, N)
+    extra = _g_ulp(G, flat, N)
+    t0 = time.perf_counter()
+    xc, wc = x.cpu().requires_grad_(), w.cpu().requires_grad_()
+    stem.stem_conv(xc, idx.cpu(), ok.cpu(), wc).backward(g.cpu())
+    cpu_s = time.perf_counter() - t0
+    e_dx = _bf16_err(xg.grad, xc.grad.cuda(), "bf16 stem dx, card vs CPU",
+                     extra=extra)
+    e_dw = _bf16_err(wg.grad, wc.grad.cuda(), "bf16 stem dW, card vs CPU")
+    scale = {"dx": float(xc.grad.float().abs().max()),
+             "dW": float(wc.grad.float().abs().max())}
+    del xc, wc, xg, wg, extra
+    k10 = check_smallc_bwd(G, flat, N, TRAIN_TIMING)
+    del G, flat
+    out = {"shape": list(x.shape) + list(w.shape), "launches": launches,
+           "peak_memory_gib": peak, "peak_above_start_gib": own,
+           "dx_err": e_dx, "dW_err": e_dw, "ref_max": scale,
+           "cpu_reference_s": cpu_s, "k10": k10}
+    log(f"[bf16-stem-vjp] stem_conv at bf16, forward + backward with the "
+        f"input requiring a gradient, B = {x.shape[0]} x {N}: launches "
+        f"{launches}; peak memory {peak:.3f} GiB ({own:.3f} above the "
+        f"phase's start); card vs the CPU port at bf16 max err dx "
+        f"{e_dx:.3g}, dW {e_dw:.3g} (max |ref| {scale}; CPU reference "
+        f"{cpu_s:.1f} s)")
+    log_k10("bf16-stem-vjp", "on the call's bf16 operands", k10)
     return out, launches
 
 
@@ -3730,22 +3820,26 @@ def mp_reference_phase(engine, row, cpu_model=None, tag="mp-serving"):
 
 
 def check_smallc_bwd(g, idx, n, timing):
-    """K10 on one call, g (B, M, C) onto (B, n, C) through idx: within
-    1e-4 * max|plain| (shared-memory atomics: another summation order);
-    event and profiler device times (both of its kernels) against the
-    plain version, its bound (g, the index and dx moved once) and the
-    faster of index_add_ and scatter_add_ (sentinel rows sent to a spare
-    row per cloud)."""
+    """K10 on one call, g (B, M, C) onto (B, n, C) through idx: fp32 within
+    1e-4 * max|plain|, a bf16 g (fp32 sums, one rounding) within the bar
+    of ops/bf16.py at the gradient's scale (shared-memory atomics: another
+    summation order); event and profiler device times (both of its
+    kernels) against the plain version, its bound (g, the index and dx
+    moved once) and the faster of index_add_ and scatter_add_ (sentinel
+    rows sent to a spare row per cloud; in g's dtype)."""
     B, M, C = g.shape
     run = lambda: gather.scatter_rows_smallc_add(g, idx, n)  # noqa: E731
     plain = lambda: gather.scatter_rows_smallc_add_plain(  # noqa: E731
-        g, idx, n)
-    err = _err(run(), plain(), f"K10 {[B, M, C]} -> {n}")
-    bound_ms, t_b, t_f = _bound(4 * (g.numel() + B * n * C) +
+        g, idx, n).to(g.dtype)
+    what = f"K10 {g.dtype} {[B, M, C]} -> {n}"
+    err = _bf16_err(run(), plain(), what) if g.dtype == torch.bfloat16 \
+        else _err(run(), plain(), what)
+    bound_ms, t_b, t_f = _bound(g.element_size() * (g.numel() + B * n * C) +
                                 idx.numel() * idx.element_size(), g.numel())
     library = {"index_add_": cuda_ms(_index_add(g, idx, n), **timing),
                "scatter_add_": cuda_ms(_scatter_add(g, idx, n), **timing)}
-    return {"shape": [B, M, C, n], "max_abs_err": err,
+    return {"shape": [B, M, C, n], "dtype": str(g.dtype),
+            "max_abs_err": err,
             "plan": list(gather.scatter_smallc_plan(B, M, n, C)),
             "sentinel_rows": int(((idx < 0) | (idx >= n)).sum()),
             "ms": cuda_ms(run, **timing),
@@ -3759,7 +3853,8 @@ def log_k10(tag, label, r):
     """One line per K10 call: shape, plan, times, bound share, library."""
     dev = r["device_ms"]
     share = "not measured" if dev is None else f"{r['bound_ms'] / dev:.3f}"
-    log(f"[{tag}] K10 {label}: [B, M, C, n] {r['shape']}, plan (ranges, "
+    log(f"[{tag}] K10 {label}: {r['dtype']} [B, M, C, n] {r['shape']}, "
+        f"plan (ranges, "
         f"window) {r['plan']}, {r['sentinel_rows']} sentinel rows, "
         f"max_abs_err {r['max_abs_err']:.3g}; {r['ms']:.4f} ms by events, "
         f"device {dev} (bound {r['bound_ms']:.4f}, bound / device {share}; "
@@ -3853,6 +3948,74 @@ def mp_stem_vjp_phase(call):
         f"{launches}; peak memory {peak:.3f} GiB ({own:.3f} above the "
         f"phase's start); card vs CPU max err {errs} (CPU reference "
         f"{cpu_s:.1f} s)")
+    return out, launches
+
+
+# the categorical stem's label-table gradient at bf16, card vs the CPU
+# port: a bf16 product over 16.4M gathered rows whose sum both libraries
+# take in their own order and blocking (measured 2.4e-4, about 2^-9 of its
+# scale, on an H100): 2^-6 of max|ref|
+BF16_TABLE_GRAD_TOL = 2.0 ** -6
+
+
+def bf16_mp_stem_vjp_phase(call):
+    """mp_stem_vjp_phase at bf16: the captured categorical stem call with
+    the features, weight, label table and cotangent rounded to bf16, all
+    three requiring gradients: launches (one K9 and one K10 bf16) and
+    peak memory; dfeat and dW against the CPU port at bf16 within the bar
+    of ops/bf16.py at each gradient's scale (dfeat plus one bf16 ulp of
+    the largest gathered-row cotangent it adds, _g_ulp), the label table's
+    gradient within BF16_TABLE_GRAD_TOL of its scale; K10 bf16
+    on a seeded bf16 cotangent at the stem's index (C = 5) against its
+    plain version, timed. Returns the phase and its launches."""
+    (feat, nmap, w, (cat_idx, table)), gout = call
+    feat, w, table, gout = (t.detach().to(torch.bfloat16)
+                            for t in (feat, w, table, gout))
+    B, N, C = feat.shape
+    fg, wg, tg = (t.clone().requires_grad_() for t in (feat, w, table))
+    launches, peak, own = _phase_launches(
+        lambda: sparse_conv.subm_conv_apply(
+            fg, nmap, wg, categorical=(cat_idx, tg)).backward(gout),
+        {"gather_rows_smallc_bf16": 1, "scatter_rows_smallc_add_bf16": 1},
+        "bf16 categorical stem gradient")
+    # the gathered rows' cotangent K10 added (the product's VJP, rounded
+    # to bf16): its largest element per destination bounds a tie's move
+    K, cout = nmap.idx.shape[-1], w.shape[-1]
+    rows_ct = (gout.reshape(B * N, cout).float() @
+               w.reshape(-1, cout).float().t()).to(torch.bfloat16)
+    rows_ct = rows_ct.reshape(B, N * K, -1)
+    flat = torch.where(nmap.ok, nmap.idx, N).reshape(B, N * K)
+    extra = _g_ulp(rows_ct[..., :C], flat, N)
+    del rows_ct
+    t0 = time.perf_counter()
+    fc, wc, tc = (t.cpu().requires_grad_() for t in (feat, w, table))
+    sparse_conv.subm_conv_apply(
+        fc, sparse_conv.NeighborMap(nmap.idx.cpu(), nmap.ok.cpu()), wc,
+        categorical=(cat_idx.cpu(), tc)).backward(gout.cpu())
+    cpu_s = time.perf_counter() - t0
+    errs = {name: _bf16_err(a.grad, b.grad.cuda(), f"bf16 categorical stem "
+                            f"{name}, card vs CPU", extra=e)
+            for name, a, b, e in (("dfeat", fg, fc, extra),
+                                  ("dW", wg, wc, None))}
+    # the table's gradient is a bf16 product over all B N K gathered rows
+    # (cuBLAS on the card, another accumulation on the CPU), not a kernel
+    # of the port's: held within BF16_TABLE_GRAD_TOL of its own scale
+    errs["dtable"] = _err(tg.grad.float(), tc.grad.cuda().float(),
+                          "bf16 categorical stem dtable, card vs CPU",
+                          BF16_TABLE_GRAD_TOL)
+    k10 = check_smallc_bwd(
+        _seeded((B, N * K, C + 1), 16).to(torch.bfloat16), flat, N,
+        TRAIN_TIMING)
+    out = {"shape": [B, N, C] + list(w.shape), "launches": launches,
+           "peak_memory_gib": peak, "peak_above_start_gib": own,
+           "errs": errs, "dfeat_ref_max": float(fc.grad.float().abs().max()),
+           "cpu_reference_s": cpu_s, "k10": k10}
+    log(f"[bf16-mp-stem-vjp] categorical stem at bf16, forward + backward "
+        f"with the features requiring a gradient, {out['shape']}: "
+        f"launches {launches}; peak memory {peak:.3f} GiB ({own:.3f} above "
+        f"the phase's start); card vs the CPU port at bf16 max err {errs} "
+        f"(CPU reference {cpu_s:.1f} s)")
+    log_k10("bf16-mp-stem-vjp", "seeded, at the stem's index", k10)
     return out, launches
 
 
@@ -4115,7 +4278,9 @@ def check_attention_train_bf16(call, timed=True):
 def check_weight_grad_bf16(call):
     """K7 at bf16 on one captured conv or stem call: fp32 sums bit-equal
     across two launches and within 1e-4 of the plain version's largest
-    value; timed beside the im2col gather + matmul in bf16."""
+    value; timed beside the im2col gather + matmul in bf16; the profiler's
+    device time of the product kernel alone and, on the CPE path, of the
+    live-list compaction alone."""
     (x, idx, ok, w, *_), g = call
     K, cin, cout = w.shape
     shape = list(x.shape[:2]) + [K, cin, cout]
@@ -4123,9 +4288,15 @@ def check_weight_grad_bf16(call):
     plain = lambda: conv.conv_weight_grad_plain(x, idx, ok, g)  # noqa
     err = _err(_twice(run, f"bf16 K7 {shape}"), plain(), f"bf16 K7 {shape}")
     nbytes = 2 * (x.numel() + g.numel()) + 4 * w.numel() + 5 * idx.numel()
+    # the stem's 7 channels take the (tap, channel) path, every width of
+    # 8 (or padded to it) the CPE path's compacted lists
+    path = "stem" if cin % 8 and cin < conv.WGRAD_PAD_MIN_CIN else "cpe"
     return dict(_timed_bf16(run, plain, _im2col_wgrad(x, idx, ok, g), nbytes,
                             2 * cin * cout * int(ok.sum()), *K7_PROFILE),
-                max_abs_err=err, shape=shape)
+                max_abs_err=err, shape=shape, path=path,
+                product_device_ms=device_ms(run, K7_PROFILE[0], reps=4),
+                compact_device_ms=device_ms(run, "wgrad_compact", reps=4)
+                if path == "cpe" else 0.0)
 
 
 def check_scatter_add_bf16(g, idx, n, dtype=torch.bfloat16):
@@ -4299,6 +4470,22 @@ def bf16_train_kernel_phase(captured, tag, expect):
     rows = _bf16_rows(res, tag)
     _queued_fallback(rows["patch_attention_dropout_bf16"], runs5, tag,
                      "patch_attention_dropout_bf16")
+    k7 = rows["conv_weight_grad_bf16"]
+    for path in ("cpe", "stem"):
+        rs = [r for r in res["conv_weight_grad_bf16"] if r["path"] == path]
+        if not rs:
+            continue
+        k7[path] = dict(
+            _row(rs), calls=len(rs),
+            device_ms=_total(r["device_ms"] for r in rs),
+            product_device_ms=_total(r["product_device_ms"] for r in rs),
+            compact_device_ms=_total(r["compact_device_ms"] for r in rs))
+        r = k7[path]
+        log(f"[{tag}] K7 bf16, the {path} path: {len(rs)} calls a step, "
+            f"{r['ms']:.4f} ms (device {r['device_ms']}: product kernel "
+            f"{r['product_device_ms']}, live-list compaction "
+            f"{r['compact_device_ms']}; bound {r['bound_ms']:.4f}, im2col "
+            f"{r['library_ms']})")
     for r in k2f:
         log(f"[{tag}] K2 bf16 forward per training step, call {r['shape']}: "
             f"shares {r['shares']}; max_abs_err {r['max_abs_err']:.3g}; "
@@ -4825,7 +5012,7 @@ def run():
         f"built and loaded in {time.perf_counter() - t0:.2f} s")
     for name, use in sorted(ptxas_usage().items()):
         m = re.search(r"\d((?:patch_attention|stem_conv|attn_drop|"
-                      r"scatter_smallc|subm_conv)\w*?_kernel)"
+                      r"scatter_smallc|subm_conv|wgrad)\w*?_kernel)"
                       r"(?:ILi(\d+)E(x)?)?", name)
         if m:
             kind = ' bf16' if 'bfloat16' in name else ''
@@ -4876,6 +5063,7 @@ def run():
     rows["stem_conv"]["train_step"] = k3_step
     stems = [c for c in captured["stem_conv"] if c[1] is not None]
     stem_vjp, stem_launches = stem_vjp_phase(stems[0])
+    bf16_stem_vjp, bf16_stem_launches = bf16_stem_vjp_phase(stems[0])
     del captured, stems
     step_check = step_check_phase(host[0])
     bf16_train = bf16_train_phase(host, training, observations, out_dir)
@@ -4925,8 +5113,11 @@ def run():
     mp_train, mp_train_launches, mp_step_captured, mp_host = \
         mp_training(out_dir)
     mp_rows, mp_detail = mp_kernel_phase(mp_fwd_captured, mp_step_captured)
-    mp_stem_vjp, mp_stem_launches = mp_stem_vjp_phase(
-        mp_step_captured.pop("categorical_conv")[0])
+    mp_stem_call = mp_step_captured.pop("categorical_conv")[0]
+    mp_stem_vjp, mp_stem_launches = mp_stem_vjp_phase(mp_stem_call)
+    bf16_mp_stem_vjp, bf16_mp_stem_launches = bf16_mp_stem_vjp_phase(
+        mp_stem_call)
+    del mp_stem_call
     mp_k2, mp_k7, mp_detail["conv_step"] = mp_conv_phase(mp_step_captured)
     mp_detail["conv_forward"] = mp_fwd_k2
     del mp_fwd_captured, mp_step_captured
@@ -4984,7 +5175,9 @@ def run():
                    "mp_training": mp_train, "mp_kernels": mp_rows,
                    "mp_calls": mp_detail, "mp_step_check": mp_step_check,
                    "mp_entry": mp_entry, "stem_vjp": stem_vjp,
-                   "mp_stem_vjp": mp_stem_vjp, "ckpt": ckpt,
+                   "mp_stem_vjp": mp_stem_vjp,
+                   "bf16_stem_vjp": bf16_stem_vjp,
+                   "bf16_mp_stem_vjp": bf16_mp_stem_vjp, "ckpt": ckpt,
                    "mp_ckpt": mp_ckpt, "adanorm": adanorm,
                    "concat": concat, "mp_adanorm": mp_adanorm,
                    "variants": variants, "bf16": bf16, "bf16_mp": bf16_mp,
@@ -4992,8 +5185,8 @@ def run():
                   f, indent=1)
     # each kernel's launches in the run of its own slice's main path: K1-K4
     # policy serving, K5-K8 policy training, K9 motion-planner serving, K10
-    # the stem conv's input gradient (stem-vjp); launches_by_path has every
-    # run's count for every kernel
+    # the stem conv's input gradient (stem-vjp; at bf16 bf16-stem-vjp);
+    # launches_by_path has every run's count for every kernel
     rows.update(train_rows)
     rows.update(mp_rows)
     rows.update(bf16["kernels"])
@@ -5032,10 +5225,18 @@ def run():
     rows["scatter_rows_smallc_add"] = dict(
         _row([k10]), device_ms=k10["device_ms"], shape=k10["shape"],
         mp_train_step_stem=rows["scatter_rows_smallc_add"])
+    k10, k10_mp = bf16_stem_vjp["k10"], bf16_mp_stem_vjp["k10"]
+    rows["scatter_rows_smallc_add_bf16"] = dict(
+        _row([k10]), device_ms=k10["device_ms"], shape=k10["shape"],
+        library=k10["library"], mp_stem=dict(
+            _row([k10_mp]), device_ms=k10_mp["device_ms"],
+            shape=k10_mp["shape"]))
     paths = {"serving": serving["launches"], "training": train_launches,
              "mp_serving": mp_serving["launches"],
              "mp_training": mp_train_launches, "stem_vjp": stem_launches,
              "mp_stem_vjp": mp_stem_launches,
+             "bf16_stem_vjp": bf16_stem_launches,
+             "bf16_mp_stem_vjp": bf16_mp_stem_launches,
              "validation": ckpt["validation_launches"],
              "mp_validation": mp_ckpt["validation_launches"],
              "adanorm_serving": adanorm["serving"]["launches"],
@@ -5059,7 +5260,8 @@ def run():
                      scatter_rows_smallc_add="stem_vjp")
     main_path.update({k: "bf16_serving" for k in BF16_SITES.values()},
                      gather_rows_smallc_bf16="bf16_mp_serving")
-    main_path.update(dict.fromkeys(BF16_TRAIN_KERNELS, "bf16_training"))
+    main_path.update(dict.fromkeys(BF16_TRAIN_KERNELS, "bf16_training"),
+                     scatter_rows_smallc_add_bf16="bf16_stem_vjp")
     idle = [k for k in KERNELS if not paths[main_path[k]][k]]
     if idle:
         raise AssertionError(f"kernels that their main path never launched: "

@@ -76,12 +76,32 @@
 // once), so K5 at rate 0 is K1 bit for bit. The Philox work bounds it at
 // the release shapes; the tile's own work (S, softmax, P v) takes about as
 // long, and two blocks an SM, in different phases, overlap the two.
-// K6 at bf16 stages the rows widened to fp32 (the same shared-memory
-// layout) and keeps the fp32 kernel's 3xTF32 products, exact on the bf16
-// operands; it computes as the Pallas body `_attn_drop_bwd_kernel` does,
-// in fp32: p from the saved lse and the bf16 q * scale, the unrounded
-// probabilities in dv and ds, D = g . out from K5's bf16 output, and dq,
-// dk, dv each rounded to bf16 once.
+// K6 at bf16 (attn_drop_bwd16_kernel) computes as the Pallas body
+// `_attn_drop_bwd_kernel` does, in fp32: p from the saved lse and the bf16
+// q * scale, the unrounded probabilities in dv and ds, D = g . out from
+// K5's bf16 output, the exact ds = 0 at masked keys and p = 1 / P in a
+// patch with no valid key, and dq, dk, dv each rounded to bf16 once. It
+// runs on the bf16 tensor cores with K5's staging: q, k, v, g and out go
+// to shared memory as they are (stage_rows16, 16-byte cp.async; out where
+// ds goes later, read once for D), q * scale is rounded to bf16 in place,
+// and every fragment comes from ldmatrix (.trans where a product reads a
+// transpose). The fp32 design's phases stay: phase 1, warp w owns keys
+// 16w.. and walks the queries 16 at a time; S^T = k (q scale)^T and
+// dP^T = v g^T are one bf16 m16n8k16 each (both operands bf16 values, so
+// every product is exact), where the earlier bf16 design widened the rows
+// and ran 3xTF32 on all five products. dv += (keep p / (1 - rate))^T g,
+// dk += ds^T (q scale) and, in phase 2 (warp w owns queries 16w..),
+// dq = (ds k) scale multiply fp32 values (p, ds) by bf16 ones: each fp32
+// fragment is split into three bf16 pieces (tc_common.cuh split_hi,
+// split_mid_lo: hi + mid + lo reproduce it exactly), so the three bf16
+// products sum it to the fp32 level as 3xTF32 did, in 3 k16 mma where
+// 3xTF32 took 6 k8 ones; the small pieces first. (Two pieces would leave
+// up to 2^-17 of each term; the third costs one mma in three.) ds goes to
+// shared memory in fp32 (136-float rows: phase 2's 8-byte loads free of
+// bank conflicts, phase 1's scalar stores two-way). Shared memory: 111 KB
+// at Dh = 32 (ds 68 KB, the five bf16 slices 40 KB), two blocks an SM as
+// before: ds in fp32 and the 128-register budget of two 256-thread blocks
+// keep a third block out. No atomics: bit-equal from run to run.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -179,21 +199,15 @@ __device__ __forceinline__ uint32_t keep_word_fast(int i, int j0, int n,
   return word;
 }
 
-// rows [0, P8) of a (P, Dh) slice into shared memory at stride S, times
-// mul (bf16 rows: widened, and the product rounded to bf16, which leaves
-// them as they are at mul = 1); rows P..P8-1 zero (the ragged 8-row tile)
-template <int Dh, typename T>
+// rows [0, P8) of a (P, Dh) fp32 slice into shared memory at stride S,
+// times mul; rows P..P8-1 zero (the ragged 8-row tile)
+template <int Dh>
 __device__ __forceinline__ void load_rows(float* dst, int S,
-                                          const T* __restrict__ src, int P,
-                                          int P8, float mul) {
+                                          const float* __restrict__ src,
+                                          int P, int P8, float mul) {
   for (int i = threadIdx.x; i < P8 * Dh; i += kThreads) {
     const int r = i / Dh, d = i - r * Dh;
-    float x = 0.f;
-    if (r < P) {
-      x = r3dl::widen(src[i]) * mul;
-      if constexpr (!std::is_same<T, float>::value) x = r3dl::round_bf16(x);
-    }
-    dst[r * S + d] = x;
+    dst[r * S + d] = r < P ? src[i] * mul : 0.f;
   }
 }
 
@@ -223,8 +237,8 @@ attn_drop_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const long long gh = blockIdx.x;
   const long long base = gh * P * Dh;
   const int tid = threadIdx.x;
-  load_rows<Dh, float>(sk, S, k + base, P, P8, 1.f);
-  load_rows<Dh, float>(sv, S, v + base, P, P8, 1.f);
+  load_rows<Dh>(sk, S, k + base, P, P8, 1.f);
+  load_rows<Dh>(sv, S, v + base, P, P8, 1.f);
   if (tid < P) smask[tid] = kv[gh / H * P + tid];
   for (int w = tid; w < P * W; w += kThreads) {
     const int i = w / W, j0 = (w - i * W) * 32;
@@ -309,19 +323,17 @@ size_t bwd_smem() {
 // SXM (scripts/attention_dropout_variants.py)
 constexpr int kChunk = 1;
 
-template <int Dh, typename T>
+template <int Dh>
 __global__ void __launch_bounds__(kThreads, 2)
-attn_drop_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v,
+attn_drop_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
                      const unsigned char* __restrict__ kv,
-                     const T* __restrict__ o,
+                     const float* __restrict__ o,
                      const float* __restrict__ lse,
                      const uint32_t* __restrict__ bits,
-                     const T* __restrict__ gout, T* __restrict__ dq,
-                     T* __restrict__ dk, T* __restrict__ dv, int H,
+                     const float* __restrict__ gout, float* __restrict__ dq,
+                     float* __restrict__ dk, float* __restrict__ dv, int H,
                      int P, float scale, float inv_keep) {
-  using r3dl::narrow;
-  using r3dl::widen;
   using L = Layout<Dh>;
   constexpr int S = L::S, SB = L::SB, DS = L::DS;
   constexpr int KD = Dh / 8;
@@ -342,15 +354,15 @@ attn_drop_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int gr = lane >> 2, t = lane & 3;
-  load_rows<Dh, T>(sq, S, q + base, P, P8, scale);
-  load_rows<Dh, T>(sg, S, gout + base, P, P8, 1.f);
+  load_rows<Dh>(sq, S, q + base, P, P8, scale);
+  load_rows<Dh>(sg, S, gout + base, P, P8, 1.f);
   for (int i = tid; i < P * W; i += kThreads) sbits[i] = bits[gh * P * W + i];
   if (tid < kMaxP) slse[tid] = tid < P ? lse[gh * P + tid] : 0.f;
   for (int r = warp; r < kMaxP; r += kWarps) {   // D, one row per warp
     float x = 0.f;
     if (r < P && lane < Dh)
-      x = widen(gout[base + (long long)r * Dh + lane]) *
-          widen(o[base + (long long)r * Dh + lane]);
+      x = gout[base + (long long)r * Dh + lane] *
+          o[base + (long long)r * Dh + lane];
 #pragma unroll
     for (int sh = 16; sh; sh >>= 1) x += __shfl_xor_sync(kFull, x, sh);
     if (lane == 0) sD[r] = x;
@@ -362,22 +374,22 @@ attn_drop_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // ---- phase 1: warp w owns keys 16w..16w+15 ----
   const int j0 = warp * 16 + gr, j1 = j0 + 8;   // this lane's keys
   if (warp * 16 < P) {
-    const T* k0 = k + base + (long long)j0 * Dh;
-    const T* k1 = k + base + (long long)j1 * Dh;
-    const T* v0 = v + base + (long long)j0 * Dh;
-    const T* v1 = v + base + (long long)j1 * Dh;
+    const float* k0 = k + base + (long long)j0 * Dh;
+    const float* k1 = k + base + (long long)j1 * Dh;
+    const float* v0 = v + base + (long long)j0 * Dh;
+    const float* v1 = v + base + (long long)j1 * Dh;
     float ka[KD][4], va[KD][4];   // A fragments of this warp's k and v rows
 #pragma unroll
     for (int kk = 0; kk < KD; ++kk) {
       const int d = kk * 8 + t;
-      ka[kk][0] = j0 < P ? widen(k0[d]) : 0.f;
-      ka[kk][1] = j1 < P ? widen(k1[d]) : 0.f;
-      ka[kk][2] = j0 < P ? widen(k0[d + 4]) : 0.f;
-      ka[kk][3] = j1 < P ? widen(k1[d + 4]) : 0.f;
-      va[kk][0] = j0 < P ? widen(v0[d]) : 0.f;
-      va[kk][1] = j1 < P ? widen(v1[d]) : 0.f;
-      va[kk][2] = j0 < P ? widen(v0[d + 4]) : 0.f;
-      va[kk][3] = j1 < P ? widen(v1[d + 4]) : 0.f;
+      ka[kk][0] = j0 < P ? k0[d] : 0.f;
+      ka[kk][1] = j1 < P ? k1[d] : 0.f;
+      ka[kk][2] = j0 < P ? k0[d + 4] : 0.f;
+      ka[kk][3] = j1 < P ? k1[d + 4] : 0.f;
+      va[kk][0] = j0 < P ? v0[d] : 0.f;
+      va[kk][1] = j1 < P ? v1[d] : 0.f;
+      va[kk][2] = j0 < P ? v0[d + 4] : 0.f;
+      va[kk][3] = j1 < P ? v1[d + 4] : 0.f;
     }
     const bool val0 = j0 < P && smask[j0], val1 = j1 < P && smask[j1];
     const float inv_p = 1.f / (float)P;
@@ -446,31 +458,31 @@ attn_drop_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
       }
     }
-    T* dk0 = dk + base + (long long)j0 * Dh;
-    T* dk1 = dk + base + (long long)j1 * Dh;
-    T* dv0 = dv + base + (long long)j0 * Dh;
-    T* dv1 = dv + base + (long long)j1 * Dh;
+    float* dk0 = dk + base + (long long)j0 * Dh;
+    float* dk1 = dk + base + (long long)j1 * Dh;
+    float* dv0 = dv + base + (long long)j0 * Dh;
+    float* dv1 = dv + base + (long long)j1 * Dh;
 #pragma unroll
     for (int m = 0; m < KD; ++m) {
       const int c = m * 8 + 2 * t;
       if (j0 < P) {
-        dk0[c] = narrow<T>(dka[m][0]);
-        dk0[c + 1] = narrow<T>(dka[m][1]);
-        dv0[c] = narrow<T>(dva[m][0]);
-        dv0[c + 1] = narrow<T>(dva[m][1]);
+        dk0[c] = dka[m][0];
+        dk0[c + 1] = dka[m][1];
+        dv0[c] = dva[m][0];
+        dv0[c + 1] = dva[m][1];
       }
       if (j1 < P) {
-        dk1[c] = narrow<T>(dka[m][2]);
-        dk1[c + 1] = narrow<T>(dka[m][3]);
-        dv1[c] = narrow<T>(dva[m][2]);
-        dv1[c + 1] = narrow<T>(dva[m][3]);
+        dk1[c] = dka[m][2];
+        dk1[c + 1] = dka[m][3];
+        dv1[c] = dva[m][2];
+        dv1[c + 1] = dva[m][3];
       }
     }
   }
   __syncthreads();
 
   // ---- phase 2: warp w owns queries 16w..16w+15; dq = ds k scale ----
-  load_rows<Dh, T>(sq, SB, k + base, P, P8, 1.f);   // k where q and g were
+  load_rows<Dh>(sq, SB, k + base, P, P8, 1.f);   // k where q and g were
   __syncthreads();
   if (warp * 16 >= P) return;
   const int r0 = warp * 16 + gr, r1 = r0 + 8;
@@ -488,19 +500,310 @@ attn_drop_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       mma3(acc[m], a, kr[0], kr[4 * SB]);
     }
   }
-  T* q0 = dq + base + (long long)r0 * Dh;
-  T* q1 = dq + base + (long long)r1 * Dh;
+  float* q0 = dq + base + (long long)r0 * Dh;
+  float* q1 = dq + base + (long long)r1 * Dh;
 #pragma unroll
   for (int m = 0; m < KD; ++m) {
     const int c = m * 8 + 2 * t;
     if (r0 < P) {
-      q0[c] = narrow<T>(acc[m][0] * scale);
-      q0[c + 1] = narrow<T>(acc[m][1] * scale);
+      q0[c] = acc[m][0] * scale;
+      q0[c + 1] = acc[m][1] * scale;
     }
     if (r1 < P) {
-      q1[c] = narrow<T>(acc[m][2] * scale);
-      q1[c + 1] = narrow<T>(acc[m][3] * scale);
+      q1[c] = acc[m][2] * scale;
+      q1[c + 1] = acc[m][3] * scale;
     }
+  }
+}
+
+// ---- K6 at bf16 (the header) ----
+
+// ds rows in floats: 8 mod 32, so phase 2's 8-byte fragment loads of a
+// half warp (rows gid, columns 2t, 2t + 1) fall on 32 distinct banks
+constexpr int kDS16 = kMaxP + 8;
+
+// ds (fp32), then q * scale, g, k and v as bf16 rows at Layout16's stride
+// (out staged where ds goes, before ds), then lse, D and the keep bits
+template <int Dh>
+size_t bwd16_smem() {
+  return (size_t)kMaxP * kDS16 * sizeof(float) +
+         4 * (size_t)kMaxP * r3dl::Layout16<Dh>::S * sizeof(r3dl::bf16) +
+         2 * (size_t)kMaxP * sizeof(float) +
+         (size_t)kMaxP * kMaxWords * sizeof(uint32_t);
+}
+
+// d += a b for an fp32 A fragment held as its three bf16 pieces (the
+// products' sum exact to the fp32 level): the small pieces first
+__device__ __forceinline__ void mma_pieces(float (&d)[4],
+                                           const uint32_t (&hi)[4],
+                                           const uint32_t (&mid)[4],
+                                           const uint32_t (&lo)[4],
+                                           uint32_t b0, uint32_t b1) {
+  r3dl::mma_bf16(d, lo, b0, b1);
+  r3dl::mma_bf16(d, mid, b0, b1);
+  r3dl::mma_bf16(d, hi, b0, b1);
+}
+
+// the three pieces of an A fragment (16 x 16) given as four fp32 pairs
+__device__ __forceinline__ void split_fragment(const float2 (&v)[4],
+                                               uint32_t (&hi)[4],
+                                               uint32_t (&mid)[4],
+                                               uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    r3dl::split_mid_lo(r3dl::split_hi(v[i], hi[i]), mid[i], lo[i]);
+}
+
+// acc[d] += A B for this warp's A pieces against the Dh / 8 column tiles of
+// B read transposed from rows `rows` (16 of them, at stride S) of a bf16
+// slice: ldmatrix .x4.trans matrix i holds rows 8 (i % 2).., columns
+// 8 (dd + i / 2)..
+template <int Dh>
+__device__ __forceinline__ void mma_rows_t(float (&acc)[Dh / 8][4],
+                                           const uint32_t (&hi)[4],
+                                           const uint32_t (&mid)[4],
+                                           const uint32_t (&lo)[4],
+                                           const r3dl::bf16* rows,
+                                           int lane) {
+  constexpr int S = r3dl::Layout16<Dh>::S, ND = Dh / 8;
+  const int lm = lane >> 3, lr = lane & 7;
+  const r3dl::bf16* r = rows + (8 * (lm & 1) + lr) * S;
+#pragma unroll
+  for (int dd = 0; dd + 1 < ND; dd += 2) {
+    uint32_t b[4];
+    r3dl::ldmatrix_x4_trans(b, r + 8 * (dd + (lm >> 1)));
+    mma_pieces(acc[dd], hi, mid, lo, b[0], b[1]);
+    mma_pieces(acc[dd + 1], hi, mid, lo, b[2], b[3]);
+  }
+  if constexpr (ND % 2) {
+    uint32_t b[2];
+    r3dl::ldmatrix_x2_trans(b, r + 8 * (ND - 1));
+    mma_pieces(acc[ND - 1], hi, mid, lo, b[0], b[1]);
+  }
+}
+
+template <int Dh>
+__global__ void __launch_bounds__(kThreads, 2)
+attn_drop_bwd16_kernel(const r3dl::bf16* __restrict__ q,
+                       const r3dl::bf16* __restrict__ k,
+                       const r3dl::bf16* __restrict__ v,
+                       const unsigned char* __restrict__ kv,
+                       const r3dl::bf16* __restrict__ o,
+                       const float* __restrict__ lse,
+                       const uint32_t* __restrict__ bits,
+                       const r3dl::bf16* __restrict__ gout,
+                       r3dl::bf16* __restrict__ dq,
+                       r3dl::bf16* __restrict__ dk,
+                       r3dl::bf16* __restrict__ dv, int H, int P,
+                       float scale, float inv_keep) {
+  using r3dl::bf16;
+  constexpr int S = r3dl::Layout16<Dh>::S;
+  constexpr int KF = Dh / 16;              // full 16-wide head-dim steps
+  constexpr bool kTail = Dh % 16 != 0;     // and an 8-wide one (Dh 8, 24)
+  constexpr int ND = Dh / 8;               // 8-wide head-dim column tiles
+  static_assert(kMaxP * S * sizeof(bf16) <= kMaxP * kDS16 * sizeof(float),
+                "out fits where ds goes");
+  extern __shared__ float4 smem4[];
+  float* sds = reinterpret_cast<float*>(smem4);  // ds[query][key], kDS16
+  bf16* so = reinterpret_cast<bf16*>(sds);       // out, before ds
+  bf16* sq = reinterpret_cast<bf16*>(sds + kMaxP * kDS16);  // q * scale
+  bf16* sg = sq + kMaxP * S;
+  bf16* sk = sg + kMaxP * S;
+  bf16* sv = sk + kMaxP * S;
+  float* slse = reinterpret_cast<float*>(sv + kMaxP * S);
+  float* sD = slse + kMaxP;                      // D_i = g_i . out_i
+  uint32_t* sbits = reinterpret_cast<uint32_t*>(sD + kMaxP);
+  __shared__ unsigned char smask[kMaxP];
+
+  const int W = (P + 31) >> 5;
+  const int P16 = (P + 15) & ~15;
+  const long long gh = blockIdx.x;
+  const long long base = gh * P * Dh;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int gr = lane >> 2, t = lane & 3;
+  const int lm = lane >> 3, lr = lane & 7;   // ldmatrix: matrix, its row
+  r3dl::stage_rows16<Dh>(sq, q + base, P, P16, tid, kThreads);
+  r3dl::stage_rows16<Dh>(sg, gout + base, P, P16, tid, kThreads);
+  r3dl::stage_rows16<Dh>(sk, k + base, P, P16, tid, kThreads);
+  r3dl::stage_rows16<Dh>(sv, v + base, P, P16, tid, kThreads);
+  r3dl::stage_rows16<Dh>(so, o + base, P, P16, tid, kThreads);
+  r3dl::cp_async_commit();
+  for (int i = tid; i < P * W; i += kThreads) sbits[i] = bits[gh * P * W + i];
+  if (tid < kMaxP) slse[tid] = tid < P ? lse[gh * P + tid] : 0.f;
+  bool valid = false;
+  if (tid < P) valid = smask[tid] = kv[gh / H * P + tid];
+  r3dl::cp_async_wait<0>();
+  const bool any_valid = __syncthreads_or(valid);
+  // q * scale rounded to bf16 in place (the forward's bf16 q * scale), and
+  // D in fp32, one row a warp (rows P..P16-1 are zero)
+  for (int i = tid; i < P16 * (Dh / 2); i += kThreads) {
+    const int r = i / (Dh / 2), c = 2 * (i - r * (Dh / 2));
+    uint32_t* p = reinterpret_cast<uint32_t*>(sq + r * S + c);
+    const float2 f = r3dl::unpack_bf16(*p);
+    *p = r3dl::pack_bf16(f.x * scale, f.y * scale);
+  }
+  for (int r = warp; r < kMaxP; r += kWarps) {
+    float x = 0.f;
+    if (r < P && lane < Dh)
+      x = __bfloat162float(sg[r * S + lane]) *
+          __bfloat162float(so[r * S + lane]);
+#pragma unroll
+    for (int sh = 16; sh; sh >>= 1) x += __shfl_xor_sync(kFull, x, sh);
+    if (lane == 0) sD[r] = x;
+  }
+  __syncthreads();
+
+  // ---- phase 1: warp w owns keys 16w..16w+15, the queries in 16-query
+  // blocks ----
+  const int j0 = warp * 16 + gr, j1 = j0 + 8;   // this lane's keys
+  if (warp * 16 < P) {
+    // A fragments of this warp's k and v rows: matrix i of an .x4 holds
+    // keys 8 (i % 2).., head dims 16 kk + 8 (i / 2)..
+    uint32_t ka[KF + kTail][4], va[KF + kTail][4];
+#pragma unroll
+    for (int kk = 0; kk < KF; ++kk) {
+      const int off = (warp * 16 + 8 * (lm & 1) + lr) * S + 16 * kk +
+                      8 * (lm >> 1);
+      r3dl::ldmatrix_x4(ka[kk], sk + off);
+      r3dl::ldmatrix_x4(va[kk], sv + off);
+    }
+    if constexpr (kTail) {
+      const int off = (warp * 16 + 8 * (lm & 1) + lr) * S + 16 * KF;
+      uint32_t a[2];
+      r3dl::ldmatrix_x2(a, sk + off);
+      ka[KF][0] = a[0];
+      ka[KF][1] = a[1];
+      r3dl::ldmatrix_x2(a, sv + off);
+      va[KF][0] = a[0];
+      va[KF][1] = a[1];
+    }
+    const bool val0 = j0 < P && smask[j0], val1 = j1 < P && smask[j1];
+    const float inv_p = 1.f / (float)P;
+    float dka[ND][4], dva[ND][4];
+#pragma unroll
+    for (int d = 0; d < ND; ++d)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dka[d][e] = dva[d][e] = 0.f;
+
+    for (int m = 0; m < P16 / 16; ++m) {
+      // S^T = k (q scale)^T and dP^T = v g^T on queries 16m..16m+15, two
+      // 8-query C tiles each; B from q and g rows: matrix i of an .x4
+      // holds queries 16m + 8 (i / 2).., head dims 16 kk + 8 (i % 2)..
+      float s[2][4] = {}, dp[2][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < KF; ++kk) {
+        const int off = (16 * m + 8 * (lm >> 1) + lr) * S + 16 * kk +
+                        8 * (lm & 1);
+        uint32_t b[4];
+        r3dl::ldmatrix_x4(b, sq + off);
+        r3dl::mma_bf16(s[0], ka[kk], b[0], b[1]);
+        r3dl::mma_bf16(s[1], ka[kk], b[2], b[3]);
+        r3dl::ldmatrix_x4(b, sg + off);
+        r3dl::mma_bf16(dp[0], va[kk], b[0], b[1]);
+        r3dl::mma_bf16(dp[1], va[kk], b[2], b[3]);
+      }
+      if constexpr (kTail) {
+        const int off = (16 * m + 8 * (lm & 1) + lr) * S + 16 * KF;
+        uint32_t b[2];
+        r3dl::ldmatrix_x2(b, sq + off);
+        r3dl::mma_bf16_k8(s[0], ka[KF][0], ka[KF][1], b[0]);
+        r3dl::mma_bf16_k8(s[1], ka[KF][0], ka[KF][1], b[1]);
+        r3dl::ldmatrix_x2(b, sg + off);
+        r3dl::mma_bf16_k8(dp[0], va[KF][0], va[KF][1], b[0]);
+        r3dl::mma_bf16_k8(dp[1], va[KF][0], va[KF][1], b[1]);
+      }
+      // p, the dropped p, ds (the fp32 kernel's arithmetic); ds to shared
+      // memory for phase 2
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 16 * m + 8 * h + 2 * t + (e & 1);   // query
+          const int j = e < 2 ? j0 : j1;                    // key
+          const bool val = e < 2 ? val0 : val1;
+          const bool live = c < P && j < P;
+          const bool kp =
+              live && ((sbits[c * W + (j >> 5)] >> (j & 31)) & 1u);
+          const float p = !any_valid ? inv_p
+                          : val      ? __expf(s[h][e] - slse[c])
+                                     : 0.f;
+          const float da = kp ? dp[h][e] * inv_keep : 0.f;
+          const float ds = live && val ? p * (da - sD[c]) : 0.f;
+          sds[c * kDS16 + j] = ds;
+          s[h][e] = kp ? p * inv_keep : 0.f;
+          dp[h][e] = ds;
+        }
+      }
+      // dv += (dropped p)^T g and dk += ds^T (q scale): the two C tiles
+      // are the A fragment of the 16 queries (keys gr / gr + 8, queries
+      // 2t.. of tile 0, then of tile 1), each fp32 pair split into its
+      // three bf16 pieces
+      uint32_t hi[4], mid[4], lo[4];
+      {
+        const float2 pd[4] = {make_float2(s[0][0], s[0][1]),
+                              make_float2(s[0][2], s[0][3]),
+                              make_float2(s[1][0], s[1][1]),
+                              make_float2(s[1][2], s[1][3])};
+        split_fragment(pd, hi, mid, lo);
+      }
+      mma_rows_t<Dh>(dva, hi, mid, lo, sg + 16 * m * S, lane);
+      {
+        const float2 ds[4] = {make_float2(dp[0][0], dp[0][1]),
+                              make_float2(dp[0][2], dp[0][3]),
+                              make_float2(dp[1][0], dp[1][1]),
+                              make_float2(dp[1][2], dp[1][3])};
+        split_fragment(ds, hi, mid, lo);
+      }
+      mma_rows_t<Dh>(dka, hi, mid, lo, sq + 16 * m * S, lane);
+    }
+#pragma unroll
+    for (int d = 0; d < ND; ++d) {
+      const long long c = base + 8 * d + 2 * t;
+      if (j0 < P) {
+        *reinterpret_cast<uint32_t*>(dk + c + (long long)j0 * Dh) =
+            r3dl::pack_bf16(dka[d][0], dka[d][1]);
+        *reinterpret_cast<uint32_t*>(dv + c + (long long)j0 * Dh) =
+            r3dl::pack_bf16(dva[d][0], dva[d][1]);
+      }
+      if (j1 < P) {
+        *reinterpret_cast<uint32_t*>(dk + c + (long long)j1 * Dh) =
+            r3dl::pack_bf16(dka[d][2], dka[d][3]);
+        *reinterpret_cast<uint32_t*>(dv + c + (long long)j1 * Dh) =
+            r3dl::pack_bf16(dva[d][2], dva[d][3]);
+      }
+    }
+  }
+  __syncthreads();
+
+  // ---- phase 2: warp w owns queries 16w..16w+15; dq = (ds k) scale, the
+  // ds rows split into their three bf16 pieces, k read transposed ----
+  if (warp * 16 >= P) return;
+  const int r0 = warp * 16 + gr, r1 = r0 + 8;
+  float acc[ND][4];
+#pragma unroll
+  for (int d = 0; d < ND; ++d)
+    acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
+  for (int kk = 0; kk < P16 / 16; ++kk) {
+    const float* d0 = sds + r0 * kDS16 + 16 * kk + 2 * t;
+    const float* d1 = sds + r1 * kDS16 + 16 * kk + 2 * t;
+    const float2 a[4] = {*reinterpret_cast<const float2*>(d0),
+                         *reinterpret_cast<const float2*>(d1),
+                         *reinterpret_cast<const float2*>(d0 + 8),
+                         *reinterpret_cast<const float2*>(d1 + 8)};
+    uint32_t hi[4], mid[4], lo[4];
+    split_fragment(a, hi, mid, lo);
+    mma_rows_t<Dh>(acc, hi, mid, lo, sk + 16 * kk * S, lane);
+  }
+#pragma unroll
+  for (int d = 0; d < ND; ++d) {
+    const long long c = base + 8 * d + 2 * t;
+    if (r0 < P)
+      *reinterpret_cast<uint32_t*>(dq + c + (long long)r0 * Dh) =
+          r3dl::pack_bf16(acc[d][0] * scale, acc[d][1] * scale);
+    if (r1 < P)
+      *reinterpret_cast<uint32_t*>(dq + c + (long long)r1 * Dh) =
+          r3dl::pack_bf16(acc[d][2] * scale, acc[d][3] * scale);
   }
 }
 
@@ -531,12 +834,22 @@ int launch_bwd(const T* q, const T* k, const T* v, const unsigned char* kv,
                const T* out, const float* lse, const uint32_t* bits,
                const T* gout, T* dq, T* dk, T* dv, int G, int H, int P,
                float scale, float inv_keep, cudaStream_t stream) {
-  static const cudaError_t attr =
-      r3dl::allow_smem(attn_drop_bwd_kernel<Dh, T>, bwd_smem<Dh>());
-  if (attr != cudaSuccess) return (int)attr;
-  attn_drop_bwd_kernel<Dh, T><<<(unsigned)((long long)G * H), kThreads,
-                                bwd_smem<Dh>(), stream>>>(
-      q, k, v, kv, out, lse, bits, gout, dq, dk, dv, H, P, scale, inv_keep);
+  const unsigned grid = (unsigned)((long long)G * H);
+  if constexpr (std::is_same<T, float>::value) {
+    static const cudaError_t attr =
+        r3dl::allow_smem(attn_drop_bwd_kernel<Dh>, bwd_smem<Dh>());
+    if (attr != cudaSuccess) return (int)attr;
+    attn_drop_bwd_kernel<Dh><<<grid, kThreads, bwd_smem<Dh>(), stream>>>(
+        q, k, v, kv, out, lse, bits, gout, dq, dk, dv, H, P, scale,
+        inv_keep);
+  } else {
+    static const cudaError_t attr =
+        r3dl::allow_smem(attn_drop_bwd16_kernel<Dh>, bwd16_smem<Dh>());
+    if (attr != cudaSuccess) return (int)attr;
+    attn_drop_bwd16_kernel<Dh><<<grid, kThreads, bwd16_smem<Dh>(), stream>>>(
+        q, k, v, kv, out, lse, bits, gout, dq, dk, dv, H, P, scale,
+        inv_keep);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -569,7 +882,13 @@ int bwd(const T* q, const T* k, const T* v, const unsigned char* kv,
         const T* out, const float* lse, const unsigned* bits, const T* gout,
         T* dq, T* dk, T* dv, int G, int H, int P, int Dh, float scale,
         float inv_keep, cudaStream_t stream) {
-  if (P < 1 || P > kMaxP) return (int)cudaErrorInvalidValue;
+  // the bf16 kernel stages q, k, v, out and g 16 bytes at a time
+  if (P < 1 || P > kMaxP ||
+      (!std::is_same<T, float>::value &&
+       ((((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out |
+          (uintptr_t)gout) & 15) ||
+        (((uintptr_t)dq | (uintptr_t)dk | (uintptr_t)dv) & 3))))
+    return (int)cudaErrorInvalidValue;
   if ((long long)G * H == 0) return (int)cudaGetLastError();
   switch (Dh) {
     case 8: return launch_bwd<8, T>(q, k, v, kv, out, lse, bits, gout, dq,
@@ -609,7 +928,8 @@ extern "C" int r3dl_attention_dropout_bwd(
 
 // The same with bf16 q, k, v, out (and g, dq, dk, dv); lse and bits as
 // above; scale a bf16 value; the forward takes k and v 16-byte aligned, q
-// and out 4-byte.
+// and out 4-byte; the backward q, k, v, out and g 16-byte aligned, dq, dk
+// and dv 4-byte.
 extern "C" int r3dl_attention_dropout_fwd_bf16(
     const r3dl::bf16* q, const r3dl::bf16* k, const r3dl::bf16* v,
     const unsigned char* kv, r3dl::bf16* out, float* lse, unsigned* bits,

@@ -46,14 +46,29 @@
 // same 3xTF32 warp tiles. Dead links inside a live stage are multiplied.
 //
 // bf16 (r3dl_conv_weight_grad_bf16, training under compute_dtype
-// bfloat16): x and g bf16, dW fp32. Both paths stage bf16 rows (the CPE
-// path's cp.async pieces are 8 channels, so it takes channel counts that
-// are multiples of 8; ops/conv.py pads the Concat stem's 263 inputs to
-// 264) and widen each fragment as it is read; a product of two bf16
-// values is exact in TF32, so each is one mma pass (tc_common.cuh mma1).
-// The sums are fp32, in the same fixed order as the fp32 path: bit-equal
-// from run to run. The caller rounds each tap's sum to bf16 once, as the
-// Pallas VJP (pallas_conv.py `dW.astype(weight.dtype)`) does.
+// bfloat16): x and g bf16, dW fp32 sums, the JAX kernel's own arithmetic
+// at bf16 (single-pass products with fp32 sums, pallas_conv.py `_dw_kernel`;
+// the caller rounds each tap's sum to bf16 once, as the Pallas VJP's
+// `dW.astype(weight.dtype)` does). Both operands are bf16 values, so one
+// bf16 mma.sync.m16n8k16 with fp32 sums is exact per product: both paths
+// keep bf16 rows in shared memory at the 144-byte stride (8-row ldmatrix
+// conflict-free) and load the fragments with ldmatrix .x4.trans (the mma's
+// k dimension runs over rows, so A = X^T and B = G are both read
+// transposed), 16 rows a step. Nothing is widened before its product:
+// against the earlier bf16 design (rows widened scalar by scalar as each
+// fragment was read, one TF32 m16n8k8 per 8 rows) that is half the mma
+// instructions, 4 ldmatrix a step in place of 32 scalar loads and
+// conversions. The CPE path (channel counts multiples of 8, the 16-byte
+// cp.async pieces; ops/conv.py pads the Concat stem's 263 inputs to 264)
+// keeps the live lists, the fixed row ranges and sum_splits_kernel, and
+// stages 128 listed rows a stage (the fp32 stage's bytes; few, full
+// stages, 2 in flight): a list's last step multiplies the zero rows that
+// cp.async filled past its end. Each stage's sums (8 mma a chain) are
+// added to the fp32 totals in registers, as the fp32 path does, in the
+// same fixed order: bit-equal from run to run. The stem path (125 x 7
+// (tap, channel) columns) runs the same step on bf16 rows in
+// wgrad_taps16_kernel (below), whose staging reads each (row, tap) map
+// entry once and issues a stage's loads together.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -66,75 +81,95 @@ namespace {
 using r3dl::Split;
 using r3dl::split;
 
+using r3dl::bf16;
+
 constexpr int kT = 64;         // dW tile: 64 input x 64 output channels
-constexpr int kRB = 64;        // live rows per pipeline stage (CPE path)
 constexpr int kStages = 2;     // pipeline stages in flight
 constexpr int kRK = 32;        // cloud rows per stage (stem path)
-constexpr int kS = kT + 8;     // shared row stride, 8 mod 32: the fragment
-                               // loads (row c, col r) hit 32 banks
+constexpr int kS = kT + 8;     // shared row stride: fp32 8 mod 32, so the
+                               // fragment loads (row c, col r) hit 32
+                               // banks; bf16 144 bytes, an odd multiple of
+                               // 16, so ldmatrix's 8 rows do
 constexpr int kThreads = 128;  // 4 warps, a 32 x 32 dW tile each
 constexpr int kCompactThreads = 256;
+// live rows per pipeline stage (CPE path): 64 fp32 rows; 128 bf16 rows,
+// the same bytes
+template <typename T>
+__host__ __device__ constexpr int rows_per_stage() {
+  return std::is_same<T, float>::value ? 64 : 128;
+}
 // the ring of x and g rows (T: fp32 or bf16, rows of kS elements), and of
-// their indices: 74,752 B at 2 stages for fp32, three blocks an SM
+// their indices: 74,752 B (fp32) and 75,776 B (bf16) at 2 stages, three
+// blocks an SM
 template <typename T>
 constexpr size_t tc_smem() {
-  return kStages * kRB * (2 * kS * sizeof(T) + 2 * sizeof(int));
+  return kStages * rows_per_stage<T>() *
+         (2 * kS * sizeof(T) + 2 * sizeof(int));
 }
 
-// One 8-row step of a warp's 32 x 32 tile: A = X^T (rows of xr are cloud
-// rows, columns channels), B = G; xr / gr point at row 8 s of the stage.
-// fp32 rows: 3xTF32; bf16 rows: one pass on the widened values.
-template <typename T>
-__device__ __forceinline__ void step(float (&acc)[2][4][4], const T* xr,
-                                     const T* gr, int cm, int on, int gid,
-                                     int tig) {
-  const T* x0 = xr + tig * kS;
-  const T* x4 = x0 + 4 * kS;
-  const T* g0 = gr + tig * kS;
-  const T* g4 = g0 + 4 * kS;
-  if constexpr (std::is_same<T, float>::value) {
-    Split a[2][4], b[4][2];
+// One step of a warp's 32 x 32 tile: A = X^T (rows of xr are cloud rows,
+// columns channels), B = G; xr / gr point at the step's first row.
+// fp32 rows: 8 rows, 3xTF32 m16n8k8 on split fragments.
+__device__ __forceinline__ void step(float (&acc)[2][4][4], const float* xr,
+                                     const float* gr, int cm, int on,
+                                     int lane) {
+  const int gid = lane >> 2, tig = lane & 3;
+  const float* x0 = xr + tig * kS;
+  const float* x4 = x0 + 4 * kS;
+  const float* g0 = gr + tig * kS;
+  const float* g4 = g0 + 4 * kS;
+  Split a[2][4], b[4][2];
 #pragma unroll
-    for (int m = 0; m < 2; ++m) {
-      const int c = cm + 16 * m + gid;
-      a[m][0] = split(x0[c]);
-      a[m][1] = split(x0[c + 8]);
-      a[m][2] = split(x4[c]);
-      a[m][3] = split(x4[c + 8]);
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int o = on + 8 * j + gid;
-      b[j][0] = split(g0[o]);
-      b[j][1] = split(g4[o]);
-    }
-#pragma unroll
-    for (int m = 0; m < 2; ++m)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) r3dl::mma3(acc[m][j], a[m], b[j]);
-  } else {
-    float a[2][4], b[4][2];
-#pragma unroll
-    for (int m = 0; m < 2; ++m) {
-      const int c = cm + 16 * m + gid;
-      a[m][0] = r3dl::widen(x0[c]);
-      a[m][1] = r3dl::widen(x0[c + 8]);
-      a[m][2] = r3dl::widen(x4[c]);
-      a[m][3] = r3dl::widen(x4[c + 8]);
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int o = on + 8 * j + gid;
-      b[j][0] = r3dl::widen(g0[o]);
-      b[j][1] = r3dl::widen(g4[o]);
-    }
-#pragma unroll
-    for (int m = 0; m < 2; ++m)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        r3dl::mma1(acc[m][j], a[m][0], a[m][1], a[m][2], a[m][3], b[j][0],
-                   b[j][1]);
+  for (int m = 0; m < 2; ++m) {
+    const int c = cm + 16 * m + gid;
+    a[m][0] = split(x0[c]);
+    a[m][1] = split(x0[c + 8]);
+    a[m][2] = split(x4[c]);
+    a[m][3] = split(x4[c + 8]);
   }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int o = on + 8 * j + gid;
+    b[j][0] = split(g0[o]);
+    b[j][1] = split(g4[o]);
+  }
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) r3dl::mma3(acc[m][j], a[m], b[j]);
+}
+
+// bf16 rows: 16 rows, one bf16 m16n8k16 per 16 x 8 tile, exact products
+// in fp32 sums. The mma's k dimension runs over rows, so both operands
+// are read transposed by ldmatrix .trans: A matrix i holds rows 8 (i / 2)..
+// of channels cm + 16 m + 8 (i % 2).. (a0..a3 of the 16 x 16 A), B matrix
+// i rows 8 (i % 2).. of outputs on + 16 jj + 8 (i / 2).. (b0, b1 of tile
+// 2 jj, then of 2 jj + 1).
+__device__ __forceinline__ void step(float (&acc)[2][4][4], const bf16* xr,
+                                     const bf16* gr, int cm, int on,
+                                     int lane) {
+  const int lm = lane >> 3, lr = lane & 7;
+  uint32_t a[2][4], b[2][4];
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+    r3dl::ldmatrix_x4_trans(
+        a[m], xr + (8 * (lm >> 1) + lr) * kS + cm + 16 * m + 8 * (lm & 1));
+#pragma unroll
+  for (int jj = 0; jj < 2; ++jj)
+    r3dl::ldmatrix_x4_trans(
+        b[jj], gr + (8 * (lm & 1) + lr) * kS + on + 16 * jj + 8 * (lm >> 1));
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      r3dl::mma_bf16(acc[m][j], a[m], b[j / 2][2 * (j % 2)],
+                     b[j / 2][2 * (j % 2) + 1]);
+}
+
+// rows a step of T's products takes
+template <typename T>
+__host__ __device__ constexpr int step_rows() {
+  return std::is_same<T, float>::value ? 8 : 16;
 }
 
 __device__ __forceinline__ void zero(float (&t)[2][4][4]) {
@@ -226,6 +261,8 @@ wgrad_tc_kernel(const T* __restrict__ x, const T* __restrict__ g,
                 int K, int Cin, int Cout, long long R, long long per,
                 int splits, int ctiles) {
   constexpr int V = 16 / sizeof(T);              // channels in 16 bytes
+  constexpr int kRB = rows_per_stage<T>();
+  constexpr int kSR = step_rows<T>();
   extern __shared__ float4 smem4[];
   T* xs = reinterpret_cast<T*>(smem4);           // [kStages][kRB][kS]
   T* gs = xs + kStages * kRB * kS;               // [kStages][kRB][kS]
@@ -244,6 +281,7 @@ wgrad_tc_kernel(const T* __restrict__ x, const T* __restrict__ g,
   zero(acc);
 
   // the list entries of stage st: thread t < kRB reads entry st kRB + t
+  static_assert(kRB <= kThreads, "one list entry a thread");
   auto fetch = [&](int st, int& src, int& row) {
     const int entry = st * kRB + tid;
     src = -1;
@@ -309,8 +347,9 @@ wgrad_tc_kernel(const T* __restrict__ x, const T* __restrict__ g,
     const int live = n - st * kRB < kRB ? n - st * kRB : kRB;
     float part[2][4][4];
     zero(part);
-    for (int r = 0; r < live; r += 8)
-      step(part, xb + r * kS, gb + r * kS, cm, on, gid, tig);
+    // bf16: 16-row steps; the rows past the list's end are zero-filled
+    for (int r = 0; r < live; r += kSR)
+      step(part, xb + r * kS, gb + r * kS, cm, on, lane);
     add(acc, part);
     if (tid < kRB) {              // slot buf: stage st's indices, done
       sidx[buf * kRB + tid] = src;
@@ -322,15 +361,14 @@ wgrad_tc_kernel(const T* __restrict__ x, const T* __restrict__ g,
              o0 + on, Cout, gid, tig);
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-wgrad_taps_kernel(const T* __restrict__ x, const int* __restrict__ idx,
+wgrad_taps_kernel(const float* __restrict__ x, const int* __restrict__ idx,
                   const unsigned char* __restrict__ ok,
-                  const T* __restrict__ g, float* __restrict__ out,
+                  const float* __restrict__ g, float* __restrict__ out,
                   int N, int K, int Cin, int Cout, long long R,
                   long long per) {
-  __shared__ T as[kRK * kS];
-  __shared__ T gsm[kRK * kS];
+  __shared__ float as[kRK * kS];
+  __shared__ float gsm[kRK * kS];
   __shared__ int colk[kT], colc[kT], rbase[kRK];
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
   const int gid = lane >> 2, tig = lane & 3;
@@ -358,7 +396,7 @@ wgrad_taps_kernel(const T* __restrict__ x, const int* __restrict__ idx,
     for (int e = tid; e < kRK * kT; e += kThreads) {
       const int rr = e / kT, aa = e % kT;
       const int k = colk[aa], rb = rbase[rr];
-      T val = r3dl::narrow<T>(0.f);
+      float val = 0.f;
       if (rb >= 0 && k >= 0) {
         const long long off = (r0 + rr) * K + k;
         if (ok[off]) {
@@ -372,17 +410,117 @@ wgrad_taps_kernel(const T* __restrict__ x, const int* __restrict__ idx,
       const int rr = e / kT, cc = e % kT;
       const long long r = r0 + rr;
       const int co = o0 + cc;
-      gsm[rr * kS + cc] = (r < r_end && co < Cout) ? g[r * Cout + co]
-                                                   : r3dl::narrow<T>(0.f);
+      gsm[rr * kS + cc] = (r < r_end && co < Cout) ? g[r * Cout + co] : 0.f;
     }
     if (__syncthreads_or(live)) {
       float part[2][4][4];
       zero(part);
 #pragma unroll
       for (int r = 0; r < kRK; r += 8)
-        step(part, as + r * kS, gsm + r * kS, cm, on, gid, tig);
+        step(part, as + r * kS, gsm + r * kS, cm, on, lane);
       add(acc, part);
     }
+    __syncthreads();
+  }
+  store_tile(acc, out + (long long)blockIdx.z * KC * Cout, a0 + cm, KC,
+             o0 + on, Cout, gid, tig);
+}
+
+// The stem path at bf16 (the header): the same tile of 64 (tap, channel)
+// columns and the same step; a stage is 64 rows, staged in three passes
+// whose loads are independent of each other within a pass (the fp32
+// kernel's staging chains ok -> idx -> x load by load, element by element,
+// and took nearly all of its time): the ok and idx entries of the stage's
+// rows and the tile's taps, each read once into shared memory (the fp32
+// staging reads them once per channel); the g rows, 16 bytes a load; then
+// the x values, kPer independent loads a thread.
+constexpr int kRK16 = 64;      // cloud rows per stage (stem path, bf16)
+
+__global__ void __launch_bounds__(kThreads)
+wgrad_taps16_kernel(const bf16* __restrict__ x, const int* __restrict__ idx,
+                    const unsigned char* __restrict__ ok,
+                    const bf16* __restrict__ g, float* __restrict__ out,
+                    int N, int K, int Cin, int Cout, long long R,
+                    long long per) {
+  constexpr int kPer = kRK16 * kT / kThreads;   // x values a thread a stage
+  __shared__ __align__(16) bf16 as[kRK16 * kS];
+  __shared__ __align__(16) bf16 gsm[kRK16 * kS];
+  __shared__ int ssrc[kRK16 * kT];   // (row, tap): the source row, or -1
+  __shared__ int colk[kT], colc[kT];
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int a0 = blockIdx.x * kT, o0 = blockIdx.y * kT;
+  const int cm = 32 * (w & 1), on = 32 * (w >> 1);
+  const int KC = K * Cin;
+  // the tile's taps kb .. kb + ntaps - 1
+  const int kb = a0 / Cin;
+  const int ntaps = (min(a0 + kT, KC) - 1) / Cin - kb + 1;
+  const int r_begin = (int)(blockIdx.z * per);
+  const int r_end = (int)min((long long)r_begin + per, R);
+  if (tid < kT) {                  // the tile's (tap, channel) columns
+    const int a = a0 + tid;
+    colk[tid] = a < KC ? a / Cin - kb : -1;
+    colc[tid] = a < KC ? a % Cin : 0;
+  }
+  __syncthreads();
+  // this thread's column and its rows tid / kT + i kThreads / kT
+  const int aa = tid % kT, kt = colk[aa], cc = colc[aa];
+
+  float acc[2][4][4];
+  zero(acc);
+
+  for (int r0 = r_begin; r0 < r_end; r0 += kRK16) {
+    int live = 0;
+#pragma unroll 4
+    for (int e = tid; e < kRK16 * ntaps; e += kThreads) {
+      const int rr = e / ntaps, t = e - rr * ntaps;
+      const int r = r0 + rr;
+      int src = -1;
+      if (r < r_end) {
+        const long long off = (long long)r * K + kb + t;
+        const unsigned char o = ok[off];
+        const int i = idx[off];
+        src = o ? r / N * N + i : -1;
+        live |= o;
+      }
+      ssrc[rr * ntaps + t] = src;
+    }
+    for (int e = tid; e < kRK16 * (kT / 8); e += kThreads) {
+      const int rr = e / (kT / 8), q = e % (kT / 8);
+      const int r = r0 + rr, co = o0 + 8 * q;
+      bf16* dst = gsm + rr * kS + 8 * q;
+      if (Cout % 8 == 0) {
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        if (r < r_end && co < Cout)
+          v = *reinterpret_cast<const uint4*>(g + (long long)r * Cout + co);
+        *reinterpret_cast<uint4*>(dst) = v;
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          dst[j] = r < r_end && co + j < Cout
+                       ? g[(long long)r * Cout + co + j]
+                       : r3dl::narrow<bf16>(0.f);
+      }
+    }
+    if (!__syncthreads_or(live)) continue;   // no live link in the tile
+    bf16 v[kPer];
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int rr = tid / kT + i * (kThreads / kT);
+      const int src = kt >= 0 ? ssrc[rr * ntaps + kt] : -1;
+      v[i] = src >= 0 ? x[(long long)src * Cin + cc]
+                      : r3dl::narrow<bf16>(0.f);
+    }
+#pragma unroll
+    for (int i = 0; i < kPer; ++i)
+      as[(tid / kT + i * (kThreads / kT)) * kS + aa] = v[i];
+    __syncthreads();
+    float part[2][4][4];
+    zero(part);
+#pragma unroll
+    for (int r = 0; r < kRK16; r += 16)
+      step(part, as + r * kS, gsm + r * kS, cm, on, lane);
+    add(acc, part);
     __syncthreads();
   }
   store_tile(acc, out + (long long)blockIdx.z * KC * Cout, a0 + cm, KC,
@@ -418,7 +556,9 @@ int weight_grad(const T* x, const int* idx, const unsigned char* ok,
       (long long)splits * rows_per_split < R ||
       list_bytes + part_bytes > work_bytes ||
       (list_bytes + part_bytes > 0 && !work) ||
-      (compacted && (((uintptr_t)x | (uintptr_t)g) & 15)))
+      (compacted && (((uintptr_t)x | (uintptr_t)g) & 15)) ||
+      (!compacted && sizeof(T) == 2 && Cout % 8 == 0 &&
+       ((uintptr_t)g & 15)))
     return (int)cudaErrorInvalidValue;
   float* part = splits > 1
                     ? reinterpret_cast<float*>(static_cast<char*>(work) +
@@ -443,12 +583,14 @@ int weight_grad(const T* x, const int* idx, const unsigned char* ok,
         x, g, rows, srcs, counts, part, K, Cin, Cout, R, rows_per_split,
         splits, ctiles);
   } else {
-    wgrad_taps_kernel<T><<<dim3((unsigned)((K * Cin + kT - 1) / kT),
-                                (unsigned)((Cout + kT - 1) / kT),
-                                (unsigned)splits),
-                           kThreads, 0, stream>>>(x, idx, ok, g, part, N, K,
-                                                  Cin, Cout, R,
-                                                  rows_per_split);
+    const dim3 grid((unsigned)((K * Cin + kT - 1) / kT),
+                    (unsigned)((Cout + kT - 1) / kT), (unsigned)splits);
+    if constexpr (std::is_same<T, float>::value)
+      wgrad_taps_kernel<<<grid, kThreads, 0, stream>>>(
+          x, idx, ok, g, part, N, K, Cin, Cout, R, rows_per_split);
+    else
+      wgrad_taps16_kernel<<<grid, kThreads, 0, stream>>>(
+          x, idx, ok, g, part, N, K, Cin, Cout, R, rows_per_split);
   }
   if (splits > 1) {
     const cudaError_t err = cudaGetLastError();
@@ -466,7 +608,8 @@ int weight_grad(const T* x, const int* idx, const unsigned char* ok,
 // Cout % 4 == 0) puts there the live lists, 2 K B N + K splits int32
 // (rounded up to 16 bytes), then, with splits > 1, the partial dW
 // (splits, K, Cin, Cout) fp32; the stem path only the partial dW.
-// x and g 16-byte aligned on the CPE path. rows_per_split * splits >= B N.
+// x and g 16-byte aligned on the CPE path (g also on the bf16 stem path
+// where Cout % 8 == 0). rows_per_split * splits >= B N.
 extern "C" int r3dl_conv_weight_grad(const float* x, const int* idx,
                                      const unsigned char* ok, const float* g,
                                      void* work, float* dw, int B, int N,

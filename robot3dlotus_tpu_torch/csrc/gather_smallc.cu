@@ -77,6 +77,14 @@
 // (0.46 of the bound at C = 5, scripts/torch_k10_plans.py).
 // The adds into a shared copy come in a run-dependent order, so K10
 // agrees with a fixed-order sum to rounding, not bit for bit.
+// bf16 (r3dl_scatter_smallc_add_bf16: the stems' input gradients under
+// compute_dtype bfloat16): g and dx bf16, the same plan and shared fp32
+// copies; g is read four values (8 bytes) a load and widened, and the fp32
+// sums are rounded to bf16 once, as the Pallas VJP (pallas_gather.py
+// `_smallc_op_bwd`: fp32 sums, one cast to the input's dtype) rounds them:
+// by the block that writes dx when ranges == 1, else by the ranges' sum,
+// which adds the fp32 partials first. Its bound is the same sum over
+// half of g's bytes (164 MB at the policy stem's B = 32 call, C = 7).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -150,22 +158,44 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 constexpr int kScatterThreads = 1024;
-constexpr int kUnroll = 2;         // float4 loads of g in flight a thread
+constexpr int kUnroll = 2;         // 4-element loads of g in flight a thread
 constexpr int kMaxSmem = 227 * 1024;
 
 __host__ __device__ inline size_t scatter_smem(int C, int window) {
   return ((size_t)4 * window * C + 15) / 16 * 16;
 }
 
+// 4 consecutive elements of g, widened: one float4 (fp32) or one 8-byte
+// load of four bf16 (two pairs), evict-first
+__device__ __forceinline__ float4 load4(const float* p) {
+  return __ldcs(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 load4(const r3dl::bf16* p) {
+  const uint2 u = __ldcs(reinterpret_cast<const uint2*>(p));
+  const float2 lo = r3dl::unpack_bf16(u.x), hi = r3dl::unpack_bf16(u.y);
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+// 4 consecutive fp32 sums into dx, rounded once to T
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4(r3dl::bf16* p, float4 v) {
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(r3dl::pack_bf16(v.x, v.y), r3dl::pack_bf16(v.z, v.w));
+}
+
 // dx[b, i, c] += g[b, m, c] for the rows m of range blockIdx.x and the
 // destination rows i of slab blockIdx.z, into a shared-memory copy of the
-// slab written once at the end (into out: dx, or the range's partial)
-template <int kC, typename I>
+// slab written once at the end: into dx (ranges == 1, rounded once to T)
+// or into the range's fp32 partial. T, the type of g and dx: fp32 or bf16
+// (widened as it is read; the sums fp32 either way).
+template <int kC, typename I, typename T>
 __global__ void __launch_bounds__(kScatterThreads, 2)
-    scatter_smallc_kernel(const float* __restrict__ g,
-                          const I* __restrict__ idx, float* __restrict__ out,
-                          int B, int n, int M, int c_rt, int ranges,
-                          int window, bool vec4) {
+    scatter_smallc_kernel(const T* __restrict__ g,
+                          const I* __restrict__ idx, T* __restrict__ dx,
+                          float* __restrict__ part, int B, int n, int M,
+                          int c_rt, int ranges, int window, bool vec4) {
   extern __shared__ float4 smem4[];
   float* s_dx = reinterpret_cast<float*>(smem4);
   const unsigned C = kC > 0 ? kC : c_rt;
@@ -177,7 +207,7 @@ __global__ void __launch_bounds__(kScatterThreads, 2)
       min(M, (int)((long long)r * nt / ranges) * kTileRows);
   const unsigned m1 =
       min(M, (int)((long long)(r + 1) * nt / ranges) * kTileRows);
-  const float* gb = g + (size_t)b * M * C;
+  const T* gb = g + (size_t)b * M * C;
   const I* ib = idx + (size_t)b * M;
   // the slab's row of cloud row m, or -1: a 64-bit test, so that no
   // index outside [d0, d0 + rows_w) (int64 ones too) can alias into it
@@ -191,10 +221,10 @@ __global__ void __launch_bounds__(kScatterThreads, 2)
   __syncthreads();
   const unsigned e1 = m1 * C;
   if (vec4) {
-    // each thread: kUnroll float4 of g (consecutive threads on consecutive
-    // 16 bytes) and the indices of their rows (<= 2 a float4 for C >= 4,
-    // <= 4 below), all loads issued before the first add; no barrier
-    // until the end
+    // each thread: kUnroll 4-element loads of g (consecutive threads on
+    // consecutive elements) and the indices of their rows (<= 2 a load
+    // for C >= 4, <= 4 below), all loads issued before the first add; no
+    // barrier until the end
     constexpr unsigned kStep = 4 * kScatterThreads;
     const int rows_per = C >= 4 ? 2 : 4;
     for (unsigned base = m0 * C + 4 * threadIdx.x; base < e1;
@@ -205,7 +235,7 @@ __global__ void __launch_bounds__(kScatterThreads, 2)
       for (int u = 0; u < kUnroll; ++u) {
         const unsigned e = base + u * kStep;
         if (e >= e1) break;
-        v[u] = __ldcs(reinterpret_cast<const float4*>(gb + e));
+        v[u] = load4(gb + e);
         const unsigned row = e / C;
         const unsigned last = (e + 3) / C;
 #pragma unroll
@@ -238,25 +268,32 @@ __global__ void __launch_bounds__(kScatterThreads, 2)
     for (unsigned e = m0 * C + threadIdx.x; e < e1; e += kScatterThreads) {
       const unsigned row = e / C;
       const int i = slab_row(row);
-      if (i >= 0) atomicAdd(s_dx + i * C + (e - row * C), __ldcs(gb + e));
+      if (i >= 0)
+        atomicAdd(s_dx + i * C + (e - row * C), r3dl::widen(__ldcs(gb + e)));
     }
   }
   __syncthreads();
-  float* ob = out + ((ranges > 1 ? (size_t)r * B : 0) + b) * n * C +
-              (size_t)d0 * C;
-  for (int e = threadIdx.x; e < rows_w * (int)C; e += kScatterThreads)
-    ob[e] = s_dx[e];
+  const size_t off = (size_t)b * n * C + (size_t)d0 * C;
+  if (ranges > 1) {
+    float* ob = part + (size_t)r * B * n * C + off;
+    for (int e = threadIdx.x; e < rows_w * (int)C; e += kScatterThreads)
+      ob[e] = s_dx[e];
+  } else {
+    T* ob = dx + off;
+    for (int e = threadIdx.x; e < rows_w * (int)C; e += kScatterThreads)
+      ob[e] = r3dl::narrow<T>(s_dx[e]);
+  }
 }
 
-// dx = the sum of the ranges' partials, in order; float4 lanes when the
-// partial's length is a multiple of 4
+// dx = the sum of the ranges' fp32 partials, in order, rounded once to T;
+// 4-element lanes when the partial's length is a multiple of 4
+template <typename T>
 __global__ void scatter_smallc_sum_kernel(const float* __restrict__ work,
-                                          float* __restrict__ dx,
-                                          long long n, int ranges) {
+                                          T* __restrict__ dx, long long n,
+                                          int ranges) {
   const long long stride = (long long)gridDim.x * blockDim.x;
   if (n % 4 == 0) {
     const float4* w4 = reinterpret_cast<const float4*>(work);
-    float4* d4 = reinterpret_cast<float4*>(dx);
     const long long n4 = n / 4;
     for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
          e < n4; e += stride) {
@@ -268,53 +305,84 @@ __global__ void scatter_smallc_sum_kernel(const float* __restrict__ work,
         v.z += p.z;
         v.w += p.w;
       }
-      d4[e] = v;
+      store4(dx + 4 * e, v);
     }
   } else {
     for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
          e < n; e += stride) {
       float v = work[e];
       for (int r = 1; r < ranges; ++r) v += work[r * n + e];
-      dx[e] = v;
+      dx[e] = r3dl::narrow<T>(v);
     }
   }
 }
 
-template <int kC, typename I>
-int launch_scatter(const float* g, const void* idx, float* dx, float* work,
-                   int B, int n, int M, int C, int ranges, int window,
+template <int kC, typename I, typename T>
+int launch_scatter(const T* g, const void* idx, T* dx, float* work, int B,
+                   int n, int M, int C, int ranges, int window,
                    cudaStream_t stream) {
   static const cudaError_t attr =
-      r3dl::allow_smem(scatter_smallc_kernel<kC, I>, kMaxSmem);
+      r3dl::allow_smem(scatter_smallc_kernel<kC, I, T>, kMaxSmem);
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid(ranges, B, (n + window - 1) / window);
-  // float4 loads when every cloud's and range's g starts 16-byte aligned
-  const bool vec4 = (long long)M * C % 4 == 0 && (uintptr_t)g % 16 == 0;
-  scatter_smallc_kernel<kC, I>
+  // 4-element loads when every cloud's and range's g starts aligned to
+  // them (16 bytes fp32, 8 bf16)
+  const bool vec4 = (long long)M * C % 4 == 0 &&
+                    (uintptr_t)g % (4 * sizeof(T)) == 0;
+  scatter_smallc_kernel<kC, I, T>
       <<<grid, kScatterThreads, scatter_smem(C, window), stream>>>(
-          g, static_cast<const I*>(idx), ranges > 1 ? work : dx, B, n, M, C,
-          ranges, window, vec4);
+          g, static_cast<const I*>(idx), dx, work, B, n, M, C, ranges,
+          window, vec4);
   return (int)cudaGetLastError();
 }
 
-template <typename I>
-int launch_scatter_c(const float* g, const void* idx, float* dx, float* work,
-                     int B, int n, int M, int C, int ranges, int window,
+template <typename I, typename T>
+int launch_scatter_c(const T* g, const void* idx, T* dx, float* work, int B,
+                     int n, int M, int C, int ranges, int window,
                      cudaStream_t stream) {
   switch (C) {
     case 4:
-      return launch_scatter<4, I>(g, idx, dx, work, B, n, M, C, ranges,
-                                  window, stream);
+      return launch_scatter<4, I, T>(g, idx, dx, work, B, n, M, C, ranges,
+                                     window, stream);
     case 5:
-      return launch_scatter<5, I>(g, idx, dx, work, B, n, M, C, ranges,
-                                  window, stream);
+      return launch_scatter<5, I, T>(g, idx, dx, work, B, n, M, C, ranges,
+                                     window, stream);
     case 7:
-      return launch_scatter<7, I>(g, idx, dx, work, B, n, M, C, ranges,
-                                  window, stream);
+      return launch_scatter<7, I, T>(g, idx, dx, work, B, n, M, C, ranges,
+                                     window, stream);
     default:
-      return launch_scatter<0, I>(g, idx, dx, work, B, n, M, C, ranges,
-                                  window, stream);
+      return launch_scatter<0, I, T>(g, idx, dx, work, B, n, M, C, ranges,
+                                     window, stream);
   }
+}
+
+template <typename T>
+int scatter_smallc(const T* g, const void* idx, T* dx, float* work, int B,
+                   int n, int M, int C, int idx64, int ranges, int window,
+                   long long work_bytes, cudaStream_t stream) {
+  if (B == 0 || n == 0 || C == 0) return (int)cudaGetLastError();
+  const int nt = (M + kTileRows - 1) / kTileRows;
+  const long long total = (long long)B * n * C;
+  if (B > kMaxGridY || C < 1 || C > 32 || M < 0 || ranges < 1 ||
+      ranges > 65535 || (ranges > 1 && ranges > nt) || window < 1 ||
+      (n + window - 1) / window > kMaxGridY ||
+      scatter_smem(C, window) > (size_t)kMaxSmem ||
+      (long long)n * C >= (1LL << 31) || (long long)M * C >= (1LL << 31) ||
+      (ranges > 1 && (!work || work_bytes < 4 * ranges * total)) ||
+      (ranges > 1 && total % 4 == 0 && (uintptr_t)dx % (4 * sizeof(T))))
+    return (int)cudaErrorInvalidValue;
+  const int err =
+      idx64 ? launch_scatter_c<long long, T>(g, idx, dx, work, B, n, M, C,
+                                             ranges, window, stream)
+            : launch_scatter_c<int, T>(g, idx, dx, work, B, n, M, C, ranges,
+                                       window, stream);
+  if (err != cudaSuccess || ranges == 1) return err;
+  const long long lanes = total % 4 == 0 ? total / 4 : total;
+  const long long blocks = (lanes + 255) / 256;
+  scatter_smallc_sum_kernel<T>
+      <<<(unsigned)(blocks < 4096 ? blocks : 4096), 256, 0, stream>>>(
+          work, dx, total, ranges);
+  return (int)cudaGetLastError();
 }
 
 template <typename I, typename T>
@@ -376,25 +444,18 @@ extern "C" int r3dl_scatter_smallc_add(const float* g, const void* idx,
                                        int M, int C, int idx64, int ranges,
                                        int window, long long work_bytes,
                                        cudaStream_t stream) {
-  if (B == 0 || n == 0 || C == 0) return (int)cudaGetLastError();
-  const int nt = (M + kTileRows - 1) / kTileRows;
-  const long long total = (long long)B * n * C;
-  if (B > kMaxGridY || C < 1 || C > 32 || M < 0 || ranges < 1 ||
-      ranges > 65535 || (ranges > 1 && ranges > nt) || window < 1 ||
-      (n + window - 1) / window > kMaxGridY ||
-      scatter_smem(C, window) > (size_t)kMaxSmem ||
-      (long long)n * C >= (1LL << 31) || (long long)M * C >= (1LL << 31) ||
-      (ranges > 1 && (!work || work_bytes < 4 * ranges * total)))
-    return (int)cudaErrorInvalidValue;
-  const int err =
-      idx64 ? launch_scatter_c<long long>(g, idx, dx, work, B, n, M, C,
-                                          ranges, window, stream)
-            : launch_scatter_c<int>(g, idx, dx, work, B, n, M, C, ranges,
-                                    window, stream);
-  if (err != cudaSuccess || ranges == 1) return err;
-  const long long lanes = total % 4 == 0 ? total / 4 : total;
-  const long long blocks = (lanes + 255) / 256;
-  scatter_smallc_sum_kernel<<<(unsigned)(blocks < 4096 ? blocks : 4096), 256,
-                              0, stream>>>(work, dx, total, ranges);
-  return (int)cudaGetLastError();
+  return scatter_smallc<float>(g, idx, dx, work, B, n, M, C, idx64, ranges,
+                               window, work_bytes, stream);
+}
+
+// The same with bf16 g and dx (the fp32 sums rounded to bf16 once); work
+// still fp32.
+extern "C" int r3dl_scatter_smallc_add_bf16(const r3dl::bf16* g,
+                                            const void* idx, r3dl::bf16* dx,
+                                            float* work, int B, int n, int M,
+                                            int C, int idx64, int ranges,
+                                            int window, long long work_bytes,
+                                            cudaStream_t stream) {
+  return scatter_smallc<r3dl::bf16>(g, idx, dx, work, B, n, M, C, idx64,
+                                    ranges, window, work_bytes, stream);
 }

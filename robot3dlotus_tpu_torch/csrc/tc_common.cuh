@@ -16,13 +16,12 @@
 // B (8 x 8) b0 (c, r), b1 (c + 4, r); C (16 x 8) d0 (r, 2c), d1 (r, 2c +
 // 1), d2 (r + 8, 2c), d3 (r + 8, 2c + 1).
 //
-// bf16 operands widened to fp32 (K1's fp32-layout callers, K3, K7 under
-// compute_dtype bfloat16): a bf16 value has 8 significant bits and zero low
-// bits, so it is a TF32 value as it is, and one TF32 product of two such
-// values is exact (mma1).
+// bf16 operands widened to fp32 (K3 under compute_dtype bfloat16): a bf16
+// value has 8 significant bits and zero low bits, so it is a TF32 value as
+// it is, and one TF32 product of two such values is exact (mma1).
 //
-// bf16 operands as they are (K1 / K5 at bf16, K2's bf16 forward and its
-// input gradient): mma.sync.m16n8k16 bf16 with fp32 sums, twice the TF32
+// bf16 operands as they are (K1 / K5 / K6 / K7 at bf16, K2's bf16 forward
+// and its input gradient): mma.sync.m16n8k16 bf16 with fp32 sums, twice the TF32
 // rate and half the instructions of m16n8k8 for the same depth, each
 // product of two bf16 values exact in fp32. Its fragments, 32-bit
 // registers holding two bf16 (the lower column in the low half): A (16 x
@@ -36,7 +35,8 @@
 // fall on distinct banks.
 //
 // An fp32 operand against a bf16 one (K2's input gradient: the fp32 owner
-// sums times the bf16 weight): x = hi + mid + lo, each rounded to bf16 from
+// sums times the bf16 weight; K6: the probabilities and ds times bf16
+// rows): x = hi + mid + lo, each rounded to bf16 from
 // what the pieces before it leave (split_hi, split_mid_lo). hi keeps x's
 // top 8 significant bits, the remainder x - hi is exact in fp32 and spans
 // at most 16 bits, mid its top 8, and what mid leaves spans at most 7, so
@@ -102,11 +102,6 @@ __device__ __forceinline__ float narrow<float>(float x) {
 template <>
 __device__ __forceinline__ bf16 narrow<bf16>(float x) {
   return __float2bfloat16_rn(x);
-}
-
-// x rounded to bf16 (to nearest even) and widened back
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
 }
 
 // d += a b in one TF32 pass, on fp32 fragments that hold bf16 values

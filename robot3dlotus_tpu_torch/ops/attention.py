@@ -34,17 +34,19 @@ q * scale in bf16, fp32 logits, softmax and lse, the dropped probabilities
 (p / (1 - rate) where kept) rounded to bf16 before P v, which sums in
 fp32, and the output rounded once; the keep bits are the fp32 path's. K6
 computes as the Pallas body `_attn_drop_bwd_kernel` does, in fp32 from the
-widened inputs: p = exp(logits - lse) from the bf16 q * scale, unrounded
+bf16 inputs: p = exp(logits - lse) from the bf16 q * scale, unrounded
 probabilities in dv and ds, D = g . out from K5's bf16 output, and dq, dk
-and dv each rounded to bf16 once.
+and dv each rounded to bf16 once (on the bf16 tensor cores, p and ds as
+three bf16 pieces each: csrc/attention_dropout.cu).
 
 The CUDA kernels are csrc/attention.cu (K1) and csrc/attention_dropout.cu
 (K5, K6); K1 and K5 run one forward tile per dtype (csrc/
 attention_tile.cuh: 3xTF32 at fp32, bf16 mma.sync at bf16, so K5 at rate
 0 is K1 bit for bit), and K1 splits each patch's query rows over blocks
 by attention_query_split. At bf16 both stage k and v 16 bytes at a time
-and read q in bf16 pairs: the wrappers hand them 16-byte aligned tensors
-(a copy of an unaligned view).
+and read q in bf16 pairs, and K6 stages q, k, v, out and g 16 bytes at a
+time: the wrappers hand them 16-byte aligned tensors (a copy of an
+unaligned view).
 The plain versions are the path for CPU tensors and the kernels' oracles;
 patch_attention_dropout_plain and patch_attention_dropout_vjp_plain take
 the keep mask as a (G, H, P, P) bool tensor.
@@ -381,6 +383,8 @@ def patch_attention_dropout_bwd(q, k, v, key_valid, out, lse, bits, g, scale,
             tuple(bits.shape) != (G, H, P, (P + 31) // 32):
         raise ValueError(f"patch_attention_dropout_bwd: lse "
                          f"{tuple(lse.shape)}, bits {tuple(bits.shape)}")
+    if q.dtype == torch.bfloat16:
+        q, k, v, out, g = (_aligned(t) for t in (q, k, v, out, g))
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     kernel, entry, scale = _dropout_route(q, scale,
                                           "patch_attention_dropout_bwd",

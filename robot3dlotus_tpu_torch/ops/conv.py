@@ -76,6 +76,12 @@ CONV_MAX_TAPS = 125      # csrc/conv.cu kMaxTaps
 CONV_TARGET_BLOCKS = 132 * 2    # two 109 KB blocks on each of 132 SMs
 WGRAD_TILE = 64          # csrc/conv_grad.cu kT: dW tile side
 WGRAD_TARGET_BLOCKS = 132 * 3   # three 73 KB blocks on each of 132 SMs
+# bf16: six such waves of shorter ranges. Each block walks its list in
+# series, one stage of loads in flight, so more and shorter ranges (and
+# their compactions) overlap better: per policy training step 3.26-3.29
+# ms against 4.59-4.60 at one wave on an H100 SXM (four waves 3.35-3.36,
+# eight 3.31-3.32; scripts/torch_k7_k6_bf16_variants.py)
+WGRAD_BF16_TARGET_BLOCKS = 6 * WGRAD_TARGET_BLOCKS
 WGRAD_MIN_ROWS = 512
 WGRAD_PAD_MIN_CIN = 32
 
@@ -212,19 +218,20 @@ def _conv_forward(x, idx, ok, weight, bias):
 
 def weight_grad_plan(B, N, K, cin, cout, unit=4):
     """(splits, rows_per_split, work_bytes) of K7: the row ranges make
-    (tiles x ranges) fill the card, at least WGRAD_MIN_ROWS rows each; the
-    scratch holds the live lists of the CPE path (channel counts multiples
-    of `unit`, the channels of a 16-byte piece: 4 fp32, 8 bf16; 2 K B N +
-    K splits int32, rounded up to 16 bytes) and, with more than one range,
-    the partial dW (splits, K, Cin, Cout) fp32, as csrc/conv_grad.cu lays
-    them out."""
+    (tiles x ranges) fill the card (WGRAD_TARGET_BLOCKS blocks; bf16,
+    unit 8, WGRAD_BF16_TARGET_BLOCKS), at least WGRAD_MIN_ROWS rows each;
+    the scratch holds the live lists of the CPE path (channel counts
+    multiples of `unit`, the channels of a 16-byte piece: 4 fp32, 8 bf16;
+    2 K B N + K splits int32, rounded up to 16 bytes) and, with more than
+    one range, the partial dW (splits, K, Cin, Cout) fp32, as
+    csrc/conv_grad.cu lays them out."""
     rows = max(B * N, 1)
     compacted = cin % unit == 0 and cout % unit == 0
     otiles = -(-cout // WGRAD_TILE)
     tiles = (K * -(-cin // WGRAD_TILE) if compacted
              else -(-K * cin // WGRAD_TILE)) * otiles
-    splits = max(1, min(-(-WGRAD_TARGET_BLOCKS // tiles),
-                        -(-rows // WGRAD_MIN_ROWS)))
+    target = WGRAD_BF16_TARGET_BLOCKS if unit == 8 else WGRAD_TARGET_BLOCKS
+    splits = max(1, min(-(-target // tiles), -(-rows // WGRAD_MIN_ROWS)))
     per = -(-rows // splits)
     splits = -(-rows // per)
     lists = -(-4 * (2 * K * B * N + K * splits) // 16) * 16 if compacted \

@@ -63,6 +63,9 @@ SIGNATURES = {
     # stream
     "r3dl_scatter_smallc_add": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                 _L, _P],
+    # the same with g and dx bf16 (work fp32)
+    "r3dl_scatter_smallc_add_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                     _I, _L, _P],
     # q, k, v, key_valid, out, G, H, P, Dh, warps, splits, scale, stream
     "r3dl_patch_attention": _ATTENTION,
     "r3dl_patch_attention_bf16": _ATTENTION,
@@ -97,8 +100,8 @@ SIGNATURES = {
     "r3dl_stem_conv_bf16": _STEM,
 }
 
-# K1-K10 by wrapper name; the bf16 paths of K1-K9 count apart (K2's
-# input gradient at bf16 as subm_conv_dx_bf16)
+# K1-K10 by wrapper name; their bf16 paths count apart (K2's input
+# gradient at bf16 as subm_conv_dx_bf16)
 LAUNCHES = {"patch_attention": 0, "subm_conv": 0, "stem_conv": 0,
             "gather_rows": 0, "patch_attention_dropout": 0,
             "patch_attention_dropout_bwd": 0, "conv_weight_grad": 0,
@@ -108,7 +111,8 @@ LAUNCHES = {"patch_attention": 0, "subm_conv": 0, "stem_conv": 0,
             "gather_rows_smallc_bf16": 0, "subm_conv_dx_bf16": 0,
             "patch_attention_dropout_bf16": 0,
             "patch_attention_dropout_bwd_bf16": 0,
-            "conv_weight_grad_bf16": 0, "scatter_rows_add_bf16": 0}
+            "conv_weight_grad_bf16": 0, "scatter_rows_add_bf16": 0,
+            "scatter_rows_smallc_add_bf16": 0}
 
 _LIB = None
 _FNS = {}       # C entry point name -> its ctypes function object, bound once

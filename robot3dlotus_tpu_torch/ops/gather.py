@@ -29,8 +29,10 @@ scatter_rows_add_bf16): the rows are widened and summed in fp32, and the
 sums are rounded to bf16 once (the rule of pallas_gather.py
 `_permute_op_bwd`: fp32 sum, one rounding to the input's dtype), or handed
 back in fp32 where the caller sums on (the conv's owner sum, ops/conv.py).
-K10 has no bf16 path: a bf16 cotangent that would reach it raises (no
-training step sends one: the stems gather data).
+K10 takes a bf16 cotangent the same way (csrc r3dl_scatter_smallc_add_bf16,
+counted as scatter_rows_smallc_add_bf16: fp32 sums, one rounding, the rule
+of pallas_gather.py `_smallc_op_bwd`); the stems' input gradients at bf16
+reach it (no training step of either family does: the stems gather data).
 
 Indices are int32 or int64 and reach the kernels as they are (no cast).
 A CUDA call that carries no gradient (grad mode off, or x not requiring
@@ -48,8 +50,7 @@ _ANY_WIDTH = 1 << 30
 _F32, _BF16 = torch.float32, torch.bfloat16
 _I32, _I64 = torch.int32, torch.int64
 _GATHER_DTYPES = (_F32, _BF16)     # what K4 and K9 take
-_SCATTER_DTYPES = (_F32, _BF16)    # what K8 takes
-_SMALLC_SCATTER_DTYPES = (_F32,)   # what K10 takes
+_SCATTER_DTYPES = (_F32, _BF16)    # what K8 and K10 take
 
 
 def gather_rows_plain(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -216,14 +217,10 @@ def scatter_rows_smallc_add(g: torch.Tensor, idx: torch.Tensor, n: int):
     """K10: the CUDA kernel (private shared-memory copies of dx, no global
     atomics; sums agree with a fixed-order sum to rounding) for CUDA
     tensors, the plain version for CPU tensors; rows whose index is
-    outside [0, n) drop. g fp32 only: K10 has no bf16 path, and a bf16 g
-    raises on either device."""
-    if g.dtype is not _F32:
-        raise NotImplementedError(
-            f"scatter_rows_smallc_add: K10 (csrc/gather_smallc.cu) has no "
-            f"bf16 path; got a {g.dtype} cotangent")
+    outside [0, n) drop. g fp32 or bf16, summed in fp32, returned in g's
+    dtype (a bf16 dx rounded once)."""
     if not g.is_cuda:
-        return scatter_rows_smallc_add_plain(g, idx, n)
+        return scatter_rows_smallc_add_plain(g, idx, n).to(g.dtype)
     plan = scatter_smallc_plan(g.shape[0], g.shape[1], n, g.shape[-1])
     return scatter_rows_smallc_add_split(g, idx, n, *plan)
 
@@ -231,22 +228,26 @@ def scatter_rows_smallc_add(g: torch.Tensor, idx: torch.Tensor, n: int):
 def scatter_rows_smallc_add_split(g, idx, n, ranges, window):
     """K10 on CUDA tensors with a given plan (scatter_smallc_plan gives
     scatter_rows_smallc_add's); one launch count (two kernels when
-    ranges > 1)."""
+    ranges > 1). The ranges' partials are fp32 at either dtype."""
     g, idx, B, M, C, Mi, idx64 = _checked("scatter_rows_smallc_add",
                                           SMALLC_MAX, g, idx,
-                                          _SMALLC_SCATTER_DTYPES)
+                                          _SCATTER_DTYPES)
     if Mi != M:
         raise _check_failed("scatter_rows_smallc_add", g, idx, SMALLC_MAX,
-                            _SMALLC_SCATTER_DTYPES)
+                            _SCATTER_DTYPES)
     if not (ranges >= 1 and window >= 1 and
             (ranges == 1 or ranges <= -(-M // SMALLC_TILE_ROWS)) and
             scatter_smallc_smem(C, window) <= SMALLC_SMEM):
         raise ValueError(f"scatter_rows_smallc_add: plan ({ranges} ranges, "
                          f"window {window}) for M = {M}, n = {n}, C = {C}")
     out = g.new_empty(B, n, C)
-    work = g.new_empty(ranges * out.numel()) if ranges > 1 else None
-    cuda_lib.launch("scatter_rows_smallc_add", "r3dl_scatter_smallc_add",
-                    g.data_ptr(), idx.data_ptr(), out.data_ptr(),
+    work = g.new_empty(ranges * out.numel(), dtype=_F32) \
+        if ranges > 1 else None
+    kernel, entry = ("scatter_rows_smallc_add_bf16",
+                     "r3dl_scatter_smallc_add_bf16") if g.dtype is _BF16 \
+        else ("scatter_rows_smallc_add", "r3dl_scatter_smallc_add")
+    cuda_lib.launch(kernel, entry, g.data_ptr(), idx.data_ptr(),
+                    out.data_ptr(),
                     None if work is None else work.data_ptr(), B, n, M, C,
                     idx64, ranges, window,
                     0 if work is None else 4 * work.numel())
@@ -300,11 +301,8 @@ def gather_rows_smallc(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def permute_rows_any(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Width-aware row gather (pallas_gather.py `permute_rows_any`): K9 for
-    rows of at most 32 channels, K4 otherwise. bf16 rows that carry a
-    gradient take K4 at any width: its backward K8 has a bf16 path, K9's
-    (K10) has none; the gather is a copy either way, and both backwards
-    sum in fp32 and round once."""
-    if x.shape[-1] <= SMALLC_MAX and not (
-            x.dtype is _BF16 and x.requires_grad and torch.is_grad_enabled()):
+    rows of at most 32 channels, K4 otherwise, at either dtype (the
+    backwards K10 and K8 both sum in fp32 and round once)."""
+    if x.shape[-1] <= SMALLC_MAX:
         return gather_rows_smallc(x, idx)
     return gather_rows(x, idx)

@@ -15,10 +15,12 @@ second kernel adds in a fixed order (two launches for one count).
 bf16 (compute_dtype bfloat16): x and W bf16, the taps summed in fp32 and
 the output rounded to bf16 once (csrc r3dl_stem_conv_bf16, counted as
 stem_conv_bf16; the tap ranges' partials stay fp32). The weight gradient
-at bf16 is K7's bf16 path (fp32 sums of the widened x and g, rounded to
-bf16 once); the input gradient would need K10 at bf16, which is not
-ported, so a bf16 call whose input requires a gradient raises in the
-backward (no training step has one: the policy's stem input is data).
+at bf16 is K7's bf16 path (fp32 sums of the bf16 products, rounded to
+bf16 once by the caller). The input gradient at bf16 rounds where the
+JAX VJP rounds (the einsum's VJP, then pallas_stem.py
+`_windowed_gather_bwd`): G = g W^T summed in fp32 and rounded to bf16 per
+(row, tap), then K10's bf16 path (fp32 sums, one rounding). No training
+step runs it: the policy's stem input is data.
 
 Backward: dW is K7 (ops/conv.py conv_weight_grad) at the stem's shape.
 The input gradient (stem_input_grad) takes the JAX package's two steps:
@@ -155,9 +157,10 @@ def stem_conv_split(x, idx, ok, weight, cols, warps, splits, blocks):
 
 def stem_grad_rows(g, idx, ok, weight, n):
     """K10's operands for the stem's input gradient: G = g W^T for every
-    (row, tap) pair, (B, N K, Cin), from one (B N, Cout) x (Cout, K Cin)
-    matmul (459 MB at the policy's training shape), and the flat map with
-    every dead link sent to the sentinel row n."""
+    (row, tap) pair, (B, N K, Cin) in g's dtype (a bf16 G summed in fp32
+    and rounded once), from one (B N, Cout) x (Cout, K Cin) matmul (459 MB
+    at the policy's training shape in fp32), and the flat map with every
+    dead link sent to the sentinel row n."""
     B, N, Cout = g.shape
     K, Cin, _ = weight.shape
     G = torch.matmul(g.reshape(B * N, Cout),
@@ -182,11 +185,6 @@ class _StemConv(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, idx, ok, weight = ctx.saved_tensors
-        if ctx.needs_input_grad[0] and x.dtype != torch.float32:
-            raise NotImplementedError(
-                f"stem_conv backward: the input gradient is K10 "
-                f"(csrc/gather_smallc.cu), which takes fp32 only; got "
-                f"{x.dtype}")
         g = g.contiguous()
         dx = stem_input_grad(g, idx, ok, weight, x.shape[1]) \
             if ctx.needs_input_grad[0] else None
@@ -197,8 +195,8 @@ class _StemConv(torch.autograd.Function):
 
 def stem_conv(x, idx, ok, weight):
     """The CUDA kernel for CUDA tensors, the plain version for CPU ones;
-    differentiable in the input (K10 after one matmul; fp32 only) and the
-    weight (K7, fp32 or bf16)."""
+    differentiable in the input (K10 after one matmul) and the weight (K7),
+    fp32 or bf16."""
     if x.is_cuda:
         idx = idx.to(torch.int32).contiguous()
     return _StemConv.apply(x, idx, ok, weight)

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the bf16 paths of K1, K5 and K2 of two trees of the PyTorch port on
-one card, in turns, on the same captured main-path calls.
+"""Time the bf16 paths of K1, K5, K2, K6 and K7 of two trees of the
+PyTorch port on one card, in turns, on the same captured main-path calls.
 
     python3 scripts/torch_bf16_kernels_ab.py PARENT_ROOT CHANGE_ROOT \
         [--order pccp]
@@ -11,8 +11,9 @@ root captures, with chip_smoke.py's recorders, the kernel calls of one
 `Actioner.predict` of the release policy at compute_dtype bfloat16 (B = 1,
 seed-0 weights, chip_smoke's first synthetic observation: K1's and K2's
 calls) and of one training step of the release trainer at bf16 (B = 32 x
-4096 on synthetic_reach, release dropout: K5's calls, and K2's with their
-cotangents), and saves them under build/bf16_ab/. Each turn of --order
+4096 on synthetic_reach, release dropout: K5's calls, and K2's and the stem's with their
+cotangents; K6's calls are K5's with the outputs of one K5 launch of that
+tree and the captured cotangent), and saves them under build/bf16_ab/. Each turn of --order
 (p: the first root, c: the second) is then a fresh Python process with
 that root first on sys.path, which loads the calls and times that tree's
 kernels on them: CUDA events (chip_smoke.cuda_ms; the B = 1 calls the
@@ -20,7 +21,10 @@ median of 21 rounds of 10, the training calls of 5 rounds of 2) and the
 profiler's device time (chip_smoke.device_ms), summed per forward or per
 step: K1 and K2 at B = 1; K5 (patch_attention_dropout_fwd), K2's forward
 and the mirrored K2 on the fp32 owner sums (the input gradient's launch,
-conv._conv_forward) per training step. One JSON line per turn is printed
+conv._conv_forward), K6 (patch_attention_dropout_bwd), K7 on the 9 CPE
+convs and K7 on the stem call apart (conv.conv_weight_grad; its device
+time with and without the CPE path's live-list compaction) per training
+step. One JSON line per turn is printed
 and all of them are written to chiprun_out/bf16_kernels_ab.json, with the
 card's name and power limit. Needs one CUDA card.
 """
@@ -55,9 +59,15 @@ if hasattr(batches, "close"):
     batches.close()
 step = cs.capture(lambda: trainer.step(cs.batch_to_device(host[0], "cuda")),
                   cs.TRAIN_SITES)
+k6 = []
+for (q, k, v, kv, scale, rate, seed), g in step["attention"]:
+    out, lse, bits = cs.attention.patch_attention_dropout_fwd(
+        q, k, v, kv, scale, rate, seed)
+    k6.append((q, k, v, kv, out, lse, bits, g, scale, rate))
 calls = {"k1": serving["patch_attention"], "k2_b1": serving["subm_conv"],
-         "k5": [c for c, _ in step["attention"]],
-         "k2_step": [c for c in step["subm_conv"] if c[1] is not None]}
+         "k5": [c for c, _ in step["attention"]], "k6": k6,
+         "k2_step": [c for c in step["subm_conv"] if c[1] is not None],
+         "stem_step": [c for c in step["stem_conv"] if c[1] is not None]}
 torch.save(calls, path)
 print({k: len(v) for k, v in calls.items()}, flush=True)
 """
@@ -105,7 +115,16 @@ res = {
                               for c in calls["k2_step"]], *cs.K2_PROFILE,
                              timing=train),
     "k2_dx_step": timed([dx_run(c) for c in calls["k2_step"]],
-                        *cs.K2_PROFILE, timing=train)}
+                        *cs.K2_PROFILE, timing=train),
+    "k6_step": timed([lambda a=c: attention.patch_attention_dropout_bwd(*a)
+                      for c in calls["k6"]], "attn_drop_bwd", timing=train)}
+for key, cs_calls in (("k7_cpe_step", calls["k2_step"]),
+                      ("k7_stem_step", calls["stem_step"])):
+    runs = [lambda a=c[0][:3], g=c[1]: conv.conv_weight_grad(*a, g)
+            for c in cs_calls]
+    res[key] = timed(runs, *cs.K7_PROFILE, timing=train)
+    prod = [cs.device_ms(r, cs.K7_PROFILE[0], reps=4) for r in runs]
+    res[key]["product_device_ms"] = None if None in prod else sum(prod)
 print(json.dumps(res), flush=True)
 """
 

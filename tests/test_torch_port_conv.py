@@ -130,6 +130,26 @@ def test_weight_grad_plan_covers_each_row_once(B, N, K, cin, cout):
     assert nbytes == lists + part
 
 
+@pytest.mark.parametrize("B,N,K,cin,cout", [
+    (32, 4096, 27, 64, 64), (32, 2304, 27, 128, 128), (32, 256, 27, 768, 768),
+    (32, 4096, 125, 7, 64), (1, 5, 27, 64, 64)])
+def test_weight_grad_plan_bf16_takes_more_ranges(B, N, K, cin, cout):
+    """At bf16 (unit 8) the row ranges cover each row once and aim at
+    WGRAD_BF16_TARGET_BLOCKS: as many ranges as the fp32 plan or more, and
+    the last range not empty."""
+    splits, per, nbytes = conv.weight_grad_plan(B, N, K, cin, cout, unit=8)
+    R = B * N
+    assert (splits - 1) * per < R <= splits * per
+    tiles = (K * -(-cin // 64) if cin % 8 == 0 else -(-K * cin // 64)) * \
+        -(-cout // 64)
+    assert splits == 1 or per >= conv.WGRAD_MIN_ROWS or \
+        tiles * splits >= conv.WGRAD_BF16_TARGET_BLOCKS
+    if cin % 8 == 0:
+        assert splits >= conv.weight_grad_plan(B, N, K, cin, cout)[0]
+    part = 4 * splits * K * cin * cout if splits > 1 else 0
+    assert nbytes >= part
+
+
 def _shares_np(ok, tile_rows=128, group=16, skip_rows=64):
     B, N, K = ok.shape
     kept = comp = tiles = 0

@@ -776,8 +776,9 @@ def test_prefetch_to_device_onto_the_card(dev):
 # scale for fp32 sums in another order; K1 and K5 plus one bf16 ulp of each
 # probability's share, 2^-7 sum_j p_j |v_j|) of their plain versions on the
 # same bf16 inputs, and K7's fp32 sums within 1e-4 of the plain version's
-# largest value; all but K8 (atomics) bit-equal across two launches; K4 and
-# K9 copy and are bit-equal; the stem's input gradient (K10) raises.
+# largest value; all but K8 and K10 (atomics) bit-equal across two
+# launches; K4 and K9 copy and are bit-equal; K10's rounded sums within the
+# bar of the plain sums rounded once.
 
 BF16 = torch.bfloat16
 
@@ -928,13 +929,14 @@ def test_bf16_k2_k7_edge_maps(dev, kind):
 
 @pytest.mark.parametrize("Dh", [8, 16, 24, 32])
 @pytest.mark.parametrize("P", [128, 77, 37])
-@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("rate", [0.0, 0.1, 0.5])
 def test_bf16_k5_k6_attention_dropout(dev, rate, P, Dh):
     """K5 at bf16: the bits bit-equal to the fp32 path's (philox_keep_mask),
     out within the bf16 bar plus the dropped probabilities' allowance, lse
     within 1e-4; K6 on K5's outputs within the bf16 bar of its plain
     version; both bit-equal across two launches; the autograd path one K5
-    and one K6 launch."""
+    and one K6 launch. Patch 0 has no valid key (p = 1 / P, ds = 0);
+    P = 77 and 37 end inside a 16-key block."""
     G, H, seed, scale = 6, 3, 987654321, Dh ** -0.5
     q, k, v, kv, gout = (t.to(BF16) if t.is_floating_point() else t
                          for t in _attn_dropout_inputs(dev, G, H, P, Dh))
@@ -989,15 +991,18 @@ def test_bf16_k5_rate0_matches_k1(dev):
                                         (27, 768, 768), (125, 7, 64),
                                         (125, 263, 64)])
 def test_bf16_k7_conv_weight_grad(dev, K, cin, cout):
-    """K7 at bf16 (fp32 sums of the widened x and g): the CPE path, the
+    """K7 at bf16 (bf16 mma.sync with fp32 sums): the CPE path, the
     policy stem's (tap, channel) path and the Concat stem's 263 channels
-    (padded to 264)."""
+    (padded to 264); clouds of 509 and 4093 rows, so that the live lists
+    of most taps end inside a 16-row step."""
     rng = np.random.RandomState(K + cin + cout)
-    B, N = (8, 4096) if cin == 7 else (2, 512)
-    gc = rng.randint(0, 24 if N == 512 else 40, (B, N, 3)).astype(np.int32)
+    B, N = (8, 4093) if cin == 7 else (2, 509)
+    gc = rng.randint(0, 24 if N == 509 else 40, (B, N, 3)).astype(np.int32)
     nm = build_neighbor_map(torch.from_numpy(gc).to(dev),
                             torch.ones(B, N, dtype=torch.bool, device=dev),
                             round(K ** (1 / 3)), 6, extent=128)
+    counts = nm.ok.sum((0, 1))
+    assert bool((counts % 16 != 0).any())
     x = _randn(rng, dev, B, N, cin).to(BF16)
     g = _randn(rng, dev, B, N, cout).to(BF16)
     args = (x, nm.idx, nm.ok, g)
@@ -1007,20 +1012,125 @@ def test_bf16_k7_conv_weight_grad(dev, K, cin, cout):
     _check_rel(got, conv.conv_weight_grad_plain(*args))
 
 
-def test_bf16_stem_weight_grad_and_input_grad_raises(dev):
-    """The policy stem at bf16: dW through K7's bf16 path (its rounding of
-    the fp32 sums); an input requiring a gradient raises, naming K10."""
+@pytest.mark.parametrize("kind", ["none", "one", "duplicates"])
+@pytest.mark.parametrize("K,cin,cout", [(27, 64, 128), (125, 7, 64)])
+def test_bf16_k7_edge_maps(dev, kind, K, cin, cout):
+    """K7 at bf16 on a map with no live link (dW zero), with one live link
+    (a list of one row, 15 rows of zero fill) and with many duplicate
+    voxels: the CPE path and the stem's, bit-equal across launches, within
+    the bar of the plain version (exact where it is a single product)."""
+    B, N = 2, 300
+    rng = np.random.RandomState(31 + K)
+    if kind == "duplicates":
+        gc = rng.randint(0, 4, (B, N, 3)).astype(np.int32)
+        nm = build_neighbor_map(torch.from_numpy(gc).to(dev),
+                                torch.ones(B, N, dtype=torch.bool,
+                                           device=dev),
+                                round(K ** (1 / 3)), 5, extent=128)
+        idx, ok = nm.idx, nm.ok
+    else:
+        idx = torch.from_numpy(rng.randint(0, N, (B, N, K)).astype(
+            np.int32)).to(dev)
+        ok = torch.zeros(B, N, K, dtype=torch.bool, device=dev)
+        if kind == "one":
+            ok[1, 200, K // 2] = True
+            idx[1, 200, K // 2] = 17
+    x = _randn(rng, dev, B, N, cin).to(BF16)
+    g = _randn(rng, dev, B, N, cout).to(BF16)
+    args = (x, idx, ok, g)
+    got = _twice(lambda: conv.conv_weight_grad(*args),
+                 "conv_weight_grad_bf16")
+    want = conv.conv_weight_grad_plain(*args)
+    if kind == "duplicates":
+        _check_rel(got, want)
+    else:
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert bool(got.any()) == (kind == "one")
+
+
+def test_bf16_stem_weight_grad_and_input_grad(dev):
+    """The policy stem at bf16 with x and W requiring gradients: one K3,
+    one K7 and one K10 bf16 launch; dW is K7's fp32 sums rounded once; dx
+    (G = g W^T in bf16, then K10's bf16 path) within the bar of the plain
+    composition (the same G, K10's plain version: fp32 sums, one
+    rounding)."""
     rng = np.random.RandomState(21)
     idx, ok = _stem_map(rng, dev, "release", 4, 4096)
     x = _randn(rng, dev, 4, 4096, 7).to(BF16)
     w = _randn(rng, dev, 125, 7, 64, scale=0.1).to(BF16)
     g = _randn(rng, dev, 4, 4096, 64).to(BF16)
-    wr = w.clone().requires_grad_()
-    stem.stem_conv(x, idx, ok, wr).backward(g)
+    xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+    cuda_lib.reset_launches()
+    stem.stem_conv(xr, idx, ok, wr).backward(g)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in cuda_lib.LAUNCHES.items() if v} == {
+        "stem_conv_bf16": 1, "conv_weight_grad_bf16": 1,
+        "scatter_rows_smallc_add_bf16": 1}
     assert torch.equal(wr.grad, conv.conv_weight_grad(x, idx, ok, g).to(BF16))
-    xr = x.clone().requires_grad_()
-    with pytest.raises(NotImplementedError, match="K10"):
-        stem.stem_conv(xr, idx, ok, w).backward(g)
+    G, flat = stem.stem_grad_rows(g, idx, ok, w, 4096)
+    assert G.dtype == BF16
+    _bf16_check(xr.grad, gather.scatter_rows_smallc_add_plain(
+        G, flat, 4096).to(BF16), relative=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("n", [1, 300, 4096])
+@pytest.mark.parametrize("C", [1, 5, 7, 8, 20, 32])
+def test_bf16_k10_scatter_rows_smallc_add(dev, C, n, dtype):
+    """K10 at bf16 under the wrapper's plan within the bf16 bar of the
+    plain sums rounded once, one bf16 launch count per call: a fifth of
+    the rows at the sentinel n and a few negative or past n, a ragged
+    last tile (M C a multiple of 4 or not: 8-byte loads or 2-byte ones);
+    M = 0 (dx all zero); every row onto one destination; K9's backward
+    at bf16 the same launch."""
+    rng = np.random.RandomState(C * n + 1)
+    B = 2
+    for M in (9 * gather.SMALLC_TILE_ROWS + 4,
+              9 * gather.SMALLC_TILE_ROWS + 3):
+        idx = rng.randint(0, n, (B, M))
+        idx[rng.rand(B, M) < 0.2] = n
+        idx[:, :3] = [-1, n + 9, -5]
+        g = _randn(rng, dev, B, M, C).to(BF16)
+        for i in (idx, np.full((B, M), n - 1), idx[:, :0]):
+            it = torch.from_numpy(i).to(dtype).to(dev)
+            gi = g[:, :i.shape[1]].contiguous()
+            before = cuda_lib.LAUNCHES["scatter_rows_smallc_add_bf16"]
+            got = gather.scatter_rows_smallc_add(gi, it, n)
+            assert cuda_lib.LAUNCHES["scatter_rows_smallc_add_bf16"] == \
+                before + 1
+            _bf16_check(got, gather.scatter_rows_smallc_add_plain(
+                gi, it, n).to(BF16), relative=True)
+        assert not got.any()
+    x = _randn(rng, dev, B, n, C).to(BF16).requires_grad_()
+    it = torch.from_numpy(idx).to(dtype).to(dev)
+    before = cuda_lib.LAUNCHES["scatter_rows_smallc_add_bf16"]
+    gather.gather_rows_smallc(x, it).backward(g)
+    assert cuda_lib.LAUNCHES["scatter_rows_smallc_add_bf16"] == before + 1
+    _bf16_check(x.grad, gather.scatter_rows_smallc_add_plain(g, it, n).to(
+        BF16), relative=True)
+
+
+@pytest.mark.parametrize("C", [5, 20])
+@pytest.mark.parametrize("ranges,window", [(1, 300), (3, 300), (3, 100),
+                                           (7, 64), (2, 7), (1, 1)])
+def test_bf16_k10_forced_plans(dev, ranges, window, C):
+    """K10 at bf16 with each plan forced: the ranges' fp32 partials summed
+    before the one rounding, within the bf16 bar of the plain version,
+    with a hot destination row."""
+    rng = np.random.RandomState(ranges * 7 + window + C + 1)
+    B, n = 2, 300
+    M = 7 * gather.SMALLC_TILE_ROWS + 5
+    idx = rng.randint(0, n, (B, M))
+    idx[rng.rand(B, M) < 0.2] = n
+    idx[:, :3] = [-1, n + 3, -7]
+    idx[1, 100:400] = 17
+    idx = torch.from_numpy(idx.astype(np.int32)).to(dev)
+    g = _randn(rng, dev, B, M, C).to(BF16)
+    got = gather.scatter_rows_smallc_add_split(g, idx, n, ranges, window)
+    assert got.dtype == BF16
+    _bf16_check(got, gather.scatter_rows_smallc_add_plain(g, idx, n).to(
+        BF16), relative=True)
 
 
 @pytest.mark.parametrize("D", [7, 64, 768])

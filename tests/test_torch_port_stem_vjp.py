@@ -17,6 +17,9 @@ categorical stem's feature gradient, and K10's block plan.
   every destination (row, channel) once, each range's tiles cover every
   g row once per slab, and the ranges' partials, added in order, give the
   scatter-add; the release plans fill the card.
+- At bf16: K10's plain version against the Pallas VJP, the policy stem's
+  input gradient against the windowed Pallas stem's and the categorical
+  stem's feature gradient against the JAX one (bars stated below).
 Bar: <= 1e-4 * max(1, |ref|) in fp32. The kernel itself runs on the card:
 test_torch_port_gpu.py.
 """
@@ -30,6 +33,8 @@ from robot3dlotus_tpu.ops import pallas_gather as jgather
 from robot3dlotus_tpu.ops import pallas_stem as jstem
 from robot3dlotus_tpu.ops import sparse_conv as jsparse
 from robot3dlotus_tpu_torch.ops import gather, sparse_conv, stem
+from test_torch_port_bf16_train import (XLA_DX_BAR, f32, jbf, jrun, tbf,
+                                        within, within_bar)
 from test_torch_port_k1_k3 import _release_cloud
 
 ATOL = 1e-4
@@ -252,3 +257,134 @@ def test_k10_release_plans():
     assert gather.scatter_smallc_plan(1, 512000, 4096, 5) == (62, 4096)
     assert gather.scatter_smallc_smem(5, 4096) == 81920
     assert gather.scatter_smallc_smem(7, 4096) == 114688
+
+
+# ------------------------------------------------------------- at bf16 ----
+# ptv3_config compute_dtype bfloat16: K10's bf16 path sums the bf16
+# cotangent rows in fp32 and rounds dx to bf16 once, as pallas_gather.py
+# `_smallc_op_bwd` does; held within the one-rounding bar of ops/bf16.py
+# (one bf16 ulp of the value + 1e-4 of the gradient's own scale) against
+# the Pallas VJPs in interpret mode, and within XLA_DX_BAR against the XLA
+# conv's VJP (which rounds each tap's product and adds the taps in a bf16
+# carry; tests/test_torch_port_bf16_train.py states it).
+
+@pytest.mark.parametrize("C,dtype", [(5, np.int32), (7, np.int64),
+                                     (20, np.int32)])
+def test_k10_plain_bf16_matches_pallas_vjp(C, dtype):
+    """K10's plain version at bf16 (fp32 sums, one rounding) against
+    jax.vjp of the JAX gather_rows_smallc (`_smallc_op`, its backward
+    `_smallc_bwd_call` in interpret mode) at bf16: 1024 rows onto 256, a
+    fifth of them sentinels (N, N + 3, -1), 300 of them on one row; the
+    autograd path (K9's backward) equal to the direct call."""
+    rng = np.random.RandomState(C)
+    B, N, M = 2, 256, 1024
+    idx = rng.randint(0, N, (B, M)).astype(dtype)
+    idx[rng.rand(B, M) < 0.2] = N
+    idx[:, :3] = [N + 3, -1, 0]
+    idx[1, 200:500] = 17
+    x = rng.randn(B, N, C).astype(np.float32)
+    g = rng.randn(B, M, C).astype(np.float32)
+    got = gather.scatter_rows_smallc_add(tbf(g), T(idx), N)
+    assert got.dtype == torch.bfloat16
+    want = jrun(lambda a, gg: jax.vjp(lambda t: jgather.gather_rows_smallc(
+        t, jnp.asarray(idx), interpret=True), a)[1](gg)[0], jbf(x), jbf(g))
+    within_bar(got, want, what="K10 bf16 vs Pallas")
+    xt = tbf(x).requires_grad_()
+    gather.gather_rows_smallc(xt, T(idx)).backward(tbf(g))
+    assert torch.equal(xt.grad.view(torch.int16), got.view(torch.int16))
+    assert np.abs(f32(want)).max() > 1.0
+
+
+def test_stem_input_grad_bf16_matches_jax_pallas_interpret(release_stem):
+    """The policy stem at bf16 (x, W and the cotangent bf16): dx (G = g W^T
+    summed in fp32 and rounded to bf16 per (row, tap), then K10's plain
+    version: fp32 sums, one rounding) against jax.vjp of the windowed
+    Pallas stem at bf16 on its near links (with_far=False), whose feature
+    gradient is then `_windowed_gather_bwd` alone: the einsum's VJP
+    rounds G where the port does and `_smallc_bwd_call` sums in fp32 and
+    casts once, so within the one-rounding bar. (With far links JAX adds
+    a second rounding: their rows' gather VJP scatter-adds in bf16 and the
+    two parts meet in a bf16 add.) The port runs the same near links: the
+    live links whose windowed row is not zero (every feature is). dW (K7's
+    plain version, one rounding) within the bar of the XLA stencil
+    product's."""
+    nm, feat, w, gout, _, _, _ = release_stem
+    assert (feat != 0).all()
+    jw = jbf(w)
+
+    def windowed(f):
+        g, _ = jstem.stem_gather_windowed(f, nm, interpret=True,
+                                          with_far=False)
+        o = jnp.einsum("bnkc,kcd->bnd", jnp.where(nm.ok[..., None], g, 0.0),
+                       jw, preferred_element_type=jnp.float32)
+        return o.astype(jnp.bfloat16), g
+
+    def run(f, gg):
+        _, vjp, g = jax.vjp(windowed, f, has_aux=True)
+        return vjp(gg)[0], g
+
+    jdx, rows = jrun(run, jbf(feat), jbf(gout))
+    assert jdx.dtype == jnp.bfloat16
+    ok = np.asarray(nm.ok)
+    near = ok & (f32(rows) != 0).any(-1)
+    assert 0 < (ok & ~near).sum() < 0.1 * ok.sum()
+    xt, wt = tbf(feat).requires_grad_(), tbf(w).requires_grad_()
+    out = stem.stem_conv(xt, T(np.asarray(nm.idx)), T(near), wt)
+    assert out.dtype == torch.bfloat16
+    out.backward(tbf(gout))
+    assert xt.grad.dtype == torch.bfloat16
+    within_bar(xt.grad, jdx, what="bf16 dx vs the windowed stem")
+    xw = tbf(w).requires_grad_()
+    stem.stem_conv(tbf(feat), T(np.asarray(nm.idx)), T(ok), xw).backward(
+        tbf(gout))
+    _, vjp = jax.vjp(lambda ww: jsparse.subm_conv_apply(jbf(feat), nm, ww)
+                     .astype(jnp.bfloat16), jw)
+    within_bar(xw.grad, vjp(jbf(gout))[0], what="bf16 dW vs XLA")
+
+
+@pytest.mark.parametrize("interpret", [False, True])
+def test_categorical_stem_feature_grad_bf16_matches_jax(monkeypatch,
+                                                        interpret):
+    """The motion planner's stem at bf16 with its features requiring a
+    gradient: dfeat (the product's VJP rounded to bf16 per gathered row,
+    then K10's bf16 plain version) against jax.vjp of the JAX
+    subm_conv_apply at bf16 on its K9 path in interpret mode (the same
+    rounding points: the one-rounding bar, the label table's gradient
+    too) and on its XLA path (XLA_DX_BAR for both: the streaming conv's
+    VJP adds its taps in a bf16 carry); dW within the bar."""
+    monkeypatch.setattr(jsparse, "_SMALLC_INTERPRET", interpret)
+    rng = np.random.RandomState(6)
+    B, N, C, E = 2, 256, 4, 16
+    gc = rng.randint(0, 9, (B, N, 3)).astype(np.int32)
+    mask = np.arange(N)[None] < np.array([[N], [N - 40]])
+    jn = jsparse.build_neighbor_map(jnp.asarray(gc), jnp.asarray(mask), 5, 4,
+                                    extent=16)
+    nm = sparse_conv.NeighborMap(T(jn.idx), T(jn.ok))
+    feat = rng.randn(B, N, C).astype(np.float32)
+    labels = rng.randint(0, 4, (B, N)).astype(np.int32)
+    table = (rng.randn(4, E) * 0.5).astype(np.float32)
+    w = (rng.randn(125, C + E, 32) * 0.1).astype(np.float32)
+    gout = rng.randn(B, N, 32).astype(np.float32)
+
+    def jfn(f, w_, t_):
+        return jsparse.subm_conv_apply(
+            f, jn, w_, categorical=(jnp.asarray(labels), t_)).astype(
+                jnp.bfloat16)
+
+    def run(f, w_, t_, gg):
+        return jax.vjp(jfn, f, w_, t_)[1](gg)
+
+    jdf, jdw, jdt = jrun(run, jbf(feat), jbf(w), jbf(table), jbf(gout))
+    ft, wt, tt = (tbf(a).requires_grad_() for a in (feat, w, table))
+    out = sparse_conv.subm_conv_apply(ft, nm, wt, categorical=(T(labels), tt))
+    assert out.dtype == torch.bfloat16
+    out.backward(tbf(gout))
+    assert ft.grad.dtype == torch.bfloat16
+    if interpret:
+        within_bar(ft.grad, jdf, what="bf16 dfeat vs the K9 path")
+        within_bar(tt.grad, jdt, what="bf16 dtable")
+    else:
+        within(ft.grad, jdf, XLA_DX_BAR, "bf16 dfeat vs XLA")
+        within(tt.grad, jdt, XLA_DX_BAR, "bf16 dtable vs XLA")
+    within_bar(wt.grad, jdw, what="bf16 dW")
+    assert np.abs(f32(jdf)).max() > 0.1
