@@ -93,7 +93,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
              fraction within 5 binomial sigmas of 1 - rate), K6 on K5's
              outputs and the captured cotangent, K5 at rate 0 against K1,
              K7 at the CPE and the stem shapes, K8 (sentinel rows
-             dropped), and the conv's dx (K8 onto voxel owners, then K2
+             dropped; bit-equal across two launches), and the conv's dx
+             (K8 onto voxel owners, an invalid row at the sentinel, then K2
              with the mirrored weight) against the exact adjoint (autograd
              of subm_conv_plain) on every row; |kernel - plain|
              <= 1e-4 * max|plain| (gradients are far below 1); K4 on the
@@ -145,7 +146,10 @@ Phases, each of which raises on failure (exit code != 0, no result line):
              bit-equal across two launches; out, dq, dk, dv, the mirrored
              K2 and K8's rounded sums within ops/bf16.py's bar, the
              gradients' slack of their own scale; K7's fp32 sums and K8's
-             owner sums within 1e-4 of max|plain|; the conv dx within the
+             owner sums within 1e-4 of max|plain|; K8 bit-equal across two
+             launches, each call's index collisions logged (k8_collisions:
+             rows owned by another row, destinations with several sources,
+             the most sources, runs); the conv dx within the
              bar of the exact fp32 adjoint rounded once) and timed beside
              its bound (bytes at 3.35 TB/s against flops at 989 TFLOP/s
              bf16, live links for K2 / K7) and the library call (SDPA
@@ -155,7 +159,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
              ragged patch (a captured call's first 77 rows and keys at the
              step's smallest head dim); K2's bf16 forward calls of the step
              checked and timed as a row of their own (beside phase 9's fp32
-             forward device time), K5's and its device time from queued
+             forward device time), K3's bf16 forward on the step's B = 32
+             stem call as a row of its own (events, profiler, bound, plain,
+             im2col in bf16), K5's and its device time from queued
              events where the profiler recorded none; TRAIN_STEPS steps
              with launches at BF16_PER_STEP (the fp32 counters 0) and a
              profiler window
@@ -609,9 +615,9 @@ DEVICE_GROUPS = [
     ("K2 subm_conv", ("subm_conv",)),
     ("K6 attention dropout bwd", ("attn_drop_bwd",)),
     ("K5 attention dropout fwd", ("attn_drop_fwd",)),
-    ("K3 stem_conv", ("stem_conv",)),
+    ("K3 stem_conv", ("stem_conv", "stem_pad8")),
     ("K4/K8 gather, scatter-add", ("gather_rows_kernel",
-                                   "scatter_rows_add_kernel")),
+                                   "scatter_rows_sum_kernel")),
     ("bf16 GEMM (cuBLAS nvjet)", ("nvjet",)),
     ("fp32 GEMM (cuBLAS/CUTLASS)", ("gemm", "sgemm")),
     ("LayerNorm fwd/bwd", ("layer_norm",)),
@@ -1023,6 +1029,11 @@ def log_conv(tag, label, r):
 # kernels of the same call (device_ms)
 K1_PROFILE = ("patch_attention_kernel", ())
 K3_PROFILE = ("stem_conv_kernel", ("stem_conv_sum",))
+# K3 at bf16: its product kernel, the padding of x's rows and the ranges'
+# sum
+K3_BF16_PROFILE = ("stem_conv16_kernel", ("stem_conv_sum", "stem_pad8"))
+# K8 (both dtypes): one kernel a call
+K8_PROFILE = "scatter_rows_sum_kernel"
 
 
 def check_call(kernel, args, timed=True, timing=None):
@@ -1549,7 +1560,7 @@ BF16_SITES = {"patch_attention": "patch_attention_bf16",
               "gather_rows_smallc": "gather_rows_smallc_bf16"}
 
 
-def check_bf16_call(kernel, args, timed=True):
+def check_bf16_call(kernel, args, timed=True, timing=None):
     """One captured bf16 call (compute_dtype bfloat16). K4 and K9 (copies)
     bit-equal to their plain versions; K1, K2 and K3 bit-equal across two
     launches and within the bar of ops/bf16.py of theirs: |kernel - plain|
@@ -1563,7 +1574,7 @@ def check_bf16_call(kernel, args, timed=True):
     at 989 TFLOP/s bf16."""
     if kernel in GATHERS:
         return check_gather(kernel, args, {} if timed else None)
-    extra = None
+    extra, out_extra = None, {}
     if kernel == "patch_attention":
         q, k, v, kv, scale = args
         run = lambda: attention.patch_attention(q, k, v, kv, scale)  # noqa
@@ -1598,7 +1609,8 @@ def check_bf16_call(kernel, args, timed=True):
         nbytes = 2 * (x.numel() + w.numel() + B * N * Cout) + \
             5 * idx.numel()
         flops = 2 * Cin * Cout * int(ok.sum())
-        profile = K3_PROFILE
+        profile = K3_BF16_PROFILE
+        out_extra = {"shares": stem_shares(ok), "live_links": int(ok.sum())}
     got = _twice(run, f"bf16 {kernel} {shape}")
     want = plain()
     torch.cuda.synchronize()
@@ -1611,13 +1623,14 @@ def check_bf16_call(kernel, args, timed=True):
                              f"= {err}, {excess} past the bf16 bar")
     scale_ref = max(1.0, float(want.float().abs().max()))
     out = {"shape": shape, "max_abs_err": err, "max_rel_err": err / scale_ref,
-           "bar_excess": excess}
+           "bar_excess": excess, **out_extra}
     if not timed:
         return out
     bound_ms, t_b, t_f = _bound(nbytes, flops, BF16_FLOPS_PER_S)
-    return {**out, "ms": cuda_ms(run),
+    return {**out, "ms": cuda_ms(run, **(timing or {})),
             "device_ms": device_ms(run, profile[0], also=profile[1]),
-            "plain_ms": cuda_ms(plain), "library_ms": cuda_ms(library),
+            "plain_ms": cuda_ms(plain, **(PLAIN_TIMING if timing else {})),
+            "library_ms": cuda_ms(library, **(timing or {})),
             "bound_ms": bound_ms, "bytes_s": t_b, "flops_s": t_f}
 
 
@@ -2188,13 +2201,13 @@ def check_conv_dx(call):
     e_dx = _err(conv.conv_input_grad(g, idx, ok, w), exact,
                 "conv dx vs the exact adjoint")
     del xr, exact
-    centre = idx.shape[-1] // 2
-    owner = idx[..., centre]
-    gv = torch.where(ok[..., centre, None], g, torch.zeros_like(g))
-    k8 = check_scatter_add(((gv, owner), gv))
+    # K8 as conv_input_grad calls it: the owner index with the sentinel
+    # where the centre link is invalid
+    owner = conv.owner_index(idx, ok)
+    k8 = check_scatter_add(((g, owner), g))
     # K2's two launches of this conv in the step, timed on their inputs:
     # the forward, and the mirrored weight on the owner sums (the dx)
-    gsum = gather.scatter_rows_add(gv, owner, N)
+    gsum = gather.scatter_rows_add(g, owner, N)
     wm = conv.mirror_weight(w)
     flops = 2 * cin * cout * int(ok.sum())
     k2, runs = [], []
@@ -2243,16 +2256,18 @@ def _scatter_add(g, idx, n):
 def check_scatter_add(call):
     """K8 on one captured K4 call (its input and the cotangent of its
     output; the unpools' sentinel rows dropped), or on a conv's owner
-    scatter (x stands in for the output shape): within the bar, event and
-    profiler device times, the plain version's and index_add_'s."""
+    scatter (x stands in for the output shape): bit-equal across two
+    launches, within the bar, event and profiler device times, the plain
+    version's and index_add_'s."""
     (x, idx), g = call
     B, n, D = x.shape
     run = lambda: gather.scatter_rows_add(g, idx, n)  # noqa: E731
     plain = lambda: gather.scatter_rows_add_plain(g, idx, n)  # noqa: E731
-    err = _err(run(), plain(), f"K8 {list(g.shape)} -> {n}")
+    err = _err(_twice(run, f"K8 {list(g.shape)} -> {n}"), plain(),
+               f"K8 {list(g.shape)} -> {n}")
     nbytes = 4 * (g.numel() + B * n * D) + idx.numel() * idx.element_size()
     return dict(_timed(run, plain, _index_add(g, idx, n), nbytes, g.numel()),
-                device_ms=device_ms(run, "scatter_rows_add_kernel", reps=4),
+                device_ms=device_ms(run, K8_PROFILE, reps=4),
                 max_abs_err=err, shape=list(g.shape) + [n],
                 sentinel_rows=int(((idx < 0) | (idx >= n)).sum()))
 
@@ -4299,27 +4314,60 @@ def check_weight_grad_bf16(call):
                 if path == "cpe" else 0.0)
 
 
+def k8_collisions(idx, n, valid=None):
+    """How one K8 call's indices collide (the structure its design relies
+    on for speed, csrc/gather.cu): live rows (index in [0, n), and valid),
+    the share of them whose index is not their own row, the share of hit
+    destinations with more than one source and of live rows in them, the
+    most sources of one destination, whether every cloud's live indices
+    are nondecreasing (runs) and whether every live index is at most its
+    row."""
+    idx = idx.long()
+    B, M = idx.shape
+    live = (idx >= 0) & (idx < n)
+    if valid is not None:
+        live &= valid
+    rows = torch.arange(M, device=idx.device)[None]
+    flat = torch.where(live, idx + torch.arange(B, device=idx.device)[:, None]
+                       * n, B * n)
+    cnt = torch.bincount(flat.reshape(-1), minlength=B * n + 1)[:B * n]
+    nl, hit = int(live.sum()), int((cnt > 0).sum())
+    runs = all(bool((v[1:] >= v[:-1]).all())
+               for v in (idx[b][live[b]] for b in range(B)))
+    return {"live_rows": nl, "not_own_share":
+            int((live & (idx != rows)).sum()) / max(nl, 1),
+            "multi_dest_share": int((cnt > 1).sum()) / max(hit, 1),
+            "rows_in_multi_share": int(cnt[cnt > 1].sum()) / max(nl, 1),
+            "max_sources": int(cnt.max()) if cnt.numel() else 0,
+            "runs": runs, "index_le_row": bool((~live | (idx <= rows)).all())}
+
+
 def check_scatter_add_bf16(g, idx, n, dtype=torch.bfloat16):
     """K8 at bf16: the rounded sums (dtype bf16, K4's backward) within the
     bf16 bar of the plain sums rounded once, or the fp32 sums (the conv's
-    owner sum) within 1e-4 of the plain version's largest value; timed
-    beside index_add_ in bf16."""
+    owner sum) within 1e-4 of the plain version's largest value, both
+    bit-equal across two launches (the kernel adds in a fixed order);
+    timed beside index_add_ in bf16; the indices' collisions
+    (k8_collisions)."""
     B, _, D = g.shape
     shape = list(g.shape) + [n]
     run = lambda: gather.scatter_rows_add(g, idx, n, dtype)  # noqa: E731
     plain = lambda: gather.scatter_rows_add_plain(  # noqa: E731
         g, idx, n).to(dtype)
+    got = _twice(run, f"bf16 K8 {shape}")
     if dtype == torch.bfloat16:
-        err = _bf16_err(run(), plain(), f"bf16 K8 {shape}")
+        err = _bf16_err(got, plain(), f"bf16 K8 {shape}")
     else:
-        err = _err(run(), plain(), f"bf16 K8 fp32 sums {shape}")
+        err = _err(got, plain(), f"bf16 K8 fp32 sums {shape}")
+    del got
     out_bytes = (2 if dtype == torch.bfloat16 else 4) * B * n * D
     return dict(_timed_bf16(run, plain, _index_add(g, idx, n),
                             2 * g.numel() + out_bytes +
                             idx.numel() * idx.element_size(), g.numel(),
-                            "scatter_rows_add_kernel", ("round_bf16",)),
+                            K8_PROFILE),
                 max_abs_err=err, shape=shape, out=str(dtype),
-                sentinel_rows=int(((idx < 0) | (idx >= n)).sum()))
+                sentinel_rows=int(((idx < 0) | (idx >= n)).sum()),
+                collisions=k8_collisions(idx, n))
 
 
 def check_conv_dx_bf16(call):
@@ -4335,11 +4383,11 @@ def check_conv_dx_bf16(call):
     B, N, cin = x.shape
     cout = w.shape[-1]
     shape = [B, N, idx.shape[-1], cin, cout]
-    centre = idx.shape[-1] // 2
-    owner = idx[..., centre]
-    gv = torch.where(ok[..., centre, None], g, torch.zeros_like(g))
-    k8 = check_scatter_add_bf16(gv, owner, N, torch.float32)
-    gsum = gather.scatter_rows_add(gv, owner, N, torch.float32)
+    # K8 as conv_input_grad calls it: the owner index with the sentinel
+    # where the centre link is invalid, the cotangent as it is
+    owner = conv.owner_index(idx, ok)
+    k8 = check_scatter_add_bf16(g, owner, N, torch.float32)
+    gsum = gather.scatter_rows_add(g, owner, N, torch.float32)
     wm = conv.mirror_weight(w)
     run = lambda: conv._conv_forward(gsum, idx, ok, wm, None)  # noqa: E731
     plain = lambda: conv.subm_conv_plain(  # noqa: E731
@@ -4461,6 +4509,43 @@ def bf16_train_kernel_phase(captured, tag, expect):
         row, k8 = check_conv_dx_bf16(c)
         res["subm_conv_dx_bf16"].append(row)
         res["scatter_rows_add_bf16"].append(k8)
+    k8s = res["scatter_rows_add_bf16"]
+    for what, rs in (("unpool backwards", k8s[:len(scat)]),
+                     ("conv owner sums", k8s[len(scat):])):
+        log(f"[{tag}] K8 bf16, the {len(rs)} {what}: device "
+            f"{_total(r['device_ms'] for r in rs)} ms, events "
+            f"{sum(r['ms'] for r in rs):.4f}, bound "
+            f"{sum(r['bound_ms'] for r in rs):.4f}; collisions per call "
+            + "; ".join(f"{r['shape']} {r['collisions']}" for r in rs))
+    # the forward kernels' bf16 rows per training step: K3 on the step's
+    # B = 32 stem call (its dW is K7's, above), K4 on the unpools' calls,
+    # K9 on the planner's categorical stem
+    steps = {}
+    if stems:
+        k3 = steps["k3"] = dict(check_bf16_call(
+            "stem_conv", stems[0][0], timing=TRAIN_TIMING),
+            launches_per_step=len(stems))
+        log(f"[{tag}] K3 bf16 per training step {k3['shape']}: shares "
+            f"{k3['shares']}; max_abs_err {k3['max_abs_err']:.3g}; "
+            f"{k3['ms']:.4f} ms (device {k3['device_ms']}; plain "
+            f"{k3['plain_ms']:.4f}, im2col in bf16 {k3['library_ms']:.4f}; "
+            f"bound {k3['bound_ms']:.4f})")
+    for key, site in (("k4", "gather_rows"), ("k9", "gather_rows_smallc")):
+        calls16 = [a for a, _ in captured.get(site, [])
+                   if a[0].dtype == torch.bfloat16]
+        if not calls16:
+            continue
+        gs = [check_gather(site, a, TRAIN_TIMING) for a in calls16]
+        log_gathers(tag, f"{site} bf16 per training step", gs)
+        steps[key] = dict(
+            _row(gs), calls=len(gs), launches_per_step=len(gs),
+            device_ms=_total(r["device_ms"] for r in gs),
+            library_device_ms=_total(r["library_device_ms"] for r in gs))
+        r = steps[key]
+        log(f"[{tag}] {site} bf16: {len(gs)} calls per step, bit-equal, "
+            f"{r['ms']:.4f} ms (device {r['device_ms']}; plain "
+            f"{r['plain_ms']:.4f}, bound {r['bound_ms']:.4f}, torch.gather "
+            f"{r['library_ms']:.4f}, device {r['library_device_ms']})")
     log(f"[{tag}] K5 bits bit-equal to philox_keep_mask and K5, K6, K7 and "
         f"the mirrored K2 bit-equal across two launches on all "
         f"{len(att)} / {len(att)} / {len(convs) + len(stems)} / "
@@ -4502,7 +4587,7 @@ def bf16_train_kernel_phase(captured, tag, expect):
         f"{fwd['bound_by']})")
     del runs5, runs2
     res["subm_conv_bf16_forward"] = k2f
-    return rows, res, fwd
+    return rows, res, fwd, steps
 
 
 def _side_by_side(tag, r32, r16, keys):
@@ -4629,7 +4714,7 @@ def bf16_train_phase(host, training32, observations, out_dir):
         f"{time.perf_counter() - t0:.2f} s; phase 7's host batches")
     captured = capture(lambda: trainer.step(batch_to_device(host[0], "cuda")),
                        TRAIN_SITES)
-    rows, calls, k2_forward = bf16_train_kernel_phase(
+    rows, calls, k2_forward, steps = bf16_train_kernel_phase(
         captured, tag, {"attention": 9, "conv": 9, "stem": 1,
                         "scatter": BF16_PER_STEP["gather_rows_bf16"]})
     del captured
@@ -4664,6 +4749,7 @@ def bf16_train_phase(host, training32, observations, out_dir):
     entry = bf16_entry_phase(train_simple_policy, train_config,
                              BF16_PER_STEP, serve, "bf16-entry")
     return {"kernels": rows, "calls": calls, "k2_forward_step": k2_forward,
+            "forward_steps": steps,
             "training": training16, "launches": launches,
             "bf16_beside_fp32": side, "step_check": step_check,
             "entry": entry}
@@ -4682,8 +4768,8 @@ def bf16_mp_train_phase(host, training32, mp_obs, out_dir):
     if hasattr(batches, "close"):
         batches.close()
     captured = capture(lambda: trainer.step(batch_to_device(host[0], "cuda")),
-                       TRAIN_SITES)
-    rows, calls, k2_forward = bf16_train_kernel_phase(
+                       TRAIN_SITES + SMALLC_SITES)
+    rows, calls, k2_forward, steps = bf16_train_kernel_phase(
         captured, tag, {"attention": 9, "conv": 9, "stem": 0,
                         "scatter": BF16_MP_PER_STEP["gather_rows_bf16"]})
     del captured
@@ -4718,6 +4804,7 @@ def bf16_mp_train_phase(host, training32, mp_obs, out_dir):
     entry = bf16_entry_phase(train_motion_planner, mp_config,
                              BF16_MP_PER_STEP, serve, "bf16-mp-entry")
     return {"kernels": rows, "calls": calls, "k2_forward_step": k2_forward,
+            "forward_steps": steps,
             "training": training16, "launches": launches,
             "bf16_beside_fp32": side, "step_check": step_check,
             "entry": entry}
@@ -5196,6 +5283,15 @@ def run():
         rows[k]["mp_train_step"] = r
     rows["subm_conv_bf16"]["concat_stem_b1"] = \
         bf16["variants"]["concat"]["stem_forward_b1"]
+    for k, key, phase in (
+            ("k3", "train_step", bf16_train), ("k4", "train_step",
+                                               bf16_train),
+            ("k4", "mp_train_step", bf16_mp_train),
+            ("k9", "mp_train_step", bf16_mp_train)):
+        name = {"k3": "stem_conv_bf16", "k4": "gather_rows_bf16",
+                "k9": "gather_rows_smallc_bf16"}[k]
+        if k in phase["forward_steps"]:
+            rows[name][key] = phase["forward_steps"][k]
     for key, phase, fp32_calls in (
             ("train_step", bf16_train, train_detail["calls"]["subm_conv"]),
             ("mp_train_step", bf16_mp_train,

@@ -47,17 +47,41 @@
 //      launch.
 //
 // bf16 (r3dl_stem_conv_bf16, under compute_dtype bfloat16): x and W bf16,
-// out bf16. The block widens its W slice to fp32 as it stages it (plain
-// loads, the layout of the fp32 path), the A fragments are widened as
-// they are gathered, and every product is one TF32 pass (tc_common.cuh
-// mma1). The sums stay fp32 over every tap, through the tap ranges'
-// partials and their fixed-order sum, and are rounded to bf16 once, as
-// the JAX XLA conv (robot3dlotus_tpu/ops/sparse_conv.py subm_conv_apply)
-// rounds its fp32 accumulator.
+// out bf16, on the bf16 tensor cores (stem_conv16_kernel). The first bf16
+// path ran the fp32 schedule on widened values: the W slice widened to fp32
+// a scalar at a time (224 KB, so one 16-warp block an SM), every A element
+// a 2-byte gather, one TF32 m16n8k8 a tap. Now:
+//   1. x's rows are zero-padded to 8 channels (16 bytes) by a first kernel
+//      of the same call (stem_pad8_kernel; none at Cin = 8), so that a
+//      link is one 16-byte load.
+//   2. The block stages its W slice as bf16 with 16-byte cp.async, laid
+//      out [tap][n-tile][channel][8 columns] (128 bytes a tap and n-tile):
+//      ldmatrix.x4.trans gives the m16n8k16 B fragments of a tap pair and
+//      two n-tiles, k = 16 being two taps x 8 channels (Cin zero-padded;
+//      a range's odd last tap paired with a zero tap). 125 taps x 64
+//      columns are 126 KB, so one 16-warp block an SM at B = 32.
+//   3. A warp owns 16 rows and walks its range in chunks of 8 tap pairs
+//      (16 taps). The map's reads, not the products, set the pace: the
+//      warp reads a chunk's map coalesced (a load covers two rows' runs of
+//      16 taps, the next chunk's in flight) and turns it around through a
+//      small per-warp tile in shared memory, so that lane l holds link
+//      (row l % 16, tap 2q + l / 16) of each pair q and gathers it itself:
+//      the chunk's 8 x rows as 16-byte loads issued together. A pair no
+//      link of the warp's 32
+//      reaches is skipped by one ballot; a live pair's links go to the
+//      warp's 512-byte tile in shared memory in lane order, which is the
+//      ldmatrix.x4 layout of the A fragment (rows 0-7 / 8-15 of the
+//      first tap, then of the second), and J n-tiles of
+//      bf16 mma.sync.m16n8k16 follow: one product a live pair where the
+//      TF32 path ran one a tap. Products of bf16 values are exact in fp32.
+//   4. The sums stay fp32 over every tap, through the tap ranges' partials
+//      and their fixed-order sum (stem_conv_sum_kernel), and are rounded
+//      to bf16 once, as the JAX XLA conv (robot3dlotus_tpu/ops/
+//      sparse_conv.py subm_conv_apply) rounds its fp32 accumulator; no
+//      float atomics, so bit-equal from launch to launch. Cout is a
+//      multiple of 8 (ops/stem.py pads the weight's columns).
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 #include "tc_common.cuh"
 
@@ -102,14 +126,14 @@ __device__ __forceinline__ void store2(r3dl::bf16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-template <int kCols, typename T>
+// the fp32 path (see the header's design)
+template <int kCols>
 __global__ void __launch_bounds__(32 * kMaxWarps, 1)
-stem_conv_kernel(const T* __restrict__ x, const int* __restrict__ idx,
+stem_conv_kernel(const float* __restrict__ x, const int* __restrict__ idx,
                  const unsigned char* __restrict__ ok,
-                 const T* __restrict__ w, T* __restrict__ out,
+                 const float* __restrict__ w, float* __restrict__ out,
                  float* __restrict__ work, int rows, int N, int K, int Cin,
                  int Cout, int splits) {
-  constexpr bool kOne = !std::is_same<T, float>::value;
   constexpr int J = kCols / 8;               // n-tiles
   extern __shared__ float4 smem4[];
   float* ws = reinterpret_cast<float*>(smem4);   // [R][J][Cin][8]
@@ -124,29 +148,17 @@ stem_conv_kernel(const T* __restrict__ x, const int* __restrict__ idx,
 
   // 1. the range's W slice: W[kb + t][c][co0 + 8 j + g] at
   //    ws[((t J + j) Cin + c) 8 + g]; columns past Cout zero-filled
-  if constexpr (kOne) {
-    for (int e = tid; e < R * Cin * J * 8; e += blockDim.x) {
-      const int g = e & 7, j = (e >> 3) % J, tc = (e >> 3) / J;
-      const int c = tc % Cin, t = tc / Cin;
-      const int col = co0 + 8 * j + g;
-      ws[((t * J + j) * Cin + c) * 8 + g] =
-          col < Cout ? r3dl::widen(w[((long long)(kb + t) * Cin + c) * Cout +
-                                     col])
-                     : 0.f;
-    }
-  } else {
-    for (int e = tid; e < R * Cin * J * 2; e += blockDim.x) {
-      const int h = e & 1, j = (e >> 1) % J, tc = (e >> 1) / J;
-      const int c = tc % Cin, t = tc / Cin;
-      const int col = co0 + 8 * j + 4 * h;
-      const bool p = col < Cout;
-      r3dl::cp_async16(
-          ws + (((t * J + j) * Cin + c) * 8 + 4 * h),
-          p ? w + ((long long)(kb + t) * Cin + c) * Cout + col : w, p);
-    }
-    r3dl::cp_async_commit();
-    r3dl::cp_async_wait<0>();
+  for (int e = tid; e < R * Cin * J * 2; e += blockDim.x) {
+    const int h = e & 1, j = (e >> 1) % J, tc = (e >> 1) / J;
+    const int c = tc % Cin, t = tc / Cin;
+    const int col = co0 + 8 * j + 4 * h;
+    const bool p = col < Cout;
+    r3dl::cp_async16(ws + (((t * J + j) * Cin + c) * 8 + 4 * h),
+                     p ? w + ((long long)(kb + t) * Cin + c) * Cout + col : w,
+                     p);
   }
+  r3dl::cp_async_commit();
+  r3dl::cp_async_wait<0>();
   __syncthreads();
 
   float* part = work + (long long)s * rows * Cout;
@@ -161,8 +173,8 @@ stem_conv_kernel(const T* __restrict__ x, const int* __restrict__ idx,
     const long long my_off = (long long)(my_in ? my_row : 0) * K;
     // this lane's fragment rows and their clouds' x
     const int r0 = n0 + gid, r1 = r0 + 8;
-    const T* xb0 = x + (long long)(r0 / N) * N * Cin;
-    const T* xb1 = x + (long long)(r1 / N) * N * Cin;
+    const float* xb0 = x + (long long)(r0 / N) * N * Cin;
+    const float* xb1 = x + (long long)(r1 / N) * N * Cin;
 
     unsigned char o_next[4];
     int i_next[4];
@@ -190,45 +202,205 @@ stem_conv_kernel(const T* __restrict__ x, const int* __restrict__ idx,
       for (int t = 0; t < kKT; ++t) {
         src0[t] = __shfl_sync(kFull, mine[t & 3], gid + 16 * (t >> 2));
         src1[t] = __shfl_sync(kFull, mine[t & 3], gid + 8 + 16 * (t >> 2));
-        const T* x0 = xb0 + (long long)src0[t] * Cin;
-        const T* x1 = xb1 + (long long)src1[t] * Cin;
-        a[t][0] = src0[t] >= 0 && tig < Cin ? r3dl::widen(x0[tig]) : 0.f;
-        a[t][1] = src1[t] >= 0 && tig < Cin ? r3dl::widen(x1[tig]) : 0.f;
-        a[t][2] =
-            src0[t] >= 0 && tig + 4 < Cin ? r3dl::widen(x0[tig + 4]) : 0.f;
-        a[t][3] =
-            src1[t] >= 0 && tig + 4 < Cin ? r3dl::widen(x1[tig + 4]) : 0.f;
+        const float* x0 = xb0 + (long long)src0[t] * Cin;
+        const float* x1 = xb1 + (long long)src1[t] * Cin;
+        a[t][0] = src0[t] >= 0 && tig < Cin ? x0[tig] : 0.f;
+        a[t][1] = src1[t] >= 0 && tig < Cin ? x1[tig] : 0.f;
+        a[t][2] = src0[t] >= 0 && tig + 4 < Cin ? x0[tig + 4] : 0.f;
+        a[t][3] = src1[t] >= 0 && tig + 4 < Cin ? x1[tig + 4] : 0.f;
       }
       // 3. the live taps' products
 #pragma unroll
       for (int t = 0; t < kKT; ++t) {
         if (!__any_sync(kFull, src0[t] >= 0 || src1[t] >= 0)) continue;
         const float* wt = ws + (c0 + t) * J * Cin * 8;
-        if constexpr (kOne) {
+        const Split af[4] = {split(a[t][0]), split(a[t][1]), split(a[t][2]),
+                             split(a[t][3])};
 #pragma unroll
-          for (int j = 0; j < J; ++j) {
-            const float* wj = wt + j * Cin * 8 + gid;
-            r3dl::mma1(acc[j], a[t][0], a[t][1], a[t][2], a[t][3],
-                       tig < Cin ? wj[tig * 8] : 0.f,
-                       tig + 4 < Cin ? wj[(tig + 4) * 8] : 0.f);
-          }
-        } else {
-          const Split af[4] = {split(a[t][0]), split(a[t][1]),
-                               split(a[t][2]), split(a[t][3])};
-#pragma unroll
-          for (int j = 0; j < J; ++j) {
-            const float* wj = wt + j * Cin * 8 + gid;
-            const Split bf[2] = {
-                split(tig < Cin ? wj[tig * 8] : 0.f),
-                split(tig + 4 < Cin ? wj[(tig + 4) * 8] : 0.f)};
-            r3dl::mma3(acc[j], af, bf);
-          }
+        for (int j = 0; j < J; ++j) {
+          const float* wj = wt + j * Cin * 8 + gid;
+          const Split bf[2] = {split(tig < Cin ? wj[tig * 8] : 0.f),
+                               split(tig + 4 < Cin ? wj[(tig + 4) * 8] : 0.f)};
+          r3dl::mma3(acc[j], af, bf);
         }
       }
     }
 
-    // 4. the group's rows out (rounded to T), or the tap range's fp32
+    // 4. the group's rows out, or the tap range's fp32 partial to scratch
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const int col = co0 + 8 * j + 2 * tig;
+      if (col >= Cout) break;
+      const long long o0 = (long long)r0 * Cout + col;
+      const long long o1 = (long long)r1 * Cout + col;
+      float* dst = splits > 1 ? part : out;
+      if (r0 < rows) store2(dst + o0, acc[j][0], acc[j][1]);
+      if (r1 < rows) store2(dst + o1, acc[j][2], acc[j][3]);
+    }
+  }
+}
+
+// ---- bf16 (see the header) ----
+
+constexpr int kPairs = 8;          // tap pairs a chunk (k = 16 each)
+constexpr int kPairTile = 32;      // 16-byte links of a pair's A tile
+constexpr int kMapStride = 18;     // ints a row of a warp's map tile: its
+                                   // 16 taps, padded so that a pair's
+                                   // 32 reads hit 32 banks
+// a warp's shared memory after the W slice: its A tile, then its map tile
+// (16 rows x kMapStride ints), in 16-byte units
+constexpr int kWarpSmem16 = kPairTile + 16 * kMapStride / 4;
+
+// shared memory of a bf16 block: the W slice of R taps (rounded up to a
+// pair), then each warp's A tile and map tile
+template <int kCols>
+size_t smem_bytes16(int R, int warps) {
+  return (size_t)((R + 1) / 2 * 2) * (kCols / 8) * 128 +
+         (size_t)warps * kWarpSmem16 * 16;
+}
+
+// xp[r] = row r of x (Cin bf16) with zero channels up to 8
+__global__ void stem_pad8_kernel(const unsigned short* __restrict__ x,
+                                 uint4* __restrict__ xp, long long rows,
+                                 int Cin) {
+  for (long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       r < rows; r += (long long)gridDim.x * blockDim.x) {
+    const unsigned short* xr = x + r * Cin;
+    unsigned v[8];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) v[c] = c < Cin ? xr[c] : 0u;
+    xp[r] = make_uint4(v[0] | v[1] << 16, v[2] | v[3] << 16,
+                       v[4] | v[5] << 16, v[6] | v[7] << 16);
+  }
+}
+
+// a chunk's map entries (ok, idx) of a warp's 16 rows x 16 taps, read
+// coalesced: lane l reads tap k0 + l % 16 of rows n0 + 2 e + l / 16 (row
+// offsets off0 + 2 e K), e < 8, so that a load covers two rows' runs of 16
+// taps; taps from ke on and rows from `rows` on read as dead. ok and idx
+// are read together, not one after the other.
+__device__ __forceinline__ void load_links(
+    unsigned char (&o)[kPairs], int (&i)[kPairs],
+    const unsigned char* __restrict__ ok, const int* __restrict__ idx,
+    long long off0, int r0, int rows, int K, int k, int ke) {
+#pragma unroll
+  for (int e = 0; e < kPairs; ++e) {
+    const bool p = r0 + 2 * e < rows && k < ke;
+    const long long at = off0 + (long long)(2 * e) * K + k;
+    o[e] = p ? __ldg(ok + at) : 0;
+    i[e] = p ? __ldg(idx + at) : 0;
+  }
+}
+
+template <int kCols>
+__global__ void __launch_bounds__(32 * kMaxWarps, 1)
+stem_conv16_kernel(const uint4* __restrict__ x, const int* __restrict__ idx,
+                   const unsigned char* __restrict__ ok,
+                   const r3dl::bf16* __restrict__ w,
+                   r3dl::bf16* __restrict__ out, float* __restrict__ work,
+                   int rows, int N, int K, int Cin, int Cout, int splits) {
+  constexpr int J = kCols / 8;               // n-tiles, an even count
+  extern __shared__ uint4 smem16[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int warps = blockDim.x >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int s = blockIdx.z, co0 = blockIdx.y * kCols;
+  const int chunks = (K + kKT - 1) / kKT;
+  const int kb = s * chunks / splits * kKT;
+  const int ke = min(K, (s + 1) * chunks / splits * kKT);
+  const int R = ke - kb, R2 = (R + 1) / 2 * 2;
+  uint4* ws = smem16;   // [R2][J][8 channels]: 8 columns of bf16 a row
+  uint4* tile = smem16 + R2 * J * 8 + warp * kWarpSmem16;
+  int* map = reinterpret_cast<int*>(tile + kPairTile);   // [16][kMapStride]
+
+  // 1. the range's W slice: W[kb + t][c][co0 + 8 j .. + 7] at
+  //    ws[(t J + j) 8 + c]; channels past Cin, taps past ke and columns
+  //    past Cout zero-filled
+  for (int e = tid; e < R2 * 8 * J; e += blockDim.x) {
+    const int j = e % J, tc = e / J;
+    const int c = tc & 7, t = tc >> 3;
+    const int col = co0 + 8 * j;
+    const bool p = kb + t < ke && c < Cin && col < Cout;
+    r3dl::cp_async16(ws + (t * J + j) * 8 + c,
+                     p ? w + ((long long)(kb + t) * Cin + c) * Cout + col : w,
+                     p);
+  }
+  r3dl::cp_async_commit();
+  r3dl::cp_async_wait<0>();
+  __syncthreads();
+
+  float* part = work + (long long)s * rows * Cout;
+  const int groups = (rows + 15) / 16;
+  // this lane's link of a pair: row n0 + lane % 16, the pair's tap h
+  const int h = lane >> 4;
+  // its ldmatrix.x4.trans row of a pair's W: tap h' = (lane / 8) % 2,
+  // n-tile offset lane / 16, channel lane % 8
+  const int w_lane = (((lane >> 3) & 1) * J + (lane >> 4)) * 8 + (lane & 7);
+  for (int grp = blockIdx.x * warps + warp; grp < groups;
+       grp += gridDim.x * warps) {
+    const int n0 = grp * 16;
+    const int my_row = n0 + (lane & 15);
+    const uint4* xb = x + (long long)(my_row < rows ? my_row / N : 0) * N;
+    // the coalesced map reads: this lane's rows n0 + 2 e + h, tap
+    // k0 + lane % 16
+    const int mr0 = n0 + h;
+    const long long off0 = (long long)mr0 * K;
+
+    unsigned char o_next[kPairs];
+    int i_next[kPairs];
+    load_links(o_next, i_next, ok, idx, off0, mr0, rows, K,
+               kb + (lane & 15), ke);
+
+    float acc[J][4];
+#pragma unroll
+    for (int j = 0; j < J; ++j)
+      acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+    for (int c0 = 0; c0 < R; c0 += 2 * kPairs) {
+      // 2. this chunk's links through the warp's map tile (row 2 e + h,
+      //    tap lane % 16 in; this lane's link of pair q, row lane % 16,
+      //    tap 2 q + h, out: the source row, or -1 where the link is
+      //    dead), the next chunk's map in flight, the chunk's x rows
+      //    loaded together
+#pragma unroll
+      for (int e = 0; e < kPairs; ++e)
+        map[(2 * e + h) * kMapStride + (lane & 15)] =
+            o_next[e] && (unsigned)i_next[e] < (unsigned)N ? i_next[e] : -1;
+      __syncwarp();
+      int src[kPairs];
+#pragma unroll
+      for (int q = 0; q < kPairs; ++q)
+        src[q] = map[(lane & 15) * kMapStride + 2 * q + h];
+      __syncwarp();
+      if (c0 + 2 * kPairs < R)
+        load_links(o_next, i_next, ok, idx, off0, mr0, rows, K,
+                   kb + c0 + 2 * kPairs + (lane & 15), ke);
+      uint4 v[kPairs];
+#pragma unroll
+      for (int q = 0; q < kPairs; ++q)
+        v[q] = src[q] >= 0 ? __ldg(xb + src[q]) : make_uint4(0u, 0u, 0u, 0u);
+      // 3. a live pair: its A tile, then J products of m16n8k16
+#pragma unroll
+      for (int q = 0; q < kPairs; ++q) {
+        if (!__any_sync(kFull, src[q] >= 0)) continue;
+        tile[lane] = v[q];
+        __syncwarp();
+        uint32_t a[4];
+        r3dl::ldmatrix_x4(a, tile + lane);
+        const uint4* wt = ws + (c0 + 2 * q) * J * 8 + w_lane;
+#pragma unroll
+        for (int j = 0; j < J; j += 2) {
+          uint32_t b[4];
+          r3dl::ldmatrix_x4_trans(b, wt + j * 8);
+          r3dl::mma_bf16(acc[j], a, b[0], b[1]);
+          r3dl::mma_bf16(acc[j + 1], a, b[2], b[3]);
+        }
+      }
+    }
+
+    // 4. the group's rows out (rounded to bf16), or the tap range's fp32
     //    partial to scratch
+    const int r0 = n0 + gid, r1 = r0 + 8;
 #pragma unroll
     for (int j = 0; j < J; ++j) {
       const int col = co0 + 8 * j + 2 * tig;
@@ -267,47 +439,62 @@ __global__ void stem_conv_sum_kernel(const float4* __restrict__ work,
   }
 }
 
-template <int kCols, typename T>
-int launch(const T* x, const int* idx, const unsigned char* ok, const T* w,
-           T* out, float* work, int B, int N, int K, int Cin, int Cout,
-           int warps, int splits, int blocks, cudaStream_t stream) {
-  static const cudaError_t attr =
-      r3dl::allow_smem(stem_conv_kernel<kCols, T>, kMaxSmem);
-  if (attr != cudaSuccess) return (int)attr;
-  // the longest range's taps
+// the longest tap range's taps
+int range_taps(int K, int splits) {
   const int chunks = (K + kKT - 1) / kKT;
-  const int range_taps = min(K, (chunks + splits - 1) / splits * kKT);
-  if (smem_bytes<kCols>(range_taps, Cin) > (size_t)kMaxSmem)
-    return (int)cudaErrorInvalidValue;
+  return min(K, (chunks + splits - 1) / splits * kKT);
+}
+
+template <int kCols>
+int launch(const float* x, const int* idx, const unsigned char* ok,
+           const float* w, float* out, float* work, int B, int N, int K,
+           int Cin, int Cout, int warps, int splits, int blocks,
+           cudaStream_t stream) {
+  static const cudaError_t attr =
+      r3dl::allow_smem(stem_conv_kernel<kCols>, kMaxSmem);
+  if (attr != cudaSuccess) return (int)attr;
+  const size_t smem = smem_bytes<kCols>(range_taps(K, splits), Cin);
+  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
   const dim3 grid(blocks, (Cout + kCols - 1) / kCols, splits);
-  stem_conv_kernel<kCols, T><<<grid, 32 * warps,
-                               smem_bytes<kCols>(range_taps, Cin), stream>>>(
+  stem_conv_kernel<kCols><<<grid, 32 * warps, smem, stream>>>(
       x, idx, ok, w, out, work, B * N, N, K, Cin, Cout, splits);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int stem(const T* x, const int* idx, const unsigned char* ok, const T* w,
-         T* out, float* work, int B, int N, int K, int Cin, int Cout,
-         int cols, int warps, int splits, int blocks, long long work_bytes,
-         cudaStream_t stream) {
-  const long long n = (long long)B * N * Cout;
-  if (n == 0) return (int)cudaGetLastError();
+template <int kCols>
+int launch16(const uint4* x, const int* idx, const unsigned char* ok,
+             const r3dl::bf16* w, r3dl::bf16* out, float* work, int B, int N,
+             int K, int Cin, int Cout, int warps, int splits, int blocks,
+             cudaStream_t stream) {
+  static const cudaError_t attr =
+      r3dl::allow_smem(stem_conv16_kernel<kCols>, kMaxSmem);
+  if (attr != cudaSuccess) return (int)attr;
+  const size_t smem = smem_bytes16<kCols>(range_taps(K, splits), warps);
+  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+  const dim3 grid(blocks, (Cout + kCols - 1) / kCols, splits);
+  stem_conv16_kernel<kCols><<<grid, 32 * warps, smem, stream>>>(
+      x, idx, ok, w, out, work, B * N, N, K, Cin, Cout, splits);
+  return (int)cudaGetLastError();
+}
+
+// the plan's and the buffers' checks shared by both paths
+bool bad_args(long long n, int B, int N, int K, int Cin, int Cout, int cols,
+              int warps, int splits, int blocks, const void* w,
+              const void* out, const float* work, long long work_bytes,
+              int cout_unit) {
   const int chunks = (K + kKT - 1) / kKT;
-  if (K < 1 || K > kMaxK || Cin < 1 || Cin > kCp || Cout % 4 ||
-      (cols != 64 && cols != 32) || warps < 1 || warps > kMaxWarps ||
-      splits < 1 || splits > chunks || splits > 65535 || blocks < 1 ||
-      (long long)B * N > 0x7fffffffLL || ((uintptr_t)w & 15) ||
-      ((uintptr_t)out & 15) ||
-      (splits > 1 && (!work || work_bytes < 4 * splits * n ||
-                      ((uintptr_t)work & 15))))
-    return (int)cudaErrorInvalidValue;
-  const int err = cols == 64
-                      ? launch<64, T>(x, idx, ok, w, out, work, B, N, K, Cin,
-                                      Cout, warps, splits, blocks, stream)
-                      : launch<32, T>(x, idx, ok, w, out, work, B, N, K, Cin,
-                                      Cout, warps, splits, blocks, stream);
-  if (err != cudaSuccess || splits == 1) return err;
+  return K < 1 || K > kMaxK || Cin < 1 || Cin > kCp || Cout % cout_unit ||
+         (cols != 64 && cols != 32) || warps < 1 || warps > kMaxWarps ||
+         splits < 1 || splits > chunks || splits > 65535 || blocks < 1 ||
+         (long long)B * N > 0x7fffffffLL || ((uintptr_t)w & 15) ||
+         ((uintptr_t)out & 15) ||
+         (splits > 1 && (!work || work_bytes < 4 * splits * n ||
+                         ((uintptr_t)work & 15)));
+}
+
+template <typename T>
+int sum_ranges(const float* work, T* out, long long n, int splits,
+               cudaStream_t stream) {
   const long long n4 = n / 4, sum_blocks = (n4 + 255) / 256;
   stem_conv_sum_kernel<T>
       <<<(unsigned)(sum_blocks < 4096 ? sum_blocks : 4096), 256, 0,
@@ -317,8 +504,8 @@ int stem(const T* x, const int* idx, const unsigned char* ok, const T* w,
 
 }  // namespace
 
-// cols: output channels per block (64, or 32: the W slice of 125 taps at
-// Cin = 8 fits shared memory only so); warps: 16-row groups per block
+// cols: output channels per block (64, or 32: the fp32 W slice of 125 taps
+// at Cin = 8 fits shared memory only so); warps: 16-row groups per block
 // (1..16); blocks: blocks per column tile and range (each walks row groups
 // blockIdx.x + i gridDim.x); splits: tap ranges, range s the 8-tap chunks
 // [s C / splits, (s + 1) C / splits) of C = ceil(K / 8); work: (splits, B,
@@ -330,18 +517,51 @@ extern "C" int r3dl_stem_conv(const float* x, const int* idx,
                               int Cin, int Cout, int cols, int warps,
                               int splits, int blocks, long long work_bytes,
                               cudaStream_t stream) {
-  return stem<float>(x, idx, ok, w, out, work, B, N, K, Cin, Cout, cols,
-                     warps, splits, blocks, work_bytes, stream);
+  const long long n = (long long)B * N * Cout;
+  if (n == 0) return (int)cudaGetLastError();
+  if (bad_args(n, B, N, K, Cin, Cout, cols, warps, splits, blocks, w, out,
+               work, work_bytes, 4))
+    return (int)cudaErrorInvalidValue;
+  const int err = cols == 64
+                      ? launch<64>(x, idx, ok, w, out, work, B, N, K, Cin,
+                                   Cout, warps, splits, blocks, stream)
+                      : launch<32>(x, idx, ok, w, out, work, B, N, K, Cin,
+                                   Cout, warps, splits, blocks, stream);
+  if (err != cudaSuccess || splits == 1) return err;
+  return sum_ranges(work, out, n, splits, stream);
 }
 
-// The same with bf16 x, w and out (work fp32).
-extern "C" int r3dl_stem_conv_bf16(const r3dl::bf16* x, const int* idx,
-                                   const unsigned char* ok,
+// The same with bf16 x (B, N, Cin), w and out (work fp32), Cout a multiple
+// of 8; xp: (B, N, 8) bf16 scratch that x's rows are padded into when
+// Cin < 8 (16-byte aligned; unused, may be NULL, at Cin = 8, where x
+// itself must be 16-byte aligned).
+extern "C" int r3dl_stem_conv_bf16(const r3dl::bf16* x, r3dl::bf16* xp,
+                                   const int* idx, const unsigned char* ok,
                                    const r3dl::bf16* w, r3dl::bf16* out,
                                    float* work, int B, int N, int K, int Cin,
                                    int Cout, int cols, int warps, int splits,
                                    int blocks, long long work_bytes,
                                    cudaStream_t stream) {
-  return stem<r3dl::bf16>(x, idx, ok, w, out, work, B, N, K, Cin, Cout, cols,
-                          warps, splits, blocks, work_bytes, stream);
+  const long long n = (long long)B * N * Cout;
+  if (n == 0) return (int)cudaGetLastError();
+  const r3dl::bf16* rows8 = Cin < kCp ? xp : x;
+  if (bad_args(n, B, N, K, Cin, Cout, cols, warps, splits, blocks, w, out,
+               work, work_bytes, 8) ||
+      !rows8 || ((uintptr_t)rows8 & 15))
+    return (int)cudaErrorInvalidValue;
+  if (Cin < kCp) {
+    const long long r = (long long)B * N, pad_blocks = (r + 255) / 256;
+    stem_pad8_kernel<<<(unsigned)(pad_blocks < 4096 ? pad_blocks : 4096),
+                       256, 0, stream>>>(
+        reinterpret_cast<const unsigned short*>(x),
+        reinterpret_cast<uint4*>(xp), r, Cin);
+  }
+  const uint4* x8 = reinterpret_cast<const uint4*>(rows8);
+  const int err = cols == 64
+                      ? launch16<64>(x8, idx, ok, w, out, work, B, N, K, Cin,
+                                     Cout, warps, splits, blocks, stream)
+                      : launch16<32>(x8, idx, ok, w, out, work, B, N, K, Cin,
+                                     Cout, warps, splits, blocks, stream);
+  if (err != cudaSuccess || splits == 1) return err;
+  return sum_ranges(work, out, n, splits, stream);
 }

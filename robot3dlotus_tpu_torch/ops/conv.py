@@ -275,20 +275,25 @@ def conv_weight_grad(x, idx, ok, g):
     return dw[:, :Cin - pin].contiguous() if pin else dw
 
 
+def owner_index(idx, ok):
+    """(B, N): each row's voxel owner (the centre tap's index), and the
+    sentinel N where the centre link is invalid, so that K8 drops that
+    row's cotangent (one pass over the map's centre column)."""
+    centre = idx.shape[-1] // 2
+    return torch.where(ok[..., centre], idx[..., centre], idx.shape[1])
+
+
 def conv_input_grad(g, idx, ok, weight):
     """Exact dx of subm_conv for the cotangent g (B, N, Cout): K8 gathers
-    each voxel's cotangents onto its owner, K2 runs the mirrored weight on
-    them, non-owner rows get 0 (see the module docstring). A bf16 g: the
-    owner sums stay fp32 and the mirrored conv rounds dx to bf16 once."""
-    B, N, _ = g.shape
-    centre = idx.shape[-1] // 2
-    owner, valid = idx[..., centre], ok[..., centre]
-    gsum = scatter_rows_add(
-        torch.where(valid[..., None], g, torch.zeros_like(g)).contiguous(),
-        owner, N, torch.float32)
+    each voxel's cotangents onto its owner (an invalid row's to the
+    sentinel, so dropped), K2 runs the mirrored weight on them, non-owner
+    rows get 0 (see the module docstring). A bf16 g: the owner sums stay
+    fp32 and the mirrored conv rounds dx to bf16 once."""
+    N = g.shape[1]
+    owner = owner_index(idx, ok)
+    gsum = scatter_rows_add(g, owner, N, torch.float32)
     dx = _conv_forward(gsum, idx, ok, mirror_weight(weight), None)
-    rows = torch.arange(N, device=g.device)[None]
-    own = valid & (owner.long() == rows)
+    own = owner == torch.arange(N, device=g.device)[None]
     return torch.where(own[..., None], dx, torch.zeros_like(dx))
 
 

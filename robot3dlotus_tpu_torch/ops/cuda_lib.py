@@ -54,9 +54,9 @@ SIGNATURES = {
     "r3dl_gather_rows": _GATHER,
     "r3dl_gather_rows16": _GATHER,
     "r3dl_scatter_rows_add": _GATHER,
-    # g (bf16), idx, sums (fp32), out (bf16) | NULL, B, N, M, D, idx64,
-    # stream
-    "r3dl_scatter_rows_add_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # g (bf16), idx, out (bf16, or fp32 with out_f32), out_f32, B, N, M,
+    # D, idx64, stream
+    "r3dl_scatter_rows_add_bf16": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "r3dl_gather_smallc": _GATHER,
     "r3dl_gather_smallc16": _GATHER,
     # g, idx, dx, work|NULL, B, n, M, C, idx64, ranges, window, work_bytes,
@@ -97,7 +97,8 @@ SIGNATURES = {
     # x, idx, ok, w, out, work|NULL, B, N, K, Cin, Cout, cols, warps,
     # splits, blocks, work_bytes, stream
     "r3dl_stem_conv": _STEM,
-    "r3dl_stem_conv_bf16": _STEM,
+    # x, xp (x padded to 8 channels; NULL at Cin = 8), then as above
+    "r3dl_stem_conv_bf16": _STEM[:1] + [_P] + _STEM[1:],
 }
 
 # K1-K10 by wrapper name; their bf16 paths count apart (K2's input

@@ -29,6 +29,11 @@ scatter_rows_add_bf16): the rows are widened and summed in fp32, and the
 sums are rounded to bf16 once (the rule of pallas_gather.py
 `_permute_op_bwd`: fp32 sum, one rounding to the input's dtype), or handed
 back in fp32 where the caller sums on (the conv's owner sum, ops/conv.py).
+At both dtypes K8 is one kernel a call that owns tiles of destination rows
+(csrc/gather.cu): each destination sums its sources in increasing row
+order from 0 in fp32 and is written once, so the result is bit-equal from
+launch to launch and needs no zeroed buffer (scatter_rows_add_ordered is
+that order in PyTorch).
 K10 takes a bf16 cotangent the same way (csrc r3dl_scatter_smallc_add_bf16,
 counted as scatter_rows_smallc_add_bf16: fp32 sums, one rounding, the rule
 of pallas_gather.py `_smallc_op_bwd`); the stems' input gradients at bf16
@@ -76,6 +81,28 @@ def scatter_rows_add_plain(g: torch.Tensor, idx: torch.Tensor,
     out = torch.zeros((B, n, D), dtype=torch.float32, device=g.device)
     return out.scatter_add_(1, idx.clamp(0, n - 1)[..., None].expand(
         B, M, D), gv)
+
+
+def scatter_rows_add_ordered(g: torch.Tensor, idx: torch.Tensor,
+                             n: int) -> torch.Tensor:
+    """scatter_rows_add_plain in K8's order of adds: every destination row
+    sums its sources in increasing source row order, starting from 0, in
+    fp32 (round k adds each row's k-th source, as the kernel's rounds do);
+    for the CPU tests, slow."""
+    B, M, D = g.shape
+    idx = idx.long()
+    out = torch.zeros((B, n, D), dtype=torch.float32, device=g.device)
+    for b in range(B):
+        live = ((idx[b] >= 0) & (idx[b] < n)).nonzero()[:, 0]
+        dest = idx[b, live]
+        order = torch.argsort(dest, stable=True)
+        src, dest = live[order], dest[order]
+        first = torch.searchsorted(dest, dest, right=False)
+        rank = torch.arange(dest.numel(), device=g.device) - first
+        for k in range(int(rank.max()) + 1 if rank.numel() else 0):
+            sel = rank == k
+            out[b, dest[sel]] += g[b, src[sel]].float()
+    return out
 
 
 # K9 / K10 compute the same functions for rows of at most SMALLC_MAX
@@ -134,15 +161,14 @@ def _launch(kernel, c_name, max_width, x, idx, n=None, dtype=None):
     elif M != N or (dtype or x.dtype) not in (x.dtype, _F32):
         raise _check_failed(kernel, x, idx, max_width, dtypes)
     elif x.dtype is _BF16:
-        # fp32 sums (zeroed and added into by the kernel), rounded to bf16
-        # into `out` unless the caller takes the sums
-        sums = x.new_empty(B, n, D, dtype=_F32)
-        out = None if dtype is _F32 else x.new_empty(B, n, D)
+        # the fp32 sums rounded to bf16, or the sums where the caller takes
+        # them (dtype float32); every element written by the kernel
+        f32 = dtype is _F32
+        out = x.new_empty(B, n, D, dtype=_F32 if f32 else _BF16)
         cuda_lib.launch("scatter_rows_add_bf16", "r3dl_scatter_rows_add_bf16",
-                        x.data_ptr(), idx.data_ptr(), sums.data_ptr(),
-                        None if out is None else out.data_ptr(), B, n, M, D,
-                        idx64)
-        return sums if out is None else out
+                        x.data_ptr(), idx.data_ptr(), out.data_ptr(), int(f32),
+                        B, n, M, D, idx64)
+        return out
     else:
         out = x.new_empty(B, n, D)
         N = n
@@ -156,8 +182,9 @@ def scatter_rows_add(g: torch.Tensor, idx: torch.Tensor, n: int,
     """K8, row scatter-add that drops rows whose index is outside [0, n),
     g fp32 or bf16, summed in fp32 and returned in `dtype` (g's by
     default; float32 for a bf16 g returns the sums unrounded): the CUDA
-    kernel (fp32 atomicAdd, so colliding rows sum in a run-dependent
-    order) for CUDA tensors, the plain version for CPU tensors."""
+    kernel (each destination's sources in increasing row order, bit-equal
+    from launch to launch) for CUDA tensors, the plain version for CPU
+    tensors."""
     if not g.is_cuda:
         return scatter_rows_add_plain(g, idx, n).to(dtype or g.dtype)
     return _launch("scatter_rows_add", "r3dl_scatter_rows_add", _ANY_WIDTH,

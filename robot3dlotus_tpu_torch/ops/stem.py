@@ -12,9 +12,14 @@ block per SM holding the whole weight; a B = 1 cloud's row groups are too
 few to fill the card, so its tap chunks are split into ranges that a
 second kernel adds in a fixed order (two launches for one count).
 
-bf16 (compute_dtype bfloat16): x and W bf16, the taps summed in fp32 and
-the output rounded to bf16 once (csrc r3dl_stem_conv_bf16, counted as
-stem_conv_bf16; the tap ranges' partials stay fp32). The weight gradient
+bf16 (compute_dtype bfloat16): x and W bf16 on the bf16 tensor cores, one
+mma.sync.m16n8k16 a live pair of taps (k = 2 taps x 8 channels), the taps
+summed in fp32 and the output rounded to bf16 once (csrc
+r3dl_stem_conv_bf16, counted as stem_conv_bf16; the tap ranges' partials
+stay fp32). Its rows are gathered 16 bytes a link, so x's rows are padded
+to 8 channels by a first kernel of the same call into a scratch this
+wrapper allocates (none at Cin = 8), and a Cout that is not a multiple of
+8 gets zero weight columns here (dropped from the output). The weight gradient
 at bf16 is K7's bf16 path (fp32 sums of the bf16 products, rounded to
 bf16 once by the caller). The input gradient at bf16 rounds where the
 JAX VJP rounds (the einsum's VJP, then pallas_stem.py
@@ -39,11 +44,14 @@ from __future__ import annotations
 import torch
 
 from . import cuda_lib
-from .conv import _aligned, conv_weight_grad
+from .conv import _aligned, _pad_channels, conv_weight_grad
 from .gather import scatter_rows_smallc_add
 
 MAX_CIN = 8
 STEM_TAPS_PER_CHUNK = 8          # csrc/stem.cu kKT
+# csrc/stem.cu kWarpSmem16: a bf16 warp's A tile of a tap pair (512
+# bytes) and its map tile (16 rows x 18 ints)
+STEM_WARP_SMEM_BYTES = 512 + 16 * 18 * 4
 STEM_ROWS_PER_WARP = 16          # the mma's m
 STEM_MAX_WARPS = 16              # csrc/stem.cu kMaxWarps
 STEM_MAX_SMEM = 227 * 1024       # shared memory an H100 block may hold
@@ -63,10 +71,10 @@ def stem_conv_plain(x, idx, ok, weight):
                         weight.float()).to(x.dtype)
 
 
-def stem_conv_plan(B, N, K, cin, cout):
+def stem_conv_plan(B, N, K, cin, cout, bf16=False):
     """K3's (cols, warps, splits, blocks). A block owns `cols` output
-    channels (64; 32 at Cin = 8, where 64 columns of 125 taps' weight
-    would not fit its shared memory) and tap range s of `splits`
+    channels (64; 32 at Cin = 8 in fp32, where 64 columns of 125 taps'
+    weight would not fit its shared memory) and tap range s of `splits`
     (stem_tap_ranges); its `warps` warps take the B N rows (flat over the
     clouds) in 16-row groups, group blockIdx.x warps + warp + i blocks
     warps. Blocks are 16 warps (the weight slice is staged once per 256
@@ -75,7 +83,7 @@ def stem_conv_plan(B, N, K, cin, cout):
     one group a warp, and the tap chunks split into enough ranges for
     about one block per SM (STEM_TARGET_BLOCKS; a B = 1 cloud: 8 ranges
     of 2 chunks)."""
-    cols = 64 if cin <= 7 else 32
+    cols = 64 if cin <= 7 or bf16 else 32
     col_tiles = -(-cout // cols)
     groups = -(-B * N // STEM_ROWS_PER_WARP)
     chunks = -(-K // STEM_TAPS_PER_CHUNK)
@@ -99,10 +107,15 @@ def stem_tap_ranges(K, splits):
             for s in range(splits)]
 
 
-def stem_smem_bytes(K, cin, cols, splits):
+def stem_smem_bytes(K, cin, cols, splits, bf16=False,
+                    warps=STEM_MAX_WARPS):
     """Shared memory of a K3 block: the weight slice of the longest tap
-    range, cols columns."""
+    range, cols columns (bf16: 8 channels a tap, an odd range's taps
+    rounded up to a pair, then each warp's A tile and map tile)."""
     taps = max(ke - kb for kb, ke in stem_tap_ranges(K, splits))
+    if bf16:
+        return 2 * (taps + taps % 2) * MAX_CIN * cols + \
+            warps * STEM_WARP_SMEM_BYTES
     return 4 * taps * cin * cols
 
 
@@ -111,14 +124,15 @@ def _stem_forward(x, idx, ok, weight):
         return stem_conv_plain(x, idx, ok, weight)
     B, N, Cin = x.shape
     K, _, Cout = weight.shape
-    return stem_conv_split(x, idx, ok, weight,
-                           *stem_conv_plan(B, N, K, Cin, Cout))
+    return stem_conv_split(x, idx, ok, weight, *stem_conv_plan(
+        B, N, K, Cin, Cout, x.dtype == torch.bfloat16))
 
 
 def stem_conv_split(x, idx, ok, weight, cols, warps, splits, blocks):
     """K3 on CUDA tensors with a given plan (stem_conv_plan gives
-    stem_conv's); one launch count. x and weight both fp32 or both
-    bf16."""
+    stem_conv's); one launch count (at bf16 a padding kernel first where
+    Cin < 8, and with splits > 1 the ranges' sum after). x and weight both
+    fp32 or both bf16."""
     cuda_lib.check_cuda_tensor("stem_conv x", x,
                                (torch.float32, torch.bfloat16), 3)
     cuda_lib.check_cuda_tensor("stem_conv idx", idx, torch.int32, 3)
@@ -132,26 +146,39 @@ def stem_conv_split(x, idx, ok, weight, cols, warps, splits, blocks):
                          f"{tuple(idx.shape)} ok{tuple(ok.shape)} weight"
                          f"{tuple(weight.shape)} (Cin <= {MAX_CIN}, Cout a "
                          f"multiple of 4)")
+    bf16 = x.dtype == torch.bfloat16
     if cols not in (32, 64) or not 1 <= warps <= STEM_MAX_WARPS or \
             blocks < 1 or not 1 <= splits <= -(-K // STEM_TAPS_PER_CHUNK) or \
-            stem_smem_bytes(K, Cin, cols, splits) > STEM_MAX_SMEM:
+            stem_smem_bytes(K, Cin, cols, splits, bf16, warps) > \
+            STEM_MAX_SMEM:
         raise ValueError(f"stem_conv: plan ({cols} columns, {warps} warps, "
                          f"{splits} tap ranges, {blocks} blocks) for K = {K},"
                          f" Cin = {Cin}")
-    out = torch.empty((B, N, Cout), dtype=x.dtype, device=x.device)
+    pout = -Cout % 8 if bf16 else 0
+    weight = _aligned(_pad_channels(weight, pout))
+    out = torch.empty((B, N, Cout + pout), dtype=x.dtype, device=x.device)
     # the tap ranges' fp32 partial sums, apart from the output so that the
     # activation does not keep them alive
     work = torch.empty(splits * out.numel(), dtype=torch.float32,
                        device=x.device) if splits > 1 else None
-    weight = _aligned(weight)
-    kernel, entry = ("stem_conv_bf16", "r3dl_stem_conv_bf16") \
-        if x.dtype == torch.bfloat16 else ("stem_conv", "r3dl_stem_conv")
-    cuda_lib.launch(kernel, entry, x.data_ptr(),
+    wp = None if work is None else work.data_ptr()
+    nwork = 0 if work is None else 4 * work.numel()
+    if bf16:
+        # x's rows padded to 8 channels (16 bytes) by the call's first
+        # kernel
+        x = _aligned(x) if Cin == MAX_CIN else x
+        xp = torch.empty((B, N, MAX_CIN), dtype=x.dtype, device=x.device) \
+            if Cin < MAX_CIN else None
+        cuda_lib.launch("stem_conv_bf16", "r3dl_stem_conv_bf16",
+                        x.data_ptr(), None if xp is None else xp.data_ptr(),
+                        idx.data_ptr(), ok.data_ptr(), weight.data_ptr(),
+                        out.data_ptr(), wp, B, N, K, Cin, Cout + pout, cols,
+                        warps, splits, blocks, nwork)
+        return out[..., :Cout] if pout else out
+    cuda_lib.launch("stem_conv", "r3dl_stem_conv", x.data_ptr(),
                     idx.data_ptr(), ok.data_ptr(), weight.data_ptr(),
-                    out.data_ptr(),
-                    None if work is None else work.data_ptr(), B, N, K, Cin,
-                    Cout, cols, warps, splits, blocks,
-                    0 if work is None else 4 * work.numel())
+                    out.data_ptr(), wp, B, N, K, Cin, Cout, cols, warps,
+                    splits, blocks, nwork)
     return out
 
 

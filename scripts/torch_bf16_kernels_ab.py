@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Time the bf16 paths of K1, K5, K2, K6 and K7 of two trees of the
-PyTorch port on one card, in turns, on the same captured main-path calls.
+"""Time the bf16 paths of K1, K5, K2, K6, K7, K8 and K3 of two trees of
+the PyTorch port on one card, in turns, on the same captured main-path
+calls.
 
     python3 scripts/torch_bf16_kernels_ab.py PARENT_ROOT CHANGE_ROOT \
-        [--order pccp]
+        [--order pccp] [--yardsticks]
 
 Each root is a checkout of the repo (e.g. `git archive` of a commit
 unpacked into a git-ignored directory). First a process of the second
@@ -11,9 +12,10 @@ root captures, with chip_smoke.py's recorders, the kernel calls of one
 `Actioner.predict` of the release policy at compute_dtype bfloat16 (B = 1,
 seed-0 weights, chip_smoke's first synthetic observation: K1's and K2's
 calls) and of one training step of the release trainer at bf16 (B = 32 x
-4096 on synthetic_reach, release dropout: K5's calls, and K2's and the stem's with their
-cotangents; K6's calls are K5's with the outputs of one K5 launch of that
-tree and the captured cotangent), and saves them under build/bf16_ab/. Each turn of --order
+4096 on synthetic_reach, release dropout: K5's calls, and K2's, the
+stem's and the unpools' K4 calls with their cotangents; K6's calls are
+K5's with the outputs of one K5 launch of that tree and the captured
+cotangent), and saves them under build/bf16_ab/. Each turn of --order
 (p: the first root, c: the second) is then a fresh Python process with
 that root first on sys.path, which loads the calls and times that tree's
 kernels on them: CUDA events (chip_smoke.cuda_ms; the B = 1 calls the
@@ -24,9 +26,26 @@ and the mirrored K2 on the fp32 owner sums (the input gradient's launch,
 conv._conv_forward), K6 (patch_attention_dropout_bwd), K7 on the 9 CPE
 convs and K7 on the stem call apart (conv.conv_weight_grad; its device
 time with and without the CPE path's live-list compaction) per training
-step. One JSON line per turn is printed
-and all of them are written to chiprun_out/bf16_kernels_ab.json, with the
-card's name and power limit. Needs one CUDA card.
+step; K8 (gather.scatter_rows_add) on the 4 unpools' backwards (the
+captured K4 calls' bf16 cotangents) and on the 9 conv owner sums (fp32
+sums, as each tree's conv_input_grad prepares them: the parent's masked
+copy of the cotangent is timed with it), and the same 13
+calls on the cotangents widened to fp32 (the fp32 K8); K3 at bf16
+(stem.stem_conv) on the step's B = 32 call, on that call with no link
+live and with every link live (what skipping dead tap pairs saves and
+what multiplying every pair costs), and on the predict's B = 1 call.
+The K8 and K3 rows' device time is every kernel of the call (a memset, a
+rounding pass, a mask pass or a padding pass included), also split by
+kernel. The capture also records, for each K8 call, how its indices
+collide (chip_smoke.k8_collisions: the share of live rows whose index is
+not their own row, of destinations with more than one source, the most
+sources of one destination, runs) and K3's and K8's bytes bounds; the
+second root must have chip_smoke.k8_collisions. With --yardsticks the
+first turn also times the plain versions, index_add_ in bf16 (K8) and
+the im2col gather + matmul in bf16 (K3). One
+JSON line per turn is printed and all of them are written to
+chiprun_out/bf16_kernels_ab.json, with the card's name and power limit.
+Needs one CUDA card.
 """
 from __future__ import annotations
 
@@ -37,7 +56,7 @@ import subprocess
 import sys
 
 CAPTURE = r"""
-import os, sys
+import json, os, sys
 import numpy as np
 import torch
 root, path = sys.argv[1], sys.argv[2]
@@ -67,8 +86,41 @@ for (q, k, v, kv, scale, rate, seed), g in step["attention"]:
 calls = {"k1": serving["patch_attention"], "k2_b1": serving["subm_conv"],
          "k5": [c for c, _ in step["attention"]], "k6": k6,
          "k2_step": [c for c in step["subm_conv"] if c[1] is not None],
-         "stem_step": [c for c in step["stem_conv"] if c[1] is not None]}
+         "stem_step": [c for c in step["stem_conv"] if c[1] is not None],
+         "k3_b1": serving["stem_conv"],
+         "k8_unpool": [(g, idx, x.shape[1])
+                       for (x, idx), g in step["gather_rows"]
+                       if g is not None]}
+
+
+meta = {"k8_unpool": [], "k8_owner": [], "k3": []}
+for g, idx, n in calls["k8_unpool"]:
+    B, M, D = g.shape
+    meta["k8_unpool"].append(dict(
+        cs.k8_collisions(idx, n), shape=[B, M, D, n],
+        bound_ms=1e3 * (2 * g.numel() + 2 * B * n * D + idx.numel() *
+                        idx.element_size()) / cs.HBM_BYTES_PER_S))
+for (x, idx, ok, w, _), g in calls["k2_step"]:
+    B, N, D = g.shape
+    c = idx.shape[-1] // 2
+    meta["k8_owner"].append(dict(
+        cs.k8_collisions(idx[..., c], N, ok[..., c]), shape=[B, N, D, N],
+        bound_ms=1e3 * (2 * g.numel() + 4 * B * N * D + 4 * B * N +
+                        B * N) / cs.HBM_BYTES_PER_S))
+for key, cc in (("k3_step", [c for c, _ in calls["stem_step"]]),
+                ("k3_b1", calls["k3_b1"])):
+    for x, idx, ok, w in cc:
+        B, N, _ = x.shape
+        K, cin, cout = w.shape
+        meta["k3"].append(dict(
+            call=key, shape=[B, N, K, cin, cout],
+            shares=cs.stem_shares(ok), live_links=int(ok.sum()),
+            bound_ms=cs._bound(2 * (x.numel() + w.numel() + B * N * cout) +
+                               5 * idx.numel(), 2 * cin * cout *
+                               int(ok.sum()), cs.BF16_FLOPS_PER_S)[0]))
 torch.save(calls, path)
+with open(path + ".json", "w") as f:
+    json.dump(meta, f)
 print({k: len(v) for k, v in calls.items()}, flush=True)
 """
 
@@ -79,10 +131,11 @@ root, path = sys.argv[1], sys.argv[2]
 sys.path.insert(0, root)
 os.chdir(root)
 import chip_smoke as cs
-from robot3dlotus_tpu_torch.ops import attention, conv, gather
+from robot3dlotus_tpu_torch.ops import attention, conv, gather, stem
 torch.backends.cuda.matmul.allow_tf32 = False
 cs.cuda_lib.library()
 calls = torch.load(path)
+yardsticks = sys.argv[3] == "1"
 train = dict(rounds=5, reps=2, warmup=1)
 
 
@@ -101,6 +154,56 @@ def dx_run(call):
                                    torch.float32)
     wm = conv.mirror_weight(w)
     return lambda: conv._conv_forward(gsum, idx, ok, wm, None)
+
+
+def device_all(fn, reps=4, windows=5):
+    # Device time per call of every kernel (memset and copies included)
+    # that fn launches, from one profiler window: each kernel's mean time
+    # times its launches per call (the profiler may drop some records);
+    # and that time by kernel name.
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ev = cs._device_events(prof.key_averages())
+        if ev:
+            by = {e.key[:60]: cs._dev_us(e) / e.count * max(
+                1, round(e.count / reps)) / 1e3 for e in ev}
+            return sum(by.values()), by
+    return None, {}
+
+
+def timed_all(runs, timing):
+    ms = [cs.cuda_ms(r, **timing) for r in runs]
+    dev, by = [], {}
+    for r in runs:
+        t, names = device_all(r)
+        dev.append(t)
+        for k, v in names.items():
+            by[k] = by.get(k, 0.0) + v
+    return {"ms": sum(ms), "device_ms": None if None in dev else sum(dev),
+            "calls": len(runs), "ms_per_call": ms, "device_per_call": dev,
+            "device_by_kernel": by}
+
+
+def owner_run(call, dtype):
+    # The owner sum of one conv's input gradient as this tree's
+    # conv_input_grad prepares it, on the cotangent in `dtype`.
+    (x, idx, ok, w, _), g = call
+    g, N = g.to(dtype), x.shape[1]
+    if hasattr(conv, "owner_index"):   # the sentinel owner, no mask pass
+        return lambda: gather.scatter_rows_add(g, conv.owner_index(idx, ok),
+                                               N, torch.float32)
+    centre = idx.shape[-1] // 2
+    valid, owner = ok[..., centre], idx[..., centre]
+    return lambda: gather.scatter_rows_add(
+        torch.where(valid[..., None], g, torch.zeros_like(g)).contiguous(),
+        owner, N, torch.float32)
 
 
 res = {
@@ -125,6 +228,43 @@ for key, cs_calls in (("k7_cpe_step", calls["k2_step"]),
     res[key] = timed(runs, *cs.K7_PROFILE, timing=train)
     prod = [cs.device_ms(r, cs.K7_PROFILE[0], reps=4) for r in runs]
     res[key]["product_device_ms"] = None if None in prod else sum(prod)
+for dtype, tag in ((torch.bfloat16, ""), (torch.float32, "_fp32")):
+    unpool = [lambda a=(g.to(dtype), idx, n): gather.scatter_rows_add(*a)
+              for g, idx, n in calls["k8_unpool"]]
+    owner = [owner_run(c, dtype) for c in calls["k2_step"]]
+    res["k8_unpool_step" + tag] = timed_all(unpool, train)
+    res["k8_owner_step" + tag] = timed_all(owner, train)
+res["k3_step"] = timed_all([lambda a=c[0]: stem.stem_conv(*a)
+                            for c in calls["stem_step"]], train)
+# the same call with no link live (the map's reads and the pairs' tests
+# alone) and with every link live (every pair multiplied): what skipping
+# or compacting dead pairs could save
+for key, live in (("k3_step_dead", False), ("k3_step_live", True)):
+    runs = []
+    for (x, idx, ok, w), _ in calls["stem_step"]:
+        okv = torch.full_like(ok, live)
+        idc = idx.clamp(0, x.shape[1] - 1)
+        runs.append(lambda a=(x, idc, okv, w): stem.stem_conv(*a))
+    res[key] = timed_all(runs, train)
+res["k3_b1"] = timed_all([lambda a=c: stem.stem_conv(*a)
+                          for c in calls["k3_b1"]], {})
+if yardsticks:
+    ys = {}
+    k8 = [(g, idx, n) for g, idx, n in calls["k8_unpool"]] + [
+        (g, idx[..., idx.shape[-1] // 2], x.shape[1])
+        for (x, idx, ok, w, _), g in calls["k2_step"]]
+    ys["k8_plain_ms"] = sum(cs.cuda_ms(
+        lambda a=c: gather.scatter_rows_add_plain(*a), **cs.PLAIN_TIMING)
+        for c in k8)
+    ys["k8_index_add_bf16_ms"] = sum(cs.cuda_ms(cs._index_add(*c), **train)
+                                     for c in k8)
+    for key, cc, timing in (("k3_step", [c[0] for c in calls["stem_step"]],
+                             train), ("k3_b1", calls["k3_b1"], {})):
+        ys[key + "_plain_ms"] = sum(cs.cuda_ms(
+            lambda a=c: stem.stem_conv_plain(*a), **timing) for c in cc)
+        ys[key + "_im2col_bf16_ms"] = sum(cs.cuda_ms(cs._im2col(*c),
+                                                     **timing) for c in cc)
+    res["yardsticks"] = ys
 print(json.dumps(res), flush=True)
 """
 
@@ -134,6 +274,9 @@ def main():
     ap.add_argument("parent")
     ap.add_argument("change")
     ap.add_argument("--order", default="pccp")
+    ap.add_argument("--yardsticks", action="store_true",
+                    help="also time the plain versions and the library "
+                    "calls of K8 and K3 in the first turn")
     args = ap.parse_args()
     roots = {"p": os.path.abspath(args.parent),
              "c": os.path.abspath(args.change)}
@@ -147,22 +290,28 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
+    with open(path + ".json") as f:
+        meta = json.load(f)
+    print(json.dumps(meta), flush=True)
     turns = []
-    for t in args.order:
-        out = subprocess.run([sys.executable, "-c", TURN, roots[t], path],
+    for i, t in enumerate(args.order):
+        out = subprocess.run([sys.executable, "-c", TURN, roots[t], path,
+                              "1" if args.yardsticks and i == 0 else "0"],
                              check=True, capture_output=True, text=True)
         res = json.loads(out.stdout.strip().splitlines()[-1])
         res["turn"] = t
         turns.append(res)
-        print(json.dumps({k: (v if not isinstance(v, dict) else
+        print(json.dumps({k: (v if not isinstance(v, dict) or
+                              "ms" not in v else
                               {x: v[x] for x in ("ms", "device_ms")})
                           for k, v in res.items()}), flush=True)
     os.makedirs(os.path.join(here, "chiprun_out"), exist_ok=True)
     with open(os.path.join(here, "chiprun_out", "bf16_kernels_ab.json"),
               "w") as f:
-        json.dump({"card": smi, "roots": roots, "turns": turns}, f,
-                  indent=1)
+        json.dump({"card": smi, "roots": roots, "calls": meta,
+                   "turns": turns}, f, indent=1)
     os.remove(path)
+    os.remove(path + ".json")
     print(smi)
 
 

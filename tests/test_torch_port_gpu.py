@@ -5,8 +5,10 @@ device parts: the fixed-capacity voxelizer and the fused preprocess
 against the CPU (and the voxelizer bit-equal across launches), and
 PrefetchToDevice onto the card.
 Tolerance 1e-4 * max(1, max|plain|): fp32 on both sides, other summation
-orders (K8's global and K10's shared-memory atomics in a run-dependent
-one); the gathers K4 and K9 only copy and must be bit-equal.
+orders (K10's shared-memory atomics in a run-dependent one); the gathers
+K4 and K9 only copy and must be bit-equal, and K8, which adds each
+destination's sources in increasing row order, must equal that order's
+PyTorch emulation (gather.scatter_rows_add_ordered) bit for bit.
 
 Every case carries the `gpu` marker and skips without a card. The file
 imports neither jax nor the JAX package, so it runs on a machine that has
@@ -557,20 +559,101 @@ def test_k2_k7_wide_stem_long_sums(dev):
 @pytest.mark.parametrize("D", [7, 64, 768])
 def test_k8_scatter_rows_add_colliding(dev, D):
     """K8 with many indices colliding on few rows (the duplicate padding of
-    the patch maps) and sentinel rows, whose cotangents it drops; atomics
-    sum in a run-dependent order."""
+    the patch maps) and sentinel rows, whose cotangents it drops: bit-equal
+    across launches, within the bar of the plain version."""
     rng = np.random.RandomState(9)
     g = torch.from_numpy(rng.randn(2, 1024, D).astype(np.float32)).to(dev)
     idx = rng.randint(0, 40, (2, 1024))
     idx[rng.rand(2, 1024) < 0.2] = 257
     idx[:, :2] = -1
     idx = torch.from_numpy(idx).to(dev)
-    _check(gather.scatter_rows_add(g, idx, 257),
+    _check(_twice(lambda: gather.scatter_rows_add(g, idx, 257),
+                  "scatter_rows_add"),
            gather.scatter_rows_add_plain(g, idx, 257))
     x = torch.from_numpy(rng.randn(2, 257, D).astype(np.float32)).to(dev)
     x.requires_grad_()
     gather.gather_rows(x, idx).backward(g)
     _check(x.grad, gather.scatter_rows_add_plain(g, idx, 257))
+
+
+def _k8_index(rng, kind, B, M, n):
+    """(B, M) K8 indices of a kind: `runs` (an unpool's clusters: a cumsum
+    of run heads, the tail at the sentinel n), `owner` (a conv's owner
+    sums: most rows their own, some an earlier row, some invalid at n),
+    `unsorted` (any order, a fifth at n, a few negative or past n),
+    `heavy` (every row onto one of three), `sentinel` (no row lands)."""
+    if kind == "runs":
+        heads = rng.rand(B, M) < 0.4
+        heads[:, 0] = True
+        idx = np.cumsum(heads, 1) - 1
+        idx[:, M - M // 5:] = n
+        return np.minimum(idx, n)
+    if kind == "owner":
+        idx = np.tile(np.arange(M), (B, 1))
+        back = rng.rand(B, M) < 0.15
+        idx[back] = np.maximum(idx[back] - rng.randint(1, 4, back.sum()), 0)
+        idx[rng.rand(B, M) < 0.1] = n
+        return idx
+    if kind == "unsorted":
+        idx = rng.randint(0, n, (B, M))
+        idx[rng.rand(B, M) < 0.2] = n
+        idx[:, :3] = [-1, n + 9, -5]
+        return idx
+    if kind == "heavy":
+        return rng.randint(0, 3, (B, M))
+    return np.where(rng.rand(B, M) < 0.5, n + rng.randint(0, 9, (B, M)), -1)
+
+
+K8_SHAPES = {"runs": (3000, 1900), "owner": (2100, 2100),
+             "unsorted": (1500, 700), "heavy": (2600, 50),
+             "sentinel": (500, 300)}
+
+
+@pytest.mark.parametrize("kind", list(K8_SHAPES))
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("D", [64, 96, 768])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k8_destination_tiles(dev, dtype, D, idx_dtype, kind):
+    """K8 at fp32 and bf16 on n != M (but the owner sums' n = M), int32 and
+    int64 indices, runs, owner maps, unsorted indices with sentinels,
+    heavy collisions (rounds of one source a row) and rows that all drop,
+    over more than one 2048-entry chunk: the fp32 sums (and at bf16 the
+    rounded sums) bit-equal across launches and to the kernel's order in
+    PyTorch (gather.scatter_rows_add_ordered), within the bar of the plain
+    version."""
+    rng = np.random.RandomState(D + len(kind) + (dtype == BF16))
+    B, (M, n) = 3, K8_SHAPES[kind]
+    idx = torch.from_numpy(_k8_index(rng, kind, B, M, n)).to(idx_dtype)
+    idx = idx.to(dev)
+    g = _randn(rng, dev, B, M, D).to(dtype)
+    counter = "scatter_rows_add_bf16" if dtype == BF16 else \
+        "scatter_rows_add"
+    order = gather.scatter_rows_add_ordered(g, idx, n)
+    sums = _twice(lambda: gather.scatter_rows_add(g, idx, n, torch.float32),
+                  counter)
+    assert sums.dtype == torch.float32 and sums.shape == (B, n, D)
+    assert torch.equal(sums, order)
+    _check(sums, gather.scatter_rows_add_plain(g, idx, n))
+    if kind == "sentinel":
+        assert not sums.any()
+    if dtype == BF16:
+        got = _twice(lambda: gather.scatter_rows_add(g, idx, n), counter)
+        assert got.dtype == BF16
+        assert torch.equal(got, order.to(BF16))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k8_wide_rows(dev, dtype):
+    """K8 on rows wider than a pass's 8192 sums (D = 8200): a tile's
+    columns in several passes over the same lists; the fp32 sums equal to
+    the kernel's order in PyTorch."""
+    rng = np.random.RandomState(81)
+    D = 8200
+    idx = torch.from_numpy(_k8_index(rng, "unsorted", 2, 64, 40)).to(dev)
+    g = _randn(rng, dev, 2, 64, D).to(dtype)
+    got = gather.scatter_rows_add(g, idx, 40, torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(got, gather.scatter_rows_add_ordered(g, idx, 40))
 
 
 def _smallc(rng, B, N, M, C, dev):
@@ -776,9 +859,9 @@ def test_prefetch_to_device_onto_the_card(dev):
 # scale for fp32 sums in another order; K1 and K5 plus one bf16 ulp of each
 # probability's share, 2^-7 sum_j p_j |v_j|) of their plain versions on the
 # same bf16 inputs, and K7's fp32 sums within 1e-4 of the plain version's
-# largest value; all but K8 and K10 (atomics) bit-equal across two
-# launches; K4 and K9 copy and are bit-equal; K10's rounded sums within the
-# bar of the plain sums rounded once.
+# largest value; all but K10 (atomics) bit-equal across two launches; K4
+# and K9 copy and are bit-equal; K10's rounded sums within the bar of the
+# plain sums rounded once.
 
 BF16 = torch.bfloat16
 
@@ -1160,18 +1243,43 @@ def test_bf16_k8_scatter_rows_add(dev, D):
     _bf16_check(x.grad, want.to(BF16), relative=True)
 
 
+@pytest.mark.parametrize("cout", [64, 96])
 @pytest.mark.parametrize("kind", ["none", "release", "all"])
-@pytest.mark.parametrize("B,cin", [(1, 7), (4, 7), (32, 7), (1, 8)])
-def test_bf16_k3_stem_conv(dev, B, cin, kind):
-    rng = np.random.RandomState(B + cin + len(kind))
+@pytest.mark.parametrize("B,cin", [(1, 7), (4, 7), (32, 7), (1, 8), (32, 8)])
+def test_bf16_k3_stem_conv(dev, B, cin, kind, cout):
+    """K3 at bf16 (m16n8k16 on tap pairs, x padded to 8 channels where
+    Cin = 7) at the B = 1 (tap ranges), B = 4 and B = 32 plans, Cout 64 and
+    96 (two column tiles, the second half empty), on maps with no live
+    link, every link live and a release-like one: bit-equal across two
+    launches, within the bf16 bar of the plain version."""
+    rng = np.random.RandomState(B + cin + len(kind) + cout)
     N = 4096
     idx, ok = _stem_map(rng, dev, kind, B, N)
     x = _randn(rng, dev, B, N, cin).to(BF16)
-    w = _randn(rng, dev, 125, cin, 64, scale=0.1).to(BF16)
+    w = _randn(rng, dev, 125, cin, cout, scale=0.1).to(BF16)
     got = _twice(lambda: stem.stem_conv(x, idx, ok, w), "stem_conv_bf16")
     _bf16_check(got, stem.stem_conv_plain(x, idx, ok, w))
     if kind == "none":
         assert not got.any()
+
+
+@pytest.mark.parametrize("cols,warps,splits,blocks", [
+    (64, 1, 1, 125), (64, 2, 16, 63), (64, 4, 3, 32), (32, 8, 5, 16),
+    (64, 16, 1, 3), (32, 16, 1, 132)])
+def test_bf16_k3_stem_conv_plans(dev, cols, warps, splits, blocks):
+    """K3 at bf16 with each plan forced: tap ranges of odd lengths (a last
+    tap paired with a zero one), 32 and 64 columns a block, few blocks
+    whose warps walk many row groups, a 16-row group across two clouds,
+    and Cout = 68 (zero weight columns up to 72, dropped)."""
+    rng = np.random.RandomState(warps * 17 + splits + cols + 1)
+    idx, ok = _stem_map(rng, dev, "release", 2, 1000)
+    x = _randn(rng, dev, 2, 1000, 7).to(BF16)
+    w = _randn(rng, dev, 125, 7, 68, scale=0.1).to(BF16)
+    got = _twice(lambda: stem.stem_conv_split(x, idx, ok, w, cols, warps,
+                                              splits, blocks),
+                 "stem_conv_bf16")
+    assert got.shape == (2, 1000, 68)
+    _bf16_check(got, stem.stem_conv_plain(x, idx, ok, w))
 
 
 @pytest.mark.parametrize("offset", [0, 1])
