@@ -238,7 +238,8 @@ seeded weights) behind the ground-truth pipeline (robot_pipeline_gt.yaml):
              actions finite;
  15a. bf16-mp  the motion planner at compute_dtype bfloat16 behind the GT
              pipeline (seed 0): one request captured (its bf16 K9 call, the
-             categorical stem's, timed; every K1, K2, K4 and K9 call
+             categorical stem's, timed, which must run
+             gather_smallc16_kernel; every K1, K2, K4 and K9 call
              against its bf16 plain version), phase 15 with launches held
              at BF16_MP_PER_FORWARD, the trajectory heads against the fp32
              engine's and the CPU port's at bf16 as in 6a, request p50 and
@@ -269,7 +270,8 @@ seeded weights) behind the ground-truth pipeline (robot_pipeline_gt.yaml):
              row cotangent it adds), the table's gradient (a bf16 product
              over 16.4M rows) within 2^-6 of its scale, K10 bf16 on a
              seeded cotangent at the stem's index against its plain
-             version, timed;
+             version, timed (up to C = 8 it must run
+             scatter_smallc16_kernel, in bf16-stem-vjp too);
  19. mp-step-check  phase 11 for the motion planner, on MP_CHECK_SLICES
              slices;
  19a. bf16-mp-train  phase 11a for the motion planner on phase 17's host
@@ -609,7 +611,9 @@ MP_ADANORM_MAX_KINKS = 5 * MAX_KINKS
 # device kernels of a training step by name, first match wins
 DEVICE_GROUPS = [
     ("K9/K10 small-C gather", ("gather_smallc_kernel",
+                               "gather_smallc16_kernel",
                                "scatter_smallc_kernel",
+                               "scatter_smallc16_kernel",
                                "scatter_smallc_sum_kernel")),
     ("K7 conv_weight_grad", ("wgrad_", "sum_splits")),
     ("K2 subm_conv", ("subm_conv",)),
@@ -636,8 +640,10 @@ K7_PROFILE = (("wgrad_tc_kernel", "wgrad_taps_kernel", "wgrad_taps16_kernel"),
               ("wgrad_compact", "sum_splits"))
 # torch.gather's kernel (the K4 / K9 yardstick's device time)
 TORCH_GATHER_PROFILE = ("scatter_gather", "vectorized_gather")
-# K10: its main kernel and the ranges' in-order sum
-K10_PROFILE = ("scatter_smallc_kernel", ("scatter_smallc_sum_kernel",))
+# K10: its main kernel (scatter_smallc16_kernel at bf16 up to C = 8) and
+# the ranges' in-order sum
+K10_PROFILE = (("scatter_smallc_kernel", "scatter_smallc16_kernel"),
+               ("scatter_smallc_sum_kernel",))
 
 
 def log(msg):
@@ -829,7 +835,8 @@ GATHERS = {"gather_rows": (gather.gather_rows, gather.gather_rows_plain,
                            "gather_rows_kernel"),
            "gather_rows_smallc": (gather.gather_rows_smallc,
                                   gather.gather_rows_smallc_plain,
-                                  "gather_smallc_kernel")}
+                                  ("gather_smallc_kernel",
+                                   "gather_smallc16_kernel"))}
 
 
 def _padded_gather(x, idx):
@@ -849,7 +856,8 @@ def check_gather(kernel, args, timing=None):
     only copy) and its sentinel rows (index outside [0, N)) counted; with
     `timing` (cuda_ms keywords), the kernel's event and profiler device
     times, the plain version's and the library yardstick's times, and the
-    bound (x and the indices read once, the output written once)."""
+    bound (x and the indices read once, the output written once); a timed
+    bf16 K9 call must run gather_smallc16_kernel."""
     x, idx = args
     fn, plain_fn, name = GATHERS[kernel]
     B, N, D = x.shape
@@ -876,7 +884,19 @@ def check_gather(kernel, args, timing=None):
     if x.dtype == torch.bfloat16:
         # the bf16 rows: torch.gather's device time beside the kernel's
         out["library_device_ms"] = device_ms(library, TORCH_GATHER_PROFILE)
+        if kernel == "gather_rows_smallc":
+            _required_kernels(run, "gather_smallc16_kernel",
+                              f"K9 bf16 {[B, N, D]}")
     return out
+
+
+def _required_kernels(run, name, what):
+    """Raises if the profiler recorded the kernels of one call of run and
+    `name` is not among them (the call took another kernel than the
+    path's); a window that recorded none checks nothing."""
+    names = _kernel_names(run)
+    if names and not any(name in k for k in names):
+        raise AssertionError(f"{what}: ran {names}, not {name}")
 
 
 def _twice(run, what):
@@ -3838,10 +3858,11 @@ def check_smallc_bwd(g, idx, n, timing):
     """K10 on one call, g (B, M, C) onto (B, n, C) through idx: fp32 within
     1e-4 * max|plain|, a bf16 g (fp32 sums, one rounding) within the bar
     of ops/bf16.py at the gradient's scale (shared-memory atomics: another
-    summation order); event and profiler device times (both of its
-    kernels) against the plain version, its bound (g, the index and dx
-    moved once) and the faster of index_add_ and scatter_add_ (sentinel
-    rows sent to a spare row per cloud; in g's dtype)."""
+    summation order; a bf16 g up to C = 8 must run
+    scatter_smallc16_kernel); event and profiler device times (both
+    of its kernels) against the plain version, its bound (g, the index
+    and dx moved once) and the faster of index_add_ and scatter_add_
+    (sentinel rows sent to a spare row per cloud; in g's dtype)."""
     B, M, C = g.shape
     run = lambda: gather.scatter_rows_smallc_add(g, idx, n)  # noqa: E731
     plain = lambda: gather.scatter_rows_smallc_add_plain(  # noqa: E731
@@ -3853,9 +3874,12 @@ def check_smallc_bwd(g, idx, n, timing):
                                 idx.numel() * idx.element_size(), g.numel())
     library = {"index_add_": cuda_ms(_index_add(g, idx, n), **timing),
                "scatter_add_": cuda_ms(_scatter_add(g, idx, n), **timing)}
+    bf16 = g.dtype == torch.bfloat16
+    if bf16 and C <= gather.SMALLC16_MAX:
+        _required_kernels(run, "scatter_smallc16_kernel", what)
     return {"shape": [B, M, C, n], "dtype": str(g.dtype),
             "max_abs_err": err,
-            "plan": list(gather.scatter_smallc_plan(B, M, n, C)),
+            "plan": list(gather.scatter_smallc_plan(B, M, n, C, bf16)),
             "sentinel_rows": int(((idx < 0) | (idx >= n)).sum()),
             "ms": cuda_ms(run, **timing),
             "device_ms": device_ms(run, K10_PROFILE[0], also=K10_PROFILE[1]),
@@ -5099,9 +5123,12 @@ def run():
         f"built and loaded in {time.perf_counter() - t0:.2f} s")
     for name, use in sorted(ptxas_usage().items()):
         m = re.search(r"\d((?:patch_attention|stem_conv|attn_drop|"
-                      r"scatter_smallc|subm_conv|wgrad)\w*?_kernel)"
+                      r"scatter_smallc|gather_smallc16|subm_conv|wgrad)"
+                      r"\w*?_kernel)"
                       r"(?:ILi(\d+)E(x)?)?", name)
-        if m:
+        # K9's bf16 kernel: one instance a C up to 32; C = 5 is the path's
+        if m and not (m.group(1) == "gather_smallc16_kernel" and
+                      m.group(2) != "5"):
             kind = ' bf16' if 'bfloat16' in name else ''
             if m.group(1) == "subm_conv16_kernel":   # bf16 W; x bf16 or fp32
                 kind = (" bf16" if re.search(r"ILi\d+E13__nv_bfloat16E",

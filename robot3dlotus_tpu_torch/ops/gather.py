@@ -17,13 +17,15 @@ gradient (ops/stem.py). The CUDA kernels are in csrc/gather.cu and
 csrc/gather_smallc.cu; the *_plain functions are the same functions in
 PyTorch, the path for CPU tensors and the oracles the kernels are held
 against. scatter_smallc_plan is K10's block plan (ranges of row tiles per
-cloud, slabs of destination rows), plain Python that the CPU tests
-enumerate.
+cloud, slabs of destination rows), smallc16_plan / smallc16_row_words
+K9's at bf16 and scatter_smallc16_chunks K10's warp chunks at bf16: plain
+Python that the CPU tests enumerate.
 
 K4 and K9 also take bf16 rows (the activations under compute_dtype
 bfloat16): a launch of their 2-byte entry points (csrc r3dl_gather_rows16,
 r3dl_gather_smallc16), counted as gather_rows_bf16 /
-gather_rows_smallc_bf16; a copy, so bit-equal to the plain version. K8
+gather_rows_smallc_bf16; a copy, so bit-equal to the plain version (K9's
+bf16 kernel reads each row whole as the 8-byte words that cover it). K8
 takes a bf16 cotangent too (csrc r3dl_scatter_rows_add_bf16, counted as
 scatter_rows_add_bf16): the rows are widened and summed in fp32, and the
 sums are rounded to bf16 once (the rule of pallas_gather.py
@@ -36,8 +38,10 @@ launch to launch and needs no zeroed buffer (scatter_rows_add_ordered is
 that order in PyTorch).
 K10 takes a bf16 cotangent the same way (csrc r3dl_scatter_smallc_add_bf16,
 counted as scatter_rows_smallc_add_bf16: fp32 sums, one rounding, the rule
-of pallas_gather.py `_smallc_op_bwd`); the stems' input gradients at bf16
-reach it (no training step of either family does: the stems gather data).
+of pallas_gather.py `_smallc_op_bwd`; up to C = 8 a kernel of its own that
+lists each warp's live rows and adds a row on C lanes); the stems' input
+gradients at bf16 reach it (no training step of either family does: the
+stems gather data).
 
 Indices are int32 or int64 and reach the kernels as they are (no cast).
 A CUDA call that carries no gradient (grad mode off, or x not requiring
@@ -191,6 +195,24 @@ def scatter_rows_add(g: torch.Tensor, idx: torch.Tensor, n: int,
                    g, idx, n, dtype)
 
 
+def smallc16_plan(M: int, C: int):
+    """K9's bf16 plan (csrc/gather_smallc.cu gather_smallc16_kernel): (tile
+    rows, threads, blocks a cloud). A thread gathers 4 consecutive rows,
+    so a block's output of 2 C x rows bytes is staged in 32 KB at most:
+    1024-row tiles up to C = 16, 512 above."""
+    tile = 1024 if C <= 16 else 512
+    return tile, tile // 4, -(-M // tile)
+
+
+def smallc16_row_words(C: int):
+    """(words, pairs) of a bf16 row of C channels, as
+    gather_smallc16_kernel reads it: the row starts at element
+    (b N + i) C of x, 0, 2, 4 or 6 bytes into an 8-byte word of x's
+    aligned base, so at most `words` 8-byte loads cover it, shifted into
+    `pairs` 32-bit words of two channels."""
+    return (2 * C + 6 + 7) // 8, (C + 1) // 2
+
+
 # K10's plan constants (csrc/gather_smallc.cu)
 SMALLC_TILE_ROWS = 1024          # kTileRows: ranges split whole tiles
 SMALLC_SMEM = 227 * 1024         # shared memory an H100 block may hold
@@ -198,33 +220,73 @@ SMALLC_SM_SMEM = 228 * 1024      # shared memory of an SM
 SMALLC_SMS = 132                 # the H100's SMs
 
 
-def scatter_smallc_smem(C: int, window: int) -> int:
-    """Shared memory of a K10 block: its window x C copy of dx."""
-    return -(-4 * window * C // 16) * 16
+# K10 at bf16 up to C = 8 (scatter_smallc16_kernel): 32 warps a block,
+# each staging a 128-row chunk of g and a list of its live rows beside the
+# block's copy of dx
+SMALLC16_MAX = 8
+SMALLC16_WARPS = 32
+SMALLC16_CHUNK = 128
 
 
-def scatter_smallc_blocks_per_sm(C: int, window: int) -> int:
+def scatter_smallc16_warp_smem(C: int) -> int:
+    """A bf16 K10 warp's shared memory: its chunk of g (128 rows x 2 C
+    bytes) and its list of the chunk's live rows (4 bytes each)."""
+    return SMALLC16_CHUNK * (2 * C + 4)
+
+
+def scatter_smallc16_chunks(m0: int, m1: int):
+    """The chunks of a bf16 K10 block's range of rows [m0, m1), by warp:
+    warp w takes [c, min(c + 128, m1)) for c = m0 + 128 w, stepping by
+    32 x 128; lane l of a chunk holds the indices of rows c + 4 l ..
+    c + 4 l + 3."""
+    step = SMALLC16_WARPS * SMALLC16_CHUNK
+    return [[(c, min(c + SMALLC16_CHUNK, m1))
+             for c in range(m0 + w * SMALLC16_CHUNK, m1, step)]
+            for w in range(SMALLC16_WARPS)]
+
+
+def _list16(C, bf16):
+    return bf16 and C <= SMALLC16_MAX
+
+
+def scatter_smallc_smem(C: int, window: int, bf16: bool = False) -> int:
+    """Shared memory of a K10 block: its window x C fp32 copy of dx, and
+    at bf16 up to C = 8 its warps' staged chunks and lists."""
+    return -(-4 * window * C // 16) * 16 + (
+        SMALLC16_WARPS * scatter_smallc16_warp_smem(C)
+        if _list16(C, bf16) else 0)
+
+
+def scatter_smallc_blocks_per_sm(C: int, window: int,
+                                 bf16: bool = False) -> int:
     """K10 blocks an SM holds: two (its 32-register bound) where both
-    copies fit beside the 1 KB the card reserves a block, else one."""
+    copies fit beside the 1 KB the card reserves a block, else one; one
+    at bf16 up to C = 8 (a 32-warp block, 64 registers a thread, whose
+    shared memory holds the slab and its warps' chunks)."""
+    if _list16(C, bf16):
+        return 1
     return 2 if 2 * (scatter_smallc_smem(C, window) + 1024) <= \
         SMALLC_SM_SMEM else 1
 
 
-def scatter_smallc_plan(B: int, M: int, n: int, C: int):
+def scatter_smallc_plan(B: int, M: int, n: int, C: int, bf16: bool = False):
     """K10's (ranges, window). A block holds a private copy of `window`
     destination rows (a slab; all C channels) of one cloud's dx in shared
     memory: the widest slab that fits, split evenly, so n = 4096 is one
-    slab up to C = 14. Each cloud's 1024-row tiles are split into `ranges`
-    runs (scatter_smallc_ranges) so that the B x slabs x ranges blocks
-    about fill the SMs (two blocks an SM where two fit, so 8 ranges at
-    B = 32 and C <= 7), at most M // (2 n) (the partials' writes under
-    half of g's bytes) and at most the tiles; with ranges > 1 the runs'
+    slab up to C = 14 (C = 8 at bf16, beside the lists). Each cloud's
+    1024-row tiles are split into `ranges` runs (scatter_smallc_ranges)
+    so that the B x slabs x ranges blocks about fill the SMs (two blocks
+    an SM where two fit, so 8 ranges at B = 32 and C <= 7; one at bf16 up
+    to C = 8, so 4), at most M // (2 n) (the partials' writes under half
+    of g's bytes) and at most the tiles; with ranges > 1 the runs'
     partials add in order in a second kernel."""
-    cap = SMALLC_SMEM // (4 * max(C, 1))
+    warps = SMALLC16_WARPS * scatter_smallc16_warp_smem(C) \
+        if _list16(C, bf16) else 0
+    cap = (SMALLC_SMEM - warps) // (4 * max(C, 1))
     slabs = max(1, -(-n // cap))
     window = max(1, -(-n // slabs))
     tiles = -(-M // SMALLC_TILE_ROWS)
-    blocks = SMALLC_SMS * scatter_smallc_blocks_per_sm(C, window)
+    blocks = SMALLC_SMS * scatter_smallc_blocks_per_sm(C, window, bf16)
     ranges = max(1, min(blocks // max(1, B * slabs),
                         M // (2 * max(n, 1)), tiles))
     return ranges, window
@@ -248,7 +310,8 @@ def scatter_rows_smallc_add(g: torch.Tensor, idx: torch.Tensor, n: int):
     dtype (a bf16 dx rounded once)."""
     if not g.is_cuda:
         return scatter_rows_smallc_add_plain(g, idx, n).to(g.dtype)
-    plan = scatter_smallc_plan(g.shape[0], g.shape[1], n, g.shape[-1])
+    plan = scatter_smallc_plan(g.shape[0], g.shape[1], n, g.shape[-1],
+                               g.dtype is _BF16)
     return scatter_rows_smallc_add_split(g, idx, n, *plan)
 
 
@@ -264,7 +327,8 @@ def scatter_rows_smallc_add_split(g, idx, n, ranges, window):
                             _SCATTER_DTYPES)
     if not (ranges >= 1 and window >= 1 and
             (ranges == 1 or ranges <= -(-M // SMALLC_TILE_ROWS)) and
-            scatter_smallc_smem(C, window) <= SMALLC_SMEM):
+            scatter_smallc_smem(C, window, g.dtype is _BF16) <=
+            SMALLC_SMEM):
         raise ValueError(f"scatter_rows_smallc_add: plan ({ranges} ranges, "
                          f"window {window}) for M = {M}, n = {n}, C = {C}")
     out = g.new_empty(B, n, C)

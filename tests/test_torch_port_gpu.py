@@ -1159,25 +1159,34 @@ def test_bf16_stem_weight_grad_and_input_grad(dev):
 
 @pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
 @pytest.mark.parametrize("n", [1, 300, 4096])
-@pytest.mark.parametrize("C", [1, 5, 7, 8, 20, 32])
+@pytest.mark.parametrize("C", [1, 4, 5, 7, 8, 9, 20, 32])
 def test_bf16_k10_scatter_rows_smallc_add(dev, C, n, dtype):
     """K10 at bf16 under the wrapper's plan within the bf16 bar of the
     plain sums rounded once, one bf16 launch count per call: a fifth of
     the rows at the sentinel n and a few negative or past n, a ragged
-    last tile (M C a multiple of 4 or not: 8-byte loads or 2-byte ones);
-    M = 0 (dx all zero); every row onto one destination; K9's backward
-    at bf16 the same launch."""
+    last tile (C <= 8: M C a multiple of 8 and M of 4, 16-byte loads, or
+    not, 2-byte ones; C > 8: scatter_smallc_kernel's 8- or 2-byte
+    loads); every row dead; every row live; g and idx at an odd element
+    offset; M = 0 (dx all zero); every row onto one destination; K9's
+    backward at bf16 the same launch. The shared-memory adds come in
+    arrival order, so K10 is held to the bar, not bit for bit."""
     rng = np.random.RandomState(C * n + 1)
     B = 2
-    for M in (9 * gather.SMALLC_TILE_ROWS + 4,
+    for M in (9 * gather.SMALLC_TILE_ROWS + 8,
+              9 * gather.SMALLC_TILE_ROWS + 4,
               9 * gather.SMALLC_TILE_ROWS + 3):
         idx = rng.randint(0, n, (B, M))
         idx[rng.rand(B, M) < 0.2] = n
         idx[:, :3] = [-1, n + 9, -5]
         g = _randn(rng, dev, B, M, C).to(BF16)
-        for i in (idx, np.full((B, M), n - 1), idx[:, :0]):
+        live = rng.randint(0, n, (B, M))
+        for i, off in ((idx, False), (idx, True), (np.full((B, M), n), False),
+                       (live, False), (np.full((B, M), n - 1), False),
+                       (idx[:, :0], False)):
             it = torch.from_numpy(i).to(dtype).to(dev)
             gi = g[:, :i.shape[1]].contiguous()
+            if off:
+                gi, it = _offset(gi), _offset(it)
             before = cuda_lib.LAUNCHES["scatter_rows_smallc_add_bf16"]
             got = gather.scatter_rows_smallc_add(gi, it, n)
             assert cuda_lib.LAUNCHES["scatter_rows_smallc_add_bf16"] == \
@@ -1194,7 +1203,7 @@ def test_bf16_k10_scatter_rows_smallc_add(dev, C, n, dtype):
         BF16), relative=True)
 
 
-@pytest.mark.parametrize("C", [5, 20])
+@pytest.mark.parametrize("C", [1, 5, 7, 20])
 @pytest.mark.parametrize("ranges,window", [(1, 300), (3, 300), (3, 100),
                                            (7, 64), (2, 7), (1, 1)])
 def test_bf16_k10_forced_plans(dev, ranges, window, C):
@@ -1300,15 +1309,37 @@ def test_bf16_k4_gather_rows(dev, D, offset):
                            gather.gather_rows_plain(x, idx).view(torch.int16))
 
 
-@pytest.mark.parametrize("C", [4, 5, 8, 24])
-def test_bf16_k9_gather_rows_smallc(dev, C):
+def _offset(t):
+    """A contiguous copy of t that starts one element past an aligned
+    allocation (2 bytes for bf16, 4 / 8 for int32 / int64 indices)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("C", [1, 4, 5, 7, 8, 9, 20, 24, 32])
+def test_bf16_k9_gather_rows_smallc(dev, C, dtype):
+    """K9 at bf16 bit-equal to its plain version, one bf16 launch count a
+    call: a fifth of the rows at the sentinel and a few negative, on
+    ragged tiles with M C a multiple of 8 or not (the clouds after the
+    first then start their output off 16 bytes: 2-byte stores), N C not a
+    multiple of 4 (the clouds after the first start off x's 8-byte grid),
+    every row dead, every row live, and x and idx at an odd element offset
+    (x's rows then read from below its start on its 8-byte grid; idx 4-
+    or 8-byte index loads)."""
     rng = np.random.RandomState(40 + C)
-    for M in (1000 * 125 + 4, 1000 * 125 + 5):
-        x, idx = _smallc(rng, 3, 1024, M, C, dev)
-        x = x.to(BF16)
-        before = cuda_lib.LAUNCHES["gather_rows_smallc_bf16"]
-        got = gather.gather_rows_smallc(x, idx)
-        assert cuda_lib.LAUNCHES["gather_rows_smallc_bf16"] == before + 1
-        assert torch.equal(
-            got.view(torch.int16),
-            gather.gather_rows_smallc_plain(x, idx).view(torch.int16))
+    for N, M in ((1024, 1000 * 125 + 8), (1024, 1000 * 125 + 5),
+                 (1023, 1000 * 125 + 5)):
+        x, idx = _smallc(rng, 3, N, M, C, dev)
+        x, idx = x.to(BF16), idx.to(dtype)
+        for xi, ii in ((x, idx), (x, torch.full_like(idx, N)),
+                       (x, idx.clamp(0, N - 1)), (_offset(x), _offset(idx)),
+                       (x, _offset(idx))):
+            before = cuda_lib.LAUNCHES["gather_rows_smallc_bf16"]
+            got = gather.gather_rows_smallc(xi, ii)
+            assert cuda_lib.LAUNCHES["gather_rows_smallc_bf16"] == before + 1
+            assert torch.equal(
+                got.view(torch.int16),
+                gather.gather_rows_smallc_plain(xi, ii).view(torch.int16))
