@@ -33,6 +33,10 @@ Phases, each of which raises on failure (exit code != 0, no result line):
              256 x 256 xyz/rgb, seeded tabletop scenes), counters read: each
              kernel must have launched its per-forward count 5 times; batch
              and sequential actions must agree; p50 request latency printed;
+             then (serving nmap) the B = 1 forward's neighbour-map builds
+             (nmap_phase: device ms of the stem's and each stage's
+             build_neighbor_map over 3 forwards, and the host syncs they
+             cause);
   5. breakdown host preprocessing (its parts: the native crop +
              voxelize, robot box, subsample, presort) vs device forward per
              request, and a torch.profiler window over 3 forwards: device
@@ -86,7 +90,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
              clock after synchronize), clouds/s, peak memory; then a
              torch.profiler window over 2 steps: device time by kernel
              group (DEVICE_GROUPS) and the device's idle share
-             (chiprun_out/profile_train.txt);
+             (chiprun_out/profile_train.txt); then (training nmap) the
+             step's neighbour-map builds as phase 4's, over 2 steps (at
+             bf16 in phase 11a too);
   9. train-kernels hold the captured training calls against the plain
              versions: K5's out, row logsumexp and packed keep bits (the
              bits bit-equal to the PyTorch Philox generator, their keep
@@ -174,6 +180,21 @@ Phases, each of which raises on failure (exit code != 0, no result line):
              bf16 for BF16_ENTRY_STEPS steps (4 loader processes, launches
              held, losses finite), its fp32 model file served by Actioner
              at fp32 and at bf16 (launches per forward held);
+ 11b. optim    the optimizer menu on the release-width policy, B = 32 x
+             4096, phase 7's host batches, release dropout, TRAIN.warmup_
+             steps 2: adam, adamax, radam, ralamb for OPTIM_STEPS steps
+             each, rangerlars for 2 x lookahead_k (Lookahead's second
+             sync, the first that moves the slow weights, last), adamw at
+             gradient_accumulation_steps 2 for OPTIM_ACCUM_STEPS micro-steps
+             and radam at accumulation 2 at compute_dtype bfloat16; launches
+             held at PER_STEP (BF16_PER_STEP) per step, losses finite, step
+             p50 and the optimizer step's device ms (CUDA events around
+             it); the last step's update against a CPU copy of the
+             optimizer (its state carried through opt_state_to_jax /
+             opt_state_from_jax) fed the card's gradients: each tensor's
+             update within 1e-4 of the largest update plus UPDATE_ULPS
+             fp32 ulps of the tensor's largest |p| (the roundings at
+             |p|'s scale);
  12. entry     train_simple_policy.main on the card for ENTRY_STEPS steps,
              with the release YAML's 4 loader worker processes and the
              prefetch onto the card, then again as the loop in series (no
@@ -236,6 +257,22 @@ seeded weights) behind the ground-truth pipeline (robot_pipeline_gt.yaml):
              beside the other outputs); the card's trajectory logits against
              the same weights on the CPU (1e-3 * max(1, |ref|)), decoded
              actions finite;
+ 15b. rp-vlm   the released 3D-LOTUS++ (robot_pipeline.yaml: VLM
+             grounding) around phase 15's card engine, with the scripted
+             OWLv2 / SAM backends of eval/synthetic_obs.py
+             (ScriptedVLMBackend) on phase 15's observations: RP_EPISODES
+             episodes of RP_SCHEDULE (a grasp, a move of the grasped
+             object, a release, the restart; the plan pointer scripted,
+             since the seeded weights' stop bit fires at random), 21
+             requests with launch counters to 0 before and read after,
+             held at MP_PER_FORWARD per motion-planner forward (K1, K2, K4
+             and K9 launched); request p50, the VLM's host ms p50 (clean +
+             merge), engine predict p50, launches per request; the first
+             request on the CPU: its objects and motion-planner input
+             equal, logits within phase 15's bar, the action within 1e-3 *
+             max(1, |ref|); one episode through LLMTaskPlanner with a
+             scripted chat backend (the plan parsed as written, one chat
+             call);
  15a. bf16-mp  the motion planner at compute_dtype bfloat16 behind the GT
              pipeline (seed 0): one request captured (its bf16 K9 call, the
              categorical stem's, timed, which must run
@@ -336,6 +373,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import copy
 import gc
 import json
 import logging
@@ -354,6 +392,8 @@ import torch.nn.functional as F
 import yaml
 
 from robot3dlotus_tpu_torch.configs import get_config
+from robot3dlotus_tpu_torch.convert import (opt_state_from_jax,
+                                            opt_state_to_jax)
 from robot3dlotus_tpu_torch.eval.actioner import Actioner
 from robot3dlotus_tpu_torch.eval.common import parse_code
 from robot3dlotus_tpu_torch.eval import serving
@@ -364,8 +404,8 @@ from robot3dlotus_tpu_torch.eval.serving import (PolicyHTTPClient,
                                                  PolicyHTTPServer,
                                                  ThreeDLotusActioner,
                                                  run_client)
-from robot3dlotus_tpu_torch.eval.synthetic_obs import (TASKVAR,
-                                                       synthetic_observation)
+from robot3dlotus_tpu_torch.eval.synthetic_obs import (
+    OBJECT_ID, TARGET_ID, TASKVAR, ScriptedVLMBackend, synthetic_observation)
 from robot3dlotus_tpu_torch.models import heads as heads_mod
 from robot3dlotus_tpu_torch.models import layers
 from robot3dlotus_tpu_torch.models import ptv3 as ptv3_mod
@@ -392,6 +432,8 @@ from robot3dlotus_tpu_torch.train import (train_motion_planner,
                                           train_simple_policy)
 from robot3dlotus_tpu_torch.train.train_simple_policy import SPEC
 from robot3dlotus_tpu_torch.train.trainer import Trainer, batch_to_device
+from robot3dlotus_tpu_torch.vlm.owlv2_detector import Owlv2ObjectDetector
+from robot3dlotus_tpu_torch.vlm.sam_segmentor import SAMSegmentor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "robot3dlotus_tpu_torch", "configs", "rlbench",
@@ -1998,10 +2040,12 @@ def _group_device_ops(ops):
 
 
 def training_phase(trainer, batches, out_dir, per_step=PER_STEP,
-                   profile_file="profile_train.txt", tag="training"):
+                   profile_file="profile_train.txt", tag="training",
+                   nmap=False):
     """Counted steps (launches against per_step; the conditioning variants
     count all their batches), then, with a profile_file, a profiler window
-    over PROFILE_STEPS more (TRAIN_STEPS counted)."""
+    over PROFILE_STEPS more (TRAIN_STEPS counted) and, with `nmap`, the
+    step's neighbour-map builds (nmap_phase)."""
     steps = TRAIN_STEPS if profile_file else len(batches)
     dev = [batch_to_device(b, "cuda") for b in batches]
     torch.cuda.synchronize()
@@ -2060,6 +2104,9 @@ def training_phase(trainer, batches, out_dir, per_step=PER_STEP,
         f"unprofiled step {out['device_idle_share']:.3f}")
     for g, v in out["device_ms_by_group"].items():
         log(f"[{tag}]   {v['ms']:.3f} ms x{v['count']}  {g}")
+    if nmap:
+        out["nmap"] = nmap_phase(lambda: trainer.step(dev[TRAIN_STEPS]),
+                                 PROFILE_STEPS, f"{tag} nmap")
     return out, launches
 
 
@@ -4745,7 +4792,7 @@ def bf16_train_phase(host, training32, observations, out_dir):
     torch.cuda.empty_cache()
     training16, launches = training_phase(
         trainer, host[1:], out_dir, BF16_PER_STEP, "profile_train_bf16.txt",
-        "bf16-training")
+        "bf16-training", nmap=True)
     del trainer
     torch.cuda.empty_cache()
     side = _side_by_side(tag, training32, training16, TRAIN_SIDE_KEYS)
@@ -5041,6 +5088,466 @@ def variants_phase(observations):
     return out
 
 
+# ------------------------------------------------ neighbour-map builds ----
+
+def nmap_phase(run, units, tag):
+    """The device time and the host syncs of build_neighbor_map (the stem's
+    and each stage's CPE map, built on the card in every forward) over
+    `units` calls of `run` (a training step or a forward): each build in
+    a profiler range (the device time of the kernels its ops launch)
+    between two CUDA events
+    (its start to end on the stream, host gaps included) and, in one
+    unprofiled call, under torch.cuda's sync debug mode (the syncs it
+    causes: the out-of-extent test reads a scalar back)."""
+    import warnings
+    from torch.profiler import ProfilerActivity, profile, record_function
+    real = ptv3_mod.build_neighbor_map
+    seq = [0]
+    syncs = collections.Counter()
+    spans = []
+
+    def label(kernel_size):
+        name = (f"stem k={kernel_size}" if seq[0] == 0
+                else f"stage {seq[0] - 1} k={kernel_size}")
+        seq[0] += 1
+        return name
+
+    def profiled(grid_coord, mask, kernel_size, depth, extent=None):
+        name = label(kernel_size)
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        with record_function(f"nmap/{name}"):
+            s.record()
+            out = real(grid_coord, mask, kernel_size, depth, extent)
+            e.record()
+        spans.append((name, s, e))
+        return out
+
+    def counted(grid_coord, mask, kernel_size, depth, extent=None):
+        name = label(kernel_size)
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as w:
+                warnings.simplefilter("always")
+                out = real(grid_coord, mask, kernel_size, depth, extent)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        syncs[name] += sum("synchroniz" in str(x.message) for x in w)
+        return out
+
+    try:
+        ptv3_mod.build_neighbor_map = counted
+        seq[0] = 0
+        run()
+        torch.cuda.synchronize()
+        ptv3_mod.build_neighbor_map = profiled
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(units):
+                seq[0] = 0
+                run()
+            torch.cuda.synchronize()
+    finally:
+        ptv3_mod.build_neighbor_map = real
+    # the range's own device-side annotation spans its first kernel to its
+    # last, gaps included: sum the kernels of the ops inside it instead
+    ms, ranged = collections.defaultdict(float), collections.defaultdict(float)
+    for e in prof.events():
+        if e.name.startswith("nmap/") and \
+                str(e.device_type).endswith("CPU"):
+            ms[e.name[5:]] += sum(c.device_time_total
+                                  for c in e.cpu_children) / 1e3 / units
+            ranged[e.name[5:]] += e.device_time_total / 1e3 / units
+    stream = collections.defaultdict(float)
+    for name, s, e in spans:
+        stream[name] += s.elapsed_time(e) / units
+    out = {"device_ms": dict(ms), "device_ms_total": sum(ms.values()),
+           "stream_ms": dict(stream), "stream_ms_total": sum(stream.values()),
+           "range_device_ms_total": sum(ranged.values()),
+           "host_syncs": dict(syncs),
+           "host_syncs_total": sum(syncs.values())}
+    log(f"[{tag}] build_neighbor_map per unit: device ms "
+        f"{ {k: round(v, 4) for k, v in ms.items()} } (total "
+        f"{out['device_ms_total']:.4f} ms; the ranges' own "
+        f"{out['range_device_ms_total']:.4f}; start to end on the stream "
+        f"{out['stream_ms_total']:.4f} ms); host syncs "
+        f"{dict(syncs)} (total {out['host_syncs_total']})")
+    return out
+
+
+# -------------------------------------------- the released 3D-LOTUS++ -----
+
+RP_CONFIG = os.path.join(os.path.dirname(CONFIG), "robot_pipeline.yaml")
+# the scripted scene's names: the taskvar's object and target
+RP_NAMES = {OBJECT_ID: "red cube", TARGET_ID: "green square"}
+# a grasp, a move of the grasped object, a release, then past the end:
+# the restart (the pipeline config's restart: True) runs plan 0 again
+RP_PLAN = (f"# taskvar: {TASKVAR}\n"
+           "# query: push the block until it is sitting on top of the "
+           "green target.\n"
+           'cube = grasp(object="red cube")\n'
+           'move_grasped_object(target="green square")\n'
+           "release()\n")
+RP_SCHEDULE = [0, 0, 1, 1, 2, 3, 0]   # plan pointer before each request
+RP_EPISODES = 3
+RP_LLM_REQUESTS = 3
+
+
+class _ScriptedChat:
+    """A chat backend that answers every plan request with the
+    ground-truth plan's code."""
+
+    def __init__(self, plan_text):
+        self.calls = 0
+        self.code = "\n".join(x for x in plan_text.splitlines()
+                              if not x.startswith("# taskvar"))
+
+    def __call__(self, messages, temperature=0.0):
+        self.calls += 1
+        return self.code
+
+
+def _rp_backends(backend):
+    return {"det": Owlv2ObjectDetector(backend=backend),
+            "sam": SAMSegmentor(backend=backend)}
+
+
+def rp_vlm_phase(engine, mp_obs, out_dir, tag="rp-vlm"):
+    """The released 3D-LOTUS++ (robot_pipeline.yaml: VLM grounding) on the
+    card around the release-width motion planner `engine`, with the
+    scripted OWLv2 / SAM backends of eval/synthetic_obs.py on the
+    mp-serving observations: RP_EPISODES episodes of RP_SCHEDULE
+    (the plan pointer scripted, since the seeded weights' stop bit fires
+    at random), launches counted and held at MP_PER_FORWARD per
+    motion-planner forward; the first request's objects and motion-planner
+    input equal a CPU pipeline's on the same observation, its logits
+    within mp-serving's bar and its action too; then one episode through
+    LLMTaskPlanner with a scripted chat backend."""
+    with open(RP_CONFIG) as f:
+        cfg = yaml.safe_load(f)
+    plan_file = os.path.join(out_dir, "rp_vlm_plan.txt")
+    with open(plan_file, "w") as f:
+        f.write(RP_PLAN)
+    cfg["llm_planner"]["gt_plan_file"] = plan_file
+    backend = ScriptedVLMBackend(RP_NAMES)
+    for o in mp_obs:
+        backend.register(o)
+    pipe = serving.build_pipeline(cfg, device="cuda", motion_planner=engine,
+                                  **_rp_backends(backend))
+    vlm = pipe.vlm_pipeline
+    host_ms = collections.defaultdict(list)
+
+    def timed(obj, name, key):
+        fn = getattr(obj, name)
+
+        def wrapper(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            host_ms[key].append((time.perf_counter() - t0) * 1e3)
+            return out
+        setattr(obj, name, wrapper)
+    for name in ("clean_det_bboxes", "merge_multiview_objects", "run"):
+        timed(vlm, name, name)
+    timed(engine, "predict", "predict")
+    inputs = []
+    real_prep = pipe.prepare_motion_planner_input
+
+    def prep(*a, **kw):
+        out = real_prep(*a, **kw)
+        inputs.append(out[0])
+        return out
+    pipe.prepare_motion_planner_input = prep
+    task, var = TASKVAR.split("+")
+    lat, actions, first = [], [], None
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    for ep in range(RP_EPISODES):
+        cache = None
+        for i, plan_id in enumerate(RP_SCHEDULE):
+            if cache is not None:
+                cache["highlevel_step_id"] = plan_id
+            o = mp_obs[(ep + i) % len(mp_obs)]
+            t0 = time.perf_counter()
+            out = pipe.predict(task_str=task, variation=int(var), step_id=i,
+                               obs_state_dict=o, episode_id=ep, cache=cache)
+            lat.append((time.perf_counter() - t0) * 1e3)
+            cache = out["cache"]
+            a = np.asarray(out["action"])
+            if a.shape != (8,) or not np.isfinite(a).all():
+                raise AssertionError(f"[{tag}] request {len(lat)}: bad "
+                                     f"action {a}")
+            if plan_id == 2 and a[7] != 1:
+                raise AssertionError(f"[{tag}] release did not open: {a}")
+            if first is None:
+                first = (a, vlm.cache["objects"], inputs[0])
+            actions.append(a.tolist())
+    launches = dict(cuda_lib.LAUNCHES)
+    forwards = len(host_ms["predict"])
+    if forwards != RP_EPISODES * sum(p != 2 for p in RP_SCHEDULE):
+        raise AssertionError(f"[{tag}] {forwards} motion-planner forwards")
+    for k, per in MP_PER_FORWARD.items():
+        if launches[k] != per * forwards:
+            raise AssertionError(f"[{tag}] {k}: {launches[k]} launches in "
+                                 f"{forwards} forwards, expected {per} each")
+    for k in ("patch_attention", "subm_conv", "gather_rows",
+              "gather_rows_smallc"):
+        if not launches[k]:
+            raise AssertionError(f"[{tag}] {k} never launched")
+    clean_merge = [c + m for c, m in zip(host_ms["clean_det_bboxes"],
+                                         host_ms["merge_multiview_objects"])]
+    out = {"requests": len(lat), "request_ms": lat,
+           "request_p50_ms": float(np.median(lat)),
+           "vlm_clean_merge_ms_p50": float(np.median(clean_merge)),
+           "vlm_run_ms_p50": float(np.median(host_ms["run"])),
+           "predict_ms_p50": float(np.median(host_ms["predict"])),
+           "forwards": forwards, "launches": launches,
+           "launches_per_request": {k: v / len(lat)
+                                    for k, v in launches.items() if v},
+           "objects_first": len(first[1]), "actions": actions}
+    del engine.predict               # the class's again
+    log(f"[{tag}] {len(lat)} requests over {RP_EPISODES} episodes "
+        f"(releases and restarts among them): request p50 "
+        f"{out['request_p50_ms']:.1f} ms; VLM host (clean + merge) p50 "
+        f"{out['vlm_clean_merge_ms_p50']:.1f} ms (whole VLM run "
+        f"{out['vlm_run_ms_p50']:.1f} ms); engine predict p50 "
+        f"{out['predict_ms_p50']:.2f} ms; launches per request "
+        f"{ {k: round(v, 3) for k, v in out['launches_per_request'].items()} }")
+
+    # the first request again on the CPU: objects, input, logits, action
+    cpu_engine = MotionPlannerEngine(MP_CONFIG, device="cpu", seed=0)
+    cpu_engine.model.load_state_dict(
+        {k: v.cpu() for k, v in engine.model.state_dict().items()})
+    cpu_pipe = serving.build_pipeline(cfg, device="cpu",
+                                      motion_planner=cpu_engine,
+                                      **_rp_backends(backend))
+    cpu_inputs = []
+    real_cpu_prep = cpu_pipe.prepare_motion_planner_input
+
+    def cpu_prep(*a, **kw):
+        res = real_cpu_prep(*a, **kw)
+        cpu_inputs.append(res[0])
+        return res
+    cpu_pipe.prepare_motion_planner_input = cpu_prep
+    cpu_out = cpu_pipe.predict(task_str=task, variation=int(var), step_id=0,
+                               obs_state_dict=mp_obs[0], episode_id=0)
+    action, objects, inp = first
+    cpu_objects = cpu_pipe.vlm_pipeline.cache["objects"]
+    if len(objects) != len(cpu_objects) or any(
+            a.captions != b.captions or a.view_ids != b.view_ids or
+            not np.array_equal(a.pcd_xyz, b.pcd_xyz)
+            for a, b in zip(objects, cpu_objects)):
+        raise AssertionError(f"[{tag}] the card run's objects differ from "
+                             "the CPU run's")
+    for k, v in cpu_inputs[0].items():
+        if not np.array_equal(np.asarray(inp[k]), np.asarray(v)):
+            raise AssertionError(f"[{tag}] motion-planner input {k} differs "
+                                 "from the CPU run's")
+    plan = cpu_out["cache"]["highlevel_plans"][0]
+    txt = pipe.text_embedder(_plan_action_name(plan))
+    out["reference_max_diff"] = mp_reference_phase(
+        engine, (inp, txt), cpu_engine.model, tag)
+    diff = float(np.abs(action - cpu_out["action"]).max())
+    bar = 1e-3 * max(1.0, float(np.abs(cpu_out["action"]).max()))
+    out["action_max_diff"] = diff
+    if diff > bar:
+        raise AssertionError(f"[{tag}] card vs CPU action {action} vs "
+                             f"{cpu_out['action']}: {diff} > {bar}")
+    log(f"[{tag}] first request on the CPU: {len(cpu_objects)} objects and "
+        f"the motion-planner input ({len(inp['pc_fts'])} points, labels "
+        f"{np.bincount(inp['pc_labels'], minlength=4).tolist()}) equal; "
+        f"action max |card - CPU| {diff:.3g} (bar {bar:.3g})")
+    del cpu_pipe, cpu_engine
+
+    # one episode with the LLM planner (a scripted chat backend)
+    llm_cfg = copy.deepcopy(cfg)
+    llm_cfg["llm_planner"]["use_groundtruth"] = False
+    chat = _ScriptedChat(RP_PLAN)
+    llm_pipe = serving.build_pipeline(
+        llm_cfg, device="cuda", motion_planner=engine, llm_backend=chat,
+        **_rp_backends(backend))
+    instruction = RP_PLAN.splitlines()[1].split("# query: ")[1]
+    cache, llm_actions = None, []
+    for i in range(RP_LLM_REQUESTS):
+        res = llm_pipe.predict(task_str=task, variation=int(var), step_id=i,
+                               obs_state_dict=mp_obs[i % len(mp_obs)],
+                               episode_id=0, instructions=[instruction],
+                               cache=cache)
+        cache = res["cache"]
+        if not np.isfinite(res["action"]).all():
+            raise AssertionError(f"[{tag}] LLM planner episode: bad action "
+                                 f"{res['action']}")
+        llm_actions.append(np.asarray(res["action"]).tolist())
+    want = [parse_code(x) for x in RP_PLAN.splitlines()
+            if x and not x.startswith("#")]
+    if cache["highlevel_plans"] != want or chat.calls != 1:
+        raise AssertionError(f"[{tag}] LLM planner: plans "
+                             f"{cache['highlevel_plans']}, {chat.calls} "
+                             "chat calls")
+    out["llm_episode"] = {"requests": RP_LLM_REQUESTS,
+                          "chat_calls": chat.calls, "actions": llm_actions}
+    log(f"[{tag}] LLMTaskPlanner episode: {RP_LLM_REQUESTS} requests, "
+        f"{chat.calls} chat call, plan {[p['action'] for p in want]}")
+    return out
+
+
+# --------------------------------------------------- the optimizer menu ---
+
+OPTIM_STEPS = 7
+OPTIM_ACCUM_STEPS = 4    # micro-steps at gradient_accumulation_steps 2
+# rangerlars runs two Lookahead periods (2 x lookahead_k, 12 steps): its
+# first sync only takes the slow weights (the JAX quirk), so the second,
+# the last step, is the first that moves them and snaps the fast ones;
+# the CPU check holds that step
+# the policy's optimizers at full width: (name, accumulation, extra opts);
+# warmup 2 so the updates run at the configured lr within a few steps
+OPTIM_CASES = [(name, 1, []) for name in ("adam", "adamax", "radam",
+                                          "ralamb", "rangerlars")] + \
+    [("adamw", 2, []), ("radam", 2, BF16_OPTS)]
+OPTIM_OPTS = ["TRAIN.warmup_steps", "2"]
+UPDATE_ULPS = 4
+
+
+def _optim_trainer(cfg, model, seed):
+    act_cfg, loss_cfg = driver.task_configs(cfg)
+    opt, _ = build_optimizer(model, dict(cfg.TRAIN))
+    return Trainer(model,
+                   lambda preds, b: SPEC.loss_fn(preds, b, act_cfg, loss_cfg),
+                   opt, Randomness(seed, "cuda"))
+
+
+def _update_vs_cpu(trainer, cfg, batch, cpu, tag):
+    """One card step; the same gradients through a CPU copy of the
+    optimizer (its state carried by opt_state_to_jax / opt_state_from_jax)
+    from the same parameters, on the CPU model `cpu`. Each tensor's update
+    |card - CPU| within TOL of the largest update plus UPDATE_ULPS fp32
+    ulps of the tensor's largest |p|: each side rounds at |p|'s scale
+    (Ralamb forms p_dec, the new p, new p - p and p + update; the others
+    p + update), far inside the step check's TOL * max(1, |p|)."""
+    model = trainer.model
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    cpu_opt, _ = build_optimizer(cpu, dict(cfg.TRAIN))
+    opt_state_from_jax(opt_state_to_jax(trainer.optimizer, model), cpu_opt,
+                       cpu)
+    before = {n: p.detach().cpu().clone() for n, p in cpu.named_parameters()}
+    losses = _losses(trainer.step(batch))
+    named = dict(model.named_parameters())
+    for n, p in cpu.named_parameters():
+        g = named[n].grad
+        p.grad = None if g is None else g.cpu()
+    cpu_opt.step()
+    card = {n: named[n].detach().cpu() - before[n] for n in before}
+    ref = {n: p.detach() - before[n] for n, p in cpu.named_parameters()}
+    scale = max(float(r.abs().max()) for r in ref.values())
+    if not scale:
+        raise AssertionError(f"[{tag}] the CPU update moved nothing")
+    worst, over, name = 0.0, 0.0, None
+    for n in ref:
+        err = float((card[n] - ref[n]).abs().max())
+        ulp = UPDATE_ULPS * float(np.spacing(np.float32(
+            before[n].abs().max())))
+        worst = max(worst, err)
+        if err / (TOL * scale + ulp) > over:
+            over, name = err / (TOL * scale + ulp), n
+    if over > 1.0:
+        raise AssertionError(f"[{tag}] card vs CPU update of {name}: "
+                             f"{over} of its bar (largest update {scale})")
+    return {"update_max_diff": worst, "update_scale": scale,
+            "worst": name, "of_bar": over, "losses": losses}
+
+
+def optim_phase(host, tag="optim"):
+    """Each of OPTIM_CASES on the release-width policy at B = 32 x 4096
+    (phase 7's host batches, release dropout): OPTIM_STEPS steps
+    (OPTIM_ACCUM_STEPS micro-steps under accumulation, 2 x lookahead_k for
+    rangerlars, the batches cycled), launches held at PER_STEP
+    (BF16_PER_STEP at bf16) per step, finite losses, step p50 and the
+    optimizer step's device ms (CUDA events around it); the last step
+    held against the CPU's update of the same gradients (rangerlars': the
+    sync that moves the slow weights)."""
+    dev = [batch_to_device(b, "cuda") for b in host[1:1 + OPTIM_STEPS]]
+    cpu = build_model(train_config().MODEL, device="cpu", seed=0)
+    models, init = {}, None
+    results = {}
+    for name, accum, opts in OPTIM_CASES:
+        bf16 = bool(opts)
+        key = f"{name}-k{accum}" + ("-bf16" if bf16 else "")
+        cfg = train_config(*OPTIM_OPTS, "TRAIN.optim", name,
+                           "TRAIN.gradient_accumulation_steps", str(accum),
+                           *opts)
+        if bf16 not in models:     # one model a dtype, reset to its seed
+            models[bf16] = build_model(cfg.MODEL, device="cuda", seed=2024)
+            init = init or {k: v.clone() for k, v in
+                            models[bf16].state_dict().items()}
+        models[bf16].load_state_dict(init)
+        trainer = _optim_trainer(cfg, models[bf16], 2024)
+        opt = trainer.optimizer
+        steps = (OPTIM_ACCUM_STEPS if accum > 1 else 2 * opt.k
+                 if name == "rangerlars" else OPTIM_STEPS)
+        events = []
+        real_step = opt.step
+
+        def timed_step(real_step=real_step, events=events):
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            s.record()
+            real_step()
+            e.record()
+            events.append((s, e))
+        opt.step = timed_step
+        torch.cuda.synchronize()
+        cuda_lib.reset_launches()
+        step_ms, losses = [], []
+        for i in range(steps - 1):
+            t0 = time.perf_counter()
+            out = trainer.step(dev[i % len(dev)])
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(_losses(out))
+        launches = dict(cuda_lib.LAUNCHES)
+        per_step = BF16_PER_STEP if bf16 else PER_STEP
+        for k, per in per_step.items():
+            if launches[k] != per * (steps - 1):
+                raise AssertionError(f"[{tag}] {key} {k}: {launches[k]} "
+                                     f"launches in {steps - 1} steps, "
+                                     f"expected {per} per step")
+        if name == "rangerlars" and not (opt.initialized and
+                                         opt.count == steps - 1):
+            raise AssertionError(f"[{tag}] {key}: {opt.count} updates, "
+                                 f"synced {opt.initialized}: the check "
+                                 f"would miss the second sync")
+        check = _update_vs_cpu(trainer, cfg, dev[(steps - 1) % len(dev)],
+                               cpu, f"{tag} {key}")
+        losses.append(check.pop("losses"))
+        update_ms = [s.elapsed_time(e) for s, e in events]
+        emit = [update_ms[i] for i in range(len(update_ms))
+                if (i + 1) % accum == 0]
+        acc_only = [update_ms[i] for i in range(len(update_ms))
+                    if (i + 1) % accum]
+        res = {"steps": steps, "step_ms": step_ms,
+               "step_ms_p50": float(np.median(step_ms)),
+               "update_device_ms": update_ms,
+               "update_device_ms_p50": float(np.median(emit)),
+               "accumulate_device_ms_p50": (float(np.median(acc_only))
+                                            if acc_only else None),
+               "updates": opt.count, "losses": losses,
+               "launches": launches,
+               "launches_per_step": {k: launches[k] / (steps - 1)
+                                     for k in launches if launches[k]},
+               **check}
+        results[key] = res
+        log(f"[{tag}] {key}: {steps} steps, {opt.count} updates: step p50 "
+            f"{res['step_ms_p50']:.1f} ms, optimizer step device ms p50 "
+            f"{res['update_device_ms_p50']:.3f}"
+            + (f" (accumulating micro-steps "
+               f"{res['accumulate_device_ms_p50']:.3f})" if acc_only else "")
+            + f"; card vs CPU update max |diff| {check['update_max_diff']:.3g}"
+            f" of the largest update {check['update_scale']:.3g} ("
+            f"{check['of_bar']:.3g} of the bar); losses "
+            f"{[round(x['total'], 4) for x in losses]}")
+        del trainer, opt, events
+    del models, init
+    torch.cuda.empty_cache()
+    return results
+
+
 def _marked_processes():
     """(pid, command line) of every live process but this one whose
     environment holds this run's RUN_MARK: every process the run started,
@@ -5105,6 +5612,11 @@ def run():
     to be printed once the run's processes have ended."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    start = time.perf_counter()
+
+    def mark(done):
+        """The run's seconds so far, after the phases `done`."""
+        log(f"[time] {time.perf_counter() - start:.1f} s after {done}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -5137,6 +5649,7 @@ def run():
                 f"{'<' + m.group(2) + '>' if m.group(2) else ''}"
                 f"{' int64' if m.group(3) == 'x' else ''}{kind}: {use}")
 
+    mark("build")
     t0 = time.perf_counter()
     actioner = Actioner(CONFIG, cli_opts=CLI_OPTS, device="cuda", seed=0)
     log(f"[serving] release-width Actioner built in "
@@ -5150,6 +5663,10 @@ def run():
         lambda: actioner.predict_batch(requests(observations)))
     rows, detail = kernel_phase(captured, captured_batch)
     serving = serving_phase(actioner, observations)
+    actioner.rng = np.random.default_rng(0)
+    serving["nmap"] = nmap_phase(
+        lambda: actioner.predict(**requests(observations)[0]), 3,
+        "serving nmap")
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     breakdown = breakdown_phase(actioner, observations, out_dir)
@@ -5157,6 +5674,7 @@ def run():
     ref = reference_phase(actioner, observations[0])
     bf16 = bf16_phase(actioner, observations, serving, breakdown, out_dir)
     del actioner
+    mark("serving, breakdown, fused, reference, bf16")
 
     t0 = time.perf_counter()
     trainer, batches, _ = build_trainer(train_config(), SPEC, device="cuda")
@@ -5167,7 +5685,8 @@ def run():
         f"{[round(t) for t in data_ms]})")
     captured = capture(lambda: trainer.step(batch_to_device(host[0], "cuda")),
                        TRAIN_SITES)
-    training, train_launches = training_phase(trainer, host[1:], out_dir)
+    training, train_launches = training_phase(trainer, host[1:], out_dir,
+                                              nmap=True)
     training["host_batch_ms"] = data_ms
     del trainer
     train_rows, k4_step, k2_step, k3_step, train_detail = \
@@ -5179,14 +5698,22 @@ def run():
     stem_vjp, stem_launches = stem_vjp_phase(stems[0])
     bf16_stem_vjp, bf16_stem_launches = bf16_stem_vjp_phase(stems[0])
     del captured, stems
+    mark("training, train-kernels, stem-vjp")
     step_check = step_check_phase(host[0])
+    mark("step-check")
     bf16_train = bf16_train_phase(host, training, observations, out_dir)
+    mark("bf16-train")
+    torch.cuda.empty_cache()
+    optim = optim_phase(host)
+    mark("optim")
     del host, batches
     torch.cuda.empty_cache()
     entry = entry_phases(train_simple_policy, train_config, ENTRY_STEPS,
                          PER_STEP, "entry", training["clouds_per_s"])
+    mark("entry")
     lmdb = lmdb_phase(train_simple_policy, train_config, "synthetic_reach",
                       PER_STEP, "lmdb", keep=True)
+    mark("lmdb")
     torch.cuda.empty_cache()
 
     def serve(actioner, cpu):
@@ -5208,6 +5735,7 @@ def run():
         after=lambda run: {
             "eval_server": eval_server_phase(run, lmdb["root"], CKPT_STEPS),
             "http": http_phase(run, lmdb["root"], CKPT_STEPS)})
+    mark("ckpt, eval-server, http")
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -5222,6 +5750,9 @@ def run():
     mp_serving, mp_row = mp_serving_phase(pipe, mp_obs, out_dir)
     mp_serving["reference_max_diff"] = mp_reference_phase(engine, mp_row)
     bf16_mp = bf16_mp_phase(engine, mp_obs, mp_serving, out_dir)
+    mark("mp-serving, bf16-mp")
+    rp_vlm = rp_vlm_phase(engine, mp_obs, out_dir)
+    mark("rp-vlm")
     del engine, pipe
     torch.cuda.empty_cache()
     mp_train, mp_train_launches, mp_step_captured, mp_host = \
@@ -5236,16 +5767,21 @@ def run():
     mp_detail["conv_forward"] = mp_fwd_k2
     del mp_fwd_captured, mp_step_captured
     torch.cuda.empty_cache()
+    mark("mp-train, mp-kernels, mp-stem-vjp")
     mp_step_check = step_check_phase(mp_host[0], mp_config, compute_mp_loss,
                                      "mp-step-check", MP_CHECK_SLICES,
                                      MP_PER_STEP, MP_PER_STEP_REDRAW)
+    mark("mp-step-check")
     bf16_mp_train = bf16_mp_train_phase(mp_host, mp_train, mp_obs, out_dir)
+    mark("bf16-mp-train")
     del mp_host
     torch.cuda.empty_cache()
     mp_entry = entry_phases(train_motion_planner, mp_config, MP_ENTRY_STEPS,
                             MP_PER_STEP, "mp-entry", mp_train["clouds_per_s"])
+    mark("mp-entry")
     mp_lmdb = lmdb_phase(train_motion_planner, mp_config, "synthetic_motion",
                          MP_PER_STEP, "mp-lmdb")
+    mark("mp-lmdb")
     torch.cuda.empty_cache()
 
     def mp_serve(engine, cpu):
@@ -5264,6 +5800,7 @@ def run():
             run, MP_CKPT_STEPS)})
     shutil.rmtree(os.path.join(ROOT, "build", "smoke_data"),
                   ignore_errors=True)
+    mark("mp-ckpt, mp-eval-server")
     torch.cuda.empty_cache()
 
     adanorm, _ = policy_variant_phase(
@@ -5277,6 +5814,7 @@ def run():
     torch.cuda.empty_cache()
     mp_adanorm = mp_adanorm_phase(mp_obs, out_dir)
     variants = variants_phase(observations)
+    mark("adanorm, concat, mp-adanorm, variants")
 
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"device": smi, "kernels": rows, "calls": detail,
@@ -5295,7 +5833,8 @@ def run():
                    "mp_ckpt": mp_ckpt, "adanorm": adanorm,
                    "concat": concat, "mp_adanorm": mp_adanorm,
                    "variants": variants, "bf16": bf16, "bf16_mp": bf16_mp,
-                   "bf16_train": bf16_train, "bf16_mp_train": bf16_mp_train},
+                   "bf16_train": bf16_train, "bf16_mp_train": bf16_mp_train,
+                   "rp_vlm": rp_vlm, "optim": optim},
                   f, indent=1)
     # each kernel's launches in the run of its own slice's main path: K1-K4
     # policy serving, K5-K8 policy training, K9 motion-planner serving, K10
@@ -5376,7 +5915,9 @@ def run():
              "bf16_training": bf16_train["launches"],
              "bf16_mp_training": bf16_mp_train["launches"],
              "bf16_entry": bf16_train["entry"]["launches"],
-             "bf16_mp_entry": bf16_mp_train["entry"]["launches"]}
+             "bf16_mp_entry": bf16_mp_train["entry"]["launches"],
+             "rp_vlm": rp_vlm["launches"],
+             **{f"optim_{k}": r["launches"] for k, r in optim.items()}}
     main_path = dict.fromkeys(PER_FORWARD, "serving")
     main_path.update(dict.fromkeys(TRAIN_KERNELS, "training"))
     main_path.update(gather_rows_smallc="mp_serving",

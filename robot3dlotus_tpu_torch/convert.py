@@ -16,7 +16,11 @@ one (Tpad,) buffer each, the leaves in jax.tree_util order (sorted paths),
 Dense kernels as (in, out), zero-padded to a multiple of 4096; the port's
 FlatAdamW keeps them unpadded in named_parameters() order, Linear weights
 as (out, in). `adam_state_to_jax` / `adam_state_from_jax` move them leaf by
-leaf, by name.
+leaf, by name. The other optimizers' JAX states are optax chains of
+per-leaf trees (the clip's, lr multipliers' and freeze mask's empty
+states beside the core's) and optax.MultiSteps around them. Each port
+optimizer writes and reads its own layout (state_tree / load_tree) through
+a `StateLayout`; `opt_state_to_jax` / `opt_state_from_jax` call them.
 """
 from __future__ import annotations
 
@@ -165,3 +169,95 @@ def adam_state_from_jax(opt_state, optimizer, model):
             dst[off:off + n].view(shape).copy_(seg)
             j += n
     optimizer.count = int(count)
+
+
+def _leaf_layout(optimizer, model):
+    """[(flax path, port offset, size, shape, transposed)] of each
+    parameter in the optimizer's flat order."""
+    leaves = flax_leaves(model)
+    out, off = [], 0
+    for name, p in zip(optimizer.names, optimizer.params):
+        _, path, transposed = leaves[name]
+        out.append((path, off, p.numel(), tuple(p.shape), transposed))
+        off += p.numel()
+    return out
+
+
+def flat_to_tree(flat, optimizer, model):
+    """A flat per-parameter buffer -> a float32 numpy tree in flax names
+    and layouts (one copy off the device)."""
+    host = flat.detach().float().cpu().numpy()
+    tree = {}
+    for path, off, n, shape, transposed in _leaf_layout(optimizer, model):
+        arr = host[off:off + n].reshape(shape)
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = np.ascontiguousarray(arr.T if transposed else arr)
+    return tree
+
+
+def flat_from_tree(tree, optimizer, model, dst):
+    """Copies a flax-layout tree (flat_to_tree's) into the flat buffer
+    `dst` (one copy onto its device)."""
+    host = np.empty(dst.numel(), np.float32)
+    for path, off, n, shape, transposed in _leaf_layout(optimizer, model):
+        node = tree
+        for k in path:
+            node = node[k]
+        arr = np.asarray(node, np.float32)
+        host[off:off + n] = (arr.T if transposed else arr).reshape(-1)
+    dst.copy_(torch.from_numpy(host))
+
+
+class StateLayout:
+    """Moves a port optimizer's flat fp32 buffers to and from the JAX
+    package's layouts for `model`: per-leaf flax trees (the optax chains,
+    MultiSteps' accumulator) and flat_adamw's padded buffers. The
+    optimizers' state_tree / load_tree take one."""
+
+    def __init__(self, optimizer, model):
+        self.optimizer, self.model = optimizer, model
+
+    def tree(self, flat):
+        return flat_to_tree(flat, self.optimizer, self.model)
+
+    def load_tree(self, tree, dst):
+        flat_from_tree(tree, self.optimizer, self.model, dst)
+
+    def flat_adamw(self, optimizer):
+        return adam_state_to_jax(optimizer, self.model)
+
+    def load_flat_adamw(self, state, optimizer):
+        adam_state_from_jax(state, optimizer, self.model)
+
+
+def opt_state_to_jax(optimizer, model):
+    """The port optimizer's state (train.optim.build_optimizer) -> the JAX
+    build_optimizer's opt_state as flax writes it, numpy leaves."""
+    return optimizer.state_tree(StateLayout(optimizer, model))
+
+
+def _check_like(got, want, path="opt_state"):
+    """Raises unless `got` has `want`'s keys, and its leaves their shapes
+    and dtype kinds."""
+    if isinstance(want, dict):
+        keys = sorted(got) if hasattr(got, "items") else type(got).__name__
+        if keys != sorted(want):
+            raise KeyError(f"{path}: {keys}, this optimizer's state has "
+                           f"{sorted(want)}")
+        for k in want:
+            _check_like(got[k], want[k], f"{path}/{k}")
+        return
+    a, b = np.asarray(got), np.asarray(want)
+    if a.shape != b.shape or a.dtype.kind != b.dtype.kind:
+        raise ValueError(f"{path}: {a.dtype} {a.shape}, this optimizer "
+                         f"needs {b.dtype} {b.shape}")
+
+
+def opt_state_from_jax(opt_state, optimizer, model):
+    """Loads a JAX opt_state (opt_state_to_jax's layout, written by either
+    package) into the port optimizer, on its device; raises when the
+    state is another optimizer's or does not fit the model."""
+    _check_like(opt_state, opt_state_to_jax(optimizer, model))
+    optimizer.load_tree(opt_state, StateLayout(optimizer, model))

@@ -12,9 +12,13 @@ The per-episode pipeline cache round-trips through the producer/consumer
 queues (stateful=True). The prediction directory encodes the oracle modes,
 as in the JAX package:
   preds[-llm_gt][-og_gt_<label_type>][-runstepN]/seed<S>/results.jsonl
-The pipeline is GroundtruthRobotPipeline (ground-truth planner and
-grounding); a config that asks for the LLM planner or VLM grounding
-raises, as does `--env rlbench`. This module imports no torch.
+The pipeline is build_pipeline's: GroundtruthRobotPipeline under
+ground-truth grounding (robot_pipeline_gt.yaml), else RobotPipeline
+(robot_pipeline.yaml: VLM grounding), which needs OWLv2 and SAM backends
+that a command line cannot inject, so such a config raises here, naming
+the weights (build_pipeline and serving.ThreeDLotusPlusActioner take
+injected backends). `--env rlbench` raises. This module imports no
+torch.
 """
 from __future__ import annotations
 
@@ -28,7 +32,7 @@ from ..utils.assets import resolve_asset
 from .eval_simple_policy_server import (RLBENCH_UNAVAILABLE, load_taskvars,
                                         replay_env_builder, report)
 from .server import run_eval_server
-from .serving import build_pipeline, model_checkpoint, require_groundtruth
+from .serving import build_pipeline, model_checkpoint, require_backends
 
 
 def build_args(argv=None):
@@ -68,9 +72,9 @@ def main(argv=None):
     mp_cfg = pipeline_config.setdefault("motion_planner", {})
     if args.no_gt_llm:
         llm_cfg["use_groundtruth"] = False
-    require_groundtruth(pipeline_config)   # here, not in the consumer
     if args.llm_cache_file is not None:
         llm_cfg["cache_file"] = args.llm_cache_file
+    require_backends(pipeline_config)   # here, not in the consumer
     if args.gt_og_label_file is not None:
         og_cfg["gt_label_file"] = args.gt_og_label_file
     if args.pc_label_type is not None:

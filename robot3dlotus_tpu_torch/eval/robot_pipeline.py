@@ -1,9 +1,21 @@
-"""3D-LOTUS++ with the ground-truth task planner and ground-truth vision
-(the port's copy of the GT path of robot3dlotus_tpu/eval/robot_pipeline.py):
-the configuration GemBench users run to isolate the learned motion planner
-(configs/rlbench/robot_pipeline_gt.yaml).
+"""The 3D-LOTUS++ closed-loop pipelines (the port's copy of
+robot3dlotus_tpu/eval/robot_pipeline.py).
 
-Per environment step GroundtruthRobotPipeline.predict:
+RobotPipeline is the released system (configs/rlbench/robot_pipeline.yaml):
+a task planner (the ground-truth plans, or LLMTaskPlanner), VLM object
+grounding (vlm/pipeline.py's VLMPipeline: OWLv2 boxes, SAM masks, cleaned
+and merged across views) and the learned motion planner. Per step it
+plans at step 0, replays cached trajectory steps (moving a grasped
+object's remembered cloud with them), answers 'release' by opening the
+gripper, grounds the plan's object (label 2) and target (label 3; a target
+variable is matched to a remembered cloud by chamfer distance), crops a
+drawer's or a safe's level by its estimated height range, voxelizes,
+removes the robot's boxes, samples num_points from its seeded RandomState,
+normalises, and runs the motion planner on the card.
+
+GroundtruthRobotPipeline (configs/rlbench/robot_pipeline_gt.yaml) isolates
+the motion planner: ground-truth plans and ground-truth vision. Per
+environment step GroundtruthRobotPipeline.predict:
   1. on step 0, takes the taskvar's plan from the in-context examples
      (GroundtruthTaskPlanner) and parses it into primitives (parse_code);
   2. replays the cached trajectory steps of the last motion-planner call;
@@ -16,9 +28,11 @@ Per environment step GroundtruthRobotPipeline.predict:
      up to run_action_step steps of it, advancing the plan when the stop
      bit fires.
 
+Both write each step's observation and actions under
+pred_dir/obs_outs/<taskvar>/<episode> with motion_planner.save_obs_outs.
 Action-name embeddings come from a cache file when it holds the name, else
 from the crc32 pseudo-embedding of the synthetic training store; on-demand
-CLIP encoding, the LLM planner and the VLM grounding are not ported.
+CLIP encoding is not ported (CLIP's weights are not in the repository).
 """
 from __future__ import annotations
 
@@ -30,16 +44,18 @@ from typing import Dict
 
 import numpy as np
 import torch
+from scipy.spatial.transform import Rotation as R
 
 from ..configs import get_config
 from ..configs.rlbench.constants import get_robot_workspace
 from ..models.factory import build_model, resolve_device
 from ..models.motion_planner import decode_mp_actions
+from ..ops.chamfer import chamfer_distance_np
 from ..ops.voxel import voxelize_pcd_np, workspace_mask_np
 from ..train.checkpoint import load_any_model_ckpt
 from ..utils.assets import resolve_asset
 from ..utils.robot_box import RobotBox
-from ..vlm.llm_planner import GroundtruthTaskPlanner
+from ..vlm.llm_planner import GroundtruthTaskPlanner, heuristic_height_range
 from .actioner import TXT_BUCKETS, _bucket
 from .common import parse_code
 
@@ -269,13 +285,37 @@ def _plan_action_name(plan, instr_include_objects=False):
     return action_name
 
 
-def _new_episode_cache(gripper_pose):
+def _new_episode_cache(gripper_pose, episode_outdir=None):
     return {
         "valid_actions": [], "highlevel_plans": [], "highlevel_step_id": 0,
         "highlevel_step_id_norelease": 0, "ret_objs": {},
         "grasped_obj_name": None,
         "prev_ee_pose": np.asarray(gripper_pose, np.float32).copy(),
+        "episode_outdir": episode_outdir,
     }
+
+
+def _episode_outdir(pred_dir, save_obs_outs, taskvar, episode_id):
+    """pred_dir/obs_outs/<taskvar>/<episode_id> (made), or None."""
+    if not (save_obs_outs and pred_dir):
+        return None
+    outdir = os.path.join(pred_dir, "obs_outs", taskvar, str(episode_id))
+    os.makedirs(outdir, exist_ok=True)
+    return outdir
+
+
+def _move_grasped_obj_xyz(cur_action, prev_pose, obj_xyz):
+    """Moves the grasped object's remembered cloud with the commanded
+    motion, in place. As upstream: the relative rotation is the
+    difference of the Euler angles, applied about the world origin after
+    the translation, so it is exact only for pure translations, which the
+    benchmark's move-grasped plans almost always are."""
+    translation = cur_action[:3] - prev_pose[:3]
+    rotation = R.from_quat(cur_action[3:7]).as_euler("xyz") - \
+        R.from_quat(prev_pose[3:7]).as_euler("xyz")
+    obj_xyz += translation
+    obj_xyz[:] = R.from_euler("xyz", rotation).apply(obj_xyz)
+    return obj_xyz
 
 
 class GroundtruthRobotPipeline:
@@ -312,9 +352,8 @@ class GroundtruthRobotPipeline:
             mp_cfg.get("action_embed_file"))
         self.run_action_step = int(mp_cfg.get("run_action_step", 1))
         self.restart = bool(config.get("pipeline", {}).get("restart", False))
-        if mp_cfg.get("save_obs_outs"):
-            raise NotImplementedError("motion_planner.save_obs_outs: saving "
-                                      "observations is not ported")
+        self.save_obs_outs = bool(mp_cfg.get("save_obs_outs", False))
+        self.pred_dir = mp_cfg.get("pred_dir")
 
     def predict(self, task_str=None, variation=None, step_id=0,
                 obs_state_dict=None, episode_id=None, instructions=None,
@@ -324,7 +363,8 @@ class GroundtruthRobotPipeline:
         gripper_pose = copy.deepcopy(np.asarray(obs["gripper"]))
 
         if step_id == 0:
-            cache = _new_episode_cache(gripper_pose)
+            cache = _new_episode_cache(gripper_pose, _episode_outdir(
+                self.pred_dir, self.save_obs_outs, taskvar, episode_id))
             cache["highlevel_plans"] = [
                 parse_code(x) for x in self.llm_planner(taskvar)]
 
@@ -372,4 +412,304 @@ class GroundtruthRobotPipeline:
             cache["highlevel_step_id"] += 1
             cache["highlevel_step_id_norelease"] += 1
         cache["valid_actions"] = [np.asarray(a) for a in valid_actions[1:]]
+        if cache.get("episode_outdir"):
+            np.save(os.path.join(cache["episode_outdir"], f"{step_id}.npy"),
+                    {"obs": obs, "valid_actions": valid_actions})
         return {"action": np.asarray(valid_actions[0][:8]), "cache": cache}
+
+
+class RobotPipeline:
+    """The released 3D-LOTUS++: a task planner, VLM grounding and the
+    motion planner on `device`. Injected parts take the place of those
+    the config names: `vlm_pipeline` (anything with run(rgb, pc,
+    arm_links_info) -> {objects} and ground_object_with_query), else a
+    VLMPipeline over `det` / `sam`; `llm_planner`, else the ground-truth
+    planner or an LLMTaskPlanner over `llm_backend` and the config's plan
+    cache_file. The episode state (`cache`) is a plain picklable dict the
+    caller hands back on the next step."""
+
+    def __init__(self, config, motion_planner: MotionPlannerEngine = None,
+                 vlm_pipeline=None, llm_planner=None,
+                 text_embedder: ActionTextEmbedder = None, det=None,
+                 sam=None, llm_backend=None, device="cuda"):
+        self.config = config
+        self.env_name = ("real" if config.get("pipeline", {}).get(
+            "real_robot", False) else "rlbench")
+
+        llm_cfg = config["llm_planner"]
+        if llm_planner is not None:
+            self.llm_planner = llm_planner
+        elif llm_cfg.get("use_groundtruth", False):
+            self.llm_planner = GroundtruthTaskPlanner(
+                resolve_asset(llm_cfg["gt_plan_file"]))
+        else:
+            from ..vlm.llm_planner import LLMTaskPlanner
+            self.llm_planner = LLMTaskPlanner(
+                prompt_dir=resolve_asset(llm_cfg.get("prompt_dir")),
+                asset_dir=resolve_asset(llm_cfg.get("asset_dir")),
+                backend=llm_backend, cache_file=llm_cfg.get("cache_file"))
+
+        if vlm_pipeline is not None:
+            self.vlm_pipeline = vlm_pipeline
+        else:
+            from ..vlm.pipeline import VLMPipeline
+            self.vlm_pipeline = VLMPipeline(env_name=self.env_name, det=det,
+                                            sam=sam)
+
+        mp_cfg = config["motion_planner"]
+        self.motion_planner = motion_planner or MotionPlannerEngine(
+            mp_cfg["config_file"], mp_cfg.get("checkpoint"), device=device)
+        self.mp_data_cfg = self.motion_planner.data_cfg
+        self.text_embedder = text_embedder or ActionTextEmbedder(
+            mp_cfg.get("action_embed_file"))
+        self.run_action_step = int(mp_cfg.get("run_action_step", 1))
+        self.restart = bool(config.get("pipeline", {}).get("restart", False))
+        self.save_obs_outs = bool(mp_cfg.get("save_obs_outs", False))
+        self.pred_dir = mp_cfg.get("pred_dir")
+        self.workspace = get_robot_workspace(
+            real_robot=self.env_name == "real", use_vlm=True)
+        seed = config.get("pipeline", {}).get("seed", 0)
+        # seed 0 is a valid explicit seed (`or None` would silently unseed)
+        self.rng = np.random.RandomState(
+            None if seed is None else int(seed))
+
+    # ------------------------------------------------------------------ #
+
+    def prepare_motion_planner_input(
+            self, objects, plan, arm_links_info, gripper_pose,
+            zrange=None, target_var_xyz=None):
+        """Grounded objects -> the motion planner's labelled, voxelized,
+        normalised input, and the grasped object's cloud."""
+        cfg = self.mp_data_cfg
+        voxel_size = self.motion_planner.act_cfg.get("voxel_size", 0.01)
+
+        pcd_xyz = [np.asarray(o.pcd_xyz, np.float32) for o in objects]
+        pcd_rgb = [np.asarray(o.pcd_rgb) if o.pcd_rgb is not None
+                   else np.zeros((len(x), 3)) for o, x in zip(objects, pcd_xyz)]
+        pcd_label = [np.zeros(len(x), np.int32) for x in pcd_xyz]
+        for k, o in enumerate(objects):
+            if o.captions and o.captions[0] == "robot":
+                pcd_label[k][:] = 1
+
+        mani_obj = None
+        for query_key, label_id in (("object", 2), ("target", 3)):
+            if plan.get(query_key) is None:
+                continue
+            query = plan[query_key]
+            best_obj_id, _, _ = self.vlm_pipeline.ground_object_with_query(
+                query, objects=objects, return_sims=True)
+            if best_obj_id is None:
+                continue
+            if query_key == "object":
+                pcd_label[best_obj_id][:] = 2
+                mani_obj = {"pcd_xyz": pcd_xyz[best_obj_id],
+                            "name": plan.get("ret_val")}
+            else:
+                if target_var_xyz is not None:
+                    # match the remembered object variable by chamfer distance
+                    # over uncaptioned objects
+                    cand = [k for k, o in enumerate(objects)
+                            if not o.captions]
+                    if cand:
+                        dists = [chamfer_distance_np(
+                            target_var_xyz, pcd_xyz[k]) + chamfer_distance_np(
+                            pcd_xyz[k], target_var_xyz) for k in cand]
+                        best_obj_id = cand[int(np.argmin(dists))]
+                pcd_label[best_obj_id][:] = 3
+            if zrange is not None:
+                z = pcd_xyz[best_obj_id][:, 2]
+                pcd_label[best_obj_id][(z < zrange[0]) | (z > zrange[1])] = 0
+
+        pcd_xyz = np.concatenate(pcd_xyz)
+        pcd_rgb = np.concatenate(pcd_rgb)
+        pcd_label = np.concatenate(pcd_label)
+
+        pcd_xyz, idxs = voxelize_pcd_np(pcd_xyz, voxel_size)
+        pcd_label = pcd_label[idxs]
+        pcd_rgb = pcd_rgb[idxs]
+
+        rm_robot = cfg.get("rm_robot", "none")
+        if rm_robot != "none":
+            box = RobotBox(arm_links_info,
+                           keep_gripper=rm_robot == "box_keep_gripper",
+                           env_name=self.env_name)
+            keep = ~box.point_mask(pcd_xyz)
+            pcd_xyz, pcd_label, pcd_rgb = \
+                pcd_xyz[keep], pcd_label[keep], pcd_rgb[keep]
+
+        num_points = int(cfg.get("num_points", 4096))
+        if len(pcd_xyz) <= 10:
+            # everything was cleaned/cropped away: signal the caller to emit
+            # the safe zero action (the Actioner's tiny-cloud guard) instead
+            # of sampling an empty array into a NaN centroid/forward
+            return None, mani_obj
+        point_idxs = sample_points(
+            len(pcd_xyz), num_points,
+            cfg.get("same_npoints_per_example", False), self.rng)
+        pcd_xyz = pcd_xyz[point_idxs]
+        pcd_label = pcd_label[point_idxs]
+        pcd_height = pcd_xyz[:, 2] - self.workspace["TABLE_HEIGHT"]
+        pcd_rgb = pcd_rgb[point_idxs]
+
+        pcd_xyz, gripper_pose, pc_centroid, pc_radius = normalize_pcd(
+            pcd_xyz, gripper_pose, cfg.get("xyz_shift", "center"),
+            cfg.get("xyz_norm", False))
+
+        pcd_ft = pcd_xyz
+        if cfg.get("use_height", True):
+            pcd_ft = np.concatenate([pcd_ft, pcd_height[:, None]], -1)
+        if cfg.get("use_color", False):
+            pcd_ft = np.concatenate(
+                [pcd_ft, (pcd_rgb / 255.0) * 2 - 1], -1)
+
+        inputs = {
+            "pc_fts": pcd_ft.astype(np.float32), "pc_labels": pcd_label,
+            "pc_centroids": pc_centroid, "pc_radius": pc_radius,
+            "ee_poses": gripper_pose,
+        }
+        return inputs, mani_obj
+
+    def _estimate_zrange(self, plan, task_str, objects):
+        """The height range of a drawer's or a safe's level, from the
+        planner's estimator, in world z."""
+        query = None
+        if plan.get("object") is not None and "drawer" in plan["object"]:
+            query = plan["object"]
+        elif plan.get("target") is not None and "safe" in task_str and (
+                "safe" in plan["target"] or "shelf" in plan["target"]):
+            query = plan["target"]
+        if query is None:
+            return None
+        heights = np.concatenate([
+            o.pcd_xyz[:, 2] for o in objects
+            if not o.captions or o.captions[0] != "robot"], 0)
+        obj_height = np.percentile(heights, 99) - heights.min()
+        if hasattr(self.llm_planner, "estimate_height_range"):
+            zrange = self.llm_planner.estimate_height_range(query, obj_height)
+        else:
+            zrange = heuristic_height_range(query, obj_height)
+        if zrange is not None:
+            zrange = np.asarray(zrange) + self.workspace["TABLE_HEIGHT"]
+        return zrange
+
+    # ------------------------------------------------------------------ #
+
+    def predict(self, task_str=None, variation=None, step_id=0,
+                obs_state_dict=None, episode_id=None, instructions=None,
+                cache=None):
+        taskvar = f"{task_str}+{variation}"
+        obs = obs_state_dict
+        gripper_pose = copy.deepcopy(np.asarray(obs["gripper"]))
+
+        if step_id == 0:
+            outdir = _episode_outdir(self.pred_dir, self.save_obs_outs,
+                                     taskvar, episode_id)
+            cache = _new_episode_cache(gripper_pose, outdir)
+            if isinstance(self.llm_planner, GroundtruthTaskPlanner):
+                plans = self.llm_planner(taskvar)
+            else:
+                _, plans = self.llm_planner(instructions[0])
+            cache["highlevel_plans"] = [parse_code(x) for x in plans]
+            if outdir:
+                with open(os.path.join(outdir, "highlevel_plans.json"),
+                          "w") as f:
+                    json.dump({
+                        # GT-planner callers may omit instructions entirely
+                        "instruction": instructions[0] if instructions
+                        else None,
+                        "plans": plans,
+                        "parsed_plans": cache["highlevel_plans"]}, f)
+
+        # cached trajectory steps remaining
+        if cache["valid_actions"]:
+            cur = np.asarray(cache["valid_actions"][0][:8])
+            cache["valid_actions"] = cache["valid_actions"][1:]
+            # as upstream, the generating plan is taken as plans[step_id -
+            # 1]: the previous plan whenever the stop bit did not fire
+            plan = cache["highlevel_plans"][cache["highlevel_step_id"] - 1] \
+                if cache["highlevel_step_id"] > 0 else None
+            if plan is not None and cache["grasped_obj_name"] is not None \
+                    and cache["grasped_obj_name"] in cache["ret_objs"] \
+                    and plan["action"].startswith("move grasped object"):
+                _move_grasped_obj_xyz(
+                    cur, cache["prev_ee_pose"],
+                    cache["ret_objs"][cache["grasped_obj_name"]])
+            cache["prev_ee_pose"] = cur
+            return {"action": cur, "cache": cache}
+
+        if cache["highlevel_step_id"] >= len(cache["highlevel_plans"]):
+            if self.restart:
+                # rewind to plan 0 and clear the episode state, keeping the
+                # plans (the planner runs at step 0 only)
+                plans = cache["highlevel_plans"]
+                cache.update(_new_episode_cache(
+                    gripper_pose, cache["episode_outdir"]))
+                cache["highlevel_plans"] = plans
+            else:
+                return {"action": np.zeros(8), "cache": cache}
+
+        plan = cache["highlevel_plans"][cache["highlevel_step_id"]]
+        if plan is None:
+            return {"action": np.zeros(8), "cache": cache}
+
+        if plan["action"] == "release":
+            action = gripper_pose.copy()
+            action[7] = 1
+            cache["highlevel_step_id"] += 1
+            cache["grasped_obj_name"] = None
+            return {"action": action, "cache": cache}
+
+        vlm_results = self.vlm_pipeline.run(
+            obs["rgb"], obs["pc"], obs["arm_links_info"])
+        objects = vlm_results["objects"] if isinstance(vlm_results, dict) \
+            else vlm_results.objects
+
+        target_var_xyz = None
+        if plan.get("is_target_variable") and \
+                plan["target"] in cache["ret_objs"]:
+            target_var_xyz = cache["ret_objs"][plan["target"]]
+
+        zrange = self._estimate_zrange(plan, task_str, objects)
+
+        inputs, mani_obj = self.prepare_motion_planner_input(
+            objects, plan, obs["arm_links_info"], gripper_pose,
+            zrange=zrange, target_var_xyz=target_var_xyz)
+        if inputs is None:  # cleanup/crop emptied the cloud
+            return {"action": np.zeros(8), "cache": cache}
+
+        if mani_obj is not None and mani_obj["name"]:
+            cache["ret_objs"][mani_obj["name"]] = mani_obj["pcd_xyz"]
+            if plan["action"] == "grasp":
+                cache["grasped_obj_name"] = mani_obj["name"]
+
+        action_name = _plan_action_name(
+            plan, self.mp_data_cfg.get("instr_include_objects", False))
+        txt_embed = self.text_embedder(action_name)
+
+        pred_actions = self.motion_planner.predict(
+            inputs["pc_fts"], inputs["pc_labels"], txt_embed,
+            inputs["ee_poses"], inputs["pc_centroids"], inputs["pc_radius"],
+            self.workspace["TABLE_HEIGHT"])
+
+        valid_actions = []
+        for t, a in enumerate(pred_actions):
+            valid_actions.append(a)
+            if t + 1 >= self.run_action_step or a[-1] > 0.5:
+                break
+        if valid_actions[-1][-1] > 0.5:
+            cache["highlevel_step_id"] += 1
+        cache["valid_actions"] = [np.asarray(a) for a in valid_actions[1:]]
+        out_action = np.asarray(valid_actions[0][:8])
+
+        if cache["episode_outdir"]:
+            np.save(os.path.join(cache["episode_outdir"], f"{step_id}.npy"),
+                    {"obs": obs, "valid_actions": valid_actions})
+
+        if cache["grasped_obj_name"] is not None and \
+                cache["grasped_obj_name"] in cache["ret_objs"] and \
+                plan["action"].startswith("move grasped object"):
+            _move_grasped_obj_xyz(
+                out_action, cache["prev_ee_pose"],
+                cache["ret_objs"][cache["grasped_obj_name"]])
+        cache["prev_ee_pose"] = out_action
+        return {"action": out_action, "cache": cache}

@@ -75,34 +75,67 @@ class ThreeDLotusActioner:
         return {"action": np.asarray(out["action"], np.float32)}
 
 
-def require_groundtruth(pipeline_config):
-    """Raises unless the config runs the ground-truth planner and
-    grounding: the LLM planner and VLM grounding (RobotPipeline) are not
-    ported."""
+def uses_groundtruth_grounding(pipeline_config):
+    """True when the config grounds objects with the simulator's masks
+    (GroundtruthRobotPipeline), as the JAX eval server decides."""
+    return bool(pipeline_config.get("object_grounding", {}).get(
+        "use_groundtruth", False))
+
+
+def require_backends(pipeline_config, vlm_pipeline=None, llm_planner=None,
+                     det=None, sam=None, llm_backend=None):
+    """Raises where the config's RobotPipeline would need model weights
+    that are not in the repository and no backend was injected: VLM
+    grounding needs an OWLv2 detector and a SAM segmenter (or a whole
+    vlm_pipeline); the LLM planner needs a chat backend or a plan
+    cache_file (or a whole llm_planner). The ground-truth grounding needs
+    none."""
+    if uses_groundtruth_grounding(pipeline_config):
+        return
+    missing = []
+    if vlm_pipeline is None:
+        if det is None:
+            missing.append("OWLv2 (the detector, det=...)")
+        if sam is None:
+            missing.append("SAM (the segmenter, sam=...)")
     llm = pipeline_config.get("llm_planner", {})
-    og = pipeline_config.get("object_grounding", {})
-    if not (llm.get("use_groundtruth") and og.get("use_groundtruth")):
-        raise NotImplementedError(
-            "RobotPipeline (LLM task planner, VLM object grounding) is not "
-            "ported (ROADMAP.md section 1 item 6): use a config with "
-            "llm_planner.use_groundtruth and object_grounding."
-            "use_groundtruth (configs/rlbench/robot_pipeline_gt.yaml)")
+    if llm_planner is None and not llm.get("use_groundtruth", False) and \
+            llm_backend is None and not llm.get("cache_file"):
+        missing.append("the LLM planner's chat model (llm_backend=..., or "
+                       "llm_planner.cache_file)")
+    if missing:
+        raise RuntimeError(
+            "RobotPipeline with VLM grounding needs weights that are not in "
+            "the repository, and the port loads no Hugging Face model: "
+            f"inject {', '.join(missing)} through build_pipeline, or use "
+            "object_grounding.use_groundtruth "
+            "(configs/rlbench/robot_pipeline_gt.yaml)")
 
 
-def build_pipeline(pipeline_config, device="cuda"):
-    """The 3D-LOTUS++ pipeline of a pipeline config:
-    GroundtruthRobotPipeline (require_groundtruth)."""
-    require_groundtruth(pipeline_config)
-    from .robot_pipeline import GroundtruthRobotPipeline
-    return GroundtruthRobotPipeline(pipeline_config, device=device)
+def build_pipeline(pipeline_config, device="cuda", **backends):
+    """The 3D-LOTUS++ pipeline of a pipeline config, as the JAX eval
+    server builds it: GroundtruthRobotPipeline under ground-truth
+    grounding, else RobotPipeline with the injected `backends`
+    (vlm_pipeline, llm_planner, det, sam, llm_backend, motion_planner,
+    text_embedder; require_backends says which it needs)."""
+    from .robot_pipeline import GroundtruthRobotPipeline, RobotPipeline
+    if uses_groundtruth_grounding(pipeline_config):
+        kw = {k: backends[k] for k in ("motion_planner", "text_embedder")
+              if k in backends}
+        return GroundtruthRobotPipeline(pipeline_config, device=device, **kw)
+    require_backends(pipeline_config, **{
+        k: backends.get(k) for k in ("vlm_pipeline", "llm_planner", "det",
+                                     "sam", "llm_backend")})
+    return RobotPipeline(pipeline_config, device=device, **backends)
 
 
 class ThreeDLotusPlusActioner:
     """Challenge wrapper around the stateful 3D-LOTUS++ pipeline: the
     per-episode cache lives in the actioner and resets at step 0."""
 
-    def __init__(self, pipeline_config, device="cuda"):
-        self.pipeline = build_pipeline(pipeline_config, device=device)
+    def __init__(self, pipeline_config, device="cuda", **backends):
+        self.pipeline = build_pipeline(pipeline_config, device=device,
+                                       **backends)
         self.cache = None
 
     def predict(self, taskvar=None, episode_id=None, step_id=None,

@@ -120,3 +120,102 @@ def _link_poses():
         out.append((np.array([-0.25, 0.0, TABLE_Z + 0.05 + 0.08 * i]),
                     R.from_quat(q).as_matrix(), np.array([0.05, 0.05, 0.04])))
     return out
+
+
+class ScriptedVLMBackend:
+    """Stand-ins for the OWLv2 detector and the SAM segmenter, scripted
+    from the semantic masks of registered observations (their weights
+    are not in the repository). `register(obs)` files each camera's
+    semantic image under a hash of its rgb image; then
+
+      encode_images(images): per image, one patch per semantic id present
+        (sorted), its slot j in a row of SLOTS small boxes (centre
+        ((j + 0.5) / SLOTS, 0.5), side 0.5 / SLOTS, so they never
+        overlap), an objectness logit from the id and the view, and a
+        class embedding that is the id's seeded unit vector plus a little
+        per-view noise; every other patch scores far below the threshold;
+      encode_texts(texts): the id's vector for a text that names it in
+        `names` ({semantic id: name}), else a seeded vector of the text;
+      __call__(images, boxes): per box SAM's three masks, the id's
+        semantic mask at position j % 3 (the best score) and two decoys.
+
+    Grounding a named object then finds it, and the boxes of the table,
+    the wall and the gripper exercise the pipeline's cleaning."""
+
+    SLOTS = 16
+    sqrt_num_patches = 16
+
+    def __init__(self, names, embed_dim=32, seed=0):
+        self.names = dict(names)
+        self.embed_dim, self.seed = embed_dim, seed
+        self.views = {}
+
+    @staticmethod
+    def _key(img):
+        import zlib
+        return zlib.crc32(np.ascontiguousarray(img).tobytes())
+
+    def register(self, obs):
+        for rgb, sem in zip(obs["rgb"], obs["gt_mask"]):
+            self.views[self._key(rgb)] = np.asarray(sem)
+
+    def _vec(self, *key):
+        """A seeded unit vector for the key."""
+        v = np.random.default_rng((self.seed,) + key).normal(
+            size=self.embed_dim)
+        return v / np.linalg.norm(v)
+
+    def _ids(self, img):
+        return [int(i) for i in np.unique(self.views[self._key(img)])]
+
+    def encode_images(self, images):
+        B, P, D = len(images), self.sqrt_num_patches ** 2, self.embed_dim
+        logits = np.full((B, P), -8.0, np.float32)
+        boxes = np.tile(np.array([0.5, 0.9, 0.02, 0.02], np.float32),
+                        (B, P, 1))
+        embeds = np.stack([np.stack([self._vec(1000 + v, p)
+                                     for p in range(P)])
+                           for v in range(B)]).astype(np.float32)
+        for v, img in enumerate(images):
+            for j, i in enumerate(self._ids(img)):
+                logits[v, j] = 2.0 + 0.1 * ((i * 7 + v) % 11)
+                boxes[v, j] = [(j + 0.5) / self.SLOTS, 0.5,
+                               0.5 / self.SLOTS, 0.5 / self.SLOTS]
+                e = self._vec(i) + 0.05 * self._vec(2000 + v, i)
+                embeds[v, j] = e / np.linalg.norm(e)
+        return {"image_embeds": embeds, "pred_boxes": boxes,
+                "objectness_logits": logits, "image_class_embeds": embeds,
+                "class_logit_shift": np.zeros((B, P, 1), np.float32),
+                "class_logit_scale": np.ones((B, P, 1), np.float32)}
+
+    def encode_texts(self, texts):
+        out = []
+        for t in texts:
+            hit = [i for i, n in self.names.items() if n in t]
+            out.append(self._vec(hit[0]) if hit else
+                       self._vec(3000, self._key(np.frombuffer(
+                           t.encode("utf-8"), np.uint8))))
+        return {"text_embeds": np.stack(out).astype(np.float32)}
+
+    def __call__(self, images, boxes):
+        out = []
+        for img, bxs in zip(images, boxes):
+            if len(bxs) == 0:
+                out.append(None)
+                continue
+            sem = self.views[self._key(img)]
+            ids = self._ids(img)
+            scores, masks = [], []
+            for b in bxs:
+                j = int((b[0] + b[2]) / 2 / max(sem.shape) * self.SLOTS)
+                m = sem == ids[j]
+                decoys = [m & (np.arange(m.shape[1]) % 2 == 0),
+                          np.zeros_like(m)]
+                masks.append(np.stack(decoys[:j % 3] + [m] +
+                                      decoys[j % 3:]))
+                s = np.full(3, 0.3)
+                s[j % 3] = 0.9
+                scores.append(s)
+            out.append({"scores": np.stack(scores),
+                        "masks": np.stack(masks)})
+        return out

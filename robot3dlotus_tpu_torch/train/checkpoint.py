@@ -4,12 +4,15 @@ robot3dlotus_tpu/train/checkpoint.py).
 A run directory holds, in both packages:
   logs/training_config.yaml   — the resolved config (serving reloads it)
   ckpts/model_step_{N}.msgpack     — {params, batch_stats}, flax names
-  ckpts/train_state_latest.msgpack — {step: np.int64, opt_state: {count:
-                                      int32 0-d, mu: (Tpad,), nu: (Tpad,)}}
+  ckpts/train_state_latest.msgpack — {step: np.int64, opt_state}
 written with flax's msgpack layout (train.serialization), so a directory
-either package wrote resumes and serves in the other. The trees go through
-convert.params_to_jax / params_from_jax and adam_state_to_jax /
-adam_state_from_jax. Loads go onto the model's device and raise on a
+either package wrote resumes and serves in the other. opt_state is the
+JAX build_optimizer's state of TRAIN.optim: {count: int32 0-d, mu: (Tpad,),
+nu: (Tpad,)} for the fused AdamW, the optax chain of per-leaf trees for
+the others, inside optax.MultiSteps' {mini_step, gradient_step,
+inner_opt_state, acc_grads, skip_state} under gradient accumulation. The
+trees go through convert.params_to_jax / params_from_jax and
+opt_state_to_jax / opt_state_from_jax. Loads go onto the model's device and raise on a
 missing key or a shape that differs: nothing keeps a seeded init quietly.
 """
 from __future__ import annotations
@@ -20,7 +23,7 @@ import re
 
 import numpy as np
 
-from ..convert import (adam_state_from_jax, adam_state_to_jax,
+from ..convert import (opt_state_from_jax, opt_state_to_jax,
                        params_from_jax, params_to_jax)
 from . import serialization
 from .torch_convert import flatten_tree, load_torch_checkpoint, unflatten_tree
@@ -51,7 +54,7 @@ class ModelSaver:
             serialization.save(
                 os.path.join(self.ckpt_dir, LATEST),
                 {"step": np.int64(step),
-                 "opt_state": adam_state_to_jax(optimizer, model)})
+                 "opt_state": opt_state_to_jax(optimizer, model)})
         return path
 
 
@@ -156,18 +159,18 @@ def load_any_model_ckpt(path, model, model_cfg=None):
 
 
 def load_train_state_latest(output_dir):
-    """-> {step, opt_state} of ckpts/train_state_latest.msgpack."""
+    """-> {step, opt_state} of ckpts/train_state_latest.msgpack (the
+    opt_state is checked against the optimizer when it is loaded)."""
     latest = serialization.load(os.path.join(output_dir, "ckpts", LATEST))
-    if set(latest) != {"step", "opt_state"} or \
-            set(latest["opt_state"]) != {"count", "mu", "nu"}:
-        raise KeyError(f"{output_dir}: {LATEST} is not a flat AdamW train "
-                       "state {step, opt_state: {count, mu, nu}}")
+    if set(latest) != {"step", "opt_state"}:
+        raise KeyError(f"{output_dir}: {LATEST} is not a train state "
+                       "{step, opt_state}")
     return latest
 
 
 def resume_or_init(trainer, output_dir):
     """Loads the latest model and optimizer state of `output_dir` into the
-    trainer (model, FlatAdamW, step) and returns the step; 0 when there is
+    trainer (model, optimizer, step) and returns the step; 0 when there is
     nothing to resume."""
     step = find_resume_step(output_dir)
     if step is None:
@@ -180,6 +183,6 @@ def resume_or_init(trainer, output_dir):
         raise ValueError(f"{output_dir}: {LATEST} is at step "
                          f"{int(latest['step'])}, the newest model at {step}")
     model.load_state_dict(state_dict, strict=True)
-    adam_state_from_jax(latest["opt_state"], trainer.optimizer, model)
+    opt_state_from_jax(latest["opt_state"], trainer.optimizer, model)
     trainer.global_step = step
     return step

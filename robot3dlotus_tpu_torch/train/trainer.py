@@ -5,14 +5,20 @@ One step: a train-mode forward (batch-statistics norms, which update their
 running statistics in place; dropout, attention dropout and order
 shuffling drawn from the trainer's Randomness, reseeded from (seed, step)
 as the JAX step folds in state.step), the loss, the backward (every kernel
-on the path has a hand-written backward) and the AdamW update.
+on the path has a hand-written backward) and the optimizer's step. Under
+TRAIN.gradient_accumulation_steps k the optimizer is train.optim's
+MultiSteps: a step is a micro-step, which folds its gradient into the
+fp32 running mean, and every k-th one updates the parameters; the step
+count (the draws' seed, the driver's log and save steps) counts
+micro-steps, as the JAX TrainState.step does.
 
 At ptv3_config compute_dtype 'bfloat16' the step is the JAX package's
-bf16 training step: the master parameters, the AdamW moments and the
-losses stay fp32; the backbone casts the parameters to bf16 at each call
+bf16 training step: the master parameters, the optimizer's state (and
+the accumulator) and the losses stay fp32; the backbone casts the parameters to bf16 at each call
 and its activations and cotangents are bf16, with every backward kernel on
 the path (K2's input gradient, K5 / K6, K7, K8) taking its bf16 path; the
-casts' backward widens each parameter's gradient to fp32 before AdamW.
+casts' backward widens each parameter's gradient to fp32 before the
+optimizer.
 """
 from __future__ import annotations
 
@@ -22,7 +28,7 @@ import torch
 class Trainer:
     def __init__(self, model, loss_fn, optimizer, rng):
         """loss_fn(preds, batch) -> dict with 'total'; optimizer: a
-        train.optim.FlatAdamW over the model's parameters; rng: the
+        train.optim.build_optimizer optimizer over the model's parameters; rng: the
         models.layers.Randomness every step draws from. global_step counts
         the steps taken (the JAX TrainState.step); a resume sets it."""
         self.model, self.loss_fn = model, loss_fn

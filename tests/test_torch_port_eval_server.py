@@ -299,9 +299,12 @@ def test_spawned_pipeline_server_gt_layout(tmp_path, capsys):
     task, var = TASKVAR.split("+")
     assert row["checkpoint"] == 3 and row["task"] == task and \
         row["variation"] == int(var) and row["num_demos"] == 1
-    with pytest.raises(NotImplementedError, match="RobotPipeline"):
+    # the released config grounds with OWLv2 and SAM, whose weights a
+    # command line cannot inject: it raises, naming them
+    vlm_cfg = os.path.join(os.path.dirname(cfg), "robot_pipeline.yaml")
+    with pytest.raises(RuntimeError, match="RobotPipeline.*OWLv2.*SAM"):
         eval_robot_pipeline_server.main([
-            "--pipeline_config_file", cfg, "--mp_expr_dir", str(expr),
+            "--pipeline_config_file", vlm_cfg, "--mp_expr_dir", str(expr),
             "--mp_ckpt_step", "3", "--env", "replay", "--no_gt_llm"])
 
 

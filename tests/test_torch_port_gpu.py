@@ -1343,3 +1343,33 @@ def test_bf16_k9_gather_rows_smallc(dev, C, dtype):
             assert torch.equal(
                 got.view(torch.int16),
                 gather.gather_rows_smallc_plain(xi, ii).view(torch.int16))
+
+
+# the grounding pipeline's device helpers (not kernels: torch ops)
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_farthest_point_sample_card_vs_cpu(dev, masked):
+    from robot3dlotus_tpu_torch.ops.sampling import farthest_point_sample
+    rng = np.random.RandomState(7)
+    xyz = torch.from_numpy(rng.randn(4096, 3).astype(np.float32))
+    mask = torch.from_numpy(rng.rand(4096) > 0.3) if masked else None
+    want = farthest_point_sample(xyz, 256, mask, start=3)
+    got = farthest_point_sample(xyz.to(dev), 256,
+                                None if mask is None else mask.to(dev),
+                                start=3)
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("reduction", ["mean", "sum", "min"])
+def test_chamfer_card_vs_cpu(dev, reduction):
+    from robot3dlotus_tpu_torch.ops.chamfer import (chamfer_distance,
+                                                    chamfer_distance_np)
+    rng = np.random.RandomState(8)
+    a = rng.randn(3000, 3).astype(np.float32) * 0.1
+    b = rng.randn(2000, 3).astype(np.float32) * 0.1 + 0.02
+    got = chamfer_distance(torch.from_numpy(a).to(dev),
+                           torch.from_numpy(b).to(dev), reduction)
+    want = chamfer_distance_np(a, b, reduction)
+    assert got.device.type == "cuda"
+    assert abs(float(got) - want) <= 1e-4 * max(abs(want), 1e-3)
