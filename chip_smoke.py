@@ -32,7 +32,8 @@ Phases, each of which raises on failure (exit code != 0, no result line):
              `predict_batch` of the same 4 observations (4 cameras of
              256 x 256 xyz/rgb, seeded tabletop scenes), counters read: each
              kernel must have launched its per-forward count 5 times; batch
-             and sequential actions must agree; p50 request latency printed;
+             and sequential actions must agree; p50 request latency and
+             the requests' peak memory printed;
              then (serving nmap) the B = 1 forward's neighbour-map builds
              (nmap_phase: device ms of the stem's and each stage's
              build_neighbor_map over 3 forwards, and the host syncs they
@@ -358,7 +359,37 @@ weights, release widths):
              across decodes and to the CPU's), a CA policy with the pose and
              step tokens (TOKEN_OPTS) and one with heatmap_mlp, reduce attn
              and quat rotations (HEAD_OPTS), each a predict with launches
-             held at PER_FORWARD and logits card vs CPU.
+             held at PER_FORWARD and logits card vs CPU;
+ 26. attn-opts  the release policy with the backbone's attention options
+             (ATTN_OPTS: enable_rpe, scaled_cosine_attn, add_coords_in_attn
+             'qkv'), which run K1, K5 and K6's _opts kernels (the per-head
+             scale and the relative-position bias looked up in the kernel):
+             a captured predict's 9 K1 calls each against its plain version
+             (1e-4 * max(1, |plain|)), bit-equal across two launches, timed
+             beside the plain version, SDPA with the bias materialised as
+             its mask (the bias build timed apart) and the bound; 4
+             requests and a predict_batch with launches held at
+             ATTN_OPTS_PER_FORWARD, their p50 and peak memory; card vs CPU
+             heads (1e-3 * max(1, |ref|)); a B = 32 training step captured:
+             its 9 K5 / K6 calls against their plain versions, the table's
+             and the head scales' gradients included, each kernel bit-equal
+             across two launches, timed; VARIANT_STEPS steps with launches
+             held at ATTN_OPTS_PER_STEP (step p50, peak memory); a step
+             check on VARIANT_CHECK_SLICES slices and the redrawn one, the
+             CPU following the card's max decisions (scaled cosine
+             attention's near-uniform stage 0 ties the first pooling's
+             maxima within rounding);
+ 27. bf16-attn-opts  the same at compute_dtype bfloat16 with
+             add_coords_in_attn 'qk' (BF16_ATTN_OPTS; the bf16 bars, heads
+             card vs the CPU port at bf16 within BF16_CPU_TOL, the
+             predict_batch's heads, not its actions, against B = 1's within
+             BF16_CPU_TOL (batch_heads_phase: at bf16 the two round apart
+             and a decoded position can move between near ties), the bf16
+             step check's bars, the biases in front of a batch norm, whose
+             gradients are zero up to rounding, held in its L2 bar only)
+             on phase 26's host batches, then one
+             predict with upcast_attention (the fp32 _opts K1: launches
+             held at UPCAST_PER_FORWARD) card vs CPU.
 It fails if a kernel's main path (K10's: phase 10) launched it no time.
 Before it prints its result it stops the loader's forkserver and
 multiprocessing's resource tracker, waits for every process the run
@@ -505,6 +536,26 @@ KERNELS = {
     "scatter_rows_smallc_add_bf16": (
         "robot3dlotus_tpu_torch/csrc/gather_smallc.cu",
         "robot3dlotus_tpu/ops/pallas_gather.py:272"),
+    # K1, K5 and K6 with the attention options (enable_rpe,
+    # scaled_cosine_attn), both dtypes: the kernels of
+    # attention.cuh / attention_dropout.cuh instantiated with LogitOpts
+    "patch_attention_opts": ("robot3dlotus_tpu_torch/csrc/attention_opts.cu",
+                             "robot3dlotus_tpu/ops/pallas_attention.py:66"),
+    "patch_attention_dropout_opts": (
+        "robot3dlotus_tpu_torch/csrc/attention_dropout_opts.cu",
+        "robot3dlotus_tpu/ops/pallas_attention.py:232"),
+    "patch_attention_dropout_bwd_opts": (
+        "robot3dlotus_tpu_torch/csrc/attention_dropout_opts.cu",
+        "robot3dlotus_tpu/ops/pallas_attention.py:247"),
+    "patch_attention_opts_bf16": (
+        "robot3dlotus_tpu_torch/csrc/attention_opts.cu",
+        "robot3dlotus_tpu/ops/pallas_attention.py:66"),
+    "patch_attention_dropout_opts_bf16": (
+        "robot3dlotus_tpu_torch/csrc/attention_dropout_opts16.cu",
+        "robot3dlotus_tpu/ops/pallas_attention.py:232"),
+    "patch_attention_dropout_bwd_opts_bf16": (
+        "robot3dlotus_tpu_torch/csrc/attention_dropout_opts16.cu",
+        "robot3dlotus_tpu/ops/pallas_attention.py:247"),
 }
 # the trainer of the release YAML on the learnable synthetic store
 # (scripts/e2e_learning_proof.py makes the same overrides)
@@ -580,6 +631,30 @@ MP_ADANORM_OPTS = ["MODEL.model_class", "MotionPlannerPTV3AdaNorm",
                    "MODEL.ptv3_config.pdnorm_adaptive", "True"]
 VARIANT_STEPS = 3
 VARIANT_CHECK_SLICES = 2
+# the backbone's attention options (ptv3_config; off in the release YAMLs):
+# the relative-position bias, scaled cosine attention and the coordinates
+# in attention ('qkv' at fp32, 'qk' at bf16), then upcast_attention at
+# bf16; every Block's attention goes to the _opts kernels (K1, K5, K6 with
+# the per-head scale and the in-kernel bias), which take the counts of
+# the release kernels they stand in for
+ATTN_OPTS = ["MODEL.ptv3_config.enable_rpe", "True",
+             "MODEL.ptv3_config.scaled_cosine_attn", "True",
+             "MODEL.ptv3_config.add_coords_in_attn", "qkv"]
+BF16_ATTN_OPTS = ["MODEL.ptv3_config.enable_rpe", "True",
+                  "MODEL.ptv3_config.scaled_cosine_attn", "True",
+                  "MODEL.ptv3_config.add_coords_in_attn", "qk",
+                  "MODEL.ptv3_config.compute_dtype", "bfloat16"]
+UPCAST_OPTS = ["MODEL.ptv3_config.upcast_attention", "True"]
+ATTN_OPTS_PER_FORWARD = dict(PER_FORWARD, patch_attention=0,
+                             patch_attention_opts=9)
+ATTN_OPTS_PER_STEP = dict(PER_STEP, patch_attention_dropout=0,
+                          patch_attention_dropout_bwd=0,
+                          patch_attention_dropout_opts=9,
+                          patch_attention_dropout_bwd_opts=9)
+ATTN_OPTS_PER_STEP_REDRAW = dict(PER_STEP_REDRAW, patch_attention_dropout=0,
+                                 patch_attention_dropout_bwd=0,
+                                 patch_attention_dropout_opts=9,
+                                 patch_attention_dropout_bwd_opts=9)
 # launches per forward and per training step: the AdaNorm policy's are the
 # CA policy's (its modulations are PyTorch linears); the Concat policy's
 # stem is one more K2 launch (and, in training, one more mirrored K2 and
@@ -616,11 +691,13 @@ MP_CKPT_STEPS, MP_CKPT_RESUME_STEPS = 2, 3
 # its plan and label files, 2 producers), EVAL_DEMOS demos each (ReplayEnv
 # cycles a taskvar's episodes); the HTTP client HTTP_EPISODES episodes of
 # one taskvar. About 3 requests an episode: some hundreds of requests over
-# 10-20 s a phase, so that p50 and p99 are read over enough samples
+# 10-20 s a phase, so that p50 and p99 are read over enough samples (50
+# demos and 80 episodes until the attention options' phases pushed the
+# run past 900 s of its 1200 s limit)
 EVAL_TASKVARS = 4
-EVAL_DEMOS = 50
+EVAL_DEMOS = 30
 MP_EVAL_TASKVARS = ["push_button+0", "close_fridge+0"]
-HTTP_EPISODES = 80
+HTTP_EPISODES = 48
 VAL_OPTS = ["VAL_DATASET.use_val", "True",
             "VAL_DATASET.data_dir", "synthetic_reach4",
             "VAL_DATASET.instr_embed_file", "None",
@@ -637,9 +714,10 @@ CHECK_PERMS = [[2, 0, 3, 1], [1, 3, 0, 2], [3, 2, 1, 0], [0, 2, 1, 3],
 GRAD_TOL = 1e-3   # card vs CPU gradients of the whole step, per tensor
 # B = 2 slices per step check, ~3-6 s of CPU each, with
 # TRAIN.host_structure (the batch's order_perm); then slice 0 once more
-# without it (CHECK_PERMS drawn at stage 0 and every pooling)
-CHECK_SLICES = 6
-MP_CHECK_SLICES = 6
+# without it (CHECK_PERMS drawn at stage 0 and every pooling); 6 each
+# until the attention options' phases pushed the run past 900 s
+CHECK_SLICES = 4
+MP_CHECK_SLICES = 4
 # leaky-ReLU decisions the CPU run may take from the card: each at |z| <=
 # KINK_TOL max|z| (the devices' rows differ by ~1e-6 relative), at most
 # MAX_KINKS per slice
@@ -741,8 +819,11 @@ class Recorder:
         self.fn, self.calls, self.grads = fn, [], []
 
     def __call__(self, *args):
-        self.calls.append(tuple(a.detach().clone() if torch.is_tensor(a)
-                                else a for a in args))
+        def keep(a):      # tensors cloned, also in a plain tuple (rpe)
+            if type(a) is tuple:
+                return tuple(keep(t) for t in a)
+            return a.detach().clone() if torch.is_tensor(a) else a
+        self.calls.append(tuple(keep(a) for a in args))
         self.grads.append(None)
         out = self.fn(*args)
         if out.requires_grad:
@@ -1317,12 +1398,21 @@ def requests(observations):
 
 
 def serving_phase(actioner, observations, per_forward=PER_FORWARD,
-                  tag="serving"):
+                  tag="serving", exact_batch=True):
+    """Launch counters to 0, the requests one by one and as one
+    predict_batch, counters read and held at per_forward. With
+    `exact_batch` the batch's actions must equal the sequential ones
+    (1e-5); without, their difference is logged (a bf16 caller holds the
+    heads instead: batch_heads_phase). Records the p50, the batch's time
+    and the peak memory of the requests (and that peak above the memory
+    in use before them)."""
     payloads = requests(observations)
     actioner.rng = np.random.default_rng(7)
     actioner.predict(**payloads[0])                      # warm-up
     torch.cuda.synchronize()
 
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     cuda_lib.reset_launches()
     actioner.rng = np.random.default_rng(1)
     seq, lat = [], []
@@ -1335,6 +1425,7 @@ def serving_phase(actioner, observations, per_forward=PER_FORWARD,
     bat = [o["action"] for o in actioner.predict_batch(payloads)]
     batch_s = time.perf_counter() - t0
     launches = dict(cuda_lib.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
 
     forwards = len(payloads) + 1
     for k, per in per_forward.items():
@@ -1344,17 +1435,23 @@ def serving_phase(actioner, observations, per_forward=PER_FORWARD,
     for i, (s, b) in enumerate(zip(seq, bat)):
         if s.shape != (8,) or not np.isfinite(s).all():
             raise AssertionError(f"request {i}: bad action {s}")
-        if not np.allclose(s, b, atol=1e-5, rtol=0):
+        if exact_batch and not np.allclose(s, b, atol=1e-5, rtol=0):
             raise AssertionError(f"request {i}: predict_batch {b} != "
                                  f"predict {s}")
+    batch_diff = max(float(np.abs(s - b).max()) for s, b in zip(seq, bat))
     actioner.rng = np.random.default_rng(1)
     points = [len(actioner._host_prep("close_jar", i, o, None)[1])
               for i, o in enumerate(observations)]
     log(f"[{tag}] points per request {points}; predict p50 "
         f"{np.median(lat) * 1e3:.2f} ms (all {[round(t * 1e3, 2) for t in lat]}"
-        f"); predict_batch of {len(payloads)} {batch_s * 1e3:.2f} ms; "
-        f"launches {launches}")
+        f"); predict_batch of {len(payloads)} {batch_s * 1e3:.2f} ms "
+        f"(max |batch - sequential| action {batch_diff:.3g}); peak memory "
+        f"{peak / 2 ** 30:.3f} GiB ({(peak - base) / 2 ** 30:.3f} above the "
+        f"model); launches {launches}")
     return {"predict_p50_ms": float(np.median(lat)) * 1e3,
+            "batch_action_diff": batch_diff,
+            "peak_mem_gib": peak / 2 ** 30,
+            "peak_above_gib": (peak - base) / 2 ** 30,
             "predict_ms": [t * 1e3 for t in lat],
             "predict_batch4_ms": batch_s * 1e3, "points": points,
             "launches": launches, "actions": [a.tolist() for a in seq]}
@@ -2821,7 +2918,7 @@ def step_check_phase(host_batch, config=train_config, loss_fn=compute_loss,
                      per_step=PER_STEP, per_step_redraw=PER_STEP_REDRAW,
                      kink_limit=MAX_KINKS, tols=None, kink_tol=KINK_TOL,
                      order_kernels=ORDER_KERNELS, fp32_config=None,
-                     follow_maxes=False):
+                     follow_maxes=False, zero_grads=()):
     """One step at dropout 0 on each of the first `slices` B = 2 slices of
     a host-structured batch, with the batch's order_perm
     (TRAIN.host_structure), then on slice 0 without it and with injected
@@ -2864,7 +2961,11 @@ def step_check_phase(host_batch, config=train_config, loss_fn=compute_loss,
     step check), slice 0 also runs the step on the CPU at fp32 from the
     same weights, and the card's bf16 step must be nearer the CPU's bf16
     step than that fp32 step is, on the losses and on the held gradients
-    as a whole (their relative L2 distance)."""
+    as a whole (their relative L2 distance). `zero_grads`: patterns of
+    gradients that are zero up to rounding (a bias in front of a batch
+    norm, which takes any shift out), held only with all the others to the
+    "grad_l2" bar: their per-gradient error is the two devices' rounding
+    noise over itself."""
     tols = tols or {"loss": TOL, "state": TOL, "grad": GRAD_TOL}
     cfg = config("MODEL.ptv3_config.attn_drop", "0.0",
                  "MODEL.ptv3_config.proj_drop", "0.0",
@@ -2911,8 +3012,9 @@ def step_check_phase(host_batch, config=train_config, loss_fn=compute_loss,
         rel = {n: float((gc[n] - g).abs().max()) /
                max(float(g.abs().max()), 1e-3 * gmax) for n, g in gr.items()}
         last_end = max((spans[name][1] for name in differ), default=-1)
-        held = [n for n in gr if follow_maxes or not differ or
-                _module_start(spans, n) > last_end]
+        held = [n for n in gr if (follow_maxes or not differ or
+                                  _module_start(spans, n) > last_end) and
+                not any(re.search(z, n) for z in zero_grads)]
         if follow_maxes:
             row["max_values_followed"] = sum(mr.differ)
         held_somewhere.update(held)
@@ -2957,7 +3059,8 @@ def step_check_phase(host_batch, config=train_config, loss_fn=compute_loss,
         if fp32_config is not None and i == 0 and structured:
             row["nearer_than_fp32"] = _nearer_than_fp32(
                 fp32_config, loss_fn, batch, lc, gc, lr, gr, tag)
-    missing = sorted(set(gr) - held_somewhere)
+    missing = sorted(n for n in set(gr) - held_somewhere
+                     if not any(re.search(z, n) for z in zero_grads))
     if missing and "grad_l2" not in tols:
         raise AssertionError(f"{len(missing)} gradients held on no slice of "
                              f"{len(cases)}, e.g. {missing[:5]}")
@@ -4228,9 +4331,10 @@ BF16_ENTRY_STEPS = 4
 BF16_STEP_TOLS = {"loss": 2.0 ** -8, "state": 2.0 ** -8, "grad": 2.0 ** -1,
                   "grad_l2": 2.0 ** -5}
 # with the max decisions followed every gradient is held on every slice,
-# so three slices (and the redrawn one) a family cover what CHECK_SLICES
-# covers at fp32
-BF16_CHECK_SLICES = 3
+# so two slices (and the redrawn one) a family cover what CHECK_SLICES
+# covers at fp32 (3 until the attention options' phases pushed the run
+# past 900 s)
+BF16_CHECK_SLICES = 2
 # leaky-ReLU ties at bf16: the heads' pre-activations (fp32, from bf16
 # backbone features) differ between the card and the CPU by bf16 ulps of
 # the features, up to ~2^-7 of max|z| (0.0063 measured on an H100); the
@@ -5090,6 +5194,392 @@ def variants_phase(observations):
 
 # ------------------------------------------------ neighbour-map builds ----
 
+# ----------------------------------------------- attention options -----
+
+# the options' launch counts at bf16 (BF16_ATTN_OPTS): the bf16 _opts
+# kernels stand in for the bf16 K1, K5, K6; with upcast_attention q and k
+# are fp32 after the norms and v is widened, so K1 is the fp32 _opts one
+BF16_ATTN_OPTS_PER_FORWARD = dict(BF16_PER_FORWARD, patch_attention_bf16=0,
+                                  patch_attention_opts_bf16=9)
+UPCAST_PER_FORWARD = dict(BF16_PER_FORWARD, patch_attention_bf16=0,
+                          patch_attention_opts=9)
+_BF16_OPT_STEP = dict(patch_attention_dropout_bf16=0,
+                      patch_attention_dropout_bwd_bf16=0,
+                      patch_attention_dropout_opts_bf16=9,
+                      patch_attention_dropout_bwd_opts_bf16=9)
+BF16_ATTN_OPTS_PER_STEP = dict(BF16_PER_STEP, **_BF16_OPT_STEP)
+# the biases of the Dense layers in front of a batch norm (a pooling's proj,
+# before its segment max and norm; an unpooling's two projections): their
+# gradient is zero up to rounding, at bf16 0.25-0.66 of itself apart
+# between the card and the CPU on the options' step check
+BIAS_BEFORE_NORM = (r"_down\.proj\.bias$", r"_up\.proj(_skip)?_fc\.bias$")
+BF16_ATTN_OPTS_PER_STEP_REDRAW = dict(BF16_PER_STEP_REDRAW, **_BF16_OPT_STEP)
+# the options' kernels by counter: the run that is their main path
+OPT_MAIN_PATHS = {
+    "patch_attention_opts": "attn_opts_serving",
+    "patch_attention_dropout_opts": "attn_opts_training",
+    "patch_attention_dropout_bwd_opts": "attn_opts_training",
+    "patch_attention_opts_bf16": "bf16_attn_opts_serving",
+    "patch_attention_dropout_opts_bf16": "bf16_attn_opts_training",
+    "patch_attention_dropout_bwd_opts_bf16": "bf16_attn_opts_training"}
+
+
+def _opt_nbytes(q, kv, head_scale, rpe):
+    """The options' own input bytes: key mask, head scales, the grid
+    coordinates and the table."""
+    n = kv.numel()
+    if head_scale is not None:
+        n += 4 * head_scale.numel()
+    if rpe is not None:
+        n += 4 * (rpe[0].numel() + rpe[1].numel())
+    return n
+
+
+def _library_attention(q, k, v, kv, scale, head_scale, rpe):
+    """The library yardstick of an options call: (bias build, SDPA) with
+    the bias materialised as a float attn_mask (-1e9 at masked keys) and
+    q times the head scale at scale 1 (scale under the bias alone)."""
+    G, H, P, _ = q.shape
+
+    def build():
+        bias = attention._rpe_logit_bias(rpe) if rpe is not None else \
+            torch.zeros(G, H, P, P, device=q.device)
+        return torch.where(kv[:, None, None, :], bias,
+                           torch.full_like(bias, attention.NEG_INF)).to(
+                               q.dtype)
+    mask = build()
+    qs = q if head_scale is None else \
+        (q.float() * head_scale[None, :, None, None]).to(q.dtype)
+    sc = 1.0 if head_scale is not None else scale
+    return build, mask, qs, sc
+
+
+def check_opts_k1(args, timed=True):
+    """One captured K1 call with the options (head_scale, rpe): bit-equal
+    across two launches, within 1e-4 * max(1, |plain|) of the plain
+    version at fp32, within the bf16 bar plus the probabilities' allowance
+    at bf16; if `timed`, event and profiler times beside the plain
+    version's, the library SDPA's (the bias materialised as its mask; its
+    build timed apart) and the bound (bytes at 3.35 TB/s against 3x the
+    flops at the TF32 rate at fp32, the flops at the bf16 rate at bf16)."""
+    q, k, v, kv, scale, hs, rpe = args
+    G, H, P, Dh = q.shape
+    shape = [G, H, P, Dh]
+    bf = q.dtype == torch.bfloat16
+    run = lambda: attention.patch_attention(  # noqa: E731
+        q, k, v, kv, scale, hs, rpe)
+    plain = lambda: attention.patch_attention_plain(  # noqa: E731
+        q, k, v, kv, scale, hs, rpe)
+    got = _twice(run, f"K1 options {shape}")
+    want = plain()
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    scale_ref = max(1.0, float(want.float().abs().max()))
+    if bf:
+        excess = bf16_excess(got, want, extra=(
+            attention.bf16_probability_allowance(
+                q, k, v, kv, scale, head_scale=hs, rpe=rpe)))
+        if not bool(torch.isfinite(got).all()) or excess > 0:
+            raise AssertionError(f"bf16 K1 options {shape}: {err}, {excess} "
+                                 "past the bf16 bar")
+    elif not bool(torch.isfinite(got).all()) or err > TOL * scale_ref:
+        raise AssertionError(f"K1 options {shape}: max |kernel - plain| = "
+                             f"{err} > {TOL} * {scale_ref}")
+    out = {"shape": shape, "max_abs_err": err, "max_rel_err": err / scale_ref}
+    if not timed:
+        return out
+    build, mask, qs, sc = _library_attention(q, k, v, kv, scale, hs, rpe)
+    library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qs, k, v, attn_mask=mask, scale=sc)
+    nbytes = 4 * q.element_size() * q.numel() + _opt_nbytes(q, kv, hs, rpe)
+    flops = 4 * G * H * P * P * Dh
+    bound_ms, t_b, t_f = (_bound(nbytes, flops, BF16_FLOPS_PER_S) if bf else
+                          _bound(nbytes, 3 * flops, TF32_FLOPS_PER_S))
+    out.update(ms=cuda_ms(run), device_ms=device_ms(run, K1_PROFILE[0]),
+               plain_ms=cuda_ms(plain, **TRAIN_TIMING),
+               library_ms=cuda_ms(library, **TRAIN_TIMING),
+               bias_build_ms=cuda_ms(build, **TRAIN_TIMING),
+               bound_ms=bound_ms, bytes_s=t_b, flops_s=t_f)
+    return out
+
+
+def check_opts_train(call, timed=True):
+    """K5 and K6 with the options on one captured training call (its
+    inputs and the cotangent of its output): K5's (out, lse, bits) and
+    K6's (dq, dk, dv, dtable, dhead_scale) each bit-equal across two
+    launches (K6 sums its per-patch partials in a fixed order), K5's bits
+    equal to philox_keep_mask, the rest against the plain versions: at
+    fp32 within 1e-4 * max(1, |plain|) (out), 1e-4 of the lse and of each
+    gradient's own scale; at bf16 out within the bf16 bar plus the dropped
+    probabilities' allowance, dq, dk, dv within the bf16 bar of their own
+    scale, lse and the options' gradients (fp32) within 1e-4. If `timed`:
+    K5 and K6 beside the plain versions and SDPA forward (dropout_p, the
+    bias as its mask) and backward. Returns the two rows and the calls
+    (K5's, K6's) for queued-event timing."""
+    (q, k, v, kv, scale, rate, seed, hs, rpe), g = call
+    G, H, P, Dh = q.shape
+    shape = [G, H, P, Dh]
+    bf = q.dtype == torch.bfloat16
+    opts = dict(head_scale=hs, rpe=rpe)
+    run5 = lambda: attention.patch_attention_dropout_fwd(  # noqa: E731
+        q, k, v, kv, scale, rate, seed, **opts)
+    plain5 = lambda: attention.patch_attention_dropout_fwd_plain(  # noqa
+        q, k, v, kv, scale, rate, seed, **opts)
+    (out, lse, bits), again = run5(), run5()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip((out, lse, bits), again)):
+        raise AssertionError(f"K5 options {shape}: two launches differ")
+    del again
+    keep = attention.philox_keep_mask(seed, G, H, P, rate, q.device)
+    if not torch.equal(bits, attention.pack_keep_bits(keep)):
+        raise AssertionError(f"K5 options {shape}: bits differ from "
+                             "philox_keep_mask")
+    p_out, p_lse, _ = plain5()
+    live = kv.any(-1)
+    e_lse = _err(lse[live], p_lse[live], f"K5 options lse {shape}")
+    if bf:
+        e5 = _bf16_err(out, p_out, f"bf16 K5 options out {shape}",
+                       attention.bf16_probability_allowance(
+                           q, k, v, kv, scale, rate, keep, **opts),
+                       relative=False)
+    else:
+        e5 = _err(out, p_out, f"K5 options out {shape}")
+    del keep, p_out, p_lse
+    run6 = lambda: attention.patch_attention_dropout_bwd(  # noqa: E731
+        q, k, v, kv, out, lse, bits, g, scale, rate, **opts)
+    plain6 = lambda: attention.patch_attention_dropout_bwd_plain(  # noqa
+        q, k, v, kv, out, lse, bits, g, scale, rate, **opts)
+    got, again = run6(), run6()
+    torch.cuda.synchronize()
+    names = ("dq", "dk", "dv", "dtable", "dhead_scale")
+    e6, e_opt = 0.0, 0.0
+    for a, b, c, n in zip(got, again, plain6(), names):
+        if a is None:
+            continue
+        if not torch.equal(a, b):
+            raise AssertionError(f"K6 options {n} {shape}: two launches "
+                                 "differ")
+        if a.dtype == torch.bfloat16:
+            e6 = max(e6, _bf16_err(a, c.to(a.dtype),
+                                   f"bf16 K6 options {n} {shape}"))
+        else:
+            e = _err(a, c, f"K6 options {n} {shape}")
+            if n in ("dtable", "dhead_scale"):
+                e_opt = max(e_opt, e)
+            else:
+                e6 = max(e6, e)
+    del again
+    r5 = {"max_abs_err": e5, "lse_err": e_lse, "shape": shape}
+    r6 = {"max_abs_err": e6, "opt_grads_err": e_opt, "shape": shape}
+    runs = (lambda: run5()[0], run6)
+    if not timed:
+        return r5, r6, runs
+    build, mask, qs, sc = _library_attention(q, k, v, kv, scale, hs, rpe)
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qs, k, v, attn_mask=mask, dropout_p=rate, scale=sc)
+    qg, kg, vg = (t.clone().requires_grad_() for t in (qs, k, v))
+    sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
+                                              dropout_p=rate, scale=sc)
+    sdpa_bwd = lambda: torch.autograd.grad(  # noqa: E731
+        sdpa_out, (qg, kg, vg), g, retain_graph=True)
+    qb = q.element_size() * q.numel()
+    side = 4 * (lse.numel() + bits.numel()) + _opt_nbytes(q, kv, hs, rpe)
+    parts = sum(4 * t.numel() for t in got[3:] if t is not None) * G
+    flops = 2 * G * H * P * P * Dh                            # one product
+
+    def timed(run, plain, library, nbytes, products, name):
+        """Events (TRAIN_TIMING) and profiler times; the plain version
+        once (PLAIN_TIMING: it takes 0.1-0.7 s a step); the bound: the
+        bytes at 3.35 TB/s against the products' flops at the bf16 rate,
+        or 3x them at the TF32 rate (3xTF32)."""
+        bound_ms, t_b, t_f = (
+            _bound(nbytes, products * flops, BF16_FLOPS_PER_S) if bf else
+            _bound(nbytes, 3 * products * flops, TF32_FLOPS_PER_S))
+        return {"ms": cuda_ms(run, **TRAIN_TIMING),
+                "device_ms": device_ms(run, name, reps=4),
+                "plain_ms": cuda_ms(plain, **PLAIN_TIMING),
+                "library_ms": cuda_ms(library, **TRAIN_TIMING),
+                "bound_ms": bound_ms, "bytes_s": t_b, "flops_s": t_f}
+    r5.update(timed(lambda: run5()[0], plain5, sdpa, 4 * qb + side, 2,
+                    "attn_drop_fwd"))
+    r6.update(timed(run6, plain6, sdpa_bwd, 8 * qb + side + parts, 5,
+                    "attn_drop_bwd"))
+    r5["philox_s"] = _philox_s(G, H, P, rate)
+    r5["flops_s"] = max(r5["flops_s"], r5["philox_s"])
+    r5["bound_ms"] = 1e3 * max(r5["bytes_s"], r5["flops_s"])
+    r5["bias_build_ms"] = cuda_ms(build, **PLAIN_TIMING)
+    return r5, r6, runs
+
+
+def _opts_rows(results, tag, name):
+    """A kernels-line row summed over one forward's or one step's calls."""
+    row = dict(_row(results), calls=len(results),
+               device_ms=_total(r["device_ms"] for r in results))
+    if "bias_build_ms" in results[0]:
+        row["bias_build_ms"] = sum(r["bias_build_ms"] for r in results)
+    if "opt_grads_err" in results[0]:
+        row["opt_grads_err"] = max(r["opt_grads_err"] for r in results)
+    log(f"[{tag}] {name}: {len(results)} calls, max_abs_err "
+        f"{row['max_abs_err']:.3g}, {row['ms']:.4f} ms (device "
+        f"{row['device_ms']}; plain {row['plain_ms']:.4f}, library "
+        f"{row['library_ms']}, bias build {row.get('bias_build_ms')}; bound "
+        f"{row['bound_ms']:.4f} by {row['bound_by']})")
+    return row
+
+
+def _heads_vs_cpu(actioner, obs, cli, tol, tag):
+    """The card's heads for one observation against the same weights on
+    the CPU port, within tol * max(1, |ref|) (1e-3 at fp32, BF16_CPU_TOL
+    at bf16)."""
+    actioner.rng = np.random.default_rng(3)
+    emb, pc_ft, _, _, ee = actioner._host_prep("close_jar", 0, obs, None)
+    batch = actioner._batch([(pc_ft, emb, ee, 0)], 1)
+    cpu = cpu_copy(actioner, cli).model
+    with torch.inference_mode():
+        got = actioner.model(batch)
+        ref = cpu({k: v.cpu() for k, v in batch.items()})
+    errs = _heads_vs({k: got[k].cpu() for k in ("pos", "rot", "open")}, ref,
+                     ("pos", "rot", "open"), tol, f"{tag} card vs CPU ")
+    log(f"[{tag}] card vs CPU heads, max |diff| (bar {tol} x max(1, "
+        f"|ref|)): {errs}")
+    return errs
+
+
+def batch_heads_phase(actioner, observations, tol, tag):
+    """Each observation's heads from a B = 1 forward against its heads in
+    one forward of all of them, within tol * max(1, |B = 1|). At bf16 the
+    two forwards round apart (K3's plan, and so its order of sums, follows
+    B: the release model's stem outputs already differ by 2^-11), so a
+    decoded position may move between near-tied points; the heads are
+    held instead of the actions."""
+    items = []
+    for i, o in enumerate(observations):
+        actioner.rng = np.random.default_rng(3)
+        emb, pc_ft, _, _, ee = actioner._host_prep("close_jar", i, o, None)
+        items.append((pc_ft, emb, ee, 0))
+    keys = ("pos", "rot", "open")
+    with torch.inference_mode():
+        many = actioner.model(actioner._batch(items, len(items)))
+        errs = {k: 0.0 for k in keys}
+        for i, it in enumerate(items):
+            one = actioner.model(actioner._batch([it], 1))
+            e = _heads_vs({k: many[k][i:i + 1] for k in keys}, one, keys,
+                          tol, f"{tag} batch vs B = 1, request {i} ")
+            errs = {k: max(errs[k], e[k]) for k in keys}
+    log(f"[{tag}] heads of a batch of {len(items)} vs B = 1, max |diff| "
+        f"(bar {tol} x max(1, |ref|)): {errs}")
+    return errs
+
+
+def attn_opts_phase(tag, opts, per_forward, per_step, per_step_redraw,
+                    observations, host=None, upcast=None):
+    """The release policy with the attention options `opts` at the release
+    width, seeded weights: a captured predict's K1 calls (the _opts
+    kernel) each against its plain version and timed; 4 requests and a
+    predict_batch with launches held at per_forward, their p50 and peak
+    memory (at bf16 the batch's heads held against B = 1's,
+    batch_heads_phase, in place of its actions); card vs CPU heads;
+    VARIANT_STEPS training steps at B = 32 with launches held at per_step
+    (step p50, peak memory), one step captured and its K5 / K6 calls
+    checked and timed (check_opts_train), their options' gradients
+    included; the step check on VARIANT_CHECK_SLICES slices (and the
+    redrawn one), the CPU following the card's max decisions (every
+    gradient held on every slice). With `upcast` (bf16): one more predict
+    with upcast_attention (its launches held at UPCAST_PER_FORWARD) card
+    vs CPU. `host`: host batches to reuse (made here otherwise)."""
+    bf = "bfloat16" in opts
+    t0 = time.perf_counter()
+    cli = CLI_OPTS + opts
+    actioner = Actioner(CONFIG, cli_opts=cli, device="cuda", seed=0)
+    log(f"[{tag}] release-width Actioner ({opts}) built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    actioner.rng = np.random.default_rng(0)
+    k1 = capture_main_path(
+        lambda: actioner.predict(**requests(observations)[0]))[
+            "patch_attention"]
+    if len(k1) != 9 or any(len(c) != 7 or c[5] is None or c[6] is None
+                           for c in k1):
+        raise AssertionError(f"[{tag}] captured K1 calls without the "
+                             "options")
+    k1_res = [check_opts_k1(c) for c in k1]
+    name = "patch_attention_opts" + ("_bf16" if bf else "")
+    for r in k1_res:
+        log(f"[{tag}] K1 options call {r['shape']}: max_abs_err "
+            f"{r['max_abs_err']:.3g}; {r['ms']:.4f} ms (device "
+            f"{r['device_ms']}; plain {r['plain_ms']:.4f}, library "
+            f"{r['library_ms']:.4f}, bias build {r['bias_build_ms']:.4f}; "
+            f"bound {r['bound_ms']:.4f})")
+    rows = {name: _opts_rows(k1_res, tag, f"{name} per B = 1 forward")}
+    _queued_fallback(rows[name], [lambda c=c: attention.patch_attention(*c)
+                                  for c in k1], tag, name)
+    del k1
+    out = {"serving": serving_phase(actioner, observations, per_forward,
+                                    tag, exact_batch=not bf)}
+    if bf:
+        out["batch_heads_max_diff"] = batch_heads_phase(
+            actioner, observations, BF16_CPU_TOL, tag)
+    out["reference_max_diff"] = _heads_vs_cpu(
+        actioner, observations[0], cli, BF16_CPU_TOL if bf else 1e-3, tag)
+    del actioner
+    torch.cuda.empty_cache()
+    if upcast:
+        up = Actioner(CONFIG, cli_opts=cli + upcast, device="cuda", seed=0)
+        launches = _launches_of(lambda: up.predict(
+            **requests(observations)[0]))
+        _held(launches, UPCAST_PER_FORWARD, 1, f"[{tag}] upcast")
+        out["upcast"] = {"launches": launches,
+                         "reference_max_diff": _heads_vs_cpu(
+                             up, observations[0], cli + upcast,
+                             BF16_CPU_TOL, f"{tag} upcast")}
+        del up
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    config = lambda *o: train_config(*opts, *o)  # noqa: E731
+    trainer, batches, _ = build_trainer(config(), SPEC, device="cuda")
+    if host is None:
+        host, _ = host_batches(batches, 1 + VARIANT_STEPS)
+    elif hasattr(batches, "close"):
+        batches.close()
+    log(f"[{tag}] trainer built in {time.perf_counter() - t0:.1f} s")
+    captured = capture(lambda: trainer.step(batch_to_device(host[0], "cuda")),
+                       [(layers, "patch_attention_dropout", "attention")])
+    att = captured["attention"]
+    if len(att) != 9 or any(g is None for _, g in att):
+        raise AssertionError(f"[{tag}] captured {len(att)} attention calls")
+    res = [check_opts_train(c) for c in att]
+    del captured, att
+    sfx = "_bf16" if bf else ""
+    for i, kname in enumerate(("patch_attention_dropout_opts" + sfx,
+                               "patch_attention_dropout_bwd_opts" + sfx)):
+        rows[kname] = _opts_rows([r[i] for r in res], tag,
+                                 f"{kname} per B = 32 step")
+        _queued_fallback(rows[kname], [r[2][i] for r in res], tag, kname)
+    del res
+    torch.cuda.empty_cache()
+    out["training"], out["training_launches"] = training_phase(
+        trainer, host[1:], None, per_step, None, tag)
+    del trainer, batches
+    torch.cuda.empty_cache()
+    # the CPU follows the card's max decisions: scaled cosine attention at
+    # its initial temperature (logits q.k / |q||k| x 10) leaves stage 0's
+    # outputs near-equal within a patch, and the first grid pooling's
+    # maxima tie within rounding at ~4,200 of 2.0M decisions a slice (the
+    # release model: 0-2), so no slice would hold stage 0's gradients
+    # at bf16 the biases in front of a batch norm (the poolings' and
+    # unpoolings' projections) have gradients that are zero up to
+    # rounding, held with the rest to the L2 bar (BIAS_BEFORE_NORM)
+    check = dict(tols=BF16_STEP_TOLS, order_kernels=BF16_ORDER_KERNELS,
+                 kink_tol=BF16_KINK_TOL, kink_limit=BF16_MAX_KINKS,
+                 follow_maxes=True, zero_grads=BIAS_BEFORE_NORM) if bf \
+        else dict(follow_maxes=True)
+    out["step_check"] = step_check_phase(
+        host[0], config, compute_loss, f"{tag}-step-check",
+        VARIANT_CHECK_SLICES, per_step, per_step_redraw, **check)
+    out["kernels"] = rows
+    return out, host
+
+
 def nmap_phase(run, units, tag):
     """The device time and the host syncs of build_neighbor_map (the stem's
     and each stage's CPE map, built on the card in every forward) over
@@ -5645,6 +6135,11 @@ def run():
             if m.group(1) == "subm_conv16_kernel":   # bf16 W; x bf16 or fp32
                 kind = (" bf16" if re.search(r"ILi\d+E13__nv_bfloat16E",
                                              name) else " fp32 x (dx)")
+            opt = re.search(r"LogitOptsILb(\d)ELb(\d)E", name)
+            if opt and opt.groups() != ("0", "0"):   # the options' kernels
+                kind += " options " + "+".join(
+                    w for w, b in zip(("scale", "rpe"), opt.groups())
+                    if b == "1")
             log(f"[build] ptxas {m.group(1)}"
                 f"{'<' + m.group(2) + '>' if m.group(2) else ''}"
                 f"{' int64' if m.group(3) == 'x' else ''}{kind}: {use}")
@@ -5815,6 +6310,16 @@ def run():
     mp_adanorm = mp_adanorm_phase(mp_obs, out_dir)
     variants = variants_phase(observations)
     mark("adanorm, concat, mp-adanorm, variants")
+    attn_opts, opt_host = attn_opts_phase(
+        "attn-opts", ATTN_OPTS, ATTN_OPTS_PER_FORWARD, ATTN_OPTS_PER_STEP,
+        ATTN_OPTS_PER_STEP_REDRAW, observations)
+    bf16_attn_opts, _ = attn_opts_phase(
+        "bf16-attn-opts", BF16_ATTN_OPTS, BF16_ATTN_OPTS_PER_FORWARD,
+        BF16_ATTN_OPTS_PER_STEP, BF16_ATTN_OPTS_PER_STEP_REDRAW,
+        observations, host=opt_host, upcast=UPCAST_OPTS)
+    del opt_host
+    torch.cuda.empty_cache()
+    mark("attn-opts, bf16-attn-opts")
 
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"device": smi, "kernels": rows, "calls": detail,
@@ -5833,6 +6338,7 @@ def run():
                    "mp_ckpt": mp_ckpt, "adanorm": adanorm,
                    "concat": concat, "mp_adanorm": mp_adanorm,
                    "variants": variants, "bf16": bf16, "bf16_mp": bf16_mp,
+                   "attn_opts": attn_opts, "bf16_attn_opts": bf16_attn_opts,
                    "bf16_train": bf16_train, "bf16_mp_train": bf16_mp_train,
                    "rp_vlm": rp_vlm, "optim": optim},
                   f, indent=1)
@@ -5845,6 +6351,8 @@ def run():
     rows.update(bf16["kernels"])
     rows.update(bf16_mp["kernels"])
     rows.update(bf16_train["kernels"])
+    rows.update(attn_opts.pop("kernels"))
+    rows.update(bf16_attn_opts.pop("kernels"))
     for k, r in bf16_mp_train["kernels"].items():
         rows[k]["mp_train_step"] = r
     rows["subm_conv_bf16"]["concat_stem_b1"] = \
@@ -5917,7 +6425,12 @@ def run():
              "bf16_entry": bf16_train["entry"]["launches"],
              "bf16_mp_entry": bf16_mp_train["entry"]["launches"],
              "rp_vlm": rp_vlm["launches"],
-             **{f"optim_{k}": r["launches"] for k, r in optim.items()}}
+             **{f"optim_{k}": r["launches"] for k, r in optim.items()},
+             "attn_opts_serving": attn_opts["serving"]["launches"],
+             "attn_opts_training": attn_opts["training_launches"],
+             "bf16_attn_opts_serving": bf16_attn_opts["serving"]["launches"],
+             "bf16_attn_opts_training": bf16_attn_opts["training_launches"],
+             "bf16_upcast_serving": bf16_attn_opts["upcast"]["launches"]}
     main_path = dict.fromkeys(PER_FORWARD, "serving")
     main_path.update(dict.fromkeys(TRAIN_KERNELS, "training"))
     main_path.update(gather_rows_smallc="mp_serving",
@@ -5926,6 +6439,7 @@ def run():
                      gather_rows_smallc_bf16="bf16_mp_serving")
     main_path.update(dict.fromkeys(BF16_TRAIN_KERNELS, "bf16_training"),
                      scatter_rows_smallc_add_bf16="bf16_stem_vjp")
+    main_path.update(OPT_MAIN_PATHS)
     idle = [k for k in KERNELS if not paths[main_path[k]][k]]
     if idle:
         raise AssertionError(f"kernels that their main path never launched: "

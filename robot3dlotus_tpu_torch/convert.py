@@ -7,7 +7,9 @@ only the leaf is renamed:
   LayerNorm / BN `scale`       -> `weight`
   Embed `embedding` (num, dim) -> `weight`, as it is
   BN batch_stats `mean`/`var`  -> `running_mean` / `running_var`
-  SubMConv `weight` (K, Cin, Cout) and every `bias` keep name and layout.
+  SubMConv `weight` (K, Cin, Cout) and every `bias` keep name and layout,
+  and so do the attention options' `rpe_table` (3R, H) and `logit_scale`
+  (H, 1, 1) (their `coords_proj` is a Dense).
 `params_to_jax` is the inverse; it names a leaf by the type of the module
 that holds it, since a torch `weight` can be any of the first four.
 
@@ -28,10 +30,11 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from .models.layers import MaskedBatchNorm, SubMConv
+from .models.layers import MaskedBatchNorm, SerializedAttention, SubMConv
 
 _PARAM_LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias",
-               "weight": "weight", "embedding": "weight"}
+               "weight": "weight", "embedding": "weight",
+               "rpe_table": "rpe_table", "logit_scale": "logit_scale"}
 _STAT_LEAF = {"mean": "running_mean", "var": "running_var"}
 # module type -> {torch leaf: flax leaf}; running statistics go to
 # batch_stats
@@ -40,7 +43,9 @@ _TO_FLAX = [(nn.Linear, {"weight": "kernel", "bias": "bias"}),
              {"weight": "scale", "bias": "bias", "running_mean": "mean",
               "running_var": "var"}),
             (nn.Embedding, {"weight": "embedding"}),
-            (SubMConv, {"weight": "weight", "bias": "bias"})]
+            (SubMConv, {"weight": "weight", "bias": "bias"}),
+            (SerializedAttention, {"rpe_table": "rpe_table",
+                                   "logit_scale": "logit_scale"})]
 FLAT_PAD = 4096   # the JAX flat_adamw's pad granule
 
 

@@ -1,5 +1,5 @@
-// The patch-attention forward tiles shared by K1 (attention.cu, inference)
-// and K5 (attention_dropout.cu, training with dropout), and the fragment
+// The patch-attention forward tiles shared by K1 (attention.cuh, inference)
+// and K5 (attention_dropout.cuh, training with dropout), and the fragment
 // helpers K6 uses too: one warp, 16 query rows of one (g, h) patch against
 // all of its P <= 128 keys, both products on the tensor cores
 // (tc_common.cuh). Two tiles, one per dtype:
@@ -38,7 +38,7 @@
 //
 // Bound: at the release shapes K1 and K5 are bound by their bytes (q, k,
 // v, out; K5 also lse and bits) and K5 also by its Philox work
-// (attention_dropout.cu); the products are 4 P^2 Dh flops per (g, h).
+// (attention_dropout.cuh); the products are 4 P^2 Dh flops per (g, h).
 //
 // Shared-memory rows are padded (Layout, Layout16) so that every fragment
 // load is free of bank conflicts. A patch with no valid key gets uniform
@@ -81,6 +81,92 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(kFull, x, 2);
 }
 
+// ---- the attention options (ops/attention.py head_scale and rpe) ----
+// The logit of query i and key j becomes S_ij hs + bias_ij, before the
+// key mask: S_ij the product (q scale) k^T, hs the head's scale (scaled
+// cosine attention's exp(min(logit_scale, log 100)), a product in fp32
+// after the dot, not folded into q), and bias_ij the learned relative
+// position bias table[c(dx) + b, h] + table[R + c(dy) + b, h] +
+// table[2R + c(dz) + b, h], summed in that order, with (dx, dy, dz) the
+// grid coordinates of query i less those of key j, c the clip to
+// [-b, b] and R = 2b + 1 (the JAX package's rpe_bias). The bias is looked
+// up in the kernel from the patch's grid coordinates and the head's table
+// column, both staged in shared memory: no (G, H, P, P) bias is ever
+// written. The release model has neither option: NoOpts, whose calls
+// compile to nothing, so the release instantiations are what they were.
+constexpr int kMaxPosBound = 15;    // b at P = 128: int((4 P)^(1/3) 2)
+constexpr int kTableSmem = 96;      // floats: 3 (2 kMaxPosBound + 1) = 93
+
+// the options' device pointers as the wrapper passes them (NULL: off)
+struct OptArgs {
+  const float* hs;       // (H,) fp32
+  const int* gc;         // (G, P, 3) int32 grid coordinates
+  const float* table;    // (3R, H) fp32
+  int b;                 // the position bound, 0..kMaxPosBound
+};
+
+template <bool kScale_, bool kRpe_>
+struct LogitOpts {
+  static constexpr bool kScale = kScale_, kRpe = kRpe_;
+  static constexpr bool kAny = kScale || kRpe;
+  // shared memory (bytes, 16-byte aligned) the options take after the
+  // kernel's own: the patch's coordinates as int4 rows, the table column
+  static constexpr size_t kSmem =
+      kRpe ? kMaxP * sizeof(int4) + kTableSmem * sizeof(float) : 0;
+  float hs = 1.f;
+  const int4* gc = nullptr;
+  const float* tab = nullptr;
+  int b = 0, R = 0;
+
+  // this block's options for patch g, head h; smem: kSmem bytes; the
+  // caller syncs the block before the first lookup
+  __device__ __forceinline__ void stage(const OptArgs& a, long long g, int h,
+                                        int H, int P, int tid, int nthreads,
+                                        void* smem) {
+    if constexpr (kScale) hs = a.hs[h];
+    if constexpr (kRpe) {
+      int4* sg = reinterpret_cast<int4*>(smem);
+      float* st = reinterpret_cast<float*>(sg + kMaxP);
+      b = a.b;
+      R = 2 * b + 1;
+      const int* src = a.gc + g * P * 3;
+      for (int i = tid; i < P; i += nthreads)
+        sg[i] = make_int4(src[3 * i], src[3 * i + 1], src[3 * i + 2], 0);
+      for (int i = tid; i < 3 * R; i += nthreads)
+        st[i] = a.table[(long long)i * H + h];
+      gc = sg;
+      tab = st;
+    }
+  }
+  // the grid coordinates of point r (zero past P)
+  __device__ __forceinline__ int4 coords(int r, int P) const {
+    if constexpr (kRpe) {
+      if (r < P) return gc[r];
+    }
+    return make_int4(0, 0, 0, 0);
+  }
+  __device__ __forceinline__ int bin(int d) const {
+    return min(max(d, -b), b) + b;
+  }
+  // the table rows of query coordinates gi against key coordinates gj
+  __device__ __forceinline__ int3 bins(int4 gi, int4 gj) const {
+    return make_int3(bin(gi.x - gj.x), R + bin(gi.y - gj.y),
+                     2 * R + bin(gi.z - gj.z));
+  }
+  __device__ __forceinline__ float bias(int4 gi, int4 gj) const {
+    const int3 r = bins(gi, gj);
+    return __fadd_rn(__fadd_rn(tab[r.x], tab[r.y]), tab[r.z]);
+  }
+  // the logit of product x, query coordinates gi, key coordinates gj
+  __device__ __forceinline__ float operator()(float x, int4 gi,
+                                              int4 gj) const {
+    if constexpr (kScale) x = __fmul_rn(x, hs);
+    if constexpr (kRpe) x = __fadd_rn(x, bias(gi, gj));
+    return x;
+  }
+};
+using NoOpts = LogitOpts<false, false>;
+
 // Row strides in floats. Dh + 4: a load at (row r, col c) or at
 // (row 2c, col r) hits 32 distinct banks. SB: (row c, col r).
 template <int Dh>
@@ -98,15 +184,18 @@ struct Layout16 {
 };
 
 // The masked logits of this lane's two rows (s: nt 8-key tiles of C
-// fragments, key n * 8 + 2t + (e & 1), e < 2 the first row), their row
+// fragments, key n * 8 + 2t + (e & 1), e < 2 the first row; with
+// options, opt's logits of the products s, g0 and g1 the rows' grid
+// coordinates), their row
 // maxima m0, m1 and sums l0, l1 of the exps over every key; s holds the
 // exps after, with kDrop those whose keep bit (b0, b1: the rows' words)
 // is 0 set to 0. kExact: expf (the bf16 tile), else __expf.
-template <bool kDrop, bool kAllTiles, bool kExact>
+template <bool kDrop, bool kAllTiles, bool kExact, class Opts>
 __device__ __forceinline__ void softmax_rows(
     float (&s)[kMaxP / 8][4], int nt, int P, int t,
     const unsigned char* smask, const uint32_t* b0, const uint32_t* b1,
-    float& m0, float& m1, float& l0, float& l1) {
+    float& m0, float& m1, float& l0, float& l1, const Opts& opt, int4 g0,
+    int4 g1) {
   m0 = m1 = -INFINITY;
 #pragma unroll
   for (int n = 0; n < kMaxP / 8; ++n) {
@@ -114,7 +203,10 @@ __device__ __forceinline__ void softmax_rows(
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int j = n * 8 + 2 * t + (e & 1);
-        const float x = j >= P ? -INFINITY : smask[j] ? s[n][e] : kNegInf;
+        const float x = j >= P    ? -INFINITY
+                        : smask[j] ? opt(s[n][e], e < 2 ? g0 : g1,
+                                         opt.coords(j, P))
+                                   : kNegInf;
         s[n][e] = x;
         if (e < 2) m0 = fmaxf(m0, x);
         else m1 = fmaxf(m1, x);
@@ -162,12 +254,12 @@ __device__ __forceinline__ void softmax_rows(
 // bounds test, so the tiles' independent product chains are one basic
 // block that the compiler interleaves (with a test per tile, one warp
 // waits out each chain's latency in turn); attend_rows picks it.
-template <int Dh, bool kDrop, bool kAllTiles>
+template <int Dh, bool kDrop, bool kAllTiles, class Opts>
 __device__ __forceinline__ void attend_tiles(
     const float* __restrict__ q, float* __restrict__ out,
     float* __restrict__ lse, const float* sk, const float* sv,
     const unsigned char* smask, const uint32_t* sbits, int W, int row0,
-    int P, float scale, float inv_keep) {
+    int P, float scale, float inv_keep, const Opts& opt) {
   constexpr int S = Layout<Dh>::S;
   constexpr int KD = Dh / 8;
   const int lane = threadIdx.x & 31;
@@ -203,7 +295,9 @@ __device__ __forceinline__ void attend_tiles(
 
   float m0, m1, l0, l1;
   softmax_rows<kDrop, kAllTiles, false>(s, nt, P, t, smask, sbits + r0 * W,
-                                        sbits + r1 * W, m0, m1, l0, l1);
+                                        sbits + r1 * W, m0, m1, l0, l1, opt,
+                                        opt.coords(r0, P),
+                                        opt.coords(r1, P));
 
   // out = (kept) exps v: the S tile's C fragment is the A fragment of its
   // 8 keys, key 2t as column t and key 2t + 1 as column t + 4
@@ -244,18 +338,18 @@ __device__ __forceinline__ void attend_tiles(
   }
 }
 
-template <int Dh, bool kDrop>
+template <int Dh, bool kDrop, class Opts = NoOpts>
 __device__ __forceinline__ void attend_rows(
     const float* __restrict__ q, float* __restrict__ out,
     float* __restrict__ lse, const float* sk, const float* sv,
     const unsigned char* smask, const uint32_t* sbits, int W, int row0,
-    int P, float scale, float inv_keep) {
+    int P, float scale, float inv_keep, const Opts& opt = Opts()) {
   if (P > kMaxP - 8)
     attend_tiles<Dh, kDrop, true>(q, out, lse, sk, sv, smask, sbits, W,
-                                  row0, P, scale, inv_keep);
+                                  row0, P, scale, inv_keep, opt);
   else
     attend_tiles<Dh, kDrop, false>(q, out, lse, sk, sv, smask, sbits, W,
-                                   row0, P, scale, inv_keep);
+                                   row0, P, scale, inv_keep, opt);
 }
 
 // ---- the bf16 tile ----
@@ -298,12 +392,12 @@ __device__ __forceinline__ uint32_t scaled_pair(const bf16* __restrict__ q,
 // sv bf16 rows at stride Layout16<Dh>::S, rows P..(P rounded up to 16)-1
 // zero; the other arguments as attend_tiles takes them. kAllTiles (P >
 // 112): all eight 16-key blocks, no bounds tests.
-template <int Dh, bool kDrop, bool kAllTiles>
+template <int Dh, bool kDrop, bool kAllTiles, class Opts>
 __device__ __forceinline__ void attend_tiles16(
     const bf16* __restrict__ q, bf16* __restrict__ out,
     float* __restrict__ lse, const bf16* sk, const bf16* sv,
     const unsigned char* smask, const uint32_t* sbits, int W, int row0,
-    int P, float scale, float inv_keep) {
+    int P, float scale, float inv_keep, const Opts& opt) {
   constexpr int S = Layout16<Dh>::S;
   constexpr int KF = Dh / 16;              // full 16-wide head-dim steps
   constexpr bool kTail = Dh % 16 != 0;     // and an 8-wide one (Dh 8, 24)
@@ -357,7 +451,8 @@ __device__ __forceinline__ void attend_tiles16(
   float m0, m1, l0, l1;
   softmax_rows<kDrop, kAllTiles, true>(s, 2 * nb, P, t, smask,
                                        sbits + r0 * W, sbits + r1 * W, m0,
-                                       m1, l0, l1);
+                                       m1, l0, l1, opt, opt.coords(r0, P),
+                                       opt.coords(r1, P));
   // the (kept, scaled) probabilities, rounded to bf16 as the reference
   // casts them
   const float rl0 = __frcp_rn(l0), rl1 = __frcp_rn(l1);
@@ -417,18 +512,18 @@ __device__ __forceinline__ void attend_tiles16(
   }
 }
 
-template <int Dh, bool kDrop>
+template <int Dh, bool kDrop, class Opts = NoOpts>
 __device__ __forceinline__ void attend_rows16(
     const bf16* __restrict__ q, bf16* __restrict__ out,
     float* __restrict__ lse, const bf16* sk, const bf16* sv,
     const unsigned char* smask, const uint32_t* sbits, int W, int row0,
-    int P, float scale, float inv_keep) {
+    int P, float scale, float inv_keep, const Opts& opt = Opts()) {
   if (P > kMaxP - 16)
     attend_tiles16<Dh, kDrop, true>(q, out, lse, sk, sv, smask, sbits, W,
-                                    row0, P, scale, inv_keep);
+                                    row0, P, scale, inv_keep, opt);
   else
     attend_tiles16<Dh, kDrop, false>(q, out, lse, sk, sv, smask, sbits, W,
-                                     row0, P, scale, inv_keep);
+                                     row0, P, scale, inv_keep, opt);
 }
 
 }  // namespace r3dl

@@ -1,5 +1,5 @@
 // Building blocks shared by the tensor-core kernels (conv.cu K2,
-// conv_grad.cu K7, stem.cu K3, attention.cu K1, attention_dropout.cu
+// conv_grad.cu K7, stem.cu K3, attention.cuh K1, attention_dropout.cuh
 // K5/K6): 3xTF32 mma.sync.m16n8k8, the one-pass TF32 product of bf16
 // values widened to fp32, the bf16 mma.sync.m16n8k16 / m16n8k8 with
 // ldmatrix fragment loads, the split of an fp32 value into three bf16

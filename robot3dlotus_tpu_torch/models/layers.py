@@ -30,7 +30,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.attention import patch_attention, patch_attention_dropout
+from ..ops.attention import (patch_attention, patch_attention_dropout,
+                             pos_bound, rpe_bias)  # noqa: F401 (rpe_bias:
+# the plain bias lookup of the layer's option, kept beside it)
 from ..ops.patching import dup_pad_identity, gather_sorted, scatter_back
 from ..ops.sparse_conv import NeighborMap, subm_conv_apply
 
@@ -277,22 +279,68 @@ class SubMConv(nn.Module):
                                categorical=categorical)
 
 
+def cosine_normalize(x):
+    """x / max(||x||, 1e-12) over the last axis in x's dtype, as the JAX
+    package computes it (jnp.linalg.norm: the squares rounded to x's
+    dtype, summed in fp32 and rounded, the root in x's dtype). A zero row
+    (a dead slot whose input is zero, at init) has a zero gradient: the
+    sum of squares is clamped at 1e-30 before the root, which moves no
+    value past the 1e-12 clamp; the JAX package's root there gives
+    0 x inf = NaN."""
+    if x.dtype == torch.float32:
+        return x / torch.clamp_min(torch.linalg.vector_norm(x, dim=-1,
+                                                            keepdim=True),
+                                   1e-12)
+    ss = (x * x).float().sum(-1, keepdim=True).to(x.dtype)
+    return x / torch.clamp_min(torch.sqrt(torch.clamp_min(ss, 1e-30)), 1e-12)
+
+
+LOG_100 = math.log(100.0)
+
+
 class SerializedAttention(nn.Module):
     """Patch attention over one serialized order. The input is arranged in
     padded serialized order (a shift+select when the stream already lives
     in that order), projected to q/k/v, qk-normed (eps 1e-6) and attended
     per patch with fp32 softmax; masked keys get -1e9: K1 in eval mode,
-    K5 (backward K6) with the attention-dropout rate in train mode."""
+    K5 (backward K6) with the attention-dropout rate in train mode.
+
+    The attention options (the JAX SerializedAttention's; all off in the
+    release configs), each computed as the JAX package's XLA path does:
+    add_coords_in_attn 'qkv' / 'qk' adds coords_proj (Dense 3 -> C, no
+    bias) of the stage's point coordinates, in padded serialized order and
+    the compute dtype, to the input of qkv, or to its q and k thirds;
+    upcast_attention widens q and k to fp32 before the qk norms (at bf16
+    the fp32 kernels then take v widened too, so the probabilities are not
+    rounded to bf16 before P v, which the JAX package does: within the
+    bf16 bar's probability allowance); scaled_cosine_attn normalises q and
+    k (cosine_normalize) and scales each head's fp32 logits by
+    exp(min(logit_scale, log 100)) in place of qk_scale; enable_rpe adds
+    the learned bias rpe_table (3 R, H) of the patch's grid-coordinate
+    deltas (rpe_bias, bound b = pos_bound(P), R = 2b + 1). The last two go
+    into K1 / K5 / K6 (head_scale and rpe): no plain attention on the
+    card. patch_size is the patch the rpe table is sized for: the
+    backbone's min(patch, stage capacity), as the JAX backbone passes it;
+    a forward whose capacity gives another patch raises then."""
 
     def __init__(self, channels, num_heads, patch_size, generator,
                  order_index=0, qkv_bias=True, qk_scale=None, qk_norm=True,
-                 attn_drop=0.0, proj_drop=0.0, dtype=None):
+                 attn_drop=0.0, proj_drop=0.0, dtype=None,
+                 upcast_attention=False, scaled_cosine_attn=False,
+                 enable_rpe=False, add_coords_in_attn="none"):
         super().__init__()
+        if add_coords_in_attn not in ("none", "qkv", "qk"):
+            raise ValueError(f"add_coords_in_attn {add_coords_in_attn!r} "
+                             "not in ('none', 'qkv', 'qk')")
         self.attn_drop, self.proj_drop = attn_drop, proj_drop
         self.channels, self.num_heads = channels, num_heads
         self.patch_size, self.order_index = patch_size, order_index
         self.head_dim = channels // num_heads
         self.scale = qk_scale or self.head_dim ** -0.5
+        self.upcast_attention = upcast_attention
+        self.scaled_cosine_attn, self.enable_rpe = (scaled_cosine_attn,
+                                                    enable_rpe)
+        self.add_coords_in_attn = add_coords_in_attn
         self.qkv = dense(channels, 3 * channels, generator, bias=qkv_bias,
                          dtype=dtype)
         self.qk_norm = qk_norm
@@ -300,34 +348,86 @@ class SerializedAttention(nn.Module):
             self.q_norm = LayerNorm(self.head_dim, eps=1e-6)
             self.k_norm = LayerNorm(self.head_dim, eps=1e-6)
         self.proj = dense(channels, channels, generator, dtype=dtype)
+        if add_coords_in_attn != "none":
+            self.coords_proj = dense(3, channels, generator, bias=False,
+                                     dtype=dtype)
+        if scaled_cosine_attn:
+            # torch layout (H, 1, 1), init log 10
+            self.logit_scale = nn.Parameter(
+                torch.full((num_heads, 1, 1), math.log(10.0)))
+        if enable_rpe:
+            self.pos_bnd = pos_bound(patch_size)
+            self.rpe_table = nn.Parameter(trunc_normal_(
+                torch.empty(3 * (2 * self.pos_bnd + 1), num_heads),
+                generator))
+
+    @staticmethod
+    def _padded(x, aux, order, P):
+        """x (B, N, D) in padded serialized order, as the block's input
+        (the grid coordinates, an int tensor, by a plain gather)."""
+        if order is None:
+            return dup_pad_identity(x, aux["counts"], P)
+        if x.is_floating_point():
+            return gather_sorted(x, order, aux["src_pos"])
+        idx = torch.gather(order, -1, aux["src_pos"].long())
+        return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
 
     def forward(self, feat, aux, rng=None):
         B, N, C = feat.shape
-        H, P, Dh = self.num_heads, self.patch_size, self.head_dim
+        H, Dh = self.num_heads, self.head_dim
+        P = min(self.patch_size, N)
         order = aux["order"][self.order_index]
         inverse = aux["inverse"][self.order_index]
-        if order is None:
-            feat = dup_pad_identity(feat, aux["counts"], P)
-        else:
-            feat = gather_sorted(feat, order, aux["src_pos"])
+        feat = self._padded(feat, aux, order, P)
+        if self.add_coords_in_attn != "none":
+            qkc = self.coords_proj(
+                self._padded(aux["coord"], aux, order, P).to(feat.dtype))
+            if self.add_coords_in_attn == "qkv":
+                feat = feat + qkc
+        qkv = self.qkv(feat)
+        if self.add_coords_in_attn == "qk":
+            qkv = qkv + torch.cat([qkc, qkc, torch.zeros_like(qkc)], -1)
         NP = N // P
-        q, k, v = (t.reshape(B, NP, P, H, Dh)
-                   for t in self.qkv(feat).split(C, dim=-1))
+        q, k, v = (t.reshape(B, NP, P, H, Dh) for t in qkv.split(C, dim=-1))
+        if self.upcast_attention:
+            q, k = q.float(), k.float()
         if self.qk_norm:
             q, k = self.q_norm(q), self.k_norm(k)
+        scale, head_scale, rpe = self.scale, None, None
+        if self.scaled_cosine_attn:
+            q, k = cosine_normalize(q), cosine_normalize(k)
+            scale = 1.0
+            head_scale = torch.exp(torch.clamp(
+                self.logit_scale.reshape(H), max=LOG_100))
+        if q.dtype != v.dtype:    # upcast_attention at bf16
+            v = v.float()
         # (B, NP, P, H, Dh) -> (B*NP, H, P, Dh): the JAX kernel layout
         qg, kg, vg = (t.permute(0, 1, 3, 2, 4).reshape(B * NP, H, P, Dh)
                       .contiguous() for t in (q, k, v))
         kv = aux["key_valid"].reshape(B * NP, P)
+        if self.enable_rpe:
+            if pos_bound(P) != self.pos_bnd:
+                raise ValueError(
+                    f"enable_rpe: the rpe table is sized for patches of "
+                    f"{self.patch_size} (bound {self.pos_bnd}); this stage's "
+                    f"capacity {N} gives patches of {P}")
+            gc = self._padded(aux["grid_coord"].to(torch.int32), aux, order,
+                              P)
+            rpe = (gc.reshape(B * NP, P, 3).contiguous(), self.rpe_table,
+                   self.pos_bnd)
+        # the options' arguments only where one is on: the release calls
+        # keep their signature
+        opts = () if head_scale is None and rpe is None else (head_scale,
+                                                              rpe)
         if self.training:
             rate = self.attn_drop
             seed = rng.seed32() if rate > 0.0 else 0
-            og = patch_attention_dropout(qg, kg, vg, kv, self.scale, rate,
-                                         seed)
+            og = patch_attention_dropout(qg, kg, vg, kv, scale, rate, seed,
+                                         *opts)
         else:
-            og = patch_attention(qg, kg, vg, kv, self.scale)
+            og = patch_attention(qg, kg, vg, kv, scale, *opts)
         out = og.reshape(B, NP, H, P, Dh).permute(0, 1, 3, 2, 4)
-        out = out.reshape(B, N, C)
+        out = out.reshape(B, N, C).to(qkv.dtype)
         if inverse is not None:
             out = scatter_back(out.contiguous(), inverse)
         return dropout(self.proj(out), self.proj_drop, self.training, rng)
@@ -382,7 +482,10 @@ class Block(nn.Module):
     def __init__(self, channels, num_heads, patch_size, generator,
                  mlp_ratio=4.0, qkv_bias=True, qk_scale=None, qk_norm=True,
                  order_index=0, attn_drop=0.0, proj_drop=0.0, drop_path=0.0,
-                 norm_adaptive=False, context_channels=256, dtype=None):
+                 norm_adaptive=False, context_channels=256, dtype=None,
+                 **attn_opts):
+        """attn_opts: SerializedAttention's options (upcast_attention,
+        scaled_cosine_attn, enable_rpe, add_coords_in_attn)."""
         super().__init__()
         self.drop_path = drop_path
         norm = dict(generator=generator, adaptive=norm_adaptive,
@@ -396,7 +499,7 @@ class Block(nn.Module):
             channels, num_heads, patch_size, generator,
             order_index=order_index, qkv_bias=qkv_bias, qk_scale=qk_scale,
             qk_norm=qk_norm, attn_drop=attn_drop, proj_drop=proj_drop,
-            dtype=dtype)
+            dtype=dtype, **attn_opts)
         self.norm2 = AdaptiveNorm(channels, "ln", **norm)
         self.mlp = MLP(channels, int(channels * mlp_ratio), channels,
                        generator, drop=proj_drop, dtype=dtype)

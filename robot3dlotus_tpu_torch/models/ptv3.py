@@ -123,10 +123,14 @@ class PointTransformerV3(nn.Module):
                  stage_caps: Optional[Sequence[int]] = None,
                  stem_categorical_channels=0, use_cross_attn=True,
                  norm_adaptive=False, pdnorm_only_decoder=False,
-                 compute_dtype=None):
+                 compute_dtype=None, upcast_attention=False,
+                 scaled_cosine_attn=False, enable_rpe=False,
+                 add_coords_in_attn="none"):
         """in_channels: the stem's input width (under Concat the point
         features and the context vector); compute_dtype: None, 'float32',
-        'fp32' or 'bfloat16'."""
+        'fp32' or 'bfloat16'; upcast_attention, scaled_cosine_attn,
+        enable_rpe, add_coords_in_attn: every Block's attention options
+        (models/layers.py SerializedAttention)."""
         super().__init__()
         self.compute_dtype = dt = resolve_compute_dtype(compute_dtype)
         self.orders = tuple(orders)
@@ -151,7 +155,11 @@ class PointTransformerV3(nn.Module):
         g = generator
         drop = dict(attn_drop=attn_drop, proj_drop=proj_drop)
         blk = dict(mlp_ratio=mlp_ratio, qkv_bias=qkv_bias, qk_scale=qk_scale,
-                   qk_norm=qk_norm, dtype=dt, **drop)
+                   qk_norm=qk_norm, dtype=dt,
+                   upcast_attention=upcast_attention,
+                   scaled_cosine_attn=scaled_cosine_attn,
+                   enable_rpe=enable_rpe,
+                   add_coords_in_attn=add_coords_in_attn, **drop)
         cab = dict(mlp_ratio=mlp_ratio, qk_norm=qk_norm, dtype=dt, **drop)
         # drop-path rates rise linearly over the encoder blocks, and over
         # the decoder blocks, deepest first (JAX ptv3 _linspace)
@@ -170,7 +178,8 @@ class PointTransformerV3(nn.Module):
                     context_channels, dt))
             for i in range(enc_depths[s]):
                 self.add_module(f"enc{s}_block{i}", Block(
-                    enc_channels[s], enc_num_head[s], enc_patch_size[s], g,
+                    enc_channels[s], enc_num_head[s],
+                    self._block_patch(enc_patch_size[s], s), g,
                     order_index=i % len(self.orders),
                     drop_path=enc_dp[sum(enc_depths[:s]) + i],
                     norm_adaptive=norm_adaptive and (
@@ -187,13 +196,23 @@ class PointTransformerV3(nn.Module):
             dp = dec_dp[sum(dec_depths[:s]):sum(dec_depths[:s + 1])][::-1]
             for i in range(dec_depths[s]):
                 self.add_module(f"dec{s}_block{i}", Block(
-                    dec_ch[s], dec_num_head[s], dec_patch_size[s], g,
+                    dec_ch[s], dec_num_head[s],
+                    self._block_patch(dec_patch_size[s], s), g,
                     order_index=i % len(self.orders), drop_path=dp[i],
                     norm_adaptive=norm_adaptive, **blk, **ctx))
                 if use_cross_attn:
                     self.add_module(f"dec{s}_cablock{i}", CABlock(
                         dec_ch[s], dec_num_head[s], context_channels, g,
                         **cab))
+
+    def _block_patch(self, patch, s):
+        """A block's patch, as the JAX backbone passes it: min(patch, stage
+        capacity) where stage_caps gives the capacity (the attention takes
+        min(patch, N) of the rows it is given in any case; the rpe table is
+        sized by this one)."""
+        if self.stage_caps is None:
+            return patch
+        return min(patch, int(self.stage_caps[s]))
 
     def _stage_caps(self, n0):
         if self.stage_caps is not None:
@@ -234,7 +253,8 @@ class PointTransformerV3(nn.Module):
                                       cur["depth"], extent=self.lookup_extent)
         return {"order": order, "inverse": inverse, "src_pos": src_pos,
                 "key_valid": key_valid, "cpe_nmap": cpe_nmap,
-                "counts": counts}
+                "counts": counts, "grid_coord": cur["grid_coord"],
+                "coord": cur["coord"]}
 
     def _entry_sort(self, cur):
         """Sort every per-point array by codes[0] (stable; the sentinel

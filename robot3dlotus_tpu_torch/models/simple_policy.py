@@ -42,7 +42,8 @@ _PTV3_FIELDS = {
     "dec_patch_size", "mlp_ratio", "qkv_bias", "qk_scale", "qk_norm",
     "serial_depth", "stem_kernel", "lookup_extent", "assume_sorted",
     "stage_caps", "attn_drop", "proj_drop", "drop_path", "shuffle_orders",
-    "pdnorm_only_decoder", "compute_dtype",
+    "pdnorm_only_decoder", "compute_dtype", "upcast_attention",
+    "scaled_cosine_attn", "enable_rpe", "add_coords_in_attn",
 }
 # options that do not change this port's model: norm plumbing resolved by
 # the variant (pdnorm_adaptive is read by the AdaNorm variant itself), the
@@ -57,30 +58,22 @@ _PTV3_IGNORED = {
 }
 
 
-# the backbone's attention options the port lacks (JAX models/layers.py
-# SerializedAttention); 'none' is add_coords_in_attn's off value
-_PTV3_UNPORTED = ("enable_rpe", "scaled_cosine_attn", "add_coords_in_attn",
-                  "upcast_attention")
-
-
 def ptv3_kwargs(cfg):
     """ptv3_config dict -> PointTransformerV3 kwargs. Raises on a truthy
-    option the port does not implement rather than silently computing
-    another model; the error names the options still missing."""
+    option the port does not know rather than silently computing another
+    model."""
     out = {}
     for k, v in cfg.items():
         if k in ("order", "orders"):
             out["orders"] = tuple(v)
         elif k in _PTV3_FIELDS:
             out[k] = tuple(v) if isinstance(v, list) else v
-        elif k in _PTV3_IGNORED or (k == "add_coords_in_attn" and
-                                    v == "none"):
+        elif k in _PTV3_IGNORED:
             continue
         elif v:
             raise ValueError(
                 f"ptv3_config option {k}={v!r} is not implemented by the "
-                f"PyTorch port (options it lacks: "
-                f"{', '.join(_PTV3_UNPORTED)})")
+                f"PyTorch port")
     return out
 
 

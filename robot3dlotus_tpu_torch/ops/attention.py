@@ -7,7 +7,7 @@ Per (patch g, head h): a = softmax(where(key_valid, (q * scale) k^T, -1e9))
 with fp32 logits and softmax, out = a v, in the JAX package's (G, H, P, Dh)
 layout. With dropout, out = where(keep, a / (1 - rate), 0) v and keep =
 bits >= rate * 2^32, the bits drawn by a Philox4x32-10 generator keyed by
-(seed, g * H + h) at counter element_index // 4 (csrc/attention_dropout.cu;
+(seed, g * H + h) at counter element_index // 4 (csrc/attention_dropout.cuh;
 philox_keep_mask below is the same generator in PyTorch).
 
 The forward (K5, patch_attention_dropout_fwd) returns (out, lse, bits):
@@ -37,19 +37,38 @@ computes as the Pallas body `_attn_drop_bwd_kernel` does, in fp32 from the
 bf16 inputs: p = exp(logits - lse) from the bf16 q * scale, unrounded
 probabilities in dv and ds, D = g . out from K5's bf16 output, and dq, dk
 and dv each rounded to bf16 once (on the bf16 tensor cores, p and ds as
-three bf16 pieces each: csrc/attention_dropout.cu).
+three bf16 pieces each: csrc/attention_dropout.cuh).
 
-The CUDA kernels are csrc/attention.cu (K1) and csrc/attention_dropout.cu
-(K5, K6); K1 and K5 run one forward tile per dtype (csrc/
-attention_tile.cuh: 3xTF32 at fp32, bf16 mma.sync at bf16, so K5 at rate
-0 is K1 bit for bit), and K1 splits each patch's query rows over blocks
-by attention_query_split. At bf16 both stage k and v 16 bytes at a time
-and read q in bf16 pairs, and K6 stages q, k, v, out and g 16 bytes at a
+The CUDA kernels are csrc/attention.cuh (K1) and
+csrc/attention_dropout.cuh (K5, K6), built from attention.cu and
+attention_dropout.cu (the release entry points) and from the options'
+own sources; K1 and K5 run one forward tile per dtype
+(csrc/attention_tile.cuh: 3xTF32 at fp32, bf16 mma.sync at bf16, so K5
+at rate 0 is K1 bit for bit), and K1 splits each patch's query rows over
+blocks by attention_query_split. At bf16 both stage k and v 16 bytes at a
+time and read q in bf16 pairs, and K6 stages q, k, v, out and g 16 bytes at a
 time: the wrappers hand them 16-byte aligned tensors (a copy of an
 unaligned view).
 The plain versions are the path for CPU tensors and the kernels' oracles;
 patch_attention_dropout_plain and patch_attention_dropout_vjp_plain take
 the keep mask as a (G, H, P, P) bool tensor.
+
+The backbone's attention options (ptv3_config enable_rpe,
+scaled_cosine_attn; models/layers.py SerializedAttention) enter K1, K5 and
+K6 as two optional arguments, the JAX package's XLA attention (the path
+its Pallas kernel leaves for them):
+  head_scale (H,) fp32: the logits (q * scale) k^T, fp32, times the head's
+    scale (scaled cosine attention's exp(min(logit_scale, log 100)), with
+    q and k normalised outside and scale 1);
+  rpe = (gc, table, b): gc (G, P, 3) int32 the patches' grid coordinates,
+    table (3R, H) fp32, b the position bound (R = 2b + 1): the logits plus
+    rpe_bias(table, gc_i - gc_j, b), before the key mask.
+The kernels with either are their _opts entry points (counted as
+patch_attention_opts, patch_attention_dropout_opts,
+patch_attention_dropout_bwd_opts and their _bf16 paths); they look the
+bias up from gc and the table inside the kernel. K6 also returns the
+gradients of table and head_scale (its per-patch partials summed here in
+a fixed order); _PatchAttentionDropout hands them to autograd.
 """
 from __future__ import annotations
 
@@ -71,9 +90,42 @@ _PHILOX_W = (0x9E3779B9, 0xBB67AE85)
 _U32 = 0xFFFFFFFF
 
 
-def patch_attention_plain(q, k, v, key_valid, scale):
-    """q/k/v: (G, H, P, Dh); key_valid: (G, P) bool -> (G, H, P, Dh)."""
-    return patch_attention_dropout_plain(q, k, v, key_valid, scale, 0.0, None)
+def pos_bound(P):
+    """The relative-position bound of a patch of P keys, the JAX package's
+    Python float expression (15 at P = 128, not 16)."""
+    return int((4 * P) ** (1 / 3) * 2)
+
+
+def rpe_bias(table, rel_pos, pos_bnd):
+    """The learned relative-position bias (the JAX package's rpe_bias):
+    rel_pos (..., 3) int grid-coordinate deltas, clipped to [-pos_bnd,
+    pos_bnd] and shifted by pos_bnd + a (2 pos_bnd + 1) on axis a, index
+    the rows of table (3 R, H); the three rows summed in axis order ->
+    (..., H)."""
+    R = 2 * pos_bnd + 1
+    idx = (rel_pos.clamp(-pos_bnd, pos_bnd) + pos_bnd +
+           torch.arange(3, device=rel_pos.device) * R).long()
+    rows = table[idx]
+    return rows[..., 0, :] + rows[..., 1, :] + rows[..., 2, :]
+
+
+def _rpe_rel(gc):
+    """(G, P, P, 3) grid-coordinate deltas, query less key."""
+    return gc[:, :, None, :] - gc[:, None, :, :]
+
+
+def _rpe_logit_bias(rpe):
+    """The (G, H, P, P) bias of rpe = (gc, table, b)."""
+    gc, table, b = rpe
+    return rpe_bias(table.float(), _rpe_rel(gc), b).permute(0, 3, 1, 2)
+
+
+def patch_attention_plain(q, k, v, key_valid, scale, head_scale=None,
+                          rpe=None):
+    """q/k/v: (G, H, P, Dh); key_valid: (G, P) bool -> (G, H, P, Dh);
+    head_scale, rpe: the options (module docstring)."""
+    return patch_attention_dropout_plain(q, k, v, key_valid, scale, 0.0, None,
+                                         head_scale, rpe)
 
 
 def _scaled(q, scale):
@@ -83,22 +135,36 @@ def _scaled(q, scale):
     return q * scale
 
 
-def _logits(q, k, key_valid, scale):
-    logits = torch.einsum("ghpd,ghqd->ghpq", _scaled(q, scale).float(),
-                          k.float())
+def _products(q, k, scale):
+    """(q * scale) k^T in fp32, (G, H, P, P)."""
+    return torch.einsum("ghpd,ghqd->ghpq", _scaled(q, scale).float(),
+                        k.float())
+
+
+def _opt_logits(S, head_scale, rpe):
+    """The logits of products S under the options, before the mask."""
+    if head_scale is not None:
+        S = S * head_scale.float()[None, :, None, None]
+    if rpe is not None:
+        S = S + _rpe_logit_bias(rpe)
+    return S
+
+
+def _logits(q, k, key_valid, scale, head_scale=None, rpe=None):
+    logits = _opt_logits(_products(q, k, scale), head_scale, rpe)
     return torch.where(key_valid[:, None, None, :], logits,
                        torch.full_like(logits, NEG_INF))
 
 
 def bf16_probability_allowance(q, k, v, key_valid, scale, rate=0.0,
-                               keep=None):
+                               keep=None, head_scale=None, rpe=None):
     """2^-7 sum_j p_j |v_j| (G, H, P, Dh) fp32: one bf16 ulp of each
     probability's share of the output, the part of K1's (and, with the
     dropped probabilities of `rate` and `keep`, K5's) bf16 bar that a
     probability rounded to the neighbouring bf16 value can move
     (ops/bf16.py)."""
-    a = _drop(torch.softmax(_logits(q, k, key_valid, scale), dim=-1), rate,
-              keep)
+    a = _drop(torch.softmax(_logits(q, k, key_valid, scale, head_scale, rpe),
+                            dim=-1), rate, keep)
     return torch.einsum("ghpq,ghqd->ghpd", a, v.float().abs()) * 2.0 ** -7
 
 
@@ -108,11 +174,13 @@ def _drop(t, rate, keep):
     return t if keep is None else torch.where(keep, t, torch.zeros_like(t))
 
 
-def patch_attention_dropout_plain(q, k, v, key_valid, scale, rate, keep):
+def patch_attention_dropout_plain(q, k, v, key_valid, scale, rate, keep,
+                                  head_scale=None, rpe=None):
     """keep: (G, H, P, P) bool (None: keep all) -> (G, H, P, Dh). The
     probabilities are cast to v's dtype before the product, which sums in
     fp32."""
-    a = torch.softmax(_logits(q, k, key_valid, scale), dim=-1)
+    a = torch.softmax(_logits(q, k, key_valid, scale, head_scale, rpe),
+                      dim=-1)
     return torch.einsum("ghpq,ghqd->ghpd",
                         _drop(a, rate, keep).to(v.dtype).float(),
                         v.float()).to(q.dtype)
@@ -124,7 +192,8 @@ def patch_attention_dropout_vjp_plain(q, k, v, key_valid, scale, rate, keep,
     (keep None: keep all), recomputing the probabilities: the math of the
     JAX package's `_attn_drop_bwd_kernel`, with ds zeroed at masked keys
     (the exact gradient; the two differ only in a patch with no valid
-    key)."""
+    key). Without the options (autograd of the plain forward is their
+    oracle)."""
     a = torch.softmax(_logits(q, k, key_valid, scale), dim=-1)
     g, v, q, k = g.float(), v.float(), q.float(), k.float()
     dv = torch.einsum("ghpq,ghpd->ghqd", _drop(a, rate, keep), g)
@@ -148,7 +217,7 @@ def _mulhilo(m, b):
 
 def philox4x32_10(c0, c1, c2, c3, k0, k1):
     """Philox4x32-10 on int64 tensors holding uint32 values (the
-    generator of csrc/attention_dropout.cu)."""
+    generator of csrc/attention_dropout.cuh)."""
     for _ in range(10):
         hi0, lo0 = _mulhilo(_PHILOX_M[0], c0)
         hi1, lo1 = _mulhilo(_PHILOX_M[1], c2)
@@ -203,11 +272,12 @@ def _plain_keep(q, rate, seed):
     return philox_keep_mask(seed, G, H, P, rate, q.device)
 
 
-def patch_attention_dropout_fwd_plain(q, k, v, key_valid, scale, rate, seed):
+def patch_attention_dropout_fwd_plain(q, k, v, key_valid, scale, rate, seed,
+                                      head_scale=None, rpe=None):
     """K5's plain version: (out, lse, bits) with the Philox mask of
     `seed`; at bf16 the dropped probabilities are rounded to bf16 before
     the product (the module docstring)."""
-    logits = _logits(q, k, key_valid, scale)
+    logits = _logits(q, k, key_valid, scale, head_scale, rpe)
     keep = _plain_keep(q, rate, seed)
     a = torch.softmax(logits, dim=-1)
     out = torch.einsum("ghpq,ghqd->ghpd",
@@ -217,15 +287,22 @@ def patch_attention_dropout_fwd_plain(q, k, v, key_valid, scale, rate, seed):
 
 
 def patch_attention_dropout_bwd_plain(q, k, v, key_valid, out, lse, bits, g,
-                                      scale, rate):
+                                      scale, rate, head_scale=None, rpe=None):
     """K6's plain version: (dq, dk, dv), fp32, from the forward's saved
     (q, k, v, key_valid, out, lse, bits) and the cotangent g, as K6
     computes them: p = exp(logits - lse), D = g . out, ds zeroed at masked
     keys, dk = ds^T (q * scale) and dq = (ds k) * scale, with q * scale
     and scale as the forward took them (bf16 at bf16); in a patch with no
-    valid key p = 1 / P (lse rounds to -1e9 there)."""
+    valid key p = 1 / P (lse rounds to -1e9 there). With the options ds
+    (the logits' gradient) times head_scale is the products' gradient,
+    and (dq, dk, dv, dtable, dhead_scale) is returned: dtable (3R, H) the
+    sum of ds over each table row's (query, key) pairs, dhead_scale (H,)
+    the sum of ds times the products (None where the option is off)."""
     P = q.shape[2]
-    logits = _logits(q, k, key_valid, scale)
+    S = _products(q, k, scale)
+    logits = torch.where(key_valid[:, None, None, :],
+                         _opt_logits(S, head_scale, rpe),
+                         torch.full_like(S, NEG_INF))
     qs = _scaled(q, scale).float()
     if q.dtype == torch.bfloat16:
         scale = bf16_value(scale)
@@ -238,9 +315,35 @@ def patch_attention_dropout_bwd_plain(q, k, v, key_valid, out, lse, bits, g,
     da = _drop(torch.einsum("ghpd,ghqd->ghpq", g, v), rate, keep)
     ds = p * (da - (g * out).sum(-1, keepdim=True))
     ds = torch.where(valid, ds, torch.zeros_like(ds))
+    if head_scale is None and rpe is None:
+        dq = torch.einsum("ghpq,ghqd->ghpd", ds, k) * scale
+        dk = torch.einsum("ghpq,ghpd->ghqd", ds, qs)
+        return dq, dk, dv
+    dtable = None if rpe is None else rpe_table_grad(ds, rpe)
+    dhs = None if head_scale is None else \
+        (ds * S).double().sum((0, 2, 3)).float()
+    if head_scale is not None:
+        ds = ds * head_scale.float()[None, :, None, None]
     dq = torch.einsum("ghpq,ghqd->ghpd", ds, k) * scale
     dk = torch.einsum("ghpq,ghpd->ghqd", ds, qs)
-    return dq, dk, dv
+    return dq, dk, dv, dtable, dhs
+
+
+def rpe_table_grad(ds, rpe):
+    """(3R, H) fp32: the sum of ds (G, H, P, P), the logits' gradient, over
+    the (query, key) pairs of each table row of rpe = (gc, table, b),
+    accumulated in fp64 (a row sums up to G P^2 terms that largely cancel:
+    each query's ds sums to 0 over its keys)."""
+    gc, table, b = rpe
+    R = 2 * b + 1
+    H = ds.shape[1]
+    idx = (_rpe_rel(gc).clamp(-b, b) + b +
+           torch.arange(3, device=gc.device) * R).long()    # (G, P, P, 3)
+    vals = ds.permute(0, 2, 3, 1).reshape(-1, H).double()
+    out = torch.zeros(3 * R, H, dtype=torch.float64, device=ds.device)
+    for a in range(3):
+        out.index_add_(0, idx[..., a].reshape(-1), vals)
+    return out.float()
 
 
 def _check_attention(name, q, k, v, key_valid, *more):
@@ -284,23 +387,70 @@ def attention_query_split(G, H, P):
     return warps, -(-groups // warps)
 
 
-def patch_attention(q, k, v, key_valid, scale):
-    """Masked per-patch attention, q, k, v fp32 or bf16: the CUDA kernel
-    (K1) for CUDA tensors, the plain version for CPU tensors. K1 has no
-    backward: a CUDA call that must carry a gradient raises
-    (patch_attention_dropout has one)."""
+def _opt_args(name, q, head_scale, rpe):
+    """The options' C arguments (hs, gc, table, b: NULL pointers where
+    off; none without options) after checking them against q (G, H, P,
+    Dh): head_scale (H,) fp32, gc (G, P, 3) int32, table (3R, H) fp32 with
+    R = 2b + 1 and b at most the kernels' bound (that of P = 128)."""
+    if head_scale is None and rpe is None:
+        return ()
+    G, H, P, _ = q.shape
+    hs = gc = table = None
+    b = 0
+    if head_scale is not None:
+        cuda_lib.check_cuda_tensor(f"{name} head_scale", head_scale,
+                                   torch.float32, 1)
+        if tuple(head_scale.shape) != (H,):
+            raise ValueError(f"{name}: head_scale {tuple(head_scale.shape)}"
+                             f" for {H} heads")
+        hs = head_scale.data_ptr()
+    if rpe is not None:
+        gct, tab, b = rpe
+        cuda_lib.check_cuda_tensor(f"{name} rpe gc", gct, torch.int32, 3)
+        cuda_lib.check_cuda_tensor(f"{name} rpe table", tab, torch.float32,
+                                   2)
+        if not 0 <= b <= pos_bound(KERNEL_MAX_PATCH) or \
+                tuple(gct.shape) != (G, P, 3) or \
+                tuple(tab.shape) != (3 * (2 * b + 1), H):
+            raise ValueError(f"{name}: rpe gc {tuple(gct.shape)}, table "
+                             f"{tuple(tab.shape)}, bound {b} for q "
+                             f"{tuple(q.shape)}")
+        gc, table = gct.data_ptr(), tab.data_ptr()
+    return hs, gc, table, b
+
+
+def _opts_route(kernel, entry, q, head_scale, rpe):
+    """(counter, entry point) of a kernel with the options on, or as
+    given without them; bf16 adds _bf16 to both."""
+    if head_scale is not None or rpe is not None:
+        kernel, entry = kernel + "_opts", entry + "_opts"
+    if q.dtype == torch.bfloat16:
+        kernel, entry = kernel + "_bf16", entry + "_bf16"
+    return kernel, entry
+
+
+def patch_attention(q, k, v, key_valid, scale, head_scale=None, rpe=None):
+    """Masked per-patch attention, q, k, v fp32 or bf16, with the options
+    head_scale and rpe (module docstring): the CUDA kernel (K1) for CUDA
+    tensors, the plain version for CPU tensors. K1 has no backward: a CUDA
+    call that must carry a gradient raises (patch_attention_dropout has
+    one)."""
     if not q.is_cuda:
-        return patch_attention_plain(q, k, v, key_valid, scale)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or
-                                    v.requires_grad):
+        return patch_attention_plain(q, k, v, key_valid, scale, head_scale,
+                                     rpe)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (q, k, v, head_scale, rpe and rpe[1])):
         raise RuntimeError("patch_attention (K1) has no backward; use "
                            "patch_attention_dropout for a gradient")
     G, H, P, _ = q.shape
     return patch_attention_split(q, k, v, key_valid, scale,
-                                 *attention_query_split(G, H, P))
+                                 *attention_query_split(G, H, P),
+                                 head_scale=head_scale, rpe=rpe)
 
 
-def patch_attention_split(q, k, v, key_valid, scale, warps, splits):
+def patch_attention_split(q, k, v, key_valid, scale, warps, splits,
+                          head_scale=None, rpe=None):
     """K1 on CUDA tensors with a given query split (attention_query_split
     gives patch_attention's); one launch."""
     G, H, P, Dh = _check_attention("patch_attention", q, k, v, key_valid)
@@ -312,14 +462,13 @@ def patch_attention_split(q, k, v, key_valid, scale, warps, splits):
     k, v = _aligned(k), _aligned(v)
     if q.dtype == torch.bfloat16:
         q = _aligned(q)
-        kernel, entry, scale = ("patch_attention_bf16",
-                                "r3dl_patch_attention_bf16",
-                                bf16_value(scale))
-    else:
-        kernel, entry = "patch_attention", "r3dl_patch_attention"
+        scale = bf16_value(scale)
+    kernel, entry = _opts_route("patch_attention", "r3dl_patch_attention", q,
+                                head_scale, rpe)
+    opts = _opt_args("patch_attention", q, head_scale, rpe)
     cuda_lib.launch(kernel, entry, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                    key_valid.data_ptr(), out.data_ptr(), G, H, P, Dh, warps,
-                    splits, float(scale))
+                    key_valid.data_ptr(), out.data_ptr(), *opts, G, H, P, Dh,
+                    warps, splits, float(scale))
     return out
 
 
@@ -331,21 +480,25 @@ def _dropout_args(rate, seed):
     return seed, keep_threshold(rate), 1.0 / (1.0 - rate)
 
 
-def _dropout_route(q, scale, kernel, entry):
-    """(counter, entry point, scale) of K5 or K6 for q's dtype: at bf16 the
-    _bf16 entry and scale rounded to bf16, as K1's bf16 path takes it."""
+def _dropout_route(q, scale, kernel, entry, head_scale, rpe):
+    """(counter, entry point, scale) of K5 or K6 for q's dtype and the
+    options: at bf16 the _bf16 entry and scale rounded to bf16, as K1's
+    bf16 path takes it."""
+    kernel, entry = _opts_route(kernel, entry, q, head_scale, rpe)
     if q.dtype == torch.bfloat16:
-        return kernel + "_bf16", entry + "_bf16", bf16_value(scale)
+        return kernel, entry, bf16_value(scale)
     return kernel, entry, float(scale)
 
 
-def patch_attention_dropout_fwd(q, k, v, key_valid, scale, rate, seed):
+def patch_attention_dropout_fwd(q, k, v, key_valid, scale, rate, seed,
+                                head_scale=None, rpe=None):
     """(out, lse, bits) of the training attention, q, k, v fp32 or bf16
-    (lse fp32): K5 for CUDA tensors, the plain version for CPU tensors."""
+    (lse fp32), with the options head_scale and rpe: K5 for CUDA tensors,
+    the plain version for CPU tensors."""
     seed, thresh, inv_keep = _dropout_args(rate, seed)
     if not q.is_cuda:
         return patch_attention_dropout_fwd_plain(q, k, v, key_valid, scale,
-                                                 rate, seed)
+                                                 rate, seed, head_scale, rpe)
     G, H, P, Dh = _check_attention("patch_attention_dropout", q, k, v,
                                    key_valid)
     if q.dtype == torch.bfloat16:
@@ -355,24 +508,31 @@ def patch_attention_dropout_fwd(q, k, v, key_valid, scale, rate, seed):
     bits = torch.empty((G, H, P, (P + 31) // 32), dtype=torch.int32,
                        device=q.device)
     kernel, entry, scale = _dropout_route(q, scale, "patch_attention_dropout",
-                                          "r3dl_attention_dropout_fwd")
+                                          "r3dl_attention_dropout_fwd",
+                                          head_scale, rpe)
+    opts = _opt_args("patch_attention_dropout", q, head_scale, rpe)
     cuda_lib.launch(kernel, entry,
                     q.data_ptr(), k.data_ptr(), v.data_ptr(),
                     key_valid.data_ptr(), out.data_ptr(), lse.data_ptr(),
-                    bits.data_ptr(), G, H, P, Dh, scale, seed, thresh,
+                    bits.data_ptr(), *opts, G, H, P, Dh, scale, seed, thresh,
                     inv_keep)
     return out, lse, bits
 
 
 def patch_attention_dropout_bwd(q, k, v, key_valid, out, lse, bits, g, scale,
-                                rate):
+                                rate, head_scale=None, rpe=None):
     """(dq, dk, dv) of patch_attention_dropout for the cotangent g, from
     what the forward returned, in q's dtype: K6 for CUDA tensors, the plain
-    version for CPU tensors."""
+    version for CPU tensors. With the options, (dq, dk, dv, dtable,
+    dhead_scale) as patch_attention_dropout_bwd_plain returns them (fp32;
+    None where off); K6 writes one partial per (patch, head), summed here
+    over the patches in a fixed order."""
+    opt = head_scale is not None or rpe is not None
     if not q.is_cuda:
         grads = patch_attention_dropout_bwd_plain(
-            q, k, v, key_valid, out, lse, bits, g, scale, rate)
-        return tuple(t.to(q.dtype) for t in grads)
+            q, k, v, key_valid, out, lse, bits, g, scale, rate, head_scale,
+            rpe)
+        return tuple(t.to(q.dtype) for t in grads[:3]) + tuple(grads[3:])
     G, H, P, Dh = _check_attention("patch_attention_dropout_bwd", q, k, v,
                                    key_valid, out, g)
     cuda_lib.check_cuda_tensor("patch_attention_dropout_bwd lse", lse,
@@ -388,35 +548,63 @@ def patch_attention_dropout_bwd(q, k, v, key_valid, out, lse, bits, g, scale,
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     kernel, entry, scale = _dropout_route(q, scale,
                                           "patch_attention_dropout_bwd",
-                                          "r3dl_attention_dropout_bwd")
+                                          "r3dl_attention_dropout_bwd",
+                                          head_scale, rpe)
+    opts, dtab, dhs = (), None, None
+    if opt:
+        hs, gc, table, b = _opt_args("patch_attention_dropout_bwd", q,
+                                     head_scale, rpe)
+        if rpe is not None:
+            dtab = torch.empty((G, 3 * (2 * b + 1), H), dtype=torch.float32,
+                               device=q.device)
+        if head_scale is not None:
+            dhs = torch.empty((G, H), dtype=torch.float32, device=q.device)
+        opts = (hs, gc, table, b, None if dtab is None else dtab.data_ptr(),
+                None if dhs is None else dhs.data_ptr())
     cuda_lib.launch(kernel, entry, q.data_ptr(), k.data_ptr(),
                     v.data_ptr(), key_valid.data_ptr(), out.data_ptr(),
                     lse.data_ptr(), bits.data_ptr(), g.data_ptr(),
-                    dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), G, H, P, Dh,
-                    scale, 1.0 / (1.0 - rate))
-    return dq, dk, dv
+                    dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *opts, G, H,
+                    P, Dh, scale, 1.0 / (1.0 - rate))
+    if not opt:
+        return dq, dk, dv
+    return (dq, dk, dv, None if dtab is None else dtab.sum(0),
+            None if dhs is None else dhs.sum(0))
 
 
 class _PatchAttentionDropout(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, key_valid, scale, rate, seed):
-        out, lse, bits = patch_attention_dropout_fwd(q, k, v, key_valid,
-                                                     scale, rate, seed)
-        ctx.save_for_backward(q, k, v, key_valid, out, lse, bits)
-        ctx.args = (scale, rate)
+    def forward(ctx, q, k, v, key_valid, scale, rate, seed, head_scale, gc,
+                table, b):
+        rpe = None if gc is None else (gc, table, b)
+        out, lse, bits = patch_attention_dropout_fwd(
+            q, k, v, key_valid, scale, rate, seed, head_scale, rpe)
+        ctx.save_for_backward(q, k, v, key_valid, out, lse, bits, head_scale,
+                              gc, table)
+        ctx.args = (scale, rate, b)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        return (*patch_attention_dropout_bwd(*ctx.saved_tensors,
-                                             g.contiguous(), *ctx.args),
-                None, None, None, None)
+        q, k, v, kv, out, lse, bits, hs, gc, table = ctx.saved_tensors
+        scale, rate, b = ctx.args
+        rpe = None if gc is None else (gc, table, b)
+        grads = patch_attention_dropout_bwd(q, k, v, kv, out, lse, bits,
+                                            g.contiguous(), scale, rate, hs,
+                                            rpe)
+        dtab, dhs = grads[3:] if len(grads) > 3 else (None, None)
+        return (*grads[:3], None, None, None, None, dhs, None, dtab, None)
 
 
-def patch_attention_dropout(q, k, v, key_valid, scale, rate, seed):
+def patch_attention_dropout(q, k, v, key_valid, scale, rate, seed,
+                            head_scale=None, rpe=None):
     """Training attention with in-kernel dropout (K5 forward, K6 backward)
     for CUDA tensors; the plain versions with philox_keep_mask for CPU
     tensors. seed: a uint32 int, one per call (the wrapper's generator
-    draws it); at rate 0 this is exact attention and its exact backward."""
+    draws it); at rate 0 this is exact attention and its exact backward.
+    head_scale, rpe: the options (module docstring); their gradients reach
+    head_scale and rpe's table."""
+    gc, table, b = (None, None, 0) if rpe is None else rpe
     return _PatchAttentionDropout.apply(q, k, v, key_valid, float(scale),
-                                        float(rate), int(seed))
+                                        float(rate), int(seed), head_scale,
+                                        gc, table, int(b))

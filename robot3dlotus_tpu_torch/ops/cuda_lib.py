@@ -42,6 +42,11 @@ _L = ctypes.c_longlong
 # C signatures: every entry point returns cudaGetLastError() as int
 _GATHER = [_P, _P, _P, _I, _I, _I, _I, _I, _P]
 _ATTENTION = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P]
+_ATTENTION_OPTS = _ATTENTION[:5] + [_P, _P, _P, _I] + _ATTENTION[5:]
+_DROP_FWD_OPTS = [_P] * 7 + [_P, _P, _P, _I] + [_I, _I, _I, _I, _F, _U, _U,
+                                                _F, _P]
+_DROP_BWD_OPTS = [_P] * 11 + [_P, _P, _P, _I, _P, _P] + [_I, _I, _I, _I, _F,
+                                                         _F, _P]
 _CONV = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _P]
 _STEM = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _L,
          _P]
@@ -81,6 +86,15 @@ SIGNATURES = {
                                    _P, _I, _I, _I, _I, _F, _F, _P],
     "r3dl_attention_dropout_bwd_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                         _P, _P, _I, _I, _I, _I, _F, _F, _P],
+    # the attention options (ops/attention.py head_scale, rpe): after the
+    # outputs, hs|NULL, gc|NULL, table|NULL, b (and in K6 the partials
+    # dtable|NULL, dhs|NULL), then as above
+    "r3dl_patch_attention_opts": _ATTENTION_OPTS,
+    "r3dl_patch_attention_opts_bf16": _ATTENTION_OPTS,
+    "r3dl_attention_dropout_fwd_opts": _DROP_FWD_OPTS,
+    "r3dl_attention_dropout_fwd_opts_bf16": _DROP_FWD_OPTS,
+    "r3dl_attention_dropout_bwd_opts": _DROP_BWD_OPTS,
+    "r3dl_attention_dropout_bwd_opts_bf16": _DROP_BWD_OPTS,
     # x, idx, ok, w, bias|NULL, out, work|NULL, B, N, K, Cin, Cout,
     # splits, work_bytes, stream
     "r3dl_subm_conv": _CONV,
@@ -102,7 +116,8 @@ SIGNATURES = {
 }
 
 # K1-K10 by wrapper name; their bf16 paths count apart (K2's input
-# gradient at bf16 as subm_conv_dx_bf16)
+# gradient at bf16 as subm_conv_dx_bf16), and so do K1, K5 and K6 with the
+# attention options (_opts)
 LAUNCHES = {"patch_attention": 0, "subm_conv": 0, "stem_conv": 0,
             "gather_rows": 0, "patch_attention_dropout": 0,
             "patch_attention_dropout_bwd": 0, "conv_weight_grad": 0,
@@ -113,7 +128,13 @@ LAUNCHES = {"patch_attention": 0, "subm_conv": 0, "stem_conv": 0,
             "patch_attention_dropout_bf16": 0,
             "patch_attention_dropout_bwd_bf16": 0,
             "conv_weight_grad_bf16": 0, "scatter_rows_add_bf16": 0,
-            "scatter_rows_smallc_add_bf16": 0}
+            "scatter_rows_smallc_add_bf16": 0,
+            # K1, K5 and K6 with the attention options, both dtypes
+            "patch_attention_opts": 0, "patch_attention_opts_bf16": 0,
+            "patch_attention_dropout_opts": 0,
+            "patch_attention_dropout_opts_bf16": 0,
+            "patch_attention_dropout_bwd_opts": 0,
+            "patch_attention_dropout_bwd_opts_bf16": 0}
 
 _LIB = None
 _FNS = {}       # C entry point name -> its ctypes function object, bound once

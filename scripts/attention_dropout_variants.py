@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Time variants of the training attention kernels K5 and K6
-(robot3dlotus_tpu_torch/csrc/attention_dropout.cu) on one card.
+(robot3dlotus_tpu_torch/csrc/attention_dropout.cuh) on one card.
 
     python3 scripts/attention_dropout_variants.py
 
@@ -48,13 +48,24 @@ VARIANTS = {"chunk1": (1, 2, 2), "chunk2": (2, 2, 2), "chunk4": (4, 2, 2),
 
 
 def variant_source(chunk, fwd_blocks, bwd_blocks):
-    src = open(SRC).read()
-    src, n = re.subn(r"constexpr int kChunk = \d+;",
-                     f"constexpr int kChunk = {chunk};", src)
-    head, fwd, bwd = src.split("__launch_bounds__(kThreads, 2)")
-    assert n == 1
-    return (head + f"__launch_bounds__(kThreads, {fwd_blocks})" + fwd +
-            f"__launch_bounds__(kThreads, {bwd_blocks})" + bwd)
+    """The release entry points with the kernels' header inlined and the
+    fp32 K5 / K6 constants of the variant."""
+    src = open(SRC).read().replace(
+        '#include "attention_dropout.cuh"',
+        open(os.path.join(cuda_lib.CSRC, "attention_dropout.cuh")).read())
+    for pat, new in (
+            (r"constexpr int kChunk = \d+;",
+             f"constexpr int kChunk = {chunk};"),
+            (r"__launch_bounds__\(kThreads, 2\)\nattn_drop_fwd_kernel\(",
+             f"__launch_bounds__(kThreads, {fwd_blocks})\n"
+             "attn_drop_fwd_kernel("),
+            (r"__launch_bounds__\(kThreads, Opts::kRpe \? 1 : 2\)\n"
+             r"attn_drop_bwd_kernel\(",
+             f"__launch_bounds__(kThreads, {bwd_blocks})\n"
+             "attn_drop_bwd_kernel(")):
+        src, n = re.subn(pat, new, src)
+        assert n == 1, pat
+    return src
 
 
 def build_all():

@@ -8,8 +8,8 @@ each variant is the source with its constants rewritten: the listed rows a
 CPE stage holds at bf16 (rows_per_stage), the ring's stages (kStages) and
 the cloud rows a stem stage holds (kRK16), with the wrapper's plan aiming
 at a multiple of WGRAD_TARGET_BLOCKS (ops/conv.py
-WGRAD_BF16_TARGET_BLOCKS, set for the variant's turns). K6 (csrc/attention_dropout.cu,
-r3dl_attention_dropout_bwd_bf16): the bf16 pieces of p and ds that its dv,
+WGRAD_BF16_TARGET_BLOCKS, set for the variant's turns). K6
+(csrc/attention_dropout.cuh, r3dl_attention_dropout_bwd_bf16): the bf16 pieces of p and ds that its dv,
 dk and dq products take (mma_pieces: 3, the release; 2 without lo; 1, hi
 alone), so that the cost of each piece shows. Every variant is built by
 its own nvcc (all started together, `-Xptxas -v` kept) into its own
@@ -79,7 +79,11 @@ def k7_source(rows, stages, stem_rows):
 
 
 def k6_source(pieces):
-    src = open(os.path.join(cuda_lib.CSRC, "attention_dropout.cu")).read()
+    """The release entry points with the kernels' header inlined, K6 bf16
+    with `pieces` bf16 pieces of p and ds."""
+    src = open(os.path.join(cuda_lib.CSRC, "attention_dropout.cu")).read(
+    ).replace('#include "attention_dropout.cuh"', open(os.path.join(
+        cuda_lib.CSRC, "attention_dropout.cuh")).read())
     for line in PIECES[:3 - pieces]:
         assert src.count(line) == 1, line
         src = src.replace(line, "")

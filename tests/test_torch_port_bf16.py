@@ -572,10 +572,15 @@ def test_motion_planner_engine_serves_fp32_file_at_bf16(tmp_path):
 def test_ptv3_kwargs_accepts_compute_dtype_and_names_missing_options():
     assert ptv3_kwargs({"compute_dtype": "bfloat16"}) == {
         "compute_dtype": "bfloat16"}
-    assert ptv3_kwargs({"add_coords_in_attn": "none"}) == {}
-    for opt in ("enable_rpe", "scaled_cosine_attn", "upcast_attention"):
-        with pytest.raises(ValueError, match="add_coords_in_attn"):
-            ptv3_kwargs({opt: True})
+    # the attention options pass through (test_torch_port_attn_options.py
+    # holds the model they build); an unknown truthy option still raises
+    assert ptv3_kwargs({"add_coords_in_attn": "none"}) == {
+        "add_coords_in_attn": "none"}
+    for opt, v in (("enable_rpe", True), ("scaled_cosine_attn", True),
+                   ("upcast_attention", True), ("add_coords_in_attn", "qk")):
+        assert ptv3_kwargs({opt: v}) == {opt: v}
+    with pytest.raises(ValueError, match="no_such_option"):
+        ptv3_kwargs({"no_such_option": True})
     with pytest.raises(ValueError, match="float32 .None. or bfloat16"):
         build_model({"model_class": "SimplePolicyPTV3CA",
                      "ptv3_config": dict(PTV3, compute_dtype="float16"),

@@ -1373,3 +1373,145 @@ def test_chamfer_card_vs_cpu(dev, reduction):
     want = chamfer_distance_np(a, b, reduction)
     assert got.device.type == "cuda"
     assert abs(float(got) - want) <= 1e-4 * max(abs(want), 1e-3)
+
+
+# ---- K1, K5 and K6 with the attention options (head_scale, rpe) ----
+# Every instantiation (fp32 and bf16; the scale alone, the bias alone,
+# both) against the plain versions with the same options: fp32 within
+# 1e-4 of max(1, |plain|) (gradients and the options' gradients within
+# 1e-4 of their own scale), bf16 within the ops/bf16.py bar (K1 and K5
+# plus the probabilities' allowance); every kernel bit-equal across two
+# launches (K6's options' partials are summed in a fixed order, no
+# atomics).
+
+OPTION_SETS = ["both", "rpe", "scale"]
+
+
+def _opt_inputs(dev, which, G, H, P, Dh, dtype, seed=11):
+    """q, k, v, key_valid, g and (scale, head_scale, rpe): under the scale
+    q and k unit rows (scaled cosine attention) and scale 1, head scales
+    of 5-40; under the bias grid coordinates spanning several times its
+    bound (the clip bites) and a table of 0.3-scale rows."""
+    q, k, v, kv, g = _attn_dropout_inputs(dev, G, H, P, Dh, seed)
+    gen = torch.Generator().manual_seed(seed + 1)
+    scale, hs, rpe = Dh ** -0.5, None, None
+    if which in ("both", "scale"):
+        q = q / q.norm(dim=-1, keepdim=True)
+        k = k / k.norm(dim=-1, keepdim=True)
+        scale = 1.0
+        hs = (torch.rand(H, generator=gen) * 35 + 5).to(dev)
+    if which in ("both", "rpe"):
+        b = attention.pos_bound(P)
+        gc = torch.randint(0, 4 * b, (G, P, 3), generator=gen,
+                           dtype=torch.int32).to(dev)
+        table = (torch.randn(3 * (2 * b + 1), H, generator=gen) * 0.3).to(dev)
+        rpe = (gc, table, b)
+    q, k, v, g = (t.to(dtype) for t in (q, k, v, g))
+    return q, k, v, kv, g, (scale, hs, rpe)
+
+
+def _opt_kernel(name, dtype):
+    return name + "_opts" + ("_bf16" if dtype == BF16 else "")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("which", OPTION_SETS)
+@pytest.mark.parametrize("Dh", [8, 16, 24, 32])
+@pytest.mark.parametrize("P", [128, 37])
+def test_k1_attention_options(dev, P, Dh, which, dtype):
+    """K1 with the options at B = 1 stage-0 counts (G, H = 32, 2) against
+    its plain version, patch 0 with no valid key, bit-equal across two
+    launches and across query splits."""
+    G, H = 32, 2
+    q, k, v, kv, _, (scale, hs, rpe) = _opt_inputs(dev, which, G, H, P, Dh,
+                                                   dtype)
+    args = (q, k, v, kv, scale)
+    run = lambda: attention.patch_attention(  # noqa: E731
+        *args, head_scale=hs, rpe=rpe)
+    got = _twice(run, _opt_kernel("patch_attention", dtype))
+    want = attention.patch_attention_plain(*args, hs, rpe)
+    if dtype == BF16:
+        _bf16_check(got, want, attention.bf16_probability_allowance(
+            *args, head_scale=hs, rpe=rpe))
+    else:
+        _check(got, want)
+    groups = -(-P // 16)
+    for warps in (1, 8):
+        assert torch.equal(attention.patch_attention_split(
+            *args, warps, -(-groups // warps), head_scale=hs, rpe=rpe), got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("which", OPTION_SETS)
+@pytest.mark.parametrize("Dh", [8, 16, 24, 32])
+@pytest.mark.parametrize("P,rate", [(128, 0.1), (37, 0.1), (128, 0.0)])
+def test_k5_k6_attention_options(dev, P, rate, Dh, which, dtype):
+    """K5 and K6 with the options: K5's out, lse and bits, K6's dq, dk, dv
+    and the options' gradients (dtable, dhead_scale) against the plain
+    versions, each kernel bit-equal across two launches; the autograd path
+    one K5 and one K6 launch, its table and scale gradients K6's."""
+    G, H, seed = 6, 3, 24681357
+    q, k, v, kv, gout, (scale, hs, rpe) = _opt_inputs(dev, which, G, H, P,
+                                                      Dh, dtype)
+    opts = dict(head_scale=hs, rpe=rpe)
+    run5 = lambda: attention.patch_attention_dropout_fwd(  # noqa: E731
+        q, k, v, kv, scale, rate, seed, **opts)
+    (out, lse, bits), again = run5(), run5()
+    torch.cuda.synchronize()
+    for a, b in zip((out, lse, bits), again):
+        assert torch.equal(a, b)
+    p_out, p_lse, p_bits = attention.patch_attention_dropout_fwd_plain(
+        q, k, v, kv, scale, rate, seed, **opts)
+    assert torch.equal(bits, p_bits)
+    _check(lse[1:], p_lse[1:])
+    if dtype == BF16:
+        keep = attention.philox_keep_mask(seed, G, H, P, rate, dev)
+        _bf16_check(out, p_out, attention.bf16_probability_allowance(
+            q, k, v, kv, scale, rate, keep, **opts))
+    else:
+        _check(out, p_out)
+    run6 = lambda: attention.patch_attention_dropout_bwd(  # noqa: E731
+        q, k, v, kv, out, lse, bits, gout, scale, rate, **opts)
+    got, again = run6(), run6()
+    want = attention.patch_attention_dropout_bwd_plain(
+        q, k, v, kv, out, lse, bits, gout, scale, rate, **opts)
+    assert len(got) == len(want) == 5
+    for a, b, c in zip(got, again, want):
+        assert (a is None) == (c is None)
+        if a is None:
+            continue
+        assert torch.equal(a, b)
+        if a.dtype == BF16:
+            _bf16_check(a, c.to(BF16), relative=True)
+        else:
+            _check_rel(a, c)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    hs_r = None if hs is None else hs.clone().requires_grad_()
+    tab_r = None if rpe is None else rpe[1].clone().requires_grad_()
+    cuda_lib.reset_launches()
+    attention.patch_attention_dropout(
+        *leaves, kv, scale, rate, seed, hs_r,
+        None if rpe is None else (rpe[0], tab_r, rpe[2])).backward(gout)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in cuda_lib.LAUNCHES.items() if v} == {
+        _opt_kernel("patch_attention_dropout", dtype): 1,
+        _opt_kernel("patch_attention_dropout_bwd", dtype): 1}
+    for a, b in zip(leaves, got[:3]):
+        assert torch.equal(a.grad, b)
+    if rpe is not None:
+        assert torch.equal(tab_r.grad, got[3])
+    if hs is not None:
+        assert torch.equal(hs_r.grad, got[4])
+
+
+def test_k1_options_refuse_a_gradient(dev):
+    """K1 has no backward, with the options too: a table or a scale that
+    needs a gradient is refused."""
+    q, k, v, kv, _, (scale, hs, rpe) = _opt_inputs(dev, "both", 4, 2, 64,
+                                                   32, torch.float32)
+    with pytest.raises(RuntimeError, match="no backward"):
+        attention.patch_attention(q, k, v, kv, scale,
+                                  hs.clone().requires_grad_(), rpe)
+    with pytest.raises(RuntimeError, match="no backward"):
+        attention.patch_attention(q, k, v, kv, scale, hs, (
+            rpe[0], rpe[1].clone().requires_grad_(), rpe[2]))
