@@ -378,18 +378,25 @@ weights, release widths):
              check on VARIANT_CHECK_SLICES slices and the redrawn one, the
              CPU following the card's max decisions (scaled cosine
              attention's near-uniform stage 0 ties the first pooling's
-             maxima within rounding);
+             maxima within rounding); K6's blocks an SM with the options
+             (attention.bwd_opts_blocks_per_sm, each head dim: must be 2);
  27. bf16-attn-opts  the same at compute_dtype bfloat16 with
              add_coords_in_attn 'qk' (BF16_ATTN_OPTS; the bf16 bars, heads
              card vs the CPU port at bf16 within BF16_CPU_TOL, the
-             predict_batch's heads, not its actions, against B = 1's within
-             BF16_CPU_TOL (batch_heads_phase: at bf16 the two round apart
-             and a decoded position can move between near ties), the bf16
-             step check's bars, the biases in front of a batch norm, whose
-             gradients are zero up to rounding, held in its L2 bar only)
-             on phase 26's host batches, then one
-             predict with upcast_attention (the fp32 _opts K1: launches
-             held at UPCAST_PER_FORWARD) card vs CPU.
+             predict_batch's actions equal to the sequential ones, the
+             bf16 step check's bars, the biases in front of a batch norm,
+             whose gradients are zero up to rounding, held in its L2 bar
+             only) on phase 26's host batches, then one predict with
+             upcast_attention (the JAX XLA path: the fp32 _opts K1 with the
+             probabilities rounded to bf16, launches held at
+             UPCAST_PER_FORWARD) and one with upcast_attention and no
+             option (the JAX Pallas path: the bf16 release K1, launches
+             held at BF16_PER_FORWARD), each card vs CPU.
+The K2 / K3 order check (batch-order, after phase 1's kernels and after
+the motion planner's capture): each captured B = 1 K3 and K2 call of the
+policy and K2 call of the motion planner, at fp32 and cast to bf16,
+bit-equal to the same cloud's rows in a B = 4 batch (and K3 to the
+whole-row plan), so that a row's order of sums does not follow B.
 It fails if a kernel's main path (K10's: phase 10) launched it no time.
 Before it prints its result it stops the loader's forkserver and
 multiprocessing's resource tracker, waits for every process the run
@@ -1339,6 +1346,49 @@ def kernel_phase(captured, captured_batch):
     return rows, detail
 
 
+def batch_order_phase(stem_calls, conv_calls, tag):
+    """K3 and K2 sum a row in one order at every B (ops/stem.py
+    stem_sum_ranges, ops/conv.py conv_tap_splits): each captured B = 1
+    call, at fp32 and cast to bf16, against the same cloud at slot 2 of a
+    B = 4 batch (the other slots its features rolled by 1, 2 and 3 rows,
+    the same map), bit for bit; K3 also against the batch with the whole
+    row in one block (the B = 32 plan's form). The launches made here
+    count in no main path."""
+    checked = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, fn, calls in (("K3", stem.stem_conv, stem_calls),
+                                ("K2", conv.subm_conv, conv_calls)):
+            for args in calls:
+                x, idx, ok, w = args[:4]
+                x, w = x.to(dtype), w.to(dtype)
+                alone = fn(x, idx, ok, w, *args[4:])
+                x4 = torch.cat([x.roll(r, 1) for r in (1, 2, 0, 3)])
+                idx4, ok4 = (t.expand(4, -1, -1).contiguous()
+                             for t in (idx, ok))
+                batch = fn(x4, idx4, ok4, w, *args[4:])
+                if not torch.equal(alone[0], batch[2]):
+                    raise AssertionError(
+                        f"[{tag}] {name} {dtype} {list(x.shape)}: rows at "
+                        "B = 1 differ from the same rows inside B = 4")
+                if name == "K3":
+                    B, N, cin = x4.shape
+                    K, _, cout = w.shape
+                    cols, warps, splits, blocks = stem.stem_conv_plan(
+                        B, N, K, cin, cout, dtype == torch.bfloat16)
+                    whole = stem.stem_conv_split(x4, idx4, ok4, w, cols,
+                                                 warps, 1, blocks)
+                    if splits > 1 and not torch.equal(whole, batch):
+                        raise AssertionError(
+                            f"[{tag}] K3 {dtype}: the whole-row plan "
+                            f"differs from the {splits} ranges' plan")
+                key = f"{name} {str(dtype)[6:]}"
+                checked[key] = checked.get(key, 0) + 1
+    torch.cuda.synchronize()
+    log(f"[{tag}] rows at B = 1 bit-equal to the same rows in B = 4 "
+        f"(calls checked: {checked})")
+    return checked
+
+
 def host_split(x, idx, rounds=5, calls=2000):
     """Host microseconds per call (host clock, median of `rounds` rounds of
     `calls` back-to-back calls) of K4's wrapper and of torch.gather on the
@@ -1398,12 +1448,11 @@ def requests(observations):
 
 
 def serving_phase(actioner, observations, per_forward=PER_FORWARD,
-                  tag="serving", exact_batch=True):
+                  tag="serving"):
     """Launch counters to 0, the requests one by one and as one
-    predict_batch, counters read and held at per_forward. With
-    `exact_batch` the batch's actions must equal the sequential ones
-    (1e-5); without, their difference is logged (a bf16 caller holds the
-    heads instead: batch_heads_phase). Records the p50, the batch's time
+    predict_batch, counters read and held at per_forward; the batch's
+    actions must equal the sequential ones (1e-5; K2 and K3 sum a row in
+    one order at every B, also at bf16). Records the p50, the batch's time
     and the peak memory of the requests (and that peak above the memory
     in use before them)."""
     payloads = requests(observations)
@@ -1435,7 +1484,7 @@ def serving_phase(actioner, observations, per_forward=PER_FORWARD,
     for i, (s, b) in enumerate(zip(seq, bat)):
         if s.shape != (8,) or not np.isfinite(s).all():
             raise AssertionError(f"request {i}: bad action {s}")
-        if exact_batch and not np.allclose(s, b, atol=1e-5, rtol=0):
+        if not np.allclose(s, b, atol=1e-5, rtol=0):
             raise AssertionError(f"request {i}: predict_batch {b} != "
                                  f"predict {s}")
     batch_diff = max(float(np.abs(s - b).max()) for s, b in zip(seq, bat))
@@ -5198,7 +5247,8 @@ def variants_phase(observations):
 
 # the options' launch counts at bf16 (BF16_ATTN_OPTS): the bf16 _opts
 # kernels stand in for the bf16 K1, K5, K6; with upcast_attention q and k
-# are fp32 after the norms and v is widened, so K1 is the fp32 _opts one
+# are fp32 after the norms (the JAX XLA path), so K1 is the fp32 _opts one
+# on its mixed route (the probabilities rounded to bf16), counted with it
 BF16_ATTN_OPTS_PER_FORWARD = dict(BF16_PER_FORWARD, patch_attention_bf16=0,
                                   patch_attention_opts_bf16=9)
 UPCAST_PER_FORWARD = dict(BF16_PER_FORWARD, patch_attention_bf16=0,
@@ -5445,48 +5495,23 @@ def _heads_vs_cpu(actioner, obs, cli, tol, tag):
     return errs
 
 
-def batch_heads_phase(actioner, observations, tol, tag):
-    """Each observation's heads from a B = 1 forward against its heads in
-    one forward of all of them, within tol * max(1, |B = 1|). At bf16 the
-    two forwards round apart (K3's plan, and so its order of sums, follows
-    B: the release model's stem outputs already differ by 2^-11), so a
-    decoded position may move between near-tied points; the heads are
-    held instead of the actions."""
-    items = []
-    for i, o in enumerate(observations):
-        actioner.rng = np.random.default_rng(3)
-        emb, pc_ft, _, _, ee = actioner._host_prep("close_jar", i, o, None)
-        items.append((pc_ft, emb, ee, 0))
-    keys = ("pos", "rot", "open")
-    with torch.inference_mode():
-        many = actioner.model(actioner._batch(items, len(items)))
-        errs = {k: 0.0 for k in keys}
-        for i, it in enumerate(items):
-            one = actioner.model(actioner._batch([it], 1))
-            e = _heads_vs({k: many[k][i:i + 1] for k in keys}, one, keys,
-                          tol, f"{tag} batch vs B = 1, request {i} ")
-            errs = {k: max(errs[k], e[k]) for k in keys}
-    log(f"[{tag}] heads of a batch of {len(items)} vs B = 1, max |diff| "
-        f"(bar {tol} x max(1, |ref|)): {errs}")
-    return errs
-
-
 def attn_opts_phase(tag, opts, per_forward, per_step, per_step_redraw,
                     observations, host=None, upcast=None):
     """The release policy with the attention options `opts` at the release
     width, seeded weights: a captured predict's K1 calls (the _opts
     kernel) each against its plain version and timed; 4 requests and a
-    predict_batch with launches held at per_forward, their p50 and peak
-    memory (at bf16 the batch's heads held against B = 1's,
-    batch_heads_phase, in place of its actions); card vs CPU heads;
+    predict_batch with launches held at per_forward (its actions equal
+    the sequential ones), their p50 and peak memory; card vs CPU heads;
     VARIANT_STEPS training steps at B = 32 with launches held at per_step
     (step p50, peak memory), one step captured and its K5 / K6 calls
     checked and timed (check_opts_train), their options' gradients
-    included; the step check on VARIANT_CHECK_SLICES slices (and the
-    redrawn one), the CPU following the card's max decisions (every
-    gradient held on every slice). With `upcast` (bf16): one more predict
-    with upcast_attention (its launches held at UPCAST_PER_FORWARD) card
-    vs CPU. `host`: host batches to reuse (made here otherwise)."""
+    included; K6's blocks an SM (2 at every head dim); the step check on
+    VARIANT_CHECK_SLICES slices (and the redrawn one), the CPU following
+    the card's max decisions (every gradient held on every slice). With
+    `upcast` (bf16): one more predict with upcast_attention (its launches
+    held at UPCAST_PER_FORWARD) and one with upcast_attention alone (the
+    bf16 release K1, BF16_PER_FORWARD), each card vs CPU. `host`: host
+    batches to reuse (made here otherwise)."""
     bf = "bfloat16" in opts
     t0 = time.perf_counter()
     cli = CLI_OPTS + opts
@@ -5514,10 +5539,7 @@ def attn_opts_phase(tag, opts, per_forward, per_step, per_step_redraw,
                                   for c in k1], tag, name)
     del k1
     out = {"serving": serving_phase(actioner, observations, per_forward,
-                                    tag, exact_batch=not bf)}
-    if bf:
-        out["batch_heads_max_diff"] = batch_heads_phase(
-            actioner, observations, BF16_CPU_TOL, tag)
+                                    tag)}
     out["reference_max_diff"] = _heads_vs_cpu(
         actioner, observations[0], cli, BF16_CPU_TOL if bf else 1e-3, tag)
     del actioner
@@ -5531,6 +5553,18 @@ def attn_opts_phase(tag, opts, per_forward, per_step, per_step_redraw,
                          "reference_max_diff": _heads_vs_cpu(
                              up, observations[0], cli + upcast,
                              BF16_CPU_TOL, f"{tag} upcast")}
+        del up
+        # upcast_attention alone: q and k back to bf16 after the norms,
+        # the bf16 release K1
+        cli_up = CLI_OPTS + BF16_OPTS + upcast
+        up = Actioner(CONFIG, cli_opts=cli_up, device="cuda", seed=0)
+        launches = _launches_of(lambda: up.predict(
+            **requests(observations)[0]))
+        _held(launches, BF16_PER_FORWARD, 1, f"[{tag}] upcast alone")
+        out["upcast_alone"] = {"launches": launches,
+                               "reference_max_diff": _heads_vs_cpu(
+                                   up, observations[0], cli_up,
+                                   BF16_CPU_TOL, f"{tag} upcast alone")}
         del up
         torch.cuda.empty_cache()
 
@@ -5557,6 +5591,15 @@ def attn_opts_phase(tag, opts, per_forward, per_step, per_step_redraw,
         _queued_fallback(rows[kname], [r[2][i] for r in res], tag, kname)
     del res
     torch.cuda.empty_cache()
+    dtype = torch.bfloat16 if bf else torch.float32
+    blocks = {Dh: attention.bwd_opts_blocks_per_sm(dtype, Dh)
+              for Dh in attention.KERNEL_HEAD_DIMS}
+    log(f"[{tag}] K6 with the options: blocks an SM by head dim {blocks} "
+        "(cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
+    if set(blocks.values()) != {2}:
+        raise AssertionError(f"[{tag}] K6 with the options holds {blocks} "
+                             "blocks an SM, not 2")
+    out["k6_blocks_per_sm"] = blocks
     out["training"], out["training_launches"] = training_phase(
         trainer, host[1:], None, per_step, None, tag)
     del trainer, batches
@@ -6157,6 +6200,8 @@ def run():
     captured_batch = capture_main_path(
         lambda: actioner.predict_batch(requests(observations)))
     rows, detail = kernel_phase(captured, captured_batch)
+    batch_order = {"policy": batch_order_phase(
+        captured["stem_conv"], captured["subm_conv"], "batch-order")}
     serving = serving_phase(actioner, observations)
     actioner.rng = np.random.default_rng(0)
     serving["nmap"] = nmap_phase(
@@ -6241,6 +6286,8 @@ def run():
     mp_obs = [synthetic_observation(200 + i) for i in range(MP_REQUESTS)]
     mp_fwd_captured = capture(lambda: mp_episode(pipe, mp_obs[:1], 0),
                               SMALLC_SITES + MP_CONV_SITES)
+    batch_order["motion_planner"] = batch_order_phase(
+        [], [a for a, _ in mp_fwd_captured["subm_conv"]], "mp-batch-order")
     mp_fwd_k2 = mp_forward_k2(mp_fwd_captured.pop("subm_conv"))
     mp_serving, mp_row = mp_serving_phase(pipe, mp_obs, out_dir)
     mp_serving["reference_max_diff"] = mp_reference_phase(engine, mp_row)
@@ -6340,7 +6387,8 @@ def run():
                    "variants": variants, "bf16": bf16, "bf16_mp": bf16_mp,
                    "attn_opts": attn_opts, "bf16_attn_opts": bf16_attn_opts,
                    "bf16_train": bf16_train, "bf16_mp_train": bf16_mp_train,
-                   "rp_vlm": rp_vlm, "optim": optim},
+                   "rp_vlm": rp_vlm, "optim": optim,
+                   "batch_order": batch_order},
                   f, indent=1)
     # each kernel's launches in the run of its own slice's main path: K1-K4
     # policy serving, K5-K8 policy training, K9 motion-planner serving, K10

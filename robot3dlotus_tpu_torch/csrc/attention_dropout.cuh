@@ -111,14 +111,18 @@
 // wrapper in a fixed order (no atomics: bit-equal from launch to launch):
 // dhs (G, H), the sum of ds S over the patch's (query, key) pairs, each
 // lane's own sum reduced in a fixed order; and dtable (G, 3R, H), the sum
-// of ds over the pairs of each table row. For dtable each thread keeps
-// its own 3R sums in shared memory, a column of a [row][thread] array
-// (no bank conflicts, no two threads on one word), adding the ds of its
-// pairs in order; after phase 1 warp w sums rows w, w + 8, .. across the
-// 256 threads in a fixed order. That array is 3R x 256 floats (93 KB at
-// P = 128), so a K6 block with the bias takes one SM alone; at a masked
-// key or a dead query ds is exactly 0 and adds nothing. The release
-// entry points (attention_dropout.cu) instantiate NoOpts.
+// of ds over the pairs of each table row, in a pass of its own
+// (table_pass; after phase 1 at fp32, after phase 2 at bf16): ds is in
+// shared memory then, so for each axis the threads of the patch's keys
+// walk the queries, each adding ds into its own column of R rows (15.5
+// KB, or two halves of the queries in two columns, in slices the phases
+// no longer need; at a masked key or a dead query ds is exactly 0), and
+// 8 warps sum the rows across the columns in a fixed order. No per-thread
+// sums live through phase 1 (3R x 256 floats, 93 KB), so K6 with the
+// options runs two blocks an SM, as the release K6 does (at bf16 v's
+// fragments come from device memory and the options' lookup data take
+// the end of v's slice). The release entry points (attention_dropout.cu)
+// instantiate NoOpts.
 #pragma once
 #include <cuda_runtime.h>
 #include <math.h>
@@ -147,50 +151,28 @@ constexpr int kWarps = 8;                 // 8 warps x 16 rows = kMaxP
 constexpr int kThreads = 32 * kWarps;
 constexpr int kMaxWords = kMaxP / 32;     // bit words per row
 
-// K6's shared memory for the options after its own (bytes): Opts' lookup
-// data, then kWarps floats of dhs, then the 3R x kThreads dtable sums
+// K6's table pass (kRpe): the rows of one axis at a time, one column of
+// kMaxP floats a row, thread j owning key j's column
+constexpr int kMaxRows = 2 * r3dl::kMaxPosBound + 1;
+constexpr size_t kRowsBytes = (size_t)kMaxRows * kMaxP * sizeof(float);
+
+// K6's shared memory for the options (bytes): Opts' lookup data, then
+// kWarps floats of dhs
 template <class Opts>
-size_t bwd_opts_smem(int b) {
-  if constexpr (!Opts::kAny) return 0;
-  return Opts::kSmem + kWarps * sizeof(float) +
-         (Opts::kRpe ? 3 * (size_t)(2 * b + 1) * kThreads * sizeof(float)
-                     : 0);
+__host__ __device__ constexpr size_t bwd_opts_smem() {
+  return Opts::kAny ? Opts::kSmem + kWarps * sizeof(float) : 0;
 }
 
-// K6: the extra smem of Opts at `extra`: the lookup data staged, the
-// thread's dtable sums zeroed; returns (dhs slots, dtable sums)
+// K6, one (query, key) pair's logit gradient ds into the options' sum
+// dh += ds S (S the pair's product); the table's sums come after phase 1
+// (table_pass)
 template <class Opts>
-__device__ __forceinline__ void stage_bwd_opts(Opts& opt, const OptArgs& oa,
-                                               long long gh, int H, int P,
-                                               char* extra, float*& sdhs,
-                                               float*& shist) {
-  const int tid = threadIdx.x;
-  opt.stage(oa, gh / H, (int)(gh % H), H, P, tid, kThreads, extra);
-  sdhs = reinterpret_cast<float*>(extra + Opts::kSmem);
-  shist = sdhs + kWarps;
-  if constexpr (Opts::kRpe)
-    for (int i = 0; i < 3 * opt.R; ++i) shist[i * kThreads + tid] = 0.f;
-}
-
-// K6, one (query, key) pair's ds (the gradient of its logit) into the
-// options' sums: dh += ds S (S the pair's product), and ds into this
-// thread's sums of the pair's three table rows
-template <class Opts>
-__device__ __forceinline__ void add_pair(const Opts& opt, float ds, float S,
-                                         int4 gi, int4 gj, float& dh,
-                                         float* shist) {
+__device__ __forceinline__ void add_pair(float ds, float S, float& dh) {
   if constexpr (Opts::kScale) dh = fmaf(ds, S, dh);
-  if constexpr (Opts::kRpe) {
-    const int3 r = opt.bins(gi, gj);
-    const int tid = threadIdx.x;
-    shist[r.x * kThreads + tid] += ds;
-    shist[r.y * kThreads + tid] += ds;
-    shist[r.z * kThreads + tid] += ds;
-  }
 }
 
 // K6, after phase 1: each warp's dhs into sdhs (before the block's
-// barrier), then (after it) the block's partials written in a fixed order
+// barrier), then (after it) the block's dhs written
 template <class Opts>
 __device__ __forceinline__ void warp_dhs(float dh, float* sdhs) {
   if constexpr (Opts::kScale) {
@@ -201,29 +183,70 @@ __device__ __forceinline__ void warp_dhs(float dh, float* sdhs) {
 }
 
 template <class Opts>
-__device__ __forceinline__ void write_opt_grads(const Opts& opt,
-                                                const OptGrads& og,
-                                                long long gh, int H,
-                                                const float* sdhs,
-                                                const float* shist) {
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const long long g = gh / H;
-  const int h = (int)(gh % H);
+__device__ __forceinline__ void write_dhs(const OptGrads& og, long long gh,
+                                          const float* sdhs) {
   if constexpr (Opts::kScale) {
-    if (tid == 0) {
+    if (threadIdx.x == 0) {
       float x = 0.f;
       for (int w = 0; w < kWarps; ++w) x += sdhs[w];
       og.hs[gh] = x;
     }
   }
-  if constexpr (Opts::kRpe) {
-    for (int r = warp; r < 3 * opt.R; r += kWarps) {
+}
+
+// K6's partial of dtable for patch g, head h (kRpe), after phase 1 and a
+// barrier: sds holds the logits' gradients ds[query][key] (row stride
+// `ld`, 0 at a masked key or a dead query). For each axis in turn thread
+// (half, j), j < P, walks its half of the queries (kHalves of them) in
+// order and adds ds[i][j] to row bin(c_i - c_j) of its own column of
+// `rows` (kHalves kRowsBytes: no two threads on one word, no bank
+// conflicts, no atomics); then warp w sums rows w, w + 8, .. across the
+// columns, half by half, in a fixed order. Bit-equal from launch to
+// launch. The read-modify-write chain through shared memory sets its
+// pace (with one half, on the 4 warps that own keys, about 2 of K6's 6.7
+// ms a fp32 options step), so two halves run (8 warps, two chains of half
+// the length) where the free slices hold their rows: Dh = 32 (at bf16 the
+// pass follows phase 2, so that k's slice is free too). Walks that summed
+// each bin's run in a register, in each axis's order, measured slower
+// (PERF.md).
+template <int kHalves, class Opts>
+__device__ __forceinline__ void table_pass(const Opts& opt,
+                                           const OptGrads& og,
+                                           const float* sds, int ld,
+                                           float* rows, long long gh, int H,
+                                           int P) {
+  static_assert(kHalves * kMaxP <= kThreads, "a thread a key and half");
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int key = tid % kMaxP, half = tid / kMaxP;
+  const long long g = gh / H;
+  const int h = (int)(gh % H), R = opt.R;
+  const int i0 = half * P / kHalves, i1 = (half + 1) * P / kHalves;
+#pragma unroll 1
+  for (int a = 0; a < 3; ++a) {
+    if (half < kHalves) {
+      float* col = rows + half * kMaxRows * kMaxP + key;
+      for (int r = 0; r < R; ++r) col[r * kMaxP] = 0.f;
+      if (key < P) {
+        const int cj = opt.axis(key, a);
+        const float* dsj = sds + key;
+#pragma unroll 4
+        for (int i = i0; i < i1; ++i)
+          col[opt.bin(opt.axis(i, a) - cj) * kMaxP] += dsj[i * ld];
+      }
+    }
+    __syncthreads();
+    for (int r = warp; r < R; r += kWarps) {
       float x = 0.f;
-      for (int i = lane; i < kThreads; i += 32) x += shist[r * kThreads + i];
+#pragma unroll
+      for (int hf = 0; hf < kHalves; ++hf)
+#pragma unroll
+        for (int i = lane; i < kMaxP; i += 32)
+          x += rows[(hf * kMaxRows + r) * kMaxP + i];
 #pragma unroll
       for (int sh = 16; sh; sh >>= 1) x += __shfl_xor_sync(kFull, x, sh);
-      if (lane == 0) og.table[(g * 3 * opt.R + r) * H + h] = x;
+      if (lane == 0) og.table[(g * 3 * R + a * R + r) * H + h] = x;
     }
+    __syncthreads();
   }
 }
 
@@ -432,13 +455,38 @@ __host__ __device__ size_t bwd_smem() {
          (size_t)kMaxP * kMaxWords * sizeof(uint32_t);
 }
 
+// K6 (fp32) with the options: its own shared memory, then the options'
+// (bwd_opts_smem), then the table pass's rows where q and g's slices are
+// too small to hold them (Dh = 8)
+template <int Dh>
+__host__ __device__ constexpr size_t q_g_bytes() {
+  return 2 * (size_t)kMaxP * Layout<Dh>::S * sizeof(float);
+}
+
+// the table pass's halves: two where q and g's slices hold both rows
+template <int Dh>
+__host__ __device__ constexpr int table_halves() {
+  return q_g_bytes<Dh>() >= 2 * kRowsBytes ? 2 : 1;
+}
+
+template <int Dh>
+__host__ __device__ constexpr bool rows_in_q() {
+  return q_g_bytes<Dh>() >= kRowsBytes;
+}
+
+template <int Dh, class Opts>
+__host__ __device__ size_t bwd_total_smem() {
+  return bwd_smem<Dh>() + bwd_opts_smem<Opts>() +
+         (Opts::kRpe && !rows_in_q<Dh>() ? kRowsBytes : 0);
+}
+
 // 8-query tiles per phase-1 step of K6: one keeps the Dh = 32 instance
-// within 128 registers; two spill 148 bytes and run 19% slower on an H100
-// SXM (scripts/attention_dropout_variants.py)
+// within 128 registers; two spilled 148 bytes and ran 19% slower on an
+// H100 SXM
 constexpr int kChunk = 1;
 
 template <int Dh, class Opts>
-__global__ void __launch_bounds__(kThreads, Opts::kRpe ? 1 : 2)
+__global__ void __launch_bounds__(kThreads, 2)
 attn_drop_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v,
                      const unsigned char* __restrict__ kv,
@@ -485,11 +533,10 @@ attn_drop_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   bool valid = false;
   if (tid < P) valid = smask[tid] = kv[gh / H * P + tid];
   Opts opt;
-  float *sdhs = nullptr, *shist = nullptr;
+  char* extra = reinterpret_cast<char*>(smem) + bwd_smem<Dh>();
+  float* sdhs = reinterpret_cast<float*>(extra + Opts::kSmem);
   if constexpr (Opts::kAny)
-    stage_bwd_opts(opt, oa, gh, H, P,
-                   reinterpret_cast<char*>(smem) + bwd_smem<Dh>(), sdhs,
-                   shist);
+    opt.stage(oa, gh / H, (int)(gh % H), H, P, tid, kThreads, extra);
   const bool any_valid = __syncthreads_or(valid);
 
   // ---- phase 1: warp w owns keys 16w..16w+15 ----
@@ -561,11 +608,14 @@ attn_drop_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                                        : 0.f;
             const float da = kp ? dp[n][e] * inv_keep : 0.f;
             float ds = live && val ? p * (da - sD[c]) : 0.f;
+            // the table pass reads the logits' gradients; dq and dk the
+            // products' (ds hs), phase 2 scaling them as it reads
+            if constexpr (Opts::kRpe) sds[c * DS + j] = ds;
             if constexpr (Opts::kAny) {
-              add_pair(opt, ds, s[n][e], gc, gk, dh, shist);
+              add_pair<Opts>(ds, s[n][e], dh);
               if constexpr (Opts::kScale) ds *= opt.hs;   // d S
             }
-            sds[c * DS + j] = ds;
+            if constexpr (!Opts::kRpe) sds[c * DS + j] = ds;
             s[n][e] = kp ? p * inv_keep : 0.f;
             dp[n][e] = ds;
           }
@@ -610,7 +660,14 @@ attn_drop_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
   if constexpr (Opts::kAny) warp_dhs<Opts>(dh, sdhs);
   __syncthreads();
-  if constexpr (Opts::kAny) write_opt_grads(opt, og, gh, H, sdhs, shist);
+  if constexpr (Opts::kAny) write_dhs<Opts>(og, gh, sdhs);
+  if constexpr (Opts::kRpe)    // the rows where q and g were (or after)
+    table_pass<table_halves<Dh>()>(
+        opt, og, sds, DS,
+        rows_in_q<Dh>()
+            ? sq
+            : reinterpret_cast<float*>(extra + bwd_opts_smem<Opts>()),
+        gh, H, P);
 
   // ---- phase 2: warp w owns queries 16w..16w+15; dq = ds k scale ----
   load_rows<Dh>(sq, SB, k + base, P, P8, 1.f);   // k where q and g were
@@ -624,7 +681,12 @@ attn_drop_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int kk = 0; kk < P8 / 8; ++kk) {
     const float* d0 = sds + r0 * DS + kk * 8 + t;
     const float* d1 = sds + r1 * DS + kk * 8 + t;
-    const FragA a(d0[0], d1[0], d0[4], d1[4]);
+    // with the bias, sds holds the logits' gradients: times hs here
+    const float hs = Opts::kRpe && Opts::kScale ? opt.hs : 1.f;
+    const FragA a(Opts::kRpe && Opts::kScale ? d0[0] * hs : d0[0],
+                  Opts::kRpe && Opts::kScale ? d1[0] * hs : d1[0],
+                  Opts::kRpe && Opts::kScale ? d0[4] * hs : d0[4],
+                  Opts::kRpe && Opts::kScale ? d1[4] * hs : d1[4]);
 #pragma unroll
     for (int m = 0; m < KD; ++m) {
       const float* kr = sq + (kk * 8 + t) * SB + m * 8 + gr;
@@ -661,6 +723,47 @@ __host__ __device__ size_t bwd16_smem() {
          4 * (size_t)kMaxP * r3dl::Layout16<Dh>::S * sizeof(r3dl::bf16) +
          2 * (size_t)kMaxP * sizeof(float) +
          (size_t)kMaxP * kMaxWords * sizeof(uint32_t);
+}
+
+// K6 (bf16) with the options: v's fragments come from device memory and
+// the options' lookup data take the end of v's slice (after the kernel's
+// own shared memory where it is too small: Dh = 8); the table pass runs
+// after phase 2, its rows from q's slice on (q, g, k and the rest of v's
+// slice are dead then; after the rest where too small: Dh = 8), in two
+// halves where they hold both (Dh = 32)
+template <int Dh>
+__host__ __device__ constexpr size_t slice16() {
+  return (size_t)kMaxP * r3dl::Layout16<Dh>::S * sizeof(r3dl::bf16);
+}
+
+template <int Dh, class Opts>
+__host__ __device__ constexpr bool opts_in_v16() {
+  return slice16<Dh>() >= bwd_opts_smem<Opts>();
+}
+
+// the bytes free from q's slice on once phase 2 is done
+template <int Dh, class Opts>
+__host__ __device__ constexpr size_t free16() {
+  return 3 * slice16<Dh>() +
+         (opts_in_v16<Dh, Opts>() ? slice16<Dh>() - bwd_opts_smem<Opts>()
+                                  : slice16<Dh>());
+}
+
+template <int Dh, class Opts>
+__host__ __device__ constexpr int table_halves16() {
+  return free16<Dh, Opts>() >= 2 * kRowsBytes ? 2 : 1;
+}
+
+template <int Dh, class Opts>
+__host__ __device__ constexpr bool rows_in_q16() {
+  return free16<Dh, Opts>() >= kRowsBytes;
+}
+
+template <int Dh, class Opts>
+__host__ __device__ size_t bwd16_total_smem() {
+  return bwd16_smem<Dh>() +
+         (opts_in_v16<Dh, Opts>() ? 0 : bwd_opts_smem<Opts>()) +
+         (Opts::kRpe && !rows_in_q16<Dh, Opts>() ? kRowsBytes : 0);
 }
 
 // d += a b for an fp32 A fragment held as its three bf16 pieces (the
@@ -714,7 +817,7 @@ __device__ __forceinline__ void mma_rows_t(float (&acc)[Dh / 8][4],
 }
 
 template <int Dh, class Opts>
-__global__ void __launch_bounds__(kThreads, Opts::kRpe ? 1 : 2)
+__global__ void __launch_bounds__(kThreads, 2)
 attn_drop_bwd16_kernel(const r3dl::bf16* __restrict__ q,
                        const r3dl::bf16* __restrict__ k,
                        const r3dl::bf16* __restrict__ v,
@@ -758,7 +861,8 @@ attn_drop_bwd16_kernel(const r3dl::bf16* __restrict__ q,
   r3dl::stage_rows16<Dh>(sq, q + base, P, P16, tid, kThreads);
   r3dl::stage_rows16<Dh>(sg, gout + base, P, P16, tid, kThreads);
   r3dl::stage_rows16<Dh>(sk, k + base, P, P16, tid, kThreads);
-  r3dl::stage_rows16<Dh>(sv, v + base, P, P16, tid, kThreads);
+  if constexpr (!Opts::kAny)
+    r3dl::stage_rows16<Dh>(sv, v + base, P, P16, tid, kThreads);
   r3dl::stage_rows16<Dh>(so, o + base, P, P16, tid, kThreads);
   r3dl::cp_async_commit();
   for (int i = tid; i < P * W; i += kThreads) sbits[i] = bits[gh * P * W + i];
@@ -766,11 +870,14 @@ attn_drop_bwd16_kernel(const r3dl::bf16* __restrict__ q,
   bool valid = false;
   if (tid < P) valid = smask[tid] = kv[gh / H * P + tid];
   Opts opt;
-  float *sdhs = nullptr, *shist = nullptr;
+  char* extra = reinterpret_cast<char*>(smem4) + bwd16_smem<Dh>();
+  char* optsmem = opts_in_v16<Dh, Opts>()
+                      ? reinterpret_cast<char*>(sv) + slice16<Dh>() -
+                            bwd_opts_smem<Opts>()
+                      : extra;
+  float* sdhs = reinterpret_cast<float*>(optsmem + Opts::kSmem);
   if constexpr (Opts::kAny)
-    stage_bwd_opts(opt, oa, gh, H, P,
-                   reinterpret_cast<char*>(smem4) + bwd16_smem<Dh>(), sdhs,
-                   shist);
+    opt.stage(oa, gh / H, (int)(gh % H), H, P, tid, kThreads, optsmem);
   r3dl::cp_async_wait<0>();
   const bool any_valid = __syncthreads_or(valid);
   // q * scale rounded to bf16 in place (the forward's bf16 q * scale), and
@@ -806,7 +913,7 @@ attn_drop_bwd16_kernel(const r3dl::bf16* __restrict__ q,
       const int off = (warp * 16 + 8 * (lm & 1) + lr) * S + 16 * kk +
                       8 * (lm >> 1);
       r3dl::ldmatrix_x4(ka[kk], sk + off);
-      r3dl::ldmatrix_x4(va[kk], sv + off);
+      if constexpr (!Opts::kAny) r3dl::ldmatrix_x4(va[kk], sv + off);
     }
     if constexpr (kTail) {
       const int off = (warp * 16 + 8 * (lm & 1) + lr) * S + 16 * KF;
@@ -814,9 +921,30 @@ attn_drop_bwd16_kernel(const r3dl::bf16* __restrict__ q,
       r3dl::ldmatrix_x2(a, sk + off);
       ka[KF][0] = a[0];
       ka[KF][1] = a[1];
-      r3dl::ldmatrix_x2(a, sv + off);
-      va[KF][0] = a[0];
-      va[KF][1] = a[1];
+      if constexpr (!Opts::kAny) {
+        r3dl::ldmatrix_x2(a, sv + off);
+        va[KF][0] = a[0];
+        va[KF][1] = a[1];
+      }
+    }
+    if constexpr (Opts::kAny) {
+      // v's A fragments from device memory (its slice holds the options'
+      // data): rows j0 / j1, head dims 16 kk + 2t (+ 8), as ldmatrix
+      // gives them; rows past P zero
+      const bf16* v0 = v + base + (long long)j0 * Dh + 2 * t;
+      const bf16* v1 = v + base + (long long)j1 * Dh + 2 * t;
+      auto pair = [&](const bf16* r, bool in, int d) {
+        return in ? *reinterpret_cast<const uint32_t*>(r + d) : 0u;
+      };
+#pragma unroll
+      for (int kk = 0; kk < KF + kTail; ++kk) {
+        va[kk][0] = pair(v0, j0 < P, 16 * kk);
+        va[kk][1] = pair(v1, j1 < P, 16 * kk);
+        if (kk < KF) {
+          va[kk][2] = pair(v0, j0 < P, 16 * kk + 8);
+          va[kk][3] = pair(v1, j1 < P, 16 * kk + 8);
+        }
+      }
     }
     const bool val0 = j0 < P && smask[j0], val1 = j1 < P && smask[j1];
     const float inv_p = 1.f / (float)P;
@@ -872,11 +1000,14 @@ attn_drop_bwd16_kernel(const r3dl::bf16* __restrict__ q,
                                      : 0.f;
           const float da = kp ? dp[h][e] * inv_keep : 0.f;
           float ds = live && val ? p * (da - sD[c]) : 0.f;
+          // the table pass reads the logits' gradients; dq and dk the
+          // products' (ds hs), phase 2 scaling them as it reads
+          if constexpr (Opts::kRpe) sds[c * kDS16 + j] = ds;
           if constexpr (Opts::kAny) {
-            add_pair(opt, ds, s[h][e], gc, gk, dh, shist);
+            add_pair<Opts>(ds, s[h][e], dh);
             if constexpr (Opts::kScale) ds *= opt.hs;   // d S
           }
-          sds[c * kDS16 + j] = ds;
+          if constexpr (!Opts::kRpe) sds[c * kDS16 + j] = ds;
           s[h][e] = kp ? p * inv_keep : 0.f;
           dp[h][e] = ds;
         }
@@ -922,36 +1053,58 @@ attn_drop_bwd16_kernel(const r3dl::bf16* __restrict__ q,
   }
   if constexpr (Opts::kAny) warp_dhs<Opts>(dh, sdhs);
   __syncthreads();
-  if constexpr (Opts::kAny) write_opt_grads(opt, og, gh, H, sdhs, shist);
+  if constexpr (Opts::kAny) write_dhs<Opts>(og, gh, sdhs);
 
   // ---- phase 2: warp w owns queries 16w..16w+15; dq = (ds k) scale, the
-  // ds rows split into their three bf16 pieces, k read transposed ----
-  if (warp * 16 >= P) return;
-  const int r0 = warp * 16 + gr, r1 = r0 + 8;
-  float acc[ND][4];
-#pragma unroll
-  for (int d = 0; d < ND; ++d)
-    acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
-  for (int kk = 0; kk < P16 / 16; ++kk) {
-    const float* d0 = sds + r0 * kDS16 + 16 * kk + 2 * t;
-    const float* d1 = sds + r1 * kDS16 + 16 * kk + 2 * t;
-    const float2 a[4] = {*reinterpret_cast<const float2*>(d0),
-                         *reinterpret_cast<const float2*>(d1),
-                         *reinterpret_cast<const float2*>(d0 + 8),
-                         *reinterpret_cast<const float2*>(d1 + 8)};
-    uint32_t hi[4], mid[4], lo[4];
-    split_fragment(a, hi, mid, lo);
-    mma_rows_t<Dh>(acc, hi, mid, lo, sk + 16 * kk * S, lane);
+  // ds rows split into their three bf16 pieces, k read transposed (with
+  // the bias every warp then goes on to the table pass) ----
+  if constexpr (!Opts::kRpe) {
+    if (warp * 16 >= P) return;
   }
+  if (!Opts::kRpe || warp * 16 < P) {
+    const int r0 = warp * 16 + gr, r1 = r0 + 8;
+    float acc[ND][4];
 #pragma unroll
-  for (int d = 0; d < ND; ++d) {
-    const long long c = base + 8 * d + 2 * t;
-    if (r0 < P)
-      *reinterpret_cast<uint32_t*>(dq + c + (long long)r0 * Dh) =
-          r3dl::pack_bf16(acc[d][0] * scale, acc[d][1] * scale);
-    if (r1 < P)
-      *reinterpret_cast<uint32_t*>(dq + c + (long long)r1 * Dh) =
-          r3dl::pack_bf16(acc[d][2] * scale, acc[d][3] * scale);
+    for (int d = 0; d < ND; ++d)
+      acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
+    for (int kk = 0; kk < P16 / 16; ++kk) {
+      const float* d0 = sds + r0 * kDS16 + 16 * kk + 2 * t;
+      const float* d1 = sds + r1 * kDS16 + 16 * kk + 2 * t;
+      float2 a[4] = {*reinterpret_cast<const float2*>(d0),
+                     *reinterpret_cast<const float2*>(d1),
+                     *reinterpret_cast<const float2*>(d0 + 8),
+                     *reinterpret_cast<const float2*>(d1 + 8)};
+      if constexpr (Opts::kRpe && Opts::kScale) {
+        // with the bias, sds holds the logits' gradients: times hs here
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = make_float2(a[i].x * opt.hs,
+                                                       a[i].y * opt.hs);
+      }
+      uint32_t hi[4], mid[4], lo[4];
+      split_fragment(a, hi, mid, lo);
+      mma_rows_t<Dh>(acc, hi, mid, lo, sk + 16 * kk * S, lane);
+    }
+#pragma unroll
+    for (int d = 0; d < ND; ++d) {
+      const long long c = base + 8 * d + 2 * t;
+      if (r0 < P)
+        *reinterpret_cast<uint32_t*>(dq + c + (long long)r0 * Dh) =
+            r3dl::pack_bf16(acc[d][0] * scale, acc[d][1] * scale);
+      if (r1 < P)
+        *reinterpret_cast<uint32_t*>(dq + c + (long long)r1 * Dh) =
+            r3dl::pack_bf16(acc[d][2] * scale, acc[d][3] * scale);
+    }
+  }
+  if constexpr (Opts::kRpe) {   // the rows from q's slice on (or after)
+    __syncthreads();
+    table_pass<table_halves16<Dh, Opts>()>(
+        opt, og, sds, kDS16,
+        rows_in_q16<Dh, Opts>()
+            ? reinterpret_cast<float*>(sq)
+            : reinterpret_cast<float*>(
+                  extra + (opts_in_v16<Dh, Opts>() ? 0
+                                                   : bwd_opts_smem<Opts>())),
+        gh, H, P);
   }
 }
 
@@ -988,26 +1141,54 @@ int launch_bwd(const T* q, const T* k, const T* v, const unsigned char* kv,
                float scale, float inv_keep, const OptArgs& oa,
                const OptGrads& og, cudaStream_t stream) {
   const unsigned grid = (unsigned)((long long)G * H);
-  const size_t extra = bwd_opts_smem<Opts>(oa.b);
-  const size_t most = bwd_opts_smem<Opts>(r3dl::kMaxPosBound);
   if constexpr (std::is_same<T, float>::value) {
-    static const cudaError_t attr = r3dl::allow_smem(
-        attn_drop_bwd_kernel<Dh, Opts>, bwd_smem<Dh>() + most);
+    const size_t smem = bwd_total_smem<Dh, Opts>();
+    static const cudaError_t attr =
+        r3dl::allow_smem(attn_drop_bwd_kernel<Dh, Opts>, smem);
     if (attr != cudaSuccess) return (int)attr;
-    attn_drop_bwd_kernel<Dh, Opts>
-        <<<grid, kThreads, bwd_smem<Dh>() + extra, stream>>>(
-            q, k, v, kv, out, lse, bits, gout, dq, dk, dv, H, P, scale,
-            inv_keep, oa, og);
+    attn_drop_bwd_kernel<Dh, Opts><<<grid, kThreads, smem, stream>>>(
+        q, k, v, kv, out, lse, bits, gout, dq, dk, dv, H, P, scale,
+        inv_keep, oa, og);
   } else {
-    static const cudaError_t attr = r3dl::allow_smem(
-        attn_drop_bwd16_kernel<Dh, Opts>, bwd16_smem<Dh>() + most);
+    const size_t smem = bwd16_total_smem<Dh, Opts>();
+    static const cudaError_t attr =
+        r3dl::allow_smem(attn_drop_bwd16_kernel<Dh, Opts>, smem);
     if (attr != cudaSuccess) return (int)attr;
-    attn_drop_bwd16_kernel<Dh, Opts>
-        <<<grid, kThreads, bwd16_smem<Dh>() + extra, stream>>>(
-            q, k, v, kv, out, lse, bits, gout, dq, dk, dv, H, P, scale,
-            inv_keep, oa, og);
+    attn_drop_bwd16_kernel<Dh, Opts><<<grid, kThreads, smem, stream>>>(
+        q, k, v, kv, out, lse, bits, gout, dq, dk, dv, H, P, scale,
+        inv_keep, oa, og);
   }
   return (int)cudaGetLastError();
+}
+
+// blocks of K6 (T, Opts) that one SM holds at head dim Dh, its shared
+// memory opted into (cudaOccupancyMaxActiveBlocksPerMultiprocessor); a
+// negative cudaError on failure
+template <typename T, class Opts>
+int bwd_blocks_per_sm(int Dh) {
+  auto one = [](auto kernel, size_t smem) {
+    int n = 0;
+    cudaError_t e = r3dl::allow_smem(kernel, smem);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kThreads,
+                                                        smem);
+    return e == cudaSuccess ? n : -(int)e;
+  };
+  auto at = [&](auto dh) {
+    constexpr int D = decltype(dh)::value;
+    if constexpr (std::is_same<T, float>::value)
+      return one(attn_drop_bwd_kernel<D, Opts>, bwd_total_smem<D, Opts>());
+    else
+      return one(attn_drop_bwd16_kernel<D, Opts>,
+                 bwd16_total_smem<D, Opts>());
+  };
+  switch (Dh) {
+    case 8: return at(std::integral_constant<int, 8>());
+    case 16: return at(std::integral_constant<int, 16>());
+    case 24: return at(std::integral_constant<int, 24>());
+    case 32: return at(std::integral_constant<int, 32>());
+    default: return -(int)cudaErrorInvalidValue;
+  }
 }
 
 // the options' pointers: the bias needs gc and the table (and, in K6,

@@ -4,33 +4,13 @@
 // and the table (3R, H) fp32 at position bound b (R = 2b + 1), either or both
 // (NULL: off). K6 also writes the options' gradient partials, dhs (G, H) and
 // dtable (G, 3R, H) fp32, where the option is on. The kernels are
-// attention_dropout.cuh's, instantiated with attention_tile.cuh LogitOpts; a
-// source apart from the release entry points and from the bf16 options
-// (attention_dropout_opts16.cu), so that nvcc builds the three side by side.
+// attention_dropout.cuh's, instantiated with attention_tile.cuh LogitOpts;
+// a source apart from the release entry points, from the bf16 options
+// (attention_dropout_opts16.cu) and from upcast_attention's
+// (attention_dropout_opts_mixed.cu), so that nvcc builds them side by side.
 #include "attention_dropout.cuh"
 
-namespace {
-
 using T = float;
-
-template <class Opts>
-struct Tag {
-  using type = Opts;
-};
-
-// f(Tag<Opts>()) with the LogitOpts of the options that hs and gc turn
-// on; invalid when neither is
-template <class F>
-int with_opts(const float* hs, const int* gc, const float* table, F&& f) {
-  if ((gc == nullptr) != (table == nullptr))
-    return (int)cudaErrorInvalidValue;
-  if (hs && gc) return f(Tag<r3dl::LogitOpts<true, true>>());
-  if (hs) return f(Tag<r3dl::LogitOpts<true, false>>());
-  if (gc) return f(Tag<r3dl::LogitOpts<false, true>>());
-  return (int)cudaErrorInvalidValue;
-}
-
-}  // namespace
 
 // q, k, v, key_valid, out, lse, bits as r3dl_attention_dropout_fwd;
 // hs | NULL, gc | NULL, table (with gc), b; then as there
@@ -40,7 +20,7 @@ extern "C" int r3dl_attention_dropout_fwd_opts(
     const float* table, int b, int G, int H, int P, int Dh, float scale,
     unsigned seed, unsigned thresh, float inv_keep, cudaStream_t stream) {
   const OptArgs oa{hs, gc, table, b};
-  return with_opts(hs, gc, table, [&](auto tag) {
+  return r3dl::with_opts<false>(hs, gc, table, [&](auto tag) {
     using Opts = typename decltype(tag)::type;
     return fwd<T, Opts>(q, k, v, kv, out, lse, bits, G, H, P, Dh, scale,
                         seed, thresh, inv_keep, oa, stream);
@@ -58,9 +38,26 @@ extern "C" int r3dl_attention_dropout_bwd_opts(
     float scale, float inv_keep, cudaStream_t stream) {
   const OptArgs oa{hs, gc, table, b};
   const OptGrads og{dhs, dtable};
-  return with_opts(hs, gc, table, [&](auto tag) {
+  return r3dl::with_opts<false>(hs, gc, table, [&](auto tag) {
     using Opts = typename decltype(tag)::type;
     return bwd<T, Opts>(q, k, v, kv, out, lse, bits, gout, dq, dk, dv, G, H,
                         P, Dh, scale, inv_keep, oa, og, stream);
   });
+}
+
+// K6's blocks an SM with the options hs (scale) and rpe (bias) on, at
+// head dim Dh, into *blocks (ops/attention.py bwd_opts_blocks_per_sm)
+extern "C" int r3dl_attention_dropout_bwd_opts_blocks(int Dh, int hs,
+                                                      int rpe,
+                                                      int* blocks,
+                                                      cudaStream_t) {
+  const float one = 1.f;
+  const int gc = 0;
+  return r3dl::with_opts<false>(
+      hs ? &one : nullptr, rpe ? &gc : nullptr, rpe ? &one : nullptr,
+      [&](auto tag) {
+        using Opts = typename decltype(tag)::type;
+        *blocks = bwd_blocks_per_sm<T, Opts>(Dh);
+        return *blocks < 0 ? -*blocks : 0;
+      });
 }

@@ -9,28 +9,7 @@
 // (attention_dropout_opts.cu), so that nvcc builds the two side by side.
 #include "attention_dropout.cuh"
 
-namespace {
-
 using T = r3dl::bf16;
-
-template <class Opts>
-struct Tag {
-  using type = Opts;
-};
-
-// f(Tag<Opts>()) with the LogitOpts of the options that hs and gc turn
-// on; invalid when neither is
-template <class F>
-int with_opts(const float* hs, const int* gc, const float* table, F&& f) {
-  if ((gc == nullptr) != (table == nullptr))
-    return (int)cudaErrorInvalidValue;
-  if (hs && gc) return f(Tag<r3dl::LogitOpts<true, true>>());
-  if (hs) return f(Tag<r3dl::LogitOpts<true, false>>());
-  if (gc) return f(Tag<r3dl::LogitOpts<false, true>>());
-  return (int)cudaErrorInvalidValue;
-}
-
-}  // namespace
 
 // q, k, v, key_valid, out, lse, bits as r3dl_attention_dropout_fwd_bf16;
 // hs | NULL, gc | NULL, table (with gc), b; then as there
@@ -40,7 +19,7 @@ extern "C" int r3dl_attention_dropout_fwd_opts_bf16(
     const float* table, int b, int G, int H, int P, int Dh, float scale,
     unsigned seed, unsigned thresh, float inv_keep, cudaStream_t stream) {
   const OptArgs oa{hs, gc, table, b};
-  return with_opts(hs, gc, table, [&](auto tag) {
+  return r3dl::with_opts<false>(hs, gc, table, [&](auto tag) {
     using Opts = typename decltype(tag)::type;
     return fwd<T, Opts>(q, k, v, kv, out, lse, bits, G, H, P, Dh, scale,
                         seed, thresh, inv_keep, oa, stream);
@@ -58,9 +37,26 @@ extern "C" int r3dl_attention_dropout_bwd_opts_bf16(
     float scale, float inv_keep, cudaStream_t stream) {
   const OptArgs oa{hs, gc, table, b};
   const OptGrads og{dhs, dtable};
-  return with_opts(hs, gc, table, [&](auto tag) {
+  return r3dl::with_opts<false>(hs, gc, table, [&](auto tag) {
     using Opts = typename decltype(tag)::type;
     return bwd<T, Opts>(q, k, v, kv, out, lse, bits, gout, dq, dk, dv, G, H,
                         P, Dh, scale, inv_keep, oa, og, stream);
   });
+}
+
+// K6's blocks an SM with the options hs (scale) and rpe (bias) on, at
+// head dim Dh, into *blocks (ops/attention.py bwd_opts_blocks_per_sm)
+extern "C" int r3dl_attention_dropout_bwd_opts_blocks_bf16(int Dh, int hs,
+                                                           int rpe,
+                                                           int* blocks,
+                                                           cudaStream_t) {
+  const float one = 1.f;
+  const int gc = 0;
+  return r3dl::with_opts<false>(
+      hs ? &one : nullptr, rpe ? &gc : nullptr, rpe ? &one : nullptr,
+      [&](auto tag) {
+        using Opts = typename decltype(tag)::type;
+        *blocks = bwd_blocks_per_sm<T, Opts>(Dh);
+        return *blocks < 0 ? -*blocks : 0;
+      });
 }

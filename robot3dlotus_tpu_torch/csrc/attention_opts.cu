@@ -9,25 +9,18 @@
 
 namespace {
 
-template <typename T>
+template <typename T, bool kRoundP>
 int attention_opts(const T* q, const T* k, const T* v,
                    const unsigned char* kv, T* out, const float* hs,
                    const int* gc, const float* table, int b, int G, int H,
                    int P, int Dh, int warps, int splits, float scale,
                    cudaStream_t stream) {
   const OptArgs oa{hs, gc, table, b};
-  if ((gc == nullptr) != (table == nullptr))
-    return (int)cudaErrorInvalidValue;
-  if (hs && gc)
-    return attention<T, r3dl::LogitOpts<true, true>>(
-        q, k, v, kv, out, G, H, P, Dh, warps, splits, scale, oa, stream);
-  if (hs)
-    return attention<T, r3dl::LogitOpts<true, false>>(
-        q, k, v, kv, out, G, H, P, Dh, warps, splits, scale, oa, stream);
-  if (gc)
-    return attention<T, r3dl::LogitOpts<false, true>>(
-        q, k, v, kv, out, G, H, P, Dh, warps, splits, scale, oa, stream);
-  return (int)cudaErrorInvalidValue;
+  return r3dl::with_opts<kRoundP>(hs, gc, table, [&](auto tag) {
+    using Opts = typename decltype(tag)::type;
+    return attention<T, Opts>(q, k, v, kv, out, G, H, P, Dh, warps, splits,
+                              scale, oa, stream);
+  });
 }
 
 }  // namespace
@@ -39,8 +32,8 @@ extern "C" int r3dl_patch_attention_opts(
     float* out, const float* hs, const int* gc, const float* table, int b,
     int G, int H, int P, int Dh, int warps, int splits, float scale,
     cudaStream_t stream) {
-  return attention_opts<float>(q, k, v, kv, out, hs, gc, table, b, G, H, P,
-                               Dh, warps, splits, scale, stream);
+  return attention_opts<float, false>(q, k, v, kv, out, hs, gc, table, b, G,
+                                      H, P, Dh, warps, splits, scale, stream);
 }
 
 extern "C" int r3dl_patch_attention_opts_bf16(
@@ -48,6 +41,20 @@ extern "C" int r3dl_patch_attention_opts_bf16(
     const unsigned char* kv, r3dl::bf16* out, const float* hs, const int* gc,
     const float* table, int b, int G, int H, int P, int Dh, int warps,
     int splits, float scale, cudaStream_t stream) {
-  return attention_opts<r3dl::bf16>(q, k, v, kv, out, hs, gc, table, b, G, H,
-                                    P, Dh, warps, splits, scale, stream);
+  return attention_opts<r3dl::bf16, false>(q, k, v, kv, out, hs, gc, table, b,
+                                           G, H, P, Dh, warps, splits, scale,
+                                           stream);
+}
+
+// upcast_attention at bf16 with the options (the JAX XLA path): q and k
+// fp32, v a bf16 tensor widened to fp32 by the wrapper, the probabilities
+// rounded to bf16 before P v (LogitOpts kRoundP); arguments as
+// r3dl_patch_attention_opts
+extern "C" int r3dl_patch_attention_opts_mixed(
+    const float* q, const float* k, const float* v, const unsigned char* kv,
+    float* out, const float* hs, const int* gc, const float* table, int b,
+    int G, int H, int P, int Dh, int warps, int splits, float scale,
+    cudaStream_t stream) {
+  return attention_opts<float, true>(q, k, v, kv, out, hs, gc, table, b, G,
+                                     H, P, Dh, warps, splits, scale, stream);
 }

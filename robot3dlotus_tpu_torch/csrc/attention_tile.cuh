@@ -94,6 +94,13 @@ __device__ __forceinline__ float quad_sum(float x) {
 // column, both staged in shared memory: no (G, H, P, P) bias is ever
 // written. The release model has neither option: NoOpts, whose calls
 // compile to nothing, so the release instantiations are what they were.
+// kRoundP (the fp32 tile, with either option on): the JAX XLA attention
+// at bf16 under upcast_attention, q and k fp32 and v bf16 (widened by the
+// wrapper, so every v is a bf16 value): the normalised, dropped
+// probabilities are rounded to bf16 before P v, as `attn.astype(v.dtype)`
+// rounds them (models/layers.py:392 of the JAX package). K6 takes the
+// forward's saved state as it is (bf16 training follows the TPU kernel's
+// backward, unrounded probabilities in dv and ds).
 constexpr int kMaxPosBound = 15;    // b at P = 128: int((4 P)^(1/3) 2)
 constexpr int kTableSmem = 96;      // floats: 3 (2 kMaxPosBound + 1) = 93
 
@@ -105,10 +112,12 @@ struct OptArgs {
   int b;                 // the position bound, 0..kMaxPosBound
 };
 
-template <bool kScale_, bool kRpe_>
+template <bool kScale_, bool kRpe_, bool kRoundP_ = false>
 struct LogitOpts {
   static constexpr bool kScale = kScale_, kRpe = kRpe_;
   static constexpr bool kAny = kScale || kRpe;
+  static constexpr bool kRoundP = kRoundP_;
+  static_assert(kAny || !kRoundP, "kRoundP comes with an option");
   // shared memory (bytes, 16-byte aligned) the options take after the
   // kernel's own: the patch's coordinates as int4 rows, the table column
   static constexpr size_t kSmem =
@@ -145,6 +154,10 @@ struct LogitOpts {
     }
     return make_int4(0, 0, 0, 0);
   }
+  // component a (0, 1, 2) of point r's grid coordinates (r < P)
+  __device__ __forceinline__ int axis(int r, int a) const {
+    return reinterpret_cast<const int*>(gc)[4 * r + a];
+  }
   __device__ __forceinline__ int bin(int d) const {
     return min(max(d, -b), b) + b;
   }
@@ -166,6 +179,36 @@ struct LogitOpts {
   }
 };
 using NoOpts = LogitOpts<false, false>;
+
+template <class Opts>
+struct OptsTag {
+  using type = Opts;
+};
+
+// f(OptsTag<Opts>()) with the LogitOpts of the options that hs and gc
+// turn on (kRoundP as given); invalid when neither is
+template <bool kRoundP, class F>
+int with_opts(const float* hs, const int* gc, const float* table, F&& f) {
+  if ((gc == nullptr) != (table == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (hs && gc) return f(OptsTag<LogitOpts<true, true, kRoundP>>());
+  if (hs) return f(OptsTag<LogitOpts<true, false, kRoundP>>());
+  if (gc) return f(OptsTag<LogitOpts<false, true, kRoundP>>());
+  return (int)cudaErrorInvalidValue;
+}
+
+// x / y rounded to nearest, for y >= 1 and 0 <= x <= y (a probability):
+// the product by ry = 1 / y rounded, corrected by its exact residual
+// (Markstein's step: correctly rounded when ry is)
+__device__ __forceinline__ float div_rn(float x, float y, float ry) {
+  const float q = x * ry;
+  return fmaf(fmaf(-q, y, x), ry, q);
+}
+
+// x rounded to the nearest bf16 value, as fp32
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
 
 // Row strides in floats. Dh + 4: a load at (row r, col c) or at
 // (row 2c, col r) hits 32 distinct banks. SB: (row c, col r).
@@ -299,6 +342,24 @@ __device__ __forceinline__ void attend_tiles(
                                         opt.coords(r0, P),
                                         opt.coords(r1, P));
 
+  // kRoundP: the probabilities normalised (div_rn, as the bf16 tile),
+  // dropped and rounded to bf16 before the product, which then needs no
+  // scaling after it
+  if constexpr (Opts::kRoundP) {
+    const float rl0 = __frcp_rn(l0), rl1 = __frcp_rn(l1);
+#pragma unroll
+    for (int n = 0; n < kMaxP / 8; ++n) {
+      if (kAllTiles || n < nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float x = div_rn(s[n][e], e < 2 ? l0 : l1,
+                                 e < 2 ? rl0 : rl1);
+          s[n][e] = round_bf16(kDrop ? x * inv_keep : x);
+        }
+      }
+    }
+  }
+
   // out = (kept) exps v: the S tile's C fragment is the A fragment of its
   // 8 keys, key 2t as column t and key 2t + 1 as column t + 4
   float o[KD][4];
@@ -315,7 +376,8 @@ __device__ __forceinline__ void attend_tiles(
       }
     }
   }
-  const float f0 = inv_keep / l0, f1 = inv_keep / l1;
+  const float f0 = Opts::kRoundP ? 1.f : inv_keep / l0;
+  const float f1 = Opts::kRoundP ? 1.f : inv_keep / l1;
   float* o0 = out + (long long)r0 * Dh;
   float* o1 = out + (long long)r1 * Dh;
 #pragma unroll
@@ -368,14 +430,6 @@ __device__ __forceinline__ void stage_rows16(bf16* dst,
     const bool in = r < P;
     cp_async16(dst + r * S + c, in ? src + (long long)r * Dh + c : src, in);
   }
-}
-
-// x / y rounded to nearest, for y >= 1 and 0 <= x <= y (a probability):
-// the product by ry = 1 / y rounded, corrected by its exact residual
-// (Markstein's step: correctly rounded when ry is)
-__device__ __forceinline__ float div_rn(float x, float y, float ry) {
-  const float q = x * ry;
-  return fmaf(fmaf(-q, y, x), ry, q);
 }
 
 // q * scale of rows r (< P, else 0) at columns d, d + 1, rounded to bf16

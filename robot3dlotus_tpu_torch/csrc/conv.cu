@@ -45,9 +45,15 @@
 //      ascending order.
 //   4. With `splits` tap ranges (B = 1 at the deep stages has fewer row x
 //      channel tiles than the card has SMs), each block writes its partial
-//      tile to scratch and subm_conv_reduce_kernel adds the ranges in a
-//      fixed order with the bias. No float atomics anywhere: the result is
-//      bit-equal from run to run.
+//      tile to scratch and subm_conv_reduce_kernel adds the ranges from 0
+//      in a fixed order with the bias. No float atomics anywhere: the
+//      result is bit-equal from run to run. ops/conv.py conv_tap_splits
+//      takes 1 or K ranges (one tap a range), so a row's order of sums does
+//      not follow B: each live tap's fp32 sum (the stages added from 0) is
+//      added to the row's total, which starts at 0, in ascending tap
+//      order, in the block's accumulator or in the reduce (a dead tap's
+//      partial is 0, which leaves a total that is never -0 as it was), and
+//      predict_batch of a cloud equals its predict bit for bit.
 // The kernel is instantiated for up to 27 taps (the CPE conv: 109 KB of
 // shared memory, two blocks an SM) and up to 125 (the k=5 stem: the map
 // rows and the per-tap lists of 125 taps take 198 KB, one block an SM).
@@ -629,8 +635,8 @@ subm_conv16_kernel(const TX* __restrict__ x, const int* __restrict__ idx,
   write_tile(sm.acc, bias, out, work, row0, n0, co0, N, Cout, s, splits);
 }
 
-// out = sum over the tap ranges, in order, + bias, rounded to T (the
-// output's type) once; float4 lanes
+// out = sum over the tap ranges, in order from 0, + bias, rounded to T
+// (the output's type) once; float4 lanes
 template <typename T>
 __global__ void subm_conv_reduce_kernel(const float4* __restrict__ work,
                                         const float* __restrict__ bias,
@@ -638,8 +644,8 @@ __global__ void subm_conv_reduce_kernel(const float4* __restrict__ work,
                                         int Cout, int splits) {
   for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        e < n4; e += (long long)gridDim.x * blockDim.x) {
-    float4 v = work[e];
-    for (int s = 1; s < splits; ++s) {
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int s = 0; s < splits; ++s) {
       const float4 p = work[s * n4 + e];
       v.x += p.x;
       v.y += p.y;

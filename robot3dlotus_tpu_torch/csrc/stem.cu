@@ -40,11 +40,23 @@
 //   4. Rows are taken flat over the B clouds (row r is cloud r / N).
 //      Training's 32 clouds run one 16-warp block per SM holding the whole
 //      W slice, each warp taking row groups in turn. At B = 1 a cloud's row
-//      groups cannot fill the card: the tap chunks are split into `splits`
-//      ranges (ops/stem.py stem_conv_plan), each range writes its partial
-//      tile to scratch and stem_conv_sum_kernel adds them in a fixed
-//      order. No float atomics: the result is bit-equal from launch to
-//      launch.
+//      groups cannot fill the card: the taps are split over blocks
+//      (ops/stem.py stem_conv_plan), each block writes its partial tile to
+//      scratch and stem_conv_sum_kernel adds them in a fixed order. No
+//      float atomics: the result is bit-equal from launch to launch.
+//   5. A row's sum order does not depend on B: the taps are cut into sum
+//      ranges of kRangeTaps (16) taps, a function of K alone. Each range
+//      is summed into a fresh fp32 partial (the tensor cores' chains) and
+//      added to the running total at the range's end, so a row is
+//      ((0 + r0) + r1) + ... whichever plan runs it. The plans that
+//      stem_conv_plan picks hold the whole row in one block (the total in
+//      registers, one more accumulator set) or one sum range a block (the
+//      sum kernel adds the partials from 0, in order): the same bits, so
+//      predict_batch of a cloud equals its predict. The cost: an add per
+//      range, the 128-register cap (the second accumulator set spills a
+//      little at 64 columns; keeping the total in the output rows or in
+//      shared memory instead cost as much) and, at B < 32, the 8 ranges'
+//      partials through scratch.
 //
 // bf16 (r3dl_stem_conv_bf16, under compute_dtype bfloat16): x and W bf16,
 // out bf16, on the bf16 tensor cores (stem_conv16_kernel). The first bf16
@@ -74,8 +86,9 @@
 //      first tap, then of the second), and J n-tiles of
 //      bf16 mma.sync.m16n8k16 follow: one product a live pair where the
 //      TF32 path ran one a tap. Products of bf16 values are exact in fp32.
-//   4. The sums stay fp32 over every tap, through the tap ranges' partials
-//      and their fixed-order sum (stem_conv_sum_kernel), and are rounded
+//   4. The sums stay fp32 over every tap, through the sum ranges' partials
+//      (a bf16 chunk is one sum range) and their fixed-order sum
+//      (stem_conv_sum_kernel, or the block's running total), and are rounded
 //      to bf16 once, as the JAX XLA conv (robot3dlotus_tpu/ops/
 //      sparse_conv.py subm_conv_apply) rounds its fp32 accumulator; no
 //      float atomics, so bit-equal from launch to launch. Cout is a
@@ -92,10 +105,19 @@ using r3dl::split;
 
 constexpr int kCp = 8;             // channels per tap after padding
 constexpr int kKT = 8;             // taps per chunk
+constexpr int kRangeTaps = 16;     // taps of a sum range (step 5)
 constexpr int kMaxWarps = 16;      // 16-row groups per block, at most
 constexpr int kMaxK = 128;         // taps a map row may hold
 constexpr int kMaxSmem = 227 * 1024;  // shared memory a block may hold
 constexpr unsigned kFull = 0xffffffffu;
+
+// tap range [kb, ke) of block range s of `splits`: the sum ranges
+// [s NR / splits, (s + 1) NR / splits) of NR = ceil(K / kRangeTaps)
+__host__ __device__ __forceinline__ int range_begin(int K, int s,
+                                                    int splits) {
+  const int nr = (K + kRangeTaps - 1) / kRangeTaps;
+  return min(K, s * nr / splits * kRangeTaps);
+}
 
 // shared memory of a block: the W slice of R taps
 template <int kCols>
@@ -141,9 +163,8 @@ stem_conv_kernel(const float* __restrict__ x, const int* __restrict__ idx,
   const int warps = blockDim.x >> 5;
   const int gid = lane >> 2, tig = lane & 3;
   const int s = blockIdx.z, co0 = blockIdx.y * kCols;
-  const int chunks = (K + kKT - 1) / kKT;
-  const int kb = s * chunks / splits * kKT;
-  const int ke = min(K, (s + 1) * chunks / splits * kKT);
+  const int kb = range_begin(K, s, splits);
+  const int ke = range_begin(K, s + 1, splits);
   const int R = ke - kb;                     // this range's taps
 
   // 1. the range's W slice: W[kb + t][c][co0 + 8 j + g] at
@@ -180,10 +201,12 @@ stem_conv_kernel(const float* __restrict__ x, const int* __restrict__ idx,
     int i_next[4];
     load_map(o_next, i_next, ok, idx, my_off, my_in, kb, ke, lane);
 
-    float acc[J][4];
+    // acc: the current sum range's partial; total: the ranges' sum
+    float acc[J][4], total[J][4];
 #pragma unroll
     for (int j = 0; j < J; ++j)
-      acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = total[j][e] = 0.f;
 
     for (int c0 = 0; c0 < R; c0 += kKT) {
       // 2. this chunk's links (source row, -1 where none), the next
@@ -224,9 +247,20 @@ stem_conv_kernel(const float* __restrict__ x, const int* __restrict__ idx,
           r3dl::mma3(acc[j], af, bf);
         }
       }
+      // 5. a sum range ends (kb is a multiple of kRangeTaps): its partial
+      //    into the total
+      if ((c0 + kKT) % kRangeTaps == 0 || c0 + kKT >= R) {
+#pragma unroll
+        for (int j = 0; j < J; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            total[j][e] += acc[j][e];
+            acc[j][e] = 0.f;
+          }
+      }
     }
 
-    // 4. the group's rows out, or the tap range's fp32 partial to scratch
+    // 4. the group's rows out, or the block's fp32 partial to scratch
 #pragma unroll
     for (int j = 0; j < J; ++j) {
       const int col = co0 + 8 * j + 2 * tig;
@@ -234,8 +268,8 @@ stem_conv_kernel(const float* __restrict__ x, const int* __restrict__ idx,
       const long long o0 = (long long)r0 * Cout + col;
       const long long o1 = (long long)r1 * Cout + col;
       float* dst = splits > 1 ? part : out;
-      if (r0 < rows) store2(dst + o0, acc[j][0], acc[j][1]);
-      if (r1 < rows) store2(dst + o1, acc[j][2], acc[j][3]);
+      if (r0 < rows) store2(dst + o0, total[j][0], total[j][1]);
+      if (r1 < rows) store2(dst + o1, total[j][2], total[j][3]);
     }
   }
 }
@@ -305,9 +339,8 @@ stem_conv16_kernel(const uint4* __restrict__ x, const int* __restrict__ idx,
   const int warps = blockDim.x >> 5;
   const int gid = lane >> 2, tig = lane & 3;
   const int s = blockIdx.z, co0 = blockIdx.y * kCols;
-  const int chunks = (K + kKT - 1) / kKT;
-  const int kb = s * chunks / splits * kKT;
-  const int ke = min(K, (s + 1) * chunks / splits * kKT);
+  const int kb = range_begin(K, s, splits);
+  const int ke = range_begin(K, s + 1, splits);
   const int R = ke - kb, R2 = (R + 1) / 2 * 2;
   uint4* ws = smem16;   // [R2][J][8 channels]: 8 columns of bf16 a row
   uint4* tile = smem16 + R2 * J * 8 + warp * kWarpSmem16;
@@ -351,11 +384,15 @@ stem_conv16_kernel(const uint4* __restrict__ x, const int* __restrict__ idx,
     load_links(o_next, i_next, ok, idx, off0, mr0, rows, K,
                kb + (lane & 15), ke);
 
-    float acc[J][4];
+    // acc: the chunk's partial (a chunk is one sum range); total: the
+    // ranges' sum
+    float acc[J][4], total[J][4];
 #pragma unroll
     for (int j = 0; j < J; ++j)
-      acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = total[j][e] = 0.f;
 
+    static_assert(2 * kPairs == kRangeTaps, "a chunk is one sum range");
     for (int c0 = 0; c0 < R; c0 += 2 * kPairs) {
       // 2. this chunk's links through the warp's map tile (row 2 e + h,
       //    tap lane % 16 in; this lane's link of pair q, row lane % 16,
@@ -396,9 +433,17 @@ stem_conv16_kernel(const uint4* __restrict__ x, const int* __restrict__ idx,
           r3dl::mma_bf16(acc[j + 1], a, b[2], b[3]);
         }
       }
+      // 5. the chunk's sum range ends: its partial into the total
+#pragma unroll
+      for (int j = 0; j < J; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          total[j][e] += acc[j][e];
+          acc[j][e] = 0.f;
+        }
     }
 
-    // 4. the group's rows out (rounded to bf16), or the tap range's fp32
+    // 4. the group's rows out (rounded to bf16), or the block's fp32
     //    partial to scratch
     const int r0 = n0 + gid, r1 = r0 + 8;
 #pragma unroll
@@ -408,26 +453,26 @@ stem_conv16_kernel(const uint4* __restrict__ x, const int* __restrict__ idx,
       const long long o0 = (long long)r0 * Cout + col;
       const long long o1 = (long long)r1 * Cout + col;
       if (splits > 1) {
-        if (r0 < rows) store2(part + o0, acc[j][0], acc[j][1]);
-        if (r1 < rows) store2(part + o1, acc[j][2], acc[j][3]);
+        if (r0 < rows) store2(part + o0, total[j][0], total[j][1]);
+        if (r1 < rows) store2(part + o1, total[j][2], total[j][3]);
       } else {
-        if (r0 < rows) store2(out + o0, acc[j][0], acc[j][1]);
-        if (r1 < rows) store2(out + o1, acc[j][2], acc[j][3]);
+        if (r0 < rows) store2(out + o0, total[j][0], total[j][1]);
+        if (r1 < rows) store2(out + o1, total[j][2], total[j][3]);
       }
     }
   }
 }
 
-// out = the sum of the tap ranges' partials, in order, rounded to T once;
-// float4 lanes
+// out = the sum of the block ranges' partials, in order from 0 (the
+// running total of step 5), rounded to T once; float4 lanes
 template <typename T>
 __global__ void stem_conv_sum_kernel(const float4* __restrict__ work,
                                      T* __restrict__ out, long long n4,
                                      int splits) {
   for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        e < n4; e += (long long)gridDim.x * blockDim.x) {
-    float4 v = work[e];
-    for (int s = 1; s < splits; ++s) {
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int s = 0; s < splits; ++s) {
       const float4 p = work[s * n4 + e];
       v.x += p.x;
       v.y += p.y;
@@ -439,10 +484,13 @@ __global__ void stem_conv_sum_kernel(const float4* __restrict__ work,
   }
 }
 
-// the longest tap range's taps
+// the longest block range's taps
 int range_taps(int K, int splits) {
-  const int chunks = (K + kKT - 1) / kKT;
-  return min(K, (chunks + splits - 1) / splits * kKT);
+  int most = 0;
+  for (int s = 0; s < splits; ++s)
+    most = max(most,
+               range_begin(K, s + 1, splits) - range_begin(K, s, splits));
+  return most;
 }
 
 template <int kCols>
@@ -482,10 +530,10 @@ bool bad_args(long long n, int B, int N, int K, int Cin, int Cout, int cols,
               int warps, int splits, int blocks, const void* w,
               const void* out, const float* work, long long work_bytes,
               int cout_unit) {
-  const int chunks = (K + kKT - 1) / kKT;
+  const int ranges = (K + kRangeTaps - 1) / kRangeTaps;
   return K < 1 || K > kMaxK || Cin < 1 || Cin > kCp || Cout % cout_unit ||
          (cols != 64 && cols != 32) || warps < 1 || warps > kMaxWarps ||
-         splits < 1 || splits > chunks || splits > 65535 || blocks < 1 ||
+         splits < 1 || splits > ranges || blocks < 1 ||
          (long long)B * N > 0x7fffffffLL || ((uintptr_t)w & 15) ||
          ((uintptr_t)out & 15) ||
          (splits > 1 && (!work || work_bytes < 4 * splits * n ||
@@ -507,10 +555,11 @@ int sum_ranges(const float* work, T* out, long long n, int splits,
 // cols: output channels per block (64, or 32: the fp32 W slice of 125 taps
 // at Cin = 8 fits shared memory only so); warps: 16-row groups per block
 // (1..16); blocks: blocks per column tile and range (each walks row groups
-// blockIdx.x + i gridDim.x); splits: tap ranges, range s the 8-tap chunks
-// [s C / splits, (s + 1) C / splits) of C = ceil(K / 8); work: (splits, B,
-// N, Cout) fp32 scratch of work_bytes bytes, unused (may be NULL) when
-// splits == 1 (ops/stem.py stem_conv_plan).
+// blockIdx.x + i gridDim.x); splits: block ranges of taps, range s the
+// 16-tap sum ranges [s NR / splits, (s + 1) NR / splits) of NR =
+// ceil(K / 16) (1 or NR keep every row's sum order, step 5); work:
+// (splits, B, N, Cout) fp32 scratch of work_bytes bytes, unused (may be
+// NULL) when splits == 1 (ops/stem.py stem_conv_plan).
 extern "C" int r3dl_stem_conv(const float* x, const int* idx,
                               const unsigned char* ok, const float* w,
                               float* out, float* work, int B, int N, int K,

@@ -310,10 +310,13 @@ class SerializedAttention(nn.Module):
     add_coords_in_attn 'qkv' / 'qk' adds coords_proj (Dense 3 -> C, no
     bias) of the stage's point coordinates, in padded serialized order and
     the compute dtype, to the input of qkv, or to its q and k thirds;
-    upcast_attention widens q and k to fp32 before the qk norms (at bf16
-    the fp32 kernels then take v widened too, so the probabilities are not
-    rounded to bf16 before P v, which the JAX package does: within the
-    bf16 bar's probability allowance); scaled_cosine_attn normalises q and
+    upcast_attention widens q and k to fp32 before the qk norms; at bf16
+    the attention then follows the JAX path that runs: without
+    enable_rpe and scaled_cosine_attn its Pallas path, q and k cast back
+    to bf16 after the norms, so the bf16 K1 / K5 / K6 run; with either,
+    its XLA path, fp32 q and k with the bf16 v, the probabilities rounded
+    to bf16 before P v (ops/attention.py, the mixed route of the _opts
+    kernels); scaled_cosine_attn normalises q and
     k (cosine_normalize) and scales each head's fp32 logits by
     exp(min(logit_scale, log 100)) in place of qk_scale; enable_rpe adds
     the learned bias rpe_table (3 R, H) of the patch's grid-coordinate
@@ -399,8 +402,11 @@ class SerializedAttention(nn.Module):
             scale = 1.0
             head_scale = torch.exp(torch.clamp(
                 self.logit_scale.reshape(H), max=LOG_100))
-        if q.dtype != v.dtype:    # upcast_attention at bf16
-            v = v.float()
+        if q.dtype != v.dtype and head_scale is None and \
+                not self.enable_rpe:
+            # upcast_attention at bf16 without the options: the JAX
+            # Pallas path casts q and k back after the norms
+            q, k = q.to(v.dtype), k.to(v.dtype)
         # (B, NP, P, H, Dh) -> (B*NP, H, P, Dh): the JAX kernel layout
         qg, kg, vg = (t.permute(0, 1, 3, 2, 4).reshape(B * NP, H, P, Dh)
                       .contiguous() for t in (q, k, v))

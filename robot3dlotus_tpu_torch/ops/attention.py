@@ -69,8 +69,19 @@ patch_attention_dropout_bwd_opts and their _bf16 paths); they look the
 bias up from gc and the table inside the kernel. K6 also returns the
 gradients of table and head_scale (its per-patch partials summed here in
 a fixed order); _PatchAttentionDropout hands them to autograd.
+
+With the options, fp32 q and k and a bf16 v (upcast_attention at bf16,
+models/layers.py) are the JAX XLA path there: fp32 logits, the (dropped)
+probabilities rounded to v's bf16 before P v, out fp32 (the layer rounds
+it to bf16): K1 and K5's fp32 _opts kernels with the rounding on (the
+_opts_mixed entry points, counted with the fp32 _opts kernels), v widened
+to fp32 here. The backward is the fp32 K6 with the options on the
+forward's saved state (unrounded probabilities in dv and ds, as bf16
+training follows the TPU kernel's backward), dv returned in bf16.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -346,15 +357,20 @@ def rpe_table_grad(ds, rpe):
     return out.float()
 
 
+def _mixed(q, v):
+    """fp32 q with a bf16 v: upcast_attention at bf16 with the options."""
+    return q.dtype == torch.float32 and v.dtype == torch.bfloat16
+
+
 def _check_attention(name, q, k, v, key_valid, *more):
     """The kernels' contract: q, k, v and `more` contiguous CUDA tensors of
-    one (G, H, P, Dh) shape and one dtype, fp32 or bf16, key_valid (G, P)
-    bool."""
+    one (G, H, P, Dh) shape and one dtype, fp32 or bf16 (v bf16 with fp32
+    q and k on the mixed route), key_valid (G, P) bool."""
     for n, t in (("q", q), ("k", k), ("v", v),
                  *((f"arg {i}", t) for i, t in enumerate(more))):
-        cuda_lib.check_cuda_tensor(
-            f"{name} {n}", t,
-            (q.dtype,) if n != "q" else (torch.float32, torch.bfloat16), 4)
+        dtypes = (torch.float32, torch.bfloat16) if n == "q" else \
+            (torch.bfloat16,) if n == "v" and _mixed(q, v) else (q.dtype,)
+        cuda_lib.check_cuda_tensor(f"{name} {n}", t, dtypes, 4)
     cuda_lib.check_cuda_tensor(f"{name} key_valid", key_valid, torch.bool, 2)
     G, H, P, Dh = q.shape
     if any(t.shape != q.shape for t in (k, v, *more)) or \
@@ -419,14 +435,23 @@ def _opt_args(name, q, head_scale, rpe):
     return hs, gc, table, b
 
 
-def _opts_route(kernel, entry, q, head_scale, rpe):
-    """(counter, entry point) of a kernel with the options on, or as
-    given without them; bf16 adds _bf16 to both."""
-    if head_scale is not None or rpe is not None:
+def _opts_route(kernel, entry, q, v, head_scale, rpe, mixed_entry=True):
+    """(counter, entry point, v) of a kernel with the options on, or as
+    given without them; bf16 adds _bf16 to both; the mixed route (fp32 q,
+    bf16 v, with the options) takes v widened to fp32 and the
+    _opts_mixed entry point (K1, K5; with mixed_entry False, K6, the fp32
+    _opts one), counted as the fp32 _opts kernel."""
+    opts = head_scale is not None or rpe is not None
+    if opts:
         kernel, entry = kernel + "_opts", entry + "_opts"
+    if _mixed(q, v):
+        if not opts:
+            raise ValueError(f"{entry}: fp32 q with a bf16 v takes the "
+                             "attention options")
+        return kernel, entry + ("_mixed" if mixed_entry else ""), v.float()
     if q.dtype == torch.bfloat16:
         kernel, entry = kernel + "_bf16", entry + "_bf16"
-    return kernel, entry
+    return kernel, entry, v
 
 
 def patch_attention(q, k, v, key_valid, scale, head_scale=None, rpe=None):
@@ -459,12 +484,12 @@ def patch_attention_split(q, k, v, key_valid, scale, warps, splits,
         raise ValueError(f"patch_attention: split ({warps} warps, {splits} "
                          f"blocks) does not cover {P} query rows")
     out = torch.empty_like(q)
+    kernel, entry, v = _opts_route("patch_attention", "r3dl_patch_attention",
+                                   q, v, head_scale, rpe)
     k, v = _aligned(k), _aligned(v)
     if q.dtype == torch.bfloat16:
         q = _aligned(q)
         scale = bf16_value(scale)
-    kernel, entry = _opts_route("patch_attention", "r3dl_patch_attention", q,
-                                head_scale, rpe)
     opts = _opt_args("patch_attention", q, head_scale, rpe)
     cuda_lib.launch(kernel, entry, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                     key_valid.data_ptr(), out.data_ptr(), *opts, G, H, P, Dh,
@@ -480,14 +505,16 @@ def _dropout_args(rate, seed):
     return seed, keep_threshold(rate), 1.0 / (1.0 - rate)
 
 
-def _dropout_route(q, scale, kernel, entry, head_scale, rpe):
-    """(counter, entry point, scale) of K5 or K6 for q's dtype and the
-    options: at bf16 the _bf16 entry and scale rounded to bf16, as K1's
-    bf16 path takes it."""
-    kernel, entry = _opts_route(kernel, entry, q, head_scale, rpe)
+def _dropout_route(q, v, scale, kernel, entry, head_scale, rpe,
+                   mixed_entry=True):
+    """(counter, entry point, scale, v) of K5 or K6 for q's dtype and the
+    options (_opts_route): at bf16 the _bf16 entry and scale rounded to
+    bf16, as K1's bf16 path takes it."""
+    kernel, entry, v = _opts_route(kernel, entry, q, v, head_scale, rpe,
+                                   mixed_entry)
     if q.dtype == torch.bfloat16:
-        return kernel, entry, bf16_value(scale)
-    return kernel, entry, float(scale)
+        return kernel, entry, bf16_value(scale), v
+    return kernel, entry, float(scale), v
 
 
 def patch_attention_dropout_fwd(q, k, v, key_valid, scale, rate, seed,
@@ -507,9 +534,9 @@ def patch_attention_dropout_fwd(q, k, v, key_valid, scale, rate, seed,
     lse = q.new_empty((G, H, P), dtype=torch.float32)
     bits = torch.empty((G, H, P, (P + 31) // 32), dtype=torch.int32,
                        device=q.device)
-    kernel, entry, scale = _dropout_route(q, scale, "patch_attention_dropout",
-                                          "r3dl_attention_dropout_fwd",
-                                          head_scale, rpe)
+    kernel, entry, scale, v = _dropout_route(
+        q, v, scale, "patch_attention_dropout", "r3dl_attention_dropout_fwd",
+        head_scale, rpe)
     opts = _opt_args("patch_attention_dropout", q, head_scale, rpe)
     cuda_lib.launch(kernel, entry,
                     q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -532,7 +559,8 @@ def patch_attention_dropout_bwd(q, k, v, key_valid, out, lse, bits, g, scale,
         grads = patch_attention_dropout_bwd_plain(
             q, k, v, key_valid, out, lse, bits, g, scale, rate, head_scale,
             rpe)
-        return tuple(t.to(q.dtype) for t in grads[:3]) + tuple(grads[3:])
+        return (grads[0].to(q.dtype), grads[1].to(k.dtype),
+                grads[2].to(v.dtype)) + tuple(grads[3:])
     G, H, P, Dh = _check_attention("patch_attention_dropout_bwd", q, k, v,
                                    key_valid, out, g)
     cuda_lib.check_cuda_tensor("patch_attention_dropout_bwd lse", lse,
@@ -543,13 +571,13 @@ def patch_attention_dropout_bwd(q, k, v, key_valid, out, lse, bits, g, scale,
             tuple(bits.shape) != (G, H, P, (P + 31) // 32):
         raise ValueError(f"patch_attention_dropout_bwd: lse "
                          f"{tuple(lse.shape)}, bits {tuple(bits.shape)}")
+    v_dtype = v.dtype
+    kernel, entry, scale, v = _dropout_route(
+        q, v, scale, "patch_attention_dropout_bwd",
+        "r3dl_attention_dropout_bwd", head_scale, rpe, mixed_entry=False)
     if q.dtype == torch.bfloat16:
         q, k, v, out, g = (_aligned(t) for t in (q, k, v, out, g))
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    kernel, entry, scale = _dropout_route(q, scale,
-                                          "patch_attention_dropout_bwd",
-                                          "r3dl_attention_dropout_bwd",
-                                          head_scale, rpe)
     opts, dtab, dhs = (), None, None
     if opt:
         hs, gc, table, b = _opt_args("patch_attention_dropout_bwd", q,
@@ -566,6 +594,7 @@ def patch_attention_dropout_bwd(q, k, v, key_valid, out, lse, bits, g, scale,
                     lse.data_ptr(), bits.data_ptr(), g.data_ptr(),
                     dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *opts, G, H,
                     P, Dh, scale, 1.0 / (1.0 - rate))
+    dv = dv.to(v_dtype)
     if not opt:
         return dq, dk, dv
     return (dq, dk, dv, None if dtab is None else dtab.sum(0),
@@ -608,3 +637,16 @@ def patch_attention_dropout(q, k, v, key_valid, scale, rate, seed,
     return _PatchAttentionDropout.apply(q, k, v, key_valid, float(scale),
                                         float(rate), int(seed), head_scale,
                                         gc, table, int(b))
+
+
+def bwd_opts_blocks_per_sm(dtype, head_dim, head_scale=True, rpe=True):
+    """Blocks of K6 with the options (head_scale and / or rpe on) that one
+    SM of the card holds at head_dim, its shared memory opted into
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor); the design's two, as
+    the release K6's."""
+    n = ctypes.c_int(0)
+    cuda_lib.query("r3dl_attention_dropout_bwd_opts_blocks" +
+                   ("_bf16" if dtype == torch.bfloat16 else ""),
+                   int(head_dim), int(bool(head_scale)), int(bool(rpe)),
+                   ctypes.addressof(n))
+    return n.value

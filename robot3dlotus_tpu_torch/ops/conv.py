@@ -13,7 +13,8 @@ how). subm_conv_plain and conv_weight_grad_plain are the same functions
 in PyTorch, the path for CPU tensors and the kernels' oracles. A CUDA call of either wrapper is one
 launch count and one ctypes call, which launches one to three kernels: K2
 adds a fixed-order reduction of its tap ranges when B N is too small to
-fill the card (conv_tap_splits), K7 a compaction of each tap's live rows
+fill the card (conv_tap_splits: one tap a range, so that a row's order
+of sums does not follow B), K7 a compaction of each tap's live rows
 and, with more than one row range, a fixed-order sum of the ranges
 (weight_grad_plan).
 
@@ -153,11 +154,17 @@ def conv_channel_padding(cin, cout, x_bytes, w_bytes):
 
 def conv_tap_splits(B, N, K, cout):
     """K2's tap ranges per (row tile, channel tile, cloud): one when those
-    tiles fill the card, else enough (at most K) that two blocks sit on
-    each SM. B = 1 at the deep stages is the case that splits. csrc/conv.cu
-    gives range s the taps [s K / splits, (s + 1) K / splits)."""
+    tiles give half the SMs a block (CONV_TARGET_BLOCKS / 4), else K, one
+    tap a range (B = 1 at every stage, where the K ranges' partials cost
+    less than the idle SMs; the stem at B = 1). csrc/conv.cu
+    gives range s the taps [s K / splits, (s + 1) K / splits). A row's sum
+    order is then the same at every B: a block adds each live tap's fp32
+    sum into the row's total in ascending tap order, from 0; with one tap
+    a range the reduce adds the taps' partials (0 where a tap is dead)
+    from 0 in the same order, so predict_batch equals predict bit for
+    bit. Any other count would sum groups of taps first."""
     blocks = -(-N // CONV_ROWS) * -(-cout // CONV_COLS) * B
-    return max(1, min(K, -(-CONV_TARGET_BLOCKS // max(blocks, 1))))
+    return 1 if 4 * blocks >= CONV_TARGET_BLOCKS else K
 
 
 _BF16 = torch.bfloat16

@@ -95,6 +95,15 @@ SIGNATURES = {
     "r3dl_attention_dropout_fwd_opts_bf16": _DROP_FWD_OPTS,
     "r3dl_attention_dropout_bwd_opts": _DROP_BWD_OPTS,
     "r3dl_attention_dropout_bwd_opts_bf16": _DROP_BWD_OPTS,
+    # upcast_attention at bf16 with the options: K1 and K5's fp32 _opts
+    # kernels rounding the probabilities to bf16 (v a bf16 tensor widened
+    # by the wrapper); counted with the fp32 _opts kernels
+    "r3dl_patch_attention_opts_mixed": _ATTENTION_OPTS,
+    "r3dl_attention_dropout_fwd_opts_mixed": _DROP_FWD_OPTS,
+    # K6 with the options: its blocks an SM (Dh, hs on, rpe on, *blocks,
+    # stream unused); a query, no launch
+    "r3dl_attention_dropout_bwd_opts_blocks": [_I, _I, _I, _P, _P],
+    "r3dl_attention_dropout_bwd_opts_blocks_bf16": [_I, _I, _I, _P, _P],
     # x, idx, ok, w, bias|NULL, out, work|NULL, B, N, K, Cin, Cout,
     # splits, work_bytes, stream
     "r3dl_subm_conv": _CONV,
@@ -233,6 +242,18 @@ def launch(kernel, c_name, *args):
     if err:
         raise RuntimeError(f"{c_name} launch failed: cudaError {err}")
     LAUNCHES[kernel] += 1
+
+
+def query(c_name, *args):
+    """Call one C entry point that launches nothing (an occupancy query);
+    raise on its error; nothing is counted."""
+    fn = _FNS.get(c_name)
+    if fn is None:
+        library()
+        fn = _FNS[c_name]
+    err = fn(*args, current_stream())
+    if err:
+        raise RuntimeError(f"{c_name} failed: cudaError {err}")
 
 
 def reset_launches():

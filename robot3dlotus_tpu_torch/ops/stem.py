@@ -9,14 +9,21 @@ as 3xTF32; stem_conv_plain is the same function in PyTorch (the
 gather-then-einsum form), the path for CPU tensors and the kernel's oracle.
 stem_conv_plan splits the work over blocks: a training batch runs one
 block per SM holding the whole weight; a B = 1 cloud's row groups are too
-few to fill the card, so its tap chunks are split into ranges that a
-second kernel adds in a fixed order (two launches for one count).
+few to fill the card, so its taps are split over blocks whose partials a
+second kernel adds in a fixed order (two launches for one count). Either
+way a row sums its taps in one order at every batch size: the taps are
+cut into sum ranges of STEM_RANGE_TAPS (stem_sum_ranges, a function of K
+alone), each range summed into a fresh fp32 partial and the partials
+added from 0 in range order, by the block that holds the whole row or by
+the second kernel (one sum range a block), so that predict_batch of a
+cloud equals its predict bit for bit.
 
 bf16 (compute_dtype bfloat16): x and W bf16 on the bf16 tensor cores, one
 mma.sync.m16n8k16 a live pair of taps (k = 2 taps x 8 channels), the taps
 summed in fp32 and the output rounded to bf16 once (csrc
 r3dl_stem_conv_bf16, counted as stem_conv_bf16; the tap ranges' partials
-stay fp32). Its rows are gathered 16 bytes a link, so x's rows are padded
+stay fp32, and a bf16 chunk is one sum range). Its rows are gathered 16
+bytes a link, so x's rows are padded
 to 8 channels by a first kernel of the same call into a scratch this
 wrapper allocates (none at Cin = 8), and a Cout that is not a multiple of
 8 gets zero weight columns here (dropped from the output). The weight gradient
@@ -48,7 +55,7 @@ from .conv import _aligned, _pad_channels, conv_weight_grad
 from .gather import scatter_rows_smallc_add
 
 MAX_CIN = 8
-STEM_TAPS_PER_CHUNK = 8          # csrc/stem.cu kKT
+STEM_RANGE_TAPS = 16             # csrc/stem.cu kRangeTaps: a sum range
 # csrc/stem.cu kWarpSmem16: a bf16 warp's A tile of a tap pair (512
 # bytes) and its map tile (16 rows x 18 ints)
 STEM_WARP_SMEM_BYTES = 512 + 16 * 18 * 4
@@ -56,7 +63,6 @@ STEM_ROWS_PER_WARP = 16          # the mma's m
 STEM_MAX_WARPS = 16              # csrc/stem.cu kMaxWarps
 STEM_MAX_SMEM = 227 * 1024       # shared memory an H100 block may hold
 STEM_SMS = 132                   # the H100's SMs
-STEM_TARGET_BLOCKS = 128         # about one block per SM
 
 
 def stem_conv_plain(x, idx, ok, weight):
@@ -74,36 +80,41 @@ def stem_conv_plain(x, idx, ok, weight):
 def stem_conv_plan(B, N, K, cin, cout, bf16=False):
     """K3's (cols, warps, splits, blocks). A block owns `cols` output
     channels (64; 32 at Cin = 8 in fp32, where 64 columns of 125 taps'
-    weight would not fit its shared memory) and tap range s of `splits`
+    weight would not fit its shared memory) and block range s of `splits`
     (stem_tap_ranges); its `warps` warps take the B N rows (flat over the
     clouds) in 16-row groups, group blockIdx.x warps + warp + i blocks
     warps. Blocks are 16 warps (the weight slice is staged once per 256
     rows). Where every warp of one block per SM then gets two groups or
-    more (a training batch), that: each SM loads the weight once. Else
-    one group a warp, and the tap chunks split into enough ranges for
-    about one block per SM (STEM_TARGET_BLOCKS; a B = 1 cloud: 8 ranges
-    of 2 chunks)."""
+    more (a training batch), that: each SM loads the weight once, and the
+    block sums every range of a row. Else one group a warp, and one sum
+    range a block (a B = 1 cloud: 8 ranges of 16 taps). Only these two
+    split counts keep a row's order of sums (stem_sum_ranges)."""
     cols = 64 if cin <= 7 or bf16 else 32
     col_tiles = -(-cout // cols)
     groups = -(-B * N // STEM_ROWS_PER_WARP)
-    chunks = -(-K // STEM_TAPS_PER_CHUNK)
     warps = min(STEM_MAX_WARPS, groups)
     blocks = -(-groups // warps)
     per_sm = -(-STEM_SMS // col_tiles)
     if blocks >= 2 * per_sm:
         return cols, warps, 1, per_sm
-    splits = max(1, min(chunks, -(-STEM_TARGET_BLOCKS //
-                                   (blocks * col_tiles))))
-    return cols, warps, splits, blocks
+    return cols, warps, len(stem_sum_ranges(K)), blocks
+
+
+def stem_sum_ranges(K):
+    """[(k_begin, k_end)]: the sum ranges of a row's K taps, STEM_RANGE_TAPS
+    each (the last may be shorter), whose fp32 partials csrc/stem.cu adds
+    from 0 in this order at every plan stem_conv_plan picks."""
+    return [(k, min(K, k + STEM_RANGE_TAPS))
+            for k in range(0, K, STEM_RANGE_TAPS)]
 
 
 def stem_tap_ranges(K, splits):
-    """[(k_begin, k_end)] per tap range: range s holds the 8-tap chunks
-    [s C // splits, (s + 1) C // splits) of C = ceil(K / 8), as csrc/stem.cu
-    splits them."""
-    C = -(-K // STEM_TAPS_PER_CHUNK)
-    return [(min(K, s * C // splits * STEM_TAPS_PER_CHUNK),
-             min(K, (s + 1) * C // splits * STEM_TAPS_PER_CHUNK))
+    """[(k_begin, k_end)] per block range: range s holds the sum ranges
+    [s NR // splits, (s + 1) NR // splits) of NR = len(stem_sum_ranges(K))
+    (1 <= splits <= NR), as csrc/stem.cu splits them."""
+    NR = len(stem_sum_ranges(K))
+    return [(min(K, s * NR // splits * STEM_RANGE_TAPS),
+             min(K, (s + 1) * NR // splits * STEM_RANGE_TAPS))
             for s in range(splits)]
 
 
@@ -148,7 +159,7 @@ def stem_conv_split(x, idx, ok, weight, cols, warps, splits, blocks):
                          f"multiple of 4)")
     bf16 = x.dtype == torch.bfloat16
     if cols not in (32, 64) or not 1 <= warps <= STEM_MAX_WARPS or \
-            blocks < 1 or not 1 <= splits <= -(-K // STEM_TAPS_PER_CHUNK) or \
+            blocks < 1 or not 1 <= splits <= len(stem_sum_ranges(K)) or \
             stem_smem_bytes(K, Cin, cols, splits, bf16, warps) > \
             STEM_MAX_SMEM:
         raise ValueError(f"stem_conv: plan ({cols} columns, {warps} warps, "
@@ -157,8 +168,8 @@ def stem_conv_split(x, idx, ok, weight, cols, warps, splits, blocks):
     pout = -Cout % 8 if bf16 else 0
     weight = _aligned(_pad_channels(weight, pout))
     out = torch.empty((B, N, Cout + pout), dtype=x.dtype, device=x.device)
-    # the tap ranges' fp32 partial sums, apart from the output so that the
-    # activation does not keep them alive
+    # the block ranges' fp32 partial sums, apart from the output so that
+    # the activation does not keep them alive
     work = torch.empty(splits * out.numel(), dtype=torch.float32,
                        device=x.device) if splits > 1 else None
     wp = None if work is None else work.data_ptr()

@@ -62,6 +62,19 @@ profiler, and records, from that tree's built library, the `nvcc -Xptxas
 -v` registers and spills of the small-C kernels and the shared-memory,
 global and atomic instructions of their SASS (`cuobjdump -sass`).
 
+The options rows (--rows opts, alone): a capture of one training step
+of the release trainer with chip_smoke's ATTN_OPTS (fp32) and one with
+BF16_ATTN_OPTS (bf16) takes K5's calls with the attention options (K6's
+from one K5 launch of the second root and the captured cotangent); each
+turn times K5 and K6 with the options on them and the release K5 and K6
+on the same tensors without the options (the options' cost in one run),
+times each with the head scale alone and the bias alone, records K6's
+blocks an SM where the tree has the query
+(attention.bwd_opts_blocks_per_sm), and times K3 and K2 on the calls of
+one predict at fp32 and at bf16 (B = 1) and K3 on the step's B = 32 stem
+call at both dtypes (what a row's fixed order of sums costs). Every
+kernel of a call is timed (the ranges' sum included).
+
 One JSON line per turn is printed and all of them are written to
 chiprun_out/bf16_kernels_ab.json, with the card's name and power limit.
 Needs one CUDA card.
@@ -199,6 +212,52 @@ def smallc_calls(calls, meta):
             / cs.HBM_BYTES_PER_S) for g, idx, n in calls[key]]
 
 
+def opts_calls():
+    # K5 / K6 with the options on one options step at each dtype; K3 and
+    # K2 at B = 1 (one predict) and K3 on the B = 32 step, each dtype
+    calls, meta = {}, {"opts": {}}
+    for tag, opts in (("fp32", cs.ATTN_OPTS), ("bf16", cs.BF16_ATTN_OPTS)):
+        trainer, batches, _ = cs.build_trainer(cs.train_config(*opts),
+                                               cs.SPEC, device="cuda")
+        host, _ = cs.host_batches(batches, 1)
+        if hasattr(batches, "close"):
+            batches.close()
+        step = cs.capture(
+            lambda: trainer.step(cs.batch_to_device(host[0], "cuda")),
+            [(cs.layers, "patch_attention_dropout", "attention")] +
+            [s for s in cs.TRAIN_SITES if s[2] == "stem_conv"])
+        del trainer, host
+        k5, k6 = [], []
+        for (q, k, v, kv, scale, rate, seed, hs, rpe), g in \
+                step["attention"]:
+            out, lse, bits = cs.attention.patch_attention_dropout_fwd(
+                q, k, v, kv, scale, rate, seed, hs, rpe)
+            k5.append((q, k, v, kv, scale, rate, seed, hs, rpe))
+            k6.append((q, k, v, kv, out, lse, bits, g, scale, rate, hs, rpe))
+        calls["k5_opts_" + tag], calls["k6_opts_" + tag] = k5, k6
+        calls["k3_step_" + tag] = [c for c, _ in step["stem_conv"]
+                                   if c is not None]
+        meta["opts"][tag] = [list(c[0].shape) for c in k5]
+        del step
+        base = cs.CLI_OPTS + (cs.BF16_OPTS if tag == "bf16" else [])
+        actioner = cs.Actioner(cs.CONFIG, cli_opts=base, device="cuda",
+                               seed=0)
+        actioner.rng = np.random.default_rng(0)
+        serving = cs.capture_main_path(lambda: actioner.predict(
+            **cs.requests([cs.synthetic_observation(100)])[0]))
+        calls["k3_b1_" + tag] = serving["stem_conv"]
+        calls["k2_b1_" + tag] = serving["subm_conv"]
+        del actioner, serving
+    return calls, meta
+
+
+if rows == "opts":
+    calls, meta = opts_calls()
+    torch.save(calls, path)
+    with open(path + ".json", "w") as f:
+        json.dump(meta, f)
+    print({k: len(v) for k, v in calls.items()}, flush=True)
+    sys.exit(0)
 if rows == "smallc":
     step = policy_step([s for s in cs.TRAIN_SITES if s[2] == "stem_conv"])
     calls = {"stem_step": [c for c in step["stem_conv"] if c[1] is not None]}
@@ -422,10 +481,58 @@ def smallc_rows(res):
     res["smallc_build"] = sass_counts()
 
 
+def opts_rows(res):
+    # K5 / K6 with the options and the release K5 / K6 on the same
+    # tensors; K6's blocks an SM; K3 / K2 at B = 1 and K3 at B = 32
+    for tag in ("fp32", "bf16"):
+        k5, k6 = calls["k5_opts_" + tag], calls["k6_opts_" + tag]
+        res["k5_opts_" + tag] = timed(
+            [lambda a=c: attention.patch_attention_dropout_fwd(*a)
+             for c in k5], "attn_drop_fwd", timing=train)
+        res["k5_release_" + tag] = timed(
+            [lambda a=c[:7]: attention.patch_attention_dropout_fwd(*a)
+             for c in k5], "attn_drop_fwd", timing=train)
+        res["k6_opts_" + tag] = timed(
+            [lambda a=c: attention.patch_attention_dropout_bwd(*a)
+             for c in k6], "attn_drop_bwd", timing=train)
+        res["k6_release_" + tag] = timed(
+            [lambda a=c[:10]: attention.patch_attention_dropout_bwd(*a)
+             for c in k6], "attn_drop_bwd", timing=train)
+        # each option alone: what the head scale and the bias cost apart
+        for part, keep in (("scale", (True, False)), ("rpe", (False, True))):
+            res[f"k5_{part}_{tag}"] = timed(
+                [lambda a=c[:7], o=(c[7] if keep[0] else None,
+                                    c[8] if keep[1] else None):
+                 attention.patch_attention_dropout_fwd(*a, *o) for c in k5],
+                "attn_drop_fwd", timing=train)
+            res[f"k6_{part}_{tag}"] = timed(
+                [lambda a=c[:10], o=(c[10] if keep[0] else None,
+                                     c[11] if keep[1] else None):
+                 attention.patch_attention_dropout_bwd(*a, *o) for c in k6],
+                "attn_drop_bwd", timing=train)
+        if hasattr(attention, "bwd_opts_blocks_per_sm"):
+            dt = torch.bfloat16 if tag == "bf16" else torch.float32
+            res["k6_opts_blocks_per_sm_" + tag] = {
+                str(Dh): attention.bwd_opts_blocks_per_sm(dt, Dh)
+                for Dh in (8, 16, 24, 32)}
+        res["k3_step_" + tag] = timed_all(
+            [lambda a=c: stem.stem_conv(*a) for c in calls["k3_step_" + tag]],
+            train)
+        res["k3_b1_" + tag] = timed_all(
+            [lambda a=c: stem.stem_conv(*a) for c in calls["k3_b1_" + tag]],
+            {})
+        res["k2_b1_" + tag] = timed_all(
+            [lambda a=c: conv.subm_conv(*a) for c in calls["k2_b1_" + tag]],
+            {})
+
+
 res = {}
-if "k1" in calls:
-    policy_rows(res)
-smallc_rows(res)
+if "k5_opts_fp32" in calls:
+    opts_rows(res)
+else:
+    if "k1" in calls:
+        policy_rows(res)
+    smallc_rows(res)
 print(json.dumps(res), flush=True)
 """
 
@@ -438,8 +545,10 @@ def main():
     ap.add_argument("--yardsticks", action="store_true",
                     help="also time the plain versions and the library "
                     "calls of K8 and K3 in the first turn")
-    ap.add_argument("--rows", choices=("all", "smallc"), default="all",
-                    help="smallc: only the K9 and K10 rows")
+    ap.add_argument("--rows", choices=("all", "smallc", "opts"),
+                    default="all",
+                    help="smallc: only the K9 and K10 rows; opts: the "
+                    "options' K5 / K6 rows and K3 / K2 at B = 1 and 32")
     args = ap.parse_args()
     roots = {"p": os.path.abspath(args.parent),
              "c": os.path.abspath(args.change)}

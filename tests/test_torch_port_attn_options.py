@@ -16,15 +16,24 @@ numpy seeds:
     its own largest |grad|, floored at 1e-3 of the largest of all (the k
     norm's bias has a zero gradient up to rounding); the table's rows sum
     ds over up to B P^2 pairs, in another order, and the same bar holds;
-  * at bf16, rpe + cosine + 'qk' with and without upcast_attention,
-    against the JAX program jitted with XLA's excess precision off: the
-    attention's output within the ops/bf16.py bar plus one bf16 ulp of each
-    probability's share (the port rounds each probability where JAX does
-    without upcast; with it the port's fp32 kernels leave them unrounded,
-    which that allowance covers); after the output projection, a chain of
-    roundings, within the chain bar of test_torch_port_bf16.py (2^-6 of
-    the scale; without upcast also at most 2% of the elements off, with it
-    most move by an ulp or two);
+  * at bf16, rpe + cosine + 'qk' with and without upcast_attention, and
+    upcast_attention with rpe alone and with cosine alone, against the JAX
+    program (its XLA path, the one JAX runs with either option) jitted with
+    XLA's excess precision off: the attention's output within the
+    ops/bf16.py bar plus one bf16 ulp of each probability's share (the
+    port rounds each probability where JAX does, also under upcast: fp32
+    logits from fp32 q and k, the probabilities rounded to v's bf16); after
+    the output projection, a chain of roundings, within the chain bar of
+    test_torch_port_bf16.py (2^-6 of the scale, at most 2% of the elements
+    off);
+  * upcast_attention at bf16 without those two options against the JAX
+    Pallas path (attn_impl 'pallas_interpret', the kernel interpreted on
+    the CPU): q and k cast back to bf16 after the fp32 norms, so the port
+    calls its bf16 attention (the bf16 K1 on the card), within the same
+    bars;
+  * a Python mirror of K6's shared memory with the options
+    (csrc/attention_dropout.cuh): two blocks an SM at every head dim and
+    position bound, both dtypes;
   * the plain K5 / K6 with the bias and the scale at rate 0.1 against
     autograd of the plain forward under the same Philox mask (fp32, 1e-4
     of each gradient's scale: dhead_scale sums ds S over a patch, where
@@ -220,17 +229,48 @@ def test_serialized_attention_options_bf16_match_jax(upcast):
     projection, read by a hook on proj's input) within the bf16 bar plus
     the probabilities' allowance, the module output within the chain bar
     of test_torch_port_bf16.py (2^-6 of the scale, at most 2% of the
-    elements off)."""
+    elements off); with upcast_attention the JAX XLA path's fp32 logits
+    and bf16 probabilities."""
+    _options_bf16_vs_jax({"enable_rpe": True, "scaled_cosine_attn": True,
+                          "add_coords_in_attn": "qk",
+                          "upcast_attention": upcast}, "xla")
+
+
+@pytest.mark.parametrize("option", ["enable_rpe", "scaled_cosine_attn"])
+def test_upcast_bf16_with_one_option_matches_jax_xla(option):
+    """upcast_attention at bf16 with one option: the JAX XLA path (fp32
+    logits from fp32 q and k, probabilities rounded to bf16 before P v):
+    the port's attention call takes fp32 q and k and the bf16 v (the
+    _opts kernels' mixed route on the card), within the bars above."""
+    calls = _options_bf16_vs_jax({option: True, "upcast_attention": True},
+                                 "xla")
+    assert calls == [(torch.float32, torch.float32, BF16)]
+
+
+def test_upcast_bf16_without_options_matches_jax_pallas():
+    """upcast_attention at bf16 without rpe and cosine: the JAX Pallas path
+    (attn_impl 'pallas_interpret'), q and k fp32 through the norms and
+    cast back to bf16: the port's attention call takes bf16 q, k, v (the
+    bf16 K1 on the card), within the bars above."""
+    calls = _options_bf16_vs_jax({"upcast_attention": True},
+                                 "pallas_interpret")
+    assert calls == [(BF16, BF16, BF16)]
+
+
+def _options_bf16_vs_jax(opts, impl):
+    """SerializedAttention at bf16 with `opts` against the JAX module with
+    attn_impl `impl`, jitted with excess precision off (the bars of
+    test_serialized_attention_options_bf16_match_jax); returns the dtypes
+    of q, k, v at the port's attention call."""
     P, B, C, H = 16, 2, 32, 2
-    opts = {"enable_rpe": True, "scaled_cosine_attn": True,
-            "add_coords_in_attn": "qk", "upcast_attention": upcast}
     taux, jaux = _aux(11, B, 2 * P, P, False)
     port = perturb_port(tl.SerializedAttention(
         C, H, P, torch.Generator().manual_seed(0), order_index=1,
         dtype=BF16, **opts)).eval()
     variables = {"params": params_to_jax(port)["params"]}
     feat = np.random.RandomState(4).randn(B, 2 * P, C).astype(np.float32)
-    jm = _jax_attention(C, H, P, opts, jnp.bfloat16)
+    jm = jl.SerializedAttention(C, H, P, order_index=1, qk_norm=True,
+                                attn_impl=impl, dtype=jnp.bfloat16, **opts)
     want = jrun(lambda v, x: _jax_call(jm, v, x, jaux), variables,
                 jnp.asarray(feat).astype(jnp.bfloat16))
     want_attn = _jax_attention_output(jm, variables, feat, jaux)
@@ -241,14 +281,13 @@ def test_serialized_attention_options_bf16_match_jax(upcast):
         got = port(T(feat).to(BF16), taux)
     h.remove()
     assert got.dtype == BF16 and seen["attn"].dtype == BF16
+    allowance, calls = _prob_allowance(port, feat, taux)
     assert bf16_excess(seen["attn"], torch.from_numpy(f32(want_attn).copy()),
-                       extra=_prob_allowance(port, feat, taux)) <= 0
+                       extra=allowance) <= 0
     d = np.abs(f32(got) - f32(want))
     assert d.max() <= 2.0 ** -6 * max(1.0, np.abs(f32(want)).max())
-    if not upcast:
-        # with upcast every probability is unrounded, so most outputs
-        # move by an ulp or two, within the bars above
-        assert (d > 0).mean() <= 0.02
+    assert (d > 0).mean() <= 0.02
+    return calls
 
 
 def _jax_attention_output(jm, variables, feat, jaux):
@@ -265,13 +304,15 @@ def _jax_attention_output(jm, variables, feat, jaux):
 
 def _prob_allowance(port, feat, taux):
     """2^-7 sum_j p_j |v_j| of the port's own attention call, laid out as
-    the attention output (B, N, C): captured at the kernel's call."""
-    calls = []
+    the attention output (B, N, C): captured at the kernel's call; and
+    the dtypes of the call's q, k, v."""
+    calls, dtypes = [], []
     orig = tl.patch_attention
 
     def rec(q, k, v, kv, scale, hs=None, rpe=None):
         calls.append(attention.bf16_probability_allowance(
             q, k, v, kv, scale, head_scale=hs, rpe=rpe))
+        dtypes.append((q.dtype, k.dtype, v.dtype))
         return orig(q, k, v, kv, scale, hs, rpe)
     tl.patch_attention = rec
     try:
@@ -283,7 +324,7 @@ def _prob_allowance(port, feat, taux):
     B, N, C = feat.shape
     P, H = a.shape[2], a.shape[1]
     return a.reshape(B, N // P, H, P, -1).permute(0, 1, 3, 2, 4).reshape(
-        B, N, C)
+        B, N, C), dtypes
 
 
 def _opt_inputs(seed, G=3, H=2, P=16, Dh=8):
@@ -432,3 +473,57 @@ def test_cosine_normalize_zero_row_has_zero_gradient(dtype):
                                    atol=1e-6)
     else:      # a norm's fp32 sum in another order may round apart
         assert bf16_excess(y.detach(), torch.from_numpy(want)) <= 0
+
+
+# csrc/attention_dropout.cuh's K6 shared memory, in bytes: kMaxP = 128
+# rows; Layout<Dh> (fp32: S = Dh + 4, DS = 132) and Layout16<Dh> (bf16: S =
+# Dh, or Dh + 8 where Dh / 8 is even; ds rows of kDS16 = 136 floats);
+# LogitOpts' kSmem (the int4 coordinates and the 96-float table column),
+# 8 floats of dhs; the table pass's 31 rows of 128 floats
+K6_MAX_P, K6_WORDS = 128, 4
+K6_OPTS = K6_MAX_P * 16 + 96 * 4 + 8 * 4
+K6_ROWS = 31 * K6_MAX_P * 4
+# two blocks an SM: 228 KB of an H100 SM, 1 KB reserved a block, the
+# 128-byte static key mask
+K6_TWO_BLOCKS = (228 * 1024) // 2 - 1024 - K6_MAX_P
+
+
+def _k6_smem(Dh, bf16, rpe, release=False):
+    """K6's dynamic shared memory with the options (bwd_total_smem /
+    bwd16_total_smem); rpe False: the head scale alone; release: no
+    option (NoOpts)."""
+    opts = 0 if release else K6_OPTS if rpe else 8 * 4
+    if not bf16:
+        S = Dh + 4
+        own = (K6_MAX_P * 132 + 2 * K6_MAX_P * S + 2 * K6_MAX_P) * 4 + \
+            K6_MAX_P * K6_WORDS * 4
+        rows_in_q = 2 * K6_MAX_P * S * 4 >= K6_ROWS
+        return own + opts + (K6_ROWS if rpe and not rows_in_q else 0)
+    S = Dh if (Dh // 8) % 2 else Dh + 8
+    slice_ = K6_MAX_P * S * 2
+    own = K6_MAX_P * 136 * 4 + 4 * slice_ + 2 * K6_MAX_P * 4 + \
+        K6_MAX_P * K6_WORDS * 4
+    opts_in_v = slice_ >= opts
+    # after phase 2: q, g, k's slices and v's less the options' data
+    free = 3 * slice_ + (slice_ - opts if opts_in_v else slice_)
+    return own + (0 if opts_in_v else opts) + \
+        (K6_ROWS if rpe and free < K6_ROWS else 0)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("Dh", [8, 16, 24, 32])
+def test_k6_options_fit_two_blocks_an_sm(Dh, bf16):
+    """K6 with the options at every head dim the kernels take, each
+    position bound up to 15 (the table and its rows are sized for 15,
+    so b does not change the layout): two blocks an SM, each at most
+    113 KB, as the release K6 (which the mirror gives as it was: 107,520
+    bytes at fp32, 113,664 at bf16, Dh = 32)."""
+    assert attention.pos_bound(attention.KERNEL_MAX_PATCH) == 15
+    for rpe in (False, True):
+        for b in range(16):
+            assert 3 * (2 * b + 1) <= 96 and 2 * b + 1 <= 31
+            smem = _k6_smem(Dh, bf16, rpe)
+            assert smem <= K6_TWO_BLOCKS and smem <= 113 * 1024, \
+                (Dh, bf16, rpe, smem)
+    assert _k6_smem(32, bf16, False, release=True) == \
+        (113664 if bf16 else 107520)

@@ -96,16 +96,18 @@ def test_conv_tap_ranges_partition_the_taps_in_order(K):
 
 
 @pytest.mark.parametrize("B,N,cout,want", [
-    (32, 4096, 64, 1), (32, 256, 768, 1), (1, 4096, 64, 9),
-    (1, 256, 768, 11), (1, 512, 512, 9), (2, 300, 128, 22)])
+    (32, 4096, 64, 1), (32, 256, 768, 1), (1, 4096, 64, 27),
+    (1, 256, 768, 27), (1, 512, 512, 27), (2, 300, 128, 27),
+    (4, 4096, 64, 1)])
 def test_conv_tap_splits_fill_the_card(B, N, cout, want):
-    """One range where the (row tile, channel tile, cloud) blocks fill two
-    per SM, else enough ranges (at most K) to do so."""
+    """One range where the (row tile, channel tile, cloud) blocks give
+    half the SMs one, else one tap a range (K ranges), the only other count
+    that keeps a row's order of sums."""
     splits = conv.conv_tap_splits(B, N, 27, cout)
     assert splits == want
     blocks = -(-N // conv.CONV_ROWS) * -(-cout // conv.CONV_COLS) * B
-    assert splits == 27 or blocks * splits >= conv.CONV_TARGET_BLOCKS
-    assert splits == 1 or blocks * (splits - 1) < conv.CONV_TARGET_BLOCKS
+    assert splits in (1, 27)
+    assert (splits == 1) == (4 * blocks >= conv.CONV_TARGET_BLOCKS)
 
 
 @pytest.mark.parametrize("B,N,K,cin,cout", [

@@ -144,7 +144,7 @@ def test_k3_stem_conv(dev, B, cin, cout, kind):
 
 
 @pytest.mark.parametrize("cols,warps,splits,blocks", [
-    (64, 1, 1, 125), (64, 2, 16, 63), (64, 4, 3, 32), (32, 8, 5, 16),
+    (64, 1, 1, 125), (64, 2, 8, 63), (64, 4, 3, 32), (32, 8, 5, 16),
     (64, 16, 1, 3), (32, 16, 1, 132)])
 def test_k3_stem_conv_plans(dev, cols, warps, splits, blocks):
     """K3 with each plan forced (ops/stem.py stem_conv_plan's fields): block
@@ -158,6 +158,42 @@ def test_k3_stem_conv_plans(dev, cols, warps, splits, blocks):
     w = _randn(rng, dev, 125, 7, 68, scale=0.1)
     _check(stem.stem_conv_split(x, idx, ok, w, cols, warps, splits, blocks),
            stem.stem_conv_plain(x, idx, ok, w))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_k3_rows_at_b1_equal_rows_in_b4(dev, dtype):
+    """A row's order of sums does not follow B (ops/stem.py
+    stem_sum_ranges, ops/conv.py conv_tap_splits): cloud 2's rows at B = 1
+    equal its rows in a B = 4 batch bit for bit, and in the batch with the
+    whole row in one block (K3 splits 1, K2 one range), for K3 (1000-point
+    clouds: 16-row groups straddle clouds) and K2 (a CPE conv, 27 taps x
+    64, and the Concat stem, 125 taps x 264)."""
+    rng = np.random.RandomState(2121)
+    B, N, one = 4, 1000, slice(2, 3)
+    idx, ok = _stem_map(rng, dev, "release", B, N)
+    x = _randn(rng, dev, B, N, 7).to(dtype)
+    w = _randn(rng, dev, 125, 7, 64, scale=0.1).to(dtype)
+    batch = stem.stem_conv(x, idx, ok, w)
+    alone = stem.stem_conv(x[one].contiguous(), idx[one].contiguous(),
+                           ok[one].contiguous(), w)
+    cols, warps, _, blocks = stem.stem_conv_plan(B, N, 125, 7, 64,
+                                                 dtype == BF16)
+    whole = stem.stem_conv_split(x, idx, ok, w, cols, warps, 1, blocks)
+    torch.cuda.synchronize()
+    assert torch.equal(alone[0], batch[2]) and torch.equal(batch, whole)
+    for K, cin, cout in ((27, 64, 64), (125, 264, 64)):
+        idx2 = torch.from_numpy(rng.randint(0, N, (B, N, K)).astype(
+            np.int32)).to(dev)
+        ok2 = torch.from_numpy(rng.rand(B, N, K) < 0.2).to(dev)
+        x2 = _randn(rng, dev, B, N, cin).to(dtype)
+        w2 = _randn(rng, dev, K, cin, cout, scale=0.05).to(dtype)
+        bias = _randn(rng, dev, cout, scale=0.1)
+        assert conv.conv_tap_splits(1, N, K, cout) == K
+        batch = conv.subm_conv(x2, idx2, ok2, w2, bias)
+        alone = conv.subm_conv(x2[one].contiguous(), idx2[one].contiguous(),
+                               ok2[one].contiguous(), w2, bias)
+        torch.cuda.synchronize()
+        assert torch.equal(alone[0], batch[2]), (K, dtype)
 
 
 def _sentinel_idx(rng, B, M, N, dtype):
@@ -1273,7 +1309,7 @@ def test_bf16_k3_stem_conv(dev, B, cin, kind, cout):
 
 
 @pytest.mark.parametrize("cols,warps,splits,blocks", [
-    (64, 1, 1, 125), (64, 2, 16, 63), (64, 4, 3, 32), (32, 8, 5, 16),
+    (64, 1, 1, 125), (64, 2, 8, 63), (64, 4, 3, 32), (32, 8, 5, 16),
     (64, 16, 1, 3), (32, 16, 1, 132)])
 def test_bf16_k3_stem_conv_plans(dev, cols, warps, splits, blocks):
     """K3 at bf16 with each plan forced: tap ranges of odd lengths (a last
@@ -1502,6 +1538,59 @@ def test_k5_k6_attention_options(dev, P, rate, Dh, which, dtype):
         assert torch.equal(tab_r.grad, got[3])
     if hs is not None:
         assert torch.equal(hs_r.grad, got[4])
+
+
+@pytest.mark.parametrize("which", OPTION_SETS)
+@pytest.mark.parametrize("Dh", [8, 32])
+@pytest.mark.parametrize("P,rate", [(128, 0.1), (37, 0.0)])
+def test_attention_options_mixed_route(dev, P, rate, Dh, which):
+    """upcast_attention at bf16 with the options: fp32 q and k, bf16 v
+    (K1 and K5's _opts_mixed entry points and the fp32 K6 with the
+    options, counted as the fp32 _opts kernels): K1 and K5's out (fp32,
+    the probabilities rounded to bf16) and K6's dq, dk (fp32), dv (bf16)
+    and the options' gradients against the plain versions within the
+    ops/bf16.py bar (K1 / K5 plus the probabilities' allowance; K6 of each
+    gradient's own scale), each kernel bit-equal across two launches."""
+    G, H, seed = 6, 3, 97531
+    q, k, v, kv, gout, (scale, hs, rpe) = _opt_inputs(dev, which, G, H, P,
+                                                      Dh, torch.float32)
+    v = v.to(BF16)
+    opts = dict(head_scale=hs, rpe=rpe)
+    got = _twice(lambda: attention.patch_attention(q, k, v, kv, scale,
+                                                   **opts),
+                 "patch_attention_opts")
+    assert got.dtype == torch.float32
+    assert bf16_excess(got, attention.patch_attention_plain(
+        q, k, v, kv, scale, hs, rpe), extra=attention.
+        bf16_probability_allowance(q, k, v, kv, scale, **opts)) <= 0.0
+    run5 = lambda: attention.patch_attention_dropout_fwd(  # noqa: E731
+        q, k, v, kv, scale, rate, seed, **opts)
+    (out, lse, bits), again = run5(), run5()
+    torch.cuda.synchronize()
+    for a, b in zip((out, lse, bits), again):
+        assert torch.equal(a, b)
+    p_out, p_lse, p_bits = attention.patch_attention_dropout_fwd_plain(
+        q, k, v, kv, scale, rate, seed, **opts)
+    assert torch.equal(bits, p_bits)
+    _check(lse[1:], p_lse[1:])
+    keep = attention.philox_keep_mask(seed, G, H, P, rate, dev)
+    assert bf16_excess(out, p_out, extra=attention.bf16_probability_allowance(
+        q, k, v, kv, scale, rate, keep, **opts)) <= 0.0
+    run6 = lambda: attention.patch_attention_dropout_bwd(  # noqa: E731
+        q, k, v, kv, out, lse, bits, gout, scale, rate, **opts)
+    got, again = run6(), run6()
+    want = attention.patch_attention_dropout_bwd_plain(
+        q, k, v, kv, out, lse, bits, gout, scale, rate, **opts)
+    torch.cuda.synchronize()
+    assert got[2].dtype == BF16
+    for a, b, c in zip(got, again, want):
+        assert (a is None) == (c is None)
+        if a is not None:
+            assert torch.equal(a, b)
+            assert bf16_excess(a, c.to(a.dtype), relative=True) <= 0.0
+    for dtype in (torch.float32, BF16):
+        assert attention.bwd_opts_blocks_per_sm(dtype, Dh, hs is not None,
+                                                rpe is not None) == 2
 
 
 def test_k1_options_refuse_a_gradient(dev):

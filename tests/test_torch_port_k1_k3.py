@@ -184,29 +184,29 @@ def _k3_coverage(B, N, K, cout, cols, warps, splits, blocks):
     (3, 50, 27, 8, 8)])
 def test_k3_plan_covers_every_row_channel_tap_once(B, N, K, cin, cout):
     cols, warps, splits, blocks = stem.stem_conv_plan(B, N, K, cin, cout)
-    assert 1 <= warps <= stem.STEM_MAX_WARPS and 1 <= splits <= -(-K // 8)
+    sums = stem.stem_sum_ranges(K)
+    assert 1 <= warps <= stem.STEM_MAX_WARPS and splits in (1, len(sums))
     assert stem.stem_smem_bytes(K, cin, cols, splits) <= stem.STEM_MAX_SMEM
     count, order = _k3_coverage(B, N, K, cout, cols, warps, splits, blocks)
     assert (count == 1).all()
     assert order == list(range(K))          # ranges ascend and abut
     ranges = stem.stem_tap_ranges(K, splits)
     assert all(kb < ke for kb, ke in ranges)   # no empty range
-    assert all(kb % 8 == 0 for kb, _ in ranges)
+    assert all(kb % stem.STEM_RANGE_TAPS == 0 for kb, _ in ranges)
+    assert ranges in ([(0, K)], sums)
     groups = -(-B * N // 16)
-    launched = blocks * -(-cout // cols) * splits
-    # about one block per SM, or one per SM whose warps take 2+ groups
-    assert launched >= min(stem.STEM_TARGET_BLOCKS,
-                           -(-groups // warps) * -(-cout // cols) *
-                           -(-K // 8)) or blocks * warps * 2 <= groups
+    # one block per sum range, or one per SM whose warps take 2+ groups
+    assert splits == len(sums) or blocks * warps * 2 <= groups
 
 
 def test_k3_release_plans():
-    """B = 1 serving: 16 blocks of 16 warps, the taps in 8 ranges of 2
-    chunks (two launches, 128 blocks); B = 4 (predict_batch): 2 ranges;
-    the B = 32 training call: one 16-warp block per SM holding all 125
-    taps' weight (219 KB), each warp taking about 4 row groups."""
+    """B = 1 serving: 16 blocks of 16 warps, the taps in the 8 sum ranges
+    of 16 (two launches, 128 blocks); B = 4 (predict_batch): the same 8
+    ranges; the B = 32 training call: one 16-warp block per SM holding all
+    125 taps' weight (219 KB), each warp taking about 4 row groups and
+    summing the 8 ranges itself."""
     assert stem.stem_conv_plan(1, 4096, 125, 7, 64) == (64, 16, 8, 16)
-    assert stem.stem_conv_plan(4, 4096, 125, 7, 64) == (64, 16, 2, 64)
+    assert stem.stem_conv_plan(4, 4096, 125, 7, 64) == (64, 16, 8, 64)
     assert stem.stem_conv_plan(32, 4096, 125, 7, 64) == (64, 16, 1, 132)
     assert stem.stem_smem_bytes(125, 7, 64, 1) == 224000
     assert stem.stem_tap_ranges(125, 8) == [

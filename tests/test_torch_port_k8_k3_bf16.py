@@ -22,8 +22,8 @@ package:
     (two taps x 8 channels, x and W zero-padded from 7 channels, a range's
     odd last tap paired with a zero tap), skips a pair none of the group's
     32 links reaches, multiplies each live pair once (bf16 products exact,
-    fp32 sums), adds the tap ranges' fp32 partials in order and rounds
-    once: every live link multiplied exactly once, and the result within
+    fp32 sums), adds the 16-tap sum ranges' fp32 partials in order from 0
+    (stem_sum_ranges, the same at every plan) and rounds once: every live link multiplied exactly once, and the result within
     the bf16 bar of stem_conv_plain and of the JAX stem at bf16 (the XLA
     subm_conv_apply), on the wrapper's plans at B = 1 (tap ranges) and
     B = 4, Cin 7 and 8, Cout 64 and 68 (zero weight columns to 72).
@@ -148,14 +148,16 @@ def test_k8_step_index_structure_on_jax_maps():
 
 # ------------------------------------------------------------------ K3 ----
 
-def _emulate_k3_bf16(x, idx, ok, w, splits):
-    """K3 at bf16 as stem_conv16_kernel walks it: for each tap range, each
+def _emulate_k3_bf16(x, idx, ok, w):
+    """K3 at bf16 as stem_conv16_kernel walks it, at any plan that
+    stem_conv_plan picks: for each sum range (stem_sum_ranges), each
     16-row group (rows flat over the clouds) runs the range's tap pairs;
     a pair is multiplied when any of the group's 32 links is live, as one
     (16 x 16) x (16 x Cout) product of bf16 values (x and W padded to 8
-    channels, a missing second tap zero) added to the fp32 sums; the
-    ranges' fp32 partials added in order, rounded to bf16 once. Returns
-    the output and the (row, tap) links multiplied, counted per link."""
+    channels, a missing second tap zero) added to the range's fp32
+    partial; the partials added in order from 0, rounded to bf16 once.
+    Returns the output and the (row, tap) links multiplied, counted per
+    link."""
     B, N, cin = x.shape
     K, _, cout = w.shape
     R = B * N
@@ -168,8 +170,9 @@ def _emulate_k3_bf16(x, idx, ok, w, splits):
     src = torch.where(ok.reshape(R, K), src, R)
     src = torch.cat([src, torch.full((16 * G - R, K), R)])  # past the rows
     src = torch.cat([src, torch.full((16 * G, 1), R)], 1)   # tap K: dead
-    total, seen = None, torch.zeros(16 * G, K + 1, dtype=torch.long)
-    for kb, ke in stem.stem_tap_ranges(K, splits):
+    total = torch.zeros(G, 16, cout)
+    seen = torch.zeros(16 * G, K + 1, dtype=torch.long)
+    for kb, ke in stem.stem_sum_ranges(K):
         acc = torch.zeros(G, 16, cout)
         for t0 in range(kb, ke, 2):
             t1 = t0 + 1 if t0 + 1 < ke else K
@@ -181,7 +184,7 @@ def _emulate_k3_bf16(x, idx, ok, w, splits):
             acc = torch.where(live[:, None, None],
                               (acc.double() + prod.double()).float(), acc)
             seen[:, [t0, t1]] += live.repeat_interleave(16)[:, None].long()
-        total = acc if total is None else total + acc
+        total = total + acc
     out = total.reshape(16 * G, cout)[:R].reshape(B, N, cout)
     return out.to(BF16), seen[:R, :K].reshape(B, N, K)
 
@@ -214,7 +217,7 @@ def test_k3_bf16_pairs_emulated(B, cin, cout):
     assert cols == 64 and stem.stem_smem_bytes(
         125, cin, cols, splits, True, warps) <= stem.STEM_MAX_SMEM
     assert splits > 1 if B == 1 else True
-    got, seen = _emulate_k3_bf16(xt, idx, ok, wt, splits)
+    got, seen = _emulate_k3_bf16(xt, idx, ok, wt)
     assert torch.equal(seen[ok], torch.ones(int(ok.sum()), dtype=torch.long))
     want = stem.stem_conv_plain(xt, idx, ok, wt)
     assert bf16_excess(got, want) <= 0.0
@@ -223,13 +226,13 @@ def test_k3_bf16_pairs_emulated(B, cin, cout):
     within_bar(stem.stem_conv(xt, idx, ok, wt), jwant)
 
 
-@pytest.mark.parametrize("splits", [1, 3, 5, 16])
+@pytest.mark.parametrize("splits", [1, 3, 5, 8])
 def test_k3_bf16_tap_ranges_pair_up(splits):
-    """Tap ranges of 8-tap chunks (stem_tap_ranges): every range starts on
-    an even tap, so its pairs are (kb, kb + 1), ...; only a range ending
-    at K = 125 has an odd count, its last tap paired with a zero tap
-    (stem_smem_bytes stages it); the shared memory at the B = 32 plan is
-    under an H100 block's 227 KB with 64 columns and 16 warps."""
+    """Block ranges of 16-tap sum ranges (stem_tap_ranges): every range
+    starts on an even tap, so its pairs are (kb, kb + 1), ...; only a range
+    ending at K = 125 has an odd count, its last tap paired with a zero
+    tap (stem_smem_bytes stages it); the shared memory at the B = 32 plan
+    is under an H100 block's 227 KB with 64 columns and 16 warps."""
     ranges = stem.stem_tap_ranges(125, splits)
     assert ranges[0][0] == 0 and ranges[-1][1] == 125
     for (kb, ke), (nb, _) in zip(ranges, ranges[1:] + [(125, 0)]):

@@ -118,9 +118,9 @@ def test_k2_tap_ranges_at_125_taps(B, N, cout):
     then sums its taps in ascending order and the reduce adds the ranges
     in order."""
     splits = conv.conv_tap_splits(B, N, K, cout)
-    assert 1 <= splits <= K
+    assert splits in (1, K)
     blocks = -(-N // conv.CONV_ROWS) * -(-cout // conv.CONV_COLS) * B
-    assert splits == 1 or blocks * (splits - 1) < conv.CONV_TARGET_BLOCKS
+    assert (splits == 1) == (4 * blocks >= conv.CONV_TARGET_BLOCKS)
     ranges = [(s * K // splits, (s + 1) * K // splits)
               for s in range(splits)]
     taps = [k for b, e in ranges for k in range(b, e)]
