@@ -145,6 +145,16 @@ Phases, each of which raises on failure (exit code != 0, no result line):
              that slice, and every gradient must be held on some slice; at
              a leaky-ReLU pre-activation within 1e-4 max|z| of the kink
              (a tie) the CPU follows the card's branch;
+ 11c. ddp    data parallelism (parallel/dist.py): a one-process NCCL group
+             on the card (tcp://localhost at a free port), DDP_STEPS policy
+             steps at B = 32 x 4096 on phase 7's host batches through
+             build_trainer's DistributedDataParallel module, the masked
+             batch norms' sums and the losses' counts reduced over the
+             group, launches held at PER_STEP; every gradient and batch-norm
+             statistic after each step and the losses bit-equal to the
+             plain trainer's (built before the group is joined) on the
+             same batches; the group is left (two cards are not exercised:
+             the machine has one);
  11a. bf16-train  training at compute_dtype bfloat16 (BF16_OPTS) on phase 7's
              host batches, B = 32 x 4096, release dropout, host structure:
              one step captured, every bf16 K5 / K6 / K7 / K8 and conv
@@ -420,6 +430,7 @@ import os
 import re
 import shutil
 import signal
+import socket
 import subprocess
 import sys
 import time
@@ -457,6 +468,7 @@ from robot3dlotus_tpu_torch import native
 from robot3dlotus_tpu_torch.ops import (attention, conv, cuda_lib, gather,
                                         patching, pooling, sparse_conv, stem)
 from robot3dlotus_tpu_torch.ops.bf16 import bf16_excess, bf16_ulp
+from robot3dlotus_tpu_torch.parallel import dist
 from robot3dlotus_tpu_torch.train import checkpoint as ckpt_mod, driver
 from robot3dlotus_tpu_torch.train.checkpoint import load_any_model_ckpt
 from robot3dlotus_tpu_torch.train.datasets.loader import (KeystepBatchLoader,
@@ -544,8 +556,8 @@ KERNELS = {
         "robot3dlotus_tpu_torch/csrc/gather_smallc.cu",
         "robot3dlotus_tpu/ops/pallas_gather.py:272"),
     # K1, K5 and K6 with the attention options (enable_rpe,
-    # scaled_cosine_attn), both dtypes: the kernels of
-    # attention.cuh / attention_dropout.cuh instantiated with LogitOpts
+    # scaled_cosine_attn), both dtypes: K1's kernels of attention_opts.cuh,
+    # K5 / K6's of attention_dropout.cuh instantiated with LogitOpts
     "patch_attention_opts": ("robot3dlotus_tpu_torch/csrc/attention_opts.cu",
                              "robot3dlotus_tpu/ops/pallas_attention.py:66"),
     "patch_attention_dropout_opts": (
@@ -555,7 +567,7 @@ KERNELS = {
         "robot3dlotus_tpu_torch/csrc/attention_dropout_opts.cu",
         "robot3dlotus_tpu/ops/pallas_attention.py:247"),
     "patch_attention_opts_bf16": (
-        "robot3dlotus_tpu_torch/csrc/attention_opts.cu",
+        "robot3dlotus_tpu_torch/csrc/attention_opts16.cu",
         "robot3dlotus_tpu/ops/pallas_attention.py:66"),
     "patch_attention_dropout_opts_bf16": (
         "robot3dlotus_tpu_torch/csrc/attention_dropout_opts16.cu",
@@ -1177,7 +1189,9 @@ def log_conv(tag, label, r):
 
 # K1 / K3: the kernel each wrapper call launches once, and the other
 # kernels of the same call (device_ms)
-K1_PROFILE = ("patch_attention_kernel", ())
+# K1: the release kernel (and the options' inline plan), and the options'
+# bias-warp kernel (csrc/attention_opts.cuh)
+K1_PROFILE = (("patch_attention_kernel", "patch_attention_bias_kernel"), ())
 K3_PROFILE = ("stem_conv_kernel", ("stem_conv_sum",))
 # K3 at bf16: its product kernel, the padding of x's rows and the ranges'
 # sum
@@ -2959,6 +2973,91 @@ def _check_slice(host_batch, i, host_structure):
            if k != "order_perm"}
     if host_structure:
         out["order_perm"] = host_batch["order_perm"]
+    return out
+
+
+DDP_STEPS = 2
+
+
+def _grads_and_stats(trainer):
+    """Clones of the trainer's gradients and batch-norm statistics."""
+    return ({k: p.grad.detach().clone()
+             for k, p in trainer.model.named_parameters()},
+            {k: v.detach().clone()
+             for k, v in trainer.model.state_dict().items()
+             if "running_" in k})
+
+
+def ddp_phase(host, tag="ddp"):
+    """DDP_STEPS policy steps on host batches, first by the plain trainer,
+    then in a one-process NCCL group through build_trainer's
+    DistributedDataParallel module and the group's reductions (masked
+    batch norms, the losses' counts): the gradients, statistics and losses
+    after each step bit-equal, launches held at PER_STEP; the group left
+    afterwards."""
+    t0 = time.perf_counter()
+    dev = [batch_to_device(b, "cuda") for b in host[1:1 + DDP_STEPS]]
+
+    def steps(trainer):
+        out = []
+        for b in dev:
+            losses = trainer.step(b)
+            out.append((_losses(losses), *_grads_and_stats(trainer)))
+        torch.cuda.synchronize()
+        return out
+
+    trainer, batches, _ = build_trainer(train_config(), SPEC, device="cuda")
+    if hasattr(batches, "close"):
+        batches.close()
+    plain = steps(trainer)
+    del trainer
+    torch.cuda.empty_cache()
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    if not dist.init_distributed("nccl", f"tcp://localhost:{port}", 1, 0):
+        raise AssertionError(f"[{tag}] no process group joined")
+    try:
+        trainer, batches, _ = build_trainer(train_config(), SPEC,
+                                            device="cuda")
+        if hasattr(batches, "close"):
+            batches.close()
+        if type(trainer.net).__name__ != "DistributedDataParallel":
+            raise AssertionError(f"[{tag}] the step runs {type(trainer.net)}")
+        cuda_lib.reset_launches()
+        got = steps(trainer)
+        launches = dict(cuda_lib.LAUNCHES)
+        del trainer
+    finally:
+        dist.leave()
+    torch.cuda.empty_cache()
+    if dist.joined():
+        raise AssertionError(f"[{tag}] the process group is still joined")
+    for k, per in PER_STEP.items():
+        if launches[k] != per * DDP_STEPS:
+            raise AssertionError(f"[{tag}] {k}: {launches[k]} launches in "
+                                 f"{DDP_STEPS} steps, expected {per} a step")
+    for i, ((lg, gg, sg), (lp, gp, sp)) in enumerate(zip(got, plain)):
+        if lg != lp:
+            raise AssertionError(f"[{tag}] step {i + 1} losses {lg} != {lp}")
+        for what, a, b in (("gradient", gg, gp), ("statistic", sg, sp)):
+            if set(a) != set(b) or not b:
+                raise AssertionError(f"[{tag}] step {i + 1}: {what} names")
+            diff = [k for k in b if not torch.equal(a[k], b[k])]
+            if diff:
+                raise AssertionError(f"[{tag}] step {i + 1}: {len(diff)} "
+                                     f"{what}s not bit-equal, e.g. {diff[:3]}")
+    out = {"steps": DDP_STEPS, "clouds": trainer_batch(host),
+           "gradients": len(plain[0][1]), "statistics": len(plain[0][2]),
+           "losses": [p[0] for p in plain],
+           "launches_per_step": {k: v / DDP_STEPS
+                                 for k, v in launches.items() if v},
+           "seconds": time.perf_counter() - t0}
+    log(f"[{tag}] {DDP_STEPS} steps at B = {out['clouds']} through "
+        f"DistributedDataParallel in a one-process NCCL group: "
+        f"{out['gradients']} gradients and {out['statistics']} batch-norm "
+        f"statistics bit-equal to the plain steps after each step; "
+        f"{out['seconds']:.1f} s")
     return out
 
 
@@ -6178,11 +6277,16 @@ def run():
             if m.group(1) == "subm_conv16_kernel":   # bf16 W; x bf16 or fp32
                 kind = (" bf16" if re.search(r"ILi\d+E13__nv_bfloat16E",
                                              name) else " fp32 x (dx)")
-            opt = re.search(r"LogitOptsILb(\d)ELb(\d)E", name)
+            opt = re.search(r"(?:Logit|Inline)OptsILb(\d)ELb(\d)E", name)
+            tile = re.search(r"BiasTileOptsILb(\d)ELb(\d)E", name)
             if opt and opt.groups() != ("0", "0"):   # the options' kernels
                 kind += " options " + "+".join(
                     w for w, b in zip(("scale", "rpe"), opt.groups())
                     if b == "1")
+            elif tile:                               # K1 with the bias
+                kind += (" options " + ("scale+" if tile.group(1) == "1"
+                                        else "") + "rpe (bias tile)" +
+                         (" mixed" if tile.group(2) == "1" else ""))
             log(f"[build] ptxas {m.group(1)}"
                 f"{'<' + m.group(2) + '>' if m.group(2) else ''}"
                 f"{' int64' if m.group(3) == 'x' else ''}{kind}: {use}")
@@ -6241,6 +6345,8 @@ def run():
     mark("training, train-kernels, stem-vjp")
     step_check = step_check_phase(host[0])
     mark("step-check")
+    ddp = ddp_phase(host)
+    mark("ddp")
     bf16_train = bf16_train_phase(host, training, observations, out_dir)
     mark("bf16-train")
     torch.cuda.empty_cache()
@@ -6388,7 +6494,7 @@ def run():
                    "attn_opts": attn_opts, "bf16_attn_opts": bf16_attn_opts,
                    "bf16_train": bf16_train, "bf16_mp_train": bf16_mp_train,
                    "rp_vlm": rp_vlm, "optim": optim,
-                   "batch_order": batch_order},
+                   "batch_order": batch_order, "ddp": ddp},
                   f, indent=1)
     # each kernel's launches in the run of its own slice's main path: K1-K4
     # policy serving, K5-K8 policy training, K9 motion-planner serving, K10

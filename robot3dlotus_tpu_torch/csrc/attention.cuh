@@ -35,12 +35,13 @@
 // fragments), a quarter of the mma instructions of the fp32 tile and half
 // the bytes of the fp32 call.
 //
-// Options (attention_opts.cu, ops/attention.py head_scale and rpe): the
-// kernel's Opts (attention_tile.cuh LogitOpts) scales each head's fp32
-// products and adds the relative position bias looked up from the patch's
-// grid coordinates and the head's table column, which each block stages
-// in shared memory after its k and v rows; the release entry points
-// (attention.cu) instantiate NoOpts.
+// Options (attention_opts.cuh, ops/attention.py head_scale and rpe): the
+// kernel's Opts (attention_opts.cuh InlineOpts) scales each head's fp32
+// products and, on the inline plan, adds the relative position bias
+// looked up from the patch's grid coordinates and the head's table
+// column, which each block stages in shared memory after its k and v
+// rows (attention_opts.cuh has the bias-warp plan's kernel); the release
+// entry points (attention.cu) instantiate NoOpts.
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -117,6 +117,8 @@ struct LogitOpts {
   static constexpr bool kScale = kScale_, kRpe = kRpe_;
   static constexpr bool kAny = kScale || kRpe;
   static constexpr bool kRoundP = kRoundP_;
+  static constexpr bool kTile = false;   // the bias looked up here
+  static constexpr bool kSelect = false;  // a logit only for a valid key
   static_assert(kAny || !kRoundP, "kRoundP comes with an option");
   // shared memory (bytes, 16-byte aligned) the options take after the
   // kernel's own: the patch's coordinates as int4 rows, the table column
@@ -177,6 +179,9 @@ struct LogitOpts {
     if constexpr (kRpe) x = __fadd_rn(x, bias(gi, gj));
     return x;
   }
+  // the tiles call it between the two products (a tile Opts waits there
+  // for its bias)
+  __device__ __forceinline__ void wait() const {}
 };
 using NoOpts = LogitOpts<false, false>;
 
@@ -195,6 +200,21 @@ int with_opts(const float* hs, const int* gc, const float* table, F&& f) {
   if (hs) return f(OptsTag<LogitOpts<true, false, kRoundP>>());
   if (gc) return f(OptsTag<LogitOpts<false, true, kRoundP>>());
   return (int)cudaErrorInvalidValue;
+}
+
+// The logit of product x at C-fragment element e of key tile n (key j,
+// query coordinates gi): LogitOpts looks the bias up from the coordinates;
+// an Opts with kTile (K1's bias tile, attention_opts.cuh) reads the bias
+// that its block's bias warps wrote for (n, e), the same fp32 sum. An
+// Opts with kSelect (K1's, attention_opts.cuh) has every key's logit
+// computed and then selected, where LogitOpts computes it only for a
+// valid key: the compiler branches around each logit's operations there
+// (a BSSY / BSYNC pair each), and selects here.
+template <class Opts>
+__device__ __forceinline__ float opt_logit(const Opts& opt, float x, int n,
+                                           int e, int4 gi, int j, int P) {
+  if constexpr (Opts::kTile) return opt.logit(x, n, e);
+  else return opt(x, gi, opt.coords(j, P));
 }
 
 // x / y rounded to nearest, for y >= 1 and 0 <= x <= y (a probability):
@@ -246,10 +266,17 @@ __device__ __forceinline__ void softmax_rows(
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int j = n * 8 + 2 * t + (e & 1);
-        const float x = j >= P    ? -INFINITY
-                        : smask[j] ? opt(s[n][e], e < 2 ? g0 : g1,
-                                         opt.coords(j, P))
-                                   : kNegInf;
+        float x;
+        if constexpr (Opts::kSelect) {
+          const float y = opt_logit(opt, s[n][e], n, e, e < 2 ? g0 : g1, j,
+                                    P);
+          x = j >= P ? -INFINITY : smask[j] ? y : kNegInf;
+        } else {
+          x = j >= P    ? -INFINITY
+              : smask[j] ? opt_logit(opt, s[n][e], n, e, e < 2 ? g0 : g1, j,
+                                     P)
+                         : kNegInf;
+        }
         s[n][e] = x;
         if (e < 2) m0 = fmaxf(m0, x);
         else m1 = fmaxf(m1, x);
@@ -337,6 +364,7 @@ __device__ __forceinline__ void attend_tiles(
   }
 
   float m0, m1, l0, l1;
+  opt.wait();
   softmax_rows<kDrop, kAllTiles, false>(s, nt, P, t, smask, sbits + r0 * W,
                                         sbits + r1 * W, m0, m1, l0, l1, opt,
                                         opt.coords(r0, P),
@@ -503,6 +531,7 @@ __device__ __forceinline__ void attend_tiles16(
   }
 
   float m0, m1, l0, l1;
+  opt.wait();
   softmax_rows<kDrop, kAllTiles, true>(s, 2 * nb, P, t, smask,
                                        sbits + r0 * W, sbits + r1 * W, m0,
                                        m1, l0, l1, opt, opt.coords(r0, P),

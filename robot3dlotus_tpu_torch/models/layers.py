@@ -35,6 +35,7 @@ from ..ops.attention import (patch_attention, patch_attention_dropout,
 # the plain bias lookup of the layer's option, kept beside it)
 from ..ops.patching import dup_pad_identity, gather_sorted, scatter_back
 from ..ops.sparse_conv import NeighborMap, subm_conv_apply
+from ..parallel import dist
 
 
 def trunc_normal_(t, generator, std=0.02):
@@ -178,7 +179,11 @@ class MaskedBatchNorm(nn.Module):
     0.01 in the torch convention). Train mode normalises with the masked
     batch mean and biased variance and moves the running statistics
     towards the mean and the unbiased variance; eval mode uses the running
-    statistics. Computed in fp32, returned in x's dtype."""
+    statistics. Computed in fp32, returned in x's dtype. In a process
+    group (parallel/dist.py) the batch is every process's: the count and
+    the masked sum, then the masked squared deviations, are summed over
+    the processes (their gradient too), as the JAX batch norm's sums span
+    its dp mesh, so the statistics move the same on every process."""
 
     def __init__(self, features, eps=1e-3, momentum=0.01):
         super().__init__()
@@ -197,9 +202,14 @@ class MaskedBatchNorm(nn.Module):
                 m = torch.ones_like(xf[:, :1])
             else:
                 m = mask.reshape(-1, 1).to(xf.dtype)
-            cnt = m.sum().clamp(min=1.0)
-            mean = (xf * m).sum(0) / cnt
-            var = (((xf - mean) ** 2) * m).sum(0) / cnt
+            cnt, total = m.sum(), (xf * m).sum(0)
+            if dist.joined():
+                both = dist.sum_across(torch.cat([total, cnt[None]]))
+                total, cnt = both[:-1], both[-1]
+            cnt = cnt.clamp(min=1.0)
+            mean = total / cnt
+            dev = (((xf - mean) ** 2) * m).sum(0)
+            var = (dist.sum_across(dev) if dist.joined() else dev) / cnt
             with torch.no_grad():
                 unbiased = var * cnt / (cnt - 1.0).clamp(min=1.0)
                 self.running_mean.mul_(1 - self.momentum).add_(

@@ -30,6 +30,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.pos_codec import best_pos_from_disc_logits
+from ..parallel import dist
 from . import heads
 from .heads import rotation_output
 from .layers import dense, dropout, trunc_normal_
@@ -189,7 +190,7 @@ class MotionPlanner(Conditioned):
 def _masked_bce(logits, targets, mask):
     per = torch.relu(logits) - logits * targets + \
         torch.log1p(torch.exp(-logits.abs()))
-    return (per * mask).sum() / mask.sum().clamp(min=1.0)
+    return (per * mask).sum() / dist.global_count(mask.sum()).clamp(min=1.0)
 
 
 def compute_mp_loss(preds, batch, act_cfg, loss_cfg):
@@ -199,14 +200,17 @@ def compute_mp_loss(preds, batch, act_cfg, loss_cfg):
     error over the valid steps), the rotation loss of the rot_pred_type
     (euler_disc bin cross-entropy; quat: the squared error of q or -q, the
     smaller; else squared error), openness and stop BCE over the valid
-    steps. Pad clouds (batch_valid False) drop out of every term;
-    pool_overflow is reported, never part of total."""
+    steps. Pad clouds (batch_valid False) drop out of every term. The
+    counts of clouds and steps are those of every process's batch in a
+    process group (parallel/dist.py global_count), so that the processes'
+    losses add up to the whole batch's; pool_overflow is reported, never
+    part of total."""
     gt = batch["gt_trajs"]                                   # (B, L, 8)
     B = gt.shape[0]
     bv = batch.get("batch_valid")
     bv = gt.new_ones(B) if bv is None else bv.float()
     tmask = batch["traj_masks"].float() * bv[:, None]        # (B, L)
-    steps = tmask.sum().clamp(min=1.0)
+    steps = dist.global_count(tmask.sum()).clamp(min=1.0)
     tgt_pos, tgt_rot, tgt_open = gt[..., :3], gt[..., 3:-1], gt[..., -1]
 
     if act_cfg.get("pos_pred_type", "heatmap_disc") == "heatmap_disc":
@@ -220,7 +224,8 @@ def compute_mp_loss(preds, batch, act_cfg, loss_cfg):
                           torch.zeros_like(logp)).sum(-1)     # (B, L, 3)
         w = tmask[:, :, None]
         per_cloud = (ce * w).sum((1, 2)) / w.sum((1, 2)).clamp(min=1.0)
-        pos_loss = (per_cloud * bv).sum() / bv.sum().clamp(min=1.0)
+        pos_loss = (per_cloud * bv).sum() / \
+            dist.global_count(bv.sum()).clamp(min=1.0)
     else:
         se = (preds["pos"] - tgt_pos) ** 2
         pos_loss = (se * tmask[..., None]).sum() / steps / 3.0
@@ -239,7 +244,7 @@ def compute_mp_loss(preds, batch, act_cfg, loss_cfg):
     else:
         se = (xr - tgt_rot[..., :xr.shape[-1]]) ** 2
         rot_loss = (se * tmask[..., None]).sum() / \
-            (tmask.sum() * se.shape[-1]).clamp(min=1.0)
+            (dist.global_count(tmask.sum()) * se.shape[-1]).clamp(min=1.0)
 
     open_loss = _masked_bce(preds["open"], tgt_open, tmask)
     stop_loss = _masked_bce(preds["stop"], batch["gt_trajs_stop"].float(),

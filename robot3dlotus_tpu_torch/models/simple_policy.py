@@ -31,6 +31,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops import rotation as rotops
+from ..parallel import dist
 from ..ops.pos_codec import best_pos_from_disc_logits, disc_pos_gt_prob
 from .heads import ActionHead
 from .layers import dense, trunc_normal_
@@ -237,14 +238,16 @@ def compute_loss(preds, batch, act_cfg, loss_cfg):
     cross-entropy; quat: the squared error of q or -q, the smaller; euler:
     of t or its wrapped twin, per axis the smaller; euler_delta / rot6d:
     squared error) and the openness BCE, each averaged over the valid
-    clouds (batch_valid). pool_overflow is reported, never part of
+    clouds (batch_valid): in a process group over every process's
+    (parallel/dist.py global_count), so that the processes' losses add up
+    to the whole batch's. pool_overflow is reported, never part of
     total."""
     gt = batch["gt_actions"]
     tgt_pos, tgt_rot, tgt_open = gt[:, :3], gt[:, 3:-1], gt[:, -1]
     B = gt.shape[0]
     bv = batch.get("batch_valid")
     bv = gt.new_ones(B) if bv is None else bv.float()
-    nvalid = bv.sum().clamp(min=1.0)
+    nvalid = dist.global_count(bv.sum()).clamp(min=1.0)
 
     def bmean(per_cloud):
         return (per_cloud * bv).sum() / nvalid

@@ -66,9 +66,14 @@ its Pallas kernel leaves for them):
 The kernels with either are their _opts entry points (counted as
 patch_attention_opts, patch_attention_dropout_opts,
 patch_attention_dropout_bwd_opts and their _bf16 paths); they look the
-bias up from gc and the table inside the kernel. K6 also returns the
-gradients of table and head_scale (its per-patch partials summed here in
-a fixed order); _PatchAttentionDropout hands them to autograd.
+bias up from gc and the table inside the kernel (K1 in bias warps beside
+its math warps, which read it as their products' C fragments, while its
+grid is a wave of blocks or less, else in the math lanes:
+attention_opts_plan, csrc/attention_opts.cuh;
+tests/test_torch_port_k1_bias_tile.py emulates the layout and sums). K6
+also returns the gradients of table and head_scale (its per-patch
+partials summed here in a fixed order); _PatchAttentionDropout hands them
+to autograd.
 
 With the options, fp32 q and k and a bf16 v (upcast_attention at bf16,
 models/layers.py) are the JAX XLA path there: fp32 logits, the (dropped)
@@ -95,6 +100,12 @@ KERNEL_MAX_PATCH = 128
 QUERY_ROWS = 16                    # query rows per warp (the mma's m)
 ATTN_MAX_WARPS = KERNEL_MAX_PATCH // QUERY_ROWS
 ATTN_TARGET_BLOCKS = 128           # about one block per SM of the H100
+# K1 with the bias, its bias-warp plan: math warps a block, at most (as
+# many bias warps beside them; csrc/attention_opts.cuh kBiasWarps), and the
+# most blocks it takes (a wave at two blocks an SM); larger grids take the
+# inline plan
+OPTS_MAX_WARPS = 4
+OPTS_TILE_MAX_BLOCKS = 264
 
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
 _PHILOX_W = (0x9E3779B9, 0xBB67AE85)
@@ -386,21 +397,36 @@ def _check_attention(name, q, k, v, key_valid, *more):
     return G, H, P, Dh
 
 
-def attention_query_split(G, H, P):
+def attention_query_split(G, H, P, max_warps=ATTN_MAX_WARPS):
     """K1's (warps, splits): block s of patch (g, h) runs `warps` warps on
     its query rows [QUERY_ROWS warps s, QUERY_ROWS warps (s + 1)), one
-    16-row group a warp, `splits` blocks a patch. The largest block that
-    still launches about one block per SM (ATTN_TARGET_BLOCKS); one warp a
+    16-row group a warp, `splits` blocks a patch. The largest block of at
+    most max_warps warps (OPTS_MAX_WARPS with the bias) that still
+    launches about one block per SM (ATTN_TARGET_BLOCKS); one warp a
     block when none does. Each block loads its patch's K and V (32 KB), so
     smaller blocks than that cost more than the SMs they fill (a B = 1
     call of G H = 64: 4 warps, 128 blocks)."""
     groups = -(-P // QUERY_ROWS)
     warps = 1
     for w in (8, 4, 2):
-        if w <= groups and G * H * -(-groups // w) >= ATTN_TARGET_BLOCKS:
+        if w <= min(groups, max_warps) and \
+                G * H * -(-groups // w) >= ATTN_TARGET_BLOCKS:
             warps = w
             break
     return warps, -(-groups // warps)
+
+
+def attention_opts_plan(G, H, P):
+    """K1 with the bias: (warps, splits, tile). The bias-warp plan (tile,
+    at most OPTS_MAX_WARPS math warps a block) while its grid is a wave of
+    blocks or less (B = 1: an SM holds one block, whose lookups' latency
+    bias warps hide); the inline plan (the math lanes look the bias up)
+    with attention_query_split's block above that. Both compute every
+    logit with the same fp32 operations, so the plan never moves a bit."""
+    warps, splits = attention_query_split(G, H, P, OPTS_MAX_WARPS)
+    if G * H * splits <= OPTS_TILE_MAX_BLOCKS:
+        return warps, splits, True
+    return (*attention_query_split(G, H, P), False)
 
 
 def _opt_args(name, q, head_scale, rpe):
@@ -469,17 +495,23 @@ def patch_attention(q, k, v, key_valid, scale, head_scale=None, rpe=None):
         raise RuntimeError("patch_attention (K1) has no backward; use "
                            "patch_attention_dropout for a gradient")
     G, H, P, _ = q.shape
-    return patch_attention_split(q, k, v, key_valid, scale,
-                                 *attention_query_split(G, H, P),
-                                 head_scale=head_scale, rpe=rpe)
+    if rpe is None:
+        warps, splits, tile = (*attention_query_split(G, H, P), False)
+    else:
+        warps, splits, tile = attention_opts_plan(G, H, P)
+    return patch_attention_split(q, k, v, key_valid, scale, warps, splits,
+                                 head_scale=head_scale, rpe=rpe, tile=tile)
 
 
 def patch_attention_split(q, k, v, key_valid, scale, warps, splits,
-                          head_scale=None, rpe=None):
+                          head_scale=None, rpe=None, tile=False):
     """K1 on CUDA tensors with a given query split (attention_query_split
-    gives patch_attention's); one launch."""
+    gives patch_attention's) and, with the bias, plan (tile: the bias-warp
+    plan, at most OPTS_MAX_WARPS math warps, as many bias warps beside
+    them; attention_opts_plan gives patch_attention's); one launch."""
     G, H, P, Dh = _check_attention("patch_attention", q, k, v, key_valid)
-    if not 1 <= warps <= ATTN_MAX_WARPS or splits < 1 or \
+    most = OPTS_MAX_WARPS if rpe is not None and tile else ATTN_MAX_WARPS
+    if not 1 <= warps <= most or splits < 1 or \
             QUERY_ROWS * warps * splits < P:
         raise ValueError(f"patch_attention: split ({warps} warps, {splits} "
                          f"blocks) does not cover {P} query rows")
@@ -491,9 +523,10 @@ def patch_attention_split(q, k, v, key_valid, scale, warps, splits,
         q = _aligned(q)
         scale = bf16_value(scale)
     opts = _opt_args("patch_attention", q, head_scale, rpe)
+    plan = (int(tile),) if opts else ()
     cuda_lib.launch(kernel, entry, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                     key_valid.data_ptr(), out.data_ptr(), *opts, G, H, P, Dh,
-                    warps, splits, float(scale))
+                    warps, splits, *plan, float(scale))
     return out
 
 

@@ -42,7 +42,10 @@ _L = ctypes.c_longlong
 # C signatures: every entry point returns cudaGetLastError() as int
 _GATHER = [_P, _P, _P, _I, _I, _I, _I, _I, _P]
 _ATTENTION = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P]
-_ATTENTION_OPTS = _ATTENTION[:5] + [_P, _P, _P, _I] + _ATTENTION[5:]
+# K1 with the options: hs, gc, table, b after out; the bias warps' plan
+# (an int flag) after splits
+_ATTENTION_OPTS = _ATTENTION[:5] + [_P, _P, _P, _I] + _ATTENTION[5:11] + \
+    [_I] + _ATTENTION[11:]
 _DROP_FWD_OPTS = [_P] * 7 + [_P, _P, _P, _I] + [_I, _I, _I, _I, _F, _U, _U,
                                                 _F, _P]
 _DROP_BWD_OPTS = [_P] * 11 + [_P, _P, _P, _I, _P, _P] + [_I, _I, _I, _I, _F,

@@ -23,8 +23,25 @@ in the JAX driver) presorts each training batch by one order permutation
 drawn per batch (datasets/structure.py); False lets the model redraw the
 orders at every stage.
 
-One process on one device; multi-device training is not ported. A
-resumed run restarts the loader from its first batch, as the JAX driver
+Data parallelism across processes (the JAX driver's dp mesh), one
+process a card: under torchrun (`torchrun --nproc_per_node N -m
+robot3dlotus_tpu_torch.train.train_simple_policy ...`) or SLURM,
+run_training first joins the processes' group (parallel/dist.py; NCCL on
+the card, gloo with --device cpu) and trains on cuda:LOCAL_RANK. Each
+process loads its shard of every epoch's episodes
+(TRAIN.train_batch_size clouds a process: the shuffle seed the same in
+every process, the augmentation's and the draws' seed SEED + rank), runs
+the model in DistributedDataParallel, its batch norms' statistics summed
+over every process and its losses divided by the whole batch's counts,
+so the averaged gradient is the whole batch's and every process takes
+the same clipped step. Validation: each process TRAIN.val_num_batches
+batches of its shard of the validation episodes, the sums reduced.
+Logging, metrics, checkpoints and the profiler are the first process's;
+the logged losses are summed over the processes (reduce_dict). Without
+a launch env that asks for several processes, one process on one
+device, as before.
+
+A resumed run restarts the loader from its first batch, as the JAX driver
 does (no batches are skipped); its steps' random draws are those of the
 uninterrupted run (models.layers.Randomness.at_step). The final save and
 validation are skipped when the last step already made them.
@@ -34,6 +51,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import functools
+import itertools
 import logging
 import os
 import time
@@ -51,6 +69,7 @@ from .datasets.loader import KeystepBatchLoader, PrefetchToDevice
 from .datasets.structure import (HostStructureCollate, attach_sample_orders,
                                  structure_cfg_from_model)
 from .logging import MetricWriter, build_logger
+from ..parallel import dist
 from .optim import build_optimizer
 from .preempt import install_preemption_handler, requeue_self
 from .trainer import RunningMeter, Trainer, batch_to_device, make_val_step
@@ -99,8 +118,11 @@ def task_configs(config):
 def build_loader(config, spec: TaskSpec):
     """The training loader: batches of TRAIN.train_batch_size clouds,
     loaded by TRAIN.n_workers worker processes (0: in series) and, under
-    TRAIN.host_structure, presorted with their order_perm."""
-    seed = int(config.get("SEED", 2024))
+    TRAIN.host_structure, presorted with their order_perm; in a process
+    group this process's shard of the episodes, its draws seeded by SEED +
+    rank (the shuffle by SEED, as in every process)."""
+    base = int(config.get("SEED", 2024))
+    seed = base + dist.rank()
     tds_cfg = dict(config.TRAIN_DATASET)
     dataset = spec.build_dataset(tds_cfg, np.random.RandomState(seed))
     LOGGER.info("#train episodes: %d", len(dataset))
@@ -117,18 +139,22 @@ def build_loader(config, spec: TaskSpec):
     return KeystepBatchLoader(
         dataset, num_clouds=num_clouds,
         num_points=int(tds_cfg.get("num_points", 4096)),
-        collate_fn=collate_fn, seed=seed, shuffle_seed=seed,
-        num_workers=num_workers, worker_fn=worker_fn)
+        collate_fn=collate_fn, seed=seed, shuffle_seed=base,
+        num_workers=num_workers, worker_fn=worker_fn,
+        process_index=dist.rank(), process_count=dist.world_size())
 
 
 def build_trainer(config, spec: TaskSpec, device="cuda"):
     """(trainer, batches, schedule): the model on `device` with seeded
     weights, the AdamW optimizer and an infinite iterator of host batches
     (build_loader). At compute_dtype bfloat16 the backbone computes in
-    bf16; parameters, optimizer state and losses stay fp32."""
-    device = resolve_device(device)
+    bf16; parameters, optimizer state and losses stay fp32. In a process
+    group: cuda:LOCAL_RANK (dist.process_device), the weights from SEED
+    in every process, the draws from SEED + rank, the model run in
+    DistributedDataParallel (trainer.net; trainer.model the module)."""
+    device = dist.process_device(resolve_device(device))
     seed = int(config.get("SEED", 2024))
-    np.random.seed(seed)
+    np.random.seed(seed + dist.rank())
     loader = build_loader(config, spec)
     model = build_model(config.MODEL, device=device, seed=seed)
     act_cfg, loss_cfg = task_configs(config)
@@ -138,14 +164,18 @@ def build_trainer(config, spec: TaskSpec, device="cuda"):
     trainer = Trainer(model,
                       lambda preds, b: spec.loss_fn(preds, b, act_cfg,
                                                     loss_cfg),
-                      optimizer, Randomness(seed, device))
+                      optimizer, Randomness(seed + dist.rank(), device),
+                      net=dist.wrap_model(model, device))
     return trainer, iter(loader), schedule
 
 
 def _run_validation(val_fn, make_val_loader, spec, device):
     """Mean losses over the validation batches (named as the JAX driver
     names them: 'total' -> total_loss, 'pos' -> pos_loss) and the task's
-    accuracies, sum over count."""
+    accuracies, sum over count. In a process group each process's losses
+    are its share of the batch's (the losses divide by the whole batch's
+    counts) and the processes run as many batches: the loss and accuracy
+    sums are summed over them."""
     loss_sums: Dict[str, float] = {}
     acc_sums: Dict[str, list] = {}
     num_batches = 0
@@ -161,6 +191,14 @@ def _run_validation(val_fn, make_val_loader, spec, device):
         num_batches += 1
     if num_batches == 0:
         return {}
+    if dist.joined():
+        sums = dist.reduce_dict(dict(
+            {"loss/" + k: v for k, v in loss_sums.items()},
+            **{f"acc/{k}/{i}": a[i] for k, a in acc_sums.items()
+               for i in (0, 1)}), average=False)
+        loss_sums = {k: sums["loss/" + k] for k in loss_sums}
+        acc_sums = {k: [sums[f"acc/{k}/0"], sums[f"acc/{k}/1"]]
+                    for k in acc_sums}
     out = {}
     for k, v in loss_sums.items():
         name = k if k.endswith("loss") else (
@@ -191,23 +229,49 @@ def _validation(config, spec, trainer, device):
                            lambda preds: spec.decode_fn(preds, act_cfg))
 
     def make_loader():
-        return KeystepBatchLoader(val_dataset, num_clouds=val_clouds,
-                                  num_points=num_points, collate_fn=collate,
-                                  one_pass=True)
+        if not dist.joined():
+            return KeystepBatchLoader(val_dataset, num_clouds=val_clouds,
+                                      num_points=num_points,
+                                      collate_fn=collate, one_pass=True)
+        # every process the same number of batches (the losses' counts are
+        # collectives): TRAIN.val_num_batches of its shard, cycling (the
+        # JAX driver's); more processes than episodes share shards
+        n = int(config.TRAIN.get("val_num_batches", 16) or 16)
+        shards = min(dist.world_size(), max(len(val_dataset), 1))
+        return itertools.islice(iter(KeystepBatchLoader(
+            val_dataset, num_clouds=val_clouds, num_points=num_points,
+            collate_fn=collate, seed=seed + 1,
+            process_index=dist.rank() % shards, process_count=shards)), n)
     return lambda: _run_validation(val_fn, make_loader, spec, device)
 
 
 def run_training(config, spec: TaskSpec, device="cuda"):
-    """TRAIN.num_train_steps steps under the run control above; returns
-    the trainer (its model in train or eval mode, as the last step or
-    validation left it)."""
+    """TRAIN.num_train_steps steps under the run control above, in the
+    process group the launch env asks for (joined first, left at the
+    end); returns the trainer (its model in train or eval mode, as the
+    last step or validation left it)."""
     device = resolve_device(device)
+    joined = dist.init_distributed(
+        backend="nccl" if device.type == "cuda" else "gloo")
+    try:
+        return _train(config, spec, device)
+    finally:
+        if joined:
+            dist.leave()
+
+
+def _train(config, spec, device):
     output_dir = config.get("output_dir") or f"experiments/{spec.name}"
     os.makedirs(output_dir, exist_ok=True)
-    build_logger(output_dir)
-    metric_writer = MetricWriter(output_dir)
+    first = dist.is_default_process()
+    if first:
+        build_logger(output_dir)
+    metric_writer = MetricWriter(output_dir) if first else dist.NoOp()
+    device = dist.process_device(device)
     trainer, host_batches, schedule = build_trainer(config, spec, device)
     model = trainer.model
+    if dist.joined():
+        LOGGER.info("data parallel: %s", dist.world_info())
 
     start_step = 0
     if config.TRAIN.get("resume_training", True):
@@ -222,8 +286,9 @@ def run_training(config, spec: TaskSpec, device="cuda"):
             strict=config.get("checkpoint_strict_load", False))
         LOGGER.info("warm start from %s: %d tensors loaded, %d skipped "
                     "(shape-filtered)", warm, n_loaded, n_skipped)
-    save_training_meta(output_dir, config)
-    saver = ModelSaver(output_dir)
+    if first:
+        save_training_meta(output_dir, config)
+    saver = ModelSaver(output_dir) if first else dist.NoOp()
     validate_fn = _validation(config, spec, trainer, device)
     best = {"metric": float("inf"), "step": -1}
 
@@ -236,7 +301,7 @@ def run_training(config, spec: TaskSpec, device="cuda"):
         if metrics.get(spec.best_metric, float("inf")) < best["metric"]:
             best.update(metric=metrics[spec.best_metric], step=at_step)
 
-    num_clouds = int(config.TRAIN.train_batch_size)
+    num_clouds = int(config.TRAIN.train_batch_size) * dist.world_size()
     num_train_steps = int(config.TRAIN.num_train_steps)
     log_steps = int(config.TRAIN.get("log_steps", 1000))
     save_steps = int(config.TRAIN.get("save_steps", 10000))
@@ -258,9 +323,10 @@ def run_training(config, spec: TaskSpec, device="cuda"):
                             "requeueing", preempted.signum, step)
                 if saved != step:
                     saver.save(model, step, trainer.optimizer)
-                requeue_self()
+                if first:
+                    requeue_self()
                 return trainer
-            if profile_steps > 0 and step == profile_start:
+            if profile_steps > 0 and step == profile_start and first:
                 profiler = torch.profiler.profile(activities=[
                     torch.profiler.ProfilerActivity.CPU] + (
                     [torch.profiler.ProfilerActivity.CUDA]
@@ -275,8 +341,9 @@ def run_training(config, spec: TaskSpec, device="cuda"):
                 profiler = None
             if step % log_steps == 0 or step == num_train_steps:
                 for losses in loss_buf:
-                    for k, v in losses.items():
-                        meters.setdefault(k, RunningMeter(k))(float(v))
+                    for k, v in dist.reduce_dict(losses,
+                                                 average=False).items():
+                        meters.setdefault(k, RunningMeter(k))(v)
                 loss_buf.clear()
                 lr = schedule(step)
                 sps = samples_seen / max(time.time() - t_start, 1e-9)

@@ -24,26 +24,37 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel import dist
+
 
 class Trainer:
-    def __init__(self, model, loss_fn, optimizer, rng):
+    def __init__(self, model, loss_fn, optimizer, rng, net=None):
         """loss_fn(preds, batch) -> dict with 'total'; optimizer: a
         train.optim.build_optimizer optimizer over the model's parameters; rng: the
-        models.layers.Randomness every step draws from. global_step counts
-        the steps taken (the JAX TrainState.step); a resume sets it."""
+        models.layers.Randomness every step draws from; net: the module
+        the step runs, model in DistributedDataParallel under data
+        parallelism (parallel/dist.py wrap_model), model itself by
+        default. global_step counts the steps taken (the JAX
+        TrainState.step); a resume sets it."""
         self.model, self.loss_fn = model, loss_fn
+        self.net = model if net is None else net
         self.optimizer, self.rng = optimizer, rng
         self.global_step = 0
 
     def step(self, batch):
         """One training step on a device batch; returns the detached loss
-        dict (device scalars: reading them is the caller's sync)."""
-        self.model.train()
+        dict (device scalars: reading them is the caller's sync). In a
+        process group of W > 1 each process's losses are its share of the
+        whole batch's (their sum), and the backward takes W times its
+        total: DistributedDataParallel's mean of the W gradients is then
+        the gradient of the whole batch's loss."""
+        self.net.train()
         self.optimizer.zero_grad()
         self.rng.at_step(self.global_step)
-        preds = self.model(batch, rng=self.rng)
+        preds = self.net(batch, rng=self.rng)
         losses = self.loss_fn(preds, batch)
-        losses["total"].backward()
+        world = dist.world_size()
+        (losses["total"] * world if world > 1 else losses["total"]).backward()
         self.optimizer.step()
         self.global_step += 1
         return {k: v.detach() for k, v in losses.items()}

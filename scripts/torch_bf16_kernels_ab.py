@@ -73,7 +73,21 @@ blocks an SM where the tree has the query
 (attention.bwd_opts_blocks_per_sm), and times K3 and K2 on the calls of
 one predict at fp32 and at bf16 (B = 1) and K3 on the step's B = 32 stem
 call at both dtypes (what a row's fixed order of sums costs). Every
-kernel of a call is timed (the ranges' sum included).
+kernel of a call is timed (the ranges' sum included). K1's options rows:
+the K1 calls of one predict (B = 1) of the options policy at fp32, at
+bf16 and on the mixed route (bf16 with upcast_attention), and of one
+eval-mode forward of each options trainer's model on the step's B = 32
+batch (the mixed route's from the bf16 calls, q and k widened): each
+timed with both options, the head scale alone, the bias alone and as
+the release K1 (v widened for the mixed route), and, in a tree with two
+plans for the bias (attention.attention_opts_plan), with both options
+under each plan forced. With --yardsticks the
+first turn adds, per B = 32 call set, the plain version, SDPA with the
+bias as its mask and that mask's build, and the bound. Turn `s` (in
+--order) is the first root with K1's bias lookups replaced by a
+constant (attention_tile.cuh LogitOpts::bias returns 0: the options'
+staging and the scale's product stay), made under build/k1_stage from
+that root; it times the K1 rows alone.
 
 One JSON line per turn is printed and all of them are written to
 chiprun_out/bf16_kernels_ab.json, with the card's name and power limit.
@@ -226,7 +240,13 @@ def opts_calls():
             lambda: trainer.step(cs.batch_to_device(host[0], "cuda")),
             [(cs.layers, "patch_attention_dropout", "attention")] +
             [s for s in cs.TRAIN_SITES if s[2] == "stem_conv"])
-        del trainer, host
+        # K1 with the options on one eval forward at B = 32
+        trainer.model.eval()
+        with torch.no_grad():
+            fwd = cs.capture(lambda: trainer.model(cs.batch_to_device(
+                host[0], "cuda")), [(cs.layers, "patch_attention", "k1")])
+        calls["k1_b32_" + tag] = [c for c, _ in fwd["k1"]]
+        del trainer, host, fwd
         k5, k6 = [], []
         for (q, k, v, kv, scale, rate, seed, hs, rpe), g in \
                 step["attention"]:
@@ -248,6 +268,22 @@ def opts_calls():
         calls["k3_b1_" + tag] = serving["stem_conv"]
         calls["k2_b1_" + tag] = serving["subm_conv"]
         del actioner, serving
+    # K1 with the options: one predict of the options policy (B = 1), at
+    # fp32, bf16 and on the mixed route; the mixed route's B = 32 calls
+    # are the bf16 ones with q and k widened
+    for tag, opts in (("fp32", cs.ATTN_OPTS), ("bf16", cs.BF16_ATTN_OPTS),
+                      ("mixed", cs.BF16_ATTN_OPTS + cs.UPCAST_OPTS)):
+        actioner = cs.Actioner(cs.CONFIG, cli_opts=cs.CLI_OPTS + opts,
+                               device="cuda", seed=0)
+        actioner.rng = np.random.default_rng(0)
+        calls["k1_b1_" + tag] = cs.capture_main_path(lambda: actioner.predict(
+            **cs.requests([cs.synthetic_observation(100)])[0]))[
+                "patch_attention"]
+        del actioner
+    calls["k1_b32_mixed"] = [(q.float(), k.float(), v, *c)
+                             for q, k, v, *c in calls["k1_b32_bf16"]]
+    meta["k1"] = {key: [list(c[0].shape) for c in calls[key]]
+                  for key in calls if key.startswith("k1_")}
     return calls, meta
 
 
@@ -275,7 +311,7 @@ print({k: len(v) for k, v in calls.items()}, flush=True)
 TURN = r"""
 import json, os, subprocess, sys
 import torch
-root, path = sys.argv[1], sys.argv[2]
+root, path, only_k1 = sys.argv[1], sys.argv[2], sys.argv[4] == "1"
 sys.path.insert(0, root)
 os.chdir(root)
 import chip_smoke as cs
@@ -481,11 +517,35 @@ def smallc_rows(res):
     res["smallc_build"] = sass_counts()
 
 
+def digest(outs):
+    # a digest of the bits of every tensor of outs (None left out): two
+    # trees' outputs on the same calls are bit-equal iff their digests are
+    import hashlib
+    h = hashlib.sha1()
+    for t in outs:
+        if torch.is_tensor(t):
+            h.update(t.detach().contiguous().view(torch.uint8).cpu()
+                     .numpy().tobytes())
+        elif isinstance(t, tuple):
+            h.update(digest(t).encode())
+    return h.hexdigest()
+
+
 def opts_rows(res):
     # K5 / K6 with the options and the release K5 / K6 on the same
-    # tensors; K6's blocks an SM; K3 / K2 at B = 1 and K3 at B = 32
+    # tensors (and the digests of their outputs); K6's blocks an SM; K3 /
+    # K2 at B = 1 and K3 at B = 32
     for tag in ("fp32", "bf16"):
         k5, k6 = calls["k5_opts_" + tag], calls["k6_opts_" + tag]
+        res["bits_" + tag] = {
+            "k5_opts": digest(attention.patch_attention_dropout_fwd(*c)
+                              for c in k5),
+            "k5_release": digest(attention.patch_attention_dropout_fwd(
+                *c[:7]) for c in k5),
+            "k6_opts": digest(attention.patch_attention_dropout_bwd(*c)
+                              for c in k6),
+            "k6_release": digest(attention.patch_attention_dropout_bwd(
+                *c[:10]) for c in k6)}
         res["k5_opts_" + tag] = timed(
             [lambda a=c: attention.patch_attention_dropout_fwd(*a)
              for c in k5], "attn_drop_fwd", timing=train)
@@ -526,9 +586,72 @@ def opts_rows(res):
             {})
 
 
+K1_NAMES = ("patch_attention_kernel", "patch_attention_bias_kernel")
+
+
+def k1_rows(res):
+    # K1 on the options calls: both options, each alone, and the release
+    # K1 on the same tensors (v widened on the mixed route); with
+    # --yardsticks, per B = 32 set, the plain version, SDPA with the bias
+    # as its mask, the mask's build and the bound
+    # a tree with two plans for the bias also times each one forced
+    plans = ("tile", "inline") if hasattr(attention,
+                                          "attention_opts_plan") else ()
+    for key in sorted(k for k in calls if k.startswith("k1_")):
+        timing = train if "b32" in key else {}
+        for part in ("opts", "scale", "rpe", "release") + plans:
+            runs = []
+            for q, k, v, kv, scale, hs, rpe in calls[key]:
+                if part == "release" and q.dtype != v.dtype:
+                    v = v.float()
+                if part in plans:
+                    tile = part == "tile"
+                    split = attention.attention_query_split(
+                        *q.shape[:3], attention.OPTS_MAX_WARPS if tile
+                        else attention.ATTN_MAX_WARPS)
+                    runs.append(lambda a=(q, k, v, kv, scale, *split),
+                                o=dict(head_scale=hs, rpe=rpe, tile=tile):
+                                attention.patch_attention_split(*a, **o))
+                    continue
+                o = {"opts": (hs, rpe), "scale": (hs, None),
+                     "rpe": (None, rpe), "release": (None, None)}[part]
+                runs.append(lambda a=(q, k, v, kv, scale) + o:
+                            attention.patch_attention(*a))
+            res[f"{key}_{part}"] = timed(runs, K1_NAMES, timing=timing)
+            res[f"{key}_{part}"]["bits"] = digest(r() for r in runs)
+        if yardsticks and "b32" in key:
+            ys, bound = {"plain_ms": 0.0, "library_ms": 0.0,
+                         "bias_build_ms": 0.0}, 0.0
+            for q, k, v, kv, scale, hs, rpe in calls[key]:
+                ys["plain_ms"] += cs.cuda_ms(
+                    lambda a=(q, k, v, kv, scale, hs, rpe):
+                    attention.patch_attention_plain(*a), **cs.PLAIN_TIMING)
+                build, mask, qs, sc = cs._library_attention(
+                    q, k, v.to(q.dtype), kv, scale, hs, rpe)
+                ys["library_ms"] += cs.cuda_ms(
+                    lambda a=(qs, k, v.to(q.dtype)), m=mask, s=sc:
+                    torch.nn.functional.scaled_dot_product_attention(
+                        *a, attn_mask=m, scale=s), **train)
+                ys["bias_build_ms"] += cs.cuda_ms(build, **train)
+                G, H, P, Dh = q.shape
+                nbytes = 3 * q.element_size() * q.numel() + \
+                    v.element_size() * v.numel() + cs._opt_nbytes(
+                        q, kv, hs, rpe)
+                flops = 4 * G * H * P * P * Dh
+                bound += (cs._bound(nbytes, flops, cs.BF16_FLOPS_PER_S)
+                          if q.dtype == torch.bfloat16 else
+                          cs._bound(nbytes, 3 * flops,
+                                    cs.TF32_FLOPS_PER_S))[0]
+            ys["bound_ms"] = bound
+            res[key + "_yardsticks"] = ys
+
+
 res = {}
-if "k5_opts_fp32" in calls:
+if only_k1:
+    k1_rows(res)
+elif "k5_opts_fp32" in calls:
     opts_rows(res)
+    k1_rows(res)
 else:
     if "k1" in calls:
         policy_rows(res)
@@ -537,11 +660,36 @@ print(json.dumps(res), flush=True)
 """
 
 
+def stage_tree(root, here):
+    """A copy of root's port and chip_smoke.py under build/k1_stage with
+    LogitOpts::bias returning 0 (K1's options staging without its
+    lookups)."""
+    import shutil
+    dst = os.path.join(here, "build", "k1_stage")
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(os.path.join(root, "robot3dlotus_tpu_torch"),
+                    os.path.join(dst, "robot3dlotus_tpu_torch"),
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(os.path.join(root, "chip_smoke.py"), dst)
+    tile = os.path.join(dst, "robot3dlotus_tpu_torch", "csrc",
+                        "attention_tile.cuh")
+    with open(tile) as f:
+        src = f.read()
+    lookup = "return __fadd_rn(__fadd_rn(tab[r.x], tab[r.y]), tab[r.z]);"
+    if lookup not in src:
+        raise SystemExit(f"{tile}: no bias lookup to replace")
+    with open(tile, "w") as f:
+        f.write(src.replace(lookup, "return 0.f;"))
+    return dst
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("parent")
     ap.add_argument("change")
-    ap.add_argument("--order", default="pccp")
+    ap.add_argument("--order", default="pccp",
+                    help="turns: p the first root, c the second, s the "
+                    "first with K1's bias lookups replaced (--rows opts)")
     ap.add_argument("--yardsticks", action="store_true",
                     help="also time the plain versions and the library "
                     "calls of K8 and K3 in the first turn")
@@ -553,6 +701,8 @@ def main():
     roots = {"p": os.path.abspath(args.parent),
              "c": os.path.abspath(args.change)}
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if "s" in args.order:
+        roots["s"] = stage_tree(roots["p"], here)
     store = os.path.join(here, "build", "bf16_ab")
     os.makedirs(store, exist_ok=True)
     path = os.path.join(store, "calls.pt")
@@ -568,7 +718,8 @@ def main():
     turns = []
     for i, t in enumerate(args.order):
         out = subprocess.run([sys.executable, "-c", TURN, roots[t], path,
-                              "1" if args.yardsticks and i == 0 else "0"],
+                              "1" if args.yardsticks and i == 0 else "0",
+                              "1" if t == "s" else "0"],
                              check=True, capture_output=True, text=True)
         res = json.loads(out.stdout.strip().splitlines()[-1])
         res["turn"] = t

@@ -51,10 +51,15 @@ def key(name):
                   name)
     if not m:
         return None
-    # (an older tree's LogitOpts has the first two arguments only)
-    o = re.search(r"LogitOptsILb(\d)ELb(\d)E(?:Lb(\d)E)?", name)
-    opts = "none" if not o or o.groups()[:2] == ("0", "0") else \
-        f"scale {o.group(1)} rpe {o.group(2)} round {o.group(3) or 0}"
+    # (an older tree's LogitOpts has the first two arguments only; K1's
+    # InlineOpts has LogitOpts' three, its BiasTileOpts (scale, round) with
+    # the bias on)
+    o = re.search(r"(Logit|Inline)OptsILb(\d)ELb(\d)E(?:Lb(\d)E)?", name)
+    t = re.search(r"BiasTileOptsILb(\d)ELb(\d)E", name)
+    opts = (f"scale {t.group(1)} rpe 1 round {t.group(2)} tile" if t else
+            "none" if not o or o.groups()[1:3] == ("0", "0") else
+            f"scale {o.group(2)} rpe {o.group(3)} round {o.group(4) or 0}"
+            + (" inline" if o.group(1) == "Inline" else ""))
     return (m.group(1), int(m.group(2)),
             "bf16" if "bfloat16" in name else "fp32", opts)
 

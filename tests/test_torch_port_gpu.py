@@ -1472,9 +1472,58 @@ def test_k1_attention_options(dev, P, Dh, which, dtype):
     else:
         _check(got, want)
     groups = -(-P // 16)
-    for warps in (1, 8):
+    for tile in (False, True) if rpe is not None else (False,):
+        most = attention.OPTS_MAX_WARPS if tile else attention.ATTN_MAX_WARPS
+        for warps in (1, 2, most):
+            assert torch.equal(attention.patch_attention_split(
+                *args, warps, -(-groups // warps), head_scale=hs, rpe=rpe,
+                tile=tile), got)
+
+
+@pytest.mark.parametrize("route", ["fp32", "bf16", "mixed"])
+@pytest.mark.parametrize("which", OPTION_SETS)
+@pytest.mark.parametrize("Dh", [8, 16, 24, 32])
+@pytest.mark.parametrize("G,H,P", [(32, 2, 128), (1024, 2, 128),
+                                   (64, 16, 128), (96, 3, 37)])
+def test_k1_options_batch_shapes(dev, G, H, P, Dh, which, route):
+    """K1 with the options at B = 1 (G, H = 32, 2) and B = 32 shapes
+    (stage 0's 1024 patches of 2 heads, a deep stage's 64 of 16) and a
+    ragged P, fp32, bf16 and the mixed route (fp32 q and k, bf16 v)
+    against the plain version, bit-equal across launches; every patch of
+    the first four equal, row for row, to the same patch alone and to the
+    four in a call of their own (a row's sums do not depend on the
+    split or on G), and, with the bias, to the other plan forced (the
+    bias-warp and the inline plan: attention_opts_plan)."""
+    dtype = BF16 if route == "bf16" else torch.float32
+    q, k, v, kv, _, (scale, hs, rpe) = _opt_inputs(dev, which, G, H, P, Dh,
+                                                   dtype, seed=G + P + Dh)
+    if route == "mixed":
+        v = v.to(BF16)
+    run = lambda: attention.patch_attention(  # noqa: E731
+        q, k, v, kv, scale, head_scale=hs, rpe=rpe)
+    got = _twice(run, _opt_kernel("patch_attention", dtype))
+    want = attention.patch_attention_plain(q, k, v, kv, scale, hs, rpe)
+    if route == "fp32":
+        _check(got, want)
+    else:
+        assert bf16_excess(got, want, extra=attention.
+                           bf16_probability_allowance(
+                               q, k, v, kv, scale, head_scale=hs,
+                               rpe=rpe)) <= 0.0
+    if rpe is not None:
+        warps, splits, tile = attention.attention_opts_plan(G, H, P)
+        other = attention.attention_query_split(
+            G, H, P, attention.ATTN_MAX_WARPS if tile else
+            attention.OPTS_MAX_WARPS)
         assert torch.equal(attention.patch_attention_split(
-            *args, warps, -(-groups // warps), head_scale=hs, rpe=rpe), got)
+            q, k, v, kv, scale, *other, head_scale=hs, rpe=rpe,
+            tile=not tile), got)
+    for lo, hi in ((0, 4), (0, 1), (1, 2), (3, 4)):
+        part = None if rpe is None else (rpe[0][lo:hi], rpe[1], rpe[2])
+        sub = attention.patch_attention(q[lo:hi], k[lo:hi], v[lo:hi],
+                                        kv[lo:hi], scale, head_scale=hs,
+                                        rpe=part)
+        assert torch.equal(sub, got[lo:hi])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, BF16])
