@@ -145,16 +145,55 @@ Phases, each of which raises on failure (exit code != 0, no result line):
              that slice, and every gradient must be held on some slice; at
              a leaky-ReLU pre-activation within 1e-4 max|z| of the kink
              (a tie) the CPU follows the card's branch;
- 11c. ddp    data parallelism (parallel/dist.py): a one-process NCCL group
-             on the card (tcp://localhost at a free port), DDP_STEPS policy
-             steps at B = 32 x 4096 on phase 7's host batches through
-             build_trainer's DistributedDataParallel module, the masked
-             batch norms' sums and the losses' counts reduced over the
-             group, launches held at PER_STEP; every gradient and batch-norm
-             statistic after each step and the losses bit-equal to the
-             plain trainer's (built before the group is joined) on the
-             same batches; the group is left (two cards are not exercised:
-             the machine has one);
+ 11c. zero1  data parallelism (parallel/dist.py, mesh.py, zero.py): a
+             one-process NCCL group on the card (tcp://localhost at a free
+             port), DDP_STEPS policy steps at B = 32 x 4096 on phase 7's
+             host batches through build_trainer's ZeRO-1 step (the
+             optimizer's state sharded over the dp group, the gradient
+             reduce-scattered, the update all-gathered), then through its
+             TRAIN.zero1_manual step, then through the replicated
+             DistributedDataParallel module (dist.wrap_model); in each the
+             masked batch norms' sums and the losses' counts reduced over
+             the group (the manual step: its own), launches held at
+             PER_STEP; every gradient and batch-norm statistic after each
+             step, the losses and the parameters bit-equal to the plain
+             trainer's (built before the group is joined) on the same
+             batches; the group is left; the optimizer state's bytes a
+             process holds at dp = 1, 2, 4, 8 (the shard's length) beside
+             the replicated state's;
+ 11d. tp     tensor parallelism (parallel/mesh.py, the MLP and CPE pairs
+             of models/layers.py): scripts/torch_collectives_probe.py
+             first (which collectives two processes on the one card run,
+             by backend: NCCL refuses two ranks on one device), then two
+             processes on the card in a gloo group (this script with
+             --tp-worker), a dp = 1 x tp = 2 mesh: TP_STEPS policy steps at
+             B = 32 x 4096 on the zero1 phase's batches (release dropout,
+             the draws the plain step's) against the plain trainer's
+             losses (rtol 2e-4) and parameters (5e-5 where the gradient
+             is not within rounding of 0, there at most 3 x the steps'
+             summed lr apart: an Adam step flips with the gradient's
+             sign), JAX's bars; the last step's gradients against the
+             plain step's, each leaf's gap relative to its largest: the
+             median leaf and the median tp-sharded leaf within GRAD_TOL
+             (at the warmup's lr the parameters cannot tell a wrong
+             backward; a near tie of a max reduction moves the rows of a
+             few leaves, as in the step checks, so the worst leaf is
+             measured, not held); every gate fails on a NaN; launches
+             held at PER_STEP; then
+             TP_PREDICTS `predict` calls of Actioner(mesh="tp=2") and one
+             MotionPlannerEngine(mesh="tp=2") request against the plain
+             objects' (2e-4); step and predict times (CUDA events), each
+             process's peak memory and optimizer-state bytes;
+ 11e. tp-widths  K2 and K7 at the tp path's widths on the captured CPE
+             calls of phase 7's step: for tp = 2 and 4, at fp32 and at bf16
+             (the captured operands rounded), the forward at Cout = C/tp,
+             the input gradient's mirrored conv at Cin = C/tp and the
+             weight gradient at Cout = C/tp, each against its plain
+             version (the dx against the exact adjoint), and against the
+             full-width kernel's columns (the gap stated; the dx's tp
+             partials summed); K2 and K7 at C/2 and C/4 timed beside
+             their bounds and the full width on the first CPE call (C =
+             64) and the widest (C = 768);
  11a. bf16-train  training at compute_dtype bfloat16 (BF16_OPTS) on phase 7's
              host batches, B = 32 x 4096, release dropout, host structure:
              one step captured, every bf16 K5 / K6 / K7 / K8 and conv
@@ -422,6 +461,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import copy
+import datetime
 import gc
 import json
 import logging
@@ -434,6 +474,7 @@ import socket
 import subprocess
 import sys
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -468,7 +509,7 @@ from robot3dlotus_tpu_torch import native
 from robot3dlotus_tpu_torch.ops import (attention, conv, cuda_lib, gather,
                                         patching, pooling, sparse_conv, stem)
 from robot3dlotus_tpu_torch.ops.bf16 import bf16_excess, bf16_ulp
-from robot3dlotus_tpu_torch.parallel import dist
+from robot3dlotus_tpu_torch.parallel import dist, zero
 from robot3dlotus_tpu_torch.train import checkpoint as ckpt_mod, driver
 from robot3dlotus_tpu_torch.train.checkpoint import load_any_model_ckpt
 from robot3dlotus_tpu_torch.train.datasets.loader import (KeystepBatchLoader,
@@ -2977,6 +3018,10 @@ def _check_slice(host_batch, i, host_structure):
 
 
 DDP_STEPS = 2
+TP_STEPS = DDP_STEPS
+TP_PREDICTS = 4
+TP_TIMEOUT = 360.0   # both tp processes, from their start
+NEAR_ZERO = 1e-6   # |gradient| within rounding of 0 at the release loss
 
 
 def _grads_and_stats(trainer):
@@ -2988,13 +3033,33 @@ def _grads_and_stats(trainer):
              if "running_" in k})
 
 
-def ddp_phase(host, tag="ddp"):
+def _params(model):
+    return {k: p.detach().clone() for k, p in model.named_parameters()}
+
+
+def _bit_equal_steps(got, plain, tag):
+    for i, ((lg, gg, sg, pg), (lp, gp, sp, pp)) in enumerate(zip(got,
+                                                                 plain)):
+        if lg != lp:
+            raise AssertionError(f"[{tag}] step {i + 1} losses {lg} != {lp}")
+        for what, a, b in (("gradient", gg, gp), ("statistic", sg, sp),
+                           ("parameter", pg, pp)):
+            if set(a) != set(b) or not b:
+                raise AssertionError(f"[{tag}] step {i + 1}: {what} names")
+            diff = [k for k in b if not torch.equal(a[k], b[k])]
+            if diff:
+                raise AssertionError(f"[{tag}] step {i + 1}: {len(diff)} "
+                                     f"{what}s not bit-equal, e.g. {diff[:3]}")
+
+
+def zero1_phase(host, tag="zero1"):
     """DDP_STEPS policy steps on host batches, first by the plain trainer,
-    then in a one-process NCCL group through build_trainer's
-    DistributedDataParallel module and the group's reductions (masked
-    batch norms, the losses' counts): the gradients, statistics and losses
-    after each step bit-equal, launches held at PER_STEP; the group left
-    afterwards."""
+    then in a one-process NCCL group through build_trainer's ZeRO-1 step,
+    its TRAIN.zero1_manual step and the replicated DistributedDataParallel
+    module: each bit-equal to the plain steps after each step, launches
+    held at PER_STEP; the group left afterwards. Returns the phase's
+    record and the plain steps' (losses, gradients, parameters) on the
+    host for the tp phase."""
     t0 = time.perf_counter()
     dev = [batch_to_device(b, "cuda") for b in host[1:1 + DDP_STEPS]]
 
@@ -3002,14 +3067,24 @@ def ddp_phase(host, tag="ddp"):
         out = []
         for b in dev:
             losses = trainer.step(b)
-            out.append((_losses(losses), *_grads_and_stats(trainer)))
+            out.append((_losses(losses), *_grads_and_stats(trainer),
+                        _params(trainer.model)))
         torch.cuda.synchronize()
         return out
 
     trainer, batches, _ = build_trainer(train_config(), SPEC, device="cuda")
     if hasattr(batches, "close"):
         batches.close()
+    replicated = zero.state_bytes(trainer.optimizer)
+    total = sum(p.numel() for p in trainer.model.parameters())
     plain = steps(trainer)
+    ref = {"losses": [p[0] for p in plain],
+           "grads": [{k: v.cpu() for k, v in p[1].items()} for p in plain],
+           "params": {k: v.cpu() for k, v in plain[-1][3].items()},
+           # the steps' learning rates, summed: how far apart an Adam step
+           # can take an element whose gradient is within rounding of 0
+           "lr": sum(float(trainer.optimizer.lr_fn(k))
+                     for k in range(DDP_STEPS))}
     del trainer
     torch.cuda.empty_cache()
     with socket.socket() as s:
@@ -3017,47 +3092,455 @@ def ddp_phase(host, tag="ddp"):
         port = s.getsockname()[1]
     if not dist.init_distributed("nccl", f"tcp://localhost:{port}", 1, 0):
         raise AssertionError(f"[{tag}] no process group joined")
+    runs = {}
     try:
-        trainer, batches, _ = build_trainer(train_config(), SPEC,
-                                            device="cuda")
-        if hasattr(batches, "close"):
-            batches.close()
-        if type(trainer.net).__name__ != "DistributedDataParallel":
-            raise AssertionError(f"[{tag}] the step runs {type(trainer.net)}")
-        cuda_lib.reset_launches()
-        got = steps(trainer)
-        launches = dict(cuda_lib.LAUNCHES)
-        del trainer
+        for name, opts in (("zero1", ()), ("zero1_manual", (
+                "TRAIN.zero1_manual", "True")), ("ddp", ())):
+            trainer, batches, _ = build_trainer(train_config(*opts), SPEC,
+                                                device="cuda")
+            if hasattr(batches, "close"):
+                batches.close()
+            shard = trainer.optimizer.shard
+            if shard is None or trainer.manual != (name == "zero1_manual"):
+                raise AssertionError(f"[{tag}] {name}: the step runs no "
+                                     "ZeRO-1 optimizer")
+            if name == "ddp":      # the replicated formulation
+                opt, _ = build_optimizer(trainer.model,
+                                         dict(train_config().TRAIN))
+                trainer = Trainer(trainer.model, trainer.loss_fn, opt,
+                                  trainer.rng,
+                                  net=dist.wrap_model(trainer.model,
+                                                      torch.device("cuda")))
+                if type(trainer.net).__name__ != "DistributedDataParallel":
+                    raise AssertionError(f"[{tag}] ddp: {type(trainer.net)}")
+            cuda_lib.reset_launches()
+            got = steps(trainer)
+            launches = dict(cuda_lib.LAUNCHES)
+            sharded = zero.state_bytes(trainer.optimizer)
+            del trainer
+            for k, per in PER_STEP.items():
+                if launches[k] != per * DDP_STEPS:
+                    raise AssertionError(
+                        f"[{tag}] {name} {k}: {launches[k]} launches in "
+                        f"{DDP_STEPS} steps, expected {per} a step")
+            _bit_equal_steps(got, plain, f"{tag} {name}")
+            runs[name] = {"launches_per_step": {
+                k: v / DDP_STEPS for k, v in launches.items() if v},
+                "state_bytes": sharded}
+            del got
+            torch.cuda.empty_cache()
     finally:
         dist.leave()
     torch.cuda.empty_cache()
     if dist.joined():
         raise AssertionError(f"[{tag}] the process group is still joined")
-    for k, per in PER_STEP.items():
-        if launches[k] != per * DDP_STEPS:
-            raise AssertionError(f"[{tag}] {k}: {launches[k]} launches in "
-                                 f"{DDP_STEPS} steps, expected {per} a step")
-    for i, ((lg, gg, sg), (lp, gp, sp)) in enumerate(zip(got, plain)):
-        if lg != lp:
-            raise AssertionError(f"[{tag}] step {i + 1} losses {lg} != {lp}")
-        for what, a, b in (("gradient", gg, gp), ("statistic", sg, sp)):
-            if set(a) != set(b) or not b:
-                raise AssertionError(f"[{tag}] step {i + 1}: {what} names")
-            diff = [k for k in b if not torch.equal(a[k], b[k])]
-            if diff:
-                raise AssertionError(f"[{tag}] step {i + 1}: {len(diff)} "
-                                     f"{what}s not bit-equal, e.g. {diff[:3]}")
     out = {"steps": DDP_STEPS, "clouds": trainer_batch(host),
            "gradients": len(plain[0][1]), "statistics": len(plain[0][2]),
-           "losses": [p[0] for p in plain],
-           "launches_per_step": {k: v / DDP_STEPS
-                                 for k, v in launches.items() if v},
+           "parameters": total, "losses": ref["losses"], "runs": runs,
+           # each process's moments under ZeRO-1 at dp processes: the
+           # shard's length (parallel/zero.py FlatShard), the same buffers
+           "state_bytes_replicated": replicated,
+           "state_bytes_zero1": {dp: replicated // total * -(-total // dp)
+                                 for dp in (1, 2, 4, 8)},
            "seconds": time.perf_counter() - t0}
-    log(f"[{tag}] {DDP_STEPS} steps at B = {out['clouds']} through "
-        f"DistributedDataParallel in a one-process NCCL group: "
-        f"{out['gradients']} gradients and {out['statistics']} batch-norm "
-        f"statistics bit-equal to the plain steps after each step; "
+    del plain
+    log(f"[{tag}] {DDP_STEPS} steps at B = {out['clouds']} in a one-process "
+        f"NCCL group through the ZeRO-1 step, the zero1_manual step and "
+        f"DistributedDataParallel: {out['gradients']} gradients, "
+        f"{out['statistics']} batch-norm statistics, the parameters and the "
+        f"losses bit-equal to the plain steps after each step; optimizer "
+        f"state a process {replicated} B replicated, ZeRO-1 "
+        f"{out['state_bytes_zero1']} B by dp; {out['seconds']:.1f} s")
+    return out, ref
+
+
+def _finite(x):
+    """x, or inf where it is NaN or infinite: a gate `not (x <= tol)` then
+    fails on it."""
+    x = float(x)
+    return x if math.isfinite(x) else math.inf
+
+
+def _tp_compare(whole, ref, device="cuda"):
+    """(max |tp - plain| over the parameter elements whose gradient is not
+    within rounding of 0 at every plain step, the largest over the
+    others) after the tp steps; inf where a parameter is not finite."""
+    live_max = near_max = 0.0
+    for k, want in ref["params"].items():
+        diff = (whole[k].to(device) - want.to(device)).abs()
+        live = torch.ones_like(diff, dtype=torch.bool)
+        for g in ref["grads"]:
+            live &= g[k].to(device).abs() > NEAR_ZERO
+        if bool(live.any()):
+            live_max = max(live_max, _finite(diff[live].max()))
+        if bool((~live).any()):
+            near_max = max(near_max, _finite(diff[~live].max()))
+    return live_max, near_max
+
+
+def _tp_grads(got, want, sharded):
+    """The last step's gradients against the plain step's: each leaf's
+    largest |tp - plain| relative to the leaf's largest |plain| floored at
+    1e-3 of the largest of all leaves (inf where not finite). Returns the
+    worst leaf and its gap, the median gap over every leaf and over the
+    tp-sharded leaves, and the leaves past GRAD_TOL. The medians are held
+    to GRAD_TOL (tp_phase): a wrong backward of Megatron's f or g moves
+    the gradient of every leaf upstream of an MLP or CPE pair, or of the
+    sharded leaves themselves, while a max reduction (grid pooling, the
+    heads' pooled max) whose candidates lie within rounding of each other
+    can pick another row under the tp sums' order and move the gradient
+    rows of a few leaves, as the step checks find between card and CPU."""
+    scales = {k: float(g.abs().max()) for k, g in want.items()}
+    floor = 1e-3 * max(scales.values())
+    rel = {k: _finite((got[k].float() - want[k].to(got[k].device)).abs()
+                      .max()) / max(scales[k], floor) for k in want}
+    worst = max(rel, key=rel.get)
+    return {"grad_rel_max": rel[worst], "grad_worst": worst,
+            "grad_rel_median": float(np.median(list(rel.values()))),
+            "grad_rel_median_sharded": float(np.median(
+                [rel[k] for k in sharded])),
+            "grad_leaves": len(rel),
+            "grad_past_tol": sorted(k for k, v in rel.items()
+                                    if not v <= GRAD_TOL)}
+
+
+def tp_worker(rank, port, tmp):
+    """One of the tp phase's two processes (python3 chip_smoke.py
+    --tp-worker RANK PORT DIR): a gloo group on the card, a dp = 1 x tp =
+    2 mesh; TP_STEPS steps of the release policy's trainer with its MLP
+    and CPE pairs on their tp shards, then the sharded Actioner's and
+    motion planner's requests. Process 0 holds them against the plain
+    results in DIR/inputs.pt and writes DIR/out.json."""
+    from robot3dlotus_tpu_torch.parallel.mesh import (make_mesh, shard_model,
+                                                      whole_state_dict)
+    import faulthandler
+    # where a process waits, in its log, while the phase's deadline runs
+    faulthandler.dump_traceback_later(TP_TIMEOUT / 4, repeat=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    cuda_lib.library()
+    log(f"[tp {rank}] kernels loaded")
+    # a peer that stops answering fails the phase within the timeout
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"tcp://localhost:{port}", world_size=2,
+        rank=rank, timeout=datetime.timedelta(seconds=TP_TIMEOUT / 2))
+    inp = torch.load(os.path.join(tmp, "inputs.pt"), weights_only=False)
+    log(f"[tp {rank}] joined, inputs loaded")
+    mesh = make_mesh(tp=2)
+    cfg = train_config()
+    seed = int(cfg.get("SEED", 2024))
+    model = build_model(cfg.MODEL, device="cuda", seed=seed)
+    shard_model(model, mesh)
+    act_cfg, loss_cfg = driver.task_configs(cfg)
+    opt, _ = build_optimizer(model, dict(cfg.TRAIN), mesh=mesh)
+    trainer = Trainer(model, lambda p, b, group=None: SPEC.loss_fn(
+        p, b, act_cfg, loss_cfg, group=group),
+        opt, Randomness(seed + mesh.dp_index, "cuda"), mesh=mesh)
+    dev = [batch_to_device(b, "cuda") for b in inp["batches"]]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launches()
+    losses, step_ms = [], []
+    for b in dev:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        losses.append(_losses(trainer.step(b)))
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        log(f"[tp {rank}] step {len(step_ms)}: {step_ms[-1]:.1f} ms")
+    launches = dict(cuda_lib.LAUNCHES)
+    sharded = sorted(model.tp_plan)
+    out = {"rank": rank, "mesh": mesh.shape, "losses": losses,
+           "step_ms": step_ms, "launches": launches,
+           "sharded_leaves": len(sharded),
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "state_bytes": zero.state_bytes(opt)}
+    whole = whole_state_dict(model)
+    grads = whole_state_dict(model, {k: p.grad for k, p in
+                                     model.named_parameters()})
+    del trainer, opt, dev
+    if rank == 0:
+        out["live_max"], out["near_max"] = _tp_compare(whole, inp)
+        out.update(_tp_grads(grads, inp["grads"][-1], sharded))
+    del whole, grads, model
+    torch.cuda.empty_cache()
+    obs = [synthetic_observation(100 + i) for i in range(TP_PREDICTS)]
+    acts = {}
+    for tag, mesh_spec in (("tp", "tp=2"), ("plain", None)):
+        if tag == "plain" and rank != 0:
+            break
+        actioner = Actioner(CONFIG, cli_opts=CLI_OPTS, device="cuda", seed=0,
+                            mesh=mesh_spec)
+        acts[tag], ms = [], []
+        for i, req in enumerate(requests(obs)):
+            actioner.rng = np.random.default_rng(i)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            acts[tag].append(actioner.predict(**req)["action"])
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+        out[f"{tag}_predict_ms"] = ms
+        del actioner
+        engine = MotionPlannerEngine(MP_CONFIG, device="cuda", seed=0,
+                                     mesh=mesh_spec)
+        rng = np.random.RandomState(3)
+        n = engine.num_points - 5
+        feat = int(engine.config.MODEL.ptv3_config.in_channels)
+        txt = int(engine.act_cfg.get("txt_ft_size", 512))
+        acts[f"mp_{tag}"] = engine.predict(
+            rng.uniform(-0.4, 0.4, (n, feat)).astype(np.float32),
+            rng.randint(0, 4, n).astype(np.int32),
+            rng.randn(3, txt).astype(np.float32),
+            np.asarray([0.1, -0.2, 0.9, 0, 0, 0, 1, 1], np.float32),
+            pc_centroid=np.zeros(3), pc_radius=1.0, table_height=-10.0)
+        del engine
+        torch.cuda.empty_cache()
+    if rank == 0:
+        out["predict_max_diff"] = max(
+            _finite(np.abs(a - b).max()) for a, b in zip(acts["tp"],
+                                                         acts["plain"]))
+        out["predict_equal"] = all(np.array_equal(a, b) for a, b in
+                                   zip(acts["tp"], acts["plain"]))
+        out["mp_max_diff"] = _finite(np.abs(acts["mp_tp"] -
+                                            acts["mp_plain"]).max())
+    with open(os.path.join(tmp, f"out{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.leave()
+
+
+def tp_phase(host, ref, tag="tp"):
+    """The collectives probe, then the tp phase's two processes (tp_worker)
+    on the zero1 phase's batches and plain results; raises unless both
+    end, the losses are within rtol 2e-4 and the parameters within 5e-5
+    of the plain steps' (where the gradient is not within rounding of 0;
+    there within 3 x the steps' summed lr), the last step's gradients'
+    median leaf and median tp-sharded leaf within GRAD_TOL of the plain
+    step's (_tp_grads), every kernel launched its PER_STEP count a step
+    on both processes, and the sharded requests give the plain answers
+    within 2e-4. At the release schedule's warmup the steps' lr sums to
+    ~3e-8, so the parameters cannot tell a wrong gradient and the losses
+    see the forward only: the gradients hold the backward. Every gate is
+    written `not (gap <= bar)`, so that a NaN fails it."""
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    from torch_collectives_probe import probe
+    t0 = time.perf_counter()
+    collectives = probe()
+    log(f"[{tag}] collectives of two processes on the card: "
+        f"{json.dumps(collectives)}")
+    if any(v != "ok" for v in collectives["gloo"].values()):
+        raise AssertionError(f"[{tag}] gloo cannot run the tp path's "
+                             f"collectives: {collectives['gloo']}")
+    tmp = os.path.join(ROOT, "build", "smoke_tp")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    torch.save(dict(ref, batches=host[1:1 + TP_STEPS]),
+               os.path.join(tmp, "inputs.pt"))
+    log(f"[{tag}] inputs written, {torch.cuda.memory_reserved()} B of the "
+        f"card reserved here; starting the two processes")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    # each process's output to a file: a pipe that fills while the other
+    # process is waited on would stop its writer in the middle of a
+    # collective
+    logs = [os.path.join(tmp, f"log{r}.txt") for r in range(2)]
+    procs = []
+    for r in range(2):
+        with open(logs[r], "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--tp-worker",
+                 str(r), str(port), tmp], stdout=f,
+                stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + TP_TIMEOUT
+    try:
+        while any(p.poll() is None for p in procs) and \
+                time.monotonic() < deadline:
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+    for p, path in zip(procs, logs):
+        with open(path) as f:
+            text = f.read()
+        if p.returncode != 0:
+            raise AssertionError(f"[{tag}] a tp process exited with "
+                                 f"{p.returncode}: {text[-3000:]}")
+    outs = []
+    for r in range(2):
+        with open(os.path.join(tmp, f"out{r}.json")) as f:
+            outs.append(json.load(f))
+    shutil.rmtree(tmp, ignore_errors=True)
+    first = outs[0]
+    for o in outs:
+        for k, per in PER_STEP.items():
+            if o["launches"].get(k, 0) != per * TP_STEPS:
+                raise AssertionError(
+                    f"[{tag}] process {o['rank']} {k}: "
+                    f"{o['launches'].get(k, 0)} launches in {TP_STEPS} "
+                    f"steps, expected {per} a step")
+        for i, (got, want) in enumerate(zip(o["losses"], ref["losses"])):
+            for k, v in want.items():
+                if not abs(got[k] - v) <= 2e-4 * abs(v):
+                    raise AssertionError(f"[{tag}] step {i + 1} loss {k}: "
+                                         f"{got[k]} vs the plain {v}")
+    if not (first["live_max"] <= 5e-5 and
+            first["near_max"] <= 3.0 * ref["lr"]):
+        raise AssertionError(f"[{tag}] parameters {first['live_max']} "
+                             f"(near-zero gradients {first['near_max']}) "
+                             f"from the plain steps'")
+    if not (first["grad_rel_median"] <= GRAD_TOL and
+            first["grad_rel_median_sharded"] <= GRAD_TOL and
+            math.isfinite(first["grad_rel_max"])):
+        raise AssertionError(
+            f"[{tag}] last step's gradients: median leaf "
+            f"{first['grad_rel_median']}, median tp-sharded leaf "
+            f"{first['grad_rel_median_sharded']}, worst "
+            f"{first['grad_rel_max']} ({first['grad_worst']}) from the "
+            f"plain step's; past {GRAD_TOL}: {first['grad_past_tol']}")
+    if not (first["predict_max_diff"] <= 2e-4 and
+            first["mp_max_diff"] <= 2e-4):
+        raise AssertionError(f"[{tag}] sharded requests "
+                             f"{first['predict_max_diff']} / "
+                             f"{first['mp_max_diff']} from the plain ones")
+    out = {"collectives": collectives, "processes": outs,
+           "loss_max_rel": max(abs(o["losses"][i][k] - v) / abs(v)
+                               for o in outs
+                               for i, w in enumerate(ref["losses"])
+                               for k, v in w.items() if v),
+           "seconds": time.perf_counter() - t0}
+    log(f"[{tag}] dp = 1 x tp = 2 in two processes on the card (gloo): "
+        f"{TP_STEPS} steps at B = {trainer_batch(host)}, losses within "
+        f"{out['loss_max_rel']:.3g} (relative), the last gradients' "
+        f"median leaf {first['grad_rel_median']:.3g} and median tp-sharded "
+        f"leaf {first['grad_rel_median_sharded']:.3g} (relative; worst "
+        f"{first['grad_rel_max']:.3g} at {first['grad_worst']}; "
+        f"{len(first['grad_past_tol'])} of {first['grad_leaves']} leaves "
+        f"past {GRAD_TOL}: {first['grad_past_tol']}), parameters within "
+        f"{first['live_max']:.3g} ({first['near_max']:.3g} where the "
+        f"gradient is within rounding of 0); step ms {first['step_ms']}; "
+        f"{TP_PREDICTS} sharded predicts within "
+        f"{first['predict_max_diff']:.3g} (bit-equal: "
+        f"{first['predict_equal']}), predict ms {first['tp_predict_ms']} "
+        f"(plain {first['plain_predict_ms']}); motion planner within "
+        f"{first['mp_max_diff']:.3g}; peak {first['peak_bytes']} B, "
+        f"optimizer state {first['state_bytes']} B a process; "
         f"{out['seconds']:.1f} s")
+    return out
+
+
+def _cols_row(what, got, full_cols, want, err):
+    """A tp-width check's record: its error against the plain version and
+    its gap to the full-width kernel's columns."""
+    gap = float((got.float() - full_cols.float()).abs().max())
+    return {"what": what, "max_abs_err": err, "full_width_gap": gap,
+            "full_width_bit_equal": bool(torch.equal(got, full_cols)),
+            "shape": list(want.shape)}
+
+
+def tp_widths_phase(calls, tag="tp-widths"):
+    """K2 (forward and the dx's mirrored conv) and K7 at the tp path's
+    widths on each captured CPE call, at fp32 and bf16, against their
+    plain versions and the full-width kernel's columns; K2 and K7 at C/2
+    and C/4 timed on the first call (C = 64) and the widest (C = 768).
+    Raises past the bars of the phases that check them at full width."""
+    t0 = time.perf_counter()
+    rows, timed = [], {}
+    widest = max(range(len(calls)), key=lambda i: calls[i][0][3].shape[-1])
+    for n, ((x32, idx, ok, w32, bias), g32) in enumerate(calls):
+        C = w32.shape[-1]
+        for dtype in (torch.float32, torch.bfloat16):
+            x, w, g = (t.to(dtype) for t in (x32, w32, g32))
+            full = conv.subm_conv(x, idx, ok, w, bias)
+            full_dw = conv.conv_weight_grad(x, idx, ok, g)
+            full_dx = conv.conv_input_grad(g, idx, ok, w)
+            for tp in (2, 4):
+                cols = slice(0, C // tp)
+                shape = [*x.shape[:2], idx.shape[-1], x.shape[-1], C // tp]
+                name = f"{'bf16 ' if dtype != torch.float32 else ''}" \
+                    f"tp={tp} {shape}"
+                wc, bc, gc = w[..., cols].contiguous(), bias[cols], \
+                    g[..., cols].contiguous()
+                y = conv.subm_conv(x, idx, ok, wc, bc)
+                want = conv.subm_conv_plain(x, idx, ok, wc, bc)
+                err = _err(y, want.to(y.dtype), f"K2 {name}") \
+                    if dtype == torch.float32 else _bf16_err(
+                        y, want, f"K2 {name}", relative=False)
+                rows.append(_cols_row(f"K2 {name}", y, full[..., cols],
+                                      want, err))
+                dw = conv.conv_weight_grad(x, idx, ok, gc)
+                want = conv.conv_weight_grad_plain(x, idx, ok, gc)
+                rows.append(_cols_row(f"K7 {name}", dw, full_dw[..., cols],
+                                      want, _err(dw, want, f"K7 {name}")))
+                # the dx at Cin = C / tp: the mirrored conv of one tp
+                # process, and the tp processes' partials summed
+                parts = [conv.conv_input_grad(
+                    g[..., r * (C // tp):(r + 1) * (C // tp)].contiguous(),
+                    idx, ok, w[..., r * (C // tp):(r + 1) * (C // tp)]
+                    .contiguous()) for r in range(tp)]
+                xr = x32.clone().requires_grad_()
+                exact = torch.autograd.grad(conv.subm_conv_plain(
+                    xr, idx, ok, w[..., cols].float()), xr,
+                    gc.float())[0]
+                del xr
+                err = _err(parts[0], exact, f"dx {name}") \
+                    if dtype == torch.float32 else _bf16_err(
+                        parts[0], exact.to(dtype), f"dx {name}")
+                summed = sum(p.float() for p in parts).to(dtype)
+                rows.append(_cols_row(f"dx {name}", summed, full_dx, exact,
+                                      err))
+                del parts, exact, summed
+                if n in (0, widest):
+                    for what, run, plain, nbytes, flops in (
+                            ("K2", lambda a=(x, idx, ok, wc, bc):
+                             conv.subm_conv(*a),
+                             lambda a=(x, idx, ok, wc, bc):
+                             conv.subm_conv_plain(*a),
+                             _conv_bytes(x, idx, wc, C // tp),
+                             2 * x.shape[-1] * (C // tp) * int(ok.sum())),
+                            ("K7", lambda a=(x, idx, ok, gc):
+                             conv.conv_weight_grad(*a),
+                             lambda a=(x, idx, ok, gc):
+                             conv.conv_weight_grad_plain(*a),
+                             x.element_size() * (x.numel() + gc.numel())
+                             + 4 * wc.numel() + 5 * idx.numel(),
+                             2 * x.shape[-1] * (C // tp) * int(ok.sum()))):
+                        peak = TF32_FLOPS_PER_S if dtype == torch.float32 \
+                            else BF16_FLOPS_PER_S
+                        mult = 3 if dtype == torch.float32 else 1
+                        bound_ms = _bound(nbytes, mult * flops, peak)[0]
+                        timed[f"{what} {name}"] = {
+                            "ms": cuda_ms(run, **TRAIN_TIMING),
+                            "plain_ms": cuda_ms(plain, **TRAIN_TIMING),
+                            "bound_ms": bound_ms,
+                            "full_width_ms": cuda_ms(
+                                (lambda: conv.subm_conv(x, idx, ok, w, bias))
+                                if what == "K2" else
+                                (lambda: conv.conv_weight_grad(x, idx, ok,
+                                                               g)),
+                                **TRAIN_TIMING)}
+            del x, w, g, full, full_dw, full_dx
+        torch.cuda.empty_cache()
+    out = {"checks": rows, "timed": timed,
+           "bit_equal_columns": sum(r["full_width_bit_equal"] for r in rows),
+           "seconds": time.perf_counter() - t0}
+    for k, r in timed.items():
+        log(f"[{tag}] {k}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
+            f"bound {r['bound_ms']:.4f}, full width {r['full_width_ms']:.4f})")
+    gaps = {}
+    for r in rows:
+        key = r["what"].split(" [")[0]
+        gaps[key] = max(gaps.get(key, 0.0), r["full_width_gap"])
+    log(f"[{tag}] {len(rows)} checks on {len(calls)} CPE calls, every one "
+        f"within its plain version's bar; {out['bit_equal_columns']} "
+        f"bit-equal to the full-width kernel's columns; largest gaps "
+        f"{json.dumps(gaps)}; {out['seconds']:.1f} s")
     return out
 
 
@@ -6223,6 +6706,9 @@ def stop_processes(wait_s=30.0):
 
 
 def main():
+    if sys.argv[1:2] == ["--tp-worker"]:
+        tp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
@@ -6230,6 +6716,14 @@ def main():
     os.environ[RUN_MARK] = f"{os.getpid()}.{time.time_ns()}"
     try:
         lines = run()
+    except BaseException:     # shown before the processes are stopped
+        traceback.print_exc()
+        sys.stderr.flush()
+        # the failed phases' frames hold loader iterators, whose worker
+        # pools would outlive stop_processes' wait
+        traceback.clear_frames(sys.exc_info()[2])
+        gc.collect()
+        raise
     finally:
         left = stop_processes()
     if left:
@@ -6341,12 +6835,17 @@ def run():
     stems = [c for c in captured["stem_conv"] if c[1] is not None]
     stem_vjp, stem_launches = stem_vjp_phase(stems[0])
     bf16_stem_vjp, bf16_stem_launches = bf16_stem_vjp_phase(stems[0])
+    tp_widths = tp_widths_phase(captured["subm_conv"])
     del captured, stems
-    mark("training, train-kernels, stem-vjp")
+    mark("training, train-kernels, stem-vjp, tp-widths")
     step_check = step_check_phase(host[0])
     mark("step-check")
-    ddp = ddp_phase(host)
-    mark("ddp")
+    zero1_out, plain_ref = zero1_phase(host)
+    mark("zero1")
+    tp = tp_phase(host, plain_ref)
+    del plain_ref
+    torch.cuda.empty_cache()
+    mark("tp")
     bf16_train = bf16_train_phase(host, training, observations, out_dir)
     mark("bf16-train")
     torch.cuda.empty_cache()
@@ -6494,7 +6993,8 @@ def run():
                    "attn_opts": attn_opts, "bf16_attn_opts": bf16_attn_opts,
                    "bf16_train": bf16_train, "bf16_mp_train": bf16_mp_train,
                    "rp_vlm": rp_vlm, "optim": optim,
-                   "batch_order": batch_order, "ddp": ddp},
+                   "batch_order": batch_order, "zero1": zero1_out,
+                   "tp": tp, "tp_widths": tp_widths},
                   f, indent=1)
     # each kernel's launches in the run of its own slice's main path: K1-K4
     # policy serving, K5-K8 policy training, K9 motion-planner serving, K10
@@ -6584,7 +7084,10 @@ def run():
              "attn_opts_training": attn_opts["training_launches"],
              "bf16_attn_opts_serving": bf16_attn_opts["serving"]["launches"],
              "bf16_attn_opts_training": bf16_attn_opts["training_launches"],
-             "bf16_upcast_serving": bf16_attn_opts["upcast"]["launches"]}
+             "bf16_upcast_serving": bf16_attn_opts["upcast"]["launches"],
+             "tp_training": tp["processes"][0]["launches"],
+             **{f"zero1_{k}": r["launches_per_step"]
+                for k, r in zero1_out["runs"].items()}}
     main_path = dict.fromkeys(PER_FORWARD, "serving")
     main_path.update(dict.fromkeys(TRAIN_KERNELS, "training"))
     main_path.update(gather_rows_smallc="mp_serving",
@@ -6601,7 +7104,8 @@ def run():
     kernels = [dict(name=k, route="cuda", source=KERNELS[k][0],
                     replaces=KERNELS[k][1],
                     launches=paths[main_path[k]][k],
-                    launches_by_path={p: c[k] for p, c in paths.items()},
+                    launches_by_path={p: c.get(k, 0)
+                                      for p, c in paths.items()},
                     **rows[k])
                for k in KERNELS]
     return [json.dumps({"kernels": kernels}), smi,

@@ -23,6 +23,12 @@ per-leaf trees (the clip's, lr multipliers' and freeze mask's empty
 states beside the core's) and optax.MultiSteps around them. Each port
 optimizer writes and reads its own layout (state_tree / load_tree) through
 a `StateLayout`; `opt_state_to_jax` / `opt_state_from_jax` call them.
+
+Under a mesh (parallel/mesh.py, parallel/zero.py) the model's tp-sharded
+leaves and the optimizer's sharded buffers are gathered whole before they
+are written and cut to this process's shards when they are read, so the
+trees are the whole model's whatever the mesh (every process of the mesh
+takes part in a gather).
 """
 from __future__ import annotations
 
@@ -101,8 +107,9 @@ def params_to_jax(model):
     """The model's state -> {params, batch_stats} nested dicts of float32
     numpy arrays in flax names and layouts (the inverse of
     params_from_jax)."""
+    from .parallel.mesh import whole_state_dict
     out = {"params": {}, "batch_stats": {}}
-    sd = model.state_dict()
+    sd = whole_state_dict(model)
     for name, (coll, path, transposed) in flax_leaves(model).items():
         t = sd[name].detach()
         arr = (t.t() if transposed else t).contiguous().cpu().numpy()
@@ -113,16 +120,37 @@ def params_to_jax(model):
     return out
 
 
+def _opt_shapes(optimizer):
+    """The whole shapes of the optimizer's parameters, in its order."""
+    shard = getattr(optimizer, "shard", None)
+    if shard is None:
+        return [tuple(p.shape) for p in optimizer.params]
+    return shard.whole_shapes
+
+
+def _whole(optimizer, buf):
+    """A flat buffer of the optimizer -> the whole model's flat buffer."""
+    shard = getattr(optimizer, "shard", None)
+    return buf if shard is None else shard.whole(buf)
+
+
+def _local(optimizer, whole):
+    """The inverse of _whole."""
+    shard = getattr(optimizer, "shard", None)
+    return whole if shard is None else shard.local(whole)
+
+
 def _jax_flat_layout(model, optimizer):
     """[(port offset, size, parameter shape, transposed)] of each leaf in
-    the JAX flat buffer's order, and the padded length Tpad."""
+    the JAX flat buffer's order (the whole model's: offsets into _whole's
+    buffer), and the padded length Tpad."""
     leaves = flax_leaves(model)
     offsets, off = {}, 0
-    for name, size in zip(optimizer.names, optimizer.sizes):
+    shapes = dict(zip(optimizer.names, map(torch.Size,
+                                           _opt_shapes(optimizer))))
+    for name in optimizer.names:
         offsets[name] = off
-        off += size
-    shapes = dict((n, p.shape) for n, p in zip(optimizer.names,
-                                               optimizer.params))
+        off += shapes[name].numel()
     if set(offsets) != {n for n, v in leaves.items() if v[0] == "params"}:
         raise ValueError("the optimizer's parameters are not the model's")
     order = sorted(offsets, key=lambda n: leaves[n][1])
@@ -137,7 +165,7 @@ def adam_state_to_jax(optimizer, model):
     layout, tpad = _jax_flat_layout(model, optimizer)
     out = {"count": np.asarray(optimizer.count, np.int32)}
     for key in ("mu", "nu"):
-        src = getattr(optimizer, key)
+        src = _whole(optimizer, getattr(optimizer, key))
         flat = torch.zeros(tpad, dtype=torch.float32, device=src.device)
         j = 0
         for off, n, shape, transposed in layout:
@@ -166,13 +194,16 @@ def adam_state_from_jax(opt_state, optimizer, model):
         raise ValueError(f"opt_state count: {count.dtype} {count.shape}")
     for key, flat in moments.items():
         dst = getattr(optimizer, key)
+        whole = torch.empty(sum(n for _, n, _, _ in layout),
+                            dtype=torch.float32, device=dst.device)
         j = 0
         for off, n, shape, transposed in layout:
             seg = flat[j:j + n]
             seg = seg.view(shape[1], shape[0]).t() if transposed \
                 else seg.view(shape)
-            dst[off:off + n].view(shape).copy_(seg)
+            whole[off:off + n].view(shape).copy_(seg)
             j += n
+        dst.copy_(_local(optimizer, whole))
     optimizer.count = int(count)
 
 
@@ -181,17 +212,18 @@ def _leaf_layout(optimizer, model):
     parameter in the optimizer's flat order."""
     leaves = flax_leaves(model)
     out, off = [], 0
-    for name, p in zip(optimizer.names, optimizer.params):
+    for name, shape in zip(optimizer.names, _opt_shapes(optimizer)):
         _, path, transposed = leaves[name]
-        out.append((path, off, p.numel(), tuple(p.shape), transposed))
-        off += p.numel()
+        n = int(torch.Size(shape).numel())
+        out.append((path, off, n, tuple(shape), transposed))
+        off += n
     return out
 
 
 def flat_to_tree(flat, optimizer, model):
     """A flat per-parameter buffer -> a float32 numpy tree in flax names
     and layouts (one copy off the device)."""
-    host = flat.detach().float().cpu().numpy()
+    host = _whole(optimizer, flat).detach().float().cpu().numpy()
     tree = {}
     for path, off, n, shape, transposed in _leaf_layout(optimizer, model):
         arr = host[off:off + n].reshape(shape)
@@ -205,14 +237,15 @@ def flat_to_tree(flat, optimizer, model):
 def flat_from_tree(tree, optimizer, model, dst):
     """Copies a flax-layout tree (flat_to_tree's) into the flat buffer
     `dst` (one copy onto its device)."""
-    host = np.empty(dst.numel(), np.float32)
-    for path, off, n, shape, transposed in _leaf_layout(optimizer, model):
+    layout = _leaf_layout(optimizer, model)
+    host = np.empty(sum(n for _, _, n, _, _ in layout), np.float32)
+    for path, off, n, shape, transposed in layout:
         node = tree
         for k in path:
             node = node[k]
         arr = np.asarray(node, np.float32)
         host[off:off + n] = (arr.T if transposed else arr).reshape(-1)
-    dst.copy_(torch.from_numpy(host))
+    dst.copy_(_local(optimizer, torch.from_numpy(host).to(dst.device)))
 
 
 class StateLayout:

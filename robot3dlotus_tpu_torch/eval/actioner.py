@@ -27,6 +27,18 @@ Weights come from `checkpoint` (a .msgpack of either package, or an
 upstream-layout torch .pt converted by train.torch_convert), loaded with
 load_state_dict(strict=True); without one they are a seeded init.
 
+Sharded serving (mesh="dp=2,tp=2", or ROBOT3DLOTUS_SERVE_MESH; JAX's
+Actioner(mesh=...)): the processes of a launched group (parallel/dist.py:
+torchrun, SLURM) serve together over a dp x tp mesh (parallel/mesh.py).
+The model's MLP and CPE pairs run on their tp shards (the JAX TP rules);
+predict runs its one row on every dp process; predict_batch gives each
+dp process its share of the rows when dp divides the batch bucket, else
+every process all of them, and returns every row, in order, on every
+process. The contract is SPMD: every process of the group calls with the
+same requests, in the same order (each call's collectives pair up across
+them). The fused preprocess is turned off under a mesh, with a warning,
+as in JAX.
+
 Instruction embeddings come from a precomputed `instr_embed_file`, or, when
 the config names none, from the deterministic per-taskvar pseudo-embedding
 the synthetic training store uses. On-demand CLIP encoding is not ported.
@@ -60,6 +72,20 @@ TXT_BUCKETS = (4, 8, 16, 32, 80)
 LOGGER = logging.getLogger("robot3dlotus_tpu_torch.eval")
 
 
+def serving_mesh(model, mesh):
+    """The serving mesh of `mesh` (a spec, a Mesh, or None for
+    ROBOT3DLOTUS_SERVE_MESH), the model cut to its tp shards; None
+    without one."""
+    mesh = mesh if mesh is not None else \
+        os.environ.get("ROBOT3DLOTUS_SERVE_MESH") or None
+    if not mesh:
+        return None
+    from ..parallel.mesh import mesh_from_spec, shard_model
+    mesh = mesh_from_spec(mesh)
+    shard_model(model, mesh)
+    return mesh
+
+
 def _bucket(n, buckets):
     for b in buckets:
         if n <= b:
@@ -74,7 +100,7 @@ class Actioner:
     def __init__(self, exp_config, checkpoint=None, cli_opts=None,
                  best_disc_pos="max", num_ensembles=1, real_robot=False,
                  save_obs_outs_dir=None, device="cuda", seed=0,
-                 device_preprocess=None, vox_capacity=None):
+                 device_preprocess=None, vox_capacity=None, mesh=None):
         """checkpoint: a model file (train.checkpoint.load_any_model_ckpt),
         or None for the seeded init of `seed`, which also seeds the
         >num_points subsample (host path: self.rng; fused path: a
@@ -86,7 +112,9 @@ class Actioner:
         {taskvar}-{episode_id}-{step_id}.npy. device_preprocess /
         vox_capacity: the fused path and its voxel capacity (None:
         ROBOT3DLOTUS_DEVICE_PREPROCESS, default off, and
-        ROBOT3DLOTUS_VOX_CAPACITY, default 8192)."""
+        ROBOT3DLOTUS_VOX_CAPACITY, default 8192). mesh: a serving mesh
+        spec or parallel.mesh.Mesh (None: ROBOT3DLOTUS_SERVE_MESH, unset
+        for none); see the module docstring."""
         self.device = resolve_device(device)
         self.num_ensembles = int(num_ensembles)
         self.ensemble_rng = np.random.default_rng([seed, 1])
@@ -125,6 +153,12 @@ class Actioner:
         if checkpoint:
             self.model.load_state_dict(load_any_model_ckpt(
                 checkpoint, self.model, self.config.MODEL), strict=True)
+        self.mesh = serving_mesh(self.model, mesh)
+        if self.mesh is not None and self.device_preprocess:
+            LOGGER.warning("serve mesh set: the fused device preprocess is "
+                           "turned off (the mesh path takes the host "
+                           "preprocess)")
+            self.device_preprocess = False
         p3 = self.config.MODEL.ptv3_config
         self._presort_cfg = (
             tuple(p3.get("order") or p3.get("orders")
@@ -256,12 +290,12 @@ class Actioner:
         action[2] = max(action[2], self.TABLE_HEIGHT + 0.005)
         return action
 
-    def _batch(self, rows, B, N=None):
+    def _batch(self, rows, B, N=None, T=None):
         """(B, ...) device batch from [(pc_ft, instr_embed, ee_pose,
-        step_id)] rows at the rows' point bucket (or N) and text bucket;
-        padding rows repeat row 0."""
+        step_id)] rows at the rows' point bucket (or N) and text bucket
+        (or T); padding rows repeat row 0."""
         N = N or _bucket(max(len(r[0]) for r in rows), self._point_buckets)
-        T = _bucket(max(r[1].shape[0] for r in rows), TXT_BUCKETS)
+        T = T or _bucket(max(r[1].shape[0] for r in rows), TXT_BUCKETS)
         cin = rows[0][0].shape[-1]
         pc = np.zeros((B, N, cin), np.float32)
         mask = np.zeros((B, N), bool)
@@ -284,8 +318,23 @@ class Actioner:
 
     @torch.inference_mode()
     def _forward(self, rows, B):
+        if self.mesh is not None:
+            return self._mesh_forward(rows, B)
         preds = self.model(self._batch(rows, B))
         return decode_actions(preds, self.act_cfg).cpu().numpy()
+
+    def _mesh_forward(self, rows, B):
+        """_forward over the serving mesh: this dp process's rows of the
+        B-row batch (parallel.mesh.eval_rows) at the whole batch's
+        buckets, then every row gathered in order."""
+        from ..parallel.mesh import eval_rows, gather_rows
+        N = _bucket(max(len(r[0]) for r in rows), self._point_buckets)
+        T = _bucket(max(r[1].shape[0] for r in rows), TXT_BUCKETS)
+        full = [rows[r] if r < len(rows) else rows[0] for r in range(B)]
+        mine = full[eval_rows(B, self.mesh)]
+        preds = self.model(self._batch(mine, len(mine), N=N, T=T))
+        actions = decode_actions(preds, self.act_cfg)
+        return gather_rows(actions, B, self.mesh).cpu().numpy()
 
     def _ensemble_rngs(self):
         """One Randomness per ensemble member: its order shuffles."""

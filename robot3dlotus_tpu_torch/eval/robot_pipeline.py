@@ -56,7 +56,7 @@ from ..train.checkpoint import load_any_model_ckpt
 from ..utils.assets import resolve_asset
 from ..utils.robot_box import RobotBox
 from ..vlm.llm_planner import GroundtruthTaskPlanner, heuristic_height_range
-from .actioner import TXT_BUCKETS, _bucket
+from .actioner import TXT_BUCKETS, _bucket, serving_mesh
 from .common import parse_code
 
 
@@ -87,10 +87,14 @@ class MotionPlannerEngine:
     num_points, forward, decode, then un-normalise on the host. Weights
     come from `checkpoint` (a .msgpack of either package or
     an upstream-layout .pt, as the Actioner loads them), or are a seeded
-    init without one."""
+    init without one. mesh: a serving mesh spec or parallel.mesh.Mesh
+    (None: ROBOT3DLOTUS_SERVE_MESH), the model's MLP and CPE pairs on
+    their tp shards and each request on every dp process; SPMD, as the
+    Actioner's (eval/actioner.py): every process of the launched group
+    makes the same calls."""
 
     def __init__(self, config_file, checkpoint=None, cli_opts=None,
-                 device="cuda", seed=0):
+                 device="cuda", seed=0, mesh=None):
         self.device = resolve_device(device)
         self.config = get_config(config_file, cli_opts)
         self.data_cfg = dict(self.config.TRAIN_DATASET)
@@ -101,6 +105,7 @@ class MotionPlannerEngine:
         if checkpoint:
             self.model.load_state_dict(load_any_model_ckpt(
                 checkpoint, self.model, self.config.MODEL), strict=True)
+        self.mesh = serving_mesh(self.model, mesh)
 
     def _batch(self, pc_ft, pc_label, txt_embed, ee_pose=None):
         """Host arrays -> a B = 1 device batch, padded to num_points points
@@ -324,13 +329,15 @@ class GroundtruthRobotPipeline:
     next step."""
 
     def __init__(self, config, motion_planner: MotionPlannerEngine = None,
-                 text_embedder: ActionTextEmbedder = None, device="cuda"):
+                 text_embedder: ActionTextEmbedder = None, device="cuda",
+                 mesh=None):
         self.config = config
         self.llm_planner = GroundtruthTaskPlanner(
             resolve_asset(config["llm_planner"]["gt_plan_file"]))
         mp_cfg = config["motion_planner"]
         self.motion_planner = motion_planner or MotionPlannerEngine(
-            mp_cfg["config_file"], mp_cfg.get("checkpoint"), device=device)
+            mp_cfg["config_file"], mp_cfg.get("checkpoint"), device=device,
+            mesh=mesh)
         data_cfg = self.motion_planner.data_cfg
         self.instr_include_objects = data_cfg.get(
             "instr_include_objects", False)
@@ -431,7 +438,7 @@ class RobotPipeline:
     def __init__(self, config, motion_planner: MotionPlannerEngine = None,
                  vlm_pipeline=None, llm_planner=None,
                  text_embedder: ActionTextEmbedder = None, det=None,
-                 sam=None, llm_backend=None, device="cuda"):
+                 sam=None, llm_backend=None, device="cuda", mesh=None):
         self.config = config
         self.env_name = ("real" if config.get("pipeline", {}).get(
             "real_robot", False) else "rlbench")
@@ -458,7 +465,8 @@ class RobotPipeline:
 
         mp_cfg = config["motion_planner"]
         self.motion_planner = motion_planner or MotionPlannerEngine(
-            mp_cfg["config_file"], mp_cfg.get("checkpoint"), device=device)
+            mp_cfg["config_file"], mp_cfg.get("checkpoint"), device=device,
+            mesh=mesh)
         self.mp_data_cfg = self.motion_planner.data_cfg
         self.text_embedder = text_embedder or ActionTextEmbedder(
             mp_cfg.get("action_embed_file"))

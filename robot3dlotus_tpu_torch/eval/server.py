@@ -14,6 +14,20 @@ producers import no torch (the actioner builder imports it inside the
 consumer), so no producer holds a context on the card. run_eval_server
 returns what it measured: per-request latency at the producers, the
 batches the consumer formed and the kernel launches it made.
+
+Sharded serving (ROBOT3DLOTUS_SERVE_MESH, eval/actioner.py): launched as a
+group (torchrun / SLURM, one process a card), process 0 runs the
+producers and the consumer as above and its consumer joins the group as
+its process 0; every other process of the group follows (follower_fn):
+it builds the same actioner and makes each call the consumer makes, as
+the consumer broadcasts it before making it (the Actioner's SPMD
+contract), until the consumer's stop message. A call that raises on a
+follower ends it (its processes may have left the lockstep of the
+forward's collectives partway, which no later call could mend): it
+leaves the group and raises. A follower that dies or leaves makes the
+consumer's next broadcast or collective raise, and a broadcast that
+raises ends the consumer (ServingGroupLost, never answered as one failed
+query), so run_eval_server raises, as for a dead producer.
 """
 from __future__ import annotations
 
@@ -38,6 +52,95 @@ def _kernel_launches():
     return dict(lib.LAUNCHES) if lib is not None else {}
 
 
+def _serve_mesh_rank():
+    """This process's rank in a launched sharded-serving group
+    (ROBOT3DLOTUS_SERVE_MESH set and a launch env of several processes),
+    else None."""
+    if not os.environ.get("ROBOT3DLOTUS_SERVE_MESH"):
+        return None
+    from ..parallel import dist
+    found = dist.discover_distributed_env()
+    return None if found is None else found[2]
+
+
+def _join_serving_group():
+    """Joins the launched group (NCCL with a card, else gloo) unless this
+    process is in one already; the current card is cuda:LOCAL_RANK."""
+    import torch
+    from ..parallel import dist
+    if not dist.joined():
+        dist.init_distributed("nccl" if torch.cuda.is_available()
+                              else "gloo")
+    if torch.cuda.is_available():
+        dist.process_device("cuda")
+
+
+class ServingGroupLost(RuntimeError):
+    """The consumer could not send a call to the followers: the
+    sharded-serving group is broken, and the consumer stops."""
+
+
+def _broadcast_call(call=None):
+    """The consumer's next call (method name, arguments) sent from the
+    group's process 0 to the others; returns it on every process."""
+    import torch.distributed as tdist
+    box = [call]
+    tdist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+def _send_call(call):
+    """_broadcast_call on the consumer; its failure is ServingGroupLost."""
+    try:
+        _broadcast_call(call)
+    except Exception as e:
+        raise ServingGroupLost(f"sharded serving: the followers cannot "
+                               f"be reached ({type(e).__name__}: {e})") from e
+
+
+class MeshLeader:
+    """The consumer's actioner in a sharded-serving group: each predict
+    and predict_batch call is broadcast to the followers before it runs;
+    stop() ends their loops."""
+
+    def __init__(self, actioner):
+        self.actioner = actioner
+        if hasattr(actioner, "predict_batch"):
+            self.predict_batch = self._predict_batch
+
+    def _predict_batch(self, payloads):
+        _send_call(("predict_batch", (payloads,), {}))
+        return self.actioner.predict_batch(payloads)
+
+    def predict(self, **payload):
+        _send_call(("predict", (), payload))
+        return self.actioner.predict(**payload)
+
+    def stop(self):
+        _send_call(("stop", (), {}))
+
+
+def follower_fn(actioner_builder):
+    """A process of a sharded-serving group other than the first: joins
+    the group, builds the actioner and makes every call the consumer
+    broadcasts, until its stop message; returns the number of calls
+    made. A call that raises leaves the group and raises (the module
+    docstring): the consumer's next collective then raises too."""
+    from ..parallel import dist
+    _join_serving_group()
+    actioner = actioner_builder()
+    calls = 0
+    try:
+        while True:
+            name, args, kwargs = _broadcast_call()
+            if name == "stop":
+                return calls
+            calls += 1
+            getattr(actioner, name)(*args, **kwargs)
+    finally:
+        dist.leave()
+
+
 def consumer_fn(actioner_builder, batch_queue, result_queues,
                 stop_token="STOP", max_batch=None, stateful=False,
                 stats_queue=None):
@@ -51,13 +154,18 @@ def consumer_fn(actioner_builder, batch_queue, result_queues,
     actioners without predict_batch answer one query at a time. A batch
     that raises is retried item by item; after 3 failed batches in a row
     batching is off for the run. A failed query is answered with the zero
-    action and its error, unless 8 fail in a row, which raises. With
+    action and its error, unless 8 fail in a row, which raises; a lost
+    sharded-serving group (ServingGroupLost) raises at once. With
     stats_queue, puts {"role": "consumer", "ready" (wall-clock time the
     actioner was built), "batch_sizes", "errors" (the queries answered
     with an error), "kernel_launches"} before returning."""
     if max_batch is None:
         max_batch = int(os.environ.get("ROBOT3DLOTUS_EVAL_MAX_BATCH", "8"))
-    actioner = actioner_builder()
+    leader = None
+    if _serve_mesh_rank() is not None:
+        _join_serving_group()
+        leader = MeshLeader(actioner_builder())
+    actioner = leader or actioner_builder()
     ready = time.time()
     can_batch = (not stateful and max_batch > 1
                  and hasattr(actioner, "predict_batch"))
@@ -86,6 +194,8 @@ def consumer_fn(actioner_builder, batch_queue, result_queues,
                 results = actioner.predict_batch([p for _, p in items])
                 consecutive_errors = 0
                 batch_failures = 0
+            except ServingGroupLost:
+                raise
             except Exception:
                 traceback.print_exc()
                 batch_failures += 1
@@ -99,6 +209,8 @@ def consumer_fn(actioner_builder, batch_queue, result_queues,
                 try:  # fail the episode, not the run...
                     results.append(actioner.predict(**payload))
                     consecutive_errors = 0
+                except ServingGroupLost:
+                    raise
                 except Exception as e:
                     consecutive_errors += 1
                     errors += 1
@@ -110,6 +222,10 @@ def consumer_fn(actioner_builder, batch_queue, result_queues,
                                     "error": str(e)})
         for (k, _), out in zip(items, results):
             result_queues[k].put(out)
+    if leader is not None:
+        from ..parallel import dist
+        leader.stop()
+        dist.leave()
     if stats_queue is not None:
         stats_queue.put({"role": "consumer", "ready": ready,
                          "batch_sizes": batch_sizes, "errors": errors,
@@ -309,11 +425,17 @@ def run_eval_server(
     done, else the summary (_summary): requests, requests/s, per-request
     ms at the producers (p50, p99), the consumer's batch sizes, failed
     queries and kernel launches, and how many producers had torch
-    imported. Raises if the consumer or a producer fails."""
+    imported. Raises if the consumer or a producer fails. In a launched
+    sharded-serving group (the module docstring) every process but the
+    first follows the consumer (follower_fn) and returns None."""
+    rank = _serve_mesh_rank()
+    if rank is not None and rank != 0:
+        follower_fn(actioner_builder)
+        return None
     os.makedirs(os.path.dirname(result_file) or ".", exist_ok=True)
     done = load_done_taskvars(result_file)
     todo = [tv for tv in taskvars if tv not in done]
-    if not todo:
+    if not todo and rank is None:
         return None
 
     ctx = mp.get_context("spawn")
@@ -357,7 +479,9 @@ def run_eval_server(
             if p.is_alive():
                 p.terminate()
             p.join()
-    return _summary(stats)
+    # in a sharded-serving group the consumer ran even with nothing to do:
+    # the followers wait for its stop message
+    return _summary(stats) if todo else None
 
 
 class ReplayEnv:

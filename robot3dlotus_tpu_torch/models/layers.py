@@ -154,19 +154,26 @@ class Randomness:
         return torch.randperm(n, generator=self.host).tolist()
 
 
-def _drop(x, rate, training, rng, shape):
+def _drop(x, rate, training, rng, shape, tp=None):
     if not training or rate == 0.0:
         return x
     if rng is None:
         raise ValueError("train-mode dropout needs a Randomness")
-    keep = rng.keep(shape, rate, x.device)
+    if tp is None:
+        keep = rng.keep(shape, rate, x.device)
+    else:               # the whole width's mask, this process's columns
+        keep = rng.keep(shape[:-1] + (shape[-1] * tp.size,), rate,
+                        x.device)[..., tp.cols(shape[-1] * tp.size)]
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
-def dropout(x, rate, training, rng):
+def dropout(x, rate, training, rng, tp=None):
     """flax nn.Dropout: keep with probability 1 - rate, scale by
-    1 / (1 - rate); the identity in eval mode or at rate 0."""
-    return _drop(x, rate, training, rng, x.shape)
+    1 / (1 - rate); the identity in eval mode or at rate 0. With `tp` (a
+    parallel.mesh.TPShard) x is this process's columns of a tp-sharded
+    activation: the mask is drawn at the whole width and cut to them, so
+    the tp processes draw what one process draws."""
+    return _drop(x, rate, training, rng, x.shape, tp)
 
 
 def drop_path(x, rate, training, rng):
@@ -180,14 +187,18 @@ class MaskedBatchNorm(nn.Module):
     batch mean and biased variance and moves the running statistics
     towards the mean and the unbiased variance; eval mode uses the running
     statistics. Computed in fp32, returned in x's dtype. In a process
-    group (parallel/dist.py) the batch is every process's: the count and
-    the masked sum, then the masked squared deviations, are summed over
-    the processes (their gradient too), as the JAX batch norm's sums span
-    its dp mesh, so the statistics move the same on every process."""
+    group (parallel/dist.py) the batch is that of `group`, the batch group
+    the trainer sets (None: every process): the count and the masked sum,
+    then the masked squared deviations, are summed over its processes
+    (their gradient too), as the JAX batch norm's sums span its dp mesh,
+    so the statistics move the same on every process (under the manual
+    ZeRO-1 step the group is dist.LOCAL: its own shard's statistics,
+    parallel/zero.py)."""
 
     def __init__(self, features, eps=1e-3, momentum=0.01):
         super().__init__()
         self.eps, self.momentum = eps, momentum
+        self.group = None
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -203,13 +214,15 @@ class MaskedBatchNorm(nn.Module):
             else:
                 m = mask.reshape(-1, 1).to(xf.dtype)
             cnt, total = m.sum(), (xf * m).sum(0)
-            if dist.joined():
-                both = dist.sum_across(torch.cat([total, cnt[None]]))
+            summed = dist.reduces(self.group)
+            if summed:
+                both = dist.sum_across(torch.cat([total, cnt[None]]),
+                                       self.group)
                 total, cnt = both[:-1], both[-1]
             cnt = cnt.clamp(min=1.0)
             mean = total / cnt
             dev = (((xf - mean) ** 2) * m).sum(0)
-            var = (dist.sum_across(dev) if dist.joined() else dev) / cnt
+            var = (dist.sum_across(dev, self.group) if summed else dev) / cnt
             with torch.no_grad():
                 unbiased = var * cnt / (cnt - 1.0).clamp(min=1.0)
                 self.running_mean.mul_(1 - self.momentum).add_(
@@ -249,7 +262,32 @@ class AdaptiveNorm(nn.Module):
         return y
 
 
+def row_parallel(lin, x, tp):
+    """A row-parallel Dense (its weight this process's input columns) on
+    x, this process's columns: the partial products summed over the tp
+    group (Megatron's g), then the whole bias added once. With a compute
+    dtype the partials are the products of the dtype's operands summed in
+    fp32 (exact for bf16 operands), so the sum is rounded once, as the
+    one-process Dense rounds its product."""
+    dt = lin.compute_dtype
+    if dt is None:
+        y = dist.reduce_from_tp(F.linear(x, lin.weight), tp.group)
+        return y if lin.bias is None else y + lin.bias
+    y = dist.reduce_from_tp(F.linear(x.to(dt).float(),
+                                     lin.weight.to(dt).float()), tp.group)
+    y = y.to(dt)
+    return y if lin.bias is None else y + lin.bias.to(dt)
+
+
 class MLP(nn.Module):
+    """fc1, gelu, dropout, fc2, dropout. Tensor-parallel form (tp, a
+    parallel.mesh.TPShard, set by parallel.mesh.shard_model): fc1
+    column-parallel behind Megatron's f, fc2 row-parallel (row_parallel);
+    the hidden's dropout takes this process's columns of the whole
+    mask."""
+
+    tp = None
+
     def __init__(self, cin, hidden, cout, generator, drop=0.0, dtype=None):
         super().__init__()
         self.drop = drop
@@ -257,8 +295,14 @@ class MLP(nn.Module):
         self.fc2 = dense(hidden, cout, generator, dtype=dtype)
 
     def forward(self, x, rng=None):
-        x = dropout(gelu(self.fc1(x)), self.drop, self.training, rng)
-        return dropout(self.fc2(x), self.drop, self.training, rng)
+        tp = self.tp
+        if tp is None:
+            x = dropout(gelu(self.fc1(x)), self.drop, self.training, rng)
+            return dropout(self.fc2(x), self.drop, self.training, rng)
+        x = gelu(self.fc1(dist.copy_to_tp(x, tp.group)))
+        x = dropout(x, self.drop, self.training, rng, tp)
+        return dropout(row_parallel(self.fc2, x, tp), self.drop,
+                       self.training, rng)
 
 
 class SubMConv(nn.Module):
@@ -493,7 +537,12 @@ class CrossAttention(nn.Module):
 class Block(nn.Module):
     """PTv3 block: CPE conv residual (K2 conv -> linear -> LN), pre-norm
     patch attention, pre-norm MLP. Under AdaNorm (norm_adaptive) its three
-    norms are adaptive, modulated by the per-cloud context vector."""
+    norms are adaptive, modulated by the per-cloud context vector.
+    Tensor-parallel form (tp, set by parallel.mesh.shard_model): cpe_conv
+    column-parallel on its Cout behind Megatron's f, cpe_fc row-parallel
+    (row_parallel), so cpe_norm sees the whole sum."""
+
+    tp = None
 
     def __init__(self, channels, num_heads, patch_size, generator,
                  mlp_ratio=4.0, qkv_bias=True, qk_scale=None, qk_norm=True,
@@ -525,9 +574,13 @@ class Block(nn.Module):
         unpool — the upstream SerializedUnpooling never refreshes the
         sparse-conv feature buffer, so that block's conv reads the bare
         proj_skip output (released checkpoints were trained that way)."""
-        cpe = self.cpe_conv(feat if cpe_feat is None else cpe_feat,
-                            aux["cpe_nmap"])
-        feat = feat + self.cpe_norm(self.cpe_fc(cpe), context=context_vec)
+        x = feat if cpe_feat is None else cpe_feat
+        if self.tp is None:
+            cpe = self.cpe_fc(self.cpe_conv(x, aux["cpe_nmap"]))
+        else:
+            cpe = row_parallel(self.cpe_fc, self.cpe_conv(
+                dist.copy_to_tp(x, self.tp.group), aux["cpe_nmap"]), self.tp)
+        feat = feat + self.cpe_norm(cpe, context=context_vec)
         x = self.attn(self.norm1(feat, context=context_vec), aux, rng)
         feat = feat + drop_path(x, self.drop_path, self.training, rng)
         x = self.mlp(self.norm2(feat, context=context_vec), rng)

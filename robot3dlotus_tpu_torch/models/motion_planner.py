@@ -187,13 +187,14 @@ class MotionPlanner(Conditioned):
                 "pool_overflow": outs[0]["pool_overflow"]}
 
 
-def _masked_bce(logits, targets, mask):
+def _masked_bce(logits, targets, mask, group):
     per = torch.relu(logits) - logits * targets + \
         torch.log1p(torch.exp(-logits.abs()))
-    return (per * mask).sum() / dist.global_count(mask.sum()).clamp(min=1.0)
+    return (per * mask).sum() / \
+        dist.global_count(mask.sum(), group).clamp(min=1.0)
 
 
-def compute_mp_loss(preds, batch, act_cfg, loss_cfg):
+def compute_mp_loss(preds, batch, act_cfg, loss_cfg, group=None):
     """The JAX compute_mp_loss: the position loss (heatmap_disc: per-step
     cross-entropy against the device-built targets, averaged over each
     cloud's valid steps, then over the valid clouds; heatmap_mlp: squared
@@ -201,8 +202,9 @@ def compute_mp_loss(preds, batch, act_cfg, loss_cfg):
     (euler_disc bin cross-entropy; quat: the squared error of q or -q, the
     smaller; else squared error), openness and stop BCE over the valid
     steps. Pad clouds (batch_valid False) drop out of every term. The
-    counts of clouds and steps are those of every process's batch in a
-    process group (parallel/dist.py global_count), so that the processes'
+    counts of clouds and steps are those of the batch of the processes of
+    `group` in a process group (the trainer's batch group; None: every
+    process; parallel/dist.py global_count), so that the processes'
     losses add up to the whole batch's; pool_overflow is reported, never
     part of total."""
     gt = batch["gt_trajs"]                                   # (B, L, 8)
@@ -210,7 +212,7 @@ def compute_mp_loss(preds, batch, act_cfg, loss_cfg):
     bv = batch.get("batch_valid")
     bv = gt.new_ones(B) if bv is None else bv.float()
     tmask = batch["traj_masks"].float() * bv[:, None]        # (B, L)
-    steps = dist.global_count(tmask.sum()).clamp(min=1.0)
+    steps = dist.global_count(tmask.sum(), group).clamp(min=1.0)
     tgt_pos, tgt_rot, tgt_open = gt[..., :3], gt[..., 3:-1], gt[..., -1]
 
     if act_cfg.get("pos_pred_type", "heatmap_disc") == "heatmap_disc":
@@ -225,7 +227,7 @@ def compute_mp_loss(preds, batch, act_cfg, loss_cfg):
         w = tmask[:, :, None]
         per_cloud = (ce * w).sum((1, 2)) / w.sum((1, 2)).clamp(min=1.0)
         pos_loss = (per_cloud * bv).sum() / \
-            dist.global_count(bv.sum()).clamp(min=1.0)
+            dist.global_count(bv.sum(), group).clamp(min=1.0)
     else:
         se = (preds["pos"] - tgt_pos) ** 2
         pos_loss = (se * tmask[..., None]).sum() / steps / 3.0
@@ -244,11 +246,12 @@ def compute_mp_loss(preds, batch, act_cfg, loss_cfg):
     else:
         se = (xr - tgt_rot[..., :xr.shape[-1]]) ** 2
         rot_loss = (se * tmask[..., None]).sum() / \
-            (dist.global_count(tmask.sum()) * se.shape[-1]).clamp(min=1.0)
+            (dist.global_count(tmask.sum(), group) *
+             se.shape[-1]).clamp(min=1.0)
 
-    open_loss = _masked_bce(preds["open"], tgt_open, tmask)
+    open_loss = _masked_bce(preds["open"], tgt_open, tmask, group)
     stop_loss = _masked_bce(preds["stop"], batch["gt_trajs_stop"].float(),
-                            tmask)
+                            tmask, group)
     total = loss_cfg.get("pos_weight", 1.0) * pos_loss + \
         loss_cfg.get("rot_weight", 1.0) * rot_loss + open_loss + stop_loss
     out = {"pos": pos_loss, "rot": rot_loss, "open": open_loss,

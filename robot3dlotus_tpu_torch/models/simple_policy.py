@@ -231,15 +231,16 @@ def build_disc_pos_targets(batch, gt_pos, pos_bins, act_cfg, preds):
         heatmap_type=act_cfg.get("pos_heatmap_type", "dist"))
 
 
-def compute_loss(preds, batch, act_cfg, loss_cfg):
+def compute_loss(preds, batch, act_cfg, loss_cfg, group=None):
     """The JAX compute_loss: the position loss (heatmap_disc: per-axis
     cross-entropy against the disc targets; heatmap_mlp: squared error),
     the rotation loss of the rot_pred_type (euler_disc: per-axis bin
     cross-entropy; quat: the squared error of q or -q, the smaller; euler:
     of t or its wrapped twin, per axis the smaller; euler_delta / rot6d:
     squared error) and the openness BCE, each averaged over the valid
-    clouds (batch_valid): in a process group over every process's
-    (parallel/dist.py global_count), so that the processes' losses add up
+    clouds (batch_valid): in a process group over those of the processes
+    of `group` (the trainer's batch group; None: every process;
+    parallel/dist.py global_count), so that the processes' losses add up
     to the whole batch's. pool_overflow is reported, never part of
     total."""
     gt = batch["gt_actions"]
@@ -247,7 +248,7 @@ def compute_loss(preds, batch, act_cfg, loss_cfg):
     B = gt.shape[0]
     bv = batch.get("batch_valid")
     bv = gt.new_ones(B) if bv is None else bv.float()
-    nvalid = dist.global_count(bv.sum()).clamp(min=1.0)
+    nvalid = dist.global_count(bv.sum(), group).clamp(min=1.0)
 
     def bmean(per_cloud):
         return (per_cloud * bv).sum() / nvalid

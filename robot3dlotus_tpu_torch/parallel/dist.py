@@ -1,7 +1,8 @@
 """Processes training together (port of robot3dlotus_tpu/parallel/dist.py):
 rank discovery from the launch environment, the process group, rank
-gating, an all_gather of picklable objects, reduce_dict, and the sums
-across processes that the data-parallel step takes.
+gating, an all_gather of picklable objects, reduce_dict, the sums across
+the processes that hold one batch, and Megatron's two operators of a
+tensor-parallel pair.
 
 One process a card: torchrun (WORLD_SIZE, RANK, LOCAL_RANK, MASTER_ADDR,
 MASTER_PORT) or SLURM (SLURM_NTASKS, SLURM_PROCID, SLURM_LOCALID, the
@@ -11,15 +12,29 @@ NCCL on the card and gloo on the CPU. Without a group every function here
 is the one-process case: no collective is called, and sum_across and
 global_count return their argument itself.
 
-Under data parallelism (train/driver.py) each process runs the step on
-its own shard of the batch: the masked batch norms (models/layers.py
-MaskedBatchNorm) take their sums over every process's points with
-sum_across, whose gradient is the sum of every process's (JAX's batch
-norm under its dp mesh sums over the global batch alike), and the losses
-divide by global_count's counts of the whole batch, so that the
-processes' losses add up to the loss of the whole batch (the driver's
-trainer scales the backward by the world size, which
-DistributedDataParallel's mean of the gradients undoes).
+The batch group. Each process runs the step on its own shard of the
+batch, and the processes that hold the shards of one batch form the
+batch group: every process of the group under pure data parallelism,
+the dp group of a dp x tp mesh (parallel/mesh.py; the tp ranks of one dp
+index hold the same points, so summing over them would count each point
+tp times), and no process but this one under the manual ZeRO-1 step
+(LOCAL: statistics and losses of the process's own shard, as
+parallel/zero.py describes). The trainer (train/trainer.py) picks it from
+its mesh and hands it on: to each masked batch norm's `group` attribute
+(models/layers.py MaskedBatchNorm), which takes its sums over it with
+sum_across, whose gradient is the sum of the group's (JAX's batch norm
+under its dp mesh sums over the global batch alike), and to the losses'
+`group` argument, whose global_count counts the group's batch, so that
+the processes' losses add up to the loss of the whole batch (the trainer
+scales the backward by the dp size, which the gradient's reduction, a
+mean over the dp processes, undoes). A group of None is every process.
+
+Tensor parallelism (parallel/mesh.py, models/layers.py MLP and Block):
+copy_to_tp is Megatron's f (the identity forward, a sum over the tp
+group backward) in front of a column-parallel layer, reduce_from_tp its
+g (a sum over the tp group forward, the identity backward) behind the
+row-parallel one. Every collective here raises where the backend cannot
+run it; none is replaced by a copy.
 """
 from __future__ import annotations
 
@@ -145,46 +160,168 @@ def all_gather(obj: Any):
     return out
 
 
-def reduce_dict(d: Dict[str, Any], average=True):
-    """The mean (or with average False the sum) over the processes of a
-    dict of scalars (floats or one-element tensors), as floats."""
-    if not joined():
+LOCAL = "local"      # the batch group of a process that reduces nothing
+
+
+def _group(group):
+    """The process group a collective runs over: `group`, every process
+    for None; LOCAL when nothing is to be reduced (no group joined, or
+    the group is this process alone)."""
+    if not joined() or group is LOCAL:
+        return LOCAL
+    return tdist.group.WORLD if group is None else group
+
+
+def reduces(group=None):
+    """Whether sum_across(x, group) sums over other processes (a group
+    joined and `group` not LOCAL)."""
+    return _group(group) is not LOCAL
+
+
+def reduce_dict(d: Dict[str, Any], average=True, group=None):
+    """The mean (or with average False the sum) over the processes of
+    `group` (default every process) of a dict of scalars (floats or
+    one-element tensors), as floats."""
+    g = _group(group)
+    if g is LOCAL:
         return {k: float(v) for k, v in d.items()}
     keys = sorted(d)
     vec = torch.tensor([float(d[k]) for k in keys], dtype=torch.float64,
                        device=_comm_device())
-    tdist.all_reduce(vec)
+    tdist.all_reduce(vec, group=g)
     if average:
-        vec /= world_size()
+        vec /= tdist.get_world_size(g)
     return dict(zip(keys, vec.tolist()))
 
 
-def sum_across(x):
-    """The sum of x over every process of the group, with the gradient
-    of a sum (each process's gradient the sum of all of theirs); x itself
+# The collectives below run on _comm_device()'s tensors: the card's under
+# NCCL, host copies under gloo (two processes on one card, and the CPU),
+# whose CPU collectives are the ones the CPU tests run.
+
+def all_reduce_sum(x, group):
+    """The sum of x over `group` (a process group) in a new tensor on x's
+    device; a bf16 or fp16 x is summed in fp32 and rounded once."""
+    wide = x.dtype in (torch.bfloat16, torch.float16)
+    y = x.detach().to(_comm_device(), torch.float32 if wide else x.dtype,
+                      copy=True).contiguous()
+    tdist.all_reduce(y, group=group)
+    return y.to(x.device, x.dtype)
+
+
+def reduce_scatter_sum(full, group):
+    """This process's piece (its 1/size, in rank order) of the sum over
+    `group` of every process's flat `full` (its length a multiple of the
+    group's size), on full's device."""
+    t = full.detach().to(_comm_device()).contiguous()
+    out = torch.empty(t.numel() // tdist.get_world_size(group),
+                      dtype=t.dtype, device=t.device)
+    tdist.reduce_scatter_tensor(out, t, group=group)
+    return out.to(full.device)
+
+
+def all_gather_flat(x, group):
+    """Every process of `group`'s flat x, concatenated in rank order, on
+    x's device."""
+    t = x.detach().to(_comm_device()).contiguous()
+    out = torch.empty(t.numel() * tdist.get_world_size(group),
+                      dtype=t.dtype, device=t.device)
+    tdist.all_gather_into_tensor(out, t, group=group)
+    return out.to(x.device)
+
+
+class _SumAcross(torch.autograd.Function):
+    """The sum over a group, whose gradient is the sum of the group's
+    gradients."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce_sum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_sum(g, ctx.group), None
+
+
+def sum_across(x, group=None):
+    """The sum of x over the processes of `group` (default every
+    process), with the gradient of a sum (each process's gradient the sum
+    of all of theirs); x itself without one."""
+    g = _group(group)
+    if g is LOCAL:
+        return x
+    return _SumAcross.apply(x, g)
+
+
+def global_count(x, group=None):
+    """A count (no gradient) summed over the processes of `group`
+    (default every process); x itself without one."""
+    g = _group(group)
+    if g is LOCAL:
+        return x
+    return all_reduce_sum(x, g)
+
+
+def all_gather_tensor(x, group):
+    """[every process of `group`'s x] in rank order, on x's device; [x]
     without a group."""
-    if not joined():
-        return x
-    from torch.distributed.nn.functional import all_reduce
-    return all_reduce(x)
+    g = _group(group)
+    if g is LOCAL:
+        return [x]
+    t = x.detach().contiguous().to(_comm_device())
+    out = [torch.empty_like(t) for _ in range(tdist.get_world_size(g))]
+    tdist.all_gather(out, t, group=g)
+    return [o.to(x.device) for o in out]
 
 
-def global_count(x):
-    """A count (no gradient) summed over every process of the group; x
-    itself without a group."""
-    if not joined():
-        return x
-    x = x.detach().clone()
-    tdist.all_reduce(x)
-    return x
+class _CopyToTP(torch.autograd.Function):
+    """Megatron's f: the identity forward, the sum over the tp group
+    backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_sum(g, ctx.group), None
+
+
+class _ReduceFromTP(torch.autograd.Function):
+    """Megatron's g: the sum over the tp group forward, the identity
+    backward (its cotangent is the same on every tp rank)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce_sum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_tp(x, group):
+    """f in front of a column-parallel layer: x, whose gradient is summed
+    over the tp group."""
+    return _CopyToTP.apply(x, group)
+
+
+def reduce_from_tp(x, group):
+    """g behind a row-parallel layer: the sum of the tp ranks' partial
+    products, whose gradient passes through."""
+    return _ReduceFromTP.apply(x, group)
 
 
 def wrap_model(model, device):
-    """The module a data-parallel step runs: model in
-    DistributedDataParallel within a group (every parameter is reached
-    by every step, so find_unused_parameters stays off; the norms'
-    statistics move the same on every process, so buffers are not
-    broadcast), model itself without one."""
+    """The replicated data-parallel module: model in
+    DistributedDataParallel within a group, model itself without one.
+    Every parameter is reached by every step, so find_unused_parameters
+    stays off; the norms' statistics move the same on every process, so
+    buffers are not broadcast. Its step's numbers are those of the
+    driver's ZeRO-1 step (parallel/zero.py), which keeps 1/dp of the
+    optimizer's state where this one keeps all of it on every process;
+    train/trainer.py takes either."""
     if not joined():
         return model
     from torch.nn.parallel import DistributedDataParallel
@@ -194,7 +331,7 @@ def wrap_model(model, device):
 
 
 def leave():
-    """Leaves the process group, if any."""
+    """Leaves the process group, if any (its subgroups go with it)."""
     if joined():
         tdist.destroy_process_group()
 

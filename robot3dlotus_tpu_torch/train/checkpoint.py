@@ -14,6 +14,12 @@ inner_opt_state, acc_grads, skip_state} under gradient accumulation. The
 trees go through convert.params_to_jax / params_from_jax and
 opt_state_to_jax / opt_state_from_jax. Loads go onto the model's device and raise on a
 missing key or a shape that differs: nothing keeps a seeded init quietly.
+
+Under a mesh (parallel/mesh.py, parallel/zero.py) the files hold the
+whole model and the whole optimizer state, as one process writes them:
+every process of the mesh takes part in gathering them (ModelSaver.save
+on every process, the first one writing) and a load cuts each process's
+shards out of them, so a run resumes on any number of processes.
 """
 from __future__ import annotations
 
@@ -41,20 +47,35 @@ def save_training_meta(output_dir, config):
 
 
 class ModelSaver:
-    def __init__(self, output_dir):
+    """write: whether this process writes the files (the first process of
+    a group); the others only take part in the gathers of a sharded
+    model or optimizer."""
+
+    def __init__(self, output_dir, write=True):
         self.ckpt_dir = os.path.join(output_dir, "ckpts")
-        os.makedirs(self.ckpt_dir, exist_ok=True)
+        self.write = write
+        if write:
+            os.makedirs(self.ckpt_dir, exist_ok=True)
 
     def save(self, model, step, optimizer=None):
         """Writes model_step_{step}.msgpack and, given the optimizer,
         train_state_latest.msgpack; returns the model file's path."""
+        sharded = bool(getattr(model, "tp_plan", None)) or (
+            optimizer is not None and
+            getattr(optimizer, "shard", None) is not None)
+        if not (self.write or sharded):
+            return None
         path = os.path.join(self.ckpt_dir, f"model_step_{step}.msgpack")
-        serialization.save(path, params_to_jax(model))
+        params = params_to_jax(model)
+        opt_state = None if optimizer is None else opt_state_to_jax(
+            optimizer, model)
+        if not self.write:
+            return None
+        serialization.save(path, params)
         if optimizer is not None:
             serialization.save(
                 os.path.join(self.ckpt_dir, LATEST),
-                {"step": np.int64(step),
-                 "opt_state": opt_state_to_jax(optimizer, model)})
+                {"step": np.int64(step), "opt_state": opt_state})
         return path
 
 
@@ -68,9 +89,13 @@ def find_resume_step(output_dir):
 
 
 def _on_model(state_dict, model, path):
-    """state_dict (CPU tensors) checked against the model's keys and
-    shapes and moved to its device."""
+    """A whole state_dict (CPU tensors) cut to the model's tp shards
+    (parallel/mesh.py), checked against the model's keys and shapes and
+    moved to its device."""
+    from ..parallel.mesh import shard_state_dict
     own = model.state_dict()
+    if not (set(own) - set(state_dict)):
+        state_dict = shard_state_dict(model, state_dict)
     missing, extra = sorted(set(own) - set(state_dict)), \
         sorted(set(state_dict) - set(own))
     if missing or extra:

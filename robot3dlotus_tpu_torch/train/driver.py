@@ -27,19 +27,28 @@ Data parallelism across processes (the JAX driver's dp mesh), one
 process a card: under torchrun (`torchrun --nproc_per_node N -m
 robot3dlotus_tpu_torch.train.train_simple_policy ...`) or SLURM,
 run_training first joins the processes' group (parallel/dist.py; NCCL on
-the card, gloo with --device cpu) and trains on cuda:LOCAL_RANK. Each
-process loads its shard of every epoch's episodes
-(TRAIN.train_batch_size clouds a process: the shuffle seed the same in
-every process, the augmentation's and the draws' seed SEED + rank), runs
-the model in DistributedDataParallel, its batch norms' statistics summed
-over every process and its losses divided by the whole batch's counts,
-so the averaged gradient is the whole batch's and every process takes
-the same clipped step. Validation: each process TRAIN.val_num_batches
-batches of its shard of the validation episodes, the sums reduced.
-Logging, metrics, checkpoints and the profiler are the first process's;
-the logged losses are summed over the processes (reduce_dict). Without
-a launch env that asks for several processes, one process on one
-device, as before.
+the card, gloo with --device cpu), makes a pure-dp mesh of it
+(parallel/mesh.py) and trains on cuda:LOCAL_RANK. Each process loads its
+shard of every epoch's episodes (TRAIN.train_batch_size clouds a
+process: the shuffle seed the same in every process, the augmentation's
+and the draws' seed SEED + rank) and runs the step with ZeRO-1, as the
+JAX driver does whenever it has a mesh: the optimizer's state sharded
+over the processes, the gradient reduce-scattered into each shard and
+the update all-gathered (parallel/zero.py). By default its batch norms'
+statistics are summed over every process and its losses divided by the
+whole batch's counts, so the gradient is the whole batch's and every
+process takes the same clipped step (the one-process step's numbers);
+TRAIN.zero1_manual takes the manual step's semantics instead (each
+process's own statistics and loss means, the clip inside the step,
+elementwise optimizers; parallel/zero.py). Validation: each process
+TRAIN.val_num_batches batches of its shard of the validation episodes,
+the sums reduced. Logging, metrics, the files of the checkpoints and the
+profiler are the first process's (every process takes part in gathering
+a checkpoint's sharded state); the logged losses are summed over the
+processes (reduce_dict), or averaged under zero1_manual, whose losses
+already are the mean. Without a launch env that asks for several
+processes, one process on one device, as before; the driver's mesh has
+no tp axis, as the JAX driver's has none.
 
 A resumed run restarts the loader from its first batch, as the JAX driver
 does (no batches are skipped); its steps' random draws are those of the
@@ -70,6 +79,7 @@ from .datasets.structure import (HostStructureCollate, attach_sample_orders,
                                  structure_cfg_from_model)
 from .logging import MetricWriter, build_logger
 from ..parallel import dist
+from ..parallel.mesh import make_mesh
 from .optim import build_optimizer
 from .preempt import install_preemption_handler, requeue_self
 from .trainer import RunningMeter, Trainer, batch_to_device, make_val_step
@@ -146,26 +156,36 @@ def build_loader(config, spec: TaskSpec):
 
 def build_trainer(config, spec: TaskSpec, device="cuda"):
     """(trainer, batches, schedule): the model on `device` with seeded
-    weights, the AdamW optimizer and an infinite iterator of host batches
-    (build_loader). At compute_dtype bfloat16 the backbone computes in
-    bf16; parameters, optimizer state and losses stay fp32. In a process
-    group: cuda:LOCAL_RANK (dist.process_device), the weights from SEED
-    in every process, the draws from SEED + rank, the model run in
-    DistributedDataParallel (trainer.net; trainer.model the module)."""
+    weights, the optimizer of TRAIN.optim and an infinite iterator of host
+    batches (build_loader). At compute_dtype bfloat16 the backbone
+    computes in bf16; parameters, optimizer state and losses stay fp32.
+    In a process group: cuda:LOCAL_RANK (dist.process_device), a pure-dp
+    mesh of every process, the weights from SEED in every process, the
+    draws from SEED + the dp index (the tp processes of a dp index draw
+    alike), the optimizer's state ZeRO-1 sharded over the
+    processes (the manual step under TRAIN.zero1_manual, which needs a
+    group)."""
     device = dist.process_device(resolve_device(device))
     seed = int(config.get("SEED", 2024))
     np.random.seed(seed + dist.rank())
+    manual = bool(config.TRAIN.get("zero1_manual", False))
+    mesh = make_mesh() if dist.joined() else None
+    if manual and mesh is None:
+        raise ValueError("TRAIN.zero1_manual needs a data-parallel launch "
+                         "(torchrun or SLURM): no process group is joined")
     loader = build_loader(config, spec)
     model = build_model(config.MODEL, device=device, seed=seed)
     act_cfg, loss_cfg = task_configs(config)
-    optimizer, schedule = build_optimizer(model, dict(config.TRAIN))
+    optimizer, schedule = build_optimizer(
+        model, dict(config.TRAIN), mesh=mesh, manual=manual)
     LOGGER.info("#parameters: %.2fM",
                 sum(p.numel() for p in model.parameters()) / 1e6)
     trainer = Trainer(model,
-                      lambda preds, b: spec.loss_fn(preds, b, act_cfg,
-                                                    loss_cfg),
-                      optimizer, Randomness(seed + dist.rank(), device),
-                      net=dist.wrap_model(model, device))
+                      lambda preds, b, group=None: spec.loss_fn(
+                          preds, b, act_cfg, loss_cfg, group=group),
+                      optimizer, Randomness(
+                          seed + (mesh.dp_index if mesh else 0), device),
+                      mesh=mesh, manual=manual)
     return trainer, iter(loader), schedule
 
 
@@ -271,7 +291,8 @@ def _train(config, spec, device):
     trainer, host_batches, schedule = build_trainer(config, spec, device)
     model = trainer.model
     if dist.joined():
-        LOGGER.info("data parallel: %s", dist.world_info())
+        LOGGER.info("data parallel (ZeRO-1%s): %s",
+                    ", manual" if trainer.manual else "", dist.world_info())
 
     start_step = 0
     if config.TRAIN.get("resume_training", True):
@@ -288,7 +309,7 @@ def _train(config, spec, device):
                     "(shape-filtered)", warm, n_loaded, n_skipped)
     if first:
         save_training_meta(output_dir, config)
-    saver = ModelSaver(output_dir) if first else dist.NoOp()
+    saver = ModelSaver(output_dir, write=first)
     validate_fn = _validation(config, spec, trainer, device)
     best = {"metric": float("inf"), "step": -1}
 
@@ -341,8 +362,8 @@ def _train(config, spec, device):
                 profiler = None
             if step % log_steps == 0 or step == num_train_steps:
                 for losses in loss_buf:
-                    for k, v in dist.reduce_dict(losses,
-                                                 average=False).items():
+                    for k, v in dist.reduce_dict(
+                            losses, average=trainer.manual).items():
                         meters.setdefault(k, RunningMeter(k))(v)
                 loss_buf.clear()
                 lr = schedule(step)

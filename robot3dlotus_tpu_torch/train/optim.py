@@ -34,6 +34,14 @@ and the lr is floored at 1e-8 after the decay rate's 1e-5 floor.
 
 Each optimizer writes and reads its state in the JAX build_optimizer's
 layout (state_tree / load_tree, the buffers moved by convert.StateLayout).
+
+Under a mesh (parallel/mesh.py; build_optimizer's `mesh`) an optimizer
+takes a parallel.zero.FlatShard: its buffers hold this process's shard
+of the flat layout over its own parameters (their tp shards under tensor
+parallelism), the gradient is reduce-scattered into it and the update
+all-gathered back, and the global and per-leaf norms are summed over the
+mesh (parallel/zero.py). The saved state is the whole model's either
+way.
 """
 from __future__ import annotations
 
@@ -145,7 +153,7 @@ class _FlatOptimizer:
 
     def __init__(self, named_params, lr_fn, b1=0.9, b2=0.999, eps=1e-8,
                  weight_decay=0.0, no_decay=(), mults=None, max_norm=None,
-                 chain_tail=()):
+                 chain_tail=(), shard=None):
         self.names = [n for n, _ in named_params]
         self.params = [p for _, p in named_params]
         self.lr_fn, self.b1, self.b2, self.eps = lr_fn, b1, b2, eps
@@ -155,6 +163,10 @@ class _FlatOptimizer:
         self.total = sum(self.sizes)
         self.device = self.params[0].device
         self._sizes = torch.as_tensor(self.sizes, device=self.device)
+        # the buffers' length: the whole flat layout, or this process's
+        # shard of it (parallel/zero.py)
+        self.shard = shard
+        self.n = self.total if shard is None else shard.n
         self.count = 0
         self.wd_mask = self._piecewise(
             [0.0 if n in no_decay else 1.0 for n in self.names])
@@ -162,25 +174,29 @@ class _FlatOptimizer:
         self.mult = self._piecewise([mults.get(n, 1.0) for n in self.names])
 
     def _zeros(self):
-        return torch.zeros(self.total, dtype=torch.float32,
-                           device=self.device)
+        return torch.zeros(self.n, dtype=torch.float32, device=self.device)
 
     def _piecewise(self, vals):
         """Per-leaf scalars as a per-element vector; None when all are 1."""
         if all(v == 1.0 for v in vals):
             return None
-        return torch.cat([torch.full((s,), float(v), device=self.device)
-                          for v, s in zip(vals, self.sizes)])
+        return self._per_leaf(torch.tensor([float(v) for v in vals],
+                                           device=self.device))
 
     def _leaf_norms(self, flat):
         """Each leaf's L2 norm of a flat buffer, (L,) fp32, from one
         multi-tensor norm over the views accumulated in fp64 (an fp32
-        norm of a 16M-element leaf is off by ~1e-3 on the CPU)."""
+        norm of a 16M-element leaf is off by ~1e-3 on the CPU); sharded,
+        the leaves' pieces summed over the mesh."""
+        if self.shard is not None:
+            return self.shard.leaf_norms(flat)
         return torch.stack(torch._foreach_norm(
             list(flat.double().split(self.sizes)))).float()
 
     def _per_leaf(self, vec):
         """(L,) per-leaf values -> the per-element vector."""
+        if self.shard is not None:
+            return self.shard.per_element(vec)
         return torch.repeat_interleave(vec, self._sizes,
                                        output_size=self.total)
 
@@ -193,22 +209,36 @@ class _FlatOptimizer:
 
     def grads(self):
         """The parameters' gradients as one flat fp32 vector (zeros where
-        a parameter has none)."""
-        return self._flat([p.grad if p.grad is not None
-                           else torch.zeros_like(p) for p in self.params])
+        a parameter has none); sharded, this process's shard of their
+        mean over the dp group (FlatShard.scatter)."""
+        g = self._flat([p.grad if p.grad is not None
+                        else torch.zeros_like(p) for p in self.params])
+        return g if self.shard is None else self.shard.scatter(g)
+
+    def _pflat(self):
+        """The parameters as one flat fp32 vector (this process's shard
+        of it)."""
+        p = self._flat(self.params)
+        return p if self.shard is None else self.shard.shard_of(p)
+
+    def _gnorm(self, g):
+        """The global L2 norm of the gradient whose (shard) is g."""
+        if self.shard is None:
+            return g.square().sum().sqrt()
+        return self.shard.sumsq(g).sqrt()
 
     def _decay(self):
         """wd * p on the leaves the mask selects, None without decay."""
         if not self.weight_decay:
             return None
-        dec = self.weight_decay * self._flat(self.params)
+        dec = self.weight_decay * self._pflat()
         return dec if self.wd_mask is None else dec * self.wd_mask
 
     def _clip(self, g):
         """optax.clip_by_global_norm."""
         if not self.max_norm:
             return g
-        gnorm = g.square().sum().sqrt()
+        gnorm = self._gnorm(g)
         return torch.where(gnorm < self.max_norm, g,
                            g / gnorm * self.max_norm)
 
@@ -223,6 +253,8 @@ class _FlatOptimizer:
         u = self._update(self._clip(g))
         if self.mult is not None:
             u = u * self.mult
+        if self.shard is not None:
+            u = self.shard.gather(u)
         torch._foreach_add_(self.params, [
             t.view_as(p) for t, p in zip(u.split(self.sizes), self.params)])
 
@@ -296,7 +328,7 @@ class FlatAdamW(Adam):
     def _clip(self, g):
         if not self.max_norm:
             return g
-        gnorm = g.square().sum().sqrt()
+        gnorm = self._gnorm(g)
         return g * (self.max_norm / gnorm.clamp(min=self.max_norm))
 
     def _update(self, g):
@@ -386,7 +418,7 @@ class Ralamb(RAdam):
         lr = f32(self.lr_fn(self.count))
         step, step_size = self._moments(g)
         self.count += 1
-        p = self._flat(self.params)
+        p = self._pflat()
         p_dec = p
         if self.weight_decay:
             dec = float(f32(self.weight_decay) * lr) * p
@@ -419,11 +451,11 @@ class Lookahead:
         self.base, self.alpha, self.k = base, float(alpha), int(k)
         self.count = 0
         self.initialized = False
-        self.slow = base._flat(base.params).detach()
+        self.slow = base._pflat().detach()
 
     def _update(self, g):
         du = self.base._update(g)
-        p = self.base._flat(self.base.params)
+        p = self.base._pflat()
         fast = p + du
         self.count += 1
         if self.count % self.k:
@@ -458,7 +490,8 @@ class RangerLars(Lookahead, _FlatOptimizer):
                  b2=0.999, eps=1e-8, weight_decay=0.0, no_decay=(), **kw):
         _FlatOptimizer.__init__(self, named_params, lr_fn, **kw)
         base = Ralamb(named_params, lr_fn, b1=b1, b2=b2, eps=eps,
-                      weight_decay=weight_decay, no_decay=no_decay)
+                      weight_decay=weight_decay, no_decay=no_decay,
+                      shard=kw.get("shard"))
         Lookahead.__init__(self, base, alpha, k)
 
 
@@ -507,11 +540,29 @@ class MultiSteps:
 OPTIMIZERS = ("adamw", "adam", "adamax", "radam", "ralamb", "rangerlars")
 
 
-def build_optimizer(model, train_cfg):
+def build_optimizer(model, train_cfg, mesh=None, manual=False):
     """(optimizer over the model's parameters, schedule(step) -> lr) for
     TRAIN.optim in OPTIMIZERS, wrapped in MultiSteps when
     gradient_accumulation_steps > 1. The optimizer evaluates the schedule
-    at the 1-based update count: its k-th update uses schedule(k)."""
+    at the 1-based update count: its k-th update uses schedule(k).
+
+    mesh (parallel/mesh.py): the optimizer runs over the mesh's
+    processes (a parallel.zero.FlatShard over the model's parameters,
+    tp shards included, model.tp_plan), its state ZeRO-1 sharded over
+    dp. manual: the manual ZeRO-1 step's optimizer
+    (parallel/zero.py): TRAIN.grad_norm moves into the shard's
+    clip_norm, the optax chain's layout, elementwise optimizers only.
+    Under tp the state takes the optax chain's layout too, as JAX's
+    create_train_state keeps it on a tp mesh."""
+    if manual:
+        from ..parallel.zero import check_manual, manual_train_cfg
+        check_manual(train_cfg, mesh)
+        clip_norm = train_cfg.get("grad_norm", None)
+        train_cfg = manual_train_cfg(train_cfg)
+    if mesh is not None and mesh.tp > 1:
+        # JAX keeps the per-leaf chain under tp (its moments shard with
+        # their parameters): the saved state takes that layout
+        train_cfg = dict(train_cfg, fused_optim=False)
     name = train_cfg.get("optim", "adamw")
     if name not in OPTIMIZERS:
         raise ValueError(f"optim={name!r}: one of {OPTIMIZERS}")
@@ -530,6 +581,10 @@ def build_optimizer(model, train_cfg):
         kw.update(weight_decay=float(train_cfg.get("weight_decay", 0.05)),
                   no_decay=no_decay_names(model))
     named = list(model.named_parameters())
+    if mesh is not None:
+        from ..parallel.zero import flat_shard
+        kw["shard"] = flat_shard(named, mesh, getattr(model, "tp_plan", None),
+                                 clip_norm=clip_norm if manual else None)
     lr_fn = lambda count: schedule(count + 1)  # noqa: E731
     if name == "adamw":
         opt = FlatAdamW(named, lr_fn,
